@@ -1,0 +1,525 @@
+#!/usr/bin/env python3
+"""Chip smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+from the repository root. It builds the port's CUDA kernels from the
+sources in the checkout, holds each kernel against its plain PyTorch
+version at the shapes the serving path gives it (bf16, and f32 with
+TF32 off) and at the tiny preset's (f32), and times both, then drives
+the port's main path at the full width and depth of Qwen/Qwen3-0.6B
+(random weights from a seed): ``ContinuousEngine`` with the radix
+prefix cache serving 8
+requests that share a 512-token system prefix, and ``Engine(paged=False)``
+serving 2 rows. The generated tokens are checked by teacher forcing
+through a plain full-sequence forward, the pool audit must be clean, and
+each serving path must have launched its own kernels: the launch counts
+are set to 0 just before each path and read just after it.
+
+Output: the card's name and power limit, per-phase lines, one
+``{"kernels": [...]}`` JSON line, one ``{"e2e": ...}`` JSON line, and as
+the last line ``{"ok": true, "device": {...}}``. Any failure exits
+non-zero before that line; so does a machine without CUDA or a
+directory without the port.
+"""
+
+from __future__ import annotations
+
+import json
+import statistics
+import subprocess
+import sys
+import time
+
+SEED = 0
+MODEL = "Qwen/Qwen3-0.6B"
+PAGE = 128
+MAX_LENGTH = 2048
+PREFIX_LEN = 512
+SUFFIX_LENS = (64, 384)  # distinct suffixes, lengths drawn in this range
+GEN_LEN = 64
+N_REQUESTS = 8
+DENSE_ROWS, DENSE_PROMPT, DENSE_GEN = 2, 256, 32
+DECODE_LENS = ([1, 127, 128, 129], [700, 2047, 700, 2047])  # B=4 each
+# Kernel tolerances, elementwise |kernel - plain| <= atol + rtol·|plain|
+# (inputs ~N(0, 1)). bf16: both sides round O to bf16 and the kernels
+# also round P before P·V, so two outputs may differ by an ulp of |O|
+# (<= 2^-7·|O|); the errors measured at these shapes on an H100 were
+# 1.95e-3 and 3.9e-3, one ulp of an |O| in [0.25, 0.5) and [0.5, 1).
+# rtol 2^-6 allows two ulps at any |O|, and where |O| ~ 0.05 the limit
+# is ~2.8e-3, below the ~1e-2 that one dropped key or a causal edge one
+# column off moves O by. f32 with TF32 off differs only in summation
+# order (measured <= 5.2e-7); it runs at the same shapes, so a logic
+# error shows at the widths that are served.
+TOL = {"bf16": (2e-3, 2.0**-6), "f32": (5e-5, 0.0)}  # (atol, rtol)
+# Teacher forcing: the emitted token's logit under the plain
+# full-sequence forward must lie within TF_MARGIN of that forward's
+# maximum, and at least TF_MIN_EXACT of the tokens must be its argmax.
+# With ~N(0, 1) logits over 151936 entries the runner-up trails the top
+# by only ~1/sqrt(2 ln V) ~ 0.2, so the margin is set from the readings,
+# not from the logit scale: the worst gap measured on an H100 was 0.0625
+# (a bf16 ulp of a logit in [8, 16)) with 556/576 tokens exact; 0.125 is
+# twice that gap and 0.9 is below that share.
+TF_MARGIN = 0.125
+TF_MIN_EXACT = 0.9
+# Serving paths in the order they run, each with the kernels it must
+# launch and no others.
+PATH_KERNELS = {
+    "continuous": ("flash_attention", "paged_flash_decode"),
+    "dense_engine": ("flash_attention", "flash_decode"),
+}
+# Card peaks (H100 SXM data sheet, dense): HBM bytes/s, bf16/f16 FLOP/s.
+HBM_BPS = 3.35e12
+BF16_FLOPS = 989e12
+
+
+def fail(msg: str) -> int:
+    print(f"chip_smoke: FAILED: {msg}", file=sys.stderr)
+    return 1
+
+
+def gpu_line() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+
+
+def median_ms(fn, flush, iters: int = 15, warmup: int = 3) -> float:
+    """Median CUDA-event time of ``fn`` with L2 flushed before each
+    launch (a serving step finds each layer's KV cold in L2)."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(iters):
+        flush.zero_()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def nbytes(*ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+def check_kernels(dev, flush):
+    """Phase 2: each kernel against its plain version at the serving
+    path's shapes, in bf16 (timed) and in f32 with TF32 off, plus the
+    tiny preset's widths in f32; returns each kernel's record for the
+    kernels line (launches are added later)."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from triton_distributed_tpu_torch.ops.attention import (
+        flash_attention,
+        flash_decode,
+        gqa_decode_reference,
+        mha_reference,
+        paged_flash_decode,
+        pages_to_dense,
+    )
+
+    rng = np.random.default_rng(SEED)
+
+    def rand(shape, dtype):
+        return torch.from_numpy(
+            rng.standard_normal(shape).astype(np.float32)).to(dev, dtype)
+
+    def err(a, b):
+        """Per-element |a - b| and the plain value |b|, f32."""
+        return (a.float() - b.float()).abs(), b.float().abs()
+
+    # Prefill: a 256-token chunk at kv_offset 512 (16 q / 8 kv heads).
+    hq, hkv, d, sq, off = 16, 8, 128, 256, 512
+    sk = off + sq
+    # Decode: B=4, page 128, kv_len over page edges and long contexts;
+    # unused table entries point at the trash page 0.
+    b, pps = 4, MAX_LENGTH // PAGE
+    n_pages = 2 * b * pps + 1
+    perm = rng.permutation(np.arange(1, n_pages))
+    batches = []
+    for lens in DECODE_LENS:
+        lens_np = np.asarray(lens)
+        used = np.arange(pps)[None] < -(-lens_np[:, None] // PAGE)
+        table = np.where(used, perm[: b * pps].reshape(b, pps), 0)
+        perm = np.roll(perm, b * pps)
+        batches.append((torch.from_numpy(table.astype(np.int32)).to(dev),
+                        torch.tensor(lens, dtype=torch.int32, device=dev)))
+
+    errs = {}  # (kernel, dtype tag) -> [(|kernel - plain|, |plain|)]
+    for tag, dtype in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+        q, k, v = (rand((1, hq, sq, d), dtype), rand((1, hkv, sk, d), dtype),
+                   rand((1, hkv, sk, d), dtype))
+        out = flash_attention(q, k, v, kv_offset=off)
+        errs["flash_attention", tag] = [
+            err(out, mha_reference(q, k, v, kv_offset=off))]
+        kp, vp = (rand((n_pages, hkv, PAGE, d), dtype),
+                  rand((n_pages, hkv, PAGE, d), dtype))
+        kd, vd = (rand((b, hkv, MAX_LENGTH, d), dtype),
+                  rand((b, hkv, MAX_LENGTH, d), dtype))
+        qd = rand((b, hq, d), dtype)
+        errs["paged_flash_decode", tag] = [
+            err(paged_flash_decode(qd, kp, vp, table, kv_len),
+                gqa_decode_reference(qd, pages_to_dense(kp, table),
+                                     pages_to_dense(vp, table), kv_len))
+            for table, kv_len in batches]
+        errs["flash_decode", tag] = [
+            err(flash_decode(qd, kd, vd, kv_len),
+                gqa_decode_reference(qd, kd, vd, kv_len))
+            for table, kv_len in batches]
+        if tag == "bf16":
+            timed = (q, k, v, out, kp, vp, kd, vd, qd)
+
+    # Tiny f32 case, TF32 off: the tiny preset's widths.
+    q = rand((1, 8, 48, 32), torch.float32)
+    k, v = rand((1, 4, 80, 32), torch.float32), rand((1, 4, 80, 32),
+                                                     torch.float32)
+    errs["flash_attention", "f32 tiny"] = [err(
+        flash_attention(q, k, v, kv_offset=32),
+        mha_reference(q, k, v, kv_offset=32))]
+    kp, vp = rand((9, 4, 16, 32), torch.float32), rand((9, 4, 16, 32),
+                                                       torch.float32)
+    table = torch.tensor([[3, 5, 0, 0], [8, 1, 2, 7]], dtype=torch.int32,
+                         device=dev)
+    kv_len = torch.tensor([17, 64], dtype=torch.int32, device=dev)
+    qd = rand((2, 8, 32), torch.float32)
+    errs["paged_flash_decode", "f32 tiny"] = [err(
+        paged_flash_decode(qd, kp, vp, table, kv_len),
+        gqa_decode_reference(qd, pages_to_dense(kp, table),
+                             pages_to_dense(vp, table), kv_len))]
+    kd, vd = pages_to_dense(kp, table), pages_to_dense(vp, table)
+    errs["flash_decode", "f32 tiny"] = [err(
+        flash_decode(qd, kd, vd, kv_len, chunk_k=16),
+        gqa_decode_reference(qd, kd, vd, kv_len))]
+
+    bad, max_abs = [], {}
+    for (name, tag), pairs in errs.items():
+        atol, rtol = TOL[tag.split()[0]]
+        diff = torch.cat([x.flatten() for x, _ in pairs])
+        plain = torch.cat([x.flatten() for _, x in pairs])
+        e = max_abs[name, tag] = diff.max().item()
+        # Worst share of the limit used; the check fails above 1.
+        used = (diff / (atol + rtol * plain)).max().item()
+        print(f"[kernels] {name} {tag} max_abs_err={e:.3e} "
+              f"limit atol={atol} + rtol={rtol}*|plain|, worst {used:.3f} "
+              f"of it")
+        if not used <= 1.0:  # NaN fails too
+            bad.append(f"{name} {tag} ({used:.3f} of the limit)")
+    if bad:
+        raise RuntimeError(f"kernels disagree with plain: {bad}")
+
+    # Times, bounds and library calls at the bf16 serving shapes.
+    q, k, v, out, kp, vp, kd, vd, qd = timed
+    table, kv_len = batches[-1]
+    lens = DECODE_LENS[-1]
+    records = {}
+    mask = (torch.arange(sk, device=dev)[None, :]
+            <= off + torch.arange(sq, device=dev)[:, None])
+    flops = 4 * hq * d * sum(off + r + 1 for r in range(sq))
+    by = nbytes(q, k, v, out)
+    records["flash_attention"] = dict(
+        route="cuda",
+        source="triton_distributed_tpu_torch/csrc/flash_attention.cu",
+        replaces="triton_distributed_tpu/ops/attention/flash_attention.py:32",
+        max_abs_err=max_abs["flash_attention", "bf16"],
+        ms=median_ms(lambda: flash_attention(q, k, v, kv_offset=off), flush),
+        plain_ms=median_ms(lambda: mha_reference(q, k, v, kv_offset=off),
+                           flush),
+        bound_ms=max(flops / BF16_FLOPS, by / HBM_BPS) * 1e3,
+        bound_by="operations" if flops / BF16_FLOPS > by / HBM_BPS
+        else "bytes",
+        library_ms=median_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=mask, enable_gqa=True), flush),
+        shape=f"q[1,{hq},{sq},{d}] kv[1,{hkv},{sk},{d}] off={off} bf16",
+    )
+    kv_bytes = sum(lens) * hkv * d * 2 * 2 + nbytes(qd) * 2
+    bound = kv_bytes / HBM_BPS * 1e3
+    records["paged_flash_decode"] = dict(
+        route="cuda",
+        source="triton_distributed_tpu_torch/csrc/flash_decode.cu",
+        replaces="triton_distributed_tpu/ops/attention/flash_decode.py:369",
+        max_abs_err=max_abs["paged_flash_decode", "bf16"],
+        ms=median_ms(lambda: paged_flash_decode(qd, kp, vp, table, kv_len),
+                     flush),
+        plain_ms=median_ms(lambda: gqa_decode_reference(
+            qd, pages_to_dense(kp, table), pages_to_dense(vp, table),
+            kv_len), flush),
+        bound_ms=bound, bound_by="bytes", library_ms=None,
+        shape=f"B=4 page={PAGE} kv_len={lens} bf16",
+    )
+    pos = torch.arange(MAX_LENGTH, device=dev)
+    dmask = (pos[None, :] < kv_len[:, None])[:, None, None, :]
+    records["flash_decode"] = dict(
+        route="cuda",
+        source="triton_distributed_tpu_torch/csrc/flash_decode.cu",
+        replaces="triton_distributed_tpu/ops/attention/flash_decode.py:92",
+        max_abs_err=max_abs["flash_decode", "bf16"],
+        ms=median_ms(lambda: flash_decode(qd, kd, vd, kv_len), flush),
+        plain_ms=median_ms(lambda: gqa_decode_reference(qd, kd, vd, kv_len),
+                           flush),
+        bound_ms=bound, bound_by="bytes",
+        library_ms=median_ms(lambda: F.scaled_dot_product_attention(
+            qd[:, :, None], kd, vd, attn_mask=dmask, enable_gqa=True), flush),
+        shape=f"B=4 S={MAX_LENGTH} chunk=256 kv_len={lens} bf16",
+    )
+    return records
+
+
+def check_tiny_serving(dev) -> None:
+    """The tiny f32 preset serves the same greedy tokens through the
+    kernels on the card as through the plain versions on the CPU."""
+    import numpy as np
+
+    from triton_distributed_tpu_torch.models import (
+        AutoLLM,
+        ContinuousEngine,
+        Engine,
+    )
+
+    gpu = AutoLLM.from_pretrained("tiny", device=dev, seed=SEED)
+    cpu = AutoLLM.from_pretrained("tiny", device="cpu", seed=SEED)
+    cpu.set_params(gpu.params)
+    rng = np.random.default_rng(SEED)
+    prefix = rng.integers(0, 256, 24)
+    prompts = [np.concatenate([prefix, rng.integers(0, 256, 8)]).astype(
+        np.int32) for _ in range(4)]
+    outs = []
+    for m, d in ((gpu, dev), (cpu, "cpu")):
+        eng = ContinuousEngine(m, max_batch=2, page_size=16, max_length=64,
+                               prefix_cache=True, device=d)
+        toks = eng.run([(p, 6) for p in prompts])
+        dense = Engine(m, device=d).serve(np.stack(prompts[:2]), 6, 64)
+        outs.append((np.stack(toks), dense))
+    if not all(np.array_equal(a, b) for a, b in zip(*outs)):
+        raise RuntimeError("tiny f32 serving on the card differs from CPU")
+    print("[tiny] f32 ContinuousEngine + Engine tokens on the card == CPU")
+
+
+def reference_logits(model, tokens):
+    """Plain full-sequence forward (plain attention, no cache) of one
+    sequence: logits [S, V] f32."""
+    import torch
+    import torch.nn.functional as F
+
+    from triton_distributed_tpu_torch.layers.tp_attn import _rms_head
+    from triton_distributed_tpu_torch.layers.tp_mlp import _silu_mul
+    from triton_distributed_tpu_torch.models.qwen import rms_norm
+    from triton_distributed_tpu_torch.ops.attention import (
+        apply_rope,
+        mha_reference,
+    )
+
+    cfg, p, dims = model.cfg, model.params, model.dims
+    lp = p["layers"]
+    s = tokens.shape[0]
+    x = F.embedding(tokens, p["embed"])
+    pos = torch.arange(s, device=tokens.device)
+    for i in range(cfg.num_layers):
+        h = rms_norm(x, lp["ln1"][i], cfg.rms_eps)
+        q, k, v = dims.split_qkv(h @ lp["attn"]["wqkv"][i])
+        q = apply_rope(_rms_head(q, lp["attn"]["q_norm"][i]).transpose(0, 1),
+                       pos, cfg.rope_theta)
+        k = apply_rope(_rms_head(k, lp["attn"]["k_norm"][i]).transpose(0, 1),
+                       pos, cfg.rope_theta)
+        o = mha_reference(q[None], k[None], v.transpose(0, 1)[None])[0]
+        x = x + o.transpose(0, 1).reshape(s, -1) @ lp["attn"]["wo"][i]
+        h = rms_norm(x, lp["ln2"][i], cfg.rms_eps)
+        x = x + _silu_mul(h @ lp["mlp"]["w1"][i]) @ lp["mlp"]["w2"][i]
+    x = rms_norm(x, p["norm"], cfg.rms_eps)
+    return model._logits(x)
+
+
+def teacher_forced_gaps(model, prompt, generated) -> list[float]:
+    """For each generated position: reference max logit minus the
+    reference logit of the token the engine emitted."""
+    import numpy as np
+    import torch
+
+    seq = np.concatenate([prompt, generated[:-1]]).astype(np.int64)
+    logits = reference_logits(model, torch.from_numpy(seq).to(model.device))
+    rows = logits[len(prompt) - 1:]
+    emitted = torch.as_tensor(generated, device=model.device).long()
+    gaps = rows.max(dim=-1).values - rows.gather(1, emitted[:, None])[:, 0]
+    return gaps.tolist()
+
+
+class _Timed:
+    """Wall time (synchronized) and calls of one model method."""
+
+    def __init__(self, model, name):
+        import torch
+
+        self.calls, self.seconds = 0, 0.0
+        inner = getattr(model, name)
+
+        def wrapped(*a, **kw):
+            t0 = time.perf_counter()
+            out = inner(*a, **kw)
+            torch.cuda.synchronize()
+            self.seconds += time.perf_counter() - t0
+            self.calls += 1
+            return out
+
+        setattr(model, name, wrapped)
+
+
+def serve_main_path(dev):
+    """Phase 3: the port's main path, full width and depth."""
+    import numpy as np
+    import torch
+
+    from triton_distributed_tpu_torch.models import (
+        AutoLLM,
+        ContinuousEngine,
+        Engine,
+    )
+    from triton_distributed_tpu_torch.ops import cuda_kernels as ck
+
+    t0 = time.perf_counter()
+    model = AutoLLM.from_pretrained(MODEL, device=dev, seed=SEED)
+    torch.cuda.synchronize()
+    print(f"[serve] {MODEL} random init on {dev} in "
+          f"{time.perf_counter() - t0:.1f} s "
+          f"({model.cfg.num_layers} layers, hidden {model.cfg.hidden_size})")
+    rng = np.random.default_rng(SEED + 1)
+    vocab = model.cfg.vocab_size
+    prefix = rng.integers(0, vocab, PREFIX_LEN)
+    prompts = [np.concatenate([prefix, rng.integers(0, vocab, n)]).astype(
+        np.int32) for n in rng.integers(SUFFIX_LENS[0], SUFFIX_LENS[1] + 1,
+                                     N_REQUESTS)]
+    dense_ids = rng.integers(0, vocab, (DENSE_ROWS, DENSE_PROMPT)).astype(
+        np.int32)
+
+    eng = ContinuousEngine(model, max_batch=4, page_size=PAGE,
+                           max_length=MAX_LENGTH, prefix_cache=True,
+                           device=dev)
+    dense_eng = Engine(model, paged=False, device=dev)
+    chunk_t = _Timed(model, "prefill_paged_chunk")
+    decode_t = _Timed(model, "decode_step")
+
+    launches = {}  # path -> kernel -> launches in that path's run
+    ck.reset_launch_counts()
+    t0 = time.perf_counter()
+    outs = eng.run([(p, GEN_LEN) for p in prompts])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches["continuous"] = ck.launch_counts()
+    decode_s = decode_t.seconds
+    ck.reset_launch_counts()
+    dense_out = dense_eng.serve(dense_ids, DENSE_GEN, MAX_LENGTH)
+    torch.cuda.synchronize()
+    launches["dense_engine"] = ck.launch_counts()
+
+    stats = eng.last_stats
+    problems = eng.audit()
+    print(f"[serve] ContinuousEngine: {N_REQUESTS} requests in {wall:.2f} s, "
+          f"prefill_tokens={stats['prefill_tokens']} "
+          f"prefix_hit_tokens={stats['prefix_hit_tokens']} "
+          f"decode_steps={stats['decode_steps']} audit={problems}")
+    for path, counts in launches.items():
+        print(f"[serve] launches in the {path} run: {counts}")
+    if problems:
+        raise RuntimeError(f"pool audit failed: {problems}")
+    if stats["prefix_hit_tokens"] <= 0:
+        raise RuntimeError("no prefix-cache hits on shared-prefix traffic")
+    for path, need in PATH_KERNELS.items():
+        ran = {k for k, n in launches[path].items() if n > 0}
+        if ran != set(need):
+            raise RuntimeError(f"the {path} run launched {sorted(ran)}, "
+                               f"expected {sorted(need)}")
+
+    gaps = []
+    for p, o in zip(prompts, outs):
+        if o.shape != (GEN_LEN,):
+            raise RuntimeError(f"bad output shape {o.shape}")
+        gaps += teacher_forced_gaps(model, p, o)
+    for row in range(DENSE_ROWS):
+        gaps += teacher_forced_gaps(model, dense_ids[row],
+                                    dense_out[row, DENSE_PROMPT:])
+    worst = max(gaps)
+    exact = sum(g == 0 for g in gaps)
+    print(f"[check] teacher forcing over {len(gaps)} generated tokens: "
+          f"max gap {worst:.4f}, mean {statistics.mean(gaps):.4f}, "
+          f"exact argmax {exact}/{len(gaps)}, margin {TF_MARGIN}, "
+          f"min exact share {TF_MIN_EXACT}")
+    if not all(np.isfinite(gaps)) or worst > TF_MARGIN:
+        raise RuntimeError(f"teacher-forced gap {worst} exceeds {TF_MARGIN}")
+    if exact < TF_MIN_EXACT * len(gaps):
+        raise RuntimeError(f"only {exact}/{len(gaps)} emitted tokens are the "
+                           f"reference argmax (< {TF_MIN_EXACT})")
+
+    e2e = {
+        "model": MODEL,
+        "prefill_tokens_per_s": stats["prefill_tokens"] / chunk_t.seconds,
+        "prefill_chunks": chunk_t.calls,
+        "decode_ms_per_step_batch4": decode_s / max(
+            stats["decode_steps"], 1) * 1e3,
+        "decode_steps": stats["decode_steps"],
+        "prefix_hit_tokens": stats["prefix_hit_tokens"],
+        "continuous_wall_s": wall,
+        "dense_engine_decode_ms_per_step": dense_eng.last_stats[
+            "decode_ms_per_step"],
+    }
+    return launches, e2e
+
+
+def main() -> int:
+    try:
+        import torch
+    except ImportError:
+        return fail("torch is not installed")
+    if not torch.cuda.is_available():
+        return fail("no CUDA device: the port's kernels need an NVIDIA GPU")
+    try:
+        from triton_distributed_tpu_torch.ops import cuda_kernels as ck
+    except ImportError as e:
+        return fail(f"the port is not importable from here ({e})")
+
+    dev = torch.device("cuda", 0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = gpu_line()
+    print(card)
+    t0 = time.perf_counter()
+    ck.build()
+    print(f"[build] {len(ck.SOURCES)} kernel libraries ready in "
+          f"{time.perf_counter() - t0:.1f} s ({ck.BUILD_DIR})")
+
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    records = check_kernels(dev, flush)
+    del flush
+    check_tiny_serving(dev)
+    launches, e2e = serve_main_path(dev)
+
+    # "launches" counts the first path that must launch the kernel;
+    # "launches_by_path" gives every path's own run.
+    kernels = []
+    for k in ck.KERNELS:
+        first = next(p for p, need in PATH_KERNELS.items() if k.name in need)
+        kernels.append({
+            "name": k.name, "launches": launches[first][k.name],
+            "launches_path": first,
+            "launches_by_path": {p: c[k.name] for p, c in launches.items()},
+            **records[k.name],
+        })
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"e2e": e2e}))
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count(),
+    }}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

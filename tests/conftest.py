@@ -116,6 +116,12 @@ def pytest_configure(config):
         "Run with `-m slow` or TDT_RUN_SLOW=1 (an empty -m '' is "
         "indistinguishable from no -m and still skips).",
     )
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs an NVIDIA GPU and nvcc (the PyTorch port's CUDA "
+        "kernels have no CPU mode); skips without one. On the card: "
+        "python -m pytest --noconftest tests/test_torch_cuda.py -q",
+    )
 
 
 # Tier-1 runs under a hard wall-clock budget (ROADMAP.md: 870 s), and

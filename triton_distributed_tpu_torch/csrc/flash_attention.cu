@@ -1,0 +1,186 @@
+// Causal/GQA flash attention forward for Hopper (sm_90a).
+//
+// Replaces: triton_distributed_tpu/ops/attention/flash_attention.py
+// `_attn_kernel` (the Pallas TPU kernel behind `flash_attention`), the
+// prefill attention of batched prefill and of chunked prefix-cache
+// prefill with a dynamic `kv_offset`.
+//
+// What it computes, per query row r of head h (kv head h / group):
+//   s_c = (q_r . k_c) * sm_scale in f32, masked to -1e30 where
+//         c > kv_offset + r (the causal limit) or c >= Sk,
+//   an online softmax over kv tiles with f32 (m, l, acc), P rounded to
+//   V's dtype before P·V (f32 accumulation), l floored at 1e-30, and the
+//   optional base-e LSE m + log(l).
+//
+// What bounds it on the H100: at the main path's shapes (a 256-token
+// chunk against <= 2k cached positions, head_dim 128) the work is a
+// few GFLOP and a few MB, so the roofline bound is the tensor-core rate
+// (989 TFLOP/s bf16). This first version does its products on the f32
+// FMA pipes (67 TFLOP/s peak), so it is operation-bound far below that
+// roofline; moving QK^T and P·V onto wgmma with TMA-fed K/V tiles is
+// the next step.
+//
+// Design: the TPU kernel carried (m, l, acc) in VMEM scratch across a
+// sequential kv grid axis; Hopper blocks run in parallel in no order, so
+// one block owns a (b*hq, 16-row q tile) and loops over kv tiles itself,
+// stopping at the causal limit of its last row (the TPU kernel's block
+// skip). K/V tiles of 32 keys are staged through shared memory in f32
+// (K rows padded by one float so the lane-per-key reads hit 32 distinct
+// banks) and shared by the block's 4 warps; each warp owns 4 query rows.
+// For a row, lane j scores key j of the tile, the warp reduces max and
+// sum with shuffles, and P·V runs with each lane owning head_dim/32
+// output columns while p_j is broadcast by shuffle.
+#include "tdt_common.cuh"
+
+namespace {
+
+constexpr int kWarps = 4;
+constexpr int kThreads = kWarps * 32;
+constexpr int kBlockQ = 16;  // query rows per block, 4 per warp
+constexpr int kBlockK = 32;  // keys per staged tile, one per lane
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads)
+    flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                           const T* __restrict__ v, T* __restrict__ o,
+                           float* __restrict__ lse, int hq, int hkv, int sq,
+                           int sk, int kv_offset, float sm_scale) {
+  constexpr int EPL = D / 32;            // output columns per lane
+  constexpr int RPW = kBlockQ / kWarps;  // query rows per warp
+  __shared__ float q_s[kBlockQ][D];
+  __shared__ float k_s[kBlockK][D + 1];
+  __shared__ float v_s[kBlockK][D];
+
+  const int bh = blockIdx.x;  // b * hq + h
+  const int b = bh / hq;
+  const int h = bh % hq;
+  const int kvh = h / (hq / hkv);
+  const int q0 = blockIdx.y * kBlockQ;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+
+  const T* qb = q + (size_t)bh * sq * D;
+  const T* kb = k + (size_t)(b * hkv + kvh) * sk * D;
+  const T* vb = v + (size_t)(b * hkv + kvh) * sk * D;
+
+  for (int i = threadIdx.x; i < kBlockQ * D; i += kThreads) {
+    const int r = i / D, c = i % D;
+    q_s[r][c] = (q0 + r < sq) ? tdt::to_f32(qb[(size_t)(q0 + r) * D + c])
+                              : 0.f;
+  }
+
+  // Columns this block can see: the causal limit of its last real row.
+  const int last_row = min(q0 + kBlockQ, sq) - 1;
+  const int kv_end = min(sk, kv_offset + last_row + 1);
+
+  float m[RPW], l[RPW], acc[RPW][EPL];
+#pragma unroll
+  for (int rr = 0; rr < RPW; ++rr) {
+    m[rr] = tdt::kNegInf;
+    l[rr] = 0.f;
+#pragma unroll
+    for (int e = 0; e < EPL; ++e) acc[rr][e] = 0.f;
+  }
+
+  for (int k0 = 0; k0 < kv_end; k0 += kBlockK) {
+    __syncthreads();  // the previous tile is fully consumed
+    for (int i = threadIdx.x; i < kBlockK * D; i += kThreads) {
+      const int r = i / D, c = i % D;
+      const bool in = k0 + r < sk;
+      k_s[r][c] = in ? tdt::to_f32(kb[(size_t)(k0 + r) * D + c]) : 0.f;
+      v_s[r][c] = in ? tdt::to_f32(vb[(size_t)(k0 + r) * D + c]) : 0.f;
+    }
+    __syncthreads();
+    const int col = k0 + lane;
+#pragma unroll
+    for (int rr = 0; rr < RPW; ++rr) {
+      const int r = warp * RPW + rr;
+      const int row = q0 + r;
+      if (row >= sq) continue;  // warp-uniform
+      float s = 0.f;
+#pragma unroll 16
+      for (int d = 0; d < D; ++d) s = fmaf(q_s[r][d], k_s[lane][d], s);
+      s *= sm_scale;
+      const bool visible = col < sk && col <= kv_offset + row;
+      if (!visible) s = tdt::kNegInf;
+      const float m_new = fmaxf(m[rr], tdt::warp_max(s));
+      const float p = expf(s - m_new);
+      const float alpha = expf(m[rr] - m_new);
+      l[rr] = l[rr] * alpha + tdt::warp_sum(p);
+      const float pr = tdt::round_to<T>(p);
+#pragma unroll
+      for (int e = 0; e < EPL; ++e) acc[rr][e] *= alpha;
+#pragma unroll 8
+      for (int j = 0; j < kBlockK; ++j) {
+        const float pj = __shfl_sync(0xffffffffu, pr, j);
+#pragma unroll
+        for (int e = 0; e < EPL; ++e)
+          acc[rr][e] = fmaf(pj, v_s[j][e * 32 + lane], acc[rr][e]);
+      }
+      m[rr] = m_new;
+    }
+  }
+
+#pragma unroll
+  for (int rr = 0; rr < RPW; ++rr) {
+    const int row = q0 + warp * RPW + rr;
+    if (row >= sq) continue;
+    const float lf = fmaxf(l[rr], 1e-30f);
+    T* ob = o + ((size_t)bh * sq + row) * D;
+#pragma unroll
+    for (int e = 0; e < EPL; ++e)
+      ob[e * 32 + lane] = tdt::from_f32<T>(acc[rr][e] / lf);
+    if (lse != nullptr && lane == 0)
+      lse[(size_t)bh * sq + row] = m[rr] + logf(lf);
+  }
+}
+
+template <typename T, int D>
+void launch(const void* q, const void* k, const void* v, void* o, float* lse,
+            int b, int hq, int hkv, int sq, int sk, int kv_offset,
+            float sm_scale, cudaStream_t stream) {
+  dim3 grid(b * hq, (sq + kBlockQ - 1) / kBlockQ);
+  flash_attention_kernel<T, D><<<grid, kThreads, 0, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<T*>(o), lse, hq, hkv, sq, sk,
+      kv_offset, sm_scale);
+}
+
+template <typename T>
+int dispatch_d(int d, const void* q, const void* k, const void* v, void* o,
+               float* lse, int b, int hq, int hkv, int sq, int sk,
+               int kv_offset, float sm_scale, cudaStream_t stream) {
+  switch (d) {
+    case 32:
+      launch<T, 32>(q, k, v, o, lse, b, hq, hkv, sq, sk, kv_offset, sm_scale,
+                    stream);
+      return 0;
+    case 128:
+      launch<T, 128>(q, k, v, o, lse, b, hq, hkv, sq, sk, kv_offset,
+                     sm_scale, stream);
+      return 0;
+    default:
+      return 1;
+  }
+}
+
+}  // namespace
+
+// q [B, Hq, Sq, D], k/v [B, Hkv, Sk, D], o like q, lse [B, Hq, Sq] f32 or
+// null; all contiguous. Returns a cudaError_t (0 on success).
+extern "C" int tdt_flash_attention_fwd(const void* q, const void* k,
+                                       const void* v, void* o, float* lse,
+                                       int b, int hq, int hkv, int sq, int sk,
+                                       int d, int kv_offset, float sm_scale,
+                                       int dtype, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  int bad = 1;
+  if (dtype == tdt::kDtypeF32)
+    bad = dispatch_d<float>(d, q, k, v, o, lse, b, hq, hkv, sq, sk,
+                            kv_offset, sm_scale, st);
+  else if (dtype == tdt::kDtypeBF16)
+    bad = dispatch_d<__nv_bfloat16>(d, q, k, v, o, lse, b, hq, hkv, sq, sk,
+                                    kv_offset, sm_scale, st);
+  if (bad) return (int)cudaErrorInvalidValue;
+  return (int)cudaGetLastError();
+}

@@ -1,0 +1,231 @@
+"""Attention layer (GQA + RoPE + QK-norm) at tp=1.
+
+Counterpart of ``triton_distributed_tpu/layers/tp_attn.py``: the tp=1,
+full-width branches of ``tp_attn_prefill``, ``tp_attn_prefill_paged_chunk``,
+``tp_attn_decode`` and ``tp_attn_decode_paged``. At tp=1 each device owns
+every head, the QKV and O projections are plain GEMMs and the psums run
+over a one-device axis, so they drop out; the attention itself is the
+port's hand-written kernels.
+
+The JAX functions take a donated cache and return the updated one; here
+the KV caches/pools are updated IN PLACE (slice/index assignment) and
+still returned, so call sites read alike. Not ported, and refused: the
+int8-KV scales, the tree-speculation ``attn_bias``/``rope_pos`` and the
+``pallas`` modes (ROADMAP queue 1).
+
+Parameters are a dict ``{"wqkv": [d, (hq + 2*hkv) * hd] (q | k | v),
+"wo": [hq * hd, d], "q_norm": [hd], "k_norm": [hd]}`` (norms may be
+None).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from triton_distributed_tpu_torch.layers.tp_mlp import check_mode
+from triton_distributed_tpu_torch.ops.attention.flash_attention import (
+    flash_attention,
+)
+from triton_distributed_tpu_torch.ops.attention.flash_decode import (
+    flash_decode,
+    paged_flash_decode,
+    pages_to_dense,
+)
+from triton_distributed_tpu_torch.ops.attention.rope import apply_rope
+
+
+def _rms_head(x: torch.Tensor, scale: torch.Tensor | None, eps: float = 1e-6):
+    if scale is None:
+        return x
+    xf = x.to(torch.float32)
+    xf = xf * torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + eps)
+    return (xf * scale.to(torch.float32)).to(x.dtype)
+
+
+@dataclasses.dataclass(frozen=True)
+class TPAttnDims:
+    """Static head geometry (at tp=1 the local shard is every head)."""
+
+    hq_loc: int
+    hkv_loc: int
+    head_dim: int
+    rope_theta: float = 1e6
+
+    def split_qkv(self, qkv: torch.Tensor):
+        """``[..., qkv_loc] → q [..., hq, hd], k/v [..., hkv, hd]``."""
+        hd = self.head_dim
+        q, k, v = torch.split(
+            qkv, [self.hq_loc * hd, self.hkv_loc * hd, self.hkv_loc * hd],
+            dim=-1,
+        )
+        lead = qkv.shape[:-1]
+        return (
+            q.reshape(*lead, self.hq_loc, hd),
+            k.reshape(*lead, self.hkv_loc, hd),
+            v.reshape(*lead, self.hkv_loc, hd),
+        )
+
+
+def _refuse_unported(k_scale=None, v_scale=None, attn_bias=None,
+                     rope_pos=None) -> None:
+    if k_scale is not None or v_scale is not None:
+        raise NotImplementedError(
+            "int8 KV scales are not ported yet (ROADMAP queue 1, item 5)"
+        )
+    if attn_bias is not None or rope_pos is not None:
+        raise NotImplementedError(
+            "tree-speculation attn_bias/rope_pos are not ported yet "
+            "(ROADMAP queue 1, item 7)"
+        )
+
+
+def _qkv(params, x, dims, positions):
+    """``x [S, d]`` → QKV GEMM → split → QK-norm → rope at ``positions``;
+    returns q, k, v as ``[h, S, hd]``."""
+    q, k, v = dims.split_qkv(x @ params["wqkv"])
+    q = _rms_head(q, params.get("q_norm"))
+    k = _rms_head(k, params.get("k_norm"))
+    q = apply_rope(q.transpose(0, 1), positions, dims.rope_theta)
+    k = apply_rope(k.transpose(0, 1), positions, dims.rope_theta)
+    return q, k, v.transpose(0, 1)  # [h, S, hd]
+
+
+def _o_proj(params, o: torch.Tensor, dims, dtype) -> torch.Tensor:
+    """``o [h, S, hd]`` → ``[S, d]``."""
+    s = o.shape[1]
+    o_flat = o.transpose(0, 1).reshape(s, dims.hq_loc * dims.head_dim)
+    return o_flat.to(dtype) @ params["wo"]
+
+
+def tp_attn_prefill(params: dict, x: torch.Tensor, dims: TPAttnDims, *,
+                    mode: str = "xla"):
+    """Prefill one full sequence ``x [S, d]`` (causal from position 0).
+    Returns ``(out [S, d], k [hkv, S, hd], v [hkv, S, hd])`` — the
+    sequence's cache entries."""
+    check_mode(mode)
+    s = x.shape[0]
+    pos = torch.arange(s, device=x.device)
+    q, k, v = _qkv(params, x, dims, pos)
+    o = flash_attention(
+        q[None].contiguous(), k[None].contiguous(), v[None].contiguous(),
+        causal=True,
+    )[0]
+    return _o_proj(params, o, dims, x.dtype), k, v
+
+
+def tp_attn_prefill_paged_chunk(
+    params: dict,
+    x: torch.Tensor,           # [C, d] — one chunk of ONE sequence
+    k_pages: torch.Tensor,     # [P, hkv, page, hd] — this layer's pool
+    v_pages: torch.Tensor,
+    table_row: torch.Tensor,   # [pages_per_seq] int32 — the sequence's pages
+    q_offset: int,             # tokens already cached
+    dims: TPAttnDims,
+    *,
+    kv_pages: int | None = None,
+    mode: str = "xla_ar",
+    k_scale=None,
+    v_scale=None,
+    attn_bias=None,
+    rope_pos=None,
+):
+    """Chunked-prefill step over the paged pool: QKV for ``C`` suffix
+    tokens, rope at absolute positions ``q_offset + i``, KV scattered
+    through the page table (written in place), then flash attention of
+    the chunk's queries against the whole cached context (prefix pages +
+    the chunk) through ``kv_offset = q_offset``. Final-chunk right-padding
+    that runs past the table's capacity is routed to the trash page 0.
+    The gather is bounded to ``kv_pages`` table entries. Returns
+    ``(out [C, d], k_pages, v_pages, None, None)``."""
+    check_mode(mode)
+    _refuse_unported(k_scale, v_scale, attn_bias, rope_pos)
+    c = x.shape[0]
+    page = k_pages.shape[2]
+    pps = table_row.shape[0]
+    pos = q_offset + torch.arange(c, device=x.device)
+    q, k, v = _qkv(params, x, dims, pos)
+
+    valid = pos < pps * page
+    slot_page = torch.clamp(pos // page, 0, pps - 1)
+    pids = torch.where(valid, table_row.long()[slot_page], 0)
+    offs = torch.where(valid, pos % page, 0)
+    k_pages[pids, :, offs, :] = k.transpose(0, 1).to(k_pages.dtype)
+    v_pages[pids, :, offs, :] = v.transpose(0, 1).to(v_pages.dtype)
+
+    gather_row = table_row if kv_pages is None else table_row[:kv_pages]
+    k_dense = pages_to_dense(k_pages, gather_row[None])  # [1, h, S_kv, hd]
+    v_dense = pages_to_dense(v_pages, gather_row[None])
+    o = flash_attention(q[None].contiguous(), k_dense, v_dense, causal=True,
+                        kv_offset=q_offset)[0]
+    return _o_proj(params, o, dims, x.dtype), k_pages, v_pages, None, None
+
+
+def _decode_qkv(params, x, kv_len, dims):
+    q, k, v = dims.split_qkv(x @ params["wqkv"])  # [B, h, hd]
+    q = _rms_head(q, params.get("q_norm"))
+    k = _rms_head(k, params.get("k_norm"))
+    q = apply_rope(q, kv_len[:, None], dims.rope_theta)
+    k = apply_rope(k, kv_len[:, None], dims.rope_theta)
+    return q, k, v
+
+
+def tp_attn_decode(
+    params: dict,
+    x: torch.Tensor,        # [B, d] — one new token per sequence
+    k_cache: torch.Tensor,  # [B, hkv, S_max, hd] (updated in place)
+    v_cache: torch.Tensor,
+    kv_len: torch.Tensor,   # [B] int32 — tokens already in cache
+    dims: TPAttnDims,
+    *,
+    mode: str = "xla_ar",
+):
+    """Decode step over a dense cache: QKV → rope at position ``kv_len``
+    → cache append at ``kv_len[b]`` → flash decode → O-proj. Returns
+    ``(out [B, d], k_cache, v_cache)``."""
+    check_mode(mode)
+    b = x.shape[0]
+    q, k, v = _decode_qkv(params, x, kv_len, dims)
+    # Clamped like the JAX dynamic_update_slice the append mirrors.
+    pos = torch.clamp(kv_len.long(), 0, k_cache.shape[2] - 1)
+    rows = torch.arange(b, device=x.device)
+    k_cache[rows, :, pos, :] = k.to(k_cache.dtype)
+    v_cache[rows, :, pos, :] = v.to(v_cache.dtype)
+    o = flash_decode(q.contiguous(), k_cache, v_cache, kv_len + 1)
+    out = o.reshape(b, dims.hq_loc * dims.head_dim).to(x.dtype) @ params["wo"]
+    return out, k_cache, v_cache
+
+
+def tp_attn_decode_paged(
+    params: dict,
+    x: torch.Tensor,           # [B, d] — one new token per sequence
+    k_pages: torch.Tensor,     # [P, hkv, page, hd] (updated in place)
+    v_pages: torch.Tensor,
+    page_table: torch.Tensor,  # [B, pages_per_seq] int32
+    kv_len: torch.Tensor,      # [B] int32
+    dims: TPAttnDims,
+    *,
+    mode: str = "xla_ar",
+    k_scale=None,
+    v_scale=None,
+):
+    """Decode step over the paged pool: the append goes through the page
+    table for EVERY row (an inactive slot has kv_len 0 and a zeroed table
+    row, so it writes the trash page 0, offset 0), then
+    :func:`paged_flash_decode` reads the pool directly. Returns
+    ``(out [B, d], k_pages, v_pages, None, None)``."""
+    check_mode(mode)
+    _refuse_unported(k_scale, v_scale)
+    b = x.shape[0]
+    page = k_pages.shape[2]
+    q, k, v = _decode_qkv(params, x, kv_len, dims)
+    pos = kv_len.long()
+    col = torch.clamp(pos // page, 0, page_table.shape[1] - 1)
+    pids = page_table.long()[torch.arange(b, device=x.device), col]
+    k_pages[pids, :, pos % page, :] = k.to(k_pages.dtype)
+    v_pages[pids, :, pos % page, :] = v.to(v_pages.dtype)
+    o = paged_flash_decode(q.contiguous(), k_pages, v_pages, page_table,
+                           kv_len + 1)
+    out = o.reshape(b, dims.hq_loc * dims.head_dim).to(x.dtype) @ params["wo"]
+    return out, k_pages, v_pages, None, None

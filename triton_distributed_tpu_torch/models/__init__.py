@@ -1,0 +1,61 @@
+"""Models + serving of the PyTorch port.
+
+``AutoLLM.from_pretrained`` builds a preset with random weights from a
+seed (no checkpoint download is possible on the card's host). Loading a
+local HF checkpoint directory needs ``safetensors``, which that host
+lacks, so it waits (ROADMAP queue 1, item 4c); :func:`load_hf_state_dict`
+maps an already-loaded state dict and needs no files.
+"""
+
+from __future__ import annotations
+
+import os
+
+from triton_distributed_tpu_torch.models.config import (  # noqa: F401
+    ModelConfig,
+    get_config,
+)
+from triton_distributed_tpu_torch.models.continuous import (  # noqa: F401
+    ContinuousEngine,
+    Request,
+    RequestError,
+    RequestFailedError,
+    RequestResult,
+)
+from triton_distributed_tpu_torch.models.engine import Engine  # noqa: F401
+from triton_distributed_tpu_torch.models.kv_cache import (  # noqa: F401
+    KVCache,
+    init_cache,
+)
+from triton_distributed_tpu_torch.models.paged_kv_cache import (  # noqa: F401
+    PoolAuditError,
+    audit_pool,
+)
+from triton_distributed_tpu_torch.models.prefix_cache import (  # noqa: F401
+    PrefixCache,
+)
+from triton_distributed_tpu_torch.models.qwen import (  # noqa: F401
+    Qwen3,
+    load_hf_state_dict,
+    params_from_jax,
+)
+
+
+class AutoLLM:
+    """Model factory by preset name."""
+
+    @staticmethod
+    def from_pretrained(name_or_path: str, *, device=None, seed: int = 0,
+                        **overrides) -> Qwen3:
+        """A dense Qwen3 preset (``tiny``, ``Qwen/Qwen3-0.6B`` ...) with
+        random weights from ``seed``, on ``cuda`` unless ``device`` says
+        otherwise."""
+        if os.path.isdir(name_or_path):
+            raise NotImplementedError(
+                "loading a local HF checkpoint directory needs safetensors "
+                "and is not ported yet (ROADMAP queue 1, item 4c); use "
+                "load_hf_state_dict on a loaded state dict"
+            )
+        model = Qwen3(get_config(name_or_path, **overrides), device=device)
+        model.init_params(seed)
+        return model

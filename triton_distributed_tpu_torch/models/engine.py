@@ -1,0 +1,440 @@
+"""Fixed-batch serving engine: prefill + decode loop.
+
+Counterpart of ``triton_distributed_tpu/models/engine.py``:
+``Engine.serve`` with a dense cache (``paged=False``), a paged pool
+(``paged=True``) and the cross-serve radix prefix cache
+(``paged=True, prefix_cache=True``), plus ``prefill_suffix_chunks``,
+the chunked suffix prefill both engines share. Decode is greedy.
+
+Not ported, and refused when asked for: ``mode="mega"`` (the
+megakernel), ``mode="pallas"``, ``speculative``, ``kv_dtype`` (int8 KV),
+``profile`` and ``temperature > 0`` (ROADMAP queue 1).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+import weakref
+
+import numpy as np
+import torch
+
+from triton_distributed_tpu_torch.layers.tp_mlp import check_mode
+from triton_distributed_tpu_torch.models import sampling
+from triton_distributed_tpu_torch.models.paged_kv_cache import (
+    PoolAuditError,
+    audit_pool,
+    copy_page,
+    gather_bucket,
+    init_paged_cache,
+    kv_bytes_per_token,
+    write_prefill,
+)
+from triton_distributed_tpu_torch.models.prefix_cache import (
+    PrefixCache,
+    round_chunk,
+)
+from triton_distributed_tpu_torch.models.stats import STAT_METRICS
+from triton_distributed_tpu_torch.obs import metrics as obs_metrics
+from triton_distributed_tpu_torch.runtime.context import resolve_device
+
+SAMPLED_SERVING = (
+    "temperature > 0 is not ported yet: sampled serving with "
+    "per-request torch.Generators is ROADMAP queue 1, item 4b"
+)
+
+
+def engine_setup(model, device, mode: str, temperature: float,
+                 **unported) -> None:
+    """Ctor checks both engines share: the engine runs on ``device``
+    (``cuda`` unless given; it must be the model's), in ``mode='xla'``,
+    greedy, and every knob this slice does not port is refused."""
+    dev = resolve_device(device)
+    if dev != model.device:
+        raise ValueError(
+            f"engine device {dev} differs from the model's {model.device}"
+        )
+    if mode == "mega":
+        raise NotImplementedError(
+            "mode='mega' (the megakernel) is not ported yet "
+            "(ROADMAP queue 1, item 8)"
+        )
+    check_mode(mode)
+    if temperature > 0.0:
+        raise NotImplementedError(SAMPLED_SERVING)
+    for name, value in unported.items():
+        if value:
+            raise NotImplementedError(
+                f"{name}={value!r} is not ported yet (see ROADMAP queue 1)"
+            )
+
+
+def prefill_suffix_chunks(
+    model,
+    cache,
+    slot: int,
+    prompt,
+    start: int,
+    chunk_width: int,
+    mode,
+    between_chunks=None,
+):
+    """Chunk-prefill ``prompt[start:]`` of one slot/row over the paged
+    cache — the prefix-cache suffix path shared by both engines.
+    ``chunk_width=0`` runs the whole suffix as one (rounded) chunk.
+    ``between_chunks(cache, new_len)`` runs after every non-final chunk
+    and returns the cache to keep threading. Returns
+    ``(last-token logits [V], cache, chunks_run)``."""
+    s = len(prompt)
+    c = round_chunk(chunk_width) if chunk_width else round_chunk(s - start)
+    page = int(cache.k_pages.shape[3])
+    pps = int(cache.page_table.shape[1])
+    logits, off, chunks = None, start, 0
+    while off < s:
+        take = min(c, s - off)
+        buf = np.zeros(c, np.int32)
+        buf[:take] = prompt[off : off + take]
+        kv_pages = gather_bucket(off + c, page, pps)
+        logits, cache = model.prefill_paged_chunk(
+            buf, slot, off, off + take, take - 1, cache, mode,
+            kv_pages=kv_pages,
+        )
+        chunks += 1
+        off += take
+        if off < s and between_chunks is not None:
+            cache = between_chunks(cache, off)
+    return logits, cache, chunks
+
+
+class _PrefixState:
+    """Cross-serve prefix-cache state: the pool-backed cache, its pool
+    and the radix tree. ``dirty`` is set for the duration of a serve; a
+    crash mid-serve leaves it set and the next serve rebuilds."""
+
+    __slots__ = ("key", "cache", "pool", "tree", "dirty")
+
+    def __init__(self, key, cache, pool, tree):
+        self.key = key
+        self.cache = cache
+        self.pool = pool
+        self.tree = tree
+        self.dirty = False
+
+
+class Engine:
+    """Fixed-batch engine (``serve`` prefills a batch, then decodes it)."""
+
+    # Live engines, auditable by the port's tests after every test.
+    _live: "weakref.WeakSet[Engine]" = weakref.WeakSet()
+
+    def __init__(
+        self,
+        model,
+        *,
+        temperature: float = 0.0,
+        mode: str = "xla",
+        paged: bool = False,
+        page_size: int = 128,
+        prefix_cache: bool = False,
+        prefill_chunk: int = 0,
+        speculative: int = 0,
+        kv_dtype: str | None = None,
+        device=None,
+    ):
+        engine_setup(model, device, mode, temperature,
+                     speculative=speculative, kv_dtype=kv_dtype)
+        self.model = model
+        self.mode = mode
+        self.last_stats: dict = {}
+        self.paged = paged
+        self.page_size = page_size
+        if prefix_cache and not paged:
+            raise ValueError(
+                "prefix_cache=True requires paged=True (the radix tree "
+                "shares pool pages; a dense cache has none)"
+            )
+        if paged and model.cfg.max_length % page_size != 0:
+            raise ValueError(
+                f"max_length={model.cfg.max_length} is not a multiple "
+                f"of page_size={page_size}; paged serving needs the "
+                "context to tile into whole pages"
+            )
+        self.prefix_cache = prefix_cache
+        self.prefill_chunk = prefill_chunk
+        self._prefix_state: _PrefixState | None = None
+        self._prefix_counters: dict = {}
+        self._metric_handles = {
+            key: obs_metrics.counter(*STAT_METRICS[key])
+            for key in ("decode_steps", "prefill_tokens", "generated_tokens")
+        }
+        self._metric_handles["serve_seconds"] = obs_metrics.histogram(
+            "tdt_engine_serve_seconds",
+            "Wall time of one fixed-batch serve() call.",
+        )
+        Engine._live.add(self)
+
+    def audit(self, *, raise_on_violation: bool = False) -> list[str]:
+        """Pool/radix invariant audit of the cross-serve prefix state:
+        between serves every page is free or tree-owned and no pin is
+        left behind. A ``dirty`` state (aborted serve) is skipped — it
+        is rebuilt, not reused."""
+        state = self._prefix_state
+        if state is None or state.dirty:
+            return []
+        problems = state.tree.audit()
+        for node in state.tree.walk():
+            if node.refcount:
+                problems.append(
+                    f"idle tree node page {node.page} still pinned "
+                    f"(refcount {node.refcount}) between serves"
+                )
+        problems += audit_pool(
+            state.pool, state.pool.num_pages,
+            {"tree": [n.page for n in state.tree.walk()]}, reserved=(0,),
+        )
+        if problems and raise_on_violation:
+            raise PoolAuditError("; ".join(problems))
+        return problems
+
+    def serve(
+        self,
+        input_ids,  # [B, S] int32 (list/np/tensor)
+        gen_len: int,
+        max_length: int | None = None,
+        profile: str | None = None,
+        prompt_start=None,
+    ) -> np.ndarray:
+        """Generate ``gen_len`` tokens for each sequence; returns
+        ``[B, S + gen_len]``. ``prompt_start[i]`` marks where row i's
+        real prompt begins (client left-padding before it): rows are
+        rolled so pads sit on the RIGHT, where causal masking makes them
+        inert, and the real length rides to the prefill."""
+        if profile is not None:
+            raise NotImplementedError(
+                "profile= is not ported yet (ROADMAP queue 1, item 12)"
+            )
+        input_ids = np.asarray(input_ids, np.int32)
+        b, s = input_ids.shape
+        starts = np.zeros(b, np.int64) if prompt_start is None else (
+            np.asarray(prompt_start, np.int64)
+        )
+        if starts.shape != (b,) or (starts < 0).any() or (starts >= s).any():
+            raise ValueError(
+                f"prompt_start must be [batch={b}] ints in [0, {s}); got "
+                f"{starts.tolist()}"
+            )
+        max_length = max_length or self.model.cfg.max_length
+        if self.paged and max_length % self.page_size != 0:
+            raise ValueError(
+                f"max_length={max_length} is not a multiple of "
+                f"page_size={self.page_size}; paged serving needs the "
+                "context to tile into whole pages"
+            )
+        t0 = time.perf_counter()
+        rows = np.stack(
+            [np.roll(input_ids[i], -int(starts[i])) for i in range(b)]
+        )
+        true_lens = (s - starts).astype(np.int32)
+        if s > max_length:
+            raise ValueError(
+                f"prompt width {s} exceeds max_length={max_length}; raise "
+                "max_length or shorten"
+            )
+        if int(true_lens.max()) + gen_len - 1 > max_length:
+            raise ValueError(
+                f"longest real prompt ({int(true_lens.max())}) + gen_len "
+                f"({gen_len}) exceeds max_length={max_length}; raise "
+                f"max_length or shorten"
+            )
+        row_meta = None
+        if self.prefix_cache:
+            logits, cache, row_meta = self._prefix_prefill(
+                rows, true_lens, gen_len, max_length
+            )
+        elif self.paged:
+            cache, _pool = init_paged_cache(
+                self.model.cfg, b, self.model.device,
+                max_length=max_length, page_size=self.page_size,
+            )
+            # One batch-1 dense scratch, reused per row then copied into
+            # pages — a full-batch dense cache beside the pool would
+            # double peak KV memory.
+            dense1 = self.model.new_cache(1, max_length)
+            last_logits = []
+            for i in range(b):
+                logits_i, dense1 = self.model.prefill_batched(
+                    rows[i : i + 1], dense1, self.mode, true_lens[i : i + 1],
+                )
+                cache = write_prefill(
+                    cache, i, dense1.k, dense1.v, int(true_lens[i])
+                )
+                last_logits.append(logits_i[0])
+            logits = torch.stack(last_logits)
+        else:
+            cache = self.model.new_cache(b, max_length)
+            logits, cache = self.model.prefill_batched(
+                rows, cache, self.mode, true_lens,
+            )
+        t_prefill = time.perf_counter() - t0
+
+        out = [input_ids]
+        tok = sampling.greedy(logits)
+        out.append(tok.cpu().numpy()[:, None])
+        t0 = time.perf_counter()
+        for _ in range(gen_len - 1):
+            logits, cache = self.model.decode_step(tok, cache, self.mode)
+            tok = sampling.greedy(logits)
+            out.append(tok.cpu().numpy()[:, None])
+        t_decode = time.perf_counter() - t0
+
+        result = np.concatenate(out, axis=1)
+        steps = max(gen_len - 1, 0)
+        prefill_toks = int(true_lens.sum())
+        if row_meta is not None:
+            prefill_toks = self._prefix_counters["prefill_tokens"]
+        self.last_stats = {
+            "prefill_s": t_prefill,
+            "decode_s": t_decode,
+            "decode_ms_per_step": t_decode / max(steps, 1) * 1e3,
+            "tokens_per_s": b * max(steps, 1) / max(t_decode, 1e-9),
+            "decode_steps": steps,
+            "prefill_tokens": prefill_toks,
+            "generated_tokens": int(b * gen_len),
+        }
+        h = self._metric_handles
+        h["decode_steps"].inc(steps)
+        h["prefill_tokens"].inc(prefill_toks)
+        h["generated_tokens"].inc(int(b * gen_len))
+        h["serve_seconds"].observe(t_prefill + t_decode)
+        if self.paged:
+            self.last_stats["kv_bytes_per_token"] = kv_bytes_per_token(cache)
+            self.last_stats["kv_dtype"] = str(cache.k_pages.dtype)
+        else:
+            L, _b, H, _s, hd = cache.k.shape
+            self.last_stats["kv_bytes_per_token"] = float(
+                2 * L * H * hd * cache.k.element_size()
+            )
+            self.last_stats["kv_dtype"] = str(cache.k.dtype)
+        if row_meta is not None:
+            self._prefix_retire(
+                result, rows, true_lens, gen_len, cache, row_meta
+            )
+        return result
+
+    # -- prefix-cache paged serving ---------------------------------------
+
+    def _ensure_prefix_state(self, b: int, max_length: int) -> _PrefixState:
+        """Pool + pool-backed cache + radix tree persisted across serve()
+        calls (that persistence IS the prefix cache); rebuilt when the
+        batch geometry changes or the previous serve aborted."""
+        key = (b, max_length, self.page_size)
+        state = self._prefix_state
+        if state is None or state.key != key or state.dirty:
+            pps = max_length // self.page_size
+            cache, pool = init_paged_cache(
+                self.model.cfg, b, self.model.device,
+                max_length=max_length, page_size=self.page_size,
+                # +1: page 0 reserved as the trash page unused table
+                # entries point at (same convention as ContinuousEngine).
+                num_pages=b * pps + 1, assign_pages=False,
+            )
+            pool.free = [p for p in pool.free if p != 0]
+            self._prefix_state = _PrefixState(
+                key, cache, pool, PrefixCache(pool, self.page_size)
+            )
+        return self._prefix_state
+
+    def _prefix_prefill(self, rows, true_lens, gen_len: int,
+                        max_length: int):
+        """Admission for every batch row: longest-prefix match, map
+        matched pages into the row's table, COW-clone a partially
+        matched tail, chunk-prefill only the suffix. Returns
+        ``(last-token logits [b, V], cache, row_meta)``."""
+        b = rows.shape[0]
+        state = self._ensure_prefix_state(b, max_length)
+        cache, tree = state.cache, state.tree
+        state.dirty = True  # in-flight; cleared by _prefix_retire
+        pps = max_length // self.page_size
+        table = np.zeros((b, pps), np.int32)
+        row_meta = []
+        matches = []
+        for i in range(b):
+            prompt = rows[i][: int(true_lens[i])]
+            m = tree.match(prompt)
+            # Positions written: the prompt plus gen_len - 1 decode
+            # appends (the final sampled token is never fed back).
+            total = -(
+                -(int(true_lens[i]) + gen_len - 1) // self.page_size
+            )
+            new_pages = tree.allocate(total - len(m.nodes))
+            if new_pages is None and m.cow_node is not None:
+                # A COW pin holds a page without covering any of this
+                # row's budget: drop it and retry before degrading.
+                tree.release_node(m.cow_node)
+                tree.stats["hit_tokens"] -= m.cow_len
+                m.cow_node, m.cow_len = None, 0
+                new_pages = tree.allocate(total - len(m.nodes))
+            if new_pages is None:
+                # Degrade to a cold row: with nothing pinned by this
+                # row, full eviction always covers <= pages_per_seq.
+                tree.release_match(m)
+                new_pages = tree.allocate(total)
+            if new_pages is None:
+                raise RuntimeError("prefix pool sizing violated")
+            pages = m.pages + new_pages
+            table[i, : len(pages)] = pages
+            if m.cow_len:
+                cache = copy_page(cache, m.cow_node.page, new_pages[0])
+            matches.append(m)
+            row_meta.append([pages, list(m.nodes), m.matched_len,
+                             m.cow_len])
+            tree.finish_cow(m)
+        cache = dataclasses.replace(
+            cache,
+            page_table=torch.from_numpy(table).to(self.model.device),
+            kv_len=torch.zeros((b,), dtype=torch.int32,
+                               device=self.model.device),
+        )
+
+        hit_tokens = prefill_tokens = cow_pages = 0
+        last_logits = []
+        for i in range(b):
+            s = int(true_lens[i])
+            start = matches[i].matched_len
+            cow_pages += 1 if row_meta[i][3] else 0
+            hit_tokens += start
+            logits_i, cache, _ = prefill_suffix_chunks(
+                self.model, cache, i, rows[i][:s], start,
+                self.prefill_chunk, self.mode,
+            )
+            prefill_tokens += s - start
+            last_logits.append(logits_i)
+        self._prefix_counters = {
+            "prefix_hit_tokens": hit_tokens,
+            "prefill_tokens": prefill_tokens,
+            "pages_cow_copied": cow_pages,
+            "prefix_hit_rate": tree.hit_rate,
+            "tree_pages": tree.node_count,
+        }
+        return torch.stack(last_logits), cache, row_meta
+
+    def _prefix_retire(self, result, rows, true_lens, gen_len: int, cache,
+                       row_meta) -> None:
+        """Retire every finished row's pages into the radix tree (valid
+        KV covers prompt + gen_len - 1 fed-back tokens) and keep the
+        cache for the next serve() call."""
+        state = self._prefix_state
+        tree = state.tree
+        s = result.shape[1] - gen_len
+        gen = result[:, s:]
+        for i, (pages, nodes, _matched, _cow) in enumerate(row_meta):
+            toks = np.concatenate(
+                [rows[i][: int(true_lens[i])],
+                 gen[i, : gen_len - 1].astype(np.int32)]
+            )
+            tree.retire_sequence(toks, pages, nodes)
+        state.cache = cache
+        state.dirty = False  # clean: safe to reuse next serve()
+        self.last_stats.update(self._prefix_counters)
+        self.last_stats["prefix_cache"] = dict(tree.stats)

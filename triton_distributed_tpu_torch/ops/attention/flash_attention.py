@@ -1,0 +1,96 @@
+"""Causal/GQA flash attention (prefill) and its plain version.
+
+Counterpart of ``triton_distributed_tpu/ops/attention/flash_attention.py``:
+same layout (``q [B, Hq, Sq, D]``, ``k/v [B, Hkv, Sk, D]``), the same
+``kv_offset`` (absolute position of ``q[..., 0, :]`` in the kv sequence)
+and the same optional base-e LSE. On a CUDA tensor :func:`flash_attention`
+launches the hand-written kernel (``csrc/flash_attention.cu``) or raises;
+on a CPU tensor it runs :func:`mha_reference`, the plain version. Only
+causal attention is taken (every caller on the serving path is causal);
+``causal`` stays in the signature to keep the JAX call sites. The
+int8-KV scales and the additive score bias of the TPU kernel are later
+slices (ROADMAP queue 2).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from triton_distributed_tpu_torch.ops import cuda_kernels as ck
+
+_NEG_INF = -1e30
+HEAD_DIMS = (32, 128)  # the presets' head dims (tiny, Qwen3)
+
+
+def flash_attention(
+    q: torch.Tensor,  # [B, Hq, Sq, D]
+    k: torch.Tensor,  # [B, Hkv, Sk, D]
+    v: torch.Tensor,  # [B, Hkv, Sk, D]
+    *,
+    causal: bool = True,
+    sm_scale: float | None = None,
+    kv_offset: int = 0,
+    return_lse: bool = False,
+):
+    """Returns ``o [B, Hq, Sq, D]`` (q.dtype), plus ``lse [B, Hq, Sq]``
+    f32 when ``return_lse``. ``Sq``/``Sk`` need not be tile multiples."""
+    if not causal:
+        raise NotImplementedError("flash_attention: only causal=True")
+    b, hq, sq, d = q.shape
+    _, hkv, sk, _ = k.shape
+    if hq % hkv:
+        raise ValueError(f"q heads {hq} not a multiple of kv heads {hkv}")
+    if sm_scale is None:
+        sm_scale = d**-0.5
+    kv_offset = int(kv_offset)
+    if q.device.type == "cpu":
+        return mha_reference(q, k, v, sm_scale=sm_scale, kv_offset=kv_offset,
+                             return_lse=return_lse)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention: unsupported device {q.device}")
+    if q.dtype not in ck.DTYPE_CODES:
+        raise ValueError(f"flash_attention: dtype {q.dtype} not f32/bf16")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        ck.check_cuda_operand(name, t, q.device, q.dtype, 4)
+    if v.shape != k.shape or k.shape[0] != b or k.shape[3] != d:
+        raise ValueError(f"shape mismatch q{tuple(q.shape)} k{tuple(k.shape)}"
+                         f" v{tuple(v.shape)}")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"head_dim {d} not in {HEAD_DIMS}")
+    if min(b, hq, sq, sk) < 1 or kv_offset < 0:
+        raise ValueError("flash_attention: empty shape or negative kv_offset")
+    o = torch.empty_like(q)
+    lse = (torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
+           if return_lse else None)
+    ck.FLASH_ATTENTION(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        None if lse is None else lse.data_ptr(),
+        b, hq, hkv, sq, sk, d, kv_offset, float(sm_scale),
+        ck.DTYPE_CODES[q.dtype], ck.stream_ptr(q),
+    )
+    return (o, lse) if return_lse else o
+
+
+def mha_reference(
+    q, k, v, *, causal=True, sm_scale=None, kv_offset: int = 0,
+    return_lse: bool = False,
+):
+    """Plain attention in f32 (full softmax, no tiling): the plain version
+    of :func:`flash_attention`."""
+    b, hq, sq, d = q.shape
+    _, hkv, sk, _ = k.shape
+    if sm_scale is None:
+        sm_scale = d**-0.5
+    k = k.repeat_interleave(hq // hkv, dim=1).to(torch.float32)
+    v = v.repeat_interleave(hq // hkv, dim=1).to(torch.float32)
+    s = torch.einsum("bhqd,bhkd->bhqk", q.to(torch.float32), k) * sm_scale
+    if causal:
+        rows = kv_offset + torch.arange(sq, device=q.device)[:, None]
+        cols = torch.arange(sk, device=q.device)[None, :]
+        s = torch.where(cols <= rows, s, torch.full_like(s, _NEG_INF))
+    lse = torch.logsumexp(s, dim=-1)
+    p = torch.exp(s - lse[..., None])
+    o = torch.einsum("bhqk,bhkd->bhqd", p, v).to(q.dtype)
+    if return_lse:
+        return o, lse
+    return o

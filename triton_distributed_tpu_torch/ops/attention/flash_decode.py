@@ -1,0 +1,209 @@
+"""GQA decode attention: dense and paged, plus their plain versions.
+
+Counterpart of ``triton_distributed_tpu/ops/attention/flash_decode.py``.
+:func:`flash_decode` (dense ``[B, Hkv, S, D]`` cache in ``chunk_k``
+chunks) and :func:`paged_flash_decode` (page pool through a page table)
+launch the hand-written kernel of ``csrc/flash_decode.cu`` on a CUDA
+tensor or raise; on a CPU tensor they run :func:`gqa_decode_reference`
+(over :func:`pages_to_dense` for the paged form), the plain version.
+The kernel computes the TPU kernel's per-chunk (O, LSE) partials and
+merges them with :func:`lse_combine`'s arithmetic in a second kernel.
+The int8-KV variants and the distributed combine are later slices
+(ROADMAP queues 2 and 1).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from triton_distributed_tpu_torch.ops import cuda_kernels as ck
+
+_NEG_INF = -1e30
+# The (head_dim, q/kv group) values of the presets (tiny; Qwen3 0.6B-32B):
+# each is a template instance of the kernel.
+HEAD_DIMS = (32, 128)
+GROUPS = (2, 4, 8)
+MAX_CHUNK = 256
+
+
+def lse_combine(o_parts: torch.Tensor, lse_parts: torch.Tensor,
+                part_axis: int = 0):
+    """Merge partial attention outputs by log-sum-exp weighting.
+    ``o_parts [..., P, ..., d]`` f32 with partials on ``part_axis``;
+    ``lse_parts`` matching without d. Returns (o, lse) reduced over P."""
+    m = torch.amax(lse_parts, dim=part_axis, keepdim=True)
+    m = torch.clamp(m, min=_NEG_INF)  # all-masked guard
+    w = torch.exp(lse_parts - m)
+    den = torch.sum(w, dim=part_axis)
+    o = torch.sum(o_parts * w[..., None], dim=part_axis) / torch.clamp(
+        den[..., None], min=1e-30
+    )
+    lse = torch.squeeze(m, part_axis) + torch.log(torch.clamp(den, min=1e-30))
+    return o, lse
+
+
+def _check_decode_operands(name, q, k, v, kv_len, chunk, extra=()):
+    b, hq, d = q.shape
+    hkv = k.shape[1]
+    if q.dtype not in ck.DTYPE_CODES:
+        raise ValueError(f"{name}: dtype {q.dtype} not f32/bf16")
+    ck.check_cuda_operand("q", q, q.device, q.dtype, 3)
+    ck.check_cuda_operand("k", k, q.device, q.dtype, 4)
+    ck.check_cuda_operand("v", v, q.device, q.dtype, 4)
+    ck.check_cuda_operand("kv_len", kv_len, q.device, torch.int32, 1)
+    for ename, t in extra:
+        ck.check_cuda_operand(ename, t, q.device, torch.int32, 2)
+    if v.shape != k.shape or k.shape[3] != d or kv_len.shape[0] != b:
+        raise ValueError(f"{name}: shape mismatch q{tuple(q.shape)} "
+                         f"k{tuple(k.shape)} kv_len{tuple(kv_len.shape)}")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"{name}: head_dim {d} not in {HEAD_DIMS}")
+    if hq % hkv or hq // hkv not in GROUPS:
+        raise ValueError(f"{name}: q/kv head ratio {hq}/{hkv} not in "
+                         f"{GROUPS}")
+    if not 1 <= chunk <= MAX_CHUNK:
+        raise ValueError(f"{name}: chunk {chunk} not in [1, {MAX_CHUNK}]")
+
+
+def _decode_buffers(q, hkv: int, n_chunks: int, return_lse: bool):
+    """Output, optional LSE, and the kernel's per-chunk partial scratch
+    (``[B*Hkv, n_chunks, group, D]`` O and ``[B*Hkv, n_chunks, group]``
+    LSE, f32)."""
+    b, hq, d = q.shape
+    dev = q.device
+    o = torch.empty_like(q)
+    lse = (torch.empty((b, hq), dtype=torch.float32, device=dev)
+           if return_lse else None)
+    o_part = torch.empty((b * hkv, n_chunks, hq // hkv, d),
+                         dtype=torch.float32, device=dev)
+    lse_part = torch.empty((b * hkv, n_chunks, hq // hkv),
+                           dtype=torch.float32, device=dev)
+    return o, lse, o_part, lse_part
+
+
+def _as_lengths(kv_len, b: int, device) -> torch.Tensor:
+    kv_len = torch.as_tensor(kv_len, dtype=torch.int32, device=device)
+    return torch.broadcast_to(kv_len, (b,)).contiguous()
+
+
+def flash_decode(
+    q: torch.Tensor,        # [B, Hq, D]
+    k_cache: torch.Tensor,  # [B, Hkv, S, D]
+    v_cache: torch.Tensor,  # [B, Hkv, S, D]
+    kv_len,                 # [B] int32 — valid context length per sequence
+    *,
+    sm_scale: float | None = None,
+    chunk_k: int = 256,
+    return_lse: bool = False,
+):
+    """Single-token GQA decode attention over a (padded) dense cache.
+    Returns ``o [B, Hq, D]`` (q.dtype) and, with ``return_lse``,
+    ``lse [B, Hq]`` f32."""
+    b, hq, d = q.shape
+    _, hkv, s, _ = k_cache.shape
+    if hq % hkv:
+        raise ValueError(f"q heads {hq} not a multiple of kv heads {hkv}")
+    if sm_scale is None:
+        sm_scale = d**-0.5
+    chunk_k = min(chunk_k, s)
+    if s % chunk_k:
+        raise ValueError(f"cache len {s} not divisible by chunk_k {chunk_k}")
+    kv_len = _as_lengths(kv_len, b, q.device)
+    if q.device.type == "cpu":
+        return gqa_decode_reference(q, k_cache, v_cache, kv_len,
+                                    sm_scale=sm_scale, return_lse=return_lse)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_decode: unsupported device {q.device}")
+    _check_decode_operands("flash_decode", q, k_cache, v_cache, kv_len,
+                           chunk_k)
+    o, lse, o_part, lse_part = _decode_buffers(q, hkv, s // chunk_k,
+                                               return_lse)
+    ck.FLASH_DECODE(
+        q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+        kv_len.data_ptr(), o.data_ptr(),
+        None if lse is None else lse.data_ptr(),
+        o_part.data_ptr(), lse_part.data_ptr(),
+        b, hkv, hq // hkv, d, chunk_k, s // chunk_k, float(sm_scale),
+        ck.DTYPE_CODES[q.dtype], ck.stream_ptr(q),
+    )
+    return (o, lse) if return_lse else o
+
+
+def paged_flash_decode(
+    q: torch.Tensor,           # [B, Hq, D]
+    k_pages: torch.Tensor,     # [P, Hkv, page, D] — page pool (one layer)
+    v_pages: torch.Tensor,
+    page_table: torch.Tensor,  # [B, pages_per_seq] int32
+    kv_len,                    # [B] int32 — valid context length
+    *,
+    sm_scale: float | None = None,
+    return_lse: bool = False,
+):
+    """Single-token GQA decode attention straight over a paged KV pool:
+    block ``ci`` of sequence ``b`` is pool page ``page_table[b, ci]``, and
+    no dense gather materializes on the kernel path."""
+    b, hq, d = q.shape
+    _, hkv, page, _ = k_pages.shape
+    if hq % hkv:
+        raise ValueError(f"q heads {hq} not a multiple of kv heads {hkv}")
+    if sm_scale is None:
+        sm_scale = d**-0.5
+    kv_len = _as_lengths(kv_len, b, q.device)
+    if q.device.type == "cpu":
+        return gqa_decode_reference(
+            q, pages_to_dense(k_pages, page_table),
+            pages_to_dense(v_pages, page_table), kv_len,
+            sm_scale=sm_scale, return_lse=return_lse,
+        )
+    if q.device.type != "cuda":
+        raise ValueError(f"paged_flash_decode: unsupported device {q.device}")
+    _check_decode_operands("paged_flash_decode", q, k_pages, v_pages, kv_len,
+                           page, extra=(("page_table", page_table),))
+    if page_table.shape[0] != b:
+        raise ValueError(f"page_table rows {page_table.shape[0]} != batch {b}")
+    o, lse, o_part, lse_part = _decode_buffers(q, hkv, page_table.shape[1],
+                                               return_lse)
+    ck.PAGED_FLASH_DECODE(
+        q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+        page_table.data_ptr(), kv_len.data_ptr(), o.data_ptr(),
+        None if lse is None else lse.data_ptr(),
+        o_part.data_ptr(), lse_part.data_ptr(),
+        b, hkv, hq // hkv, d, page, page_table.shape[1], float(sm_scale),
+        ck.DTYPE_CODES[q.dtype], ck.stream_ptr(q),
+    )
+    return (o, lse) if return_lse else o
+
+
+def pages_to_dense(pages: torch.Tensor, page_table: torch.Tensor):
+    """Gather a page pool ``[..., P, H, page, d]`` into a dense
+    ``[..., B, H, S, d]`` view through the table (a copy)."""
+    b, pps = page_table.shape
+    ax = pages.dim() - 4
+    g = torch.index_select(pages, ax, page_table.reshape(-1).long())
+    lead = pages.shape[:ax]
+    h, page, d = pages.shape[-3:]
+    g = g.reshape(*lead, b, pps, h, page, d).transpose(-4, -3)
+    return g.reshape(*lead, b, h, pps * page, d)
+
+
+def gqa_decode_reference(
+    q, k_cache, v_cache, kv_len, *, sm_scale=None, return_lse=False
+):
+    """Plain decode attention in f32 over a dense cache: the plain
+    version of both decode kernels."""
+    b, hq, d = q.shape
+    _, hkv, s, _ = k_cache.shape
+    if sm_scale is None:
+        sm_scale = d**-0.5
+    k = k_cache.repeat_interleave(hq // hkv, dim=1).to(torch.float32)
+    v = v_cache.repeat_interleave(hq // hkv, dim=1).to(torch.float32)
+    s_ = torch.einsum("bhd,bhkd->bhk", q.to(torch.float32), k) * sm_scale
+    kv_len = _as_lengths(kv_len, b, q.device)
+    mask = torch.arange(s, device=q.device)[None, None, :] < kv_len[:, None,
+                                                                     None]
+    s_ = torch.where(mask, s_, torch.full_like(s_, _NEG_INF))
+    p = torch.softmax(s_, dim=-1)
+    o = torch.einsum("bhk,bhkd->bhd", p, v).to(q.dtype)
+    if return_lse:
+        return o, torch.logsumexp(s_, dim=-1)
+    return o
