@@ -11,10 +11,13 @@ the port's main path at the full width and depth of Qwen/Qwen3-0.6B
 (random weights from a seed): ``ContinuousEngine`` with the radix
 prefix cache serving 8
 requests that share a 512-token system prefix, and ``Engine(paged=False)``
-serving 2 rows. The generated tokens are checked by teacher forcing
-through a plain full-sequence forward, the pool audit must be clean, and
-each serving path must have launched its own kernels: the launch counts
-are set to 0 just before each path and read just after it.
+serving 2 rows; then the int8 KV path: the same 8 requests through
+``ContinuousEngine(kv_dtype="int8")`` and 2 rows through
+``Engine(paged=True, kv_dtype="int8")``. The generated tokens are
+checked by teacher forcing through a plain full-sequence forward, the
+pool audit must be clean, and each serving path must have launched its
+own kernels: the launch counts are set to 0 just before each path and
+read just after it.
 
 Output: the card's name and power limit, per-phase lines, one
 ``{"kernels": [...]}`` JSON line, one ``{"e2e": ...}`` JSON line, and as
@@ -62,11 +65,26 @@ TOL = {"bf16": (2e-3, 2.0**-6), "f32": (5e-5, 0.0)}  # (atol, rtol)
 # twice that gap and 0.9 is below that share.
 TF_MARGIN = 0.125
 TF_MIN_EXACT = 0.9
+# The int8 KV runs hold their tokens to the same plain full-width
+# forward, so the gap also carries the int8 noise: each cached K/V value
+# moves by up to half a quantization step (amax/254 per page and head),
+# which moves logits by a few hundredths and flips the argmax where the
+# top two logits are closer than that. Starting from the JAX package's
+# own int8 limits (tests/test_kv_quant.py: |dlogits| < 0.25, >= 80%
+# argmax agreement on tiny), the limits are set from the first reading on
+# an H100: worst gap 0.09375 (three bf16 ulps of a logit in [4, 8)) with
+# 546/576 tokens exact. The margin is twice that gap, and 0.9 is below
+# that share (0.948), as the bf16 limits were set.
+TF8_MARGIN = 0.1875
+TF8_MIN_EXACT = 0.9
 # Serving paths in the order they run, each with the kernels it must
-# launch and no others.
+# launch and no others. The int8 Engine prefills dense (flash_attention
+# in the model dtype) and quantizes on the write into its pages.
 PATH_KERNELS = {
     "continuous": ("flash_attention", "paged_flash_decode"),
     "dense_engine": ("flash_attention", "flash_decode"),
+    "continuous_int8": ("flash_attention_int8", "paged_flash_decode_int8"),
+    "paged_engine_int8": ("flash_attention", "paged_flash_decode_int8"),
 }
 # Card peaks (H100 SXM data sheet, dense): HBM bytes/s, bf16/f16 FLOP/s.
 HBM_BPS = 3.35e12
@@ -119,6 +137,9 @@ def check_kernels(dev, flush):
     import torch
     import torch.nn.functional as F
 
+    from triton_distributed_tpu_torch.models.paged_kv_cache import (
+        quantize_pages,
+    )
     from triton_distributed_tpu_torch.ops.attention import (
         flash_attention,
         flash_decode,
@@ -127,12 +148,36 @@ def check_kernels(dev, flush):
         paged_flash_decode,
         pages_to_dense,
     )
+    from triton_distributed_tpu_torch.ops.attention.flash_decode import (
+        scales_to_dense,
+    )
 
     rng = np.random.default_rng(SEED)
 
     def rand(shape, dtype):
         return torch.from_numpy(
             rng.standard_normal(shape).astype(np.float32)).to(dev, dtype)
+
+    def int8_pool(shape):
+        """int8 codes + per-(page, head) f32 scales of ~N(0, 1) pages."""
+        return quantize_pages(rand(shape, torch.float32))
+
+    def paged_int8_plain(qd, kp, ks, vp, vs, table, kv_len):
+        """Plain int8 paged decode: dequantize through the table, then
+        plain attention."""
+        page = kp.shape[2]
+        kd = pages_to_dense(kp, table).float() * scales_to_dense(
+            ks, table, page)[..., None]
+        vd = pages_to_dense(vp, table).float() * scales_to_dense(
+            vs, table, page)[..., None]
+        return gqa_decode_reference(qd, kd, vd, kv_len)
+
+    def attn_int8_plain(q, k, ks, v, vs, off, blk):
+        """Plain int8 prefill: dequantize per block_k keys, then plain
+        attention."""
+        kd = k.float() * ks.repeat_interleave(blk, dim=-1)[..., None]
+        vd = v.float() * vs.repeat_interleave(blk, dim=-1)[..., None]
+        return mha_reference(q, kd, vd, kv_offset=off)
 
     def err(a, b):
         """Per-element |a - b| and the plain value |b|, f32."""
@@ -176,8 +221,26 @@ def check_kernels(dev, flush):
             err(flash_decode(qd, kd, vd, kv_len),
                 gqa_decode_reference(qd, kd, vd, kv_len))
             for table, kv_len in batches]
+        # int8 KV: the pool quantized per (page, head), the chunk's keys
+        # per block_k = PAGE keys (what the chunk path gathers).
+        kq, ksc = int8_pool((n_pages, hkv, PAGE, d))
+        vq, vsc = int8_pool((n_pages, hkv, PAGE, d))
+        errs["paged_flash_decode_int8", tag] = [
+            err(paged_flash_decode(qd, kq, vq, table, kv_len, k_scale=ksc,
+                                   v_scale=vsc),
+                paged_int8_plain(qd, kq, ksc, vq, vsc, table, kv_len))
+            for table, kv_len in batches]
+        kb, kbs = int8_pool((hkv, sk // PAGE, PAGE, d))
+        vb, vbs = int8_pool((hkv, sk // PAGE, PAGE, d))
+        k8, v8 = kb.reshape(1, hkv, sk, d), vb.reshape(1, hkv, sk, d)
+        kbs, vbs = kbs[None].contiguous(), vbs[None].contiguous()
+        errs["flash_attention_int8", tag] = [err(
+            flash_attention(q, k8, v8, kv_offset=off, block_k=PAGE,
+                            k_scale=kbs, v_scale=vbs),
+            attn_int8_plain(q, k8, kbs, v8, vbs, off, PAGE))]
         if tag == "bf16":
             timed = (q, k, v, out, kp, vp, kd, vd, qd)
+            timed8 = (kq, ksc, vq, vsc, k8, kbs, v8, vbs)
 
     # Tiny f32 case, TF32 off: the tiny preset's widths.
     q = rand((1, 8, 48, 32), torch.float32)
@@ -200,6 +263,20 @@ def check_kernels(dev, flush):
     errs["flash_decode", "f32 tiny"] = [err(
         flash_decode(qd, kd, vd, kv_len, chunk_k=16),
         gqa_decode_reference(qd, kd, vd, kv_len))]
+    kq, ksc = int8_pool((9, 4, 16, 32))
+    vq, vsc = int8_pool((9, 4, 16, 32))
+    errs["paged_flash_decode_int8", "f32 tiny"] = [err(
+        paged_flash_decode(qd, kq, vq, table, kv_len, k_scale=ksc,
+                           v_scale=vsc),
+        paged_int8_plain(qd, kq, ksc, vq, vsc, table, kv_len))]
+    kb, kbs = int8_pool((4, 5, 16, 32))  # 80 keys, block_k = page = 16
+    vb, vbs = int8_pool((4, 5, 16, 32))
+    k8, v8 = kb.reshape(1, 4, 80, 32), vb.reshape(1, 4, 80, 32)
+    kbs, vbs = kbs[None].contiguous(), vbs[None].contiguous()
+    errs["flash_attention_int8", "f32 tiny"] = [err(
+        flash_attention(q, k8, v8, kv_offset=32, block_k=16, k_scale=kbs,
+                        v_scale=vbs),
+        attn_int8_plain(q, k8, kbs, v8, vbs, 32, 16))]
 
     bad, max_abs = [], {}
     for (name, tag), pairs in errs.items():
@@ -270,6 +347,43 @@ def check_kernels(dev, flush):
         library_ms=median_ms(lambda: F.scaled_dot_product_attention(
             qd[:, :, None], kd, vd, attn_mask=dmask, enable_gqa=True), flush),
         shape=f"B=4 S={MAX_LENGTH} chunk=256 kv_len={lens} bf16",
+    )
+    # int8: the codes of the live pages, their scales and q/o; no single
+    # PyTorch call attends over int8 codes with per-page scales.
+    kq, ksc, vq, vsc, k8, kbs, v8, vbs = timed8
+    live_pages = sum(-(-n // PAGE) for n in lens)
+    kv8_bytes = (sum(lens) * hkv * d * 2 + live_pages * hkv * 4 * 2
+                 + nbytes(qd) * 2)
+    records["paged_flash_decode_int8"] = dict(
+        route="cuda",
+        source="triton_distributed_tpu_torch/csrc/flash_decode.cu",
+        replaces="triton_distributed_tpu/ops/attention/flash_decode.py:374",
+        max_abs_err=max_abs["paged_flash_decode_int8", "bf16"],
+        ms=median_ms(lambda: paged_flash_decode(
+            qd, kq, vq, table, kv_len, k_scale=ksc, v_scale=vsc), flush),
+        plain_ms=median_ms(lambda: paged_int8_plain(
+            qd, kq, ksc, vq, vsc, table, kv_len), flush),
+        bound_ms=kv8_bytes / HBM_BPS * 1e3, bound_by="bytes",
+        library_ms=None,
+        shape=f"B=4 page={PAGE} kv_len={lens} int8 KV, bf16 q/o",
+    )
+    by8 = nbytes(q, k8, v8, kbs, vbs, out)
+    records["flash_attention_int8"] = dict(
+        route="cuda",
+        source="triton_distributed_tpu_torch/csrc/flash_attention.cu",
+        replaces="triton_distributed_tpu/ops/attention/flash_attention.py:32",
+        max_abs_err=max_abs["flash_attention_int8", "bf16"],
+        ms=median_ms(lambda: flash_attention(
+            q, k8, v8, kv_offset=off, block_k=PAGE, k_scale=kbs,
+            v_scale=vbs), flush),
+        plain_ms=median_ms(lambda: attn_int8_plain(
+            q, k8, kbs, v8, vbs, off, PAGE), flush),
+        bound_ms=max(flops / BF16_FLOPS, by8 / HBM_BPS) * 1e3,
+        bound_by="operations" if flops / BF16_FLOPS > by8 / HBM_BPS
+        else "bytes",
+        library_ms=None,
+        shape=f"q[1,{hq},{sq},{d}] kv[1,{hkv},{sk},{d}] int8 block_k={PAGE} "
+              f"off={off}, bf16 q/o",
     )
     return records
 
@@ -399,75 +513,118 @@ def serve_main_path(dev):
     dense_ids = rng.integers(0, vocab, (DENSE_ROWS, DENSE_PROMPT)).astype(
         np.int32)
 
-    eng = ContinuousEngine(model, max_batch=4, page_size=PAGE,
-                           max_length=MAX_LENGTH, prefix_cache=True,
-                           device=dev)
+    def continuous(kv_dtype):
+        return ContinuousEngine(model, max_batch=4, page_size=PAGE,
+                                max_length=MAX_LENGTH, prefix_cache=True,
+                                kv_dtype=kv_dtype, device=dev)
+
+    eng, eng8 = continuous(None), continuous("int8")
     dense_eng = Engine(model, paged=False, device=dev)
+    paged8 = Engine(model, paged=True, page_size=PAGE, kv_dtype="int8",
+                    device=dev)
     chunk_t = _Timed(model, "prefill_paged_chunk")
     decode_t = _Timed(model, "decode_step")
+    requests = [(p, GEN_LEN) for p in prompts]
+    runs = {  # path -> its serving call, in PATH_KERNELS order
+        "continuous": lambda: eng.run(requests),
+        "dense_engine": lambda: dense_eng.serve(dense_ids, DENSE_GEN,
+                                                MAX_LENGTH),
+        "continuous_int8": lambda: eng8.run(requests),
+        "paged_engine_int8": lambda: paged8.serve(dense_ids, DENSE_GEN,
+                                                  MAX_LENGTH),
+    }
+    launches, outs, times = {}, {}, {}
+    for path, run in runs.items():
+        before = (chunk_t.seconds, chunk_t.calls, decode_t.seconds)
+        ck.reset_launch_counts()
+        t0 = time.perf_counter()
+        outs[path] = run()
+        torch.cuda.synchronize()
+        launches[path] = ck.launch_counts()
+        times[path] = {
+            "wall_s": time.perf_counter() - t0,
+            "chunk_s": chunk_t.seconds - before[0],
+            "chunks": chunk_t.calls - before[1],
+            "decode_s": decode_t.seconds - before[2],
+        }
 
-    launches = {}  # path -> kernel -> launches in that path's run
-    ck.reset_launch_counts()
-    t0 = time.perf_counter()
-    outs = eng.run([(p, GEN_LEN) for p in prompts])
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches["continuous"] = ck.launch_counts()
-    decode_s = decode_t.seconds
-    ck.reset_launch_counts()
-    dense_out = dense_eng.serve(dense_ids, DENSE_GEN, MAX_LENGTH)
-    torch.cuda.synchronize()
-    launches["dense_engine"] = ck.launch_counts()
-
-    stats = eng.last_stats
-    problems = eng.audit()
-    print(f"[serve] ContinuousEngine: {N_REQUESTS} requests in {wall:.2f} s, "
-          f"prefill_tokens={stats['prefill_tokens']} "
-          f"prefix_hit_tokens={stats['prefix_hit_tokens']} "
-          f"decode_steps={stats['decode_steps']} audit={problems}")
+    for path, e in (("continuous", eng), ("continuous_int8", eng8)):
+        stats = e.last_stats
+        problems = e.audit()
+        print(f"[serve] {path}: {N_REQUESTS} requests in "
+              f"{times[path]['wall_s']:.2f} s, "
+              f"prefill_tokens={stats['prefill_tokens']} "
+              f"prefix_hit_tokens={stats['prefix_hit_tokens']} "
+              f"decode_steps={stats['decode_steps']} "
+              f"kv_dtype={stats['kv_dtype']} audit={problems}")
+        if problems:
+            raise RuntimeError(f"{path}: pool audit failed: {problems}")
+        if stats["prefix_hit_tokens"] <= 0:
+            raise RuntimeError(f"{path}: no prefix-cache hits on "
+                               "shared-prefix traffic")
     for path, counts in launches.items():
         print(f"[serve] launches in the {path} run: {counts}")
-    if problems:
-        raise RuntimeError(f"pool audit failed: {problems}")
-    if stats["prefix_hit_tokens"] <= 0:
-        raise RuntimeError("no prefix-cache hits on shared-prefix traffic")
     for path, need in PATH_KERNELS.items():
         ran = {k for k, n in launches[path].items() if n > 0}
         if ran != set(need):
             raise RuntimeError(f"the {path} run launched {sorted(ran)}, "
                                f"expected {sorted(need)}")
+    kv_bytes = {"bf16": eng.last_stats["kv_bytes_per_token"],
+                "int8": eng8.last_stats["kv_bytes_per_token"]}
+    print(f"[serve] kv_bytes_per_token {kv_bytes}")
+    if not kv_bytes["int8"] < kv_bytes["bf16"] / 1.9:
+        raise RuntimeError(f"int8 pool is not ~half the bf16 one: {kv_bytes}")
 
-    gaps = []
-    for p, o in zip(prompts, outs):
-        if o.shape != (GEN_LEN,):
-            raise RuntimeError(f"bad output shape {o.shape}")
-        gaps += teacher_forced_gaps(model, p, o)
-    for row in range(DENSE_ROWS):
-        gaps += teacher_forced_gaps(model, dense_ids[row],
-                                    dense_out[row, DENSE_PROMPT:])
-    worst = max(gaps)
-    exact = sum(g == 0 for g in gaps)
-    print(f"[check] teacher forcing over {len(gaps)} generated tokens: "
-          f"max gap {worst:.4f}, mean {statistics.mean(gaps):.4f}, "
-          f"exact argmax {exact}/{len(gaps)}, margin {TF_MARGIN}, "
-          f"min exact share {TF_MIN_EXACT}")
-    if not all(np.isfinite(gaps)) or worst > TF_MARGIN:
-        raise RuntimeError(f"teacher-forced gap {worst} exceeds {TF_MARGIN}")
-    if exact < TF_MIN_EXACT * len(gaps):
-        raise RuntimeError(f"only {exact}/{len(gaps)} emitted tokens are the "
-                           f"reference argmax (< {TF_MIN_EXACT})")
+    for tag, paths, margin, min_exact in (
+            ("bf16", ("continuous", "dense_engine"), TF_MARGIN, TF_MIN_EXACT),
+            ("int8", ("continuous_int8", "paged_engine_int8"), TF8_MARGIN,
+             TF8_MIN_EXACT)):
+        cont, fixed = (outs[p] for p in paths)
+        gaps = []
+        for p, o in zip(prompts, cont):
+            if o.shape != (GEN_LEN,):
+                raise RuntimeError(f"bad output shape {o.shape}")
+            gaps += teacher_forced_gaps(model, p, o)
+        for row in range(DENSE_ROWS):
+            gaps += teacher_forced_gaps(model, dense_ids[row],
+                                        fixed[row, DENSE_PROMPT:])
+        worst = max(gaps)
+        exact = sum(g == 0 for g in gaps)
+        print(f"[check] {tag} KV teacher forcing over {len(gaps)} generated "
+              f"tokens: max gap {worst:.4f}, mean {statistics.mean(gaps):.4f}"
+              f", exact argmax {exact}/{len(gaps)}, margin {margin}, "
+              f"min exact share {min_exact}")
+        if not all(np.isfinite(gaps)) or worst > margin:
+            raise RuntimeError(f"{tag}: teacher-forced gap {worst} exceeds "
+                               f"{margin}")
+        if exact < min_exact * len(gaps):
+            raise RuntimeError(f"{tag}: only {exact}/{len(gaps)} emitted "
+                               f"tokens are the reference argmax "
+                               f"(< {min_exact})")
+
+    def path_e2e(path, e):
+        stats, t = e.last_stats, times[path]
+        return {
+            "prefill_tokens_per_s": stats["prefill_tokens"] / t["chunk_s"],
+            "prefill_chunks": t["chunks"],
+            "decode_ms_per_step_batch4": t["decode_s"] / max(
+                stats["decode_steps"], 1) * 1e3,
+            "decode_steps": stats["decode_steps"],
+            "prefix_hit_tokens": stats["prefix_hit_tokens"],
+            "continuous_wall_s": t["wall_s"],
+        }
 
     e2e = {
         "model": MODEL,
-        "prefill_tokens_per_s": stats["prefill_tokens"] / chunk_t.seconds,
-        "prefill_chunks": chunk_t.calls,
-        "decode_ms_per_step_batch4": decode_s / max(
-            stats["decode_steps"], 1) * 1e3,
-        "decode_steps": stats["decode_steps"],
-        "prefix_hit_tokens": stats["prefix_hit_tokens"],
-        "continuous_wall_s": wall,
+        **path_e2e("continuous", eng),
         "dense_engine_decode_ms_per_step": dense_eng.last_stats[
             "decode_ms_per_step"],
+        "int8": {
+            **path_e2e("continuous_int8", eng8),
+            "paged_engine_decode_ms_per_step": paged8.last_stats[
+                "decode_ms_per_step"],
+        },
+        "kv_bytes_per_token": kv_bytes,
     }
     return launches, e2e
 

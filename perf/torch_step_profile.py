@@ -5,11 +5,15 @@
 
 Builds Qwen/Qwen3-0.6B at full width and depth with random weights from a
 seed, fills a paged bf16 KV pool (page 128) for 4 sequences at kv_len
-{700, 2047, 700, 2047}, and profiles (``torch.profiler``, CPU + CUDA
-activities) two phases of the serving path after warm-up:
+{700, 2047, 700, 2047} and an int8 pool quantized from the same values,
+and profiles (``torch.profiler``, CPU + CUDA activities) four phases of
+the serving path after warm-up:
 
-- ``decode``: ``Qwen3.decode_step`` over the paged pool, batch 4;
-- ``prefill``: one 256-token ``prefill_paged_chunk`` at offset 512.
+- ``decode``: ``Qwen3.decode_step`` over the bf16 pool, batch 4;
+- ``decode_int8``: the same step over the int8 pool (the quantized
+  append, ``quantized_row_scatter``, runs in every layer);
+- ``prefill`` and ``prefill_int8``: one 256-token
+  ``prefill_paged_chunk`` at offset 512 over each pool.
 
 For each phase it prints one JSON line: host wall ms per step (clock
 around synchronized steps), device busy ms per step (sum of kernel time),
@@ -78,6 +82,7 @@ def main() -> int:
     from triton_distributed_tpu_torch.models import AutoLLM
     from triton_distributed_tpu_torch.models.paged_kv_cache import (
         init_paged_cache,
+        quantize_pages,
     )
 
     dev = torch.device("cuda", 0)
@@ -87,24 +92,38 @@ def main() -> int:
     gen = torch.Generator(device=dev).manual_seed(1)
     cache.k_pages.normal_(generator=gen)
     cache.v_pages.normal_(generator=gen)
+    cache8, _ = init_paged_cache(cfg, 4, dev, max_length=2048, page_size=128,
+                                 kv_dtype="int8")
+    for pool, scale, src in ((cache8.k_pages, cache8.k_scale, cache.k_pages),
+                             (cache8.v_pages, cache8.v_scale, cache.v_pages)):
+        codes, sc = quantize_pages(src)
+        pool.copy_(codes)
+        scale.copy_(sc)
     lens = torch.tensor([700, 2047, 700, 2047], dtype=torch.int32,
                         device=dev)
     tokens = torch.from_numpy(
         np.random.default_rng(0).integers(0, cfg.vocab_size, 4)).to(dev)
 
-    def decode():
-        # Same kv_len every step: a steady-state step at these lengths.
-        cache.kv_len = lens.clone()
-        model.decode_step(tokens, cache)
+    def decode_over(c):
+        def step():
+            # Same kv_len every step: a steady-state step at these lengths.
+            c.kv_len = lens.clone()
+            model.decode_step(tokens, c)
+        return step
 
     chunk = np.random.default_rng(1).integers(0, cfg.vocab_size, 256)
 
-    def prefill():
-        model.prefill_paged_chunk(chunk, 1, 512, 768, 255, cache,
-                                  kv_pages=8)
+    def prefill_over(c):
+        def step():
+            model.prefill_paged_chunk(chunk, 1, 512, 768, 255, c,
+                                      kv_pages=8)
+        return step
 
     card = torch.cuda.get_device_name(0)
-    for name, fn in (("decode", decode), ("prefill", prefill)):
+    for name, fn in (("decode", decode_over(cache)),
+                     ("decode_int8", decode_over(cache8)),
+                     ("prefill", prefill_over(cache)),
+                     ("prefill_int8", prefill_over(cache8))):
         rec = profile_phase(name, fn, args.steps)
         rec["device"] = card
         print(json.dumps(rec))

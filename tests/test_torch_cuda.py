@@ -9,13 +9,17 @@ card they run without the repo's conftest, which imports JAX:
 Tolerances: f32 runs with TF32 off and differs from the plain version
 only in summation order (atol 2e-5); bf16 differs by the kernels'
 rounding of P to bf16 before P·V, which the plain f32 softmax does not
-do (atol 2e-2 on O of unit-scale inputs).
+do (atol 2e-2 on O of unit-scale inputs). The int8 kernels take int8
+codes and per-page (per-block) f32 scales; their plain versions
+dequantize first, so only where the scale is multiplied in differs: the
+same limits hold (bf16 q/o still round O to bf16).
 """
 
 import numpy as np
 import pytest
 import torch
 
+from triton_distributed_tpu_torch.models.paged_kv_cache import quantize_pages
 from triton_distributed_tpu_torch.ops import cuda_kernels as ck
 from triton_distributed_tpu_torch.ops.attention import (
     flash_attention,
@@ -24,6 +28,9 @@ from triton_distributed_tpu_torch.ops.attention import (
     mha_reference,
     paged_flash_decode,
     pages_to_dense,
+)
+from triton_distributed_tpu_torch.ops.attention.flash_decode import (
+    scales_to_dense,
 )
 
 pytestmark = pytest.mark.cuda
@@ -127,3 +134,86 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev):
         flash_attention(q.transpose(2, 3).contiguous().transpose(2, 3), q, q)
     with pytest.raises(ValueError, match="dtype"):
         flash_attention(q.half(), q.half(), q.half())
+
+
+def _int8_pool(rng, shape, dev):
+    """int8 codes + per-(page, head) scales quantized from ~N(0, 1)."""
+    codes, scales = quantize_pages(_rand(rng, shape, torch.float32, dev))
+    return codes, scales
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d,hq,hkv,page,lens", [
+    (128, 16, 8, 128, [1, 127, 128, 129, 700, 2047]),  # Qwen3-0.6B serving
+    (32, 8, 4, 16, [1, 15, 16, 17, 33, 64]),            # tiny
+])
+def test_paged_decode_int8_matches_plain(dev, dtype, d, hq, hkv, page, lens):
+    rng = np.random.default_rng(4)
+    b = len(lens)
+    pps = -(-max(lens) // page)
+    n_pages = b * pps + 1
+    kp, ks = _int8_pool(rng, (n_pages, hkv, page, d), dev)
+    vp, vs = _int8_pool(rng, (n_pages, hkv, page, d), dev)
+    kp[0], ks[0] = 127, 1e4  # the trash page: never read
+    perm = rng.permutation(np.arange(1, n_pages))[: b * pps].reshape(b, pps)
+    lens = np.asarray(lens)
+    table = np.where(np.arange(pps)[None] < -(-lens[:, None] // page), perm, 0)
+    table = torch.from_numpy(table.astype(np.int32)).to(dev)
+    kv_len = torch.from_numpy(lens.astype(np.int32)).to(dev)
+    q = _rand(rng, (b, hq, d), dtype, dev)
+    before = ck.PAGED_FLASH_DECODE_INT8.launches
+    o, lse = paged_flash_decode(q, kp, vp, table, kv_len, return_lse=True,
+                                k_scale=ks, v_scale=vs)
+    torch.cuda.synchronize()
+    assert ck.PAGED_FLASH_DECODE_INT8.launches == before + 1
+    kd = pages_to_dense(kp, table).float() * scales_to_dense(
+        ks, table, page)[..., None]
+    vd = pages_to_dense(vp, table).float() * scales_to_dense(
+        vs, table, page)[..., None]
+    o_ref, lse_ref = gqa_decode_reference(q, kd, vd, kv_len, return_lse=True)
+    assert torch.isfinite(o.float()).all()
+    assert (o.float() - o_ref.float()).abs().max().item() < TOL[dtype]
+    assert (lse - lse_ref).abs().max().item() < 1e-3
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d,hq,hkv,sq,sk,off,blk", [
+    (128, 16, 8, 256, 768, 512, 128),  # the serving chunk, block_k = page
+    (128, 16, 8, 129, 256, 127, 128),  # page-boundary offsets
+    (32, 8, 4, 32, 64, 32, 16),        # tiny: one 32-key tile, two pages
+    (32, 8, 4, 1, 16, 15, 16),
+])
+def test_flash_attention_int8_matches_plain(dev, dtype, d, hq, hkv, sq, sk,
+                                            off, blk):
+    rng = np.random.default_rng(5)
+    q = _rand(rng, (1, hq, sq, d), dtype, dev)
+    kb, ks = _int8_pool(rng, (hkv, sk // blk, blk, d), dev)
+    vb, vs = _int8_pool(rng, (hkv, sk // blk, blk, d), dev)
+    k, v = kb.reshape(1, hkv, sk, d), vb.reshape(1, hkv, sk, d)
+    ks, vs = ks[None].contiguous(), vs[None].contiguous()
+    before = ck.FLASH_ATTENTION_INT8.launches
+    o, lse = flash_attention(q, k, v, kv_offset=off, block_k=blk,
+                             k_scale=ks, v_scale=vs, return_lse=True)
+    torch.cuda.synchronize()
+    assert ck.FLASH_ATTENTION_INT8.launches == before + 1
+    kd = k.float() * ks.repeat_interleave(blk, dim=-1)[..., None]
+    vd = v.float() * vs.repeat_interleave(blk, dim=-1)[..., None]
+    o_ref, lse_ref = mha_reference(q, kd, vd, kv_offset=off, return_lse=True)
+    assert torch.isfinite(o.float()).all()
+    assert (o.float() - o_ref.float()).abs().max().item() < TOL[dtype]
+    assert (lse - lse_ref).abs().max().item() < 1e-3
+
+
+def test_int8_wrappers_reject_what_the_kernels_do_not_take(dev):
+    kp = torch.zeros(3, 2, 16, 32, dtype=torch.int8, device=dev)
+    sc = torch.ones(3, 2, device=dev)
+    q = torch.zeros(1, 4, 32, device=dev)
+    table = torch.ones(1, 2, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="dtype"):  # codes must be int8
+        paged_flash_decode(q, kp.float(), kp.float(), table, 3,
+                           k_scale=sc, v_scale=sc)
+    with pytest.raises(ValueError, match="dtype"):  # scales must be f32
+        paged_flash_decode(q, kp, kp, table, 3, k_scale=sc.double(),
+                           v_scale=sc.double())
+    with pytest.raises(ValueError, match="together"):
+        paged_flash_decode(q, kp, kp, table, 3, k_scale=sc)

@@ -252,9 +252,12 @@ def _jax_chunks(jm, cache, prompt, start):
 @pytest.fixture(scope="module")
 def jax_streams(models):
     jm, _ = models
-    out = {"dense": JaxEngine(jm, mode="xla").serve(IDS, GEN, MAXLEN),
-           "paged": JaxEngine(jm, mode="xla", paged=True,
-                              page_size=PAGE).serve(IDS, GEN, MAXLEN)}
+    out = {}
+    for name, kw in (("dense", {}), ("paged", dict(paged=True,
+                                                      page_size=PAGE))):
+        eng = JaxEngine(jm, mode="xla", **kw)
+        out[name] = eng.serve(IDS, GEN, MAXLEN)
+        out[f"{name}-stats"] = eng.last_stats
     for pc in (False, True):
         eng = JaxContinuous(jm, max_batch=2, page_size=PAGE,
                             max_length=MAXLEN, num_pages=7, prefix_cache=pc)
@@ -272,6 +275,9 @@ def test_engine_serve_tokens_identical(models, jax_streams, paged):
                                                    else "dense"])
     assert eng.last_stats["decode_steps"] == GEN - 1
     assert missing_core_stats(eng.last_stats) == []
+    want = jax_streams[("paged" if paged else "dense") + "-stats"]
+    for key in ("kv_dtype", "kv_bytes_per_token"):
+        assert eng.last_stats[key] == want[key], key
 
 
 @pytest.mark.parametrize("prefix_cache,prefill_chunk", [

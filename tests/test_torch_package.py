@@ -4,7 +4,7 @@
   interpreter and by a source scan).
 - Its entry points run on CUDA unless the caller passes
   ``device="cpu"``, and raise when CUDA is absent: nothing falls back.
-- Knobs of the JAX engines that this slice does not port are refused.
+- Knobs of the JAX engines that the port does not take yet are refused.
 - ``chip_smoke.py`` fails without a GPU, and alone in a directory.
 """
 
@@ -105,25 +105,33 @@ def test_entry_points_need_cuda_unless_told_cpu(no_cuda):
     assert eng.audit() == []
 
 
+def _refusal(knobs) -> type:
+    """Unported knobs raise NotImplementedError; a kv_dtype the engine
+    cannot take (not int8, or int8 on a dense cache) is a ValueError, as
+    in the JAX engines."""
+    return ValueError if "kv_dtype" in knobs else NotImplementedError
+
+
 @pytest.mark.parametrize("knobs", [
     dict(mode="mega"), dict(mode="pallas"), dict(speculative=2),
-    dict(kv_dtype="int8"), dict(temperature=0.7),
+    dict(kv_dtype="int8", paged=False), dict(temperature=0.7),
+    dict(kv_dtype="fp8", paged=True),
 ])
 def test_engine_refuses_unported_knobs(knobs):
     model = AutoLLM.from_pretrained("tiny", device="cpu")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(_refusal(knobs)):
         Engine(model, device="cpu", **knobs)
 
 
 @pytest.mark.parametrize("knobs", [
     dict(mode="mega"), dict(resident=True), dict(speculative=2),
-    dict(kv_dtype="int8"), dict(tier_bytes=1 << 20), dict(cp=2),
+    dict(kv_dtype="fp8"), dict(tier_bytes=1 << 20), dict(cp=2),
     dict(rank_page_budget=256), dict(snapshot_every=2),
     dict(temperature=0.5),
 ])
 def test_continuous_refuses_unported_knobs(knobs):
     model = AutoLLM.from_pretrained("tiny", device="cpu")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(_refusal(knobs)):
         ContinuousEngine(model, page_size=16, device="cpu", **knobs)
 
 

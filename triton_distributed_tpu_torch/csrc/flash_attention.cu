@@ -3,7 +3,10 @@
 // Replaces: triton_distributed_tpu/ops/attention/flash_attention.py
 // `_attn_kernel` (the Pallas TPU kernel behind `flash_attention`), the
 // prefill attention of batched prefill and of chunked prefix-cache
-// prefill with a dynamic `kv_offset`.
+// prefill with a dynamic `kv_offset`; and the same `_attn_kernel` with
+// `ks_ref`/`vs_ref` (int8 K/V codes with one f32 scale per `block_k`
+// keys per kv head), the chunked prefill over an int8 page pool
+// (`block_k` = page).
 //
 // What it computes, per query row r of head h (kv head h / group):
 //   s_c = (q_r . k_c) * sm_scale in f32, masked to -1e30 where
@@ -11,6 +14,10 @@
 //   an online softmax over kv tiles with f32 (m, l, acc), P rounded to
 //   V's dtype before P·V (f32 accumulation), l floored at 1e-30, and the
 //   optional base-e LSE m + log(l).
+//   int8: s_c = (q_r . code_c) * (sm_scale * k_scale[c / block_k]), and
+//   P·V adds p_c * v_scale[c / block_k] * code_c with p unrounded, the TPU
+//   kernel's in-register dequant folded per key (its scale is per
+//   block_k keys, independent of this kernel's 32-key tile).
 //
 // What bounds it on the H100: at the main path's shapes (a 256-token
 // chunk against <= 2k cached positions, head_dim 128) the work is a
@@ -32,6 +39,8 @@
 // output columns while p_j is broadcast by shuffle.
 #include "tdt_common.cuh"
 
+#include <type_traits>
+
 namespace {
 
 constexpr int kWarps = 4;
@@ -39,12 +48,18 @@ constexpr int kThreads = kWarps * 32;
 constexpr int kBlockQ = 16;  // query rows per block, 4 per warp
 constexpr int kBlockK = 32;  // keys per staged tile, one per lane
 
-template <typename T, int D>
+// T is q/o's type, KT the K/V element type (T, or int8_t codes with
+// k_scale/v_scale [B, Hkv, Sk / block_k] f32).
+template <typename T, typename KT, int D>
 __global__ void __launch_bounds__(kThreads)
-    flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                           const T* __restrict__ v, T* __restrict__ o,
-                           float* __restrict__ lse, int hq, int hkv, int sq,
-                           int sk, int kv_offset, float sm_scale) {
+    flash_attention_kernel(const T* __restrict__ q, const KT* __restrict__ k,
+                           const KT* __restrict__ v,
+                           const float* __restrict__ k_scale,
+                           const float* __restrict__ v_scale,
+                           T* __restrict__ o, float* __restrict__ lse,
+                           int hq, int hkv, int sq, int sk, int kv_offset,
+                           int block_k, float sm_scale) {
+  constexpr bool kQuant = std::is_same<KT, int8_t>::value;
   constexpr int EPL = D / 32;            // output columns per lane
   constexpr int RPW = kBlockQ / kWarps;  // query rows per warp
   __shared__ float q_s[kBlockQ][D];
@@ -60,8 +75,13 @@ __global__ void __launch_bounds__(kThreads)
   const int lane = threadIdx.x % 32;
 
   const T* qb = q + (size_t)bh * sq * D;
-  const T* kb = k + (size_t)(b * hkv + kvh) * sk * D;
-  const T* vb = v + (size_t)(b * hkv + kvh) * sk * D;
+  const KT* kb = k + (size_t)(b * hkv + kvh) * sk * D;
+  const KT* vb = v + (size_t)(b * hkv + kvh) * sk * D;
+  const int n_blocks = kQuant ? sk / block_k : 0;
+  const float* ksb = kQuant ? k_scale + (size_t)(b * hkv + kvh) * n_blocks
+                            : nullptr;
+  const float* vsb = kQuant ? v_scale + (size_t)(b * hkv + kvh) * n_blocks
+                            : nullptr;
 
   for (int i = threadIdx.x; i < kBlockQ * D; i += kThreads) {
     const int r = i / D, c = i % D;
@@ -92,6 +112,14 @@ __global__ void __launch_bounds__(kThreads)
     }
     __syncthreads();
     const int col = k0 + lane;
+    // This lane's key: its score multiplier and P·V weight scale.
+    float k_mult = sm_scale, v_mult = 1.f;
+    if constexpr (kQuant) {
+      if (col < sk) {
+        k_mult = sm_scale * ksb[col / block_k];
+        v_mult = vsb[col / block_k];
+      }
+    }
 #pragma unroll
     for (int rr = 0; rr < RPW; ++rr) {
       const int r = warp * RPW + rr;
@@ -100,14 +128,18 @@ __global__ void __launch_bounds__(kThreads)
       float s = 0.f;
 #pragma unroll 16
       for (int d = 0; d < D; ++d) s = fmaf(q_s[r][d], k_s[lane][d], s);
-      s *= sm_scale;
+      s *= k_mult;
       const bool visible = col < sk && col <= kv_offset + row;
       if (!visible) s = tdt::kNegInf;
       const float m_new = fmaxf(m[rr], tdt::warp_max(s));
       const float p = expf(s - m_new);
       const float alpha = expf(m[rr] - m_new);
       l[rr] = l[rr] * alpha + tdt::warp_sum(p);
-      const float pr = tdt::round_to<T>(p);
+      float pr;
+      if constexpr (kQuant)
+        pr = p * v_mult;
+      else
+        pr = tdt::round_to<T>(p);
 #pragma unroll
       for (int e = 0; e < EPL; ++e) acc[rr][e] *= alpha;
 #pragma unroll 8
@@ -135,33 +167,66 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <typename T, int D>
-void launch(const void* q, const void* k, const void* v, void* o, float* lse,
-            int b, int hq, int hkv, int sq, int sk, int kv_offset,
-            float sm_scale, cudaStream_t stream) {
+template <typename T, typename KT, int D>
+void launch(const void* q, const void* k, const void* v, const float* ks,
+            const float* vs, void* o, float* lse, int b, int hq, int hkv,
+            int sq, int sk, int kv_offset, int block_k, float sm_scale,
+            cudaStream_t stream) {
   dim3 grid(b * hq, (sq + kBlockQ - 1) / kBlockQ);
-  flash_attention_kernel<T, D><<<grid, kThreads, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), lse, hq, hkv, sq, sk,
-      kv_offset, sm_scale);
+  flash_attention_kernel<T, KT, D><<<grid, kThreads, 0, stream>>>(
+      static_cast<const T*>(q), static_cast<const KT*>(k),
+      static_cast<const KT*>(v), ks, vs, static_cast<T*>(o), lse, hq, hkv,
+      sq, sk, kv_offset, block_k, sm_scale);
+}
+
+// K/V of q's type, or int8 codes when the scales are given.
+template <typename T, int D>
+void launch_kv(const void* q, const void* k, const void* v, const float* ks,
+               const float* vs, void* o, float* lse, int b, int hq, int hkv,
+               int sq, int sk, int kv_offset, int block_k, float sm_scale,
+               cudaStream_t stream) {
+  if (ks != nullptr)
+    launch<T, int8_t, D>(q, k, v, ks, vs, o, lse, b, hq, hkv, sq, sk,
+                         kv_offset, block_k, sm_scale, stream);
+  else
+    launch<T, T, D>(q, k, v, ks, vs, o, lse, b, hq, hkv, sq, sk, kv_offset,
+                    block_k, sm_scale, stream);
 }
 
 template <typename T>
-int dispatch_d(int d, const void* q, const void* k, const void* v, void* o,
-               float* lse, int b, int hq, int hkv, int sq, int sk,
-               int kv_offset, float sm_scale, cudaStream_t stream) {
+int dispatch_d(int d, const void* q, const void* k, const void* v,
+               const float* ks, const float* vs, void* o, float* lse, int b,
+               int hq, int hkv, int sq, int sk, int kv_offset, int block_k,
+               float sm_scale, cudaStream_t stream) {
   switch (d) {
     case 32:
-      launch<T, 32>(q, k, v, o, lse, b, hq, hkv, sq, sk, kv_offset, sm_scale,
-                    stream);
+      launch_kv<T, 32>(q, k, v, ks, vs, o, lse, b, hq, hkv, sq, sk,
+                       kv_offset, block_k, sm_scale, stream);
       return 0;
     case 128:
-      launch<T, 128>(q, k, v, o, lse, b, hq, hkv, sq, sk, kv_offset,
-                     sm_scale, stream);
+      launch_kv<T, 128>(q, k, v, ks, vs, o, lse, b, hq, hkv, sq, sk,
+                        kv_offset, block_k, sm_scale, stream);
       return 0;
     default:
       return 1;
   }
+}
+
+int run(const void* q, const void* k, const void* v, const float* ks,
+        const float* vs, void* o, float* lse, int b, int hq, int hkv, int sq,
+        int sk, int d, int kv_offset, int block_k, float sm_scale, int dtype,
+        void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  int bad = 1;
+  if (dtype == tdt::kDtypeF32)
+    bad = dispatch_d<float>(d, q, k, v, ks, vs, o, lse, b, hq, hkv, sq, sk,
+                            kv_offset, block_k, sm_scale, st);
+  else if (dtype == tdt::kDtypeBF16)
+    bad = dispatch_d<__nv_bfloat16>(d, q, k, v, ks, vs, o, lse, b, hq, hkv,
+                                    sq, sk, kv_offset, block_k, sm_scale,
+                                    st);
+  if (bad) return (int)cudaErrorInvalidValue;
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -173,14 +238,21 @@ extern "C" int tdt_flash_attention_fwd(const void* q, const void* k,
                                        int b, int hq, int hkv, int sq, int sk,
                                        int d, int kv_offset, float sm_scale,
                                        int dtype, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  int bad = 1;
-  if (dtype == tdt::kDtypeF32)
-    bad = dispatch_d<float>(d, q, k, v, o, lse, b, hq, hkv, sq, sk,
-                            kv_offset, sm_scale, st);
-  else if (dtype == tdt::kDtypeBF16)
-    bad = dispatch_d<__nv_bfloat16>(d, q, k, v, o, lse, b, hq, hkv, sq, sk,
-                                    kv_offset, sm_scale, st);
-  if (bad) return (int)cudaErrorInvalidValue;
-  return (int)cudaGetLastError();
+  return run(q, k, v, nullptr, nullptr, o, lse, b, hq, hkv, sq, sk, d,
+             kv_offset, 1, sm_scale, dtype, stream);
+}
+
+// int8 K/V: k/v int8 codes [B, Hkv, Sk, D], k_scale/v_scale [B, Hkv,
+// Sk / block_k] f32 (non-null, Sk a multiple of block_k); q/o of `dtype`;
+// the rest as above.
+extern "C" int tdt_flash_attention_int8_fwd(
+    const void* q, const void* k, const void* v, const float* k_scale,
+    const float* v_scale, void* o, float* lse, int b, int hq, int hkv,
+    int sq, int sk, int d, int kv_offset, int block_k, float sm_scale,
+    int dtype, void* stream) {
+  if (k_scale == nullptr || v_scale == nullptr || block_k < 1 ||
+      sk % block_k != 0)
+    return (int)cudaErrorInvalidValue;
+  return run(q, k, v, k_scale, v_scale, o, lse, b, hq, hkv, sq, sk, d,
+             kv_offset, block_k, sm_scale, dtype, stream);
 }

@@ -3,7 +3,8 @@
 // Every kernel computes in f32 and stores in the tensor's own dtype:
 // f32 (dtype code 0) or bf16 (dtype code 1). bf16 conversions use the
 // round-to-nearest-even intrinsics, the same rounding as torch's
-// `.to(torch.bfloat16)` and jnp's `astype(jnp.bfloat16)`.
+// `.to(torch.bfloat16)` and jnp's `astype(jnp.bfloat16)`. int8 KV codes
+// widen to f32 exactly.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -21,6 +22,9 @@ constexpr float kNegInf = -1e30f;
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
   return __bfloat162float(x);
+}
+__device__ __forceinline__ float to_f32(int8_t x) {
+  return static_cast<float>(x);
 }
 
 template <typename T>

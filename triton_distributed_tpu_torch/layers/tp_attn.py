@@ -8,10 +8,12 @@ over a one-device axis, so they drop out; the attention itself is the
 port's hand-written kernels.
 
 The JAX functions take a donated cache and return the updated one; here
-the KV caches/pools are updated IN PLACE (slice/index assignment) and
-still returned, so call sites read alike. Not ported, and refused: the
-int8-KV scales, the tree-speculation ``attn_bias``/``rope_pos`` and the
-``pallas`` modes (ROADMAP queue 1).
+the KV caches/pools (and an int8 pool's scales) are updated IN PLACE and
+still returned, so call sites read alike. The paged functions take an
+int8 pool's ``k_scale``/``v_scale`` as the JAX ones do: the writes go
+through :func:`quantized_row_scatter` and the attention reads the codes
+through the int8 kernels. Not ported, and refused: the tree-speculation
+``attn_bias``/``rope_pos`` and the ``pallas`` modes (ROADMAP queue 1).
 
 Parameters are a dict ``{"wqkv": [d, (hq + 2*hkv) * hd] (q | k | v),
 "wo": [hq * hd, d], "q_norm": [hd], "k_norm": [hd]}`` (norms may be
@@ -68,12 +70,7 @@ class TPAttnDims:
         )
 
 
-def _refuse_unported(k_scale=None, v_scale=None, attn_bias=None,
-                     rope_pos=None) -> None:
-    if k_scale is not None or v_scale is not None:
-        raise NotImplementedError(
-            "int8 KV scales are not ported yet (ROADMAP queue 1, item 5)"
-        )
+def _refuse_unported(attn_bias=None, rope_pos=None) -> None:
     if attn_bias is not None or rope_pos is not None:
         raise NotImplementedError(
             "tree-speculation attn_bias/rope_pos are not ported yet "
@@ -126,8 +123,9 @@ def tp_attn_prefill_paged_chunk(
     *,
     kv_pages: int | None = None,
     mode: str = "xla_ar",
-    k_scale=None,
-    v_scale=None,
+    k_scale: torch.Tensor | None = None,  # [P, hkv] f32 — int8 pool scales
+    v_scale: torch.Tensor | None = None,
+    q_end: int | None = None,             # absolute end of the REAL rows
     attn_bias=None,
     rope_pos=None,
 ):
@@ -137,10 +135,16 @@ def tp_attn_prefill_paged_chunk(
     the chunk's queries against the whole cached context (prefix pages +
     the chunk) through ``kv_offset = q_offset``. Final-chunk right-padding
     that runs past the table's capacity is routed to the trash page 0.
-    The gather is bounded to ``kv_pages`` table entries. Returns
-    ``(out [C, d], k_pages, v_pages, None, None)``."""
+    The gather is bounded to ``kv_pages`` table entries.
+
+    On an int8 pool the scatter quantizes the chunk's rows, and rows at
+    or past ``q_end`` (the chunk's right-padding) go to the trash page 0,
+    offset 0: a pad row would otherwise grow, or at offset 0 seed, a real
+    page's scale. The attention reads the codes with the per-page scales
+    gathered through the same table entries (``block_k = page``).
+    Returns ``(out [C, d], k_pages, v_pages, k_scale, v_scale)``."""
     check_mode(mode)
-    _refuse_unported(k_scale, v_scale, attn_bias, rope_pos)
+    _refuse_unported(attn_bias, rope_pos)
     c = x.shape[0]
     page = k_pages.shape[2]
     pps = table_row.shape[0]
@@ -151,15 +155,47 @@ def tp_attn_prefill_paged_chunk(
     slot_page = torch.clamp(pos // page, 0, pps - 1)
     pids = torch.where(valid, table_row.long()[slot_page], 0)
     offs = torch.where(valid, pos % page, 0)
-    k_pages[pids, :, offs, :] = k.transpose(0, 1).to(k_pages.dtype)
-    v_pages[pids, :, offs, :] = v.transpose(0, 1).to(v_pages.dtype)
-
     gather_row = table_row if kv_pages is None else table_row[:kv_pages]
+    if k_scale is not None:
+        # Imported here, as in the JAX package: models/ imports this
+        # module, so a top-level import would be circular.
+        from triton_distributed_tpu_torch.models.paged_kv_cache import (
+            quantized_row_scatter,
+        )
+
+        real = valid if q_end is None else valid & (pos < q_end)
+        pids = torch.where(real, pids, 0)
+        offs = torch.where(real, offs, 0)
+        # The real rows (positions [q_offset, end)) fill the table's
+        # pages from q_offset // page on; every other row goes to page 0.
+        # The host knows these bounds, so the scatter re-quantizes each
+        # touched page once instead of once per row.
+        end = min(q_offset + c, pps * page,
+                  q_offset + c if q_end is None else int(q_end))
+        touched = table_row[q_offset // page:-(-end // page)].long()
+        if end <= q_offset:
+            touched = touched[:0]
+        if end < q_offset + c:
+            touched = torch.cat([touched, touched.new_zeros(1)])
+        quantized_row_scatter(k_pages, k_scale, k.transpose(0, 1), pids,
+                              offs, touched)
+        quantized_row_scatter(v_pages, v_scale, v.transpose(0, 1), pids,
+                              offs, touched)
+        cols = gather_row.long()
+        scales = {"k_scale": k_scale[cols].T[None].contiguous(),
+                  "v_scale": v_scale[cols].T[None].contiguous(),
+                  "block_k": page}
+    else:
+        k_pages[pids, :, offs, :] = k.transpose(0, 1).to(k_pages.dtype)
+        v_pages[pids, :, offs, :] = v.transpose(0, 1).to(v_pages.dtype)
+        scales = {}
+
     k_dense = pages_to_dense(k_pages, gather_row[None])  # [1, h, S_kv, hd]
     v_dense = pages_to_dense(v_pages, gather_row[None])
     o = flash_attention(q[None].contiguous(), k_dense, v_dense, causal=True,
-                        kv_offset=q_offset)[0]
-    return _o_proj(params, o, dims, x.dtype), k_pages, v_pages, None, None
+                        kv_offset=q_offset, **scales)[0]
+    return (_o_proj(params, o, dims, x.dtype), k_pages, v_pages, k_scale,
+            v_scale)
 
 
 def _decode_qkv(params, x, kv_len, dims):
@@ -207,25 +243,35 @@ def tp_attn_decode_paged(
     dims: TPAttnDims,
     *,
     mode: str = "xla_ar",
-    k_scale=None,
-    v_scale=None,
+    k_scale: torch.Tensor | None = None,  # [P, hkv] f32 — int8 pool scales
+    v_scale: torch.Tensor | None = None,
 ):
     """Decode step over the paged pool: the append goes through the page
     table for EVERY row (an inactive slot has kv_len 0 and a zeroed table
     row, so it writes the trash page 0, offset 0), then
-    :func:`paged_flash_decode` reads the pool directly. Returns
-    ``(out [B, d], k_pages, v_pages, None, None)``."""
+    :func:`paged_flash_decode` reads the pool directly. On an int8 pool
+    (``k_scale``/``v_scale`` given) the append is ONE batched
+    :func:`quantized_row_scatter` over all B rows and the decode reads
+    the codes with their scales. Returns ``(out [B, d], k_pages,
+    v_pages, k_scale, v_scale)``."""
     check_mode(mode)
-    _refuse_unported(k_scale, v_scale)
     b = x.shape[0]
     page = k_pages.shape[2]
     q, k, v = _decode_qkv(params, x, kv_len, dims)
     pos = kv_len.long()
     col = torch.clamp(pos // page, 0, page_table.shape[1] - 1)
     pids = page_table.long()[torch.arange(b, device=x.device), col]
-    k_pages[pids, :, pos % page, :] = k.to(k_pages.dtype)
-    v_pages[pids, :, pos % page, :] = v.to(v_pages.dtype)
+    if k_scale is not None:
+        from triton_distributed_tpu_torch.models.paged_kv_cache import (
+            quantized_row_scatter,
+        )
+
+        quantized_row_scatter(k_pages, k_scale, k, pids, pos % page)
+        quantized_row_scatter(v_pages, v_scale, v, pids, pos % page)
+    else:
+        k_pages[pids, :, pos % page, :] = k.to(k_pages.dtype)
+        v_pages[pids, :, pos % page, :] = v.to(v_pages.dtype)
     o = paged_flash_decode(q.contiguous(), k_pages, v_pages, page_table,
-                           kv_len + 1)
+                           kv_len + 1, k_scale=k_scale, v_scale=v_scale)
     out = o.reshape(b, dims.hq_loc * dims.head_dim).to(x.dtype) @ params["wo"]
-    return out, k_pages, v_pages, None, None
+    return out, k_pages, v_pages, k_scale, v_scale

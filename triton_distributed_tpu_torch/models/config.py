@@ -1,8 +1,8 @@
 """Model configs: ``ModelConfig`` and the Qwen3 presets.
 
 Counterpart of ``triton_distributed_tpu/models/config.py``; the same
-fields and presets, with ``dtype`` a ``torch.dtype``. The MoE preset and
-the int8 KV knob wait for later slices (ROADMAP queue 1).
+fields and presets, with ``dtype`` a ``torch.dtype``. The MoE preset
+waits for a later slice (ROADMAP queue 1).
 """
 
 from __future__ import annotations
@@ -27,6 +27,10 @@ class ModelConfig:
     tie_word_embeddings: bool = False
     max_length: int = 4096
     dtype: torch.dtype = torch.bfloat16
+    # KV-cache storage: None (full width, ``dtype``) or "int8" (int8
+    # codes + per-page-per-head f32 scales). An engine's explicit
+    # ``kv_dtype`` knob wins over this.
+    kv_dtype: str | None = None
 
 
 # Architecture presets (numbers from the public HF Qwen3 configs).

@@ -18,9 +18,12 @@ deadline-expired or crashed request tears down only its own slot and
 surfaces a structured :class:`RequestResult`. ``run()`` ends with the
 pool/radix invariant audit.
 
+``kv_dtype="int8"`` stores the pool as int8 codes plus one f32 scale per
+(layer, page, kv head); COW clones carry the scales with the codes.
+
 Greedy only. Not ported, and refused when asked for: sampled requests
 (``temperature > 0``), the megakernel and resident decode, speculation,
-int8 KV, slot migration/snapshots, the KV tier and fabric,
+slot migration/snapshots, the KV tier and fabric,
 context-parallel prefill and sharded long-context slots, the device task
 tracer (ROADMAP queue 1). Cancellation, request timelines and fault
 seams are not ported either.
@@ -48,6 +51,7 @@ from triton_distributed_tpu_torch.models.paged_kv_cache import (
     copy_page,
     init_paged_cache,
     kv_bytes_per_token,
+    resolve_kv_dtype,
     truncate_pages,
     write_prefill,
 )
@@ -56,7 +60,10 @@ from triton_distributed_tpu_torch.models.prefix_cache import (
     PrefixMatch,
     round_chunk,
 )
-from triton_distributed_tpu_torch.models.stats import STAT_METRICS
+from triton_distributed_tpu_torch.models.stats import (
+    STAT_METRICS,
+    kv_dtype_name,
+)
 from triton_distributed_tpu_torch.obs import events as obs_events
 from triton_distributed_tpu_torch.obs import metrics as obs_metrics
 
@@ -142,7 +149,7 @@ class Request:
 
 # Knobs of the JAX ContinuousEngine this slice does not port: each
 # raises NotImplementedError when set (ROADMAP queue 1).
-_UNPORTED = ("speculative", "kv_dtype", "resident", "mega_cfg",
+_UNPORTED = ("speculative", "resident", "mega_cfg",
              "kernel_trace", "snapshot_every", "tier_bytes", "tier_dir",
              "tier", "fabric", "rank_page_budget")
 
@@ -175,6 +182,7 @@ class ContinuousEngine:
         prefix_cache: bool = False,
         prefill_chunk: int = 0,
         max_queue: int | None = None,
+        kv_dtype: str | None = None,
         cp: int = 1,
         device=None,
         **unported,
@@ -206,10 +214,12 @@ class ContinuousEngine:
         # +1: page 0 is reserved as the trash page every inactive slot's
         # table points at, and must not shave serviceable capacity.
         n_pages = (num_pages or max_batch * self.pps) + 1
+        # int8 KV: the explicit knob wins over the model config's.
+        self.kv_dtype = resolve_kv_dtype(kv_dtype, model.cfg)
         self.cache, self.pool = init_paged_cache(
             model.cfg, max_batch, model.device,
             max_length=self.max_length, page_size=page_size,
-            num_pages=n_pages, assign_pages=False,
+            num_pages=n_pages, assign_pages=False, kv_dtype=self.kv_dtype,
         )
         self.pool.free = [p for p in self.pool.free if p != 0]
         self._capacity = len(self.pool.free)
@@ -246,7 +256,8 @@ class ContinuousEngine:
         stats = dict(self.stats)
         stats["free_pages"] = len(self.pool.free)
         stats["kv_bytes_per_token"] = kv_bytes_per_token(self.cache)
-        stats["kv_dtype"] = str(self.cache.k_pages.dtype)
+        stats["kv_dtype"] = kv_dtype_name(self.kv_dtype,
+                                          self.cache.k_pages.dtype)
         if self.prefix is not None:
             stats["prefix_cache"] = dict(self.prefix.stats)
             stats["prefix_hit_rate"] = self.prefix.hit_rate

@@ -5,10 +5,12 @@ Counterpart of ``triton_distributed_tpu/models/engine.py``:
 (``paged=True``) and the cross-serve radix prefix cache
 (``paged=True, prefix_cache=True``), plus ``prefill_suffix_chunks``,
 the chunked suffix prefill both engines share. Decode is greedy.
+``kv_dtype="int8"`` (paged only) stores the pool as int8 codes plus
+per-page scales.
 
 Not ported, and refused when asked for: ``mode="mega"`` (the
-megakernel), ``mode="pallas"``, ``speculative``, ``kv_dtype`` (int8 KV),
-``profile`` and ``temperature > 0`` (ROADMAP queue 1).
+megakernel), ``mode="pallas"``, ``speculative``, ``profile`` and
+``temperature > 0`` (ROADMAP queue 1).
 """
 
 from __future__ import annotations
@@ -29,13 +31,17 @@ from triton_distributed_tpu_torch.models.paged_kv_cache import (
     gather_bucket,
     init_paged_cache,
     kv_bytes_per_token,
+    resolve_kv_dtype,
     write_prefill,
 )
 from triton_distributed_tpu_torch.models.prefix_cache import (
     PrefixCache,
     round_chunk,
 )
-from triton_distributed_tpu_torch.models.stats import STAT_METRICS
+from triton_distributed_tpu_torch.models.stats import (
+    STAT_METRICS,
+    kv_dtype_name,
+)
 from triton_distributed_tpu_torch.obs import metrics as obs_metrics
 from triton_distributed_tpu_torch.runtime.context import resolve_device
 
@@ -143,7 +149,15 @@ class Engine:
         device=None,
     ):
         engine_setup(model, device, mode, temperature,
-                     speculative=speculative, kv_dtype=kv_dtype)
+                     speculative=speculative)
+        # The explicit knob wins over the model config's kv_dtype; the
+        # scales live on the page pool, so a dense cache cannot hold int8.
+        self.kv_dtype = resolve_kv_dtype(kv_dtype, model.cfg)
+        if self.kv_dtype is not None and not paged:
+            raise ValueError(
+                "kv_dtype requires paged=True (scales live on the "
+                "page pool; the dense cache has no pages)"
+            )
         self.model = model
         self.mode = mode
         self.last_stats: dict = {}
@@ -256,6 +270,7 @@ class Engine:
             cache, _pool = init_paged_cache(
                 self.model.cfg, b, self.model.device,
                 max_length=max_length, page_size=self.page_size,
+                kv_dtype=self.kv_dtype,
             )
             # One batch-1 dense scratch, reused per row then copied into
             # pages — a full-batch dense cache beside the pool would
@@ -309,13 +324,14 @@ class Engine:
         h["serve_seconds"].observe(t_prefill + t_decode)
         if self.paged:
             self.last_stats["kv_bytes_per_token"] = kv_bytes_per_token(cache)
-            self.last_stats["kv_dtype"] = str(cache.k_pages.dtype)
+            self.last_stats["kv_dtype"] = kv_dtype_name(
+                self.kv_dtype, cache.k_pages.dtype)
         else:
             L, _b, H, _s, hd = cache.k.shape
             self.last_stats["kv_bytes_per_token"] = float(
                 2 * L * H * hd * cache.k.element_size()
             )
-            self.last_stats["kv_dtype"] = str(cache.k.dtype)
+            self.last_stats["kv_dtype"] = kv_dtype_name(None, cache.k.dtype)
         if row_meta is not None:
             self._prefix_retire(
                 result, rows, true_lens, gen_len, cache, row_meta
@@ -338,6 +354,7 @@ class Engine:
                 # +1: page 0 reserved as the trash page unused table
                 # entries point at (same convention as ContinuousEngine).
                 num_pages=b * pps + 1, assign_pages=False,
+                kv_dtype=self.kv_dtype,
             )
             pool.free = [p for p in pool.free if p != 0]
             self._prefix_state = _PrefixState(

@@ -1,16 +1,21 @@
 """Paged KV cache: fixed-size pages + per-sequence page tables.
 
-Counterpart of the full-width half of
-``triton_distributed_tpu/models/paged_kv_cache.py``. The pool is one
-tensor per K/V, ``[L, num_pages, Hkv, page, hd]``; the page table and the
-free list are control-plane state. Page 0 is reserved as the trash page
-that inactive slots and out-of-table pad rows write to.
+Counterpart of ``triton_distributed_tpu/models/paged_kv_cache.py``. The
+pool is one tensor per K/V, ``[L, num_pages, Hkv, page, hd]``; the page
+table and the free list are control-plane state. Page 0 is reserved as
+the trash page that inactive slots and out-of-table pad rows write to.
 
 The JAX writers take a donated cache and return a new one; these write
 the pool IN PLACE and return the cache, so call sites read alike.
-:func:`copy_page` copies the page's contents (never aliases). The int8
-pool (scales, the quantized scatter) is a later slice (ROADMAP queue 1,
-item 5).
+:func:`copy_page` copies the page's contents (never aliases).
+
+``kv_dtype="int8"`` stores int8 codes plus ONE symmetric f32 scale per
+(layer, page, kv head), ``x ≈ code * scale`` with ``scale = amax / 127``
+over the page's (page, hd) block. A write at page offset 0 sets the
+scale absolutely (a fresh page has no valid prior rows, and a recycled
+page's stale scale must not survive); later writes grow it by max and
+re-quantize the stored codes under the grown scale. The attention
+kernels dequantize in registers, so full-width KV never materializes.
 """
 
 from __future__ import annotations
@@ -23,6 +28,7 @@ import torch
 from triton_distributed_tpu_torch.models.config import ModelConfig
 from triton_distributed_tpu_torch.ops.attention.flash_decode import (
     pages_to_dense,
+    scales_to_dense,
 )
 
 
@@ -32,6 +38,112 @@ class PagedKVCache:
     v_pages: torch.Tensor
     page_table: torch.Tensor  # [B, pages_per_seq] int32 — page ids
     kv_len: torch.Tensor      # [B] int32
+    # Per-page-per-head dequantization scales [L, P, Hkv] f32, present
+    # iff the pool stores int8 codes.
+    k_scale: torch.Tensor | None = None
+    v_scale: torch.Tensor | None = None
+
+    @property
+    def quantized(self) -> bool:
+        return self.k_scale is not None
+
+
+KV_DTYPES = (None, "int8")
+_Q_MAX = 127.0
+# Scales are amax * (1/127) in f32: the JAX package's writers run under
+# jit, where XLA compiles ``amax / 127`` to that product, so the port's
+# scales (and hence codes) match the JAX engines' bit for bit.
+_INV_Q_MAX = 1.0 / _Q_MAX
+# Safe-division floor: an all-zero page has amax 0 and scale 0; dividing
+# by the floor maps 0 to 0 instead of NaN.
+_SCALE_EPS = 1e-30
+
+
+def resolve_kv_dtype(kv_dtype: str | None, cfg: ModelConfig) -> str | None:
+    """The KV storage mode: the explicit knob, else ``cfg.kv_dtype``;
+    anything but None or "int8" raises ``ValueError``."""
+    resolved = kv_dtype if kv_dtype is not None else cfg.kv_dtype
+    if resolved not in KV_DTYPES:
+        raise ValueError(
+            f"kv_dtype={resolved!r} unsupported; expected None or 'int8'"
+        )
+    return resolved
+
+
+def page_scales(x: torch.Tensor) -> torch.Tensor:
+    """Symmetric per-page-per-head scale of ``x [..., page, hd]``: amax
+    over the trailing (page, hd) block / 127, f32."""
+    return torch.amax(x.to(torch.float32).abs(), dim=(-2, -1)) * _INV_Q_MAX
+
+
+def quantize_page(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """Quantize ``x [..., page, hd]`` under ``scale [...]`` (int8,
+    round half to even, clipped symmetric at ±127)."""
+    s = torch.clamp(scale, min=_SCALE_EPS)[..., None, None]
+    q = torch.round(x.to(torch.float32) / s)
+    return torch.clamp(q, -_Q_MAX, _Q_MAX).to(torch.int8)
+
+
+def dequantize_page(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """Inverse of :func:`quantize_page` (f32)."""
+    return q.to(torch.float32) * scale[..., None, None]
+
+
+def quantize_pages(pages: torch.Tensor):
+    """One-shot pool quantization (tests, benches): ``[..., page, hd]``
+    → ``(int8 codes, per-page-per-head scales [...])``."""
+    scale = page_scales(pages)
+    return quantize_page(pages, scale), scale
+
+
+def quantized_row_scatter(pages, scales, rows, pids, offs, touched=None):
+    """Scatter ``rows [C, H, hd]`` into a ONE-LAYER int8 pool ``pages
+    [P, H, page, hd]`` at ``(pids[c], offs[c])``, in place: grow each
+    touched page's ``scales [P, H]`` to cover its new rows (reset, not
+    grown, when a row lands at page offset 0), re-quantize the touched
+    pages' stored codes under the grown scales, then write the rows as
+    int8. Returns ``(pages, scales)``.
+
+    THE one implementation of the scale protocol: the chunk-prefill
+    scatter and the decode append (``layers/tp_attn.py``) both call it.
+    Duplicate ``pids`` (several rows in one page, trash-page fan-in) are
+    safe: the scale min/max are reductions, and duplicate re-quantized
+    pages are identical. ``touched`` (default ``pids``) lists the pages
+    to re-quantize, and must hold exactly the distinct values of
+    ``pids`` (repeats allowed): a chunk's rows fall in a few pages the
+    caller knows, and re-quantizing one copy per page instead of one per
+    row leaves the same codes.
+
+    No host sync: the JAX version skips the re-quantization when no
+    touched scale moved (``lax.cond``); here the skip is a device-side
+    ``torch.where`` on the same condition, so the codes match the JAX
+    package's bit for bit without the host ever reading a value.
+    """
+    rows = rows.to(torch.float32)
+    pids = pids.long()
+    offs = offs.long()
+    touched = pids if touched is None else touched.long()
+    row_sc = torch.amax(rows.abs(), dim=-1) * _INV_Q_MAX  # [C, H]
+    clear = torch.where(offs == 0, 0.0, float("inf"))[:, None].expand_as(
+        row_sc)
+    old_sc = scales.index_select(0, touched)  # [T, H]
+    idx = pids[:, None].expand_as(row_sc)
+    scales.scatter_reduce_(0, idx, clear, "amin", include_self=True)
+    scales.scatter_reduce_(0, idx, row_sc, "amax", include_self=True)
+    new_sc = scales.index_select(0, touched)
+    # Where no touched scale moved, ratio 1 keeps every code as it is.
+    ratio = torch.where(torch.any(new_sc != old_sc),
+                        old_sc / torch.clamp(new_sc, min=_SCALE_EPS), 1.0)
+    got = pages.index_select(0, touched)  # [T, H, page, hd] int8
+    pages[touched] = torch.clamp(
+        torch.round(got.to(torch.float32) * ratio[..., None, None]),
+        -_Q_MAX, _Q_MAX,
+    ).to(torch.int8)
+    row_sc = torch.clamp(scales.index_select(0, pids), min=_SCALE_EPS)
+    pages[pids, :, offs, :] = torch.clamp(
+        torch.round(rows / row_sc[..., None]), -_Q_MAX, _Q_MAX,
+    ).to(torch.int8)
+    return pages, scales
 
 
 class PagePool:
@@ -59,10 +171,14 @@ def init_paged_cache(
     page_size: int = 128,
     num_pages: int | None = None,
     assign_pages: bool = True,
+    kv_dtype: str | None = None,
 ) -> tuple[PagedKVCache, PagePool]:
     """Allocate the pool + page tables for ``batch_size`` sequences.
     ``assign_pages=False`` leaves the pool full and the table zeroed, for
-    callers that assign pages per request (continuous batching)."""
+    callers that assign pages per request (continuous batching).
+    ``kv_dtype="int8"`` (or ``cfg.kv_dtype``; the argument wins) makes an
+    int8 pool plus ``[L, P, Hkv]`` f32 ``k_scale``/``v_scale``."""
+    kv_dtype = resolve_kv_dtype(kv_dtype, cfg)
     s_max = max_length or cfg.max_length
     if s_max % page_size:
         raise ValueError(f"max_length {s_max} not a page multiple")
@@ -79,22 +195,48 @@ def init_paged_cache(
     shape = (
         cfg.num_layers, num_pages, cfg.num_kv_heads, page_size, cfg.head_dim
     )
+    pool_dtype = torch.int8 if kv_dtype == "int8" else cfg.dtype
+
+    def scales():
+        if kv_dtype is None:
+            return None
+        return torch.zeros(shape[:3], dtype=torch.float32, device=device)
+
     cache = PagedKVCache(
-        k_pages=torch.zeros(shape, dtype=cfg.dtype, device=device),
-        v_pages=torch.zeros(shape, dtype=cfg.dtype, device=device),
+        k_pages=torch.zeros(shape, dtype=pool_dtype, device=device),
+        v_pages=torch.zeros(shape, dtype=pool_dtype, device=device),
         page_table=torch.from_numpy(table).to(device),
         kv_len=torch.zeros((batch_size,), dtype=torch.int32, device=device),
+        k_scale=scales(),
+        v_scale=scales(),
     )
     return cache, pool
 
 
 def kv_bytes_per_token(cache: PagedKVCache) -> float:
-    """Device bytes one cached token costs across the K+V pools."""
-    L, _p, H, _page, hd = cache.k_pages.shape
-    return float(
-        (cache.k_pages.element_size() + cache.v_pages.element_size())
-        * L * H * hd
-    )
+    """Device bytes one cached token costs across the K+V pools, plus the
+    per-page scale overhead when quantized."""
+    L, _p, H, page, hd = cache.k_pages.shape
+    per = (cache.k_pages.element_size() + cache.v_pages.element_size()) * (
+        L * H * hd)
+    if cache.quantized:
+        per += (cache.k_scale.element_size()
+                + cache.v_scale.element_size()) * L * H / page
+    return float(per)
+
+
+def cache_from_jax(tree, device) -> PagedKVCache:
+    """A JAX ``PagedKVCache`` whose leaves are numpy arrays (reached by
+    attribute or key: ``k_pages``, ``v_pages``, ``page_table``,
+    ``kv_len`` and, on an int8 pool, ``k_scale``/``v_scale``) as the
+    port's cache on ``device``: the same codes, scales and tables."""
+    def leaf(name):
+        node = tree[name] if isinstance(tree, dict) else getattr(tree, name)
+        return None if node is None else torch.from_numpy(
+            np.array(node)).to(device)
+
+    return PagedKVCache(**{f.name: leaf(f.name)
+                           for f in dataclasses.fields(PagedKVCache)})
 
 
 class PoolAuditError(RuntimeError):
@@ -211,7 +353,12 @@ def write_prefill(
     true_len: int,
 ) -> PagedKVCache:
     """Copy a dense-prefilled sequence into its pages (in place), one
-    page-sized slice per page; ceil(true_len/page) pages are written."""
+    page-sized slice per page; ceil(true_len/page) pages are written.
+    On an int8 pool every written page is a fresh full write: its scale
+    is set absolutely from the page's amax, after the dense rows at
+    positions ≥ ``true_len`` are zeroed (the dense scratch is reused
+    across prefills, so those rows hold an earlier request's KV and
+    would otherwise make the codes depend on admission order)."""
     page = cache.k_pages.shape[3]
     npages = -(-int(true_len) // page)
     if k_dense.shape[3] < npages * page:
@@ -220,48 +367,85 @@ def write_prefill(
             f"{npages * page} needed for true_len={true_len}"
         )
     row = cache.page_table[b_idx, :npages].tolist()
+    pools = [(cache.k_pages, cache.k_scale, k_dense),
+             (cache.v_pages, cache.v_scale, v_dense)]
     for j, pid in enumerate(row):
         sl = slice(j * page, (j + 1) * page)
-        cache.k_pages[:, pid] = k_dense[:, 0, :, sl].to(cache.k_pages.dtype)
-        cache.v_pages[:, pid] = v_dense[:, 0, :, sl].to(cache.v_pages.dtype)
+        for pages, scales, dense in pools:
+            chunk = dense[:, 0, :, sl]  # [L, H, page, hd]
+            if scales is None:
+                pages[:, pid] = chunk.to(pages.dtype)
+                continue
+            pos = j * page + torch.arange(page, device=chunk.device)
+            chunk = torch.where((pos < true_len)[None, None, :, None],
+                                chunk.to(torch.float32), 0.0)
+            sc = page_scales(chunk)  # [L, H]
+            pages[:, pid] = quantize_page(chunk, sc)
+            scales[:, pid] = sc
     cache.kv_len[b_idx] = int(true_len)
     return cache
 
 
+def _pool_tensors(cache: PagedKVCache):
+    """The per-page tensors of the cache: both pools and, when
+    quantized, both scale arrays (all indexed [L, P, ...])."""
+    return [t for t in (cache.k_pages, cache.v_pages, cache.k_scale,
+                        cache.v_scale) if t is not None]
+
+
 def copy_page(cache: PagedKVCache, src: int, dst: int) -> PagedKVCache:
     """Copy one pool page (K and V, all layers) — the prefix cache's
-    copy-on-write clone. The destination gets its own copy of the data."""
-    cache.k_pages[:, dst].copy_(cache.k_pages[:, src])
-    cache.v_pages[:, dst].copy_(cache.v_pages[:, src])
+    copy-on-write clone. The destination gets its own copy of the data;
+    on an int8 pool the scales are cloned with the codes (the pair is
+    the page's content)."""
+    for t in _pool_tensors(cache):
+        t[:, dst].copy_(t[:, src])
     return cache
 
 
 def gather_pages(cache: PagedKVCache, page_ids: list[int]):
-    """Copy the listed pool pages to host tensors (``[L, n, Hkv, page,
-    hd]``, pool dtype). Returns ``(k, v, None, None)`` — the JAX
-    signature's scale slots stay None on a full-width pool. These are
-    CPU tensors rather than numpy arrays: numpy has no bf16."""
+    """Copy the listed pool pages to host tensors. Returns ``(k, v,
+    k_scale, v_scale)``: ``[L, n, Hkv, page, hd]`` pools in the pool
+    dtype and ``[L, n, Hkv]`` scales (None on a full-width pool). These
+    are CPU tensors rather than numpy arrays: numpy has no bf16."""
     ids = torch.as_tensor([int(p) for p in page_ids], dtype=torch.long,
                           device=cache.k_pages.device)
-    k = cache.k_pages.index_select(1, ids).cpu()
-    v = cache.v_pages.index_select(1, ids).cpu()
-    return k, v, None, None
+    k, v, *sc = [t.index_select(1, ids).cpu() for t in _pool_tensors(cache)]
+    ks, vs = sc if sc else (None, None)
+    return k, v, ks, vs
 
 
-def write_page(cache: PagedKVCache, pid: int, k_page, v_page) -> PagedKVCache:
-    """Write one page's full content (``[L, Hkv, page, hd]``, both pools)
-    into pool page ``pid``, verbatim."""
-    cache.k_pages[:, int(pid)] = torch.as_tensor(k_page).to(
-        cache.k_pages.device, cache.k_pages.dtype)
-    cache.v_pages[:, int(pid)] = torch.as_tensor(v_page).to(
-        cache.v_pages.device, cache.v_pages.dtype)
+def write_page(cache: PagedKVCache, pid: int, k_page, v_page,
+               k_scale=None, v_scale=None) -> PagedKVCache:
+    """Write one page's full content (``[L, Hkv, page, hd]``, both pools;
+    scales ``[L, Hkv]``, required iff the pool is quantized) into pool
+    page ``pid``, verbatim."""
+    if cache.quantized != (k_scale is not None):
+        raise ValueError(
+            "page payload and pool disagree on quantization "
+            f"(pool quantized={cache.quantized}, scales "
+            f"{'present' if k_scale is not None else 'absent'})"
+        )
+    for t, data in zip(_pool_tensors(cache),
+                       (k_page, v_page, k_scale, v_scale)):
+        t[:, int(pid)] = torch.as_tensor(data).to(t.device, t.dtype)
     return cache
 
 
 def as_dense(cache: PagedKVCache, layer=None):
     """Contiguous ``[L?, B, Hkv, S_max, hd]`` views gathered through the
-    table (tests; the serving path reads pages through the kernel)."""
-    kp = cache.k_pages if layer is None else cache.k_pages[layer]
-    vp = cache.v_pages if layer is None else cache.v_pages[layer]
-    return (pages_to_dense(kp, cache.page_table),
-            pages_to_dense(vp, cache.page_table))
+    table (tests; the serving path reads pages through the kernel). An
+    int8 pool's view is dequantized (f32)."""
+    out = []
+    for pages, scales in ((cache.k_pages, cache.k_scale),
+                          (cache.v_pages, cache.v_scale)):
+        if layer is not None:
+            pages = pages[layer]
+            scales = None if scales is None else scales[layer]
+        dense = pages_to_dense(pages, cache.page_table)
+        if scales is not None:
+            page = cache.k_pages.shape[3]
+            dense = dense.to(torch.float32) * scales_to_dense(
+                scales, cache.page_table, page)[..., None]
+        out.append(dense)
+    return tuple(out)

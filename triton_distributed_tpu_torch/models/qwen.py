@@ -166,8 +166,9 @@ class Qwen3:
     def decode_step(self, tokens, cache, mode: str = "xla"):
         """One token for every sequence of the batch: ``tokens [B]`` →
         ``(logits [B, V] f32, cache)``. Accepts a dense :class:`KVCache`
-        or a :class:`PagedKVCache`; K/V are appended in place and the
-        returned cache carries ``kv_len + 1``."""
+        or a :class:`PagedKVCache` (full width or int8); K/V (and an int8
+        pool's scales) are written in place and the returned cache
+        carries ``kv_len + 1``."""
         check_mode(mode)
         paged = isinstance(cache, PagedKVCache)
         x = self._embed(tokens)
@@ -177,6 +178,7 @@ class Qwen3:
                     return tp_attn_decode_paged(
                         lyr["attn"], h, cache.k_pages[i], cache.v_pages[i],
                         cache.page_table, cache.kv_len, self.dims,
+                        **_layer_scales(cache, i),
                     )[0]
             else:
                 def attn(h, i=i, lyr=lyr):
@@ -234,8 +236,9 @@ class Qwen3:
         """Chunked prefill of ``slot``'s suffix over the paged pool: the
         matched prefix pages are attended, only the chunk is computed.
         ``new_len`` is set absolutely as the slot's kv_len (decode steps
-        may run between chunks). Returns ``(logits [V] at last_idx,
-        cache)``."""
+        may run between chunks); on an int8 pool it is also the end of
+        the chunk's real rows (``q_end``), past which rows are padding.
+        Returns ``(logits [V] at last_idx, cache)``."""
         check_mode(mode)
         q_offset = int(q_offset)
         table_row = cache.page_table[int(slot)]
@@ -245,6 +248,7 @@ class Qwen3:
                 return tp_attn_prefill_paged_chunk(
                     lyr["attn"], h, cache.k_pages[i], cache.v_pages[i],
                     table_row, q_offset, self.dims, kv_pages=kv_pages,
+                    q_end=int(new_len), **_layer_scales(cache, i),
                 )[0]
             x = self._block(x, lyr, attn)
         x = rms_norm(x, self.params["norm"], self.cfg.rms_eps)
@@ -257,6 +261,14 @@ class Qwen3:
     def new_cache(self, batch_size: int,
                   max_length: int | None = None) -> KVCache:
         return init_cache(self.cfg, batch_size, self.device, max_length)
+
+
+def _layer_scales(cache: PagedKVCache, i: int) -> dict:
+    """Layer ``i``'s int8 scale views as attention kwargs (empty on a
+    full-width pool)."""
+    if not cache.quantized:
+        return {}
+    return {"k_scale": cache.k_scale[i], "v_scale": cache.v_scale[i]}
 
 
 def _fuse(parts) -> np.ndarray:

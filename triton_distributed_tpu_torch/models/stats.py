@@ -5,9 +5,16 @@ counters the ported engines keep. ``CORE_STATS_KEYS`` is the contract
 both engines expose in ``last_stats``; ``STAT_METRICS`` names the
 registry metric each counter is mirrored into (the JAX package's names,
 so one dashboard reads either).
+
+``kv_bytes_per_token`` is the device bytes one cached token costs (K+V,
+plus the per-page scales of an int8 pool); ``kv_dtype`` is the KV
+storage dtype as the JAX engines write it: ``"int8"`` for an int8 pool,
+else the dtype's numpy name (``"bfloat16"``, ``"float32"``).
 """
 
 from __future__ import annotations
+
+import torch
 
 CORE_STATS_KEYS = (
     "decode_steps",
@@ -16,6 +23,12 @@ CORE_STATS_KEYS = (
     "kv_bytes_per_token",
     "kv_dtype",
 )
+
+
+def kv_dtype_name(kv_dtype: str | None, dtype: torch.dtype) -> str:
+    """``stats["kv_dtype"]``: the knob's value if set, else the pool's
+    dtype by its numpy name (``torch.bfloat16`` → ``"bfloat16"``)."""
+    return kv_dtype or str(dtype).removeprefix("torch.")
 
 
 def missing_core_stats(stats: dict) -> list[str]:

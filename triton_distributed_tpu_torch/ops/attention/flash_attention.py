@@ -7,9 +7,15 @@ and the same optional base-e LSE. On a CUDA tensor :func:`flash_attention`
 launches the hand-written kernel (``csrc/flash_attention.cu``) or raises;
 on a CPU tensor it runs :func:`mha_reference`, the plain version. Only
 causal attention is taken (every caller on the serving path is causal);
-``causal`` stays in the signature to keep the JAX call sites. The
-int8-KV scales and the additive score bias of the TPU kernel are later
-slices (ROADMAP queue 2).
+``causal`` stays in the signature to keep the JAX call sites.
+
+With ``k_scale``/``v_scale`` the K/V operands are int8 codes with one
+f32 scale per ``block_k`` keys per kv head (the chunk-prefill path over
+an int8 pool sets ``block_k = page``): the kernel is
+``flash_attention_int8``, and the plain version dequantizes with the
+scales repeated ``block_k`` times, as the JAX portable path does. The
+additive score bias of the TPU kernel is a later slice (ROADMAP
+queue 2).
 """
 
 from __future__ import annotations
@@ -31,9 +37,14 @@ def flash_attention(
     sm_scale: float | None = None,
     kv_offset: int = 0,
     return_lse: bool = False,
+    block_k: int = 128,
+    k_scale: torch.Tensor | None = None,  # [B, Hkv, Sk/block_k] f32
+    v_scale: torch.Tensor | None = None,
 ):
     """Returns ``o [B, Hq, Sq, D]`` (q.dtype), plus ``lse [B, Hq, Sq]``
-    f32 when ``return_lse``. ``Sq``/``Sk`` need not be tile multiples."""
+    f32 when ``return_lse``. ``Sq``/``Sk`` need not be tile multiples.
+    ``block_k`` is the scale granularity of int8 K/V (keys per scale);
+    the kernel's own tiling does not depend on it."""
     if not causal:
         raise NotImplementedError("flash_attention: only causal=True")
     b, hq, sq, d = q.shape
@@ -43,15 +54,38 @@ def flash_attention(
     if sm_scale is None:
         sm_scale = d**-0.5
     kv_offset = int(kv_offset)
+    quant = k_scale is not None
+    if quant != (v_scale is not None):
+        raise ValueError("k_scale and v_scale must be passed together")
+    block_k = min(int(block_k), sk)
+    if quant and sk % block_k:
+        raise ValueError(f"kv length {sk} not a multiple of block_k "
+                         f"{block_k}")
+    for name, sc in (("k_scale", k_scale), ("v_scale", v_scale)):
+        if quant and tuple(sc.shape) != (b, hkv, sk // block_k):
+            raise ValueError(
+                f"{name} shape {tuple(sc.shape)} != per-block layout "
+                f"{(b, hkv, sk // block_k)} (block_k={block_k})"
+            )
     if q.device.type == "cpu":
+        if quant:
+            k = k.to(torch.float32) * k_scale.repeat_interleave(
+                block_k, dim=-1)[..., None]
+            v = v.to(torch.float32) * v_scale.repeat_interleave(
+                block_k, dim=-1)[..., None]
         return mha_reference(q, k, v, sm_scale=sm_scale, kv_offset=kv_offset,
                              return_lse=return_lse)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")
     if q.dtype not in ck.DTYPE_CODES:
         raise ValueError(f"flash_attention: dtype {q.dtype} not f32/bf16")
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        ck.check_cuda_operand(name, t, q.device, q.dtype, 4)
+    ck.check_cuda_operand("q", q, q.device, q.dtype, 4)
+    for name, t in (("k", k), ("v", v)):
+        ck.check_cuda_operand(name, t, q.device,
+                              torch.int8 if quant else q.dtype, 4)
+    if quant:
+        for name, sc in (("k_scale", k_scale), ("v_scale", v_scale)):
+            ck.check_cuda_operand(name, sc, q.device, torch.float32, 3)
     if v.shape != k.shape or k.shape[0] != b or k.shape[3] != d:
         raise ValueError(f"shape mismatch q{tuple(q.shape)} k{tuple(k.shape)}"
                          f" v{tuple(v.shape)}")
@@ -62,12 +96,20 @@ def flash_attention(
     o = torch.empty_like(q)
     lse = (torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
            if return_lse else None)
-    ck.FLASH_ATTENTION(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-        None if lse is None else lse.data_ptr(),
-        b, hq, hkv, sq, sk, d, kv_offset, float(sm_scale),
-        ck.DTYPE_CODES[q.dtype], ck.stream_ptr(q),
-    )
+    lse_ptr = None if lse is None else lse.data_ptr()
+    if quant:
+        ck.FLASH_ATTENTION_INT8(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), k_scale.data_ptr(),
+            v_scale.data_ptr(), o.data_ptr(), lse_ptr,
+            b, hq, hkv, sq, sk, d, kv_offset, block_k, float(sm_scale),
+            ck.DTYPE_CODES[q.dtype], ck.stream_ptr(q),
+        )
+    else:
+        ck.FLASH_ATTENTION(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse_ptr,
+            b, hq, hkv, sq, sk, d, kv_offset, float(sm_scale),
+            ck.DTYPE_CODES[q.dtype], ck.stream_ptr(q),
+        )
     return (o, lse) if return_lse else o
 
 

@@ -8,8 +8,12 @@ tensor or raise; on a CPU tensor they run :func:`gqa_decode_reference`
 (over :func:`pages_to_dense` for the paged form), the plain version.
 The kernel computes the TPU kernel's per-chunk (O, LSE) partials and
 merges them with :func:`lse_combine`'s arithmetic in a second kernel.
-The int8-KV variants and the distributed combine are later slices
-(ROADMAP queues 2 and 1).
+
+:func:`paged_flash_decode` with ``k_scale``/``v_scale`` reads an int8
+pool (``paged_flash_decode_int8``: per-page scales folded in after QK^T
+and after P·V); its plain version dequantizes through the table with
+:func:`scales_to_dense`. The dense int8 decode and the distributed
+combine are later slices (ROADMAP queues 1 and 2).
 """
 
 from __future__ import annotations
@@ -42,14 +46,18 @@ def lse_combine(o_parts: torch.Tensor, lse_parts: torch.Tensor,
     return o, lse
 
 
-def _check_decode_operands(name, q, k, v, kv_len, chunk, extra=()):
+def _check_decode_operands(name, q, k, v, kv_len, chunk, extra=(),
+                           kv_dtype=None):
+    """The checks every decode launch makes; K/V have q's dtype unless
+    ``kv_dtype`` says otherwise (int8 codes)."""
     b, hq, d = q.shape
     hkv = k.shape[1]
     if q.dtype not in ck.DTYPE_CODES:
         raise ValueError(f"{name}: dtype {q.dtype} not f32/bf16")
+    kv_dtype = q.dtype if kv_dtype is None else kv_dtype
     ck.check_cuda_operand("q", q, q.device, q.dtype, 3)
-    ck.check_cuda_operand("k", k, q.device, q.dtype, 4)
-    ck.check_cuda_operand("v", v, q.device, q.dtype, 4)
+    ck.check_cuda_operand("k", k, q.device, kv_dtype, 4)
+    ck.check_cuda_operand("v", v, q.device, kv_dtype, 4)
     ck.check_cuda_operand("kv_len", kv_len, q.device, torch.int32, 1)
     for ename, t in extra:
         ck.check_cuda_operand(ename, t, q.device, torch.int32, 2)
@@ -138,34 +146,58 @@ def paged_flash_decode(
     *,
     sm_scale: float | None = None,
     return_lse: bool = False,
+    k_scale: torch.Tensor | None = None,  # [P, Hkv] f32 — int8 pool scales
+    v_scale: torch.Tensor | None = None,
 ):
     """Single-token GQA decode attention straight over a paged KV pool:
     block ``ci`` of sequence ``b`` is pool page ``page_table[b, ci]``, and
-    no dense gather materializes on the kernel path."""
+    no dense gather materializes on the kernel path. With
+    ``k_scale``/``v_scale`` the pools hold int8 codes and each page's
+    scale is read through the same table entry as the page."""
     b, hq, d = q.shape
-    _, hkv, page, _ = k_pages.shape
+    p, hkv, page, _ = k_pages.shape
     if hq % hkv:
         raise ValueError(f"q heads {hq} not a multiple of kv heads {hkv}")
     if sm_scale is None:
         sm_scale = d**-0.5
+    quant = k_scale is not None
+    if quant != (v_scale is not None):
+        raise ValueError("k_scale and v_scale must be passed together")
+    for name, sc in (("k_scale", k_scale), ("v_scale", v_scale)):
+        if quant and tuple(sc.shape) != (p, hkv):
+            raise ValueError(
+                f"{name} shape {tuple(sc.shape)} != per-page layout "
+                f"{(p, hkv)}"
+            )
     kv_len = _as_lengths(kv_len, b, q.device)
     if q.device.type == "cpu":
-        return gqa_decode_reference(
-            q, pages_to_dense(k_pages, page_table),
-            pages_to_dense(v_pages, page_table), kv_len,
-            sm_scale=sm_scale, return_lse=return_lse,
-        )
+        k_d = pages_to_dense(k_pages, page_table)
+        v_d = pages_to_dense(v_pages, page_table)
+        if quant:
+            k_d = k_d.to(torch.float32) * scales_to_dense(
+                k_scale, page_table, page)[..., None]
+            v_d = v_d.to(torch.float32) * scales_to_dense(
+                v_scale, page_table, page)[..., None]
+        return gqa_decode_reference(q, k_d, v_d, kv_len, sm_scale=sm_scale,
+                                    return_lse=return_lse)
     if q.device.type != "cuda":
         raise ValueError(f"paged_flash_decode: unsupported device {q.device}")
     _check_decode_operands("paged_flash_decode", q, k_pages, v_pages, kv_len,
-                           page, extra=(("page_table", page_table),))
+                           page, extra=(("page_table", page_table),),
+                           kv_dtype=torch.int8 if quant else None)
     if page_table.shape[0] != b:
         raise ValueError(f"page_table rows {page_table.shape[0]} != batch {b}")
+    if quant:
+        for name, sc in (("k_scale", k_scale), ("v_scale", v_scale)):
+            ck.check_cuda_operand(name, sc, q.device, torch.float32, 2)
     o, lse, o_part, lse_part = _decode_buffers(q, hkv, page_table.shape[1],
                                                return_lse)
-    ck.PAGED_FLASH_DECODE(
-        q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-        page_table.data_ptr(), kv_len.data_ptr(), o.data_ptr(),
+    ptrs = [q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr()]
+    if quant:
+        ptrs += [k_scale.data_ptr(), v_scale.data_ptr()]
+    kernel = ck.PAGED_FLASH_DECODE_INT8 if quant else ck.PAGED_FLASH_DECODE
+    kernel(
+        *ptrs, page_table.data_ptr(), kv_len.data_ptr(), o.data_ptr(),
         None if lse is None else lse.data_ptr(),
         o_part.data_ptr(), lse_part.data_ptr(),
         b, hkv, hq // hkv, d, page, page_table.shape[1], float(sm_scale),
@@ -184,6 +216,18 @@ def pages_to_dense(pages: torch.Tensor, page_table: torch.Tensor):
     h, page, d = pages.shape[-3:]
     g = g.reshape(*lead, b, pps, h, page, d).transpose(-4, -3)
     return g.reshape(*lead, b, h, pps * page, d)
+
+
+def scales_to_dense(scales: torch.Tensor, page_table: torch.Tensor,
+                    page: int) -> torch.Tensor:
+    """Per-position dequant scales matching a :func:`pages_to_dense`
+    view: ``[..., P, H] → [..., B, H, S]`` through the table (every
+    position of a page shares its page's scale)."""
+    b, pps = page_table.shape
+    ax = scales.dim() - 2
+    g = torch.index_select(scales, ax, page_table.reshape(-1).long())
+    g = g.reshape(*scales.shape[:ax], b, pps, scales.shape[-1])
+    return g.transpose(-2, -1).repeat_interleave(page, dim=-1)
 
 
 def gqa_decode_reference(
