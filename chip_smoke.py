@@ -13,11 +13,16 @@ prefix cache serving 8
 requests that share a 512-token system prefix, and ``Engine(paged=False)``
 serving 2 rows; then the int8 KV path: the same 8 requests through
 ``ContinuousEngine(kv_dtype="int8")`` and 2 rows through
-``Engine(paged=True, kv_dtype="int8")``. The generated tokens are
-checked by teacher forcing through a plain full-sequence forward, the
-pool audit must be clean, and each serving path must have launched its
-own kernels: the launch counts are set to 0 just before each path and
-read just after it.
+``Engine(paged=True, kv_dtype="int8")``; then greedy speculative
+decoding with n-gram chains and radix draft trees:
+``ContinuousEngine(speculative=4, spec_width=4)`` serving 4 requests
+(the shared prefix, a 7-token motif repeated 4 times, 2 more tokens)
+twice, a warm pass and a re-ask, and ``Engine(paged=True,
+prefix_cache=True, speculative=4, spec_width=4)`` serving the same 4
+prompts as one batch, twice. The generated tokens are checked by teacher forcing
+through a plain full-sequence forward, the pool audit must be clean,
+and each serving path must have launched its own kernels: the launch
+counts are set to 0 just before each path and read just after it.
 
 Output: the card's name and power limit, per-phase lines, one
 ``{"kernels": [...]}`` JSON line, one ``{"e2e": ...}`` JSON line, and as
@@ -77,14 +82,34 @@ TF_MIN_EXACT = 0.9
 # that share (0.948), as the bf16 limits were set.
 TF8_MARGIN = 0.1875
 TF8_MIN_EXACT = 0.9
+# Speculative paths: draft length, tree width, traffic.
+SPEC_K, SPEC_WIDTH = 4, 4
+SPEC_REQUESTS, MOTIF_LEN, MOTIF_REPEATS = 4, 7, 4
+SPEC_GEN, SPEC_ENGINE_GEN = 64, 48
+# The paged Engine serves all SPEC_REQUESTS prompts as one batch: a
+# re-ask only drafts from the radix tree while its tokens still follow
+# the cached chain, and in bf16 a verify chunk's rows round differently
+# from the decode steps that wrote that chain, which flips near-tied
+# argmaxes of the random-weight model (one prompt alone left its chain
+# after 3 tokens on an H100, the four under ContinuousEngine after
+# 27-64).
+# The tree verify chunk at Qwen3-0.6B: 16 query rows against a gathered
+# view of 2048 keys, at two offsets (mid-view, and ending at its end).
+VERIFY_OFFSETS = (700, 2031)
 # Serving paths in the order they run, each with the kernels it must
 # launch and no others. The int8 Engine prefills dense (flash_attention
-# in the model dtype) and quantizes on the write into its pages.
+# in the model dtype) and quantizes on the write into its pages. The
+# speculative paths verify linear drafts with flash_attention and draft
+# trees with flash_attention_bias.
 PATH_KERNELS = {
     "continuous": ("flash_attention", "paged_flash_decode"),
     "dense_engine": ("flash_attention", "flash_decode"),
     "continuous_int8": ("flash_attention_int8", "paged_flash_decode_int8"),
     "paged_engine_int8": ("flash_attention", "paged_flash_decode_int8"),
+    "continuous_spec": ("flash_attention", "flash_attention_bias",
+                        "paged_flash_decode"),
+    "paged_engine_spec": ("flash_attention", "flash_attention_bias",
+                          "paged_flash_decode"),
 }
 # Card peaks (H100 SXM data sheet, dense): HBM bytes/s, bf16/f16 FLOP/s.
 HBM_BPS = 3.35e12
@@ -278,6 +303,37 @@ def check_kernels(dev, flush):
                         v_scale=vbs),
         attn_int8_plain(q, k8, kbs, v8, vbs, 32, 16))]
 
+    # Tree verify: 16 query rows against the gathered 2048-key view under
+    # a real draft-tree mask, expanded as the model expands it; the plain
+    # version with the mask one column off must break the limit.
+    from triton_distributed_tpu_torch.models.qwen import expand_tree_mask
+
+    tree = verify_tree()
+    vrows = 16
+    shifted = []  # (tag, offset, kernel out, shifted-mask plain out)
+    for tag, dtype in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+        qv = rand((1, hq, vrows, d), dtype)
+        kv_, vv_ = (rand((1, hkv, MAX_LENGTH, d), dtype),
+                    rand((1, hkv, MAX_LENGTH, d), dtype))
+        errs["flash_attention_bias", tag] = []
+        for voff in VERIFY_OFFSETS:
+            bias = expand_tree_mask(tree.mask(vrows), voff, MAX_LENGTH, dev)
+            o = flash_attention(qv, kv_, vv_, kv_offset=voff, bias=bias)
+            errs["flash_attention_bias", tag].append(err(o, mha_reference(
+                qv, kv_, vv_, kv_offset=voff, bias=bias)))
+            shifted.append((tag, voff, o, mha_reference(
+                qv, kv_, vv_, kv_offset=voff,
+                bias=torch.roll(bias, 1, dims=1))))
+        if tag == "bf16":
+            timed_bias = (qv, kv_, vv_)
+    q = rand((1, 8, vrows, 32), torch.float32)
+    k, v = rand((1, 4, 80, 32), torch.float32), rand((1, 4, 80, 32),
+                                                     torch.float32)
+    bias = expand_tree_mask(tree.mask(vrows), 48, 80, dev)
+    errs["flash_attention_bias", "f32 tiny"] = [err(
+        flash_attention(q, k, v, kv_offset=48, bias=bias),
+        mha_reference(q, k, v, kv_offset=48, bias=bias))]
+
     bad, max_abs = [], {}
     for (name, tag), pairs in errs.items():
         atol, rtol = TOL[tag.split()[0]]
@@ -293,6 +349,16 @@ def check_kernels(dev, flush):
             bad.append(f"{name} {tag} ({used:.3f} of the limit)")
     if bad:
         raise RuntimeError(f"kernels disagree with plain: {bad}")
+    for tag, voff, o, wrong in shifted:
+        atol, rtol = TOL[tag]
+        diff, plain = err(o, wrong)
+        used = (diff / (atol + rtol * plain)).max().item()
+        print(f"[kernels] flash_attention_bias {tag} kv_offset={voff} vs the "
+              f"plain version with the mask one column off: {used:.1f}x the "
+              f"limit (must exceed 1)")
+        if not used > 1.0:
+            raise RuntimeError("a one-column mask shift passes the "
+                               f"flash_attention_bias limit ({tag}, {voff})")
 
     # Times, bounds and library calls at the bf16 serving shapes.
     q, k, v, out, kp, vp, kd, vd, qd = timed
@@ -385,7 +451,51 @@ def check_kernels(dev, flush):
         shape=f"q[1,{hq},{sq},{d}] kv[1,{hkv},{sk},{d}] int8 block_k={PAGE} "
               f"off={off}, bf16 q/o",
     )
+    # Tree verify at kv_offset 700: the kernel reads K/V and the bias up
+    # to the causal limit of its last row; the work is the scores of the
+    # (row, key) pairs the mask and causality leave visible.
+    qv, kv_, vv_ = timed_bias
+    voff = VERIFY_OFFSETS[0]
+    kv_end = voff + vrows
+    bias = expand_tree_mask(tree.mask(vrows), voff, MAX_LENGTH, dev)
+    cols = torch.arange(MAX_LENGTH, device=dev)
+    causal = cols[None, :] <= voff + torch.arange(vrows, device=dev)[:, None]
+    visible = int(((bias == 0) & causal).sum().item())
+    bflops = 4 * hq * d * visible
+    bbytes = (nbytes(qv) * 2 + 2 * hkv * kv_end * d * qv.element_size()
+              + vrows * kv_end * 4)
+    amask = torch.where(causal, bias, torch.full_like(bias, -1e30)).to(
+        qv.dtype)
+    records["flash_attention_bias"] = dict(
+        route="cuda",
+        source="triton_distributed_tpu_torch/csrc/flash_attention.cu",
+        replaces="triton_distributed_tpu/ops/attention/flash_attention.py:80",
+        max_abs_err=max(max_abs["flash_attention_bias", "bf16"],
+                        max_abs["flash_attention_bias", "f32"]),
+        ms=median_ms(lambda: flash_attention(qv, kv_, vv_, kv_offset=voff,
+                                             bias=bias), flush),
+        plain_ms=median_ms(lambda: mha_reference(qv, kv_, vv_,
+                                                 kv_offset=voff, bias=bias),
+                           flush),
+        bound_ms=max(bflops / BF16_FLOPS, bbytes / HBM_BPS) * 1e3,
+        bound_by="operations" if bflops / BF16_FLOPS > bbytes / HBM_BPS
+        else "bytes",
+        library_ms=median_ms(lambda: F.scaled_dot_product_attention(
+            qv, kv_, vv_, attn_mask=amask, enable_gqa=True), flush),
+        shape=f"q[1,{hq},{vrows},{d}] kv[1,{hkv},{MAX_LENGTH},{d}] "
+              f"off={voff} tree bias [{vrows},{MAX_LENGTH}] bf16",
+    )
     return records
+
+
+def verify_tree():
+    """A 14-node draft tree (5 branches) for the verify-shape checks."""
+    from triton_distributed_tpu_torch.models.speculative import TreeDraft
+
+    tree = TreeDraft(4)
+    for path in ([1, 2, 3, 4], [1, 5, 6], [7, 8, 9, 10], [7, 2], [11, 12]):
+        tree.add_path(path, budget=16)
+    return tree
 
 
 def check_tiny_serving(dev) -> None:
@@ -416,6 +526,43 @@ def check_tiny_serving(dev) -> None:
     if not all(np.array_equal(a, b) for a, b in zip(*outs)):
         raise RuntimeError("tiny f32 serving on the card differs from CPU")
     print("[tiny] f32 ContinuousEngine + Engine tokens on the card == CPU")
+
+    # Speculative decoding, tree arm included: a warm pass fills the
+    # radix tree and the re-ask drafts trees from it. Tokens equal the
+    # same engines without speculation, on the card and on the CPU.
+    motifs = [rng.integers(1, 50, 7).tolist() for _ in range(2)]
+    sprompts = [np.asarray(m * 4 + [3, 5], np.int32) for m in motifs]
+    spec_kw = dict(speculative=SPEC_K, spec_width=SPEC_WIDTH)
+    got = []
+    for m, d in ((gpu, dev), (cpu, "cpu")):
+        per = {}
+        for name, kw in (("plain", {}), ("spec", spec_kw)):
+            eng = ContinuousEngine(m, max_batch=2, page_size=16,
+                                   max_length=128, prefix_cache=True,
+                                   device=d, **kw)
+            fixed = Engine(m, paged=True, page_size=16, prefix_cache=True,
+                           device=d, **kw)
+            for _ in range(2):
+                toks = np.stack(eng.run([(p, 24) for p in sprompts]))
+                dense = fixed.serve(sprompts[0][None], 24, 128)
+            per[name] = (toks, dense)
+            if name == "spec":
+                trees = (eng.last_stats["spec_tree_rounds"],
+                         fixed.last_stats["spec_tree_rounds"])
+                if min(trees) <= 0 or eng.audit() or fixed.audit():
+                    raise RuntimeError(f"tiny speculative serving on {d}: "
+                                       f"tree rounds {trees}, audits "
+                                       f"{eng.audit()} {fixed.audit()}")
+        got.append(per)
+    ref = got[0]["plain"]
+    for per in got:
+        for toks in per.values():
+            if not all(np.array_equal(a, b) for a, b in zip(toks, ref)):
+                raise RuntimeError("tiny speculative serving differs from "
+                                   "plain greedy or from the CPU")
+    print(f"[tiny] f32 speculative ContinuousEngine + Engine (K={SPEC_K}, "
+          f"width {SPEC_WIDTH}, tree rounds {trees} on the CPU) == plain "
+          "greedy, on the card == CPU")
 
 
 def reference_logits(model, tokens):
@@ -467,23 +614,33 @@ def teacher_forced_gaps(model, prompt, generated) -> list[float]:
 
 
 class _Timed:
-    """Wall time (synchronized) and calls of one model method."""
+    """Wall time (synchronized) and calls of one model method; calls with
+    ``all_logits=True`` (speculative verify chunks) are kept apart."""
 
     def __init__(self, model, name):
         import torch
 
         self.calls, self.seconds = 0, 0.0
+        self.verify_calls, self.verify_seconds = 0, 0.0
         inner = getattr(model, name)
 
         def wrapped(*a, **kw):
             t0 = time.perf_counter()
             out = inner(*a, **kw)
             torch.cuda.synchronize()
-            self.seconds += time.perf_counter() - t0
-            self.calls += 1
+            if kw.get("all_logits"):
+                self.verify_seconds += time.perf_counter() - t0
+                self.verify_calls += 1
+            else:
+                self.seconds += time.perf_counter() - t0
+                self.calls += 1
             return out
 
         setattr(model, name, wrapped)
+
+    def snapshot(self) -> tuple:
+        return (self.seconds, self.calls, self.verify_seconds,
+                self.verify_calls)
 
 
 def serve_main_path(dev):
@@ -512,6 +669,12 @@ def serve_main_path(dev):
                                      N_REQUESTS)]
     dense_ids = rng.integers(0, vocab, (DENSE_ROWS, DENSE_PROMPT)).astype(
         np.int32)
+    # Speculative traffic: the shared prefix, an aperiodic motif of the
+    # request's own repeated MOTIF_REPEATS times, then 2 more tokens.
+    spec_prompts = [np.concatenate([
+        prefix, np.tile(rng.integers(0, vocab, MOTIF_LEN), MOTIF_REPEATS),
+        rng.integers(0, vocab, 2)]).astype(np.int32)
+        for _ in range(SPEC_REQUESTS)]
 
     def continuous(kv_dtype):
         return ContinuousEngine(model, max_batch=4, page_size=PAGE,
@@ -522,9 +685,35 @@ def serve_main_path(dev):
     dense_eng = Engine(model, paged=False, device=dev)
     paged8 = Engine(model, paged=True, page_size=PAGE, kv_dtype="int8",
                     device=dev)
+    spec_kw = dict(prefix_cache=True, speculative=SPEC_K,
+                   spec_width=SPEC_WIDTH, device=dev)
+    spec_eng = ContinuousEngine(model, max_batch=4, page_size=PAGE,
+                                max_length=MAX_LENGTH, **spec_kw)
+    spec_fixed = Engine(model, paged=True, page_size=PAGE, **spec_kw)
     chunk_t = _Timed(model, "prefill_paged_chunk")
     decode_t = _Timed(model, "decode_step")
     requests = [(p, GEN_LEN) for p in prompts]
+    spec_requests = [(p, SPEC_GEN) for p in spec_prompts]
+    passes = {}  # speculative path -> [(pass timings, last_stats)] x 2
+
+    def warm_then_reask(path, serve, stats):
+        """A warm pass fills the radix tree; the re-ask drafts from it."""
+        passes[path] = []
+        got = []
+        for _ in range(2):
+            before = chunk_t.snapshot()
+            t0 = time.perf_counter()
+            got.append(serve())
+            torch.cuda.synchronize()
+            after = chunk_t.snapshot()
+            passes[path].append(({
+                "wall_s": time.perf_counter() - t0,
+                "prefill_chunk_s": after[0] - before[0],
+                "verify_s": after[2] - before[2],
+                "verifies": after[3] - before[3],
+            }, dict(stats())))
+        return got
+
     runs = {  # path -> its serving call, in PATH_KERNELS order
         "continuous": lambda: eng.run(requests),
         "dense_engine": lambda: dense_eng.serve(dense_ids, DENSE_GEN,
@@ -532,6 +721,13 @@ def serve_main_path(dev):
         "continuous_int8": lambda: eng8.run(requests),
         "paged_engine_int8": lambda: paged8.serve(dense_ids, DENSE_GEN,
                                                   MAX_LENGTH),
+        "continuous_spec": lambda: warm_then_reask(
+            "continuous_spec", lambda: spec_eng.run(spec_requests),
+            lambda: spec_eng.last_stats),
+        "paged_engine_spec": lambda: warm_then_reask(
+            "paged_engine_spec", lambda: spec_fixed.serve(
+                np.stack(spec_prompts), SPEC_ENGINE_GEN, MAX_LENGTH),
+            lambda: spec_fixed.last_stats),
     }
     launches, outs, times = {}, {}, {}
     for path, run in runs.items():
@@ -562,6 +758,8 @@ def serve_main_path(dev):
         if stats["prefix_hit_tokens"] <= 0:
             raise RuntimeError(f"{path}: no prefix-cache hits on "
                                "shared-prefix traffic")
+    spec_e2e = check_spec_paths(passes, {"continuous_spec": spec_eng,
+                                         "paged_engine_spec": spec_fixed})
     for path, counts in launches.items():
         print(f"[serve] launches in the {path} run: {counts}")
     for path, need in PATH_KERNELS.items():
@@ -602,6 +800,29 @@ def serve_main_path(dev):
                                f"tokens are the reference argmax "
                                f"(< {min_exact})")
 
+    # The speculative streams (both passes of both paths) against the same
+    # plain forward, with the bf16 limits.
+    gaps = []
+    for got in outs["continuous_spec"]:
+        for p, o in zip(spec_prompts, got):
+            if o.shape != (SPEC_GEN,):
+                raise RuntimeError(f"bad speculative output shape {o.shape}")
+            gaps += teacher_forced_gaps(model, p, o)
+    for got in outs["paged_engine_spec"]:
+        for row, p in enumerate(spec_prompts):
+            gaps += teacher_forced_gaps(model, p, got[row, len(p):])
+    worst, exact = max(gaps), sum(g == 0 for g in gaps)
+    print(f"[check] speculative teacher forcing over {len(gaps)} generated "
+          f"tokens: max gap {worst:.4f}, mean {statistics.mean(gaps):.4f}, "
+          f"exact argmax {exact}/{len(gaps)}, margin {TF_MARGIN}, min exact "
+          f"share {TF_MIN_EXACT}")
+    if not all(np.isfinite(gaps)) or worst > TF_MARGIN:
+        raise RuntimeError(f"speculative: teacher-forced gap {worst} exceeds "
+                           f"{TF_MARGIN}")
+    if exact < TF_MIN_EXACT * len(gaps):
+        raise RuntimeError(f"speculative: only {exact}/{len(gaps)} emitted "
+                           f"tokens are the reference argmax")
+
     def path_e2e(path, e):
         stats, t = e.last_stats, times[path]
         return {
@@ -625,8 +846,59 @@ def serve_main_path(dev):
                 "decode_ms_per_step"],
         },
         "kv_bytes_per_token": kv_bytes,
+        "spec": spec_e2e,
     }
     return launches, e2e
+
+
+def check_spec_paths(passes: dict, engines: dict) -> dict:
+    """The re-ask pass of each speculative path must have formed trees
+    and accepted drafts, with a balanced ledger and a clean audit.
+    Returns each path's ``spec`` block for the e2e line: tokens per
+    target step, accept rate, decode-phase wall ms per emitted token and
+    ms per verify chunk, for both passes."""
+    out = {}
+    for path, runs in passes.items():
+        eng = engines[path]
+        blocks = []
+        for name, (t, st) in zip(("warm", "reask"), runs):
+            if "admitted" in st:  # ContinuousEngine: one token per admission
+                emitted = st["generated_tokens"] - st["admitted"]
+                decode_s = t["wall_s"] - t["prefill_chunk_s"]
+            else:  # Engine: each row's first token is the prefill's
+                emitted = st["generated_tokens"] - SPEC_REQUESTS
+                decode_s = st["decode_s"]
+            blocks.append({
+                "pass": name,
+                "tokens_per_target_step": emitted / max(st["target_steps"],
+                                                        1),
+                "accept_rate": st["spec_accept_rate"],
+                "decode_ms_per_emitted_token": decode_s / max(emitted, 1)
+                * 1e3,
+                "verify_chunk_ms": t["verify_s"] / max(t["verifies"], 1)
+                * 1e3,
+                **{k: st[k] for k in (
+                    "target_steps", "decode_steps", "spec_verify_steps",
+                    "spec_draft_tokens", "spec_accepted_tokens",
+                    "spec_rollback_tokens", "spec_tree_rounds",
+                    "spec_tree_nodes", "spec_tree_branch_accepts")},
+            })
+            print(f"[serve] {path} {name} pass: {json.dumps(blocks[-1])}")
+        st = runs[-1][1]
+        problems = eng.audit()
+        if problems:
+            raise RuntimeError(f"{path}: pool audit failed: {problems}")
+        if st["spec_tree_rounds"] <= 0 or st["spec_accepted_tokens"] <= 0:
+            raise RuntimeError(f"{path}: the re-ask formed no draft tree or "
+                               f"accepted no draft: {blocks[-1]}")
+        if st["spec_rollback_tokens"] != (st["spec_draft_tokens"]
+                                          - st["spec_accepted_tokens"]):
+            raise RuntimeError(f"{path}: rollback ledger unbalanced")
+        if st["target_steps"] != st["decode_steps"] + st["spec_verify_steps"]:
+            raise RuntimeError(f"{path}: target_steps != decode_steps + "
+                               "spec_verify_steps")
+        out[path] = blocks
+    return out
 
 
 def main() -> int:

@@ -13,7 +13,12 @@ the serving path after warm-up:
 - ``decode_int8``: the same step over the int8 pool (the quantized
   append, ``quantized_row_scatter``, runs in every layer);
 - ``prefill`` and ``prefill_int8``: one 256-token
-  ``prefill_paged_chunk`` at offset 512 over each pool.
+  ``prefill_paged_chunk`` at offset 512 over each pool;
+- ``verify_tree``: one speculative tree verify
+  (``speculative.spec_verify_tree``: a 14-node draft tree in a 16-row
+  chunk at offset 700 over the bf16 pool, the ancestor mask on the
+  ``flash_attention_bias`` kernel, per-position logits, the argmax
+  fetched to the host).
 
 For each phase it prints one JSON line: host wall ms per step (clock
 around synchronized steps), device busy ms per step (sum of kernel time),
@@ -84,6 +89,10 @@ def main() -> int:
         init_paged_cache,
         quantize_pages,
     )
+    from triton_distributed_tpu_torch.models.speculative import (
+        TreeDraft,
+        spec_verify_tree,
+    )
 
     dev = torch.device("cuda", 0)
     model = AutoLLM.from_pretrained("Qwen/Qwen3-0.6B", device=dev, seed=0)
@@ -119,11 +128,19 @@ def main() -> int:
                                       kv_pages=8)
         return step
 
+    tree = TreeDraft(int(tokens[0]))  # 14 nodes on 5 branches
+    for path in ([1, 2, 3, 4], [1, 5, 6], [7, 8, 9, 10], [7, 2], [11, 12]):
+        tree.add_path(path, budget=16)
+
+    def verify_tree():
+        spec_verify_tree(model, cache, 1, tree, 700, "xla")
+
     card = torch.cuda.get_device_name(0)
     for name, fn in (("decode", decode_over(cache)),
                      ("decode_int8", decode_over(cache8)),
                      ("prefill", prefill_over(cache)),
-                     ("prefill_int8", prefill_over(cache8))):
+                     ("prefill_int8", prefill_over(cache8)),
+                     ("verify_tree", verify_tree)):
         rec = profile_phase(name, fn, args.steps)
         rec["device"] = card
         print(json.dumps(rec))

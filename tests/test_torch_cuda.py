@@ -12,7 +12,9 @@ rounding of P to bf16 before P·V, which the plain f32 softmax does not
 do (atol 2e-2 on O of unit-scale inputs). The int8 kernels take int8
 codes and per-page (per-block) f32 scales; their plain versions
 dequantize first, so only where the scale is multiplied in differs: the
-same limits hold (bf16 q/o still round O to bf16).
+same limits hold (bf16 q/o still round O to bf16). The bias kernel
+adds a draft-tree mask to the scores; the same limits hold, and the
+plain version with the mask shifted by one column must break them.
 """
 
 import numpy as np
@@ -20,6 +22,7 @@ import pytest
 import torch
 
 from triton_distributed_tpu_torch.models.paged_kv_cache import quantize_pages
+from triton_distributed_tpu_torch.models.speculative import TreeDraft
 from triton_distributed_tpu_torch.ops import cuda_kernels as ck
 from triton_distributed_tpu_torch.ops.attention import (
     flash_attention,
@@ -217,3 +220,55 @@ def test_int8_wrappers_reject_what_the_kernels_do_not_take(dev):
                            v_scale=sc.double())
     with pytest.raises(ValueError, match="together"):
         paged_flash_decode(q, kp, kp, table, 3, k_scale=sc)
+
+
+def _tree_bias(off: int, sq: int, sk: int, dev) -> torch.Tensor:
+    """A real draft-tree mask (14 nodes, 5 branches) expanded over the
+    gathered view as the model does: 0 on the prefix, the [Sq, Sq] tree
+    mask on the chunk's columns."""
+    tree = TreeDraft(4)
+    for path in ([1, 2, 3, 4], [1, 5, 6], [7, 8, 9, 10], [7, 2], [11, 12]):
+        tree.add_path(path, budget=sq)
+    bias = torch.zeros(sq, sk)
+    bias[:, off:off + sq] = torch.from_numpy(tree.mask(sq))
+    return bias.to(dev)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d,hq,hkv,sk,off", [
+    (128, 16, 8, 2048, 700),   # Qwen3-0.6B tree verify, gathered view
+    (128, 16, 8, 2048, 2031),  # the chunk ends at the view's last key
+    (32, 8, 4, 64, 40),        # tiny
+])
+def test_flash_attention_bias_matches_plain(dev, dtype, d, hq, hkv, sk, off):
+    rng = np.random.default_rng(6)
+    q = _rand(rng, (1, hq, 16, d), dtype, dev)
+    k = _rand(rng, (1, hkv, sk, d), dtype, dev)
+    v = _rand(rng, (1, hkv, sk, d), dtype, dev)
+    bias = _tree_bias(off, 16, sk, dev)
+    before = (ck.FLASH_ATTENTION_BIAS.launches, ck.FLASH_ATTENTION.launches)
+    o, lse = flash_attention(q, k, v, kv_offset=off, bias=bias,
+                             return_lse=True)
+    torch.cuda.synchronize()
+    assert (ck.FLASH_ATTENTION_BIAS.launches,
+            ck.FLASH_ATTENTION.launches) == (before[0] + 1, before[1])
+    o_ref, lse_ref = mha_reference(q, k, v, kv_offset=off, bias=bias,
+                                   return_lse=True)
+    assert torch.isfinite(o.float()).all()
+    assert (o.float() - o_ref.float()).abs().max().item() < TOL[dtype]
+    assert (lse - lse_ref).abs().max().item() < 1e-3
+    if dtype == torch.float32:
+        shifted = mha_reference(q, k, v, kv_offset=off,
+                                bias=torch.roll(bias, 1, dims=1))
+        assert (o - shifted).abs().max().item() > 10 * TOL[dtype]
+
+
+def test_bias_wrapper_rejects_what_the_kernel_does_not_take(dev):
+    q = torch.zeros(1, 4, 16, 32, device=dev)
+    bias = torch.zeros(16, 16, device=dev)
+    with pytest.raises(ValueError, match="dtype"):
+        flash_attention(q, q, q, bias=bias.double())
+    with pytest.raises(ValueError, match="bias shape"):
+        flash_attention(q, q, q, bias=bias[:, :8])
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_attention(q, q, q, bias=bias.t())

@@ -107,9 +107,11 @@ def test_entry_points_need_cuda_unless_told_cpu(no_cuda):
 
 def _refusal(knobs) -> type:
     """Unported knobs raise NotImplementedError; a kv_dtype the engine
-    cannot take (not int8, or int8 on a dense cache) is a ValueError, as
-    in the JAX engines."""
-    return ValueError if "kv_dtype" in knobs else NotImplementedError
+    cannot take (not int8, or int8 on a dense cache) and speculation on a
+    dense cache are ValueErrors, as in the JAX engines."""
+    if "kv_dtype" in knobs or "speculative" in knobs:
+        return ValueError
+    return NotImplementedError
 
 
 @pytest.mark.parametrize("knobs", [
@@ -124,7 +126,7 @@ def test_engine_refuses_unported_knobs(knobs):
 
 
 @pytest.mark.parametrize("knobs", [
-    dict(mode="mega"), dict(resident=True), dict(speculative=2),
+    dict(mode="mega"), dict(resident=True), dict(fabric=object()),
     dict(kv_dtype="fp8"), dict(tier_bytes=1 << 20), dict(cp=2),
     dict(rank_page_budget=256), dict(snapshot_every=2),
     dict(temperature=0.5),

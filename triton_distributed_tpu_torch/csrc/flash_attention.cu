@@ -3,10 +3,12 @@
 // Replaces: triton_distributed_tpu/ops/attention/flash_attention.py
 // `_attn_kernel` (the Pallas TPU kernel behind `flash_attention`), the
 // prefill attention of batched prefill and of chunked prefix-cache
-// prefill with a dynamic `kv_offset`; and the same `_attn_kernel` with
+// prefill with a dynamic `kv_offset`; the same `_attn_kernel` with
 // `ks_ref`/`vs_ref` (int8 K/V codes with one f32 scale per `block_k`
 // keys per kv head), the chunked prefill over an int8 page pool
-// (`block_k` = page).
+// (`block_k` = page); and the same `_attn_kernel` with `b_ref` (an
+// additive [Sq, Sk] f32 score bias shared by every batch row and head:
+// the draft-tree ancestor mask of a speculative tree verify chunk).
 //
 // What it computes, per query row r of head h (kv head h / group):
 //   s_c = (q_r . k_c) * sm_scale in f32, masked to -1e30 where
@@ -18,6 +20,15 @@
 //   P·V adds p_c * v_scale[c / block_k] * code_c with p unrounded, the TPU
 //   kernel's in-register dequant folded per key (its scale is per
 //   block_k keys, independent of this kernel's 32-key tile).
+//   bias: s_c = (q_r . k_c) * sm_scale + bias[r, c], added after the
+//   scale and before the causal mask, as in the TPU kernel. A masked
+//   bias entry is -1e30; in f32 a score plus -1e30 rounds to -1e30, the
+//   causal mask's own value, so a tile whose visible columns are all
+//   bias-masked for a row behaves like a causally masked tile (its
+//   exp(0) terms are zeroed by exp(m_old - m_new) once a real score
+//   arrives). The bias only masks more than causality, so the causal
+//   tile limit stays sound. Bias rows are read straight from global
+//   memory: lane j reads bias[r, k0 + j], 32 consecutive floats.
 //
 // What bounds it on the H100: at the main path's shapes (a 256-token
 // chunk against <= 2k cached positions, head_dim 128) the work is a
@@ -25,7 +36,12 @@
 // (989 TFLOP/s bf16). This first version does its products on the f32
 // FMA pipes (67 TFLOP/s peak), so it is operation-bound far below that
 // roofline; moving QK^T and P·V onto wgmma with TMA-fed K/V tiles is
-// the next step.
+// the next step. A tree verify chunk (16 rows against <= 2k keys, with
+// the bias) is the other way round: ~0.1 GFLOP against ~3 MB of K/V
+// read up to the causal limit (kv_offset 700) and 128 KB of bias, so
+// its bound is the bytes (~0.9 us at 3.35 TB/s), and
+// with one 16-row block per head only 16 blocks run; the kernel is
+// latency-bound there, which a split over keys would address.
 //
 // Design: the TPU kernel carried (m, l, acc) in VMEM scratch across a
 // sequential kv grid axis; Hopper blocks run in parallel in no order, so
@@ -49,13 +65,15 @@ constexpr int kBlockQ = 16;  // query rows per block, 4 per warp
 constexpr int kBlockK = 32;  // keys per staged tile, one per lane
 
 // T is q/o's type, KT the K/V element type (T, or int8_t codes with
-// k_scale/v_scale [B, Hkv, Sk / block_k] f32).
-template <typename T, typename KT, int D>
+// k_scale/v_scale [B, Hkv, Sk / block_k] f32); kBias adds bias [Sq, Sk]
+// f32 to the scaled scores.
+template <typename T, typename KT, int D, bool kBias>
 __global__ void __launch_bounds__(kThreads)
     flash_attention_kernel(const T* __restrict__ q, const KT* __restrict__ k,
                            const KT* __restrict__ v,
                            const float* __restrict__ k_scale,
                            const float* __restrict__ v_scale,
+                           const float* __restrict__ bias,
                            T* __restrict__ o, float* __restrict__ lse,
                            int hq, int hkv, int sq, int sk, int kv_offset,
                            int block_k, float sm_scale) {
@@ -129,6 +147,9 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll 16
       for (int d = 0; d < D; ++d) s = fmaf(q_s[r][d], k_s[lane][d], s);
       s *= k_mult;
+      if constexpr (kBias) {
+        if (col < sk) s += __ldg(bias + (size_t)row * sk + col);
+      }
       const bool visible = col < sk && col <= kv_offset + row;
       if (!visible) s = tdt::kNegInf;
       const float m_new = fmaxf(m[rr], tdt::warp_max(s));
@@ -167,44 +188,49 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <typename T, typename KT, int D>
+template <typename T, typename KT, int D, bool kBias>
 void launch(const void* q, const void* k, const void* v, const float* ks,
-            const float* vs, void* o, float* lse, int b, int hq, int hkv,
-            int sq, int sk, int kv_offset, int block_k, float sm_scale,
-            cudaStream_t stream) {
+            const float* vs, const float* bias, void* o, float* lse, int b,
+            int hq, int hkv, int sq, int sk, int kv_offset, int block_k,
+            float sm_scale, cudaStream_t stream) {
   dim3 grid(b * hq, (sq + kBlockQ - 1) / kBlockQ);
-  flash_attention_kernel<T, KT, D><<<grid, kThreads, 0, stream>>>(
+  flash_attention_kernel<T, KT, D, kBias><<<grid, kThreads, 0, stream>>>(
       static_cast<const T*>(q), static_cast<const KT*>(k),
-      static_cast<const KT*>(v), ks, vs, static_cast<T*>(o), lse, hq, hkv,
-      sq, sk, kv_offset, block_k, sm_scale);
+      static_cast<const KT*>(v), ks, vs, bias, static_cast<T*>(o), lse, hq,
+      hkv, sq, sk, kv_offset, block_k, sm_scale);
 }
 
-// K/V of q's type, or int8 codes when the scales are given.
+// K/V of q's type, or int8 codes when the scales are given; a bias is
+// taken with full-width K/V only (the entry points never pass both).
 template <typename T, int D>
 void launch_kv(const void* q, const void* k, const void* v, const float* ks,
-               const float* vs, void* o, float* lse, int b, int hq, int hkv,
-               int sq, int sk, int kv_offset, int block_k, float sm_scale,
-               cudaStream_t stream) {
+               const float* vs, const float* bias, void* o, float* lse, int b,
+               int hq, int hkv, int sq, int sk, int kv_offset, int block_k,
+               float sm_scale, cudaStream_t stream) {
   if (ks != nullptr)
-    launch<T, int8_t, D>(q, k, v, ks, vs, o, lse, b, hq, hkv, sq, sk,
-                         kv_offset, block_k, sm_scale, stream);
+    launch<T, int8_t, D, false>(q, k, v, ks, vs, nullptr, o, lse, b, hq, hkv,
+                                sq, sk, kv_offset, block_k, sm_scale, stream);
+  else if (bias != nullptr)
+    launch<T, T, D, true>(q, k, v, ks, vs, bias, o, lse, b, hq, hkv, sq, sk,
+                          kv_offset, block_k, sm_scale, stream);
   else
-    launch<T, T, D>(q, k, v, ks, vs, o, lse, b, hq, hkv, sq, sk, kv_offset,
-                    block_k, sm_scale, stream);
+    launch<T, T, D, false>(q, k, v, ks, vs, nullptr, o, lse, b, hq, hkv, sq,
+                           sk, kv_offset, block_k, sm_scale, stream);
 }
 
 template <typename T>
 int dispatch_d(int d, const void* q, const void* k, const void* v,
-               const float* ks, const float* vs, void* o, float* lse, int b,
-               int hq, int hkv, int sq, int sk, int kv_offset, int block_k,
-               float sm_scale, cudaStream_t stream) {
+               const float* ks, const float* vs, const float* bias, void* o,
+               float* lse, int b, int hq, int hkv, int sq, int sk,
+               int kv_offset, int block_k, float sm_scale,
+               cudaStream_t stream) {
   switch (d) {
     case 32:
-      launch_kv<T, 32>(q, k, v, ks, vs, o, lse, b, hq, hkv, sq, sk,
+      launch_kv<T, 32>(q, k, v, ks, vs, bias, o, lse, b, hq, hkv, sq, sk,
                        kv_offset, block_k, sm_scale, stream);
       return 0;
     case 128:
-      launch_kv<T, 128>(q, k, v, ks, vs, o, lse, b, hq, hkv, sq, sk,
+      launch_kv<T, 128>(q, k, v, ks, vs, bias, o, lse, b, hq, hkv, sq, sk,
                         kv_offset, block_k, sm_scale, stream);
       return 0;
     default:
@@ -213,17 +239,17 @@ int dispatch_d(int d, const void* q, const void* k, const void* v,
 }
 
 int run(const void* q, const void* k, const void* v, const float* ks,
-        const float* vs, void* o, float* lse, int b, int hq, int hkv, int sq,
-        int sk, int d, int kv_offset, int block_k, float sm_scale, int dtype,
-        void* stream) {
+        const float* vs, const float* bias, void* o, float* lse, int b,
+        int hq, int hkv, int sq, int sk, int d, int kv_offset, int block_k,
+        float sm_scale, int dtype, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   int bad = 1;
   if (dtype == tdt::kDtypeF32)
-    bad = dispatch_d<float>(d, q, k, v, ks, vs, o, lse, b, hq, hkv, sq, sk,
-                            kv_offset, block_k, sm_scale, st);
+    bad = dispatch_d<float>(d, q, k, v, ks, vs, bias, o, lse, b, hq, hkv, sq,
+                            sk, kv_offset, block_k, sm_scale, st);
   else if (dtype == tdt::kDtypeBF16)
-    bad = dispatch_d<__nv_bfloat16>(d, q, k, v, ks, vs, o, lse, b, hq, hkv,
-                                    sq, sk, kv_offset, block_k, sm_scale,
+    bad = dispatch_d<__nv_bfloat16>(d, q, k, v, ks, vs, bias, o, lse, b, hq,
+                                    hkv, sq, sk, kv_offset, block_k, sm_scale,
                                     st);
   if (bad) return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
@@ -238,7 +264,18 @@ extern "C" int tdt_flash_attention_fwd(const void* q, const void* k,
                                        int b, int hq, int hkv, int sq, int sk,
                                        int d, int kv_offset, float sm_scale,
                                        int dtype, void* stream) {
-  return run(q, k, v, nullptr, nullptr, o, lse, b, hq, hkv, sq, sk, d,
+  return run(q, k, v, nullptr, nullptr, nullptr, o, lse, b, hq, hkv, sq, sk,
+             d, kv_offset, 1, sm_scale, dtype, stream);
+}
+
+// Additive score bias: bias [Sq, Sk] f32 (non-null, contiguous), shared by
+// every batch row and head; the rest as tdt_flash_attention_fwd.
+extern "C" int tdt_flash_attention_bias_fwd(
+    const void* q, const void* k, const void* v, const float* bias, void* o,
+    float* lse, int b, int hq, int hkv, int sq, int sk, int d, int kv_offset,
+    float sm_scale, int dtype, void* stream) {
+  if (bias == nullptr) return (int)cudaErrorInvalidValue;
+  return run(q, k, v, nullptr, nullptr, bias, o, lse, b, hq, hkv, sq, sk, d,
              kv_offset, 1, sm_scale, dtype, stream);
 }
 
@@ -253,6 +290,6 @@ extern "C" int tdt_flash_attention_int8_fwd(
   if (k_scale == nullptr || v_scale == nullptr || block_k < 1 ||
       sk % block_k != 0)
     return (int)cudaErrorInvalidValue;
-  return run(q, k, v, k_scale, v_scale, o, lse, b, hq, hkv, sq, sk, d,
-             kv_offset, block_k, sm_scale, dtype, stream);
+  return run(q, k, v, k_scale, v_scale, nullptr, o, lse, b, hq, hkv, sq, sk,
+             d, kv_offset, block_k, sm_scale, dtype, stream);
 }

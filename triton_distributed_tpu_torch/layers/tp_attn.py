@@ -12,8 +12,9 @@ the KV caches/pools (and an int8 pool's scales) are updated IN PLACE and
 still returned, so call sites read alike. The paged functions take an
 int8 pool's ``k_scale``/``v_scale`` as the JAX ones do: the writes go
 through :func:`quantized_row_scatter` and the attention reads the codes
-through the int8 kernels. Not ported, and refused: the tree-speculation
-``attn_bias``/``rope_pos`` and the ``pallas`` modes (ROADMAP queue 1).
+through the int8 kernels. The chunk path takes the tree-speculation
+``rope_pos``/``attn_bias``. Not ported, and refused: the ``pallas``
+modes (ROADMAP queue 1).
 
 Parameters are a dict ``{"wqkv": [d, (hq + 2*hkv) * hd] (q | k | v),
 "wo": [hq * hd, d], "q_norm": [hd], "k_norm": [hd]}`` (norms may be
@@ -70,14 +71,6 @@ class TPAttnDims:
         )
 
 
-def _refuse_unported(attn_bias=None, rope_pos=None) -> None:
-    if attn_bias is not None or rope_pos is not None:
-        raise NotImplementedError(
-            "tree-speculation attn_bias/rope_pos are not ported yet "
-            "(ROADMAP queue 1, item 7)"
-        )
-
-
 def _qkv(params, x, dims, positions):
     """``x [S, d]`` → QKV GEMM → split → QK-norm → rope at ``positions``;
     returns q, k, v as ``[h, S, hd]``."""
@@ -126,8 +119,8 @@ def tp_attn_prefill_paged_chunk(
     k_scale: torch.Tensor | None = None,  # [P, hkv] f32 — int8 pool scales
     v_scale: torch.Tensor | None = None,
     q_end: int | None = None,             # absolute end of the REAL rows
-    attn_bias=None,
-    rope_pos=None,
+    rope_pos: torch.Tensor | None = None,   # [C] int — rope positions (tree)
+    attn_bias: torch.Tensor | None = None,  # [C, S_kv] f32 additive mask
 ):
     """Chunked-prefill step over the paged pool: QKV for ``C`` suffix
     tokens, rope at absolute positions ``q_offset + i``, KV scattered
@@ -142,14 +135,22 @@ def tp_attn_prefill_paged_chunk(
     offset 0: a pad row would otherwise grow, or at offset 0 seed, a real
     page's scale. The attention reads the codes with the per-page scales
     gathered through the same table entries (``block_k = page``).
+
+    ``rope_pos``/``attn_bias`` serve the tree-speculation verify chunk:
+    rows are draft-tree nodes in DFS storage order, roped at
+    ``rope_pos[i] = q_offset + depth_i`` while the KV scatter keeps the
+    storage positions ``q_offset + i`` (an accepted branch's rows later
+    move to their linear positions unchanged: K/V depend only on the
+    token and its rope position). ``attn_bias`` (0 visible / -1e30
+    masked over the gathered view, sliced to its width here) keeps
+    sibling branches out of each other's softmax.
     Returns ``(out [C, d], k_pages, v_pages, k_scale, v_scale)``."""
     check_mode(mode)
-    _refuse_unported(attn_bias, rope_pos)
     c = x.shape[0]
     page = k_pages.shape[2]
     pps = table_row.shape[0]
-    pos = q_offset + torch.arange(c, device=x.device)
-    q, k, v = _qkv(params, x, dims, pos)
+    pos = q_offset + torch.arange(c, device=x.device)  # storage positions
+    q, k, v = _qkv(params, x, dims, pos if rope_pos is None else rope_pos)
 
     valid = pos < pps * page
     slot_page = torch.clamp(pos // page, 0, pps - 1)
@@ -192,6 +193,8 @@ def tp_attn_prefill_paged_chunk(
 
     k_dense = pages_to_dense(k_pages, gather_row[None])  # [1, h, S_kv, hd]
     v_dense = pages_to_dense(v_pages, gather_row[None])
+    if attn_bias is not None:
+        scales["bias"] = attn_bias[:, : k_dense.shape[2]].contiguous()
     o = flash_attention(q[None].contiguous(), k_dense, v_dense, causal=True,
                         kv_offset=q_offset, **scales)[0]
     return (_o_proj(params, o, dims, x.dtype), k_pages, v_pages, k_scale,

@@ -21,8 +21,16 @@ pool/radix invariant audit.
 ``kv_dtype="int8"`` stores the pool as int8 codes plus one f32 scale per
 (layer, page, kv head); COW clones carry the scales with the codes.
 
+``speculative=K`` drafts up to K tokens per slot from its own n-gram
+history and verifies them in one chunk forward per drafted slot; slots
+with no draft share the round's batched decode step. With ``spec_width
+> 1`` on a full-width pool, a slot whose radix tree holds several
+continuations of its history drafts a token trie, verified under the
+ancestor mask, and the accepted branch's KV rows move into place. The
+host-side kv_len resync (``_sync_tables``) is the rollback.
+
 Greedy only. Not ported, and refused when asked for: sampled requests
-(``temperature > 0``), the megakernel and resident decode, speculation,
+(``temperature > 0``), the megakernel and resident decode,
 slot migration/snapshots, the KV tier and fabric,
 context-parallel prefill and sharded long-context slots, the device task
 tracer (ROADMAP queue 1). Cancellation, request timelines and fault
@@ -60,9 +68,19 @@ from triton_distributed_tpu_torch.models.prefix_cache import (
     PrefixMatch,
     round_chunk,
 )
+from triton_distributed_tpu_torch.models.speculative import (
+    SpecState,
+    TreeDraft,
+    cap_draft,
+    commit_tree_path,
+    spec_verify_slot,
+    spec_verify_tree,
+)
 from triton_distributed_tpu_torch.models.stats import (
+    STAT_METRIC_ALIASES,
     STAT_METRICS,
     kv_dtype_name,
+    spec_summary,
 )
 from triton_distributed_tpu_torch.obs import events as obs_events
 from triton_distributed_tpu_torch.obs import metrics as obs_metrics
@@ -134,6 +152,8 @@ class Request:
     # Tree nodes whose pages lead this request's page list (refcounted
     # for the request's lifetime).
     shared_nodes: list = dataclasses.field(default_factory=list)
+    # Per-request SpecState when the engine runs with speculative=K.
+    spec: SpecState | None = None
     status: str = "ok"
     reason: str = ""
     deadline_at: float | None = dataclasses.field(default=None, repr=False)
@@ -149,7 +169,7 @@ class Request:
 
 # Knobs of the JAX ContinuousEngine this slice does not port: each
 # raises NotImplementedError when set (ROADMAP queue 1).
-_UNPORTED = ("speculative", "resident", "mega_cfg",
+_UNPORTED = ("resident", "mega_cfg",
              "kernel_trace", "snapshot_every", "tier_bytes", "tier_dir",
              "tier", "fabric", "rank_page_budget")
 
@@ -181,6 +201,8 @@ class ContinuousEngine:
         eos_id: int | None = None,
         prefix_cache: bool = False,
         prefill_chunk: int = 0,
+        speculative: int = 0,
+        spec_width: int = 4,
         max_queue: int | None = None,
         kv_dtype: str | None = None,
         cp: int = 1,
@@ -216,6 +238,12 @@ class ContinuousEngine:
         n_pages = (num_pages or max_batch * self.pps) + 1
         # int8 KV: the explicit knob wins over the model config's.
         self.kv_dtype = resolve_kv_dtype(kv_dtype, model.cfg)
+        self.speculative = int(speculative)
+        # Draft trees only on a full-width pool: the commit is a KV
+        # row-move, which an int8 pool's per-page scales cannot carry.
+        self.spec_width = max(int(spec_width), 1)
+        self._spec_tree = (bool(speculative) and self.spec_width > 1
+                           and self.kv_dtype is None)
         self.cache, self.pool = init_paged_cache(
             model.cfg, max_batch, model.device,
             max_length=self.max_length, page_size=page_size,
@@ -236,11 +264,17 @@ class ContinuousEngine:
         )
         self.stats = self._zero_stats()
         self._metric_handles = {
-            key: obs_metrics.counter(name, help)
+            key: [obs_metrics.counter(*named) for named in
+                  ((name, help),) + STAT_METRIC_ALIASES.get(key, ())]
             for key, (name, help) in STAT_METRICS.items()
         }
         self._free_pages_gauge = obs_metrics.gauge(
             "tdt_engine_free_pages", "Pool pages on the free list."
+        )
+        self._spec_accept_gauge = obs_metrics.gauge(
+            "tdt_spec_accept_rate",
+            "Cumulative speculative accept rate (accepted / drafted) "
+            "of the last run.",
         )
         ContinuousEngine._live.add(self)
 
@@ -262,12 +296,16 @@ class ContinuousEngine:
             stats["prefix_cache"] = dict(self.prefix.stats)
             stats["prefix_hit_rate"] = self.prefix.hit_rate
             stats["tree_pages"] = self.prefix.node_count
+        if self.speculative:
+            stats.update(spec_summary(stats))
         return stats
 
     def _bump(self, key: str, n: int = 1) -> None:
-        """Increment a serving counter and its mirrored registry metric."""
+        """Increment a serving counter and every registry metric that
+        mirrors it."""
         self.stats[key] += n
-        self._metric_handles[key].inc(n)
+        for handle in self._metric_handles[key]:
+            handle.inc(n)
 
     # -- slot management -------------------------------------------------
 
@@ -412,6 +450,8 @@ class ContinuousEngine:
                 req.out.append(int(t))
                 emitted += 1
                 self._tok[slot] = int(t)
+                if req.spec is not None:
+                    req.spec.observe((int(t),))
                 if self._maybe_finish(req, int(t)):
                     changed = True
                     break
@@ -555,6 +595,150 @@ class ContinuousEngine:
             return True
         return False
 
+    # -- speculative decoding ---------------------------------------------
+
+    def _step(self) -> bool:
+        """One scheduling round of the in-flight batch: with speculation,
+        a verify chunk for each slot that drafted plus ONE batched decode
+        step for the rest (and one more token for the verified slots),
+        else one batched decode step. Returns whether slot state
+        changed."""
+        if not self.speculative:
+            return self._decode_once()
+        drafts, ok = self._plan_drafts()
+        drafted = {s: d for s, d in drafts.items() if d} if ok else {}
+        n_active = sum(r is not None for r in self._slots)
+        changed = False
+        if drafted:
+            changed = self._spec_round(drafted)
+        if not ok or len(drafted) < n_active:
+            changed = self._decode_once() or changed
+        return changed
+
+    def _plan_drafts(self):
+        """A draft for every active slot: a ``TreeDraft`` when tree
+        speculation is on and the slot's candidates branch, else a token
+        list. Returns ``(drafts, ok)``; ``ok=False`` when some slot is
+        too near ``max_length`` for even a zero-draft chunk, and the
+        round must take the batched decode step."""
+        drafts: dict = {}
+        for slot, req in enumerate(self._slots):
+            if req is None:
+                continue
+            budget = req.gen_len - len(req.out)
+            k = cap_draft(req.spec.k, int(self._kv_len[slot]), budget,
+                          self.max_length)
+            if k < 0:
+                return {}, False
+            if k == 0:
+                drafts[slot] = []
+                continue
+            if self._spec_tree and req.spec.width > 1:
+                tree = self._plan_tree(req, slot, k)
+                if tree is not None:
+                    drafts[slot] = tree
+                    continue
+            drafts[slot] = req.spec.propose(k)
+        return drafts, True
+
+    def _plan_tree(self, req: Request, slot: int, k: int):
+        """``slot``'s draft trie for a ``k``-token budget from the radix
+        tree's continuations of its full history plus its n-gram
+        proposal, or None when they do not branch. At most
+        ``round_chunk(k + 1)`` nodes: the extra branches ride in rows the
+        linear chunk would have padded."""
+        if self.prefix is None:
+            return None
+        hist = [int(t) for t in req.prompt] + [int(t) for t in req.out]
+        paths = self.prefix.propose_continuations(
+            hist, width=req.spec.width, depth=k)
+        ngram = req.spec.propose(k)
+        if ngram:
+            paths.append(ngram)
+        if not paths:
+            return None
+        tree = TreeDraft(int(self._tok[slot]))
+        for p in paths:
+            tree.add_path(p[:k], budget=round_chunk(k + 1))
+        return None if tree.is_chain else tree
+
+    def _spec_round(self, drafts: dict) -> bool:
+        """Verify every slot in ``drafts`` in its own chunk forward and
+        append ``accepted + 1`` tokens; the host kv_len becomes ``kv +
+        accepted + 1`` and the round's ``_sync_tables`` rolls the device
+        back. A verify with non-finite logits fails only its request.
+        Returns whether slot state changed."""
+        bursts: dict[int, list[int]] = {}
+        any_failed = False
+        for slot, req in enumerate(self._slots):
+            if req is None or slot not in drafts:
+                continue
+            kv = int(self._kv_len[slot])
+            draft = drafts[slot]
+            if isinstance(draft, TreeDraft):
+                any_failed |= self._spec_tree_slot(req, slot, draft, kv,
+                                                   bursts)
+                continue
+            emitted, self.cache, a = spec_verify_slot(
+                self.model, self.cache, slot, int(self._tok[slot]), draft,
+                kv, self.mode,
+            )
+            if emitted is None:
+                self._bump("nonfinite_logits")
+                self._fail(
+                    req, "nan_logits",
+                    f"non-finite logits in speculative verify chunk "
+                    f"after {len(req.out)} tokens",
+                )
+                any_failed = True
+                continue
+            req.spec.record(len(draft), a)
+            self._bump("spec_verify_steps")
+            self._bump("spec_draft_tokens", len(draft))
+            self._bump("spec_accepted_tokens", a)
+            self._bump("spec_rollback_tokens", len(draft) - a)
+            self._kv_len[slot] = kv + a + 1
+            bursts[slot] = emitted
+        changed = self._process(lambda slot: bursts.get(slot, []))
+        self._sync_tables()  # the rollback, and any evicted slot's pages
+        self._spec_accept_gauge.set(
+            self.stats["spec_accepted_tokens"]
+            / max(self.stats["spec_draft_tokens"], 1))
+        return changed or any_failed
+
+    def _spec_tree_slot(self, req: Request, slot: int, tree: TreeDraft,
+                        kv: int, bursts: dict) -> bool:
+        """One TREE verify of ``slot`` inside a round: the multi-branch
+        chunk forward, the greedy walk, the row-move commit of the
+        accepted branch. On success ``bursts[slot]`` holds the emitted
+        tokens; returns True when the slot FAILED (non-finite logits)."""
+        emitted, self.cache, path = spec_verify_tree(
+            self.model, self.cache, slot, tree, kv, self.mode)
+        if emitted is None:
+            self._bump("nonfinite_logits")
+            self._fail(
+                req, "nan_logits",
+                f"non-finite logits in speculative tree-verify chunk "
+                f"after {len(req.out)} tokens",
+            )
+            return True
+        a = len(path)
+        moved = any(int(n) != j + 1 for j, n in enumerate(path))
+        self.cache = commit_tree_path(self.cache, slot, kv, path)
+        req.spec.record_tree(tree.num_drafted, tree.max_depth, a)
+        self._bump("spec_verify_steps")
+        self._bump("spec_tree_rounds")
+        self._bump("spec_tree_nodes", tree.num_drafted)
+        self._bump("spec_tree_depth", tree.max_depth)
+        if moved:
+            self._bump("spec_tree_branch_accepts")
+        self._bump("spec_draft_tokens", tree.num_drafted)
+        self._bump("spec_accepted_tokens", a)
+        self._bump("spec_rollback_tokens", tree.num_drafted - a)
+        self._kv_len[slot] = kv + a + 1
+        bursts[slot] = emitted
+        return False
+
     # -- the loop --------------------------------------------------------
 
     def _try_admit(self, queue: deque) -> bool:
@@ -601,6 +785,13 @@ class ContinuousEngine:
                     self._admit_failure(req, m, e)
                     progress = True
                     break
+                if self.speculative and req.spec is None:
+                    req.spec = SpecState(
+                        self.speculative,
+                        w_max=self.spec_width if self._spec_tree else 1,
+                    )
+                    req.spec.observe(req.prompt)
+                    req.spec.observe((int(first),))
                 req.out.append(int(first))
                 self._bump("generated_tokens")
                 self._tok[slot] = int(first)
@@ -692,7 +883,7 @@ class ContinuousEngine:
                                 "engine (page accounting leak?)",
                             )
                     continue
-                if self._step_guard(self._decode_once):
+                if self._step_guard(self._step):
                     # Slot state changed: table + kv_len are
                     # host-authoritative.
                     self._try_admit(queue)

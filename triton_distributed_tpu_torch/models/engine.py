@@ -6,11 +6,13 @@ Counterpart of ``triton_distributed_tpu/models/engine.py``:
 (``paged=True, prefix_cache=True``), plus ``prefill_suffix_chunks``,
 the chunked suffix prefill both engines share. Decode is greedy.
 ``kv_dtype="int8"`` (paged only) stores the pool as int8 codes plus
-per-page scales.
+per-page scales. ``speculative=K`` (paged only) decodes each row through
+n-gram draft verify chunks and, with ``spec_width > 1`` on a full-width
+pool with the prefix cache, draft trees fed by the radix tree.
 
 Not ported, and refused when asked for: ``mode="mega"`` (the
-megakernel), ``mode="pallas"``, ``speculative``, ``profile`` and
-``temperature > 0`` (ROADMAP queue 1).
+megakernel), ``mode="pallas"``, ``profile`` and ``temperature > 0``
+(ROADMAP queue 1).
 """
 
 from __future__ import annotations
@@ -32,15 +34,26 @@ from triton_distributed_tpu_torch.models.paged_kv_cache import (
     init_paged_cache,
     kv_bytes_per_token,
     resolve_kv_dtype,
+    rollback_kv,
     write_prefill,
 )
 from triton_distributed_tpu_torch.models.prefix_cache import (
     PrefixCache,
     round_chunk,
 )
+from triton_distributed_tpu_torch.models.speculative import (
+    SpecState,
+    TreeDraft,
+    cap_draft,
+    commit_tree_path,
+    spec_verify_slot,
+    spec_verify_tree,
+)
 from triton_distributed_tpu_torch.models.stats import (
+    SPEC_STATS_KEYS,
     STAT_METRICS,
     kv_dtype_name,
+    spec_summary,
 )
 from triton_distributed_tpu_torch.obs import metrics as obs_metrics
 from triton_distributed_tpu_torch.runtime.context import resolve_device
@@ -145,14 +158,25 @@ class Engine:
         prefix_cache: bool = False,
         prefill_chunk: int = 0,
         speculative: int = 0,
+        spec_width: int = 4,
         kv_dtype: str | None = None,
         device=None,
     ):
-        engine_setup(model, device, mode, temperature,
-                     speculative=speculative)
+        engine_setup(model, device, mode, temperature)
         # The explicit knob wins over the model config's kv_dtype; the
         # scales live on the page pool, so a dense cache cannot hold int8.
         self.kv_dtype = resolve_kv_dtype(kv_dtype, model.cfg)
+        if speculative and not paged:
+            raise ValueError(
+                "speculative=K requires paged=True (verify chunks run "
+                "through the paged chunk-prefill path)"
+            )
+        self.speculative = int(speculative)
+        # Draft trees only on a full-width pool (the commit is a KV
+        # row-move, which int8 per-page scales cannot carry).
+        self.spec_width = max(int(spec_width), 1)
+        self._spec_tree = (bool(speculative) and self.spec_width > 1
+                           and self.kv_dtype is None)
         if self.kv_dtype is not None and not paged:
             raise ValueError(
                 "kv_dtype requires paged=True (scales live on the "
@@ -261,6 +285,17 @@ class Engine:
                 f"({gen_len}) exceeds max_length={max_length}; raise "
                 f"max_length or shorten"
             )
+        pad = round_chunk(1)
+        if (self.speculative and gen_len > 1
+                and int(true_lens.max()) + gen_len - 2 + pad > max_length):
+            # Every verify chunk pads to round_chunk(·) >= 16 rows whose
+            # KV is written too; the furthest row's last chunk must fit.
+            raise ValueError(
+                f"speculative serve pads verify chunks to {pad} tokens; "
+                f"longest prompt ({int(true_lens.max())}) + gen_len "
+                f"({gen_len}) + {pad - 1} exceeds max_length={max_length}"
+                " — raise max_length or shorten"
+            )
         row_meta = None
         if self.prefix_cache:
             logits, cache, row_meta = self._prefix_prefill(
@@ -297,26 +332,38 @@ class Engine:
         tok = sampling.greedy(logits)
         out.append(tok.cpu().numpy()[:, None])
         t0 = time.perf_counter()
-        for _ in range(gen_len - 1):
-            logits, cache = self.model.decode_step(tok, cache, self.mode)
-            tok = sampling.greedy(logits)
-            out.append(tok.cpu().numpy()[:, None])
+        spec = None
+        if self.speculative and gen_len > 1:
+            tail, cache, spec = self._spec_decode(
+                cache, out[-1][:, 0], rows, true_lens, gen_len, max_length)
+            out.append(tail)
+        else:
+            for _ in range(gen_len - 1):
+                logits, cache = self.model.decode_step(tok, cache, self.mode)
+                tok = sampling.greedy(logits)
+                out.append(tok.cpu().numpy()[:, None])
         t_decode = time.perf_counter() - t0
 
         result = np.concatenate(out, axis=1)
-        steps = max(gen_len - 1, 0)
+        # decode_steps counts batched decode steps only; verify chunks
+        # ride spec_verify_steps (target_steps is their sum).
+        steps = (max(gen_len - 1, 0) if spec is None
+                 else spec["spec_decode_steps"])
         prefill_toks = int(true_lens.sum())
         if row_meta is not None:
             prefill_toks = self._prefix_counters["prefill_tokens"]
         self.last_stats = {
             "prefill_s": t_prefill,
             "decode_s": t_decode,
-            "decode_ms_per_step": t_decode / max(steps, 1) * 1e3,
-            "tokens_per_s": b * max(steps, 1) / max(t_decode, 1e-9),
+            "decode_ms_per_step": t_decode / max(gen_len - 1, 1) * 1e3,
+            "tokens_per_s": b * max(gen_len - 1, 1) / max(t_decode, 1e-9),
             "decode_steps": steps,
             "prefill_tokens": prefill_toks,
             "generated_tokens": int(b * gen_len),
         }
+        if spec is not None:
+            self.last_stats.update(spec)
+            self.last_stats.update(spec_summary(self.last_stats))
         h = self._metric_handles
         h["decode_steps"].inc(steps)
         h["prefill_tokens"].inc(prefill_toks)
@@ -337,6 +384,144 @@ class Engine:
                 result, rows, true_lens, gen_len, cache, row_meta
             )
         return result
+
+    # -- speculative decode ------------------------------------------------
+
+    def _spec_decode(self, cache, first_toks, rows, true_lens, gen_len: int,
+                     max_length: int):
+        """Per-row speculative decode over the paged cache: each row
+        drafts from its own n-gram history (or a draft tree fed by the
+        radix tree), verifies in one chunk forward and rolls rejected KV
+        back (``rollback_kv``). Rows advance at their own pace; rows
+        without a draft share one batched decode step. Returns ``(tail
+        [b, gen_len-1], cache, counters)``, the tail excluding the
+        prefill's first token."""
+        b = len(first_toks)
+        kv = true_lens.astype(np.int64).copy()
+        outs, states = [], []
+        for i in range(b):
+            st = SpecState(self.speculative,
+                           w_max=self.spec_width if self._spec_tree else 1)
+            st.observe(rows[i][: int(true_lens[i])])
+            st.observe([int(first_toks[i])])
+            states.append(st)
+            outs.append([int(first_toks[i])])
+        # Previous serves' finished chains (the re-ask population) feed
+        # the draft tries through the cross-serve radix tree.
+        radix = (self._prefix_state.tree
+                 if self._spec_tree and self._prefix_state is not None
+                 else None)
+        counters = {k: 0 for k in SPEC_STATS_KEYS}
+        counters["spec_decode_steps"] = 0
+
+        def nonfinite(i):
+            return sampling.NonFiniteLogitsError(
+                f"non-finite logits in speculative verify chunk (row {i})",
+                slot=i)
+
+        def finish_row(i, cache, emitted, a, drafted):
+            counters["spec_verify_steps"] += 1
+            counters["spec_draft_tokens"] += drafted
+            counters["spec_accepted_tokens"] += a
+            new_kv = int(kv[i]) + a + 1
+            if a < drafted:
+                counters["spec_rollback_tokens"] += drafted - a
+                cache = rollback_kv(cache, i, new_kv)
+            kv[i] = new_kv
+            states[i].observe(emitted)
+            outs[i].extend(emitted)
+            return cache
+
+        def verify_row(i, draft, cache):
+            emitted, cache, a = spec_verify_slot(
+                self.model, cache, i, outs[i][-1], draft, int(kv[i]),
+                self.mode)
+            if emitted is None:
+                # No per-request failure channel here: fail the serve
+                # (a prefix state is left dirty and rebuilt).
+                raise nonfinite(i)
+            states[i].record(len(draft), a)
+            return finish_row(i, cache, emitted, a, len(draft))
+
+        def verify_tree_row(i, tr, cache):
+            emitted, cache, path = spec_verify_tree(
+                self.model, cache, i, tr, int(kv[i]), self.mode)
+            if emitted is None:
+                raise nonfinite(i)
+            a = len(path)
+            counters["spec_tree_rounds"] += 1
+            counters["spec_tree_nodes"] += tr.num_drafted
+            counters["spec_tree_depth"] += tr.max_depth
+            if any(int(n) != j + 1 for j, n in enumerate(path)):
+                counters["spec_tree_branch_accepts"] += 1
+            states[i].record_tree(tr.num_drafted, tr.max_depth, a)
+            # Commit the accepted branch BEFORE the rollback truncates
+            # kv_len past it.
+            cache = commit_tree_path(cache, i, int(kv[i]), path)
+            return finish_row(i, cache, emitted, a, tr.num_drafted)
+
+        def plan_row(i, k):
+            """Row i's draft for a ``k``-token budget: a TreeDraft when
+            the candidates branch, else a token list, else None."""
+            if k <= 0:
+                return None
+            if radix is not None and states[i].width > 1:
+                paths = radix.propose_continuations(
+                    states[i].draft.history, width=states[i].width, depth=k)
+                ng = states[i].propose(k)
+                if ng:
+                    paths.append(ng)
+                if not paths:
+                    return None
+                tr = TreeDraft(outs[i][-1])
+                for p in paths:
+                    tr.add_path(p[:k], budget=round_chunk(k + 1))
+                return tr if not tr.is_chain else (tr.chain_tokens() or None)
+            return states[i].propose(k) or None
+
+        while True:
+            live = [i for i in range(b) if len(outs[i]) < gen_len]
+            if not live:
+                break
+            drafts = {}
+            for i in live:
+                k = cap_draft(states[i].k, int(kv[i]), gen_len - len(outs[i]),
+                              max_length)
+                assert k >= 0, "speculative capacity guard violated"
+                d = plan_row(i, k)
+                if d is not None:
+                    drafts[i] = d
+            for i, draft in drafts.items():
+                if isinstance(draft, TreeDraft):
+                    cache = verify_tree_row(i, draft, cache)
+                else:
+                    cache = verify_row(i, draft, cache)
+            undrafted = [i for i in live if i not in drafts]
+            if not undrafted:
+                continue
+            if all(len(o) < gen_len for o in outs):
+                # Undrafted rows share ONE batched decode step (every
+                # row's device kv_len is exact after the rollbacks);
+                # just-verified rows advance one more token.
+                pending = torch.tensor([o[-1] for o in outs],
+                                       dtype=torch.int32)
+                logits, cache = self.model.decode_step(pending, cache,
+                                                       self.mode)
+                toks = sampling.greedy(logits).cpu().numpy()
+                counters["spec_decode_steps"] += 1
+                for i in range(b):
+                    outs[i].append(int(toks[i]))
+                    states[i].observe((int(toks[i]),))
+                    kv[i] += 1
+            else:
+                # A finished row would append KV past its pages in a
+                # batched step: the stragglers take zero-draft verifies.
+                for i in undrafted:
+                    cache = verify_row(i, [], cache)
+        counters["spec_tokens_per_step"] = b * (gen_len - 1) / max(
+            counters["spec_verify_steps"] + counters["spec_decode_steps"], 1)
+        tail = np.asarray([o[1:] for o in outs], np.int32)
+        return tail, cache, counters
 
     # -- prefix-cache paged serving ---------------------------------------
 

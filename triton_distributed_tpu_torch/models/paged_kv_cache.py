@@ -322,6 +322,58 @@ def gather_bucket(end_pos: int, page_size: int, pages_per_seq: int) -> int:
     return min(1 << max(need - 1, 0).bit_length(), pages_per_seq)
 
 
+def rollback_kv(cache: PagedKVCache, slot: int, new_len: int) -> PagedKVCache:
+    """Truncate ``slot``'s cached length to ``new_len`` (speculative
+    decoding's KV rollback: a verify chunk wrote its draft rows,
+    acceptance kept a prefix, and every row past the accepted length
+    becomes garbage beyond kv_len, masked by causality and overwritten by
+    the next append). The page table is untouched. An int8 pool rolls
+    back for free: its scales are per page and only grow within a page's
+    life, so they still cover every retained row. Returns a cache with a
+    new ``kv_len`` tensor (the old one is not written)."""
+    kv_len = cache.kv_len.clone()
+    kv_len[int(slot)] = int(new_len)
+    return dataclasses.replace(cache, kv_len=kv_len)
+
+
+def move_kv_rows(cache: PagedKVCache, slot: int, src: list[int],
+                 dst: list[int]) -> PagedKVCache:
+    """Move ``slot``'s token rows from absolute positions ``src`` to
+    ``dst`` (K and V, all layers, in place): the tree-speculation commit.
+    A verify chunk wrote the draft tree's nodes at DFS storage positions
+    ``kv + i``; acceptance picked one root path, whose nodes move to the
+    contiguous positions ``kv+1 .. kv+a`` linear decode would have
+    written. Every row is gathered (and cloned) before any is written,
+    so overlapping moves are safe; self-moves are skipped. Full-width
+    pools only: on an int8 pool a row hopping between pages would be a
+    re-quantization whose rounding depends on move order."""
+    if cache.quantized:
+        raise ValueError(
+            "move_kv_rows is full-width-pool only; quantized pools run "
+            "width-1 speculation chains (no row moves)"
+        )
+    if len(src) != len(dst):
+        raise ValueError(f"src/dst length mismatch ({len(src)} vs {len(dst)})")
+    pairs = [(int(s), int(d)) for s, d in zip(src, dst) if int(s) != int(d)]
+    if not pairs:
+        return cache
+    page = int(cache.k_pages.shape[3])
+    row = cache.page_table[int(slot)].long()
+    dev = cache.k_pages.device
+    s_pos = torch.tensor([p[0] for p in pairs], device=dev)
+    d_pos = torch.tensor([p[1] for p in pairs], device=dev)
+    ps, so = row[s_pos // page], s_pos % page
+    pd, do = row[d_pos // page], d_pos % page
+    # Two advanced indices split by a slice: the advanced axis leads, so
+    # the gathered rows are [m, L, H, hd]. Both pools are gathered before
+    # either is written.
+    rows = [t[:, ps, :, so, :].clone() for t in (cache.k_pages,
+                                                 cache.v_pages)]
+    for t, r in zip((cache.k_pages, cache.v_pages), rows):
+        t[:, pd, :, do, :] = r
+    return cache
+
+
 def truncate_pages(
     pool: PagePool,
     pages: list[int],

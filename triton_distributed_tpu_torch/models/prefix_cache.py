@@ -8,9 +8,11 @@ page table by reference (refcounted), copy-on-write clones a partially
 matched page, and prefills only the suffix. Unreferenced leaves are
 evicted in LRU order when the pool runs short.
 
-Not ported yet: the durable-tier spill hook and the speculation /
-routing helpers (``propose_continuations``, ``prefix_digest``,
-``digest_match_len``) — ROADMAP queue 1, items 7 and 9.
+:meth:`PrefixCache.propose_continuations` reads the draft branches of
+tree speculation from the tree. Not ported yet: the durable-tier spill
+hook (and so the tier's ``tier_chains`` to that method) and the routing
+helpers ``prefix_digest``/``digest_match_len`` — ROADMAP queue 1, items
+7 and 9.
 """
 
 from __future__ import annotations
@@ -413,3 +415,73 @@ class PrefixCache:
             n = stack.pop()
             yield n
             stack.extend(n.children.values())
+
+    # -- speculation ------------------------------------------------------
+
+    def propose_continuations(
+        self,
+        tokens,
+        *,
+        width: int,
+        depth: int,
+        tier_chains=None,
+    ) -> list[list[int]]:
+        """Draft continuations of ``tokens`` for tree speculation: up to
+        ``width`` candidate paths of up to ``depth`` tokens each, read
+        from what the tree remembers FOLLOWING this exact history (the
+        chains of finished sequences that shared it and then diverged
+        show up as sibling children).
+
+        Pure read: no pins, no LRU touch, no stats. The walk needs the
+        FULL history cached token for token; any mismatch, or the cache
+        ending before the history does, returns no paths. Branches are
+        explored most recently used first. ``tier_chains`` (the KV
+        tier's chains) must be None: the tier is not ported."""
+        if tier_chains is not None:
+            raise NotImplementedError(
+                "tier_chains needs the KV tier, which is not ported yet "
+                "(ROADMAP queue 1, item 7)"
+            )
+        toks = [int(t) for t in tokens]
+        width = max(int(width), 0)
+        depth = max(int(depth), 0)
+        out: list[list[int]] = []
+        if not (depth and width):
+            return out
+        node, stem, i = self.root, [], 0
+        while i < len(toks):
+            child = node.children.get(toks[i])
+            if child is None:
+                return out
+            lcp = 0
+            for a, b in zip(child.chunk, toks[i:i + len(child.chunk)]):
+                if a != b:
+                    break
+                lcp += 1
+            if lcp < len(child.chunk):
+                if i + lcp != len(toks):
+                    return out  # diverged mid-chunk: another prefix
+                # The history ends inside this chunk: the chunk's tail is
+                # the (single) stem, then the subtree below it.
+                stem = [int(t) for t in child.chunk[lcp:]]
+                node = child
+                break
+            if len(child.chunk) < self.page_size and i + lcp < len(toks):
+                return out  # a partial leaf the history runs past
+            node = child
+            i += lcp
+
+        def descend(n: RadixNode, prefix: list[int]) -> None:
+            if len(out) >= width:
+                return
+            if len(prefix) >= depth or not n.children:
+                if prefix:
+                    out.append(prefix[:depth])
+                return
+            for c in sorted(n.children.values(), key=lambda x: -x.last_use):
+                descend(c, prefix + [int(t) for t in c.chunk])
+                if len(out) >= width:
+                    return
+
+        descend(node, stem)
+        return out

@@ -232,28 +232,55 @@ class Qwen3:
         cache: PagedKVCache,
         mode: str = "xla",
         kv_pages: int | None = None,
+        all_logits: bool = False,
+        tree_mask=None,   # [C, C] f32 — 0 visible / -1e30 masked
+        tree_depth=None,  # [C] int — per-node depth below q_offset
     ):
         """Chunked prefill of ``slot``'s suffix over the paged pool: the
         matched prefix pages are attended, only the chunk is computed.
         ``new_len`` is set absolutely as the slot's kv_len (decode steps
         may run between chunks); on an int8 pool it is also the end of
         the chunk's real rows (``q_end``), past which rows are padding.
-        Returns ``(logits [V] at last_idx, cache)``."""
+        Returns ``(logits [V] at last_idx, cache)``, or per-position
+        logits ``[C, V]`` with ``all_logits=True`` (a speculative verify
+        scores every chunk position; they stay on the device).
+
+        ``tree_mask``/``tree_depth`` (passed together) run the chunk as a
+        speculative draft TREE: rows are trie nodes in DFS storage order,
+        ``tree_mask[i, j]`` is 0 where node j is an ancestor-or-self of
+        node i and -1e30 otherwise, and node i ropes at ``q_offset +
+        tree_depth[i]`` while its KV scatters at ``q_offset + i``. The
+        mask expands to the gathered view's ``[C, S_kv]`` bias once here
+        (prefix columns visible, columns past the chunk left to
+        causality) and every layer shares it."""
         check_mode(mode)
+        if (tree_mask is None) != (tree_depth is None):
+            raise ValueError("tree_mask and tree_depth go together")
         q_offset = int(q_offset)
         table_row = cache.page_table[int(slot)]
         x = self._embed(np.asarray(tokens))
+        tree = {}
+        if tree_mask is not None:
+            page = cache.k_pages.shape[3]
+            s_kv = (table_row.shape[0] if kv_pages is None else kv_pages) * page
+            depth = torch.as_tensor(np.asarray(tree_depth, np.int64))
+            tree = {"attn_bias": expand_tree_mask(tree_mask, q_offset, s_kv,
+                                                  self.device),
+                    "rope_pos": (q_offset + depth).to(self.device)}
         for i, lyr in enumerate(self._layers):
             def attn(h, i=i, lyr=lyr):
                 return tp_attn_prefill_paged_chunk(
                     lyr["attn"], h, cache.k_pages[i], cache.v_pages[i],
                     table_row, q_offset, self.dims, kv_pages=kv_pages,
-                    q_end=int(new_len), **_layer_scales(cache, i),
+                    q_end=int(new_len), **_layer_scales(cache, i), **tree,
                 )[0]
             x = self._block(x, lyr, attn)
         x = rms_norm(x, self.params["norm"], self.cfg.rms_eps)
-        last = int(last_idx)
-        logits = self._logits(x[last : last + 1])[0]
+        if all_logits:
+            logits = self._logits(x)
+        else:
+            last = int(last_idx)
+            logits = self._logits(x[last : last + 1])[0]
         kv_len = cache.kv_len.clone()
         kv_len[int(slot)] = int(new_len)
         return logits, dataclasses.replace(cache, kv_len=kv_len)
@@ -261,6 +288,22 @@ class Qwen3:
     def new_cache(self, batch_size: int,
                   max_length: int | None = None) -> KVCache:
         return init_cache(self.cfg, batch_size, self.device, max_length)
+
+
+def expand_tree_mask(tree_mask, q_offset: int, s_kv: int,
+                     device) -> torch.Tensor:
+    """A ``[C, C]`` draft-tree mask as the ``[C, S_kv]`` additive bias
+    over a sequence's gathered view: the chunk's columns ``[q_offset,
+    q_offset + C)`` carry the mask, every other column is 0 (the
+    committed prefix is visible to every node; columns past the chunk are
+    left to the causal mask)."""
+    mask = np.asarray(tree_mask, np.float32)
+    c = mask.shape[0]
+    bias = torch.zeros((c, s_kv), dtype=torch.float32, device=device)
+    width = max(min(c, s_kv - q_offset), 0)
+    bias[:, q_offset : q_offset + width] = torch.from_numpy(
+        np.ascontiguousarray(mask[:, :width])).to(device)
+    return bias
 
 
 def _layer_scales(cache: PagedKVCache, i: int) -> dict:

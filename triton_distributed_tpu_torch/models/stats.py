@@ -4,7 +4,9 @@ Counterpart of ``triton_distributed_tpu/models/stats.py``, cut to the
 counters the ported engines keep. ``CORE_STATS_KEYS`` is the contract
 both engines expose in ``last_stats``; ``STAT_METRICS`` names the
 registry metric each counter is mirrored into (the JAX package's names,
-so one dashboard reads either).
+so one dashboard reads either), and ``STAT_METRIC_ALIASES`` the second
+names of two speculation counters. With speculation on, both engines
+also report ``target_steps = decode_steps + spec_verify_steps``.
 
 ``kv_bytes_per_token`` is the device bytes one cached token costs (K+V,
 plus the per-page scales of an int8 pool); ``kv_dtype`` is the KV
@@ -53,6 +55,30 @@ STAT_METRICS = {
                          "Admission scans stalled for pool pages."),
     "generated_tokens": ("tdt_engine_generated_tokens_total",
                          "Tokens emitted (partials included)."),
+    "spec_verify_steps": ("tdt_engine_spec_verify_steps_total",
+                          "Speculative verify chunk programs run."),
+    "spec_draft_tokens": ("tdt_engine_spec_draft_tokens_total",
+                          "Draft tokens proposed."),
+    "spec_accepted_tokens": ("tdt_engine_spec_accepted_tokens_total",
+                             "Draft tokens accepted by verify."),
+    "spec_rollback_tokens": ("tdt_engine_spec_rollback_tokens_total",
+                             "Draft tokens rolled back after verify."),
+    # Tree speculation: ``nodes`` counts drafted trie nodes (root
+    # excluded: they are the spec_draft_tokens of tree rounds), ``depth``
+    # sums each tree's deepest drafted path, ``branch_accepts`` counts
+    # rounds whose accepted path left the primary branch (a KV row-move).
+    "spec_tree_rounds": ("tdt_spec_tree_rounds_total",
+                         "Tree-speculation verify rounds (multi-branch "
+                         "draft chunks)."),
+    "spec_tree_nodes": ("tdt_spec_tree_nodes_total",
+                        "Draft tree nodes verified (root excluded)."),
+    "spec_tree_depth": ("tdt_spec_tree_depth_total",
+                        "Cumulative deepest-drafted-path depth across "
+                        "tree rounds."),
+    "spec_tree_branch_accepts": ("tdt_spec_tree_branch_accepts_total",
+                                 "Tree rounds whose accepted path left "
+                                 "the primary branch (commit needed a "
+                                 "KV row-move)."),
     "failed_requests": ("tdt_engine_failed_requests_total",
                         "Requests finished with a non-ok status."),
     "shed_requests": ("tdt_engine_shed_requests_total",
@@ -65,3 +91,34 @@ STAT_METRICS = {
                       "Exceptions isolated by the decode-phase step "
                       "guard."),
 }
+
+# Extra registry names of the SAME counter as a STAT_METRICS entry (the
+# short ``tdt_spec_*`` family fleet dashboards key on); the engines bump
+# every name of a key together.
+STAT_METRIC_ALIASES = {
+    "spec_draft_tokens": (
+        ("tdt_spec_draft_tokens_total",
+         "Draft tokens proposed (alias of "
+         "tdt_engine_spec_draft_tokens_total for fleet spec-health "
+         "dashboards)."),
+    ),
+    "spec_rollback_tokens": (
+        ("tdt_spec_rollback_tokens_total",
+         "Draft tokens rolled back after verify (alias of "
+         "tdt_engine_spec_rollback_tokens_total for fleet spec-health "
+         "dashboards)."),
+    ),
+}
+
+SPEC_STATS_KEYS = tuple(k for k in STAT_METRICS if k.startswith("spec_"))
+
+
+def spec_summary(stats: dict) -> dict:
+    """The derived speculation stats both engines add to ``last_stats``:
+    the accept rate and ``target_steps = decode_steps +
+    spec_verify_steps`` (the target forwards a throughput model counts)."""
+    return {
+        "spec_accept_rate": stats["spec_accepted_tokens"]
+        / max(stats["spec_draft_tokens"], 1),
+        "target_steps": stats["decode_steps"] + stats["spec_verify_steps"],
+    }

@@ -13,9 +13,14 @@ With ``k_scale``/``v_scale`` the K/V operands are int8 codes with one
 f32 scale per ``block_k`` keys per kv head (the chunk-prefill path over
 an int8 pool sets ``block_k = page``): the kernel is
 ``flash_attention_int8``, and the plain version dequantizes with the
-scales repeated ``block_k`` times, as the JAX portable path does. The
-additive score bias of the TPU kernel is a later slice (ROADMAP
-queue 2).
+scales repeated ``block_k`` times, as the JAX portable path does.
+
+With ``bias`` (``[Sq, Sk]`` f32, shared by every batch row and head) the
+scaled scores get the bias added before the causal mask: the draft-tree
+ancestor mask of a speculative tree verify (0 visible, -1e30 masked).
+The kernel is ``flash_attention_bias``. A bias together with int8
+scales, and ``causal=False``, are the long-context cold partial's
+(ROADMAP queue 2) and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -40,6 +45,7 @@ def flash_attention(
     block_k: int = 128,
     k_scale: torch.Tensor | None = None,  # [B, Hkv, Sk/block_k] f32
     v_scale: torch.Tensor | None = None,
+    bias: torch.Tensor | None = None,     # [Sq, Sk] f32 additive score bias
 ):
     """Returns ``o [B, Hq, Sq, D]`` (q.dtype), plus ``lse [B, Hq, Sq]``
     f32 when ``return_lse``. ``Sq``/``Sk`` need not be tile multiples.
@@ -67,6 +73,14 @@ def flash_attention(
                 f"{name} shape {tuple(sc.shape)} != per-block layout "
                 f"{(b, hkv, sk // block_k)} (block_k={block_k})"
             )
+    if bias is not None:
+        if tuple(bias.shape) != (sq, sk):
+            raise ValueError(f"bias shape {tuple(bias.shape)} != {(sq, sk)}")
+        if quant:
+            raise NotImplementedError(
+                "flash_attention: bias with int8 scales (the long-context "
+                "cold partial) is not ported yet (ROADMAP queue 2)"
+            )
     if q.device.type == "cpu":
         if quant:
             k = k.to(torch.float32) * k_scale.repeat_interleave(
@@ -74,7 +88,7 @@ def flash_attention(
             v = v.to(torch.float32) * v_scale.repeat_interleave(
                 block_k, dim=-1)[..., None]
         return mha_reference(q, k, v, sm_scale=sm_scale, kv_offset=kv_offset,
-                             return_lse=return_lse)
+                             return_lse=return_lse, bias=bias)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")
     if q.dtype not in ck.DTYPE_CODES:
@@ -86,6 +100,8 @@ def flash_attention(
     if quant:
         for name, sc in (("k_scale", k_scale), ("v_scale", v_scale)):
             ck.check_cuda_operand(name, sc, q.device, torch.float32, 3)
+    if bias is not None:
+        ck.check_cuda_operand("bias", bias, q.device, torch.float32, 2)
     if v.shape != k.shape or k.shape[0] != b or k.shape[3] != d:
         raise ValueError(f"shape mismatch q{tuple(q.shape)} k{tuple(k.shape)}"
                          f" v{tuple(v.shape)}")
@@ -104,6 +120,12 @@ def flash_attention(
             b, hq, hkv, sq, sk, d, kv_offset, block_k, float(sm_scale),
             ck.DTYPE_CODES[q.dtype], ck.stream_ptr(q),
         )
+    elif bias is not None:
+        ck.FLASH_ATTENTION_BIAS(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
+            o.data_ptr(), lse_ptr, b, hq, hkv, sq, sk, d, kv_offset,
+            float(sm_scale), ck.DTYPE_CODES[q.dtype], ck.stream_ptr(q),
+        )
     else:
         ck.FLASH_ATTENTION(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse_ptr,
@@ -115,10 +137,11 @@ def flash_attention(
 
 def mha_reference(
     q, k, v, *, causal=True, sm_scale=None, kv_offset: int = 0,
-    return_lse: bool = False,
+    return_lse: bool = False, bias=None,
 ):
     """Plain attention in f32 (full softmax, no tiling): the plain version
-    of :func:`flash_attention`."""
+    of :func:`flash_attention`, ``bias [Sq, Sk]`` added to the scaled
+    scores before the causal mask."""
     b, hq, sq, d = q.shape
     _, hkv, sk, _ = k.shape
     if sm_scale is None:
@@ -126,6 +149,8 @@ def mha_reference(
     k = k.repeat_interleave(hq // hkv, dim=1).to(torch.float32)
     v = v.repeat_interleave(hq // hkv, dim=1).to(torch.float32)
     s = torch.einsum("bhqd,bhkd->bhqk", q.to(torch.float32), k) * sm_scale
+    if bias is not None:
+        s = s + bias.to(torch.float32)[None, None]
     if causal:
         rows = kv_offset + torch.arange(sq, device=q.device)[:, None]
         cols = torch.arange(sk, device=q.device)[None, :]

@@ -168,13 +168,18 @@ FLASH_ATTENTION_INT8 = CudaKernel(
     "flash_attention_int8", "flash_attention", "tdt_flash_attention_int8_fwd",
     [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _I, _P],
 )
+FLASH_ATTENTION_BIAS = CudaKernel(
+    "flash_attention_bias", "flash_attention", "tdt_flash_attention_bias_fwd",
+    [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I, _P],
+)
 PAGED_FLASH_DECODE_INT8 = CudaKernel(
     "paged_flash_decode_int8", "flash_decode", "tdt_paged_flash_decode_int8",
     [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,
      _I, _P],
 )
 KERNELS = (FLASH_ATTENTION, FLASH_DECODE, PAGED_FLASH_DECODE,
-           FLASH_ATTENTION_INT8, PAGED_FLASH_DECODE_INT8)
+           FLASH_ATTENTION_INT8, PAGED_FLASH_DECODE_INT8,
+           FLASH_ATTENTION_BIAS)
 
 
 def reset_launch_counts() -> None:
