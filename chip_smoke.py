@@ -19,7 +19,15 @@ decoding with n-gram chains and radix draft trees:
 (the shared prefix, a 7-token motif repeated 4 times, 2 more tokens)
 twice, a warm pass and a re-ask, and ``Engine(paged=True,
 prefix_cache=True, speculative=4, spec_width=4)`` serving the same 4
-prompts as one batch, twice. The generated tokens are checked by teacher forcing
+prompts as one batch, twice; then the megakernel (``mode="mega"``):
+``Engine(paged=False, mode="mega")`` serving the 2 rows with ``ns=8``
+and ``ContinuousEngine(mode="mega", prefix_cache=True)`` serving the 8
+shared-prefix requests with an ``eos_id``. Before the serving paths the
+decode megakernel is held against its plain version at Qwen3-0.6B's full
+width and depth (B=4, kv_len {700, 2040, 700, 2040}, dense and paged, NS
+1 and 8), with a negative control (the plain version with the last layer
+skipped must break the limit), and timed beside the ``mode="xla"`` decode
+step at the same shape. The generated tokens are checked by teacher forcing
 through a plain full-sequence forward, the pool audit must be clean,
 and each serving path must have launched its own kernels: the launch
 counts are set to 0 just before each path and read just after it.
@@ -110,7 +118,21 @@ PATH_KERNELS = {
                         "paged_flash_decode"),
     "paged_engine_spec": ("flash_attention", "flash_attention_bias",
                           "paged_flash_decode"),
+    # The megakernel paths prefill with flash_attention (mode="xla"
+    # prefill) and decode every step, single-step remainders and
+    # between-chunk steps included, through the one decode megakernel.
+    "dense_engine_mega": ("flash_attention", "mega_decode"),
+    "continuous_mega": ("flash_attention", "mega_decode"),
 }
+# The decode megakernel's check: Qwen3-0.6B, B=4, these cached lengths,
+# launch widths NS. Limit on logits |kernel - plain| <= atol + rtol·|plain|.
+# bf16: both round every GEMM input to bf16 at the same places, so they
+# differ by f32 summation order plus the bf16 roundings it flips; the
+# first readings on an H100 were 0.067-0.099 (PERF.md §2), and the limit
+# is 1.5x the worst. f32 (TF32 off) differs in summation order only.
+MEGA_LENS = (700, 2040, 700, 2040)
+MEGA_NS = (1, 8)
+MEGA_TOL = {"bf16": (0.15, 2.0**-6), "f32": (2e-3, 0.0)}
 # Card peaks (H100 SXM data sheet, dense): HBM bytes/s, bf16/f16 FLOP/s.
 HBM_BPS = 3.35e12
 BF16_FLOPS = 989e12
@@ -488,6 +510,197 @@ def check_kernels(dev, flush):
     return records
 
 
+def _mega_tokens_ok(toks, ref_toks, plain_at, tol) -> list:
+    """Kernel vs plain greedy tokens [NS, B]. A row may leave the plain
+    stream only where the plain version itself cannot tell the two
+    tokens apart: at the first differing step s, the plain logits of
+    step s (``plain_at(s)``) must put the kernel's token within the logit
+    limit of the plain argmax (a near tie; the steps after it decode
+    other inputs). Returns the near-tie records; raises otherwise."""
+    ties = []
+    diff = (toks != ref_toks).any(dim=0)
+    for b in diff.nonzero().flatten().tolist():
+        s = int((toks[:, b] != ref_toks[:, b]).nonzero()[0])
+        lg = plain_at(s)[b]
+        top, got = int(ref_toks[s, b]), int(toks[s, b])
+        gap = (lg[top] - lg[got]).item()
+        limit = tol[0] + tol[1] * lg[top].abs().item()
+        ties.append(dict(row=b, step=s, gap=gap, limit=limit))
+        if not 0 <= gap <= limit:
+            raise RuntimeError(f"kernel token {got} at row {b} step {s} is "
+                               f"not a near tie of plain's {top}: gap {gap}")
+    return ties
+
+
+def check_mega(dev, flush):
+    """The decode megakernel against its plain version at Qwen3-0.6B's
+    full width and depth, dense and paged, NS = 1 and 8, in bf16 (the
+    serving dtype, timed) and in f32 with TF32 off: logits within the
+    limit, two launches bit-identical, tokens equal (bf16: up to a near
+    tie of the plain version, see ``_mega_tokens_ok``; f32: exactly),
+    and the plain version with the last layer skipped outside the limit.
+    Times the bf16 kernel per launch and per step beside the port's
+    ``mode="xla"`` decode step at the same shape. Returns its record."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from triton_distributed_tpu_torch.megakernel import (
+        MegaConfig,
+        MegaQwen3,
+        MegaWeights,
+    )
+    from triton_distributed_tpu_torch.megakernel.kernels import (
+        mega_decode_plain,
+    )
+    from triton_distributed_tpu_torch.models import AutoLLM
+    from triton_distributed_tpu_torch.models.paged_kv_cache import (
+        init_paged_cache,
+    )
+
+    b = len(MEGA_LENS)
+    lens = torch.tensor(MEGA_LENS, dtype=torch.int32, device=dev)
+    worst, max_err, times, info, bad, ties = {}, 0.0, {}, {}, [], []
+    for tag, dtype in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+        model = AutoLLM.from_pretrained(MODEL, device=dev, seed=SEED,
+                                        dtype=dtype)
+        cfg = model.cfg
+        L, V = cfg.num_layers, cfg.vocab_size
+        gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+        dense = model.new_cache(b, MAX_LENGTH)
+        paged, _ = init_paged_cache(cfg, b, dev, max_length=MAX_LENGTH,
+                                    page_size=PAGE)
+        for t in (dense.k, dense.v, paged.k_pages, paged.v_pages):
+            t.normal_(generator=gen)
+        tokens = torch.from_numpy(np.random.default_rng(SEED + 3).integers(
+            0, V, b).astype(np.int32)).to(dev)
+        mega = MegaQwen3(model, cfg=MegaConfig(fuse_norms=True))
+        w = MegaWeights.from_params(model.params)
+        atol, rtol = MEGA_TOL[tag]
+        for kind in ("dense", "paged"):
+            if kind == "dense":
+                args, page = (dense.k, dense.v, None, lens, tokens), 0
+            else:
+                args = (paged.k_pages, paged.v_pages, paged.page_table, lens,
+                        tokens)
+                page = PAGE
+            for ns in MEGA_NS:
+                dims = dataclasses.replace(mega._dims(b, MAX_LENGTH, page),
+                                           nsteps=ns, v_real=V)
+                comp = mega._compile(dims)
+                got = comp.run(w, *args, info=info)
+                again = comp.run(w, *args)
+                torch.cuda.synchronize()
+                ref = mega_decode_plain(dims, True, comp.table, w, *args)
+                if not all(torch.equal(x, y) for x, y in zip(got, again)):
+                    raise RuntimeError(f"mega_decode {tag} {kind} NS={ns}: "
+                                       "two launches on the same inputs "
+                                       "differ")
+
+                def plain_at(s, dims=dims, table=comp.table, args=args):
+                    d1 = dataclasses.replace(dims, nsteps=s + 1)
+                    return mega_decode_plain(d1, True, table, w, *args)[0]
+
+                if tag == "f32":
+                    if not torch.equal(got[3], ref[3]):
+                        raise RuntimeError(f"mega_decode f32 {kind} NS={ns}: "
+                                           "tokens differ from plain")
+                    case_ties = []
+                else:
+                    case_ties = _mega_tokens_ok(got[3], ref[3], plain_at,
+                                                MEGA_TOL[tag])
+                ties += [dict(kind=kind, ns=ns, **t) for t in case_ties]
+                # Logits of the last step; a row that left the plain
+                # stream at a near tie decodes other inputs after it.
+                keep = (got[3] == ref[3]).all(dim=0)
+                err = (got[0] - ref[0]).abs()[keep]
+                used = (err / (atol + rtol * ref[0].abs()[keep])).max().item()
+                kerr = max((got[i].float() - ref[i].float())[:, :, keep]
+                           .abs().max().item() for i in (1, 2))
+                # Negative control: the plain version without the last
+                # layer must break the limit.
+                skip = comp.table[comp.table[:, 1] != L - 1]
+                bad_ref = mega_decode_plain(dims, True, skip, w, *args)[0]
+                bad_used = ((got[0] - bad_ref).abs()
+                            / (atol + rtol * bad_ref.abs())).max().item()
+                tie_note = (f" up to near ties {case_ties}" if case_ties
+                            else "")
+                print(f"[mega] {tag} {kind} NS={ns}: tokens == plain"
+                      f"{tie_note}, logits max_abs_err {err.max().item():.3e}, "
+                      f"{used:.3f} of the limit (atol {atol} + rtol {rtol}"
+                      f"*|plain|); knew/vnew max err {kerr:.3e}; last layer "
+                      f"skipped: {bad_used:.1f}x the limit (must exceed 1); "
+                      f"launch {info}")
+                if not used <= 1.0 or not bad_used > 1.0:
+                    bad.append(f"{tag} {kind} NS={ns}: limit use {used}, "
+                               f"negative control {bad_used}")
+                worst[tag] = max(worst.get(tag, 0.0), used)
+                if tag != "bf16":
+                    continue
+                max_err = max(max_err, err.max().item())
+                ms = median_ms(lambda: comp.run(w, *args), flush)
+                plain_ms = median_ms(lambda: mega_decode_plain(
+                    dims, True, comp.table, w, *args), flush, iters=3,
+                    warmup=1)
+                times[kind, ns] = (ms, plain_ms)
+                print(f"[mega] {kind} NS={ns}: {ms:.4f} ms per launch, "
+                      f"{ms / ns:.4f} ms per step; plain {plain_ms:.2f} ms "
+                      "per launch")
+        if tag == "bf16":
+            # The mode="xla" decode step at the same shape, the yardstick.
+            def xla_step(c):
+                c.kv_len = lens.clone()
+                model.decode_step(tokens, c)
+
+            xla_ms = {k: median_ms(lambda c=c: xla_step(c), flush)
+                      for k, c in (("dense", dense), ("paged", paged))}
+            print(f"[mega] mode='xla' decode step at the same shape: "
+                  f"{xla_ms} ms")
+            bf16 = model
+        del model, dense, paged, mega, w
+    if bad:
+        raise RuntimeError(f"mega_decode disagrees with plain: {bad}")
+    # Bound: one step reads every layer weight, the LM head, the norms
+    # and the embed rows once, every cached K/V row once, and writes the
+    # logits and the new K/V rows.
+    cfg, p = bf16.cfg, bf16.params
+    L = cfg.num_layers
+    weights = sum(t.numel() * t.element_size() for t in (
+        p["layers"]["attn"]["wqkv"], p["layers"]["attn"]["wo"],
+        p["layers"]["mlp"]["w1"], p["layers"]["mlp"]["w2"],
+        p["layers"]["ln1"], p["layers"]["ln2"], p["layers"]["attn"]["q_norm"],
+        p["layers"]["attn"]["k_norm"], p["lm_head"], p["norm"]))
+    hkv, hd = cfg.num_kv_heads, cfg.head_dim
+    kv = sum(MEGA_LENS) * L * hkv * hd * 2 * 2
+    out = b * p["lm_head"].shape[1] * 4 + 2 * L * b * hkv * hd * 2
+    step_bytes = weights + kv + out + b * cfg.hidden_size * 2
+    flops = 2 * b * (weights // 2) + 4 * b * cfg.num_q_heads * hd * sum(
+        MEGA_LENS)
+    ms1, plain1 = times["paged", 1]
+    return dict(
+        route="cuda",
+        source="triton_distributed_tpu_torch/csrc/megakernel.cu",
+        replaces="triton_distributed_tpu/megakernel/code_generator.py:473",
+        max_abs_err=max_err,
+        ms=ms1, plain_ms=plain1,
+        bound_ms=max(step_bytes / HBM_BPS, flops / BF16_FLOPS) * 1e3,
+        bound_by="bytes" if step_bytes / HBM_BPS > flops / BF16_FLOPS
+        else "operations",
+        library_ms=None,
+        shape=f"Qwen3-0.6B 28 layers, B={b}, paged page={PAGE}, kv_len "
+              f"{list(MEGA_LENS)}, NS=1 bf16 (ms = one step)",
+        limit_used=worst,
+        near_ties=ties,
+        ms_per_launch={f"{k}_ns{n}": v[0] for (k, n), v in times.items()},
+        ms_per_step={f"{k}_ns{n}": v[0] / n for (k, n), v in times.items()},
+        plain_ms_per_launch={f"{k}_ns{n}": v[1]
+                             for (k, n), v in times.items()},
+        xla_step_ms=xla_ms,
+        launch=info,
+    )
+
+
 def verify_tree():
     """A 14-node draft tree (5 branches) for the verify-shape checks."""
     from triton_distributed_tpu_torch.models.speculative import TreeDraft
@@ -689,6 +902,17 @@ def serve_main_path(dev):
                    spec_width=SPEC_WIDTH, device=dev)
     spec_eng = ContinuousEngine(model, max_batch=4, page_size=PAGE,
                                 max_length=MAX_LENGTH, **spec_kw)
+    mega_dense = Engine(model, paged=False, mode="mega", device=dev)
+    mega_engs = {}
+
+    def continuous_mega():
+        """ContinuousEngine(mode="mega") with an eos_id: the token the
+        bf16 continuous run emitted 41st for the first request."""
+        eos = int(outs["continuous"][0][40])
+        eng = mega_engs["continuous_mega"] = ContinuousEngine(
+            model, max_batch=4, page_size=PAGE, max_length=MAX_LENGTH,
+            prefix_cache=True, mode="mega", eos_id=eos, device=dev)
+        return eng.run(requests)
     spec_fixed = Engine(model, paged=True, page_size=PAGE, **spec_kw)
     chunk_t = _Timed(model, "prefill_paged_chunk")
     decode_t = _Timed(model, "decode_step")
@@ -728,6 +952,9 @@ def serve_main_path(dev):
             "paged_engine_spec", lambda: spec_fixed.serve(
                 np.stack(spec_prompts), SPEC_ENGINE_GEN, MAX_LENGTH),
             lambda: spec_fixed.last_stats),
+        "dense_engine_mega": lambda: mega_dense.serve(
+            dense_ids, DENSE_GEN, MAX_LENGTH, ns=8),
+        "continuous_mega": continuous_mega,
     }
     launches, outs, times = {}, {}, {}
     for path, run in runs.items():
@@ -744,6 +971,9 @@ def serve_main_path(dev):
             "decode_s": decode_t.seconds - before[2],
         }
 
+    mega_e2e = check_mega_paths(model, prompts, dense_ids, outs, times,
+                                launches, mega_dense,
+                                mega_engs["continuous_mega"])
     for path, e in (("continuous", eng), ("continuous_int8", eng8)):
         stats = e.last_stats
         problems = e.audit()
@@ -847,8 +1077,78 @@ def serve_main_path(dev):
         },
         "kv_bytes_per_token": kv_bytes,
         "spec": spec_e2e,
+        "mega": mega_e2e,
     }
     return launches, e2e
+
+
+def check_mega_paths(model, prompts, dense_ids, outs, times, launches,
+                     dense_eng, cont_eng) -> dict:
+    """The megakernel serving paths: audit, launches, teacher forcing
+    with the bf16 limits; returns their e2e block (decode ms per step
+    and per emitted token, megakernel launches per emitted token)."""
+    import numpy as np
+
+    problems = cont_eng.audit()
+    st = cont_eng.last_stats
+    if problems:
+        raise RuntimeError(f"continuous_mega: pool audit failed: {problems}")
+    eos = cont_eng.eos_id
+    gaps = []
+    for p, o in zip(prompts, outs["continuous_mega"]):
+        if not (o.shape == (GEN_LEN,) or (0 < len(o) < GEN_LEN
+                                           and int(o[-1]) == eos)):
+            raise RuntimeError(f"continuous_mega: bad output {o.shape}")
+        gaps += teacher_forced_gaps(model, p, o)
+    for row in range(DENSE_ROWS):
+        gaps += teacher_forced_gaps(model, dense_ids[row],
+                                    outs["dense_engine_mega"][row,
+                                                              DENSE_PROMPT:])
+    worst, exact = max(gaps), sum(g == 0 for g in gaps)
+    print(f"[check] megakernel teacher forcing over {len(gaps)} generated "
+          f"tokens: max gap {worst:.4f}, mean {statistics.mean(gaps):.4f}, "
+          f"exact argmax {exact}/{len(gaps)}, margin {TF_MARGIN}, min exact "
+          f"share {TF_MIN_EXACT}")
+    if not all(np.isfinite(gaps)) or worst > TF_MARGIN:
+        raise RuntimeError(f"megakernel: teacher-forced gap {worst} exceeds "
+                           f"{TF_MARGIN}")
+    if exact < TF_MIN_EXACT * len(gaps):
+        raise RuntimeError(f"megakernel: only {exact}/{len(gaps)} emitted "
+                           "tokens are the reference argmax")
+    d_st = dense_eng.last_stats
+    d_emit = DENSE_ROWS * (DENSE_GEN - 1)
+    c_emit = st["generated_tokens"] - st["admitted"]
+    c_decode_s = times["continuous_mega"]["wall_s"] - times[
+        "continuous_mega"]["chunk_s"]
+    for path, n in (("dense_engine_mega", d_st["mega_launches"]),
+                    ("continuous_mega", st["mega_launches"])):
+        if n <= 0:
+            raise RuntimeError(f"{path}: mega_launches {n}")
+    out = {
+        "dense_engine_mega": {
+            "decode_ms_per_step": d_st["decode_ms_per_step"],
+            "decode_ms_per_emitted_token": d_st["decode_s"] / d_emit * 1e3,
+            "mega_launches_per_emitted_token": launches["dense_engine_mega"][
+                "mega_decode"] / d_emit,
+            "mega_launches": d_st["mega_launches"],
+            "decode_steps": d_st["decode_steps"],
+        },
+        "continuous_mega": {
+            "decode_ms_per_step": c_decode_s / max(st["decode_steps"], 1)
+            * 1e3,
+            "decode_ms_per_emitted_token": c_decode_s / max(c_emit, 1) * 1e3,
+            "mega_launches_per_emitted_token": launches["continuous_mega"][
+                "mega_decode"] / max(c_emit, 1),
+            "wall_s": times["continuous_mega"]["wall_s"],
+            **{k: st[k] for k in (
+                "decode_steps", "mega_launches", "mega_fallback_steps",
+                "mega_bucket_launches", "mega_device_retires",
+                "prefix_hit_tokens", "generated_tokens")},
+            "eos_id": eos,
+        },
+    }
+    print(f"[serve] megakernel paths: {json.dumps(out)}")
+    return out
 
 
 def check_spec_paths(passes: dict, engines: dict) -> dict:
@@ -925,6 +1225,7 @@ def main() -> int:
 
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
     records = check_kernels(dev, flush)
+    records["mega_decode"] = check_mega(dev, flush)
     del flush
     check_tiny_serving(dev)
     launches, e2e = serve_main_path(dev)

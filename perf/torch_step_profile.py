@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where the port's serving steps spend their time, on one NVIDIA GPU.
 
-    python3 perf/torch_step_profile.py [--steps 20]
+    python3 perf/torch_step_profile.py [--steps 20] [--phases a,b,...]
 
 Builds Qwen/Qwen3-0.6B at full width and depth with random weights from a
 seed, fills a paged bf16 KV pool (page 128) for 4 sequences at kv_len
@@ -18,7 +18,18 @@ the serving path after warm-up:
   (``speculative.spec_verify_tree``: a 14-node draft tree in a 16-row
   chunk at offset 700 over the bf16 pool, the ancestor mask on the
   ``flash_attention_bias`` kernel, per-position logits, the argmax
-  fetched to the host).
+  fetched to the host);
+- ``decode_mega``: the ``decode`` step through the decode megakernel
+  (``MegaQwen3.decode_step``, ``mode="mega"``'s single-step launch: one
+  kernel for the whole step, then the K/V append), same pool and shape;
+- ``decode_mega_ns8``: one 8-step launch (``decode_multi_fn``, the
+  serving loop's launch) at kv_len {700, 2040, 700, 2040}, so the 8 new
+  rows fit the pool; its line also gives the numbers per decode step;
+- ``decode_mega_short``: ``decode_mega`` at kv_len {1, 1, 1, 1}, where
+  attention costs almost nothing: the weight streams and the barriers;
+- ``mega_barriers``: one launch of a table of 282 ALLREDUCE tasks (the
+  barriers of one Qwen3-0.6B step, each behind a [4, 1024] add): what
+  the kernel's grid barriers cost alone.
 
 For each phase it prints one JSON line: host wall ms per step (clock
 around synchronized steps), device busy ms per step (sum of kernel time),
@@ -77,6 +88,8 @@ def profile_phase(name, step, steps: int) -> dict:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--steps", type=int, default=20)
+    ap.add_argument("--phases", default="",
+                    help="comma-separated phase names (default: all)")
     args = ap.parse_args()
     import numpy as np
     import torch
@@ -84,6 +97,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("torch_step_profile: no CUDA device", file=sys.stderr)
         return 1
+    from triton_distributed_tpu_torch.megakernel import MegaConfig, MegaQwen3
     from triton_distributed_tpu_torch.models import AutoLLM
     from triton_distributed_tpu_torch.models.paged_kv_cache import (
         init_paged_cache,
@@ -135,13 +149,62 @@ def main() -> int:
     def verify_tree():
         spec_verify_tree(model, cache, 1, tree, 700, "xla")
 
+    mega = MegaQwen3(model, cfg=MegaConfig(fuse_norms=True))
+
+    def decode_mega():
+        cache.kv_len = lens.clone()
+        mega.decode_step(tokens, cache)
+
+    lens8 = torch.tensor([700, 2040, 700, 2040], dtype=torch.int32,
+                         device=dev)
+    ns8 = mega.decode_multi_fn(4, 2048, 8, page=128,
+                               num_pages=int(cache.k_pages.shape[1]))
+
+    def decode_mega_ns8():
+        cache.kv_len = lens8.clone()
+        ns8(model.params, tokens, cache)
+
+    lens1 = torch.ones(4, dtype=torch.int32, device=dev)
+
+    def decode_mega_short():
+        cache.kv_len = lens1.clone()
+        mega.decode_step(tokens, cache)
+
+    from triton_distributed_tpu_torch.megakernel import (
+        MegaWeights,
+        TaskType,
+        mega_decode,
+    )
+
+    bar_table = torch.zeros((282, 8), dtype=torch.int32, device=dev)
+    bar_table[:, 0] = int(TaskType.ALLREDUCE)
+    bar_dims = mega._dims(4, 2048, 128)
+    weights = MegaWeights.from_params(model.params)
+    tok32 = tokens.to(torch.int32)
+    bar = torch.zeros(4, dtype=torch.int32, device=dev)
+
+    def mega_barriers():
+        mega_decode(bar_dims, mega.cfg, bar_table, weights, cache.k_pages,
+                    cache.v_pages, cache.page_table, lens, tok32, bar=bar)
+
     card = torch.cuda.get_device_name(0)
     for name, fn in (("decode", decode_over(cache)),
                      ("decode_int8", decode_over(cache8)),
                      ("prefill", prefill_over(cache)),
                      ("prefill_int8", prefill_over(cache8)),
-                     ("verify_tree", verify_tree)):
+                     ("verify_tree", verify_tree),
+                     ("decode_mega", decode_mega),
+                     ("decode_mega_ns8", decode_mega_ns8),
+                     ("decode_mega_short", decode_mega_short),
+                     ("mega_barriers", mega_barriers)):
+        if args.phases and name not in args.phases.split(","):
+            continue
         rec = profile_phase(name, fn, args.steps)
+        if name == "decode_mega_ns8":
+            rec["per_decode_step"] = {
+                k: rec[k] / 8 for k in ("wall_ms_per_step",
+                                        "device_busy_ms_per_step",
+                                        "kernel_launches_per_step")}
         rec["device"] = card
         print(json.dumps(rec))
     return 0

@@ -272,3 +272,173 @@ def test_bias_wrapper_rejects_what_the_kernel_does_not_take(dev):
         flash_attention(q, q, q, bias=bias[:, :8])
     with pytest.raises(ValueError, match="contiguous"):
         flash_attention(q, q, q, bias=bias.t())
+
+
+# -- the decode megakernel ----------------------------------------------------
+#
+# mega_decode (csrc/megakernel.cu) against its plain version
+# (megakernel/kernels.py) on the same weights, caches and tokens: the
+# tiny preset's widths (4 rows, and 6 rows for the kernel's 8-row
+# accumulator variant) and Qwen3-0.6B's widths at 2 layers, dense and
+# paged (trash page 0, a bucket filler row with kv_len 0), NS = 1 and
+# NS = 8, f32 (TF32 off) and bf16. Tokens must be equal. Logit limits:
+# f32 differs only in summation order (2e-3 on logits of size ~5);
+# bf16 additionally rounds each GEMM input to bf16 on both sides, and a
+# summation-order difference can flip one rounding by an ulp (2^-8), so
+# 0.05 + 2^-6 |plain| on logits.
+MEGA_TOL = {torch.float32: (2e-3, 0.0), torch.bfloat16: (5e-2, 2.0**-6)}
+MEGA_SHAPES = {
+    # preset overrides, kv_len per row (0 = bucket filler), page size
+    "tiny": (dict(), [17, 0, 40, 3], 16),
+    "tiny6": (dict(), [17, 0, 40, 3, 56, 9], 16),
+    "qwen": (dict(num_layers=2), [700, 0, 700, 2040], 128),
+}
+
+
+def _mega_inputs(dev, shape, dtype, paged, ns, seed=0):
+    """A model, a filled cache and a built multi-step call: returns
+    ``(model, call, args)`` where ``call.run(*args)`` launches."""
+    import dataclasses as dc
+
+    from triton_distributed_tpu_torch.megakernel import MegaConfig, MegaQwen3
+    from triton_distributed_tpu_torch.models import AutoLLM
+
+    over, lens, page = MEGA_SHAPES[shape]
+    name = "Qwen/Qwen3-0.6B" if shape == "qwen" else "tiny"
+    s_max = 2048 if shape == "qwen" else 64
+    model = AutoLLM.from_pretrained(name, device=dev, seed=seed, dtype=dtype,
+                                    max_length=s_max, **over)
+    cfg = model.cfg
+    rng = np.random.default_rng(seed)
+    b, L, hkv, hd = len(lens), cfg.num_layers, cfg.num_kv_heads, cfg.head_dim
+    lens_np = np.asarray(lens)
+    if paged:
+        pps = s_max // page
+        n_pages = b * pps + 1
+        kc = _rand(rng, (L, n_pages, hkv, page, hd), dtype, dev)
+        vc = _rand(rng, (L, n_pages, hkv, page, hd), dtype, dev)
+        perm = rng.permutation(np.arange(1, n_pages))[: b * pps].reshape(
+            b, pps)
+        # Rows own the pages their ns new rows reach; the filler row
+        # (kv_len 0) keeps a zeroed table row: the trash page.
+        need = -(-(lens_np + ns) // page)
+        table = np.where(np.arange(pps)[None] < need[:, None], perm, 0)
+        table[lens_np == 0] = 0
+        table = torch.from_numpy(table.astype(np.int32)).to(dev)
+    else:
+        kc = _rand(rng, (L, b, hkv, s_max, hd), dtype, dev)
+        vc = _rand(rng, (L, b, hkv, s_max, hd), dtype, dev)
+        table = None
+    mega = MegaQwen3(model, cfg=MegaConfig(fuse_norms=True))
+    dims = dc.replace(mega._dims(b, s_max, page if paged else 0),
+                      nsteps=ns, v_real=cfg.vocab_size)
+    kv_len = torch.from_numpy(lens_np.astype(np.int32)).to(dev)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, b).astype(
+        np.int32)).to(dev)
+    return model, mega, dims, (kc, vc, table, kv_len, tokens)
+
+
+def _mega_run(mega, dims, args, stop_tok=None, plain=False):
+    from triton_distributed_tpu_torch.megakernel import MegaWeights
+    from triton_distributed_tpu_torch.megakernel.kernels import (
+        mega_decode_plain,
+    )
+
+    compiled = mega._compile(dims)
+    w = MegaWeights.from_params(mega.model.params)
+    if plain:
+        return mega_decode_plain(dims, True, compiled.table, w, *args,
+                                 stop_tok=stop_tok)
+    return compiled.run(w, *args, stop_tok=stop_tok)
+
+
+@pytest.mark.parametrize("ns", [1, 8])
+@pytest.mark.parametrize("paged", [False, True])
+@pytest.mark.parametrize("shape,dtype", [
+    ("tiny", torch.float32), ("qwen", torch.float32),
+    ("tiny", torch.bfloat16), ("qwen", torch.bfloat16),
+    ("tiny6", torch.float32), ("tiny6", torch.bfloat16),
+])
+def test_mega_decode_matches_plain(dev, shape, dtype, paged, ns):
+    model, mega, dims, args = _mega_inputs(dev, shape, dtype, paged, ns)
+    before = ck.MEGA_DECODE.launches
+    got = _mega_run(mega, dims, args)
+    torch.cuda.synchronize()
+    assert ck.MEGA_DECODE.launches == before + 1
+    again = _mega_run(mega, dims, args)
+    ref = _mega_run(mega, dims, args, plain=True)
+    logits, knew, vnew, toks, _ = got
+    atol, rtol = MEGA_TOL[dtype]
+    assert torch.isfinite(logits).all()
+    # Two launches on the same inputs are bit-identical (no float atomics).
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+    assert torch.equal(toks, ref[3]), (toks.tolist(), ref[3].tolist())
+    err = (logits - ref[0]).abs()
+    used = (err / (atol + rtol * ref[0].abs())).max().item()
+    print(f"mega {shape} {dtype} paged={paged} ns={ns}: logits max err "
+          f"{err.max().item():.3e}, {used:.3f} of the limit; knew max err "
+          f"{(knew.float() - ref[1].float()).abs().max().item():.3e}")
+    assert used <= 1.0
+    for a, b in ((knew, ref[1]), (vnew, ref[2])):
+        assert (a.float() - b.float()).abs().max().item() <= 2 * atol + 0.02
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_mega_decode_eos_matches_plain(dev, dtype):
+    """The stop-token stamp: the first step whose token is the row's stop
+    token, NS when it never comes, on the kernel as on the plain version."""
+    _, mega, dims, args = _mega_inputs(dev, "tiny", dtype, True, 8, seed=1)
+    toks = _mega_run(mega, dims, args, plain=True)[3].cpu().numpy()
+    stop = np.full(toks.shape[1], -1, np.int32)
+    stop[0] = toks[3, 0]  # row 0 stops at its first occurrence of this
+    stop[2] = toks[0, 2]  # row 2 at step 0
+    stop_t = torch.from_numpy(stop).to(dev)
+    import dataclasses as dc
+
+    dims = dc.replace(dims, eos=True)
+    got = _mega_run(mega, dims, args, stop_tok=stop_t)
+    ref = _mega_run(mega, dims, args, stop_tok=stop_t, plain=True)
+    assert torch.equal(got[3], ref[3])
+    assert torch.equal(got[4], ref[4])
+    want = [int(np.argmax(toks[:, b] == stop[b])) if (toks[:, b] == stop[b])
+            .any() else 8 for b in range(toks.shape[1])]
+    assert got[4].tolist() == want
+
+
+def test_mega_serving_launches_the_kernel(dev):
+    """Engine and ContinuousEngine in mode='mega' launch the megakernel
+    for every decode step (multi launches and single-step remainders) and
+    emit the plain version's tokens (tiny f32 on the card == CPU)."""
+    from triton_distributed_tpu_torch.models import (
+        AutoLLM,
+        ContinuousEngine,
+        Engine,
+    )
+
+    gpu = AutoLLM.from_pretrained("tiny", device=dev, seed=0)
+    cpu = AutoLLM.from_pretrained("tiny", device="cpu", seed=0)
+    cpu.set_params(gpu.params)
+    rng = np.random.default_rng(7)
+    prompts = [rng.integers(0, 256, 20).astype(np.int32) for _ in range(3)]
+    outs, launches = [], []
+    for m, d in ((gpu, dev), (cpu, "cpu")):
+        before = ck.MEGA_DECODE.launches
+        dense = Engine(m, mode="mega", device=d).serve(np.stack(prompts), 11,
+                                                       64, ns=4)
+        eng = ContinuousEngine(m, max_batch=2, page_size=16, max_length=64,
+                               prefix_cache=True, mode="mega", ns=4,
+                               device=d)
+        toks = eng.run([(p, 9) for p in prompts])
+        assert eng.audit() == []
+        outs.append((dense, np.concatenate(toks)))
+        launches.append(ck.MEGA_DECODE.launches - before)
+    assert all(np.array_equal(a, b) for a, b in zip(*outs))
+    assert launches[0] > 0 and launches[1] == 0
+    with pytest.raises(ValueError, match="contiguous|dims|dtype"):
+        from triton_distributed_tpu_torch.megakernel import MegaQwen3
+
+        mega = MegaQwen3(gpu)
+        cache = gpu.new_cache(2, 64)
+        mega.decode_fn(2, 32)(gpu.params, torch.zeros(2, dtype=torch.int32),
+                              cache)

@@ -18,6 +18,7 @@ import numpy as np
 import pytest
 import torch
 
+from triton_distributed_tpu_torch.megakernel import MegaConfig
 from triton_distributed_tpu_torch.models import (
     AutoLLM,
     ContinuousEngine,
@@ -37,6 +38,7 @@ SLICE_MODULES = [
     "triton_distributed_tpu_torch.ops.attention",
     "triton_distributed_tpu_torch.layers.tp_attn",
     "triton_distributed_tpu_torch.layers.tp_mlp",
+    "triton_distributed_tpu_torch.megakernel",
     "triton_distributed_tpu_torch.models",
     "triton_distributed_tpu_torch.models.sampling",
     "triton_distributed_tpu_torch.models.stats",
@@ -115,7 +117,8 @@ def _refusal(knobs) -> type:
 
 
 @pytest.mark.parametrize("knobs", [
-    dict(mode="mega"), dict(mode="pallas"), dict(speculative=2),
+    dict(mode="mega", mega_cfg=MegaConfig(wq8=True)), dict(mode="pallas"),
+    dict(speculative=2),
     dict(kv_dtype="int8", paged=False), dict(temperature=0.7),
     dict(kv_dtype="fp8", paged=True),
 ])
@@ -126,7 +129,8 @@ def test_engine_refuses_unported_knobs(knobs):
 
 
 @pytest.mark.parametrize("knobs", [
-    dict(mode="mega"), dict(resident=True), dict(fabric=object()),
+    dict(mode="mega", kernel_trace=True), dict(resident=True),
+    dict(fabric=object()),
     dict(kv_dtype="fp8"), dict(tier_bytes=1 << 20), dict(cp=2),
     dict(rank_page_budget=256), dict(snapshot_every=2),
     dict(temperature=0.5),

@@ -29,8 +29,17 @@ continuations of its history drafts a token trie, verified under the
 ancestor mask, and the accepted branch's KV rows move into place. The
 host-side kv_len resync (``_sync_tables``) is the rollback.
 
+``mode="mega"`` decodes in ``ns``-step launches of the megakernel: one
+launch emits up to ``ns`` tokens per slot (in-kernel argmax), over the
+smallest power-of-two batch bucket that covers the active slots
+(``mega_buckets``); a slot finishing inside the launch keeps only its
+``n_valid`` rows (the rest go to the trash page) and, with ``eos_id``,
+stops at its first stop token, found in the kernel. A round that cannot
+launch (a slot within ``ns`` of ``max_length``) takes a single-step
+launch of the same kernel.
+
 Greedy only. Not ported, and refused when asked for: sampled requests
-(``temperature > 0``), the megakernel and resident decode,
+(``temperature > 0``), resident decode, ``MegaConfig(wq8=True)``,
 slot migration/snapshots, the KV tier and fabric,
 context-parallel prefill and sharded long-context slots, the device task
 tracer (ROADMAP queue 1). Cancellation, request timelines and fault
@@ -49,7 +58,9 @@ import torch
 
 from triton_distributed_tpu_torch.models import sampling
 from triton_distributed_tpu_torch.models.engine import (
+    MEGA_MAX_BATCH,
     SAMPLED_SERVING,
+    MegaDispatch,
     engine_setup,
     prefill_suffix_chunks,
 )
@@ -168,13 +179,26 @@ class Request:
 
 
 # Knobs of the JAX ContinuousEngine this slice does not port: each
-# raises NotImplementedError when set (ROADMAP queue 1).
-_UNPORTED = ("resident", "mega_cfg",
+# raises NotImplementedError when set (ROADMAP queues 1 and 2).
+_UNPORTED = ("resident",
              "kernel_trace", "snapshot_every", "tier_bytes", "tier_dir",
              "tier", "fabric", "rank_page_budget")
 
 
-class ContinuousEngine:
+@dataclasses.dataclass
+class _MegaPlan:
+    """One megakernel launch: launch row → engine slot (-1 = bucket
+    filler), the bucket width, kept-row counts and stop tokens."""
+
+    rows: list
+    B: int
+    compact: bool           # B < max_batch: compacted table/kv_len/tok
+    eos: bool               # device stop-token test
+    n_valid: np.ndarray     # [B] kept-row counts fed to append_n
+    stop_tok: np.ndarray | None  # [B] when eos
+
+
+class ContinuousEngine(MegaDispatch):
     """Admission/eviction serving loop over the paged pool.
 
     ``max_batch`` decode slots share ``num_pages`` pool pages; a request
@@ -206,6 +230,9 @@ class ContinuousEngine:
         max_queue: int | None = None,
         kv_dtype: str | None = None,
         cp: int = 1,
+        mega_cfg=None,
+        ns: int = 8,
+        mega_buckets: bool = True,
         device=None,
         **unported,
     ):
@@ -217,9 +244,22 @@ class ContinuousEngine:
                 "cp > 1 (context-parallel prefill) is not ported yet "
                 "(ROADMAP queue 1, item 11)"
             )
-        engine_setup(model, device, mode, temperature, **unported)
+        engine_setup(model, device, mode, temperature, mega_cfg, **unported)
+        if int(ns) < 1:
+            raise ValueError(f"ns must be >= 1, got {ns}")
+        if speculative and mode == "mega":
+            raise ValueError(
+                "speculative=K does not compose with mode='mega': a launch "
+                "advances every slot ns tokens in lockstep")
+        if mode == "mega" and max_batch > MEGA_MAX_BATCH:
+            raise ValueError(f"mode='mega' takes max_batch <= "
+                             f"{MEGA_MAX_BATCH}, got {max_batch}")
         self.model = model
         self.mode = mode
+        self.mega_cfg = mega_cfg
+        # The megakernel's launch width and its batch buckets.
+        self.NS = int(ns)
+        self.mega_buckets = bool(mega_buckets)
         self.eos_id = eos_id
         self.max_batch = max_batch
         self.page_size = page_size
@@ -333,7 +373,7 @@ class ContinuousEngine:
         self._kv_len[slot] = s
         self._sync_tables()
         logits, self._dense1 = self.model.prefill_batched(
-            req.prompt[None], self._dense1, self.mode, [s],
+            req.prompt[None], self._dense1, self._prefill_mode, [s],
         )
         self.cache = write_prefill(
             self.cache, slot, self._dense1.k, self._dense1.v, s
@@ -397,7 +437,7 @@ class ContinuousEngine:
 
         logits, self.cache, chunks = prefill_suffix_chunks(
             self.model, self.cache, slot, prompt, start,
-            self.prefill_chunk, self.mode, between_chunks,
+            self.prefill_chunk, self._prefill_mode, between_chunks,
         )
         self._kv_len[slot] = len(prompt)
         self._bump("prefill_tokens", len(prompt) - start)
@@ -411,8 +451,8 @@ class ContinuousEngine:
         active = np.asarray([r is not None for r in self._slots], np.int32)
         if not active.any():
             return False
-        logits, self.cache = self.model.decode_step(
-            torch.from_numpy(self._tok.copy()), self.cache, self.mode
+        logits, self.cache = self._decode_step(
+            torch.from_numpy(self._tok.copy()), self.cache
         )
         self._kv_len = self._kv_len + active
         self._bump("decode_steps")
@@ -600,9 +640,16 @@ class ContinuousEngine:
     def _step(self) -> bool:
         """One scheduling round of the in-flight batch: with speculation,
         a verify chunk for each slot that drafted plus ONE batched decode
-        step for the rest (and one more token for the verified slots),
-        else one batched decode step. Returns whether slot state
-        changed."""
+        step for the rest (and one more token for the verified slots);
+        under ``mode='mega'`` one ``ns``-step launch, or a single step
+        when the round cannot launch; else one batched decode step.
+        Returns whether slot state changed."""
+        if self.mode == "mega":
+            plan = self._mega_plan()
+            if plan is not None:
+                return self._drain_launch(*self._launch_mega(plan))
+            self._bump("mega_fallback_steps")
+            return self._decode_once()
         if not self.speculative:
             return self._decode_once()
         drafts, ok = self._plan_drafts()
@@ -614,6 +661,119 @@ class ContinuousEngine:
         if not ok or len(drafted) < n_active:
             changed = self._decode_once() or changed
         return changed
+
+    # -- megakernel rounds --------------------------------------------------
+
+    def _mega_plan(self) -> _MegaPlan | None:
+        """Compose the next launch from host truth, or None when a slot is
+        within ``ns`` of ``max_length`` (its ``ns`` appended rows would
+        pass the page table) and the round takes a single step."""
+        active = np.asarray([r is not None for r in self._slots], np.int32)
+        if int((self._kv_len * active).max()) + self.NS > self.max_length:
+            return None
+        act = [s for s in range(self.max_batch) if self._slots[s] is not None]
+        # Batch bucket: the smallest power of two covering the active
+        # slots; a full-width round keeps the identity layout.
+        B = self.max_batch
+        if self.mega_buckets and act:
+            b = 1
+            while b < len(act):
+                b *= 2
+            B = min(b, self.max_batch)
+        compact = B < self.max_batch
+        rows = (act + [-1] * (B - len(act)) if compact
+                else list(range(self.max_batch)))
+        # Kept-row counts: a slot finishing inside the launch (known now
+        # from gen_len) sends its overshoot rows to the trash page.
+        n_valid = np.zeros(B, np.int32)
+        stop_tok = np.full(B, -1, np.int32)
+        for i, slot in enumerate(rows):
+            req = self._slots[slot] if slot >= 0 else None
+            if req is None:
+                continue
+            n_valid[i] = min(req.gen_len - len(req.out), self.NS)
+            if self.eos_id is not None:
+                stop_tok[i] = self.eos_id
+        eos = self.eos_id is not None and self.NS > 1
+        return _MegaPlan(rows=rows, B=B, compact=compact, eos=eos,
+                         n_valid=n_valid,
+                         stop_tok=stop_tok if eos else None)
+
+    def _launch_mega(self, plan: _MegaPlan):
+        """One ``ns``-step launch for ``plan``, with the launch-time host
+        bookkeeping (projected kv_len, counters). A bucket launch runs on
+        compacted table/kv_len views of the same pools; filler rows keep
+        a zeroed table row (the trash page) and kv_len 0. Returns
+        ``(plan, toks [NS, B], stop_step [B] or None)``, on the device."""
+        NS = self.NS
+        dev = self.model.device
+        rows = np.asarray([max(s, 0) for s in plan.rows], np.int64)
+        tok = torch.from_numpy(self._tok[rows].copy())
+        cache_in = self.cache
+        if plan.compact:
+            tbl = self._table[rows].copy()
+            kvl = self._kv_len[rows].copy()
+            for i, slot in enumerate(plan.rows):
+                if slot < 0 or self._slots[slot] is None:
+                    tbl[i] = 0
+                    kvl[i] = 0
+            cache_in = dataclasses.replace(
+                self.cache, page_table=torch.from_numpy(tbl).to(dev),
+                kv_len=torch.from_numpy(kvl).to(dev))
+        extra = [plan.n_valid]
+        if plan.eos:
+            extra += [plan.stop_tok, np.zeros(plan.B, np.int32)]
+        mega = self._mega_model()
+        fn = mega.decode_multi_fn(
+            plan.B, self.max_length, NS, page=self.page_size,
+            num_pages=int(self.cache.k_pages.shape[1]), valid_arg=True,
+            eos=plan.eos)
+        outs = fn(mega._step_params(), tok, cache_in, *extra)
+        toks, new_cache = outs[0], outs[2]
+        ss = outs[3] if plan.eos else None
+        adv = np.zeros(self.max_batch, np.int32)
+        for i, slot in enumerate(plan.rows):
+            if (slot >= 0 and self._slots[slot] is not None
+                    and plan.n_valid[i] > 0):
+                adv[slot] = 1
+        self._kv_len = self._kv_len + NS * adv
+        # The pools were written in place; kv_len (and a bucket's
+        # full-width table) come back from the host truth, so an idle
+        # slot's length never drifts past the table.
+        self.cache = dataclasses.replace(
+            new_cache, page_table=self.cache.page_table,
+            kv_len=torch.from_numpy(self._kv_len.copy()).to(dev))
+        if plan.compact:
+            self._bump("mega_bucket_launches")
+        self._bump("decode_steps", NS)
+        self._bump("mega_launches")
+        obs_events.emit("mega:launch", ns=NS, active=int(sum(
+            s >= 0 and self._slots[s] is not None for s in plan.rows)))
+        return plan, toks, ss
+
+    def _drain_launch(self, plan: _MegaPlan, toks, ss) -> bool:
+        """Fetch one launch's tokens and emit/retire through the normal
+        paths. A device stop-token hit (``stop_step < n_valid``) ends the
+        row's stream at the stop token."""
+        toks_np = toks.cpu().numpy()  # [NS, B]: the host sync
+        ss_np = ss.cpu().numpy() if ss is not None else None
+        col = {slot: i for i, slot in enumerate(plan.rows) if slot >= 0}
+        if ss_np is not None:
+            for slot, i in col.items():
+                if (self._slots[slot] is not None
+                        and ss_np[i] < plan.n_valid[i]):
+                    self._bump("mega_device_retires")
+
+        def slot_tokens(slot):
+            i = col.get(slot)
+            if i is None:
+                return ()
+            n = int(plan.n_valid[i])
+            if ss_np is not None:
+                n = min(n, int(ss_np[i]) + 1)
+            return toks_np[:n, i]
+
+        return self._process(slot_tokens)
 
     def _plan_drafts(self):
         """A draft for every active slot: a ``TreeDraft`` when tree

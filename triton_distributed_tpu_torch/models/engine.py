@@ -10,9 +10,13 @@ per-page scales. ``speculative=K`` (paged only) decodes each row through
 n-gram draft verify chunks and, with ``spec_width > 1`` on a full-width
 pool with the prefix cache, draft trees fed by the radix tree.
 
-Not ported, and refused when asked for: ``mode="mega"`` (the
-megakernel), ``mode="pallas"``, ``profile`` and ``temperature > 0``
-(ROADMAP queue 1).
+``mode="mega"`` decodes through the megakernel (``MegaDispatch``):
+``serve(ns=8)`` runs ``(gen_len - 1) // ns`` launches of ``ns`` steps
+each (in-kernel argmax) and the remainder as single-step launches of
+the same kernel; prefill runs the ``xla`` path, as in the JAX package.
+
+Not ported, and refused when asked for: ``mode="pallas"``, ``profile``,
+``temperature > 0``, ``MegaConfig(wq8=True)`` (ROADMAP queues 1 and 2).
 """
 
 from __future__ import annotations
@@ -58,6 +62,11 @@ from triton_distributed_tpu_torch.models.stats import (
 from triton_distributed_tpu_torch.obs import metrics as obs_metrics
 from triton_distributed_tpu_torch.runtime.context import resolve_device
 
+# Batch rows one megakernel launch takes (``megakernel.code_generator``
+# MAX_BATCH; kept here so the engines check it without importing the
+# megakernel package).
+MEGA_MAX_BATCH = 8
+
 SAMPLED_SERVING = (
     "temperature > 0 is not ported yet: sampled serving with "
     "per-request torch.Generators is ROADMAP queue 1, item 4b"
@@ -65,21 +74,24 @@ SAMPLED_SERVING = (
 
 
 def engine_setup(model, device, mode: str, temperature: float,
-                 **unported) -> None:
+                 mega_cfg=None, **unported) -> None:
     """Ctor checks both engines share: the engine runs on ``device``
-    (``cuda`` unless given; it must be the model's), in ``mode='xla'``,
-    greedy, and every knob this slice does not port is refused."""
+    (``cuda`` unless given; it must be the model's), in ``mode='xla'`` or
+    ``'mega'``, greedy, and every knob this slice does not port is
+    refused."""
     dev = resolve_device(device)
     if dev != model.device:
         raise ValueError(
             f"engine device {dev} differs from the model's {model.device}"
         )
-    if mode == "mega":
-        raise NotImplementedError(
-            "mode='mega' (the megakernel) is not ported yet "
-            "(ROADMAP queue 1, item 8)"
+    if mode != "mega":
+        check_mode(mode)
+    if mega_cfg is not None and mega_cfg.wq8:
+        from triton_distributed_tpu_torch.megakernel.code_generator import (
+            WQ8_UNPORTED,
         )
-    check_mode(mode)
+
+        raise NotImplementedError(WQ8_UNPORTED)
     if temperature > 0.0:
         raise NotImplementedError(SAMPLED_SERVING)
     for name, value in unported.items():
@@ -126,6 +138,42 @@ def prefill_suffix_chunks(
     return logits, cache, chunks
 
 
+class MegaDispatch:
+    """Megakernel-mode dispatch shared by both engines: the lazy
+    :class:`MegaQwen3`, the ``xla`` prefill under ``mode='mega'`` and the
+    single-step decode. Expects ``self.model``, ``self.mode`` and
+    ``self.mega_cfg`` (None → the JAX engines' serving default, fused
+    norms; its TPU staging flags do not change the CUDA kernel). With a
+    card, every mega-mode decode step is a launch of the megakernel;
+    nothing falls back to ``mode='xla'``."""
+
+    _mega = None
+    mega_cfg = None
+
+    @property
+    def _prefill_mode(self) -> str:
+        # The mega prefill graph is not ported: prefill runs the model's
+        # own path, as the JAX engines do under mode='mega'.
+        return "xla" if self.mode == "mega" else self.mode
+
+    def _mega_model(self):
+        if self._mega is None:
+            from triton_distributed_tpu_torch.megakernel import (
+                MegaConfig,
+                MegaQwen3,
+            )
+
+            cfg = self.mega_cfg or MegaConfig(
+                fuse_norms=True, cross_prefetch=True, overlap_ar=True)
+            self._mega = MegaQwen3(self.model, cfg=cfg)
+        return self._mega
+
+    def _decode_step(self, tok, cache):
+        if self.mode == "mega":
+            return self._mega_model().decode_step(tok, cache)
+        return self.model.decode_step(tok, cache, self.mode)
+
+
 class _PrefixState:
     """Cross-serve prefix-cache state: the pool-backed cache, its pool
     and the radix tree. ``dirty`` is set for the duration of a serve; a
@@ -141,7 +189,7 @@ class _PrefixState:
         self.dirty = False
 
 
-class Engine:
+class Engine(MegaDispatch):
     """Fixed-batch engine (``serve`` prefills a batch, then decodes it)."""
 
     # Live engines, auditable by the port's tests after every test.
@@ -160,9 +208,10 @@ class Engine:
         speculative: int = 0,
         spec_width: int = 4,
         kv_dtype: str | None = None,
+        mega_cfg=None,
         device=None,
     ):
-        engine_setup(model, device, mode, temperature)
+        engine_setup(model, device, mode, temperature, mega_cfg)
         # The explicit knob wins over the model config's kv_dtype; the
         # scales live on the page pool, so a dense cache cannot hold int8.
         self.kv_dtype = resolve_kv_dtype(kv_dtype, model.cfg)
@@ -170,6 +219,11 @@ class Engine:
             raise ValueError(
                 "speculative=K requires paged=True (verify chunks run "
                 "through the paged chunk-prefill path)"
+            )
+        if speculative and mode == "mega":
+            raise ValueError(
+                "speculative=K composes with mode='xla', not the "
+                "megakernel"
             )
         self.speculative = int(speculative)
         # Draft trees only on a full-width pool (the commit is a KV
@@ -184,6 +238,7 @@ class Engine:
             )
         self.model = model
         self.mode = mode
+        self.mega_cfg = mega_cfg
         self.last_stats: dict = {}
         self.paged = paged
         self.page_size = page_size
@@ -242,12 +297,14 @@ class Engine:
         max_length: int | None = None,
         profile: str | None = None,
         prompt_start=None,
+        ns: int = 8,
     ) -> np.ndarray:
         """Generate ``gen_len`` tokens for each sequence; returns
         ``[B, S + gen_len]``. ``prompt_start[i]`` marks where row i's
         real prompt begins (client left-padding before it): rows are
         rolled so pads sit on the RIGHT, where causal masking makes them
-        inert, and the real length rides to the prefill."""
+        inert, and the real length rides to the prefill. ``ns`` is the
+        megakernel's launch width (``mode='mega'`` only)."""
         if profile is not None:
             raise NotImplementedError(
                 "profile= is not ported yet (ROADMAP queue 1, item 12)"
@@ -269,6 +326,9 @@ class Engine:
                 f"page_size={self.page_size}; paged serving needs the "
                 "context to tile into whole pages"
             )
+        if self.mode == "mega" and b > MEGA_MAX_BATCH:
+            raise ValueError(f"mode='mega' serves at most {MEGA_MAX_BATCH} "
+                             f"rows per batch, got {b}")
         t0 = time.perf_counter()
         rows = np.stack(
             [np.roll(input_ids[i], -int(starts[i])) for i in range(b)]
@@ -314,7 +374,8 @@ class Engine:
             last_logits = []
             for i in range(b):
                 logits_i, dense1 = self.model.prefill_batched(
-                    rows[i : i + 1], dense1, self.mode, true_lens[i : i + 1],
+                    rows[i : i + 1], dense1, self._prefill_mode,
+                    true_lens[i : i + 1],
                 )
                 cache = write_prefill(
                     cache, i, dense1.k, dense1.v, int(true_lens[i])
@@ -324,7 +385,7 @@ class Engine:
         else:
             cache = self.model.new_cache(b, max_length)
             logits, cache = self.model.prefill_batched(
-                rows, cache, self.mode, true_lens,
+                rows, cache, self._prefill_mode, true_lens,
             )
         t_prefill = time.perf_counter() - t0
 
@@ -333,13 +394,18 @@ class Engine:
         out.append(tok.cpu().numpy()[:, None])
         t0 = time.perf_counter()
         spec = None
+        mega_launches = 0
         if self.speculative and gen_len > 1:
             tail, cache, spec = self._spec_decode(
                 cache, out[-1][:, 0], rows, true_lens, gen_len, max_length)
             out.append(tail)
         else:
-            for _ in range(gen_len - 1):
-                logits, cache = self.model.decode_step(tok, cache, self.mode)
+            left = gen_len - 1
+            if self.mode == "mega":
+                tok, cache, left, mega_launches = self._mega_multi(
+                    tok, cache, b, int(true_lens.max()), left, ns, out)
+            for _ in range(left):
+                logits, cache = self._decode_step(tok, cache)
                 tok = sampling.greedy(logits)
                 out.append(tok.cpu().numpy()[:, None])
         t_decode = time.perf_counter() - t0
@@ -361,6 +427,8 @@ class Engine:
             "prefill_tokens": prefill_toks,
             "generated_tokens": int(b * gen_len),
         }
+        if self.mode == "mega":
+            self.last_stats["mega_launches"] = mega_launches
         if spec is not None:
             self.last_stats.update(spec)
             self.last_stats.update(spec_summary(self.last_stats))
@@ -384,6 +452,33 @@ class Engine:
                 result, rows, true_lens, gen_len, cache, row_meta
             )
         return result
+
+    def _mega_multi(self, tok, cache, b: int, kv_high: int, left: int,
+                    ns: int, out: list):
+        """The multi-step fast path: as many ``ns``-step launches as fit
+        both the remaining tokens and the cache (a launch appends ``ns``
+        rows at once, so it must not start within ``ns`` of the end).
+        Returns ``(tok, cache, steps left for single-step launches,
+        launches run)``."""
+        NS = int(ns)
+        if NS < 1:
+            raise ValueError(f"ns must be >= 1, got {ns}")
+        if self.paged:
+            s_max = int(cache.page_table.shape[1]) * self.page_size
+        else:
+            s_max = int(cache.k.shape[3])
+        launches = min(left // NS, max(s_max - kv_high, 0) // NS)
+        if not launches:
+            return tok, cache, left, 0
+        fn = self._mega_model().decode_multi_fn(
+            b, s_max, NS, page=self.page_size if self.paged else 0,
+            num_pages=int(cache.k_pages.shape[1]) if self.paged else 0)
+        params = self._mega_model()._step_params()
+        for _ in range(launches):
+            toks, _logits, cache = fn(params, tok, cache)
+            out.append(toks.cpu().numpy().T)  # [b, NS]
+            tok = toks[-1]
+        return tok, cache, left - launches * NS, launches
 
     # -- speculative decode ------------------------------------------------
 
@@ -608,7 +703,7 @@ class Engine:
             hit_tokens += start
             logits_i, cache, _ = prefill_suffix_chunks(
                 self.model, cache, i, rows[i][:s], start,
-                self.prefill_chunk, self.mode,
+                self.prefill_chunk, self._prefill_mode,
             )
             prefill_tokens += s - start
             last_logits.append(logits_i)

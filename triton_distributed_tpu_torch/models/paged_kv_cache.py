@@ -397,6 +397,50 @@ def truncate_pages(
     return pages[:keep]
 
 
+def append(cache: PagedKVCache, k_new: torch.Tensor,
+           v_new: torch.Tensor) -> PagedKVCache:
+    """Append one token per sequence (``k_new/v_new [L, B, Hkv, hd]``) at
+    ``kv_len``: the ``NS = 1`` case of :func:`append_n`."""
+    return append_n(cache, k_new[:, :, :, None, :], v_new[:, :, :, None, :])
+
+
+def append_n(cache: PagedKVCache, k_new: torch.Tensor, v_new: torch.Tensor,
+             n_valid=None) -> PagedKVCache:
+    """Append ``NS`` tokens per sequence (``[L, B, Hkv, NS, hd]``) at
+    ``kv_len`` in one scatter per pool, in place; the returned cache
+    carries ``kv_len + NS``. Rows ``>= n_valid[b]`` (``[B]``; None → NS)
+    go to the trash page 0 instead of the sequence's pages: a serving
+    launch knows which of its rows overshoot a finishing request.
+    Page-boundary crossings fall out of the per-row (page, offset).
+    Caller contract: ``kv_len[b] + NS`` fits the page table. Full-width
+    pools only: the megakernel's int8-pool append is not ported (ROADMAP
+    queue 2 row 6, int8 pool)."""
+    if cache.quantized:
+        raise NotImplementedError(
+            "append_n on an int8 pool (the megakernel's quantized append) "
+            "is not ported yet (ROADMAP queue 2 row 6, int8 pool)")
+    dev = cache.k_pages.device
+    page = cache.k_pages.shape[3]
+    L, B, H, NS, hd = k_new.shape
+    steps = torch.arange(NS, device=dev)[None]
+    pos = cache.kv_len.long()[:, None] + steps
+    pps = cache.page_table.shape[1]
+    pids = cache.page_table.long().gather(
+        1, torch.clamp(pos // page, max=pps - 1))
+    if n_valid is not None:
+        nv = torch.as_tensor(np.asarray(n_valid) if not isinstance(
+            n_valid, torch.Tensor) else n_valid).to(dev).long()
+        pids = torch.where(steps < nv[:, None], pids, 0)
+    flat_p, flat_o = pids.reshape(-1), (pos % page).reshape(-1)
+    for pages, new in ((cache.k_pages, k_new), (cache.v_pages, v_new)):
+        # Two advanced indices split by a slice: the indexed view is
+        # [B*NS, L, H, hd]. Trash-routed rows may share an index; any
+        # of them may land (the trash page is never read).
+        pages[:, flat_p, :, flat_o, :] = new.permute(1, 3, 0, 2, 4).reshape(
+            B * NS, L, H, hd).to(pages.dtype)
+    return dataclasses.replace(cache, kv_len=cache.kv_len + NS)
+
+
 def write_prefill(
     cache: PagedKVCache,
     b_idx: int,

@@ -90,6 +90,21 @@ STAT_METRICS = {
     "decode_faults": ("tdt_engine_decode_faults_total",
                       "Exceptions isolated by the decode-phase step "
                       "guard."),
+    # Megakernel serving (mode="mega"): NS-step launches, the rounds
+    # served by a single-step launch instead, launches over a batch
+    # bucket narrower than max_batch, and slots retired by the in-kernel
+    # stop-token test.
+    "mega_launches": ("tdt_mega_launches_total",
+                      "Megakernel NS-step decode launches."),
+    "mega_fallback_steps": ("tdt_mega_single_step_fallbacks_total",
+                            "Mega-mode rounds served by the single-step "
+                            "fallback (tail or filtered sampling)."),
+    "mega_device_retires": ("tdt_mega_device_retires_total",
+                            "Slots retired by the in-kernel stop-token "
+                            "test (no host round trip)."),
+    "mega_bucket_launches": ("tdt_mega_bucket_launches_total",
+                             "Mega launches served by a batch-bucket "
+                             "program narrower than max_batch."),
 }
 
 # Extra registry names of the SAME counter as a STAT_METRICS entry (the

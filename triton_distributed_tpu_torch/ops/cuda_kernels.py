@@ -34,7 +34,7 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
 # Sources, each one shared library.
-SOURCES = ("flash_attention", "flash_decode")
+SOURCES = ("flash_attention", "flash_decode", "megakernel")
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -177,9 +177,17 @@ PAGED_FLASH_DECODE_INT8 = CudaKernel(
     [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,
      _I, _P],
 )
+# The decode megakernel: host arrays of the operand pointers and the
+# geometry ints, the RMS epsilon, the softmax scale, an int[4] that
+# receives the launch geometry, and the stream
+# (megakernel/code_generator.py packs them).
+MEGA_DECODE = CudaKernel(
+    "mega_decode", "megakernel", "tdt_mega_decode",
+    [_P, _P, _F, _F, _P, _P],
+)
 KERNELS = (FLASH_ATTENTION, FLASH_DECODE, PAGED_FLASH_DECODE,
            FLASH_ATTENTION_INT8, PAGED_FLASH_DECODE_INT8,
-           FLASH_ATTENTION_BIAS)
+           FLASH_ATTENTION_BIAS, MEGA_DECODE)
 
 
 def reset_launch_counts() -> None:
