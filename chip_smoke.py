@@ -130,9 +130,13 @@ PATH_KERNELS = {
 # differ by f32 summation order plus the bf16 roundings it flips; the
 # first readings on an H100 were 0.067-0.099 (PERF.md §2), and the limit
 # is 1.5x the worst. f32 (TF32 off) differs in summation order only.
+# A bf16 greedy token may leave the plain stream only where the plain
+# logits put it within MEGA_TIE_GAP of the plain top: the kernel's measured
+# logit error (0.099 at worst, PERF.md §2), not the whole limit.
 MEGA_LENS = (700, 2040, 700, 2040)
 MEGA_NS = (1, 8)
 MEGA_TOL = {"bf16": (0.15, 2.0**-6), "f32": (2e-3, 0.0)}
+MEGA_TIE_GAP = 0.1
 # Card peaks (H100 SXM data sheet, dense): HBM bytes/s, bf16/f16 FLOP/s.
 HBM_BPS = 3.35e12
 BF16_FLOPS = 989e12
@@ -510,13 +514,14 @@ def check_kernels(dev, flush):
     return records
 
 
-def _mega_tokens_ok(toks, ref_toks, plain_at, tol) -> list:
+def _mega_tokens_ok(toks, ref_toks, plain_at) -> list:
     """Kernel vs plain greedy tokens [NS, B]. A row may leave the plain
     stream only where the plain version itself cannot tell the two
     tokens apart: at the first differing step s, the plain logits of
-    step s (``plain_at(s)``) must put the kernel's token within the logit
-    limit of the plain argmax (a near tie; the steps after it decode
-    other inputs). Returns the near-tie records; raises otherwise."""
+    step s (``plain_at(s)``) must put the kernel's token within
+    ``MEGA_TIE_GAP`` of the plain argmax (a near tie; the steps after it
+    decode other inputs). Returns the near-tie records; raises
+    otherwise."""
     ties = []
     diff = (toks != ref_toks).any(dim=0)
     for b in diff.nonzero().flatten().tolist():
@@ -524,9 +529,8 @@ def _mega_tokens_ok(toks, ref_toks, plain_at, tol) -> list:
         lg = plain_at(s)[b]
         top, got = int(ref_toks[s, b]), int(toks[s, b])
         gap = (lg[top] - lg[got]).item()
-        limit = tol[0] + tol[1] * lg[top].abs().item()
-        ties.append(dict(row=b, step=s, gap=gap, limit=limit))
-        if not 0 <= gap <= limit:
+        ties.append(dict(row=b, step=s, gap=gap))
+        if not 0 <= gap <= MEGA_TIE_GAP:
             raise RuntimeError(f"kernel token {got} at row {b} step {s} is "
                                f"not a near tie of plain's {top}: gap {gap}")
     return ties
@@ -608,12 +612,13 @@ def check_mega(dev, flush):
                                            "tokens differ from plain")
                     case_ties = []
                 else:
-                    case_ties = _mega_tokens_ok(got[3], ref[3], plain_at,
-                                                MEGA_TOL[tag])
+                    case_ties = _mega_tokens_ok(got[3], ref[3], plain_at)
                 ties += [dict(kind=kind, ns=ns, **t) for t in case_ties]
-                # Logits of the last step; a row that left the plain
-                # stream at a near tie decodes other inputs after it.
-                keep = (got[3] == ref[3]).all(dim=0)
+                # The last step's logits and new rows read the tokens of
+                # the steps before it: a row that left the plain stream
+                # there (at a near tie) decodes other inputs; every other
+                # row, and every row at NS = 1, is held to the limit.
+                keep = (got[3][:-1] == ref[3][:-1]).all(dim=0)
                 err = (got[0] - ref[0]).abs()[keep]
                 used = (err / (atol + rtol * ref[0].abs()[keep])).max().item()
                 kerr = max((got[i].float() - ref[i].float())[:, :, keep]

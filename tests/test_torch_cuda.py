@@ -278,8 +278,10 @@ def test_bias_wrapper_rejects_what_the_kernel_does_not_take(dev):
 #
 # mega_decode (csrc/megakernel.cu) against its plain version
 # (megakernel/kernels.py) on the same weights, caches and tokens: the
-# tiny preset's widths (4 rows, and 6 rows for the kernel's 8-row
-# accumulator variant) and Qwen3-0.6B's widths at 2 layers, dense and
+# tiny preset's widths (4 rows, and 10 rows: two full 4-row batch groups
+# of the kernel's GEMMs and a partial one) and Qwen3-0.6B's widths at 2
+# layers (4 rows, and 16 rows in f32, where tokens must match exactly at
+# any batch: in bf16 a 16-row batch meets near ties), dense and
 # paged (trash page 0, a bucket filler row with kv_len 0), NS = 1 and
 # NS = 8, f32 (TF32 off) and bf16. Tokens must be equal. Logit limits:
 # f32 differs only in summation order (2e-3 on logits of size ~5);
@@ -290,8 +292,10 @@ MEGA_TOL = {torch.float32: (2e-3, 0.0), torch.bfloat16: (5e-2, 2.0**-6)}
 MEGA_SHAPES = {
     # preset overrides, kv_len per row (0 = bucket filler), page size
     "tiny": (dict(), [17, 0, 40, 3], 16),
-    "tiny6": (dict(), [17, 0, 40, 3, 56, 9], 16),
+    "tiny10": (dict(), [17, 0, 40, 3, 56, 9, 1, 33, 0, 48], 16),
     "qwen": (dict(num_layers=2), [700, 0, 700, 2040], 128),
+    "qwen16": (dict(num_layers=2), [700, 0, 700, 2040, 1, 300, 129, 1500,
+                                    64, 0, 900, 2040, 17, 1024, 128, 5], 128),
 }
 
 
@@ -304,8 +308,9 @@ def _mega_inputs(dev, shape, dtype, paged, ns, seed=0):
     from triton_distributed_tpu_torch.models import AutoLLM
 
     over, lens, page = MEGA_SHAPES[shape]
-    name = "Qwen/Qwen3-0.6B" if shape == "qwen" else "tiny"
-    s_max = 2048 if shape == "qwen" else 64
+    qwen = shape.startswith("qwen")
+    name = "Qwen/Qwen3-0.6B" if qwen else "tiny"
+    s_max = 2048 if qwen else 64
     model = AutoLLM.from_pretrained(name, device=dev, seed=seed, dtype=dtype,
                                     max_length=s_max, **over)
     cfg = model.cfg
@@ -357,7 +362,8 @@ def _mega_run(mega, dims, args, stop_tok=None, plain=False):
 @pytest.mark.parametrize("shape,dtype", [
     ("tiny", torch.float32), ("qwen", torch.float32),
     ("tiny", torch.bfloat16), ("qwen", torch.bfloat16),
-    ("tiny6", torch.float32), ("tiny6", torch.bfloat16),
+    ("tiny10", torch.float32), ("tiny10", torch.bfloat16),
+    ("qwen16", torch.float32),
 ])
 def test_mega_decode_matches_plain(dev, shape, dtype, paged, ns):
     model, mega, dims, args = _mega_inputs(dev, shape, dtype, paged, ns)

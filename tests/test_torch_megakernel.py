@@ -328,6 +328,30 @@ def test_engine_mega_tokens_identical(models, goldens, paged):
     assert eng.last_stats["decode_steps"] == 9
 
 
+# Ten rows: more than one of the CUDA kernel's batch groups (kGroupB in
+# csrc/megakernel.cu); like the JAX megakernel, the engines take any batch.
+WIDE_IDS = np.stack([np.concatenate([_PREFIX[:8], _rng.integers(0, 256, 8)])
+                     for _ in range(10)]).astype(np.int32)
+
+
+def test_mega_wide_batch_tokens_identical(models):
+    """Ten rows through Engine.serve (one 4-step launch and a single-step
+    remainder) and through a ContinuousEngine with max_batch=10 emit the
+    JAX xla Engine's greedy tokens."""
+    jm, tm = models
+    want = JaxEngine(jm, mode="xla").serve(WIDE_IDS, 6, MAXLEN)
+    eng = Engine(tm, mode="mega", device="cpu")
+    np.testing.assert_array_equal(eng.serve(WIDE_IDS, 6, MAXLEN, ns=4), want)
+    assert eng.last_stats["mega_launches"] == 1
+    cont = ContinuousEngine(tm, max_batch=10, page_size=PAGE,
+                            max_length=MAXLEN, mode="mega", ns=4,
+                            device="cpu")
+    got = cont.run([(row, 6) for row in WIDE_IDS])
+    np.testing.assert_array_equal(np.stack(got), want[:, WIDE_IDS.shape[1]:])
+    assert cont.last_stats["mega_launches"] > 0
+    assert cont.audit() == []
+
+
 @pytest.mark.parametrize("prefix_cache", [False, True])
 def test_continuous_mega_tokens_identical(models, goldens, prefix_cache):
     """Greedy streams equal the JAX xla ContinuousEngine's (one golden: a
@@ -392,17 +416,3 @@ def test_refused_knobs_raise(models):
     with pytest.raises(ValueError, match="ns"):
         ContinuousEngine(tm, page_size=PAGE, max_length=MAXLEN, mode="mega",
                          ns=0, device="cpu")
-    # One launch takes at most MAX_BATCH rows; both engines say so before
-    # serving anything.
-    from triton_distributed_tpu_torch.megakernel.code_generator import (
-        MAX_BATCH,
-    )
-    from triton_distributed_tpu_torch.models.engine import MEGA_MAX_BATCH
-
-    assert MEGA_MAX_BATCH == MAX_BATCH
-    with pytest.raises(ValueError, match="max_batch"):
-        ContinuousEngine(tm, page_size=PAGE, max_length=MAXLEN, mode="mega",
-                         max_batch=MAX_BATCH + 1, device="cpu")
-    ids = np.zeros((MAX_BATCH + 1, 4), np.int32)
-    with pytest.raises(ValueError, match="rows"):
-        Engine(tm, mode="mega", device="cpu").serve(ids, 2, MAXLEN)

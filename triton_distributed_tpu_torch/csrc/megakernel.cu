@@ -29,7 +29,7 @@
 //
 // What bounds it on the H100: bytes. A step reads every layer weight once
 // (0.88 GB at Qwen3-0.6B in bf16), the LM head (0.31 GB) and every cached
-// K/V row (114688 B per token over 28 layers); at batch <= 8 it does ~2
+// K/V row (114688 B per token over 28 layers); at small batch it does ~2
 // FLOPs per weight byte per row, far under the ~295 FLOP/byte balance
 // point, so the bound is those bytes / 3.35 TB/s.
 //
@@ -38,7 +38,9 @@
 // for the GEMMs (split K when the columns alone would leave blocks idle;
 // each split writes its own f32 partial and a second phase sums them in a
 // fixed order, so results are bit-identical run to run: no float
-// atomics), (b, kv head, 128-token chunk) for the attention partials and
+// atomics; a batch wider than kGroupB rows runs each tile once per batch
+// group of kGroupB rows, reading its weights once per group), (b, kv
+// head, 128-token chunk) for the attention partials and
 // (b, kv head) for their merge, 64-column vocab tiles for the LM head. A
 // grid-wide barrier (one counter, every barrier adds exactly 2^31, so the
 // counter is ready for the next launch whatever its value) sits between
@@ -63,7 +65,11 @@ using tdt::warp_sum;
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kMaxB = 8;            // batch rows a launch takes
+// Batch rows one GEMM pass accumulates. 4 rather than 8: half the
+// accumulator registers and staging, so two blocks fit an SM at every
+// batch; on an H100 (perf/mega_batch_sweep.py) 4-row groups beat 8-row
+// ones at B = 4, 8 and 16.
+constexpr int kGroupB = 4;
 constexpr int kTileN = 64;          // GEMM output columns per tile
 constexpr int kColsPer = 8;         // consecutive columns per thread
 constexpr int kColThreads = kTileN / kColsPer;       // 8
@@ -210,13 +216,13 @@ __device__ void stage_input(const float* src, int K, const W* normw,
 }
 
 // One GEMM tile: out[b * ldo + n] = sum_{k0 <= k < k1} xs[b][k - k0] *
-// w[k][n] for the 64 columns n0.. (clipped at N), every b < B <= MAXB.
+// w[k][n] for the 64 columns n0.. (clipped at N), every b < B <= kGroupB.
 // 32 row groups x 8 column threads; each thread owns 8 columns (one
 // 16-byte load in bf16) and strides over K, kUnrollK rows' loads in
 // flight at a time; the row groups reduce with shuffles and then through
 // shared memory in a fixed order. With `tile`, the sums are also left in
 // shared memory tile[b][c].
-template <typename W, int MAXB>
+template <typename W>
 __device__ void gemm_tile(const W* __restrict__ w, int N, int n0, int k0,
                           int k1, const float* xs, int B, float* red,
                           float* out, int ldo, float* tile) {
@@ -224,9 +230,9 @@ __device__ void gemm_tile(const W* __restrict__ w, int N, int n0, int k0,
   const int ct = tid % kColThreads, rg = tid / kColThreads;
   const int col = n0 + ct * kColsPer;
   const int nk = k1 - k0;
-  float acc[MAXB][kColsPer];
+  float acc[kGroupB][kColsPer];
 #pragma unroll
-  for (int b = 0; b < MAXB; ++b)
+  for (int b = 0; b < kGroupB; ++b)
 #pragma unroll
     for (int j = 0; j < kColsPer; ++j) acc[b][j] = 0.f;
   if (col < N) {
@@ -244,7 +250,7 @@ __device__ void gemm_tile(const W* __restrict__ w, int N, int n0, int k0,
           float wv[kColsPer];
           raw[u].widen(wv);
 #pragma unroll
-          for (int b = 0; b < MAXB; ++b) {
+          for (int b = 0; b < kGroupB; ++b) {
             if (b < B) {
               const float xv = xs[b * nk + k];
 #pragma unroll
@@ -258,7 +264,7 @@ __device__ void gemm_tile(const W* __restrict__ w, int N, int n0, int k0,
   }
   // The 4 row groups of a warp sit 8 lanes apart.
 #pragma unroll
-  for (int b = 0; b < MAXB; ++b) {
+  for (int b = 0; b < kGroupB; ++b) {
     if (b < B) {
 #pragma unroll
       for (int j = 0; j < kColsPer; ++j) {
@@ -272,11 +278,11 @@ __device__ void gemm_tile(const W* __restrict__ w, int N, int n0, int k0,
   const int lane = tid % 32, warp = tid / 32;
   if (lane < kColThreads) {
 #pragma unroll
-    for (int b = 0; b < MAXB; ++b)
+    for (int b = 0; b < kGroupB; ++b)
       if (b < B)
 #pragma unroll
         for (int j = 0; j < kColsPer; ++j)
-          red[(warp * kMaxB + b) * kTileN + lane * kColsPer + j] = acc[b][j];
+          red[(warp * kGroupB + b) * kTileN + lane * kColsPer + j] = acc[b][j];
   }
   __syncthreads();
   for (int i = tid; i < B * kTileN; i += kThreads) {
@@ -284,7 +290,7 @@ __device__ void gemm_tile(const W* __restrict__ w, int N, int n0, int k0,
     float s = 0.f;
 #pragma unroll
     for (int wi = 0; wi < kWarps; ++wi)
-      s += red[(wi * kMaxB + b) * kTileN + c];
+      s += red[(wi * kGroupB + b) * kTileN + c];
     if (n0 + c < N) out[(size_t)b * ldo + n0 + c] = s;
     if (tile != nullptr) tile[i] = s;
   }
@@ -301,25 +307,29 @@ __device__ __forceinline__ int pick_split(int ntiles, int K) {
 }
 
 // All tiles of src [B, K] @ w [K, N] over the blocks, each K split into
-// its own partial part[s][B][N].
-template <typename W, int MAXB>
+// its own partial part[s][B][N], each tile once per batch group.
+template <typename W>
 __device__ void gemm_partials(const W* w, int K, int N, int B, int S,
                               const float* src, const W* normw,
                               const float* rstd, float* part, float* xs,
                               float* red) {
   const int ntiles = (N + kTileN - 1) / kTileN;
   const int kchunk = (K + S - 1) / S;
-  int staged = -1;
+  int staged = -1;  // s * B + b0 of the rows in xs
   for (int u = blockIdx.x; u < ntiles * S; u += gridDim.x) {
     const int s = u / ntiles, tile = u % ntiles;
     const int k0 = s * kchunk, k1 = min(K, k0 + kchunk);
     if (k1 <= k0) continue;
-    if (s != staged) {
-      stage_input<W>(src, K, normw, rstd, B, k0, k1, xs);
-      staged = s;
+    for (int b0 = 0; b0 < B; b0 += kGroupB) {
+      const int bg = min(kGroupB, B - b0);
+      if (s * B + b0 != staged) {
+        stage_input<W>(src + (size_t)b0 * K, K, normw, rstd + b0, bg, k0, k1,
+                       xs);
+        staged = s * B + b0;
+      }
+      gemm_tile<W>(w, N, tile * kTileN, k0, k1, xs, bg, red,
+                   part + ((size_t)s * B + b0) * N, N, nullptr);
     }
-    gemm_tile<W, MAXB>(w, N, tile * kTileN, k0, k1, xs, B, red,
-                       part + (size_t)s * B * N, N, nullptr);
   }
 }
 
@@ -607,11 +617,11 @@ __device__ void attn_merge(const Params& p, int layer, int step, float* sm) {
   }
 }
 
-// LM head: logits over the padded vocab in 64-column tiles; in
-// multi-step builds (argmax set, even at NS = 1) each block keeps its
-// best (value, index) per row over the real columns and publishes it to
-// argv/argi.
-template <typename W, int MAXB>
+// LM head: logits over the padded vocab in 64-column tiles (each tile
+// once per batch group); in multi-step builds (argmax set, even at
+// NS = 1) each block keeps its best (value, index) per row over the real
+// columns and publishes it to argv/argi.
+template <typename W>
 __device__ void lm_head(const Params& p, float* xs, float* red, float* tile,
                         float* rstd, float* best_v, int* best_i) {
   const int B = p.B, K = p.d, N = p.v_pad, tid = threadIdx.x;
@@ -619,54 +629,75 @@ __device__ void lm_head(const Params& p, float* xs, float* red, float* tile,
   const float* src = p.fuse_norms ? p.x : p.h;
   const W* normw = p.fuse_norms ? reinterpret_cast<const W*>(p.normf) : nullptr;
   if (p.fuse_norms) row_rstd(p.x, B, K, p.eps, rstd);
-  stage_input<W>(src, K, normw, rstd, B, 0, K, xs);
   const bool track = p.argmax != 0;
-  if (tid < B) {
-    best_v[tid] = -INFINITY;
-    best_i[tid] = kIdxNone;
+  for (int b = tid; b < B; b += kThreads) {
+    best_v[b] = -INFINITY;
+    best_i[b] = kIdxNone;
   }
   __syncthreads();
   const W* w = reinterpret_cast<const W*>(p.lm_head);
   const int ntiles = (N + kTileN - 1) / kTileN;
+  int staged = -1;  // b0 of the rows in xs
   for (int u = blockIdx.x; u < ntiles; u += gridDim.x) {
     const int n0 = u * kTileN;
-    gemm_tile<W, MAXB>(w, N, n0, 0, K, xs, B, red, p.logits, N,
-                       track ? tile : nullptr);
-    if (track && warp < B) {
-      float v = -INFINITY;
-      int idx = kIdxNone;
-      for (int c = lane; c < kTileN; c += 32) {
-        const int col = n0 + c;
-        if (col < p.v_real) {
-          const float s = tile[warp * kTileN + c];
-          if (better(s, col, v, idx)) { v = s; idx = col; }
+    for (int b0 = 0; b0 < B; b0 += kGroupB) {
+      const int bg = min(kGroupB, B - b0);
+      if (b0 != staged) {
+        stage_input<W>(src + (size_t)b0 * K, K, normw, rstd + b0, bg, 0, K,
+                       xs);
+        staged = b0;
+      }
+      gemm_tile<W>(w, N, n0, 0, K, xs, bg, red, p.logits + (size_t)b0 * N,
+                   N, track ? tile : nullptr);
+      if (track) {
+        for (int r = warp; r < bg; r += kWarps) {
+          float v = -INFINITY;
+          int idx = kIdxNone;
+          for (int c = lane; c < kTileN; c += 32) {
+            const int col = n0 + c;
+            if (col < p.v_real) {
+              const float s = tile[r * kTileN + c];
+              if (better(s, col, v, idx)) { v = s; idx = col; }
+            }
+          }
+          warp_argmax(v, idx);
+          if (lane == 0 && better(v, idx, best_v[b0 + r], best_i[b0 + r])) {
+            best_v[b0 + r] = v;
+            best_i[b0 + r] = idx;
+          }
         }
       }
-      warp_argmax(v, idx);
-      if (lane == 0 && better(v, idx, best_v[warp], best_i[warp])) {
-        best_v[warp] = v;
-        best_i[warp] = idx;
-      }
+      __syncthreads();
     }
-    __syncthreads();
   }
-  if (track && tid < B) {
-    p.argv[(size_t)blockIdx.x * B + tid] = best_v[tid];
-    p.argi[(size_t)blockIdx.x * B + tid] = best_i[tid];
+  if (track) {
+    for (int b = tid; b < B; b += kThreads) {
+      p.argv[(size_t)blockIdx.x * B + b] = best_v[b];
+      p.argi[(size_t)blockIdx.x * B + b] = best_i[b];
+    }
   }
 }
 
-template <typename W, int MAXB>
+// Dynamic shared memory of a block (floats): the per-row values
+// (rstd, best_v, best_i, tok_s: [B] each), the GEMM reduction buffer
+// red [kWarps][kGroupB][kTileN], the LM head's tile [kGroupB][kTileN],
+// then `region` for GEMM input staging or the attention phases.
+__host__ __device__ __forceinline__ size_t smem_floats(int B, int region) {
+  return 4 * (size_t)B + (size_t)kWarps * kGroupB * kTileN +
+         kGroupB * kTileN + region;
+}
+
+template <typename W>
 __global__ void __launch_bounds__(kThreads, kMaxBlocksPerSM)
     mega_kernel(const __grid_constant__ Params p) {
   extern __shared__ float smem[];
-  __shared__ float rstd[kMaxB];
-  __shared__ float best_v[kMaxB];
-  __shared__ int best_i[kMaxB];
-  __shared__ int tok_s[kMaxB];
-  float* red = smem;                                // [kWarps][kMaxB][kTileN]
-  float* tile = red + kWarps * kMaxB * kTileN;      // [kMaxB][kTileN]
-  float* xs = tile + kMaxB * kTileN;                // staging / attention
+  float* rstd = smem;
+  float* best_v = rstd + p.B;
+  int* best_i = reinterpret_cast<int*>(best_v + p.B);
+  int* tok_s = best_i + p.B;
+  float* red = reinterpret_cast<float*>(tok_s + p.B);
+  float* tile = red + kWarps * kGroupB * kTileN;
+  float* xs = tile + kGroupB * kTileN;  // 16-byte aligned
   const int tid = threadIdx.x;
   const size_t gtid = (size_t)blockIdx.x * kThreads + tid;
   const size_t gthreads = (size_t)gridDim.x * kThreads;
@@ -678,7 +709,7 @@ __global__ void __launch_bounds__(kThreads, kMaxBlocksPerSM)
   const W* w2 = reinterpret_cast<const W*>(p.w2);
   const W* ln1 = reinterpret_cast<const W*>(p.ln1);
   const W* ln2 = reinterpret_cast<const W*>(p.ln2);
-  if (tid < B) tok_s[tid] = p.tokens[tid];
+  for (int b = tid; b < B; b += kThreads) tok_s[b] = p.tokens[b];
   __syncthreads();
 
   for (int step = 0; step < p.nsteps; ++step) {
@@ -721,8 +752,8 @@ __global__ void __launch_bounds__(kThreads, kMaxBlocksPerSM)
             row_rstd(p.x, B, d, p.eps, rstd);
           }
           const int S = pick_split((N + kTileN - 1) / kTileN, d);
-          gemm_partials<W, MAXB>(w, d, N, B, S, p.fuse_norms ? p.x : p.h,
-                                 normw, rstd, p.part, xs, red);
+          gemm_partials<W>(w, d, N, B, S, p.fuse_norms ? p.x : p.h,
+                             normw, rstd, p.part, xs, red);
           grid_sync(p.bar);
           const size_t BN = (size_t)B * N;
           if (qkv) {
@@ -754,8 +785,8 @@ __global__ void __launch_bounds__(kThreads, kMaxBlocksPerSM)
           const W* w = o ? wo + (size_t)layer * K * d
                          : w2 + (size_t)layer * K * d;
           const int S = pick_split((d + kTileN - 1) / kTileN, K);
-          gemm_partials<W, MAXB>(w, K, d, B, S, o ? p.ao : p.mlp, nullptr,
-                                 rstd, p.part, xs, red);
+          gemm_partials<W>(w, K, d, B, S, o ? p.ao : p.mlp, nullptr,
+                             rstd, p.part, xs, red);
           grid_sync(p.bar);
           const size_t BN = (size_t)B * d;
           for (size_t i = gtid; i < BN; i += gthreads)
@@ -771,25 +802,25 @@ __global__ void __launch_bounds__(kThreads, kMaxBlocksPerSM)
           break;
         }
         case kLmHead: {
-          lm_head<W, MAXB>(p, xs, red, tile, rstd, best_v, best_i);
+          lm_head<W>(p, xs, red, tile, rstd, best_v, best_i);
           grid_sync(p.bar);
           if (p.argmax) {
-            if (tid < B) {
+            for (int b = tid; b < B; b += kThreads) {
               float bv = -INFINITY;
               int bi = kIdxNone;
               for (int blk = 0; blk < (int)gridDim.x; ++blk) {
-                const float v = __ldcg(p.argv + (size_t)blk * B + tid);
-                const int i = __ldcg(p.argi + (size_t)blk * B + tid);
+                const float v = __ldcg(p.argv + (size_t)blk * B + b);
+                const int i = __ldcg(p.argi + (size_t)blk * B + b);
                 if (better(v, i, bv, bi)) { bv = v; bi = i; }
               }
               if (bi == kIdxNone) bi = 0;
-              tok_s[tid] = bi;
+              tok_s[b] = bi;
               if (blockIdx.x == 0) {
-                p.toks[step * B + tid] = bi;
+                p.toks[step * B + b] = bi;
                 if (p.eos) {
-                  const int prev = step == 0 ? p.nsteps : p.stop_step[tid];
-                  const bool hit = bi == p.stop_tok[tid];
-                  p.stop_step[tid] = (hit && prev == p.nsteps) ? step : prev;
+                  const int prev = step == 0 ? p.nsteps : p.stop_step[b];
+                  const bool hit = bi == p.stop_tok[b];
+                  p.stop_step[b] = (hit && prev == p.nsteps) ? step : prev;
                 }
               }
             }
@@ -804,9 +835,9 @@ __global__ void __launch_bounds__(kThreads, kMaxBlocksPerSM)
   }
 }
 
-template <typename W, int MAXB>
+template <typename W>
 int launch(Params p, long long ws_floats, int* info, cudaStream_t stream) {
-  auto kern = mega_kernel<W, MAXB>;
+  auto kern = mega_kernel<W>;
   int dev = 0, sms = 0, coop = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return (int)e;
@@ -818,9 +849,8 @@ int launch(Params p, long long ws_floats, int* info, cudaStream_t stream) {
   const int attn_b = 2 * kAttnChunk + g * p.hd + g * kAttnChunk + p.hd +
                      2 * g + kThreads * g;
   const int attn_m = g * p.hd + g * (p.nsteps + 1);
-  const int region = max(p.B * kmax, max(attn_b, attn_m));
-  const size_t smem = sizeof(float) * ((size_t)kWarps * kMaxB * kTileN +
-                                       kMaxB * kTileN + region);
+  const int region = max(min(p.B, kGroupB) * kmax, max(attn_b, attn_m));
+  const size_t smem = sizeof(float) * smem_floats(p.B, region);
   e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                            (int)smem);
   if (e != cudaSuccess) return (int)e;
@@ -928,7 +958,7 @@ extern "C" int tdt_mega_decode(const unsigned long long* ptrs,
   p.nch = (p.s_cap + kAttnChunk - 1) / kAttnChunk;
   p.eps = eps;
   p.sm_scale = sm_scale;
-  if (p.B < 1 || p.B > kMaxB || p.hkv < 1 || p.hq % p.hkv != 0 ||
+  if (p.B < 1 || p.hkv < 1 || p.hq % p.hkv != 0 ||
       p.hq / p.hkv > kMaxGroup || p.hd % 32 != 0 || p.hd > kMaxHd ||
       kThreads % p.hd != 0 ||
       p.nsteps < 1 || (p.eos && p.stop_tok == nullptr) ||
@@ -937,12 +967,8 @@ extern "C" int tdt_mega_decode(const unsigned long long* ptrs,
       (2 * p.f) % 8 != 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  // Batch bound of the GEMM accumulators: 4 rows (the serving batch) or 8.
-  if (dtype == tdt::kDtypeF32)
-    return p.B <= 4 ? launch<float, 4>(p, ws_floats, info, s)
-                    : launch<float, 8>(p, ws_floats, info, s);
+  if (dtype == tdt::kDtypeF32) return launch<float>(p, ws_floats, info, s);
   if (dtype == tdt::kDtypeBF16)
-    return p.B <= 4 ? launch<__nv_bfloat16, 4>(p, ws_floats, info, s)
-                    : launch<__nv_bfloat16, 8>(p, ws_floats, info, s);
+    return launch<__nv_bfloat16>(p, ws_floats, info, s);
   return (int)cudaErrorInvalidValue;
 }

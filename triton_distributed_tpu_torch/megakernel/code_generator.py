@@ -35,9 +35,8 @@ KERNEL_TASKS = frozenset({
     TaskType.O_PROJ, TaskType.FC1, TaskType.FC2, TaskType.ALLREDUCE,
     TaskType.LM_HEAD,
 })
-# Kernel geometry shared with csrc/megakernel.cu (kMaxB, kMaxSplit,
-# kAttnChunk, blocks per SM at most): the workspace is sized from it.
-MAX_BATCH = 8
+# Kernel geometry shared with csrc/megakernel.cu (kMaxSplit, kAttnChunk,
+# blocks per SM at most): the workspace is sized from it.
 MAX_SPLIT = 16
 ATTN_CHUNK = 128
 MAX_BLOCKS_PER_SM = 2
@@ -208,9 +207,6 @@ def check_dims(dims: MegaDims, cfg: MegaConfig) -> None:
     if dims.eos and (not dims.page or dims.nsteps <= 1):
         raise ValueError("device stop-token testing rides the paged "
                          "multi-step decode (page > 0, nsteps > 1)")
-    if dims.batch > MAX_BATCH:
-        raise ValueError(f"the megakernel takes batch <= {MAX_BATCH}, "
-                         f"got {dims.batch}")
     if dims.hq_loc % dims.hkv_loc or dims.hq_loc // dims.hkv_loc > 8:
         raise ValueError("q heads must be a multiple (<= 8x) of kv heads")
     if dims.head_dim not in (32, 64, 128, 256):

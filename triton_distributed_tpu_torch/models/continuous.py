@@ -58,7 +58,6 @@ import torch
 
 from triton_distributed_tpu_torch.models import sampling
 from triton_distributed_tpu_torch.models.engine import (
-    MEGA_MAX_BATCH,
     SAMPLED_SERVING,
     MegaDispatch,
     engine_setup,
@@ -251,9 +250,6 @@ class ContinuousEngine(MegaDispatch):
             raise ValueError(
                 "speculative=K does not compose with mode='mega': a launch "
                 "advances every slot ns tokens in lockstep")
-        if mode == "mega" and max_batch > MEGA_MAX_BATCH:
-            raise ValueError(f"mode='mega' takes max_batch <= "
-                             f"{MEGA_MAX_BATCH}, got {max_batch}")
         self.model = model
         self.mode = mode
         self.mega_cfg = mega_cfg

@@ -62,11 +62,6 @@ from triton_distributed_tpu_torch.models.stats import (
 from triton_distributed_tpu_torch.obs import metrics as obs_metrics
 from triton_distributed_tpu_torch.runtime.context import resolve_device
 
-# Batch rows one megakernel launch takes (``megakernel.code_generator``
-# MAX_BATCH; kept here so the engines check it without importing the
-# megakernel package).
-MEGA_MAX_BATCH = 8
-
 SAMPLED_SERVING = (
     "temperature > 0 is not ported yet: sampled serving with "
     "per-request torch.Generators is ROADMAP queue 1, item 4b"
@@ -326,9 +321,6 @@ class Engine(MegaDispatch):
                 f"page_size={self.page_size}; paged serving needs the "
                 "context to tile into whole pages"
             )
-        if self.mode == "mega" and b > MEGA_MAX_BATCH:
-            raise ValueError(f"mode='mega' serves at most {MEGA_MAX_BATCH} "
-                             f"rows per batch, got {b}")
         t0 = time.perf_counter()
         rows = np.stack(
             [np.roll(input_ids[i], -int(starts[i])) for i in range(b)]

@@ -98,7 +98,8 @@ STAT_METRICS = {
                       "Megakernel NS-step decode launches."),
     "mega_fallback_steps": ("tdt_mega_single_step_fallbacks_total",
                             "Mega-mode rounds served by the single-step "
-                            "fallback (tail or filtered sampling)."),
+                            "fallback (capacity gate: a slot within ns of "
+                            "max_length)."),
     "mega_device_retires": ("tdt_mega_device_retires_total",
                             "Slots retired by the in-kernel stop-token "
                             "test (no host round trip)."),
