@@ -123,7 +123,30 @@ PATH_KERNELS = {
     # between-chunk steps included, through the one decode megakernel.
     "dense_engine_mega": ("flash_attention", "mega_decode"),
     "continuous_mega": ("flash_attention", "mega_decode"),
+    # Long context: the sharded slot's prefill chunks merge a resident
+    # partial (flash_attention, causal) with a cold partial
+    # (flash_attention_cold); its decode steps a resident paged partial
+    # with a cold dense one (flash_decode); the short requests beside it
+    # prefill through flash_attention and decode batched.
+    "continuous_longctx": ("flash_attention", "flash_attention_cold",
+                           "paged_flash_decode", "flash_decode"),
+    "continuous_longctx_int8": ("flash_attention_int8",
+                                "flash_attention_cold_int8",
+                                "paged_flash_decode_int8",
+                                "flash_decode_int8"),
 }
+# Long-context traffic: one LONG_PROMPT-token request over a
+# LONG_BUDGET-token per-rank page budget (so it admits as a sharded slot
+# and demotes its oldest pages to a LONG_TIER_BYTES host tier), served
+# with LONG_SHORTS requests that share the PREFIX_LEN prefix, all with
+# GEN_LEN tokens. The short requests come first in the queue, so the
+# batched decode runs between the long prefill's chunks and beside its
+# sharded decode steps.
+LONG_PROMPT, LONG_BUDGET, LONG_MAX_LENGTH = 3584, 2048, 4096
+LONG_SHORTS, LONG_TIER_BYTES = 3, 512 << 20
+# The long request's pages past the budget: 28 prompt pages over a
+# 16-page budget demote 12 during the prefill.
+LONG_MIN_DEMOTED = (LONG_PROMPT - LONG_BUDGET) // PAGE
 # The decode megakernel's check: Qwen3-0.6B, B=4, these cached lengths,
 # launch widths NS. Limit on logits |kernel - plain| <= atol + rtol·|plain|.
 # bf16: both round every GEMM input to bf16 at the same places, so they
@@ -133,6 +156,13 @@ PATH_KERNELS = {
 # A bf16 greedy token may leave the plain stream only where the plain
 # logits put it within MEGA_TIE_GAP of the plain top: the kernel's measured
 # logit error (0.099 at worst, PERF.md §2), not the whole limit.
+# The long-context cold partials at Qwen3-0.6B: a page-row prefill chunk
+# (and one decode row) against a cold window of COLD_PAGES pages, with
+# s_cold (valid cold tokens) at each of COLD_S; timed at COLD_TIMED. The
+# plain version with s_cold one page off must break the limit.
+COLD_PAGES = 16
+COLD_S = (0, 1536, 2048)
+COLD_TIMED = 1536
 MEGA_LENS = (700, 2040, 700, 2040)
 MEGA_NS = (1, 8)
 MEGA_TOL = {"bf16": (0.15, 2.0**-6), "f32": (2e-3, 0.0)}
@@ -155,9 +185,21 @@ def gpu_line() -> str:
     ).stdout.strip().splitlines()[0]
 
 
-def median_ms(fn, flush, iters: int = 15, warmup: int = 3) -> float:
+# A ~5 ms spin kernel (cycles at the H100's ~1.98 GHz boost clock) put
+# ahead of each timed call, so the host enqueues the call's launches while
+# the card is still busy and the events time device work, not the
+# wrapper's Python.
+LEAD_CYCLES = 10_000_000
+
+
+def median_ms(fn, flush, iters: int = 15, warmup: int = 3,
+              device_only: bool = True) -> float:
     """Median CUDA-event time of ``fn`` with L2 flushed before each
-    launch (a serving step finds each layer's KV cold in L2)."""
+    launch (a serving step finds each layer's KV cold in L2). With
+    ``device_only`` a spin kernel leads each call, so a call whose
+    launches take less device time than host time to enqueue is timed by
+    its device work; without it the time is a step's, host gaps
+    included."""
     import torch
 
     for _ in range(warmup):
@@ -165,6 +207,8 @@ def median_ms(fn, flush, iters: int = 15, warmup: int = 3) -> float:
     times = []
     for _ in range(iters):
         flush.zero_()
+        if device_only:
+            torch.cuda._sleep(LEAD_CYCLES)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -360,6 +404,53 @@ def check_kernels(dev, flush):
         flash_attention(q, k, v, kv_offset=48, bias=bias),
         mha_reference(q, k, v, kv_offset=48, bias=bias))]
 
+    # The long-context cold partials: a 128-row chunk and a decode row
+    # against a 16-page cold window, s_cold in COLD_S (0: every column
+    # masked, or an empty decode context), model dtype and int8.
+    from triton_distributed_tpu_torch.layers.tp_attn import cold_mask
+
+    csk = COLD_PAGES * PAGE
+    cold_controls = []  # (name, tag, s_cold, kernel out, plain one page off)
+    for tag, dtype in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+        qc = rand((1, hq, PAGE, d), dtype)
+        qd1 = rand((1, hq, d), dtype)
+        kc, vc = rand((1, hkv, csk, d), dtype), rand((1, hkv, csk, d), dtype)
+        kb, kbs = int8_pool((hkv, COLD_PAGES, PAGE, d))
+        vb, vbs = int8_pool((hkv, COLD_PAGES, PAGE, d))
+        k8c, v8c = kb.reshape(1, hkv, csk, d), vb.reshape(1, hkv, csk, d)
+        kbs, vbs = kbs[None].contiguous(), vbs[None].contiguous()
+        k8d, v8d = (x.float() * sc.repeat_interleave(PAGE, dim=-1)[..., None]
+                    for x, sc in ((k8c, kbs), (v8c, vbs)))
+        q8 = dict(block_k=PAGE, k_scale=kbs, v_scale=vbs)
+        for name in ("flash_attention_cold", "flash_attention_cold_int8",
+                     "flash_decode_int8"):
+            errs[name, tag] = []
+        for s_cold in COLD_S:
+            bias = cold_mask(PAGE, csk, s_cold, dev)
+            off_bias = cold_mask(PAGE, csk, s_cold - PAGE if s_cold else PAGE,
+                                 dev)
+            lens = torch.tensor([s_cold], dtype=torch.int32, device=dev)
+            off_lens = lens - PAGE if s_cold else lens + PAGE
+            for name, o, plain, wrong in (
+                ("flash_attention_cold",
+                 flash_attention(qc, kc, vc, causal=False, bias=bias),
+                 mha_reference(qc, kc, vc, causal=False, bias=bias),
+                 mha_reference(qc, kc, vc, causal=False, bias=off_bias)),
+                ("flash_attention_cold_int8",
+                 flash_attention(qc, k8c, v8c, causal=False, bias=bias, **q8),
+                 mha_reference(qc, k8d, v8d, causal=False, bias=bias),
+                 mha_reference(qc, k8d, v8d, causal=False, bias=off_bias)),
+                ("flash_decode_int8",
+                 flash_decode(qd1, k8c, v8c, lens, chunk_k=PAGE,
+                              k_scale=kbs, v_scale=vbs),
+                 gqa_decode_reference(qd1, k8d, v8d, lens),
+                 gqa_decode_reference(qd1, k8d, v8d, off_lens)),
+            ):
+                errs[name, tag].append(err(o, plain))
+                cold_controls.append((name, tag, s_cold, o, wrong))
+        if tag == "bf16":
+            timed_cold = (qc, qd1, kc, vc, k8c, v8c, kbs, vbs, k8d, v8d)
+
     bad, max_abs = [], {}
     for (name, tag), pairs in errs.items():
         atol, rtol = TOL[tag.split()[0]]
@@ -385,6 +476,16 @@ def check_kernels(dev, flush):
         if not used > 1.0:
             raise RuntimeError("a one-column mask shift passes the "
                                f"flash_attention_bias limit ({tag}, {voff})")
+    for name, tag, s_cold, o, wrong in cold_controls:
+        atol, rtol = TOL[tag]
+        diff, plain = err(o, wrong)
+        used = (diff / (atol + rtol * plain)).max().item()
+        print(f"[kernels] {name} {tag} s_cold={s_cold} vs the plain version "
+              f"with s_cold one page off: {used:.1f}x the limit (must "
+              "exceed 1)")
+        if not used > 1.0:
+            raise RuntimeError(f"s_cold one page off passes the {name} limit "
+                               f"({tag}, s_cold {s_cold})")
 
     # Times, bounds and library calls at the bf16 serving shapes.
     q, k, v, out, kp, vp, kd, vd, qd = timed
@@ -511,7 +612,105 @@ def check_kernels(dev, flush):
         shape=f"q[1,{hq},{vrows},{d}] kv[1,{hkv},{MAX_LENGTH},{d}] "
               f"off={voff} tree bias [{vrows},{MAX_LENGTH}] bf16",
     )
+    records.update(cold_records(dev, flush, timed_cold, max_abs))
     return records
+
+
+def cold_records(dev, flush, timed_cold, max_abs) -> dict:
+    """Times, bounds and library calls of the three cold-partial kernels
+    at the bf16 serving shape, s_cold = COLD_TIMED. The functions read
+    only the cold columns below s_cold (the rest are masked), so the
+    bounds count those columns' K/V (codes and scales), the whole bias,
+    q, O and the LSE."""
+    import torch
+    import torch.nn.functional as F
+
+    from triton_distributed_tpu_torch.layers.tp_attn import cold_mask
+    from triton_distributed_tpu_torch.ops.attention import (
+        flash_attention,
+        flash_decode,
+        gqa_decode_reference,
+        mha_reference,
+    )
+
+    qc, qd1, kc, vc, k8c, v8c, kbs, vbs, k8d, v8d = timed_cold
+    _, hq, sq, d = qc.shape
+    hkv, csk = kc.shape[1], kc.shape[2]
+    vis = COLD_TIMED
+    bias = cold_mask(sq, csk, vis, dev)
+    lens = torch.tensor([vis], dtype=torch.int32, device=dev)
+    q8 = dict(block_k=PAGE, k_scale=kbs, v_scale=vbs)
+    flops = 4 * hq * d * sq * vis
+    io = nbytes(qc) * 2 + hq * sq * 4 + sq * csk * 4  # q, O, LSE, bias
+    kv16 = 2 * hkv * vis * d * kc.element_size()
+    kv8 = 2 * hkv * vis * d + 2 * hkv * (vis // PAGE) * 4
+
+    def bound(fl, by):
+        return dict(bound_ms=max(fl / BF16_FLOPS, by / HBM_BPS) * 1e3,
+                    bound_by="operations" if fl / BF16_FLOPS > by / HBM_BPS
+                    else "bytes")
+
+    def dequant_attn():
+        kd_ = k8c.float() * kbs.repeat_interleave(PAGE, dim=-1)[..., None]
+        vd_ = v8c.float() * vbs.repeat_interleave(PAGE, dim=-1)[..., None]
+        return mha_reference(qc, kd_, vd_, causal=False, bias=bias,
+                             return_lse=True)
+
+    def dequant_decode():
+        kd_ = k8c.float() * kbs.repeat_interleave(PAGE, dim=-1)[..., None]
+        vd_ = v8c.float() * vbs.repeat_interleave(PAGE, dim=-1)[..., None]
+        return gqa_decode_reference(qd1, kd_, vd_, lens, return_lse=True)
+
+    src = "triton_distributed_tpu_torch/csrc/"
+    shape = (f"q[1,{hq},{sq},{d}] cold kv[1,{hkv},{csk},{d}] s_cold={vis} "
+             f"bias [{sq},{csk}]")
+    amask = bias.to(qc.dtype)
+    return {
+        "flash_attention_cold": dict(
+            route="cuda", source=src + "flash_attention.cu",
+            replaces="triton_distributed_tpu/ops/attention/"
+                     "flash_attention.py:32",
+            max_abs_err=max(max_abs["flash_attention_cold", "bf16"],
+                            max_abs["flash_attention_cold", "f32"]),
+            ms=median_ms(lambda: flash_attention(
+                qc, kc, vc, causal=False, bias=bias, return_lse=True),
+                flush),
+            plain_ms=median_ms(lambda: mha_reference(
+                qc, kc, vc, causal=False, bias=bias, return_lse=True),
+                flush),
+            library_ms=median_ms(lambda: F.scaled_dot_product_attention(
+                qc, kc, vc, attn_mask=amask, enable_gqa=True), flush),
+            library_note="SDPA with attn_mask=bias returns O, not the LSE "
+                         "the combine needs",
+            shape=shape + " bf16", **bound(flops, io + kv16)),
+        "flash_attention_cold_int8": dict(
+            route="cuda", source=src + "flash_attention.cu",
+            replaces="triton_distributed_tpu/ops/attention/"
+                     "flash_attention.py:32",
+            max_abs_err=max(max_abs["flash_attention_cold_int8", "bf16"],
+                            max_abs["flash_attention_cold_int8", "f32"]),
+            ms=median_ms(lambda: flash_attention(
+                qc, k8c, v8c, causal=False, bias=bias, return_lse=True,
+                **q8), flush),
+            plain_ms=median_ms(dequant_attn, flush),
+            library_ms=None,
+            shape=shape + f" int8 block_k={PAGE}, bf16 q/o",
+            **bound(flops, io + kv8)),
+        "flash_decode_int8": dict(
+            route="cuda", source=src + "flash_decode.cu",
+            replaces="triton_distributed_tpu/ops/attention/"
+                     "flash_decode.py:98",
+            max_abs_err=max(max_abs["flash_decode_int8", "bf16"],
+                            max_abs["flash_decode_int8", "f32"]),
+            ms=median_ms(lambda: flash_decode(
+                qd1, k8c, v8c, lens, chunk_k=PAGE, return_lse=True,
+                k_scale=kbs, v_scale=vbs), flush),
+            plain_ms=median_ms(dequant_decode, flush),
+            library_ms=None,
+            shape=f"q[1,{hq},{d}] cold kv[1,{hkv},{csk},{d}] int8 "
+                  f"chunk_k={PAGE} s_cold={vis}, bf16 q/o",
+            **bound(4 * hq * d * vis, nbytes(qd1) * 2 + hq * 4 + kv8)),
+    }
 
 
 def _mega_tokens_ok(toks, ref_toks, plain_at) -> list:
@@ -658,7 +857,8 @@ def check_mega(dev, flush):
                 c.kv_len = lens.clone()
                 model.decode_step(tokens, c)
 
-            xla_ms = {k: median_ms(lambda c=c: xla_step(c), flush)
+            xla_ms = {k: median_ms(lambda c=c: xla_step(c), flush,
+                                   device_only=False)
                       for k, c in (("dense", dense), ("paged", paged))}
             print(f"[mega] mode='xla' decode step at the same shape: "
                   f"{xla_ms} ms")
@@ -782,6 +982,38 @@ def check_tiny_serving(dev) -> None:
           f"width {SPEC_WIDTH}, tree rounds {trees} on the CPU) == plain "
           "greedy, on the card == CPU")
 
+    # A sharded long-context slot: a 64-token budget over a 6-page pool
+    # serves a 120-token prompt through the cold-window kernels. Tokens
+    # on the card == CPU, and (full-width pool) == a big-pool engine.
+    long_prompt = rng.integers(1, 200, 120).astype(np.int32)
+    for kv_dtype in (None, "int8"):
+        got, counts = [], []
+        for m, d in ((gpu, dev), (cpu, "cpu")):
+            eng = ContinuousEngine(m, max_batch=1, page_size=16,
+                                   max_length=256, kv_dtype=kv_dtype,
+                                   rank_page_budget=64,
+                                   tier_bytes=32 << 20, num_pages=6,
+                                   device=d)
+            got.append(eng.run([(long_prompt, 6)])[0])
+            st = eng.last_stats
+            counts.append({k: st[k] for k in (
+                "longctx_sharded_slots", "longctx_demoted_pages",
+                "longctx_tier_faults", "longctx_decode_steps")})
+            if eng.audit() or st["longctx_demoted_pages"] <= 0:
+                raise RuntimeError(f"tiny sharded engine on {d}: audit "
+                                   f"{eng.audit()}, counters {counts[-1]}")
+        big = ContinuousEngine(cpu, max_batch=1, page_size=16,
+                               max_length=256, kv_dtype=kv_dtype,
+                               device="cpu").run([(long_prompt, 6)])[0]
+        if (not np.array_equal(got[0], got[1]) or counts[0] != counts[1]
+                or (kv_dtype is None and not np.array_equal(got[0], big))):
+            raise RuntimeError(f"tiny sharded engine ({kv_dtype}): card "
+                               f"{got[0]}, CPU {got[1]}, big pool {big}; "
+                               f"counters {counts}")
+        print(f"[tiny] f32 sharded ContinuousEngine kv_dtype={kv_dtype}: "
+              f"tokens on the card == CPU{' == big pool' if not kv_dtype else ''}"
+              f", counters {counts[0]}")
+
 
 def reference_logits(model, tokens):
     """Plain full-sequence forward (plain attention, no cache) of one
@@ -893,6 +1125,12 @@ def serve_main_path(dev):
         prefix, np.tile(rng.integers(0, vocab, MOTIF_LEN), MOTIF_REPEATS),
         rng.integers(0, vocab, 2)]).astype(np.int32)
         for _ in range(SPEC_REQUESTS)]
+    long_requests = [(np.concatenate([prefix, rng.integers(0, vocab, n)])
+                      .astype(np.int32), GEN_LEN)
+                     for n in rng.integers(SUFFIX_LENS[0], SUFFIX_LENS[1] + 1,
+                                           LONG_SHORTS)]
+    long_requests.append((rng.integers(0, vocab, LONG_PROMPT).astype(
+        np.int32), GEN_LEN))
 
     def continuous(kv_dtype):
         return ContinuousEngine(model, max_batch=4, page_size=PAGE,
@@ -919,8 +1157,21 @@ def serve_main_path(dev):
             prefix_cache=True, mode="mega", eos_id=eos, device=dev)
         return eng.run(requests)
     spec_fixed = Engine(model, paged=True, page_size=PAGE, **spec_kw)
+    # The long-context engines: the budget's pages plus what the short
+    # requests need (the engine adds the trash page).
+    long_pages = LONG_BUDGET // PAGE + sum(
+        -(-(len(p) + g) // PAGE) for p, g in long_requests[:-1])
+    long_engs = {path: ContinuousEngine(
+        model, max_batch=4, page_size=PAGE, max_length=LONG_MAX_LENGTH,
+        prefix_cache=True, rank_page_budget=LONG_BUDGET,
+        tier_bytes=LONG_TIER_BYTES, num_pages=long_pages, kv_dtype=kv,
+        device=dev) for path, kv in (("continuous_longctx", None),
+                                     ("continuous_longctx_int8", "int8"))}
+    view_t = {path: _Timed(e, "_cold_view") for path, e in long_engs.items()}
     chunk_t = _Timed(model, "prefill_paged_chunk")
     decode_t = _Timed(model, "decode_step")
+    cold_t = _Timed(model, "prefill_paged_chunk_cold")
+    sharded_t = _Timed(model, "decode_step_sharded")
     requests = [(p, GEN_LEN) for p in prompts]
     spec_requests = [(p, SPEC_GEN) for p in spec_prompts]
     passes = {}  # speculative path -> [(pass timings, last_stats)] x 2
@@ -960,25 +1211,32 @@ def serve_main_path(dev):
         "dense_engine_mega": lambda: mega_dense.serve(
             dense_ids, DENSE_GEN, MAX_LENGTH, ns=8),
         "continuous_mega": continuous_mega,
+        "continuous_longctx": lambda: long_engs["continuous_longctx"].run(
+            long_requests),
+        "continuous_longctx_int8": lambda: long_engs[
+            "continuous_longctx_int8"].run(long_requests),
     }
     launches, outs, times = {}, {}, {}
+    timers = {"chunk": chunk_t, "decode": decode_t, "cold_chunk": cold_t,
+              "sharded_decode": sharded_t}
     for path, run in runs.items():
-        before = (chunk_t.seconds, chunk_t.calls, decode_t.seconds)
+        before = {k: (t.seconds, t.calls) for k, t in timers.items()}
         ck.reset_launch_counts()
         t0 = time.perf_counter()
         outs[path] = run()
         torch.cuda.synchronize()
         launches[path] = ck.launch_counts()
-        times[path] = {
-            "wall_s": time.perf_counter() - t0,
-            "chunk_s": chunk_t.seconds - before[0],
-            "chunks": chunk_t.calls - before[1],
-            "decode_s": decode_t.seconds - before[2],
-        }
+        times[path] = {"wall_s": time.perf_counter() - t0}
+        for k, t in timers.items():
+            times[path][f"{k}_s"] = t.seconds - before[k][0]
+            times[path][f"{k}_calls"] = t.calls - before[k][1]
+        times[path]["chunks"] = times[path]["chunk_calls"]
 
     mega_e2e = check_mega_paths(model, prompts, dense_ids, outs, times,
                                 launches, mega_dense,
                                 mega_engs["continuous_mega"])
+    long_e2e = check_longctx_paths(model, long_requests, outs, times,
+                                   long_engs, view_t)
     for path, e in (("continuous", eng), ("continuous_int8", eng8)):
         stats = e.last_stats
         problems = e.audit()
@@ -1083,6 +1341,7 @@ def serve_main_path(dev):
         "kv_bytes_per_token": kv_bytes,
         "spec": spec_e2e,
         "mega": mega_e2e,
+        "longctx": long_e2e,
     }
     return launches, e2e
 
@@ -1153,6 +1412,76 @@ def check_mega_paths(model, prompts, dense_ids, outs, times, launches,
         },
     }
     print(f"[serve] megakernel paths: {json.dumps(out)}")
+    return out
+
+
+def check_longctx_paths(model, requests, outs, times, engines,
+                        view_t) -> dict:
+    """The long-context paths: the long request admitted as one sharded
+    slot, demoted at least LONG_MIN_DEMOTED pages, faulted cold pages
+    back and took
+    GEN_LEN - 1 sharded decode steps; clean audits; every request's
+    tokens checked by teacher forcing (bf16 and int8 limits). Returns
+    each path's e2e block: the long prefill's tokens/s, ms per sharded
+    and per batched decode step, the tier counters, and the wall seconds
+    spent rebuilding cold windows (tier reads and their decode)."""
+    import numpy as np
+
+    out = {}
+    for path, margin, min_exact in (
+            ("continuous_longctx", TF_MARGIN, TF_MIN_EXACT),
+            ("continuous_longctx_int8", TF8_MARGIN, TF8_MIN_EXACT)):
+        eng, t, st = engines[path], times[path], engines[path].last_stats
+        problems = eng.audit()
+        if problems:
+            raise RuntimeError(f"{path}: pool/tier audit failed: {problems}")
+        keys = ("longctx_sharded_slots", "longctx_demoted_pages",
+                "longctx_tier_faults", "longctx_tier_bytes",
+                "longctx_decode_steps", "tier_spilled_pages", "tier_hits",
+                "tier_faults", "tier_bytes", "decode_steps",
+                "prefill_chunks", "prefix_hit_tokens", "generated_tokens")
+        counts = {k: st[k] for k in keys}
+        if (counts["longctx_sharded_slots"] != 1
+                or counts["longctx_demoted_pages"] < LONG_MIN_DEMOTED
+                or counts["longctx_tier_faults"] <= 0
+                or counts["longctx_decode_steps"] < GEN_LEN - 1):
+            raise RuntimeError(f"{path}: the long request did not serve as "
+                               f"a sharded slot: {counts}")
+        gaps = []
+        for (p, g), o in zip(requests, outs[path]):
+            if o.shape != (g,):
+                raise RuntimeError(f"{path}: bad output shape {o.shape}")
+            gaps.append(teacher_forced_gaps(model, p, o))
+        flat = [x for row in gaps for x in row]
+        worst, exact = max(flat), sum(x == 0 for x in flat)
+        long_worst = max(gaps[-1])
+        print(f"[check] {path} teacher forcing over {len(flat)} generated "
+              f"tokens: max gap {worst:.4f} (long request {long_worst:.4f}),"
+              f" exact argmax {exact}/{len(flat)}, margin {margin}, min "
+              f"exact share {min_exact}")
+        if not all(np.isfinite(flat)) or worst > margin:
+            raise RuntimeError(f"{path}: teacher-forced gap {worst} exceeds "
+                               f"{margin}")
+        if exact < min_exact * len(flat):
+            raise RuntimeError(f"{path}: only {exact}/{len(flat)} emitted "
+                               "tokens are the reference argmax")
+        long_len = len(requests[-1][0])
+        out[path] = {
+            "long_prefill_tokens_per_s": long_len / t["cold_chunk_s"],
+            "long_prefill_chunks": t["cold_chunk_calls"],
+            "sharded_decode_ms_per_step": t["sharded_decode_s"] / max(
+                t["sharded_decode_calls"], 1) * 1e3,
+            "batched_decode_ms_per_step": t["decode_s"] / max(
+                t["decode_calls"], 1) * 1e3,
+            "cold_view_s": view_t[path].seconds,
+            "cold_view_calls": view_t[path].calls,
+            "wall_s": t["wall_s"],
+            "teacher_forcing": {"max_gap": worst, "long_max_gap": long_worst,
+                                "exact": exact, "tokens": len(flat)},
+            **counts,
+            "tier": st["tier"],
+        }
+        print(f"[serve] {path}: {json.dumps(out[path])}")
     return out
 
 
@@ -1229,11 +1558,21 @@ def main() -> int:
           f"{time.perf_counter() - t0:.1f} s ({ck.BUILD_DIR})")
 
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    phase_s = {"build": time.perf_counter() - t0}
+    t0 = time.perf_counter()
     records = check_kernels(dev, flush)
+    phase_s["kernels"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
     records["mega_decode"] = check_mega(dev, flush)
+    phase_s["mega"] = time.perf_counter() - t0
     del flush
+    t0 = time.perf_counter()
     check_tiny_serving(dev)
+    phase_s["tiny"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
     launches, e2e = serve_main_path(dev)
+    phase_s["serve"] = time.perf_counter() - t0
+    print(f"[time] seconds per phase: {json.dumps(phase_s)}")
 
     # "launches" counts the first path that must launch the kernel;
     # "launches_by_path" gives every path's own run.

@@ -29,7 +29,19 @@ the serving path after warm-up:
   attention costs almost nothing: the weight streams and the barriers;
 - ``mega_barriers``: one launch of a table of 282 ALLREDUCE tasks (the
   barriers of one Qwen3-0.6B step, each behind a [4, 1024] add): what
-  the kernel's grid barriers cost alone.
+  the kernel's grid barriers cost alone;
+- ``prefill_chunk_cold`` and ``prefill_chunk_cold_int8``: one 128-token
+  chunk of a sharded long-context slot (``Qwen3.prefill_paged_chunk_cold``)
+  at local offset 1920 of a 16-page resident row, with 12 cold pages
+  (s_cold 1536) in a 16-page bucket: the last prefill chunk of a
+  3584-token prompt over a 2048-token budget, over each pool;
+- ``decode_sharded`` and ``decode_sharded_int8``: one decode step of that
+  slot (``Qwen3.decode_step_sharded``) at local length 1900 with 13 cold
+  pages (s_cold 1664), over each pool;
+- ``cold_view``: one rebuild of a 12-page bf16 cold window from the KV
+  tier (``ContinuousEngine._cold_view``: 12 tier reads, their CRC, JSON
+  and base64 decode, the stitch and the copy to the card), the host work
+  a sharded slot pays after every demote.
 
 For each phase it prints one JSON line: host wall ms per step (clock
 around synchronized steps), device busy ms per step (sum of kernel time),
@@ -187,6 +199,74 @@ def main() -> int:
         mega_decode(bar_dims, mega.cfg, bar_table, weights, cache.k_pages,
                     cache.v_pages, cache.page_table, lens, tok32, bar=bar)
 
+    from triton_distributed_tpu_torch.models import ContinuousEngine
+    from triton_distributed_tpu_torch.models import kv_tier
+    from triton_distributed_tpu_torch.models.continuous import _LongSlot
+    from triton_distributed_tpu_torch.models.paged_kv_cache import (
+        gather_pages,
+    )
+
+    # A sharded slot: resident row = pool pages 1..16, cold windows cut
+    # from pool pages 17.. (random values, the pool's dtype and scales).
+    row = np.arange(1, 17, dtype=np.int32)
+    cold_chunk = np.random.default_rng(2).integers(0, cfg.vocab_size, 128)
+
+    def cold_window(c, n_cold):
+        ids = torch.arange(17, 17 + n_cold, device=dev)
+
+        def stitch(t):  # [L, n, Hkv, page, hd] -> [L, Hkv, 16 * page, hd]
+            t = t.index_select(1, ids).transpose(1, 2)
+            t = t.reshape(t.shape[0], t.shape[1], -1, t.shape[-1])
+            out = torch.zeros((t.shape[0], t.shape[1], 16 * 128,
+                               t.shape[-1]), dtype=t.dtype, device=dev)
+            out[:, :, : t.shape[2]] = t
+            return out
+
+        def scales(t):  # [L, P, Hkv] -> [L, Hkv, 16]
+            if t is None:
+                return None
+            out = torch.zeros((t.shape[0], t.shape[2], 16), device=dev)
+            out[:, :, :n_cold] = t.index_select(1, ids).transpose(1, 2)
+            return out
+
+        return (stitch(c.k_pages), stitch(c.v_pages), scales(c.k_scale),
+                scales(c.v_scale))
+
+    def chunk_cold_over(c):
+        kc, vc, ksc, vsc = cold_window(c, 12)
+
+        def step():
+            model.prefill_paged_chunk_cold(
+                cold_chunk, row, 1536 + 1920, 1536 + 2048, 127, c, kc, vc,
+                ksc, vsc, s_cold=1536)
+        return step
+
+    def decode_sharded_over(c):
+        kc, vc, ksc, vsc = cold_window(c, 13)
+        tok = tokens[:1].cpu().numpy()
+
+        def step():
+            model.decode_step_sharded(tok, c, row, 1900, kc, vc, ksc, vsc,
+                                      s_cold=1664)
+        return step
+
+    eng = ContinuousEngine(model, max_batch=1, page_size=128,
+                           max_length=4096, rank_page_budget=2048,
+                           tier_bytes=512 << 20, num_pages=17, device=dev)
+    eng.cache.k_pages.normal_(generator=gen)
+    eng.cache.v_pages.normal_(generator=gen)
+    slot = _LongSlot(uid=0, cold=12)
+    for i in range(slot.cold):
+        k, v, _, _ = gather_pages(eng.cache, [1 + i])
+        payload = kv_tier.prefix_payload(range(128), 128, None, k[:, 0],
+                                         v[:, 0])
+        payload["model_fp"] = eng._tier_fp
+        eng.tier.put(kv_tier.LONGCTX_KIND, f"0:{i}", payload)
+
+    def cold_view():
+        slot.view = None
+        eng._cold_view(slot)
+
     card = torch.cuda.get_device_name(0)
     for name, fn in (("decode", decode_over(cache)),
                      ("decode_int8", decode_over(cache8)),
@@ -196,7 +276,12 @@ def main() -> int:
                      ("decode_mega", decode_mega),
                      ("decode_mega_ns8", decode_mega_ns8),
                      ("decode_mega_short", decode_mega_short),
-                     ("mega_barriers", mega_barriers)):
+                     ("mega_barriers", mega_barriers),
+                     ("prefill_chunk_cold", chunk_cold_over(cache)),
+                     ("prefill_chunk_cold_int8", chunk_cold_over(cache8)),
+                     ("decode_sharded", decode_sharded_over(cache)),
+                     ("decode_sharded_int8", decode_sharded_over(cache8)),
+                     ("cold_view", cold_view)):
         if args.phases and name not in args.phases.split(","):
             continue
         rec = profile_phase(name, fn, args.steps)

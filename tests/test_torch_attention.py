@@ -86,11 +86,22 @@ def test_flash_attention_bf16_matches_jax():
 
 
 def test_flash_attention_takes_only_causal():
-    """The kernel computes causal attention only (every caller on the
-    serving path is causal); the wrapper refuses the rest on any device."""
-    q = torch.zeros(1, 8, 4, 32)
-    with pytest.raises(NotImplementedError, match="causal"):
-        flash_attention(q, q[:, :4], q[:, :4], causal=False)
+    """``causal`` selects the mask: with ``causal=False`` (the sharded
+    long-context slot's cold partial) every query row attends every key,
+    as in the JAX kernel, and ``kv_offset`` plays no part; with
+    ``causal=True`` the same inputs are masked."""
+    rng = np.random.default_rng(9)
+    q = rng.standard_normal((1, 8, 16, 32)).astype(np.float32)
+    k = rng.standard_normal((1, 4, 48, 32)).astype(np.float32)
+    v = rng.standard_normal((1, 4, 48, 32)).astype(np.float32)
+    want = jax_flash_attention(jnp.asarray(q), jnp.asarray(k),
+                               jnp.asarray(v), causal=False, block_q=16,
+                               block_k=16)
+    got = flash_attention(_t(q), _t(k), _t(v), causal=False, kv_offset=5)
+    np.testing.assert_allclose(got.numpy(), _np(want), atol=F32_ATOL, rtol=0)
+    causal = flash_attention(_t(q), _t(k), _t(v), kv_offset=5)
+    assert (causal - got).abs().max().item() > 100 * F32_ATOL
+    assert ck.FLASH_ATTENTION_COLD.launches == 0  # CPU tensors never launch
 
 
 PAGE = 16

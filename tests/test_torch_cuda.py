@@ -14,7 +14,12 @@ codes and per-page (per-block) f32 scales; their plain versions
 dequantize first, so only where the scale is multiplied in differs: the
 same limits hold (bf16 q/o still round O to bf16). The bias kernel
 adds a draft-tree mask to the scores; the same limits hold, and the
-plain version with the mask shifted by one column must break them.
+plain version with the mask shifted by one column must break them. The
+long-context cold partials (non-causal attention over a cold window
+under its ``s_cold`` bias, model dtype and int8; the dense int8 decode)
+hold the same limits at ``s_cold`` = 0 (every column masked, or an empty
+context), mid-bucket and full, and in f32 the plain version with
+``s_cold`` one page off must break them.
 """
 
 import numpy as np
@@ -272,6 +277,146 @@ def test_bias_wrapper_rejects_what_the_kernel_does_not_take(dev):
         flash_attention(q, q, q, bias=bias[:, :8])
     with pytest.raises(ValueError, match="contiguous"):
         flash_attention(q, q, q, bias=bias.t())
+
+
+# -- the long-context cold partials -------------------------------------------
+
+# (head_dim, q heads, kv heads, page, bucket pages, s_cold values): the
+# tiny preset (a 4-page bucket, and the 1-page bucket a slot starts with:
+# 16 keys, half the kernel's 32-key tile) and Qwen3-0.6B (16 pages).
+COLD_SHAPES = {
+    "tiny": (32, 8, 4, 16, 4, (0, 48, 64)),
+    "tiny1": (32, 8, 4, 16, 1, (0, 16)),
+    "qwen": (128, 16, 8, 128, 16, (0, 1536, 2048)),
+}
+
+
+def _cold_window(rng, dev, dtype, int8, hkv, n, page, d):
+    """A cold window ``[1, hkv, n * page, d]`` (and ``[1, hkv, n]`` scales
+    when int8) plus its dequantized f32 view for the plain versions."""
+    if not int8:
+        w = _rand(rng, (1, hkv, n * page, d), dtype, dev)
+        return w, None, w
+    codes, sc = _int8_pool(rng, (hkv, n, page, d), dev)
+    w = codes.reshape(1, hkv, n * page, d)
+    sc = sc[None].contiguous()
+    return w, sc, w.float() * sc.repeat_interleave(page, dim=-1)[..., None]
+
+
+def _cold_bias(sq, sk, s_cold, dev):
+    cols = torch.arange(sk, device=dev)
+    return torch.where(cols < s_cold, 0.0, -1e30)[None].expand(
+        sq, sk).contiguous()
+
+
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", sorted(COLD_SHAPES))
+def test_cold_flash_attention_matches_plain(dev, shape, dtype, int8):
+    """A page-row chunk against the cold window, non-causal, for every
+    ``s_cold`` of the shape: finite, within the limits, and the plain
+    version with ``s_cold`` one page off outside them."""
+    d, hq, hkv, page, n, s_colds = COLD_SHAPES[shape]
+    rng = np.random.default_rng(8)
+    sk = n * page
+    q = _rand(rng, (1, hq, page, d), dtype, dev)
+    k, ks, kd = _cold_window(rng, dev, dtype, int8, hkv, n, page, d)
+    v, vs, vd = _cold_window(rng, dev, dtype, int8, hkv, n, page, d)
+    kw = dict(k_scale=ks, v_scale=vs, block_k=page) if int8 else {}
+    counter = ck.FLASH_ATTENTION_COLD_INT8 if int8 else ck.FLASH_ATTENTION_COLD
+    for s_cold in s_colds:
+        bias = _cold_bias(page, sk, s_cold, dev)
+        before = counter.launches
+        o, lse = flash_attention(q, k, v, causal=False, bias=bias,
+                                 return_lse=True, **kw)
+        torch.cuda.synchronize()
+        assert counter.launches == before + 1
+        o_ref, lse_ref = mha_reference(q, kd, vd, causal=False, bias=bias,
+                                       return_lse=True)
+        assert torch.isfinite(o.float()).all() and torch.isfinite(lse).all()
+        assert (o.float() - o_ref.float()).abs().max().item() < TOL[dtype]
+        if s_cold == 0:
+            assert (lse <= -1e29).all()  # weight 0 in the combine
+        else:
+            assert (lse - lse_ref).abs().max().item() < 1e-3
+        if dtype == torch.float32:
+            off = s_cold - page if s_cold else page
+            wrong = mha_reference(q, kd, vd, causal=False,
+                                  bias=_cold_bias(page, sk, off, dev))
+            assert (o - wrong).abs().max().item() > 10 * TOL[dtype]
+
+
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", sorted(COLD_SHAPES))
+def test_cold_flash_decode_matches_plain(dev, shape, dtype, int8):
+    """One query row per ``s_cold`` of the shape (a batch), decoding over
+    its own cold window with ``chunk_k = page``; an empty context gives
+    O = 0 and LSE ~ -1e30; ``s_cold`` one page off breaks the limit."""
+    d, hq, hkv, page, n, s_colds = COLD_SHAPES[shape]
+    rng = np.random.default_rng(9)
+    b = len(s_colds)
+    wins = [_cold_window(rng, dev, dtype, int8, hkv, n, page, d)
+            for _ in range(2 * b)]
+    k, v = (torch.cat([w[0] for w in wins[i::2]]) for i in (0, 1))
+    kd, vd = (torch.cat([w[2] for w in wins[i::2]]) for i in (0, 1))
+    kw = {}
+    if int8:
+        kw = {name: torch.cat([w[1] for w in wins[i::2]])
+              for i, name in enumerate(("k_scale", "v_scale"))}
+    counter = ck.FLASH_DECODE_INT8 if int8 else ck.FLASH_DECODE
+    q = _rand(rng, (b, hq, d), dtype, dev)
+    lens = torch.tensor(s_colds, dtype=torch.int32, device=dev)
+    before = counter.launches
+    o, lse = flash_decode(q, k, v, lens, chunk_k=page, return_lse=True, **kw)
+    torch.cuda.synchronize()
+    assert counter.launches == before + 1
+    o_ref, lse_ref = gqa_decode_reference(q, kd, vd, lens, return_lse=True)
+    assert torch.isfinite(o.float()).all() and torch.isfinite(lse).all()
+    assert (o.float() - o_ref.float()).abs().max().item() < TOL[dtype]
+    live = lens > 0
+    assert o[~live].abs().max().item() == 0.0 and (lse[~live] <= -1e29).all()
+    assert (lse[live] - lse_ref[live]).abs().max().item() < 1e-3
+    if dtype == torch.float32:
+        wrong = gqa_decode_reference(q, kd, vd,
+                                     torch.where(live, lens - page, page))
+        err = (o - wrong).abs().amax(dim=(1, 2))
+        assert (err > 10 * TOL[dtype]).all()
+
+
+@pytest.mark.parametrize("kv_dtype", [None, "int8"])
+def test_sharded_engine_on_card_matches_cpu(dev, kv_dtype):
+    """The tiny f32 sharded engine (a 64-token budget over a 6-page pool)
+    emits the same tokens on the card as on the CPU and as a big-pool
+    engine, through the cold-partial kernels, with clean audits."""
+    from triton_distributed_tpu_torch.models import (
+        AutoLLM,
+        ContinuousEngine,
+    )
+
+    gpu = AutoLLM.from_pretrained("tiny", device=dev, seed=0)
+    cpu = AutoLLM.from_pretrained("tiny", device="cpu", seed=0)
+    cpu.set_params(gpu.params)
+    prompt = np.random.default_rng(8).integers(1, 200, 120).astype(np.int32)
+    kw = dict(max_batch=1, page_size=16, max_length=256, kv_dtype=kv_dtype)
+    sharded = dict(rank_page_budget=64, tier_bytes=32 << 20, num_pages=6)
+    cold = ((ck.FLASH_ATTENTION_COLD_INT8, ck.FLASH_DECODE_INT8) if kv_dtype
+            else (ck.FLASH_ATTENTION_COLD, ck.FLASH_DECODE))
+    outs = []
+    for m, d in ((gpu, dev), (cpu, "cpu")):
+        before = [c.launches for c in cold]
+        eng = ContinuousEngine(m, device=d, **kw, **sharded)
+        outs.append(eng.run([(prompt, 6)])[0])
+        st = eng.last_stats
+        assert eng.audit() == []
+        assert st["longctx_sharded_slots"] == 1
+        assert st["longctx_demoted_pages"] > 0
+        ran = [c.launches - b for c, b in zip(cold, before)]
+        assert all(ran) if d == dev else not any(ran)
+    big = ContinuousEngine(cpu, device="cpu", **kw).run([(prompt, 6)])[0]
+    np.testing.assert_array_equal(outs[0], outs[1])
+    if kv_dtype is None:
+        np.testing.assert_array_equal(outs[0], big)
 
 
 # -- the decode megakernel ----------------------------------------------------

@@ -173,9 +173,15 @@ def test_propose_continuations_matches_jax():
     assert [len(t.pool.free) for t in (got, want)] == free
     assert all(n.refcount == 0 for n in got.walk())
     assert got.stats == {k: want.stats[k] for k in got.stats}
-    with pytest.raises(NotImplementedError, match="tier"):
-        got.propose_continuations(chains[0][:8], width=1, depth=2,
-                                  tier_chains=[])
+    # The KV tier's chains extend the tree's paths by a flat prefix scan.
+    tier = [chains[0][:8] + [77, 78, 79], chains[1], [5, 6, 7], chains[0]]
+    for h in (chains[0][:8], chains[1][:3], [], chains[0] + [1]):
+        for width, depth in ((1, 2), (3, 6), (0, 4), (2, 0)):
+            assert got.propose_continuations(
+                h, width=width, depth=depth, tier_chains=tier
+            ) == want.propose_continuations(
+                h, width=width, depth=depth, tier_chains=tier), (
+                    len(h), width, depth)
     for t in (got, want):
         t.evict_until(t.pool.num_pages)  # leave both pools clean
 
@@ -222,10 +228,19 @@ def test_flash_attention_bias_matches_jax(off):
     with pytest.raises(ValueError, match="bias shape"):
         flash_attention(*map(_t, (q, k, v)), kv_offset=off,
                         bias=_t(bias[:, :-1]))
-    ks = torch.ones(1, 4, sk // 16)
-    with pytest.raises(NotImplementedError, match="int8"):
-        flash_attention(*map(_t, (q, k, v)), kv_offset=off, block_k=16,
-                        k_scale=ks, v_scale=ks, bias=_t(bias))
+    # With int8 codes and scales too (the plain version dequantizes
+    # first), as the JAX kernel takes them.
+    codes = np.clip(np.round(k * 30), -127, 127).astype(np.int8)
+    ks = rng.random((1, 4, sk // 16)).astype(np.float32) / 30
+    want8 = jax_flash_attention(
+        *map(jnp.asarray, (q, codes, codes)), causal=True, kv_offset=off,
+        block_q=16, block_k=16, k_scale=jnp.asarray(ks),
+        v_scale=jnp.asarray(ks), bias=jnp.asarray(bias))
+    got8 = flash_attention(*map(_t, (q, codes, codes)), kv_offset=off,
+                           block_k=16, k_scale=_t(ks), v_scale=_t(ks),
+                           bias=_t(bias))
+    np.testing.assert_allclose(got8.numpy(), np.asarray(want8), atol=ATOL,
+                               rtol=0)
 
 
 @pytest.fixture(scope="module")

@@ -8,11 +8,20 @@
 // keys per kv head), the chunked prefill over an int8 page pool
 // (`block_k` = page); and the same `_attn_kernel` with `b_ref` (an
 // additive [Sq, Sk] f32 score bias shared by every batch row and head:
-// the draft-tree ancestor mask of a speculative tree verify chunk).
+// the draft-tree ancestor mask of a speculative tree verify chunk); and
+// the same `_attn_kernel` with `causal=False`, with `b_ref` and with or
+// without `ks_ref`/`vs_ref`: the cold partial of a sharded long-context
+// slot's prefill chunk (layers/tp_attn.py
+// `tp_attn_prefill_paged_chunk_cold`), where every chunk row sees every
+// cold column below `s_cold` and the bias masks the bucket's tail.
 //
 // What it computes, per query row r of head h (kv head h / group):
 //   s_c = (q_r . k_c) * sm_scale in f32, masked to -1e30 where
-//         c > kv_offset + r (the causal limit) or c >= Sk,
+//         c > kv_offset + r (the causal limit; causal kernels only), and
+//         to -inf where c >= Sk (a padding column of the last tile, which
+//         then weighs exactly 0 even in a row whose columns are all
+//         masked: such a row averages V over its Sk real columns, as the
+//         TPU kernel and the plain version do),
 //   an online softmax over kv tiles with f32 (m, l, acc), P rounded to
 //   V's dtype before P·V (f32 accumulation), l floored at 1e-30, and the
 //   optional base-e LSE m + log(l).
@@ -29,6 +38,11 @@
 //   arrives). The bias only masks more than causality, so the causal
 //   tile limit stays sound. Bias rows are read straight from global
 //   memory: lane j reads bias[r, k0 + j], 32 consecutive floats.
+//   Non-causal (kCausal false): every tile up to Sk is read, with no
+//   causal limit and no tile skip. A cold partial whose bias masks every
+//   column (s_cold = 0) is never skipped either: each score is -1e30,
+//   p = exp(0) = 1, l = Sk, and its LSE near -1e30 gives it weight 0 in
+//   the lse_combine with the resident partial (no 0/0 anywhere).
 //
 // What bounds it on the H100: at the main path's shapes (a 256-token
 // chunk against <= 2k cached positions, head_dim 128) the work is a
@@ -41,7 +55,10 @@
 // read up to the causal limit (kv_offset 700) and 128 KB of bias, so
 // its bound is the bytes (~0.9 us at 3.35 TB/s), and
 // with one 16-row block per head only 16 blocks run; the kernel is
-// latency-bound there, which a split over keys would address.
+// latency-bound there, which a split over keys would address. A cold
+// partial (a 128-row chunk against a 2048-key window at Qwen3-0.6B) is
+// ~0.27 GFLOP against ~8.5 MB: bound by the bytes (~2.6 us), and run at
+// the FMA pipes' rate like the causal chunk.
 //
 // Design: the TPU kernel carried (m, l, acc) in VMEM scratch across a
 // sequential kv grid axis; Hopper blocks run in parallel in no order, so
@@ -66,8 +83,8 @@ constexpr int kBlockK = 32;  // keys per staged tile, one per lane
 
 // T is q/o's type, KT the K/V element type (T, or int8_t codes with
 // k_scale/v_scale [B, Hkv, Sk / block_k] f32); kBias adds bias [Sq, Sk]
-// f32 to the scaled scores.
-template <typename T, typename KT, int D, bool kBias>
+// f32 to the scaled scores; kCausal masks columns past kv_offset + row.
+template <typename T, typename KT, int D, bool kBias, bool kCausal>
 __global__ void __launch_bounds__(kThreads)
     flash_attention_kernel(const T* __restrict__ q, const KT* __restrict__ k,
                            const KT* __restrict__ v,
@@ -107,9 +124,10 @@ __global__ void __launch_bounds__(kThreads)
                               : 0.f;
   }
 
-  // Columns this block can see: the causal limit of its last real row.
+  // Columns this block can see: the causal limit of its last real row,
+  // or every column when the attention is not causal.
   const int last_row = min(q0 + kBlockQ, sq) - 1;
-  const int kv_end = min(sk, kv_offset + last_row + 1);
+  const int kv_end = kCausal ? min(sk, kv_offset + last_row + 1) : sk;
 
   float m[RPW], l[RPW], acc[RPW][EPL];
 #pragma unroll
@@ -150,8 +168,8 @@ __global__ void __launch_bounds__(kThreads)
       if constexpr (kBias) {
         if (col < sk) s += __ldg(bias + (size_t)row * sk + col);
       }
-      const bool visible = col < sk && col <= kv_offset + row;
-      if (!visible) s = tdt::kNegInf;
+      if (kCausal && col > kv_offset + row) s = tdt::kNegInf;
+      if (col >= sk) s = -__int_as_float(0x7f800000);  // -inf: weight 0
       const float m_new = fmaxf(m[rr], tdt::warp_max(s));
       const float p = expf(s - m_new);
       const float alpha = expf(m[rr] - m_new);
@@ -188,69 +206,78 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <typename T, typename KT, int D, bool kBias>
-void launch(const void* q, const void* k, const void* v, const float* ks,
-            const float* vs, const float* bias, void* o, float* lse, int b,
-            int hq, int hkv, int sq, int sk, int kv_offset, int block_k,
-            float sm_scale, cudaStream_t stream) {
-  dim3 grid(b * hq, (sq + kBlockQ - 1) / kBlockQ);
-  flash_attention_kernel<T, KT, D, kBias><<<grid, kThreads, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const KT*>(k),
-      static_cast<const KT*>(v), ks, vs, bias, static_cast<T*>(o), lse, hq,
-      hkv, sq, sk, kv_offset, block_k, sm_scale);
+// The operands of one launch (the C entry points fill it).
+struct AttnArgs {
+  const void* q;
+  const void* k;
+  const void* v;
+  const float* k_scale;  // null: K/V of q's type
+  const float* v_scale;
+  const float* bias;  // null: no score bias
+  void* o;
+  float* lse;  // may be null
+  int b, hq, hkv, sq, sk, kv_offset, block_k;
+  float sm_scale;
+  cudaStream_t stream;
+};
+
+template <typename T, typename KT, int D, bool kBias, bool kCausal>
+void launch(const AttnArgs& a) {
+  dim3 grid(a.b * a.hq, (a.sq + kBlockQ - 1) / kBlockQ);
+  flash_attention_kernel<T, KT, D, kBias, kCausal>
+      <<<grid, kThreads, 0, a.stream>>>(
+          static_cast<const T*>(a.q), static_cast<const KT*>(a.k),
+          static_cast<const KT*>(a.v), a.k_scale, a.v_scale, a.bias,
+          static_cast<T*>(a.o), a.lse, a.hq, a.hkv, a.sq, a.sk, a.kv_offset,
+          a.block_k, a.sm_scale);
 }
 
-// K/V of q's type, or int8 codes when the scales are given; a bias is
-// taken with full-width K/V only (the entry points never pass both).
+// The instances the entry points take: causal with int8 scales, with a
+// bias, or with neither; non-causal with or without int8 scales and with
+// or without a bias. Causal int8 with a bias is on no serving path and
+// is refused.
 template <typename T, int D>
-void launch_kv(const void* q, const void* k, const void* v, const float* ks,
-               const float* vs, const float* bias, void* o, float* lse, int b,
-               int hq, int hkv, int sq, int sk, int kv_offset, int block_k,
-               float sm_scale, cudaStream_t stream) {
-  if (ks != nullptr)
-    launch<T, int8_t, D, false>(q, k, v, ks, vs, nullptr, o, lse, b, hq, hkv,
-                                sq, sk, kv_offset, block_k, sm_scale, stream);
-  else if (bias != nullptr)
-    launch<T, T, D, true>(q, k, v, ks, vs, bias, o, lse, b, hq, hkv, sq, sk,
-                          kv_offset, block_k, sm_scale, stream);
-  else
-    launch<T, T, D, false>(q, k, v, ks, vs, nullptr, o, lse, b, hq, hkv, sq,
-                           sk, kv_offset, block_k, sm_scale, stream);
+int launch_kv(const AttnArgs& a, bool causal) {
+  const bool quant = a.k_scale != nullptr, bias = a.bias != nullptr;
+  if (causal) {
+    if (quant && bias) return 1;
+    if (quant)
+      launch<T, int8_t, D, false, true>(a);
+    else if (bias)
+      launch<T, T, D, true, true>(a);
+    else
+      launch<T, T, D, false, true>(a);
+  } else if (quant) {
+    if (bias)
+      launch<T, int8_t, D, true, false>(a);
+    else
+      launch<T, int8_t, D, false, false>(a);
+  } else if (bias) {
+    launch<T, T, D, true, false>(a);
+  } else {
+    launch<T, T, D, false, false>(a);
+  }
+  return 0;
 }
 
 template <typename T>
-int dispatch_d(int d, const void* q, const void* k, const void* v,
-               const float* ks, const float* vs, const float* bias, void* o,
-               float* lse, int b, int hq, int hkv, int sq, int sk,
-               int kv_offset, int block_k, float sm_scale,
-               cudaStream_t stream) {
+int dispatch_d(int d, const AttnArgs& a, bool causal) {
   switch (d) {
-    case 32:
-      launch_kv<T, 32>(q, k, v, ks, vs, bias, o, lse, b, hq, hkv, sq, sk,
-                       kv_offset, block_k, sm_scale, stream);
-      return 0;
-    case 128:
-      launch_kv<T, 128>(q, k, v, ks, vs, bias, o, lse, b, hq, hkv, sq, sk,
-                        kv_offset, block_k, sm_scale, stream);
-      return 0;
-    default:
-      return 1;
+    case 32: return launch_kv<T, 32>(a, causal);
+    case 128: return launch_kv<T, 128>(a, causal);
+    default: return 1;
   }
 }
 
-int run(const void* q, const void* k, const void* v, const float* ks,
-        const float* vs, const float* bias, void* o, float* lse, int b,
-        int hq, int hkv, int sq, int sk, int d, int kv_offset, int block_k,
-        float sm_scale, int dtype, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
+int run(const AttnArgs& a, int d, bool causal, int dtype) {
+  if (a.k_scale != nullptr &&
+      (a.v_scale == nullptr || a.block_k < 1 || a.sk % a.block_k != 0))
+    return (int)cudaErrorInvalidValue;
   int bad = 1;
   if (dtype == tdt::kDtypeF32)
-    bad = dispatch_d<float>(d, q, k, v, ks, vs, bias, o, lse, b, hq, hkv, sq,
-                            sk, kv_offset, block_k, sm_scale, st);
+    bad = dispatch_d<float>(d, a, causal);
   else if (dtype == tdt::kDtypeBF16)
-    bad = dispatch_d<__nv_bfloat16>(d, q, k, v, ks, vs, bias, o, lse, b, hq,
-                                    hkv, sq, sk, kv_offset, block_k, sm_scale,
-                                    st);
+    bad = dispatch_d<__nv_bfloat16>(d, a, causal);
   if (bad) return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
 }
@@ -264,8 +291,9 @@ extern "C" int tdt_flash_attention_fwd(const void* q, const void* k,
                                        int b, int hq, int hkv, int sq, int sk,
                                        int d, int kv_offset, float sm_scale,
                                        int dtype, void* stream) {
-  return run(q, k, v, nullptr, nullptr, nullptr, o, lse, b, hq, hkv, sq, sk,
-             d, kv_offset, 1, sm_scale, dtype, stream);
+  AttnArgs a{q, k, v, nullptr, nullptr, nullptr, o, lse, b, hq, hkv, sq, sk,
+             kv_offset, 1, sm_scale, static_cast<cudaStream_t>(stream)};
+  return run(a, d, true, dtype);
 }
 
 // Additive score bias: bias [Sq, Sk] f32 (non-null, contiguous), shared by
@@ -275,8 +303,9 @@ extern "C" int tdt_flash_attention_bias_fwd(
     float* lse, int b, int hq, int hkv, int sq, int sk, int d, int kv_offset,
     float sm_scale, int dtype, void* stream) {
   if (bias == nullptr) return (int)cudaErrorInvalidValue;
-  return run(q, k, v, nullptr, nullptr, bias, o, lse, b, hq, hkv, sq, sk, d,
-             kv_offset, 1, sm_scale, dtype, stream);
+  AttnArgs a{q, k, v, nullptr, nullptr, bias, o, lse, b, hq, hkv, sq, sk,
+             kv_offset, 1, sm_scale, static_cast<cudaStream_t>(stream)};
+  return run(a, d, true, dtype);
 }
 
 // int8 K/V: k/v int8 codes [B, Hkv, Sk, D], k_scale/v_scale [B, Hkv,
@@ -287,9 +316,33 @@ extern "C" int tdt_flash_attention_int8_fwd(
     const float* v_scale, void* o, float* lse, int b, int hq, int hkv,
     int sq, int sk, int d, int kv_offset, int block_k, float sm_scale,
     int dtype, void* stream) {
-  if (k_scale == nullptr || v_scale == nullptr || block_k < 1 ||
-      sk % block_k != 0)
-    return (int)cudaErrorInvalidValue;
-  return run(q, k, v, k_scale, v_scale, nullptr, o, lse, b, hq, hkv, sq, sk,
-             d, kv_offset, block_k, sm_scale, dtype, stream);
+  if (k_scale == nullptr) return (int)cudaErrorInvalidValue;
+  AttnArgs a{q, k, v, k_scale, v_scale, nullptr, o, lse, b, hq, hkv, sq, sk,
+             kv_offset, block_k, sm_scale, static_cast<cudaStream_t>(stream)};
+  return run(a, d, true, dtype);
+}
+
+// Non-causal (the cold partial of a sharded prefill chunk): every query
+// row attends every column below Sk, bias [Sq, Sk] f32 or null; K/V of
+// q's type; the rest as tdt_flash_attention_fwd.
+extern "C" int tdt_flash_attention_cold_fwd(
+    const void* q, const void* k, const void* v, const float* bias, void* o,
+    float* lse, int b, int hq, int hkv, int sq, int sk, int d,
+    float sm_scale, int dtype, void* stream) {
+  AttnArgs a{q, k, v, nullptr, nullptr, bias, o, lse, b, hq, hkv, sq, sk, 0,
+             1, sm_scale, static_cast<cudaStream_t>(stream)};
+  return run(a, d, false, dtype);
+}
+
+// Non-causal over int8 codes: scales as tdt_flash_attention_int8_fwd
+// (non-null), bias [Sq, Sk] f32 or null.
+extern "C" int tdt_flash_attention_cold_int8_fwd(
+    const void* q, const void* k, const void* v, const float* k_scale,
+    const float* v_scale, const float* bias, void* o, float* lse, int b,
+    int hq, int hkv, int sq, int sk, int d, int block_k, float sm_scale,
+    int dtype, void* stream) {
+  if (k_scale == nullptr) return (int)cudaErrorInvalidValue;
+  AttnArgs a{q, k, v, k_scale, v_scale, bias, o, lse, b, hq, hkv, sq, sk, 0,
+             block_k, sm_scale, static_cast<cudaStream_t>(stream)};
+  return run(a, d, false, dtype);
 }

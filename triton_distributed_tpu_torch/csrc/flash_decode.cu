@@ -11,10 +11,15 @@
 //     (Engine(paged=False));
 //   - `_paged_decode_kernel_q` (entry `paged_flash_decode` with
 //     k_scale/v_scale): the paged decode over an int8 pool with one f32
-//     scale per (page, kv head) (kv_dtype="int8").
+//     scale per (page, kv head) (kv_dtype="int8");
+//   - `_decode_kernel_q` (entry `flash_decode` with k_scale/v_scale): the
+//     dense decode over int8 codes with one f32 scale per chunk_k keys
+//     per kv head ([B, Hkv, S / chunk_k]): the cold partial of a sharded
+//     long-context slot's decode over an int8 pool (chunk_k = page).
 // All share the TPU body `_decode_body`; here they share one kernel pair,
 // templated on the K/V element type (q's type, or int8_t codes) and told
-// apart by the page table pointer (null = dense).
+// apart by the page table pointer (null = dense). A chunk's scale is
+// k_scale[page, h] through the table, or k_scale[b, h, chunk] dense.
 //
 // What it computes: for sequence b and kv head h, the `group` query rows
 // of that head against the first kv_len[b] cached positions, exactly as
@@ -22,8 +27,9 @@
 // m_c, p = exp(s - m_c), l_c summed from unrounded p, O_c = P·V / l_c,
 // LSE_c = m_c + log(l_c) — then the log-sum-exp merge of `lse_combine`.
 // Full width: s = (q . k) * sm_scale and p is rounded to V's dtype before
-// P·V. int8: s = (q . code) * (sm_scale * k_scale[page, h]) and
-// O_c = ((sum_j p_j * code_j) * v_scale[page, h]) / l_c with p unrounded,
+// P·V. int8: s = (q . code) * (sm_scale * k_scale[chunk's scale]) and
+// O_c = ((sum_j p_j * code_j) * v_scale[chunk's scale]) / l_c with p
+// unrounded,
 // the order of the TPU kernel's in-register dequant. Chunks at or past
 // ceil(kv_len / chunk) are never read (their partials have weight 0 in
 // lse_combine), so a kv_len of 0 reads nothing and yields O = 0,
@@ -122,8 +128,10 @@ __global__ void __launch_bounds__(kThreads)
   const KT* vc = v + row0 * D + col;
   float k_mult = sm_scale, v_mult = 1.f;
   if constexpr (kQuant) {
-    k_mult = sm_scale * k_scale[(size_t)pid * hkv + h];
-    v_mult = v_scale[(size_t)pid * hkv + h];
+    const size_t si = table != nullptr ? (size_t)pid * hkv + h
+                                       : (size_t)bh * n_chunks + c;
+    k_mult = sm_scale * k_scale[si];
+    v_mult = v_scale[si];
   }
 
   // Scores: warp w scores rows [w*STEP, w*STEP + STEP), then
@@ -273,8 +281,8 @@ struct DecodeArgs {
   const void* q;
   const void* k;
   const void* v;
-  const float* k_scale;  // null: full-width K/V
-  const float* v_scale;
+  const float* k_scale;  // null: full-width K/V; else [P, Hkv] through
+  const float* v_scale;  // the table, or [B, Hkv, n_chunks] dense
   const int* table;  // null: dense cache
   const int* kv_len;
   void* o;
@@ -380,6 +388,22 @@ extern "C" int tdt_paged_flash_decode_int8(
     return (int)cudaErrorInvalidValue;
   DecodeArgs a{q, k, v, k_scale, v_scale, table, kv_len, o, lse, o_part,
                lse_part, b, hkv, page, pages_per_seq, sm_scale,
+               static_cast<cudaStream_t>(stream)};
+  return run(a, group, d, dtype);
+}
+
+// Dense over int8 codes: k/v int8 codes [B, Hkv, n_chunks*chunk, D],
+// k_scale/v_scale [B, Hkv, n_chunks] f32 (non-null), one per chunk of
+// keys; q/o of `dtype`; the rest as tdt_flash_decode.
+extern "C" int tdt_flash_decode_int8(
+    const void* q, const void* k, const void* v, const float* k_scale,
+    const float* v_scale, const int* kv_len, void* o, float* lse,
+    float* o_part, float* lse_part, int b, int hkv, int group, int d,
+    int chunk, int n_chunks, float sm_scale, int dtype, void* stream) {
+  if (k_scale == nullptr || v_scale == nullptr)
+    return (int)cudaErrorInvalidValue;
+  DecodeArgs a{q, k, v, k_scale, v_scale, nullptr, kv_len, o, lse, o_part,
+               lse_part, b, hkv, chunk, n_chunks, sm_scale,
                static_cast<cudaStream_t>(stream)};
   return run(a, group, d, dtype);
 }

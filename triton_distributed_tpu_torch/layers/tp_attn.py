@@ -2,7 +2,10 @@
 
 Counterpart of ``triton_distributed_tpu/layers/tp_attn.py``: the tp=1,
 full-width branches of ``tp_attn_prefill``, ``tp_attn_prefill_paged_chunk``,
-``tp_attn_decode`` and ``tp_attn_decode_paged``. At tp=1 each device owns
+``tp_attn_decode`` and ``tp_attn_decode_paged``, and the sharded
+long-context slot's ``tp_attn_prefill_paged_chunk_cold`` and
+``tp_attn_decode_sharded`` (a resident paged partial and a cold-window
+partial merged by ``lse_combine``). At tp=1 each device owns
 every head, the QKV and O projections are plain GEMMs and the psums run
 over a one-device axis, so they drop out; the attention itself is the
 port's hand-written kernels.
@@ -33,6 +36,7 @@ from triton_distributed_tpu_torch.ops.attention.flash_attention import (
 )
 from triton_distributed_tpu_torch.ops.attention.flash_decode import (
     flash_decode,
+    lse_combine,
     paged_flash_decode,
     pages_to_dense,
 )
@@ -199,6 +203,179 @@ def tp_attn_prefill_paged_chunk(
                         kv_offset=q_offset, **scales)[0]
     return (_o_proj(params, o, dims, x.dtype), k_pages, v_pages, k_scale,
             v_scale)
+
+
+def cold_mask(c: int, s_bucket: int, s_cold: int, device) -> torch.Tensor:
+    """The cold partial's ``[C, S_bucket]`` f32 bias: 0 on the ``s_cold``
+    valid cold columns, -1e30 on the bucket's tail past them."""
+    cols = torch.arange(s_bucket, device=device)
+    row = torch.where(cols < int(s_cold), 0.0, -1e30).to(torch.float32)
+    return row[None].expand(c, s_bucket).contiguous()
+
+
+def _merge_partials(o_cold, lse_cold, o_res, lse_res):
+    """``lse_combine`` of the cold and resident attention partials."""
+    o, _ = lse_combine(
+        torch.stack([o_cold.to(torch.float32), o_res.to(torch.float32)]),
+        torch.stack([lse_cold, lse_res]),
+        part_axis=0,
+    )
+    return o
+
+
+def tp_attn_prefill_paged_chunk_cold(
+    params: dict,
+    x: torch.Tensor,           # [C, d] — one chunk of ONE sequence
+    k_pages: torch.Tensor,     # [P, hkv, page, hd] — this layer's pool
+    v_pages: torch.Tensor,
+    table_row: torch.Tensor,   # [budget_pages] int32 — the RESIDENT row
+    k_cold: torch.Tensor,      # [hkv, S_bucket, hd] — demoted-page window
+    v_cold: torch.Tensor,
+    s_cold: int,               # valid cold tokens (<= S_bucket)
+    q_offset: int,             # ABSOLUTE chunk start position
+    dims: TPAttnDims,
+    *,
+    mode: str = "xla_ar",
+    k_scale: torch.Tensor | None = None,   # [P, hkv] f32 — int8 pool scales
+    v_scale: torch.Tensor | None = None,
+    ks_cold: torch.Tensor | None = None,   # [hkv, S_bucket/page] f32
+    vs_cold: torch.Tensor | None = None,
+    q_end: int | None = None,              # absolute end of the REAL rows
+    cold_bias: torch.Tensor | None = None,  # [C, S_bucket] (cold_mask)
+):
+    """Chunked-prefill step of a SHARDED long-context slot. Its history
+    is split between ``s_cold`` demoted tokens (a read-only dense window
+    in the pool dtype with per-page scales, absolute positions ``[0,
+    s_cold)``) and the resident pages of ``table_row`` at LOCAL positions
+    (absolute position − ``s_cold``). The chunk's queries rope at
+    ABSOLUTE positions and its K/V rows are written at local ones (rows
+    outside the resident window, the final chunk's padding, go to the
+    trash page 0). Attention is two partials merged by ``lse_combine``:
+    the resident view, causal at the local offset, and the cold window,
+    non-causal, every row seeing every cold column below ``s_cold``
+    (``cold_bias`` masks the bucket's tail; built here when not given).
+    With ``s_cold == 0`` the cold partial is fully masked and the merge
+    returns the resident partial (weight 1 against 0).
+    Returns ``(out [C, d], k_pages, v_pages, k_scale, v_scale)``, the
+    pool written in place."""
+    check_mode(mode)
+    c = x.shape[0]
+    page = k_pages.shape[2]
+    n_res = table_row.shape[0]
+    s_cold, q_offset = int(s_cold), int(q_offset)
+    pos = q_offset + torch.arange(c, device=x.device)  # absolute
+    q, k, v = _qkv(params, x, dims, pos)
+
+    lpos = pos - s_cold
+    valid = (lpos >= 0) & (lpos < n_res * page)
+    pids = torch.where(
+        valid, table_row.long()[torch.clamp(lpos // page, 0, n_res - 1)], 0)
+    offs = torch.where(valid, lpos % page, 0)
+    if k_scale is not None:
+        from triton_distributed_tpu_torch.models.paged_kv_cache import (
+            quantized_row_scatter,
+        )
+
+        real = valid if q_end is None else valid & (pos < int(q_end))
+        pids = torch.where(real, pids, 0)
+        offs = torch.where(real, offs, 0)
+        # The real rows' local positions [lo, hi) fill the row's pages
+        # from lo // page on; every other row goes to the trash page 0.
+        hi = q_offset + c if q_end is None else min(q_offset + c, int(q_end))
+        lo = max(q_offset - s_cold, 0)
+        hi = min(hi - s_cold, n_res * page)
+        touched = table_row[lo // page:-(-hi // page)].long() if hi > lo \
+            else table_row[:0].long()
+        if hi - lo < c:
+            touched = torch.cat([touched, touched.new_zeros(1)])
+        quantized_row_scatter(k_pages, k_scale, k.transpose(0, 1), pids,
+                              offs, touched)
+        quantized_row_scatter(v_pages, v_scale, v.transpose(0, 1), pids,
+                              offs, touched)
+        cols = table_row.long()
+        res_scales = {"k_scale": k_scale[cols].T[None].contiguous(),
+                      "v_scale": v_scale[cols].T[None].contiguous(),
+                      "block_k": page}
+        cold_scales = {"k_scale": ks_cold[None], "v_scale": vs_cold[None],
+                       "block_k": page}
+    else:
+        k_pages[pids, :, offs, :] = k.transpose(0, 1).to(k_pages.dtype)
+        v_pages[pids, :, offs, :] = v.transpose(0, 1).to(v_pages.dtype)
+        res_scales = cold_scales = {}
+
+    q = q[None].contiguous()
+    k_dense = pages_to_dense(k_pages, table_row[None])  # [1, h, S_res, hd]
+    v_dense = pages_to_dense(v_pages, table_row[None])
+    o_res, lse_res = flash_attention(
+        q, k_dense, v_dense, causal=True, kv_offset=q_offset - s_cold,
+        return_lse=True, **res_scales)
+    if cold_bias is None:
+        cold_bias = cold_mask(c, k_cold.shape[1], s_cold, x.device)
+    o_cold, lse_cold = flash_attention(
+        q, k_cold[None], v_cold[None], causal=False, bias=cold_bias,
+        return_lse=True, **cold_scales)
+    o = _merge_partials(o_cold, lse_cold, o_res, lse_res)[0]
+    return (_o_proj(params, o, dims, x.dtype), k_pages, v_pages, k_scale,
+            v_scale)
+
+
+def tp_attn_decode_sharded(
+    params: dict,
+    x: torch.Tensor,           # [1, d] — the slot's new token
+    k_pages: torch.Tensor,     # [P, hkv, page, hd] (updated in place)
+    v_pages: torch.Tensor,
+    table_row: torch.Tensor,   # [budget_pages] int32 — the RESIDENT row
+    kv_len_loc: int,           # tokens in the resident region
+    k_cold: torch.Tensor,      # [hkv, S_bucket, hd] — demoted-page window
+    v_cold: torch.Tensor,
+    s_cold: int,               # valid cold tokens (<= S_bucket)
+    dims: TPAttnDims,
+    *,
+    mode: str = "xla_ar",
+    k_scale: torch.Tensor | None = None,   # [P, hkv] f32 — int8 pool scales
+    v_scale: torch.Tensor | None = None,
+    ks_cold: torch.Tensor | None = None,   # [hkv, S_bucket/page] f32
+    vs_cold: torch.Tensor | None = None,
+):
+    """Decode step of ONE sharded long-context slot: the new token ropes
+    at its ABSOLUTE position ``s_cold + kv_len_loc`` and appends at its
+    LOCAL resident position ``kv_len_loc``; attention is
+    :func:`paged_flash_decode` over the resident pages and
+    :func:`flash_decode` over the cold window (``chunk_k = page``, with
+    the window's per-page scales on an int8 pool), merged by
+    ``lse_combine``. Returns ``(out [1, d], k_pages, v_pages, k_scale,
+    v_scale)``, the pool written in place."""
+    check_mode(mode)
+    page = k_pages.shape[2]
+    kv_len_loc, s_cold = int(kv_len_loc), int(s_cold)
+    pos = torch.full((1,), s_cold + kv_len_loc, dtype=torch.int32,
+                     device=x.device)
+    q, k, v = _decode_qkv(params, x, pos, dims)  # [1, h, hd]
+    pid = table_row[kv_len_loc // page:kv_len_loc // page + 1].long()
+    off = kv_len_loc % page
+    if k_scale is not None:
+        from triton_distributed_tpu_torch.models.paged_kv_cache import (
+            quantized_row_scatter,
+        )
+
+        offs = torch.full_like(pid, off)
+        quantized_row_scatter(k_pages, k_scale, k, pid, offs)
+        quantized_row_scatter(v_pages, v_scale, v, pid, offs)
+        cold_scales = {"k_scale": ks_cold[None], "v_scale": vs_cold[None]}
+    else:
+        k_pages[pid, :, off, :] = k.to(k_pages.dtype)
+        v_pages[pid, :, off, :] = v.to(v_pages.dtype)
+        cold_scales = {}
+    q = q.contiguous()
+    o_res, lse_res = paged_flash_decode(
+        q, k_pages, v_pages, table_row[None], kv_len_loc + 1,
+        return_lse=True, k_scale=k_scale, v_scale=v_scale)
+    o_cold, lse_cold = flash_decode(
+        q, k_cold[None], v_cold[None], s_cold, chunk_k=page,
+        return_lse=True, **cold_scales)
+    o = _merge_partials(o_cold, lse_cold, o_res, lse_res)
+    out = o.reshape(1, dims.hq_loc * dims.head_dim).to(x.dtype) @ params["wo"]
+    return out, k_pages, v_pages, k_scale, v_scale
 
 
 def _decode_qkv(params, x, kv_len, dims):

@@ -38,17 +38,32 @@ stops at its first stop token, found in the kernel. A round that cannot
 launch (a slot within ``ns`` of ``max_length``) takes a single-step
 launch of the same kernel.
 
+A KV tier (``tier=``, or one built from ``tier_bytes=``/``tier_dir=``,
+:class:`kv_tier.PageStore`) sits behind the radix tree: an evicted full
+page spills into it, and admission faults tier-resident pages of a
+prompt back into the tree before matching, instead of re-prefilling
+them.
+
+``rank_page_budget=N`` (tokens; it needs a tier) admits a request whose
+KV needs more than N tokens of pages as a SHARDED slot: a resident
+paged window of at most N tokens plus cold pages demoted to the tier,
+one page at a time, as the window fills. Every prefill chunk and decode
+step of the slot runs a per-slot forward that merges the resident and
+the cold-window attention partials with ``lse_combine``; the batched
+decode sees the slot as empty and its logits are spliced over.
+
 Greedy only. Not ported, and refused when asked for: sampled requests
 (``temperature > 0``), resident decode, ``MegaConfig(wq8=True)``,
-slot migration/snapshots, the KV tier and fabric,
-context-parallel prefill and sharded long-context slots, the device task
-tracer (ROADMAP queue 1). Cancellation, request timelines and fault
-seams are not ported either.
+slot migration/snapshots, the KV fabric, context-parallel prefill, the
+device task tracer (ROADMAP queue 1). Cancellation, request timelines
+and fault seams are not ported either.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import hashlib
+import itertools
 import time
 import weakref
 from collections import Counter, deque
@@ -56,7 +71,7 @@ from collections import Counter, deque
 import numpy as np
 import torch
 
-from triton_distributed_tpu_torch.models import sampling
+from triton_distributed_tpu_torch.models import kv_tier, sampling
 from triton_distributed_tpu_torch.models.engine import (
     SAMPLED_SERVING,
     MegaDispatch,
@@ -67,15 +82,18 @@ from triton_distributed_tpu_torch.models.paged_kv_cache import (
     PoolAuditError,
     audit_pool,
     copy_page,
+    gather_pages,
     init_paged_cache,
     kv_bytes_per_token,
     resolve_kv_dtype,
     truncate_pages,
+    write_page,
     write_prefill,
 )
 from triton_distributed_tpu_torch.models.prefix_cache import (
     PrefixCache,
     PrefixMatch,
+    node_chain,
     round_chunk,
 )
 from triton_distributed_tpu_torch.models.speculative import (
@@ -94,6 +112,40 @@ from triton_distributed_tpu_torch.models.stats import (
 )
 from triton_distributed_tpu_torch.obs import events as obs_events
 from triton_distributed_tpu_torch.obs import metrics as obs_metrics
+
+
+def _model_fingerprint(model) -> str:
+    """Identity of the weights a tier entry was produced under: the
+    class name, every parameter's shape and dtype, and a value sample
+    spread over the tree (up to 8 leaves at an even stride plus the last
+    one, the LM head; 64 elements strided over each whole flattened
+    leaf, so a layer-stacked ``[L, ...]`` leaf samples every layer). A
+    ``tier_dir`` reused across a weight update then faults back nothing
+    instead of stale KV. A few small device reads, once per engine with
+    a tier."""
+    h = hashlib.sha1(type(model).__name__.encode())
+    leaves = []
+
+    def walk(node):
+        if isinstance(node, dict):
+            for key in sorted(node):
+                walk(node[key])
+        elif isinstance(node, torch.Tensor):
+            leaves.append(node)
+
+    walk(getattr(model, "params", None))
+    for leaf in leaves:
+        h.update(str(tuple(leaf.shape)).encode())
+        h.update(str(leaf.dtype).encode())
+    sampled = leaves[::max(1, len(leaves) // 8)][:8]
+    if leaves and leaves[-1] is not sampled[-1]:
+        sampled.append(leaves[-1])
+    for leaf in sampled:
+        flat = leaf.reshape(-1)
+        stride = max(1, flat.shape[0] // 64)
+        sample = flat[::stride][:64].to(torch.float32).cpu().numpy()
+        h.update(sample.tobytes())
+    return h.hexdigest()
 
 
 @dataclasses.dataclass
@@ -179,9 +231,31 @@ class Request:
 
 # Knobs of the JAX ContinuousEngine this slice does not port: each
 # raises NotImplementedError when set (ROADMAP queues 1 and 2).
-_UNPORTED = ("resident",
-             "kernel_trace", "snapshot_every", "tier_bytes", "tier_dir",
-             "tier", "fabric", "rank_page_budget")
+_UNPORTED = ("resident", "kernel_trace", "snapshot_every", "fabric")
+
+# Cold-page tier keys of one sharded admission are "<uid>:<page-index>",
+# so a slot re-admitted into the same engine (or a second sharded slot)
+# never collides with a predecessor's leftovers.
+_LONG_UIDS = itertools.count(1)
+
+
+@dataclasses.dataclass
+class _LongSlot:
+    """A sharded long-context slot's bookkeeping: a RESIDENT paged window
+    (``req.pages``, local positions) plus ``cold`` pages demoted to the
+    KV tier. Host ``_kv_len[slot]`` stays the ABSOLUTE sequence length;
+    the resident region holds ``_kv_len[slot] - cold * page_size``
+    tokens. The DEVICE kv_len and table row of the slot are zero
+    (``_sync_tables``): the batched decode treats the slot as empty (its
+    append lands on the trash page, its logits are replaced by the
+    per-slot forward's)."""
+
+    uid: int
+    cold: int = 0           # pages demoted (tokens [0, cold*page) cold)
+    # Cached cold window: (k, v, ks, vs, bucket_pages) device tensors
+    # [L, Hkv, bucket_pages*page, hd] (scales [L, Hkv, bucket_pages]);
+    # invalidated (None) whenever another page demotes.
+    view: tuple | None = None
 
 
 @dataclasses.dataclass
@@ -229,6 +303,10 @@ class ContinuousEngine(MegaDispatch):
         max_queue: int | None = None,
         kv_dtype: str | None = None,
         cp: int = 1,
+        tier=None,
+        tier_bytes: int = 0,
+        tier_dir: str | None = None,
+        rank_page_budget: int = 0,
         mega_cfg=None,
         ns: int = 8,
         mega_buckets: bool = True,
@@ -269,6 +347,47 @@ class ContinuousEngine(MegaDispatch):
             )
         self.pps = self.max_length // page_size
         self.max_queue = max_queue
+        # rank_page_budget (TOKENS) turns over-budget slots into SHARDED
+        # slots: a resident paged window plus tier-demoted cold pages.
+        self.rank_page_budget = int(rank_page_budget)
+        if self.rank_page_budget:
+            if self.rank_page_budget % page_size:
+                raise ValueError(
+                    f"rank_page_budget {self.rank_page_budget} is not "
+                    f"a multiple of page_size {page_size}: the budget "
+                    f"is demoted page-by-page, so a ragged budget "
+                    f"would strand a partial page — pick an aligned "
+                    f"pair"
+                )
+            if self.rank_page_budget < 2 * page_size:
+                raise ValueError(
+                    f"rank_page_budget {self.rank_page_budget} must "
+                    f"cover >= 2 pages of page_size {page_size} (one "
+                    f"write page + one full page to demote)"
+                )
+            if tier is None and not (tier_bytes or tier_dir):
+                raise ValueError(
+                    "rank_page_budget requires a KV tier (tier=, "
+                    "tier_bytes= or tier_dir=): demoted cold pages "
+                    "must land somewhere a fault can bring them back "
+                    "from"
+                )
+            if mode == "mega" or speculative:
+                raise ValueError(
+                    "rank_page_budget composes with the xla/pallas "
+                    "decode paths only: sharded slots decode through "
+                    "a per-slot partial-merge program the mega/"
+                    "resident/speculative launchers do not run"
+                )
+            if round_chunk(page_size) != page_size:
+                raise ValueError(
+                    f"rank_page_budget needs a chunk-alignable "
+                    f"page_size (multiple of 16, or of 128 past 128); "
+                    f"got {page_size}"
+                )
+        self.budget_pages = self.rank_page_budget // page_size
+        # slot -> _LongSlot for slots decoding in sharded mode.
+        self._longctx: dict[int, _LongSlot] = {}
         # +1: page 0 is reserved as the trash page every inactive slot's
         # table points at, and must not shave serviceable capacity.
         n_pages = (num_pages or max_batch * self.pps) + 1
@@ -292,6 +411,24 @@ class ContinuousEngine(MegaDispatch):
         self._tok = np.zeros((max_batch,), np.int32)
         self._slots: list[Request | None] = [None] * max_batch
         self.prefix = PrefixCache(self.pool, page_size) if prefix_cache else None
+        # KV tier: a host-RAM (and optionally disk) PageStore behind the
+        # radix tree and the sharded slots' cold pages. ``tier=`` takes a
+        # pre-built (maybe shared) store; ``tier_bytes``/``tier_dir``
+        # build one this engine owns (every entry in it is its own).
+        self._tier_owned = tier is None and bool(tier_bytes or tier_dir)
+        if tier is None and (tier_bytes or tier_dir):
+            # fsync=False: spills run on the scheduling loop; the atomic
+            # rename alone gives process-crash durability.
+            tier = kv_tier.PageStore(capacity_bytes=tier_bytes or (64 << 20),
+                                     dir=tier_dir, fsync=False)
+        self.tier = tier
+        # Weight identity of the tier's entries: spilled and demoted pages
+        # are valid under THESE weights only.
+        self._tier_fp = (
+            _model_fingerprint(model) if self.tier is not None else None
+        )
+        if self.prefix is not None and self.tier is not None:
+            self.prefix.spill_fn = self._spill_page
         self.prefill_chunk = round_chunk(prefill_chunk) if prefill_chunk else 0
         # Dense batch-1 prefill scratch — only the non-prefix admission
         # path copies through it; the chunked path writes pages directly.
@@ -334,6 +471,8 @@ class ContinuousEngine(MegaDispatch):
             stats["tree_pages"] = self.prefix.node_count
         if self.speculative:
             stats.update(spec_summary(stats))
+        if self.tier is not None:
+            stats["tier"] = self.tier.snapshot()
         return stats
 
     def _bump(self, key: str, n: int = 1) -> None:
@@ -347,17 +486,32 @@ class ContinuousEngine(MegaDispatch):
 
     def _sync_tables(self) -> None:
         """Mirror the host page table and kv_len into the device cache
-        (copies, so later host edits never race a launched step)."""
+        (copies, so later host edits never race a launched step). A
+        sharded slot's row and length go to zero on the device: the
+        batched decode treats it as empty (the host keeps its resident
+        row and absolute length, which the audit and the per-slot
+        forwards read)."""
         self._free_pages_gauge.set(len(self.pool.free))
         dev = self.model.device
+        table = self._table.copy()
+        kv_len = self._kv_len.copy()
+        for slot in self._longctx:
+            table[slot] = 0
+            kv_len[slot] = 0
         self.cache = dataclasses.replace(
             self.cache,
-            page_table=torch.from_numpy(self._table.copy()).to(dev),
-            kv_len=torch.from_numpy(self._kv_len.copy()).to(dev),
+            page_table=torch.from_numpy(table).to(dev),
+            kv_len=torch.from_numpy(kv_len).to(dev),
         )
 
     def _admit(self, req: Request, slot: int, m: PrefixMatch | None = None):
         """Prefill ``req`` into ``slot``; returns the first token."""
+        if self._sharded_eligible(req):
+            if m is not None:
+                # Sharded slots never map tree pages: a match computed
+                # before routing here releases its pins.
+                self.prefix.release_match(m)
+            return self._admit_sharded(req, slot)
         if self.prefix is not None:
             return self._admit_prefix(req, slot, m)
         s = len(req.prompt)
@@ -440,6 +594,272 @@ class ContinuousEngine(MegaDispatch):
         self._bump("prefill_chunks", chunks)
         return logits
 
+    # -- sharded long-context slots ---------------------------------------
+    #
+    # With ``rank_page_budget`` set, a request whose KV needs more pages
+    # than the budget admits SHARDED: a resident paged window of at most
+    # ``budget_pages`` pages (local positions, the slot's own table row)
+    # plus cold pages demoted to the KV tier and faulted back as a
+    # read-only dense window. Prefill and decode run per-slot forwards
+    # that merge the (cold, resident) attention partials with
+    # ``lse_combine``, so the logits are what one large resident slot
+    # would compute.
+
+    def _sharded_eligible(self, req: Request) -> bool:
+        """Whether ``req`` must admit as a sharded slot: a budgeted
+        engine and a KV footprint the budget cannot hold resident."""
+        return (
+            self.budget_pages > 0
+            and self._needed_pages(len(req.prompt), req.gen_len)
+            > self.budget_pages
+        )
+
+    def _alloc_pages(self, n: int) -> list:
+        """``n`` pool pages for a sharded slot: through the radix tree's
+        reclaim path when a prefix cache is on (unpinned tree pages
+        yield, as at admission), straight from the pool otherwise."""
+        if self.prefix is not None:
+            pages = self.prefix.allocate(n)
+            if pages is None:
+                raise RuntimeError(
+                    f"page pool exhausted ({n} pages for a sharded slot)"
+                )
+            return pages
+        return self.pool.allocate(n)
+
+    def _admit_sharded(self, req: Request, slot: int):
+        """Admit an over-budget request as a SHARDED slot: chunk-prefill
+        one page at a time through ``prefill_paged_chunk_cold``, demoting
+        the oldest resident page to the KV tier whenever the resident
+        window is full, with a decode step of the running batch between
+        chunks. Returns the first token."""
+        s = len(req.prompt)
+        page = self.page_size
+        ls = _LongSlot(uid=next(_LONG_UIDS))
+        req.slot = slot  # before any allocation: teardown keys off it
+        self._longctx[slot] = ls
+        self._table[slot] = 0
+        self._kv_len[slot] = 0
+        self._sync_tables()
+        logits = None
+        off = 0
+        while off < s:
+            take = min(page, s - off)
+            kv_loc = off - ls.cold * page
+            if kv_loc == self.budget_pages * page:
+                self._demote_front(slot, ls, req)
+                kv_loc -= page
+            if kv_loc == len(req.pages) * page:
+                req.pages = req.pages + self._alloc_pages(1)
+                self._table[slot, len(req.pages) - 1] = req.pages[-1]
+            row = np.zeros(self.budget_pages, np.int32)
+            row[: len(req.pages)] = req.pages
+            k_c, v_c, ks_c, vs_c, _bucket = self._cold_view(ls)
+            buf = np.zeros(page, np.int32)
+            buf[:take] = req.prompt[off: off + take]
+            logits, self.cache = self.model.prefill_paged_chunk_cold(
+                buf, row, off, off + take, take - 1, self.cache,
+                k_c, v_c, ks_c, vs_c, s_cold=ls.cold * page,
+                mode=self._prefill_mode,
+            )
+            off += take
+            self._kv_len[slot] = off
+            if off < s and self._step_guard(self._decode_once):
+                # The running batch keeps decoding between the chunks.
+                self._sync_tables()
+        self._bump("admitted")
+        self._bump("prefill_tokens", s)
+        self._bump("prefill_chunks", -(-s // page))
+        self._bump("longctx_sharded_slots")
+        obs_events.emit("admit", slot=slot, prompt_len=s, matched=0)
+        self._slots[slot] = req
+        return self._sample_req(req, logits)
+
+    def _demote_front(self, slot: int, ls: _LongSlot, req: Request) -> None:
+        """Demote the slot's oldest (full) resident page to the KV tier:
+        its KV (and an int8 pool's scales) ship as a ``prefix_payload``
+        keyed ``<uid>:<cold-index>`` under ``LONGCTX_KIND``, the pool
+        page frees, and the cold window grows by one page. The payload's
+        chain is the page's own ``page_size`` tokens."""
+        page = self.page_size
+        pid = int(req.pages[0])
+        start = ls.cold * page
+        seq = [int(t) for t in req.prompt] + [int(t) for t in req.out]
+        k, v, ks, vs = gather_pages(self.cache, [pid])
+        payload = kv_tier.prefix_payload(
+            seq[start: start + page], page, self.kv_dtype,
+            k[:, 0], v[:, 0],
+            None if ks is None else ks[:, 0],
+            None if vs is None else vs[:, 0],
+        )
+        payload["model_fp"] = self._tier_fp
+        key = f"{ls.uid}:{ls.cold}"
+        if not self.tier.put(kv_tier.LONGCTX_KIND, key, payload):
+            raise RuntimeError(
+                f"KV tier refused cold page {key} of sharded slot {slot}"
+            )
+        self.pool.release([pid])
+        req.pages = req.pages[1:]
+        self._table[slot] = 0
+        self._table[slot, : len(req.pages)] = req.pages
+        ls.cold += 1
+        ls.view = None
+        self._bump("longctx_demoted_pages")
+        obs_events.emit("longctx_demote", slot=slot, page=pid,
+                        cold=ls.cold)
+
+    def _cold_view(self, ls: _LongSlot):
+        """The slot's cold window on the device: every demoted page
+        faulted back from the tier (``longctx_tier_faults`` counts each
+        page read) and stitched in absolute order into a power-of-two
+        page bucket (the tail past ``cold`` pages is zero and masked by
+        ``s_cold``). Cached until the next demote. Returns ``(k, v, ks,
+        vs, bucket_pages)``."""
+        page = self.page_size
+        n = ls.cold
+        bucket = 1
+        while bucket < n:
+            bucket *= 2
+        if ls.view is not None and ls.view[4] == bucket:
+            return ls.view
+        kp = self.cache.k_pages  # [L, P, Hkv, page, hd]
+        n_layers, _p, hkv, _page, hd = kp.shape
+        k_c = torch.zeros((n_layers, hkv, bucket * page, hd), dtype=kp.dtype)
+        v_c = torch.zeros_like(k_c)
+        quant = self.cache.quantized
+        ks_c = (torch.zeros((n_layers, hkv, bucket), dtype=torch.float32)
+                if quant else None)
+        vs_c = torch.zeros_like(ks_c) if quant else None
+        for i in range(n):
+            key = f"{ls.uid}:{i}"
+            payload = self.tier.get(kv_tier.LONGCTX_KIND, key)
+            if payload is None:
+                raise RuntimeError(
+                    f"cold page {key} missing from the KV tier (a "
+                    "sharded slot's cold window cannot be rebuilt)"
+                )
+            if payload.get("model_fp") != self._tier_fp:
+                raise RuntimeError(
+                    f"cold page {key} was produced under different "
+                    "model weights"
+                )
+            _chain, _ps, _dt, k1, v1, ks1, vs1 = (
+                kv_tier.decode_prefix_payload(payload)
+            )
+            k_c[:, :, i * page:(i + 1) * page, :] = k1
+            v_c[:, :, i * page:(i + 1) * page, :] = v1
+            if quant:
+                ks_c[:, :, i] = ks1
+                vs_c[:, :, i] = vs1
+            self._bump("longctx_tier_faults")
+            self._bump("longctx_tier_bytes",
+                       kv_tier.payload_nbytes(payload))
+        dev = self.model.device
+        ls.view = (
+            k_c.to(dev), v_c.to(dev),
+            None if ks_c is None else ks_c.to(dev),
+            None if vs_c is None else vs_c.to(dev),
+            bucket,
+        )
+        return ls.view
+
+    def _longctx_decode(self, logits: torch.Tensor):
+        """One sharded decode step per sharded slot, after the batched
+        step (which saw the slot as empty): append the slot's pending
+        token at its local resident position, demoting or allocating a
+        page when the append needs room, and write the per-slot forward's
+        logits over the batched row (in place) BEFORE the NaN guard and
+        the argmax read them. A failure fails only its slot. Returns
+        ``(logits, changed)``."""
+        page = self.page_size
+        changed = False
+        for slot in sorted(self._longctx):
+            ls = self._longctx.get(slot)
+            req = self._slots[slot]
+            if ls is None or req is None:
+                continue
+            try:
+                # _kv_len was already bumped for this step: rows cached
+                # before the append = _kv_len - 1, all absolute.
+                kv_loc = int(self._kv_len[slot]) - 1 - ls.cold * page
+                if kv_loc == self.budget_pages * page:
+                    self._demote_front(slot, ls, req)
+                    kv_loc -= page
+                if kv_loc == len(req.pages) * page:
+                    req.pages = req.pages + self._alloc_pages(1)
+                    self._table[slot, len(req.pages) - 1] = req.pages[-1]
+                row = np.zeros(self.budget_pages, np.int32)
+                row[: len(req.pages)] = req.pages
+                k_c, v_c, ks_c, vs_c, _bucket = self._cold_view(ls)
+                lg, self.cache = self.model.decode_step_sharded(
+                    np.asarray([self._tok[slot]], np.int32), self.cache,
+                    row, kv_loc, k_c, v_c, ks_c, vs_c,
+                    s_cold=ls.cold * page, mode=self.mode,
+                )
+                self._bump("longctx_decode_steps")
+            except Exception as e:  # noqa: BLE001 — per-slot isolation
+                self._fail(
+                    req, "failed",
+                    f"sharded decode: {type(e).__name__}: {e}",
+                )
+                changed = True
+                continue
+            logits[slot] = lg[0]
+        return logits, changed
+
+    def _drop_longctx(self, slot: int) -> None:
+        """Forget a sharded slot's bookkeeping and delete its tier
+        entries (cold pages belong to exactly ONE live request; they are
+        not a cache, and leftovers would leak tier capacity)."""
+        ls = self._longctx.pop(slot, None)
+        if ls is None:
+            return
+        for i in range(ls.cold):
+            self.tier.delete(kv_tier.LONGCTX_KIND, f"{ls.uid}:{i}")
+
+    def _audit_longctx(self) -> list[str]:
+        """Sharded-slot invariants, folded into :meth:`audit`: every
+        sharded entry has a live request, resident pages within budget,
+        a local length within the resident capacity, and every cold page
+        present in the tier; an owned tier holds no cold page of a slot
+        that is gone."""
+        problems: list[str] = []
+        page = self.page_size
+        for slot, ls in self._longctx.items():
+            req = self._slots[slot]
+            if req is None:
+                problems.append(
+                    f"longctx: slot {slot} sharded but has no request"
+                )
+                continue
+            if len(req.pages) > self.budget_pages:
+                problems.append(
+                    f"longctx: slot {slot} holds {len(req.pages)} "
+                    f"resident pages > budget {self.budget_pages}"
+                )
+            kv_loc = int(self._kv_len[slot]) - ls.cold * page
+            if not 0 <= kv_loc <= len(req.pages) * page:
+                problems.append(
+                    f"longctx: slot {slot} local kv {kv_loc} outside "
+                    f"resident capacity {len(req.pages) * page}"
+                )
+            for i in range(ls.cold):
+                key = f"{ls.uid}:{i}"
+                if not self.tier.contains(kv_tier.LONGCTX_KIND, key):
+                    problems.append(
+                        f"longctx: slot {slot} cold page {key} "
+                        "missing from the KV tier"
+                    )
+        if self.tier is not None and self._tier_owned:
+            live = {str(ls.uid) for ls in self._longctx.values()}
+            for key in self.tier.keys(kv_tier.LONGCTX_KIND):
+                if key.split(":", 1)[0] not in live:
+                    problems.append(
+                        f"longctx: stale tier entry {key} (no live "
+                        "sharded slot owns it)"
+                    )
+        return problems
+
     def _decode_once(self) -> bool:
         """One batched decode of every active slot; appends greedy tokens
         and evicts finished requests. Returns whether slot state
@@ -452,13 +872,19 @@ class ContinuousEngine(MegaDispatch):
         )
         self._kv_len = self._kv_len + active
         self._bump("decode_steps")
+        # Sharded slots were empty to the batched step: their per-slot
+        # partial-merge decode runs now and its logits replace the
+        # batched rows before the NaN guard and the argmax.
+        lc_changed = False
+        if self._longctx:
+            logits, lc_changed = self._longctx_decode(logits)
         # The finite mask and the greedy tokens come back in one fetch.
         finite = torch.isfinite(logits).all(dim=-1)
         both = torch.stack([finite.to(torch.int32), sampling.greedy(logits)])
         finite, nxt = both.cpu().numpy()
         failed = self._guard_logits(finite)
         changed = self._process(lambda slot: [nxt[slot]])
-        return changed or bool(failed)
+        return changed or bool(failed) or lc_changed
 
     def _guard_logits(self, finite: np.ndarray) -> list[int]:
         """Fail ONLY the slots whose logits went non-finite."""
@@ -498,7 +924,16 @@ class ContinuousEngine(MegaDispatch):
     def _evict(self, req: Request) -> None:
         slot = req.slot
         obs_events.emit("evict", slot=slot, tokens_out=len(req.out))
-        if self.prefix is not None:
+        if slot in self._longctx:
+            # A sharded slot's resident pages hold a LOCAL window (its
+            # cold prefix lives in the tier): useless as a prefix chain,
+            # so they go straight back to the pool, and the tier entries
+            # go with the slot.
+            req.pages = truncate_pages(
+                self.pool, req.pages, 0, self.page_size
+            )
+            self._drop_longctx(slot)
+        elif self.prefix is not None:
             self._retire_to_prefix(req)
         else:
             req.pages = truncate_pages(
@@ -534,6 +969,7 @@ class ContinuousEngine(MegaDispatch):
         Nothing is donated to the tree: a failed request's KV is
         suspect."""
         slot = req.slot
+        self._drop_longctx(slot)
         truncate_pages(
             self.pool, req.pages, 0, self.page_size,
             shared=len(req.shared_nodes),
@@ -611,6 +1047,120 @@ class ContinuousEngine(MegaDispatch):
         )
         self.prefix.retire_sequence(toks, req.pages, req.shared_nodes)
         req.shared_nodes = []
+
+    # -- KV tier: prefix spill and fault-back ------------------------------
+
+    def _spill_page(self, chain: list, page: int) -> None:
+        """``PrefixCache.spill_fn``: export one evicted full page to the
+        tier, keyed by its token-chain digest, byte-exact (an int8
+        page's codes and scales travel as a pair). Raising is fine:
+        eviction treats a failed spill as the plain drop."""
+        k, v, ks, vs = gather_pages(self.cache, [page])
+        payload = kv_tier.prefix_payload(
+            chain, self.page_size, self.kv_dtype,
+            k[:, 0], v[:, 0],
+            None if ks is None else ks[:, 0],
+            None if vs is None else vs[:, 0],
+        )
+        payload["model_fp"] = self._tier_fp
+        if self.tier.put(kv_tier.PREFIX_KIND, kv_tier.chain_digest(chain),
+                         payload):
+            self._bump("tier_spilled_pages")
+            obs_events.emit("tier_spill", tokens=len(chain), page=int(page))
+
+    def _tier_fill(self, tokens) -> None:
+        """Fault-back half of the tier: extend the radix tree's coverage
+        of ``tokens`` from the tier BEFORE admission matches. Each hit
+        page is re-allocated, written verbatim (``write_page``) and
+        grafted into the tree, where ``match()`` then pins it like any
+        cached page. Stops at the first miss, divergence or allocation
+        failure; every failure degrades to the ordinary suffix prefill,
+        never to wrong bits."""
+        if self.tier is None or self.prefix is None:
+            return
+        if not self.tier.may_contain(kv_tier.PREFIX_KIND):
+            # Nothing has ever spilled: every probe would miss.
+            return
+        ps = self.page_size
+        toks = [int(t) for t in tokens]
+        limit = len(toks) - 1  # match()'s cap: one suffix token prefills
+        node = self.prefix.root
+        i = 0
+        faulted = bytes_in = 0
+        # The walked path is refcount-PINNED for the fill: each faulted
+        # page's allocation may run the LRU eviction, which would
+        # otherwise evict (and re-spill) the nodes this prompt is about
+        # to match. The pins are released before match() takes its own.
+        pinned: list = []
+        try:
+            while i + ps <= limit:
+                chunk = toks[i:i + ps]
+                child = node.children.get(chunk[0])
+                if child is not None:
+                    if tuple(chunk) == child.chunk:
+                        node = child
+                        node.refcount += 1
+                        pinned.append(node)
+                        i += ps
+                        continue
+                    break  # divergent/partial sibling: the tree wins
+                digest = kv_tier.chain_digest(toks[: i + ps])
+                payload = self.tier.get(kv_tier.PREFIX_KIND, digest)
+                if payload is None:
+                    break
+                try:
+                    chain, page_size, kv_dtype, k, v, ks, vs = (
+                        kv_tier.decode_prefix_payload(payload)
+                    )
+                except kv_tier.TierIntegrityError:
+                    self.tier.delete(kv_tier.PREFIX_KIND, digest)
+                    break
+                if (chain != toks[: i + ps] or page_size != ps
+                        or kv_dtype != self.kv_dtype
+                        or payload.get("model_fp") != self._tier_fp):
+                    # A digest collision, a foreign geometry, or a page
+                    # of DIFFERENT weights: never fault it back. Deleting
+                    # is owner-only: on a shared store the entry may be
+                    # valid for the engine that spilled it.
+                    if self._tier_owned:
+                        self.tier.delete(kv_tier.PREFIX_KIND, digest)
+                    obs_events.emit(
+                        "tier_drop", tier_kind=kv_tier.PREFIX_KIND,
+                        key=digest[:64],
+                        reason="chain/geometry/weights mismatch",
+                    )
+                    break
+                pages = self.prefix.allocate(1)
+                if pages is None:
+                    break
+                try:
+                    self.cache = write_page(
+                        self.cache, pages[0], k, v, ks, vs
+                    )
+                except (ValueError, RuntimeError):  # degrade to re-prefill
+                    self.pool.release(pages)
+                    if self._tier_owned:
+                        self.tier.delete(kv_tier.PREFIX_KIND, digest)
+                    break
+                self.prefix.insert_chain(node, chunk, pages)
+                child = node.children.get(chunk[0])
+                if child is None or child.page != pages[0]:
+                    break  # insert declined (raced sibling) — released
+                node = child
+                node.refcount += 1
+                pinned.append(node)
+                i += ps
+                faulted += 1
+                bytes_in += kv_tier.payload_nbytes(payload)
+        finally:
+            for n in pinned:
+                self.prefix.release_node(n)
+        if faulted:
+            self._bump("tier_hits")
+            self._bump("tier_faults", faulted)
+            self._bump("tier_bytes", bytes_in)
+            obs_events.emit("tier_fault", pages=faulted, bytes=bytes_in,
+                            matched_tokens=i)
 
     def _sample_req(self, req: Request, logits: torch.Tensor) -> int:
         """The greedy first token from an admission's ``logits [V]``."""
@@ -806,8 +1356,12 @@ class ContinuousEngine(MegaDispatch):
         if self.prefix is None:
             return None
         hist = [int(t) for t in req.prompt] + [int(t) for t in req.out]
+        tier_chains = None
+        if (self.tier is not None
+                and self.tier.may_contain(kv_tier.PREFIX_KIND)):
+            tier_chains = self.tier.resident_chains()
         paths = self.prefix.propose_continuations(
-            hist, width=req.spec.width, depth=k)
+            hist, width=req.spec.width, depth=k, tier_chains=tier_chains)
         ngram = req.spec.propose(k)
         if ngram:
             paths.append(ngram)
@@ -920,7 +1474,24 @@ class ContinuousEngine(MegaDispatch):
                     break
                 need = self._needed_pages(len(head.prompt), head.gen_len)
                 m = None
-                if self.prefix is not None:
+                if self._sharded_eligible(head):
+                    # A sharded slot holds at most the resident budget;
+                    # the rest of its KV lives in the tier.
+                    need = self.budget_pages
+                    avail = len(self.pool.free) + (
+                        self.prefix.reclaimable_pages()
+                        if self.prefix is not None else 0
+                    )
+                    if need > avail:
+                        self._bump("admission_stalls")
+                        progress = False
+                        break  # head-of-line waits for budget pages
+                elif self.prefix is not None:
+                    if self.tier is not None:
+                        # Pull tier-resident pages of this prompt back
+                        # into the tree BEFORE the match, so a spilled
+                        # prefix re-maps instead of re-prefilling.
+                        self._tier_fill(head.prompt)
                     m = self.prefix.match(head.prompt)
                     avail = (
                         len(self.pool.free)
@@ -1003,6 +1574,9 @@ class ContinuousEngine(MegaDispatch):
                 self._fail(r, "unservable", msg)
                 continue
             need = self._needed_pages(len(r.prompt), r.gen_len)
+            if self._sharded_eligible(r):
+                # A sharded admission holds only the resident budget.
+                need = self.budget_pages
             if need > self._capacity:
                 msg = (
                     f"request needs {need} pages; "
@@ -1067,11 +1641,37 @@ class ContinuousEngine(MegaDispatch):
             raise RequestFailedError(failures)
         return [np.asarray(r.out, np.int32) for r in reqs]
 
+    def _audit_tier(self) -> list[str]:
+        """Tier cross-check, run by :meth:`audit` when a tier is
+        attached: for every full tree page whose chain also has a tier
+        entry, that entry's chain must equal the node's (a mismatch
+        means a later fault-back would map wrong KV under this
+        prompt)."""
+        problems: list[str] = []
+        for node in self.prefix.walk() if self.prefix is not None else ():
+            if len(node.chunk) != self.page_size:
+                continue
+            chain = [int(t) for t in node_chain(node)]
+            entry = self.tier.peek(
+                kv_tier.PREFIX_KIND, kv_tier.chain_digest(chain)
+            )
+            if entry is None:
+                continue
+            if [int(t) for t in entry.get("chain", [])] != chain:
+                problems.append(
+                    f"tier entry for tree page {node.page} carries a "
+                    "different token chain than the node"
+                )
+        return problems
+
     def audit(self, *, raise_on_violation: bool = False) -> list[str]:
         """Pool/radix invariant audit: free list ∪ slot-private pages ∪
         tree pages ∪ trash page partition the pool exactly; shared
         mappings target live tree pages; tree refcounts equal live slot
-        references; host table rows mirror each request's page list."""
+        references; host table rows mirror each request's page list
+        (a sharded slot's: its resident pages). With a tier, the tier's
+        own audit and the tree/tier chain cross-check; the sharded
+        slots' invariants."""
         problems: list[str] = []
         owners: dict[str, list[int]] = {}
         shared: dict[str, list[int]] = {}
@@ -1097,6 +1697,10 @@ class ContinuousEngine(MegaDispatch):
                         f"tree node page {node.page}: refcount "
                         f"{node.refcount} != {live} live slot references"
                     )
+        if self.tier is not None:
+            problems += [f"tier: {p}" for p in self.tier.audit()]
+            problems += self._audit_tier()
+        problems += self._audit_longctx()
         problems += audit_pool(
             self.pool, self.pool.num_pages, owners, shared=shared,
             reserved=(0,),

@@ -9,10 +9,11 @@ matched page, and prefills only the suffix. Unreferenced leaves are
 evicted in LRU order when the pool runs short.
 
 :meth:`PrefixCache.propose_continuations` reads the draft branches of
-tree speculation from the tree. Not ported yet: the durable-tier spill
-hook (and so the tier's ``tier_chains`` to that method) and the routing
-helpers ``prefix_digest``/``digest_match_len`` — ROADMAP queue 1, items
-7 and 9.
+tree speculation from the tree (and from the KV tier's chains). With
+a KV tier attached, eviction offers every full victim page to
+``spill_fn`` before releasing it (``ContinuousEngine`` installs its
+``_spill_page``). Not ported yet: the routing helpers
+``prefix_digest``/``digest_match_len`` (ROADMAP queue 1, item 9).
 """
 
 from __future__ import annotations
@@ -24,6 +25,21 @@ from typing import Iterable
 
 from triton_distributed_tpu_torch.obs import events as obs_events
 from triton_distributed_tpu_torch.obs import metrics as obs_metrics
+
+
+def node_chain(node: "RadixNode") -> list[int]:
+    """The full token chain from the root through ``node``'s own chunk —
+    the identity a spilled page is keyed by in the KV tier
+    (``kv_tier.chain_digest``). Walks parent links, so it must run
+    BEFORE eviction detaches the node."""
+    chunks = []
+    while node is not None and node.chunk:
+        chunks.append(node.chunk)
+        node = node.parent
+    out: list[int] = []
+    for c in reversed(chunks):
+        out.extend(c)
+    return out
 
 
 def round_chunk(n: int) -> int:
@@ -87,6 +103,11 @@ class PrefixCache:
         self.page_size = page_size
         self.root = RadixNode((), -1, None)
         self._clock = 0
+        # KV tier hook: when set, eviction offers every full victim page
+        # — ``spill_fn(chain, page_id)`` — BEFORE releasing it, so
+        # "evicted" means "demoted to host RAM/disk". Best-effort: a
+        # failed spill falls back to the plain drop.
+        self.spill_fn = None
         PrefixCache._live.add(self)
         self.node_count = 0  # == pages held by the tree
         self.stats = {
@@ -309,6 +330,14 @@ class PrefixCache:
             if (victim.parent is None or victim.children
                     or victim.refcount):
                 continue  # stale heap entry
+            if (self.spill_fn is not None
+                    and len(victim.chunk) == self.page_size):
+                # Full pages only: fault-back re-maps whole tree pages. The
+                # chain is read before the detach below severs the links.
+                try:
+                    self.spill_fn(node_chain(victim), victim.page)
+                except Exception:  # noqa: BLE001 — spill is best-effort
+                    obs_events.emit("tier_spill_failed", page=victim.page)
             parent = victim.parent
             del parent.children[victim.chunk[0]]
             victim.parent = None
@@ -435,24 +464,38 @@ class PrefixCache:
         Pure read: no pins, no LRU touch, no stats. The walk needs the
         FULL history cached token for token; any mismatch, or the cache
         ending before the history does, returns no paths. Branches are
-        explored most recently used first. ``tier_chains`` (the KV
-        tier's chains) must be None: the tier is not ported."""
-        if tier_chains is not None:
-            raise NotImplementedError(
-                "tier_chains needs the KV tier, which is not ported yet "
-                "(ROADMAP queue 1, item 7)"
-            )
+        explored most recently used first.
+
+        ``tier_chains`` (``PageStore.resident_chains``) adds the KV tier's
+        RAM-resident chains: continuations whose pages left the tree but
+        whose tokens survive in the spill payloads, found by a flat
+        prefix scan after the tree's paths."""
         toks = [int(t) for t in tokens]
         width = max(int(width), 0)
         depth = max(int(depth), 0)
         out: list[list[int]] = []
-        if not (depth and width):
-            return out
+        if depth and width:
+            self._tree_continuations(toks, width, depth, out)
+        if tier_chains:
+            hits = 0
+            for chain in tier_chains:
+                if hits >= width:
+                    break
+                if len(chain) > len(toks) and chain[:len(toks)] == toks:
+                    out.append(
+                        [int(t) for t in chain[len(toks):len(toks) + depth]]
+                    )
+                    hits += 1
+        return out
+
+    def _tree_continuations(self, toks: list[int], width: int, depth: int,
+                            out: list) -> None:
+        """The radix paths of :meth:`propose_continuations`, into ``out``."""
         node, stem, i = self.root, [], 0
         while i < len(toks):
             child = node.children.get(toks[i])
             if child is None:
-                return out
+                return
             lcp = 0
             for a, b in zip(child.chunk, toks[i:i + len(child.chunk)]):
                 if a != b:
@@ -460,14 +503,14 @@ class PrefixCache:
                 lcp += 1
             if lcp < len(child.chunk):
                 if i + lcp != len(toks):
-                    return out  # diverged mid-chunk: another prefix
+                    return  # diverged mid-chunk: another prefix
                 # The history ends inside this chunk: the chunk's tail is
                 # the (single) stem, then the subtree below it.
                 stem = [int(t) for t in child.chunk[lcp:]]
                 node = child
                 break
             if len(child.chunk) < self.page_size and i + lcp < len(toks):
-                return out  # a partial leaf the history runs past
+                return  # a partial leaf the history runs past
             node = child
             i += lcp
 
@@ -484,4 +527,3 @@ class PrefixCache:
                     return
 
         descend(node, stem)
-        return out

@@ -5,8 +5,9 @@ forward (embed → per layer [RMSNorm → attention → residual → RMSNorm →
 SwiGLU MLP → residual] → RMSNorm → LM head), the same parameter layout
 and the same entry points: ``prefill_batched``,
 ``prefill_paged_chunk`` and ``decode_step`` over a dense
-:class:`KVCache` or a :class:`PagedKVCache`. The JAX ``lax.scan`` over
-stacked layers is a Python loop over the layers; the jitted, donated
+:class:`KVCache` or a :class:`PagedKVCache`, and the sharded long-context
+slot's ``prefill_paged_chunk_cold`` and ``decode_step_sharded``. The JAX
+``lax.scan`` over stacked layers is a Python loop over the layers; the jitted, donated
 programs are eager calls that write the cache in place and return it.
 
 Parameters are a dict mirroring the JAX ``Qwen3Params`` tree, leaves
@@ -27,10 +28,13 @@ import torch.nn.functional as F
 
 from triton_distributed_tpu_torch.layers.tp_attn import (
     TPAttnDims,
+    cold_mask,
     tp_attn_decode,
     tp_attn_decode_paged,
+    tp_attn_decode_sharded,
     tp_attn_prefill,
     tp_attn_prefill_paged_chunk,
+    tp_attn_prefill_paged_chunk_cold,
 )
 from triton_distributed_tpu_torch.layers.tp_mlp import check_mode, tp_mlp_fwd
 from triton_distributed_tpu_torch.models.config import ModelConfig
@@ -285,6 +289,82 @@ class Qwen3:
         kv_len[int(slot)] = int(new_len)
         return logits, dataclasses.replace(cache, kv_len=kv_len)
 
+    # -- sharded long-context slots ------------------------------------------
+    #
+    # A slot whose KV exceeds the per-rank page budget splits into a
+    # RESIDENT paged window (local positions, its own explicit
+    # ``table_row``: the slot's pages are not in the batched table) and a
+    # COLD dense window of tier-demoted pages (pool dtype + per-page
+    # scales, read-only, ``[L, Hkv, S_bucket, hd]``). Both forwards merge
+    # the two attention partials with ``lse_combine``; neither touches the
+    # batched ``kv_len``/``page_table``.
+
+    def prefill_paged_chunk_cold(
+        self,
+        tokens,          # [C] int32 — one (padded) chunk
+        table_row,       # [budget_pages] int32 — the slot's resident row
+        q_offset: int,   # absolute chunk start
+        q_end: int,      # absolute end of the REAL rows
+        last_idx: int,
+        cache: PagedKVCache,
+        k_cold, v_cold,  # [L, Hkv, S_bucket, hd] pool-dtype cold window
+        ks_cold=None, vs_cold=None,  # [L, Hkv, S_bucket/page] f32
+        s_cold: int = 0,             # valid cold tokens (<= S_bucket)
+        mode: str = "xla",
+    ):
+        """Chunk-prefill a sharded slot: K/V rows land at LOCAL resident
+        positions through ``table_row`` (written in place) and every
+        layer's attention adds the cold-window partial. Returns
+        ``(logits [V] at last_idx, cache)``."""
+        check_mode(mode)
+        table_row = torch.as_tensor(np.asarray(table_row, np.int32)).to(
+            self.device)
+        x = self._embed(np.asarray(tokens))
+        bias = cold_mask(x.shape[0], k_cold.shape[2], s_cold, self.device)
+        for i, lyr in enumerate(self._layers):
+            def attn(h, i=i, lyr=lyr):
+                return tp_attn_prefill_paged_chunk_cold(
+                    lyr["attn"], h, cache.k_pages[i], cache.v_pages[i],
+                    table_row, k_cold[i], v_cold[i], s_cold, q_offset,
+                    self.dims, q_end=int(q_end), cold_bias=bias,
+                    **_layer_scales(cache, i),
+                    **_cold_scales(ks_cold, vs_cold, i),
+                )[0]
+            x = self._block(x, lyr, attn)
+        x = rms_norm(x, self.params["norm"], self.cfg.rms_eps)
+        last = int(last_idx)
+        return self._logits(x[last : last + 1])[0], cache
+
+    def decode_step_sharded(
+        self,
+        token,           # [1] int32 — the slot's new token
+        cache: PagedKVCache,
+        table_row,       # [budget_pages] int32
+        kv_len_loc: int,  # tokens in the resident region
+        k_cold, v_cold,  # [L, Hkv, S_bucket, hd] pool-dtype cold window
+        ks_cold=None, vs_cold=None,
+        s_cold: int = 0,
+        mode: str = "xla",
+    ):
+        """One decode step of one sharded slot: resident paged partial
+        plus cold dense partial, merged. Returns ``(logits [1, V],
+        cache)``; the pool is written in place."""
+        check_mode(mode)
+        table_row = torch.as_tensor(np.asarray(table_row, np.int32)).to(
+            self.device)
+        x = self._embed(np.asarray(token))
+        for i, lyr in enumerate(self._layers):
+            def attn(h, i=i, lyr=lyr):
+                return tp_attn_decode_sharded(
+                    lyr["attn"], h, cache.k_pages[i], cache.v_pages[i],
+                    table_row, kv_len_loc, k_cold[i], v_cold[i], s_cold,
+                    self.dims, **_layer_scales(cache, i),
+                    **_cold_scales(ks_cold, vs_cold, i),
+                )[0]
+            x = self._block(x, lyr, attn)
+        x = rms_norm(x, self.params["norm"], self.cfg.rms_eps)
+        return self._logits(x), cache
+
     def new_cache(self, batch_size: int,
                   max_length: int | None = None) -> KVCache:
         return init_cache(self.cfg, batch_size, self.device, max_length)
@@ -312,6 +392,14 @@ def _layer_scales(cache: PagedKVCache, i: int) -> dict:
     if not cache.quantized:
         return {}
     return {"k_scale": cache.k_scale[i], "v_scale": cache.v_scale[i]}
+
+
+def _cold_scales(ks_cold, vs_cold, i: int) -> dict:
+    """Layer ``i``'s cold-window scales as attention kwargs (empty for a
+    full-width window)."""
+    if ks_cold is None:
+        return {}
+    return {"ks_cold": ks_cold[i], "vs_cold": vs_cold[i]}
 
 
 def _fuse(parts) -> np.ndarray:

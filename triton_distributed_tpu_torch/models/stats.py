@@ -106,6 +106,39 @@ STAT_METRICS = {
     "mega_bucket_launches": ("tdt_mega_bucket_launches_total",
                              "Mega launches served by a batch-bucket "
                              "program narrower than max_batch."),
+    # KV tier: radix evictions spilled to host RAM/disk instead of
+    # dropped, and admissions whose prefix coverage was extended by
+    # faulting those pages back instead of re-prefilling them.
+    "tier_spilled_pages": ("tdt_tier_spilled_pages_total",
+                           "Evicted radix pages exported to the KV "
+                           "tier instead of dropped."),
+    "tier_hits": ("tdt_tier_hits_total",
+                  "Admissions whose prefix coverage was extended by "
+                  "the KV tier (≥1 page faulted back)."),
+    "tier_faults": ("tdt_tier_faulted_pages_total",
+                    "Pages faulted back from the KV tier into HBM "
+                    "(written via write_page, mapped as tree pages)."),
+    "tier_bytes": ("tdt_tier_bytes_faulted_total",
+                   "Payload bytes faulted back from the KV tier."),
+    # Long-context sharded slots: a slot whose KV exceeds the per-rank
+    # page budget keeps a resident paged window plus tier-backed cold
+    # pages, merged by a log-sum-exp partial combine each step.
+    "longctx_sharded_slots": ("tdt_longctx_sharded_slots_total",
+                              "Slots admitted in sharded (over-budget) "
+                              "long-context mode."),
+    "longctx_demoted_pages": ("tdt_longctx_demoted_pages_total",
+                              "Cold KV pages of live long slots "
+                              "demoted to the KV tier."),
+    "longctx_tier_faults": ("tdt_longctx_tier_faults_total",
+                            "Cold pages faulted back from the KV tier "
+                            "to rebuild a long slot's attention "
+                            "window."),
+    "longctx_tier_bytes": ("tdt_longctx_tier_bytes_total",
+                           "Payload bytes faulted back for long-slot "
+                           "cold windows."),
+    "longctx_decode_steps": ("tdt_longctx_decode_steps_total",
+                             "Per-slot sharded decode programs run "
+                             "(cold + resident partial merge)."),
 }
 
 # Extra registry names of the SAME counter as a STAT_METRICS entry (the

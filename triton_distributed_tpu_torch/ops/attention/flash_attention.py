@@ -5,9 +5,7 @@ same layout (``q [B, Hq, Sq, D]``, ``k/v [B, Hkv, Sk, D]``), the same
 ``kv_offset`` (absolute position of ``q[..., 0, :]`` in the kv sequence)
 and the same optional base-e LSE. On a CUDA tensor :func:`flash_attention`
 launches the hand-written kernel (``csrc/flash_attention.cu``) or raises;
-on a CPU tensor it runs :func:`mha_reference`, the plain version. Only
-causal attention is taken (every caller on the serving path is causal);
-``causal`` stays in the signature to keep the JAX call sites.
+on a CPU tensor it runs :func:`mha_reference`, the plain version.
 
 With ``k_scale``/``v_scale`` the K/V operands are int8 codes with one
 f32 scale per ``block_k`` keys per kv head (the chunk-prefill path over
@@ -18,9 +16,15 @@ scales repeated ``block_k`` times, as the JAX portable path does.
 With ``bias`` (``[Sq, Sk]`` f32, shared by every batch row and head) the
 scaled scores get the bias added before the causal mask: the draft-tree
 ancestor mask of a speculative tree verify (0 visible, -1e30 masked).
-The kernel is ``flash_attention_bias``. A bias together with int8
-scales, and ``causal=False``, are the long-context cold partial's
-(ROADMAP queue 2) and raise ``NotImplementedError``.
+The kernel is ``flash_attention_bias``.
+
+``causal=False`` (every row sees every column below ``Sk``; ``kv_offset``
+is ignored) is the cold partial of a sharded long-context slot's prefill
+chunk: the cold window's bias masks the bucket's tail past ``s_cold``.
+The kernels are ``flash_attention_cold`` (model-dtype K/V) and
+``flash_attention_cold_int8`` (int8 codes + scales), each with or
+without a bias. A causal call with both a bias and int8 scales is on no
+serving path: on a CUDA tensor it raises ``ValueError``.
 """
 
 from __future__ import annotations
@@ -51,8 +55,6 @@ def flash_attention(
     f32 when ``return_lse``. ``Sq``/``Sk`` need not be tile multiples.
     ``block_k`` is the scale granularity of int8 K/V (keys per scale);
     the kernel's own tiling does not depend on it."""
-    if not causal:
-        raise NotImplementedError("flash_attention: only causal=True")
     b, hq, sq, d = q.shape
     _, hkv, sk, _ = k.shape
     if hq % hkv:
@@ -73,22 +75,17 @@ def flash_attention(
                 f"{name} shape {tuple(sc.shape)} != per-block layout "
                 f"{(b, hkv, sk // block_k)} (block_k={block_k})"
             )
-    if bias is not None:
-        if tuple(bias.shape) != (sq, sk):
-            raise ValueError(f"bias shape {tuple(bias.shape)} != {(sq, sk)}")
-        if quant:
-            raise NotImplementedError(
-                "flash_attention: bias with int8 scales (the long-context "
-                "cold partial) is not ported yet (ROADMAP queue 2)"
-            )
+    if bias is not None and tuple(bias.shape) != (sq, sk):
+        raise ValueError(f"bias shape {tuple(bias.shape)} != {(sq, sk)}")
     if q.device.type == "cpu":
         if quant:
             k = k.to(torch.float32) * k_scale.repeat_interleave(
                 block_k, dim=-1)[..., None]
             v = v.to(torch.float32) * v_scale.repeat_interleave(
                 block_k, dim=-1)[..., None]
-        return mha_reference(q, k, v, sm_scale=sm_scale, kv_offset=kv_offset,
-                             return_lse=return_lse, bias=bias)
+        return mha_reference(q, k, v, causal=causal, sm_scale=sm_scale,
+                             kv_offset=kv_offset, return_lse=return_lse,
+                             bias=bias)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")
     if q.dtype not in ck.DTYPE_CODES:
@@ -109,11 +106,28 @@ def flash_attention(
         raise ValueError(f"head_dim {d} not in {HEAD_DIMS}")
     if min(b, hq, sq, sk) < 1 or kv_offset < 0:
         raise ValueError("flash_attention: empty shape or negative kv_offset")
+    if causal and quant and bias is not None:
+        raise ValueError("flash_attention: a causal call takes a bias or "
+                         "int8 scales, not both")
     o = torch.empty_like(q)
     lse = (torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
            if return_lse else None)
     lse_ptr = None if lse is None else lse.data_ptr()
-    if quant:
+    bias_ptr = None if bias is None else bias.data_ptr()
+    if not causal and quant:
+        ck.FLASH_ATTENTION_COLD_INT8(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), k_scale.data_ptr(),
+            v_scale.data_ptr(), bias_ptr, o.data_ptr(), lse_ptr,
+            b, hq, hkv, sq, sk, d, block_k, float(sm_scale),
+            ck.DTYPE_CODES[q.dtype], ck.stream_ptr(q),
+        )
+    elif not causal:
+        ck.FLASH_ATTENTION_COLD(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), bias_ptr, o.data_ptr(),
+            lse_ptr, b, hq, hkv, sq, sk, d, float(sm_scale),
+            ck.DTYPE_CODES[q.dtype], ck.stream_ptr(q),
+        )
+    elif quant:
         ck.FLASH_ATTENTION_INT8(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), k_scale.data_ptr(),
             v_scale.data_ptr(), o.data_ptr(), lse_ptr,
@@ -141,7 +155,7 @@ def mha_reference(
 ):
     """Plain attention in f32 (full softmax, no tiling): the plain version
     of :func:`flash_attention`, ``bias [Sq, Sk]`` added to the scaled
-    scores before the causal mask."""
+    scores before the causal mask (no mask when ``causal`` is False)."""
     b, hq, sq, d = q.shape
     _, hkv, sk, _ = k.shape
     if sm_scale is None:
@@ -156,7 +170,10 @@ def mha_reference(
         cols = torch.arange(sk, device=q.device)[None, :]
         s = torch.where(cols <= rows, s, torch.full_like(s, _NEG_INF))
     lse = torch.logsumexp(s, dim=-1)
-    p = torch.exp(s - lse[..., None])
+    # softmax subtracts the row max before exp: a row whose scores are
+    # all -1e30 (a fully masked cold partial) averages V, as the kernels
+    # do, where exp(s - lse) would lose log(Sk) against 1e30 and sum it.
+    p = torch.softmax(s, dim=-1)
     o = torch.einsum("bhqk,bhkd->bhqd", p, v).to(q.dtype)
     if return_lse:
         return o, lse

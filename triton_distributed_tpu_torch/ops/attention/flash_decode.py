@@ -12,8 +12,14 @@ merges them with :func:`lse_combine`'s arithmetic in a second kernel.
 :func:`paged_flash_decode` with ``k_scale``/``v_scale`` reads an int8
 pool (``paged_flash_decode_int8``: per-page scales folded in after QK^T
 and after P·V); its plain version dequantizes through the table with
-:func:`scales_to_dense`. The dense int8 decode and the distributed
-combine are later slices (ROADMAP queues 1 and 2).
+:func:`scales_to_dense`. :func:`flash_decode` with ``k_scale``/``v_scale``
+reads int8 codes with one scale per ``chunk_k`` keys per kv head
+(``flash_decode_int8``: the cold partial of a sharded long-context
+slot's decode over an int8 pool); its plain version dequantizes with the
+scales repeated ``chunk_k`` times. A sequence with ``kv_len <= 0``
+attends nothing: O = 0 and LSE ~ -1e30 (weight 0 in
+:func:`lse_combine`), as the TPU kernel's skipped chunks give. The
+distributed combine is a later slice (ROADMAP queue 2).
 """
 
 from __future__ import annotations
@@ -103,10 +109,13 @@ def flash_decode(
     sm_scale: float | None = None,
     chunk_k: int = 256,
     return_lse: bool = False,
+    k_scale: torch.Tensor | None = None,  # [B, Hkv, S/chunk_k] f32
+    v_scale: torch.Tensor | None = None,
 ):
     """Single-token GQA decode attention over a (padded) dense cache.
     Returns ``o [B, Hq, D]`` (q.dtype) and, with ``return_lse``,
-    ``lse [B, Hq]`` f32."""
+    ``lse [B, Hq]`` f32. With ``k_scale``/``v_scale`` the caches hold
+    int8 codes and each ``chunk_k`` block of keys has its own scale."""
     b, hq, d = q.shape
     _, hkv, s, _ = k_cache.shape
     if hq % hkv:
@@ -116,19 +125,38 @@ def flash_decode(
     chunk_k = min(chunk_k, s)
     if s % chunk_k:
         raise ValueError(f"cache len {s} not divisible by chunk_k {chunk_k}")
+    quant = k_scale is not None
+    if quant != (v_scale is not None):
+        raise ValueError("k_scale and v_scale must be passed together")
+    for name, sc in (("k_scale", k_scale), ("v_scale", v_scale)):
+        if quant and tuple(sc.shape) != (b, hkv, s // chunk_k):
+            raise ValueError(
+                f"{name} shape {tuple(sc.shape)} != per-chunk layout "
+                f"{(b, hkv, s // chunk_k)} (chunk_k={chunk_k})"
+            )
     kv_len = _as_lengths(kv_len, b, q.device)
     if q.device.type == "cpu":
+        if quant:
+            k_cache = k_cache.to(torch.float32) * k_scale.repeat_interleave(
+                chunk_k, dim=-1)[..., None]
+            v_cache = v_cache.to(torch.float32) * v_scale.repeat_interleave(
+                chunk_k, dim=-1)[..., None]
         return gqa_decode_reference(q, k_cache, v_cache, kv_len,
                                     sm_scale=sm_scale, return_lse=return_lse)
     if q.device.type != "cuda":
         raise ValueError(f"flash_decode: unsupported device {q.device}")
     _check_decode_operands("flash_decode", q, k_cache, v_cache, kv_len,
-                           chunk_k)
+                           chunk_k, kv_dtype=torch.int8 if quant else None)
     o, lse, o_part, lse_part = _decode_buffers(q, hkv, s // chunk_k,
                                                return_lse)
-    ck.FLASH_DECODE(
-        q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-        kv_len.data_ptr(), o.data_ptr(),
+    ptrs = [q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr()]
+    if quant:
+        for name, sc in (("k_scale", k_scale), ("v_scale", v_scale)):
+            ck.check_cuda_operand(name, sc, q.device, torch.float32, 3)
+        ptrs += [k_scale.data_ptr(), v_scale.data_ptr()]
+    kernel = ck.FLASH_DECODE_INT8 if quant else ck.FLASH_DECODE
+    kernel(
+        *ptrs, kv_len.data_ptr(), o.data_ptr(),
         None if lse is None else lse.data_ptr(),
         o_part.data_ptr(), lse_part.data_ptr(),
         b, hkv, hq // hkv, d, chunk_k, s // chunk_k, float(sm_scale),
@@ -234,7 +262,9 @@ def gqa_decode_reference(
     q, k_cache, v_cache, kv_len, *, sm_scale=None, return_lse=False
 ):
     """Plain decode attention in f32 over a dense cache: the plain
-    version of both decode kernels."""
+    version of every decode kernel. A row with ``kv_len <= 0`` attends
+    nothing and gets O = 0 (its LSE stays the all-masked ~-1e30), the
+    kernels' and the TPU kernel's result for an empty context."""
     b, hq, d = q.shape
     _, hkv, s, _ = k_cache.shape
     if sm_scale is None:
@@ -247,7 +277,9 @@ def gqa_decode_reference(
                                                                      None]
     s_ = torch.where(mask, s_, torch.full_like(s_, _NEG_INF))
     p = torch.softmax(s_, dim=-1)
-    o = torch.einsum("bhk,bhkd->bhd", p, v).to(q.dtype)
+    o = torch.einsum("bhk,bhkd->bhd", p, v)
+    o = torch.where((kv_len > 0)[:, None, None], o,
+                    torch.zeros_like(o)).to(q.dtype)
     if return_lse:
         return o, torch.logsumexp(s_, dim=-1)
     return o

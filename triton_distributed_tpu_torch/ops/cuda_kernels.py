@@ -177,6 +177,24 @@ PAGED_FLASH_DECODE_INT8 = CudaKernel(
     [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,
      _I, _P],
 )
+# The long-context cold partials: non-causal flash attention over the cold
+# window with the s_cold bias (model dtype, and int8 codes + scales), and
+# the dense decode over int8 codes with one scale per chunk.
+FLASH_ATTENTION_COLD = CudaKernel(
+    "flash_attention_cold", "flash_attention", "tdt_flash_attention_cold_fwd",
+    [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P],
+)
+FLASH_ATTENTION_COLD_INT8 = CudaKernel(
+    "flash_attention_cold_int8", "flash_attention",
+    "tdt_flash_attention_cold_int8_fwd",
+    [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I,
+     _P],
+)
+FLASH_DECODE_INT8 = CudaKernel(
+    "flash_decode_int8", "flash_decode", "tdt_flash_decode_int8",
+    [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I,
+     _P],
+)
 # The decode megakernel: host arrays of the operand pointers and the
 # geometry ints, the RMS epsilon, the softmax scale, an int[4] that
 # receives the launch geometry, and the stream
@@ -187,7 +205,8 @@ MEGA_DECODE = CudaKernel(
 )
 KERNELS = (FLASH_ATTENTION, FLASH_DECODE, PAGED_FLASH_DECODE,
            FLASH_ATTENTION_INT8, PAGED_FLASH_DECODE_INT8,
-           FLASH_ATTENTION_BIAS, MEGA_DECODE)
+           FLASH_ATTENTION_BIAS, MEGA_DECODE, FLASH_ATTENTION_COLD,
+           FLASH_ATTENTION_COLD_INT8, FLASH_DECODE_INT8)
 
 
 def reset_launch_counts() -> None:
