@@ -22,15 +22,23 @@ prefix_cache=True, speculative=4, spec_width=4)`` serving the same 4
 prompts as one batch, twice; then the megakernel (``mode="mega"``):
 ``Engine(paged=False, mode="mega")`` serving the 2 rows with ``ns=8``
 and ``ContinuousEngine(mode="mega", prefix_cache=True)`` serving the 8
-shared-prefix requests with an ``eos_id``. Before the serving paths the
-decode megakernel is held against its plain version at Qwen3-0.6B's full
-width and depth (B=4, kv_len {700, 2040, 700, 2040}, dense and paged, NS
-1 and 8), with a negative control (the plain version with the last layer
-skipped must break the limit), and timed beside the ``mode="xla"`` decode
-step at the same shape. The generated tokens are checked by teacher forcing
-through a plain full-sequence forward, the pool audit must be clean,
-and each serving path must have launched its own kernels: the launch
-counts are set to 0 just before each path and read just after it.
+shared-prefix requests with an ``eos_id``, the same over an int8 pool
+(``kv_dtype="int8"``), and ``Engine(paged=True, kv_dtype="int8",
+mode="mega", mega_cfg=MegaConfig(wq8=True))`` serving the 2 rows from
+int8 weights. Before the serving paths the decode megakernel is held
+against its plain version at Qwen3-0.6B's full width and depth (B=4,
+kv_len {700, 2040, 700, 2040}, NS 1 and 8; dense and paged caches, the
+int8 pool, int8 weights over the paged pool and over the int8 pool),
+each with a negative control that must break the limit (the plain
+version with the last layer skipped, with the K and V scale planes
+swapped, or with the qkv scales set to 1), and timed beside the
+``mode="xla"`` decode steps at the same shape (bf16 and int8 pools).
+The generated tokens are checked by teacher forcing through a plain
+full-sequence forward (for the int8-weight path, a forward whose decode
+weights are the dequantized int8 weights, over the prompt's K/V from
+the model's own), the pool audit must be clean, and each serving path
+must have launched its own kernels: the launch counts are set to 0 just
+before each path and read just after it.
 
 Output: the card's name and power limit, per-phase lines, one
 ``{"kernels": [...]}`` JSON line, one ``{"e2e": ...}`` JSON line, and as
@@ -123,6 +131,12 @@ PATH_KERNELS = {
     # between-chunk steps included, through the one decode megakernel.
     "dense_engine_mega": ("flash_attention", "mega_decode"),
     "continuous_mega": ("flash_attention", "mega_decode"),
+    # The same over an int8 pool (prefill through flash_attention_int8,
+    # no paged_flash_decode_int8), and the Engine with int8 weights over
+    # an int8 pool (dense prefill through flash_attention, quantized on
+    # the write into the pages).
+    "continuous_mega_int8": ("flash_attention_int8", "mega_decode"),
+    "paged_engine_mega_wq8": ("flash_attention", "mega_decode"),
     # Long context: the sharded slot's prefill chunks merge a resident
     # partial (flash_attention, causal) with a cold partial
     # (flash_attention_cold); its decode steps a resident paged partial
@@ -735,15 +749,65 @@ def _mega_tokens_ok(toks, ref_toks, plain_at) -> list:
     return ties
 
 
+def _mega_bound(cfg, params, q8, kv8) -> dict:
+    """The least time of one decode step of the megakernel at MEGA_LENS:
+    the larger of its bytes over the HBM rate and its FLOPs over the bf16
+    peak. Bytes: every layer weight, the norms, the LM head (int8 codes
+    plus their f32 scales under wq8), every cached K/V row (int8 codes
+    plus each touched page's two f32 scales over an int8 pool), the
+    embed rows, the logits and the new K/V rows out. FLOPs: every GEMM
+    for each row, and QK^T plus P·V over each row's cache."""
+    lp, L = params["layers"], cfg.num_layers
+    b, hkv, hd = len(MEGA_LENS), cfg.num_kv_heads, cfg.head_dim
+    item = params["embed"].element_size()
+    proj = (lp["attn"]["wqkv"], lp["attn"]["wo"], lp["mlp"]["w1"],
+            lp["mlp"]["w2"], params["lm_head"])
+    n_weights = sum(t.numel() for t in proj)
+    weights = n_weights * (1 if q8 else item)
+    if q8:  # one f32 scale per output column
+        weights += 4 * sum(t[..., 0, :].numel() for t in proj)
+    weights += sum(t.numel() * item for t in (
+        lp["ln1"], lp["ln2"], lp["attn"]["q_norm"], lp["attn"]["k_norm"],
+        params["norm"]))
+    kv = sum(MEGA_LENS) * L * hkv * hd * 2 * (1 if kv8 else item)
+    if kv8:
+        kv += sum(-(-n // PAGE) for n in MEGA_LENS) * L * hkv * 2 * 4
+    out = b * params["lm_head"].shape[1] * 4 + 2 * L * b * hkv * hd * item
+    step_bytes = weights + kv + out + b * cfg.hidden_size * item
+    flops = 2 * b * n_weights + 4 * (
+        cfg.num_q_heads * hd * L * sum(MEGA_LENS))
+    t_bytes, t_ops = step_bytes / HBM_BPS, flops / BF16_FLOPS
+    return {"bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "step_bytes": step_bytes}
+
+
+# The megakernel variants the mega phase holds against the plain version:
+# (weights, cache). The int8 pool is the paged pool quantized per (page,
+# kv head) by the writers' page quantizer, its V side first multiplied by
+# 4 (exact in bf16) so that the K and V scale planes differ and the
+# negative control that swaps them breaks the limit.
+MEGA_VARIANTS = {
+    "dense": (False, "dense"), "paged": (False, "paged"),
+    "int8_pool": (False, "int8"), "wq8": (True, "paged"),
+    "wq8_int8_pool": (True, "int8"),
+}
+
+
 def check_mega(dev, flush):
     """The decode megakernel against its plain version at Qwen3-0.6B's
-    full width and depth, dense and paged, NS = 1 and 8, in bf16 (the
-    serving dtype, timed) and in f32 with TF32 off: logits within the
+    full width and depth, NS = 1 and 8, in bf16 (the serving dtype,
+    timed) and in f32 with TF32 off, for each of ``MEGA_VARIANTS``: dense
+    and paged caches in the model dtype, the int8 pool, int8 weights
+    (wq8) over the paged pool and over the int8 pool. Logits within the
     limit, two launches bit-identical, tokens equal (bf16: up to a near
-    tie of the plain version, see ``_mega_tokens_ok``; f32: exactly),
-    and the plain version with the last layer skipped outside the limit.
-    Times the bf16 kernel per launch and per step beside the port's
-    ``mode="xla"`` decode step at the same shape. Returns its record."""
+    tie of the plain version, see ``_mega_tokens_ok``; f32: exactly), and
+    a negative control outside the limit: the plain version with the last
+    layer skipped (model-dtype weights and cache), with the K and V scale
+    planes swapped (int8 pool), or with the qkv scales set to 1 (wq8 over
+    the paged pool). Times the bf16 kernel per launch and per step beside
+    the port's ``mode="xla"`` decode steps at the same shape (bf16 and
+    int8 pools). Returns its record."""
     import dataclasses
 
     import numpy as np
@@ -759,12 +823,14 @@ def check_mega(dev, flush):
     )
     from triton_distributed_tpu_torch.models import AutoLLM
     from triton_distributed_tpu_torch.models.paged_kv_cache import (
+        PagedKVCache,
         init_paged_cache,
+        quantize_pages,
     )
 
     b = len(MEGA_LENS)
     lens = torch.tensor(MEGA_LENS, dtype=torch.int32, device=dev)
-    worst, max_err, times, info, bad, ties = {}, 0.0, {}, {}, [], []
+    worst, max_err, times, info, bad, ties = {}, {}, {}, {}, [], []
     for tag, dtype in (("bf16", torch.bfloat16), ("f32", torch.float32)):
         model = AutoLLM.from_pretrained(MODEL, device=dev, seed=SEED,
                                         dtype=dtype)
@@ -776,34 +842,49 @@ def check_mega(dev, flush):
                                     page_size=PAGE)
         for t in (dense.k, dense.v, paged.k_pages, paged.v_pages):
             t.normal_(generator=gen)
+        k8, ks = quantize_pages(paged.k_pages)
+        v8, vs = quantize_pages(paged.v_pages * 4)
+        scales8 = {"k_scale": ks, "v_scale": vs}
         tokens = torch.from_numpy(np.random.default_rng(SEED + 3).integers(
             0, V, b).astype(np.int32)).to(dev)
-        mega = MegaQwen3(model, cfg=MegaConfig(fuse_norms=True))
-        w = MegaWeights.from_params(model.params)
+        megas = {q8: MegaQwen3(model, cfg=MegaConfig(fuse_norms=True,
+                                                      wq8=q8))
+                 for q8 in (False, True)}
+        weights = {q8: MegaWeights.from_params(m._step_params())
+                   for q8, m in megas.items()}
+        caches = {
+            "dense": ((dense.k, dense.v, None, lens, tokens), 0, {}),
+            "paged": ((paged.k_pages, paged.v_pages, paged.page_table, lens,
+                       tokens), PAGE, {}),
+            "int8": ((k8, v8, paged.page_table, lens, tokens), PAGE,
+                     scales8),
+        }
         atol, rtol = MEGA_TOL[tag]
-        for kind in ("dense", "paged"):
-            if kind == "dense":
-                args, page = (dense.k, dense.v, None, lens, tokens), 0
-            else:
-                args = (paged.k_pages, paged.v_pages, paged.page_table, lens,
-                        tokens)
-                page = PAGE
+        for kind, (q8, cache) in MEGA_VARIANTS.items():
+            mega, w = megas[q8], weights[q8]
+            args, page, sc = caches[cache]
             for ns in MEGA_NS:
-                dims = dataclasses.replace(mega._dims(b, MAX_LENGTH, page),
-                                           nsteps=ns, v_real=V)
+                dims = dataclasses.replace(
+                    mega._dims(b, MAX_LENGTH, page, kv_quant=bool(sc),
+                               num_pages=int(args[0].shape[1]) if page
+                               else 0),
+                    nsteps=ns, v_real=V)
                 comp = mega._compile(dims)
-                got = comp.run(w, *args, info=info)
-                again = comp.run(w, *args)
+                got = comp.run(w, *args, info=info, **sc)
+                again = comp.run(w, *args, **sc)
                 torch.cuda.synchronize()
-                ref = mega_decode_plain(dims, True, comp.table, w, *args)
+                ref = mega_decode_plain(dims, True, comp.table, w, *args,
+                                        **sc)
                 if not all(torch.equal(x, y) for x, y in zip(got, again)):
                     raise RuntimeError(f"mega_decode {tag} {kind} NS={ns}: "
                                        "two launches on the same inputs "
                                        "differ")
 
-                def plain_at(s, dims=dims, table=comp.table, args=args):
+                def plain_at(s, dims=dims, table=comp.table, args=args,
+                             w=w, sc=sc):
                     d1 = dataclasses.replace(dims, nsteps=s + 1)
-                    return mega_decode_plain(d1, True, table, w, *args)[0]
+                    return mega_decode_plain(d1, True, table, w, *args,
+                                             **sc)[0]
 
                 if tag == "f32":
                     if not torch.equal(got[3], ref[3]):
@@ -822,10 +903,21 @@ def check_mega(dev, flush):
                 used = (err / (atol + rtol * ref[0].abs()[keep])).max().item()
                 kerr = max((got[i].float() - ref[i].float())[:, :, keep]
                            .abs().max().item() for i in (1, 2))
-                # Negative control: the plain version without the last
-                # layer must break the limit.
-                skip = comp.table[comp.table[:, 1] != L - 1]
-                bad_ref = mega_decode_plain(dims, True, skip, w, *args)[0]
+                if cache == "int8":
+                    control = "K and V scale planes swapped"
+                    bad_ref = mega_decode_plain(
+                        dims, True, comp.table, w, *args,
+                        k_scale=sc["v_scale"], v_scale=sc["k_scale"])[0]
+                elif q8:
+                    control = "qkv scales set to 1"
+                    bad_ref = mega_decode_plain(
+                        dims, True, comp.table, dataclasses.replace(
+                            w, sc_qkv=torch.ones_like(w.sc_qkv)), *args)[0]
+                else:
+                    control = "last layer skipped"
+                    skip = comp.table[comp.table[:, 1] != L - 1]
+                    bad_ref = mega_decode_plain(dims, True, skip, w,
+                                                *args)[0]
                 bad_used = ((got[0] - bad_ref).abs()
                             / (atol + rtol * bad_ref.abs())).max().item()
                 tie_note = (f" up to near ties {case_ties}" if case_ties
@@ -833,75 +925,80 @@ def check_mega(dev, flush):
                 print(f"[mega] {tag} {kind} NS={ns}: tokens == plain"
                       f"{tie_note}, logits max_abs_err {err.max().item():.3e}, "
                       f"{used:.3f} of the limit (atol {atol} + rtol {rtol}"
-                      f"*|plain|); knew/vnew max err {kerr:.3e}; last layer "
-                      f"skipped: {bad_used:.1f}x the limit (must exceed 1); "
-                      f"launch {info}")
+                      f"*|plain|); knew/vnew max err {kerr:.3e}; {control}: "
+                      f"{bad_used:.1f}x the limit (must exceed 1); launch "
+                      f"{info}")
                 if not used <= 1.0 or not bad_used > 1.0:
                     bad.append(f"{tag} {kind} NS={ns}: limit use {used}, "
                                f"negative control {bad_used}")
-                worst[tag] = max(worst.get(tag, 0.0), used)
+                worst[tag, kind] = max(worst.get((tag, kind), 0.0), used)
                 if tag != "bf16":
                     continue
-                max_err = max(max_err, err.max().item())
-                ms = median_ms(lambda: comp.run(w, *args), flush)
+                max_err[kind] = max(max_err.get(kind, 0.0),
+                                    err.max().item())
+                ms = median_ms(lambda: comp.run(w, *args, **sc), flush)
                 plain_ms = median_ms(lambda: mega_decode_plain(
-                    dims, True, comp.table, w, *args), flush, iters=3,
+                    dims, True, comp.table, w, *args, **sc), flush, iters=3,
                     warmup=1)
                 times[kind, ns] = (ms, plain_ms)
                 print(f"[mega] {kind} NS={ns}: {ms:.4f} ms per launch, "
                       f"{ms / ns:.4f} ms per step; plain {plain_ms:.2f} ms "
                       "per launch")
         if tag == "bf16":
-            # The mode="xla" decode step at the same shape, the yardstick.
+            # The mode="xla" decode steps at the same shape, the yardstick
+            # (each step appends into its pool: kv_len is reset per call).
             def xla_step(c):
                 c.kv_len = lens.clone()
                 model.decode_step(tokens, c)
 
+            pool8 = PagedKVCache(k_pages=k8.clone(), v_pages=v8.clone(),
+                                 page_table=paged.page_table,
+                                 kv_len=lens.clone(), k_scale=ks.clone(),
+                                 v_scale=vs.clone())
             xla_ms = {k: median_ms(lambda c=c: xla_step(c), flush,
                                    device_only=False)
-                      for k, c in (("dense", dense), ("paged", paged))}
+                      for k, c in (("dense", dense), ("paged", paged),
+                                   ("int8_pool", pool8))}
             print(f"[mega] mode='xla' decode step at the same shape: "
                   f"{xla_ms} ms")
             bf16 = model
-        del model, dense, paged, mega, w
+            del pool8
+        del model, dense, paged, megas, weights, caches, k8, v8
     if bad:
         raise RuntimeError(f"mega_decode disagrees with plain: {bad}")
-    # Bound: one step reads every layer weight, the LM head, the norms
-    # and the embed rows once, every cached K/V row once, and writes the
-    # logits and the new K/V rows.
     cfg, p = bf16.cfg, bf16.params
-    L = cfg.num_layers
-    weights = sum(t.numel() * t.element_size() for t in (
-        p["layers"]["attn"]["wqkv"], p["layers"]["attn"]["wo"],
-        p["layers"]["mlp"]["w1"], p["layers"]["mlp"]["w2"],
-        p["layers"]["ln1"], p["layers"]["ln2"], p["layers"]["attn"]["q_norm"],
-        p["layers"]["attn"]["k_norm"], p["lm_head"], p["norm"]))
-    hkv, hd = cfg.num_kv_heads, cfg.head_dim
-    kv = sum(MEGA_LENS) * L * hkv * hd * 2 * 2
-    out = b * p["lm_head"].shape[1] * 4 + 2 * L * b * hkv * hd * 2
-    step_bytes = weights + kv + out + b * cfg.hidden_size * 2
-    flops = 2 * b * (weights // 2) + 4 * b * cfg.num_q_heads * hd * sum(
-        MEGA_LENS)
-    ms1, plain1 = times["paged", 1]
+    bounds = {kind: _mega_bound(cfg, p, q8, cache == "int8")
+              for kind, (q8, cache) in MEGA_VARIANTS.items()}
+    variants = {kind: {
+        "ms": times[kind, 1][0], "plain_ms": times[kind, 1][1],
+        "ms_per_step_ns8": times[kind, 8][0] / 8,
+        "plain_ms_per_launch_ns8": times[kind, 8][1],
+        "max_abs_err": max_err[kind],
+        "limit_used": {t: worst[t, kind] for t in ("bf16", "f32")},
+        "library_ms": None, **bounds[kind],
+    } for kind in MEGA_VARIANTS}
+    print(f"[mega] variants (bf16, one step at NS=1; bound = step bytes / "
+          f"{HBM_BPS:.3g} B/s): {json.dumps(variants)}")
+    main = variants["paged"]
     return dict(
         route="cuda",
         source="triton_distributed_tpu_torch/csrc/megakernel.cu",
         replaces="triton_distributed_tpu/megakernel/code_generator.py:473",
-        max_abs_err=max_err,
-        ms=ms1, plain_ms=plain1,
-        bound_ms=max(step_bytes / HBM_BPS, flops / BF16_FLOPS) * 1e3,
-        bound_by="bytes" if step_bytes / HBM_BPS > flops / BF16_FLOPS
-        else "operations",
+        max_abs_err=max(max_err.values()),
+        ms=main["ms"], plain_ms=main["plain_ms"],
+        bound_ms=main["bound_ms"], bound_by=main["bound_by"],
         library_ms=None,
         shape=f"Qwen3-0.6B 28 layers, B={b}, paged page={PAGE}, kv_len "
-              f"{list(MEGA_LENS)}, NS=1 bf16 (ms = one step)",
-        limit_used=worst,
+              f"{list(MEGA_LENS)}, NS=1 bf16 (ms = one step); the int8 "
+              "pool and wq8 variants under 'variants'",
+        limit_used={f"{t}_{k}": v for (t, k), v in worst.items()},
         near_ties=ties,
         ms_per_launch={f"{k}_ns{n}": v[0] for (k, n), v in times.items()},
         ms_per_step={f"{k}_ns{n}": v[0] / n for (k, n), v in times.items()},
         plain_ms_per_launch={f"{k}_ns{n}": v[1]
                              for (k, n), v in times.items()},
         xla_step_ms=xla_ms,
+        variants=variants,
         launch=info,
     )
 
@@ -1015,9 +1112,13 @@ def check_tiny_serving(dev) -> None:
               f", counters {counts[0]}")
 
 
-def reference_logits(model, tokens):
-    """Plain full-sequence forward (plain attention, no cache) of one
-    sequence: logits [S, V] f32."""
+def _plain_forward(model, params, tokens, past=None):
+    """Plain forward (plain attention, no cache) of one sequence under
+    ``params`` (a parameter dict of the model's layout), continuing after
+    ``past``: the per-layer ``(k, v) [hkv, S0, hd]`` of an earlier call
+    over the tokens before (rope and the causal mask start at S0).
+    Returns ``(logits [S, V] f32, per-layer (k, v) through these
+    tokens)``."""
     import torch
     import torch.nn.functional as F
 
@@ -1029,11 +1130,13 @@ def reference_logits(model, tokens):
         mha_reference,
     )
 
-    cfg, p, dims = model.cfg, model.params, model.dims
+    cfg, p, dims = model.cfg, params, model.dims
     lp = p["layers"]
     s = tokens.shape[0]
+    s0 = 0 if past is None else past[0][0].shape[1]
     x = F.embedding(tokens, p["embed"])
-    pos = torch.arange(s, device=tokens.device)
+    pos = torch.arange(s0, s0 + s, device=tokens.device)
+    kvs = []
     for i in range(cfg.num_layers):
         h = rms_norm(x, lp["ln1"][i], cfg.rms_eps)
         q, k, v = dims.split_qkv(h @ lp["attn"]["wqkv"][i])
@@ -1041,24 +1144,64 @@ def reference_logits(model, tokens):
                        pos, cfg.rope_theta)
         k = apply_rope(_rms_head(k, lp["attn"]["k_norm"][i]).transpose(0, 1),
                        pos, cfg.rope_theta)
-        o = mha_reference(q[None], k[None], v.transpose(0, 1)[None])[0]
+        v = v.transpose(0, 1)
+        if past is not None:
+            k = torch.cat([past[i][0], k], dim=1)
+            v = torch.cat([past[i][1], v], dim=1)
+        kvs.append((k, v))
+        o = mha_reference(q[None], k[None], v[None], kv_offset=s0)[0]
         x = x + o.transpose(0, 1).reshape(s, -1) @ lp["attn"]["wo"][i]
         h = rms_norm(x, lp["ln2"][i], cfg.rms_eps)
         x = x + _silu_mul(h @ lp["mlp"]["w1"][i]) @ lp["mlp"]["w2"][i]
     x = rms_norm(x, p["norm"], cfg.rms_eps)
-    return model._logits(x)
+    logits = (x @ p["lm_head"]).to(torch.float32)[:, :cfg.vocab_size]
+    return logits, kvs
 
 
-def teacher_forced_gaps(model, prompt, generated) -> list[float]:
+def reference_logits(model, tokens):
+    """Plain full-sequence forward (plain attention, no cache) of one
+    sequence: logits [S, V] f32."""
+    return _plain_forward(model, model.params, tokens)[0]
+
+
+def dequantized_params(model, q8) -> dict:
+    """The model's parameters with the five projection weights replaced by
+    their int8 codes times their scales, rounded to the model dtype (the
+    JAX package's wq8 golden)."""
+    def deq(w8, sc):
+        return (w8.float() * sc).to(model.cfg.dtype)
+
+    p, lp = model.params, model.params["layers"]
+    return {**p, "lm_head": deq(q8.lm_head, q8.sc_lm), "layers": {
+        **lp,
+        "attn": {**lp["attn"], "wqkv": deq(q8.wqkv, q8.sc_qkv),
+                 "wo": deq(q8.wo, q8.sc_o)},
+        "mlp": {"w1": deq(q8.w1, q8.sc_w1), "w2": deq(q8.w2, q8.sc_w2)},
+    }}
+
+
+def teacher_forced_gaps(model, prompt, generated, decode_params=None
+                        ) -> list[float]:
     """For each generated position: reference max logit minus the
-    reference logit of the token the engine emitted."""
+    reference logit of the token the engine emitted. With
+    ``decode_params`` the engine's own split: the prompt runs under the
+    model's parameters (the prefill) and the generated tokens as one
+    chunk under ``decode_params`` over the prompt's K/V (the decode)."""
     import numpy as np
     import torch
 
-    seq = np.concatenate([prompt, generated[:-1]]).astype(np.int64)
-    logits = reference_logits(model, torch.from_numpy(seq).to(model.device))
-    rows = logits[len(prompt) - 1:]
-    emitted = torch.as_tensor(generated, device=model.device).long()
+    dev = model.device
+    if decode_params is None:
+        seq = np.concatenate([prompt, generated[:-1]]).astype(np.int64)
+        logits = reference_logits(model, torch.from_numpy(seq).to(dev))
+        rows = logits[len(prompt) - 1:]
+    else:
+        first, past = _plain_forward(model, model.params, torch.from_numpy(
+            np.asarray(prompt, np.int64)).to(dev))
+        rest, _ = _plain_forward(model, decode_params, torch.from_numpy(
+            np.asarray(generated[:-1], np.int64)).to(dev), past)
+        rows = torch.cat([first[-1:], rest])
+    emitted = torch.as_tensor(generated, device=dev).long()
     gaps = rows.max(dim=-1).values - rows.gather(1, emitted[:, None])[:, 0]
     return gaps.tolist()
 
@@ -1098,6 +1241,7 @@ def serve_main_path(dev):
     import numpy as np
     import torch
 
+    from triton_distributed_tpu_torch.megakernel import MegaConfig
     from triton_distributed_tpu_torch.models import (
         AutoLLM,
         ContinuousEngine,
@@ -1146,15 +1290,22 @@ def serve_main_path(dev):
     spec_eng = ContinuousEngine(model, max_batch=4, page_size=PAGE,
                                 max_length=MAX_LENGTH, **spec_kw)
     mega_dense = Engine(model, paged=False, mode="mega", device=dev)
-    mega_engs = {}
+    # int8 weights (the engines' default megakernel config, plus wq8)
+    # over an int8 pool.
+    mega_wq8 = Engine(model, paged=True, page_size=PAGE, kv_dtype="int8",
+                      mode="mega", mega_cfg=MegaConfig(
+                          fuse_norms=True, cross_prefetch=True,
+                          overlap_ar=True, wq8=True), device=dev)
+    mega_engs = {"paged_engine_mega_wq8": mega_wq8}
 
-    def continuous_mega():
+    def continuous_mega(path, kv_dtype):
         """ContinuousEngine(mode="mega") with an eos_id: the token the
         bf16 continuous run emitted 41st for the first request."""
         eos = int(outs["continuous"][0][40])
-        eng = mega_engs["continuous_mega"] = ContinuousEngine(
+        eng = mega_engs[path] = ContinuousEngine(
             model, max_batch=4, page_size=PAGE, max_length=MAX_LENGTH,
-            prefix_cache=True, mode="mega", eos_id=eos, device=dev)
+            prefix_cache=True, mode="mega", eos_id=eos, kv_dtype=kv_dtype,
+            device=dev)
         return eng.run(requests)
     spec_fixed = Engine(model, paged=True, page_size=PAGE, **spec_kw)
     # The long-context engines: the budget's pages plus what the short
@@ -1210,7 +1361,11 @@ def serve_main_path(dev):
             lambda: spec_fixed.last_stats),
         "dense_engine_mega": lambda: mega_dense.serve(
             dense_ids, DENSE_GEN, MAX_LENGTH, ns=8),
-        "continuous_mega": continuous_mega,
+        "continuous_mega": lambda: continuous_mega("continuous_mega", None),
+        "continuous_mega_int8": lambda: continuous_mega(
+            "continuous_mega_int8", "int8"),
+        "paged_engine_mega_wq8": lambda: mega_wq8.serve(
+            dense_ids, DENSE_GEN, MAX_LENGTH, ns=8),
         "continuous_longctx": lambda: long_engs["continuous_longctx"].run(
             long_requests),
         "continuous_longctx_int8": lambda: long_engs[
@@ -1233,8 +1388,7 @@ def serve_main_path(dev):
         times[path]["chunks"] = times[path]["chunk_calls"]
 
     mega_e2e = check_mega_paths(model, prompts, dense_ids, outs, times,
-                                launches, mega_dense,
-                                mega_engs["continuous_mega"])
+                                launches, mega_dense, mega_engs)
     long_e2e = check_longctx_paths(model, long_requests, outs, times,
                                    long_engs, view_t)
     for path, e in (("continuous", eng), ("continuous_int8", eng8)):
@@ -1347,70 +1501,97 @@ def serve_main_path(dev):
 
 
 def check_mega_paths(model, prompts, dense_ids, outs, times, launches,
-                     dense_eng, cont_eng) -> dict:
-    """The megakernel serving paths: audit, launches, teacher forcing
-    with the bf16 limits; returns their e2e block (decode ms per step
-    and per emitted token, megakernel launches per emitted token)."""
+                     dense_eng, engs) -> dict:
+    """The megakernel serving paths: audit, launches, teacher forcing (the
+    bf16 limits over full-width caches, the int8 limits over int8 pools;
+    the wq8 Engine against the plain forward whose decode weights are the
+    dequantized int8 weights); returns their e2e block (decode ms per
+    step and per emitted token, megakernel launches per emitted token)."""
     import numpy as np
 
-    problems = cont_eng.audit()
-    st = cont_eng.last_stats
-    if problems:
-        raise RuntimeError(f"continuous_mega: pool audit failed: {problems}")
-    eos = cont_eng.eos_id
-    gaps = []
-    for p, o in zip(prompts, outs["continuous_mega"]):
-        if not (o.shape == (GEN_LEN,) or (0 < len(o) < GEN_LEN
-                                           and int(o[-1]) == eos)):
-            raise RuntimeError(f"continuous_mega: bad output {o.shape}")
-        gaps += teacher_forced_gaps(model, p, o)
+    def tf_check(what, gaps, margin, min_exact):
+        worst, exact = max(gaps), sum(g == 0 for g in gaps)
+        print(f"[check] {what} teacher forcing over {len(gaps)} generated "
+              f"tokens: max gap {worst:.4f}, mean {statistics.mean(gaps):.4f}"
+              f", exact argmax {exact}/{len(gaps)}, margin {margin}, min "
+              f"exact share {min_exact}")
+        if not all(np.isfinite(gaps)) or worst > margin:
+            raise RuntimeError(f"{what}: teacher-forced gap {worst} exceeds "
+                               f"{margin}")
+        if exact < min_exact * len(gaps):
+            raise RuntimeError(f"{what}: only {exact}/{len(gaps)} emitted "
+                               "tokens are the reference argmax")
+
+    def continuous_gaps(path):
+        eng = engs[path]
+        problems = eng.audit()
+        if problems:
+            raise RuntimeError(f"{path}: pool audit failed: {problems}")
+        gaps = []
+        for p, o in zip(prompts, outs[path]):
+            if not (o.shape == (GEN_LEN,) or (0 < len(o) < GEN_LEN
+                                               and int(o[-1]) == eng.eos_id)):
+                raise RuntimeError(f"{path}: bad output {o.shape}")
+            gaps += teacher_forced_gaps(model, p, o)
+        return gaps
+
+    gaps = continuous_gaps("continuous_mega")
     for row in range(DENSE_ROWS):
         gaps += teacher_forced_gaps(model, dense_ids[row],
                                     outs["dense_engine_mega"][row,
                                                               DENSE_PROMPT:])
-    worst, exact = max(gaps), sum(g == 0 for g in gaps)
-    print(f"[check] megakernel teacher forcing over {len(gaps)} generated "
-          f"tokens: max gap {worst:.4f}, mean {statistics.mean(gaps):.4f}, "
-          f"exact argmax {exact}/{len(gaps)}, margin {TF_MARGIN}, min exact "
-          f"share {TF_MIN_EXACT}")
-    if not all(np.isfinite(gaps)) or worst > TF_MARGIN:
-        raise RuntimeError(f"megakernel: teacher-forced gap {worst} exceeds "
-                           f"{TF_MARGIN}")
-    if exact < TF_MIN_EXACT * len(gaps):
-        raise RuntimeError(f"megakernel: only {exact}/{len(gaps)} emitted "
-                           "tokens are the reference argmax")
-    d_st = dense_eng.last_stats
+    tf_check("megakernel", gaps, TF_MARGIN, TF_MIN_EXACT)
+    tf_check("megakernel over the int8 pool",
+             continuous_gaps("continuous_mega_int8"), TF8_MARGIN,
+             TF8_MIN_EXACT)
+    wq8 = engs["paged_engine_mega_wq8"]
+    if wq8.audit():
+        raise RuntimeError(f"paged_engine_mega_wq8: audit {wq8.audit()}")
+    deq = dequantized_params(model, wq8._mega_model().quantized_params())
+    gaps = []
+    for row in range(DENSE_ROWS):
+        gaps += teacher_forced_gaps(
+            model, dense_ids[row],
+            outs["paged_engine_mega_wq8"][row, DENSE_PROMPT:], deq)
+    tf_check("megakernel with int8 weights over the int8 pool", gaps,
+             TF8_MARGIN, TF8_MIN_EXACT)
+    del deq
+
     d_emit = DENSE_ROWS * (DENSE_GEN - 1)
-    c_emit = st["generated_tokens"] - st["admitted"]
-    c_decode_s = times["continuous_mega"]["wall_s"] - times[
-        "continuous_mega"]["chunk_s"]
-    for path, n in (("dense_engine_mega", d_st["mega_launches"]),
-                    ("continuous_mega", st["mega_launches"])):
-        if n <= 0:
-            raise RuntimeError(f"{path}: mega_launches {n}")
-    out = {
-        "dense_engine_mega": {
-            "decode_ms_per_step": d_st["decode_ms_per_step"],
-            "decode_ms_per_emitted_token": d_st["decode_s"] / d_emit * 1e3,
-            "mega_launches_per_emitted_token": launches["dense_engine_mega"][
+    out = {}
+    for path, eng in (("dense_engine_mega", dense_eng),
+                      ("paged_engine_mega_wq8", wq8)):
+        st = eng.last_stats
+        if st["mega_launches"] <= 0:
+            raise RuntimeError(f"{path}: mega_launches {st['mega_launches']}")
+        out[path] = {
+            "decode_ms_per_step": st["decode_ms_per_step"],
+            "decode_ms_per_emitted_token": st["decode_s"] / d_emit * 1e3,
+            "mega_launches_per_emitted_token": launches[path][
                 "mega_decode"] / d_emit,
-            "mega_launches": d_st["mega_launches"],
-            "decode_steps": d_st["decode_steps"],
-        },
-        "continuous_mega": {
+            "mega_launches": st["mega_launches"],
+            "decode_steps": st["decode_steps"],
+            "kv_dtype": st["kv_dtype"],
+        }
+    for path in ("continuous_mega", "continuous_mega_int8"):
+        st = engs[path].last_stats
+        c_emit = st["generated_tokens"] - st["admitted"]
+        c_decode_s = times[path]["wall_s"] - times[path]["chunk_s"]
+        if st["mega_launches"] <= 0:
+            raise RuntimeError(f"{path}: mega_launches {st['mega_launches']}")
+        out[path] = {
             "decode_ms_per_step": c_decode_s / max(st["decode_steps"], 1)
             * 1e3,
             "decode_ms_per_emitted_token": c_decode_s / max(c_emit, 1) * 1e3,
-            "mega_launches_per_emitted_token": launches["continuous_mega"][
+            "mega_launches_per_emitted_token": launches[path][
                 "mega_decode"] / max(c_emit, 1),
-            "wall_s": times["continuous_mega"]["wall_s"],
+            "wall_s": times[path]["wall_s"],
             **{k: st[k] for k in (
                 "decode_steps", "mega_launches", "mega_fallback_steps",
                 "mega_bucket_launches", "mega_device_retires",
-                "prefix_hit_tokens", "generated_tokens")},
-            "eos_id": eos,
-        },
-    }
+                "prefix_hit_tokens", "generated_tokens", "kv_dtype")},
+            "eos_id": engs[path].eos_id,
+        }
     print(f"[serve] megakernel paths: {json.dumps(out)}")
     return out
 

@@ -6,8 +6,8 @@
 Builds Qwen/Qwen3-0.6B at full width and depth with random weights from a
 seed, fills a paged bf16 KV pool (page 128) for 4 sequences at kv_len
 {700, 2047, 700, 2047} and an int8 pool quantized from the same values,
-and profiles (``torch.profiler``, CPU + CUDA activities) four phases of
-the serving path after warm-up:
+and profiles (``torch.profiler``, CPU + CUDA activities) phases of the
+serving path after warm-up:
 
 - ``decode``: ``Qwen3.decode_step`` over the bf16 pool, batch 4;
 - ``decode_int8``: the same step over the int8 pool (the quantized
@@ -27,6 +27,12 @@ the serving path after warm-up:
   rows fit the pool; its line also gives the numbers per decode step;
 - ``decode_mega_short``: ``decode_mega`` at kv_len {1, 1, 1, 1}, where
   attention costs almost nothing: the weight streams and the barriers;
+- ``decode_mega_int8``: ``decode_mega`` over the int8 pool (the kernel
+  reads the codes through the per-page scales; the quantized append
+  follows the launch), beside ``decode_int8``;
+- ``decode_mega_wq8`` and ``decode_mega_wq8_int8``: ``decode_mega`` with
+  int8 weights (``MegaConfig(wq8=True)``, quantized once before the
+  timed steps) over the bf16 pool and over the int8 pool;
 - ``mega_barriers``: one launch of a table of 282 ALLREDUCE tasks (the
   barriers of one Qwen3-0.6B step, each behind a [4, 1024] add): what
   the kernel's grid barriers cost alone;
@@ -176,6 +182,19 @@ def main() -> int:
         cache.kv_len = lens8.clone()
         ns8(model.params, tokens, cache)
 
+    def decode_mega_int8():
+        cache8.kv_len = lens.clone()
+        mega.decode_step(tokens, cache8)
+
+    mega8 = MegaQwen3(model, cfg=MegaConfig(fuse_norms=True, wq8=True))
+    mega8.quantized_params()  # quantized once, outside the timed steps
+
+    def decode_mega_wq8_over(c):
+        def step():
+            c.kv_len = lens.clone()
+            mega8.decode_step(tokens, c)
+        return step
+
     lens1 = torch.ones(4, dtype=torch.int32, device=dev)
 
     def decode_mega_short():
@@ -276,6 +295,9 @@ def main() -> int:
                      ("decode_mega", decode_mega),
                      ("decode_mega_ns8", decode_mega_ns8),
                      ("decode_mega_short", decode_mega_short),
+                     ("decode_mega_int8", decode_mega_int8),
+                     ("decode_mega_wq8", decode_mega_wq8_over(cache)),
+                     ("decode_mega_wq8_int8", decode_mega_wq8_over(cache8)),
                      ("mega_barriers", mega_barriers),
                      ("prefill_chunk_cold", chunk_cold_over(cache)),
                      ("prefill_chunk_cold_int8", chunk_cold_over(cache8)),

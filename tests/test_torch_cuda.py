@@ -488,18 +488,21 @@ def _mega_inputs(dev, shape, dtype, paged, ns, seed=0):
     return model, mega, dims, (kc, vc, table, kv_len, tokens)
 
 
-def _mega_run(mega, dims, args, stop_tok=None, plain=False):
+def _mega_run(mega, dims, args, stop_tok=None, plain=False, scales=None,
+              w=None):
     from triton_distributed_tpu_torch.megakernel import MegaWeights
     from triton_distributed_tpu_torch.megakernel.kernels import (
         mega_decode_plain,
     )
 
     compiled = mega._compile(dims)
-    w = MegaWeights.from_params(mega.model.params)
+    if w is None:
+        w = MegaWeights.from_params(mega._step_params())
+    kw = scales or {}
     if plain:
         return mega_decode_plain(dims, True, compiled.table, w, *args,
-                                 stop_tok=stop_tok)
-    return compiled.run(w, *args, stop_tok=stop_tok)
+                                 stop_tok=stop_tok, **kw)
+    return compiled.run(w, *args, stop_tok=stop_tok, **kw)
 
 
 @pytest.mark.parametrize("ns", [1, 8])
@@ -535,6 +538,110 @@ def test_mega_decode_matches_plain(dev, shape, dtype, paged, ns):
         assert (a.float() - b.float()).abs().max().item() <= 2 * atol + 0.02
 
 
+def _mega_quant_inputs(dev, shape, dtype, quant, ns):
+    """``_mega_inputs`` over an int8 pool and/or with int8 weights: the
+    random paged pool quantized per (page, kv head), its V pool first
+    multiplied by 4 so that the K and V scale planes differ (the negative
+    control swaps them); under wq8 the model's quantized weights."""
+    import dataclasses as dc
+
+    from triton_distributed_tpu_torch.megakernel import MegaConfig, MegaQwen3
+
+    model, _, dims, (kc, vc, table, kv_len, tokens) = _mega_inputs(
+        dev, shape, dtype, True, ns)
+    scales = None
+    if "pool" in quant:
+        kc, ks = quantize_pages(kc.float())
+        vc, vs = quantize_pages(vc.float() * 4)
+        scales = {"k_scale": ks, "v_scale": vs}
+        dims = dc.replace(dims, kv_quant=True)
+    mega = MegaQwen3(model, cfg=MegaConfig(fuse_norms=True,
+                                           wq8="wq8" in quant))
+    return mega, dims, (kc, vc, table, kv_len, tokens), scales
+
+
+# The int8 pool, int8 weights (wq8) and both: the same limits as the
+# full-width kernel (an int8 code is exact in f32 and bf16, and each scale
+# multiplies an f32 value), tokens equal, and a negative control that must
+# break the logit limit: the plain version with the K and V scale planes
+# swapped (pool variants) or with sc_qkv set to ones (wq8 alone).
+@pytest.mark.parametrize("ns", [1, 8])
+@pytest.mark.parametrize("quant", ["pool", "wq8", "wq8_pool"])
+@pytest.mark.parametrize("shape,dtype", [
+    ("tiny", torch.float32), ("tiny", torch.bfloat16),
+    ("qwen", torch.float32), ("qwen", torch.bfloat16),
+])
+def test_mega_decode_quant_matches_plain(dev, shape, dtype, quant, ns):
+    import dataclasses as dc
+
+    from triton_distributed_tpu_torch.megakernel import MegaWeights
+
+    mega, dims, args, scales = _mega_quant_inputs(dev, shape, dtype, quant,
+                                                  ns)
+    before = ck.MEGA_DECODE.launches
+    got = _mega_run(mega, dims, args, scales=scales)
+    torch.cuda.synchronize()
+    assert ck.MEGA_DECODE.launches == before + 1
+    again = _mega_run(mega, dims, args, scales=scales)
+    ref = _mega_run(mega, dims, args, plain=True, scales=scales)
+    logits, knew, vnew, toks, _ = got
+    assert knew.dtype == dtype  # new rows leave in the model dtype
+    atol, rtol = MEGA_TOL[dtype]
+    assert torch.isfinite(logits).all()
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+    # Tokens equal; in bf16 a row may leave the plain stream only at a
+    # near tie of the plain logits (within the logit limit's atol), as
+    # chip_smoke.py's rule: later steps then decode other inputs, so the
+    # logit and row checks keep the rows that agree before the last step.
+    for b in (toks != ref[3]).any(dim=0).nonzero().flatten().tolist():
+        assert dtype == torch.bfloat16, (toks.tolist(), ref[3].tolist())
+        s = int((toks[:, b] != ref[3][:, b]).nonzero()[0])
+        lg = _mega_run(mega, dc.replace(dims, nsteps=s + 1), args,
+                       plain=True, scales=scales)[0][b]
+        gap = (lg[ref[3][s, b]] - lg[toks[s, b]]).item()
+        print(f"near tie: row {b} step {s} gap {gap:.4f}")
+        assert 0 <= gap <= atol
+    keep = (toks[:-1] == ref[3][:-1]).all(dim=0)
+    used = ((logits - ref[0]).abs() / (atol + rtol * ref[0].abs()))[keep]
+    for a, b in ((knew, ref[1]), (vnew, ref[2])):
+        diff = (a.float() - b.float())[:, :, keep].abs().max().item()
+        assert diff <= 2 * atol + 0.02
+    if "pool" in quant:
+        bad = _mega_run(mega, dims, args, plain=True, scales={
+            "k_scale": scales["v_scale"], "v_scale": scales["k_scale"]})
+    else:
+        w = MegaWeights.from_params(mega._step_params())
+        bad = _mega_run(mega, dims, args, plain=True, w=dc.replace(
+            w, sc_qkv=torch.ones_like(w.sc_qkv)))
+    bad_used = ((logits - bad[0]).abs() / (atol + rtol * bad[0].abs())).max()
+    print(f"mega {quant} {shape} {dtype} ns={ns}: {used.max().item():.3f} "
+          f"of the limit; negative control {bad_used.item():.1f}x")
+    assert used.max().item() <= 1.0
+    assert bad_used.item() > 1.0
+
+
+def test_mega_quant_wrappers_reject_mismatched_operands(dev):
+    """An int8 pool without its scales, scales without kv_quant, and wq8
+    without int8 weights raise before any launch."""
+    import dataclasses as dc
+
+    from triton_distributed_tpu_torch.megakernel import MegaWeights
+
+    mega, dims, args, scales = _mega_quant_inputs(dev, "tiny",
+                                                  torch.float32, "wq8_pool", 1)
+    before = ck.MEGA_DECODE.launches
+    with pytest.raises(ValueError, match="kv_quant"):
+        _mega_run(mega, dims, args)
+    with pytest.raises(ValueError, match="kv_quant"):
+        _mega_run(mega, dc.replace(dims, kv_quant=False), args,
+                  scales=scales)
+    with pytest.raises(ValueError, match="wq8"):
+        _mega_run(mega, dims, args, scales=scales,
+                  w=MegaWeights.from_params(mega.model.params))
+    assert ck.MEGA_DECODE.launches == before
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_mega_decode_eos_matches_plain(dev, dtype):
     """The stop-token stamp: the first step whose token is the row's stop
@@ -557,10 +664,12 @@ def test_mega_decode_eos_matches_plain(dev, dtype):
     assert got[4].tolist() == want
 
 
-def test_mega_serving_launches_the_kernel(dev):
-    """Engine and ContinuousEngine in mode='mega' launch the megakernel
-    for every decode step (multi launches and single-step remainders) and
-    emit the plain version's tokens (tiny f32 on the card == CPU)."""
+def _serve_card_and_cpu(dev, kv_dtype=None, wq8=False):
+    """Tiny f32 through ``Engine(mode='mega', ns=4)`` (dense, or paged
+    under ``kv_dtype``) and ``ContinuousEngine(mode='mega', ns=4)`` on the
+    card and on the CPU: ``(gpu model, outputs, megakernel launches)``
+    per device."""
+    from triton_distributed_tpu_torch.megakernel import MegaConfig
     from triton_distributed_tpu_torch.models import (
         AutoLLM,
         ContinuousEngine,
@@ -573,17 +682,27 @@ def test_mega_serving_launches_the_kernel(dev):
     rng = np.random.default_rng(7)
     prompts = [rng.integers(0, 256, 20).astype(np.int32) for _ in range(3)]
     outs, launches = [], []
+    cfg = MegaConfig(fuse_norms=True, wq8=wq8)
     for m, d in ((gpu, dev), (cpu, "cpu")):
         before = ck.MEGA_DECODE.launches
-        dense = Engine(m, mode="mega", device=d).serve(np.stack(prompts), 11,
-                                                       64, ns=4)
+        dense = Engine(m, mode="mega", paged=kv_dtype is not None,
+                       page_size=16, kv_dtype=kv_dtype, mega_cfg=cfg,
+                       device=d).serve(np.stack(prompts), 11, 64, ns=4)
         eng = ContinuousEngine(m, max_batch=2, page_size=16, max_length=64,
                                prefix_cache=True, mode="mega", ns=4,
-                               device=d)
+                               kv_dtype=kv_dtype, mega_cfg=cfg, device=d)
         toks = eng.run([(p, 9) for p in prompts])
         assert eng.audit() == []
         outs.append((dense, np.concatenate(toks)))
         launches.append(ck.MEGA_DECODE.launches - before)
+    return gpu, outs, launches
+
+
+def test_mega_serving_launches_the_kernel(dev):
+    """Engine and ContinuousEngine in mode='mega' launch the megakernel
+    for every decode step (multi launches and single-step remainders) and
+    emit the plain version's tokens (tiny f32 on the card == CPU)."""
+    gpu, outs, launches = _serve_card_and_cpu(dev)
     assert all(np.array_equal(a, b) for a, b in zip(*outs))
     assert launches[0] > 0 and launches[1] == 0
     with pytest.raises(ValueError, match="contiguous|dims|dtype"):
@@ -593,3 +712,11 @@ def test_mega_serving_launches_the_kernel(dev):
         cache = gpu.new_cache(2, 64)
         mega.decode_fn(2, 32)(gpu.params, torch.zeros(2, dtype=torch.int32),
                               cache)
+
+
+@pytest.mark.parametrize("wq8", [False, True])
+def test_mega_int8_serving_launches_the_kernel(dev, wq8):
+    """The same over an int8 pool, with model or int8 weights."""
+    _, outs, launches = _serve_card_and_cpu(dev, "int8", wq8)
+    assert all(np.array_equal(a, b) for a, b in zip(*outs))
+    assert launches[0] > 0 and launches[1] == 0

@@ -363,6 +363,30 @@ def test_tier_blobs_byte_identical_to_jax(dtype):
                                       np.asarray(w, np.float32))
 
 
+def test_tier_blobs_carry_equal_fingerprints(models):
+    """With the real fingerprints (not a stand-in), the same page under
+    the same weights encodes to the same blob in both packages, so either
+    package's tier entries pass the other's weight check."""
+    jm, tm = models
+    from triton_distributed_tpu.models.continuous import (
+        _model_fingerprint as jax_fingerprint,
+    )
+    from triton_distributed_tpu_torch.models.continuous import (
+        _model_fingerprint,
+    )
+
+    arrays = _payload_arrays(np.random.default_rng(7), "float32")
+    chain = list(range(3, 3 + PAGE))
+    jp = jtier.prefix_payload(chain, PAGE, None, *arrays)
+    tp_ = ttier.prefix_payload(chain, PAGE, None, *map(_as_torch, arrays))
+    jp["model_fp"] = jax_fingerprint(jm)
+    tp_["model_fp"] = _model_fingerprint(tm)
+    assert tp_["model_fp"] == jp["model_fp"]
+    key = ttier.chain_digest(chain)
+    assert (ttier._encode(ttier.PREFIX_KIND, key, tp_)
+            == jtier._encode(jtier.PREFIX_KIND, key, jp))
+
+
 def _entry(n: int) -> dict:
     return {"chain": list(range(n)), "blob": "x" * 200}
 

@@ -15,7 +15,7 @@ version is held against the JAX package on the f32 ``tiny`` preset:
 - ``Engine(mode="mega")`` and ``ContinuousEngine(mode="mega")`` emit the
   JAX ``xla`` engines' greedy tokens exactly, with a bucket launch, a
   capacity fallback and an eos retire inside a launch forced;
-- the knobs this slice does not port are refused.
+- the knobs the port does not build yet are refused.
 
 The JAX megakernel itself is never run here (its interpret mode is the
 JAX package's slow suite); its golden is the JAX ``xla`` path.
@@ -378,22 +378,17 @@ def test_continuous_mega_tokens_identical(models, goldens, prefix_cache):
 # -- refusals -----------------------------------------------------------------
 
 def test_refused_knobs_raise(models):
+    """The megakernel modes this port does not build yet refuse; the int8
+    pool and int8 weights (``kv_quant``, ``wq8``) serve
+    (tests/test_torch_mega_quant.py)."""
     _, tm = models
-    with pytest.raises(NotImplementedError, match="wq8"):
-        MegaQwen3(tm, cfg=MegaConfig(wq8=True))
     mega = MegaQwen3(tm)
     for kw in (dict(sampled=True), dict(filtered=True), dict(ring=True),
-               dict(trace=True), dict(kv_quant=True)):
+               dict(trace=True)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             mega.build_multi(2, MAXLEN, 4, page=PAGE, **kw)
     with pytest.raises(NotImplementedError, match="prefill"):
         mega.prefill(np.arange(8), tm.new_cache(1, MAXLEN))
-    with pytest.raises(NotImplementedError, match="wq8"):
-        mega.quantized_params()
-    cache8, _ = tpk.init_paged_cache(tm.cfg, 2, "cpu", max_length=MAXLEN,
-                                     page_size=PAGE, kv_dtype="int8")
-    with pytest.raises(NotImplementedError, match="int8"):
-        mega.decode_step(torch.tensor([1, 2]), cache8)
     base = MegaDims(**_DIMS)
     import dataclasses
 
@@ -401,12 +396,11 @@ def test_refused_knobs_raise(models):
                  dict(n_ranks=2)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             check_dims(dataclasses.replace(base, **over), MegaConfig())
+    with pytest.raises(ValueError, match="paged"):
+        check_dims(dataclasses.replace(base, kv_quant=True), MegaConfig())
     with pytest.raises(ValueError, match="eos"):
         mega.build_multi(2, MAXLEN, 4, eos=True, valid_arg=True)
-    with pytest.raises(NotImplementedError, match="wq8"):
-        Engine(tm, mode="mega", mega_cfg=MegaConfig(wq8=True), device="cpu")
-    for kw in (dict(resident=True), dict(kernel_trace=True),
-               dict(mega_cfg=MegaConfig(wq8=True))):
+    for kw in (dict(resident=True), dict(kernel_trace=True)):
         with pytest.raises(NotImplementedError):
             ContinuousEngine(tm, page_size=PAGE, max_length=MAXLEN,
                              mode="mega", device="cpu", **kw)

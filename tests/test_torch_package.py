@@ -18,7 +18,6 @@ import numpy as np
 import pytest
 import torch
 
-from triton_distributed_tpu_torch.megakernel import MegaConfig
 from triton_distributed_tpu_torch.models import (
     AutoLLM,
     ContinuousEngine,
@@ -118,7 +117,7 @@ def _refusal(knobs) -> type:
 
 
 @pytest.mark.parametrize("knobs", [
-    dict(mode="mega", mega_cfg=MegaConfig(wq8=True)), dict(mode="pallas"),
+    dict(mode="mega", temperature=0.7), dict(mode="pallas"),
     dict(speculative=2),
     dict(kv_dtype="int8", paged=False), dict(temperature=0.7),
     dict(kv_dtype="fp8", paged=True),

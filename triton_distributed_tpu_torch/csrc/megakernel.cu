@@ -27,11 +27,32 @@
 // eos, the first step whose token is the row's stop token (stop_step [B],
 // NS = never).
 //
+// Three storage types, each a template parameter (no type switch inside a
+// loop): T, the model dtype (f32 or bf16: embed, norms, knew/vnew, the
+// rounding of every GEMM input, a full-width cache); WT, the weights' (T,
+// or int8 under wq8: the five projection weights as int8 codes with one
+// f32 scale per output column, the TPU kernel's `_q8_scale`); CT, the
+// cache's (T, or int8 codes over a paged pool with one f32 scale per
+// (layer, page, kv head), the TPU kernel's kv_quant). All eight
+// combinations are built. An int8 weight widens to f32 exactly, so only
+// the f32 product is scaled: the scale of an output column multiplies the
+// fixed-order split-K sum once (a per-column constant distributes over the
+// K sum, which the TPU kernel scales tile by tile), before SwiGLU for fc1,
+// before the residual add for wo/w2, and in the LM head before the pad
+// mask and the argmax. Over an int8 pool each cached token's score is
+// multiplied by its page's K scale and its V row by the page's V scale,
+// token by token, so a 128-token tile may span pages of any size. The
+// kernel never writes the pool: the new rows leave in T, the launch's own
+// rows are attended at full precision (the band), and the host quantizes
+// them into the pool after the launch.
+//
 // What bounds it on the H100: bytes. A step reads every layer weight once
-// (0.88 GB at Qwen3-0.6B in bf16), the LM head (0.31 GB) and every cached
-// K/V row (114688 B per token over 28 layers); at small batch it does ~2
-// FLOPs per weight byte per row, far under the ~295 FLOP/byte balance
-// point, so the bound is those bytes / 3.35 TB/s.
+// (0.88 GB at Qwen3-0.6B in bf16, 0.44 GB in int8 plus 0.6 MB of scales),
+// the LM head (0.31 GB, 0.16 GB in int8) and every cached K/V row (114688
+// B per token over 28 layers in bf16, 57344 B of codes plus the pages'
+// scales in int8); at small batch it does ~2 FLOPs per weight byte per
+// row, far under the ~295 FLOP/byte balance point, so the bound is those
+// bytes / 3.35 TB/s.
 //
 // Design, correct and simple first. Every block walks the same table. A
 // task is split into tiles over the blocks: 64 output columns by a K range
@@ -50,7 +71,9 @@
 // written inside the kernel is read with ld.global.cg (L2), never through
 // a possibly stale L1 line. The argmax is reduced per block, then across
 // blocks by every block after a barrier. A tile-level scoreboard, TMA
-// weight streams and wgmma are later work.
+// weight streams and wgmma are later work; so are 16-byte int8 weight
+// loads (a thread owns 8 columns, one 8-byte load per row, with twice as
+// many rows in flight as in bf16).
 #include "tdt_common.cuh"
 
 #include <math.h>
@@ -99,6 +122,10 @@ struct Params {
   const int* stop_tok; const int* table; const float* inv_freq;
   float* logits; void* knew; void* vnew; int* toks; int* stop_step;
   unsigned* bar;
+  // wq8: per-output-column scales [L, N] (sc_lm [v_pad]); kv_quant: the
+  // pool's scales [L, P, hkv].
+  const float* sc_qkv; const float* sc_o; const float* sc_w1;
+  const float* sc_w2; const float* sc_lm; const float* ksc; const float* vsc;
   // Workspace views (carved by the host entry).
   float* x; float* h; float* qkv; float* ao; float* mlp; float* part;
   float* attn; float* qs; float* kself; float* vself; float* argv;
@@ -142,6 +169,19 @@ struct Raw8<float> {
   __device__ __forceinline__ void widen(float (&o)[8]) const {
     o[0] = a.x; o[1] = a.y; o[2] = a.z; o[3] = a.w;
     o[4] = b.x; o[5] = b.y; o[6] = b.z; o[7] = b.w;
+  }
+};
+
+template <>
+struct Raw8<int8_t> {
+  uint2 v;
+  __device__ __forceinline__ void load(const int8_t* p) {
+    v = __ldg(reinterpret_cast<const uint2*>(p));
+  }
+  __device__ __forceinline__ void widen(float (&o)[8]) const {
+    const int8_t* e = reinterpret_cast<const int8_t*>(&v);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) o[i] = to_f32(e[i]);
   }
 };
 
@@ -199,10 +239,10 @@ __device__ void row_rstd(const float* x, int B, int d, float eps,
 }
 
 // Stage rows [k0, k1) of a GEMM input src [B, K] into xs [B][k1 - k0],
-// rounded to the weight dtype; with normw, the inline RMS norm
+// rounded to the model dtype T; with normw, the inline RMS norm
 // (src * rstd[b]) * normw[k] first.
-template <typename W>
-__device__ void stage_input(const float* src, int K, const W* normw,
+template <typename T>
+__device__ void stage_input(const float* src, int K, const T* normw,
                             const float* rstd, int B, int k0, int k1,
                             float* xs) {
   const int n = k1 - k0;
@@ -210,7 +250,7 @@ __device__ void stage_input(const float* src, int K, const W* normw,
     const int b = i / n, k = k0 + i % n;
     float v = __ldcg(src + (size_t)b * K + k);
     if (normw != nullptr) v = v * rstd[b] * to_f32(normw[k]);
-    xs[i] = round_to<W>(v);
+    xs[i] = round_to<T>(v);
   }
   __syncthreads();
 }
@@ -220,12 +260,17 @@ __device__ void stage_input(const float* src, int K, const W* normw,
 // 32 row groups x 8 column threads; each thread owns 8 columns (one
 // 16-byte load in bf16) and strides over K, kUnrollK rows' loads in
 // flight at a time; the row groups reduce with shuffles and then through
-// shared memory in a fixed order. With `tile`, the sums are also left in
-// shared memory tile[b][c].
-template <typename W>
-__device__ void gemm_tile(const W* __restrict__ w, int N, int n0, int k0,
+// shared memory in a fixed order. With `colscale` (wq8's per-column
+// scales), each sum is multiplied by its column's scale. With `tile`, the
+// sums are also left in shared memory tile[b][c].
+template <typename WT>
+__device__ void gemm_tile(const WT* __restrict__ w, int N, int n0, int k0,
                           int k1, const float* xs, int B, float* red,
-                          float* out, int ldo, float* tile) {
+                          float* out, int ldo, float* tile,
+                          const float* colscale) {
+  // int8 weights: 8 bytes a row per thread, so twice as many rows in
+  // flight keep the bytes in flight of the bf16 stream.
+  constexpr int kU = sizeof(WT) == 1 ? 2 * kUnrollK : kUnrollK;
   const int tid = threadIdx.x;
   const int ct = tid % kColThreads, rg = tid / kColThreads;
   const int col = n0 + ct * kColsPer;
@@ -236,15 +281,15 @@ __device__ void gemm_tile(const W* __restrict__ w, int N, int n0, int k0,
 #pragma unroll
     for (int j = 0; j < kColsPer; ++j) acc[b][j] = 0.f;
   if (col < N) {
-    const W* wp = w + (size_t)k0 * N + col;
-    for (int kk = rg; kk < nk; kk += kRowGroups * kUnrollK) {
-      Raw8<W> raw[kUnrollK];
+    const WT* wp = w + (size_t)k0 * N + col;
+    for (int kk = rg; kk < nk; kk += kRowGroups * kU) {
+      Raw8<WT> raw[kU];
 #pragma unroll
-      for (int u = 0; u < kUnrollK; ++u)
+      for (int u = 0; u < kU; ++u)
         if (kk + u * kRowGroups < nk)
           raw[u].load(wp + (size_t)(kk + u * kRowGroups) * N);
 #pragma unroll
-      for (int u = 0; u < kUnrollK; ++u) {
+      for (int u = 0; u < kU; ++u) {
         const int k = kk + u * kRowGroups;
         if (k < nk) {
           float wv[kColsPer];
@@ -291,6 +336,7 @@ __device__ void gemm_tile(const W* __restrict__ w, int N, int n0, int k0,
 #pragma unroll
     for (int wi = 0; wi < kWarps; ++wi)
       s += red[(wi * kGroupB + b) * kTileN + c];
+    if (colscale != nullptr && n0 + c < N) s *= colscale[n0 + c];
     if (n0 + c < N) out[(size_t)b * ldo + n0 + c] = s;
     if (tile != nullptr) tile[i] = s;
   }
@@ -308,9 +354,9 @@ __device__ __forceinline__ int pick_split(int ntiles, int K) {
 
 // All tiles of src [B, K] @ w [K, N] over the blocks, each K split into
 // its own partial part[s][B][N], each tile once per batch group.
-template <typename W>
-__device__ void gemm_partials(const W* w, int K, int N, int B, int S,
-                              const float* src, const W* normw,
+template <typename T, typename WT>
+__device__ void gemm_partials(const WT* w, int K, int N, int B, int S,
+                              const float* src, const T* normw,
                               const float* rstd, float* part, float* xs,
                               float* red) {
   const int ntiles = (N + kTileN - 1) / kTileN;
@@ -323,12 +369,12 @@ __device__ void gemm_partials(const W* w, int K, int N, int B, int S,
     for (int b0 = 0; b0 < B; b0 += kGroupB) {
       const int bg = min(kGroupB, B - b0);
       if (s * B + b0 != staged) {
-        stage_input<W>(src + (size_t)b0 * K, K, normw, rstd + b0, bg, k0, k1,
+        stage_input<T>(src + (size_t)b0 * K, K, normw, rstd + b0, bg, k0, k1,
                        xs);
         staged = s * B + b0;
       }
-      gemm_tile<W>(w, N, tile * kTileN, k0, k1, xs, bg, red,
-                   part + ((size_t)s * B + b0) * N, N, nullptr);
+      gemm_tile<WT>(w, N, tile * kTileN, k0, k1, xs, bg, red,
+                    part + ((size_t)s * B + b0) * N, N, nullptr, nullptr);
     }
   }
 }
@@ -340,12 +386,17 @@ __device__ __forceinline__ float sum_parts(const float* part, int S,
   return s;
 }
 
+// Pool page of cached token t of row b, through the page table.
+__device__ __forceinline__ int kv_pid(const Params& p, int b, int t) {
+  return p.page_table[b * p.pps + min(t / p.page, p.pps - 1)];
+}
+
 // Offset of cached token t of (layer, b, kv head h): dense [L, B, hkv, S,
 // hd] or the pool [L, P, hkv, page, hd] through the page table.
 __device__ __forceinline__ size_t kv_off(const Params& p, int layer, int b,
                                          int h, int t) {
   if (p.page > 0) {
-    const int pid = p.page_table[b * p.pps + min(t / p.page, p.pps - 1)];
+    const int pid = kv_pid(p, b, t);
     return ((((size_t)layer * p.num_pages + pid) * p.hkv + h) * p.page +
             (t % p.page)) * p.hd;
   }
@@ -355,8 +406,8 @@ __device__ __forceinline__ size_t kv_off(const Params& p, int layer, int b,
 // One warp: dst[hd] = rope(headnorm(src) * normw, pos) * scale, the JAX
 // kernel's _headnorm then the roll-and-sign rope with the per-lane angle
 // pos * inv_freq[i].
-template <typename W>
-__device__ void head_prep(const float* src, const W* normw, int hd,
+template <typename T>
+__device__ void head_prep(const float* src, const T* normw, int hd,
                           float eps, int pos, const float* inv_freq,
                           float scale, float* dst) {
   const int lane = threadIdx.x % 32, n = hd / 32, half = hd / 2;
@@ -400,26 +451,30 @@ __device__ void head_prep(const float* src, const W* normw, int hd,
 
 // ATTN phase 1, tiles (b, kv head, chunk): the chunk's softmax partial
 // [g][m, l, acc[hd]] over its cached tokens. Chunk 0 also writes the new
-// K/V rows (knew/vnew in the cache dtype; f32 copies for phase 2) and the
-// prepared q rows.
-template <typename W>
+// K/V rows (knew/vnew in the model dtype; f32 copies for phase 2) and the
+// prepared q rows. Over an int8 pool (CT = int8_t) a token's score is its
+// code dot product times its page's K scale, and its V codes are
+// multiplied by the page's V scale.
+template <typename T, typename CT>
 __device__ void attn_partials(const Params& p, int layer, int step,
                               float* sm) {
+  constexpr bool kQuant = sizeof(CT) == 1;
   const int B = p.B, hkv = p.hkv, hd = p.hd, hq = p.hq, g = hq / hkv;
   const int qkvN = (hq + 2 * hkv) * hd;
-  // Cached rows' element offsets, found once per token (the page-table
-  // lookup) and reused by P·V.
+  // Cached rows' element offsets (and, int8, V scales), found once per
+  // token (the page-table lookup) and reused by P·V.
   long long* roff = reinterpret_cast<long long*>(sm);  // [kAttnChunk]
-  float* qv = sm + 2 * kAttnChunk;       // [g][hd]
+  float* tvs = sm + 2 * kAttnChunk;      // [kAttnChunk]
+  float* qv = tvs + kAttnChunk;          // [g][hd]
   float* sc = qv + g * hd;               // [g][kAttnChunk]
   float* kt = sc + g * kAttnChunk;       // [hd] the new K row
   float* stat = kt + hd;                 // [g][2]
   float* pvbuf = stat + 2 * g;           // [kThreads / hd][g][hd]
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const W* qn = reinterpret_cast<const W*>(p.qn) + (size_t)layer * hd;
-  const W* kn = reinterpret_cast<const W*>(p.kn) + (size_t)layer * hd;
-  const W* kc = reinterpret_cast<const W*>(p.kc);
-  const W* vc = reinterpret_cast<const W*>(p.vc);
+  const T* qn = reinterpret_cast<const T*>(p.qn) + (size_t)layer * hd;
+  const T* kn = reinterpret_cast<const T*>(p.kn) + (size_t)layer * hd;
+  const CT* kc = reinterpret_cast<const CT*>(p.kc);
+  const CT* vc = reinterpret_cast<const CT*>(p.vc);
   for (int u = blockIdx.x; u < B * hkv * p.nch; u += gridDim.x) {
     const int c = u % p.nch, kvh = (u / p.nch) % hkv, b = u / (p.nch * hkv);
     const int len = min(p.kv_len[b], p.s_cap);
@@ -430,23 +485,23 @@ __device__ void attn_partials(const Params& p, int layer, int step,
     const float* row = p.qkv + (size_t)b * qkvN;
     for (int hh = warp; hh < g + (c == 0 ? 1 : 0); hh += kWarps) {
       if (hh < g)
-        head_prep<W>(row + (kvh * g + hh) * hd, qn, hd, p.eps, pos,
+        head_prep<T>(row + (kvh * g + hh) * hd, qn, hd, p.eps, pos,
                      p.inv_freq, p.sm_scale, qv + hh * hd);
       else
-        head_prep<W>(row + (hq + kvh) * hd, kn, hd, p.eps, pos, p.inv_freq,
+        head_prep<T>(row + (hq + kvh) * hd, kn, hd, p.eps, pos, p.inv_freq,
                      1.0f, kt);
     }
     __syncthreads();
     if (c == 0) {
-      W* knew = reinterpret_cast<W*>(p.knew);
-      W* vnew = reinterpret_cast<W*>(p.vnew);
+      T* knew = reinterpret_cast<T*>(p.knew);
+      T* vnew = reinterpret_cast<T*>(p.vnew);
       for (int i = tid; i < hd; i += kThreads) {
         const float kval = kt[i];
         const float vval = __ldcg(row + (hq + hkv + kvh) * hd + i);
         const size_t o =
             ((((size_t)step * p.L + layer) * B + b) * hkv + kvh) * hd + i;
-        knew[o] = from_f32<W>(kval);
-        vnew[o] = from_f32<W>(vval);
+        knew[o] = from_f32<T>(kval);
+        vnew[o] = from_f32<T>(vval);
         p.kself[((size_t)b * hkv + kvh) * hd + i] = kval;
         p.vself[((size_t)b * hkv + kvh) * hd + i] = vval;
       }
@@ -464,13 +519,21 @@ __device__ void attn_partials(const Params& p, int layer, int step,
     // tokens' K rows loaded before any is used.
     for (int tb = warp; tb < nt; tb += kWarps * kUnrollT) {
       float kr[kUnrollT][kMaxHd / 32];
+      float ks[kUnrollT];
 #pragma unroll
       for (int u = 0; u < kUnrollT; ++u) {
         const int t = tb + u * kWarps;
         if (t < nt) {
           const size_t off = kv_off(p, layer, b, kvh, t0 + t);
           if (lane == 0) roff[t] = (long long)off;
-          const W* krow = kc + off;
+          if constexpr (kQuant) {
+            const size_t si =
+                ((size_t)layer * p.num_pages + kv_pid(p, b, t0 + t)) * hkv +
+                kvh;
+            ks[u] = p.ksc[si];
+            if (lane == 0) tvs[t] = p.vsc[si];
+          }
+          const CT* krow = kc + off;
 #pragma unroll
           for (int j = 0; j < kMaxHd / 32; ++j)
             if (j < hd / 32) kr[u][j] = to_f32(krow[lane + 32 * j]);
@@ -487,6 +550,7 @@ __device__ void attn_partials(const Params& p, int layer, int step,
               if (j < hd / 32)
                 dot = fmaf(qv[gi * hd + lane + 32 * j], kr[u][j], dot);
             dot = warp_sum(dot);
+            if constexpr (kQuant) dot *= ks[u];
             if (lane == 0) sc[gi * kAttnChunk + t] = dot;
           }
         }
@@ -523,7 +587,12 @@ __device__ void attn_partials(const Params& p, int layer, int step,
 #pragma unroll
         for (int u = 0; u < kUnrollPV; ++u) {
           const int t = tb + u * parts;
-          vv[u] = t < nt ? to_f32(vc[roff[t] + dd]) : 0.f;
+          if (t < nt) {
+            vv[u] = to_f32(vc[roff[t] + dd]);
+            if constexpr (kQuant) vv[u] *= tvs[t];
+          } else {
+            vv[u] = 0.f;
+          }
         }
 #pragma unroll
         for (int u = 0; u < kUnrollPV; ++u) {
@@ -557,15 +626,15 @@ __device__ void attn_partials(const Params& p, int layer, int step,
 
 // ATTN phase 2, tiles (b, kv head): merge the chunk partials, the band
 // (this launch's rows of steps < step) and the token's own K/V into ao.
-template <typename W>
+template <typename T>
 __device__ void attn_merge(const Params& p, int layer, int step, float* sm) {
   const int B = p.B, hkv = p.hkv, hd = p.hd, hq = p.hq, g = hq / hkv;
   const int nb = step, stride = p.nsteps + 1;
   float* qv = sm;             // [g][hd]
   float* sb = qv + g * hd;    // [g][nsteps + 1]: band scores, then self
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const W* knew = reinterpret_cast<const W*>(p.knew);
-  const W* vnew = reinterpret_cast<const W*>(p.vnew);
+  const T* knew = reinterpret_cast<const T*>(p.knew);
+  const T* vnew = reinterpret_cast<const T*>(p.vnew);
   for (int u = blockIdx.x; u < B * hkv; u += gridDim.x) {
     const int kvh = u % hkv, b = u / hkv;
     const size_t bh = (size_t)b * hkv + kvh;
@@ -620,14 +689,17 @@ __device__ void attn_merge(const Params& p, int layer, int step, float* sm) {
 // LM head: logits over the padded vocab in 64-column tiles (each tile
 // once per batch group); in multi-step builds (argmax set, even at
 // NS = 1) each block keeps its best (value, index) per row over the real
-// columns and publishes it to argv/argi.
-template <typename W>
+// columns and publishes it to argv/argi. Under wq8 the logits are scaled
+// per column before they are written or compared.
+template <typename T, typename WT>
 __device__ void lm_head(const Params& p, float* xs, float* red, float* tile,
                         float* rstd, float* best_v, int* best_i) {
   const int B = p.B, K = p.d, N = p.v_pad, tid = threadIdx.x;
   const int warp = tid / 32, lane = tid % 32;
   const float* src = p.fuse_norms ? p.x : p.h;
-  const W* normw = p.fuse_norms ? reinterpret_cast<const W*>(p.normf) : nullptr;
+  const T* normw =
+      p.fuse_norms ? reinterpret_cast<const T*>(p.normf) : nullptr;
+  const float* colscale = sizeof(WT) == 1 ? p.sc_lm : nullptr;
   if (p.fuse_norms) row_rstd(p.x, B, K, p.eps, rstd);
   const bool track = p.argmax != 0;
   for (int b = tid; b < B; b += kThreads) {
@@ -635,7 +707,7 @@ __device__ void lm_head(const Params& p, float* xs, float* red, float* tile,
     best_i[b] = kIdxNone;
   }
   __syncthreads();
-  const W* w = reinterpret_cast<const W*>(p.lm_head);
+  const WT* w = reinterpret_cast<const WT*>(p.lm_head);
   const int ntiles = (N + kTileN - 1) / kTileN;
   int staged = -1;  // b0 of the rows in xs
   for (int u = blockIdx.x; u < ntiles; u += gridDim.x) {
@@ -643,12 +715,12 @@ __device__ void lm_head(const Params& p, float* xs, float* red, float* tile,
     for (int b0 = 0; b0 < B; b0 += kGroupB) {
       const int bg = min(kGroupB, B - b0);
       if (b0 != staged) {
-        stage_input<W>(src + (size_t)b0 * K, K, normw, rstd + b0, bg, 0, K,
+        stage_input<T>(src + (size_t)b0 * K, K, normw, rstd + b0, bg, 0, K,
                        xs);
         staged = b0;
       }
-      gemm_tile<W>(w, N, n0, 0, K, xs, bg, red, p.logits + (size_t)b0 * N,
-                   N, track ? tile : nullptr);
+      gemm_tile<WT>(w, N, n0, 0, K, xs, bg, red, p.logits + (size_t)b0 * N,
+                    N, track ? tile : nullptr, colscale);
       if (track) {
         for (int r = warp; r < bg; r += kWarps) {
           float v = -INFINITY;
@@ -687,9 +759,12 @@ __host__ __device__ __forceinline__ size_t smem_floats(int B, int region) {
          kGroupB * kTileN + region;
 }
 
-template <typename W>
+// T: model dtype; WT: projection weights (T or int8_t); CT: cache (T or
+// int8_t).
+template <typename T, typename WT, typename CT>
 __global__ void __launch_bounds__(kThreads, kMaxBlocksPerSM)
     mega_kernel(const __grid_constant__ Params p) {
+  constexpr bool kQ8 = sizeof(WT) == 1;
   extern __shared__ float smem[];
   float* rstd = smem;
   float* best_v = rstd + p.B;
@@ -703,12 +778,12 @@ __global__ void __launch_bounds__(kThreads, kMaxBlocksPerSM)
   const size_t gthreads = (size_t)gridDim.x * kThreads;
   const int B = p.B, d = p.d, hd = p.hd;
   const int qkvN = (p.hq + 2 * p.hkv) * hd, oK = p.hq * hd;
-  const W* wqkv = reinterpret_cast<const W*>(p.wqkv);
-  const W* wo = reinterpret_cast<const W*>(p.wo);
-  const W* w1 = reinterpret_cast<const W*>(p.w1);
-  const W* w2 = reinterpret_cast<const W*>(p.w2);
-  const W* ln1 = reinterpret_cast<const W*>(p.ln1);
-  const W* ln2 = reinterpret_cast<const W*>(p.ln2);
+  const WT* wqkv = reinterpret_cast<const WT*>(p.wqkv);
+  const WT* wo = reinterpret_cast<const WT*>(p.wo);
+  const WT* w1 = reinterpret_cast<const WT*>(p.w1);
+  const WT* w2 = reinterpret_cast<const WT*>(p.w2);
+  const T* ln1 = reinterpret_cast<const T*>(p.ln1);
+  const T* ln2 = reinterpret_cast<const T*>(p.ln2);
   for (int b = tid; b < B; b += kThreads) tok_s[b] = p.tokens[b];
   __syncthreads();
 
@@ -719,7 +794,7 @@ __global__ void __launch_bounds__(kThreads, kMaxBlocksPerSM)
       const int next = t + 1 < p.T ? p.table[(t + 1) * 8] : -1;
       switch (type) {
         case kEmbed: {
-          const W* emb = reinterpret_cast<const W*>(p.embed);
+          const T* emb = reinterpret_cast<const T*>(p.embed);
           for (size_t i = gtid; i < (size_t)B * d; i += gthreads) {
             const int b = (int)(i / d), k = (int)(i % d);
             const int tok = min(max(tok_s[b], 0), p.vocab - 1);
@@ -729,9 +804,9 @@ __global__ void __launch_bounds__(kThreads, kMaxBlocksPerSM)
           break;
         }
         case kNorm: {
-          const W* w = arg0 == 0   ? ln1 + (size_t)layer * d
+          const T* w = arg0 == 0   ? ln1 + (size_t)layer * d
                        : arg0 == 1 ? ln2 + (size_t)layer * d
-                                   : reinterpret_cast<const W*>(p.normf);
+                                   : reinterpret_cast<const T*>(p.normf);
           row_rstd(p.x, B, d, p.eps, rstd);
           for (size_t i = gtid; i < (size_t)B * d; i += gthreads) {
             const int b = (int)(i / d), k = (int)(i % d);
@@ -744,27 +819,37 @@ __global__ void __launch_bounds__(kThreads, kMaxBlocksPerSM)
         case kFc1: {
           const bool qkv = type == kQkv;
           const int N = qkv ? qkvN : 2 * p.f;
-          const W* w = qkv ? wqkv + (size_t)layer * d * N
-                           : w1 + (size_t)layer * d * N;
-          const W* normw = nullptr;
+          const WT* w = qkv ? wqkv + (size_t)layer * d * N
+                            : w1 + (size_t)layer * d * N;
+          // wq8: this layer's per-column scales, applied to the sums.
+          const float* sc =
+              kQ8 ? (qkv ? p.sc_qkv : p.sc_w1) + (size_t)layer * N : nullptr;
+          const T* normw = nullptr;
           if (p.fuse_norms) {
             normw = (qkv ? ln1 : ln2) + (size_t)layer * d;
             row_rstd(p.x, B, d, p.eps, rstd);
           }
           const int S = pick_split((N + kTileN - 1) / kTileN, d);
-          gemm_partials<W>(w, d, N, B, S, p.fuse_norms ? p.x : p.h,
-                             normw, rstd, p.part, xs, red);
+          gemm_partials<T, WT>(w, d, N, B, S, p.fuse_norms ? p.x : p.h,
+                               normw, rstd, p.part, xs, red);
           grid_sync(p.bar);
           const size_t BN = (size_t)B * N;
           if (qkv) {
-            for (size_t i = gtid; i < BN; i += gthreads)
-              p.qkv[i] = sum_parts(p.part, S, BN, i);
+            for (size_t i = gtid; i < BN; i += gthreads) {
+              float v = sum_parts(p.part, S, BN, i);
+              if constexpr (kQ8) v *= sc[i % N];
+              p.qkv[i] = v;
+            }
           } else {
             const int f = p.f;
             for (size_t i = gtid; i < (size_t)B * f; i += gthreads) {
               const size_t b = i / f, c = i % f;
-              const float gt = sum_parts(p.part, S, BN, b * N + c);
-              const float up = sum_parts(p.part, S, BN, b * N + f + c);
+              float gt = sum_parts(p.part, S, BN, b * N + c);
+              float up = sum_parts(p.part, S, BN, b * N + f + c);
+              if constexpr (kQ8) {  // before SwiGLU
+                gt *= sc[c];
+                up *= sc[f + c];
+              }
               p.mlp[i] = gt * (1.0f / (1.0f + expf(-gt))) * up;
             }
           }
@@ -772,9 +857,9 @@ __global__ void __launch_bounds__(kThreads, kMaxBlocksPerSM)
           break;
         }
         case kAttn: {
-          attn_partials<W>(p, layer, step, xs);
+          attn_partials<T, CT>(p, layer, step, xs);
           grid_sync(p.bar);
-          attn_merge<W>(p, layer, step, xs);
+          attn_merge<T>(p, layer, step, xs);
           grid_sync(p.bar);
           break;
         }
@@ -782,15 +867,20 @@ __global__ void __launch_bounds__(kThreads, kMaxBlocksPerSM)
         case kFc2: {
           const bool o = type == kOProj;
           const int K = o ? oK : p.f;
-          const W* w = o ? wo + (size_t)layer * K * d
-                         : w2 + (size_t)layer * K * d;
+          const WT* w = o ? wo + (size_t)layer * K * d
+                          : w2 + (size_t)layer * K * d;
+          const float* sc =
+              kQ8 ? (o ? p.sc_o : p.sc_w2) + (size_t)layer * d : nullptr;
           const int S = pick_split((d + kTileN - 1) / kTileN, K);
-          gemm_partials<W>(w, K, d, B, S, o ? p.ao : p.mlp, nullptr,
-                             rstd, p.part, xs, red);
+          gemm_partials<T, WT>(w, K, d, B, S, o ? p.ao : p.mlp,
+                               (const T*)nullptr, rstd, p.part, xs, red);
           grid_sync(p.bar);
           const size_t BN = (size_t)B * d;
-          for (size_t i = gtid; i < BN; i += gthreads)
-            p.h[i] = sum_parts(p.part, S, BN, i);
+          for (size_t i = gtid; i < BN; i += gthreads) {
+            float v = sum_parts(p.part, S, BN, i);
+            if constexpr (kQ8) v *= sc[i % d];  // before the residual add
+            p.h[i] = v;
+          }
           // ALLREDUCE reads exactly these elements on these threads.
           if (next != kAllReduce) grid_sync(p.bar);
           break;
@@ -802,7 +892,7 @@ __global__ void __launch_bounds__(kThreads, kMaxBlocksPerSM)
           break;
         }
         case kLmHead: {
-          lm_head<W>(p, xs, red, tile, rstd, best_v, best_i);
+          lm_head<T, WT>(p, xs, red, tile, rstd, best_v, best_i);
           grid_sync(p.bar);
           if (p.argmax) {
             for (int b = tid; b < B; b += kThreads) {
@@ -835,9 +925,9 @@ __global__ void __launch_bounds__(kThreads, kMaxBlocksPerSM)
   }
 }
 
-template <typename W>
+template <typename T, typename WT, typename CT>
 int launch(Params p, long long ws_floats, int* info, cudaStream_t stream) {
-  auto kern = mega_kernel<W>;
+  auto kern = mega_kernel<T, WT, CT>;
   int dev = 0, sms = 0, coop = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return (int)e;
@@ -846,7 +936,7 @@ int launch(Params p, long long ws_floats, int* info, cudaStream_t stream) {
   if (!coop) return (int)cudaErrorNotSupported;
   const int g = p.hq / p.hkv;
   const int kmax = max(p.d, max(p.hq * p.hd, p.f));
-  const int attn_b = 2 * kAttnChunk + g * p.hd + g * kAttnChunk + p.hd +
+  const int attn_b = 3 * kAttnChunk + g * p.hd + g * kAttnChunk + p.hd +
                      2 * g + kThreads * g;
   const int attn_m = g * p.hd + g * (p.nsteps + 1);
   const int region = max(min(p.B, kGroupB) * kmax, max(attn_b, attn_m));
@@ -889,17 +979,30 @@ int launch(Params p, long long ws_floats, int* info, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
+// The weight and cache storage types of one model dtype T.
+template <typename T>
+int launch_t(const Params& p, int wq8, int kv_quant, long long ws_floats,
+             int* info, cudaStream_t s) {
+  if (wq8)
+    return kv_quant ? launch<T, int8_t, int8_t>(p, ws_floats, info, s)
+                    : launch<T, int8_t, T>(p, ws_floats, info, s);
+  return kv_quant ? launch<T, T, int8_t>(p, ws_floats, info, s)
+                  : launch<T, T, T>(p, ws_floats, info, s);
+}
+
 }  // namespace
 
 // ptrs: embed, wqkv, wo, w1, w2, lm_head, ln1, ln2, normf, qn, kn, kc, vc,
 //   page_table (0 = dense), kv_len, tokens, stop_tok (0 without eos),
 //   table, inv_freq, logits, knew, vnew, toks, stop_step, workspace,
-//   barrier counter.
+//   barrier counter, then sc_qkv, sc_o, sc_w1, sc_w2, sc_lm (0 without
+//   wq8), k_scale, v_scale (0 without kv_quant).
 // ints: T, nsteps, B, d, hq, hkv, hd, f, v_pad, v_real, L, s_cap (dense
 //   S or pages_per_seq * page), page (0 = dense), pages_per_seq,
-//   num_pages, fuse_norms, eos, dtype (0 f32, 1 bf16), workspace floats,
-//   vocab rows of embed, argmax (1 = multi-step build: the LM head takes
-//   the argmax and feeds it back).
+//   num_pages, fuse_norms, eos, dtype of the model (0 f32, 1 bf16),
+//   workspace floats, vocab rows of embed, argmax (1 = multi-step build:
+//   the LM head takes the argmax and feeds it back), wq8 (1 = int8
+//   weights), kv_quant (1 = int8 pool, paged only).
 // info (out): blocks launched, dynamic shared memory bytes, blocks per SM
 //   the occupancy calculator allows.
 extern "C" int tdt_mega_decode(const unsigned long long* ptrs,
@@ -933,6 +1036,13 @@ extern "C" int tdt_mega_decode(const unsigned long long* ptrs,
   p.stop_step = (int*)ptrs[k++];
   p.x = (float*)ptrs[k++];  // the workspace base, carved in launch()
   p.bar = (unsigned*)ptrs[k++];
+  p.sc_qkv = (const float*)ptrs[k++];
+  p.sc_o = (const float*)ptrs[k++];
+  p.sc_w1 = (const float*)ptrs[k++];
+  p.sc_w2 = (const float*)ptrs[k++];
+  p.sc_lm = (const float*)ptrs[k++];
+  p.ksc = (const float*)ptrs[k++];
+  p.vsc = (const float*)ptrs[k++];
   int i = 0;
   p.T = ints[i++];
   p.nsteps = ints[i++];
@@ -955,6 +1065,8 @@ extern "C" int tdt_mega_decode(const unsigned long long* ptrs,
   const long long ws_floats = ints[i++];
   p.vocab = ints[i++];
   p.argmax = ints[i++];
+  const int wq8 = ints[i++];
+  const int kv_quant = ints[i++];
   p.nch = (p.s_cap + kAttnChunk - 1) / kAttnChunk;
   p.eps = eps;
   p.sm_scale = sm_scale;
@@ -964,11 +1076,16 @@ extern "C" int tdt_mega_decode(const unsigned long long* ptrs,
       p.nsteps < 1 || (p.eos && p.stop_tok == nullptr) ||
       (p.page > 0 && p.page_table == nullptr) || p.d % 8 != 0 ||
       p.v_pad % 8 != 0 || ((p.hq + 2 * p.hkv) * p.hd) % 8 != 0 ||
-      (2 * p.f) % 8 != 0)
+      (2 * p.f) % 8 != 0 ||
+      (wq8 && (p.sc_qkv == nullptr || p.sc_o == nullptr ||
+               p.sc_w1 == nullptr || p.sc_w2 == nullptr ||
+               p.sc_lm == nullptr)) ||
+      (kv_quant && (p.page == 0 || p.ksc == nullptr || p.vsc == nullptr)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == tdt::kDtypeF32) return launch<float>(p, ws_floats, info, s);
+  if (dtype == tdt::kDtypeF32)
+    return launch_t<float>(p, wq8, kv_quant, ws_floats, info, s);
   if (dtype == tdt::kDtypeBF16)
-    return launch<__nv_bfloat16>(p, ws_floats, info, s);
+    return launch_t<__nv_bfloat16>(p, wq8, kv_quant, ws_floats, info, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -19,7 +19,7 @@ from triton_distributed_tpu_torch.megakernel.model_builder import (
     CompiledMegaKernel,
     ModelBuilder,
 )
-from triton_distributed_tpu_torch.megakernel.qwen3 import MegaQwen3
+from triton_distributed_tpu_torch.megakernel.qwen3 import MegaQwen3, Q8Params
 from triton_distributed_tpu_torch.megakernel.registry import (
     register_task,
     registered_types,
@@ -43,6 +43,7 @@ __all__ = [
     "MegaQwen3",
     "MegaWeights",
     "ModelBuilder",
+    "Q8Params",
     "SchedulePolicy",
     "Task",
     "TaskDependency",

@@ -11,9 +11,11 @@ cooperatively on a CUDA tensor, or runs the plain version
 (``kernels.mega_decode_plain``) on a CPU tensor; a failed build or
 launch raises, it never falls back.
 
-Built here: greedy decode at tp=1 over a dense or a full-width paged
-cache, f32 or bf16 weights, ``nsteps >= 1``, ``eos``. Every other
-``MegaDims`` mode, and ``MegaConfig.wq8``, raise ``NotImplementedError``
+Built here: greedy decode at tp=1 over a dense cache, a full-width paged
+pool or an int8 paged pool (``kv_quant``: codes plus f32 scales ``[L, P,
+Hkv]``), f32 or bf16 models with weights in the model dtype or int8
+(``MegaConfig.wq8``: per-output-channel f32 scales), ``nsteps >= 1``,
+``eos``. Every other ``MegaDims`` mode raises ``NotImplementedError``
 naming the ROADMAP item that ports it.
 """
 
@@ -45,7 +47,8 @@ MAX_BLOCKS_PER_SM = 2
 @dataclasses.dataclass(frozen=True)
 class MegaDims:
     """Static geometry of the decode step (the JAX fields, so a JAX
-    ``MegaDims`` reads the same). Modes outside this slice — ``kv_quant``,
+    ``MegaDims`` reads the same). ``kv_quant`` reads an int8 pool through
+    its per-(layer, page, kv head) scales. Modes outside this slice —
     ``prefill``, ``sampled``, ``filtered``, ``ring``, ``trace``, MoE and
     ``n_ranks > 1`` — are refused by :func:`check_dims`."""
 
@@ -103,7 +106,9 @@ class MegaConfig:
     only at tp > 1. The TPU staging knobs — ``tile_n``, ``tile_k``,
     ``s_blk``, ``nbuf``, ``cross_prefetch`` — are accepted so configs
     and spec strings carry over, and do not change the CUDA kernel,
-    which sizes its own tiles. ``wq8`` (int8 weights) is not ported."""
+    which sizes its own tiles. ``wq8`` decodes from int8 weights
+    (``MegaQwen3.quantized_params``): the five projection weights as
+    int8 codes with one f32 scale per output column."""
 
     tile_n: int = 1024
     tile_k: int = 1024
@@ -147,14 +152,14 @@ class MegaConfig:
                 f"{int(self.overlap_ar)}")
 
 
-WQ8_UNPORTED = ("MegaConfig(wq8=True) (int8 weights with per-channel "
-                "scales) is not ported yet (ROADMAP queue 2 row 6, wq8)")
-
-
 @dataclasses.dataclass(frozen=True)
 class MegaWeights:
     """The tensors the kernel reads, as the model holds them (views of
-    ``Qwen3.params``, never copies): stacked per layer, contiguous."""
+    ``Qwen3.params`` or of ``Q8Params``, never copies): stacked per
+    layer, contiguous. Under ``wq8`` the five projection weights are
+    int8 and the five scale planes (f32, one scale per output column)
+    are set; otherwise every weight is in the model dtype (``embed``'s)
+    and the scales are None."""
 
     embed: torch.Tensor    # [V, d]
     wqkv: torch.Tensor     # [L, d, qkv]
@@ -167,9 +172,19 @@ class MegaWeights:
     normf: torch.Tensor    # [d]
     qn: torch.Tensor       # [L, hd]
     kn: torch.Tensor       # [L, hd]
+    sc_qkv: torch.Tensor | None = None  # [L, 1, qkv]
+    sc_o: torch.Tensor | None = None    # [L, 1, d]
+    sc_w1: torch.Tensor | None = None   # [L, 1, 2f]
+    sc_w2: torch.Tensor | None = None   # [L, 1, d]
+    sc_lm: torch.Tensor | None = None   # [1, v_pad]
 
     @classmethod
-    def from_params(cls, params: dict) -> "MegaWeights":
+    def from_params(cls, params) -> "MegaWeights":
+        """From the model's parameter dict, or from a ``Q8Params``."""
+        if not isinstance(params, dict):
+            return cls(**{f.name: getattr(params, "norm" if f.name == "normf"
+                                          else f.name)
+                          for f in dataclasses.fields(cls)})
         lp = params["layers"]
         return cls(
             embed=params["embed"], wqkv=lp["attn"]["wqkv"],
@@ -179,13 +194,14 @@ class MegaWeights:
             kn=lp["attn"]["k_norm"],
         )
 
+    @property
+    def q8(self) -> bool:
+        return self.sc_qkv is not None
+
 
 def check_dims(dims: MegaDims, cfg: MegaConfig) -> None:
     """Refuse what this slice does not build, naming the ROADMAP item."""
     refused = [
-        (cfg.wq8, WQ8_UNPORTED),
-        (dims.kv_quant, "kv_quant (the int8 pool in the megakernel) is not "
-                        "ported yet (ROADMAP queue 2 row 6, int8 pool)"),
         (dims.prefill, "the prefill megakernel is not ported yet (ROADMAP "
                        "queue 2 row 6(d)); the engines prefill with 'xla'"),
         (dims.sampled or dims.filtered,
@@ -204,6 +220,9 @@ def check_dims(dims: MegaDims, cfg: MegaConfig) -> None:
     for bad, msg in refused:
         if bad:
             raise NotImplementedError(msg)
+    if dims.kv_quant and not dims.page:
+        raise ValueError("kv_quant requires the paged cache (scales live "
+                         "on pool pages)")
     if dims.eos and (not dims.page or dims.nsteps <= 1):
         raise ValueError("device stop-token testing rides the paged "
                          "multi-step decode (page > 0, nsteps > 1)")
@@ -236,19 +255,29 @@ def workspace_floats(dims: MegaDims, n_sms: int) -> int:
 def mega_decode(dims: MegaDims, cfg: MegaConfig, table: torch.Tensor,
                 w: MegaWeights, kc, vc, page_table, kv_len, tokens,
                 stop_tok=None, inv_freq=None, bar=None,
-                info: dict | None = None):
+                info: dict | None = None, k_scale=None, v_scale=None):
     """Run the packed task ``table [T, 8]`` for ``dims.nsteps`` steps.
 
     On CUDA tensors: one cooperative launch of ``csrc/megakernel.cu``
     (counted in ``cuda_kernels.MEGA_DECODE``); on CPU tensors: the plain
     version. Returns ``(logits [B, v_loc] f32 of the last step, knew,
-    vnew [NS, L, B, hkv, hd] in the cache dtype, toks [NS, B] int32,
+    vnew [NS, L, B, hkv, hd] in the model dtype, toks [NS, B] int32,
     stop_step [B] int32)``. ``inv_freq`` is the rope table
     (``kernels.rope_inv_freq``) and ``bar`` the grid barrier's int32
     counter; both are made afresh when not given (:class:`MegaCall` keeps
     its own). ``info`` (optional) receives the launch geometry (blocks,
-    shared memory bytes, occupancy per SM)."""
+    shared memory bytes, occupancy per SM). Under ``dims.kv_quant`` the
+    pool holds int8 codes and ``k_scale``/``v_scale [L, P, Hkv]`` f32 are
+    its scales; under ``cfg.wq8`` ``w`` holds int8 weights and their
+    scales."""
     check_dims(dims, cfg)
+    if cfg.wq8 != w.q8:
+        raise ValueError("MegaConfig(wq8=True) takes int8 weights with "
+                         "their scales (Q8Params), and only wq8 does")
+    if dims.kv_quant != (k_scale is not None and v_scale is not None) or (
+            dims.kv_quant != (kc.dtype == torch.int8)):
+        raise ValueError("an int8 pool, its scales and dims.kv_quant go "
+                         "together")
     dev = kv_len.device
     if inv_freq is None:
         inv_freq = _kernels.rope_inv_freq(dims.head_dim, dims.rope_theta,
@@ -256,25 +285,50 @@ def mega_decode(dims: MegaDims, cfg: MegaConfig, table: torch.Tensor,
     if dev.type != "cuda":
         return _kernels.mega_decode_plain(
             dims, cfg.fuse_norms, table.cpu().numpy(), w, kc, vc,
-            page_table, kv_len, tokens, stop_tok, inv_freq)
+            page_table, kv_len, tokens, stop_tok, inv_freq, k_scale, v_scale)
     if bar is None:
         bar = torch.zeros(4, dtype=torch.int32, device=dev)
     return _launch(dims, cfg, table, w, kc, vc, page_table, kv_len, tokens,
-                   stop_tok, inv_freq, bar, info)
+                   stop_tok, inv_freq, bar, info, k_scale, v_scale)
 
 
 def _launch(dims, cfg, table, w, kc, vc, page_table, kv_len, tokens,
-            stop_tok, inv_freq, bar, info):
+            stop_tok, inv_freq, bar, info, k_scale, v_scale):
     dev = kv_len.device
     B, NS, L = dims.batch, dims.nsteps, dims.num_layers
     hkv, hd = dims.hkv_loc, dims.head_dim
-    wdt = w.wqkv.dtype
-    if wdt not in ck.DTYPE_CODES:
-        raise ValueError(f"megakernel weights must be f32/bf16, got {wdt}")
+    # Three storage types: the model dtype (embed, norms, the new K/V
+    # rows, a full-width cache), the weights' (the model dtype, or int8
+    # under wq8) and the cache's (the model dtype, or int8 codes).
+    mdt = w.embed.dtype
+    if mdt not in ck.DTYPE_CODES:
+        raise ValueError(f"megakernel model dtype must be f32/bf16, got {mdt}")
+    wdt = torch.int8 if cfg.wq8 else mdt
+    cdt = torch.int8 if dims.kv_quant else mdt
     for f in dataclasses.fields(w):  # (asdict would deep-copy tensors)
-        ck.check_cuda_operand(f.name, getattr(w, f.name), dev, wdt)
+        t = getattr(w, f.name)
+        if f.name.startswith("sc_"):
+            if cfg.wq8:
+                ck.check_cuda_operand(f.name, t, dev, torch.float32)
+        elif f.name in ("wqkv", "wo", "w1", "w2", "lm_head"):
+            ck.check_cuda_operand(f.name, t, dev, wdt)
+        else:
+            ck.check_cuda_operand(f.name, t, dev, mdt)
+    if cfg.wq8:
+        for name, n in (("sc_qkv", L * dims.qkv_loc), ("sc_o", L * dims.d),
+                        ("sc_w1", 2 * L * dims.f_loc), ("sc_w2", L * dims.d),
+                        ("sc_lm", dims.v_loc)):
+            if getattr(w, name).numel() != n:
+                raise ValueError(f"{name} has {getattr(w, name).numel()} "
+                                 f"scales, expected {n}")
     for name, t in (("kc", kc), ("vc", vc)):
-        ck.check_cuda_operand(name, t, dev, wdt, 5)
+        ck.check_cuda_operand(name, t, dev, cdt, 5)
+    if dims.kv_quant:
+        for name, t in (("k_scale", k_scale), ("v_scale", v_scale)):
+            ck.check_cuda_operand(name, t, dev, torch.float32, 3)
+            if tuple(t.shape) != (L, kc.shape[1], hkv):
+                raise ValueError(f"{name} {tuple(t.shape)} disagrees with "
+                                 f"the pool {tuple(kc.shape)}")
     if dims.page:
         ck.check_cuda_operand("page_table", page_table, dev, torch.int32, 2)
         if (kc.shape[3] != dims.page or page_table.shape[0] != B
@@ -294,7 +348,7 @@ def _launch(dims, cfg, table, w, kc, vc, page_table, kv_len, tokens,
     ws_n = workspace_floats(dims, n_sms)
     ws = torch.empty(ws_n, dtype=torch.float32, device=dev)
     logits = torch.empty((B, dims.v_loc), dtype=torch.float32, device=dev)
-    knew = torch.empty((NS, L, B, hkv, hd), dtype=wdt, device=dev)
+    knew = torch.empty((NS, L, B, hkv, hd), dtype=mdt, device=dev)
     vnew = torch.empty_like(knew)
     toks = torch.zeros((NS, B), dtype=torch.int32, device=dev)
     stop_step = torch.full((B,), NS, dtype=torch.int32, device=dev)
@@ -302,18 +356,20 @@ def _launch(dims, cfg, table, w, kc, vc, page_table, kv_len, tokens,
     def ptr(t):
         return 0 if t is None else t.data_ptr()
 
-    ptrs = (ctypes.c_uint64 * 26)(*[ptr(t) for t in (
+    ptrs = (ctypes.c_uint64 * 33)(*[ptr(t) for t in (
         w.embed, w.wqkv, w.wo, w.w1, w.w2, w.lm_head, w.ln1, w.ln2,
         w.normf, w.qn, w.kn, kc, vc, page_table if dims.page else None,
         kv_len, tokens, stop_tok if dims.eos else None, table, inv_freq,
-        logits, knew, vnew, toks, stop_step, ws, bar)])
+        logits, knew, vnew, toks, stop_step, ws, bar,
+        w.sc_qkv, w.sc_o, w.sc_w1, w.sc_w2, w.sc_lm, k_scale, v_scale)])
     ints = (ctypes.c_int * 24)(
         table.shape[0], NS, B, dims.d, dims.hq_loc, hkv, hd, dims.f_loc,
         dims.v_loc, min(dims.v_real or dims.v_loc, dims.v_loc), L,
         dims.s_max, dims.page, dims.s_max // dims.page if dims.page else 0,
         kc.shape[1] if dims.page else 0, int(cfg.fuse_norms),
-        int(dims.eos), ck.DTYPE_CODES[wdt], ws_n, w.embed.shape[0],
-        int(_kernels.takes_argmax(dims)), 0, 0, 0)
+        int(dims.eos), ck.DTYPE_CODES[mdt], ws_n, w.embed.shape[0],
+        int(_kernels.takes_argmax(dims)), int(cfg.wq8), int(dims.kv_quant),
+        0)
     out = (ctypes.c_int * 4)()
     ck.MEGA_DECODE(ptrs, ints, ctypes.c_float(dims.rms_eps),
                    ctypes.c_float(hd ** -0.5), out, ck.stream_ptr(kv_len))
@@ -345,7 +401,8 @@ class MegaCall:
         self.bar = torch.zeros(4, dtype=torch.int32, device=device)
 
     def __call__(self, w: MegaWeights, kc, vc, page_table, kv_len, tokens,
-                 stop_tok=None, info: dict | None = None):
+                 stop_tok=None, info: dict | None = None, k_scale=None,
+                 v_scale=None):
         return mega_decode(self.dims, self.cfg, self.table, w, kc, vc,
                            page_table, kv_len, tokens, stop_tok,
-                           self.inv_freq, self.bar, info)
+                           self.inv_freq, self.bar, info, k_scale, v_scale)

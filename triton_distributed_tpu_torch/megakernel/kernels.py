@@ -31,6 +31,7 @@ from triton_distributed_tpu_torch.megakernel.registry import register_task
 from triton_distributed_tpu_torch.megakernel.task import TaskType
 from triton_distributed_tpu_torch.ops.attention.flash_decode import (
     pages_to_dense,
+    scales_to_dense,
 )
 
 
@@ -50,12 +51,14 @@ class MegaState:
     scratch between tasks, and the outputs."""
 
     def __init__(self, dims, fuse_norms: bool, weights, kc, vc, page_table,
-                 kv_len, tokens, stop_tok, inv_freq):
+                 kv_len, tokens, stop_tok, inv_freq, k_scale=None,
+                 v_scale=None):
         B, d = dims.batch, dims.d
         dev = kv_len.device
         self.dims, self.fuse_norms, self.w = dims, fuse_norms, weights
-        self.wdtype = weights.wqkv.dtype
+        self.mdtype = weights.embed.dtype  # the model (compute) dtype
         self.kc, self.vc, self.page_table = kc, vc, page_table
+        self.k_scale, self.v_scale = k_scale, v_scale
         self.kv_len = kv_len.long()
         self.stop_tok = stop_tok
         self.inv_freq = inv_freq.to(dev, torch.float32)
@@ -71,8 +74,8 @@ class MegaState:
             dims.head_dim
         rows = (NS, L, B, hkv, hd)
         self.logits = torch.zeros((B, dims.v_loc), **f32)
-        self.knew = torch.zeros(rows, dtype=kc.dtype, device=dev)
-        self.vnew = torch.zeros(rows, dtype=vc.dtype, device=dev)
+        self.knew = torch.zeros(rows, dtype=self.mdtype, device=dev)
+        self.vnew = torch.zeros(rows, dtype=self.mdtype, device=dev)
         self.toks = torch.zeros((NS, B), dtype=torch.int32, device=dev)
         self.stop_step = torch.full((B,), NS, dtype=torch.int32, device=dev)
 
@@ -83,10 +86,13 @@ def _rms(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
                            + eps) * w.to(torch.float32)
 
 
-def _gemm(st: MegaState, x_f32: torch.Tensor, w: torch.Tensor):
-    """``x [B, K] @ w [K, N]``: the input rounds to the weight dtype, the
-    products accumulate in f32 (the JAX kernel's streamed GEMMs)."""
-    return x_f32.to(st.wdtype).to(torch.float32) @ w.to(torch.float32)
+def _gemm(st: MegaState, x_f32: torch.Tensor, w: torch.Tensor,
+          scale: torch.Tensor | None):
+    """``x [B, K] @ w [K, N]``: the input rounds to the model dtype, the
+    products accumulate in f32 (the JAX kernel's streamed GEMMs); under
+    ``wq8`` the f32 product times the per-column ``scale [1, N]``."""
+    out = x_f32.to(st.mdtype).to(torch.float32) @ w.to(torch.float32)
+    return out if scale is None else out * scale
 
 
 def _normed_input(st: MegaState, layer: int, which: int) -> torch.Tensor:
@@ -118,7 +124,14 @@ def norm_body(st: MegaState, layer: int, arg0: int) -> None:
 
 @register_task(TaskType.QKV_PROJ)
 def qkv_body(st: MegaState, layer: int, arg0: int) -> None:
-    st.qkv = _gemm(st, _normed_input(st, layer, 0), st.w.wqkv[layer])
+    st.qkv = _gemm(st, _normed_input(st, layer, 0), st.w.wqkv[layer],
+                   _layer_scale(st.w.sc_qkv, layer))
+
+
+def _layer_scale(sc, layer: int):
+    """A per-layer ``[L, 1, N]`` scale plane's ``[1, N]`` row (None
+    without ``wq8``)."""
+    return None if sc is None else sc[layer]
 
 
 def _headnorm(t: torch.Tensor, w: torch.Tensor, eps: float):
@@ -161,6 +174,12 @@ def attn_body(st: MegaState, layer: int, arg0: int) -> None:
     else:
         kc = pages_to_dense(st.kc[layer], st.page_table)
         vc = pages_to_dense(st.vc[layer], st.page_table)
+    if st.k_scale is not None:  # int8 pool: dequantize per page and head
+        page = st.kc.shape[3]
+        kc = kc.to(torch.float32) * scales_to_dense(
+            st.k_scale[layer], st.page_table, page)[..., None]
+        vc = vc.to(torch.float32) * scales_to_dense(
+            st.v_scale[layer], st.page_table, page)[..., None]
     qg = q.reshape(B, hkv, g, hd)
     s_c = torch.einsum("bhgd,bhsd->bhgs", qg, kc.to(torch.float32))
     valid = (torch.arange(kc.shape[2], device=q.device)[None, :]
@@ -181,21 +200,24 @@ def attn_body(st: MegaState, layer: int, arg0: int) -> None:
 
 @register_task(TaskType.O_PROJ)
 def o_proj_body(st: MegaState, layer: int, arg0: int) -> None:
-    st.h = _gemm(st, st.ao, st.w.wo[layer])
+    st.h = _gemm(st, st.ao, st.w.wo[layer],
+                 _layer_scale(st.w.sc_o, layer))
 
 
 @register_task(TaskType.FC1)
 def fc1_body(st: MegaState, layer: int, arg0: int) -> None:
     """silu(h @ gate) · (h @ up) over the fused ``[d, gate | up]``
     weight."""
-    gu = _gemm(st, _normed_input(st, layer, 1), st.w.w1[layer])
+    gu = _gemm(st, _normed_input(st, layer, 1), st.w.w1[layer],
+               _layer_scale(st.w.sc_w1, layer))
     gate, up = gu[:, : st.dims.f_loc], gu[:, st.dims.f_loc:]
     st.mlp = gate * torch.sigmoid(gate) * up
 
 
 @register_task(TaskType.FC2)
 def fc2_body(st: MegaState, layer: int, arg0: int) -> None:
-    st.h = _gemm(st, st.mlp, st.w.w2[layer])
+    st.h = _gemm(st, st.mlp, st.w.w2[layer],
+                 _layer_scale(st.w.sc_w2, layer))
 
 
 @register_task(TaskType.ALLREDUCE)
@@ -232,7 +254,8 @@ def lm_head_body(st: MegaState, layer: int, arg0: int) -> None:
     the real columns (``< v_real``: the zero pad columns would beat
     negative logits), first occurrence on ties, feeds the next step."""
     dims = st.dims
-    st.logits = _gemm(st, _normed_input(st, layer, 2), st.w.lm_head)
+    st.logits = _gemm(st, _normed_input(st, layer, 2), st.w.lm_head,
+                      st.w.sc_lm)
     if takes_argmax(dims):
         v_real = min(dims.v_real or dims.v_loc, dims.v_loc)
         cols = torch.arange(dims.v_loc, device=st.logits.device)
@@ -246,20 +269,21 @@ def lm_head_body(st: MegaState, layer: int, arg0: int) -> None:
 
 def mega_decode_plain(dims, fuse_norms: bool, table: np.ndarray, weights,
                       kc, vc, page_table, kv_len, tokens, stop_tok=None,
-                      inv_freq=None):
+                      inv_freq=None, k_scale=None, v_scale=None):
     """Walk the packed ``table [T, 8]`` for ``dims.nsteps`` steps over one
     :class:`MegaState`. Returns ``(logits [B, v_loc] f32 of the last
-    step, knew, vnew [NS, L, B, hkv, hd], toks [NS, B] int32, stop_step
-    [B] int32)``; ``toks`` is zeros in single-step builds (the host
-    takes the argmax of the logits) and ``stop_step`` all ``nsteps``
-    without ``eos``."""
+    step, knew, vnew [NS, L, B, hkv, hd] in the model dtype, toks [NS, B]
+    int32, stop_step [B] int32)``; ``k_scale``/``v_scale [L, P, Hkv]``
+    are an int8 pool's scales (None for a full-width cache); ``toks`` is
+    zeros in single-step builds (the host takes the argmax of the
+    logits) and ``stop_step`` all ``nsteps`` without ``eos``."""
     from triton_distributed_tpu_torch.megakernel.registry import get_body
 
     if inv_freq is None:
         inv_freq = rope_inv_freq(dims.head_dim, dims.rope_theta,
                                  kv_len.device)
     st = MegaState(dims, fuse_norms, weights, kc, vc, page_table, kv_len,
-                   tokens, stop_tok, inv_freq)
+                   tokens, stop_tok, inv_freq, k_scale, v_scale)
     rows = [(TaskType(int(r[0])), int(r[1]), int(r[2]))
             for r in np.asarray(table)]
     bodies = [(get_body(t), layer, arg0) for t, layer, arg0 in rows]

@@ -11,14 +11,18 @@ own earlier rows attended as the in-launch band), over a dense
 ``keep = min(n_valid, stop_step + 1) * (1 - halt)``).
 
 The kernel never writes the cache: the new K/V rows leave as ``knew /
-vnew [NS, L, B, hkv, hd]`` and the step appends them (in place, as the
-port's caches are written). It reads the model's own parameter tensors;
-nothing is copied.
+vnew [NS, L, B, hkv, hd]`` in the model dtype and the step appends them
+(in place, as the port's caches are written). Over an int8 pool
+(``kv_quant``) the kernel reads the codes through the pool's per-page
+scales and the append quantizes the rows into the pool
+(``paged_kv_cache.append_n``). It reads the model's own parameter
+tensors, nothing copied; under ``MegaConfig(wq8=True)`` it reads int8
+weights instead (:class:`Q8Params`, from ``quantized_params()`` or
+``quantized_init()``).
 
 Refused with ``NotImplementedError``: sampled and filtered multi-step
-decode, the work ring, the task tracer, int8 pools (``kv_quant``),
-int8 weights (``wq8``), MoE models and the prefill megakernel
-(ROADMAP queue 2 row 6).
+decode, the work ring, the task tracer, MoE models and the prefill
+megakernel (ROADMAP queue 2 row 6).
 """
 
 from __future__ import annotations
@@ -28,7 +32,6 @@ import dataclasses
 import torch
 
 from triton_distributed_tpu_torch.megakernel.code_generator import (
-    WQ8_UNPORTED,
     MegaConfig,
     MegaDims,
     MegaWeights,
@@ -37,10 +40,70 @@ from triton_distributed_tpu_torch.megakernel.model_builder import ModelBuilder
 from triton_distributed_tpu_torch.megakernel.scheduler import SchedulePolicy
 from triton_distributed_tpu_torch.models.kv_cache import KVCache
 from triton_distributed_tpu_torch.models.paged_kv_cache import (
+    _INV_Q_MAX,
+    _Q_MAX,
     PagedKVCache,
     append,
     append_n,
 )
+from triton_distributed_tpu_torch.models.qwen import pad_vocab
+
+
+@dataclasses.dataclass
+class Q8Params:
+    """Weight-only int8 megakernel parameters (``MegaConfig.wq8``), the
+    JAX ``Q8Params`` at tp=1 with its shapes. The five projection weights
+    are symmetric per-OUTPUT-channel int8 codes (scale = max|w| / 127
+    over the contraction axis, f32); everything else stays in the model
+    dtype, ``embed`` included even when the checkpoint ties it to
+    ``lm_head``: the tied tensor is then held twice, in the model dtype
+    for the gather and in int8 for the head. ``MegaWeights.from_params``
+    reads it as the JAX ``_kernel_args_q8`` does."""
+
+    embed: torch.Tensor    # [V, d] model dtype
+    wqkv: torch.Tensor     # [L, d, qkv] int8
+    wo: torch.Tensor       # [L, hq*hd, d] int8
+    w1: torch.Tensor       # [L, d, 2f] int8
+    w2: torch.Tensor       # [L, f, d] int8
+    lm_head: torch.Tensor  # [d, v_pad] int8
+    sc_qkv: torch.Tensor   # [L, 1, qkv] f32
+    sc_o: torch.Tensor     # [L, 1, d] f32
+    sc_w1: torch.Tensor    # [L, 1, 2f] f32
+    sc_w2: torch.Tensor    # [L, 1, d] f32
+    sc_lm: torch.Tensor    # [1, v_pad] f32
+    ln1: torch.Tensor
+    ln2: torch.Tensor
+    norm: torch.Tensor
+    qn: torch.Tensor
+    kn: torch.Tensor
+
+
+def _quantize_shard(params: dict) -> Q8Params:
+    """The JAX ``_quantize_shard`` at tp=1 (one shard): each projection
+    weight quantized per output column. The scale is ``max|w| * (1/127)``
+    floored at 1e-12: the JAX package computes ``max|w| / 127`` under
+    ``jax.jit``, which XLA compiles to that product, so the codes and
+    scales match its ``quantized_params()`` bit for bit."""
+    lp = params["layers"]
+
+    def q(w, dim):
+        wf = w.to(torch.float32)
+        s = torch.amax(wf.abs(), dim=dim, keepdim=True) * _INV_Q_MAX
+        s = torch.clamp(s, min=1e-12)
+        wi = torch.clamp(torch.round(wf / s), -_Q_MAX, _Q_MAX)
+        return wi.to(torch.int8), s
+
+    wqkv8, sq = q(lp["attn"]["wqkv"], 1)
+    wo8, so = q(lp["attn"]["wo"], 1)
+    w18, s1 = q(lp["mlp"]["w1"], 1)
+    w28, s2 = q(lp["mlp"]["w2"], 1)
+    lm8, slm = q(params["lm_head"], 0)
+    return Q8Params(
+        embed=params["embed"], wqkv=wqkv8, wo=wo8, w1=w18, w2=w28,
+        lm_head=lm8, sc_qkv=sq, sc_o=so, sc_w1=s1, sc_w2=s2, sc_lm=slm,
+        ln1=lp["ln1"], ln2=lp["ln2"], norm=params["norm"],
+        qn=lp["attn"]["q_norm"], kn=lp["attn"]["k_norm"],
+    )
 
 
 def _refuse(**modes) -> None:
@@ -49,8 +112,6 @@ def _refuse(**modes) -> None:
         "filtered": "in-kernel top-k/top-p (ROADMAP queue 2 row 6(b))",
         "ring": "the resident work ring (ROADMAP queue 2 row 6(c))",
         "trace": "the device task tracer (ROADMAP queue 2 row 6(c))",
-        "kv_quant": "the int8 pool in the megakernel (ROADMAP queue 2 "
-                    "row 6, int8 pool)",
         "straggler_rank": "multi-rank fixtures (ROADMAP queue 2 row 6(e))",
     }
     for name, value in modes.items():
@@ -63,11 +124,11 @@ class MegaQwen3:
 
     def __init__(self, model, *, cfg: MegaConfig | None = None,
                  policy: SchedulePolicy = SchedulePolicy.ROUND_ROBIN):
-        if model.params is None:
-            raise ValueError("load or init Qwen3 params first")
         self.cfg = cfg or MegaConfig()
-        if self.cfg.wq8:
-            raise NotImplementedError(WQ8_UNPORTED)
+        if model.params is None and not self.cfg.wq8:
+            # wq8 decode can run from Q8Params alone (quantized_init);
+            # every other path needs the model's parameters.
+            raise ValueError("load or init Qwen3 params first")
         if getattr(model.cfg, "num_experts", 0):
             raise NotImplementedError(
                 "MoE megakernel decode is not ported yet (ROADMAP queue 2 "
@@ -75,16 +136,20 @@ class MegaQwen3:
         self.model = model
         self.policy = policy
         self._jit: dict = {}
+        self._q8: Q8Params | None = None
 
     def _dims(self, batch: int, s_max: int, page: int = 0,
               kv_quant: bool = False, num_pages: int = 0,
               trace: bool = False) -> MegaDims:
         c = self.model.cfg
+        # The LM head's vocab axis is padded to 128 (``set_params`` pads
+        # it, the step wrappers slice the pad logits off), taken from the
+        # config so that a model without parameters (quantized_init)
+        # builds too.
         return MegaDims(
             batch=batch, d=c.hidden_size, hq_loc=c.num_q_heads,
             hkv_loc=c.num_kv_heads, head_dim=c.head_dim,
-            f_loc=c.intermediate_size,
-            v_loc=int(self.model.params["lm_head"].shape[1]),
+            f_loc=c.intermediate_size, v_loc=pad_vocab(c.vocab_size),
             num_layers=c.num_layers, s_max=s_max, n_ranks=1,
             rms_eps=c.rms_eps, rope_theta=c.rope_theta, page=page,
             kv_quant=kv_quant, num_pages=num_pages, trace=trace,
@@ -95,9 +160,75 @@ class MegaQwen3:
         mb.build_decoder_graph()
         return mb.compile(self.policy)
 
-    def _step_params(self) -> dict:
-        """What the built steps take as their first argument."""
+    def _step_params(self):
+        """What the built steps take as their first argument: the int8
+        :class:`Q8Params` under ``wq8``, the model's params otherwise."""
+        if self.cfg.wq8:
+            return self.quantized_params()
         return self.model.params
+
+    @staticmethod
+    def _scale_args(cache: PagedKVCache, kv_quant: bool) -> dict:
+        """The scale operands of a quantized pool's launch: the pool's
+        ``[L, P, Hkv]`` planes as they are (a CUDA thread indexes any
+        layer and page; the TPU kernel's ``[L, P, 1, H]`` reshape is not
+        needed)."""
+        if not kv_quant:
+            return {}
+        return {"k_scale": cache.k_scale, "v_scale": cache.v_scale}
+
+    def quantized_params(self) -> Q8Params:
+        """The int8 weights ``wq8`` steps take in place of
+        ``model.params``: quantized once from the model's parameters and
+        cached on this instance."""
+        if self._q8 is None:
+            if self.model.params is None:
+                raise ValueError(
+                    "no parameters to quantize: load or init the model "
+                    "first, or make int8 weights with quantized_init()")
+            self._q8 = _quantize_shard(self.model.params)
+        return self._q8
+
+    def quantized_init(self, generator: torch.Generator) -> Q8Params:
+        """Synthetic int8 parameters made on the model's device without
+        ever making the full-precision weights: uniform int8 codes in
+        [-127, 127] from ``generator``, every scale 0.02/127, the embed
+        ~N(0, 0.02²) in the model dtype, the norms 1. The logits carry no
+        knowledge; the shapes, byte streams and dequantization are the
+        real ones. Requires ``MegaConfig(wq8=True)``; fills the cache
+        :meth:`quantized_params` reads."""
+        if not self.cfg.wq8:
+            raise ValueError("quantized_init requires MegaConfig(wq8=True)")
+        c = self.model.cfg
+        dev, dt = self.model.device, c.dtype
+        hd, d, L, f = c.head_dim, c.hidden_size, c.num_layers, \
+            c.intermediate_size
+        qkv = (c.num_q_heads + 2 * c.num_kv_heads) * hd
+        v_pad = pad_vocab(c.vocab_size)
+
+        def w8(*shape):
+            return torch.randint(-127, 128, shape, generator=generator,
+                                 device=dev, dtype=torch.int8)
+
+        def sc(*shape):
+            return torch.full(shape, 0.02 / 127.0, dtype=torch.float32,
+                              device=dev)
+
+        def ones(*shape):
+            return torch.ones(shape, dtype=dt, device=dev)
+
+        embed = torch.randn((c.vocab_size, d), generator=generator,
+                            device=dev, dtype=torch.float32) * 0.02
+        self._q8 = Q8Params(
+            embed=embed.to(dt), wqkv=w8(L, d, qkv),
+            wo=w8(L, c.num_q_heads * hd, d), w1=w8(L, d, 2 * f),
+            w2=w8(L, f, d), lm_head=w8(d, v_pad),
+            sc_qkv=sc(L, 1, qkv), sc_o=sc(L, 1, d), sc_w1=sc(L, 1, 2 * f),
+            sc_w2=sc(L, 1, d), sc_lm=sc(1, v_pad),
+            ln1=ones(L, d), ln2=ones(L, d), norm=ones(d), qn=ones(L, hd),
+            kn=ones(L, hd),
+        )
+        return self._q8
 
     # -- single step ------------------------------------------------------
     def build(self, batch: int, s_max: int, page: int = 0,
@@ -106,7 +237,7 @@ class MegaQwen3:
         """Build and schedule the task graph; returns ``(compiled, step,
         f)`` with ``f(params, tokens, cache) → (logits [B, V], cache)``
         (``step`` is the same function: PyTorch has nothing to jit)."""
-        _refuse(kv_quant=kv_quant, trace=trace)
+        _refuse(trace=trace)
         dims = self._dims(batch, s_max, page, kv_quant, num_pages, trace)
         compiled = self._compile(dims)
         run = compiled.run
@@ -118,7 +249,8 @@ class MegaQwen3:
             if page:
                 logits, knew, vnew, _, _ = run(
                     w, cache.k_pages, cache.v_pages, cache.page_table,
-                    cache.kv_len, tokens)
+                    cache.kv_len, tokens,
+                    **self._scale_args(cache, kv_quant))
                 cache = append(cache, knew[0], vnew[0])
             else:
                 logits, knew, vnew, _, _ = run(
@@ -143,11 +275,9 @@ class MegaQwen3:
         launch of the kernel, ``nsteps = 1``)."""
         b = int(torch.as_tensor(tokens).shape[0])
         if isinstance(cache, PagedKVCache):
-            if cache.quantized:
-                _refuse(kv_quant=True)
             page = int(cache.k_pages.shape[3])
             s_max = int(cache.page_table.shape[1]) * page
-            step = self._built(b, s_max, page, False,
+            step = self._built(b, s_max, page, cache.quantized,
                                int(cache.k_pages.shape[1]))[1]
         else:
             step = self._built(b, int(cache.k.shape[3]))[1]
@@ -182,7 +312,7 @@ class MegaQwen3:
         stop token (``nsteps`` = never) and the append keeps ``min(n_valid,
         stop_step + 1) * (1 - halt)`` rows."""
         _refuse(sampled=sampled, filtered=filtered, ring=ring, trace=trace,
-                kv_quant=kv_quant, straggler_rank=straggler_rank)
+                straggler_rank=straggler_rank)
         if eos and not page:
             raise ValueError("eos rides the paged serving path only")
         if eos and not valid_arg:
@@ -206,9 +336,11 @@ class MegaQwen3:
             if page:
                 logits, knew, vnew, toks, ss = run(
                     w, cache.k_pages, cache.v_pages, cache.page_table,
-                    cache.kv_len, tokens, stop_tok)
+                    cache.kv_len, tokens, stop_tok,
+                    **self._scale_args(cache, kv_quant))
                 # [NS, L, B, hkv, hd] → [L, B, hkv, NS, hd]: one scatter
-                # lands every step's rows.
+                # lands every step's rows (an int8 pool takes them step
+                # by step, quantizing, in append_n).
                 k_rows = knew.permute(1, 2, 3, 0, 4)
                 v_rows = vnew.permute(1, 2, 3, 0, 4)
                 if eos:
@@ -256,9 +388,6 @@ class MegaQwen3:
         raise NotImplementedError(
             "the prefill megakernel (_build_prefill) is not ported yet "
             "(ROADMAP queue 2 row 6(d)); the engines prefill with 'xla'")
-
-    def quantized_params(self):
-        raise NotImplementedError(WQ8_UNPORTED)
 
 
 def _ints(a, dev) -> torch.Tensor:

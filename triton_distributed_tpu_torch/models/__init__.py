@@ -38,6 +38,7 @@ from triton_distributed_tpu_torch.models.qwen import (  # noqa: F401
     Qwen3,
     load_hf_state_dict,
     params_from_jax,
+    q8_params_from_jax,
 )
 
 

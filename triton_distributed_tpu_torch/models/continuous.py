@@ -36,7 +36,11 @@ smallest power-of-two batch bucket that covers the active slots
 ``n_valid`` rows (the rest go to the trash page) and, with ``eos_id``,
 stops at its first stop token, found in the kernel. A round that cannot
 launch (a slot within ``ns`` of ``max_length``) takes a single-step
-launch of the same kernel.
+launch of the same kernel. Over an int8 pool (``kv_dtype="int8"``) the
+kernel reads the codes through the pool-wide per-page scales (a bucket's
+compacted table reads them unchanged) and the append quantizes the
+launch's rows into the pool step by step; ``mega_cfg=MegaConfig(
+wq8=True)`` decodes from int8 weights (prefill keeps the model's own).
 
 A KV tier (``tier=``, or one built from ``tier_bytes=``/``tier_dir=``,
 :class:`kv_tier.PageStore`) sits behind the radix tree: an evicted full
@@ -53,10 +57,10 @@ the cold-window attention partials with ``lse_combine``; the batched
 decode sees the slot as empty and its logits are spliced over.
 
 Greedy only. Not ported, and refused when asked for: sampled requests
-(``temperature > 0``), resident decode, ``MegaConfig(wq8=True)``,
-slot migration/snapshots, the KV fabric, context-parallel prefill, the
-device task tracer (ROADMAP queue 1). Cancellation, request timelines
-and fault seams are not ported either.
+(``temperature > 0``), resident decode, slot migration/snapshots, the KV
+fabric, context-parallel prefill, the device task tracer (ROADMAP queue
+1). Cancellation, request timelines and fault seams are not ported
+either.
 """
 
 from __future__ import annotations
@@ -115,36 +119,45 @@ from triton_distributed_tpu_torch.obs import metrics as obs_metrics
 
 
 def _model_fingerprint(model) -> str:
-    """Identity of the weights a tier entry was produced under: the
-    class name, every parameter's shape and dtype, and a value sample
-    spread over the tree (up to 8 leaves at an even stride plus the last
-    one, the LM head; 64 elements strided over each whole flattened
-    leaf, so a layer-stacked ``[L, ...]`` leaf samples every layer). A
-    ``tier_dir`` reused across a weight update then faults back nothing
-    instead of stale KV. A few small device reads, once per engine with
-    a tier."""
+    """Identity of the weights a tier entry was produced under, the JAX
+    package's byte stream for the same weights (so a ``tier_dir`` written
+    by either package faults back into the other): the class name, every
+    parameter's shape and dtype name (``float32``, ``bfloat16``), and a
+    value sample spread over the tree (up to 8 leaves at an even stride
+    plus the last one, the LM head; 64 elements strided over each whole
+    flattened leaf in its own dtype, so a layer-stacked ``[L, ...]``
+    leaf samples every layer). Leaves go in the JAX ``Qwen3Params``
+    order: ``embed``, the layer leaves (``ln1``, ``attn.{wqkv, wo,
+    q_norm, k_norm}``, ``ln2``, ``mlp.{w1, w2}``), ``norm``, ``lm_head``
+    (the port's LM head has the JAX shape: both pad the vocab to 128).
+    A ``tier_dir`` reused across a weight update then faults back
+    nothing instead of stale KV. A few small device reads, once per
+    engine with a tier."""
+    from triton_distributed_tpu_torch.models.qwen import _LAYER_LEAVES
+
     h = hashlib.sha1(type(model).__name__.encode())
-    leaves = []
-
-    def walk(node):
-        if isinstance(node, dict):
-            for key in sorted(node):
-                walk(node[key])
-        elif isinstance(node, torch.Tensor):
-            leaves.append(node)
-
-    walk(getattr(model, "params", None))
+    params = getattr(model, "params", None) or {}
+    leaves = [params.get("embed")]
+    for path in _LAYER_LEAVES:
+        node = params.get("layers") or {}
+        for name in path:
+            node = (node or {}).get(name)
+        leaves.append(node)
+    leaves += [params.get("norm"), params.get("lm_head")]
+    leaves = [t for t in leaves if t is not None]  # as jax tree_leaves
     for leaf in leaves:
         h.update(str(tuple(leaf.shape)).encode())
-        h.update(str(leaf.dtype).encode())
+        h.update(str(leaf.dtype).removeprefix("torch.").encode())
     sampled = leaves[::max(1, len(leaves) // 8)][:8]
     if leaves and leaves[-1] is not sampled[-1]:
         sampled.append(leaves[-1])
     for leaf in sampled:
         flat = leaf.reshape(-1)
         stride = max(1, flat.shape[0] // 64)
-        sample = flat[::stride][:64].to(torch.float32).cpu().numpy()
-        h.update(sample.tobytes())
+        sample = flat[::stride][:64]
+        if sample.dtype == torch.bfloat16:  # its raw 2-byte words
+            sample = sample.view(torch.int16)
+        h.update(sample.cpu().numpy().tobytes())
     return h.hexdigest()
 
 
@@ -1272,6 +1285,7 @@ class ContinuousEngine(MegaDispatch):
         mega = self._mega_model()
         fn = mega.decode_multi_fn(
             plan.B, self.max_length, NS, page=self.page_size,
+            kv_quant=self.kv_dtype is not None,
             num_pages=int(self.cache.k_pages.shape[1]), valid_arg=True,
             eos=plan.eos)
         outs = fn(mega._step_params(), tok, cache_in, *extra)

@@ -13,10 +13,13 @@ pool with the prefix cache, draft trees fed by the radix tree.
 ``mode="mega"`` decodes through the megakernel (``MegaDispatch``):
 ``serve(ns=8)`` runs ``(gen_len - 1) // ns`` launches of ``ns`` steps
 each (in-kernel argmax) and the remainder as single-step launches of
-the same kernel; prefill runs the ``xla`` path, as in the JAX package.
+the same kernel, over a dense cache, a paged pool or an int8 pool;
+prefill runs the ``xla`` path, as in the JAX package. With
+``mega_cfg=MegaConfig(wq8=True)`` decode reads int8 weights
+(``MegaQwen3.quantized_params``) and prefill the model's own.
 
 Not ported, and refused when asked for: ``mode="pallas"``, ``profile``,
-``temperature > 0``, ``MegaConfig(wq8=True)`` (ROADMAP queues 1 and 2).
+``temperature > 0`` (ROADMAP queue 1).
 """
 
 from __future__ import annotations
@@ -81,12 +84,6 @@ def engine_setup(model, device, mode: str, temperature: float,
         )
     if mode != "mega":
         check_mode(mode)
-    if mega_cfg is not None and mega_cfg.wq8:
-        from triton_distributed_tpu_torch.megakernel.code_generator import (
-            WQ8_UNPORTED,
-        )
-
-        raise NotImplementedError(WQ8_UNPORTED)
     if temperature > 0.0:
         raise NotImplementedError(SAMPLED_SERVING)
     for name, value in unported.items():
@@ -464,6 +461,7 @@ class Engine(MegaDispatch):
             return tok, cache, left, 0
         fn = self._mega_model().decode_multi_fn(
             b, s_max, NS, page=self.page_size if self.paged else 0,
+            kv_quant=self.paged and self.kv_dtype is not None,
             num_pages=int(cache.k_pages.shape[1]) if self.paged else 0)
         params = self._mega_model()._step_params()
         for _ in range(launches):

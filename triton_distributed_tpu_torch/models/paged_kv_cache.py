@@ -105,7 +105,9 @@ def quantized_row_scatter(pages, scales, rows, pids, offs, touched=None):
     int8. Returns ``(pages, scales)``.
 
     THE one implementation of the scale protocol: the chunk-prefill
-    scatter and the decode append (``layers/tp_attn.py``) both call it.
+    scatter and the decode append (``layers/tp_attn.py``) both call it,
+    and :func:`append_n` runs it over every layer at once
+    (:func:`_row_scatter_layers`, the JAX package's layer vmap).
     Duplicate ``pids`` (several rows in one page, trash-page fan-in) are
     safe: the scale min/max are reductions, and duplicate re-quantized
     pages are identical. ``touched`` (default ``pids``) lists the pages
@@ -119,31 +121,52 @@ def quantized_row_scatter(pages, scales, rows, pids, offs, touched=None):
     ``torch.where`` on the same condition, so the codes match the JAX
     package's bit for bit without the host ever reading a value.
     """
-    rows = rows.to(torch.float32)
+    _row_scatter_layers(pages[None], scales[None], rows[None], pids, offs,
+                        touched)
+    return pages, scales
+
+
+def _row_scatter_layers(pages, scales, rows, pids, offs, touched=None):
+    """:func:`quantized_row_scatter` over a leading layer axis, in place:
+    ``pages [L, P, H, page, hd]``, ``scales [L, P, H]``, ``rows [L, C, H,
+    hd]`` and one ``(pids, offs)`` for every layer. Each layer is its own
+    protocol instance (the JAX ``vmap``): its re-quantization is skipped
+    when none of ITS touched scales moved. The layers are flattened into
+    one ``[L * P]`` page axis (``view``: the pool must be contiguous, so
+    the writes land in it)."""
+    n_l, n_p, h = scales.shape
+    rows = rows.to(torch.float32).reshape(-1, h, rows.shape[-1])
     pids = pids.long()
-    offs = offs.long()
     touched = pids if touched is None else touched.long()
-    row_sc = torch.amax(rows.abs(), dim=-1) * _INV_Q_MAX  # [C, H]
-    clear = torch.where(offs == 0, 0.0, float("inf"))[:, None].expand_as(
+    base = torch.arange(n_l, device=pids.device)[:, None] * n_p
+    flat_p = (base + pids[None]).reshape(-1)       # [L*C]
+    flat_t = (base + touched[None]).reshape(-1)    # [L*T]
+    flat_o = offs.long().repeat(n_l)
+    flat_sc = scales.view(n_l * n_p, h)
+    flat_pages = pages.view(n_l * n_p, *pages.shape[2:])
+    row_sc = torch.amax(rows.abs(), dim=-1) * _INV_Q_MAX  # [L*C, H]
+    clear = torch.where(flat_o == 0, 0.0, float("inf"))[:, None].expand_as(
         row_sc)
-    old_sc = scales.index_select(0, touched)  # [T, H]
-    idx = pids[:, None].expand_as(row_sc)
-    scales.scatter_reduce_(0, idx, clear, "amin", include_self=True)
-    scales.scatter_reduce_(0, idx, row_sc, "amax", include_self=True)
-    new_sc = scales.index_select(0, touched)
-    # Where no touched scale moved, ratio 1 keeps every code as it is.
-    ratio = torch.where(torch.any(new_sc != old_sc),
-                        old_sc / torch.clamp(new_sc, min=_SCALE_EPS), 1.0)
-    got = pages.index_select(0, touched)  # [T, H, page, hd] int8
-    pages[touched] = torch.clamp(
+    old_sc = flat_sc.index_select(0, flat_t)  # [L*T, H]
+    idx = flat_p[:, None].expand_as(row_sc)
+    flat_sc.scatter_reduce_(0, idx, clear, "amin", include_self=True)
+    flat_sc.scatter_reduce_(0, idx, row_sc, "amax", include_self=True)
+    new_sc = flat_sc.index_select(0, flat_t)
+    # Where none of a layer's touched scales moved, ratio 1 keeps every
+    # code of that layer as it is.
+    moved = (new_sc != old_sc).reshape(n_l, touched.shape[0] * h).any(dim=1)
+    moved = moved.repeat_interleave(touched.shape[0])[:, None]
+    ratio = torch.where(moved, old_sc / torch.clamp(new_sc, min=_SCALE_EPS),
+                        1.0)
+    got = flat_pages.index_select(0, flat_t)  # [L*T, H, page, hd] int8
+    flat_pages[flat_t] = torch.clamp(
         torch.round(got.to(torch.float32) * ratio[..., None, None]),
         -_Q_MAX, _Q_MAX,
     ).to(torch.int8)
-    row_sc = torch.clamp(scales.index_select(0, pids), min=_SCALE_EPS)
-    pages[pids, :, offs, :] = torch.clamp(
+    row_sc = torch.clamp(flat_sc.index_select(0, flat_p), min=_SCALE_EPS)
+    flat_pages[flat_p, :, flat_o, :] = torch.clamp(
         torch.round(rows / row_sc[..., None]), -_Q_MAX, _Q_MAX,
     ).to(torch.int8)
-    return pages, scales
 
 
 class PagePool:
@@ -407,18 +430,21 @@ def append(cache: PagedKVCache, k_new: torch.Tensor,
 def append_n(cache: PagedKVCache, k_new: torch.Tensor, v_new: torch.Tensor,
              n_valid=None) -> PagedKVCache:
     """Append ``NS`` tokens per sequence (``[L, B, Hkv, NS, hd]``) at
-    ``kv_len`` in one scatter per pool, in place; the returned cache
-    carries ``kv_len + NS``. Rows ``>= n_valid[b]`` (``[B]``; None → NS)
-    go to the trash page 0 instead of the sequence's pages: a serving
-    launch knows which of its rows overshoot a finishing request.
-    Page-boundary crossings fall out of the per-row (page, offset).
-    Caller contract: ``kv_len[b] + NS`` fits the page table. Full-width
-    pools only: the megakernel's int8-pool append is not ported (ROADMAP
-    queue 2 row 6, int8 pool)."""
-    if cache.quantized:
-        raise NotImplementedError(
-            "append_n on an int8 pool (the megakernel's quantized append) "
-            "is not ported yet (ROADMAP queue 2 row 6, int8 pool)")
+    ``kv_len``, in place; the returned cache carries ``kv_len + NS``.
+    Rows ``>= n_valid[b]`` (``[B]``; None → NS) go to the trash page 0
+    instead of the sequence's pages: a serving launch knows which of its
+    rows overshoot a finishing request, and on an int8 pool those rows
+    would otherwise grow the scale of a page about to retire into the
+    radix tree. Page-boundary crossings fall out of the per-row (page,
+    offset). Caller contract: ``kv_len[b] + NS`` fits the page table.
+
+    A full-width pool takes one scatter per pool. An int8 pool takes the
+    rows step by step, one :func:`_row_scatter_layers` per step and pool
+    (reset at offset 0, grow and re-quantize otherwise): a single
+    ``B*NS``-row scatter would grow each page's scale once for all NS
+    rows, while NS single-step appends grow and re-quantize row by row,
+    and the pool must end bit-identical to those (retired pages are
+    shared across requests through the radix tree)."""
     dev = cache.k_pages.device
     page = cache.k_pages.shape[3]
     L, B, H, NS, hd = k_new.shape
@@ -431,7 +457,15 @@ def append_n(cache: PagedKVCache, k_new: torch.Tensor, v_new: torch.Tensor,
         nv = torch.as_tensor(np.asarray(n_valid) if not isinstance(
             n_valid, torch.Tensor) else n_valid).to(dev).long()
         pids = torch.where(steps < nv[:, None], pids, 0)
-    flat_p, flat_o = pids.reshape(-1), (pos % page).reshape(-1)
+    offs = pos % page
+    if cache.quantized:
+        for s in range(NS):
+            _row_scatter_layers(cache.k_pages, cache.k_scale,
+                                k_new[:, :, :, s], pids[:, s], offs[:, s])
+            _row_scatter_layers(cache.v_pages, cache.v_scale,
+                                v_new[:, :, :, s], pids[:, s], offs[:, s])
+        return dataclasses.replace(cache, kv_len=cache.kv_len + NS)
+    flat_p, flat_o = pids.reshape(-1), offs.reshape(-1)
     for pages, new in ((cache.k_pages, k_new), (cache.v_pages, v_new)):
         # Two advanced indices split by a slice: the indexed view is
         # [B*NS, L, H, hd]. Trash-routed rows may share an index; any

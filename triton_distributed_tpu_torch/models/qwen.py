@@ -480,3 +480,27 @@ def params_from_jax(tree) -> dict:
         "embed": leaf("embed"), "layers": layers,
         "norm": leaf("norm"), "lm_head": leaf("lm_head"),
     }
+
+
+def q8_params_from_jax(tree, device=None, dtype=torch.float32):
+    """The leaves of a JAX ``Q8Params`` at tp=1 (``MegaQwen3(model,
+    cfg=MegaConfig(wq8=True)).quantized_params()`` as numpy, reached by
+    attribute or key) as the port's ``megakernel.Q8Params`` on
+    ``device``: int8 codes and f32 scales as they are (the JAX shapes:
+    ``sc_qkv [L, 1, qkv]``, ``sc_lm [1, v_pad]``), the embed and norms in
+    ``dtype`` (the model's). Both packages then decode from identical
+    int8 weights."""
+    from triton_distributed_tpu_torch.megakernel.qwen3 import Q8Params
+
+    def leaf(name):
+        a = tree[name] if isinstance(tree, dict) else getattr(tree, name)
+        if np.asarray(a).dtype == np.int8:
+            t = torch.from_numpy(np.array(a, np.int8))
+        elif name.startswith("sc_"):
+            t = torch.from_numpy(_np32(a))
+        else:
+            t = torch.from_numpy(_np32(a)).to(dtype)
+        return t.to(device)
+
+    return Q8Params(**{f.name: leaf(f.name)
+                       for f in dataclasses.fields(Q8Params)})
