@@ -25,7 +25,14 @@ and ``ContinuousEngine(mode="mega", prefix_cache=True)`` serving the 8
 shared-prefix requests with an ``eos_id``, the same over an int8 pool
 (``kv_dtype="int8"``), and ``Engine(paged=True, kv_dtype="int8",
 mode="mega", mega_cfg=MegaConfig(wq8=True))`` serving the 2 rows from
-int8 weights. Before the serving paths the decode megakernel is held
+int8 weights; then sampled serving (temperature, top-k, top-p): the 8
+shared-prefix requests through ``ContinuousEngine(temperature=0.8,
+top_p=0.95, top_k=64)`` with per-request overrides (two greedy, two
+unfiltered), in ``mode="xla"`` and ``mode="mega"`` (the megakernel's
+in-kernel Gumbel-max and top-k/top-p filter), each three times (seed,
+same seed, another seed); the 2 rows through ``Engine(paged=True,
+mode="mega", temperature=0.7, top_k=64)``; the speculative traffic at
+temperature 0.05. Before the serving paths the decode megakernel is held
 against its plain version at Qwen3-0.6B's full width and depth (B=4,
 kv_len {700, 2040, 700, 2040}, NS 1 and 8; dense and paged caches, the
 int8 pool, int8 weights over the paged pool and over the int8 pool),
@@ -33,10 +40,19 @@ each with a negative control that must break the limit (the plain
 version with the last layer skipped, with the K and V scale planes
 swapped, or with the qkv scales set to 1), and timed beside the
 ``mode="xla"`` decode steps at the same shape (bf16 and int8 pools).
-The generated tokens are checked by teacher forcing through a plain
-full-sequence forward (for the int8-weight path, a forward whose decode
-weights are the dequantized int8 weights, over the prompt's K/V from
-the model's own), the pool audit must be clean, and each serving path
+The megakernel's sampled and filtered launches are held against the
+plain version on the same seeded noise (the filter alone: the winner
+over the kernel's own logits is an exact filter's, up to the order of
+the top-p sums; negative controls: a top-k 1 row, and noise planted on a
+filtered row's lowest token) and timed beside the greedy one. The generated tokens
+are checked by teacher forcing through a plain full-sequence forward
+(for the int8-weight path, a forward whose decode weights are the
+dequantized int8 weights, over the prompt's K/V from the model's own;
+a filtered token must lie in its row's plain keep-set up to the margin,
+and the same check at top-k 1 must fail somewhere; an unfiltered token
+within a tail limit scaled by T, and at T 0.8 its draws as a whole by a
+z statistic that uniform and argmax tokens must break), the pool audit must
+be clean, sampled runs must replay under their seed, and each serving path
 must have launched its own kernels: the launch counts are set to 0 just
 before each path and read just after it.
 
@@ -148,7 +164,45 @@ PATH_KERNELS = {
                                 "flash_attention_cold_int8",
                                 "paged_flash_decode_int8",
                                 "flash_decode_int8"),
+    # Sampled serving: the xla paths sample the logits on the host; the
+    # mega paths sample in the megakernel (the Gumbel noise, and the
+    # top-k/top-p filter); sampled speculation verifies chains with
+    # flash_attention and trees with flash_attention_bias.
+    "continuous_sampled": ("flash_attention", "paged_flash_decode"),
+    "continuous_mega_sampled": ("flash_attention", "mega_decode"),
+    "paged_engine_mega_sampled": ("flash_attention", "mega_decode"),
+    "continuous_spec_sampled": ("flash_attention", "flash_attention_bias",
+                                "paged_flash_decode"),
 }
+# Sampled traffic: the 8 shared-prefix requests under the engine's knobs
+# SAMPLED_KNOBS, requests 0-1 overriding temperature 0 (greedy) and 2-3
+# top_p 1, top_k 0 (unfiltered sampling), each continuous run made with
+# seed SEED twice and SEED + 1 once; the 2 dense rows through a paged mega
+# Engine at SAMPLED_ENGINE_KNOBS; the speculative traffic at
+# SAMPLED_SPEC_T. Each sampled token is held to the plain full-sequence
+# forward's logits q at its position:
+# - a filtered token (top-k or top-p narrower than the vocabulary) must
+#   lie in its row's keep-set up to the pool's teacher-forcing margin: its
+#   plain logit at or above the lowest kept plain logit less TF_MARGIN;
+# - an unfiltered token, whose keep-set is the whole vocabulary, must lie
+#   within TF_MARGIN + SAMPLED_TAIL·T of the plain maximum: a draw from
+#   softmax(q/T) lands further down with probability below
+#   V·exp(-SAMPLED_TAIL) < 2e-8 at V = 151936, and TF_MARGIN covers the
+#   engine's bf16 logits against the plain ones, as for greedy tokens.
+#   At T 0.05 that keeps a few tokens near the top; at T 0.8 it keeps
+#   nearly all, so there the draws are held as a whole: with lq the
+#   token's log softmax(q/T), z = sum(lq - E lq) / sqrt(sum Var lq) over
+#   the positions is a sum of deviations that each have mean 0 given the
+#   tokens before them, so |z| <= SAMPLED_Z for a right sampler, while
+#   uniform tokens (E lq lower by ~1/T^2 per position with ~N(0, 1)
+#   logits, z ~ -sqrt(n)/T) and the argmax tokens must each break it.
+SAMPLED_KNOBS = dict(temperature=0.8, top_p=0.95, top_k=64)
+SAMPLED_OVERRIDES = ([dict(temperature=0.0)] * 2
+                     + [dict(top_p=1.0, top_k=0)] * 2 + [{}] * 4)
+SAMPLED_ENGINE_KNOBS = dict(temperature=0.7, top_k=64)
+SAMPLED_SPEC_T = 0.05
+SAMPLED_TAIL = 30.0
+SAMPLED_Z = 5.0
 # Long-context traffic: one LONG_PROMPT-token request over a
 # LONG_BUDGET-token per-rank page budget (so it admits as a sharded slot
 # and demotes its oldest pages to a LONG_TIER_BYTES host tier), served
@@ -782,6 +836,278 @@ def _mega_bound(cfg, params, q8, kv8) -> dict:
             "step_bytes": step_bytes}
 
 
+# The megakernel's sampled and filtered launches (paged bf16, MEGA_LENS,
+# MEGA_NS), per row (temperature, top_p, top_k): sampled, rows 0 and 2
+# greedy and rows 1 and 3 at T 0.8; filtered, row 0 greedy, row 1 top-k
+# 64, row 2 top-k 1 at T 1 (its winner must be the clean argmax: the
+# negative control of the noise), row 3 top-p 0.9.
+MEGA_SAMPLED_ROWS = {
+    "sampled": [(0.0, 1.0, 0), (0.8, 1.0, 0), (0.0, 1.0, 0), (0.8, 1.0, 0)],
+    "filtered": [(0.0, 1.0, 0), (0.8, 1.0, 64), (1.0, 1.0, 1),
+                 (0.8, 0.9, 0)],
+}
+
+
+# The top-p cut's sandwich: the kernel sums the nucleus weights in f32 in
+# its own order, so an exact filter may cut anywhere between the keep-set
+# at p·Z·(1 - TOPP_BAND) and the one at p·Z·(1 + TOPP_BAND). Summing
+# 151936 f32 weights is off by ~1e-6·Z at most (log2 of the count times
+# an f32 ulp); the band is ten times that.
+TOPP_BAND = 1e-5
+# The noise planted on a filtered row's lowest-logit token in the
+# negative control: far above any logit, so an unfiltered argmax takes it.
+PLANTED_NOISE = 1e4
+
+
+def filter_band(logits, noise, sampcfg, v_real, band=TOPP_BAND) -> list:
+    """For each row of ``logits [B, Vp]`` f32 under ``sampcfg [B, 4]``
+    (rows ``[1/T, k, p, enable]``): the tokens that an exact top-k/top-p
+    filter may pick by the argmax of ``logits + noise`` (first column on
+    ties), on the host in float64. Top-k counts are exact. The top-p cut
+    is sandwiched: each keep-set between the one at p·Z·(1 - band) and the
+    one at p·Z·(1 + band), every one a prefix of the top-k survivors by
+    scaled logit (ties together), gives its noisy argmax as a candidate.
+    A row without top-p, or with ``enable`` 0, has one candidate. Returns
+    per row ``{"winners": set, "cuts": candidate keep-sets, "keep_max":
+    size of the widest}``."""
+    import numpy as np
+    import torch
+
+    lg, nz, cfg = (t.detach().to("cpu", torch.float32).numpy()
+                   for t in (logits, noise, sampcfg))
+    lg, nz = lg[:, :v_real], nz[:, :v_real]
+    out = []
+    for b in range(lg.shape[0]):
+        inv_t, k, p, en = cfg[b]
+        score = lg[b] + nz[b]  # f32, as the kernel adds them
+        if en <= 0:
+            out.append({"winners": {int(np.argmax(score))}, "cuts": 1,
+                        "keep_max": v_real})
+            continue
+        ls = lg[b] * inv_t  # f32, as the kernel scales them
+        order = np.argsort(-ls, kind="stable")
+        s = ls[order].astype(np.float64)
+        m = int(np.count_nonzero(s >= s[min(int(k), v_real) - 1]))
+        s, order = s[:m], order[:m]
+        ends = np.flatnonzero(np.append(s[1:] != s[:-1], True))
+        cum = np.cumsum(np.exp(s - s[0]))[ends]
+        g_lo = g_hi = len(ends) - 1
+        if p < 1.0:  # the first cut whose weight reaches the target
+            g_lo = int(np.searchsorted(cum, p * cum[-1] * (1.0 - band)))
+            g_hi = min(int(np.searchsorted(cum, p * cum[-1] * (1.0 + band))),
+                       g_hi)
+        head = order[: ends[g_lo] + 1]
+        best = head[score[head] == score[head].max()].min()
+        winners = {int(best)}
+        for g in range(g_lo + 1, g_hi + 1):
+            for j in order[ends[g - 1] + 1: ends[g] + 1]:
+                if score[j] > score[best] or (score[j] == score[best]
+                                              and j < best):
+                    best = j
+            winners.add(int(best))
+        out.append({"winners": winners, "cuts": g_hi - g_lo + 1,
+                    "keep_max": int(ends[g_hi]) + 1})
+    return out
+
+
+def _planted_control(comp, w, args, noise, cfg, got, bands, v_real) -> dict:
+    """The filter's negative control: the launch again with PLANTED_NOISE
+    added at the last step on the lowest-logit token of each filtered row
+    whose widest band keep-set leaves it out. The noise only picks the
+    winner, so the last step's logits and the earlier tokens stay as they
+    were; the kernel's winner must still be an exact filter's and not the
+    planted token, while the unfiltered noisy argmax is the planted
+    token: a kernel that skipped the filter would have taken it."""
+    import torch
+
+    logits, toks = got[0], got[3]
+    rows = [i for i, bd in enumerate(bands)
+            if float(cfg[i, 3]) > 0 and bd["keep_max"] < v_real]
+    low = logits[:, :v_real].argmin(dim=1).tolist()
+    planted = noise.clone()
+    for i in rows:
+        planted[-1, i, low[i]] += PLANTED_NOISE
+    again = comp.run(w, *args, noise=planted, sampcfg=cfg)
+    torch.cuda.synchronize()
+    bad = [] if rows else ["no filtered row leaves its lowest token out"]
+    if not (torch.equal(again[0], logits)
+            and torch.equal(again[3][:-1], toks[:-1])):
+        bad.append("the planted noise moved the logits or an earlier token")
+    new = filter_band(logits, planted[-1], cfg, v_real)
+    for i in rows:
+        took = int(again[3][-1, i])
+        unfiltered = int((logits[i, :v_real]
+                          + planted[-1, i, :v_real]).argmax())
+        if took == low[i] or took not in new[i]["winners"] or (
+                unfiltered != low[i]):
+            bad.append(dict(row=i, took=took, planted=low[i],
+                            unfiltered=unfiltered))
+    return {"rows": rows, "bad": bad}
+
+
+def _sampled_tokens_ok(toks, ref_toks, plain_at, noise, cfg, v_real):
+    """Kernel vs plain sampled tokens [NS, B] on the same noise. A row may
+    leave the plain stream only where the plain logits of the first
+    differing step allow the kernel's token: an exact filter over them
+    may pick it (``filter_band``: the top-p cut's sandwich), or it is a
+    near tie the plain version cannot resolve: its noisy score within
+    MEGA_TIE_GAP below the plain winner's and (filtered rows) its logit
+    within MEGA_TIE_GAP below the plain keep-set's lowest logit. Returns
+    the records of the rows that left; raises otherwise."""
+    import torch
+
+    from triton_distributed_tpu_torch.models import sampling
+
+    ties = []
+    for b in (toks != ref_toks).any(dim=0).nonzero().flatten().tolist():
+        s = int((toks[:, b] != ref_toks[:, b]).nonzero()[0])
+        lg = plain_at(s)
+        top, got = int(ref_toks[s, b]), int(toks[s, b])
+        row = lg[b, :v_real]
+        score = row + noise[s, b, :v_real]
+        gap = (score[top] - score[got]).item()
+        inv_t, k, p, en = cfg[b].tolist()
+        edge = float("-inf")
+        if en > 0:
+            kept = torch.isfinite(sampling.filter_logits(
+                row, 1.0 / inv_t, p, int(k) if k < v_real else 0))
+            edge = (row[kept].min() - row[got]).item()
+        exact = got in filter_band(lg[b: b + 1], noise[s, b: b + 1],
+                                   cfg[b: b + 1], v_real)[0]["winners"]
+        ties.append(dict(row=b, step=s, gap=gap, edge=edge,
+                         in_band=exact))
+        if not (exact or (gap <= MEGA_TIE_GAP and edge <= MEGA_TIE_GAP)):
+            raise RuntimeError(f"sampled kernel token {got} at row {b} step "
+                               f"{s} is not a near tie of plain's {top}: "
+                               f"score gap {gap}, keep edge {edge}")
+    return ties
+
+
+def check_mega_sampled(dev, flush, model, mega, w, args, greedy_ms) -> dict:
+    """The megakernel's sampled and filtered launches against the plain
+    version on the same seeded noise, at Qwen3-0.6B over the paged bf16
+    pool, NS 1 and 8: tokens (up to a near tie, ``_sampled_tokens_ok``)
+    and logits (the bf16 limit) of the plain version; the greedy rows'
+    tokens equal the greedy launch's bit for bit; two launches
+    bit-identical; the filter alone (the kernel's last-step winner is one
+    that an exact filter picks over the kernel's own last-step logits and
+    noise, ``filter_band``: ``filtered_winner_plain``'s, or another cut of
+    the top-p sandwich); the top-k 1 row's winner is the clean argmax
+    while the unfiltered noisy argmax is not; the planted control
+    (``_planted_control``). Times each launch per step beside the greedy
+    one. Returns its record."""
+    import dataclasses
+
+    import torch
+
+    from triton_distributed_tpu_torch.megakernel.kernels import (
+        mega_decode_plain,
+    )
+    from triton_distributed_tpu_torch.models import sampling
+
+    b, V = len(MEGA_LENS), model.cfg.vocab_size
+    atol, rtol = MEGA_TOL["bf16"]
+    rec, bad = {"near_ties": [], "topp_band_rows": 0,
+                "topp_band_two_winners": 0, "filter_alone_differ": 0}, []
+    for kind, rows in MEGA_SAMPLED_ROWS.items():
+        filt = kind == "filtered"
+        for ns in MEGA_NS:
+            base = dataclasses.replace(
+                mega._dims(b, MAX_LENGTH, PAGE,
+                           num_pages=int(args[0].shape[1])),
+                nsteps=ns, v_real=V)
+            dims = dataclasses.replace(base, sampled=True, filtered=filt)
+            comp, greedy = mega._compile(dims), mega._compile(base)
+            gen = torch.Generator(device=dev).manual_seed(SEED + 4)
+            temps = torch.tensor([t for t, _, _ in rows], device=dev)
+            noise = sampling.gumbel((ns, b, dims.v_loc), gen, dev) \
+                * temps[None, :, None]
+            cfg = torch.tensor([sampling.sampcfg_row(*r, V) for r in rows],
+                               dtype=torch.float32, device=dev)
+            samp = {"noise": noise, "sampcfg": cfg if filt else None}
+            got = comp.run(w, *args, **samp)
+            again = comp.run(w, *args, **samp)
+            g_toks = greedy.run(w, *args)[3]
+            torch.cuda.synchronize()
+            ref = mega_decode_plain(dims, True, comp.table, w, *args, **samp)
+            if not all(torch.equal(x, y) for x, y in zip(got, again)):
+                raise RuntimeError(f"mega_decode {kind} NS={ns}: two "
+                                   "launches on the same inputs differ")
+
+            def plain_at(s, dims=dims, table=comp.table, noise=noise,
+                         samp=samp):
+                d1 = dataclasses.replace(dims, nsteps=s + 1)
+                return mega_decode_plain(
+                    d1, True, table, w, *args,
+                    noise=noise[: s + 1].contiguous(),
+                    sampcfg=samp["sampcfg"])[0]
+
+            logits, toks = got[0], got[3]
+            ties = _sampled_tokens_ok(toks, ref[3], plain_at, noise, cfg, V)
+            rec["near_ties"] += [dict(kind=kind, ns=ns, **t) for t in ties]
+            greedy_rows = [i for i, (t, _, _) in enumerate(rows) if t == 0]
+            if not torch.equal(toks[:, greedy_rows], g_toks[:, greedy_rows]):
+                bad.append(f"{kind} NS={ns}: greedy rows differ from the "
+                           "greedy launch")
+            keep = (toks[:-1] == ref[3][:-1]).all(dim=0)
+            err = (logits - ref[0]).abs()[keep]
+            used = (err / (atol + rtol * ref[0].abs()[keep])).max().item()
+            if not used <= 1.0:
+                bad.append(f"{kind} NS={ns}: logits use {used} of the limit")
+            line = (f"[mega] sampled {kind} NS={ns}: tokens == plain up to "
+                    f"near ties {ties}, greedy rows == the greedy launch, "
+                    f"logits {used:.3f} of the limit")
+            if filt:
+                want = sampling.filtered_winner_plain(logits, noise[-1], cfg,
+                                                      V)
+                bands = filter_band(logits, noise[-1], cfg, V)
+                last = toks[-1].tolist()
+                differ = [i for i in range(b) if last[i] != int(want[i])]
+                off = [i for i in range(b)
+                       if last[i] not in bands[i]["winners"]]
+                banded = [i for i in range(b) if bands[i]["cuts"] > 1]
+                torn = [i for i in range(b) if len(bands[i]["winners"]) > 1]
+                rec["topp_band_rows"] += len(banded)
+                rec["topp_band_two_winners"] += len(torn)
+                rec["filter_alone_differ"] += len(differ)
+                clean = int(logits[2, :V].argmax())
+                noisy = int((logits[2, :V] + noise[-1, 2, :V]).argmax())
+                if off:
+                    bad.append(f"{kind} NS={ns}: the filter alone picked a "
+                               f"token no exact filter picks on rows {off}")
+                if last[2] != clean or noisy == clean:
+                    bad.append(f"{kind} NS={ns}: top_k=1 row took "
+                               f"{last[2]}, clean argmax {clean}, noisy "
+                               f"argmax {noisy} (must differ)")
+                planted = _planted_control(comp, w, args, noise, cfg, got,
+                                           bands, V)
+                if planted["bad"]:
+                    bad.append(f"{kind} NS={ns}: planted control "
+                               f"{planted['bad']}")
+                line += (f"; filter alone: the winner is an exact filter's "
+                         f"on {b - len(off)}/{b} rows (rows {banded} have a "
+                         f"top-p band of {[bands[i]['cuts'] for i in banded]}"
+                         f" cuts, rows {torn} more than one winner in it; "
+                         f"differs from filtered_winner_plain on rows "
+                         f"{differ}); top_k=1 row {clean} == the clean "
+                         f"argmax, unfiltered noisy argmax {noisy}; planted "
+                         f"control: rows {planted['rows']} kept their "
+                         f"filters, the unfiltered argmax took the planted "
+                         f"token on each")
+            print(line)
+            ms = median_ms(lambda: comp.run(w, *args, **samp), flush)
+            rec[f"{kind}_ms_per_step_ns{ns}"] = ms / ns
+            print(f"[mega] {kind} NS={ns}: {ms:.4f} ms per launch, "
+                  f"{ms / ns:.4f} ms per step (greedy "
+                  f"{greedy_ms[ns] / ns:.4f})")
+    if bad:
+        raise RuntimeError(f"sampled mega_decode: {bad}")
+    # The noise is read once per step ([B, v_pad] f32) beside the greedy
+    # step's bytes.
+    rec["noise_bytes_per_step"] = b * dims.v_loc * 4
+    return rec
+
+
 # The megakernel variants the mega phase holds against the plain version:
 # (weights, cache). The int8 pool is the paged pool quantized per (page,
 # kv head) by the writers' page quantizer, its V side first multiplied by
@@ -961,6 +1287,10 @@ def check_mega(dev, flush):
                                    ("int8_pool", pool8))}
             print(f"[mega] mode='xla' decode step at the same shape: "
                   f"{xla_ms} ms")
+            sampled = check_mega_sampled(
+                dev, flush, model, megas[False], weights[False],
+                caches["paged"][0], {n: times["paged", n][0]
+                                     for n in MEGA_NS})
             bf16 = model
             del pool8
         del model, dense, paged, megas, weights, caches, k8, v8
@@ -980,6 +1310,9 @@ def check_mega(dev, flush):
     print(f"[mega] variants (bf16, one step at NS=1; bound = step bytes / "
           f"{HBM_BPS:.3g} B/s): {json.dumps(variants)}")
     main = variants["paged"]
+    noise_ms = sampled["noise_bytes_per_step"] / HBM_BPS * 1e3
+    sampled.update(sampled_bound_ms=main["bound_ms"] + noise_ms,
+                   filtered_bound_ms=main["bound_ms"] + noise_ms)
     return dict(
         route="cuda",
         source="triton_distributed_tpu_torch/csrc/megakernel.cu",
@@ -999,6 +1332,9 @@ def check_mega(dev, flush):
                              for (k, n), v in times.items()},
         xla_step_ms=xla_ms,
         variants=variants,
+        sampled_ms=sampled["sampled_ms_per_step_ns1"],
+        filtered_ms=sampled["filtered_ms_per_step_ns1"],
+        sampling=sampled,
         launch=info,
     )
 
@@ -1246,6 +1582,7 @@ def serve_main_path(dev):
         AutoLLM,
         ContinuousEngine,
         Engine,
+        Request,
     )
     from triton_distributed_tpu_torch.ops import cuda_kernels as ck
 
@@ -1326,6 +1663,32 @@ def serve_main_path(dev):
     requests = [(p, GEN_LEN) for p in prompts]
     spec_requests = [(p, SPEC_GEN) for p in spec_prompts]
     passes = {}  # speculative path -> [(pass timings, last_stats)] x 2
+    # Sampled paths: path -> [last_stats] per run, and their engines.
+    sampled_stats, sampled_engs = {}, {}
+
+    def sampled_runs(path, **kw):
+        """The sampled traffic through fresh engines seeded SEED, SEED
+        and SEED + 1 (a fresh engine so that each run computes the same
+        logits)."""
+        got, sampled_stats[path] = [], []
+        for seed in (SEED, SEED, SEED + 1):
+            e = sampled_engs[path] = ContinuousEngine(
+                model, max_batch=4, page_size=PAGE, max_length=MAX_LENGTH,
+                prefix_cache=True, seed=seed, device=dev, **SAMPLED_KNOBS,
+                **kw)
+            got.append(e.run([Request(p, GEN_LEN, **o) for p, o in
+                              zip(prompts, SAMPLED_OVERRIDES)]))
+            if e.audit():
+                raise RuntimeError(f"{path}: pool audit failed: "
+                                   f"{e.audit()}")
+            sampled_stats[path].append(dict(e.last_stats))
+        return got
+
+    mega_sampled = Engine(model, paged=True, page_size=PAGE, mode="mega",
+                          seed=SEED, device=dev, **SAMPLED_ENGINE_KNOBS)
+    spec_sampled = ContinuousEngine(
+        model, max_batch=4, page_size=PAGE, max_length=MAX_LENGTH,
+        temperature=SAMPLED_SPEC_T, seed=SEED, **spec_kw)
 
     def warm_then_reask(path, serve, stats):
         """A warm pass fills the radix tree; the re-ask drafts from it."""
@@ -1370,6 +1733,20 @@ def serve_main_path(dev):
             long_requests),
         "continuous_longctx_int8": lambda: long_engs[
             "continuous_longctx_int8"].run(long_requests),
+        "continuous_sampled": lambda: sampled_runs("continuous_sampled"),
+        "continuous_mega_sampled": lambda: sampled_runs(
+            "continuous_mega_sampled", mode="mega", ns=8),
+        "paged_engine_mega_sampled": lambda: mega_sampled.serve(
+            dense_ids, DENSE_GEN, MAX_LENGTH, ns=8),
+        # Each request keeps its seed across the two passes (Request.key):
+        # the re-ask repeats the warm pass's draws, so it follows the
+        # chains the warm pass left in the radix tree, as a greedy re-ask
+        # does.
+        "continuous_spec_sampled": lambda: warm_then_reask(
+            "continuous_spec_sampled", lambda: spec_sampled.run([
+                Request(p, SPEC_GEN, key=SEED + 1000 + i)
+                for i, p in enumerate(spec_prompts)]),
+            lambda: spec_sampled.last_stats),
     }
     launches, outs, times = {}, {}, {}
     timers = {"chunk": chunk_t, "decode": decode_t, "cold_chunk": cold_t,
@@ -1405,8 +1782,12 @@ def serve_main_path(dev):
         if stats["prefix_hit_tokens"] <= 0:
             raise RuntimeError(f"{path}: no prefix-cache hits on "
                                "shared-prefix traffic")
-    spec_e2e = check_spec_paths(passes, {"continuous_spec": spec_eng,
-                                         "paged_engine_spec": spec_fixed})
+    spec_e2e = check_spec_paths(passes, {
+        "continuous_spec": spec_eng, "paged_engine_spec": spec_fixed,
+        "continuous_spec_sampled": spec_sampled})
+    sampled_e2e = check_sampled_paths(
+        model, prompts, dense_ids, spec_prompts, outs, times, launches,
+        sampled_stats, mega_sampled)
     for path, counts in launches.items():
         print(f"[serve] launches in the {path} run: {counts}")
     for path, need in PATH_KERNELS.items():
@@ -1447,8 +1828,8 @@ def serve_main_path(dev):
                                f"tokens are the reference argmax "
                                f"(< {min_exact})")
 
-    # The speculative streams (both passes of both paths) against the same
-    # plain forward, with the bf16 limits.
+    # The greedy speculative streams (both passes of both paths) against
+    # the same plain forward, with the bf16 limits.
     gaps = []
     for got in outs["continuous_spec"]:
         for p, o in zip(spec_prompts, got):
@@ -1496,6 +1877,7 @@ def serve_main_path(dev):
         "spec": spec_e2e,
         "mega": mega_e2e,
         "longctx": long_e2e,
+        "sampled": sampled_e2e,
     }
     return launches, e2e
 
@@ -1663,6 +2045,197 @@ def check_longctx_paths(model, requests, outs, times, engines,
             "tier": st["tier"],
         }
         print(f"[serve] {path}: {json.dumps(out[path])}")
+    return out
+
+
+def plain_rows(model, prompt, generated):
+    """The plain full-sequence forward's logits at each generated position
+    of a stream, [n, V] f32, and the emitted tokens [n] int64."""
+    import numpy as np
+    import torch
+
+    dev = model.device
+    seq = np.concatenate([prompt, generated[:-1]]).astype(np.int64)
+    rows = reference_logits(model, torch.from_numpy(seq).to(dev))[
+        len(prompt) - 1:]
+    return rows, torch.as_tensor(generated, device=dev).long()
+
+
+def keep_edges(rows, emitted, temperature, top_p, top_k) -> list[float]:
+    """For each position: the lowest plain logit that ``filter_logits``
+    keeps there, minus the emitted token's plain logit (<= 0 when the
+    token is in the plain keep-set)."""
+    import torch
+
+    from triton_distributed_tpu_torch.models import sampling
+
+    kept = torch.isfinite(sampling.filter_logits(rows, temperature, top_p,
+                                                 top_k))
+    floor = torch.where(kept, rows, float("inf")).min(dim=-1).values
+    return (floor - rows.gather(1, emitted[:, None])[:, 0]).tolist()
+
+
+def draw_terms(rows, emitted, temperature) -> dict:
+    """For each position of an unfiltered stream at ``temperature``: the
+    plain maximum minus the emitted token's plain logit (``gap``), and,
+    with lq = log softmax(rows / T) in float64, the token's lq less its
+    mean under softmax(rows / T) (``dev``) and the variance of lq there
+    (``var``), the terms of SAMPLED_Z's z."""
+    import torch
+
+    lq = torch.log_softmax(rows.double() / temperature, dim=-1)
+    q = lq.exp()
+    mean = (q * lq).sum(dim=-1)
+    tok = lq.gather(1, emitted[:, None])[:, 0]
+    gap = rows.max(dim=-1).values - rows.gather(1, emitted[:, None])[:, 0]
+    return {"gap": gap.tolist(), "dev": (tok - mean).tolist(),
+            "var": ((q * lq * lq).sum(dim=-1) - mean * mean).tolist()}
+
+
+def check_sampled_paths(model, prompts, dense_ids, spec_prompts, outs, times,
+                        launches, stats, mega_engine) -> dict:
+    """The sampled serving paths. Greedy requests pass the bf16 teacher
+    forcing limits; the sampled tokens are held to the plain forward as
+    SAMPLED_KNOBS' comment sets out: filtered tokens to their keep-sets
+    (``keep_edges``, with the same check at top_k=1 failing on some
+    tokens), unfiltered ones to SAMPLED_TAIL and, at T 0.8, to SAMPLED_Z
+    (``draw_terms``), where uniform tokens, and at T 0.8 the argmax
+    tokens, must fail (the negative controls); the same seed replays the
+    same tokens and SEED + 1 changes a sampled request; the mega paths
+    filter in the kernel (``mega_filtered_rounds`` > 0,
+    ``mega_fallback_steps`` == 0). Returns their e2e block."""
+    import numpy as np
+    import torch
+
+    V = model.cfg.vocab_size
+    gen = torch.Generator(device=model.device).manual_seed(SEED + 7)
+    out, edges, control, greedy_gaps = {}, [], [], []
+    # Unfiltered draws by temperature: the tokens' terms, and the uniform
+    # and argmax tokens' at the same positions.
+    unf = {t: {"draws": [], "uniform": [], "argmax": []}
+           for t in (SAMPLED_KNOBS["temperature"], SAMPLED_SPEC_T)}
+
+    def hold(prompt, o, knobs):
+        rows, emitted = plain_rows(model, prompt, o)
+        t = knobs["temperature"]
+        if 0 < knobs["top_k"] < V or knobs["top_p"] < 1.0:
+            edges.extend(keep_edges(rows, emitted, t, knobs["top_p"],
+                                    knobs["top_k"]))
+            control.extend(keep_edges(rows, emitted, t, 1.0, 1))
+            return
+        uniform = torch.randint(V, emitted.shape, generator=gen,
+                                device=emitted.device)
+        for name, toks in (("draws", emitted), ("uniform", uniform),
+                           ("argmax", rows.argmax(dim=-1))):
+            unf[t][name].append(draw_terms(rows, toks, t))
+
+    for path in ("continuous_sampled", "continuous_mega_sampled"):
+        runs = outs[path]
+        for a, b in zip(runs[0], runs[1]):
+            if not np.array_equal(a, b):
+                raise RuntimeError(f"{path}: the same seed did not replay "
+                                   "the same tokens")
+        changed = [i for i, (a, c) in enumerate(zip(runs[0], runs[2]))
+                   if SAMPLED_OVERRIDES[i].get("temperature") != 0.0
+                   and not np.array_equal(a, c)]
+        if not changed:
+            raise RuntimeError(f"{path}: seed {SEED + 1} changed no sampled "
+                               "request")
+        for run in (runs[0], runs[2]):
+            for p, o, over in zip(prompts, run, SAMPLED_OVERRIDES):
+                if o.shape != (GEN_LEN,):
+                    raise RuntimeError(f"{path}: bad output {o.shape}")
+                knobs = {**SAMPLED_KNOBS, **over}
+                if knobs["temperature"] <= 0.0:
+                    greedy_gaps += teacher_forced_gaps(model, p, o)
+                else:
+                    hold(p, o, knobs)
+        st = stats[path]
+        block = {
+            "wall_s": times[path]["wall_s"],
+            "runs": len(runs),
+            "requests_changed_by_seed": changed,
+            **{k: [s[k] for s in st] for k in (
+                "decode_steps", "generated_tokens", "prefix_hit_tokens",
+                "mega_launches", "mega_filtered_rounds",
+                "mega_fallback_steps")},
+        }
+        if path == "continuous_mega_sampled" and (
+                min(block["mega_filtered_rounds"]) <= 0
+                or max(block["mega_fallback_steps"]) != 0):
+            raise RuntimeError(f"{path}: filtered rounds must run in the "
+                               f"kernel: {block}")
+        out[path] = block
+    st = mega_engine.last_stats
+    if st["mega_filtered_rounds"] <= 0:
+        raise RuntimeError(f"paged_engine_mega_sampled: no filtered launch: "
+                           f"{st}")
+    for row in range(DENSE_ROWS):
+        hold(dense_ids[row], outs["paged_engine_mega_sampled"][
+            row, DENSE_PROMPT:], {"top_p": 1.0, **SAMPLED_ENGINE_KNOBS})
+    out["paged_engine_mega_sampled"] = {
+        k: st[k] for k in ("decode_ms_per_step", "decode_steps",
+                           "mega_launches", "mega_filtered_rounds")}
+    spec_knobs = dict(temperature=SAMPLED_SPEC_T, top_p=1.0, top_k=0)
+    for got in outs["continuous_spec_sampled"]:
+        for p, o in zip(spec_prompts, got):
+            if o.shape != (SPEC_GEN,):
+                raise RuntimeError(f"continuous_spec_sampled: bad output "
+                                   f"{o.shape}")
+            hold(p, o, spec_knobs)
+
+    bad = []
+    gworst = max(greedy_gaps)
+    gexact = sum(g == 0 for g in greedy_gaps)
+    if not np.isfinite(gworst) or gworst > TF_MARGIN or (
+            gexact < TF_MIN_EXACT * len(greedy_gaps)):
+        bad.append(f"greedy requests fail teacher forcing: worst {gworst}, "
+                   f"exact {gexact}")
+    worst = max(edges)
+    ctl = sum(e > TF_MARGIN for e in control)
+    if worst > TF_MARGIN:
+        bad.append(f"a filtered token lies {worst} below its plain keep-set")
+    if ctl == 0:
+        bad.append("the top_k=1 control passed every filtered token")
+    filtered = {"positions": len(edges), "keep_edge_worst": worst,
+                "margin": TF_MARGIN, "top_k1_control_outside": [
+                    ctl, len(control)]}
+    unfiltered = {}
+    for t, terms in unf.items():
+        flat = {name: {k: [x for d in ds for x in d[k]] for k in (
+            "gap", "dev", "var")} for name, ds in terms.items()}
+        limit = TF_MARGIN + SAMPLED_TAIL * t
+        z = {name: sum(f["dev"]) / max(sum(f["var"]), 1e-300) ** 0.5
+             for name, f in flat.items()}
+        draws = flat["draws"]
+        rec = {"positions": len(draws["gap"]), "tail_gap_worst":
+               max(draws["gap"]), "tail_limit": limit,
+               "not_argmax": sum(g > 0 for g in draws["gap"]),
+               "uniform_outside_tail": sum(
+                   g > limit for g in flat["uniform"]["gap"]),
+               "z": z["draws"], "uniform_z": z["uniform"],
+               "argmax_z": z["argmax"]}
+        if rec["tail_gap_worst"] > limit:
+            bad.append(f"T={t}: a token lies {rec['tail_gap_worst']} below "
+                       f"the plain maximum (limit {limit})")
+        if t == SAMPLED_SPEC_T and rec["uniform_outside_tail"] == 0:
+            bad.append(f"T={t}: uniform tokens passed the tail limit")
+        if t != SAMPLED_SPEC_T and not (
+                abs(z["draws"]) <= SAMPLED_Z < min(
+                    abs(z["uniform"]), abs(z["argmax"]))):
+            bad.append(f"T={t}: z {z} (|z| <= {SAMPLED_Z}; uniform and "
+                       "argmax tokens must exceed it)")
+        unfiltered[f"T{t}"] = rec
+    print(f"[check] sampled tokens: filtered {json.dumps(filtered)}; "
+          f"unfiltered {json.dumps(unfiltered)}; greedy requests: worst gap "
+          f"{gworst:.4f}, exact {gexact}/{len(greedy_gaps)}")
+    if bad:
+        raise RuntimeError(f"sampled paths: {bad}")
+    out["filtered"] = filtered
+    out["unfiltered"] = unfiltered
+    out["greedy_teacher_forcing"] = {"max_gap": gworst, "exact": gexact,
+                                     "tokens": len(greedy_gaps)}
+    print(f"[serve] sampled paths: {json.dumps(out)}")
     return out
 
 

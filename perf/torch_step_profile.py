@@ -33,6 +33,16 @@ serving path after warm-up:
 - ``decode_mega_wq8`` and ``decode_mega_wq8_int8``: ``decode_mega`` with
   int8 weights (``MegaConfig(wq8=True)``, quantized once before the
   timed steps) over the bf16 pool and over the int8 pool;
+- ``decode_mega_sampled_ns8``: ``decode_mega_ns8`` sampled as the
+  serving loop samples: the launch's Gumbel noise ``[8, 4, V_pad]`` drawn
+  and scaled per row (rows 0 and 2 greedy, 1 and 3 at T 0.8), then the
+  launch with the argmax over logits + noise;
+- ``decode_mega_filtered_ns8``: the same with the in-kernel filter, rows
+  greedy / top-k 64 / top-k 1 / top-p 0.9 (``chip_smoke.py``'s rows);
+  ``decode_mega_filtered_off``, ``_topk`` and ``_topp``: the filtered
+  build with every row's filter off (the extra barrier and the winner
+  pass alone), every row top-k 64, every row top-p 0.9 (at T 0.8): what
+  each bisection costs;
 - ``mega_barriers``: one launch of a table of 282 ALLREDUCE tasks (the
   barriers of one Qwen3-0.6B step, each behind a [4, 1024] add): what
   the kernel's grid barriers cost alone;
@@ -186,6 +196,29 @@ def main() -> int:
         cache8.kv_len = lens.clone()
         mega.decode_step(tokens, cache8)
 
+    from triton_distributed_tpu_torch.models import sampling
+
+    v_pad = mega._dims(4, 2048).v_loc
+    noise_gen = torch.Generator(device=dev).manual_seed(2)
+
+    def mega_sampled(rows, filtered=True):
+        """An 8-step launch sampled under per-row (T, top_p, top_k) rows,
+        the noise drawn per launch as the serving loop draws it;
+        ``filtered`` builds the launch with the in-kernel filter."""
+        temps = torch.tensor([r[0] for r in rows], device=dev)
+        cfg_rows = [sampling.sampcfg_row(*r, cfg.vocab_size) for r in rows]
+        fn = mega.decode_multi_fn(4, 2048, 8, sampled=True, page=128,
+                                  num_pages=int(cache.k_pages.shape[1]),
+                                  filtered=filtered)
+        tail = [torch.tensor(cfg_rows, device=dev)] if filtered else []
+
+        def step():
+            cache.kv_len = lens8.clone()
+            noise = sampling.gumbel((8, 4, v_pad), noise_gen, dev)
+            fn(model.params, tokens, cache, noise * temps[None, :, None],
+               *tail)
+        return step
+
     mega8 = MegaQwen3(model, cfg=MegaConfig(fuse_norms=True, wq8=True))
     mega8.quantized_params()  # quantized once, outside the timed steps
 
@@ -298,6 +331,18 @@ def main() -> int:
                      ("decode_mega_int8", decode_mega_int8),
                      ("decode_mega_wq8", decode_mega_wq8_over(cache)),
                      ("decode_mega_wq8_int8", decode_mega_wq8_over(cache8)),
+                     ("decode_mega_sampled_ns8", mega_sampled(
+                         [(0.0, 1.0, 0), (0.8, 1.0, 0), (0.0, 1.0, 0),
+                          (0.8, 1.0, 0)], filtered=False)),
+                     ("decode_mega_filtered_ns8", mega_sampled(
+                         [(0.0, 1.0, 0), (0.8, 1.0, 64), (1.0, 1.0, 1),
+                          (0.8, 0.9, 0)])),
+                     ("decode_mega_filtered_off", mega_sampled(
+                         [(0.8, 1.0, 0)] * 4)),
+                     ("decode_mega_filtered_topk", mega_sampled(
+                         [(0.8, 1.0, 64)] * 4)),
+                     ("decode_mega_filtered_topp", mega_sampled(
+                         [(0.8, 0.9, 0)] * 4)),
                      ("mega_barriers", mega_barriers),
                      ("prefill_chunk_cold", chunk_cold_over(cache)),
                      ("prefill_chunk_cold_int8", chunk_cold_over(cache8)),
@@ -307,7 +352,8 @@ def main() -> int:
         if args.phases and name not in args.phases.split(","):
             continue
         rec = profile_phase(name, fn, args.steps)
-        if name == "decode_mega_ns8":
+        if name.startswith("decode_mega") and ("ns8" in name
+                                               or "filtered" in name):
             rec["per_decode_step"] = {
                 k: rec[k] / 8 for k in ("wall_ms_per_step",
                                         "device_busy_ms_per_step",

@@ -22,6 +22,10 @@ context), mid-bucket and full, and in f32 the plain version with
 ``s_cold`` one page off must break them.
 """
 
+import functools
+import importlib.util
+import pathlib
+
 import numpy as np
 import pytest
 import torch
@@ -489,7 +493,7 @@ def _mega_inputs(dev, shape, dtype, paged, ns, seed=0):
 
 
 def _mega_run(mega, dims, args, stop_tok=None, plain=False, scales=None,
-              w=None):
+              w=None, samp=None):
     from triton_distributed_tpu_torch.megakernel import MegaWeights
     from triton_distributed_tpu_torch.megakernel.kernels import (
         mega_decode_plain,
@@ -498,7 +502,7 @@ def _mega_run(mega, dims, args, stop_tok=None, plain=False, scales=None,
     compiled = mega._compile(dims)
     if w is None:
         w = MegaWeights.from_params(mega._step_params())
-    kw = scales or {}
+    kw = {**(scales or {}), **(samp or {})}
     if plain:
         return mega_decode_plain(dims, True, compiled.table, w, *args,
                                  stop_tok=stop_tok, **kw)
@@ -720,3 +724,195 @@ def test_mega_int8_serving_launches_the_kernel(dev, wq8):
     _, outs, launches = _serve_card_and_cpu(dev, "int8", wq8)
     assert all(np.array_equal(a, b) for a, b in zip(*outs))
     assert launches[0] > 0 and launches[1] == 0
+
+
+# -- the megakernel's sampled and filtered launches ----------------------------
+#
+# Sampled: the argmax over logits + noise (noise = T_b * gumbel, zero for
+# greedy rows); filtered: over each row's top-k/top-p keep-set, found in
+# the kernel by bisection (csrc/megakernel.cu `filtered_winner`). Held
+# against the plain version on the same noise: logits and greedy-row
+# tokens as in the greedy tests; a sampled row may leave the plain stream
+# only where the plain logits allow the kernel's token: an exact filter
+# over them may pick it (chip_smoke.filter_band: the keep-sets between the
+# top-p cut at p·Z·(1 - 1e-5) and at p·Z·(1 + 1e-5), where summation order
+# decides), or (bf16) its noisy score lies within MEGA_TIE below the plain
+# winner's and, on a filtered row, its logit within MEGA_TIE below the
+# plain keep-set's lowest.
+# The filter alone: the kernel's last-step winner is an exact filter's
+# over the kernel's own last-step logits and noise (filter_band); the
+# top_k=1 row's winner is the argmax of the clean logits, while the
+# unfiltered noisy argmax is not (negative control, at Qwen3 width where
+# 151936 noisy columns make it certain); and with a large noise planted
+# at the last step on each filtered row's lowest-logit token, the kernel
+# still keeps the filter while the unfiltered argmax takes the planted
+# token (chip_smoke._planted_control).
+MEGA_TIE = 0.1
+SAMPLED_ROWS = {
+    "sampled": [(0.0, 1.0, 0), (0.8, 1.0, 0), (0.0, 1.0, 0), (0.8, 1.0, 0)],
+    "filtered": [(0.0, 1.0, 0), (0.8, 1.0, 64), (1.0, 1.0, 1),
+                 (0.8, 0.9, 0)],
+}
+
+
+def _sampling_operands(dims, rows, dev, seed=5):
+    from triton_distributed_tpu_torch.models import sampling
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    temps = torch.tensor([t for t, _, _ in rows], device=dev)
+    noise = sampling.gumbel((dims.nsteps, dims.batch, dims.v_loc), gen,
+                            dev) * temps[None, :, None]
+    cfg = torch.tensor([sampling.sampcfg_row(*r, dims.v_real) for r in rows],
+                       dtype=torch.float32, device=dev)
+    return noise, cfg
+
+
+@functools.cache
+def _chip_smoke():
+    """``chip_smoke.py``, for its sampling checks (``filter_band``,
+    ``_planted_control``)."""
+    path = pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _sampled_tokens_ok(toks, ref, plain_at, noise, cfg, v_real, bf16):
+    """Rows whose kernel tokens leave the plain stream, each where an
+    exact filter over the plain logits picks the kernel's token or at a
+    near tie the plain version cannot resolve; raises otherwise."""
+    from triton_distributed_tpu_torch.models import sampling
+
+    ties = []
+    for b in (toks != ref).any(dim=0).nonzero().flatten().tolist():
+        s = int((toks[:, b] != ref[:, b]).nonzero()[0])
+        lg = plain_at(s)
+        band = _chip_smoke().filter_band(lg[b: b + 1], noise[s, b: b + 1],
+                                         cfg[b: b + 1], v_real)[0]
+        if int(toks[s, b]) in band["winners"]:
+            ties.append(("exact filter", b, s, band["cuts"]))
+            continue
+        row = lg[b, :v_real]
+        score = row + noise[s, b, :v_real]
+        gap = (score[ref[s, b]] - score[toks[s, b]]).item()
+        inv_t, k, p, en = cfg[b].tolist()
+        edge = float("-inf")
+        if en > 0:
+            kept = torch.isfinite(sampling.filter_logits(
+                row, 1.0 / inv_t, p, int(k) if k < v_real else 0))
+            edge = (row[kept].min() - row[toks[s, b]]).item()
+        assert bf16 and gap <= MEGA_TIE and edge <= MEGA_TIE, (b, s, gap,
+                                                               edge)
+        ties.append(("score", b, s, gap, edge))
+    return ties
+
+
+@pytest.mark.parametrize("ns", [1, 8])
+@pytest.mark.parametrize("kind", ["sampled", "filtered"])
+@pytest.mark.parametrize("shape,dtype", [
+    ("tiny", torch.float32), ("tiny", torch.bfloat16),
+    ("qwen", torch.float32), ("qwen", torch.bfloat16),
+])
+def test_mega_decode_sampled_matches_plain(dev, shape, dtype, kind, ns):
+    import dataclasses as dc
+
+    from triton_distributed_tpu_torch.models import sampling
+
+    model, mega, dims, args = _mega_inputs(dev, shape, dtype, True, ns)
+    rows = SAMPLED_ROWS[kind]
+    filt = kind == "filtered"
+    greedy_dims = dims
+    dims = dc.replace(dims, sampled=True, filtered=filt)
+    noise, cfg = _sampling_operands(dims, rows, dev)
+    samp = {"noise": noise, "sampcfg": cfg if filt else None}
+    before = ck.MEGA_DECODE.launches
+    got = _mega_run(mega, dims, args, samp=samp)
+    torch.cuda.synchronize()
+    assert ck.MEGA_DECODE.launches == before + 1
+    again = _mega_run(mega, dims, args, samp=samp)
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+    ref = _mega_run(mega, dims, args, plain=True, samp=samp)
+    logits, toks = got[0], got[3]
+    v_real = dims.v_real
+
+    def plain_at(s):
+        d1 = dc.replace(dims, nsteps=s + 1)
+        return _mega_run(mega, d1, args, plain=True, samp={
+            "noise": noise[: s + 1].contiguous(),
+            "sampcfg": samp["sampcfg"]})[0]
+
+    ties = _sampled_tokens_ok(toks, ref[3], plain_at, noise, cfg, v_real,
+                              dtype == torch.bfloat16)
+    # Greedy rows (zero noise) are the greedy launch's, bit for bit.
+    greedy = _mega_run(mega, greedy_dims, args)[3]
+    for b, (t, _, _) in enumerate(rows):
+        if t == 0.0:
+            assert torch.equal(toks[:, b], greedy[:, b])
+    keep = (toks[:-1] == ref[3][:-1]).all(dim=0)
+    atol, rtol = MEGA_TOL[dtype]
+    err = (logits - ref[0]).abs()[keep]
+    assert (err / (atol + rtol * ref[0].abs()[keep])).max().item() <= 1.0
+    msg = f"mega {kind} {shape} {dtype} ns={ns}: near ties {ties}"
+    if filt:
+        # The filter alone, over the kernel's own last-step logits.
+        from triton_distributed_tpu_torch.megakernel import MegaWeights
+
+        smoke = _chip_smoke()
+        want = sampling.filtered_winner_plain(logits, noise[-1], cfg, v_real)
+        bands = smoke.filter_band(logits, noise[-1], cfg, v_real)
+        differ = [b for b in range(dims.batch)
+                  if int(toks[-1, b]) != int(want[b])]
+        for b in range(dims.batch):
+            assert int(toks[-1, b]) in bands[b]["winners"], (b, bands[b])
+        clean = int(logits[2, :v_real].argmax())
+        noisy = int((logits[2, :v_real] + noise[-1, 2, :v_real]).argmax())
+        assert int(toks[-1, 2]) == clean  # top_k = 1: the clean argmax
+        if shape == "qwen":
+            assert noisy != clean  # the noise alone would move it
+        planted = smoke._planted_control(
+            mega._compile(dims), MegaWeights.from_params(mega._step_params()),
+            args, noise, cfg, got, bands, v_real)
+        assert 3 in planted["rows"] and not planted["bad"], planted
+        msg += (f", filter alone: top-p band cuts "
+                f"{[bd['cuts'] for bd in bands]}, differs from "
+                f"filtered_winner_plain on rows {differ}, top_k=1 {clean} vs "
+                f"{noisy}, planted control on rows {planted['rows']}")
+    print(msg)
+
+
+def test_mega_sampled_serving_launches_the_kernel(dev):
+    """Sampled tiny serving through both engines in mode='mega' on the
+    card: every decode step launches the kernel, filtered rounds run in
+    it, and the same seed replays the same tokens."""
+    from triton_distributed_tpu_torch.models import (
+        AutoLLM,
+        ContinuousEngine,
+        Engine,
+        Request,
+    )
+
+    model = AutoLLM.from_pretrained("tiny", device=dev, seed=0)
+    rng = np.random.default_rng(7)
+    prompts = [rng.integers(0, 256, 20).astype(np.int32) for _ in range(3)]
+    outs = []
+    for _ in range(2):
+        before = ck.MEGA_DECODE.launches
+        fixed = Engine(model, mode="mega", temperature=0.8, top_k=16,
+                       seed=3, device=dev)
+        dense = fixed.serve(np.stack(prompts), 11, 64, ns=4)
+        assert fixed.last_stats["mega_filtered_rounds"] == 2
+        eng = ContinuousEngine(model, max_batch=4, page_size=16,
+                               max_length=64, mode="mega", ns=4,
+                               temperature=0.8, top_p=0.9, seed=3,
+                               device=dev)
+        toks = eng.run([Request(prompts[0], 9, temperature=0.0),
+                        Request(prompts[1], 9),
+                        Request(prompts[2], 9, top_k=5)])
+        assert eng.audit() == []
+        assert eng.last_stats["mega_filtered_rounds"] > 0
+        assert eng.last_stats["mega_fallback_steps"] == 0
+        assert ck.MEGA_DECODE.launches > before
+        outs.append((dense, np.concatenate(toks)))
+    assert all(np.array_equal(a, b) for a, b in zip(*outs))

@@ -380,11 +380,11 @@ def test_continuous_mega_tokens_identical(models, goldens, prefix_cache):
 def test_refused_knobs_raise(models):
     """The megakernel modes this port does not build yet refuse; the int8
     pool and int8 weights (``kv_quant``, ``wq8``) serve
-    (tests/test_torch_mega_quant.py)."""
+    (tests/test_torch_mega_quant.py), and so do sampled and filtered
+    launches (tests/test_torch_sampled.py)."""
     _, tm = models
     mega = MegaQwen3(tm)
-    for kw in (dict(sampled=True), dict(filtered=True), dict(ring=True),
-               dict(trace=True)):
+    for kw in (dict(ring=True), dict(trace=True)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             mega.build_multi(2, MAXLEN, 4, page=PAGE, **kw)
     with pytest.raises(NotImplementedError, match="prefill"):

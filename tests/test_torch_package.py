@@ -117,9 +117,9 @@ def _refusal(knobs) -> type:
 
 
 @pytest.mark.parametrize("knobs", [
-    dict(mode="mega", temperature=0.7), dict(mode="pallas"),
+    dict(mode="pallas"),
     dict(speculative=2),
-    dict(kv_dtype="int8", paged=False), dict(temperature=0.7),
+    dict(kv_dtype="int8", paged=False),
     dict(kv_dtype="fp8", paged=True),
 ])
 def test_engine_refuses_unported_knobs(knobs):
@@ -134,7 +134,6 @@ def test_engine_refuses_unported_knobs(knobs):
     dict(kv_dtype="fp8"),
     dict(rank_page_budget=256, tier_bytes=1 << 20, mode="mega"),
     dict(cp=2), dict(rank_page_budget=256), dict(snapshot_every=2),
-    dict(temperature=0.5),
 ])
 def test_continuous_refuses_unported_knobs(knobs):
     model = AutoLLM.from_pretrained("tiny", device="cpu")
@@ -143,13 +142,10 @@ def test_continuous_refuses_unported_knobs(knobs):
 
 
 def test_sampled_requests_and_local_checkpoints_are_refused(tmp_path):
-    from triton_distributed_tpu_torch.models import Request
-
+    """Local checkpoints (safetensors) and unknown engine knobs are
+    refused. Sampled requests are served since sampled serving was
+    ported (tests/test_torch_sampled.py); the name is kept."""
     model = AutoLLM.from_pretrained("tiny", device="cpu")
-    eng = ContinuousEngine(model, page_size=16, device="cpu")
-    req = Request(np.arange(8, dtype=np.int32), 2, temperature=0.8)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        eng.run([req])
     with pytest.raises(NotImplementedError, match="safetensors"):
         AutoLLM.from_pretrained(str(tmp_path), device="cpu")
     with pytest.raises(TypeError):

@@ -27,6 +27,28 @@
 // eos, the first step whose token is the row's stop token (stop_step [B],
 // NS = never).
 //
+// Sampling (the TPU kernel's dims.sampled and dims.filtered,
+// triton_distributed_tpu/megakernel/kernels.py:1500-1505 and
+// `_filtered_winner` :1353). Sampled: the argmax runs over logits +
+// noise[step] (noise = T_b * gumbel, drawn by the host per launch; the
+// Gumbel-max trick makes that argmax a draw of softmax(logits / T_b)); the
+// logits written stay clean, and a greedy row's noise is 0, so its tokens
+// are the greedy launch's bit for bit. Filtered: no threshold is known
+// until every vocab tile has landed, so the stream only writes logits and,
+// after the grid barrier, one block per row finds the row's exact top-k /
+// top-p keep-set by bisection on monotone counts in the scaled domain ls =
+// logits * (1/T) (`filtered_winner`): 64 halvings of count(ls > t) >= k,
+// then over those survivors 64 halvings of sum(exp(ls - max); ls > t) >=
+// p * Z; the winner is the argmax of logits + noise over the keep-set. A
+// bisection reads the row from L2 while its bracket holds more than
+// kFiltCap columns and then only those columns from shared memory (each
+// halving's count is the columns above the bracket plus the members above
+// the midpoint, so the counts are those of the full row); a top-k window
+// of the whole vocab skips its bisection, whose keep-set is then every
+// real column. Counts are exact in f32; sums of weights use fixed-order
+// block reductions, so two launches agree bit for bit. The other blocks
+// wait at the next grid barrier.
+//
 // Three storage types, each a template parameter (no type switch inside a
 // loop): T, the model dtype (f32 or bf16: embed, norms, knew/vnew, the
 // rounding of every GEMM input, a full-width cache); WT, the weights' (T,
@@ -34,7 +56,8 @@
 // f32 scale per output column, the TPU kernel's `_q8_scale`); CT, the
 // cache's (T, or int8 codes over a paged pool with one f32 scale per
 // (layer, page, kv head), the TPU kernel's kv_quant). All eight
-// combinations are built. An int8 weight widens to f32 exactly, so only
+// combinations are built, each greedy and sampled (a fourth template
+// parameter, see mega_kernel). An int8 weight widens to f32 exactly, so only
 // the f32 product is scaled: the scale of an output column multiplies the
 // fixed-order split-K sum once (a per-column constant distributes over the
 // K sum, which the TPU kernel scales tile by tile), before SwiGLU for fc1,
@@ -126,12 +149,15 @@ struct Params {
   // pool's scales [L, P, hkv].
   const float* sc_qkv; const float* sc_o; const float* sc_w1;
   const float* sc_w2; const float* sc_lm; const float* ksc; const float* vsc;
+  // Sampling: noise [NS, B, v_pad] (sampled), sampcfg [B, 4] rows [1/T,
+  // top-k window, top-p, enable] (filtered).
+  const float* noise; const float* sampcfg;
   // Workspace views (carved by the host entry).
   float* x; float* h; float* qkv; float* ao; float* mlp; float* part;
   float* attn; float* qs; float* kself; float* vself; float* argv;
   int* argi;
   int T, nsteps, B, d, hq, hkv, hd, f, v_pad, v_real, L, s_cap, page, pps,
-      num_pages, fuse_norms, eos, vocab, argmax, nch;
+      num_pages, fuse_norms, eos, vocab, argmax, nch, sampled, filtered;
   float eps, sm_scale;
 };
 
@@ -689,11 +715,13 @@ __device__ void attn_merge(const Params& p, int layer, int step, float* sm) {
 // LM head: logits over the padded vocab in 64-column tiles (each tile
 // once per batch group); in multi-step builds (argmax set, even at
 // NS = 1) each block keeps its best (value, index) per row over the real
-// columns and publishes it to argv/argi. Under wq8 the logits are scaled
-// per column before they are written or compared.
-template <typename T, typename WT>
-__device__ void lm_head(const Params& p, float* xs, float* red, float* tile,
-                        float* rstd, float* best_v, int* best_i) {
+// columns, of logits + this step's noise when sampled, and publishes it to
+// argv/argi; a filtered build only writes the logits. Under wq8 the logits
+// are scaled per column before they are written or compared.
+template <typename T, typename WT, bool kSample>
+__device__ void lm_head(const Params& p, int step, float* xs, float* red,
+                        float* tile, float* rstd, float* best_v,
+                        int* best_i) {
   const int B = p.B, K = p.d, N = p.v_pad, tid = threadIdx.x;
   const int warp = tid / 32, lane = tid % 32;
   const float* src = p.fuse_norms ? p.x : p.h;
@@ -701,7 +729,7 @@ __device__ void lm_head(const Params& p, float* xs, float* red, float* tile,
       p.fuse_norms ? reinterpret_cast<const T*>(p.normf) : nullptr;
   const float* colscale = sizeof(WT) == 1 ? p.sc_lm : nullptr;
   if (p.fuse_norms) row_rstd(p.x, B, K, p.eps, rstd);
-  const bool track = p.argmax != 0;
+  const bool track = p.argmax != 0 && !(kSample && p.filtered);
   for (int b = tid; b < B; b += kThreads) {
     best_v[b] = -INFINITY;
     best_i[b] = kIdxNone;
@@ -722,13 +750,16 @@ __device__ void lm_head(const Params& p, float* xs, float* red, float* tile,
       gemm_tile<WT>(w, N, n0, 0, K, xs, bg, red, p.logits + (size_t)b0 * N,
                     N, track ? tile : nullptr, colscale);
       if (track) {
+        const float* nz =
+            kSample ? p.noise + ((size_t)step * B + b0) * N : nullptr;
         for (int r = warp; r < bg; r += kWarps) {
           float v = -INFINITY;
           int idx = kIdxNone;
           for (int c = lane; c < kTileN; c += 32) {
             const int col = n0 + c;
             if (col < p.v_real) {
-              const float s = tile[r * kTileN + c];
+              float s = tile[r * kTileN + c];
+              if (nz != nullptr) s += __ldg(nz + (size_t)r * N + col);
               if (better(s, col, v, idx)) { v = s; idx = col; }
             }
           }
@@ -750,6 +781,239 @@ __device__ void lm_head(const Params& p, float* xs, float* red, float* tile,
   }
 }
 
+// -- the filtered winner ------------------------------------------------------
+
+constexpr float kNegF = -3.0e38f;  // the TPU kernel's pad-column score
+constexpr int kFiltCap = 4096;     // bracket members kept in shared memory
+// Shared memory of filtered_winner (floats): reduction scratch [kWarps],
+// per-thread counts [kThreads], the bracket's members (scaled value and
+// weight) [2][kFiltCap].
+constexpr int kFiltFloats = kWarps + kThreads + 2 * kFiltCap;
+
+// Block-wide reductions in a fixed order, so that every thread gets the
+// same value on every run: the xor tree inside each warp (lane 0's
+// result), then the warps' results in warp order. `scr` holds kWarps
+// values; the leading barrier keeps the previous call's readers safe.
+__device__ __forceinline__ float block_sum(float v, float* scr) {
+  v = warp_sum(v);
+  __syncthreads();
+  if (threadIdx.x % 32 == 0) scr[threadIdx.x / 32] = v;
+  __syncthreads();
+  float s = 0.f;
+  for (int w = 0; w < kWarps; ++w) s += scr[w];
+  return s;
+}
+
+__device__ __forceinline__ int block_sum_int(int v, float* scr) {
+  v = __reduce_add_sync(0xffffffffu, v);
+  int* si = reinterpret_cast<int*>(scr);
+  __syncthreads();
+  if (threadIdx.x % 32 == 0) si[threadIdx.x / 32] = v;
+  __syncthreads();
+  int s = 0;
+  for (int w = 0; w < kWarps; ++w) s += si[w];
+  return s;
+}
+
+__device__ __forceinline__ float block_max(float v, float* scr) {
+  v = warp_max(v);
+  __syncthreads();
+  if (threadIdx.x % 32 == 0) scr[threadIdx.x / 32] = v;
+  __syncthreads();
+  float m = scr[0];
+  for (int w = 1; w < kWarps; ++w) m = fmaxf(m, scr[w]);
+  return m;
+}
+
+// f(i, r[i], q[i]) for every column i < n of one row r (n % 4 == 0, rows
+// 16-byte aligned; q[i] is 0 without kQ), each thread over the same
+// columns in the same order on every call: 16-byte loads (r from L2, as
+// the kernel wrote it; q read-only), four of each in flight per thread.
+template <bool kQ = false, typename F>
+__device__ __forceinline__ void row_scan(const float* r, const float* q,
+                                         int n, F&& f) {
+  constexpr int kU = 4, kStride = kThreads * 4;
+  for (int i0 = threadIdx.x * 4; i0 < n; i0 += kStride * kU) {
+    float4 v[kU], w[kU];
+#pragma unroll
+    for (int u = 0; u < kU; ++u) {
+      const int i = i0 + u * kStride;
+      if (i < n) {
+        v[u] = __ldcg(reinterpret_cast<const float4*>(r + i));
+        w[u] = kQ ? __ldg(reinterpret_cast<const float4*>(q + i))
+                  : make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kU; ++u) {
+      const int i = i0 + u * kStride;
+      if (i < n) {
+        f(i, v[u].x, w[u].x);
+        f(i + 1, v[u].y, w[u].y);
+        f(i + 2, v[u].z, w[u].z);
+        f(i + 3, v[u].w, w[u].w);
+      }
+    }
+  }
+}
+
+// The scaled logit ls = x * (1/T) of the TPU kernel, rounded on its own
+// (never contracted into a later subtraction).
+__device__ __forceinline__ float scaled(float x, float inv_t) {
+  return __fmul_rn(x, inv_t);
+}
+
+// 64 halvings of [mn - 1, mx] keeping count_ge(lo) true and count_ge(hi)
+// false, count_ge(t) = C(t) >= target. kSum = false: C(t) = #{real columns
+// with ls > t} (top-k); kSum = true: C(t) = sum of exp(ls - mx) over the
+// top-k survivors (ls > lo_k) with ls > t (top-p). Full passes over the
+// row while the bracket (lo, hi] holds more than kFiltCap members; then
+// the members go to shared memory once (thread by thread, in a fixed
+// order) with the sum of those above hi, and the remaining halvings read
+// only them. Returns lo.
+template <bool kSum>
+__device__ float bisect(const float* lg, int n, int vr, float inv_t, float mx,
+                        float mn, float lo_k, float target, float* sm) {
+  float* scr = sm;
+  int* tcnt = reinterpret_cast<int*>(sm + kWarps);
+  float* mls = sm + kWarps + kThreads;
+  float* mw = mls + kFiltCap;
+  const int tid = threadIdx.x;
+  float lo = mn - 1.0f, hi = mx;
+  int it = 0, mine = 0, nact = 0;
+  for (; it < 64; ++it) {
+    const float mid = 0.5f * (lo + hi);
+    float gt = 0.f;
+    int c_lo = 0, c_hi = 0;  // members in (lo, mid] and in (mid, hi]
+    row_scan(lg, nullptr, n, [&](int i, float x, float) {
+      if (i >= vr) return;
+      const float ls = scaled(x, inv_t);
+      if (kSum && !(ls > lo_k)) return;
+      if (ls > mid) {
+        gt += kSum ? expf(ls - mx) : 1.f;
+        if (ls <= hi) ++c_hi;
+      } else if (ls > lo) {
+        ++c_lo;
+      }
+    });
+    const bool take = block_sum(gt, scr) >= target;
+    if (take) lo = mid; else hi = mid;
+    mine = take ? c_hi : c_lo;
+    nact = block_sum_int(mine, scr);
+    if (nact <= kFiltCap) {
+      ++it;
+      break;
+    }
+  }
+  if (it >= 64) return lo;
+  tcnt[tid] = mine;
+  __syncthreads();
+  int pos = 0;
+  for (int t = 0; t < tid; ++t) pos += tcnt[t];
+  float above = 0.f;
+  row_scan(lg, nullptr, n, [&](int i, float x, float) {
+    if (i >= vr) return;
+    const float ls = scaled(x, inv_t);
+    if (kSum && !(ls > lo_k)) return;
+    const float wv = kSum ? expf(ls - mx) : 1.f;
+    if (ls > hi) {
+      above += wv;
+    } else if (ls > lo) {
+      mls[pos] = ls;
+      mw[pos] = wv;
+      ++pos;
+    }
+  });
+  above = block_sum(above, scr);  // its barriers publish the members
+  for (; it < 64; ++it) {
+    const float mid = 0.5f * (lo + hi);
+    float gt = 0.f;
+    for (int j = tid; j < nact; j += kThreads)
+      if (mls[j] > mid) gt += mw[j];
+    if (above + block_sum(gt, scr) >= target) lo = mid; else hi = mid;
+  }
+  return lo;
+}
+
+// Row b's winner in a filtered launch, on one block: with the row's filter
+// enabled, the keep-set is ls > lo_k (top-k) and ls > lo_p (top-p) as
+// bisected above; otherwise every real column. The winner, the argmax of
+// logits + noise[step] over the keep-set with the lowest index on ties, goes
+// to p.argi[b]. Not inlined: its registers stay out of the allocation of
+// the kernel's other phases.
+__device__ __noinline__ void filtered_winner(const Params& p, int step, int b,
+                                             float* sm) {
+  const int tid = threadIdx.x, n = p.v_pad, vr = p.v_real;
+  const float* lg = p.logits + (size_t)b * n;
+  const float* nz = p.noise + ((size_t)step * p.B + b) * n;
+  const float* cfg = p.sampcfg + (size_t)b * 4;
+  const float inv_t = cfg[0], kk = cfg[1], pp = cfg[2];
+  const bool en = cfg[3] > 0.f;
+  float* scr = sm;
+  float lo_k = 0.f, lo_p = 0.f;
+  if (en) {
+    float vmx = kNegF, vmn = -kNegF;
+    row_scan(lg, nullptr, n, [&](int i, float x, float) {
+      if (i < vr) {
+        const float ls = scaled(x, inv_t);
+        vmx = fmaxf(vmx, ls);
+        vmn = fminf(vmn, ls);
+      }
+    });
+    const float mx = block_max(vmx, scr);
+    const float mn = -block_max(-vmn, scr);
+    // A top-k window of every real column keeps every real column: the
+    // bisection would only walk lo down towards mn, keeping count(ls >
+    // lo) = vr. That holds whenever mn - 1 < mn (|mn| < 2^24), so the 64
+    // halvings are skipped then; the keep-set is the same.
+    lo_k = kk >= (float)vr && mn - 1.0f < mn
+               ? mn - 1.0f
+               : bisect<false>(lg, n, vr, inv_t, mx, mn, 0.f, kk, sm);
+    float z = 0.f;
+    row_scan(lg, nullptr, n, [&](int i, float x, float) {
+      if (i < vr) {
+        const float ls = scaled(x, inv_t);
+        if (ls > lo_k) z += expf(ls - mx);
+      }
+    });
+    z = block_sum(z, scr);
+    lo_p = bisect<true>(lg, n, vr, inv_t, mx, mn, lo_k, pp * z, sm);
+  }
+  float bv = -INFINITY;
+  int bi = kIdxNone;
+  row_scan<true>(lg, nz, n, [&](int i, float x, float y) {
+    if (i >= vr) return;
+    if (en) {
+      const float ls = scaled(x, inv_t);
+      if (!(ls > lo_k && ls > lo_p)) return;
+    }
+    const float sc = x + y;
+    if (better(sc, i, bv, bi)) {
+      bv = sc;
+      bi = i;
+    }
+  });
+  warp_argmax(bv, bi);
+  int* si = reinterpret_cast<int*>(scr + kWarps);
+  __syncthreads();
+  if (tid % 32 == 0) {
+    scr[tid / 32] = bv;
+    si[tid / 32] = bi;
+  }
+  __syncthreads();
+  if (tid == 0) {
+    float v = scr[0];
+    int i = si[0];
+    for (int w = 1; w < kWarps; ++w)
+      if (better(scr[w], si[w], v, i)) {
+        v = scr[w];
+        i = si[w];
+      }
+    p.argi[b] = i == kIdxNone ? 0 : i;
+  }
+  __syncthreads();
+}
+
 // Dynamic shared memory of a block (floats): the per-row values
 // (rstd, best_v, best_i, tok_s: [B] each), the GEMM reduction buffer
 // red [kWarps][kGroupB][kTileN], the LM head's tile [kGroupB][kTileN],
@@ -760,8 +1024,10 @@ __host__ __device__ __forceinline__ size_t smem_floats(int B, int region) {
 }
 
 // T: model dtype; WT: projection weights (T or int8_t); CT: cache (T or
-// int8_t).
-template <typename T, typename WT, typename CT>
+// int8_t); kSample: a sampled launch (the noise, and the filtered pass when
+// p.filtered). Greedy launches run an instantiation without the sampling
+// code, so its registers do not weigh on theirs.
+template <typename T, typename WT, typename CT, bool kSample>
 __global__ void __launch_bounds__(kThreads, kMaxBlocksPerSM)
     mega_kernel(const __grid_constant__ Params p) {
   constexpr bool kQ8 = sizeof(WT) == 1;
@@ -892,16 +1158,27 @@ __global__ void __launch_bounds__(kThreads, kMaxBlocksPerSM)
           break;
         }
         case kLmHead: {
-          lm_head<T, WT>(p, xs, red, tile, rstd, best_v, best_i);
+          lm_head<T, WT, kSample>(p, step, xs, red, tile, rstd, best_v,
+                                  best_i);
           grid_sync(p.bar);
+          if (kSample && p.argmax && p.filtered) {
+            // One block per row finds the row's winner (p.argi[b]).
+            for (int b = blockIdx.x; b < B; b += gridDim.x)
+              filtered_winner(p, step, b, xs);
+            grid_sync(p.bar);
+          }
           if (p.argmax) {
             for (int b = tid; b < B; b += kThreads) {
               float bv = -INFINITY;
               int bi = kIdxNone;
-              for (int blk = 0; blk < (int)gridDim.x; ++blk) {
-                const float v = __ldcg(p.argv + (size_t)blk * B + b);
-                const int i = __ldcg(p.argi + (size_t)blk * B + b);
-                if (better(v, i, bv, bi)) { bv = v; bi = i; }
+              if (kSample && p.filtered) {
+                bi = __ldcg(p.argi + b);
+              } else {
+                for (int blk = 0; blk < (int)gridDim.x; ++blk) {
+                  const float v = __ldcg(p.argv + (size_t)blk * B + b);
+                  const int i = __ldcg(p.argi + (size_t)blk * B + b);
+                  if (better(v, i, bv, bi)) { bv = v; bi = i; }
+                }
               }
               if (bi == kIdxNone) bi = 0;
               tok_s[b] = bi;
@@ -925,9 +1202,9 @@ __global__ void __launch_bounds__(kThreads, kMaxBlocksPerSM)
   }
 }
 
-template <typename T, typename WT, typename CT>
+template <typename T, typename WT, typename CT, bool kSample>
 int launch(Params p, long long ws_floats, int* info, cudaStream_t stream) {
-  auto kern = mega_kernel<T, WT, CT>;
+  auto kern = mega_kernel<T, WT, CT, kSample>;
   int dev = 0, sms = 0, coop = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return (int)e;
@@ -939,7 +1216,8 @@ int launch(Params p, long long ws_floats, int* info, cudaStream_t stream) {
   const int attn_b = 3 * kAttnChunk + g * p.hd + g * kAttnChunk + p.hd +
                      2 * g + kThreads * g;
   const int attn_m = g * p.hd + g * (p.nsteps + 1);
-  const int region = max(min(p.B, kGroupB) * kmax, max(attn_b, attn_m));
+  int region = max(min(p.B, kGroupB) * kmax, max(attn_b, attn_m));
+  if (p.filtered) region = max(region, kFiltFloats);
   const size_t smem = sizeof(float) * smem_floats(p.B, region);
   e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                            (int)smem);
@@ -979,15 +1257,23 @@ int launch(Params p, long long ws_floats, int* info, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
+// Greedy or sampled, for one storage-type combination.
+template <typename T, typename WT, typename CT>
+int launch_s(const Params& p, long long ws_floats, int* info,
+             cudaStream_t s) {
+  return p.sampled ? launch<T, WT, CT, true>(p, ws_floats, info, s)
+                   : launch<T, WT, CT, false>(p, ws_floats, info, s);
+}
+
 // The weight and cache storage types of one model dtype T.
 template <typename T>
 int launch_t(const Params& p, int wq8, int kv_quant, long long ws_floats,
              int* info, cudaStream_t s) {
   if (wq8)
-    return kv_quant ? launch<T, int8_t, int8_t>(p, ws_floats, info, s)
-                    : launch<T, int8_t, T>(p, ws_floats, info, s);
-  return kv_quant ? launch<T, T, int8_t>(p, ws_floats, info, s)
-                  : launch<T, T, T>(p, ws_floats, info, s);
+    return kv_quant ? launch_s<T, int8_t, int8_t>(p, ws_floats, info, s)
+                    : launch_s<T, int8_t, T>(p, ws_floats, info, s);
+  return kv_quant ? launch_s<T, T, int8_t>(p, ws_floats, info, s)
+                  : launch_s<T, T, T>(p, ws_floats, info, s);
 }
 
 }  // namespace
@@ -996,13 +1282,16 @@ int launch_t(const Params& p, int wq8, int kv_quant, long long ws_floats,
 //   page_table (0 = dense), kv_len, tokens, stop_tok (0 without eos),
 //   table, inv_freq, logits, knew, vnew, toks, stop_step, workspace,
 //   barrier counter, then sc_qkv, sc_o, sc_w1, sc_w2, sc_lm (0 without
-//   wq8), k_scale, v_scale (0 without kv_quant).
+//   wq8), k_scale, v_scale (0 without kv_quant), noise (0 unless
+//   sampled), sampcfg (0 unless filtered).
 // ints: T, nsteps, B, d, hq, hkv, hd, f, v_pad, v_real, L, s_cap (dense
 //   S or pages_per_seq * page), page (0 = dense), pages_per_seq,
 //   num_pages, fuse_norms, eos, dtype of the model (0 f32, 1 bf16),
 //   workspace floats, vocab rows of embed, argmax (1 = multi-step build:
 //   the LM head takes the argmax and feeds it back), wq8 (1 = int8
-//   weights), kv_quant (1 = int8 pool, paged only).
+//   weights), kv_quant (1 = int8 pool, paged only), sampled (1 = the
+//   argmax over logits + noise), filtered (1 = over each row's top-k/top-p
+//   keep-set; needs sampled).
 // info (out): blocks launched, dynamic shared memory bytes, blocks per SM
 //   the occupancy calculator allows.
 extern "C" int tdt_mega_decode(const unsigned long long* ptrs,
@@ -1043,6 +1332,8 @@ extern "C" int tdt_mega_decode(const unsigned long long* ptrs,
   p.sc_lm = (const float*)ptrs[k++];
   p.ksc = (const float*)ptrs[k++];
   p.vsc = (const float*)ptrs[k++];
+  p.noise = (const float*)ptrs[k++];
+  p.sampcfg = (const float*)ptrs[k++];
   int i = 0;
   p.T = ints[i++];
   p.nsteps = ints[i++];
@@ -1067,6 +1358,8 @@ extern "C" int tdt_mega_decode(const unsigned long long* ptrs,
   p.argmax = ints[i++];
   const int wq8 = ints[i++];
   const int kv_quant = ints[i++];
+  p.sampled = ints[i++];
+  p.filtered = ints[i++];
   p.nch = (p.s_cap + kAttnChunk - 1) / kAttnChunk;
   p.eps = eps;
   p.sm_scale = sm_scale;
@@ -1080,7 +1373,10 @@ extern "C" int tdt_mega_decode(const unsigned long long* ptrs,
       (wq8 && (p.sc_qkv == nullptr || p.sc_o == nullptr ||
                p.sc_w1 == nullptr || p.sc_w2 == nullptr ||
                p.sc_lm == nullptr)) ||
-      (kv_quant && (p.page == 0 || p.ksc == nullptr || p.vsc == nullptr)))
+      (kv_quant && (p.page == 0 || p.ksc == nullptr || p.vsc == nullptr)) ||
+      (p.sampled && (p.noise == nullptr || !p.argmax)) ||
+      (p.filtered && (p.sampcfg == nullptr || !p.sampled ||
+                      p.v_pad % 4 != 0)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == tdt::kDtypeF32)

@@ -11,12 +11,15 @@ cooperatively on a CUDA tensor, or runs the plain version
 (``kernels.mega_decode_plain``) on a CPU tensor; a failed build or
 launch raises, it never falls back.
 
-Built here: greedy decode at tp=1 over a dense cache, a full-width paged
-pool or an int8 paged pool (``kv_quant``: codes plus f32 scales ``[L, P,
+Built here: decode at tp=1 over a dense cache, a full-width paged pool
+or an int8 paged pool (``kv_quant``: codes plus f32 scales ``[L, P,
 Hkv]``), f32 or bf16 models with weights in the model dtype or int8
 (``MegaConfig.wq8``: per-output-channel f32 scales), ``nsteps >= 1``,
-``eos``. Every other ``MegaDims`` mode raises ``NotImplementedError``
-naming the ROADMAP item that ports it.
+``eos``; greedy, ``sampled`` (the argmax over ``logits + noise``, noise
+``[NS, B, v_loc]`` f32 = T·gumbel per row) and ``filtered`` (the argmax
+over each row's exact top-k/top-p keep-set, per-row ``sampcfg [B, 4]``).
+Every other ``MegaDims`` mode raises ``NotImplementedError`` naming the
+ROADMAP item that ports it.
 """
 
 from __future__ import annotations
@@ -48,8 +51,10 @@ MAX_BLOCKS_PER_SM = 2
 class MegaDims:
     """Static geometry of the decode step (the JAX fields, so a JAX
     ``MegaDims`` reads the same). ``kv_quant`` reads an int8 pool through
-    its per-(layer, page, kv head) scales. Modes outside this slice —
-    ``prefill``, ``sampled``, ``filtered``, ``ring``, ``trace``, MoE and
+    its per-(layer, page, kv head) scales; ``sampled`` perturbs the
+    multi-step argmax with host-drawn noise and ``filtered`` (with
+    ``sampled``) restricts it to each row's top-k/top-p keep-set. Modes
+    outside this slice — ``prefill``, ``ring``, ``trace``, MoE and
     ``n_ranks > 1`` — are refused by :func:`check_dims`."""
 
     batch: int
@@ -204,9 +209,6 @@ def check_dims(dims: MegaDims, cfg: MegaConfig) -> None:
     refused = [
         (dims.prefill, "the prefill megakernel is not ported yet (ROADMAP "
                        "queue 2 row 6(d)); the engines prefill with 'xla'"),
-        (dims.sampled or dims.filtered,
-         "sampled / filtered multi-step decode is not ported yet (ROADMAP "
-         "queue 2 row 6(b))"),
         (dims.ring, "the resident work ring is not ported yet (ROADMAP "
                     "queue 2 row 6(c))"),
         (dims.trace, "the device task tracer is not ported yet (ROADMAP "
@@ -223,6 +225,12 @@ def check_dims(dims: MegaDims, cfg: MegaConfig) -> None:
     if dims.kv_quant and not dims.page:
         raise ValueError("kv_quant requires the paged cache (scales live "
                          "on pool pages)")
+    if (dims.sampled or dims.filtered) and not _kernels.takes_argmax(dims):
+        raise ValueError("sampled / filtered decode rides the multi-step "
+                         "build: the LM head takes the argmax")
+    if dims.filtered and not dims.sampled:
+        raise ValueError("filtered decode requires sampled (its winner is "
+                         "the argmax over logits + noise)")
     if dims.eos and (not dims.page or dims.nsteps <= 1):
         raise ValueError("device stop-token testing rides the paged "
                          "multi-step decode (page > 0, nsteps > 1)")
@@ -255,7 +263,8 @@ def workspace_floats(dims: MegaDims, n_sms: int) -> int:
 def mega_decode(dims: MegaDims, cfg: MegaConfig, table: torch.Tensor,
                 w: MegaWeights, kc, vc, page_table, kv_len, tokens,
                 stop_tok=None, inv_freq=None, bar=None,
-                info: dict | None = None, k_scale=None, v_scale=None):
+                info: dict | None = None, k_scale=None, v_scale=None,
+                noise=None, sampcfg=None):
     """Run the packed task ``table [T, 8]`` for ``dims.nsteps`` steps.
 
     On CUDA tensors: one cooperative launch of ``csrc/megakernel.cu``
@@ -269,7 +278,10 @@ def mega_decode(dims: MegaDims, cfg: MegaConfig, table: torch.Tensor,
     shared memory bytes, occupancy per SM). Under ``dims.kv_quant`` the
     pool holds int8 codes and ``k_scale``/``v_scale [L, P, Hkv]`` f32 are
     its scales; under ``cfg.wq8`` ``w`` holds int8 weights and their
-    scales."""
+    scales. ``dims.sampled`` takes ``noise [NS, B, v_loc]`` f32 (added to
+    the argmax's scores, zero rows stay greedy) and ``dims.filtered``
+    ``sampcfg [B, 4]`` f32 rows ``[1/T, top-k window, top-p, enable]``
+    (``sampling.sampcfg_row``)."""
     check_dims(dims, cfg)
     if cfg.wq8 != w.q8:
         raise ValueError("MegaConfig(wq8=True) takes int8 weights with "
@@ -278,6 +290,17 @@ def mega_decode(dims: MegaDims, cfg: MegaConfig, table: torch.Tensor,
             dims.kv_quant != (kc.dtype == torch.int8)):
         raise ValueError("an int8 pool, its scales and dims.kv_quant go "
                          "together")
+    for name, t, mode, shape in (
+            ("noise", noise, "sampled",
+             (dims.nsteps, dims.batch, dims.v_loc)),
+            ("sampcfg", sampcfg, "filtered", (dims.batch, 4))):
+        if getattr(dims, mode) != (t is not None):
+            raise ValueError(f"{name} is given exactly when dims.{mode} "
+                             "is set")
+        if t is not None and (tuple(t.shape) != shape
+                              or t.dtype != torch.float32):
+            raise ValueError(f"{name} must be {shape} f32, got "
+                             f"{tuple(t.shape)} {t.dtype}")
     dev = kv_len.device
     if inv_freq is None:
         inv_freq = _kernels.rope_inv_freq(dims.head_dim, dims.rope_theta,
@@ -285,15 +308,17 @@ def mega_decode(dims: MegaDims, cfg: MegaConfig, table: torch.Tensor,
     if dev.type != "cuda":
         return _kernels.mega_decode_plain(
             dims, cfg.fuse_norms, table.cpu().numpy(), w, kc, vc,
-            page_table, kv_len, tokens, stop_tok, inv_freq, k_scale, v_scale)
+            page_table, kv_len, tokens, stop_tok, inv_freq, k_scale, v_scale,
+            noise, sampcfg)
     if bar is None:
         bar = torch.zeros(4, dtype=torch.int32, device=dev)
     return _launch(dims, cfg, table, w, kc, vc, page_table, kv_len, tokens,
-                   stop_tok, inv_freq, bar, info, k_scale, v_scale)
+                   stop_tok, inv_freq, bar, info, k_scale, v_scale, noise,
+                   sampcfg)
 
 
 def _launch(dims, cfg, table, w, kc, vc, page_table, kv_len, tokens,
-            stop_tok, inv_freq, bar, info, k_scale, v_scale):
+            stop_tok, inv_freq, bar, info, k_scale, v_scale, noise, sampcfg):
     dev = kv_len.device
     B, NS, L = dims.batch, dims.nsteps, dims.num_layers
     hkv, hd = dims.hkv_loc, dims.head_dim
@@ -344,6 +369,10 @@ def _launch(dims, cfg, table, w, kc, vc, page_table, kv_len, tokens,
     ck.check_cuda_operand("bar", bar, dev, torch.int32, 1)
     if dims.eos:
         ck.check_cuda_operand("stop_tok", stop_tok, dev, torch.int32, 1)
+    if dims.sampled:
+        ck.check_cuda_operand("noise", noise, dev, torch.float32, 3)
+    if dims.filtered:
+        ck.check_cuda_operand("sampcfg", sampcfg, dev, torch.float32, 2)
     n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
     ws_n = workspace_floats(dims, n_sms)
     ws = torch.empty(ws_n, dtype=torch.float32, device=dev)
@@ -356,20 +385,21 @@ def _launch(dims, cfg, table, w, kc, vc, page_table, kv_len, tokens,
     def ptr(t):
         return 0 if t is None else t.data_ptr()
 
-    ptrs = (ctypes.c_uint64 * 33)(*[ptr(t) for t in (
+    ptrs = (ctypes.c_uint64 * 35)(*[ptr(t) for t in (
         w.embed, w.wqkv, w.wo, w.w1, w.w2, w.lm_head, w.ln1, w.ln2,
         w.normf, w.qn, w.kn, kc, vc, page_table if dims.page else None,
         kv_len, tokens, stop_tok if dims.eos else None, table, inv_freq,
         logits, knew, vnew, toks, stop_step, ws, bar,
-        w.sc_qkv, w.sc_o, w.sc_w1, w.sc_w2, w.sc_lm, k_scale, v_scale)])
-    ints = (ctypes.c_int * 24)(
+        w.sc_qkv, w.sc_o, w.sc_w1, w.sc_w2, w.sc_lm, k_scale, v_scale,
+        noise, sampcfg)])
+    ints = (ctypes.c_int * 25)(
         table.shape[0], NS, B, dims.d, dims.hq_loc, hkv, hd, dims.f_loc,
         dims.v_loc, min(dims.v_real or dims.v_loc, dims.v_loc), L,
         dims.s_max, dims.page, dims.s_max // dims.page if dims.page else 0,
         kc.shape[1] if dims.page else 0, int(cfg.fuse_norms),
         int(dims.eos), ck.DTYPE_CODES[mdt], ws_n, w.embed.shape[0],
         int(_kernels.takes_argmax(dims)), int(cfg.wq8), int(dims.kv_quant),
-        0)
+        int(dims.sampled), int(dims.filtered))
     out = (ctypes.c_int * 4)()
     ck.MEGA_DECODE(ptrs, ints, ctypes.c_float(dims.rms_eps),
                    ctypes.c_float(hd ** -0.5), out, ck.stream_ptr(kv_len))
@@ -402,7 +432,8 @@ class MegaCall:
 
     def __call__(self, w: MegaWeights, kc, vc, page_table, kv_len, tokens,
                  stop_tok=None, info: dict | None = None, k_scale=None,
-                 v_scale=None):
+                 v_scale=None, noise=None, sampcfg=None):
         return mega_decode(self.dims, self.cfg, self.table, w, kc, vc,
                            page_table, kv_len, tokens, stop_tok,
-                           self.inv_freq, self.bar, info, k_scale, v_scale)
+                           self.inv_freq, self.bar, info, k_scale, v_scale,
+                           noise, sampcfg)

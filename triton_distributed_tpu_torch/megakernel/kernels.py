@@ -20,6 +20,10 @@ with the in-launch band and the own-token merge), O_PROJ, FC1, FC2,
 ALLREDUCE at tp=1 and LM_HEAD (single-step logits; multi-step running
 argmax over the real vocab, first occurrence on ties, the winner fed to
 the next step's EMBED, and the first stop-token step under ``eos``).
+Under ``sampled`` the argmax runs over ``logits + noise[step]`` (the
+Gumbel-max trick; the logits output stays clean), and under
+``filtered`` over the top-k/top-p keep-set of each row
+(``sampling.filtered_winner_plain``).
 """
 
 from __future__ import annotations
@@ -29,6 +33,7 @@ import torch
 
 from triton_distributed_tpu_torch.megakernel.registry import register_task
 from triton_distributed_tpu_torch.megakernel.task import TaskType
+from triton_distributed_tpu_torch.models.sampling import filtered_winner_plain
 from triton_distributed_tpu_torch.ops.attention.flash_decode import (
     pages_to_dense,
     scales_to_dense,
@@ -52,13 +57,14 @@ class MegaState:
 
     def __init__(self, dims, fuse_norms: bool, weights, kc, vc, page_table,
                  kv_len, tokens, stop_tok, inv_freq, k_scale=None,
-                 v_scale=None):
+                 v_scale=None, noise=None, sampcfg=None):
         B, d = dims.batch, dims.d
         dev = kv_len.device
         self.dims, self.fuse_norms, self.w = dims, fuse_norms, weights
         self.mdtype = weights.embed.dtype  # the model (compute) dtype
         self.kc, self.vc, self.page_table = kc, vc, page_table
         self.k_scale, self.v_scale = k_scale, v_scale
+        self.noise, self.sampcfg = noise, sampcfg
         self.kv_len = kv_len.long()
         self.stop_tok = stop_tok
         self.inv_freq = inv_freq.to(dev, torch.float32)
@@ -252,14 +258,23 @@ def takes_argmax(dims) -> bool:
 def lm_head_body(st: MegaState, layer: int, arg0: int) -> None:
     """Logits over the padded vocab; in multi-step builds the argmax over
     the real columns (``< v_real``: the zero pad columns would beat
-    negative logits), first occurrence on ties, feeds the next step."""
+    negative logits), first occurrence on ties, feeds the next step.
+    ``sampled`` adds this step's noise to the argmax's scores (not to
+    the logits); ``filtered`` takes the winner over each row's keep-set
+    once the whole row has landed."""
     dims = st.dims
     st.logits = _gemm(st, _normed_input(st, layer, 2), st.w.lm_head,
                       st.w.sc_lm)
     if takes_argmax(dims):
         v_real = min(dims.v_real or dims.v_loc, dims.v_loc)
+        if dims.filtered:
+            _multi_step_tail(st, filtered_winner_plain(
+                st.logits, st.noise[st.step], st.sampcfg, v_real))
+            return
+        score = (st.logits + st.noise[st.step] if dims.sampled
+                 else st.logits)
         cols = torch.arange(dims.v_loc, device=st.logits.device)
-        masked = torch.where(cols[None, :] < v_real, st.logits,
+        masked = torch.where(cols[None, :] < v_real, score,
                              float("-inf"))
         best = masked.max(dim=-1, keepdim=True).values
         first = torch.where(masked == best, cols[None, :],
@@ -269,21 +284,25 @@ def lm_head_body(st: MegaState, layer: int, arg0: int) -> None:
 
 def mega_decode_plain(dims, fuse_norms: bool, table: np.ndarray, weights,
                       kc, vc, page_table, kv_len, tokens, stop_tok=None,
-                      inv_freq=None, k_scale=None, v_scale=None):
+                      inv_freq=None, k_scale=None, v_scale=None, noise=None,
+                      sampcfg=None):
     """Walk the packed ``table [T, 8]`` for ``dims.nsteps`` steps over one
     :class:`MegaState`. Returns ``(logits [B, v_loc] f32 of the last
     step, knew, vnew [NS, L, B, hkv, hd] in the model dtype, toks [NS, B]
     int32, stop_step [B] int32)``; ``k_scale``/``v_scale [L, P, Hkv]``
-    are an int8 pool's scales (None for a full-width cache); ``toks`` is
-    zeros in single-step builds (the host takes the argmax of the
-    logits) and ``stop_step`` all ``nsteps`` without ``eos``."""
+    are an int8 pool's scales (None for a full-width cache); ``noise
+    [NS, B, v_loc]`` f32 (``sampled``) and ``sampcfg [B, 4]`` f32
+    (``filtered``) steer the argmax; ``toks`` is zeros in single-step
+    builds (the host takes the argmax of the logits) and ``stop_step``
+    all ``nsteps`` without ``eos``."""
     from triton_distributed_tpu_torch.megakernel.registry import get_body
 
     if inv_freq is None:
         inv_freq = rope_inv_freq(dims.head_dim, dims.rope_theta,
                                  kv_len.device)
     st = MegaState(dims, fuse_norms, weights, kc, vc, page_table, kv_len,
-                   tokens, stop_tok, inv_freq, k_scale, v_scale)
+                   tokens, stop_tok, inv_freq, k_scale, v_scale, noise,
+                   sampcfg)
     rows = [(TaskType(int(r[0])), int(r[1]), int(r[2]))
             for r in np.asarray(table)]
     bodies = [(get_body(t), layer, arg0) for t, layer, arg0 in rows]

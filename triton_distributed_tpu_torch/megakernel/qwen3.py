@@ -2,9 +2,11 @@
 
 Counterpart of ``triton_distributed_tpu/megakernel/qwen3.py``
 ``MegaQwen3``: ``build`` / ``decode_step`` / ``decode_fn`` for one step
-and ``build_multi`` / ``decode_multi_fn`` for ``nsteps`` greedy steps
-per launch (in-kernel argmax fed back to the next step, the launch's
-own earlier rows attended as the in-launch band), over a dense
+and ``build_multi`` / ``decode_multi_fn`` for ``nsteps`` steps per launch
+(in-kernel argmax fed back to the next step, the launch's own earlier
+rows attended as the in-launch band; ``sampled`` takes the argmax over
+``logits + noise``, ``filtered`` over each row's top-k/top-p keep-set),
+over a dense
 :class:`KVCache` or a full-width :class:`PagedKVCache`, with
 ``valid_arg`` (kept-row counts; overshoot rows go to the trash page) and
 ``eos`` (the first stop-token step per row, which clamps the kept rows:
@@ -20,9 +22,8 @@ tensors, nothing copied; under ``MegaConfig(wq8=True)`` it reads int8
 weights instead (:class:`Q8Params`, from ``quantized_params()`` or
 ``quantized_init()``).
 
-Refused with ``NotImplementedError``: sampled and filtered multi-step
-decode, the work ring, the task tracer, MoE models and the prefill
-megakernel (ROADMAP queue 2 row 6).
+Refused with ``NotImplementedError``: the work ring, the task tracer,
+MoE models and the prefill megakernel (ROADMAP queue 2 row 6).
 """
 
 from __future__ import annotations
@@ -108,8 +109,6 @@ def _quantize_shard(params: dict) -> Q8Params:
 
 def _refuse(**modes) -> None:
     msgs = {
-        "sampled": "sampled multi-step decode (ROADMAP queue 2 row 6(b))",
-        "filtered": "in-kernel top-k/top-p (ROADMAP queue 2 row 6(b))",
         "ring": "the resident work ring (ROADMAP queue 2 row 6(c))",
         "trace": "the device task tracer (ROADMAP queue 2 row 6(c))",
         "straggler_rank": "multi-rank fixtures (ROADMAP queue 2 row 6(e))",
@@ -291,7 +290,7 @@ class MegaQwen3:
         return self._built(batch, s_max, page, kv_quant, num_pages,
                            trace)[2]
 
-    # -- multi-step greedy decode -------------------------------------------
+    # -- multi-step decode -------------------------------------------
     def build_multi(self, batch: int, s_max: int, nsteps: int,
                     sampled: bool = False, page: int = 0,
                     straggler_rank: int | None = None,
@@ -299,10 +298,10 @@ class MegaQwen3:
                     valid_arg: bool = False, trace: bool = False,
                     filtered: bool = False, eos: bool = False,
                     ring: bool = False):
-        """``nsteps`` greedy decode steps in ONE kernel launch:
-        ``f(params, tokens, cache[, n_valid][, stop_tok, halt]) → (toks
-        [nsteps, B], last-step logits [B, V], cache advanced nsteps[,
-        stop_step [B], halt [B]])``.
+        """``nsteps`` decode steps in ONE kernel launch: ``f(params,
+        tokens, cache[, n_valid][, stop_tok, halt][, noise][, sampcfg]) →
+        (toks [nsteps, B], last-step logits [B, V], cache advanced
+        nsteps[, stop_step [B], halt [B]])``.
 
         Caller contract: ``kv_len[b] + nsteps <= s_max`` for every row.
         ``valid_arg`` (paged only) adds the kept-row counts ``n_valid
@@ -310,9 +309,15 @@ class MegaQwen3:
         ``valid_arg``) adds ``stop_tok [B]`` (-1 = none) and ``halt
         [B]``: the kernel stamps each row's first step whose token is its
         stop token (``nsteps`` = never) and the append keeps ``min(n_valid,
-        stop_step + 1) * (1 - halt)`` rows."""
-        _refuse(sampled=sampled, filtered=filtered, ring=ring, trace=trace,
-                straggler_rank=straggler_rank)
+        stop_step + 1) * (1 - halt)`` rows. ``sampled`` adds ``noise
+        [nsteps, B, V_pad]`` f32, already ``T_b · gumbel`` per row (a zero
+        row decodes greedily), and the in-kernel argmax runs over ``logits
+        + noise``: temperature sampling by the Gumbel-max trick, the
+        returned logits clean. ``filtered`` (needs ``sampled``) adds
+        ``sampcfg [B, 4]`` f32 rows ``[1/T, top-k window, top-p, enable]``
+        and the winner is taken over each row's exact top-k/top-p
+        keep-set."""
+        _refuse(ring=ring, trace=trace, straggler_rank=straggler_rank)
         if eos and not page:
             raise ValueError("eos rides the paged serving path only")
         if eos and not valid_arg:
@@ -322,7 +327,8 @@ class MegaQwen3:
             raise ValueError("valid_arg rides the paged append only")
         V = self.model.cfg.vocab_size
         base = self._dims(batch, s_max, page, kv_quant, num_pages, trace)
-        dims = dataclasses.replace(base, nsteps=nsteps, v_real=V, eos=eos)
+        dims = dataclasses.replace(base, nsteps=nsteps, v_real=V, eos=eos,
+                                   sampled=sampled, filtered=filtered)
         run = self._compile(dims).run
         dev = self.model.device
 
@@ -333,11 +339,13 @@ class MegaQwen3:
             n_valid = _ints(ex.pop(0), dev) if valid_arg else None
             stop_tok = _ints(ex.pop(0), dev) if eos else None
             halt = _ints(ex.pop(0), dev) if eos else None
+            samp = {"noise": ex.pop(0) if sampled else None,
+                    "sampcfg": ex.pop(0) if filtered else None}
             if page:
                 logits, knew, vnew, toks, ss = run(
                     w, cache.k_pages, cache.v_pages, cache.page_table,
                     cache.kv_len, tokens, stop_tok,
-                    **self._scale_args(cache, kv_quant))
+                    **self._scale_args(cache, kv_quant), **samp)
                 # [NS, L, B, hkv, hd] → [L, B, hkv, NS, hd]: one scatter
                 # lands every step's rows (an int8 pool takes them step
                 # by step, quantizing, in append_n).
@@ -353,7 +361,7 @@ class MegaQwen3:
                 return (toks, logits[:, :V],
                         append_n(cache, k_rows, v_rows, n_valid))
             logits, knew, vnew, toks, _ = run(
-                w, cache.k, cache.v, None, cache.kv_len, tokens)
+                w, cache.k, cache.v, None, cache.kv_len, tokens, **samp)
             return toks, logits[:, :V], _dense_append(cache, knew, vnew)
 
         return f

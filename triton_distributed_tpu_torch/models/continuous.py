@@ -29,15 +29,27 @@ continuations of its history drafts a token trie, verified under the
 ancestor mask, and the accepted branch's KV rows move into place. The
 host-side kv_len resync (``_sync_tables``) is the rollback.
 
+Sampling: ``temperature`` / ``top_p`` / ``top_k`` are the engine's
+defaults and a :class:`Request` may override each; greedy and sampled
+requests share a batch. A request draws from its own generators: its
+seed comes lazily from the engine's generator (seeded by ``seed``) at
+its first sampled draw, and its n-th draw uses a generator seeded by
+``sampling.mix64(seed, n)``, so a request's draws do not depend on what
+else shares its batch.
+
 ``mode="mega"`` decodes in ``ns``-step launches of the megakernel: one
-launch emits up to ``ns`` tokens per slot (in-kernel argmax), over the
+launch emits up to ``ns`` tokens per slot (in-kernel argmax; sampled
+slots take the argmax over ``logits + T·gumbel``, the noise drawn from
+the engine's generator per launch, and with top-k/top-p over their
+keep-set, found in the kernel), over the
 smallest power-of-two batch bucket that covers the active slots
 (``mega_buckets``); a slot finishing inside the launch keeps only its
 ``n_valid`` rows (the rest go to the trash page) and, with ``eos_id``,
 stops at its first stop token, found in the kernel. A round that cannot
-launch (a slot within ``ns`` of ``max_length``) takes a single-step
-launch of the same kernel. Over an int8 pool (``kv_dtype="int8"``) the
-kernel reads the codes through the pool-wide per-page scales (a bucket's
+launch (a slot within ``ns`` of ``max_length``, or at ``ns = 1`` a slot
+with top-k/top-p) takes a single-step launch of the same kernel. Over an
+int8 pool (``kv_dtype="int8"``) the kernel reads the codes through the
+pool-wide per-page scales (a bucket's
 compacted table reads them unchanged) and the append quantizes the
 launch's rows into the pool step by step; ``mega_cfg=MegaConfig(
 wq8=True)`` decodes from int8 weights (prefill keeps the model's own).
@@ -56,11 +68,10 @@ step of the slot runs a per-slot forward that merges the resident and
 the cold-window attention partials with ``lse_combine``; the batched
 decode sees the slot as empty and its logits are spliced over.
 
-Greedy only. Not ported, and refused when asked for: sampled requests
-(``temperature > 0``), resident decode, slot migration/snapshots, the KV
-fabric, context-parallel prefill, the device task tracer (ROADMAP queue
-1). Cancellation, request timelines and fault seams are not ported
-either.
+Not ported, and refused when asked for: resident decode, slot
+migration/snapshots, the KV fabric, context-parallel prefill, the device
+task tracer (ROADMAP queue 1). Cancellation, request timelines and fault
+seams are not ported either.
 """
 
 from __future__ import annotations
@@ -77,7 +88,6 @@ import torch
 
 from triton_distributed_tpu_torch.models import kv_tier, sampling
 from triton_distributed_tpu_torch.models.engine import (
-    SAMPLED_SERVING,
     MegaDispatch,
     engine_setup,
     prefill_suffix_chunks,
@@ -214,12 +224,17 @@ _FAIL_EVENT_KIND = {
 @dataclasses.dataclass
 class Request:
     """One generation request and its accumulated output.
-    ``deadline_s`` is a wall-clock budget measured from ``run()`` entry;
-    ``temperature`` must be None or 0 (greedy) in this slice."""
+    ``temperature`` / ``top_p`` / ``top_k`` override the engine's
+    defaults for this request (None → the engine's). ``deadline_s`` is a
+    wall-clock budget measured from ``run()`` entry. ``key`` is the
+    request's sampling seed, drawn from the engine's generator at its
+    first sampled draw, and ``key_step`` counts its draws."""
 
     prompt: np.ndarray  # [S] int32
     gen_len: int
     temperature: float | None = None
+    top_p: float | None = None
+    top_k: int | None = None
     deadline_s: float | None = None
     out: list[int] = dataclasses.field(default_factory=list)
     slot: int | None = None
@@ -232,6 +247,8 @@ class Request:
     status: str = "ok"
     reason: str = ""
     deadline_at: float | None = dataclasses.field(default=None, repr=False)
+    key: int | None = dataclasses.field(default=None, repr=False)
+    key_step: int = 0
 
     @property
     def done(self) -> bool:
@@ -274,7 +291,8 @@ class _LongSlot:
 @dataclasses.dataclass
 class _MegaPlan:
     """One megakernel launch: launch row → engine slot (-1 = bucket
-    filler), the bucket width, kept-row counts and stop tokens."""
+    filler), the bucket width, kept-row counts, stop tokens and the
+    per-row sampling knobs."""
 
     rows: list
     B: int
@@ -282,6 +300,10 @@ class _MegaPlan:
     eos: bool               # device stop-token test
     n_valid: np.ndarray     # [B] kept-row counts fed to append_n
     stop_tok: np.ndarray | None  # [B] when eos
+    sampled: bool = False   # some row has temperature > 0
+    filtered: bool = False  # some row has top-k/top-p (sampcfg rides)
+    temps: np.ndarray | None = None    # [B] noise scale per row (0 greedy)
+    sampcfg: np.ndarray | None = None  # [B, 4] when filtered
 
 
 class ContinuousEngine(MegaDispatch):
@@ -308,6 +330,9 @@ class ContinuousEngine(MegaDispatch):
         num_pages: int | None = None,
         mode: str = "xla",
         temperature: float = 0.0,
+        top_p: float = 1.0,
+        top_k: int = 0,
+        seed: int = 0,
         eos_id: int | None = None,
         prefix_cache: bool = False,
         prefill_chunk: int = 0,
@@ -334,7 +359,7 @@ class ContinuousEngine(MegaDispatch):
                 "cp > 1 (context-parallel prefill) is not ported yet "
                 "(ROADMAP queue 1, item 11)"
             )
-        engine_setup(model, device, mode, temperature, mega_cfg, **unported)
+        engine_setup(model, device, mode, **unported)
         if int(ns) < 1:
             raise ValueError(f"ns must be >= 1, got {ns}")
         if speculative and mode == "mega":
@@ -344,6 +369,13 @@ class ContinuousEngine(MegaDispatch):
         self.model = model
         self.mode = mode
         self.mega_cfg = mega_cfg
+        # Default sampling knobs (a Request may override each) and the
+        # engine's generator: request seeds and the mega launches' noise.
+        self.temperature = float(temperature)
+        self.top_p = float(top_p)
+        self.top_k = int(top_k)
+        self._gen = torch.Generator(device=model.device).manual_seed(
+            int(seed))
         # The megakernel's launch width and its batch buckets.
         self.NS = int(ns)
         self.mega_buckets = bool(mega_buckets)
@@ -874,9 +906,9 @@ class ContinuousEngine(MegaDispatch):
         return problems
 
     def _decode_once(self) -> bool:
-        """One batched decode of every active slot; appends greedy tokens
-        and evicts finished requests. Returns whether slot state
-        changed."""
+        """One batched decode of every active slot; appends each slot's
+        token (greedy, or sampled under its knobs) and evicts finished
+        requests. Returns whether slot state changed."""
         active = np.asarray([r is not None for r in self._slots], np.int32)
         if not active.any():
             return False
@@ -896,6 +928,7 @@ class ContinuousEngine(MegaDispatch):
         both = torch.stack([finite.to(torch.int32), sampling.greedy(logits)])
         finite, nxt = both.cpu().numpy()
         failed = self._guard_logits(finite)
+        nxt = self._sample_slots(logits, nxt)
         changed = self._process(lambda slot: [nxt[slot]])
         return changed or bool(failed) or lc_changed
 
@@ -1175,14 +1208,56 @@ class ContinuousEngine(MegaDispatch):
             obs_events.emit("tier_fault", pages=faulted, bytes=bytes_in,
                             matched_tokens=i)
 
+    def _request_sampling(self, req: Request) -> tuple[float, float, int]:
+        """A request's effective ``(temperature, top_p, top_k)``: its own
+        overrides, else the engine's defaults."""
+        t = self.temperature if req.temperature is None else req.temperature
+        p = self.top_p if req.top_p is None else req.top_p
+        k = self.top_k if req.top_k is None else req.top_k
+        return float(t), float(p), int(k)
+
+    def _req_gen(self, req: Request) -> torch.Generator:
+        """The generator of ``req``'s next sampled draw: seeded by
+        ``mix64(request seed, draw counter)``, so each draw is a pure
+        function of the request's seed and how many draws it made (the
+        JAX ``fold_in(key, key_step)`` protocol). The request seed is
+        drawn from the engine's generator at the first sampled draw."""
+        if req.key is None:
+            req.key = int(torch.randint(
+                0, 2**62, (1,), generator=self._gen,
+                device=self._gen.device)[0])
+        gen = torch.Generator(device=self.model.device).manual_seed(
+            sampling.mix64(req.key, req.key_step))
+        req.key_step += 1
+        return gen
+
     def _sample_req(self, req: Request, logits: torch.Tensor) -> int:
-        """The greedy first token from an admission's ``logits [V]``."""
+        """The first token from an admission's ``logits [V]``, under the
+        request's knobs."""
         if not bool(torch.isfinite(logits).all()):
             raise sampling.NonFiniteLogitsError(
                 "non-finite logits from the admission prefill",
                 slot=req.slot,
             )
-        return int(sampling.greedy(logits))
+        t, p, k = self._request_sampling(req)
+        if t <= 0.0:
+            return int(sampling.greedy(logits))
+        return int(sampling.sample(logits, self._req_gen(req), t, p, k))
+
+    def _sample_slots(self, logits: torch.Tensor, toks: np.ndarray
+                      ) -> np.ndarray:
+        """Per-slot tokens of a batched ``[max_batch, V]`` decode output:
+        ``toks`` (the batch's argmax, already fetched) for greedy slots,
+        a draw under its own knobs and generator for every sampled
+        slot."""
+        for slot, req in enumerate(self._slots):
+            if req is None:
+                continue
+            t, p, k = self._request_sampling(req)
+            if t > 0.0:
+                toks[slot] = int(sampling.sample(
+                    logits[slot], self._req_gen(req), t, p, k))
+        return toks
 
     def _needed_pages(self, prompt_len: int, gen_len: int) -> int:
         return -(-(prompt_len + gen_len) // self.page_size)
@@ -1224,13 +1299,22 @@ class ContinuousEngine(MegaDispatch):
     # -- megakernel rounds --------------------------------------------------
 
     def _mega_plan(self) -> _MegaPlan | None:
-        """Compose the next launch from host truth, or None when a slot is
-        within ``ns`` of ``max_length`` (its ``ns`` appended rows would
-        pass the page table) and the round takes a single step."""
+        """Compose the next launch from host truth, or None when the round
+        takes a single step: a slot within ``ns`` of ``max_length`` (its
+        ``ns`` appended rows would pass the page table), or at ``ns = 1``
+        a slot with top-k/top-p (the in-kernel filter rides the
+        multi-step build). Greedy and sampled slots launch together: a
+        row's noise is scaled by its temperature, so a greedy row's is
+        zero."""
         active = np.asarray([r is not None for r in self._slots], np.int32)
         if int((self._kv_len * active).max()) + self.NS > self.max_length:
             return None
         act = [s for s in range(self.max_batch) if self._slots[s] is not None]
+        V = self.model.cfg.vocab_size
+        filtered = any(sampling.sampcfg_row(
+            *self._request_sampling(self._slots[s]), V)[3] > 0.0 for s in act)
+        if filtered and self.NS <= 1:
+            return None
         # Batch bucket: the smallest power of two covering the active
         # slots; a full-width round keeps the identity layout.
         B = self.max_batch
@@ -1246,6 +1330,10 @@ class ContinuousEngine(MegaDispatch):
         # from gen_len) sends its overshoot rows to the trash page.
         n_valid = np.zeros(B, np.int32)
         stop_tok = np.full(B, -1, np.int32)
+        temps = np.zeros(B, np.float32)
+        # Inert rows: 1/T 1, top-k window V, top-p 1, filter off.
+        sampcfg = np.tile(np.asarray([sampling.sampcfg_row(0.0, 1.0, 0, V)],
+                                     np.float32), (B, 1))
         for i, slot in enumerate(rows):
             req = self._slots[slot] if slot >= 0 else None
             if req is None:
@@ -1253,10 +1341,16 @@ class ContinuousEngine(MegaDispatch):
             n_valid[i] = min(req.gen_len - len(req.out), self.NS)
             if self.eos_id is not None:
                 stop_tok[i] = self.eos_id
+            t, p, k = self._request_sampling(req)
+            temps[i] = max(t, 0.0)
+            sampcfg[i] = sampling.sampcfg_row(t, p, k, V)
         eos = self.eos_id is not None and self.NS > 1
         return _MegaPlan(rows=rows, B=B, compact=compact, eos=eos,
                          n_valid=n_valid,
-                         stop_tok=stop_tok if eos else None)
+                         stop_tok=stop_tok if eos else None,
+                         sampled=bool((temps > 0.0).any()),
+                         filtered=filtered, temps=temps,
+                         sampcfg=sampcfg if filtered else None)
 
     def _launch_mega(self, plan: _MegaPlan):
         """One ``ns``-step launch for ``plan``, with the launch-time host
@@ -1283,11 +1377,20 @@ class ContinuousEngine(MegaDispatch):
         if plan.eos:
             extra += [plan.stop_tok, np.zeros(plan.B, np.int32)]
         mega = self._mega_model()
+        if plan.sampled:
+            # One draw per launch from the engine's generator (the JAX
+            # engine draws it from the engine key too), scaled per row.
+            v_pad = mega._dims(plan.B, self.max_length).v_loc
+            temps = torch.from_numpy(plan.temps).to(dev)
+            extra.append(sampling.gumbel((NS, plan.B, v_pad), self._gen, dev)
+                         * temps[None, :, None])
+        if plan.filtered:
+            extra.append(torch.from_numpy(plan.sampcfg).to(dev))
         fn = mega.decode_multi_fn(
-            plan.B, self.max_length, NS, page=self.page_size,
-            kv_quant=self.kv_dtype is not None,
+            plan.B, self.max_length, NS, sampled=plan.sampled,
+            page=self.page_size, kv_quant=self.kv_dtype is not None,
             num_pages=int(self.cache.k_pages.shape[1]), valid_arg=True,
-            eos=plan.eos)
+            filtered=plan.filtered, eos=plan.eos)
         outs = fn(mega._step_params(), tok, cache_in, *extra)
         toks, new_cache = outs[0], outs[2]
         ss = outs[3] if plan.eos else None
@@ -1305,6 +1408,8 @@ class ContinuousEngine(MegaDispatch):
             kv_len=torch.from_numpy(self._kv_len.copy()).to(dev))
         if plan.compact:
             self._bump("mega_bucket_launches")
+        if plan.filtered:
+            self._bump("mega_filtered_rounds")
         self._bump("decode_steps", NS)
         self._bump("mega_launches")
         obs_events.emit("mega:launch", ns=NS, active=int(sum(
@@ -1399,13 +1504,18 @@ class ContinuousEngine(MegaDispatch):
                 continue
             kv = int(self._kv_len[slot])
             draft = drafts[slot]
+            t, p, k = self._request_sampling(req)
+            knobs = dict(temperature=t, top_p=p, top_k=k)
             if isinstance(draft, TreeDraft):
                 any_failed |= self._spec_tree_slot(req, slot, draft, kv,
-                                                   bursts)
+                                                   bursts, knobs)
                 continue
+            # One per-request generator per verify: its accept and
+            # resample draws stay the request's own.
             emitted, self.cache, a = spec_verify_slot(
                 self.model, self.cache, slot, int(self._tok[slot]), draft,
                 kv, self.mode,
+                generator=self._req_gen(req) if t > 0.0 else None, **knobs,
             )
             if emitted is None:
                 self._bump("nonfinite_logits")
@@ -1431,13 +1541,15 @@ class ContinuousEngine(MegaDispatch):
         return changed or any_failed
 
     def _spec_tree_slot(self, req: Request, slot: int, tree: TreeDraft,
-                        kv: int, bursts: dict) -> bool:
+                        kv: int, bursts: dict, knobs: dict) -> bool:
         """One TREE verify of ``slot`` inside a round: the multi-branch
-        chunk forward, the greedy walk, the row-move commit of the
-        accepted branch. On success ``bursts[slot]`` holds the emitted
-        tokens; returns True when the slot FAILED (non-finite logits)."""
+        chunk forward, the greedy (or, under ``knobs``' temperature,
+        sample-then-match) walk, the row-move commit of the accepted
+        branch. On success ``bursts[slot]`` holds the emitted tokens;
+        returns True when the slot FAILED (non-finite logits)."""
         emitted, self.cache, path = spec_verify_tree(
-            self.model, self.cache, slot, tree, kv, self.mode)
+            self.model, self.cache, slot, tree, kv, self.mode,
+            next_gen=lambda: self._req_gen(req), **knobs)
         if emitted is None:
             self._bump("nonfinite_logits")
             self._fail(
@@ -1562,9 +1674,6 @@ class ContinuousEngine(MegaDispatch):
             else Request(np.asarray(r[0], np.int32), int(r[1]))
             for r in requests
         ]
-        for r in reqs:
-            if r.temperature:
-                raise NotImplementedError(SAMPLED_SERVING)
         self.stats = self._zero_stats()
         t0 = time.monotonic()
         if self.max_queue is not None and len(reqs) > self.max_queue:

@@ -4,7 +4,9 @@ Counterpart of ``triton_distributed_tpu/models/engine.py``:
 ``Engine.serve`` with a dense cache (``paged=False``), a paged pool
 (``paged=True``) and the cross-serve radix prefix cache
 (``paged=True, prefix_cache=True``), plus ``prefill_suffix_chunks``,
-the chunked suffix prefill both engines share. Decode is greedy.
+the chunked suffix prefill both engines share. Decode is greedy, or with
+``temperature > 0`` sampled under ``top_p`` / ``top_k`` from the
+engine's ``torch.Generator`` (seeded by ``seed``).
 ``kv_dtype="int8"`` (paged only) stores the pool as int8 codes plus
 per-page scales. ``speculative=K`` (paged only) decodes each row through
 n-gram draft verify chunks and, with ``spec_width > 1`` on a full-width
@@ -12,14 +14,16 @@ pool with the prefix cache, draft trees fed by the radix tree.
 
 ``mode="mega"`` decodes through the megakernel (``MegaDispatch``):
 ``serve(ns=8)`` runs ``(gen_len - 1) // ns`` launches of ``ns`` steps
-each (in-kernel argmax) and the remainder as single-step launches of
-the same kernel, over a dense cache, a paged pool or an int8 pool;
+each (in-kernel argmax; sampled: over ``logits + T·gumbel``, the noise
+drawn per launch, and with top-k/top-p over each row's keep-set, found
+in the kernel) and the remainder as single-step launches of the same
+kernel, over a dense cache, a paged pool or an int8 pool;
 prefill runs the ``xla`` path, as in the JAX package. With
 ``mega_cfg=MegaConfig(wq8=True)`` decode reads int8 weights
 (``MegaQwen3.quantized_params``) and prefill the model's own.
 
-Not ported, and refused when asked for: ``mode="pallas"``, ``profile``,
-``temperature > 0`` (ROADMAP queue 1).
+Not ported, and refused when asked for: ``mode="pallas"``, ``profile``
+(ROADMAP queue 1).
 """
 
 from __future__ import annotations
@@ -65,18 +69,10 @@ from triton_distributed_tpu_torch.models.stats import (
 from triton_distributed_tpu_torch.obs import metrics as obs_metrics
 from triton_distributed_tpu_torch.runtime.context import resolve_device
 
-SAMPLED_SERVING = (
-    "temperature > 0 is not ported yet: sampled serving with "
-    "per-request torch.Generators is ROADMAP queue 1, item 4b"
-)
-
-
-def engine_setup(model, device, mode: str, temperature: float,
-                 mega_cfg=None, **unported) -> None:
+def engine_setup(model, device, mode: str, **unported) -> None:
     """Ctor checks both engines share: the engine runs on ``device``
     (``cuda`` unless given; it must be the model's), in ``mode='xla'`` or
-    ``'mega'``, greedy, and every knob this slice does not port is
-    refused."""
+    ``'mega'``, and every knob this slice does not port is refused."""
     dev = resolve_device(device)
     if dev != model.device:
         raise ValueError(
@@ -84,8 +80,6 @@ def engine_setup(model, device, mode: str, temperature: float,
         )
     if mode != "mega":
         check_mode(mode)
-    if temperature > 0.0:
-        raise NotImplementedError(SAMPLED_SERVING)
     for name, value in unported.items():
         if value:
             raise NotImplementedError(
@@ -192,6 +186,9 @@ class Engine(MegaDispatch):
         model,
         *,
         temperature: float = 0.0,
+        top_p: float = 1.0,
+        top_k: int = 0,
+        seed: int = 0,
         mode: str = "xla",
         paged: bool = False,
         page_size: int = 128,
@@ -203,7 +200,7 @@ class Engine(MegaDispatch):
         mega_cfg=None,
         device=None,
     ):
-        engine_setup(model, device, mode, temperature, mega_cfg)
+        engine_setup(model, device, mode)
         # The explicit knob wins over the model config's kv_dtype; the
         # scales live on the page pool, so a dense cache cannot hold int8.
         self.kv_dtype = resolve_kv_dtype(kv_dtype, model.cfg)
@@ -231,6 +228,14 @@ class Engine(MegaDispatch):
         self.model = model
         self.mode = mode
         self.mega_cfg = mega_cfg
+        self.temperature = float(temperature)
+        self.top_p = float(top_p)
+        self.top_k = int(top_k)
+        # Every sampled draw of this engine (host sampling, the mega
+        # launches' Gumbel noise, the speculative verifies) comes from
+        # this generator, on the model's device.
+        self._gen = torch.Generator(device=model.device).manual_seed(
+            int(seed))
         self.last_stats: dict = {}
         self.paged = paged
         self.page_size = page_size
@@ -281,6 +286,15 @@ class Engine(MegaDispatch):
         if problems and raise_on_violation:
             raise PoolAuditError("; ".join(problems))
         return problems
+
+    def _sample(self, logits: torch.Tensor) -> torch.Tensor:
+        """Tokens ``[B]`` from ``logits [B, V]`` under the engine's knobs:
+        the argmax at ``temperature <= 0``, else a draw from the
+        engine's generator."""
+        if self.temperature <= 0.0:
+            return sampling.greedy(logits)
+        return sampling.sample(logits, self._gen, self.temperature,
+                               self.top_p, self.top_k)
 
     def serve(
         self,
@@ -379,11 +393,11 @@ class Engine(MegaDispatch):
         t_prefill = time.perf_counter() - t0
 
         out = [input_ids]
-        tok = sampling.greedy(logits)
+        tok = self._sample(logits)
         out.append(tok.cpu().numpy()[:, None])
         t0 = time.perf_counter()
         spec = None
-        mega_launches = 0
+        mega_launches = mega_filtered = 0
         if self.speculative and gen_len > 1:
             tail, cache, spec = self._spec_decode(
                 cache, out[-1][:, 0], rows, true_lens, gen_len, max_length)
@@ -391,11 +405,12 @@ class Engine(MegaDispatch):
         else:
             left = gen_len - 1
             if self.mode == "mega":
-                tok, cache, left, mega_launches = self._mega_multi(
-                    tok, cache, b, int(true_lens.max()), left, ns, out)
+                tok, cache, left, mega_launches, mega_filtered = (
+                    self._mega_multi(tok, cache, b, int(true_lens.max()),
+                                     left, ns, out))
             for _ in range(left):
                 logits, cache = self._decode_step(tok, cache)
-                tok = sampling.greedy(logits)
+                tok = self._sample(logits)
                 out.append(tok.cpu().numpy()[:, None])
         t_decode = time.perf_counter() - t0
 
@@ -418,6 +433,7 @@ class Engine(MegaDispatch):
         }
         if self.mode == "mega":
             self.last_stats["mega_launches"] = mega_launches
+            self.last_stats["mega_filtered_rounds"] = mega_filtered
         if spec is not None:
             self.last_stats.update(spec)
             self.last_stats.update(spec_summary(self.last_stats))
@@ -447,8 +463,12 @@ class Engine(MegaDispatch):
         """The multi-step fast path: as many ``ns``-step launches as fit
         both the remaining tokens and the cache (a launch appends ``ns``
         rows at once, so it must not start within ``ns`` of the end).
-        Returns ``(tok, cache, steps left for single-step launches,
-        launches run)``."""
+        Sampled, each launch draws ``T · gumbel`` noise ``[ns, b, V_pad]``
+        from the engine's generator; with top-k/top-p the kernel filters
+        each row (``sampcfg``), which needs ``ns > 1``: at ``ns = 1`` the
+        whole decode takes single steps with host sampling, as in the JAX
+        engine. Returns ``(tok, cache, steps left for single-step
+        launches, launches run, filtered launches run)``."""
         NS = int(ns)
         if NS < 1:
             raise ValueError(f"ns must be >= 1, got {ns}")
@@ -456,19 +476,37 @@ class Engine(MegaDispatch):
             s_max = int(cache.page_table.shape[1]) * self.page_size
         else:
             s_max = int(cache.k.shape[3])
+        V = self.model.cfg.vocab_size
+        T = self.temperature
+        sampled = T > 0.0
+        row = sampling.sampcfg_row(T, self.top_p, self.top_k, V)
+        filtered = sampled and row[3] > 0.0
         launches = min(left // NS, max(s_max - kv_high, 0) // NS)
-        if not launches:
-            return tok, cache, left, 0
-        fn = self._mega_model().decode_multi_fn(
-            b, s_max, NS, page=self.page_size if self.paged else 0,
+        if not launches or (filtered and NS == 1):
+            return tok, cache, left, 0, 0
+        mega = self._mega_model()
+        fn = mega.decode_multi_fn(
+            b, s_max, NS, sampled=sampled,
+            page=self.page_size if self.paged else 0,
             kv_quant=self.paged and self.kv_dtype is not None,
-            num_pages=int(cache.k_pages.shape[1]) if self.paged else 0)
-        params = self._mega_model()._step_params()
+            num_pages=int(cache.k_pages.shape[1]) if self.paged else 0,
+            filtered=filtered)
+        dev = self.model.device
+        v_pad = mega._dims(b, s_max).v_loc
+        tail = []
+        if filtered:  # one row per batch row, the engine's knobs
+            tail = [torch.tensor([row] * b, dtype=torch.float32, device=dev)]
+        params = mega._step_params()
         for _ in range(launches):
-            toks, _logits, cache = fn(params, tok, cache)
+            extra = []
+            if sampled:
+                extra = [T * sampling.gumbel((NS, b, v_pad), self._gen, dev),
+                         *tail]
+            toks, _logits, cache = fn(params, tok, cache, *extra)
             out.append(toks.cpu().numpy().T)  # [b, NS]
             tok = toks[-1]
-        return tok, cache, left - launches * NS, launches
+        return (tok, cache, left - launches * NS, launches,
+                launches if filtered else 0)
 
     # -- speculative decode ------------------------------------------------
 
@@ -517,10 +555,13 @@ class Engine(MegaDispatch):
             outs[i].extend(emitted)
             return cache
 
+        knobs = dict(temperature=self.temperature, top_p=self.top_p,
+                     top_k=self.top_k)
+
         def verify_row(i, draft, cache):
             emitted, cache, a = spec_verify_slot(
                 self.model, cache, i, outs[i][-1], draft, int(kv[i]),
-                self.mode)
+                self.mode, generator=self._gen, **knobs)
             if emitted is None:
                 # No per-request failure channel here: fail the serve
                 # (a prefix state is left dirty and rebuilt).
@@ -530,7 +571,8 @@ class Engine(MegaDispatch):
 
         def verify_tree_row(i, tr, cache):
             emitted, cache, path = spec_verify_tree(
-                self.model, cache, i, tr, int(kv[i]), self.mode)
+                self.model, cache, i, tr, int(kv[i]), self.mode,
+                next_gen=lambda: self._gen, **knobs)
             if emitted is None:
                 raise nonfinite(i)
             a = len(path)
@@ -592,7 +634,7 @@ class Engine(MegaDispatch):
                                        dtype=torch.int32)
                 logits, cache = self.model.decode_step(pending, cache,
                                                        self.mode)
-                toks = sampling.greedy(logits).cpu().numpy()
+                toks = self._sample(logits).cpu().numpy()
                 counters["spec_decode_steps"] += 1
                 for i in range(b):
                     outs[i].append(int(toks[i]))

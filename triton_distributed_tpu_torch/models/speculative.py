@@ -1,13 +1,18 @@
-"""Self-drafting greedy speculative decoding: n-gram chains and draft trees.
+"""Self-drafting speculative decoding: n-gram chains and draft trees.
 
 Counterpart of ``triton_distributed_tpu/models/speculative.py``. A slot
 drafts K tokens from its own history (``NGramDraft``, prompt lookup),
 scores all of them in ONE chunked paged-prefill forward
-(``Qwen3.prefill_paged_chunk(all_logits=True)``), accepts the longest
-prefix that equals the target's argmax, and the caller rolls the KV back
-past the first rejection. One target step then emits ``accepted + 1``
-tokens, and every one of them is the target's own argmax: the output is
-exactly that of plain greedy decode.
+(``Qwen3.prefill_paged_chunk(all_logits=True)``), accepts a prefix, and
+the caller rolls the KV back past the first rejection. One target step
+then emits ``accepted + 1`` tokens. Greedy (``temperature <= 0``):
+accept while the draft equals the target's argmax, so the output is
+exactly that of plain greedy decode. Sampled: ``verify_sampled`` accepts
+a drafted token with its probability under the filtered target
+distribution and otherwise draws from the residual, and
+``verify_tree_sampled`` samples the target first and then matches it
+against the drafted children; either way each emitted token's law is
+that of plain sampled decode.
 
 Tree speculation: when the radix tree remembers SEVERAL continuations of
 the slot's history, ``TreeDraft`` stacks them into a token trie verified
@@ -17,12 +22,15 @@ kernel on the card) and each node ropes at ``kv + depth``, so an accepted
 branch's K/V rows equal the rows linear decode would write and the
 commit is a row-move (``paged_kv_cache.move_kv_rows``).
 
-Greedy only in this slice: the sampled verifies (``verify_sampled``,
-``verify_tree_sampled``) wait for sampled serving, and the engines refuse
-``temperature > 0``. Each verify fetches the per-position argmax and the
-all-finite flag in one device-to-host copy; the ``[C, V]`` logits stay
-on the device. The JAX module's fault seams and trace spans are not
-ported (ROADMAP queue 1, item 6).
+``jax.random`` keys become ``torch.Generator``s: a linear verify draws
+from the one generator it is given, a tree verify asks ``next_gen()`` for
+one per emitted token (the continuous engine hands out per-request
+generators, see ``ContinuousEngine._req_gen``). Each verify fetches the
+per-position argmax and the all-finite flag in one device-to-host copy;
+the ``[C, V]`` logits stay on the device (a sampled verify also fetches
+the draft tokens' probabilities and, on a rejection, one probability
+row). The JAX module's fault seams and trace spans are not ported
+(ROADMAP queue 1, item 6).
 """
 
 from __future__ import annotations
@@ -30,6 +38,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from triton_distributed_tpu_torch.models import sampling
 from triton_distributed_tpu_torch.models.paged_kv_cache import (
     gather_bucket,
     move_kv_rows,
@@ -175,6 +184,80 @@ def verify_greedy(preds, draft: list[int]) -> tuple[int, int]:
     return a, int(preds[a])
 
 
+def _uniform(generator: torch.Generator, n: int = 1,
+             dtype=torch.float32) -> torch.Tensor:
+    """``n`` uniform draws in [0, 1) from ``generator``, on its device."""
+    return torch.rand(n, generator=generator, device=generator.device,
+                      dtype=dtype)
+
+
+def verify_sampled(logits: torch.Tensor, draft: list[int],
+                   generator: torch.Generator, temperature: float,
+                   top_p: float = 1.0, top_k: int = 0) -> tuple[int, int]:
+    """Distribution-preserving acceptance for ``temperature > 0`` over the
+    target's ``logits [n+1, V]`` at the inputs ``[pending, d_1..d_n]``.
+
+    With a deterministic (delta) draft the rejection-sampling rule is:
+    accept ``d_i`` with probability ``p_i(d_i)`` under the filtered target
+    distribution; on the first rejection emit a draw of the residual
+    ``p_i`` with ``d_i`` zeroed and renormalized (float64, on the host);
+    after a full accept, a bonus draw of ``p_n``. Each emitted token's
+    marginal is exactly ``p_i``. The accept draws come from ``generator``
+    first (one per drafted token, in one call), then the residual's or
+    the bonus's. Returns ``(accepted, next_token)``."""
+    n = len(draft)
+    if n:
+        probs = sampling.target_probs(logits[:n], temperature, top_p, top_k)
+        idx = torch.arange(n, device=logits.device)
+        pd = probs[idx, torch.as_tensor(draft, device=logits.device)]
+        both = torch.stack([_uniform(generator, n).to(pd.device), pd])
+        u, pd = both.cpu().numpy()
+        for i, d in enumerate(draft):
+            if u[i] < pd[i]:
+                continue
+            resid = probs[i].cpu().numpy().astype(np.float64)
+            resid[int(d)] = 0.0
+            total = resid.sum()
+            if total <= 0.0:
+                # p(d) was numerically 1 yet the draw rejected: the target
+                # IS d's one-hot, so draw it directly.
+                return i, int(sampling.sample(logits[i], generator,
+                                              temperature, top_p, top_k))
+            cum = np.cumsum(resid / total)
+            r = float(_uniform(generator, dtype=torch.float64)[0])
+            nxt = min(int(np.searchsorted(cum, r * cum[-1], side="right")),
+                      len(cum) - 1)
+            while resid[nxt] <= 0.0:  # never a zero-mass token
+                nxt -= 1
+            return i, nxt
+    return n, int(sampling.sample(logits[n], generator, temperature, top_p,
+                                  top_k))
+
+
+def verify_tree_sampled(logits: torch.Tensor, tree: "TreeDraft", next_gen,
+                        temperature: float, top_p: float = 1.0,
+                        top_k: int = 0) -> tuple[list[int], list[int]]:
+    """Distribution-preserving tree acceptance: sample, then match. At
+    each node the target token is drawn first (``sampling.sample`` under
+    the node's filtered distribution, one generator from ``next_gen()``
+    per emitted token: the draws of plain sampled decode) and the walk
+    descends into the drafted child carrying it, if any. The emitted
+    stream's law is that of plain sampled decode, whatever the tree's
+    shape. Returns ``(path, emitted)`` as :func:`verify_tree_greedy`."""
+    path: list[int] = []
+    emitted: list[int] = []
+    cur = 0
+    while True:
+        t = int(sampling.sample(logits[cur], next_gen(), temperature, top_p,
+                                top_k))
+        emitted.append(t)
+        nxt = tree.child(cur, t)
+        if nxt is None:
+            return path, emitted
+        path.append(nxt)
+        cur = nxt
+
+
 def _greedy_rows(logits: torch.Tensor, n: int):
     """Argmax of the first ``n`` logit rows and whether they are all
     finite, fetched to the host in one copy. ``torch.argmax`` takes the
@@ -190,7 +273,8 @@ def _verify_chunk(model, cache, slot: int, tokens: list[int], kv_len: int,
     """Run ``tokens`` (padded to ``round_chunk``) through one chunk
     forward at ``kv_len`` with per-position logits. The chunk writes KV
     for every row and sets the slot's kv_len to ``kv_len + n``. Returns
-    ``(preds [n] or None if non-finite, cache)``."""
+    ``(preds [n] or None if non-finite, logits [n, V] on the device,
+    cache)``."""
     n = len(tokens)
     c = round_chunk(n)
     page = int(cache.k_pages.shape[3])
@@ -203,24 +287,32 @@ def _verify_chunk(model, cache, slot: int, tokens: list[int], kv_len: int,
         **{k: v(c) for k, v in tree.items()},
     )
     preds, finite = _greedy_rows(logits, n)
-    return (preds if finite else None), cache
+    return (preds if finite else None), logits[:n], cache
 
 
 def spec_verify_slot(model, cache, slot: int, pending: int, draft: list[int],
-                     kv_len: int, mode):
+                     kv_len: int, mode, *, generator=None,
+                     temperature: float = 0.0, top_p: float = 1.0,
+                     top_k: int = 0):
     """One linear verify of ``slot``: ``[pending] + draft`` through a
-    single chunk forward, greedy acceptance. Returns ``(emitted, cache,
-    accepted)``; ``emitted`` is ``draft[:accepted]`` plus the target's
-    own next token, or None when the chunk's logits were not finite (the
-    caller fails the slot's request as ``nan_logits``). The CALLER owns
-    the rollback to ``kv_len + accepted + 1``."""
-    preds, cache = _verify_chunk(
+    single chunk forward, greedy acceptance, or with ``temperature > 0``
+    :func:`verify_sampled` drawing from ``generator``. Returns
+    ``(emitted, cache, accepted)``; ``emitted`` is ``draft[:accepted]``
+    plus one token from the target's own distribution, or None when the
+    chunk's logits were not finite (the caller fails the slot's request
+    as ``nan_logits``). The CALLER owns the rollback to ``kv_len +
+    accepted + 1``."""
+    preds, logits, cache = _verify_chunk(
         model, cache, slot, [int(pending)] + [int(d) for d in draft], kv_len,
         mode,
     )
     if preds is None:
         return None, cache, 0
-    accepted, nxt = verify_greedy(preds, draft)
+    if temperature <= 0.0:
+        accepted, nxt = verify_greedy(preds, draft)
+    else:
+        accepted, nxt = verify_sampled(logits, draft, generator, temperature,
+                                       top_p, top_k)
     obs_events.emit("spec_verify", slot=slot, drafted=len(draft),
                     accepted=accepted)
     return [int(d) for d in draft[:accepted]] + [nxt], cache, accepted
@@ -331,19 +423,26 @@ def verify_tree_greedy(preds, tree: TreeDraft) -> tuple[list[int], list[int]]:
 
 
 def spec_verify_tree(model, cache, slot: int, tree: TreeDraft, kv_len: int,
-                     mode):
+                     mode, *, next_gen=None, temperature: float = 0.0,
+                     top_p: float = 1.0, top_k: int = 0):
     """One TREE verify of ``slot``: every trie node through a single
     chunk forward under the ancestor mask and depth rope, then the greedy
-    walk. Returns ``(emitted, cache, path)``; ``emitted`` is None on
-    non-finite logits. The chunk writes every node's KV at ``kv + i``;
-    the CALLER commits the path (:func:`commit_tree_path`) and rolls
+    walk, or with ``temperature > 0`` the sample-then-match walk
+    (:func:`verify_tree_sampled`, one generator from ``next_gen()`` per
+    emitted token). Returns ``(emitted, cache, path)``; ``emitted`` is
+    None on non-finite logits. The chunk writes every node's KV at ``kv +
+    i``; the CALLER commits the path (:func:`commit_tree_path`) and rolls
     kv_len back to ``kv + len(path) + 1``."""
-    preds, cache = _verify_chunk(model, cache, slot, tree.tokens, kv_len,
-                                 mode, tree_mask=tree.mask,
-                                 tree_depth=tree.depths)
+    preds, logits, cache = _verify_chunk(
+        model, cache, slot, tree.tokens, kv_len, mode, tree_mask=tree.mask,
+        tree_depth=tree.depths)
     if preds is None:
         return None, cache, []
-    path, emitted = verify_tree_greedy(preds, tree)
+    if temperature <= 0.0:
+        path, emitted = verify_tree_greedy(preds, tree)
+    else:
+        path, emitted = verify_tree_sampled(logits, tree, next_gen,
+                                            temperature, top_p, top_k)
     obs_events.emit("spec_verify", slot=slot, drafted=tree.num_drafted,
                     accepted=len(path), tree=True)
     return emitted, cache, path

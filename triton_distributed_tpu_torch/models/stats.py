@@ -92,20 +92,25 @@ STAT_METRICS = {
                       "guard."),
     # Megakernel serving (mode="mega"): NS-step launches, the rounds
     # served by a single-step launch instead, launches over a batch
-    # bucket narrower than max_batch, and slots retired by the in-kernel
-    # stop-token test.
+    # bucket narrower than max_batch, slots retired by the in-kernel
+    # stop-token test, and launches sampled through the in-kernel
+    # top-k/top-p filter.
     "mega_launches": ("tdt_mega_launches_total",
                       "Megakernel NS-step decode launches."),
     "mega_fallback_steps": ("tdt_mega_single_step_fallbacks_total",
                             "Mega-mode rounds served by the single-step "
                             "fallback (capacity gate: a slot within ns of "
-                            "max_length)."),
+                            "max_length; or a top-k/top-p slot at "
+                            "ns = 1)."),
     "mega_device_retires": ("tdt_mega_device_retires_total",
                             "Slots retired by the in-kernel stop-token "
                             "test (no host round trip)."),
     "mega_bucket_launches": ("tdt_mega_bucket_launches_total",
                              "Mega launches served by a batch-bucket "
                              "program narrower than max_batch."),
+    "mega_filtered_rounds": ("tdt_mega_filtered_rounds_total",
+                             "Mega rounds sampled in-kernel through "
+                             "the top-k/top-p bisection filter."),
     # KV tier: radix evictions spilled to host RAM/disk instead of
     # dropped, and admissions whose prefix coverage was extended by
     # faulting those pages back instead of re-prefilling them.
