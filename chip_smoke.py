@@ -32,7 +32,16 @@ unfiltered), in ``mode="xla"`` and ``mode="mega"`` (the megakernel's
 in-kernel Gumbel-max and top-k/top-p filter), each three times (seed,
 same seed, another seed); the 2 rows through ``Engine(paged=True,
 mode="mega", temperature=0.7, top_k=64)``; the speculative traffic at
-temperature 0.05. Before the serving paths the decode megakernel is held
+temperature 0.05; then the device task tracer and the resident pipeline:
+``Engine(paged=False, mode="mega", kernel_trace=True)`` serving the 2
+rows and ``ContinuousEngine(mode="mega", ns=8, resident=True,
+kernel_trace=True)`` the 8 shared-prefix requests (the tokens of the
+untraced paths, every ring valid against its scheduled order and its
+doorbell); then the prefill megakernel: ``MegaQwen3.prefill`` of a
+right-padded 256-row prompt and 32 greedy tokens decoded from its cache,
+with the model's weights and with int8 weights (held against the plain
+version, the ``xla`` prefill or the dequantized golden, and teacher
+forcing). Before the serving paths the decode megakernel is held
 against its plain version at Qwen3-0.6B's full width and depth (B=4,
 kv_len {700, 2040, 700, 2040}, NS 1 and 8; dense and paged caches, the
 int8 pool, int8 weights over the paged pool and over the int8 pool),
@@ -44,7 +53,12 @@ The megakernel's sampled and filtered launches are held against the
 plain version on the same seeded noise (the filter alone: the winner
 over the kernel's own logits is an exact filter's, up to the order of
 the top-p sums; negative controls: a top-k 1 row, and noise planted on a
-filtered row's lowest token) and timed beside the greedy one. The generated tokens
+filtered row's lowest token) and timed beside the greedy one; its traced
+launches against the untraced ones (bit for bit; the ring valid, the
+work ring's doorbell stamped, another doorbell refused), with the step
+split by task from the ring; the prefill megakernel against its plain
+version (the last layer skipped as the negative control), timed beside
+the ``xla`` prefill. The generated tokens
 are checked by teacher forcing through a plain full-sequence forward
 (for the int8-weight path, a forward whose decode weights are the
 dequantized int8 weights, over the prompt's K/V from the model's own;
@@ -153,6 +167,14 @@ PATH_KERNELS = {
     # the write into the pages).
     "continuous_mega_int8": ("flash_attention_int8", "mega_decode"),
     "paged_engine_mega_wq8": ("flash_attention", "mega_decode"),
+    # The device task tracer and the resident pipeline: every ns-step
+    # launch is traced (its single-step remainders, Engine's, are not);
+    # the prefill megakernel, then the dense mega decode from its cache.
+    "dense_engine_mega_traced": ("flash_attention", "mega_decode",
+                                 "mega_decode_traced"),
+    "continuous_mega_resident": ("flash_attention", "mega_decode_traced"),
+    "mega_prefill": ("mega_prefill", "mega_decode"),
+    "mega_prefill_wq8": ("mega_prefill", "mega_decode"),
     # Long context: the sharded slot's prefill chunks merge a resident
     # partial (flash_attention, causal) with a cold partial
     # (flash_attention_cold); its decode steps a resident paged partial
@@ -1113,6 +1135,263 @@ def check_mega_sampled(dev, flush, model, mega, w, args, greedy_ms) -> dict:
 # kv head) by the writers' page quantizer, its V side first multiplied by
 # 4 (exact in bf16) so that the K and V scale planes differ and the
 # negative control that swaps them breaks the limit.
+# The device task tracer's check (paged bf16, MEGA_LENS, MEGA_NS): the
+# doorbell a ring launch publishes, and the opcodes its per-step split is
+# given for.
+RING_DOORBELL = 7
+SPLIT_OPS = ("EMBED", "QKV_PROJ", "ATTN", "O_PROJ", "ALLREDUCE", "FC1",
+             "FC2", "LM_HEAD", "RING_POLL")
+
+
+def check_mega_traced(dev, flush, mega, w, args, greedy_ms) -> dict:
+    """The decode megakernel with the device task tracer on, at Qwen3-0.6B
+    over the paged bf16 pool, NS 1 and 8: a traced launch equals the
+    untraced one bit for bit (tokens, logits, knew/vnew); its ring decodes
+    strictly (no gap) and validates against the scheduled order
+    (``validate_ring``: intervals, launch order, every dependency edge);
+    every ALLREDUCE record has begin <= mid <= end; a ring launch (a
+    leading RING_POLL task) with doorbell RING_DOORBELL stamps it in every
+    RING_POLL record and validates with it, while validate_ring with
+    another doorbell must report them (the negative control), and its
+    outputs equal the untraced launch's. Times the traced launch per step
+    beside the untraced one (the tracer's cost) and the plain version,
+    and splits the step by opcode from one traced launch's ring: ticks
+    (clock64 of block 0's SM) to ms over that launch's CUDA-event time.
+    Returns the record of ``mega_decode_traced``."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from triton_distributed_tpu_torch.megakernel.kernels import (
+        mega_decode_plain,
+    )
+    from triton_distributed_tpu_torch.megakernel.task import TaskType
+    from triton_distributed_tpu_torch.obs import kernel_trace as kt
+
+    b = len(MEGA_LENS)
+    cfg = mega.model.cfg
+    base = dataclasses.replace(
+        mega._dims(b, MAX_LENGTH, PAGE, num_pages=int(args[0].shape[1])),
+        v_real=cfg.vocab_size)
+    out = {"ms_per_step": {},
+           "untraced_ms_per_step": {n: v / n for n, v in greedy_ms.items()},
+           "plain_ms_per_launch": {}, "split_ms_per_step": {},
+           "max_abs_err": 0.0}
+    atol, rtol = MEGA_TOL["bf16"]
+    for ns in MEGA_NS:
+        dims = dataclasses.replace(base, nsteps=ns)
+        plain_out = mega._compile(dims).run(w, *args)
+        tdims = dataclasses.replace(dims, trace=True)
+        comp = mega._compile(tdims)
+        got = comp.run(w, *args)
+        torch.cuda.synchronize()
+        if not all(torch.equal(x, y) for x, y in zip(plain_out, got[:5])):
+            raise RuntimeError(f"traced launch NS={ns} differs from the "
+                               "untraced one")
+        records = kt.decode_trace(got[5].cpu().numpy())
+        problems = kt.validate_ring(records, comp.order)
+        ar = [r for r in records if r.opcode == int(TaskType.ALLREDUCE)]
+        if problems or not ar or not all(r.begin <= r.mid <= r.end
+                                         for r in ar):
+            raise RuntimeError(f"traced launch NS={ns}: ring problems "
+                               f"{problems[:5]}, {len(ar)} ALLREDUCE records")
+        ref = mega_decode_plain(tdims, True, comp.table, w, *args)
+        if not np.array_equal(got[5][..., :4].cpu().numpy(),
+                              ref[5][..., :4].cpu().numpy()):
+            raise RuntimeError("traced ring headers differ from plain's")
+        keep = (got[3][:-1] == ref[3][:-1]).all(dim=0)
+        err = (got[0] - ref[0]).abs()[keep]
+        if (err / (atol + rtol * ref[0].abs()[keep])).max().item() > 1.0:
+            raise RuntimeError(f"traced launch NS={ns} leaves the limit")
+        out["max_abs_err"] = max(out["max_abs_err"], err.max().item())
+        # The work ring's RING_POLL: the published doorbell in every
+        # step's record; another doorbell must fail validation.
+        rcomp = mega._compile(dataclasses.replace(tdims, ring=True))
+        state = torch.tensor([RING_DOORBELL, 0, 0, 0], dtype=torch.int32,
+                             device=dev)
+        rgot = rcomp.run(w, *args, ring_state=state)
+        rrec = kt.decode_trace(rgot[5].cpu().numpy())
+        polls = [r.mid for r in rrec if r.opcode == int(TaskType.RING_POLL)]
+        good = kt.validate_ring(rrec, rcomp.order, doorbell=RING_DOORBELL)
+        control = kt.validate_ring(rrec, rcomp.order,
+                                   doorbell=RING_DOORBELL + 1)
+        if (good or polls != [RING_DOORBELL] * ns or len(control) != ns
+                or not all(torch.equal(x, y)
+                           for x, y in zip(plain_out, rgot[:5]))):
+            raise RuntimeError(f"ring launch NS={ns}: polls {polls}, "
+                               f"problems {good[:3]}, control "
+                               f"{len(control)} problems (want {ns})")
+        ms = median_ms(lambda: comp.run(w, *args), flush)
+        plain_ms = median_ms(lambda: mega_decode_plain(
+            tdims, True, comp.table, w, *args), flush, iters=3, warmup=1)
+        out["ms_per_step"][ns] = ms / ns
+        out["plain_ms_per_launch"][ns] = plain_ms
+        # One traced launch, timed by CUDA events, and its ring: ticks per
+        # ms, then the device ms of a step by opcode.
+        launches = []
+        for _ in range(5):
+            flush.zero_()
+            torch.cuda._sleep(LEAD_CYCLES)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            tout = comp.run(w, *args)
+            end.record()
+            end.synchronize()
+            launches.append((start.elapsed_time(end), tout[5].cpu().numpy()))
+        event_ms, ring = sorted(launches, key=lambda x: x[0])[2]
+        recs = kt.decode_trace(ring)
+        span = max(r.end for r in recs) - min(r.begin for r in recs)
+        ms_per_tick = event_ms / span
+        split = {}
+        for r in recs:
+            split[r.op] = split.get(r.op, 0.0) + r.dur * ms_per_tick / ns
+        out["split_ms_per_step"][ns] = {
+            "event_ms_per_launch": event_ms, "ticks_per_ms": span / event_ms,
+            **{op: split.get(op, 0.0) for op in SPLIT_OPS
+               if op != "RING_POLL"}}
+        print(f"[mega] traced NS={ns}: == untraced bit for bit, ring of "
+              f"{len(records)} records validates, {len(ar)} ALLREDUCE mids "
+              f"inside their records; doorbell {RING_DOORBELL} stamped "
+              f"{len(polls)}x, doorbell {RING_DOORBELL + 1} control: "
+              f"{len(control)} problems; {ms / ns:.4f} ms per step traced "
+              f"(untraced {greedy_ms[ns] / ns:.4f}); split per step "
+              f"{json.dumps(out['split_ms_per_step'][ns])}")
+    return out
+
+
+# The prefill megakernel's check: one right-padded prompt of PREFILL_S
+# rows with PREFILL_TRUE real ones, at Qwen3-0.6B's full width and depth.
+PREFILL_S, PREFILL_TRUE = 256, 250
+# Greedy tokens decoded from the prefilled cache (ns=8 dense mega launches).
+PREFILL_GEN = 32
+
+
+def prefill_prompt(vocab: int):
+    import numpy as np
+
+    return np.random.default_rng(SEED + 5).integers(
+        0, vocab, PREFILL_S).astype(np.int32)
+
+
+def _prefill_bound(cfg, params) -> dict:
+    """The least time of the prefill of PREFILL_S rows: the larger of its
+    bytes (every weight once, the LM head, the prompt rows in, K/V rows
+    and one row of logits out) over the HBM rate and its FLOPs (every
+    layer GEMM for each row, the LM head for one row, causal QK^T and P·V)
+    over the bf16 peak."""
+    lp, L = params["layers"], cfg.num_layers
+    S, item = PREFILL_S, params["embed"].element_size()
+    layer = sum(lp[k][n].numel() for k, n in (
+        ("attn", "wqkv"), ("attn", "wo"), ("mlp", "w1"), ("mlp", "w2")))
+    head = params["lm_head"].numel()
+    norms = sum(t.numel() for t in (lp["ln1"], lp["ln2"], params["norm"],
+                                    lp["attn"]["q_norm"],
+                                    lp["attn"]["k_norm"]))
+    kv = 2 * L * cfg.num_kv_heads * S * cfg.head_dim
+    nbytes = ((layer + head + norms) * item + S * cfg.hidden_size * item
+              + kv * item + params["lm_head"].shape[1] * 4)
+    pairs = S * (S + 1) // 2
+    flops = (2 * S * layer + 2 * head
+             + 4 * pairs * cfg.num_q_heads * cfg.head_dim * L)
+    t_bytes, t_ops = nbytes / HBM_BPS, flops / BF16_FLOPS
+    return {"bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": nbytes, "flops": flops}
+
+
+def check_mega_prefill(dev, flush, model) -> dict:
+    """The prefill megakernel against its plain version at Qwen3-0.6B's
+    full width and depth in bf16, on one prompt of PREFILL_S rows with
+    PREFILL_TRUE real ones, with the model's weights and with int8 weights
+    (wq8): the logits of row PREFILL_TRUE - 1 and the K/V rows [0,
+    PREFILL_TRUE) within the megakernel's bf16 limit, two launches
+    bit-identical; negative control: the plain version with the last
+    layer skipped must break the logit limit. Times the kernel, its plain
+    version and the ``xla`` prefill of the same prompt
+    (``Qwen3.prefill_batched``). Returns the record of ``mega_prefill``."""
+    import dataclasses
+
+    import torch
+
+    from triton_distributed_tpu_torch.megakernel import (
+        MegaConfig,
+        MegaQwen3,
+        MegaWeights,
+    )
+    from triton_distributed_tpu_torch.megakernel.kernels import (
+        mega_prefill_plain,
+    )
+
+    cfg = model.cfg
+    toks = torch.from_numpy(prefill_prompt(cfg.vocab_size)).to(dev).long()
+    tl = torch.tensor([PREFILL_TRUE], dtype=torch.int32, device=dev)
+    atol, rtol = MEGA_TOL["bf16"]
+    out = {"variants": {}}
+    for wq8 in (False, True):
+        mega = MegaQwen3(model, cfg=MegaConfig(fuse_norms=True, wq8=wq8))
+        dims = dataclasses.replace(mega._dims(PREFILL_S, PREFILL_S),
+                                   prefill=True)
+        comp = mega._compile(dims)
+        w = MegaWeights.from_params(mega._step_params())
+        x0 = w.embed.index_select(0, toks)
+        info = {}
+        got = comp.run.prefill(w, x0, tl, info=info)
+        again = comp.run.prefill(w, x0, tl)
+        torch.cuda.synchronize()
+        if not all(torch.equal(x, y) for x, y in zip(got, again)):
+            raise RuntimeError("two prefill launches differ")
+        ref = mega_prefill_plain(dims, True, comp.table, w, x0, tl)
+        used = ((got[0] - ref[0]).abs()
+                / (atol + rtol * ref[0].abs())).max().item()
+        kv_used = max(((a[:, :, :PREFILL_TRUE].float()
+                        - b[:, :, :PREFILL_TRUE].float()).abs()
+                       / (atol + rtol * b[:, :, :PREFILL_TRUE].float().abs())
+                       ).max().item() for a, b in zip(got[1:], ref[1:]))
+        skip = comp.table[comp.table[:, 1] != cfg.num_layers - 1]
+        bad = mega_prefill_plain(dims, True, skip, w, x0, tl)[0]
+        bad_used = ((got[0] - bad).abs()
+                    / (atol + rtol * bad.abs())).max().item()
+        err = (got[0] - ref[0]).abs().max().item()
+        tag = "wq8" if wq8 else "bf16"
+        print(f"[mega] prefill {tag} S={PREFILL_S} true_len={PREFILL_TRUE}: "
+              f"logits max_abs_err {err:.3e}, {used:.3f} of the limit; K/V "
+              f"rows {kv_used:.3f} of it; last layer skipped: "
+              f"{bad_used:.1f}x the limit (must exceed 1); launch {info}")
+        if not (used <= 1.0 and kv_used <= 1.0 and bad_used > 1.0
+                and torch.isfinite(got[0]).all()):
+            raise RuntimeError(f"mega_prefill {tag}: limit use {used}, K/V "
+                               f"{kv_used}, negative control {bad_used}")
+        ms = median_ms(lambda: comp.run.prefill(w, x0, tl), flush)
+        plain_ms = median_ms(lambda: mega_prefill_plain(
+            dims, True, comp.table, w, x0, tl), flush, iters=3, warmup=1)
+        out["variants"][tag] = {"ms": ms, "plain_ms": plain_ms,
+                                "max_abs_err": err, "limit_used": used,
+                                "kv_limit_used": kv_used,
+                                "control_x_limit": bad_used, "launch": info}
+        print(f"[mega] prefill {tag}: {ms:.4f} ms, plain {plain_ms:.2f} ms")
+    dense1 = model.new_cache(1, 512)
+    prompt = toks.cpu().numpy()[None]
+    xla_ms = median_ms(lambda: model.prefill_batched(
+        prompt, dense1, "xla", [PREFILL_TRUE]), flush, iters=5,
+        device_only=False)
+    main = out["variants"]["bf16"]
+    bound = _prefill_bound(cfg, model.params)
+    print(f"[mega] prefill xla path: {xla_ms:.3f} ms a call; bound "
+          f"{bound['bound_ms']:.4f} ms ({bound['bound_by']})")
+    return dict(
+        route="cuda",
+        source="triton_distributed_tpu_torch/csrc/megakernel.cu",
+        replaces="triton_distributed_tpu/megakernel/kernels.py:907",
+        max_abs_err=main["max_abs_err"], ms=main["ms"],
+        plain_ms=main["plain_ms"], bound_ms=bound["bound_ms"],
+        bound_by=bound["bound_by"], library_ms=None, xla_prefill_ms=xla_ms,
+        shape=f"Qwen3-0.6B 28 layers bf16, S={PREFILL_S}, true_len "
+              f"{PREFILL_TRUE}, fused norms; wq8 under 'variants'",
+        **out)
+
+
 MEGA_VARIANTS = {
     "dense": (False, "dense"), "paged": (False, "paged"),
     "int8_pool": (False, "int8"), "wq8": (True, "paged"),
@@ -1291,6 +1570,10 @@ def check_mega(dev, flush):
                 dev, flush, model, megas[False], weights[False],
                 caches["paged"][0], {n: times["paged", n][0]
                                      for n in MEGA_NS})
+            traced = check_mega_traced(
+                dev, flush, megas[False], weights[False], caches["paged"][0],
+                {n: times["paged", n][0] for n in MEGA_NS})
+            prefill = check_mega_prefill(dev, flush, model)
             bf16 = model
             del pool8
         del model, dense, paged, megas, weights, caches, k8, v8
@@ -1313,6 +1596,18 @@ def check_mega(dev, flush):
     noise_ms = sampled["noise_bytes_per_step"] / HBM_BPS * 1e3
     sampled.update(sampled_bound_ms=main["bound_ms"] + noise_ms,
                    filtered_bound_ms=main["bound_ms"] + noise_ms)
+    traced_rec = dict(
+        route="cuda",
+        source="triton_distributed_tpu_torch/csrc/megakernel.cu",
+        replaces="triton_distributed_tpu/megakernel/code_generator.py:628",
+        max_abs_err=traced["max_abs_err"], ms=traced["ms_per_step"][1],
+        plain_ms=traced["plain_ms_per_launch"][1],
+        bound_ms=main["bound_ms"], bound_by=main["bound_by"],
+        library_ms=None,
+        shape=f"the mega_decode launch (NS=1, ms = one step) with the "
+              "tracer's ring, and with the work ring's RING_POLL "
+              f"(kernels.py:46-79, :1581)",
+        **{k: v for k, v in traced.items() if k != "max_abs_err"})
     return dict(
         route="cuda",
         source="triton_distributed_tpu_torch/csrc/megakernel.cu",
@@ -1336,7 +1631,7 @@ def check_mega(dev, flush):
         filtered_ms=sampled["filtered_ms_per_step_ns1"],
         sampling=sampled,
         launch=info,
-    )
+    ), {"mega_decode_traced": traced_rec, "mega_prefill": prefill}
 
 
 def verify_tree():
@@ -1516,20 +1811,22 @@ def dequantized_params(model, q8) -> dict:
     }}
 
 
-def teacher_forced_gaps(model, prompt, generated, decode_params=None
-                        ) -> list[float]:
+def teacher_forced_gaps(model, prompt, generated, decode_params=None,
+                        params=None) -> list[float]:
     """For each generated position: reference max logit minus the
     reference logit of the token the engine emitted. With
     ``decode_params`` the engine's own split: the prompt runs under the
     model's parameters (the prefill) and the generated tokens as one
-    chunk under ``decode_params`` over the prompt's K/V (the decode)."""
+    chunk under ``decode_params`` over the prompt's K/V (the decode);
+    with ``params`` the whole sequence runs under ``params``."""
     import numpy as np
     import torch
 
     dev = model.device
     if decode_params is None:
         seq = np.concatenate([prompt, generated[:-1]]).astype(np.int64)
-        logits = reference_logits(model, torch.from_numpy(seq).to(dev))
+        logits = _plain_forward(model, model.params if params is None
+                                else params, torch.from_numpy(seq).to(dev))[0]
         rows = logits[len(prompt) - 1:]
     else:
         first, past = _plain_forward(model, model.params, torch.from_numpy(
@@ -1572,12 +1869,43 @@ class _Timed:
                 self.verify_calls)
 
 
+class _LaunchTimer:
+    """CUDA events around every ns-step launch an engine issues: the
+    device time of its launches, read without a host sync in the run. A
+    resident launch is issued while the one before it runs, so its start
+    event completes when that one ends: each pair spans one launch's
+    device work."""
+
+    def __init__(self, eng):
+        import torch
+
+        self.pairs = []
+        inner = eng._launch_mega
+
+        def wrapped(*a, **kw):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = inner(*a, **kw)
+            end.record()
+            self.pairs.append((start, end))
+            return out
+
+        eng._launch_mega = wrapped
+
+    def device_ms(self) -> float:
+        import torch
+
+        torch.cuda.synchronize()
+        return sum(s.elapsed_time(e) for s, e in self.pairs)
+
+
 def serve_main_path(dev):
     """Phase 3: the port's main path, full width and depth."""
     import numpy as np
     import torch
 
-    from triton_distributed_tpu_torch.megakernel import MegaConfig
+    from triton_distributed_tpu_torch.megakernel import MegaConfig, MegaQwen3
     from triton_distributed_tpu_torch.models import (
         AutoLLM,
         ContinuousEngine,
@@ -1633,17 +1961,81 @@ def serve_main_path(dev):
                       mode="mega", mega_cfg=MegaConfig(
                           fuse_norms=True, cross_prefetch=True,
                           overlap_ar=True, wq8=True), device=dev)
-    mega_engs = {"paged_engine_mega_wq8": mega_wq8}
+    mega_traced = Engine(model, paged=False, mode="mega", kernel_trace=True,
+                         device=dev)
+    mega_engs = {"paged_engine_mega_wq8": mega_wq8,
+                 "dense_engine_mega_traced": mega_traced}
+    # Per mega serving path: CUDA events around its launches, and every
+    # traced launch's ring (an engine keeps only its last 8).
+    mega_timers, mega_rings = {}, {}
 
-    def continuous_mega(path, kv_dtype):
+    def keep_rings(path, eng):
+        rings, inner = mega_rings.setdefault(path, []), eng._record_kernel_trace
+
+        def record(*a, **kw):
+            inner(*a, **kw)
+            rings.append(eng._kernel_traces[-1])
+        eng._record_kernel_trace = record
+
+    keep_rings("dense_engine_mega_traced", mega_traced)
+
+    def continuous_mega(path, kv_dtype, **kw):
         """ContinuousEngine(mode="mega") with an eos_id: the token the
         bf16 continuous run emitted 41st for the first request."""
         eos = int(outs["continuous"][0][40])
         eng = mega_engs[path] = ContinuousEngine(
             model, max_batch=4, page_size=PAGE, max_length=MAX_LENGTH,
             prefix_cache=True, mode="mega", eos_id=eos, kv_dtype=kv_dtype,
-            device=dev)
+            device=dev, **kw)
+        if kv_dtype is None:
+            mega_timers[path] = _LaunchTimer(eng)
+        if kw.get("kernel_trace"):
+            keep_rings(path, eng)
+        if kw.get("resident"):
+            strict_issue(path, eng)
         return eng.run(requests)
+
+    strict_issues = {}
+
+    def strict_issue(path, eng):
+        """Every chained launch issues under torch's sync debug mode
+        "error": a host sync between issue and drain raises."""
+        inner = eng._issue_resident
+        strict_issues[path] = 0
+
+        def issue(chain):
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                out = inner(chain)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            strict_issues[path] += out is not None
+            return out
+        eng._issue_resident = issue
+
+    prefill_runs = {}
+
+    def mega_prefill(path, wq8):
+        """MegaQwen3.prefill of the right-padded prompt into a dense cache,
+        then PREFILL_GEN greedy tokens through ns=8 dense mega launches
+        from that cache."""
+        mega = MegaQwen3(model, cfg=MegaConfig(
+            fuse_norms=True, cross_prefetch=True, overlap_ar=True, wq8=wq8))
+        prompt = prefill_prompt(vocab)
+        t0 = time.perf_counter()
+        logits, cache = mega.prefill(prompt, model.new_cache(1, 512),
+                                     true_len=PREFILL_TRUE)
+        tok = logits.argmax()[None].to(torch.int32)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        fn = mega.decode_multi_fn(1, 512, 8)
+        toks = [int(tok)]
+        for _ in range(PREFILL_GEN // 8):
+            t, _, cache = fn(mega._step_params(), tok, cache)
+            toks += t[:, 0].tolist()
+            tok = t[-1]
+        prefill_runs[path] = (mega, logits, prefill_s)
+        return np.asarray(toks, np.int32)
     spec_fixed = Engine(model, paged=True, page_size=PAGE, **spec_kw)
     # The long-context engines: the budget's pages plus what the short
     # requests need (the engine adds the trash page).
@@ -1724,11 +2116,18 @@ def serve_main_path(dev):
             lambda: spec_fixed.last_stats),
         "dense_engine_mega": lambda: mega_dense.serve(
             dense_ids, DENSE_GEN, MAX_LENGTH, ns=8),
+        "dense_engine_mega_traced": lambda: mega_traced.serve(
+            dense_ids, DENSE_GEN, MAX_LENGTH, ns=8),
         "continuous_mega": lambda: continuous_mega("continuous_mega", None),
+        "continuous_mega_resident": lambda: continuous_mega(
+            "continuous_mega_resident", None, ns=8, resident=True,
+            kernel_trace=True),
         "continuous_mega_int8": lambda: continuous_mega(
             "continuous_mega_int8", "int8"),
         "paged_engine_mega_wq8": lambda: mega_wq8.serve(
             dense_ids, DENSE_GEN, MAX_LENGTH, ns=8),
+        "mega_prefill": lambda: mega_prefill("mega_prefill", False),
+        "mega_prefill_wq8": lambda: mega_prefill("mega_prefill_wq8", True),
         "continuous_longctx": lambda: long_engs["continuous_longctx"].run(
             long_requests),
         "continuous_longctx_int8": lambda: long_engs[
@@ -1766,6 +2165,12 @@ def serve_main_path(dev):
 
     mega_e2e = check_mega_paths(model, prompts, dense_ids, outs, times,
                                 launches, mega_dense, mega_engs)
+    mega_e2e.update(check_resident_paths(
+        model, prompts, dense_ids, outs, times, mega_engs, mega_timers,
+        mega_rings))
+    mega_e2e["continuous_mega_resident"]["issues_under_sync_error_mode"] = (
+        strict_issues["continuous_mega_resident"])
+    mega_e2e.update(check_prefill_paths(model, outs, times, prefill_runs))
     long_e2e = check_longctx_paths(model, long_requests, outs, times,
                                    long_engs, view_t)
     for path, e in (("continuous", eng), ("continuous_int8", eng8)):
@@ -1975,6 +2380,186 @@ def check_mega_paths(model, prompts, dense_ids, outs, times, launches,
             "eos_id": engs[path].eos_id,
         }
     print(f"[serve] megakernel paths: {json.dumps(out)}")
+    return out
+
+
+def _tf_check(what, gaps, margin, min_exact) -> dict:
+    import numpy as np
+
+    worst, exact = max(gaps), sum(g == 0 for g in gaps)
+    print(f"[check] {what} teacher forcing over {len(gaps)} generated "
+          f"tokens: max gap {worst:.4f}, mean {statistics.mean(gaps):.4f}"
+          f", exact argmax {exact}/{len(gaps)}, margin {margin}, min "
+          f"exact share {min_exact}")
+    if not all(np.isfinite(gaps)) or worst > margin:
+        raise RuntimeError(f"{what}: teacher-forced gap {worst} exceeds "
+                           f"{margin}")
+    if exact < min_exact * len(gaps):
+        raise RuntimeError(f"{what}: only {exact}/{len(gaps)} emitted "
+                           "tokens are the reference argmax")
+    return {"max_gap": worst, "exact": exact, "tokens": len(gaps)}
+
+
+def check_resident_paths(model, prompts, dense_ids, outs, times, engs,
+                         timers, rings) -> dict:
+    """The tracer and resident paths. ``dense_engine_mega_traced``: the
+    tokens of ``dense_engine_mega``, every ring valid against the
+    scheduled order. ``continuous_mega_resident``: the tokens of
+    ``continuous_mega`` (and the bf16 teacher forcing), resident rounds,
+    at least 16 ring items (8 admits, 8 retires) and some doorbells;
+    every traced launch's ring valid against the order and the doorbell
+    published for it, doorbells rising strictly, the ring empty at rest,
+    a clean audit. Returns their e2e block, with each continuous mega
+    path's decode ms per step and the idle share of its decode wall (the
+    run's wall less its prefill chunks): 1 - the launches' device time
+    (CUDA events) over that wall."""
+    import numpy as np
+
+    from triton_distributed_tpu_torch.obs import kernel_trace as kt
+
+    out = {}
+    traced = engs["dense_engine_mega_traced"]
+    if not np.array_equal(outs["dense_engine_mega_traced"],
+                          outs["dense_engine_mega"]):
+        raise RuntimeError("dense_engine_mega_traced: tokens differ from "
+                           "dense_engine_mega's")
+    order = traced._mega_model().multi_task_order(
+        DENSE_ROWS, MAX_LENGTH, 8, trace=True)
+    for ln in rings["dense_engine_mega_traced"]:
+        problems = kt.validate_ring(ln.get_records(), order)
+        if problems:
+            raise RuntimeError(f"dense_engine_mega_traced ring: "
+                               f"{problems[:5]}")
+    out["dense_engine_mega_traced"] = {
+        "rings_validated": len(rings["dense_engine_mega_traced"]),
+        "mega_trace_launches": traced.last_stats["mega_trace_launches"],
+        "decode_ms_per_step": traced.last_stats["decode_ms_per_step"]}
+
+    eng = engs["continuous_mega_resident"]
+    got, want = outs["continuous_mega_resident"], outs["continuous_mega"]
+    differ = [i for i, (a, b) in enumerate(zip(got, want))
+              if not np.array_equal(a, b)]
+    gaps = []
+    for p, o in zip(prompts, got):
+        gaps += teacher_forced_gaps(model, p, o)
+    tf = _tf_check("resident megakernel", gaps, TF_MARGIN, TF_MIN_EXACT)
+    if differ:
+        raise RuntimeError(f"continuous_mega_resident: requests {differ} "
+                           "differ from continuous_mega's tokens")
+    st = eng.last_stats
+    if not (st["mega_resident_rounds"] > 0 and st["mega_ring_items"] >= 16
+            and st["mega_ring_doorbells"] > 0):
+        raise RuntimeError(f"continuous_mega_resident counters: {st}")
+    order = eng._mega_model().multi_task_order(
+        4, MAX_LENGTH, 8, page=PAGE, num_pages=int(eng.cache.k_pages.shape[1]),
+        valid_arg=True, trace=True, eos=True, ring=True)
+    launches = rings["continuous_mega_resident"]
+    for ln in launches:
+        problems = kt.validate_ring(ln.get_records(), order,
+                                    doorbell=ln.doorbell)
+        if problems:
+            raise RuntimeError(f"resident ring {ln.launch}: {problems[:5]}")
+    bells = [ln.doorbell for ln in launches]
+    if not bells or any(b2 <= b1 for b1, b2 in zip(bells, bells[1:])):
+        raise RuntimeError(f"resident doorbells do not rise: {bells}")
+    if eng._ring.occupancy or eng.audit():
+        raise RuntimeError(f"resident: ring occupancy "
+                           f"{eng._ring.occupancy}, audit {eng.audit()}")
+    for path in ("continuous_mega", "continuous_mega_resident"):
+        st_p = engs[path].last_stats
+        wall = (times[path]["wall_s"] - times[path]["chunk_s"]) * 1e3
+        busy = timers[path].device_ms()
+        out.setdefault(path, {}).update({
+            "decode_ms_per_step": wall / max(st_p["decode_steps"], 1),
+            "launch_device_ms": busy,
+            "decode_wall_ms": wall,
+            "idle_share": max(0.0, 1.0 - busy / wall),
+        })
+    out["continuous_mega_resident"].update(
+        teacher_forcing=tf, rings_validated=len(launches),
+        doorbells=[bells[0], bells[-1]],
+        **{k: st[k] for k in ("mega_resident_rounds", "mega_ring_items",
+                              "mega_ring_doorbells", "mega_ring_host_drains",
+                              "mega_trace_launches", "mega_launches",
+                              "decode_steps", "mega_device_retires")})
+    print(f"[serve] tracer and resident paths: {json.dumps(out)}")
+    return out
+
+
+def check_prefill_paths(model, outs, times, runs) -> dict:
+    """The prefill megakernel's serving paths: ``MegaQwen3.prefill`` of
+    the right-padded prompt against the plain version (the bf16 limit)
+    and against the ``xla`` prefill of the same prompt (the kernel's top
+    token within TF_MARGIN of the xla top, and the other way round; the
+    largest logit difference is reported), then the continuation's
+    teacher forcing with the bf16 limits; under wq8, against its own
+    plain version, and the top token and the continuation against a plain
+    forward whose weights are the dequantized int8 ones (the wq8 golden)
+    with the int8 limits. Returns their e2e block."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from triton_distributed_tpu_torch.megakernel import MegaWeights
+    from triton_distributed_tpu_torch.megakernel.kernels import (
+        mega_prefill_plain,
+    )
+
+    dev = model.device
+    prompt = prefill_prompt(model.cfg.vocab_size)
+    real = prompt[:PREFILL_TRUE]
+    xla_logits, _ = model.prefill_batched(prompt[None], model.new_cache(1, 512),
+                                          "xla", [PREFILL_TRUE])
+    xla_logits = xla_logits[0]
+    atol, rtol = MEGA_TOL["bf16"]
+    out = {}
+    for path in ("mega_prefill", "mega_prefill_wq8"):
+        mega, logits, prefill_s = runs[path]
+        wq8 = mega.cfg.wq8
+        dims = dataclasses.replace(mega._dims(PREFILL_S, PREFILL_S),
+                                   prefill=True)
+        comp = mega._compile(dims)
+        w = MegaWeights.from_params(mega._step_params())
+        toks = torch.from_numpy(prompt).to(dev).long()
+        ref = mega_prefill_plain(
+            dims, True, comp.table, w, w.embed.index_select(0, toks),
+            torch.tensor([PREFILL_TRUE], dtype=torch.int32, device=dev))[0][
+                0, :model.cfg.vocab_size]
+        used = ((logits - ref).abs() / (atol + rtol * ref.abs())).max().item()
+        if not used <= 1.0:
+            raise RuntimeError(f"{path}: logits {used} of the limit")
+        if wq8:
+            deq = dequantized_params(model, mega.quantized_params())
+            gold = _plain_forward(model, deq, torch.from_numpy(
+                real.astype(np.int64)).to(dev))[0][-1]
+            gaps = teacher_forced_gaps(model, real, outs[path], params=deq)
+            tf = _tf_check(f"{path} continuation (dequantized golden)", gaps,
+                           TF8_MARGIN, TF8_MIN_EXACT)
+            margin = TF8_MARGIN
+            del deq
+        else:
+            gold = xla_logits
+            gaps = teacher_forced_gaps(model, real, outs[path])
+            tf = _tf_check(f"{path} continuation", gaps, TF_MARGIN,
+                           TF_MIN_EXACT)
+            margin = TF_MARGIN
+        top, gtop = int(logits.argmax()), int(gold.argmax())
+        gap = (gold[gtop] - gold[top]).item()
+        back = (logits[top] - logits[gtop]).item()
+        diff = (logits - gold).abs().max().item()
+        print(f"[check] {path}: logits {used:.3f} of the plain limit; "
+              f"against the {'dequantized golden' if wq8 else 'xla prefill'}"
+              f": max |diff| {diff:.4f}, top {top} vs {gtop} (gaps {gap:.4f},"
+              f" {back:.4f}, margin {margin}); prefill {prefill_s * 1e3:.2f}"
+              f" ms, path {times[path]['wall_s']:.3f} s")
+        if gap > margin or back > margin:
+            raise RuntimeError(f"{path}: top token {top} against {gtop}: "
+                               f"gaps {gap}, {back}")
+        out[path] = {"plain_limit_used": used, "golden_max_abs_diff": diff,
+                     "top_gap": gap, "continuation": tf,
+                     "prefill_ms": prefill_s * 1e3,
+                     "wall_s": times[path]["wall_s"]}
     return out
 
 
@@ -2317,7 +2902,8 @@ def main() -> int:
     records = check_kernels(dev, flush)
     phase_s["kernels"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    records["mega_decode"] = check_mega(dev, flush)
+    records["mega_decode"], more = check_mega(dev, flush)
+    records.update(more)
     phase_s["mega"] = time.perf_counter() - t0
     del flush
     t0 = time.perf_counter()

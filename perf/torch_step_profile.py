@@ -25,6 +25,11 @@ serving path after warm-up:
 - ``decode_mega_ns8``: one 8-step launch (``decode_multi_fn``, the
   serving loop's launch) at kv_len {700, 2040, 700, 2040}, so the 8 new
   rows fit the pool; its line also gives the numbers per decode step;
+- ``decode_mega_ns8_traced``: the same launch with the device task
+  tracer on (the trace ring operand), beside the untraced one;
+- ``mega_prefill``: ``MegaQwen3.prefill`` of a 256-token prompt
+  (``true_len`` 250) into a dense cache, the prefill megakernel, beside
+  ``prefill_xla``: ``Qwen3.prefill_batched`` of the same prompt;
 - ``decode_mega_short``: ``decode_mega`` at kv_len {1, 1, 1, 1}, where
   attention costs almost nothing: the weight streams and the barriers;
 - ``decode_mega_int8``: ``decode_mega`` over the int8 pool (the kernel
@@ -192,6 +197,22 @@ def main() -> int:
         cache.kv_len = lens8.clone()
         ns8(model.params, tokens, cache)
 
+    ns8_traced = mega.decode_multi_fn(4, 2048, 8, page=128, trace=True,
+                                      num_pages=int(cache.k_pages.shape[1]))
+
+    def decode_mega_ns8_traced():
+        cache.kv_len = lens8.clone()
+        ns8_traced(model.params, tokens, cache)
+
+    prompt = np.random.default_rng(3).integers(0, cfg.vocab_size, 256)
+    dense1 = model.new_cache(1, 512)
+
+    def mega_prefill():
+        mega.prefill(prompt, dense1, true_len=250)
+
+    def prefill_xla():
+        model.prefill_batched(prompt[None], dense1, "xla", [250])
+
     def decode_mega_int8():
         cache8.kv_len = lens.clone()
         mega.decode_step(tokens, cache8)
@@ -327,6 +348,9 @@ def main() -> int:
                      ("verify_tree", verify_tree),
                      ("decode_mega", decode_mega),
                      ("decode_mega_ns8", decode_mega_ns8),
+                     ("decode_mega_ns8_traced", decode_mega_ns8_traced),
+                     ("mega_prefill", mega_prefill),
+                     ("prefill_xla", prefill_xla),
                      ("decode_mega_short", decode_mega_short),
                      ("decode_mega_int8", decode_mega_int8),
                      ("decode_mega_wq8", decode_mega_wq8_over(cache)),

@@ -19,7 +19,10 @@ long-context cold partials (non-causal attention over a cold window
 under its ``s_cold`` bias, model dtype and int8; the dense int8 decode)
 hold the same limits at ``s_cold`` = 0 (every column masked, or an empty
 context), mid-bucket and full, and in f32 the plain version with
-``s_cold`` one page off must break them.
+``s_cold`` one page off must break them. The megakernel's tests (below)
+state their own limits: its traced launch equals the untraced one bit for
+bit, and its prefill kernel is held to its plain version within 2e-3 in
+f32 and the decode kernel's limit in bf16.
 """
 
 import functools
@@ -916,3 +919,216 @@ def test_mega_sampled_serving_launches_the_kernel(dev):
         assert ck.MEGA_DECODE.launches > before
         outs.append((dense, np.concatenate(toks)))
     assert all(np.array_equal(a, b) for a, b in zip(*outs))
+
+
+# -- the device task tracer, the work ring's RING_POLL, the prefill kernel ----
+#
+# A traced launch (a trace ring operand) computes what the untraced one
+# does, bit for bit: tokens, logits, knew/vnew. Its ring decodes strictly
+# (no gap) and validates against the scheduled order: every record begins
+# before it ends, no record before the previous one ends, no consumer
+# before its producer, and each ALLREDUCE's phase mark lies inside its
+# record. A ring launch's RING_POLL records carry the published doorbell;
+# validate_ring with another doorbell must report them.
+
+
+def _ring_order(mega, dims):
+    return mega._compile(dims).order
+
+
+@pytest.mark.parametrize("ns", [1, 8])
+@pytest.mark.parametrize("shape,dtype", [
+    ("tiny", torch.float32), ("tiny", torch.bfloat16),
+    ("qwen", torch.bfloat16),
+])
+def test_mega_decode_traced_matches_untraced(dev, shape, dtype, ns):
+    import dataclasses as dc
+
+    from triton_distributed_tpu_torch.megakernel.task import TaskType
+    from triton_distributed_tpu_torch.obs import kernel_trace as kt
+
+    _, mega, dims, args = _mega_inputs(dev, shape, dtype, True, ns)
+    plain = _mega_run(mega, dims, args)
+    tdims = dc.replace(dims, trace=True)
+    before = (ck.MEGA_DECODE.launches, ck.MEGA_DECODE_TRACED.launches)
+    got = _mega_run(mega, tdims, args)
+    torch.cuda.synchronize()
+    assert (ck.MEGA_DECODE.launches, ck.MEGA_DECODE_TRACED.launches) == (
+        before[0], before[1] + 1)
+    for a, b in zip(plain, got[:5]):
+        assert torch.equal(a, b)
+    ring = got[5].cpu().numpy()
+    order = _ring_order(mega, tdims)
+    assert ring.shape == (ns, len(order), 8)
+    records = kt.decode_trace(ring)
+    assert kt.validate_ring(records, order) == []
+    ar = [r for r in records if r.opcode == int(TaskType.ALLREDUCE)]
+    assert ar and all(r.begin <= r.mid <= r.end for r in ar)
+    # The plain version's ring: the same header columns and flags (its
+    # clock is logical).
+    ref = _mega_run(mega, tdims, args, plain=True)[5].cpu().numpy()
+    np.testing.assert_array_equal(ring[..., :4], ref[..., :4])
+    np.testing.assert_array_equal(ring[..., 7], ref[..., 7])
+
+
+@pytest.mark.parametrize("traced", [False, True])
+def test_mega_ring_poll_stamps_the_doorbell(dev, traced):
+    import dataclasses as dc
+
+    from triton_distributed_tpu_torch.megakernel.task import TaskType
+    from triton_distributed_tpu_torch.obs import kernel_trace as kt
+
+    _, mega, dims, args = _mega_inputs(dev, "tiny", torch.float32, True, 4)
+    plain = _mega_run(mega, dims, args)
+    rdims = dc.replace(dims, ring=True, trace=traced)
+    compiled = mega._compile(rdims)
+    from triton_distributed_tpu_torch.megakernel import MegaWeights
+
+    w = MegaWeights.from_params(mega._step_params())
+    state = torch.tensor([7, 0, 2, 2], dtype=torch.int32, device=dev)
+    got = compiled.run(w, *args, ring_state=state)
+    for a, b in zip(plain, got[:5]):  # RING_POLL changes no output
+        assert torch.equal(a, b)
+    if not traced:
+        return
+    records = kt.decode_trace(got[5].cpu().numpy())
+    polls = [r for r in records if r.opcode == int(TaskType.RING_POLL)]
+    assert len(polls) == 4 and all(r.mid == 7 for r in polls)
+    assert kt.validate_ring(records, compiled.order, doorbell=7) == []
+    assert kt.validate_ring(records, compiled.order, doorbell=8)
+
+
+# The prefill megakernel against its plain version on the same prompt:
+# logits of row true_len - 1 and the K/V rows [0, true_len), f32 with TF32
+# off within 2e-3 (summation order), bf16 within the decode kernel's
+# MEGA_TOL; the wq8 build against its own plain version.
+@pytest.mark.parametrize("wq8", [False, True])
+@pytest.mark.parametrize("shape,dtype,S,true_len", [
+    ("tiny", torch.float32, 16, 13), ("tiny", torch.bfloat16, 40, 37),
+    ("qwen", torch.float32, 256, 250), ("qwen", torch.bfloat16, 256, 250),
+])
+def test_mega_prefill_matches_plain(dev, shape, dtype, S, true_len, wq8):
+    import dataclasses as dc
+
+    from triton_distributed_tpu_torch.megakernel import (
+        MegaConfig,
+        MegaQwen3,
+        MegaWeights,
+    )
+    from triton_distributed_tpu_torch.megakernel.kernels import (
+        mega_prefill_plain,
+    )
+    from triton_distributed_tpu_torch.models import AutoLLM
+
+    over = MEGA_SHAPES[shape][0]
+    name = "Qwen/Qwen3-0.6B" if shape == "qwen" else "tiny"
+    model = AutoLLM.from_pretrained(name, device=dev, seed=0, dtype=dtype,
+                                    max_length=2048 if shape == "qwen" else 64,
+                                    **over)
+    rng = np.random.default_rng(3)
+    toks = torch.from_numpy(rng.integers(0, model.cfg.vocab_size, S).astype(
+        np.int64)).to(dev)
+    results = []
+    for fuse in (False, True):
+        mega = MegaQwen3(model, cfg=MegaConfig(fuse_norms=fuse, wq8=wq8))
+        dims = dc.replace(mega._dims(S, S), prefill=True)
+        compiled = mega._compile(dims)
+        w = MegaWeights.from_params(mega._step_params())
+        x0 = w.embed.index_select(0, toks)
+        tl = torch.tensor([true_len], dtype=torch.int32, device=dev)
+        before = ck.MEGA_PREFILL.launches
+        got = compiled.run.prefill(w, x0, tl)
+        torch.cuda.synchronize()
+        assert ck.MEGA_PREFILL.launches == before + 1
+        again = compiled.run.prefill(w, x0, tl)
+        for a, b in zip(got, again):
+            assert torch.equal(a, b)
+        ref = mega_prefill_plain(dims, fuse, compiled.table, w, x0, tl)
+        atol, rtol = MEGA_TOL[dtype]
+        if dtype == torch.float32:
+            atol, rtol = 2e-3, 0.0
+        used = ((got[0] - ref[0]).abs() / (atol + rtol * ref[0].abs())).max()
+        kv = max((a[:, :, :true_len].float() - b[:, :, :true_len].float())
+                 .abs().max().item() for a, b in zip(got[1:], ref[1:]))
+        print(f"mega_prefill {shape} {dtype} S={S} wq8={wq8} fuse={fuse}: "
+              f"logits {used.item():.3f} of the limit, K/V max err {kv:.3e}")
+        assert torch.isfinite(got[0]).all()
+        assert used.item() <= 1.0
+        assert kv <= 2 * atol + 0.02
+        results.append(got[0])
+    if dtype == torch.float32:  # fused and unfused norms compute alike
+        assert (results[0] - results[1]).abs().max().item() <= 2e-3
+
+
+def test_mega_prefill_rejects_what_the_kernel_does_not_take(dev):
+    import dataclasses as dc
+
+    from triton_distributed_tpu_torch.megakernel import MegaQwen3, MegaWeights
+    from triton_distributed_tpu_torch.models import AutoLLM
+
+    model = AutoLLM.from_pretrained("tiny", device=dev, seed=0)
+    mega = MegaQwen3(model)
+    dims = dc.replace(mega._dims(16, 16), prefill=True)
+    run = mega._compile(dims).run
+    w = MegaWeights.from_params(model.params)
+    x0 = w.embed[:16].contiguous()
+    before = ck.MEGA_PREFILL.launches
+    with pytest.raises(ValueError, match="x0"):
+        run.prefill(w, x0[:15], torch.tensor([3], dtype=torch.int32,
+                                             device=dev))
+    with pytest.raises(ValueError, match="true_len"):
+        run.prefill(w, x0, torch.tensor([3], device=dev))
+    assert ck.MEGA_PREFILL.launches == before
+
+
+def test_mega_prefill_and_resident_serving_on_card_equal_cpu(dev):
+    """Tiny f32 on the card and on the CPU: ``MegaQwen3.prefill`` then
+    greedy dense mega decode; a resident, traced ContinuousEngine whose
+    chained launch issues under ``torch.cuda.set_sync_debug_mode
+    ("error")`` (no host sync between issue and drain), and whose rings
+    validate against their doorbells."""
+    from triton_distributed_tpu_torch.megakernel import MegaQwen3
+    from triton_distributed_tpu_torch.models import (
+        AutoLLM,
+        ContinuousEngine,
+    )
+    from triton_distributed_tpu_torch.obs import kernel_trace as kt
+
+    gpu = AutoLLM.from_pretrained("tiny", device=dev, seed=0)
+    cpu = AutoLLM.from_pretrained("tiny", device="cpu", seed=0)
+    cpu.set_params(gpu.params)
+    rng = np.random.default_rng(11)
+    prompts = [rng.integers(0, 256, n).astype(np.int32) for n in (20, 9, 30)]
+    outs = []
+    for m, d in ((gpu, dev), (cpu, "cpu")):
+        mega = MegaQwen3(m)
+        logits, cache = mega.prefill(prompts[0], m.new_cache(1, 64),
+                                     true_len=17)
+        tok = logits.argmax()[None].to(torch.int32)
+        toks, _, cache = mega.decode_multi_fn(1, 64, 4)(m.params, tok, cache)
+        eng = ContinuousEngine(m, max_batch=2, page_size=16, max_length=64,
+                               mode="mega", ns=4, resident=True,
+                               kernel_trace=True, device=d)
+        issue = eng._issue_resident
+
+        def strict_issue(chain, issue=issue, d=d):
+            if torch.device(d).type != "cuda":
+                return issue(chain)
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                return issue(chain)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+
+        eng._issue_resident = strict_issue
+        got = eng.run([(p, 13) for p in prompts])
+        assert eng.audit() == [] and eng._ring.occupancy == 0
+        st = eng.last_stats
+        assert st["mega_resident_rounds"] > 0, st
+        for ln in eng.kernel_trace_launches():
+            assert kt.validate_ring(ln.get_records(),
+                                    doorbell=ln.doorbell) == []
+        outs.append((int(tok), toks.cpu().numpy(), np.concatenate(got)))
+    assert outs[0][0] == outs[1][0]
+    for a, b in zip(outs[0][1:], outs[1][1:]):
+        np.testing.assert_array_equal(a, b)

@@ -15,7 +15,8 @@ version is held against the JAX package on the f32 ``tiny`` preset:
 - ``Engine(mode="mega")`` and ``ContinuousEngine(mode="mega")`` emit the
   JAX ``xla`` engines' greedy tokens exactly, with a bucket launch, a
   capacity fallback and an eos retire inside a launch forced;
-- the knobs the port does not build yet are refused.
+- the knobs the port does not build yet are refused, and the ones this
+  slice ported build.
 
 The JAX megakernel itself is never run here (its interpret mode is the
 JAX package's slow suite); its golden is the JAX ``xla`` path.
@@ -378,32 +379,44 @@ def test_continuous_mega_tokens_identical(models, goldens, prefix_cache):
 # -- refusals -----------------------------------------------------------------
 
 def test_refused_knobs_raise(models):
-    """The megakernel modes this port does not build yet refuse; the int8
-    pool and int8 weights (``kv_quant``, ``wq8``) serve
-    (tests/test_torch_mega_quant.py), and so do sampled and filtered
-    launches (tests/test_torch_sampled.py)."""
+    """The megakernel modes this port does not build yet refuse (MoE,
+    multi-rank), and so do the compositions the JAX package refuses (a
+    work ring or eos off the paged path, a paged prefill, resident or
+    traced engines outside mode='mega'). The int8 pool and int8 weights
+    serve (tests/test_torch_mega_quant.py), sampled and filtered launches
+    (tests/test_torch_sampled.py), and the work ring, the tracer, the
+    prefill megakernel and the resident and traced engines
+    (tests/test_torch_kernel_trace.py, tests/test_torch_mega_prefill.py):
+    here they build."""
     _, tm = models
     mega = MegaQwen3(tm)
     for kw in (dict(ring=True), dict(trace=True)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            mega.build_multi(2, MAXLEN, 4, page=PAGE, **kw)
-    with pytest.raises(NotImplementedError, match="prefill"):
-        mega.prefill(np.arange(8), tm.new_cache(1, MAXLEN))
+        assert callable(mega.build_multi(2, MAXLEN, 4, page=PAGE, **kw))
+    with pytest.raises(ValueError, match="ring"):
+        mega.build_multi(2, MAXLEN, 4, ring=True)
+    logits, cache = mega.prefill(np.arange(8), tm.new_cache(1, MAXLEN))
+    assert logits.shape == (tm.cfg.vocab_size,)
+    assert cache.kv_len.tolist() == [8]
     base = MegaDims(**_DIMS)
     import dataclasses
 
-    for over in (dict(prefill=True), dict(num_experts=4, moe_top_k=2),
-                 dict(n_ranks=2)):
+    for over in (dict(num_experts=4, moe_top_k=2), dict(n_ranks=2)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             check_dims(dataclasses.replace(base, **over), MegaConfig())
+    with pytest.raises(NotImplementedError, match="paged prefill"):
+        check_dims(dataclasses.replace(base, prefill=True, page=PAGE),
+                   MegaConfig())
     with pytest.raises(ValueError, match="paged"):
         check_dims(dataclasses.replace(base, kv_quant=True), MegaConfig())
     with pytest.raises(ValueError, match="eos"):
         mega.build_multi(2, MAXLEN, 4, eos=True, valid_arg=True)
     for kw in (dict(resident=True), dict(kernel_trace=True)):
-        with pytest.raises(NotImplementedError):
+        eng = ContinuousEngine(tm, page_size=PAGE, max_length=MAXLEN,
+                               mode="mega", device="cpu", **kw)
+        assert eng.resident or eng.kernel_trace
+        with pytest.raises(ValueError, match="mega"):
             ContinuousEngine(tm, page_size=PAGE, max_length=MAXLEN,
-                             mode="mega", device="cpu", **kw)
+                             device="cpu", **kw)
     with pytest.raises(ValueError, match="mega"):
         ContinuousEngine(tm, page_size=PAGE, max_length=MAXLEN, mode="mega",
                          speculative=2, device="cpu")

@@ -109,9 +109,11 @@ def test_entry_points_need_cuda_unless_told_cpu(no_cuda):
 def _refusal(knobs) -> type:
     """Unported knobs raise NotImplementedError; a kv_dtype the engine
     cannot take (not int8, or int8 on a dense cache), speculation on a
-    dense cache, and a ``rank_page_budget`` without a KV tier or on the
-    megakernel path are ValueErrors, as in the JAX engines."""
-    if {"kv_dtype", "speculative", "rank_page_budget"} & set(knobs):
+    dense cache, a ``rank_page_budget`` without a KV tier or on the
+    megakernel path, and ``resident`` or ``kernel_trace`` outside
+    ``mode='mega'`` are ValueErrors, as in the JAX engines."""
+    if {"kv_dtype", "speculative", "rank_page_budget", "resident",
+            "kernel_trace"} & set(knobs):
         return ValueError
     return NotImplementedError
 
@@ -129,7 +131,7 @@ def test_engine_refuses_unported_knobs(knobs):
 
 
 @pytest.mark.parametrize("knobs", [
-    dict(mode="mega", kernel_trace=True), dict(resident=True),
+    dict(kernel_trace=True), dict(resident=True),
     dict(fabric=object()),
     dict(kv_dtype="fp8"),
     dict(rank_page_budget=256, tier_bytes=1 << 20, mode="mega"),

@@ -1,6 +1,7 @@
 // The decode megakernel for Hopper (sm_90a): a whole greedy decode step of
 // a dense Qwen3 at tp=1, or NS steps, as ONE persistent cooperative kernel
-// walking a packed task table.
+// walking a packed task table; and the prefill megakernel (one prompt's
+// rows through the prefill table, mega_prefill_kernel below).
 //
 // Replaces: triton_distributed_tpu/megakernel/code_generator.py
 // `make_mega_kernel` / `build_mega_call` (the one `pl.pallas_call` whose
@@ -26,6 +27,16 @@
 // ties), feeds it to the next step's EMBED, writes toks [NS, B] and, under
 // eos, the first step whose token is the row's stop token (stop_step [B],
 // NS = never).
+//
+// The device task tracer (the TPU kernel's dims.trace, code_generator.py
+// :628-682 and kernels.py:46-79) and the work ring's RING_POLL task
+// (kernels.py:1581): a traced launch writes one [task_id, opcode, layer,
+// arg0, begin, end, mid, flag] record per (step, task) into trace [NS, T,
+// 8], on block 0's clock64 (see trace_mark); ALLREDUCE stamps mid between
+// its exchange and its fold, and RING_POLL the published doorbell
+// ring_state[0]. An untraced launch writes nothing, and RING_POLL is a
+// no-op there. The prefill graph runs in its own kernel, below
+// (mega_prefill_kernel).
 //
 // Sampling (the TPU kernel's dims.sampled and dims.filtered,
 // triton_distributed_tpu/megakernel/kernels.py:1500-1505 and
@@ -56,8 +67,8 @@
 // f32 scale per output column, the TPU kernel's `_q8_scale`); CT, the
 // cache's (T, or int8 codes over a paged pool with one f32 scale per
 // (layer, page, kv head), the TPU kernel's kv_quant). All eight
-// combinations are built, each greedy and sampled (a fourth template
-// parameter, see mega_kernel). An int8 weight widens to f32 exactly, so only
+// combinations are built, each greedy and sampled, untraced and traced
+// (the fourth and fifth template parameters, see mega_kernel). An int8 weight widens to f32 exactly, so only
 // the f32 product is scaled: the scale of an output column multiplies the
 // fixed-order split-K sum once (a per-column constant distributes over the
 // K sum, which the TPU kernel scales tile by tile), before SwiGLU for fc1,
@@ -133,7 +144,13 @@ constexpr int kUnrollPV = 8;        // V rows in flight per thread
 // TaskType values (megakernel/task.py).
 enum : int {
   kEmbed = 0, kNorm = 1, kQkv = 2, kAttn = 3, kOProj = 4, kFc1 = 5,
-  kFc2 = 6, kAllReduce = 7, kLmHead = 8
+  kFc2 = 6, kAllReduce = 7, kLmHead = 8, kAttnPrefill = 10, kLoadX = 11,
+  kRingPoll = 18
+};
+// Trace-ring record columns (megakernel/task.py TR_*).
+enum : int {
+  kTrTaskId = 0, kTrOpcode = 1, kTrLayer = 2, kTrSlot = 3, kTrBegin = 4,
+  kTrEnd = 5, kTrMid = 6, kTrFlag = 7, kTraceInts = 8
 };
 
 struct Params {
@@ -159,6 +176,14 @@ struct Params {
   int T, nsteps, B, d, hq, hkv, hd, f, v_pad, v_real, L, s_cap, page, pps,
       num_pages, fuse_norms, eos, vocab, argmax, nch, sampled, filtered;
   float eps, sm_scale;
+  // The tracer's ring [NS, T, 8] (nullptr = untraced) and the work
+  // ring's published snapshot [doorbell, head, tail, occupancy]
+  // (nullptr without a ring).
+  int* trace; const int* ring_state;
+  // Prefill: the embedded prompt rows x0 [S, d] in T, and workspace
+  // views for the prepared q [hq, S, hd] and k [hkv, S, hd] heads (f32)
+  // and the rows' rstd [S].
+  const void* x0; float* qf; float* kf; float* rstd;
 };
 
 // -- small helpers -----------------------------------------------------------
@@ -1014,6 +1039,46 @@ __device__ __noinline__ void filtered_winner(const Params& p, int step, int b,
   __syncthreads();
 }
 
+// -- the device task tracer ---------------------------------------------------
+//
+// Block 0, thread 0 reads clock64() once at every task boundary, after the
+// previous task's closing grid barrier: that read ends the previous record
+// and begins the next, so a record spans the whole grid's work on its
+// task (a task without a closing barrier, O_PROJ/FC2 before ALLREDUCE,
+// spans block 0's part). Ticks are stored relative to the launch's first
+// read as int32 (2^31 cycles, ~1 s at 1.98 GHz). Not inlined: a greedy
+// launch carries only the pointer test at each boundary.
+
+// Record `idx` (step * T + t) begins and record idx - 1 ends; idx ==
+// nsteps * T only ends the last one.
+__device__ __noinline__ void trace_mark(const Params& p, int idx,
+                                        long long* t0) {
+  const long long now = clock64();
+  if (idx == 0) *t0 = now;
+  const int rel = (int)(now - *t0);
+  if (idx > 0) {
+    int* r = p.trace + (size_t)(idx - 1) * kTraceInts;
+    r[kTrEnd] = rel;
+    r[kTrFlag] = 1;
+  }
+  if (idx < p.nsteps * p.T) {
+    int* r = p.trace + (size_t)idx * kTraceInts;
+    const int* h = p.table + (idx % p.T) * 8;
+    r[kTrTaskId] = h[4];
+    r[kTrOpcode] = h[0];
+    r[kTrLayer] = h[1];
+    r[kTrSlot] = h[2];
+    r[kTrBegin] = rel;
+    r[kTrMid] = 0;
+  }
+}
+
+// Record idx's mid column: a clock read (ALLREDUCE's phase mark).
+__device__ __noinline__ void trace_mid(const Params& p, int idx,
+                                       const long long* t0) {
+  p.trace[(size_t)idx * kTraceInts + kTrMid] = (int)(clock64() - *t0);
+}
+
 // Dynamic shared memory of a block (floats): the per-row values
 // (rstd, best_v, best_i, tok_s: [B] each), the GEMM reduction buffer
 // red [kWarps][kGroupB][kTileN], the LM head's tile [kGroupB][kTileN],
@@ -1025,13 +1090,15 @@ __host__ __device__ __forceinline__ size_t smem_floats(int B, int region) {
 
 // T: model dtype; WT: projection weights (T or int8_t); CT: cache (T or
 // int8_t); kSample: a sampled launch (the noise, and the filtered pass when
-// p.filtered). Greedy launches run an instantiation without the sampling
-// code, so its registers do not weigh on theirs.
-template <typename T, typename WT, typename CT, bool kSample>
+// p.filtered); kTrace: a traced or ring launch (the tracer's stamps when
+// p.trace is set, and the RING_POLL task). The other launches run
+// instantiations without that code, so that it weighs nothing on their
+// registers.
+template <typename T, typename WT, typename CT, bool kSample, bool kTrace>
 __global__ void __launch_bounds__(kThreads, kMaxBlocksPerSM)
     mega_kernel(const __grid_constant__ Params p) {
   constexpr bool kQ8 = sizeof(WT) == 1;
-  extern __shared__ float smem[];
+  extern __shared__ __align__(16) float smem[];
   float* rstd = smem;
   float* best_v = rstd + p.B;
   int* best_i = reinterpret_cast<int*>(best_v + p.B);
@@ -1050,6 +1117,9 @@ __global__ void __launch_bounds__(kThreads, kMaxBlocksPerSM)
   const WT* w2 = reinterpret_cast<const WT*>(p.w2);
   const T* ln1 = reinterpret_cast<const T*>(p.ln1);
   const T* ln2 = reinterpret_cast<const T*>(p.ln2);
+  __shared__ long long trace_t0;  // the launch's first clock read
+  const bool tracer =
+      kTrace && p.trace != nullptr && blockIdx.x == 0 && tid == 0;
   for (int b = tid; b < B; b += kThreads) tok_s[b] = p.tokens[b];
   __syncthreads();
 
@@ -1058,6 +1128,9 @@ __global__ void __launch_bounds__(kThreads, kMaxBlocksPerSM)
       const int type = p.table[t * 8], layer = p.table[t * 8 + 1];
       const int arg0 = p.table[t * 8 + 2];
       const int next = t + 1 < p.T ? p.table[(t + 1) * 8] : -1;
+      if constexpr (kTrace) {
+        if (tracer) trace_mark(p, step * p.T + t, &trace_t0);
+      }
       switch (type) {
         case kEmbed: {
           const T* emb = reinterpret_cast<const T*>(p.embed);
@@ -1152,6 +1225,11 @@ __global__ void __launch_bounds__(kThreads, kMaxBlocksPerSM)
           break;
         }
         case kAllReduce: {
+          // The phase mark between the exchange (none at tp=1) and the
+          // fold, as the TPU kernel's trace_mid.
+          if constexpr (kTrace) {
+            if (tracer) trace_mid(p, step * p.T + t, &trace_t0);
+          }
           for (size_t i = gtid; i < (size_t)B * d; i += gthreads)
             p.x[i] = __ldcg(p.x + i) + __ldcg(p.h + i);
           grid_sync(p.bar);
@@ -1196,15 +1274,31 @@ __global__ void __launch_bounds__(kThreads, kMaxBlocksPerSM)
           break;
         }
         default:
+          // RING_POLL: only ring launches have it, and they run a kTrace
+          // instantiation; untraced, it is a no-op. Kept out of the case
+          // labels, so that the other instantiations compile the switch
+          // (and allocate its registers) as before.
+          if constexpr (kTrace) {
+            if (type == kRingPoll) {
+              // The doorbell this round observed, into its record's mid.
+              if (tracer && p.ring_state != nullptr)
+                p.trace[(size_t)(step * p.T + t) * kTraceInts + kTrMid] =
+                    p.ring_state[0];
+              break;
+            }
+          }
           __trap();
       }
     }
   }
+  if constexpr (kTrace) {
+    if (tracer) trace_mark(p, p.nsteps * p.T, &trace_t0);
+  }
 }
 
-template <typename T, typename WT, typename CT, bool kSample>
+template <typename T, typename WT, typename CT, bool kSample, bool kTrace>
 int launch(Params p, long long ws_floats, int* info, cudaStream_t stream) {
-  auto kern = mega_kernel<T, WT, CT, kSample>;
+  auto kern = mega_kernel<T, WT, CT, kSample, kTrace>;
   int dev = 0, sms = 0, coop = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return (int)e;
@@ -1261,8 +1355,11 @@ int launch(Params p, long long ws_floats, int* info, cudaStream_t stream) {
 template <typename T, typename WT, typename CT>
 int launch_s(const Params& p, long long ws_floats, int* info,
              cudaStream_t s) {
-  return p.sampled ? launch<T, WT, CT, true>(p, ws_floats, info, s)
-                   : launch<T, WT, CT, false>(p, ws_floats, info, s);
+  if (p.trace != nullptr || p.ring_state != nullptr)
+    return p.sampled ? launch<T, WT, CT, true, true>(p, ws_floats, info, s)
+                     : launch<T, WT, CT, false, true>(p, ws_floats, info, s);
+  return p.sampled ? launch<T, WT, CT, true, false>(p, ws_floats, info, s)
+                   : launch<T, WT, CT, false, false>(p, ws_floats, info, s);
 }
 
 // The weight and cache storage types of one model dtype T.
@@ -1276,6 +1373,381 @@ int launch_t(const Params& p, int wq8, int kv_quant, long long ws_floats,
                   : launch_s<T, T, T>(p, ws_floats, info, s);
 }
 
+// -- the prefill megakernel ---------------------------------------------------
+//
+// Replaces the prefill build of the same pallas_call: load_x_body
+// (triton_distributed_tpu/megakernel/kernels.py:895), attn_prefill_body
+// (:907) and lm_head_body's last-row projection (:1437), walking the table
+// of build_prefill_graph once over the S prompt rows. Its own __global__,
+// instantiated for (T, WT) only, so the decode kernel's registers and
+// code do not change. The S rows take the decode kernel's place of the
+// batch: the GEMMs run each 64-column tile over 4-row groups, one unit
+// (tile, group) at a time with the whole K range (S/4 groups give the
+// blocks their parallelism, so K is not split), contiguous units per
+// block so that a block's consecutive units share a weight tile.
+//
+// What bounds it on the H100: at S = 256, bytes (every layer weight once,
+// 0.88 GB at Qwen3-0.6B in bf16, plus the LM head's 0.31 GB) against ~0.23
+// TFLOP; this simple kernel re-reads each weight tile once per 4-row
+// group, mostly from L2, and runs its products on FMA pipes, so it is
+// far from that bound (a tiled tensor-core GEMM is later work).
+
+constexpr int kPrefillRows = 8;   // query rows per attention unit (a warp each)
+constexpr int kPrefillKeys = 32;  // keys staged per chunk
+
+// rstd[r] = rsqrt(mean(x[r]^2) + eps) for the S rows, a warp per row
+// over the grid; with out, also out[r][k] = x[r][k] * rstd[r] * w[k].
+template <typename T>
+__device__ void rows_rstd(const float* x, int S, int d, float eps,
+                          float* rstd, float* out, const T* w) {
+  const int lane = threadIdx.x % 32;
+  const int gw = blockIdx.x * kWarps + threadIdx.x / 32;
+  for (int r = gw; r < S; r += gridDim.x * kWarps) {
+    const float* xr = x + (size_t)r * d;
+    float ss = 0.f;
+    for (int i = lane; i < d; i += 32) {
+      const float v = __ldcg(xr + i);
+      ss += v * v;
+    }
+    const float rs = rsqrtf(warp_sum(ss) / (float)d + eps);
+    if (rstd != nullptr && lane == 0) rstd[r] = rs;
+    if (out != nullptr)
+      for (int i = lane; i < d; i += 32)
+        out[(size_t)r * d + i] = __ldcg(xr + i) * rs * to_f32(w[i]);
+  }
+}
+
+// out[S][N] = src[S][K] @ w[K][N] (src rounded to T, with normw the
+// inline norm src * rstd[r] * normw[k]; each sum times colscale[n] under
+// wq8). Units (tile, 4-row group), a contiguous range per block.
+template <typename T, typename WT>
+__device__ void gemm_rows(const WT* w, int K, int N, int S, const float* src,
+                          const T* normw, const float* rstd, float* out,
+                          const float* colscale, float* xs, float* red,
+                          float* rs) {
+  const int ntiles = (N + kTileN - 1) / kTileN;
+  const int ngroups = (S + kGroupB - 1) / kGroupB;
+  const int units = ntiles * ngroups;
+  const int per = (units + gridDim.x - 1) / gridDim.x;
+  const int u0 = blockIdx.x * per, u1 = min(units, u0 + per);
+  for (int u = u0; u < u1; ++u) {
+    const int tile = u / ngroups, g = u % ngroups;
+    const int b0 = g * kGroupB, bg = min(kGroupB, S - b0);
+    if (normw != nullptr) {
+      if (threadIdx.x < bg) rs[threadIdx.x] = __ldcg(rstd + b0 + threadIdx.x);
+      __syncthreads();
+    }
+    stage_input<T>(src + (size_t)b0 * K, K, normw, rs, bg, 0, K, xs);
+    gemm_tile<WT>(w, N, tile * kTileN, 0, K, xs, bg, red,
+                  out + (size_t)b0 * N, N, nullptr, colscale);
+  }
+}
+
+// ATTN_PREFILL phase 1, a warp per (row r, q or k head): QK-norm, rope
+// at position r (q also times the softmax scale) into qf / kf in f32; a k
+// head also writes its K and V rows to knew / vnew [L, hkv, S, hd] in T.
+template <typename T>
+__device__ void prefill_heads(const Params& p, int layer, float* sm) {
+  const int S = p.B, hq = p.hq, hkv = p.hkv, hd = p.hd;
+  const int qkvN = (hq + 2 * hkv) * hd, lane = threadIdx.x % 32;
+  const int warp = threadIdx.x / 32;
+  float* scr = sm + warp * hd;
+  const T* qn = reinterpret_cast<const T*>(p.qn) + (size_t)layer * hd;
+  const T* kn = reinterpret_cast<const T*>(p.kn) + (size_t)layer * hd;
+  T* knew = reinterpret_cast<T*>(p.knew);
+  T* vnew = reinterpret_cast<T*>(p.vnew);
+  const int gw = blockIdx.x * kWarps + warp;
+  for (int it = gw; it < S * (hq + hkv); it += gridDim.x * kWarps) {
+    const int r = it / (hq + hkv), hi = it % (hq + hkv);
+    const float* row = p.qkv + (size_t)r * qkvN;
+    const bool isq = hi < hq;
+    head_prep<T>(row + hi * hd, isq ? qn : kn, hd, p.eps, r, p.inv_freq,
+                 isq ? p.sm_scale : 1.0f, scr);
+    if (isq) {
+      for (int i = lane; i < hd; i += 32)
+        p.qf[((size_t)hi * S + r) * hd + i] = scr[i];
+    } else {
+      const int kh = hi - hq;
+      const size_t o = (((size_t)layer * hkv + kh) * S + r) * hd;
+      for (int i = lane; i < hd; i += 32) {
+        p.kf[((size_t)kh * S + r) * hd + i] = scr[i];
+        knew[o + i] = from_f32<T>(scr[i]);
+        vnew[o + i] = from_f32<T>(__ldcg(row + (hq + hkv + kh) * hd + i));
+      }
+    }
+    __syncwarp();
+  }
+}
+
+// ATTN_PREFILL phase 2, units (q head, block of kPrefillRows rows), a warp
+// per row: one causal softmax over keys 0..r with the f32 K (kf) and V
+// (the qkv rows), the two passes of the TPU body (scores, then P·V over
+// the normalised weights), K and V staged kPrefillKeys rows at a time.
+__device__ void prefill_attend(const Params& p, float* sm) {
+  const int S = p.B, hq = p.hq, hkv = p.hkv, hd = p.hd, g = hq / hkv;
+  const int qkvN = (hq + 2 * hkv) * hd, tid = threadIdx.x;
+  const int warp = tid / 32, lane = tid % 32, kp = hd + 1;
+  float* qv = sm;                                 // [rows][hd]
+  float* kv = qv + kPrefillRows * hd;             // [keys][hd + 1]
+  float* sc = kv + kPrefillKeys * kp;             // [rows][S]
+  const int nrb = (S + kPrefillRows - 1) / kPrefillRows;
+  for (int u = blockIdx.x; u < hq * nrb; u += gridDim.x) {
+    const int h = u % hq, rb = nrb - 1 - u / hq;  // the long rows first
+    const int kvh = h / g, r0 = rb * kPrefillRows;
+    const int r = r0 + warp, kend = min(S, r0 + kPrefillRows);
+    const float* kf = p.kf + (size_t)kvh * S * hd;
+    const float* vf = p.qkv + (hq + hkv + kvh) * hd;
+    for (int i = tid; i < kPrefillRows * hd; i += kThreads) {
+      const int rr = r0 + i / hd;
+      qv[i] = rr < S ? __ldcg(p.qf + ((size_t)h * S + rr) * hd + i % hd)
+                     : 0.f;
+    }
+    // Scores: lane j takes key c0 + j of the staged chunk.
+    for (int c0 = 0; c0 < kend; c0 += kPrefillKeys) {
+      const int nk = min(kPrefillKeys, kend - c0);
+      __syncthreads();
+      for (int i = tid; i < nk * hd; i += kThreads)
+        kv[(i / hd) * kp + i % hd] = __ldcg(kf + (size_t)c0 * hd + i);
+      __syncthreads();
+      const int key = c0 + lane;
+      if (warp < kPrefillRows && r < S && lane < nk && key <= r) {
+        float dot = 0.f;
+        for (int i = 0; i < hd; ++i)
+          dot = fmaf(qv[warp * hd + i], kv[lane * kp + i], dot);
+        sc[warp * S + key] = dot;
+      }
+    }
+    __syncwarp();  // the row's scores came from every lane of the warp
+    float m = -INFINITY, l = 0.f;
+    if (r < S) {
+      for (int k = lane; k <= r; k += 32) m = fmaxf(m, sc[warp * S + k]);
+      m = warp_max(m);
+      for (int k = lane; k <= r; k += 32) {
+        const float e = expf(sc[warp * S + k] - m);
+        sc[warp * S + k] = e;
+        l += e;
+      }
+      l = warp_sum(l);
+    }
+    float acc[kMaxHd / 32];
+#pragma unroll
+    for (int j = 0; j < kMaxHd / 32; ++j) acc[j] = 0.f;
+    for (int c0 = 0; c0 < kend; c0 += kPrefillKeys) {
+      const int nk = min(kPrefillKeys, kend - c0);
+      __syncthreads();
+      for (int i = tid; i < nk * hd; i += kThreads)
+        kv[(i / hd) * kp + i % hd] =
+            __ldcg(vf + (size_t)(c0 + i / hd) * qkvN + i % hd);
+      __syncthreads();
+      if (r < S) {
+        const int n = min(nk, r - c0 + 1);
+        for (int j = 0; j < n; ++j) {
+          const float pj = sc[warp * S + c0 + j];
+#pragma unroll
+          for (int q = 0; q < kMaxHd / 32; ++q)
+            if (q < hd / 32)
+              acc[q] = fmaf(pj, kv[j * kp + lane + 32 * q], acc[q]);
+        }
+      }
+    }
+    if (r < S) {
+#pragma unroll
+      for (int q = 0; q < kMaxHd / 32; ++q)
+        if (q < hd / 32)
+          p.ao[(size_t)r * hq * hd + h * hd + lane + 32 * q] = acc[q] / l;
+    }
+  }
+}
+
+// Dynamic shared memory of the prefill kernel (floats): the GEMM
+// reduction buffer, the 4 staged rstd values, then the region for GEMM
+// input staging or the attention phases. megakernel/code_generator.py
+// (prefill_smem_bytes) mirrors it.
+__host__ __device__ __forceinline__ size_t prefill_region(int S, int kmax,
+                                                          int hd) {
+  const size_t gemm = (size_t)kGroupB * kmax;
+  const size_t heads = (size_t)kWarps * hd;
+  const size_t attend = (size_t)kPrefillRows * hd +
+                        (size_t)kPrefillKeys * (hd + 1) +
+                        (size_t)kPrefillRows * S;
+  const size_t m = gemm > heads ? gemm : heads;
+  return m > attend ? m : attend;
+}
+
+template <typename T, typename WT>
+__global__ void __launch_bounds__(kThreads, kMaxBlocksPerSM)
+    mega_prefill_kernel(const __grid_constant__ Params p) {
+  constexpr bool kQ8 = sizeof(WT) == 1;
+  extern __shared__ __align__(16) float smem[];
+  float* red = smem;
+  float* rs = red + kWarps * kGroupB * kTileN;
+  float* xs = rs + kGroupB;  // 16-byte aligned
+  const int tid = threadIdx.x;
+  const size_t gtid = (size_t)blockIdx.x * kThreads + tid;
+  const size_t gthreads = (size_t)gridDim.x * kThreads;
+  const int S = p.B, d = p.d, hd = p.hd;
+  const int qkvN = (p.hq + 2 * p.hkv) * hd, oK = p.hq * hd;
+  const WT* wqkv = reinterpret_cast<const WT*>(p.wqkv);
+  const WT* wo = reinterpret_cast<const WT*>(p.wo);
+  const WT* w1 = reinterpret_cast<const WT*>(p.w1);
+  const WT* w2 = reinterpret_cast<const WT*>(p.w2);
+  const T* ln1 = reinterpret_cast<const T*>(p.ln1);
+  const T* ln2 = reinterpret_cast<const T*>(p.ln2);
+  const T* normf = reinterpret_cast<const T*>(p.normf);
+  for (int t = 0; t < p.T; ++t) {
+    const int type = p.table[t * 8], layer = p.table[t * 8 + 1];
+    const int arg0 = p.table[t * 8 + 2];
+    switch (type) {
+      case kLoadX: {
+        const T* x0 = reinterpret_cast<const T*>(p.x0);
+        for (size_t i = gtid; i < (size_t)S * d; i += gthreads)
+          p.x[i] = to_f32(x0[i]);
+        grid_sync(p.bar);
+        break;
+      }
+      case kNorm: {
+        const T* w = arg0 == 0   ? ln1 + (size_t)layer * d
+                     : arg0 == 1 ? ln2 + (size_t)layer * d
+                                 : normf;
+        rows_rstd<T>(p.x, S, d, p.eps, nullptr, p.h, w);
+        grid_sync(p.bar);
+        break;
+      }
+      case kQkv:
+      case kFc1: {
+        const bool qkv = type == kQkv;
+        const int N = qkv ? qkvN : 2 * p.f;
+        const WT* w = qkv ? wqkv + (size_t)layer * d * N
+                          : w1 + (size_t)layer * d * N;
+        const float* sc =
+            kQ8 ? (qkv ? p.sc_qkv : p.sc_w1) + (size_t)layer * N : nullptr;
+        const T* normw = nullptr;
+        if (p.fuse_norms) {
+          normw = (qkv ? ln1 : ln2) + (size_t)layer * d;
+          rows_rstd<T>(p.x, S, d, p.eps, p.rstd, nullptr, normw);
+          grid_sync(p.bar);
+        }
+        gemm_rows<T, WT>(w, d, N, S, p.fuse_norms ? p.x : p.h, normw, p.rstd,
+                         qkv ? p.qkv : p.part, sc, xs, red, rs);
+        grid_sync(p.bar);
+        if (!qkv) {
+          const int f = p.f;
+          for (size_t i = gtid; i < (size_t)S * f; i += gthreads) {
+            const size_t r = i / f, c = i % f;
+            const float gt = __ldcg(p.part + r * N + c);
+            const float up = __ldcg(p.part + r * N + f + c);
+            p.mlp[i] = gt * (1.0f / (1.0f + expf(-gt))) * up;
+          }
+          grid_sync(p.bar);
+        }
+        break;
+      }
+      case kAttnPrefill: {
+        prefill_heads<T>(p, layer, xs);
+        grid_sync(p.bar);
+        prefill_attend(p, xs);
+        grid_sync(p.bar);
+        break;
+      }
+      case kOProj:
+      case kFc2: {
+        const bool o = type == kOProj;
+        const int K = o ? oK : p.f;
+        const WT* w = o ? wo + (size_t)layer * K * d
+                        : w2 + (size_t)layer * K * d;
+        const float* sc =
+            kQ8 ? (o ? p.sc_o : p.sc_w2) + (size_t)layer * d : nullptr;
+        gemm_rows<T, WT>(w, K, d, S, o ? p.ao : p.mlp, (const T*)nullptr,
+                         nullptr, p.h, sc, xs, red, rs);
+        grid_sync(p.bar);
+        break;
+      }
+      case kAllReduce: {
+        for (size_t i = gtid; i < (size_t)S * d; i += gthreads)
+          p.x[i] = __ldcg(p.x + i) + __ldcg(p.h + i);
+        grid_sync(p.bar);
+        break;
+      }
+      case kLmHead: {
+        // Only the last real row, kv_len[0] - 1: its inline norm (or the
+        // NORM task's h row), then the vocab tiles over the blocks.
+        const int r = min(max(p.kv_len[0], 1), S) - 1;
+        const float* src = (p.fuse_norms ? p.x : p.h) + (size_t)r * d;
+        if (p.fuse_norms) {
+          if (tid < 32) {
+            float ss = 0.f;
+            for (int i = tid; i < d; i += 32) {
+              const float v = __ldcg(src + i);
+              ss += v * v;
+            }
+            ss = warp_sum(ss);
+            if (tid == 0) rs[0] = rsqrtf(ss / (float)d + p.eps);
+          }
+          __syncthreads();
+        }
+        stage_input<T>(src, d, p.fuse_norms ? normf : nullptr, rs, 1, 0, d,
+                       xs);
+        const WT* w = reinterpret_cast<const WT*>(p.lm_head);
+        const int ntiles = (p.v_pad + kTileN - 1) / kTileN;
+        for (int u = blockIdx.x; u < ntiles; u += gridDim.x)
+          gemm_tile<WT>(w, p.v_pad, u * kTileN, 0, d, xs, 1, red, p.logits,
+                        p.v_pad, nullptr, kQ8 ? p.sc_lm : nullptr);
+        grid_sync(p.bar);
+        break;
+      }
+      default:
+        __trap();
+    }
+  }
+}
+
+template <typename T, typename WT>
+int launch_prefill(Params p, long long ws_floats, int* info,
+                   cudaStream_t stream) {
+  auto kern = mega_prefill_kernel<T, WT>;
+  int dev = 0, sms = 0, coop = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
+  if (!coop) return (int)cudaErrorNotSupported;
+  const int S = p.B, qkvN = (p.hq + 2 * p.hkv) * p.hd;
+  const int kmax = max(p.d, max(p.hq * p.hd, p.f));
+  const size_t smem =
+      sizeof(float) * ((size_t)kWarps * kGroupB * kTileN + kGroupB +
+                       prefill_region(S, kmax, p.hd));
+  e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  int occ = 0;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, kern, kThreads, smem);
+  if (e != cudaSuccess) return (int)e;
+  if (occ < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
+  const int nblk = sms * min(occ, kMaxBlocksPerSM);
+  // Carve the workspace; megakernel/code_generator.py sizes it.
+  float* ws = p.x;
+  size_t off = 0;
+  auto take = [&](size_t n) { float* r = ws + off; off += n; return r; };
+  p.x = take((size_t)S * p.d);
+  p.h = take((size_t)S * p.d);
+  p.qkv = take((size_t)S * qkvN);
+  p.ao = take((size_t)S * p.hq * p.hd);
+  p.mlp = take((size_t)S * p.f);
+  p.part = take((size_t)S * 2 * p.f);
+  p.qf = take((size_t)p.hq * S * p.hd);
+  p.kf = take((size_t)p.hkv * S * p.hd);
+  p.rstd = take((size_t)S);
+  if ((long long)off > ws_floats) return (int)cudaErrorInvalidValue;
+  info[0] = nblk;
+  info[1] = (int)smem;
+  info[2] = occ;
+  void* args[] = {&p};
+  e = cudaLaunchCooperativeKernel((const void*)kern, dim3(nblk),
+                                  dim3(kThreads), args, smem, stream);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // ptrs: embed, wqkv, wo, w1, w2, lm_head, ln1, ln2, normf, qn, kn, kc, vc,
@@ -1283,7 +1755,8 @@ int launch_t(const Params& p, int wq8, int kv_quant, long long ws_floats,
 //   table, inv_freq, logits, knew, vnew, toks, stop_step, workspace,
 //   barrier counter, then sc_qkv, sc_o, sc_w1, sc_w2, sc_lm (0 without
 //   wq8), k_scale, v_scale (0 without kv_quant), noise (0 unless
-//   sampled), sampcfg (0 unless filtered).
+//   sampled), sampcfg (0 unless filtered), the trace ring [NS, T, 8] (0 =
+//   untraced), the work-ring snapshot [4] (0 without a ring).
 // ints: T, nsteps, B, d, hq, hkv, hd, f, v_pad, v_real, L, s_cap (dense
 //   S or pages_per_seq * page), page (0 = dense), pages_per_seq,
 //   num_pages, fuse_norms, eos, dtype of the model (0 f32, 1 bf16),
@@ -1334,6 +1807,8 @@ extern "C" int tdt_mega_decode(const unsigned long long* ptrs,
   p.vsc = (const float*)ptrs[k++];
   p.noise = (const float*)ptrs[k++];
   p.sampcfg = (const float*)ptrs[k++];
+  p.trace = (int*)ptrs[k++];
+  p.ring_state = (const int*)ptrs[k++];
   int i = 0;
   p.T = ints[i++];
   p.nsteps = ints[i++];
@@ -1383,5 +1858,78 @@ extern "C" int tdt_mega_decode(const unsigned long long* ptrs,
     return launch_t<float>(p, wq8, kv_quant, ws_floats, info, s);
   if (dtype == tdt::kDtypeBF16)
     return launch_t<__nv_bfloat16>(p, wq8, kv_quant, ws_floats, info, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The prefill megakernel over one prompt of S rows.
+// ptrs: x0 [S, d] (T), wqkv, wo, w1, w2, lm_head, ln1, ln2, normf, qn, kn,
+//   true_len [1] (int32), table, inv_freq, logits [1, v_pad] (f32), knew,
+//   vnew [L, hkv, S, hd] (T), workspace, barrier counter, then sc_qkv,
+//   sc_o, sc_w1, sc_w2, sc_lm (0 without wq8).
+// ints: T, S, d, hq, hkv, hd, f, v_pad, L, fuse_norms, dtype of the model
+//   (0 f32, 1 bf16), workspace floats, wq8.
+// info (out): blocks launched, dynamic shared memory bytes, blocks per SM.
+extern "C" int tdt_mega_prefill(const unsigned long long* ptrs,
+                                const int* ints, float eps, float sm_scale,
+                                int* info, void* stream) {
+  Params p{};
+  int k = 0;
+  p.x0 = (const void*)ptrs[k++];
+  p.wqkv = (const void*)ptrs[k++];
+  p.wo = (const void*)ptrs[k++];
+  p.w1 = (const void*)ptrs[k++];
+  p.w2 = (const void*)ptrs[k++];
+  p.lm_head = (const void*)ptrs[k++];
+  p.ln1 = (const void*)ptrs[k++];
+  p.ln2 = (const void*)ptrs[k++];
+  p.normf = (const void*)ptrs[k++];
+  p.qn = (const void*)ptrs[k++];
+  p.kn = (const void*)ptrs[k++];
+  p.kv_len = (const int*)ptrs[k++];
+  p.table = (const int*)ptrs[k++];
+  p.inv_freq = (const float*)ptrs[k++];
+  p.logits = (float*)ptrs[k++];
+  p.knew = (void*)ptrs[k++];
+  p.vnew = (void*)ptrs[k++];
+  p.x = (float*)ptrs[k++];  // the workspace base, carved in launch_prefill
+  p.bar = (unsigned*)ptrs[k++];
+  p.sc_qkv = (const float*)ptrs[k++];
+  p.sc_o = (const float*)ptrs[k++];
+  p.sc_w1 = (const float*)ptrs[k++];
+  p.sc_w2 = (const float*)ptrs[k++];
+  p.sc_lm = (const float*)ptrs[k++];
+  int i = 0;
+  p.T = ints[i++];
+  p.B = ints[i++];
+  p.d = ints[i++];
+  p.hq = ints[i++];
+  p.hkv = ints[i++];
+  p.hd = ints[i++];
+  p.f = ints[i++];
+  p.v_pad = ints[i++];
+  p.L = ints[i++];
+  p.fuse_norms = ints[i++];
+  const int dtype = ints[i++];
+  const long long ws_floats = ints[i++];
+  const int wq8 = ints[i++];
+  p.nsteps = 1;
+  p.eps = eps;
+  p.sm_scale = sm_scale;
+  if (p.B < 1 || p.hkv < 1 || p.hq % p.hkv != 0 ||
+      p.hq / p.hkv > kMaxGroup || p.hd % 32 != 0 || p.hd > kMaxHd ||
+      p.d % 8 != 0 || p.v_pad % 8 != 0 ||
+      ((p.hq + 2 * p.hkv) * p.hd) % 8 != 0 || (2 * p.f) % 8 != 0 ||
+      (wq8 && (p.sc_qkv == nullptr || p.sc_o == nullptr ||
+               p.sc_w1 == nullptr || p.sc_w2 == nullptr ||
+               p.sc_lm == nullptr)))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == tdt::kDtypeF32)
+    return wq8 ? launch_prefill<float, int8_t>(p, ws_floats, info, s)
+               : launch_prefill<float, float>(p, ws_floats, info, s);
+  if (dtype == tdt::kDtypeBF16)
+    return wq8 ? launch_prefill<__nv_bfloat16, int8_t>(p, ws_floats, info, s)
+               : launch_prefill<__nv_bfloat16, __nv_bfloat16>(
+                     p, ws_floats, info, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -1,11 +1,13 @@
 """Megakernel subsystem of the PyTorch port: a whole decode step (or NS
-steps) as one persistent CUDA kernel over a packed task table.
+steps), or a prompt's prefill, as one persistent CUDA kernel over a
+packed task table.
 
 Counterpart of ``triton_distributed_tpu/megakernel``: the task graph
 (``task``), scheduler, registry (task type → plain PyTorch body),
 ``ModelBuilder``, the launch (``code_generator``: ``MegaDims``,
-``MegaConfig``, ``mega_decode``), the plain bodies (``kernels``) and
-``MegaQwen3``. The kernel is ``csrc/megakernel.cu``.
+``MegaConfig``, ``mega_decode``, ``mega_prefill``), the plain bodies
+(``kernels``), the resident engine's host work ring (``ring``) and
+``MegaQwen3``. The kernels are in ``csrc/megakernel.cu``.
 """
 
 from triton_distributed_tpu_torch.megakernel import kernels  # noqa: F401  (register bodies)

@@ -17,9 +17,13 @@ Hkv]``), f32 or bf16 models with weights in the model dtype or int8
 (``MegaConfig.wq8``: per-output-channel f32 scales), ``nsteps >= 1``,
 ``eos``; greedy, ``sampled`` (the argmax over ``logits + noise``, noise
 ``[NS, B, v_loc]`` f32 = T·gumbel per row) and ``filtered`` (the argmax
-over each row's exact top-k/top-p keep-set, per-row ``sampcfg [B, 4]``).
-Every other ``MegaDims`` mode raises ``NotImplementedError`` naming the
-ROADMAP item that ports it.
+over each row's exact top-k/top-p keep-set, per-row ``sampcfg [B, 4]``);
+``trace`` (the device task tracer: a ``[NS, T, 8]`` int32 ring of
+per-task records) and ``ring`` (a leading RING_POLL task that stamps the
+published work-ring doorbell, ``ring_state [4]``). :func:`mega_prefill`
+runs the prefill graph (``dims.prefill``) over one prompt's S rows.
+MoE and ``n_ranks > 1`` raise ``NotImplementedError`` naming the
+ROADMAP row that ports them.
 """
 
 from __future__ import annotations
@@ -31,20 +35,35 @@ import numpy as np
 import torch
 
 from triton_distributed_tpu_torch.megakernel import kernels as _kernels
-from triton_distributed_tpu_torch.megakernel.task import Task, TaskType
+from triton_distributed_tpu_torch.megakernel.task import (
+    TRACE_INTS,
+    Task,
+    TaskType,
+)
 from triton_distributed_tpu_torch.ops import cuda_kernels as ck
 
-# Task types the CUDA kernel has bodies for (the decode graph at tp=1).
+# Task types the CUDA kernels have bodies for at tp=1: the decode graph
+# (``mega_kernel``) and the prefill graph (``mega_prefill_kernel``).
 KERNEL_TASKS = frozenset({
     TaskType.EMBED, TaskType.NORM, TaskType.QKV_PROJ, TaskType.ATTN,
     TaskType.O_PROJ, TaskType.FC1, TaskType.FC2, TaskType.ALLREDUCE,
-    TaskType.LM_HEAD,
+    TaskType.LM_HEAD, TaskType.RING_POLL,
+})
+PREFILL_TASKS = frozenset({
+    TaskType.LOAD_X, TaskType.NORM, TaskType.QKV_PROJ,
+    TaskType.ATTN_PREFILL, TaskType.O_PROJ, TaskType.FC1, TaskType.FC2,
+    TaskType.ALLREDUCE, TaskType.LM_HEAD,
 })
 # Kernel geometry shared with csrc/megakernel.cu (kMaxSplit, kAttnChunk,
 # blocks per SM at most): the workspace is sized from it.
 MAX_SPLIT = 16
 ATTN_CHUNK = 128
 MAX_BLOCKS_PER_SM = 2
+# The prefill kernel's shared memory (kWarps, kGroupB, kTileN,
+# kPrefillRows, kPrefillKeys) and the most a block may take on Hopper.
+_WARPS, _GROUP_B, _TILE_N = 8, 4, 64
+_PREFILL_ROWS, _PREFILL_KEYS = 8, 32
+MAX_SMEM_BYTES = 232448
 
 
 @dataclasses.dataclass(frozen=True)
@@ -53,9 +72,11 @@ class MegaDims:
     ``MegaDims`` reads the same). ``kv_quant`` reads an int8 pool through
     its per-(layer, page, kv head) scales; ``sampled`` perturbs the
     multi-step argmax with host-drawn noise and ``filtered`` (with
-    ``sampled``) restricts it to each row's top-k/top-p keep-set. Modes
-    outside this slice — ``prefill``, ``ring``, ``trace``, MoE and
-    ``n_ranks > 1`` — are refused by :func:`check_dims`."""
+    ``sampled``) restricts it to each row's top-k/top-p keep-set.
+    ``trace`` adds the device task tracer's ring, ``ring`` a leading
+    RING_POLL task, and ``prefill`` makes ``batch`` the prompt's S rows
+    (the prefill graph). MoE and ``n_ranks > 1`` are refused by
+    :func:`check_dims`."""
 
     batch: int
     d: int
@@ -205,23 +226,29 @@ class MegaWeights:
 
 
 def check_dims(dims: MegaDims, cfg: MegaConfig) -> None:
-    """Refuse what this slice does not build, naming the ROADMAP item."""
+    """Refuse what this slice does not build, naming the ROADMAP item,
+    and what the JAX package refuses (a paged or sampled prefill)."""
     refused = [
-        (dims.prefill, "the prefill megakernel is not ported yet (ROADMAP "
-                       "queue 2 row 6(d)); the engines prefill with 'xla'"),
-        (dims.ring, "the resident work ring is not ported yet (ROADMAP "
-                    "queue 2 row 6(c))"),
-        (dims.trace, "the device task tracer is not ported yet (ROADMAP "
-                     "queue 2 row 6(c))"),
         (dims.moe, "MoE megakernel bodies are not ported yet (ROADMAP "
-                   "queue 2 row 6(e))"),
+                   "queue 2 row 6(f))"),
         (dims.n_ranks != 1 or dims.straggler_rank is not None,
          "multi-rank megakernel bodies are not ported yet (ROADMAP queue 2 "
          "row 6(e), tp > 1)"),
+        (dims.page and dims.prefill, "paged prefill: prefill then scatter"),
+        (dims.sampled and dims.prefill, "sampled multi-step: decode only"),
     ]
     for bad, msg in refused:
         if bad:
             raise NotImplementedError(msg)
+    if dims.prefill:
+        if dims.nsteps != 1 or dims.trace or dims.ring or dims.eos:
+            raise ValueError("the prefill graph runs one step, without a "
+                             "trace ring, a work ring or eos")
+        if prefill_smem_bytes(dims) > MAX_SMEM_BYTES:
+            raise ValueError(
+                f"a {dims.batch}-row prefill needs "
+                f"{prefill_smem_bytes(dims)} bytes of shared memory per "
+                f"block, more than {MAX_SMEM_BYTES}")
     if dims.kv_quant and not dims.page:
         raise ValueError("kv_quant requires the paged cache (scales live "
                          "on pool pages)")
@@ -260,11 +287,34 @@ def workspace_floats(dims: MegaDims, n_sms: int) -> int:
             + B * hq * hd + 2 * B * hkv * hd + 2 * nblk * B)
 
 
+def prefill_workspace_floats(dims: MegaDims) -> int:
+    """f32 workspace of the prefill kernel: the state of the S rows (x, h,
+    qkv, attention out, mlp), fc1's gate|up sums, the prepared q and k
+    heads and the rows' rstd."""
+    S, d, hd = dims.batch, dims.d, dims.head_dim
+    return (S * (2 * d + dims.qkv_loc + dims.o_k + 3 * dims.f_loc)
+            + (dims.hq_loc + dims.hkv_loc) * S * hd + S)
+
+
+def prefill_smem_bytes(dims: MegaDims) -> int:
+    """Dynamic shared memory of one prefill block (``prefill_region`` in
+    ``csrc/megakernel.cu``): the GEMM reduction buffer, 4 staged rstd
+    values, and the larger of the GEMM input staging, the head
+    preparation scratch and the attention unit (q rows, a staged key
+    chunk, the rows' scores)."""
+    hd = dims.head_dim
+    kmax = max(dims.d, dims.o_k, dims.f_loc)
+    region = max(_GROUP_B * kmax, _WARPS * hd,
+                 _PREFILL_ROWS * hd + _PREFILL_KEYS * (hd + 1)
+                 + _PREFILL_ROWS * dims.batch)
+    return 4 * (_WARPS * _GROUP_B * _TILE_N + _GROUP_B + region)
+
+
 def mega_decode(dims: MegaDims, cfg: MegaConfig, table: torch.Tensor,
                 w: MegaWeights, kc, vc, page_table, kv_len, tokens,
                 stop_tok=None, inv_freq=None, bar=None,
                 info: dict | None = None, k_scale=None, v_scale=None,
-                noise=None, sampcfg=None):
+                noise=None, sampcfg=None, ring_state=None):
     """Run the packed task ``table [T, 8]`` for ``dims.nsteps`` steps.
 
     On CUDA tensors: one cooperative launch of ``csrc/megakernel.cu``
@@ -281,8 +331,21 @@ def mega_decode(dims: MegaDims, cfg: MegaConfig, table: torch.Tensor,
     scales. ``dims.sampled`` takes ``noise [NS, B, v_loc]`` f32 (added to
     the argmax's scores, zero rows stay greedy) and ``dims.filtered``
     ``sampcfg [B, 4]`` f32 rows ``[1/T, top-k window, top-p, enable]``
-    (``sampling.sampcfg_row``)."""
+    (``sampling.sampcfg_row``). ``dims.ring`` takes ``ring_state [4]``
+    int32 (``WorkRing.publish``), whose doorbell the RING_POLL task
+    stamps; ``dims.trace`` appends the trace ring ``[NS, T, 8]`` int32 to
+    the returns (a traced CUDA launch is counted in
+    ``cuda_kernels.MEGA_DECODE_TRACED``)."""
     check_dims(dims, cfg)
+    if dims.prefill:
+        raise ValueError("a prefill graph launches through mega_prefill")
+    if dims.ring != (ring_state is not None):
+        raise ValueError("ring_state is given exactly when dims.ring is "
+                         "set")
+    if ring_state is not None and (tuple(ring_state.shape) != (4,)
+                                   or ring_state.dtype != torch.int32):
+        raise ValueError(f"ring_state must be [4] int32, got "
+                         f"{tuple(ring_state.shape)} {ring_state.dtype}")
     if cfg.wq8 != w.q8:
         raise ValueError("MegaConfig(wq8=True) takes int8 weights with "
                          "their scales (Q8Params), and only wq8 does")
@@ -309,27 +372,22 @@ def mega_decode(dims: MegaDims, cfg: MegaConfig, table: torch.Tensor,
         return _kernels.mega_decode_plain(
             dims, cfg.fuse_norms, table.cpu().numpy(), w, kc, vc,
             page_table, kv_len, tokens, stop_tok, inv_freq, k_scale, v_scale,
-            noise, sampcfg)
+            noise, sampcfg, ring_state)
     if bar is None:
         bar = torch.zeros(4, dtype=torch.int32, device=dev)
     return _launch(dims, cfg, table, w, kc, vc, page_table, kv_len, tokens,
                    stop_tok, inv_freq, bar, info, k_scale, v_scale, noise,
-                   sampcfg)
+                   sampcfg, ring_state)
 
 
-def _launch(dims, cfg, table, w, kc, vc, page_table, kv_len, tokens,
-            stop_tok, inv_freq, bar, info, k_scale, v_scale, noise, sampcfg):
-    dev = kv_len.device
-    B, NS, L = dims.batch, dims.nsteps, dims.num_layers
-    hkv, hd = dims.hkv_loc, dims.head_dim
-    # Three storage types: the model dtype (embed, norms, the new K/V
-    # rows, a full-width cache), the weights' (the model dtype, or int8
-    # under wq8) and the cache's (the model dtype, or int8 codes).
+def _check_weights(w: MegaWeights, cfg: MegaConfig, dims: MegaDims, dev):
+    """Device, dtype, contiguity and scale-count checks of the weights;
+    returns the model dtype."""
+    L = dims.num_layers
     mdt = w.embed.dtype
     if mdt not in ck.DTYPE_CODES:
         raise ValueError(f"megakernel model dtype must be f32/bf16, got {mdt}")
     wdt = torch.int8 if cfg.wq8 else mdt
-    cdt = torch.int8 if dims.kv_quant else mdt
     for f in dataclasses.fields(w):  # (asdict would deep-copy tensors)
         t = getattr(w, f.name)
         if f.name.startswith("sc_"):
@@ -346,6 +404,20 @@ def _launch(dims, cfg, table, w, kc, vc, page_table, kv_len, tokens,
             if getattr(w, name).numel() != n:
                 raise ValueError(f"{name} has {getattr(w, name).numel()} "
                                  f"scales, expected {n}")
+    return mdt
+
+
+def _launch(dims, cfg, table, w, kc, vc, page_table, kv_len, tokens,
+            stop_tok, inv_freq, bar, info, k_scale, v_scale, noise, sampcfg,
+            ring_state):
+    dev = kv_len.device
+    B, NS, L = dims.batch, dims.nsteps, dims.num_layers
+    hkv, hd = dims.hkv_loc, dims.head_dim
+    # Three storage types: the model dtype (embed, norms, the new K/V
+    # rows, a full-width cache), the weights' (the model dtype, or int8
+    # under wq8) and the cache's (the model dtype, or int8 codes).
+    mdt = _check_weights(w, cfg, dims, dev)
+    cdt = torch.int8 if dims.kv_quant else mdt
     for name, t in (("kc", kc), ("vc", vc)):
         ck.check_cuda_operand(name, t, dev, cdt, 5)
     if dims.kv_quant:
@@ -373,6 +445,8 @@ def _launch(dims, cfg, table, w, kc, vc, page_table, kv_len, tokens,
         ck.check_cuda_operand("noise", noise, dev, torch.float32, 3)
     if dims.filtered:
         ck.check_cuda_operand("sampcfg", sampcfg, dev, torch.float32, 2)
+    if dims.ring:
+        ck.check_cuda_operand("ring_state", ring_state, dev, torch.int32, 1)
     n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
     ws_n = workspace_floats(dims, n_sms)
     ws = torch.empty(ws_n, dtype=torch.float32, device=dev)
@@ -381,17 +455,18 @@ def _launch(dims, cfg, table, w, kc, vc, page_table, kv_len, tokens,
     vnew = torch.empty_like(knew)
     toks = torch.zeros((NS, B), dtype=torch.int32, device=dev)
     stop_step = torch.full((B,), NS, dtype=torch.int32, device=dev)
+    # Zeros: a record the kernel never reached keeps flag 0, a gap.
+    trace = (torch.zeros((NS, table.shape[0], TRACE_INTS),
+                         dtype=torch.int32, device=dev)
+             if dims.trace else None)
 
-    def ptr(t):
-        return 0 if t is None else t.data_ptr()
-
-    ptrs = (ctypes.c_uint64 * 35)(*[ptr(t) for t in (
+    ptrs = (ctypes.c_uint64 * 37)(*[_ptr(t) for t in (
         w.embed, w.wqkv, w.wo, w.w1, w.w2, w.lm_head, w.ln1, w.ln2,
         w.normf, w.qn, w.kn, kc, vc, page_table if dims.page else None,
         kv_len, tokens, stop_tok if dims.eos else None, table, inv_freq,
         logits, knew, vnew, toks, stop_step, ws, bar,
         w.sc_qkv, w.sc_o, w.sc_w1, w.sc_w2, w.sc_lm, k_scale, v_scale,
-        noise, sampcfg)])
+        noise, sampcfg, trace, ring_state if dims.ring else None)])
     ints = (ctypes.c_int * 25)(
         table.shape[0], NS, B, dims.d, dims.hq_loc, hkv, hd, dims.f_loc,
         dims.v_loc, min(dims.v_real or dims.v_loc, dims.v_loc), L,
@@ -401,17 +476,86 @@ def _launch(dims, cfg, table, w, kc, vc, page_table, kv_len, tokens,
         int(_kernels.takes_argmax(dims)), int(cfg.wq8), int(dims.kv_quant),
         int(dims.sampled), int(dims.filtered))
     out = (ctypes.c_int * 4)()
-    ck.MEGA_DECODE(ptrs, ints, ctypes.c_float(dims.rms_eps),
-                   ctypes.c_float(hd ** -0.5), out, ck.stream_ptr(kv_len))
+    kernel = ck.MEGA_DECODE_TRACED if dims.trace else ck.MEGA_DECODE
+    kernel(ptrs, ints, ctypes.c_float(dims.rms_eps),
+           ctypes.c_float(hd ** -0.5), out, ck.stream_ptr(kv_len))
     if info is not None:
         info.update(blocks=out[0], smem_bytes=out[1], blocks_per_sm=out[2])
+    if dims.trace:
+        return logits, knew, vnew, toks, stop_step, trace
     return logits, knew, vnew, toks, stop_step
+
+
+def _ptr(t) -> int:
+    return 0 if t is None else t.data_ptr()
+
+
+def mega_prefill(dims: MegaDims, cfg: MegaConfig, table: torch.Tensor,
+                 w: MegaWeights, x0: torch.Tensor, true_len: torch.Tensor,
+                 inv_freq=None, bar=None, info: dict | None = None):
+    """Run the prefill ``table`` (``build_prefill_graph``) once over the
+    prompt's S rows: ``x0 [S, d]`` is the embedded prompt in the model
+    dtype, ``true_len [1]`` int32 its real length (rows past it are pad).
+
+    On CUDA tensors: one cooperative launch of ``csrc/megakernel.cu``'s
+    prefill kernel (counted in ``cuda_kernels.MEGA_PREFILL``); on CPU
+    tensors: the plain version. Returns ``(logits [1, v_loc] f32 of row
+    true_len - 1, knew, vnew [L, hkv, S, hd] in the model dtype)``."""
+    check_dims(dims, cfg)
+    if not dims.prefill:
+        raise ValueError("mega_prefill runs a prefill graph (dims.prefill)")
+    if cfg.wq8 != w.q8:
+        raise ValueError("MegaConfig(wq8=True) takes int8 weights with "
+                         "their scales (Q8Params), and only wq8 does")
+    S, L = dims.batch, dims.num_layers
+    hkv, hd = dims.hkv_loc, dims.head_dim
+    if tuple(x0.shape) != (S, dims.d) or x0.dtype != w.embed.dtype:
+        raise ValueError(f"x0 must be [{S}, {dims.d}] {w.embed.dtype}, got "
+                         f"{tuple(x0.shape)} {x0.dtype}")
+    if tuple(true_len.shape) != (1,) or true_len.dtype != torch.int32:
+        raise ValueError("true_len must be [1] int32")
+    dev = x0.device
+    if inv_freq is None:
+        inv_freq = _kernels.rope_inv_freq(hd, dims.rope_theta, dev)
+    if dev.type != "cuda":
+        return _kernels.mega_prefill_plain(
+            dims, cfg.fuse_norms, table.cpu().numpy(), w, x0, true_len,
+            inv_freq)
+    if bar is None:
+        bar = torch.zeros(4, dtype=torch.int32, device=dev)
+    mdt = _check_weights(w, cfg, dims, dev)
+    for name, t, dt, nd in (("x0", x0, mdt, 2),
+                            ("true_len", true_len, torch.int32, 1),
+                            ("table", table, torch.int32, 2),
+                            ("inv_freq", inv_freq, torch.float32, 1),
+                            ("bar", bar, torch.int32, 1)):
+        ck.check_cuda_operand(name, t, dev, dt, nd)
+    ws_n = prefill_workspace_floats(dims)
+    ws = torch.empty(ws_n, dtype=torch.float32, device=dev)
+    logits = torch.empty((1, dims.v_loc), dtype=torch.float32, device=dev)
+    knew = torch.empty((L, hkv, S, hd), dtype=mdt, device=dev)
+    vnew = torch.empty_like(knew)
+    ptrs = (ctypes.c_uint64 * 24)(*[_ptr(t) for t in (
+        x0, w.wqkv, w.wo, w.w1, w.w2, w.lm_head, w.ln1, w.ln2, w.normf,
+        w.qn, w.kn, true_len, table, inv_freq, logits, knew, vnew, ws, bar,
+        w.sc_qkv, w.sc_o, w.sc_w1, w.sc_w2, w.sc_lm)])
+    ints = (ctypes.c_int * 13)(
+        table.shape[0], S, dims.d, dims.hq_loc, hkv, hd, dims.f_loc,
+        dims.v_loc, L, int(cfg.fuse_norms), ck.DTYPE_CODES[mdt], ws_n,
+        int(cfg.wq8))
+    out = (ctypes.c_int * 4)()
+    ck.MEGA_PREFILL(ptrs, ints, ctypes.c_float(dims.rms_eps),
+                    ctypes.c_float(hd ** -0.5), out, ck.stream_ptr(x0))
+    if info is not None:
+        info.update(blocks=out[0], smem_bytes=out[1], blocks_per_sm=out[2])
+    return logits, knew, vnew
 
 
 class MegaCall:
     """A scheduled task table bound to its device (the JAX
     ``build_mega_call``): ``__call__`` runs one launch (``nsteps`` decode
-    steps) through :func:`mega_decode`, with the rope table and the grid
+    steps) through :func:`mega_decode`, and :meth:`prefill` one prefill
+    launch through :func:`mega_prefill`, with the rope table and the grid
     barrier's counter made once. Every barrier adds exactly 2^31 to the
     counter, so a finished launch leaves it ready for the next; launches
     of one call run one after another on the stream."""
@@ -420,10 +564,11 @@ class MegaCall:
                  table: np.ndarray, device):
         check_dims(dims, cfg)
         used = {t.task_type for t in tasks}
-        if not used <= KERNEL_TASKS:
+        bodies = PREFILL_TASKS if dims.prefill else KERNEL_TASKS
+        if not used <= bodies:
             raise NotImplementedError(
                 f"no CUDA megakernel body for "
-                f"{sorted(t.name for t in used - KERNEL_TASKS)}")
+                f"{sorted(t.name for t in used - bodies)}")
         self.dims, self.cfg = dims, cfg
         self.table = torch.from_numpy(np.asarray(table, np.int32)).to(device)
         self.inv_freq = _kernels.rope_inv_freq(dims.head_dim,
@@ -432,8 +577,13 @@ class MegaCall:
 
     def __call__(self, w: MegaWeights, kc, vc, page_table, kv_len, tokens,
                  stop_tok=None, info: dict | None = None, k_scale=None,
-                 v_scale=None, noise=None, sampcfg=None):
+                 v_scale=None, noise=None, sampcfg=None, ring_state=None):
         return mega_decode(self.dims, self.cfg, self.table, w, kc, vc,
                            page_table, kv_len, tokens, stop_tok,
                            self.inv_freq, self.bar, info, k_scale, v_scale,
-                           noise, sampcfg)
+                           noise, sampcfg, ring_state)
+
+    def prefill(self, w: MegaWeights, x0, true_len,
+                info: dict | None = None):
+        return mega_prefill(self.dims, self.cfg, self.table, w, x0,
+                            true_len, self.inv_freq, self.bar, info)

@@ -23,7 +23,18 @@ the next step's EMBED, and the first stop-token step under ``eos``).
 Under ``sampled`` the argmax runs over ``logits + noise[step]`` (the
 Gumbel-max trick; the logits output stays clean), and under
 ``filtered`` over the top-k/top-p keep-set of each row
-(``sampling.filtered_winner_plain``).
+(``sampling.filtered_winner_plain``). RING_POLL stamps the published
+doorbell into its trace record. The prefill graph
+(:func:`mega_prefill_plain`) adds LOAD_X (the embedded prompt rows in)
+and ATTN_PREFILL (causal attention over the S prompt rows), and its
+LM_HEAD projects only the last real row.
+
+Under ``dims.trace`` every (step, task) writes a ``[task_id, opcode,
+layer, arg0, begin, end, mid, flag]`` record (``task.TR_*``) on a
+logical clock: one tick at every begin, ALLREDUCE's mid and every end,
+counted across the launch's steps, as the JAX kernel's ``trace_tick``
+does under interpret. So the plain ring equals the JAX ring bit for
+bit; the CUDA kernel stamps ``clock64()`` ticks instead.
 """
 
 from __future__ import annotations
@@ -32,7 +43,18 @@ import numpy as np
 import torch
 
 from triton_distributed_tpu_torch.megakernel.registry import register_task
-from triton_distributed_tpu_torch.megakernel.task import TaskType
+from triton_distributed_tpu_torch.megakernel.task import (
+    TR_BEGIN,
+    TR_END,
+    TR_FLAG,
+    TR_LAYER,
+    TR_MID,
+    TR_OPCODE,
+    TR_SLOT,
+    TR_TASK_ID,
+    TRACE_INTS,
+    TaskType,
+)
 from triton_distributed_tpu_torch.models.sampling import filtered_winner_plain
 from triton_distributed_tpu_torch.ops.attention.flash_decode import (
     pages_to_dense,
@@ -57,7 +79,8 @@ class MegaState:
 
     def __init__(self, dims, fuse_norms: bool, weights, kc, vc, page_table,
                  kv_len, tokens, stop_tok, inv_freq, k_scale=None,
-                 v_scale=None, noise=None, sampcfg=None):
+                 v_scale=None, noise=None, sampcfg=None, ring_state=None,
+                 x0=None, n_tasks: int = 0):
         B, d = dims.batch, dims.d
         dev = kv_len.device
         self.dims, self.fuse_norms, self.w = dims, fuse_norms, weights
@@ -65,10 +88,16 @@ class MegaState:
         self.kc, self.vc, self.page_table = kc, vc, page_table
         self.k_scale, self.v_scale = k_scale, v_scale
         self.noise, self.sampcfg = noise, sampcfg
+        self.ring_state, self.x0 = ring_state, x0
         self.kv_len = kv_len.long()
         self.stop_tok = stop_tok
         self.inv_freq = inv_freq.to(dev, torch.float32)
         self.step = 0
+        self.t = 0  # the task's position in the table
+        # The trace ring [NS, T, 8] (host int32) and its logical clock.
+        self.ring = (np.zeros((dims.nsteps, n_tasks, TRACE_INTS), np.int32)
+                     if dims.trace else None)
+        self.clk = 0
         f32 = dict(dtype=torch.float32, device=dev)
         self.x = torch.zeros((B, d), **f32)
         self.h = torch.zeros((B, d), **f32)
@@ -78,12 +107,27 @@ class MegaState:
         self.tok = tokens.long()
         NS, L, hkv, hd = dims.nsteps, dims.num_layers, dims.hkv_loc, \
             dims.head_dim
-        rows = (NS, L, B, hkv, hd)
-        self.logits = torch.zeros((B, dims.v_loc), **f32)
+        # Prefill writes one row per prompt position, [L, hkv, S, hd].
+        rows = (L, hkv, B, hd) if dims.prefill else (NS, L, B, hkv, hd)
+        self.logits = torch.zeros((1 if dims.prefill else B, dims.v_loc),
+                                  **f32)
         self.knew = torch.zeros(rows, dtype=self.mdtype, device=dev)
         self.vnew = torch.zeros(rows, dtype=self.mdtype, device=dev)
         self.toks = torch.zeros((NS, B), dtype=torch.int32, device=dev)
         self.stop_step = torch.full((B,), NS, dtype=torch.int32, device=dev)
+
+
+def _tick(st: MegaState) -> int:
+    """One read of the logical trace clock."""
+    st.clk += 1
+    return st.clk
+
+
+def _trace_mid(st: MegaState, value: int | None = None) -> None:
+    """Stamp the current task's ``mid`` column: a clock tick, or
+    ``value`` (RING_POLL's observed doorbell). A no-op untraced."""
+    if st.ring is not None:
+        st.ring[st.step, st.t, TR_MID] = _tick(st) if value is None else value
 
 
 def _rms(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
@@ -228,8 +272,59 @@ def fc2_body(st: MegaState, layer: int, arg0: int) -> None:
 
 @register_task(TaskType.ALLREDUCE)
 def allreduce_body(st: MegaState, layer: int, arg0: int) -> None:
-    """``x += psum(h)``; at tp=1 the psum is ``h`` itself."""
+    """``x += psum(h)``; at tp=1 the psum is ``h`` itself. The trace's
+    phase mark falls between the exchange and the fold, as in the JAX
+    body."""
+    _trace_mid(st)
     st.x = st.x + st.h
+
+
+@register_task(TaskType.RING_POLL)
+def ring_poll_body(st: MegaState, layer: int, arg0: int) -> None:
+    """Stamp the published work-ring doorbell (``ring_state[0]``) into
+    this task's trace record: the proof that the round ran against the
+    ring state the host published for it."""
+    if st.ring_state is not None:
+        _trace_mid(st, int(st.ring_state[0]))
+
+
+@register_task(TaskType.LOAD_X)
+def load_x_body(st: MegaState, layer: int, arg0: int) -> None:
+    """Prefill entry: ``x <- x0``, the embedded prompt rows (gathered by
+    the caller, as the JAX package gathers outside the kernel)."""
+    st.x = st.x0.to(torch.float32)
+
+
+@register_task(TaskType.ATTN_PREFILL)
+def attn_prefill_body(st: MegaState, layer: int, arg0: int) -> None:
+    """Causal self-attention over the S prompt rows: per kv head, K =
+    rope(headnorm(k)) at positions 0..S-1 in f32, written to ``knew``
+    (``vnew`` the V rows) in the model dtype; per q head one causal
+    softmax over the S rows with the f32 K and V, not the rounded
+    copies (the JAX body scores with its f32 ``kh``)."""
+    dims = st.dims
+    S, hq, hkv, hd = dims.batch, dims.hq_loc, dims.hkv_loc, dims.head_dim
+    g = hq // hkv
+    eps = dims.rms_eps
+    qkv = st.qkv
+    pos = torch.arange(S, device=qkv.device, dtype=torch.float32)
+    ang = pos[:, None] * st.inv_freq[None, :]  # [S, hd]: row r at pos r
+
+    def heads(c0, n):  # [n, S, hd]
+        return qkv[:, c0 * hd:(c0 + n) * hd].reshape(S, n, hd).transpose(
+            0, 1)
+
+    q = _rope(_headnorm(heads(0, hq), st.w.qn[layer], eps), ang) * hd ** -0.5
+    k = _rope(_headnorm(heads(hq, hkv), st.w.kn[layer], eps), ang)
+    v = heads(hq + hkv, hkv)
+    st.knew[layer] = k.to(st.knew.dtype)
+    st.vnew[layer] = v.to(st.vnew.dtype)
+    s = torch.einsum("hgqd,hkd->hgqk", q.reshape(hkv, g, S, hd), k)
+    idx = torch.arange(S, device=qkv.device)
+    s = torch.where(idx[None, :] <= idx[:, None], s, -1e30)
+    p = torch.exp(s - s.max(dim=-1, keepdim=True).values)
+    o = torch.einsum("hgqk,hkd->hgqd", p, v) / p.sum(dim=-1, keepdim=True)
+    st.ao = o.reshape(hq, S, hd).transpose(0, 1).reshape(S, hq * hd)
 
 
 def _multi_step_tail(st: MegaState, row: torch.Tensor) -> None:
@@ -263,8 +358,10 @@ def lm_head_body(st: MegaState, layer: int, arg0: int) -> None:
     the logits); ``filtered`` takes the winner over each row's keep-set
     once the whole row has landed."""
     dims = st.dims
-    st.logits = _gemm(st, _normed_input(st, layer, 2), st.w.lm_head,
-                      st.w.sc_lm)
+    x_in = _normed_input(st, layer, 2)
+    if dims.prefill:  # only the last real prompt row, kv_len[0] - 1
+        x_in = x_in.index_select(0, st.kv_len[:1] - 1)
+    st.logits = _gemm(st, x_in, st.w.lm_head, st.w.sc_lm)
     if takes_argmax(dims):
         v_real = min(dims.v_real or dims.v_loc, dims.v_loc)
         if dims.filtered:
@@ -285,7 +382,7 @@ def lm_head_body(st: MegaState, layer: int, arg0: int) -> None:
 def mega_decode_plain(dims, fuse_norms: bool, table: np.ndarray, weights,
                       kc, vc, page_table, kv_len, tokens, stop_tok=None,
                       inv_freq=None, k_scale=None, v_scale=None, noise=None,
-                      sampcfg=None):
+                      sampcfg=None, ring_state=None):
     """Walk the packed ``table [T, 8]`` for ``dims.nsteps`` steps over one
     :class:`MegaState`. Returns ``(logits [B, v_loc] f32 of the last
     step, knew, vnew [NS, L, B, hkv, hd] in the model dtype, toks [NS, B]
@@ -294,20 +391,62 @@ def mega_decode_plain(dims, fuse_norms: bool, table: np.ndarray, weights,
     [NS, B, v_loc]`` f32 (``sampled``) and ``sampcfg [B, 4]`` f32
     (``filtered``) steer the argmax; ``toks`` is zeros in single-step
     builds (the host takes the argmax of the logits) and ``stop_step``
-    all ``nsteps`` without ``eos``."""
-    from triton_distributed_tpu_torch.megakernel.registry import get_body
-
+    all ``nsteps`` without ``eos``. Under ``dims.ring`` the RING_POLL
+    task reads ``ring_state [4]`` int32 (``WorkRing.publish``); under
+    ``dims.trace`` the trace ring ``[NS, T, 8]`` int32 is returned
+    sixth."""
     if inv_freq is None:
         inv_freq = rope_inv_freq(dims.head_dim, dims.rope_theta,
                                  kv_len.device)
+    table = np.asarray(table)
     st = MegaState(dims, fuse_norms, weights, kc, vc, page_table, kv_len,
                    tokens, stop_tok, inv_freq, k_scale, v_scale, noise,
-                   sampcfg)
-    rows = [(TaskType(int(r[0])), int(r[1]), int(r[2]))
-            for r in np.asarray(table)]
-    bodies = [(get_body(t), layer, arg0) for t, layer, arg0 in rows]
-    for step in range(dims.nsteps):
+                   sampcfg, ring_state, n_tasks=len(table))
+    _walk(st, table)
+    out = (st.logits, st.knew, st.vnew, st.toks, st.stop_step)
+    if dims.trace:
+        out += (torch.from_numpy(st.ring).to(kv_len.device),)
+    return out
+
+
+def _walk(st: MegaState, table: np.ndarray) -> None:
+    """Run the table's bodies for ``dims.nsteps`` steps; under
+    ``dims.trace`` stamp each task's record: header columns, then begin,
+    the body (which may stamp mid), end and flag."""
+    from triton_distributed_tpu_torch.megakernel.registry import get_body
+
+    bodies = [(get_body(TaskType(int(r[0]))), int(r[1]), int(r[2]))
+              for r in table]
+    ring = st.ring
+    for step in range(st.dims.nsteps):
         st.step = step
-        for body, layer, arg0 in bodies:
+        for t, (body, layer, arg0) in enumerate(bodies):
+            st.t = t
+            if ring is None:
+                body(st, layer, arg0)
+                continue
+            rec = ring[step, t]
+            rec[TR_TASK_ID] = table[t, 4]
+            rec[TR_OPCODE] = table[t, 0]
+            rec[TR_LAYER] = layer
+            rec[TR_SLOT] = arg0
+            rec[TR_BEGIN] = _tick(st)
             body(st, layer, arg0)
-    return st.logits, st.knew, st.vnew, st.toks, st.stop_step
+            rec[TR_END] = _tick(st)
+            rec[TR_FLAG] = 1
+
+
+def mega_prefill_plain(dims, fuse_norms: bool, table: np.ndarray, weights,
+                       x0: torch.Tensor, true_len: torch.Tensor,
+                       inv_freq=None):
+    """Walk the prefill ``table`` once over the S prompt rows ``x0 [S, d]``
+    (the embedded prompt, model dtype). ``true_len`` ``[1]`` int32 is the
+    real prompt length. Returns ``(logits [1, v_loc] f32 of row
+    true_len - 1, knew, vnew [L, hkv, S, hd] in the model dtype)``."""
+    if inv_freq is None:
+        inv_freq = rope_inv_freq(dims.head_dim, dims.rope_theta, x0.device)
+    st = MegaState(dims, fuse_norms, weights, None, None, None, true_len,
+                   torch.zeros(1, dtype=torch.int32, device=x0.device), None,
+                   inv_freq, x0=x0)
+    _walk(st, np.asarray(table))
+    return st.logits, st.knew, st.vnew

@@ -1,10 +1,11 @@
 """ModelBuilder: whole-decode-step task graphs → one megakernel launch.
 
 Counterpart of ``triton_distributed_tpu/megakernel/model_builder.py``:
-the same ``make_*`` methods, the same ``build_decoder_graph`` (so the
-packed table equals the JAX package's, int for int), and ``compile``,
-which schedules, packs the table and binds it to the launch of
-``csrc/megakernel.cu`` (or to the plain version on the CPU).
+the same ``make_*`` methods, the same ``build_decoder_graph`` and
+``build_prefill_graph`` (so the packed tables equal the JAX package's,
+int for int), and ``compile``, which schedules, packs the table and
+binds it to the launch of ``csrc/megakernel.cu`` (or to the plain
+version on the CPU).
 """
 
 from __future__ import annotations
@@ -99,6 +100,12 @@ class ModelBuilder:
     def make_ring_poll(self, **kw) -> int:
         return self._add(TaskType.RING_POLL, **kw)
 
+    def make_attn_prefill(self, layer: int, **kw) -> int:
+        return self._add(TaskType.ATTN_PREFILL, layer, **kw)
+
+    def make_load_x(self, **kw) -> int:
+        return self._add(TaskType.LOAD_X, **kw)
+
     def build_decoder_graph(self) -> None:
         """The decode-step chain: EMBED, per layer [NORM] QKV_PROJ ATTN
         O_PROJ ALLREDUCE [NORM] FC1 FC2 ALLREDUCE, then [NORM] LM_HEAD.
@@ -106,8 +113,11 @@ class ModelBuilder:
         if self.dims.moe:
             raise NotImplementedError(
                 "MoE megakernel graphs are not ported yet (ROADMAP queue 2 "
-                "row 6(e))")
+                "row 6(f))")
         if self.dims.ring:
+            # A ring round observes the host work ring first: the
+            # doorbell it stamps proves which published ring state the
+            # round ran against.
             self.make_ring_poll()
         if self.dims.n_ranks > 1:
             self.make_barrier()
@@ -116,6 +126,27 @@ class ModelBuilder:
             self.make_norm(l, 0)  # no-op under cfg.fuse_norms
             self.make_qkv_proj(l)
             self.make_attn(l)
+            self.make_o_proj(l)
+            self.make_allreduce(l)
+            self.make_norm(l, 1)
+            self.make_fc1(l)
+            self.make_fc2(l)
+            self.make_allreduce(l)
+        self.make_norm(0, 2)
+        self.make_lm_head()
+
+    def build_prefill_graph(self) -> None:
+        """The prompt-prefill chain: the decode chain's per-layer pipeline
+        with causal self-attention over the S prompt rows (ATTN_PREFILL);
+        the embedded prompt arrives as an input (LOAD_X) and the LM head
+        projects only the last real row (``dims.prefill``)."""
+        if self.dims.n_ranks > 1:
+            self.make_barrier()
+        self.make_load_x()
+        for l in range(self.dims.num_layers):
+            self.make_norm(l, 0)  # no-op under cfg.fuse_norms
+            self.make_qkv_proj(l)
+            self.make_attn_prefill(l)
             self.make_o_proj(l)
             self.make_allreduce(l)
             self.make_norm(l, 1)

@@ -8,9 +8,13 @@ rows attended as the in-launch band; ``sampled`` takes the argmax over
 ``logits + noise``, ``filtered`` over each row's top-k/top-p keep-set),
 over a dense
 :class:`KVCache` or a full-width :class:`PagedKVCache`, with
-``valid_arg`` (kept-row counts; overshoot rows go to the trash page) and
+``valid_arg`` (kept-row counts; overshoot rows go to the trash page),
 ``eos`` (the first stop-token step per row, which clamps the kept rows:
-``keep = min(n_valid, stop_step + 1) * (1 - halt)``).
+``keep = min(n_valid, stop_step + 1) * (1 - halt)``), ``trace`` (the
+device task tracer's ring ``[1, NS, T, 8]`` as one more return) and
+``ring`` (a leading RING_POLL task observing the work-ring snapshot
+``ring_state [4]``); ``prefill`` runs one prompt through the prefill
+megakernel into dense cache entry 0.
 
 The kernel never writes the cache: the new K/V rows leave as ``knew /
 vnew [NS, L, B, hkv, hd]`` in the model dtype and the step appends them
@@ -22,8 +26,8 @@ tensors, nothing copied; under ``MegaConfig(wq8=True)`` it reads int8
 weights instead (:class:`Q8Params`, from ``quantized_params()`` or
 ``quantized_init()``).
 
-Refused with ``NotImplementedError``: the work ring, the task tracer,
-MoE models and the prefill megakernel (ROADMAP queue 2 row 6).
+Refused with ``NotImplementedError``: MoE models (ROADMAP queue 2 row
+6(f)) and multi-rank fixtures (row 6(e)).
 """
 
 from __future__ import annotations
@@ -107,17 +111,6 @@ def _quantize_shard(params: dict) -> Q8Params:
     )
 
 
-def _refuse(**modes) -> None:
-    msgs = {
-        "ring": "the resident work ring (ROADMAP queue 2 row 6(c))",
-        "trace": "the device task tracer (ROADMAP queue 2 row 6(c))",
-        "straggler_rank": "multi-rank fixtures (ROADMAP queue 2 row 6(e))",
-    }
-    for name, value in modes.items():
-        if value:
-            raise NotImplementedError(f"{msgs[name]} is not ported yet")
-
-
 class MegaQwen3:
     """Megakernel decode wrapper around a loaded :class:`Qwen3`."""
 
@@ -131,10 +124,13 @@ class MegaQwen3:
         if getattr(model.cfg, "num_experts", 0):
             raise NotImplementedError(
                 "MoE megakernel decode is not ported yet (ROADMAP queue 2 "
-                "row 6(e))")
+                "row 6(f))")
         self.model = model
         self.policy = policy
         self._jit: dict = {}
+        # The scheduled task order of each multi-step build, by its key:
+        # what validate_ring checks a traced launch's ring against.
+        self._orders: dict = {}
         self._q8: Q8Params | None = None
 
     def _dims(self, batch: int, s_max: int, page: int = 0,
@@ -156,7 +152,10 @@ class MegaQwen3:
 
     def _compile(self, dims: MegaDims):
         mb = ModelBuilder(dims, cfg=self.cfg, device=self.model.device)
-        mb.build_decoder_graph()
+        if dims.prefill:
+            mb.build_prefill_graph()
+        else:
+            mb.build_decoder_graph()
         return mb.compile(self.policy)
 
     def _step_params(self):
@@ -235,8 +234,8 @@ class MegaQwen3:
               trace: bool = False):
         """Build and schedule the task graph; returns ``(compiled, step,
         f)`` with ``f(params, tokens, cache) → (logits [B, V], cache)``
-        (``step`` is the same function: PyTorch has nothing to jit)."""
-        _refuse(trace=trace)
+        (``step`` is the same function: PyTorch has nothing to jit);
+        ``trace`` appends the trace ring ``[1, 1, T, 8]``."""
         dims = self._dims(batch, s_max, page, kv_quant, num_pages, trace)
         compiled = self._compile(dims)
         run = compiled.run
@@ -246,17 +245,17 @@ class MegaQwen3:
             tokens = _tokens(tokens, self.model.device)
             w = MegaWeights.from_params(params)
             if page:
-                logits, knew, vnew, _, _ = run(
-                    w, cache.k_pages, cache.v_pages, cache.page_table,
-                    cache.kv_len, tokens,
-                    **self._scale_args(cache, kv_quant))
-                cache = append(cache, knew[0], vnew[0])
+                outs = run(w, cache.k_pages, cache.v_pages, cache.page_table,
+                           cache.kv_len, tokens,
+                           **self._scale_args(cache, kv_quant))
+                cache = append(cache, outs[1][0], outs[2][0])
             else:
-                logits, knew, vnew, _, _ = run(
-                    w, cache.k, cache.v, None, cache.kv_len, tokens)
-                cache = _dense_append(cache, knew, vnew)
+                outs = run(w, cache.k, cache.v, None, cache.kv_len, tokens)
+                cache = _dense_append(cache, outs[1], outs[2])
             # Drop the vocab-pad logits (zero columns score 0).
-            return logits[:, :V], cache
+            if trace:  # the ring on a tp leading axis, as the JAX step's
+                return outs[0][:, :V], cache, outs[5][None]
+            return outs[0][:, :V], cache
 
         return compiled, f, f
 
@@ -299,9 +298,10 @@ class MegaQwen3:
                     filtered: bool = False, eos: bool = False,
                     ring: bool = False):
         """``nsteps`` decode steps in ONE kernel launch: ``f(params,
-        tokens, cache[, n_valid][, stop_tok, halt][, noise][, sampcfg]) →
-        (toks [nsteps, B], last-step logits [B, V], cache advanced
-        nsteps[, stop_step [B], halt [B]])``.
+        tokens, cache[, n_valid][, stop_tok, halt][, ring_state][, noise]
+        [, sampcfg]) → (toks [nsteps, B], last-step logits [B, V], cache
+        advanced nsteps[, stop_step [B], halt [B]][, ring [1, NS, T,
+        8]])``, the JAX argument and return order.
 
         Caller contract: ``kv_len[b] + nsteps <= s_max`` for every row.
         ``valid_arg`` (paged only) adds the kept-row counts ``n_valid
@@ -316,10 +316,20 @@ class MegaQwen3:
         returned logits clean. ``filtered`` (needs ``sampled``) adds
         ``sampcfg [B, 4]`` f32 rows ``[1/T, top-k window, top-p, enable]``
         and the winner is taken over each row's exact top-k/top-p
-        keep-set."""
-        _refuse(ring=ring, trace=trace, straggler_rank=straggler_rank)
-        if eos and not page:
-            raise ValueError("eos rides the paged serving path only")
+        keep-set. ``ring`` (paged only) adds the work-ring snapshot
+        ``ring_state [4]`` int32 (``WorkRing.publish``), whose doorbell
+        the graph's leading RING_POLL task stamps into its trace record;
+        ``trace`` appends the trace ring, one ``[task_id, opcode, layer,
+        arg0, begin, end, mid, flag]`` record per (step, task), on a
+        tp-leading axis (``multi_task_order`` gives the scheduled order
+        it is validated against)."""
+        if straggler_rank is not None:
+            raise NotImplementedError(
+                "multi-rank fixtures are not ported yet (ROADMAP queue 2 "
+                "row 6(e))")
+        if (eos or ring) and not page:
+            raise ValueError("eos/ring modes ride the paged serving path "
+                             "only")
         if eos and not valid_arg:
             raise ValueError("eos needs valid_arg: device retire clamps "
                              "the per-slot kept-row counts")
@@ -328,24 +338,33 @@ class MegaQwen3:
         V = self.model.cfg.vocab_size
         base = self._dims(batch, s_max, page, kv_quant, num_pages, trace)
         dims = dataclasses.replace(base, nsteps=nsteps, v_real=V, eos=eos,
-                                   sampled=sampled, filtered=filtered)
-        run = self._compile(dims).run
+                                   sampled=sampled, filtered=filtered,
+                                   ring=ring)
+        compiled = self._compile(dims)
+        run = compiled.run
+        self._last_multi_order = compiled.order
         dev = self.model.device
 
         def f(params, tokens, cache, *extra):
+            # No host sync on this path (the resident engine issues
+            # launches through it with the previous one in flight):
+            # operands arrive on the device or are copied there.
             tokens = _tokens(tokens, dev)
             w = MegaWeights.from_params(params)
             ex = list(extra)
             n_valid = _ints(ex.pop(0), dev) if valid_arg else None
             stop_tok = _ints(ex.pop(0), dev) if eos else None
             halt = _ints(ex.pop(0), dev) if eos else None
+            ring_state = _ints(ex.pop(0), dev) if ring else None
             samp = {"noise": ex.pop(0) if sampled else None,
                     "sampcfg": ex.pop(0) if filtered else None}
             if page:
-                logits, knew, vnew, toks, ss = run(
+                outs = run(
                     w, cache.k_pages, cache.v_pages, cache.page_table,
                     cache.kv_len, tokens, stop_tok,
-                    **self._scale_args(cache, kv_quant), **samp)
+                    **self._scale_args(cache, kv_quant), **samp,
+                    ring_state=ring_state)
+                logits, knew, vnew, toks, ss = outs[:5]
                 # [NS, L, B, hkv, hd] → [L, B, hkv, NS, hd]: one scatter
                 # lands every step's rows (an int8 pool takes them step
                 # by step, quantizing, in append_n).
@@ -355,14 +374,21 @@ class MegaQwen3:
                     keep = torch.minimum(n_valid, ss + 1) * (1 - halt)
                     halt_out = torch.maximum(
                         halt, (ss < nsteps).to(torch.int32))
-                    return (toks, logits[:, :V],
-                            append_n(cache, k_rows, v_rows, keep), ss,
-                            halt_out)
-                return (toks, logits[:, :V],
-                        append_n(cache, k_rows, v_rows, n_valid))
-            logits, knew, vnew, toks, _ = run(
-                w, cache.k, cache.v, None, cache.kv_len, tokens, **samp)
-            return toks, logits[:, :V], _dense_append(cache, knew, vnew)
+                    ret = (toks, logits[:, :V],
+                           append_n(cache, k_rows, v_rows, keep), ss,
+                           halt_out)
+                else:
+                    ret = (toks, logits[:, :V],
+                           append_n(cache, k_rows, v_rows, n_valid))
+            else:
+                outs = run(w, cache.k, cache.v, None, cache.kv_len, tokens,
+                           **samp)
+                logits, knew, vnew, toks = outs[:4]
+                ret = (toks, logits[:, :V],
+                       _dense_append(cache, knew, vnew))
+            if trace:  # the ring on a tp leading axis, as the JAX step's
+                ret += (outs[5][None],)
+            return ret
 
         return f
 
@@ -389,13 +415,64 @@ class MegaQwen3:
                 batch, s_max, nsteps, sampled, page, kv_quant=kv_quant,
                 num_pages=num_pages, valid_arg=valid_arg, trace=trace,
                 filtered=filtered, eos=eos, ring=ring)
+            self._orders[key] = self._last_multi_order
         return self._jit[key]
 
-    # -- refused ----------------------------------------------------------
-    def prefill(self, tokens, cache, *, true_len=None):
-        raise NotImplementedError(
-            "the prefill megakernel (_build_prefill) is not ported yet "
-            "(ROADMAP queue 2 row 6(d)); the engines prefill with 'xla'")
+    def multi_task_order(self, *args, **kw):
+        """The scheduled task order of a multi-step build (the arguments of
+        :meth:`decode_multi_fn`; built on first use): ``validate_ring``
+        checks every dependency edge of it against a traced ring."""
+        self.decode_multi_fn(*args, **kw)
+        return self._orders[self._multi_key(*args, **kw)]
+
+    # -- prefill ----------------------------------------------------------
+    def _build_prefill(self, s: int):
+        """The prefill megakernel for an S-token prompt: ``f(params,
+        tokens [S], true_len [1] int32, cache) → (logits [V] of row
+        true_len - 1, cache)``. The embedding gather runs in PyTorch
+        (the JAX package gathers outside the kernel too); the kernel's
+        K/V rows ``[L, hkv, S, hd]`` land in dense cache entry 0 at
+        positions ``[0, S)`` (in place) and ``kv_len[0] = true_len``."""
+        dims = dataclasses.replace(self._dims(s, s), prefill=True)
+        run = self._compile(dims).run
+        V = self.model.cfg.vocab_size
+
+        def f(params, tokens, true_len, cache):
+            w = MegaWeights.from_params(params)
+            x0 = w.embed.index_select(0, tokens.long())  # [S, d]
+            logits, knew, vnew = run.prefill(w, x0, true_len)
+            cache.k[:, 0, :, :s] = knew.to(cache.k.dtype)
+            cache.v[:, 0, :, :s] = vnew.to(cache.v.dtype)
+            kv_len = cache.kv_len.clone()
+            kv_len[0] = true_len[0]
+            return logits[0, :V], KVCache(k=cache.k, v=cache.v,
+                                          kv_len=kv_len)
+
+        return f
+
+    def prefill(self, tokens, cache: KVCache, *, true_len=None):
+        """Prefill one prompt (``tokens [S]``) through the prefill
+        megakernel into dense cache entry 0: returns ``(logits [V] f32
+        of the last real token, cache)``, the contract of the JAX
+        ``MegaQwen3.prefill``. ``true_len`` (default S) marks right
+        padding; under ``wq8`` the kernel reads the int8 weights."""
+        dev = self.model.device
+        tokens = torch.as_tensor(tokens).to(dev, torch.int32)
+        s = int(tokens.shape[0])
+        if true_len is None:
+            true_len = s
+        if not 1 <= int(true_len) <= s:
+            raise ValueError(f"true_len {true_len} outside [1, {s}]")
+        if int(cache.k.shape[3]) < s:
+            raise ValueError(f"the cache holds {cache.k.shape[3]} positions, "
+                             f"the prompt {s}")
+        key = ("prefill", s)
+        if key not in self._jit:
+            self._jit[key] = self._build_prefill(s)
+        return self._jit[key](
+            self._step_params(), tokens,
+            torch.tensor([int(true_len)], dtype=torch.int32, device=dev),
+            cache)
 
 
 def _ints(a, dev) -> torch.Tensor:

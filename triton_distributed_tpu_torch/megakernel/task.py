@@ -25,8 +25,10 @@ import numpy as np
 # (rest reserved). task_id is stamped only for traced tables.
 HDR_INTS = 8
 
-# Device trace-ring record layout (the JAX package's task tracer; the
-# port keeps the layout, its kernel writes no ring yet).
+# Device trace-ring record layout (``obs/kernel_trace.py`` decodes it):
+# TRACE_INTS int32 per (step, task) record. ``mid`` is an optional
+# intra-task stamp (ALLREDUCE's phase mark; RING_POLL's observed
+# doorbell); ``flag`` marks a written record, so a zero flag is a gap.
 TRACE_INTS = 8
 TR_TASK_ID = 0   # builder task id (header slot 4)
 TR_OPCODE = 1    # TaskType value
@@ -115,7 +117,9 @@ class TaskIDManager:
 
 def pack_table(tasks: list[Task], trace: bool = False) -> np.ndarray:
     """Flatten scheduled tasks into the ``[T, HDR_INTS]`` int32 table the
-    kernel walks."""
+    kernel walks. ``trace`` stamps each header's id column (slot 4), which
+    the device task tracer copies into its records; untraced, columns 4
+    and up stay zero."""
     if not tasks:
         raise ValueError("empty task list")
     return np.asarray([t.header(trace) for t in tasks], np.int32)

@@ -47,7 +47,16 @@ smallest power-of-two batch bucket that covers the active slots
 ``n_valid`` rows (the rest go to the trash page) and, with ``eos_id``,
 stops at its first stop token, found in the kernel. A round that cannot
 launch (a slot within ``ns`` of ``max_length``, or at ``ns = 1`` a slot
-with top-k/top-p) takes a single-step launch of the same kernel. Over an
+with top-k/top-p) takes a single-step launch of the same kernel.
+``resident=True`` pipelines the launches at depth 1: the next launch is
+issued off the in-flight one's device outputs (its last token row, its
+halt bits, its cache) before the host drains the in-flight one, so the
+host syncs only to fetch emitted tokens; admit and retire items go
+through a host work ring (``megakernel/ring.WorkRing``) whose doorbell
+each launch's RING_POLL task stamps. Every site that mutates slot state
+drains the pipeline first. ``kernel_trace=True`` makes every ``ns``-step
+launch carry the device task tracer's ring, folded into the metrics and
+kept for ``kernel_trace_launches()`` / ``kernel_trace_summary()``. Over an
 int8 pool (``kv_dtype="int8"``) the kernel reads the codes through the
 pool-wide per-page scales (a bucket's
 compacted table reads them unchanged) and the append quantizes the
@@ -68,10 +77,9 @@ step of the slot runs a per-slot forward that merges the resident and
 the cold-window attention partials with ``lse_combine``; the batched
 decode sees the slot as empty and its logits are spliced over.
 
-Not ported, and refused when asked for: resident decode, slot
-migration/snapshots, the KV fabric, context-parallel prefill, the device
-task tracer (ROADMAP queue 1). Cancellation, request timelines and fault
-seams are not ported either.
+Not ported, and refused when asked for: slot migration/snapshots, the
+KV fabric, context-parallel prefill (ROADMAP queue 1). Cancellation,
+request timelines and fault seams are not ported either.
 """
 
 from __future__ import annotations
@@ -86,6 +94,7 @@ from collections import Counter, deque
 import numpy as np
 import torch
 
+from triton_distributed_tpu_torch.megakernel import ring as work_ring
 from triton_distributed_tpu_torch.models import kv_tier, sampling
 from triton_distributed_tpu_torch.models.engine import (
     MegaDispatch,
@@ -261,7 +270,18 @@ class Request:
 
 # Knobs of the JAX ContinuousEngine this slice does not port: each
 # raises NotImplementedError when set (ROADMAP queues 1 and 2).
-_UNPORTED = ("resident", "kernel_trace", "snapshot_every", "fabric")
+_UNPORTED = ("snapshot_every", "fabric")
+
+
+def _h2d(a: np.ndarray, dev: torch.device) -> torch.Tensor:
+    """A host array on ``dev`` without a host sync: a CUDA copy goes
+    through pinned memory, non-blocking (a copy from pageable memory
+    synchronizes the stream, and so waits for a launch in flight)."""
+    t = torch.from_numpy(np.array(a))
+    if dev.type == "cuda":
+        return t.pin_memory().to(dev, non_blocking=True)
+    return t
+
 
 # Cold-page tier keys of one sharded admission are "<uid>:<page-index>",
 # so a slot re-admitted into the same engine (or a second sharded slot)
@@ -306,6 +326,24 @@ class _MegaPlan:
     sampcfg: np.ndarray | None = None  # [B, 4] when filtered
 
 
+@dataclasses.dataclass
+class _MegaLaunch:
+    """An issued, possibly still running, ``ns``-step launch: what the
+    resident pipeline holds between issue and drain. ``toks``, ``ss``,
+    ``halt``, ``cache`` and ``ring`` are device outputs nothing has
+    synced on; ``cache`` is the launch's (bucket-shaped) output cache,
+    which a chained launch reads next."""
+
+    plan: _MegaPlan
+    toks: torch.Tensor          # [NS, B]
+    cache: object               # PagedKVCache
+    ss: torch.Tensor | None     # [B] first stop-token step (NS = never)
+    halt: torch.Tensor | None   # [B] halt bits chained into the next launch
+    ring: torch.Tensor | None   # [1, NS, T, 8] (kernel_trace only)
+    t0: float
+    doorbell: int | None
+
+
 class ContinuousEngine(MegaDispatch):
     """Admission/eviction serving loop over the paged pool.
 
@@ -348,6 +386,8 @@ class ContinuousEngine(MegaDispatch):
         mega_cfg=None,
         ns: int = 8,
         mega_buckets: bool = True,
+        resident: bool = False,
+        kernel_trace: bool = False,
         device=None,
         **unported,
     ):
@@ -366,9 +406,25 @@ class ContinuousEngine(MegaDispatch):
             raise ValueError(
                 "speculative=K does not compose with mode='mega': a launch "
                 "advances every slot ns tokens in lockstep")
+        if resident and mode != "mega":
+            raise ValueError(
+                "resident=True requires mode='mega' (the resident loop "
+                "pipelines megakernel ns-step launches through the host "
+                "work ring; the xla decode path has no device loop to keep "
+                "resident)")
         self.model = model
         self.mode = mode
         self.mega_cfg = mega_cfg
+        self.resident = bool(resident)
+        # The resident session's work ring and its occupancy gauge, and
+        # the in-flight launch of the depth-1 pipeline.
+        self._ring = work_ring.WorkRing() if resident else None
+        self._ring_gauge = obs_metrics.gauge(
+            "tdt_mega_ring_occupancy",
+            "Host work-ring occupancy at the last doorbell publish.",
+        ) if resident else None
+        self._pend: _MegaLaunch | None = None
+        self._init_kernel_trace(kernel_trace, mode)
         # Default sampling knobs (a Request may override each) and the
         # engine's generator: request seeds and the mega launches' noise.
         self.temperature = float(temperature)
@@ -544,9 +600,7 @@ class ContinuousEngine(MegaDispatch):
             table[slot] = 0
             kv_len[slot] = 0
         self.cache = dataclasses.replace(
-            self.cache,
-            page_table=torch.from_numpy(table).to(dev),
-            kv_len=torch.from_numpy(kv_len).to(dev),
+            self.cache, page_table=_h2d(table, dev), kv_len=_h2d(kv_len, dev),
         )
 
     def _admit(self, req: Request, slot: int, m: PrefixMatch | None = None):
@@ -638,6 +692,23 @@ class ContinuousEngine(MegaDispatch):
         self._bump("prefill_tokens", len(prompt) - start)
         self._bump("prefill_chunks", chunks)
         return logits
+
+    def _ring_push(self, kind: int, slot: int, arg: int = 0) -> None:
+        """Queue one work item (``ring.RING_ADMIT`` or ``RING_RETIRE``) for
+        the resident device loop (no-op without a ring); the next
+        launch's doorbell publish covers it."""
+        if self._ring is None:
+            return
+        self._ring.push(kind, slot, arg)
+        self._bump("mega_ring_items")
+
+    def _flush_ring(self) -> None:
+        """Drain the work ring host-side (no doorbell): for rounds no
+        device loop observes (single-step fallbacks, the end of a run)."""
+        if self._ring is not None:
+            flushed = self._ring.flush()
+            if flushed:
+                self._bump("mega_ring_host_drains", len(flushed))
 
     # -- sharded long-context slots ---------------------------------------
     #
@@ -909,6 +980,10 @@ class ContinuousEngine(MegaDispatch):
         """One batched decode of every active slot; appends each slot's
         token (greedy, or sampled under its knobs) and evicts finished
         requests. Returns whether slot state changed."""
+        # A single-step round applies slot state on the host: no device
+        # loop will observe the ring's queued items, so they drain here,
+        # or a workload that keeps falling back would fill the ring.
+        self._flush_ring()
         active = np.asarray([r is not None for r in self._slots], np.int32)
         if not active.any():
             return False
@@ -970,6 +1045,7 @@ class ContinuousEngine(MegaDispatch):
     def _evict(self, req: Request) -> None:
         slot = req.slot
         obs_events.emit("evict", slot=slot, tokens_out=len(req.out))
+        self._ring_push(work_ring.RING_RETIRE, slot, len(req.out))
         if slot in self._longctx:
             # A sharded slot's resident pages hold a LOCAL window (its
             # cold prefix lives in the tier): useless as a prefix chain,
@@ -1015,6 +1091,7 @@ class ContinuousEngine(MegaDispatch):
         Nothing is donated to the tree: a failed request's KV is
         suspect."""
         slot = req.slot
+        self._ring_push(work_ring.RING_RETIRE, slot, len(req.out))
         self._drop_longctx(slot)
         truncate_pages(
             self.pool, req.pages, 0, self.page_size,
@@ -1056,6 +1133,9 @@ class ContinuousEngine(MegaDispatch):
             return fn()
         except Exception as e:  # noqa: BLE001 — isolation boundary
             self._bump("decode_faults")
+            # A fault mid-round may leave a resident launch in flight:
+            # wait for it before the teardown below reuses its state.
+            self._abort_pend()
             slot = getattr(e, "slot", None)
             if (isinstance(slot, int) and 0 <= slot < self.max_batch
                     and self._slots[slot] is not None):
@@ -1070,6 +1150,12 @@ class ContinuousEngine(MegaDispatch):
     def _expire_deadlines(self) -> bool:
         """Fail every active request whose wall-clock deadline passed."""
         now = time.monotonic()
+        if self._pend is not None and any(
+                r is not None and r.deadline_at is not None
+                and now > r.deadline_at for r in self._slots):
+            # The expiry tears a slot down mid-pipeline: drain first (the
+            # drain may even finish the request).
+            self._drain_pend()
         changed = False
         for req in list(self._slots):
             if req is None or req.deadline_at is None:
@@ -1279,9 +1365,9 @@ class ContinuousEngine(MegaDispatch):
         when the round cannot launch; else one batched decode step.
         Returns whether slot state changed."""
         if self.mode == "mega":
-            plan = self._mega_plan()
-            if plan is not None:
-                return self._drain_launch(*self._launch_mega(plan))
+            changed = self._mega_round()
+            if changed is not None:
+                return changed
             self._bump("mega_fallback_steps")
             return self._decode_once()
         if not self.speculative:
@@ -1352,48 +1438,127 @@ class ContinuousEngine(MegaDispatch):
                          filtered=filtered, temps=temps,
                          sampcfg=sampcfg if filtered else None)
 
-    def _launch_mega(self, plan: _MegaPlan):
-        """One ``ns``-step launch for ``plan``, with the launch-time host
-        bookkeeping (projected kv_len, counters). A bucket launch runs on
-        compacted table/kv_len views of the same pools; filler rows keep
-        a zeroed table row (the trash page) and kv_len 0. Returns
-        ``(plan, toks [NS, B], stop_step [B] or None)``, on the device."""
+    def _mega_round(self):
+        """One ``ns``-step launch, pipelined behind the in-flight resident
+        launch when there is one, or None when the round takes the
+        single-step fallback. With a launch in flight, the next is issued
+        off its device outputs first and parked in ``_pend`` before the
+        in-flight one drains, so a drain that raises reaches the step
+        guard with the new launch still owned (``_abort_pend`` waits for
+        it before teardown frees pages it reads)."""
+        if self._pend is not None:
+            pend, self._pend = self._pend, None
+            nxt = self._issue_resident(pend)
+            if nxt is not None:
+                self._pend = nxt
+                self._bump("mega_resident_rounds")
+            return self._drain_launch(pend)
+        plan = self._mega_plan()
+        if plan is None:
+            return None
+        pend = self._launch_mega(plan)
+        if self.resident:
+            # Its tokens land at the next drain; the round made progress.
+            self._pend = pend
+            return True
+        return self._drain_launch(pend)
+
+    def _issue_resident(self, chain: _MegaLaunch):
+        """The next resident launch, chained off ``chain``'s device outputs
+        with no host sync, or None when no launch composes (the pipeline
+        breaks; the next round replans from host truth). The slot set is
+        ``chain``'s: every slot-state mutation site drains first, so only
+        retires at the coming drain differ, and those rows ride along with
+        ``n_valid`` 0 (their writes go to the trash page, their tokens are
+        dropped)."""
+        n_valid = np.zeros(chain.plan.B, np.int32)
+        for i, slot in enumerate(chain.plan.rows):
+            req = self._slots[slot] if slot >= 0 else None
+            if req is None:
+                continue
+            # The pending launch emits at most its n_valid tokens for this
+            # row first; an eos inside it retires the row at its drain,
+            # and the chained halt bits already stop this launch's writes.
+            rem = req.gen_len - len(req.out) - int(chain.plan.n_valid[i])
+            n_valid[i] = min(max(rem, 0), self.NS)
+        if not n_valid.any():
+            return None
+        # Host _kv_len is already projected past the pending launch.
+        active = np.asarray([r is not None for r in self._slots], np.int32)
+        if int((self._kv_len * active).max()) + self.NS > self.max_length:
+            return None
+        return self._launch_mega(dataclasses.replace(chain.plan,
+                                                     n_valid=n_valid),
+                                 chain=chain)
+
+    def _launch_mega(self, plan: _MegaPlan,
+                     chain: _MegaLaunch | None = None) -> _MegaLaunch:
+        """Issue one ``ns``-step launch for ``plan`` with the launch-time
+        host bookkeeping (projected kv_len, counters, the doorbell). A
+        bucket launch runs on compacted table/kv_len views of the same
+        pools; filler rows keep a zeroed table row (the trash page) and
+        kv_len 0. A chained launch (``chain``) takes its tokens, halt bits
+        and cache from the pending launch's device outputs. Nothing here
+        waits for the device: host arrays reach it through pinned,
+        non-blocking copies."""
         NS = self.NS
         dev = self.model.device
-        rows = np.asarray([max(s, 0) for s in plan.rows], np.int64)
-        tok = torch.from_numpy(self._tok[rows].copy())
-        cache_in = self.cache
-        if plan.compact:
-            tbl = self._table[rows].copy()
-            kvl = self._kv_len[rows].copy()
-            for i, slot in enumerate(plan.rows):
-                if slot < 0 or self._slots[slot] is None:
-                    tbl[i] = 0
-                    kvl[i] = 0
-            cache_in = dataclasses.replace(
-                self.cache, page_table=torch.from_numpy(tbl).to(dev),
-                kv_len=torch.from_numpy(kvl).to(dev))
-        extra = [plan.n_valid]
-        if plan.eos:
-            extra += [plan.stop_tok, np.zeros(plan.B, np.int32)]
         mega = self._mega_model()
+        if chain is not None:
+            tok = chain.toks[NS - 1]
+            cache_in = chain.cache
+            halt_in = chain.halt
+        else:
+            rows = np.asarray([max(s, 0) for s in plan.rows], np.int64)
+            tok = _h2d(self._tok[rows], dev)
+            cache_in = self.cache
+            if plan.compact:
+                tbl = self._table[rows].copy()
+                kvl = self._kv_len[rows].copy()
+                for i, slot in enumerate(plan.rows):
+                    if slot < 0 or self._slots[slot] is None:
+                        tbl[i] = 0
+                        kvl[i] = 0
+                cache_in = dataclasses.replace(
+                    self.cache, page_table=_h2d(tbl, dev),
+                    kv_len=_h2d(kvl, dev))
+            halt_in = (torch.zeros(plan.B, dtype=torch.int32, device=dev)
+                       if plan.eos else None)
+        extra = [_h2d(plan.n_valid, dev)]
+        if plan.eos:
+            extra += [_h2d(plan.stop_tok, dev), halt_in]
+        doorbell = None
+        if self._ring is not None:
+            # One doorbell per launch; what was pushed before it is this
+            # launch's to observe.
+            state = self._ring.publish()
+            doorbell = int(state[0])
+            self._ring_gauge.set(int(state[3]))
+            self._bump("mega_ring_doorbells")
+            self._ring.consume()
+            extra.append(_h2d(state, dev))
         if plan.sampled:
             # One draw per launch from the engine's generator (the JAX
             # engine draws it from the engine key too), scaled per row.
             v_pad = mega._dims(plan.B, self.max_length).v_loc
-            temps = torch.from_numpy(plan.temps).to(dev)
+            temps = _h2d(plan.temps, dev)
             extra.append(sampling.gumbel((NS, plan.B, v_pad), self._gen, dev)
                          * temps[None, :, None])
         if plan.filtered:
-            extra.append(torch.from_numpy(plan.sampcfg).to(dev))
+            extra.append(_h2d(plan.sampcfg, dev))
         fn = mega.decode_multi_fn(
             plan.B, self.max_length, NS, sampled=plan.sampled,
             page=self.page_size, kv_quant=self.kv_dtype is not None,
             num_pages=int(self.cache.k_pages.shape[1]), valid_arg=True,
-            filtered=plan.filtered, eos=plan.eos)
+            trace=self.kernel_trace, filtered=plan.filtered, eos=plan.eos,
+            ring=self._ring is not None)
+        t0 = time.monotonic()
         outs = fn(mega._step_params(), tok, cache_in, *extra)
         toks, new_cache = outs[0], outs[2]
-        ss = outs[3] if plan.eos else None
+        ss = halt = None
+        if plan.eos:
+            ss, halt = outs[3], outs[4]
+        ring = outs[-1] if self.kernel_trace else None
         adv = np.zeros(self.max_batch, np.int32)
         for i, slot in enumerate(plan.rows):
             if (slot >= 0 and self._slots[slot] is not None
@@ -1405,7 +1570,7 @@ class ContinuousEngine(MegaDispatch):
         # slot's length never drifts past the table.
         self.cache = dataclasses.replace(
             new_cache, page_table=self.cache.page_table,
-            kv_len=torch.from_numpy(self._kv_len.copy()).to(dev))
+            kv_len=_h2d(self._kv_len, dev))
         if plan.compact:
             self._bump("mega_bucket_launches")
         if plan.filtered:
@@ -1414,14 +1579,44 @@ class ContinuousEngine(MegaDispatch):
         self._bump("mega_launches")
         obs_events.emit("mega:launch", ns=NS, active=int(sum(
             s >= 0 and self._slots[s] is not None for s in plan.rows)))
-        return plan, toks, ss
+        return _MegaLaunch(plan=plan, toks=toks, cache=new_cache, ss=ss,
+                           halt=halt, ring=ring, t0=t0, doorbell=doorbell)
 
-    def _drain_launch(self, plan: _MegaPlan, toks, ss) -> bool:
+    def _drain_pend(self) -> bool:
+        """The resident pipeline's sync point: drain the in-flight launch
+        (if any). Every site that mutates slot state an in-flight launch
+        reads (admission, deadline expiry, the end of a run) calls it
+        first."""
+        pend, self._pend = self._pend, None
+        if pend is None:
+            return False
+        return self._drain_launch(pend)
+
+    def _abort_pend(self) -> None:
+        """Teardown-path drain: wait for (then drop) the in-flight launch,
+        so no exit path leaves a launch reading state the teardown is
+        about to reuse."""
+        pend, self._pend = self._pend, None
+        if pend is None or not pend.toks.is_cuda:
+            return
+        try:
+            torch.cuda.current_stream(pend.toks.device).synchronize()
+        except RuntimeError:  # a failed launch: teardown goes on
+            pass
+
+    def _drain_launch(self, pend: _MegaLaunch) -> bool:
         """Fetch one launch's tokens and emit/retire through the normal
         paths. A device stop-token hit (``stop_step < n_valid``) ends the
-        row's stream at the stop token."""
-        toks_np = toks.cpu().numpy()  # [NS, B]: the host sync
-        ss_np = ss.cpu().numpy() if ss is not None else None
+        row's stream at the stop token. A traced launch's ring is folded
+        into the tracer's telemetry here."""
+        plan = pend.plan
+        toks_np = pend.toks.cpu().numpy()  # [NS, B]: the host sync
+        ss_np = pend.ss.cpu().numpy() if pend.ss is not None else None
+        if pend.ring is not None:
+            self._record_kernel_trace(pend.ring, pend.t0,
+                                      time.monotonic() - pend.t0, self.NS,
+                                      doorbell=pend.doorbell)
+            self._bump("mega_trace_launches")
         col = {slot: i for i, slot in enumerate(plan.rows) if slot >= 0}
         if ss_np is not None:
             for slot, i in col.items():
@@ -1580,6 +1775,11 @@ class ContinuousEngine(MegaDispatch):
     def _try_admit(self, queue: deque) -> bool:
         """Admit queue heads into free slots while pages allow. A failed
         admission fails ONLY its request and the scan continues."""
+        if queue and self._pend is not None:
+            # Admission mutates slot, table and pool state the in-flight
+            # resident launch still reads: the pipeline drains first. An
+            # empty queue mutates nothing and keeps the pipeline going.
+            self._drain_pend()
         admitted = False
         progress = True
         while progress:  # re-scan: a first-token eviction frees its
@@ -1638,6 +1838,7 @@ class ContinuousEngine(MegaDispatch):
                     self._admit_failure(req, m, e)
                     progress = True
                     break
+                self._ring_push(work_ring.RING_ADMIT, slot, len(req.prompt))
                 if self.speculative and req.spec is None:
                     req.spec = SpecState(
                         self.speculative,
@@ -1742,6 +1943,12 @@ class ContinuousEngine(MegaDispatch):
                     self._try_admit(queue)
                     self._sync_tables()
         finally:
+            # Wait for any in-flight resident launch before teardown
+            # reuses the state it reads; the session's last ring items
+            # (the final retires) have no doorbell to ride: drain them,
+            # so the ring is empty at rest.
+            self._abort_pend()
+            self._flush_ring()
             # Crash-safe teardown: no exit path leaves a slot holding
             # pages, a dangling tree pin, or a stale device table.
             leftover = [r for r in self._slots if r is not None]

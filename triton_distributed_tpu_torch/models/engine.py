@@ -21,6 +21,9 @@ kernel, over a dense cache, a paged pool or an int8 pool;
 prefill runs the ``xla`` path, as in the JAX package. With
 ``mega_cfg=MegaConfig(wq8=True)`` decode reads int8 weights
 (``MegaQwen3.quantized_params``) and prefill the model's own.
+``kernel_trace=True`` makes the ``ns``-step launches carry the device
+task tracer's ring (``MegaDispatch``: ``kernel_trace_launches()``,
+``kernel_trace_summary()``).
 
 Not ported, and refused when asked for: ``mode="pallas"``, ``profile``
 (ROADMAP queue 1).
@@ -31,6 +34,7 @@ from __future__ import annotations
 import dataclasses
 import time
 import weakref
+from collections import deque
 
 import numpy as np
 import torch
@@ -126,20 +130,70 @@ def prefill_suffix_chunks(
 
 class MegaDispatch:
     """Megakernel-mode dispatch shared by both engines: the lazy
-    :class:`MegaQwen3`, the ``xla`` prefill under ``mode='mega'`` and the
-    single-step decode. Expects ``self.model``, ``self.mode`` and
-    ``self.mega_cfg`` (None → the JAX engines' serving default, fused
-    norms; its TPU staging flags do not change the CUDA kernel). With a
-    card, every mega-mode decode step is a launch of the megakernel;
-    nothing falls back to ``mode='xla'``."""
+    :class:`MegaQwen3`, the ``xla`` prefill under ``mode='mega'``, the
+    single-step decode and the device task tracer's host plumbing.
+    Expects ``self.model``, ``self.mode`` and ``self.mega_cfg`` (None →
+    the JAX engines' serving default, fused norms; its TPU staging flags
+    do not change the CUDA kernel). With a card, every mega-mode decode
+    step is a launch of the megakernel; nothing falls back to
+    ``mode='xla'``."""
 
     _mega = None
     mega_cfg = None
 
+    # -- device task tracer ----------------------------------------------
+
+    def _init_kernel_trace(self, kernel_trace: bool, mode: str) -> None:
+        """Ctor-time tracer state: the knob (the tracer rides the
+        megakernel's trace ring; the xla path has none) and a bounded
+        ledger of recent traced launches."""
+        if kernel_trace and mode != "mega":
+            raise ValueError(
+                "kernel_trace=True requires mode='mega' (the tracer rides "
+                "the megakernel's trace-ring operand; the xla decode path "
+                "has no device ring)")
+        self.kernel_trace = bool(kernel_trace)
+        self._kernel_traces: deque = deque(maxlen=8)
+        self._trace_launch_n = 0
+
+    def _record_kernel_trace(self, ring, t0: float, wall_s: float,
+                             nsteps: int, doorbell: int | None = None
+                             ) -> None:
+        """Fold one launch's ring into the tracer's metrics
+        (``observe_launch``: strict gap check, per-opcode task seconds,
+        overlap gauges) and keep the launch, records decoding lazily.
+        ``doorbell`` is the work-ring doorbell published for a resident
+        round: ``validate_ring`` checks RING_POLL observed exactly it."""
+        from triton_distributed_tpu_torch.obs import kernel_trace as _kt
+
+        self._trace_launch_n += 1
+        launch = _kt.KernelTraceLaunch(
+            wall_s=wall_s, t0=t0, nsteps=nsteps, launch=self._trace_launch_n,
+            ring=ring.cpu().numpy(), doorbell=doorbell,
+        )
+        self._kernel_traces.append(launch)
+        _kt.observe_launch(launch)
+
+    def kernel_trace_launches(self) -> list:
+        """Recent traced launches (``KernelTraceLaunch``), oldest first."""
+        return list(self._kernel_traces)
+
+    def kernel_trace_summary(self) -> dict:
+        """JSON-ready tracer state: the knob, the launch count (engine
+        lifetime) and the recent launches' per-opcode tick totals and
+        overlap reports."""
+        return {
+            "enabled": self.kernel_trace,
+            "mode": self.mode,
+            "launches": self._trace_launch_n,
+            "recent": [ln.summary() for ln in self._kernel_traces],
+        }
+
     @property
     def _prefill_mode(self) -> str:
-        # The mega prefill graph is not ported: prefill runs the model's
-        # own path, as the JAX engines do under mode='mega'.
+        # The prefill megakernel takes one sequence (MegaQwen3.prefill):
+        # the engines prefill through the model's own path, as the JAX
+        # engines do under mode='mega'.
         return "xla" if self.mode == "mega" else self.mode
 
     def _mega_model(self):
@@ -198,9 +252,11 @@ class Engine(MegaDispatch):
         spec_width: int = 4,
         kv_dtype: str | None = None,
         mega_cfg=None,
+        kernel_trace: bool = False,
         device=None,
     ):
         engine_setup(model, device, mode)
+        self._init_kernel_trace(kernel_trace, mode)
         # The explicit knob wins over the model config's kv_dtype; the
         # scales live on the page pool, so a dense cache cannot hold int8.
         self.kv_dtype = resolve_kv_dtype(kv_dtype, model.cfg)
@@ -434,6 +490,8 @@ class Engine(MegaDispatch):
         if self.mode == "mega":
             self.last_stats["mega_launches"] = mega_launches
             self.last_stats["mega_filtered_rounds"] = mega_filtered
+        if self.kernel_trace:
+            self.last_stats["mega_trace_launches"] = self._trace_launch_n
         if spec is not None:
             self.last_stats.update(spec)
             self.last_stats.update(spec_summary(self.last_stats))
@@ -490,7 +548,7 @@ class Engine(MegaDispatch):
             page=self.page_size if self.paged else 0,
             kv_quant=self.paged and self.kv_dtype is not None,
             num_pages=int(cache.k_pages.shape[1]) if self.paged else 0,
-            filtered=filtered)
+            trace=self.kernel_trace, filtered=filtered)
         dev = self.model.device
         v_pad = mega._dims(b, s_max).v_loc
         tail = []
@@ -502,8 +560,12 @@ class Engine(MegaDispatch):
             if sampled:
                 extra = [T * sampling.gumbel((NS, b, v_pad), self._gen, dev),
                          *tail]
-            toks, _logits, cache = fn(params, tok, cache, *extra)
-            out.append(toks.cpu().numpy().T)  # [b, NS]
+            t0 = time.monotonic()
+            toks, _logits, cache, *ring = fn(params, tok, cache, *extra)
+            out.append(toks.cpu().numpy().T)  # [b, NS]; fences the wall
+            if ring:
+                self._record_kernel_trace(ring[0], t0,
+                                          time.monotonic() - t0, NS)
             tok = toks[-1]
         return (tok, cache, left - launches * NS, launches,
                 launches if filtered else 0)

@@ -111,6 +111,28 @@ STAT_METRICS = {
     "mega_filtered_rounds": ("tdt_mega_filtered_rounds_total",
                              "Mega rounds sampled in-kernel through "
                              "the top-k/top-p bisection filter."),
+    # The device task tracer and resident decode: traced launches whose
+    # ring was decoded; the host work ring's items, doorbells (one per
+    # resident launch) and host-side drains; launches issued before the
+    # previous launch drained.
+    "mega_trace_launches": ("tdt_mega_trace_launches_total",
+                            "Megakernel launches whose device trace "
+                            "ring was decoded."),
+    "mega_ring_items": ("tdt_mega_ring_items_total",
+                        "Admit/retire/cancel work items pushed into "
+                        "the host work ring."),
+    "mega_ring_doorbells": ("tdt_mega_ring_doorbells_total",
+                            "Work-ring doorbell publishes (one per "
+                            "resident round)."),
+    "mega_ring_host_drains": ("tdt_mega_ring_host_drains_total",
+                              "Work-ring items drained host-side "
+                              "(single-step fallback rounds, batch "
+                              "teardown): no device loop observed "
+                              "them."),
+    "mega_resident_rounds": ("tdt_mega_resident_rounds_total",
+                             "Resident-session rounds issued before "
+                             "the previous round's drain (pipelined "
+                             "dispatch)."),
     # KV tier: radix evictions spilled to host RAM/disk instead of
     # dropped, and admissions whose prefix coverage was extended by
     # faulting those pages back instead of re-prefilling them.

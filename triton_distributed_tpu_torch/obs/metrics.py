@@ -89,6 +89,12 @@ class Histogram(_Metric):
         self.edges = tuple(float(e) for e in buckets)
 
     def observe(self, v: float, **labels) -> None:
+        self.observe_n(v, 1, **labels)
+
+    def observe_n(self, v: float, n: int, total: float | None = None,
+                  **labels) -> None:
+        """``n`` observations in ``v``'s bucket in one update: ``n``
+        copies of ``v``, or ``n`` values summing to ``total``."""
         reg = self._registry
         key = self._key(labels)
         i = bisect.bisect_left(self.edges, v)
@@ -98,8 +104,8 @@ class Histogram(_Metric):
                 series = self._series[key] = [
                     [0] * (len(self.edges) + 1), 0.0
                 ]
-            series[0][i] += 1
-            series[1] += v
+            series[0][i] += n
+            series[1] += v * n if total is None else total
 
 
 class Registry:

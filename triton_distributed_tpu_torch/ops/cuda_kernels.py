@@ -206,10 +206,23 @@ MEGA_DECODE = CudaKernel(
     "mega_decode", "megakernel", "tdt_mega_decode",
     [_P, _P, _F, _F, _P, _P],
 )
+# The same entry point launched with the device task tracer on (a trace
+# ring operand; with a work ring, RING_POLL stamps its doorbell): counted
+# apart, so a run shows which of its launches were traced.
+MEGA_DECODE_TRACED = CudaKernel(
+    "mega_decode_traced", "megakernel", "tdt_mega_decode",
+    [_P, _P, _F, _F, _P, _P],
+)
+# The prefill megakernel (its own __global__ in the same source).
+MEGA_PREFILL = CudaKernel(
+    "mega_prefill", "megakernel", "tdt_mega_prefill",
+    [_P, _P, _F, _F, _P, _P],
+)
 KERNELS = (FLASH_ATTENTION, FLASH_DECODE, PAGED_FLASH_DECODE,
            FLASH_ATTENTION_INT8, PAGED_FLASH_DECODE_INT8,
            FLASH_ATTENTION_BIAS, MEGA_DECODE, FLASH_ATTENTION_COLD,
-           FLASH_ATTENTION_COLD_INT8, FLASH_DECODE_INT8)
+           FLASH_ATTENTION_COLD_INT8, FLASH_DECODE_INT8, MEGA_DECODE_TRACED,
+           MEGA_PREFILL)
 
 
 def reset_launch_counts() -> None:
