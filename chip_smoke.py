@@ -1783,10 +1783,45 @@ def _plain_forward(model, params, tokens, past=None):
         o = mha_reference(q[None], k[None], v[None], kv_offset=s0)[0]
         x = x + o.transpose(0, 1).reshape(s, -1) @ lp["attn"]["wo"][i]
         h = rms_norm(x, lp["ln2"][i], cfg.rms_eps)
-        x = x + _silu_mul(h @ lp["mlp"]["w1"][i]) @ lp["mlp"]["w2"][i]
+        if cfg.num_experts:
+            x = x + _moe_direct(cfg, lp["mlp"], i, h)
+        else:
+            x = x + _silu_mul(h @ lp["mlp"]["w1"][i]) @ lp["mlp"]["w2"][i]
     x = rms_norm(x, p["norm"], cfg.rms_eps)
     logits = (x @ p["lm_head"]).to(torch.float32)[:, :cfg.vocab_size]
     return logits, kvs
+
+
+# Experts a dense pass of the plain MoE forward holds at once.
+MOE_EXPERT_CHUNK = 16
+
+
+def _moe_direct(cfg, mlp, i, h):
+    """Layer ``i``'s MoE MLP on the normed rows ``h [S, d]``, computed for
+    each token's own top-k experts directly (not through ``moe_sort`` or
+    ``grouped_ffn``): f32 router softmax, the top k by a stable sort,
+    every expert's SwiGLU FFN on every row (a chunk of experts at a time)
+    weighted by that row's combine weight (0 off its top k), summed in
+    f32 and rounded to the model dtype."""
+    import torch
+
+    k = cfg.num_experts_per_tok
+    probs = torch.softmax(h.float() @ mlp["w_router"][i].float(), dim=-1)
+    vals, ids = torch.sort(probs, dim=-1, descending=True, stable=True)
+    top = vals[:, :k]
+    if cfg.norm_topk_prob:
+        top = top / top.sum(dim=-1, keepdim=True)
+    cw = torch.zeros_like(probs).scatter_(1, ids[:, :k], top)  # [S, E]
+    f = cfg.moe_intermediate_size
+    out = torch.zeros(h.shape, dtype=torch.float32, device=h.device)
+    for e0 in range(0, cfg.num_experts, MOE_EXPERT_CHUNK):
+        sl = slice(e0, e0 + MOE_EXPERT_CHUNK)
+        gu = torch.matmul(h, mlp["w1"][i, sl])  # [Ec, S, 2f]
+        act = (torch.nn.functional.silu(gu[..., :f].float())
+               * gu[..., f:].float()).to(h.dtype)
+        y = torch.matmul(act, mlp["w2"][i, sl])  # [Ec, S, d]
+        out += (cw[:, sl].T[..., None] * y.float()).sum(dim=0)
+    return out.to(h.dtype)
 
 
 def reference_logits(model, tokens):
@@ -2874,6 +2909,790 @@ def check_spec_paths(passes: dict, engines: dict) -> dict:
     return out
 
 
+# -- Qwen3-MoE ----------------------------------------------------------------
+#
+# Qwen/Qwen3-30B-A3B at full width and depth (48 layers, 128 experts, top 8,
+# 32 q / 4 kv heads: G = 8), bf16, random weights from SEED: 61.1 GB, so
+# it runs after the Qwen3-0.6B phases are freed. The kernel phase holds the
+# MoE megakernel against its plain version at B=4, kv_len MEGA_LENS over
+# a paged bf16 pool (NS 1 and 8, untraced and traced, one int8-pool
+# launch, one filtered launch), and at 2 layers in f32; then four serving
+# paths run MOE_REQUESTS requests (a MOE_PREFIX-token shared prefix plus
+# MOE_SUFFIX-token suffixes, MOE_GEN tokens each) and 2 rows.
+MOE_MODEL = "Qwen/Qwen3-30B-A3B"
+MOE_REQUESTS, MOE_PREFIX, MOE_SUFFIX, MOE_GEN = 6, 256, (32, 128), 32
+MOE_F32_LAYERS = 2
+# At this depth a bf16 MoE step is chaotic: the kernel's f32 sums, taken
+# in another order than the plain version's, flip a bf16 rounding now and
+# then, the difference grows layer by layer (with the routing held equal,
+# logits 0.11 of the limit after 2 layers and 1.31 after 48), and where a
+# row's k-th and (k+1)-th router probabilities nearly tie it flips a
+# routing; one flipped expert moves the residual by a few percent, and by
+# layer 16 every row routes otherwise (measured on one H100). So the
+# plain version is held to the kernel layer by layer (``_ForcedGate``):
+# at each MOE_GATE its residual must lie within MOE_X_TOL of the kernel's
+# (one layer's difference: both entered the layer before from the same
+# state), and then takes the kernel's (``moe_x``); on that state the plain
+# gate must pick the kernel's experts (``moe_route``), up to a near tie of
+# at most MOE_TIE between its k-th and (k+1)-th probabilities, with
+# combine weights within MOE_WEIGHT_TOL (f32 sums in another order), and
+# it routes as the kernel routed. The logits, one layer from the kernel's
+# state, are held to MEGA_TOL on every row. The first readings (measured
+# on one H100): no routing flip, combine weights within 3.0e-7 (the
+# limit is 33x that), residuals within 0.0174 of (0.05, 2^-6), which is
+# MOE_X_TOL times 16: MOE_X_TOL is 3.6x the worst reading, and the
+# negative control (an expert's weight zeroed at a middle layer) broke
+# (0.05, 2^-6) 7.6x.
+MOE_TIE = 1e-3
+MOE_WEIGHT_TOL = 1e-5
+MOE_X_TOL = (0.05 / 16, 2.0**-10)  # (atol, rtol) on the residual
+# The token of the bf16 xla run's first request at this index is the
+# mega paths' eos_id.
+MOE_EOS_AT = 20
+MOE_PATH_KERNELS = {
+    # xla: the grouped expert FFN is torch.matmul per expert segment (as
+    # the JAX package leaves ragged_dot to XLA); attention runs the
+    # ported kernels. mega: every decode step is one MoE megakernel
+    # launch (NS = 8, its single-step remainders included).
+    "continuous_moe": ("flash_attention", "paged_flash_decode"),
+    "continuous_moe_mega": ("flash_attention", "mega_decode_moe"),
+    "continuous_moe_mega_int8": ("flash_attention_int8", "mega_decode_moe"),
+    "engine_moe_mega_sampled": ("flash_attention", "mega_decode_moe"),
+}
+MOE_SPLIT_OPS = ("EMBED", "QKV_PROJ", "ATTN", "O_PROJ", "ALLREDUCE",
+                 "MOE_GATE", "MOE_FFN", "A2A_SEND", "A2A_WAIT", "LM_HEAD")
+
+
+class _ForcedGate:
+    """A plain-version gate hook (``mega_decode_plain(gate_hook=)``) that
+    holds the plain version to the kernel layer by layer, from the
+    kernel's records ``route [NS, L, E, B]`` (its combine weights: nonzero
+    = routed) and ``x_rec [NS, L, B, d]`` (the residual rows each gate
+    read). ``enter``: the plain residual against the kernel's (per row,
+    its use of MOE_X_TOL), then the kernel's residual in its place.
+    ``route``: the plain gate, on that state, against the kernel's experts
+    (each flip with its deficit: the plain k-th probability less the
+    lowest plain probability among the experts only the kernel took) and
+    combine weights; the plain version then routes as the kernel routed,
+    with its own probabilities over those experts as combine weights.
+    ``fault=(step, layer, row)`` zeroes that row's largest combine weight
+    there (the negative control). Counts the distinct experts routed per
+    (step, layer)."""
+
+    def __init__(self, route, x_rec, k: int, norm: bool, fault=None):
+        import torch
+
+        self.kroute, self.x_rec, self.k, self.norm = route, x_rec, k, norm
+        self.fault = fault
+        ns, L, b = x_rec.shape[:3]
+        self.x_use = torch.zeros((ns, L, b))
+        self.flips, self.routed = [], {}
+        self.deficit = self.weight_err = 0.0
+
+    def enter(self, st, layer):
+        kx = self.x_rec[st.step, layer].to(st.x.device)
+        atol, rtol = MOE_X_TOL
+        use = ((st.x - kx).abs() / (atol + rtol * kx.abs())).max(dim=1)
+        self.x_use[st.step, layer] = use.values.cpu()
+        st.x = kx.clone()
+
+    def route(self, step, layer, probs, cw):
+        import torch
+
+        kern = self.kroute[step, layer].T.to(probs.device)  # [B, E]
+        kset, k = kern != 0, self.k
+        top = torch.sort(probs, dim=-1, descending=True, stable=True)
+        pset = torch.zeros_like(kset).scatter_(1, top.indices[:, :k], True)
+        for r in (kset != pset).any(dim=1).nonzero().flatten().tolist():
+            deficit = (top.values[r, k - 1]
+                       - probs[r][kset[r] & ~pset[r]].min()).item()
+            self.flips.append(dict(step=step, layer=layer, row=r,
+                                   deficit=deficit))
+            self.deficit = max(self.deficit, deficit)
+        forced = torch.where(kset, probs, torch.zeros_like(probs))
+        if self.norm:
+            forced = forced / forced.sum(dim=-1, keepdim=True)
+        self.weight_err = max(self.weight_err,
+                              (forced - kern).abs().max().item())
+        self.routed[step, layer] = int(kset.any(dim=0).sum())
+        if self.fault is not None and (step, layer) == self.fault[:2]:
+            r = self.fault[2]
+            forced[r, forced[r].argmax()] = 0.0
+        return forced
+
+
+def _moe_rows_ok(got, ref, fg, plain_at, atol, rtol, what) -> dict:
+    """Kernel vs plain MoE launch (bf16), the plain version held to the
+    kernel layer by layer (``fg``, a ``_ForcedGate``). A row whose tokens
+    leave the plain stream must do so at a near tie of the plain logits
+    (within MEGA_TIE_GAP of the plain top, as ``_mega_tokens_ok``); until
+    then (its later steps embed another token) its residual at every gate
+    lies within MOE_X_TOL of the kernel's. The routing, on the kernel's
+    state: every flip a near tie (deficit <= MOE_TIE), the combine weights
+    within MOE_WEIGHT_TOL. Every row whose tokens agree before the last
+    step is held to the logit limit. Raises otherwise; returns the rows'
+    record."""
+    if fg.deficit > MOE_TIE or fg.weight_err > MOE_WEIGHT_TOL:
+        worst = max(fg.flips, key=lambda f: f["deficit"], default=None)
+        raise RuntimeError(f"{what}: the kernel's routing is no near tie of "
+                           f"the plain gate's on the same state: worst flip "
+                           f"{worst}, combine weights off by "
+                           f"{fg.weight_err}")
+    toks, rtoks = got[3], ref[3]
+    ns, b = toks.shape
+    ties, last = [], [ns - 1] * b
+    for r in (toks != rtoks).any(dim=0).nonzero().flatten().tolist():
+        s = int((toks[:, r] != rtoks[:, r]).nonzero()[0])
+        last[r] = s
+        lg = plain_at(s)[r]
+        gap = (lg[rtoks[s, r]] - lg[toks[s, r]]).item()
+        ties.append(dict(row=r, step=s, gap=gap))
+        if not 0 <= gap <= MEGA_TIE_GAP:
+            raise RuntimeError(f"{what}: kernel token {int(toks[s, r])} at "
+                               f"row {r} step {s} is no near tie of plain's "
+                               f"{int(rtoks[s, r])}: gap {gap}")
+    x_use = max(fg.x_use[: last[r] + 1, :, r].max().item() for r in range(b))
+    if not x_use <= 1.0:
+        raise RuntimeError(f"{what}: a residual leaves MOE_X_TOL one layer "
+                           f"from the kernel's state ({x_use} of it)")
+    keep = (toks[:-1] == rtoks[:-1]).all(dim=0)
+    err = (got[0] - ref[0]).abs()[keep]
+    used = (err / (atol + rtol * ref[0].abs()[keep])).max().item()
+    if not used <= 1.0:
+        raise RuntimeError(f"{what}: logits use {used} of the limit")
+    return {"rows": b, "held": int(keep.sum()), "limit_used": used,
+            "max_abs_err": err.max().item(), "residual_limit_used": x_use,
+            "ties": ties, "routing_flips": len(fg.flips),
+            "rows_with_flips": len({f["row"] for f in fg.flips}),
+            "worst_flip_deficit": fg.deficit,
+            "combine_weight_err": fg.weight_err}
+
+
+def _moe_bound(cfg, params, routed, kv8: bool) -> dict:
+    """The least time of one MoE decode step at MEGA_LENS: the larger of
+    its bytes over the HBM rate and its FLOPs over the bf16 peak. Bytes:
+    the attention weights, router and norms of every layer, the LM head,
+    the weights of the experts ``routed`` names (one count per layer: the
+    distinct experts this step's rows route to), every cached K/V row
+    (int8 codes plus two f32 scales a page over an int8 pool), the embed
+    rows in and the logits and new K/V rows out. FLOPs: every non-expert
+    GEMM for each row, each row's k experts, QK^T and P·V over each row's
+    cache."""
+    lp, L = params["layers"], cfg.num_layers
+    b, hkv, hd = len(MEGA_LENS), cfg.num_kv_heads, cfg.head_dim
+    d, f = cfg.hidden_size, cfg.moe_intermediate_size
+    item = params["embed"].element_size()
+    dense = (lp["attn"]["wqkv"], lp["attn"]["wo"], lp["mlp"]["w_router"],
+             params["lm_head"])
+    n_dense = sum(t.numel() for t in dense)
+    norms = sum(t.numel() for t in (lp["ln1"], lp["ln2"],
+                                    lp["attn"]["q_norm"],
+                                    lp["attn"]["k_norm"], params["norm"]))
+    expert = 3 * d * f
+    kv = sum(MEGA_LENS) * L * hkv * hd * 2 * (1 if kv8 else item)
+    if kv8:
+        kv += sum(-(-n // PAGE) for n in MEGA_LENS) * L * hkv * 2 * 4
+    out = b * params["lm_head"].shape[1] * 4 + 2 * L * b * hkv * hd * item
+    fixed = (n_dense + norms) * item + kv + out + b * d * item
+    flops = 2 * b * (n_dense + cfg.num_experts_per_tok * L * expert) + 4 * (
+        cfg.num_q_heads * hd * L * sum(MEGA_LENS))
+
+    def bound(n_experts):
+        t_bytes = (fixed + n_experts * expert * item) / HBM_BPS
+        t_ops = flops / BF16_FLOPS
+        return (max(t_bytes, t_ops) * 1e3,
+                "bytes" if t_bytes >= t_ops else "operations")
+
+    ms, by = bound(sum(routed))
+    all_ms, _ = bound(cfg.num_experts * L)
+    return {"bound_ms": ms, "bound_by": by, "all_expert_bound_ms": all_ms,
+            "routed_experts_per_layer": sum(routed) / L}
+
+
+def _moe_launch_stats(log, ns: int, L: int) -> dict:
+    """Per step of a launch, from the kernel's routing: the distinct
+    experts routed at each layer, and the grid barriers the kernel runs a
+    step (EMBED and LM_HEAD 1 each; a layer's QKV_PROJ 2, ATTN 2, O_PROJ
+    1, ALLREDUCE 1, MOE_GATE 1, A2A_WAIT 1, each routed expert 3)."""
+    routed = [[log.routed[s, l] for l in range(L)] for s in range(ns)]
+    barriers = [2 + 8 * L + 3 * sum(r) for r in routed]
+    return {"routed": routed, "barriers_per_step": sum(barriers) / ns}
+
+
+def check_mega_moe_f32(dev) -> dict:
+    """The MoE megakernel at Qwen3-30B-A3B width, MOE_F32_LAYERS layers, in
+    f32 with TF32 off (~7.5 GB), over a paged f32 pool, NS 1 and 8:
+    tokens equal to the plain version's, logits within MEGA_TOL f32, and
+    the plain version with the last layer skipped outside it."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from triton_distributed_tpu_torch.megakernel import (
+        MegaConfig,
+        MegaQwen3,
+        MegaWeights,
+    )
+    from triton_distributed_tpu_torch.megakernel.kernels import (
+        mega_decode_plain,
+    )
+    from triton_distributed_tpu_torch.models import AutoLLM
+    from triton_distributed_tpu_torch.models.paged_kv_cache import (
+        init_paged_cache,
+    )
+
+    model = AutoLLM.from_pretrained(MOE_MODEL, device=dev, seed=SEED,
+                                    dtype=torch.float32,
+                                    num_layers=MOE_F32_LAYERS)
+    cfg = model.cfg
+    b, L, V = len(MEGA_LENS), cfg.num_layers, cfg.vocab_size
+    paged, _ = init_paged_cache(cfg, b, dev, max_length=MAX_LENGTH,
+                                page_size=PAGE)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 12)
+    for t in (paged.k_pages, paged.v_pages):
+        t.normal_(generator=gen)
+    tokens = torch.from_numpy(np.random.default_rng(SEED + 13).integers(
+        0, V, b).astype(np.int32)).to(dev)
+    args = (paged.k_pages, paged.v_pages, paged.page_table,
+            torch.tensor(MEGA_LENS, dtype=torch.int32, device=dev), tokens)
+    mega = MegaQwen3(model, cfg=MegaConfig(fuse_norms=True,
+                                           cross_prefetch=True,
+                                           overlap_ar=True))
+    w = MegaWeights.from_params(model.params)
+    atol, rtol = MEGA_TOL["f32"]
+    out = {}
+    for ns in MEGA_NS:
+        dims = dataclasses.replace(
+            mega._dims(b, MAX_LENGTH, PAGE,
+                       num_pages=int(paged.k_pages.shape[1])),
+            nsteps=ns, v_real=V)
+        comp = mega._compile(dims)
+        got = comp.run(w, *args)
+        torch.cuda.synchronize()
+        ref = mega_decode_plain(dims, True, comp.table, w, *args)
+        skip = comp.table[comp.table[:, 1] != L - 1]
+        bad = mega_decode_plain(dims, True, skip, w, *args)[0]
+        err = (got[0] - ref[0]).abs()
+        used = (err / (atol + rtol * ref[0].abs())).max().item()
+        bad_used = ((got[0] - bad).abs()
+                    / (atol + rtol * bad.abs())).max().item()
+        same = torch.equal(got[3], ref[3])
+        print(f"[moe] f32 {L} layers NS={ns}: tokens == plain {same}, "
+              f"logits max_abs_err {err.max().item():.3e} ({used:.3f} of the "
+              f"limit {atol}); last layer skipped: {bad_used:.1f}x the limit")
+        if not same or not used <= 1.0 or not bad_used > 1.0:
+            raise RuntimeError(f"mega_decode_moe f32 NS={ns}: tokens equal "
+                               f"{same}, limit use {used}, control "
+                               f"{bad_used}")
+        out[f"ns{ns}"] = {"max_abs_err": err.max().item(),
+                          "limit_used": used, "control_limit_used": bad_used}
+    return out
+
+
+def check_mega_moe(dev, flush, model) -> dict:
+    """The MoE megakernel against its plain version at Qwen3-30B-A3B's full
+    width and depth, bf16, B=4, kv_len MEGA_LENS over a paged pool, with
+    the engines' serving config (fused norms, the A2A combine): NS 1 and
+    8 (rows held by ``_moe_rows_ok``; two launches bit-identical; the plain
+    version with one routed expert's combine weight zeroed must leave the
+    limit), traced (bit-identical to the untraced launch, the ring valid
+    with one A2A window per layer and step, the step split by opcode),
+    one NS=8 launch over the int8 pool (the same rows rule) and one
+    filtered NS=8 launch (the filter alone picks an exact filter's token,
+    the top-k 1 row the clean argmax, and planted noise is refused).
+    Times each launch beside its bounds (the distinct routed experts of
+    that launch, and every expert) and counts the barriers a step.
+    Returns the ``mega_decode_moe`` record."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from triton_distributed_tpu_torch.megakernel import (
+        MegaConfig,
+        MegaQwen3,
+        MegaWeights,
+    )
+    from triton_distributed_tpu_torch.megakernel.kernels import (
+        mega_decode_plain,
+    )
+    from triton_distributed_tpu_torch.megakernel.task import TaskType
+    from triton_distributed_tpu_torch.models import sampling
+    from triton_distributed_tpu_torch.models.paged_kv_cache import (
+        init_paged_cache,
+        quantize_pages,
+    )
+    from triton_distributed_tpu_torch.obs import kernel_trace as kt
+
+    cfg = model.cfg
+    b, L, V = len(MEGA_LENS), cfg.num_layers, cfg.vocab_size
+    k = cfg.num_experts_per_tok
+    paged, _ = init_paged_cache(cfg, b, dev, max_length=MAX_LENGTH,
+                                page_size=PAGE)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 12)
+    for t in (paged.k_pages, paged.v_pages):
+        t.normal_(generator=gen)
+    lens = torch.tensor(MEGA_LENS, dtype=torch.int32, device=dev)
+    tokens = torch.from_numpy(np.random.default_rng(SEED + 13).integers(
+        0, V, b).astype(np.int32)).to(dev)
+    args = (paged.k_pages, paged.v_pages, paged.page_table, lens, tokens)
+    mega = MegaQwen3(model, cfg=MegaConfig(fuse_norms=True,
+                                           cross_prefetch=True,
+                                           overlap_ar=True))
+    w = MegaWeights.from_params(model.params)
+    atol, rtol = MEGA_TOL["bf16"]
+    rec = {"ms_per_step": {}, "plain_ms_per_launch": {},
+           "traced_ms_per_step": {}, "split_ms_per_step": {},
+           "barriers_per_step": {}, "bounds": {}, "rows": {},
+           "max_abs_err": 0.0}
+    flipped = checked = 0
+    info = {}
+    E, norm = cfg.num_experts, cfg.norm_topk_prob
+    base = dataclasses.replace(
+        mega._dims(b, MAX_LENGTH, PAGE,
+                   num_pages=int(paged.k_pages.shape[1])), v_real=V)
+    for ns in MEGA_NS:
+        dims = dataclasses.replace(base, nsteps=ns)
+        comp = mega._compile(dims)
+        route = torch.zeros((ns, L, E, b), dtype=torch.float32, device=dev)
+        x_rec = torch.zeros((ns, L, b, cfg.hidden_size), dtype=torch.float32,
+                            device=dev)
+        got = comp.run(w, *args, info=info, moe_route=route, moe_x=x_rec)
+        again = comp.run(w, *args)
+        torch.cuda.synchronize()
+        if not all(torch.equal(x, y) for x, y in zip(got, again)):
+            raise RuntimeError(f"mega_decode_moe NS={ns}: two launches on "
+                               "the same inputs differ")
+        forced = (route, x_rec, k, norm)
+        log = _ForcedGate(*forced)
+        ref = mega_decode_plain(dims, True, comp.table, w, *args,
+                                gate_hook=log)
+
+        def plain_at(s, dims=dims, table=comp.table, forced=forced):
+            d1 = dataclasses.replace(dims, nsteps=s + 1)
+            return mega_decode_plain(d1, True, table, w, *args,
+                                     gate_hook=_ForcedGate(*forced))[0]
+
+        rows = _moe_rows_ok(got, ref, log, plain_at, atol, rtol,
+                            f"mega_decode_moe NS={ns}")
+        if ns == 1:
+            # For the record: the plain version on its own (its routing
+            # and state free), against the kernel.
+            free = mega_decode_plain(dims, True, comp.table, w, *args)[0]
+            rows["free_plain_limit_used"] = (
+                (got[0] - free).abs() / (atol + rtol * free.abs())
+            ).max().item()
+        flipped += rows["rows_with_flips"]
+        checked += rows["rows"]
+        rec["rows"][f"ns{ns}"] = rows
+        rec["max_abs_err"] = max(rec["max_abs_err"], rows["max_abs_err"])
+        stats = _moe_launch_stats(log, ns, L)
+        rec["barriers_per_step"][f"ns{ns}"] = stats["barriers_per_step"]
+        bnd = [_moe_bound(cfg, model.params, r, False)
+               for r in stats["routed"]]
+        rec["bounds"][f"ns{ns}"] = {
+            key: sum(x[key] for x in bnd) / ns for key in (
+                "bound_ms", "all_expert_bound_ms",
+                "routed_experts_per_layer")}
+        rec["bounds"][f"ns{ns}"]["bound_by"] = bnd[0]["bound_by"]
+        # The negative control: one routed expert's combine weight zeroed
+        # (row 0's largest, at the last layer of the last step).
+        # The negative controls: one routed expert's combine weight zeroed
+        # (row 0's largest) at the last layer of the last step must break
+        # the logit limit, and at a middle layer of step 0 the residual
+        # limit at the next gate.
+        bad = mega_decode_plain(dims, True, comp.table, w, *args,
+                                gate_hook=_ForcedGate(
+                                    *forced, fault=(ns - 1, L - 1, 0)))[0]
+        bad_used = ((got[0] - bad).abs()
+                    / (atol + rtol * bad.abs())).max().item()
+        mid_l = (L - 1) // 2
+        mid = _ForcedGate(*forced, fault=(0, mid_l, 0))
+        mega_decode_plain(dims, True, comp.table, w, *args, gate_hook=mid)
+        bad_x = mid.x_use[0, mid_l + 1, 0].item()
+        rows["control_limit_used"] = bad_used
+        rows["control_residual_limit_used"] = bad_x
+        if not (bad_used > 1.0 and bad_x > 1.0):
+            raise RuntimeError(f"mega_decode_moe NS={ns}: a routed expert's "
+                               "weight zeroed stays within the limits "
+                               f"(logits {bad_used}, residual {bad_x})")
+        ms = median_ms(lambda: comp.run(w, *args), flush)
+        rec["ms_per_step"][f"ns{ns}"] = ms / ns
+        if ns == 1:
+            rec["plain_ms_per_launch"]["ns1"] = median_ms(
+                lambda: mega_decode_plain(dims, True, comp.table, w, *args),
+                flush, iters=3, warmup=1)
+        # Traced: the untraced outputs bit for bit, the ring valid, and the
+        # step split by opcode (one launch's CUDA-event time spread over
+        # its ring's ticks).
+        tdims = dataclasses.replace(dims, trace=True)
+        tcomp = mega._compile(tdims)
+        launches = []
+        for _ in range(3):
+            flush.zero_()
+            torch.cuda._sleep(LEAD_CYCLES)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            tout = tcomp.run(w, *args)
+            end.record()
+            end.synchronize()
+            launches.append((start.elapsed_time(end), tout))
+        event_ms, tout = sorted(launches, key=lambda x: x[0])[1]
+        if not all(torch.equal(x, y) for x, y in zip(got, tout[:5])):
+            raise RuntimeError(f"mega_decode_moe traced NS={ns} differs from "
+                               "the untraced launch")
+        recs = kt.decode_trace(tout[5].cpu().numpy())
+        problems = kt.validate_ring(recs, tcomp.order)
+        windows = kt.overlap_report(recs)["a2a_windows"]
+        a2a = [r for r in recs if r.opcode in (int(TaskType.A2A_SEND),
+                                               int(TaskType.A2A_WAIT))]
+        if problems or windows != L * ns or not all(
+                r.begin <= r.mid <= r.end for r in a2a):
+            raise RuntimeError(f"mega_decode_moe traced NS={ns}: ring "
+                               f"problems {problems[:5]}, a2a_windows "
+                               f"{windows} (want {L * ns})")
+        span = max(r.end for r in recs) - min(r.begin for r in recs)
+        split = {}
+        for r in recs:
+            split[r.op] = split.get(r.op, 0.0) + r.dur * event_ms / span / ns
+        rec["traced_ms_per_step"][f"ns{ns}"] = event_ms / ns
+        rec["split_ms_per_step"][f"ns{ns}"] = {
+            op: split.get(op, 0.0) for op in MOE_SPLIT_OPS}
+        shown = {key: v for key, v in rows.items() if key != "ties"}
+        print(f"[moe] NS={ns}: {ms / ns:.4f} ms per step (bounds "
+              f"{json.dumps(rec['bounds'][f'ns{ns}'])}), "
+              f"{stats['barriers_per_step']:.0f} barriers a step; rows "
+              f"{json.dumps(shown)}, ties {rows['ties']}; traced == "
+              f"untraced, ring valid, {windows} A2A windows; split per step "
+              f"{json.dumps(rec['split_ms_per_step'][f'ns{ns}'])}; launch "
+              f"{info}")
+    # One NS=8 launch over the int8 pool.
+    k8, ks = quantize_pages(paged.k_pages)
+    v8, vs = quantize_pages(paged.v_pages)
+    sc = {"k_scale": ks, "v_scale": vs}
+    args8 = (k8, v8, paged.page_table, lens, tokens)
+    dims = dataclasses.replace(base, nsteps=8, kv_quant=True)
+    comp = mega._compile(dims)
+    route = torch.zeros((8, L, E, b), dtype=torch.float32, device=dev)
+    x_rec = torch.zeros((8, L, b, cfg.hidden_size), dtype=torch.float32,
+                        device=dev)
+    got = comp.run(w, *args8, **sc, moe_route=route, moe_x=x_rec)
+    torch.cuda.synchronize()
+    forced = (route, x_rec, k, norm)
+    log = _ForcedGate(*forced)
+    ref = mega_decode_plain(dims, True, comp.table, w, *args8, **sc,
+                            gate_hook=log)
+    rows = _moe_rows_ok(
+        got, ref, log, lambda s: mega_decode_plain(
+            dataclasses.replace(dims, nsteps=s + 1), True, comp.table, w,
+            *args8, **sc, gate_hook=_ForcedGate(*forced))[0],
+        atol, rtol, "mega_decode_moe int8 pool")
+    flipped += rows["rows_with_flips"]
+    checked += rows["rows"]
+    rec["rows"]["int8_pool_ns8"] = rows
+    rec["int8_pool_ms_per_step_ns8"] = median_ms(
+        lambda: comp.run(w, *args8, **sc), flush) / 8
+    stats = _moe_launch_stats(log, 8, L)
+    rec["int8_pool_bound_ms"] = sum(
+        _moe_bound(cfg, model.params, r, True)["bound_ms"]
+        for r in stats["routed"]) / 8
+    del k8, v8
+    # One filtered NS=8 launch: the filter alone, the top-k 1 row and the
+    # planted control on the kernel's own logits (the dense path's
+    # sampled checks).
+    frows = MEGA_SAMPLED_ROWS["filtered"]
+    dims = dataclasses.replace(base, nsteps=8, sampled=True, filtered=True)
+    comp = mega._compile(dims)
+    fgen = torch.Generator(device=dev).manual_seed(SEED + 4)
+    temps = torch.tensor([t for t, _, _ in frows], device=dev)
+    noise = sampling.gumbel((8, b, dims.v_loc), fgen, dev) \
+        * temps[None, :, None]
+    scfg = torch.tensor([sampling.sampcfg_row(*r, V) for r in frows],
+                        dtype=torch.float32, device=dev)
+    fgot = comp.run(w, *args, noise=noise, sampcfg=scfg)
+    torch.cuda.synchronize()
+    logits, last = fgot[0], fgot[3][-1].tolist()
+    bands = filter_band(logits, noise[-1], scfg, V)
+    off = [i for i in range(b) if last[i] not in bands[i]["winners"]]
+    clean = int(logits[2, :V].argmax())
+    noisy = int((logits[2, :V] + noise[-1, 2, :V]).argmax())
+    planted = _planted_control(comp, w, args, noise, scfg, fgot, bands, V)
+    rec["filtered"] = {"off_band_rows": off,
+                       "top_k1_took_clean_noisy": [last[2], clean, noisy],
+                       "planted": planted}
+    if off or last[2] != clean or noisy == clean or planted["bad"]:
+        raise RuntimeError(f"mega_decode_moe filtered: {rec['filtered']}")
+    rec["filtered_ms_per_step_ns8"] = median_ms(
+        lambda: comp.run(w, *args, noise=noise, sampcfg=scfg), flush) / 8
+    print(f"[moe] int8 pool NS=8: {rec['int8_pool_ms_per_step_ns8']:.4f} ms "
+          f"per step (bound {rec['int8_pool_bound_ms']:.4f}), routing "
+          f"flips {rows['routing_flips']}, limit use "
+          f"{rows['limit_used']:.3f}; filtered "
+          f"NS=8: {rec['filtered_ms_per_step_ns8']:.4f} ms per step, "
+          f"{json.dumps(rec['filtered'])}")
+    # No row is exempt from the logit limit (the plain version routes as
+    # the kernel did); the rows whose routing flipped at a near tie are
+    # counted.
+    rec["rows_with_routing_flips"] = [flipped, checked]
+    print(f"[moe] rows whose kernel routing flipped at a near tie: "
+          f"{flipped} of {checked}; rows outside the logit limit: 0")
+    main = rec["bounds"]["ns1"]
+    return dict(
+        route="cuda",
+        source="triton_distributed_tpu_torch/csrc/megakernel.cu",
+        replaces="triton_distributed_tpu/megakernel/kernels.py:1133",
+        max_abs_err=rec.pop("max_abs_err"), ms=rec["ms_per_step"]["ns1"],
+        plain_ms=rec["plain_ms_per_launch"]["ns1"],
+        bound_ms=main["bound_ms"], bound_by=main["bound_by"],
+        library_ms=None,
+        shape=f"{MOE_MODEL} 48 layers, 128 experts top-8, B={b}, paged "
+              f"page={PAGE}, kv_len {list(MEGA_LENS)}, NS=1 bf16 (ms = one "
+              "step; bound_ms counts the distinct routed experts, "
+              "all_expert_bound_ms every expert); the MoE bodies "
+              "kernels.py:1133 moe_gate_body, :1188 moe_ffn_body, :1253 "
+              "a2a_send_body, :1296 a2a_wait_body at tp=1",
+        all_expert_bound_ms=main["all_expert_bound_ms"],
+        launch=info, **rec)
+
+
+def serve_moe_paths(dev, model):
+    """The MoE serving paths at full width and depth: ``continuous_moe``
+    (mode xla, bf16 pool), ``continuous_moe_mega`` (ns 8, an eos_id, the
+    tracer on, the serving-default MegaConfig: the A2A combine),
+    ``continuous_moe_mega_int8`` (the same over the int8 pool) and
+    ``engine_moe_mega_sampled`` (2 rows, T 0.7, top-k 64, mode mega).
+    Each path's launch counts are reset just before it and read just
+    after. Checks: audits, teacher forcing against the plain MoE forward
+    (bf16 and int8 limits), the MoE ledger against the traffic's
+    arithmetic, every traced ring valid with one A2A window per layer and
+    step, and the sampled rows' keep-sets (the top-k 1 control must
+    fail). Returns (launches by path, the e2e block)."""
+    import numpy as np
+    import torch
+
+    from triton_distributed_tpu_torch.models import ContinuousEngine, Engine
+    from triton_distributed_tpu_torch.obs import events as obs_events
+    from triton_distributed_tpu_torch.obs import kernel_trace as kt
+    from triton_distributed_tpu_torch.ops import cuda_kernels as ck
+
+    gg = sys.modules["triton_distributed_tpu_torch.ops.moe.grouped_gemm"]
+    cfg = model.cfg
+    L, V, k = cfg.num_layers, cfg.vocab_size, cfg.num_experts_per_tok
+    rng = np.random.default_rng(SEED + 11)
+    prefix = rng.integers(0, V, MOE_PREFIX)
+    prompts = [np.concatenate([prefix, rng.integers(0, V, n)]).astype(
+        np.int32) for n in rng.integers(MOE_SUFFIX[0], MOE_SUFFIX[1] + 1,
+                                        MOE_REQUESTS)]
+    dense_ids = rng.integers(0, V, (DENSE_ROWS, DENSE_PROMPT)).astype(
+        np.int32)
+    requests = [(p, MOE_GEN) for p in prompts]
+    engs, outs, launches, times, rings, single = {}, {}, {}, {}, {}, {}
+    decode_t = _Timed(model, "decode_step")
+
+    def continuous(path, **kw):
+        eng = engs[path] = ContinuousEngine(
+            model, max_batch=4, page_size=PAGE, max_length=MAX_LENGTH,
+            prefix_cache=True, device=dev, **kw)
+        if kw.get("mode") == "mega":
+            kept = rings[path] = []
+            inner_rec = eng._record_kernel_trace
+
+            def record(*a, **kw2):
+                inner_rec(*a, **kw2)
+                kept.append(eng._kernel_traces[-1])
+            eng._record_kernel_trace = record
+            # The positions the single-step rounds route: the slots live
+            # at each such step (the count the engine bumps, read beside
+            # it).
+            single[path] = 0
+            inner_once = eng._decode_once
+
+            def once():
+                single[path] += sum(r is not None for r in eng._slots)
+                return inner_once()
+            eng._decode_once = once
+        return eng.run(requests)
+
+    def mega_eos():
+        """The mega paths' eos_id: the token of the xla run's first
+        request at MOE_EOS_AT if no request emitted it first (every request
+        then decodes before it may stop); else the highest vocabulary id
+        that no xla request emitted (the random model may repeat one token
+        throughout: the stop-token test then runs every step and never
+        fires)."""
+        streams = outs["continuous_moe"]
+        tok = int(streams[0][MOE_EOS_AT])
+        if all(int(o[0]) != tok for o in streams):
+            return tok
+        seen = {int(t) for o in streams for t in o}
+        return next(v for v in range(V - 1, -1, -1) if v not in seen)
+
+    runs = {
+        "continuous_moe": lambda: continuous("continuous_moe"),
+        "continuous_moe_mega": lambda: continuous(
+            "continuous_moe_mega", mode="mega", ns=8, eos_id=mega_eos(),
+            kernel_trace=True),
+        "continuous_moe_mega_int8": lambda: continuous(
+            "continuous_moe_mega_int8", mode="mega", ns=8,
+            eos_id=mega_eos(), kv_dtype="int8", kernel_trace=True),
+        "engine_moe_mega_sampled": lambda: engs.setdefault(
+            "engine_moe_mega_sampled", Engine(
+                model, mode="mega", device=dev, **SAMPLED_ENGINE_KNOBS)
+        ).serve(dense_ids, DENSE_GEN, MAX_LENGTH, ns=8),
+    }
+    for path, run in runs.items():
+        seg0, dec0 = gg.SEGMENTS, decode_t.snapshot()
+        ev0 = obs_events.default_ring().next_seq - 1
+        ck.reset_launch_counts()
+        t0 = time.perf_counter()
+        outs[path] = run()
+        torch.cuda.synchronize()
+        launches[path] = ck.launch_counts()
+        events, dropped = obs_events.default_ring().tail(ev0)
+        if dropped:
+            raise RuntimeError(f"{path}: {dropped} engine events overwritten")
+        times[path] = {
+            "wall_s": time.perf_counter() - t0,
+            "expert_segment_gemms": gg.SEGMENTS - seg0,
+            "decode_step_s": decode_t.seconds - dec0[0],
+            "decode_step_calls": decode_t.calls - dec0[1],
+            "launch_positions": sum(e.fields["ns"] * e.fields["active"]
+                                    for e in events
+                                    if e.kind == "mega:launch"),
+        }
+        print(f"[moe] {path}: {json.dumps(times[path])}; launches "
+              f"{launches[path]}")
+    for path, need in MOE_PATH_KERNELS.items():
+        ran = {name for name, n in launches[path].items() if n > 0}
+        if ran != set(need):
+            raise RuntimeError(f"the {path} run launched {sorted(ran)}, "
+                               f"expected {sorted(need)}")
+
+    e2e = {"model": MOE_MODEL}
+    for path, margin, min_exact in (
+            ("continuous_moe", TF_MARGIN, TF_MIN_EXACT),
+            ("continuous_moe_mega", TF_MARGIN, TF_MIN_EXACT),
+            ("continuous_moe_mega_int8", TF8_MARGIN, TF8_MIN_EXACT)):
+        eng = engs[path]
+        st = eng.last_stats
+        if eng.audit():
+            raise RuntimeError(f"{path}: audit {eng.audit()}")
+        gaps = []
+        for p, o in zip(prompts, outs[path]):
+            if not (o.shape == (MOE_GEN,) or (
+                    eng.eos_id is not None and 0 < len(o) < MOE_GEN
+                    and int(o[-1]) == eng.eos_id)):
+                raise RuntimeError(f"{path}: bad output {o.shape}")
+            gaps += teacher_forced_gaps(model, p, o)
+        tf = _tf_check(f"MoE {path}", gaps, margin, min_exact)
+        # The ledger: every prefilled position and every position a
+        # decode step or launch routed, k assignments each.
+        if eng.mode == "mega":
+            positions = times[path]["launch_positions"] + single[path]
+        else:
+            positions = st["generated_tokens"] - st["admitted"]
+        want = k * (st["prefill_tokens"] + positions)
+        if st["moe_routed_tokens"] != want or st["a2a_dropped"] != 0 or (
+                st["num_experts"], st["experts_per_tok"]) != (
+                cfg.num_experts, k):
+            raise RuntimeError(f"{path}: MoE ledger {st['moe_routed_tokens']}"
+                               f" routed, want {want}")
+        block = {"teacher_forcing": tf, "wall_s": times[path]["wall_s"],
+                 "moe_routed_tokens": st["moe_routed_tokens"],
+                 **{key: st[key] for key in (
+                     "prefill_tokens", "prefix_hit_tokens", "decode_steps",
+                     "generated_tokens", "kv_dtype")}}
+        if eng.mode == "mega":
+            mega = eng._mega_model()
+            bad = []
+            for ln in rings[path]:
+                recs = kt.decode_trace(ln.ring)
+                order = [o for key, o in mega._orders.items()
+                         if key[9] and key[3] == ln.nsteps
+                         and len(o) == ln.ring.shape[-2]]
+                problems = kt.validate_ring(recs, order[0]) if order else [
+                    "no traced build matches the ring"]
+                windows = kt.overlap_report(recs)["a2a_windows"]
+                if problems or windows != L * ln.nsteps:
+                    bad.append((problems[:3], windows, ln.nsteps))
+            if bad or not rings[path]:
+                raise RuntimeError(f"{path}: traced launches {bad}")
+            block.update(
+                traced_launches=len(rings[path]),
+                mega_launches=st["mega_launches"],
+                mega_fallback_steps=st["mega_fallback_steps"],
+                kernel_launches=launches[path]["mega_decode_moe"],
+                eos_id=eng.eos_id)
+        else:
+            block.update(
+                decode_ms_per_step=times[path]["decode_step_s"]
+                / max(times[path]["decode_step_calls"], 1) * 1e3,
+                expert_segment_gemms_per_decode_step=times[path][
+                    "expert_segment_gemms"] / max(st["decode_steps"], 1))
+        e2e[path] = block
+    # The sampled Engine: its filtered tokens in their plain keep-sets, the
+    # same check at top-k 1 failing somewhere; its ledger.
+    eng = engs["engine_moe_mega_sampled"]
+    st = eng.last_stats
+    edges, control = [], []
+    knobs = {"top_p": 1.0, **SAMPLED_ENGINE_KNOBS}
+    for row in range(DENSE_ROWS):
+        rows_, emitted = plain_rows(model, dense_ids[row],
+                                    outs["engine_moe_mega_sampled"][
+                                        row, DENSE_PROMPT:])
+        edges += keep_edges(rows_, emitted, knobs["temperature"], 1.0,
+                            knobs["top_k"])
+        control += keep_edges(rows_, emitted, knobs["temperature"], 1.0, 1)
+    want = k * DENSE_ROWS * (DENSE_PROMPT + DENSE_GEN - 1)
+    ctl = sum(e > TF_MARGIN for e in control)
+    print(f"[check] MoE engine_moe_mega_sampled: keep edge worst "
+          f"{max(edges):.4f} over {len(edges)} positions (margin "
+          f"{TF_MARGIN}), top_k=1 control outside {ctl}/{len(control)}; "
+          f"routed {st['moe_routed_tokens']} (want {want}), filtered "
+          f"launches {st['mega_filtered_rounds']}")
+    if (max(edges) > TF_MARGIN or ctl == 0 or st["mega_filtered_rounds"] <= 0
+            or st["moe_routed_tokens"] != want):
+        raise RuntimeError(f"engine_moe_mega_sampled: edges {max(edges)}, "
+                           f"control {ctl}, {st}")
+    e2e["engine_moe_mega_sampled"] = {
+        "keep_edge_worst": max(edges), "positions": len(edges),
+        "top_k1_control_outside": [ctl, len(control)],
+        **{key: st[key] for key in ("decode_ms_per_step", "decode_steps",
+                                    "mega_launches", "mega_filtered_rounds",
+                                    "moe_routed_tokens")}}
+    print(f"[serve] MoE paths: {json.dumps(e2e)}")
+    return launches, e2e
+
+
+def check_moe(dev):
+    """Phase 4: Qwen3-30B-A3B. The f32 kernel check at MOE_F32_LAYERS
+    layers, then the bf16 model at full width and depth: the kernel phase
+    and the serving paths. Returns (records by kernel, launches by path,
+    the e2e block)."""
+    import torch
+
+    from triton_distributed_tpu_torch.models import AutoLLM
+
+    torch.cuda.empty_cache()
+    f32 = check_mega_moe_f32(dev)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    model = AutoLLM.from_pretrained(MOE_MODEL, device=dev, seed=SEED)
+    torch.cuda.synchronize()
+    print(f"[moe] {MOE_MODEL} random init on {dev} in "
+          f"{time.perf_counter() - t0:.1f} s ({model.cfg.num_layers} layers, "
+          f"{model.cfg.num_experts} experts; "
+          f"{torch.cuda.memory_allocated(dev) / 1e9:.2f} GB allocated)")
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    record = check_mega_moe(dev, flush, model)
+    record["f32"] = f32
+    del flush
+    launches, e2e = serve_moe_paths(dev, model)
+    return {"mega_decode_moe": record}, launches, e2e
+
+
 def main() -> int:
     try:
         import torch
@@ -2912,13 +3731,19 @@ def main() -> int:
     t0 = time.perf_counter()
     launches, e2e = serve_main_path(dev)
     phase_s["serve"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    moe_records, moe_launches, e2e["moe"] = check_moe(dev)
+    records.update(moe_records)
+    launches.update(moe_launches)
+    phase_s["moe"] = time.perf_counter() - t0
     print(f"[time] seconds per phase: {json.dumps(phase_s)}")
 
     # "launches" counts the first path that must launch the kernel;
     # "launches_by_path" gives every path's own run.
     kernels = []
+    paths = {**PATH_KERNELS, **MOE_PATH_KERNELS}
     for k in ck.KERNELS:
-        first = next(p for p, need in PATH_KERNELS.items() if k.name in need)
+        first = next(p for p, need in paths.items() if k.name in need)
         kernels.append({
             "name": k.name, "launches": launches[first][k.name],
             "launches_path": first,

@@ -71,6 +71,7 @@ def _rand(rng, shape, dtype, dev):
 @pytest.mark.parametrize("d,hq,hkv,sq,sk,off", [
     (128, 16, 8, 256, 768, 512),
     (128, 16, 8, 200, 200, 0),
+    (128, 32, 4, 256, 768, 512),  # Qwen3-30B-A3B: G = 8
     (32, 8, 4, 37, 90, 53),
     (32, 4, 4, 16, 16, 0),
 ])
@@ -122,6 +123,23 @@ def test_dense_decode_matches_plain(dev, dtype):
     v = _rand(rng, (b, hkv, s, d), dtype, dev)
     q = _rand(rng, (b, hq, d), dtype, dev)
     kv_len = torch.tensor([1, 255, 256, 1024], dtype=torch.int32, device=dev)
+    o = flash_decode(q, k, v, kv_len)
+    torch.cuda.synchronize()
+    o_ref = gqa_decode_reference(q, k, v, kv_len)
+    assert (o.float() - o_ref.float()).abs().max().item() < TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_dense_decode_g8_matches_plain(dev, dtype):
+    """The xla decode kernel at Qwen3-30B-A3B's heads: 32 q over 4 kv
+    heads (G = 8)."""
+    rng = np.random.default_rng(2)
+    b, hq, hkv, s, d = 4, 32, 4, 2048, 128
+    k = _rand(rng, (b, hkv, s, d), dtype, dev)
+    v = _rand(rng, (b, hkv, s, d), dtype, dev)
+    q = _rand(rng, (b, hq, d), dtype, dev)
+    kv_len = torch.tensor([1, 700, 2040, 2048], dtype=torch.int32,
+                          device=dev)
     o = flash_decode(q, k, v, kv_len)
     torch.cuda.synchronize()
     o_ref = gqa_decode_reference(q, k, v, kv_len)
@@ -250,6 +268,7 @@ def _tree_bias(off: int, sq: int, sk: int, dev) -> torch.Tensor:
 @pytest.mark.parametrize("d,hq,hkv,sk,off", [
     (128, 16, 8, 2048, 700),   # Qwen3-0.6B tree verify, gathered view
     (128, 16, 8, 2048, 2031),  # the chunk ends at the view's last key
+    (128, 32, 4, 2048, 700),   # Qwen3-30B-A3B: G = 8
     (32, 8, 4, 64, 40),        # tiny
 ])
 def test_flash_attention_bias_matches_plain(dev, dtype, d, hq, hkv, sk, off):
@@ -1132,3 +1151,205 @@ def test_mega_prefill_and_resident_serving_on_card_equal_cpu(dev):
     assert outs[0][0] == outs[1][0]
     for a, b in zip(outs[0][1:], outs[1][1:]):
         np.testing.assert_array_equal(a, b)
+
+
+# -- the MoE megakernel -------------------------------------------------------
+#
+# tiny-moe in f32 (8 experts, top-2: the routing equal, tokens equal, logits
+# within 2e-3) and a bf16 shape at Qwen3-30B-A3B's width with G = 8, 2
+# layers, 16 experts, top-4 (chip_smoke._moe_rows_ok: the plain version
+# routed as the kernel routed, each routing flip a near tie, every row
+# within the bf16 limit).
+MOE_SHAPES = {
+    # preset, overrides, kv_len per row (0 = bucket filler), page, s_max
+    "tiny-moe": ("tiny-moe", dict(), [17, 0, 40, 3], 16, 64),
+    "moe16": ("Qwen/Qwen3-30B-A3B", dict(num_layers=2, num_experts=16,
+                                          num_experts_per_tok=4),
+              [700, 0, 700, 2040], 128, 2048),
+}
+
+
+def _moe_inputs(dev, shape, dtype, ns, overlap=True, int8=False, seed=0,
+                **over):
+    import dataclasses as dc
+
+    from triton_distributed_tpu_torch.megakernel import (
+        MegaConfig,
+        MegaQwen3,
+        MegaWeights,
+    )
+    from triton_distributed_tpu_torch.models import AutoLLM
+
+    name, base, lens, page, s_max = MOE_SHAPES[shape]
+    model = AutoLLM.from_pretrained(name, device=dev, seed=seed, dtype=dtype,
+                                    max_length=s_max, **{**base, **over})
+    cfg = model.cfg
+    rng = np.random.default_rng(seed)
+    b, L, hkv, hd = len(lens), cfg.num_layers, cfg.num_kv_heads, cfg.head_dim
+    lens_np = np.asarray(lens)
+    pps = s_max // page
+    n_pages = b * pps + 1
+    kc = _rand(rng, (L, n_pages, hkv, page, hd), dtype, dev)
+    vc = _rand(rng, (L, n_pages, hkv, page, hd), dtype, dev)
+    perm = rng.permutation(np.arange(1, n_pages))[: b * pps].reshape(b, pps)
+    need = -(-(lens_np + ns) // page)
+    table = np.where(np.arange(pps)[None] < need[:, None], perm, 0)
+    table[lens_np == 0] = 0
+    table = torch.from_numpy(table.astype(np.int32)).to(dev)
+    scales = {}
+    if int8:
+        kc, ks = quantize_pages(kc)
+        vc, vs = quantize_pages(vc)
+        scales = {"k_scale": ks, "v_scale": vs}
+    mega = MegaQwen3(model, cfg=MegaConfig(
+        fuse_norms=True, cross_prefetch=overlap, overlap_ar=overlap))
+    dims = dc.replace(mega._dims(b, s_max, page, kv_quant=int8,
+                                 num_pages=n_pages),
+                      nsteps=ns, v_real=cfg.vocab_size)
+    kv_len = torch.from_numpy(lens_np.astype(np.int32)).to(dev)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, b).astype(
+        np.int32)).to(dev)
+    w = MegaWeights.from_params(model.params)
+    return model, mega, dims, w, (kc, vc, table, kv_len, tokens), scales
+
+
+@pytest.mark.parametrize("ns", [1, 8])
+@pytest.mark.parametrize("overlap", [False, True])
+@pytest.mark.parametrize("shape,dtype,int8", [
+    ("tiny-moe", torch.float32, False), ("tiny-moe", torch.float32, True),
+    ("moe16", torch.bfloat16, False), ("moe16", torch.bfloat16, True),
+])
+def test_mega_moe_matches_plain(dev, shape, dtype, int8, overlap, ns):
+    from triton_distributed_tpu_torch.megakernel.kernels import (
+        mega_decode_plain,
+    )
+
+    model, mega, dims, w, args, sc = _moe_inputs(dev, shape, dtype, ns,
+                                                 overlap, int8)
+    comp = mega._compile(dims)
+    cfg = model.cfg
+    route = torch.zeros((ns, cfg.num_layers, cfg.num_experts, dims.batch),
+                        dtype=torch.float32, device=dev)
+    x_rec = torch.zeros((ns, cfg.num_layers, dims.batch, dims.d),
+                        dtype=torch.float32, device=dev)
+    before = (ck.MEGA_DECODE.launches, ck.MEGA_DECODE_MOE.launches)
+    got = comp.run(w, *args, **sc, moe_route=route, moe_x=x_rec)
+    torch.cuda.synchronize()
+    assert (ck.MEGA_DECODE.launches, ck.MEGA_DECODE_MOE.launches) == (
+        before[0], before[1] + 1)
+    again = comp.run(w, *args, **sc)
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+    atol, rtol = MEGA_TOL[dtype]
+    assert torch.isfinite(got[0]).all()
+    if dtype == torch.float32:
+        # f32: the routing, the state at every gate, the tokens and the
+        # logits of the plain version as it runs by itself.
+        p_route, p_x = torch.zeros_like(route), torch.zeros_like(x_rec)
+        ref = mega_decode_plain(dims, True, comp.table, w, *args, **sc,
+                                moe_route=p_route, moe_x=p_x)
+        assert torch.equal(route != 0, p_route != 0)
+        assert (route - p_route).abs().max().item() < 1e-5
+        assert (x_rec - p_x).abs().max().item() < 1e-3
+        assert torch.equal(got[3], ref[3])
+        assert ((got[0] - ref[0]).abs() / atol).max().item() <= 1.0
+        return
+    cs = _chip_smoke()
+    forced = (route, x_rec, cfg.num_experts_per_tok, cfg.norm_topk_prob)
+    log = cs._ForcedGate(*forced)
+    ref = mega_decode_plain(dims, True, comp.table, w, *args, **sc,
+                            gate_hook=log)
+
+    def plain_at(s):
+        import dataclasses as dc
+
+        return mega_decode_plain(dc.replace(dims, nsteps=s + 1), True,
+                                 comp.table, w, *args, **sc,
+                                 gate_hook=cs._ForcedGate(*forced))[0]
+
+    rows = cs._moe_rows_ok(got, ref, log, plain_at, atol, rtol,
+                           f"{shape} ns={ns}")
+    print(f"moe {shape} int8={int8} overlap={overlap} ns={ns}: "
+          f"{ {key: v for key, v in rows.items() if key != 'ties'} }")
+
+
+def test_mega_moe_skips_unrouted_experts(dev):
+    """A batch routed to one expert (top-1 over a zero router: every
+    probability ties, the lowest index wins): the other experts' weights
+    are NaN, so only a kernel that skips them, barriers and all, stays
+    finite; it equals the plain version, which skips them too."""
+    from triton_distributed_tpu_torch.megakernel.kernels import (
+        mega_decode_plain,
+    )
+
+    for overlap in (False, True):
+        model, mega, dims, w, args, sc = _moe_inputs(
+            dev, "tiny-moe", torch.float32, 4, overlap,
+            num_experts_per_tok=1)
+        mlp = model.params["layers"]["mlp"]
+        mlp["w_router"].zero_()
+        mlp["w1"][:, 1:] = float("nan")
+        mlp["w2"][:, 1:] = float("nan")
+        comp = mega._compile(dims)
+        got = comp.run(w, *args)
+        torch.cuda.synchronize()
+        ref = mega_decode_plain(dims, True, comp.table, w, *args)
+        assert torch.isfinite(got[0]).all() and torch.isfinite(ref[0]).all()
+        assert torch.equal(got[3], ref[3])
+        assert (got[0] - ref[0]).abs().max().item() <= MEGA_TOL[
+            torch.float32][0]
+
+
+@pytest.mark.parametrize("ns", [1, 8])
+def test_mega_moe_traced_matches_untraced(dev, ns):
+    import dataclasses as dc
+
+    from triton_distributed_tpu_torch.megakernel.task import TaskType
+    from triton_distributed_tpu_torch.obs import kernel_trace as kt
+
+    model, mega, dims, w, args, _ = _moe_inputs(dev, "moe16",
+                                                torch.bfloat16, ns)
+    plain = mega._compile(dims).run(w, *args)
+    tdims = dc.replace(dims, trace=True)
+    comp = mega._compile(tdims)
+    got = comp.run(w, *args)
+    torch.cuda.synchronize()
+    for a, b in zip(plain, got[:5]):
+        assert torch.equal(a, b)
+    records = kt.decode_trace(got[5].cpu().numpy())
+    assert kt.validate_ring(records, comp.order) == []
+    rep = kt.overlap_report(records)
+    assert rep["a2a_windows"] == model.cfg.num_layers * ns
+    a2a = [r for r in records
+           if r.opcode in (int(TaskType.A2A_SEND), int(TaskType.A2A_WAIT))]
+    assert a2a and all(r.begin <= r.mid <= r.end for r in a2a)
+
+
+def test_mega_moe_serving_on_card_equals_cpu(dev):
+    """tiny-moe f32 served on the card and on the CPU: ContinuousEngine in
+    mode xla and mode mega (NS 4, the A2A combine, traced; the int8 pool
+    too) emits the same tokens; the mega runs launch the MoE kernel."""
+    from triton_distributed_tpu_torch.models import (
+        AutoLLM,
+        ContinuousEngine,
+    )
+
+    gpu = AutoLLM.from_pretrained("tiny-moe", device=dev, seed=0)
+    cpu = AutoLLM.from_pretrained("tiny-moe", device="cpu", seed=0)
+    cpu.set_params(gpu.params)
+    rng = np.random.default_rng(12)
+    reqs = [(rng.integers(0, 256, n).astype(np.int32), 9) for n in (20, 9, 30)]
+    for kw in (dict(), dict(mode="mega", ns=4, kernel_trace=True),
+               dict(mode="mega", ns=4, kv_dtype="int8")):
+        outs = []
+        for m, d in ((gpu, dev), (cpu, "cpu")):
+            before = ck.MEGA_DECODE_MOE.launches
+            eng = ContinuousEngine(m, max_batch=2, page_size=16,
+                                   max_length=64, prefix_cache=True,
+                                   device=d, **kw)
+            outs.append(np.concatenate(eng.run(reqs)))
+            assert eng.audit() == []
+            if d == dev and kw:
+                assert ck.MEGA_DECODE_MOE.launches > before
+        np.testing.assert_array_equal(outs[0], outs[1])
+

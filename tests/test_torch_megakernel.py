@@ -379,8 +379,8 @@ def test_continuous_mega_tokens_identical(models, goldens, prefix_cache):
 # -- refusals -----------------------------------------------------------------
 
 def test_refused_knobs_raise(models):
-    """The megakernel modes this port does not build yet refuse (MoE,
-    multi-rank), and so do the compositions the JAX package refuses (a
+    """The megakernel modes this port does not build yet refuse
+    (multi-rank), and so do the compositions the JAX package refuses (a
     work ring or eos off the paged path, a paged prefill, resident or
     traced engines outside mode='mega'). The int8 pool and int8 weights
     serve (tests/test_torch_mega_quant.py), sampled and filtered launches
@@ -400,9 +400,18 @@ def test_refused_knobs_raise(models):
     base = MegaDims(**_DIMS)
     import dataclasses
 
-    for over in (dict(num_experts=4, moe_top_k=2), dict(n_ranks=2)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            check_dims(dataclasses.replace(base, **over), MegaConfig())
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        check_dims(dataclasses.replace(base, n_ranks=2), MegaConfig())
+    # MoE builds at tp=1 (tests/test_torch_moe.py); with int8 weights, in
+    # a prefill graph or without a top-k it is refused, as in JAX.
+    moe = dataclasses.replace(base, num_experts=4, moe_top_k=2)
+    check_dims(moe, MegaConfig())
+    with pytest.raises(NotImplementedError, match="wq8"):
+        check_dims(moe, MegaConfig(wq8=True))
+    with pytest.raises(NotImplementedError, match="MoE prefill"):
+        check_dims(dataclasses.replace(moe, prefill=True), MegaConfig())
+    with pytest.raises(ValueError, match="moe_top_k"):
+        check_dims(dataclasses.replace(moe, moe_top_k=0), MegaConfig())
     with pytest.raises(NotImplementedError, match="paged prefill"):
         check_dims(dataclasses.replace(base, prefill=True, page=PAGE),
                    MegaConfig())

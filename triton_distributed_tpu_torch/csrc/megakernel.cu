@@ -108,6 +108,32 @@
 // weight streams and wgmma are later work; so are 16-byte int8 weight
 // loads (a thread owns 8 columns, one 8-byte load per row, with twice as
 // many rows in flight as in bf16).
+//
+// The MoE graph (the TPU kernel's dims.moe, kernels.py:1133 moe_gate_body,
+// :1188 moe_ffn_body, :1253 a2a_send_body, :1296 a2a_wait_body at tp=1) is
+// built from this same source into its own library (megakernel_moe.cu
+// defines TDT_MEGA_MOE): its instantiations carry kMoE, and the dense ones
+// compile exactly the code they compiled before. Per layer, in place of
+// FC1/FC2/ALLREDUCE: MOE_GATE (moe_gate: one block per row computes the
+// f32 router logits of its normed row, softmax over the E experts, and the
+// top-k by max-and-retire in one warp, ties to the lowest expert index,
+// renormalised under norm_topk, into the combine weights moe_w [E, B];
+// every block writes the normed rows to h under fused norms and zeroes the
+// accumulator moe_acc [B, d]; one grid barrier), one MOE_FFN per expert
+// (moe_ffn: the FC1 and FC2 streams of the dense path over the expert's
+// weights, FC2's sums scaled per row by the combine weight and added into
+// moe_acc) and the combine: the last expert's arg1 = 1 copies moe_acc to h
+// for ALLREDUCE, or under overlap_ar A2A_SEND phase 0 parks moe_acc in
+// a2buf and zeroes it, phase 1 parks it in cbuf, and A2A_WAIT folds x +=
+// a2buf + cbuf behind a grid barrier (at tp=1 no peer: the TPU bodies'
+// puts, waits and tile-0 prefetch drop out; the tracer stamps mid where
+// they call trace_mid). An expert whose combine weight is 0 for every row
+// of the launch is skipped by every block, barriers included: all blocks
+// read the same moe_w after the gate's barrier, so all decide alike, and
+// the skipped terms are exactly 0. A routed expert costs three barriers
+// (FC1 sums, SwiGLU, FC2 sums); FC2 keeps its split-K partials apart
+// from FC1's (part2), so no barrier follows the accumulate. Bound: bytes,
+// each routed expert's 2f(d) + f(d) weights once a step.
 #include "tdt_common.cuh"
 
 #include <math.h>
@@ -145,8 +171,10 @@ constexpr int kUnrollPV = 8;        // V rows in flight per thread
 enum : int {
   kEmbed = 0, kNorm = 1, kQkv = 2, kAttn = 3, kOProj = 4, kFc1 = 5,
   kFc2 = 6, kAllReduce = 7, kLmHead = 8, kAttnPrefill = 10, kLoadX = 11,
-  kRingPoll = 18
+  kMoeGate = 14, kMoeFfn = 15, kA2aSend = 16, kA2aWait = 17, kRingPoll = 18
 };
+constexpr int kMaxExperts = 256;    // the gate's warp holds 8 per lane
+constexpr int kGateUnroll = 8;      // router rows in flight per thread
 // Trace-ring record columns (megakernel/task.py TR_*).
 enum : int {
   kTrTaskId = 0, kTrOpcode = 1, kTrLayer = 2, kTrSlot = 3, kTrBegin = 4,
@@ -184,6 +212,16 @@ struct Params {
   // views for the prepared q [hq, S, hd] and k [hkv, S, hd] heads (f32)
   // and the rows' rstd [S].
   const void* x0; float* qf; float* kf; float* rstd;
+  // MoE: the router [L, d, E] (w1 is then [L, E, d, 2f] and w2 [L, E, f,
+  // d]); workspace views for the combine weights moe_w [E, B], the
+  // accumulator moe_acc, the split combine's a2buf and cbuf [B, d] and
+  // FC2's partials part2 [kMaxSplit, B, d]. E = 0 in a dense launch.
+  // moe_route [NS, L, E, B] and moe_x [NS, L, B, d] (optional, nullptr =
+  // none): every gate's combine weights and the residual rows it read, for
+  // a check that holds the routing and the state layer by layer.
+  const void* wrouter; float* moe_route; float* moe_x;
+  float* moe_w; float* moe_acc; float* a2buf; float* cbuf; float* part2;
+  int E, topk, norm_topk;
 };
 
 // -- small helpers -----------------------------------------------------------
@@ -1039,6 +1077,197 @@ __device__ __noinline__ void filtered_winner(const Params& p, int step, int b,
   __syncthreads();
 }
 
+// -- the MoE bodies -----------------------------------------------------------
+
+// MOE_GATE, before its grid barrier (see the header). sm holds the normed
+// row [d], the logit partials [kThreads] and the logits [E].
+template <typename T>
+__device__ __noinline__ void moe_gate(const Params& p, int step, int layer,
+                                      float* sm, float* rstd) {
+  const int B = p.B, d = p.d, E = p.E, tid = threadIdx.x;
+  const size_t gtid = (size_t)blockIdx.x * kThreads + tid;
+  const size_t gthreads = (size_t)gridDim.x * kThreads;
+  const T* ln2 = reinterpret_cast<const T*>(p.ln2) + (size_t)layer * d;
+  if (p.fuse_norms) row_rstd(p.x, B, d, p.eps, rstd);
+  for (size_t i = gtid; i < (size_t)B * d; i += gthreads) {
+    // The experts read the normed rows from h (the NORM task wrote them
+    // without fused norms).
+    if (p.fuse_norms)
+      p.h[i] = __ldcg(p.x + i) * rstd[i / d] * to_f32(ln2[i % d]);
+    p.moe_acc[i] = 0.f;
+  }
+  float* hn = sm;
+  float* lg = hn + d;
+  float* logit = lg + 8 * kThreads;  // lg: [parts][E] <= 8 * kThreads
+  const T* wr = reinterpret_cast<const T*>(p.wrouter) + (size_t)layer * d * E;
+  // f32 logits: thread (part, group) sums the rows k = part (mod parts) of
+  // 8 neighbouring experts' columns (one 16-byte load a row in bf16),
+  // kGateUnroll rows' loads in flight; the parts then add up in a fixed
+  // order. E is a multiple of 8, at most kMaxExperts.
+  const int groups = E / 8, parts = kThreads / groups;
+  const int grp = tid % groups, part = tid / groups;
+  for (int b = blockIdx.x; b < B; b += gridDim.x) {
+    for (int k = tid; k < d; k += kThreads)
+      hn[k] = p.fuse_norms ? __ldcg(p.x + (size_t)b * d + k) * rstd[b] *
+                                 to_f32(ln2[k])
+                           : __ldcg(p.h + (size_t)b * d + k);
+    __syncthreads();
+    if (p.moe_x != nullptr)
+      for (int k = tid; k < d; k += kThreads)
+        p.moe_x[(((size_t)step * p.L + layer) * B + b) * d + k] =
+            __ldcg(p.x + (size_t)b * d + k);
+    if (part < parts) {
+      float acc[8];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) acc[j] = 0.f;
+      for (int k0 = part; k0 < d; k0 += parts * kGateUnroll) {
+        Raw8<T> raw[kGateUnroll];
+#pragma unroll
+        for (int u = 0; u < kGateUnroll; ++u)
+          if (k0 + u * parts < d)
+            raw[u].load(wr + (size_t)(k0 + u * parts) * E + grp * 8);
+#pragma unroll
+        for (int u = 0; u < kGateUnroll; ++u) {
+          const int k = k0 + u * parts;
+          if (k < d) {
+            float wv[8];
+            raw[u].widen(wv);
+            const float hv = hn[k];
+#pragma unroll
+            for (int j = 0; j < 8; ++j) acc[j] = fmaf(hv, wv[j], acc[j]);
+          }
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < 8; ++j) lg[part * E + grp * 8 + j] = acc[j];
+    }
+    __syncthreads();
+    for (int e = tid; e < E; e += kThreads) {
+      float t = 0.f;
+      for (int q = 0; q < parts; ++q) t += lg[q * E + e];
+      logit[e] = t;
+    }
+    __syncthreads();
+    if (tid < 32) {
+      // Softmax over the experts, then top-k: k rounds of the warp's
+      // (max, lowest index) pick, each retiring its expert.
+      constexpr int kPer = kMaxExperts / 32;
+      const int lane = tid;
+      float pr[kPer], cw[kPer];
+      float m = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < kPer; ++j) {
+        const int e = lane + 32 * j;
+        pr[j] = e < E ? logit[e] : -INFINITY;
+        m = fmaxf(m, pr[j]);
+      }
+      m = warp_max(m);
+      float s = 0.f;
+#pragma unroll
+      for (int j = 0; j < kPer; ++j) {
+        pr[j] = lane + 32 * j < E ? expf(pr[j] - m) : 0.f;
+        s += pr[j];
+      }
+      s = warp_sum(s);
+#pragma unroll
+      for (int j = 0; j < kPer; ++j) {
+        // Retired and absent experts sit below every probability.
+        pr[j] = lane + 32 * j < E ? pr[j] / s : -2.f;
+        cw[j] = 0.f;
+      }
+      for (int it = 0; it < p.topk; ++it) {
+        float v = -3.f;
+        int idx = kIdxNone;
+#pragma unroll
+        for (int j = 0; j < kPer; ++j)
+          if (better(pr[j], lane + 32 * j, v, idx)) {
+            v = pr[j];
+            idx = lane + 32 * j;
+          }
+        warp_argmax(v, idx);
+#pragma unroll
+        for (int j = 0; j < kPer; ++j)
+          if (lane + 32 * j == idx) {
+            cw[j] = pr[j];
+            pr[j] = -1.f;
+          }
+      }
+      if (p.norm_topk) {
+        float t = 0.f;
+#pragma unroll
+        for (int j = 0; j < kPer; ++j) t += cw[j];
+        t = warp_sum(t);
+#pragma unroll
+        for (int j = 0; j < kPer; ++j) cw[j] = cw[j] / t;
+      }
+      float* route = p.moe_route == nullptr
+                         ? nullptr
+                         : p.moe_route + ((size_t)step * p.L + layer) * E * B;
+#pragma unroll
+      for (int j = 0; j < kPer; ++j) {
+        const int e = lane + 32 * j;
+        if (e < E) {
+          p.moe_w[(size_t)e * B + b] = cw[j];
+          if (route != nullptr) route[(size_t)e * B + b] = cw[j];
+        }
+      }
+    }
+    __syncthreads();
+  }
+}
+
+// K splits of an expert's GEMM with `ntiles` column tiles: as many as fill
+// the grid once (an expert's GEMMs are small: one unit a block, not the
+// dense path's doubling, which leaves some blocks two), each keeping >= 64
+// rows.
+__device__ __forceinline__ int pick_split_fill(int ntiles, int K) {
+  int s = max(1, min(kMaxSplit, (int)gridDim.x / ntiles));
+  while (s > 1 && K / s < 64) --s;
+  return s;
+}
+
+// MOE_FFN of expert e (see the header): skipped when no row routes to it;
+// arg1 = 1 then hands moe_acc to ALLREDUCE through h.
+template <typename T>
+__device__ __noinline__ void moe_ffn(const Params& p, int layer, int e,
+                                     int arg1, float* xs, float* red,
+                                     float* rstd) {
+  const int B = p.B, d = p.d, f = p.f, N1 = 2 * f;
+  const size_t gtid = (size_t)blockIdx.x * kThreads + threadIdx.x;
+  const size_t gthreads = (size_t)gridDim.x * kThreads;
+  const float* cw = p.moe_w + (size_t)e * B;
+  bool routed = false;
+  for (int b = 0; b < B; ++b) routed = routed || __ldcg(cw + b) != 0.f;
+  const size_t BD = (size_t)B * d;
+  if (routed) {
+    const size_t ex = (size_t)layer * p.E + e;
+    const T* w1 = reinterpret_cast<const T*>(p.w1) + ex * d * N1;
+    const T* w2 = reinterpret_cast<const T*>(p.w2) + ex * f * d;
+    int S = pick_split_fill((N1 + kTileN - 1) / kTileN, d);
+    gemm_partials<T, T>(w1, d, N1, B, S, p.h, (const T*)nullptr, rstd,
+                        p.part, xs, red);
+    grid_sync(p.bar);
+    const size_t BN = (size_t)B * N1;
+    for (size_t i = gtid; i < (size_t)B * f; i += gthreads) {
+      const size_t b = i / f, c = i % f;
+      const float gt = sum_parts(p.part, S, BN, b * N1 + c);
+      const float up = sum_parts(p.part, S, BN, b * N1 + f + c);
+      p.mlp[i] = gt * (1.0f / (1.0f + expf(-gt))) * up;
+    }
+    grid_sync(p.bar);
+    S = pick_split_fill((d + kTileN - 1) / kTileN, f);
+    gemm_partials<T, T>(w2, f, d, B, S, p.mlp, (const T*)nullptr, rstd,
+                        p.part2, xs, red);
+    grid_sync(p.bar);
+    // Same elements on the same threads as every other moe_acc access.
+    for (size_t i = gtid; i < BD; i += gthreads)
+      p.moe_acc[i] = __ldcg(p.moe_acc + i) +
+                     sum_parts(p.part2, S, BD, i) * __ldcg(cw + i / d);
+  }
+  if (arg1 == 1)
+    for (size_t i = gtid; i < BD; i += gthreads) p.h[i] = __ldcg(p.moe_acc + i);
+}
+
 // -- the device task tracer ---------------------------------------------------
 //
 // Block 0, thread 0 reads clock64() once at every task boundary, after the
@@ -1091,10 +1320,11 @@ __host__ __device__ __forceinline__ size_t smem_floats(int B, int region) {
 // T: model dtype; WT: projection weights (T or int8_t); CT: cache (T or
 // int8_t); kSample: a sampled launch (the noise, and the filtered pass when
 // p.filtered); kTrace: a traced or ring launch (the tracer's stamps when
-// p.trace is set, and the RING_POLL task). The other launches run
-// instantiations without that code, so that it weighs nothing on their
-// registers.
-template <typename T, typename WT, typename CT, bool kSample, bool kTrace>
+// p.trace is set, and the RING_POLL task); kMoE: an MoE graph (the MoE
+// library's instantiations). The other launches run instantiations without
+// that code, so that it weighs nothing on their registers.
+template <typename T, typename WT, typename CT, bool kSample, bool kTrace,
+          bool kMoE>
 __global__ void __launch_bounds__(kThreads, kMaxBlocksPerSM)
     mega_kernel(const __grid_constant__ Params p) {
   constexpr bool kQ8 = sizeof(WT) == 1;
@@ -1274,6 +1504,44 @@ __global__ void __launch_bounds__(kThreads, kMaxBlocksPerSM)
           break;
         }
         default:
+          // The MoE tasks, in kMoE instantiations only.
+          if constexpr (kMoE) {
+            if (type == kMoeGate) {
+              moe_gate<T>(p, step, layer, xs, rstd);
+              grid_sync(p.bar);
+              break;
+            }
+            if (type == kMoeFfn) {
+              moe_ffn<T>(p, layer, arg0, p.table[t * 8 + 3], xs, red, rstd);
+              // The next task reads moe_acc or h element by element on
+              // these threads; anything else waits for the grid.
+              if (next != kMoeFfn && next != kA2aSend && next != kAllReduce)
+                grid_sync(p.bar);
+              break;
+            }
+            if (type == kA2aSend || type == kA2aWait) {
+              const bool wait = type == kA2aWait;
+              if constexpr (kTrace) {
+                if (wait && tracer) trace_mid(p, step * p.T + t, &trace_t0);
+              }
+              for (size_t i = gtid; i < (size_t)B * d; i += gthreads) {
+                if (wait) {
+                  p.x[i] = __ldcg(p.x + i) + __ldcg(p.a2buf + i) +
+                           __ldcg(p.cbuf + i);
+                } else if (arg0 == 0) {
+                  p.a2buf[i] = __ldcg(p.moe_acc + i);
+                  p.moe_acc[i] = 0.f;
+                } else {
+                  p.cbuf[i] = __ldcg(p.moe_acc + i);
+                }
+              }
+              if constexpr (kTrace) {
+                if (!wait && tracer) trace_mid(p, step * p.T + t, &trace_t0);
+              }
+              if (wait) grid_sync(p.bar);
+              break;
+            }
+          }
           // RING_POLL: only ring launches have it, and they run a kTrace
           // instantiation; untraced, it is a no-op. Kept out of the case
           // labels, so that the other instantiations compile the switch
@@ -1296,9 +1564,10 @@ __global__ void __launch_bounds__(kThreads, kMaxBlocksPerSM)
   }
 }
 
-template <typename T, typename WT, typename CT, bool kSample, bool kTrace>
+template <typename T, typename WT, typename CT, bool kSample, bool kTrace,
+          bool kMoE>
 int launch(Params p, long long ws_floats, int* info, cudaStream_t stream) {
-  auto kern = mega_kernel<T, WT, CT, kSample, kTrace>;
+  auto kern = mega_kernel<T, WT, CT, kSample, kTrace, kMoE>;
   int dev = 0, sms = 0, coop = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return (int)e;
@@ -1312,6 +1581,7 @@ int launch(Params p, long long ws_floats, int* info, cudaStream_t stream) {
   const int attn_m = g * p.hd + g * (p.nsteps + 1);
   int region = max(min(p.B, kGroupB) * kmax, max(attn_b, attn_m));
   if (p.filtered) region = max(region, kFiltFloats);
+  if (kMoE) region = max(region, p.d + 8 * kThreads + p.E);  // the gate
   const size_t smem = sizeof(float) * smem_floats(p.B, region);
   e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                            (int)smem);
@@ -1339,6 +1609,13 @@ int launch(Params p, long long ws_floats, int* info, cudaStream_t stream) {
   p.vself = take(B * p.hkv * p.hd);
   p.argv = take((size_t)nblk * B);
   p.argi = reinterpret_cast<int*>(take((size_t)nblk * B));
+  if (kMoE) {
+    p.moe_w = take((size_t)p.E * B);
+    p.moe_acc = take(B * p.d);
+    p.a2buf = take(B * p.d);
+    p.cbuf = take(B * p.d);
+    p.part2 = take((size_t)kMaxSplit * B * p.d);
+  }
   if ((long long)off > ws_floats) return (int)cudaErrorInvalidValue;
   info[0] = nblk;
   info[1] = (int)smem;
@@ -1352,25 +1629,33 @@ int launch(Params p, long long ws_floats, int* info, cudaStream_t stream) {
 }
 
 // Greedy or sampled, for one storage-type combination.
-template <typename T, typename WT, typename CT>
+template <typename T, typename WT, typename CT, bool kMoE>
 int launch_s(const Params& p, long long ws_floats, int* info,
              cudaStream_t s) {
   if (p.trace != nullptr || p.ring_state != nullptr)
-    return p.sampled ? launch<T, WT, CT, true, true>(p, ws_floats, info, s)
-                     : launch<T, WT, CT, false, true>(p, ws_floats, info, s);
-  return p.sampled ? launch<T, WT, CT, true, false>(p, ws_floats, info, s)
-                   : launch<T, WT, CT, false, false>(p, ws_floats, info, s);
+    return p.sampled
+               ? launch<T, WT, CT, true, true, kMoE>(p, ws_floats, info, s)
+               : launch<T, WT, CT, false, true, kMoE>(p, ws_floats, info, s);
+  return p.sampled
+             ? launch<T, WT, CT, true, false, kMoE>(p, ws_floats, info, s)
+             : launch<T, WT, CT, false, false, kMoE>(p, ws_floats, info, s);
 }
 
-// The weight and cache storage types of one model dtype T.
-template <typename T>
+// The weight and cache storage types of one model dtype T. The MoE build
+// has no int8 weights (wq8 does not compose with MoE).
+template <typename T, bool kMoE>
 int launch_t(const Params& p, int wq8, int kv_quant, long long ws_floats,
              int* info, cudaStream_t s) {
-  if (wq8)
-    return kv_quant ? launch_s<T, int8_t, int8_t>(p, ws_floats, info, s)
-                    : launch_s<T, int8_t, T>(p, ws_floats, info, s);
-  return kv_quant ? launch_s<T, T, int8_t>(p, ws_floats, info, s)
-                  : launch_s<T, T, T>(p, ws_floats, info, s);
+  if constexpr (kMoE) {
+    if (wq8) return (int)cudaErrorInvalidValue;
+  } else {
+    if (wq8)
+      return kv_quant
+                 ? launch_s<T, int8_t, int8_t, false>(p, ws_floats, info, s)
+                 : launch_s<T, int8_t, T, false>(p, ws_floats, info, s);
+  }
+  return kv_quant ? launch_s<T, T, int8_t, kMoE>(p, ws_floats, info, s)
+                  : launch_s<T, T, T, kMoE>(p, ws_floats, info, s);
 }
 
 // -- the prefill megakernel ---------------------------------------------------
@@ -1764,12 +2049,22 @@ int launch_prefill(Params p, long long ws_floats, int* info,
 //   the LM head takes the argmax and feeds it back), wq8 (1 = int8
 //   weights), kv_quant (1 = int8 pool, paged only), sampled (1 = the
 //   argmax over logits + noise), filtered (1 = over each row's top-k/top-p
-//   keep-set; needs sampled).
+//   keep-set; needs sampled), then the MoE router [L, d, E] (0 when dense)
+//   and the routing records [NS, L, E, B] and [NS, L, B, d] f32 (0 =
+//   none: the gates' combine weights and the residual rows they read),
+//   and the ints E
+//   (0 = dense), top_k, norm_topk. The dense library takes
+//   E = 0 only, the MoE library (TDT_MEGA_MOE) E > 0 only.
 // info (out): blocks launched, dynamic shared memory bytes, blocks per SM
 //   the occupancy calculator allows.
 extern "C" int tdt_mega_decode(const unsigned long long* ptrs,
                                const int* ints, float eps, float sm_scale,
                                int* info, void* stream) {
+#ifdef TDT_MEGA_MOE
+  constexpr bool kMoE = true;
+#else
+  constexpr bool kMoE = false;
+#endif
   Params p{};
   int k = 0;
   p.embed = (const void*)ptrs[k++];
@@ -1809,6 +2104,9 @@ extern "C" int tdt_mega_decode(const unsigned long long* ptrs,
   p.sampcfg = (const float*)ptrs[k++];
   p.trace = (int*)ptrs[k++];
   p.ring_state = (const int*)ptrs[k++];
+  p.wrouter = (const void*)ptrs[k++];
+  p.moe_route = (float*)ptrs[k++];
+  p.moe_x = (float*)ptrs[k++];
   int i = 0;
   p.T = ints[i++];
   p.nsteps = ints[i++];
@@ -1835,6 +2133,9 @@ extern "C" int tdt_mega_decode(const unsigned long long* ptrs,
   const int kv_quant = ints[i++];
   p.sampled = ints[i++];
   p.filtered = ints[i++];
+  p.E = ints[i++];
+  p.topk = ints[i++];
+  p.norm_topk = ints[i++];
   p.nch = (p.s_cap + kAttnChunk - 1) / kAttnChunk;
   p.eps = eps;
   p.sm_scale = sm_scale;
@@ -1851,15 +2152,21 @@ extern "C" int tdt_mega_decode(const unsigned long long* ptrs,
       (kv_quant && (p.page == 0 || p.ksc == nullptr || p.vsc == nullptr)) ||
       (p.sampled && (p.noise == nullptr || !p.argmax)) ||
       (p.filtered && (p.sampcfg == nullptr || !p.sampled ||
-                      p.v_pad % 4 != 0)))
+                      p.v_pad % 4 != 0)) ||
+      (kMoE ? (p.E < 8 || p.E > kMaxExperts || p.E % 8 != 0 || p.topk < 1 ||
+               p.topk > p.E || p.wrouter == nullptr)
+            : p.E != 0))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == tdt::kDtypeF32)
-    return launch_t<float>(p, wq8, kv_quant, ws_floats, info, s);
+    return launch_t<float, kMoE>(p, wq8, kv_quant, ws_floats, info, s);
   if (dtype == tdt::kDtypeBF16)
-    return launch_t<__nv_bfloat16>(p, wq8, kv_quant, ws_floats, info, s);
+    return launch_t<__nv_bfloat16, kMoE>(p, wq8, kv_quant, ws_floats, info,
+                                          s);
   return (int)cudaErrorInvalidValue;
 }
+
+#ifndef TDT_MEGA_MOE
 
 // The prefill megakernel over one prompt of S rows.
 // ptrs: x0 [S, d] (T), wqkv, wo, w1, w2, lm_head, ln1, ln2, normf, qn, kn,
@@ -1933,3 +2240,5 @@ extern "C" int tdt_mega_prefill(const unsigned long long* ptrs,
                      p, ws_floats, info, s);
   return (int)cudaErrorInvalidValue;
 }
+
+#endif  // TDT_MEGA_MOE

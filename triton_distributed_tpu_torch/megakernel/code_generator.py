@@ -22,8 +22,12 @@ over each row's exact top-k/top-p keep-set, per-row ``sampcfg [B, 4]``);
 per-task records) and ``ring`` (a leading RING_POLL task that stamps the
 published work-ring doorbell, ``ring_state [4]``). :func:`mega_prefill`
 runs the prefill graph (``dims.prefill``) over one prompt's S rows.
-MoE and ``n_ranks > 1`` raise ``NotImplementedError`` naming the
-ROADMAP row that ports them.
+An MoE decode graph (``dims.moe``: MOE_GATE, MOE_FFN per expert, and
+the combine through ALLREDUCE or, under ``overlap_ar``, A2A_SEND /
+A2A_WAIT, local at tp=1) launches the MoE build of the same source
+(``cuda_kernels.MEGA_DECODE_MOE``). ``n_ranks > 1`` raises
+``NotImplementedError`` naming the ROADMAP row that ports it; MoE with
+``wq8`` or in a prefill graph is refused as the JAX package refuses it.
 """
 
 from __future__ import annotations
@@ -49,6 +53,11 @@ KERNEL_TASKS = frozenset({
     TaskType.O_PROJ, TaskType.FC1, TaskType.FC2, TaskType.ALLREDUCE,
     TaskType.LM_HEAD, TaskType.RING_POLL,
 })
+# The MoE graph's own bodies (the MoE build of ``mega_kernel``).
+MOE_TASKS = frozenset({
+    TaskType.MOE_GATE, TaskType.MOE_FFN, TaskType.A2A_SEND,
+    TaskType.A2A_WAIT,
+})
 PREFILL_TASKS = frozenset({
     TaskType.LOAD_X, TaskType.NORM, TaskType.QKV_PROJ,
     TaskType.ATTN_PREFILL, TaskType.O_PROJ, TaskType.FC1, TaskType.FC2,
@@ -59,6 +68,9 @@ PREFILL_TASKS = frozenset({
 MAX_SPLIT = 16
 ATTN_CHUNK = 128
 MAX_BLOCKS_PER_SM = 2
+# Experts the MoE gate ranks in one warp (kMaxExperts: 8 per lane; its
+# router loads take 8 experts' columns at a time, so E % 8 == 0).
+MAX_EXPERTS = 256
 # The prefill kernel's shared memory (kWarps, kGroupB, kTileN,
 # kPrefillRows, kPrefillKeys) and the most a block may take on Hopper.
 _WARPS, _GROUP_B, _TILE_N = 8, 4, 64
@@ -75,8 +87,9 @@ class MegaDims:
     ``sampled``) restricts it to each row's top-k/top-p keep-set.
     ``trace`` adds the device task tracer's ring, ``ring`` a leading
     RING_POLL task, and ``prefill`` makes ``batch`` the prompt's S rows
-    (the prefill graph). MoE and ``n_ranks > 1`` are refused by
-    :func:`check_dims`."""
+    (the prefill graph). ``num_experts > 0`` makes the MLP the routed
+    experts' (``f_loc`` is then one expert's full width); ``n_ranks >
+    1`` is refused by :func:`check_dims`."""
 
     batch: int
     d: int
@@ -129,7 +142,9 @@ class MegaConfig:
     """The JAX package's tile configuration. Only ``fuse_norms`` changes
     what the CUDA kernel computes (it drops the NORM tasks from the graph
     and the consumers normalise inline); ``overlap_ar`` changes the graph
-    only at tp > 1. The TPU staging knobs — ``tile_n``, ``tile_k``,
+    at tp > 1 and, at tp=1, only an MoE graph's combine (A2A_SEND /
+    A2A_WAIT in place of ALLREDUCE: the combine folded in two halves).
+    The TPU staging knobs — ``tile_n``, ``tile_k``,
     ``s_blk``, ``nbuf``, ``cross_prefetch`` — are accepted so configs
     and spec strings carry over, and do not change the CUDA kernel,
     which sizes its own tiles. ``wq8`` decodes from int8 weights
@@ -198,6 +213,9 @@ class MegaWeights:
     normf: torch.Tensor    # [d]
     qn: torch.Tensor       # [L, hd]
     kn: torch.Tensor       # [L, hd]
+    # MoE: the router [L, d, E]; w1 is then [L, E, d, 2f] and w2 [L, E,
+    # f, d] (the JAX MoEMegaParams at tp=1: the model's own tensors).
+    wrouter: torch.Tensor | None = None
     sc_qkv: torch.Tensor | None = None  # [L, 1, qkv]
     sc_o: torch.Tensor | None = None    # [L, 1, d]
     sc_w1: torch.Tensor | None = None   # [L, 1, 2f]
@@ -209,7 +227,7 @@ class MegaWeights:
         """From the model's parameter dict, or from a ``Q8Params``."""
         if not isinstance(params, dict):
             return cls(**{f.name: getattr(params, "norm" if f.name == "normf"
-                                          else f.name)
+                                          else f.name, None)
                           for f in dataclasses.fields(cls)})
         lp = params["layers"]
         return cls(
@@ -217,7 +235,7 @@ class MegaWeights:
             wo=lp["attn"]["wo"], w1=lp["mlp"]["w1"], w2=lp["mlp"]["w2"],
             lm_head=params["lm_head"], ln1=lp["ln1"], ln2=lp["ln2"],
             normf=params["norm"], qn=lp["attn"]["q_norm"],
-            kn=lp["attn"]["k_norm"],
+            kn=lp["attn"]["k_norm"], wrouter=lp["mlp"].get("w_router"),
         )
 
     @property
@@ -229,8 +247,11 @@ def check_dims(dims: MegaDims, cfg: MegaConfig) -> None:
     """Refuse what this slice does not build, naming the ROADMAP item,
     and what the JAX package refuses (a paged or sampled prefill)."""
     refused = [
-        (dims.moe, "MoE megakernel bodies are not ported yet (ROADMAP "
-                   "queue 2 row 6(f))"),
+        (dims.moe and cfg.wq8, "wq8 does not compose with MoE decode yet "
+                               "(per-expert per-channel scale planes)"),
+        (dims.moe and dims.prefill,
+         "MoE prefill runs through the model path (the engines prefill "
+         "with mode='xla' under mode='mega')"),
         (dims.n_ranks != 1 or dims.straggler_rank is not None,
          "multi-rank megakernel bodies are not ported yet (ROADMAP queue 2 "
          "row 6(e), tp > 1)"),
@@ -240,6 +261,13 @@ def check_dims(dims: MegaDims, cfg: MegaConfig) -> None:
     for bad, msg in refused:
         if bad:
             raise NotImplementedError(msg)
+    if dims.moe:
+        if dims.num_experts % dims.n_ranks:
+            raise ValueError(
+                f"num_experts {dims.num_experts} not divisible by "
+                f"tp={dims.n_ranks} (EP shards the expert axis)")
+        if not dims.moe_top_k:
+            raise ValueError("MoE dims need moe_top_k > 0")
     if dims.prefill:
         if dims.nsteps != 1 or dims.trace or dims.ring or dims.eos:
             raise ValueError("the prefill graph runs one step, without a "
@@ -275,16 +303,20 @@ def check_dims(dims: MegaDims, cfg: MegaConfig) -> None:
 def workspace_floats(dims: MegaDims, n_sms: int) -> int:
     """f32 workspace the kernel needs (``csrc/megakernel.cu``'s layout):
     the state between tasks, split-K partials, attention partials, the
-    per-block argmax candidates."""
+    per-block argmax candidates; an MoE graph adds its scratch (combine
+    weights ``[E, B]``, the combine accumulator and the two exchange
+    buffers ``[B, d]`` each, FC2's split-K partials)."""
     B, d, hd = dims.batch, dims.d, dims.head_dim
     hq, hkv = dims.hq_loc, dims.hkv_loc
     g = hq // hkv
     nch = -(-dims.s_max // ATTN_CHUNK)
     nblk = n_sms * MAX_BLOCKS_PER_SM
+    moe = (dims.num_experts * B + 3 * B * d + MAX_SPLIT * B * d
+           if dims.moe else 0)
     return (2 * B * d + B * dims.qkv_loc + B * hq * hd + B * dims.f_loc
             + MAX_SPLIT * B * max(dims.qkv_loc, d, 2 * dims.f_loc)
             + B * hkv * nch * g * (hd + 2)
-            + B * hq * hd + 2 * B * hkv * hd + 2 * nblk * B)
+            + B * hq * hd + 2 * B * hkv * hd + 2 * nblk * B + moe)
 
 
 def prefill_workspace_floats(dims: MegaDims) -> int:
@@ -314,7 +346,8 @@ def mega_decode(dims: MegaDims, cfg: MegaConfig, table: torch.Tensor,
                 w: MegaWeights, kc, vc, page_table, kv_len, tokens,
                 stop_tok=None, inv_freq=None, bar=None,
                 info: dict | None = None, k_scale=None, v_scale=None,
-                noise=None, sampcfg=None, ring_state=None):
+                noise=None, sampcfg=None, ring_state=None, moe_route=None,
+                moe_x=None):
     """Run the packed task ``table [T, 8]`` for ``dims.nsteps`` steps.
 
     On CUDA tensors: one cooperative launch of ``csrc/megakernel.cu``
@@ -333,9 +366,14 @@ def mega_decode(dims: MegaDims, cfg: MegaConfig, table: torch.Tensor,
     ``sampcfg [B, 4]`` f32 rows ``[1/T, top-k window, top-p, enable]``
     (``sampling.sampcfg_row``). ``dims.ring`` takes ``ring_state [4]``
     int32 (``WorkRing.publish``), whose doorbell the RING_POLL task
-    stamps; ``dims.trace`` appends the trace ring ``[NS, T, 8]`` int32 to
+    stamps; an MoE graph takes ``moe_route [NS, L, E, B]`` and ``moe_x
+    [NS, L, B, d]`` f32 (optional, together), into which every MOE_GATE
+    writes its combine weights and the residual rows it read (the routing
+    and the state it was computed from, for a check to hold);
+    ``dims.trace`` appends the trace ring ``[NS, T, 8]`` int32 to
     the returns (a traced CUDA launch is counted in
-    ``cuda_kernels.MEGA_DECODE_TRACED``)."""
+    ``cuda_kernels.MEGA_DECODE_TRACED``; an MoE launch, traced or not, in
+    ``cuda_kernels.MEGA_DECODE_MOE``)."""
     check_dims(dims, cfg)
     if dims.prefill:
         raise ValueError("a prefill graph launches through mega_prefill")
@@ -364,6 +402,18 @@ def mega_decode(dims: MegaDims, cfg: MegaConfig, table: torch.Tensor,
                               or t.dtype != torch.float32):
             raise ValueError(f"{name} must be {shape} f32, got "
                              f"{tuple(t.shape)} {t.dtype}")
+    if (moe_route is None) != (moe_x is None):
+        raise ValueError("moe_route and moe_x go together")
+    if moe_route is not None:
+        lead = (dims.nsteps, dims.num_layers)
+        for name, t, shape in (
+                ("moe_route", moe_route,
+                 lead + (dims.num_experts, dims.batch)),
+                ("moe_x", moe_x, lead + (dims.batch, dims.d))):
+            if not dims.moe or tuple(t.shape) != shape or (
+                    t.dtype != torch.float32):
+                raise ValueError(f"{name} must be {shape} f32 on an MoE "
+                                 f"graph, got {tuple(t.shape)}")
     dev = kv_len.device
     if inv_freq is None:
         inv_freq = _kernels.rope_inv_freq(dims.head_dim, dims.rope_theta,
@@ -372,12 +422,13 @@ def mega_decode(dims: MegaDims, cfg: MegaConfig, table: torch.Tensor,
         return _kernels.mega_decode_plain(
             dims, cfg.fuse_norms, table.cpu().numpy(), w, kc, vc,
             page_table, kv_len, tokens, stop_tok, inv_freq, k_scale, v_scale,
-            noise, sampcfg, ring_state)
+            noise, sampcfg, ring_state, moe_route=moe_route,
+            moe_x=moe_x)
     if bar is None:
         bar = torch.zeros(4, dtype=torch.int32, device=dev)
     return _launch(dims, cfg, table, w, kc, vc, page_table, kv_len, tokens,
                    stop_tok, inv_freq, bar, info, k_scale, v_scale, noise,
-                   sampcfg, ring_state)
+                   sampcfg, ring_state, moe_route, moe_x)
 
 
 def _check_weights(w: MegaWeights, cfg: MegaConfig, dims: MegaDims, dev):
@@ -388,9 +439,27 @@ def _check_weights(w: MegaWeights, cfg: MegaConfig, dims: MegaDims, dev):
     if mdt not in ck.DTYPE_CODES:
         raise ValueError(f"megakernel model dtype must be f32/bf16, got {mdt}")
     wdt = torch.int8 if cfg.wq8 else mdt
+    if dims.moe != (w.wrouter is not None):
+        raise ValueError("the router weight is given exactly when dims.moe "
+                         "is set")
+    if dims.moe:
+        E, d, f = dims.num_experts, dims.d, dims.f_loc
+        for name, t, shape in (("wrouter", w.wrouter, (L, d, E)),
+                               ("w1", w.w1, (L, E, d, 2 * f)),
+                               ("w2", w.w2, (L, E, f, d))):
+            if tuple(t.shape) != shape:
+                raise ValueError(f"{name} {tuple(t.shape)} disagrees with "
+                                 f"dims {shape}")
+        if E > MAX_EXPERTS or E % 8 or dims.moe_top_k > E:
+            raise ValueError(f"the MoE gate ranks a multiple of 8 experts, "
+                             f"at most {MAX_EXPERTS}, and top_k <= experts; "
+                             f"got E={E}, top_k={dims.moe_top_k}")
     for f in dataclasses.fields(w):  # (asdict would deep-copy tensors)
         t = getattr(w, f.name)
-        if f.name.startswith("sc_"):
+        if f.name == "wrouter":
+            if t is not None:
+                ck.check_cuda_operand(f.name, t, dev, mdt)
+        elif f.name.startswith("sc_"):
             if cfg.wq8:
                 ck.check_cuda_operand(f.name, t, dev, torch.float32)
         elif f.name in ("wqkv", "wo", "w1", "w2", "lm_head"):
@@ -409,7 +478,7 @@ def _check_weights(w: MegaWeights, cfg: MegaConfig, dims: MegaDims, dev):
 
 def _launch(dims, cfg, table, w, kc, vc, page_table, kv_len, tokens,
             stop_tok, inv_freq, bar, info, k_scale, v_scale, noise, sampcfg,
-            ring_state):
+            ring_state, moe_route, moe_x):
     dev = kv_len.device
     B, NS, L = dims.batch, dims.nsteps, dims.num_layers
     hkv, hd = dims.hkv_loc, dims.head_dim
@@ -447,6 +516,9 @@ def _launch(dims, cfg, table, w, kc, vc, page_table, kv_len, tokens,
         ck.check_cuda_operand("sampcfg", sampcfg, dev, torch.float32, 2)
     if dims.ring:
         ck.check_cuda_operand("ring_state", ring_state, dev, torch.int32, 1)
+    if moe_route is not None:
+        ck.check_cuda_operand("moe_route", moe_route, dev, torch.float32, 4)
+        ck.check_cuda_operand("moe_x", moe_x, dev, torch.float32, 4)
     n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
     ws_n = workspace_floats(dims, n_sms)
     ws = torch.empty(ws_n, dtype=torch.float32, device=dev)
@@ -460,23 +532,26 @@ def _launch(dims, cfg, table, w, kc, vc, page_table, kv_len, tokens,
                          dtype=torch.int32, device=dev)
              if dims.trace else None)
 
-    ptrs = (ctypes.c_uint64 * 37)(*[_ptr(t) for t in (
+    ptrs = (ctypes.c_uint64 * 40)(*[_ptr(t) for t in (
         w.embed, w.wqkv, w.wo, w.w1, w.w2, w.lm_head, w.ln1, w.ln2,
         w.normf, w.qn, w.kn, kc, vc, page_table if dims.page else None,
         kv_len, tokens, stop_tok if dims.eos else None, table, inv_freq,
         logits, knew, vnew, toks, stop_step, ws, bar,
         w.sc_qkv, w.sc_o, w.sc_w1, w.sc_w2, w.sc_lm, k_scale, v_scale,
-        noise, sampcfg, trace, ring_state if dims.ring else None)])
-    ints = (ctypes.c_int * 25)(
+        noise, sampcfg, trace, ring_state if dims.ring else None,
+        w.wrouter, moe_route, moe_x)])
+    ints = (ctypes.c_int * 28)(
         table.shape[0], NS, B, dims.d, dims.hq_loc, hkv, hd, dims.f_loc,
         dims.v_loc, min(dims.v_real or dims.v_loc, dims.v_loc), L,
         dims.s_max, dims.page, dims.s_max // dims.page if dims.page else 0,
         kc.shape[1] if dims.page else 0, int(cfg.fuse_norms),
         int(dims.eos), ck.DTYPE_CODES[mdt], ws_n, w.embed.shape[0],
         int(_kernels.takes_argmax(dims)), int(cfg.wq8), int(dims.kv_quant),
-        int(dims.sampled), int(dims.filtered))
+        int(dims.sampled), int(dims.filtered), dims.num_experts,
+        dims.moe_top_k, int(dims.norm_topk))
     out = (ctypes.c_int * 4)()
-    kernel = ck.MEGA_DECODE_TRACED if dims.trace else ck.MEGA_DECODE
+    kernel = (ck.MEGA_DECODE_MOE if dims.moe else ck.MEGA_DECODE_TRACED
+              if dims.trace else ck.MEGA_DECODE)
     kernel(ptrs, ints, ctypes.c_float(dims.rms_eps),
            ctypes.c_float(hd ** -0.5), out, ck.stream_ptr(kv_len))
     if info is not None:
@@ -564,7 +639,8 @@ class MegaCall:
                  table: np.ndarray, device):
         check_dims(dims, cfg)
         used = {t.task_type for t in tasks}
-        bodies = PREFILL_TASKS if dims.prefill else KERNEL_TASKS
+        bodies = (PREFILL_TASKS if dims.prefill else KERNEL_TASKS | MOE_TASKS
+                  if dims.moe else KERNEL_TASKS)
         if not used <= bodies:
             raise NotImplementedError(
                 f"no CUDA megakernel body for "
@@ -577,11 +653,12 @@ class MegaCall:
 
     def __call__(self, w: MegaWeights, kc, vc, page_table, kv_len, tokens,
                  stop_tok=None, info: dict | None = None, k_scale=None,
-                 v_scale=None, noise=None, sampcfg=None, ring_state=None):
+                 v_scale=None, noise=None, sampcfg=None, ring_state=None,
+                 moe_route=None, moe_x=None):
         return mega_decode(self.dims, self.cfg, self.table, w, kc, vc,
                            page_table, kv_len, tokens, stop_tok,
                            self.inv_freq, self.bar, info, k_scale, v_scale,
-                           noise, sampcfg, ring_state)
+                           noise, sampcfg, ring_state, moe_route, moe_x)
 
     def prefill(self, w: MegaWeights, x0, true_len,
                 info: dict | None = None):

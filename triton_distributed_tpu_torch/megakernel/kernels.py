@@ -29,6 +29,20 @@ doorbell into its trace record. The prefill graph
 and ATTN_PREFILL (causal attention over the S prompt rows), and its
 LM_HEAD projects only the last real row.
 
+The MoE graph (``dims.moe``) replaces each layer's FC1/FC2/ALLREDUCE with
+MOE_GATE (f32 router logits over the normed ``h``, softmax over the
+experts, the top k with ties to the lowest expert index, as the JAX
+body's max-and-retire loop picks them, optional renormalisation, into
+the combine weights ``moe_w [E, B]``),
+one MOE_FFN per expert (SwiGLU FFN of every row, FC2's f32 sums scaled
+per row by the combine weight and added into ``moe_acc [B, d]``) and the
+combine: the last expert's ``arg1 = 1`` hands ``moe_acc`` to ALLREDUCE,
+or, under ``overlap_ar``, A2A_SEND phase 0 parks the first half's sum in
+``a2buf`` and restarts ``moe_acc``, phase 1 parks the rest in ``cbuf``
+and A2A_WAIT folds ``x += a2buf + cbuf`` (at tp=1 there is no peer: the
+JAX bodies' puts and waits drop out). An expert whose combine weight is
+0 for every row is skipped: its terms are exactly 0.
+
 Under ``dims.trace`` every (step, task) writes a ``[task_id, opcode,
 layer, arg0, begin, end, mid, flag]`` record (``task.TR_*``) on a
 logical clock: one tick at every begin, ALLREDUCE's mid and every end,
@@ -80,7 +94,8 @@ class MegaState:
     def __init__(self, dims, fuse_norms: bool, weights, kc, vc, page_table,
                  kv_len, tokens, stop_tok, inv_freq, k_scale=None,
                  v_scale=None, noise=None, sampcfg=None, ring_state=None,
-                 x0=None, n_tasks: int = 0):
+                 x0=None, n_tasks: int = 0, gate_hook=None, moe_route=None,
+                 moe_x=None):
         B, d = dims.batch, dims.d
         dev = kv_len.device
         self.dims, self.fuse_norms, self.w = dims, fuse_norms, weights
@@ -104,6 +119,14 @@ class MegaState:
         self.qkv = torch.zeros((B, dims.qkv_loc), **f32)
         self.ao = torch.zeros((B, dims.o_k), **f32)
         self.mlp = torch.zeros((B, dims.f_loc), **f32)
+        if dims.moe:
+            self.moe_w = torch.zeros((dims.num_experts, B), **f32)
+            self.moe_acc = torch.zeros((B, d), **f32)
+            self.a2buf = torch.zeros((B, d), **f32)
+            self.cbuf = torch.zeros((B, d), **f32)
+        self.arg1 = 0  # the running task's header arg1
+        self.gate_hook = gate_hook
+        self.moe_route, self.moe_x = moe_route, moe_x
         self.tok = tokens.long()
         NS, L, hkv, hd = dims.nsteps, dims.num_layers, dims.hkv_loc, \
             dims.head_dim
@@ -279,6 +302,80 @@ def allreduce_body(st: MegaState, layer: int, arg0: int) -> None:
     st.x = st.x + st.h
 
 
+@register_task(TaskType.MOE_GATE)
+def moe_gate_body(st: MegaState, layer: int, arg0: int) -> None:
+    """Router: f32 logits of the normed input (the NORM task's ``h``, or
+    under fused norms ``x`` normed inline and left in ``h`` for the
+    experts), softmax over the experts, the top ``k`` by a stable
+    descending sort (the JAX body's max-and-retire loop: ties to the
+    lowest expert index), renormalised under ``norm_topk``, into the
+    combine weights ``moe_w [E, B]`` (0 where unrouted); ``moe_acc``
+    restarts at 0."""
+    dims = st.dims
+    if st.gate_hook is not None:
+        st.gate_hook.enter(st, layer)
+    if st.moe_route is not None:
+        st.moe_x[st.step, layer] = st.x
+    h_in = _normed_input(st, layer, 1)
+    if st.fuse_norms:
+        st.h = h_in
+    logits = h_in @ st.w.wrouter[layer].to(torch.float32)  # [B, E]
+    p = torch.exp(logits - logits.max(dim=-1, keepdim=True).values)
+    p = p / p.sum(dim=-1, keepdim=True)
+    vals, idx = torch.sort(p, dim=-1, descending=True, stable=True)
+    cw = torch.zeros_like(p).scatter_(1, idx[:, :dims.moe_top_k],
+                                      vals[:, :dims.moe_top_k])
+    if dims.norm_topk:
+        cw = cw / cw.sum(dim=-1, keepdim=True)
+    if st.gate_hook is not None:
+        cw = st.gate_hook.route(st.step, layer, p, cw)
+    st.moe_w = cw.T.contiguous()
+    if st.moe_route is not None:
+        st.moe_route[st.step, layer] = st.moe_w
+    st.moe_acc = torch.zeros_like(st.moe_acc)
+
+
+@register_task(TaskType.MOE_FFN)
+def moe_ffn_body(st: MegaState, layer: int, arg0: int) -> None:
+    """Expert ``arg0``'s SwiGLU FFN over every row of the normed ``h``,
+    FC2's f32 sums times each row's combine weight added into
+    ``moe_acc``; skipped when no row routes to it (its terms are 0).
+    ``arg1 = 1`` (the last expert without ``overlap_ar``) then hands
+    ``moe_acc`` to the ALLREDUCE task through ``h``."""
+    cw = st.moe_w[arg0]  # [B]
+    if bool((cw != 0).any()):
+        gu = _gemm(st, st.h, st.w.w1[layer, arg0], None)
+        gate, up = gu[:, : st.dims.f_loc], gu[:, st.dims.f_loc:]
+        st.mlp = gate * torch.sigmoid(gate) * up
+        y = _gemm(st, st.mlp, st.w.w2[layer, arg0], None)
+        st.moe_acc = st.moe_acc + y * cw[:, None]
+    if st.arg1 == 1:
+        st.h = st.moe_acc.clone()
+
+
+@register_task(TaskType.A2A_SEND)
+def a2a_send_body(st: MegaState, layer: int, arg0: int) -> None:
+    """The split combine's send at tp=1 (no peer, no puts): phase 0 parks
+    the first half of the experts' sum in ``a2buf`` and restarts
+    ``moe_acc``; phase 1 parks the rest in ``cbuf``. The trace's phase
+    mark follows, as in the JAX body."""
+    if arg0 == 0:
+        st.a2buf = st.moe_acc.clone()
+        st.moe_acc = torch.zeros_like(st.moe_acc)
+    else:
+        st.cbuf = st.moe_acc.clone()
+    _trace_mid(st)
+
+
+@register_task(TaskType.A2A_WAIT)
+def a2a_wait_body(st: MegaState, layer: int, arg0: int) -> None:
+    """The split combine's wait at tp=1: the phase mark (where the JAX
+    body has fired the next weight stream's tile 0; the CUDA kernel has
+    no such prefetch), then ``x += a2buf + cbuf``."""
+    _trace_mid(st)
+    st.x = st.x + st.a2buf + st.cbuf
+
+
 @register_task(TaskType.RING_POLL)
 def ring_poll_body(st: MegaState, layer: int, arg0: int) -> None:
     """Stamp the published work-ring doorbell (``ring_state[0]``) into
@@ -382,7 +479,8 @@ def lm_head_body(st: MegaState, layer: int, arg0: int) -> None:
 def mega_decode_plain(dims, fuse_norms: bool, table: np.ndarray, weights,
                       kc, vc, page_table, kv_len, tokens, stop_tok=None,
                       inv_freq=None, k_scale=None, v_scale=None, noise=None,
-                      sampcfg=None, ring_state=None):
+                      sampcfg=None, ring_state=None, gate_hook=None,
+                      moe_route=None, moe_x=None):
     """Walk the packed ``table [T, 8]`` for ``dims.nsteps`` steps over one
     :class:`MegaState`. Returns ``(logits [B, v_loc] f32 of the last
     step, knew, vnew [NS, L, B, hkv, hd] in the model dtype, toks [NS, B]
@@ -394,14 +492,22 @@ def mega_decode_plain(dims, fuse_norms: bool, table: np.ndarray, weights,
     all ``nsteps`` without ``eos``. Under ``dims.ring`` the RING_POLL
     task reads ``ring_state [4]`` int32 (``WorkRing.publish``); under
     ``dims.trace`` the trace ring ``[NS, T, 8]`` int32 is returned
-    sixth."""
+    sixth. ``gate_hook`` (optional) is a check's window on each MOE_GATE:
+    its ``enter(st, layer)`` runs first (it may read and replace the
+    residual ``st.x``) and its ``route(step, layer, probs [B, E], cw [B,
+    E]) -> cw`` after the routing (it returns the combine weights to use,
+    and may plant a fault there). ``moe_route [NS, L, E, B]`` and ``moe_x
+    [NS, L, B, d]`` f32 (optional, together) receive every gate's combine
+    weights and the residual rows it read, as the kernel's."""
     if inv_freq is None:
         inv_freq = rope_inv_freq(dims.head_dim, dims.rope_theta,
                                  kv_len.device)
     table = np.asarray(table)
     st = MegaState(dims, fuse_norms, weights, kc, vc, page_table, kv_len,
                    tokens, stop_tok, inv_freq, k_scale, v_scale, noise,
-                   sampcfg, ring_state, n_tasks=len(table))
+                   sampcfg, ring_state, n_tasks=len(table),
+                   gate_hook=gate_hook, moe_route=moe_route,
+                   moe_x=moe_x)
     _walk(st, table)
     out = (st.logits, st.knew, st.vnew, st.toks, st.stop_step)
     if dims.trace:
@@ -415,13 +521,14 @@ def _walk(st: MegaState, table: np.ndarray) -> None:
     the body (which may stamp mid), end and flag."""
     from triton_distributed_tpu_torch.megakernel.registry import get_body
 
-    bodies = [(get_body(TaskType(int(r[0]))), int(r[1]), int(r[2]))
-              for r in table]
+    bodies = [(get_body(TaskType(int(r[0]))), int(r[1]), int(r[2]),
+               int(r[3])) for r in table]
     ring = st.ring
     for step in range(st.dims.nsteps):
         st.step = step
-        for t, (body, layer, arg0) in enumerate(bodies):
+        for t, (body, layer, arg0, arg1) in enumerate(bodies):
             st.t = t
+            st.arg1 = arg1
             if ring is None:
                 body(st, layer, arg0)
                 continue

@@ -91,6 +91,26 @@ class ModelBuilder:
             return self._add(TaskType.AR_WAIT, layer)
         return self._add(TaskType.ALLREDUCE, layer, **kw)
 
+    def make_moe_gate(self, layer: int, **kw) -> int:
+        return self._add(TaskType.MOE_GATE, layer, **kw)
+
+    def make_moe_ffn(self, layer: int, expert: int,
+                     handoff: bool = False) -> int:
+        """One local expert's FFN task (``arg0`` = the expert).
+        ``handoff`` marks the last expert without ``overlap_ar``: it
+        copies the combine accumulator into ``h`` for the ALLREDUCE task
+        that follows (``arg1 = 1``)."""
+        tid = self._add(TaskType.MOE_FFN, layer, arg0=expert)
+        if handoff:
+            self.tasks[-1].arg1 = 1
+        return tid
+
+    def make_a2a_send(self, layer: int, phase: int) -> int:
+        return self._add(TaskType.A2A_SEND, layer, arg0=phase)
+
+    def make_a2a_wait(self, layer: int) -> int:
+        return self._add(TaskType.A2A_WAIT, layer)
+
     def make_lm_head(self, **kw) -> int:
         return self._add(TaskType.LM_HEAD, **kw)
 
@@ -109,11 +129,7 @@ class ModelBuilder:
     def build_decoder_graph(self) -> None:
         """The decode-step chain: EMBED, per layer [NORM] QKV_PROJ ATTN
         O_PROJ ALLREDUCE [NORM] FC1 FC2 ALLREDUCE, then [NORM] LM_HEAD.
-        MoE graphs are not ported (``check_dims`` refuses them)."""
-        if self.dims.moe:
-            raise NotImplementedError(
-                "MoE megakernel graphs are not ported yet (ROADMAP queue 2 "
-                "row 6(f))")
+        With ``dims.moe`` the MLP section is ``_build_moe_mlp``'s."""
         if self.dims.ring:
             # A ring round observes the host work ring first: the
             # doorbell it stamps proves which published ring state the
@@ -129,11 +145,35 @@ class ModelBuilder:
             self.make_o_proj(l)
             self.make_allreduce(l)
             self.make_norm(l, 1)
-            self.make_fc1(l)
-            self.make_fc2(l)
-            self.make_allreduce(l)
+            if self.dims.moe:
+                self._build_moe_mlp(l)
+            else:
+                self.make_fc1(l)
+                self.make_fc2(l)
+                self.make_allreduce(l)
         self.make_norm(0, 2)
         self.make_lm_head()
+
+    def _build_moe_mlp(self, l: int) -> None:
+        """One layer's MoE MLP: MOE_GATE, one MOE_FFN per local expert,
+        and the combine. Under ``cfg.overlap_ar`` the combine is split:
+        A2A_SEND phase 0 after the first half of the experts, phase 1
+        and A2A_WAIT after the rest (kept at tp=1, where they are local
+        copies and the fold); otherwise the last expert hands the
+        accumulator to an ALLREDUCE task."""
+        self.make_moe_gate(l)
+        epr = self.dims.experts_loc
+        overlap = self.cfg.overlap_ar
+        split = max(-(-epr // 2), 1)  # phase 0 covers this many experts
+        for e in range(epr):
+            self.make_moe_ffn(l, e, handoff=e == epr - 1 and not overlap)
+            if overlap and e == split - 1:
+                self.make_a2a_send(l, phase=0)
+        if overlap:
+            self.make_a2a_send(l, phase=1)
+            self.make_a2a_wait(l)
+        else:
+            self.make_allreduce(l)
 
     def build_prefill_graph(self) -> None:
         """The prompt-prefill chain: the decode chain's per-layer pipeline

@@ -26,8 +26,13 @@ tensors, nothing copied; under ``MegaConfig(wq8=True)`` it reads int8
 weights instead (:class:`Q8Params`, from ``quantized_params()`` or
 ``quantized_init()``).
 
-Refused with ``NotImplementedError``: MoE models (ROADMAP queue 2 row
-6(f)) and multi-rank fixtures (row 6(e)).
+A Qwen3-MoE model decodes through the MoE graph (router, one task per
+expert, the combine; ``_dims`` sets ``f_loc`` to one expert's width) from
+its own tensors (the router ``[L, d, E]`` and the experts ``[L, E, d,
+2f]``, ``[L, E, f, d]``: the JAX ``MoEMegaParams`` at tp=1, with no
+reshard and no copy). Refused with ``NotImplementedError``: multi-rank
+fixtures (ROADMAP queue 2 row 6(e)), and for MoE, as in the JAX
+package, ``wq8`` and the prefill megakernel.
 """
 
 from __future__ import annotations
@@ -121,10 +126,6 @@ class MegaQwen3:
             # wq8 decode can run from Q8Params alone (quantized_init);
             # every other path needs the model's parameters.
             raise ValueError("load or init Qwen3 params first")
-        if getattr(model.cfg, "num_experts", 0):
-            raise NotImplementedError(
-                "MoE megakernel decode is not ported yet (ROADMAP queue 2 "
-                "row 6(f))")
         self.model = model
         self.policy = policy
         self._jit: dict = {}
@@ -140,14 +141,19 @@ class MegaQwen3:
         # The LM head's vocab axis is padded to 128 (``set_params`` pads
         # it, the step wrappers slice the pad logits off), taken from the
         # config so that a model without parameters (quantized_init)
-        # builds too.
+        # builds too. MoE streams whole experts: f_loc is one expert's
+        # FFN width.
         return MegaDims(
             batch=batch, d=c.hidden_size, hq_loc=c.num_q_heads,
             hkv_loc=c.num_kv_heads, head_dim=c.head_dim,
-            f_loc=c.intermediate_size, v_loc=pad_vocab(c.vocab_size),
+            f_loc=(c.moe_intermediate_size if c.num_experts
+                   else c.intermediate_size),
+            v_loc=pad_vocab(c.vocab_size),
             num_layers=c.num_layers, s_max=s_max, n_ranks=1,
             rms_eps=c.rms_eps, rope_theta=c.rope_theta, page=page,
             kv_quant=kv_quant, num_pages=num_pages, trace=trace,
+            num_experts=c.num_experts, moe_top_k=c.num_experts_per_tok,
+            norm_topk=c.norm_topk_prob,
         )
 
     def _compile(self, dims: MegaDims):
@@ -180,6 +186,10 @@ class MegaQwen3:
         ``model.params``: quantized once from the model's parameters and
         cached on this instance."""
         if self._q8 is None:
+            if self.model.cfg.num_experts:
+                raise NotImplementedError(
+                    "wq8 does not compose with MoE decode yet (per-expert "
+                    "per-channel scale planes)")
             if self.model.params is None:
                 raise ValueError(
                     "no parameters to quantize: load or init the model "

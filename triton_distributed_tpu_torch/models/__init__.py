@@ -4,7 +4,8 @@
 seed (no checkpoint download is possible on the card's host). Loading a
 local HF checkpoint directory needs ``safetensors``, which that host
 lacks, so it waits (ROADMAP queue 1, item 4c); :func:`load_hf_state_dict`
-maps an already-loaded state dict and needs no files.
+maps an already-loaded state dict and needs no files
+(:func:`load_hf_moe_state_dict` a Qwen3-MoE one).
 """
 
 from __future__ import annotations
@@ -40,6 +41,10 @@ from triton_distributed_tpu_torch.models.qwen import (  # noqa: F401
     params_from_jax,
     q8_params_from_jax,
 )
+from triton_distributed_tpu_torch.models.qwen_moe import (  # noqa: F401
+    Qwen3MoE,
+    load_hf_moe_state_dict,
+)
 
 
 class AutoLLM:
@@ -48,15 +53,17 @@ class AutoLLM:
     @staticmethod
     def from_pretrained(name_or_path: str, *, device=None, seed: int = 0,
                         **overrides) -> Qwen3:
-        """A dense Qwen3 preset (``tiny``, ``Qwen/Qwen3-0.6B`` ...) with
-        random weights from ``seed``, on ``cuda`` unless ``device`` says
-        otherwise."""
+        """A Qwen3 preset (``tiny``, ``Qwen/Qwen3-0.6B`` ...; a preset
+        with experts, ``tiny-moe`` or ``Qwen/Qwen3-30B-A3B``, builds
+        :class:`Qwen3MoE`) with random weights from ``seed``, on ``cuda``
+        unless ``device`` says otherwise."""
         if os.path.isdir(name_or_path):
             raise NotImplementedError(
                 "loading a local HF checkpoint directory needs safetensors "
                 "and is not ported yet (ROADMAP queue 1, item 4c); use "
                 "load_hf_state_dict on a loaded state dict"
             )
-        model = Qwen3(get_config(name_or_path, **overrides), device=device)
+        cfg = get_config(name_or_path, **overrides)
+        model = (Qwen3MoE if cfg.num_experts else Qwen3)(cfg, device=device)
         model.init_params(seed)
         return model

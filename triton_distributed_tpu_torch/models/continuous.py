@@ -495,6 +495,11 @@ class ContinuousEngine(MegaDispatch):
         # int8 KV: the explicit knob wins over the model config's.
         self.kv_dtype = resolve_kv_dtype(kv_dtype, model.cfg)
         self.speculative = int(speculative)
+        # MoE: top_k per routed token position (0 for a dense model); it
+        # gates the moe_routed_tokens bumps and the expert keys of
+        # last_stats.
+        self._moe_k = (model.cfg.num_experts_per_tok
+                       if model.cfg.num_experts else 0)
         # Draft trees only on a full-width pool: the commit is a KV
         # row-move, which an int8 pool's per-page scales cannot carry.
         self.spec_width = max(int(spec_width), 1)
@@ -572,6 +577,9 @@ class ContinuousEngine(MegaDispatch):
             stats["tree_pages"] = self.prefix.node_count
         if self.speculative:
             stats.update(spec_summary(stats))
+        if self._moe_k:
+            stats["num_experts"] = self.model.cfg.num_experts
+            stats["experts_per_tok"] = self._moe_k
         if self.tier is not None:
             stats["tier"] = self.tier.snapshot()
         return stats
@@ -582,6 +590,12 @@ class ContinuousEngine(MegaDispatch):
         self.stats[key] += n
         for handle in self._metric_handles[key]:
             handle.inc(n)
+
+    def _bump_moe(self, positions: int) -> None:
+        """An MoE model routed ``positions`` token positions through its
+        expert FFN: ``top_k`` assignments each (a no-op when dense)."""
+        if self._moe_k:
+            self._bump("moe_routed_tokens", positions * self._moe_k)
 
     # -- slot management -------------------------------------------------
 
@@ -629,6 +643,7 @@ class ContinuousEngine(MegaDispatch):
         )
         self._bump("admitted")
         self._bump("prefill_tokens", s)
+        self._bump_moe(s)
         obs_events.emit("admit", slot=slot, prompt_len=s, matched=0)
         self._slots[slot] = req
         return self._sample_req(req, logits[0])
@@ -691,6 +706,7 @@ class ContinuousEngine(MegaDispatch):
         self._kv_len[slot] = len(prompt)
         self._bump("prefill_tokens", len(prompt) - start)
         self._bump("prefill_chunks", chunks)
+        self._bump_moe(len(prompt) - start)
         return logits
 
     def _ring_push(self, kind: int, slot: int, arg: int = 0) -> None:
@@ -787,6 +803,7 @@ class ContinuousEngine(MegaDispatch):
         self._bump("prefill_tokens", s)
         self._bump("prefill_chunks", -(-s // page))
         self._bump("longctx_sharded_slots")
+        self._bump_moe(s)
         obs_events.emit("admit", slot=slot, prompt_len=s, matched=0)
         self._slots[slot] = req
         return self._sample_req(req, logits)
@@ -992,6 +1009,7 @@ class ContinuousEngine(MegaDispatch):
         )
         self._kv_len = self._kv_len + active
         self._bump("decode_steps")
+        self._bump_moe(int(active.sum()))
         # Sharded slots were empty to the batched step: their per-slot
         # partial-merge decode runs now and its logits replace the
         # batched rows before the NaN guard and the argmax.
@@ -1575,10 +1593,12 @@ class ContinuousEngine(MegaDispatch):
             self._bump("mega_bucket_launches")
         if plan.filtered:
             self._bump("mega_filtered_rounds")
+        n_active = int(sum(s >= 0 and self._slots[s] is not None
+                           for s in plan.rows))
         self._bump("decode_steps", NS)
+        self._bump_moe(NS * n_active)
         self._bump("mega_launches")
-        obs_events.emit("mega:launch", ns=NS, active=int(sum(
-            s >= 0 and self._slots[s] is not None for s in plan.rows)))
+        obs_events.emit("mega:launch", ns=NS, active=n_active)
         return _MegaLaunch(plan=plan, toks=toks, cache=new_cache, ss=ss,
                            halt=halt, ring=ring, t0=t0, doorbell=doorbell)
 
@@ -1723,6 +1743,8 @@ class ContinuousEngine(MegaDispatch):
                 continue
             req.spec.record(len(draft), a)
             self._bump("spec_verify_steps")
+            # The verify chunk routes draft + 1 positions of the slot.
+            self._bump_moe(len(draft) + 1)
             self._bump("spec_draft_tokens", len(draft))
             self._bump("spec_accepted_tokens", a)
             self._bump("spec_rollback_tokens", len(draft) - a)
@@ -1759,6 +1781,8 @@ class ContinuousEngine(MegaDispatch):
         req.spec.record_tree(tree.num_drafted, tree.max_depth, a)
         self._bump("spec_verify_steps")
         self._bump("spec_tree_rounds")
+        # The verify chunk routes every trie node's position.
+        self._bump_moe(len(tree))
         self._bump("spec_tree_nodes", tree.num_drafted)
         self._bump("spec_tree_depth", tree.max_depth)
         if moved:

@@ -495,6 +495,22 @@ class Engine(MegaDispatch):
         if spec is not None:
             self.last_stats.update(spec)
             self.last_stats.update(spec_summary(self.last_stats))
+        if self.model.cfg.num_experts:
+            # MoE ledger, computed once: the prefilled positions plus
+            # every decode-phase position, top_k assignments each. Under
+            # speculation the decode positions are what the forwards
+            # routed (draft + 1 per verify chunk, b per batched step), so
+            # the count ties out with ContinuousEngine's per-site bumps.
+            # Every path here streams all routed experts: nothing drops.
+            k = self.model.cfg.num_experts_per_tok
+            decode_pos = (b * max(gen_len - 1, 0) if spec is None else
+                          spec["spec_draft_tokens"]
+                          + spec["spec_verify_steps"]
+                          + b * spec["spec_decode_steps"])
+            self.last_stats.update(
+                moe_routed_tokens=(prefill_toks + decode_pos) * k,
+                a2a_dropped=0, num_experts=self.model.cfg.num_experts,
+                experts_per_tok=k)
         h = self._metric_handles
         h["decode_steps"].inc(steps)
         h["prefill_tokens"].inc(prefill_toks)

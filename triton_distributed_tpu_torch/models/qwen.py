@@ -127,7 +127,7 @@ class Qwen3:
             "attn": {k: (None if lp["attn"].get(k) is None
                          else conv(lp["attn"][k]))
                      for k in ("wqkv", "wo", "q_norm", "k_norm")},
-            "mlp": {k: conv(lp["mlp"][k]) for k in ("w1", "w2")},
+            "mlp": {k: conv(w) for k, w in lp["mlp"].items()},
         }
         lm_head = conv(params["lm_head"])
         v = lm_head.shape[1]
@@ -160,11 +160,17 @@ class Qwen3:
             ..., : self.cfg.vocab_size
         ]
 
-    def _block(self, x, lyr, attn):
+    def _mlp_fwd(self, mlp_params: dict, h: torch.Tensor, mode: str):
+        """The layer's MLP on the normed ``h``: the dense SwiGLU here,
+        the routed experts in ``Qwen3MoE``."""
+        return tp_mlp_fwd(mlp_params, h, mode=mode)
+
+    def _block(self, x, lyr, attn, mode: str):
         """One decoder layer around ``attn(h) -> attention output``."""
         eps = self.cfg.rms_eps
         x = x + attn(rms_norm(x, lyr["ln1"], eps))
-        return x + tp_mlp_fwd(lyr["mlp"], rms_norm(x, lyr["ln2"], eps))
+        return x + self._mlp_fwd(lyr["mlp"], rms_norm(x, lyr["ln2"], eps),
+                                 mode)
 
     # -- entry points --------------------------------------------------------
     def decode_step(self, tokens, cache, mode: str = "xla"):
@@ -190,7 +196,7 @@ class Qwen3:
                         lyr["attn"], h, cache.k[i], cache.v[i],
                         cache.kv_len, self.dims,
                     )[0]
-            x = self._block(x, lyr, attn)
+            x = self._block(x, lyr, attn, mode)
         x = rms_norm(x, self.params["norm"], self.cfg.rms_eps)
         return self._logits(x), dataclasses.replace(
             cache, kv_len=cache.kv_len + 1
@@ -219,7 +225,7 @@ class Qwen3:
                     cache.k[i, row, :, :s] = k.to(cache.k.dtype)
                     cache.v[i, row, :, :s] = v.to(cache.v.dtype)
                     return out
-                x = self._block(x, lyr, attn)
+                x = self._block(x, lyr, attn, mode)
             x = rms_norm(x, self.params["norm"], self.cfg.rms_eps)
             last = lens[row] - 1
             logits.append(self._logits(x[last : last + 1])[0])
@@ -278,7 +284,7 @@ class Qwen3:
                     table_row, q_offset, self.dims, kv_pages=kv_pages,
                     q_end=int(new_len), **_layer_scales(cache, i), **tree,
                 )[0]
-            x = self._block(x, lyr, attn)
+            x = self._block(x, lyr, attn, mode)
         x = rms_norm(x, self.params["norm"], self.cfg.rms_eps)
         if all_logits:
             logits = self._logits(x)
@@ -330,7 +336,7 @@ class Qwen3:
                     **_layer_scales(cache, i),
                     **_cold_scales(ks_cold, vs_cold, i),
                 )[0]
-            x = self._block(x, lyr, attn)
+            x = self._block(x, lyr, attn, mode)
         x = rms_norm(x, self.params["norm"], self.cfg.rms_eps)
         last = int(last_idx)
         return self._logits(x[last : last + 1])[0], cache
@@ -361,7 +367,7 @@ class Qwen3:
                     self.dims, **_layer_scales(cache, i),
                     **_cold_scales(ks_cold, vs_cold, i),
                 )[0]
-            x = self._block(x, lyr, attn)
+            x = self._block(x, lyr, attn, mode)
         x = rms_norm(x, self.params["norm"], self.cfg.rms_eps)
         return self._logits(x), cache
 
@@ -461,10 +467,11 @@ def _np32(a) -> np.ndarray:
 def params_from_jax(tree) -> dict:
     """The leaves of a JAX ``Qwen3Params`` (numpy arrays, reached by
     attribute or key: ``embed``, ``layers.{ln1, attn.{wqkv, wo, q_norm,
-    k_norm}, ln2, mlp.{w1, w2}}``, ``norm``, ``lm_head``) as the port's
-    parameter dict. At tp=1 the JAX fused layouts (``wqkv = [q|k|v]``,
-    ``w1 = [gate|up]``) are the port's, so leaves carry over as they
-    are; pass the result to :meth:`Qwen3.set_params`."""
+    k_norm}, ln2, mlp.{w1, w2}}``, ``norm``, ``lm_head``; a Qwen3-MoE
+    tree's ``mlp`` adds ``w_router``) as the port's parameter dict. At
+    tp=1 the JAX fused layouts (``wqkv = [q|k|v]``, ``w1 = [gate|up]``)
+    are the port's, so leaves carry over as they are; pass the result to
+    :meth:`Qwen3.set_params`."""
     def leaf(*path):
         node = tree
         for name in path:
@@ -473,7 +480,15 @@ def params_from_jax(tree) -> dict:
         return None if node is None else _np32(node)
 
     layers: dict = {"attn": {}, "mlp": {}}
-    for path in _LAYER_LEAVES:
+    paths = _LAYER_LEAVES
+    mlp = tree["layers"] if isinstance(tree, dict) else tree.layers
+    mlp = mlp["mlp"] if isinstance(mlp, dict) else mlp.mlp
+    if (isinstance(mlp, dict) and "w_router" in mlp) or hasattr(mlp,
+                                                                "w_router"):
+        # MoE (the JAX TPMoEParams leaves, [L, d, E], [L, E, d, 2f] and
+        # [L, E, f, d]; gate | up fused per expert, the port's layout).
+        paths += (("mlp", "w_router"),)
+    for path in paths:
         dst = layers if len(path) == 1 else layers[path[0]]
         dst[path[-1]] = leaf("layers", *path)
     return {

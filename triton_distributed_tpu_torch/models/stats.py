@@ -111,6 +111,15 @@ STAT_METRICS = {
     "mega_filtered_rounds": ("tdt_mega_filtered_rounds_total",
                              "Mega rounds sampled in-kernel through "
                              "the top-k/top-p bisection filter."),
+    # MoE serving: token positions routed through the expert FFN × top_k,
+    # and EP all-to-all drops (0 on these lossless tp=1 paths; the key is
+    # kept so that a capacity-mode exchange can never hide overflow).
+    "moe_routed_tokens": ("tdt_moe_routed_tokens_total",
+                          "Expert assignments routed (token positions "
+                          "through the MoE FFN × top_k)."),
+    "a2a_dropped": ("tdt_moe_a2a_dropped_total",
+                    "EP all-to-all assignments dropped (capacity-mode "
+                    "overflow; 0 on the lossless serving paths)."),
     # The device task tracer and resident decode: traced launches whose
     # ring was decoded; the host work ring's items, doorbells (one per
     # resident launch) and host-side drains; launches issued before the

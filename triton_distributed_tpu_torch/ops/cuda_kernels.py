@@ -6,7 +6,8 @@ and loaded with ``ctypes`` (no PyTorch headers, so a build takes
 seconds). Libraries are built at first use, from the sources in this
 checkout only, into ``build/torch_kernels/`` at the repository root
 (listed in ``.gitignore``); the file name carries a hash of the sources
-and flags, so an edited kernel is rebuilt and never loaded stale.
+(every ``csrc`` file: a source may include another) and flags, so an
+edited kernel is rebuilt and never loaded stale.
 :func:`build` starts one ``nvcc`` per source, all at once.
 
 Each kernel is a :class:`CudaKernel` with a plain integer ``launches``
@@ -36,8 +37,9 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v", "--split-compile=0",
 )
-# Sources, each one shared library.
-SOURCES = ("flash_attention", "flash_decode", "megakernel")
+# Sources, each one shared library (megakernel_moe.cu is megakernel.cu
+# built with its MoE instantiations only).
+SOURCES = ("flash_attention", "flash_decode", "megakernel", "megakernel_moe")
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -59,8 +61,8 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> Path:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sorted(CSRC.glob("*.cuh")) + [CSRC / f"{name}.cu"]:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + (name,)).encode())
+    for src in sorted(CSRC.glob("*.cu*")):
         h.update(src.read_bytes())
     return BUILD_DIR / f"libtdt_{name}_{h.hexdigest()[:16]}.so"
 
@@ -213,6 +215,12 @@ MEGA_DECODE_TRACED = CudaKernel(
     "mega_decode_traced", "megakernel", "tdt_mega_decode",
     [_P, _P, _F, _F, _P, _P],
 )
+# The decode megakernel over an MoE graph (traced or not): the MoE build
+# of the same source, its own library.
+MEGA_DECODE_MOE = CudaKernel(
+    "mega_decode_moe", "megakernel_moe", "tdt_mega_decode",
+    [_P, _P, _F, _F, _P, _P],
+)
 # The prefill megakernel (its own __global__ in the same source).
 MEGA_PREFILL = CudaKernel(
     "mega_prefill", "megakernel", "tdt_mega_prefill",
@@ -222,7 +230,7 @@ KERNELS = (FLASH_ATTENTION, FLASH_DECODE, PAGED_FLASH_DECODE,
            FLASH_ATTENTION_INT8, PAGED_FLASH_DECODE_INT8,
            FLASH_ATTENTION_BIAS, MEGA_DECODE, FLASH_ATTENTION_COLD,
            FLASH_ATTENTION_COLD_INT8, FLASH_DECODE_INT8, MEGA_DECODE_TRACED,
-           MEGA_PREFILL)
+           MEGA_PREFILL, MEGA_DECODE_MOE)
 
 
 def reset_launch_counts() -> None:
