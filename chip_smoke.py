@@ -3693,6 +3693,562 @@ def check_moe(dev):
     return {"mega_decode_moe": record}, launches, e2e
 
 
+# Tensor parallelism: Qwen3-8B (32 q / 8 kv heads, hidden 4096, d_ff
+# 12288, 36 layers, bf16) at tp=2, both ranks co-located on the card:
+# 5 requests of TP_PROMPT_LENS tokens (no shared prefix) and TP_GEN new
+# tokens through ContinuousEngine(mode="pallas", prefix_cache=True) (one
+# chunk a prompt: 48 rows, 384 KB of output, take gemm_ar ONE_SHOT; 384
+# rows, 3 MB, and 640 rows, 5.2 MB, past the 4 MB where the JAX AUTO
+# takes XLA, TWO_SHOT: gemm_rs then the full-mesh all_gather), the same
+# with prefill_chunk=128 (1 MB chunks: TWO_SHOT), and
+# Engine(mode="pallas", paged=True) on the two 300-token prompts (the
+# sequence-sharded prefill: ag_gemm and gemm_rs; decode gemm_ar
+# ONE_SHOT, 2 a layer a step).
+TP_MODEL = "Qwen/Qwen3-8B"
+TP = 2
+TP_PROMPT_LENS = (40, 300, 40, 300, 600)
+TP_GEN = 32
+TP_MAX_LENGTH = 768
+TP_CHUNK = 128
+TP_STRESS = 100
+TP_PATH_KERNELS = {
+    "continuous_tp": ("flash_attention", "paged_flash_decode", "gemm_ar",
+                      "gemm_rs", "all_gather"),
+    "continuous_tp_chunk128": ("flash_attention", "paged_flash_decode",
+                               "gemm_ar", "gemm_rs", "all_gather"),
+    "paged_engine_tp": ("flash_attention", "paged_flash_decode", "ag_gemm",
+                        "gemm_rs", "gemm_ar"),
+}
+TP_SOURCES = {
+    "gemm_ar": ("triton_distributed_tpu_torch/csrc/overlap.cu",
+                "triton_distributed_tpu/ops/overlap/gemm_ar.py:84"),
+    "gemm_rs": ("triton_distributed_tpu_torch/csrc/overlap.cu",
+                "triton_distributed_tpu/ops/overlap/gemm_rs.py:116"),
+    "ag_gemm": ("triton_distributed_tpu_torch/csrc/overlap.cu",
+                "triton_distributed_tpu/ops/overlap/ag_gemm.py:163"),
+    "all_gather": ("triton_distributed_tpu_torch/csrc/collectives.cu",
+                   "triton_distributed_tpu/ops/collectives/all_gather.py:146"),
+}
+
+
+def _two_shot_chunks(lens, chunk: int, width: int, itemsize: int) -> int:
+    """The prefill chunks of ``lens`` whose gemm_ar output passes 512 KB,
+    where the card's AUTO takes TWO_SHOT (a chunk width is a multiple of
+    16, so m % tp == 0): one chunk of round_chunk(s) rows a prompt, or
+    chunks of round_chunk(chunk) rows."""
+    from triton_distributed_tpu_torch.models.prefix_cache import round_chunk
+
+    total = 0
+    for s in lens:
+        c = round_chunk(chunk) if chunk else round_chunk(s)
+        if c * width * itemsize > 512 * 1024:
+            total += -(-s // c)
+    return total
+
+
+def _tp_limit(dtype, n):
+    """Kernel vs plain: f32 (TF32 off) sums in another order, 1e-4 +
+    1e-5·|p| on outputs of size ~1; bf16 rounds each rank's partial (and
+    each ring hop's sum) to bf16, one ulp a flip: n·(2^-6 + 2^-7·|p|)."""
+    import torch
+
+    return (1e-4, 1e-5) if dtype == torch.float32 else (
+        2.0**-6 * n, 2.0**-7 * n)
+
+
+def check_tp_kernels(dev, flush) -> dict:
+    """Each cross-rank kernel against its plain version on the same
+    per-rank inputs: n=2 and n=4 at tiny f32 widths, Qwen3-8B tp=2 bf16
+    serving shapes (decode B=4 o-proj and FC2; prefill rows 384); every
+    rank's gemm_ar and all_gather output bitwise the same; TP_STRESS
+    back-to-back launches of each with fresh inputs, every output
+    checked; then the timing of the serving shapes."""
+    import numpy as np
+    import torch
+
+    from triton_distributed_tpu_torch.ops.collectives import (
+        all_gather_full_mesh,
+        all_gather_plain,
+    )
+    from triton_distributed_tpu_torch.ops.overlap import (
+        ag_gemm_plain,
+        create_gemm_rs_context,
+        gemm_ar_plain,
+        gemm_rs_plain,
+    )
+    from triton_distributed_tpu_torch.ops.overlap.ag_gemm import (
+        ag_gemm_kernel,
+    )
+    from triton_distributed_tpu_torch.ops.overlap.gemm_ar import (
+        gemm_ar_one_shot,
+    )
+    from triton_distributed_tpu_torch.ops.overlap.gemm_rs import (
+        gemm_rs_ring,
+        ring_split,
+    )
+    from triton_distributed_tpu_torch.runtime import initialize_distributed
+
+    rng = np.random.default_rng(SEED + 10)
+    bf16, f32 = torch.bfloat16, torch.float32
+
+    def rand(shape, dtype, scale=1.0):
+        return (torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).to(dev) * scale).to(dtype)
+
+    def operands(n, dtype, m, k, nout, rows=False):
+        ctx = initialize_distributed(n, device=dev, dtype=dtype)
+        a, b = rand((m, k), dtype), rand((k, nout), dtype, k**-0.5)
+        if rows:
+            return ctx, ctx.shard(a, 0), ctx.shard(b, 1)
+        return ctx, ctx.shard(a, 1), ctx.shard(b, 0)
+
+    def check(name, got, want, dtype, n, what):
+        atol, rtol = _tp_limit(dtype, n)
+        worst = 0.0
+        for g, w in zip(got, want):
+            e = (g.float() - w.float()).abs()
+            lim = atol + rtol * w.float().abs()
+            if not bool(torch.isfinite(g.float()).all()) or bool(
+                    (e > lim).any()):
+                raise RuntimeError(
+                    f"{name} {what}: |kernel - plain| {float(e.max()):.3g} "
+                    f"over the limit ({atol:.3g} + {rtol:.3g}|p|)")
+            worst = max(worst, float(e.max()))
+        return worst
+
+    def same_on_every_rank(name, got, what):
+        if not all(torch.equal(g, got[0]) for g in got[1:]):
+            raise RuntimeError(f"{name} {what}: ranks' outputs differ")
+
+    max_abs = {k: 0.0 for k in TP_SOURCES}
+    # (n, dtype, gemm shape (M, K, N)) cases: tiny f32 at n=2 and n=4,
+    # the Qwen3-8B tp=2 bf16 shapes.
+    # The serving paths' shapes: decode B=4 and 48-row chunks (one-shot);
+    # TWO_SHOT's gemm_rs and all_gather at 128-, 384- and 640-row chunks;
+    # the sequence-sharded prefill's ag_gemm and gemm_rs at 300 rows
+    # (m_per 150: a partial last tile, the bidir split at 75 inside one).
+    ar_cases = [(2, f32, 4, 128, 64), (4, f32, 4, 128, 64),
+                (2, bf16, 4, 4096, 4096), (2, bf16, 4, 12288, 4096),
+                (2, bf16, 48, 4096, 4096)]
+    rs_cases = [(2, f32, 32, 128, 64), (4, f32, 64, 128, 64),
+                (2, bf16, 384, 4096, 4096), (2, bf16, 384, 12288, 4096),
+                (2, bf16, 300, 4096, 4096), (2, bf16, 300, 12288, 4096),
+                (2, bf16, 128, 4096, 4096), (2, bf16, 640, 12288, 4096),
+                (4, bf16, 128, 1024, 512)]
+    ag_cases = [(2, f32, 32, 64, 256), (4, f32, 64, 64, 512),
+                (2, bf16, 384, 4096, 6144), (2, bf16, 384, 4096, 24576),
+                (2, bf16, 300, 4096, 6144), (2, bf16, 300, 4096, 24576)]
+    gather_cases = [(2, f32, 16, 64), (4, f32, 16, 64), (2, bf16, 192, 4096),
+                    (2, bf16, 150, 4096), (2, bf16, 64, 4096),
+                    (2, bf16, 320, 4096), (4, bf16, 40, 4096)]
+    for n, dt, m, k, nout in ar_cases:
+        ctx, a, b = operands(n, dt, m, k, nout)
+        got = gemm_ar_one_shot(a, b, ctx)
+        same_on_every_rank("gemm_ar", got, f"n={n} {m}x{k}x{nout}")
+        e = check("gemm_ar", got, gemm_ar_plain(a, b), dt, n,
+                  f"n={n} {m}x{k}x{nout} {dt}")
+        if dt == bf16:
+            max_abs["gemm_ar"] = max(max_abs["gemm_ar"], e)
+        print(f"[tp] gemm_ar one-shot n={n} M={m} K={k} N={nout} {dt}: "
+              f"max |kernel - plain| {e:.3g}, ranks bitwise equal")
+    for n, dt, m, k, nout in rs_cases:
+        ctx, a, b = operands(n, dt, m, k, nout)
+        for bidir in (False, True):
+            half = ring_split(m // n, create_gemm_rs_context(
+                m, k // n, dt, n_ranks=n, bidir=bidir))
+            got = gemm_rs_ring(a, b, ctx, half)
+            e = check("gemm_rs", got, gemm_rs_plain(a, b, half), dt, n,
+                      f"n={n} {m}x{k}x{nout} half_m={half}")
+            if dt == bf16:
+                max_abs["gemm_rs"] = max(max_abs["gemm_rs"], e)
+            print(f"[tp] gemm_rs n={n} M={m} K={k} N={nout} {dt} "
+                  f"{'bidir' if half < m // n else 'single'} ring "
+                  f"(half_m {half}): max |kernel - plain| {e:.3g}")
+    for n, dt, m, k, nout in ag_cases:
+        ctx, a, b = operands(n, dt, m, k, nout, rows=True)
+        got = ag_gemm_kernel(a, b, ctx)
+        e = check("ag_gemm", got, ag_gemm_plain(a, b), dt, n,
+                  f"n={n} {m}x{k}x{nout}")
+        if dt == bf16:
+            max_abs["ag_gemm"] = max(max_abs["ag_gemm"], e)
+        print(f"[tp] ag_gemm n={n} M={m} K={k} n_loc={nout // n} {dt}: "
+              f"max |kernel - plain| {e:.3g}")
+    for n, dt, m_per, cols in gather_cases:
+        ctx = initialize_distributed(n, device=dev, dtype=dt)
+        xs = [rand((m_per, cols), dt) for _ in range(n)]
+        got = all_gather_full_mesh(xs, ctx)
+        same_on_every_rank("all_gather", got, f"n={n}")
+        if not torch.equal(got[0], all_gather_plain(xs)[0]):
+            raise RuntimeError(f"all_gather n={n}: differs from the shards")
+        print(f"[tp] all_gather full mesh n={n} [{m_per}, {cols}] {dt}: "
+              "every rank == the shards, bitwise")
+
+    # Stress: back-to-back launches with fresh inputs, every output kept
+    # and checked after one sync (a reused flag or epoch would let a rank
+    # read another launch's slot).
+    n = 4
+    ctx, a, b = operands(n, f32, 32, 256, 128)
+    ctx2, ar, br = operands(n, f32, 32, 64, 256, rows=True)
+    kept = []
+    for i in range(TP_STRESS):
+        a = [t + 0.01 for t in a]
+        ar = [t - 0.01 for t in ar]
+        kept.append((a, ar, gemm_ar_one_shot(a, b, ctx),
+                     gemm_rs_ring(a, b, ctx, 4), ag_gemm_kernel(ar, br, ctx2),
+                     all_gather_full_mesh(ar, ctx2)))
+    torch.cuda.synchronize()
+    for a, ar, g_ar, g_rs, g_ag, g_all in kept:
+        same_on_every_rank("gemm_ar", g_ar, "stress")
+        check("gemm_ar", g_ar, gemm_ar_plain(a, b), f32, n, "stress")
+        check("gemm_rs", g_rs, gemm_rs_plain(a, b, 4), f32, n, "stress")
+        check("ag_gemm", g_ag, ag_gemm_plain(ar, br), f32, n, "stress")
+        if not all(torch.equal(g, torch.cat(ar)) for g in g_all):
+            raise RuntimeError("all_gather stress: a rank's output differs")
+    print(f"[tp] stress: {TP_STRESS} back-to-back launches of each kernel "
+          f"at n={n}, fresh inputs, all {4 * TP_STRESS} outputs correct")
+
+    # Timing at the Qwen3-8B tp=2 serving shapes (bf16). Bound: all ranks'
+    # bytes (each input read once, each rank's output written once) over
+    # one HBM, or the FLOPs, whichever is larger. library_ms: one
+    # torch.matmul of the unsharded operands (the same function on one
+    # card), for the gather torch.cat of the shards.
+    def bound(nbytes_, flops):
+        tb, to = nbytes_ / HBM_BPS, flops / BF16_FLOPS
+        return max(tb, to) * 1e3, ("bytes" if tb >= to else "operations")
+
+    records = {}
+
+    def record(name, shape, fn, plain, lib, nbytes_, flops, extra=None):
+        bms, by = bound(nbytes_, flops)
+        src, rep = TP_SOURCES[name]
+        rec = dict(route="cuda", source=src, replaces=rep,
+                   max_abs_err=max_abs[name], ms=median_ms(fn, flush),
+                   plain_ms=median_ms(plain, flush), bound_ms=bms,
+                   bound_by=by, library_ms=median_ms(lib, flush),
+                   shape=shape, **(extra or {}))
+        print(f"[tp] {name} {shape}: {rec['ms']:.4f} ms, plain "
+              f"{rec['plain_ms']:.4f}, library {rec['library_ms']:.4f}, "
+              f"bound {bms:.4f} ms ({by})")
+        return rec
+
+    n, d, ff = TP, 4096, 12288
+    timed = {}
+    for tag, m, k in (("decode_oproj", 4, 4096), ("decode_fc2", 4, ff)):
+        ctx, a, b = operands(n, bf16, m, k, d)
+        A, B = torch.cat(a, 1), torch.cat(b, 0)
+        timed[tag] = record(
+            "gemm_ar", f"tp={n} M={m} k_loc={k // n} N={d} bf16 (decode "
+            f"{'o-proj' if tag.endswith('oproj') else 'FC2'})",
+            lambda: gemm_ar_one_shot(a, b, ctx),
+            lambda: gemm_ar_plain(a, b), lambda: torch.matmul(A, B),
+            2 * (m * k + k * d) + n * m * d * 2, 2 * m * k * d)
+    records["gemm_ar"] = timed["decode_oproj"]
+    records["gemm_ar"]["fc2"] = timed["decode_fc2"]
+    m = 384
+    for k in (4096, ff):
+        ctx, a, b = operands(n, bf16, m, k, d)
+        half = ring_split(m // n, create_gemm_rs_context(m, k // n, bf16,
+                                                         n_ranks=n))
+        A, B = torch.cat(a, 1), torch.cat(b, 0)
+        rec = record(
+            "gemm_rs", f"tp={n} M={m} k_loc={k // n} N={d} bf16 "
+            f"(prefill {'o-proj' if k == 4096 else 'FC2'}, "
+            f"{'bidir' if half < m // n else 'single'} ring)",
+            lambda: gemm_rs_ring(a, b, ctx, half),
+            lambda: gemm_rs_plain(a, b, half), lambda: torch.matmul(A, B),
+            2 * (m * k + k * d) + m * d * 2, 2 * m * k * d)
+        if k == 4096:
+            records["gemm_rs"] = rec
+        else:
+            records["gemm_rs"]["fc2"] = rec
+    for nl in (3072, 2 * ff // n):
+        ctx, a, b = operands(n, bf16, m, d, nl * n, rows=True)
+        A, B = torch.cat(a, 0), torch.cat(b, 1)
+        rec = record(
+            "ag_gemm", f"tp={n} M={m} K={d} n_loc={nl} bf16 (prefill "
+            f"{'QKV' if nl == 3072 else 'FC1'})",
+            lambda: ag_gemm_kernel(a, b, ctx),
+            lambda: ag_gemm_plain(a, b), lambda: torch.matmul(A, B),
+            2 * (m * d + d * nl * n) + n * m * nl * 2, 2 * m * d * nl * n)
+        if nl == 3072:
+            records["ag_gemm"] = rec
+        else:
+            records["ag_gemm"]["fc1"] = rec
+    ctx = initialize_distributed(n, device=dev, dtype=bf16)
+    xs = [rand((192, d), bf16) for _ in range(n)]
+    shard = 192 * d * 2
+    records["all_gather"] = record(
+        "all_gather", f"tp={n} [192, {d}] a rank bf16 (gemm_ar TWO_SHOT's "
+        "tail at a 384-row chunk)", lambda: all_gather_full_mesh(xs, ctx),
+        lambda: all_gather_plain(xs), lambda: torch.cat(xs),
+        n * shard + n * n * shard, 0)
+    return records
+
+
+def _tp_plain_model(model, params):
+    """A stand-in of ``model`` at tp=1 for the plain forward: the tp=1
+    geometry over the unsharded ``params``."""
+    import types
+
+    from triton_distributed_tpu_torch.layers.tp_attn import TPAttnDims
+
+    cfg = model.cfg
+    return types.SimpleNamespace(
+        cfg=cfg, device=model.device, params=params,
+        dims=TPAttnDims(hq_loc=cfg.num_q_heads, hkv_loc=cfg.num_kv_heads,
+                        head_dim=cfg.head_dim, rope_theta=cfg.rope_theta))
+
+
+def check_tp_tiny(dev) -> None:
+    """Tiny f32 at tp=2 and tp=4 in mode='pallas' on the card emits the
+    CPU's tokens (the plain versions there), through both engines."""
+    import numpy as np
+
+    from triton_distributed_tpu_torch.models import (
+        AutoLLM,
+        ContinuousEngine,
+        Engine,
+    )
+    from triton_distributed_tpu_torch.models.qwen import Qwen3
+
+    src = AutoLLM.from_pretrained("tiny", device="cpu", seed=SEED)
+    rng = np.random.default_rng(SEED + 3)
+    prompts = [rng.integers(0, 256, k).astype(np.int32) for k in (20, 41, 9)]
+    ids = np.stack([prompts[0], prompts[1][:20]])
+    for tp in (2, 4):
+        outs = []
+        for d in (dev, "cpu"):
+            m = Qwen3(src.cfg, device=d, tp=tp)
+            m.set_params(src.params)
+            res = []
+            for pc in (False, True):
+                eng = ContinuousEngine(m, max_batch=2, page_size=16,
+                                       max_length=64, prefix_cache=pc,
+                                       mode="pallas", device=d)
+                res.append(np.concatenate(eng.run([(p, 8) for p in prompts])))
+                if eng.audit():
+                    raise RuntimeError(f"tiny tp={tp} on {d}: audit "
+                                       f"{eng.audit()}")
+            res.append(Engine(m, mode="pallas", paged=True, page_size=16,
+                              device=d).serve(ids, 7, 64))
+            outs.append(res)
+        if not all(np.array_equal(x, y) for x, y in zip(*outs)):
+            raise RuntimeError(f"tiny f32 tp={tp} serving on the card "
+                               "differs from the CPU")
+        print(f"[tp] tiny f32 tp={tp} mode='pallas' ContinuousEngine (with "
+              "and without the prefix cache) + Engine tokens on the card "
+              "== CPU")
+
+
+def profile_tp_steps(model, steps: int = 8) -> dict:
+    """Where a tp step's time goes: a B=4 decode step at kv_len ~340 and
+    a 384-row chunk at offset 0 over a paged pool, in mode ``pallas``
+    (the kernels) and ``xla`` (plain torch collectives): host wall a step
+    (synchronized) and, under ``torch.profiler``, the device's busy time,
+    idle share and launches a step."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from triton_distributed_tpu_torch.models.paged_kv_cache import (
+        init_paged_cache,
+    )
+
+    b, page = 4, PAGE
+    cache, _ = init_paged_cache(model.cfg, b, model.device,
+                                max_length=TP_MAX_LENGTH, page_size=page,
+                                tp=model.tp)
+    cache.kv_len[:] = 340
+    tok = torch.arange(b, dtype=torch.int32, device=model.device)
+    chunk = np.arange(384, dtype=np.int32) % model.cfg.vocab_size
+    out = {}
+    for mode in ("pallas", "xla"):
+        phases = {
+            "decode": lambda: model.decode_step(tok, cache, mode),
+            "chunk384": lambda: model.prefill_paged_chunk(
+                chunk, 0, 0, 384, 383, cache, mode),
+        }
+        for name, step in phases.items():
+            for _ in range(2):
+                step()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                step()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) / steps * 1e3
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                for _ in range(steps):
+                    step()
+                torch.cuda.synchronize()
+            kern = [e for e in prof.key_averages()
+                    if e.device_type.name == "CUDA"
+                    and e.device_time_total > 0]
+            busy = sum(e.device_time_total for e in kern) / steps / 1e3
+            top = sorted(kern, key=lambda e: -e.device_time_total)[:5]
+            rec = {"wall_ms": wall, "device_busy_ms": busy,
+                   "device_idle_share": max(0.0, 1.0 - busy / wall),
+                   "launches": sum(e.count for e in kern) / steps,
+                   "top": [[e.key[:60], e.device_time_total / steps / 1e3]
+                           for e in top]}
+            out[f"{name}_{mode}"] = rec
+            print(f"[tp] step profile {name} mode={mode}: {wall:.2f} ms wall, "
+                  f"device busy {busy:.2f} ms (idle "
+                  f"{rec['device_idle_share']:.3f}), "
+                  f"{rec['launches']:.0f} launches; top "
+                  + ", ".join(f"{k} {v:.3f}" for k, v in rec["top"][:3]))
+    return out
+
+
+def serve_tp_paths(dev) -> tuple:
+    """Qwen3-8B at tp=2, all layers: the three pallas paths, launches per
+    path, audits, and teacher forcing of every request against a plain
+    full-sequence forward over the unsharded weights (bf16 limits)."""
+    import numpy as np
+    import torch
+
+    from triton_distributed_tpu_torch.models import (
+        AutoLLM,
+        ContinuousEngine,
+        Engine,
+        unshard_params,
+    )
+    from triton_distributed_tpu_torch.ops import cuda_kernels as ck
+
+    t0 = time.perf_counter()
+    model = AutoLLM.from_pretrained(TP_MODEL, device=dev, seed=SEED, tp=TP)
+    torch.cuda.synchronize()
+    print(f"[tp] {TP_MODEL} random init at tp={TP} on {dev} in "
+          f"{time.perf_counter() - t0:.1f} s ({model.cfg.num_layers} layers, "
+          f"hq_loc {model.dims.hq_loc}, hkv_loc {model.dims.hkv_loc}; "
+          f"{torch.cuda.memory_allocated(dev) / 1e9:.2f} GB allocated)")
+    rng = np.random.default_rng(SEED + 4)
+    vocab = model.cfg.vocab_size
+    prompts = [rng.integers(0, vocab, k).astype(np.int32)
+               for k in TP_PROMPT_LENS]
+    ids = np.stack([p[:TP_PROMPT_LENS[0]] for p in prompts[:2]])
+    launches, outs, e2e = {}, {}, {}
+    runs = {
+        "continuous_tp": lambda: ContinuousEngine(
+            model, max_batch=4, page_size=PAGE, max_length=TP_MAX_LENGTH,
+            prefix_cache=True, mode="pallas", device=dev),
+        "continuous_tp_chunk128": lambda: ContinuousEngine(
+            model, max_batch=4, page_size=PAGE, max_length=TP_MAX_LENGTH,
+            prefix_cache=True, prefill_chunk=TP_CHUNK, mode="pallas",
+            device=dev),
+        "paged_engine_tp": lambda: Engine(model, mode="pallas", paged=True,
+                                          page_size=PAGE, device=dev),
+    }
+    warm = rng.integers(0, vocab, TP_PROMPT_LENS[0]).astype(np.int32)
+    timers = {name: _Timed(model, name) for name in (
+        "decode_step", "prefill_paged_chunk", "prefill_batched")}
+    for path, make in runs.items():
+        eng = make()
+        if path == "paged_engine_tp":  # warm-up serve, then the counted one
+            eng.serve(ids, 2, TP_MAX_LENGTH)
+        else:
+            eng.run([(warm, 2)])
+        torch.cuda.synchronize()
+        ck.reset_launch_counts()
+        before = {k: t.snapshot() for k, t in timers.items()}
+        t0 = time.perf_counter()
+        if path == "paged_engine_tp":
+            got = eng.serve(np.stack(prompts[1::2]), TP_GEN, TP_MAX_LENGTH)
+            outs[path] = [g[len(p):] for g, p in zip(got, prompts[1::2])]
+        else:
+            outs[path] = eng.run([(p, TP_GEN) for p in prompts])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches[path] = ck.launch_counts()
+        if eng.audit():
+            raise RuntimeError(f"{path}: pool audit failed: {eng.audit()}")
+        need = TP_PATH_KERNELS[path]
+        counts = {k: launches[path][k] for k in need}
+        print(f"[tp] {path}: {wall:.2f} s wall, launches {counts}")
+        missing = [k for k in need if not launches[path][k]]
+        if missing:
+            raise RuntimeError(f"{path} did not launch {missing}")
+        spent = {k: (t.snapshot()[0] - before[k][0],
+                     t.snapshot()[1] - before[k][1])
+                 for k, t in timers.items()}
+        dec_s, dec_n = spent["decode_step"]
+        pre_s = spent["prefill_paged_chunk"][0] + spent["prefill_batched"][0]
+        e2e[path] = {"wall_s": wall, "launches": counts,
+                     "decode_steps": dec_n,
+                     "decode_ms_per_step": dec_s / max(dec_n, 1) * 1e3,
+                     "prefill_s": pre_s,
+                     "prefill_calls": spent["prefill_paged_chunk"][1]
+                     + spent["prefill_batched"][1]}
+        print(f"[tp] {path}: decode {e2e[path]['decode_ms_per_step']:.2f} "
+              f"ms a step (host wall, {dec_n} steps), prefill "
+              f"{pre_s:.3f} s in {e2e[path]['prefill_calls']} calls")
+    e2e["step_profile"] = profile_tp_steps(model)
+    # Every prefill chunk and decode step of the continuous paths went
+    # through a kernel: TWO_SHOT's gemm_rs and all_gather once a layer
+    # each for every chunk over 512 KB (the 640-row one included), the
+    # one-shot gemm_ar for the rest and for every decode step.
+    per = 2 * model.cfg.num_layers
+    for path, chunk in (("continuous_tp", 0),
+                        ("continuous_tp_chunk128", TP_CHUNK)):
+        two = _two_shot_chunks(TP_PROMPT_LENS, chunk, model.cfg.hidden_size,
+                               model.cfg.dtype.itemsize)
+        one = e2e[path]["prefill_calls"] - two + e2e[path]["decode_steps"]
+        got = launches[path]
+        if not (got["gemm_rs"] == got["all_gather"] == per * two
+                and got["gemm_ar"] == per * one):
+            raise RuntimeError(
+                f"{path}: launches gemm_ar {got['gemm_ar']}, gemm_rs "
+                f"{got['gemm_rs']}, all_gather {got['all_gather']}; "
+                f"expected {per * one}, {per * two}, {per * two}")
+        print(f"[tp] {path}: {two} TWO_SHOT chunks (gemm_rs + all_gather) "
+              f"and {one} one-shot chunks and decode steps, {per} launches "
+              "each: no chunk took the plain version")
+    steps = TP_GEN - 1
+    want = per * steps
+    if launches["paged_engine_tp"]["gemm_ar"] != want:
+        raise RuntimeError(
+            f"paged_engine_tp: {launches['paged_engine_tp']['gemm_ar']} "
+            f"gemm_ar launches, {want} expected (2 a layer a decode step)")
+    print(f"[tp] paged_engine_tp: {want // steps} one-shot gemm_ar launches "
+          "a decode step")
+    # Teacher forcing through a plain forward over the unsharded weights.
+    params = unshard_params(model.params)
+    plain = _tp_plain_model(model, params)
+    for path, got in outs.items():
+        gaps = []
+        src = prompts[1::2] if path == "paged_engine_tp" else prompts
+        for p, o in zip(src, got):
+            gaps += teacher_forced_gaps(plain, p, np.asarray(o))
+        e2e[path]["teacher_forcing"] = _tf_check(
+            f"{path} (tp={TP})", gaps, TF_MARGIN, TF_MIN_EXACT)
+    del params, plain, model
+    torch.cuda.empty_cache()
+    return launches, e2e
+
+
+def check_tp(dev):
+    """Phase 5: tensor parallelism over co-located ranks. The kernel
+    checks, the tiny card == CPU serving, then Qwen3-8B at tp=2. Returns
+    (records by kernel, launches by path, the e2e block)."""
+    import gc
+
+    import torch
+
+    # The MoE phase's model (61 GB) lives on in its engines' reference
+    # cycles until a collection.
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[tp] {torch.cuda.memory_allocated(dev) / 1e9:.2f} GB allocated "
+          "at the start of the phase")
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    records = check_tp_kernels(dev, flush)
+    del flush
+    check_tp_tiny(dev)
+    launches, e2e = serve_tp_paths(dev)
+    return records, launches, e2e
+
+
 def main() -> int:
     try:
         import torch
@@ -3736,12 +4292,17 @@ def main() -> int:
     records.update(moe_records)
     launches.update(moe_launches)
     phase_s["moe"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    tp_records, tp_launches, e2e["tp"] = check_tp(dev)
+    records.update(tp_records)
+    launches.update(tp_launches)
+    phase_s["tp"] = time.perf_counter() - t0
     print(f"[time] seconds per phase: {json.dumps(phase_s)}")
 
     # "launches" counts the first path that must launch the kernel;
     # "launches_by_path" gives every path's own run.
     kernels = []
-    paths = {**PATH_KERNELS, **MOE_PATH_KERNELS}
+    paths = {**PATH_KERNELS, **MOE_PATH_KERNELS, **TP_PATH_KERNELS}
     for k in ck.KERNELS:
         first = next(p for p, need in paths.items() if k.name in need)
         kernels.append({

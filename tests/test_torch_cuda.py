@@ -1353,3 +1353,291 @@ def test_mega_moe_serving_on_card_equals_cpu(dev):
                 assert ck.MEGA_DECODE_MOE.launches > before
         np.testing.assert_array_equal(outs[0], outs[1])
 
+
+
+# -- the cross-rank kernels over co-located ranks (tensor parallelism) ------
+#
+# Each kernel against its plain version on the same per-rank inputs. The
+# GEMM sums in another order than cuBLAS: f32 (TF32 off) within 1e-4 +
+# 1e-5·|p| of outputs of size ~1; bf16 rounds each rank's partial (and,
+# in the ring, each hop's sum) to bf16, where a flip is one ulp, so the
+# limit is n ulps: (2^-6 + 2^-7·|p|)·n.
+
+
+def _tp_ok(got, want, dtype, n):
+    atol, rtol = ((1e-4, 1e-5) if dtype == torch.float32
+                  else (2.0**-6 * n, 2.0**-7 * n))
+    err = (got.float() - want.float()).abs()
+    return bool((err <= atol + rtol * want.float().abs()).all()), float(
+        err.max())
+
+
+def _tp_operands(dev, n, dtype, m, k, nout, seed, rows=False):
+    """Per-rank A (column shards, or row shards with ``rows``) and B of
+    unit-scale products."""
+    from triton_distributed_tpu_torch.runtime import initialize_distributed
+
+    ctx = initialize_distributed(n, device=dev, dtype=dtype)
+    rng = np.random.default_rng(seed)
+    a = _rand(rng, (m, k), dtype, dev)
+    b = (_rand(rng, (k, nout), torch.float32, dev) * k**-0.5).to(dtype)
+    return ctx, (ctx.shard(a, 0) if rows else ctx.shard(a, 1)), (
+        ctx.shard(b, 1) if rows else ctx.shard(b, 0))
+
+
+TP_SHAPES = [(2, 8, 128, 256), (4, 8, 128, 256), (2, 4, 4096, 4096),
+             (2, 48, 4096, 4096), (4, 32, 1024, 512)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,m,k,nout", TP_SHAPES)
+def test_gemm_ar_one_shot_matches_plain(dev, dtype, n, m, k, nout):
+    from triton_distributed_tpu_torch.ops.overlap import gemm_ar_plain
+    from triton_distributed_tpu_torch.ops.overlap.gemm_ar import (
+        gemm_ar_one_shot,
+    )
+
+    ctx, a, b = _tp_operands(dev, n, dtype, m, k, nout, seed=n + m)
+    before = ck.GEMM_AR.launches
+    got = gemm_ar_one_shot(a, b, ctx)
+    want = gemm_ar_plain(a, b)
+    torch.cuda.synchronize()
+    assert ck.GEMM_AR.launches == before + 1
+    for g in got[1:]:
+        assert torch.equal(g, got[0])  # every rank bitwise the same
+    ok, err = _tp_ok(got[0], want[0], dtype, n)
+    assert ok, err
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bidir", [False, True])
+@pytest.mark.parametrize("n,m,k,nout", [(2, 32, 128, 256), (4, 64, 256, 128),
+                                        (2, 300, 2048, 4096),
+                                        (4, 96, 512, 256)])
+def test_gemm_rs_matches_plain(dev, dtype, bidir, n, m, k, nout):
+    from triton_distributed_tpu_torch.ops.overlap import (
+        GemmRSConfig,
+        create_gemm_rs_context,
+        gemm_rs_plain,
+    )
+    from triton_distributed_tpu_torch.ops.overlap.gemm_rs import (
+        gemm_rs_ring,
+        ring_split,
+    )
+
+    ctx, a, b = _tp_operands(dev, n, dtype, m, k, nout, seed=2 * n + m)
+    cfg = create_gemm_rs_context(m, k // n, dtype, n_ranks=n, bidir=bidir)
+    half = ring_split(m // n, cfg)
+    assert bidir == (half < m // n) or m // n < 16
+    got = gemm_rs_ring(a, b, ctx, half)
+    want = gemm_rs_plain(a, b, half)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        ok, err = _tp_ok(g, w, dtype, n)
+        assert ok, err
+    assert isinstance(cfg, GemmRSConfig)
+
+
+@pytest.mark.parametrize("bidir", [False, True])
+def test_gemm_rs_kernel_follows_the_ring_order(dev, bidir):
+    """Planted bf16 partials (rank r's = A_r, B_r = I): by a rank's ring
+    position 256, 1, -256, 0. The ring rounds 256 + 1 back to 256 and
+    ends at 0; a sum in rank order gives 1. The kernel must give 0."""
+    from triton_distributed_tpu_torch.ops.overlap.gemm_rs import gemm_rs_ring
+    from triton_distributed_tpu_torch.runtime import initialize_distributed
+
+    n, m_per, kl = 4, 16, 128
+    half = 8 if bidir else m_per
+    a = np.zeros((n * m_per, n * kl), np.float32)
+    for r in range(n):
+        for c in range(n):
+            for i in range(m_per):
+                s = (r - c - 1) % n if i < half else (c - 1 - r) % n
+                a[c * m_per + i, r * kl] = (256.0, 1.0, -256.0, 0.0)[s]
+    ctx = initialize_distributed(n, device=dev, dtype=torch.bfloat16)
+    at = torch.from_numpy(a).to(dev, torch.bfloat16)
+    b = torch.eye(kl, device=dev, dtype=torch.bfloat16).repeat(n, 1)
+    got = torch.cat(gemm_rs_ring(ctx.shard(at, 1), ctx.shard(b, 0), ctx,
+                                 half))
+    assert (got[:, 0] == 0).all()
+    assert (at.float().reshape(n * m_per, n, kl)[:, :, 0].sum(1) == 1).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,m,k,nout", [(2, 64, 128, 256), (4, 64, 64, 512),
+                                        (2, 300, 4096, 6144),
+                                        (4, 40, 256, 128)])
+def test_ag_gemm_matches_plain(dev, dtype, n, m, k, nout):
+    from triton_distributed_tpu_torch.ops.overlap import ag_gemm_plain
+    from triton_distributed_tpu_torch.ops.overlap.ag_gemm import (
+        ag_gemm_kernel,
+    )
+
+    ctx, a, b = _tp_operands(dev, n, dtype, m, k, nout, seed=3 * n + m,
+                             rows=True)
+    got = ag_gemm_kernel(a, b, ctx)
+    want = ag_gemm_plain(a, b)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        ok, err = _tp_ok(g, w, dtype, n)
+        assert ok, err
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,m_per,cols", [(2, 8, 64), (4, 8, 64),
+                                          (2, 150, 4096), (4, 3, 40)])
+def test_all_gather_full_mesh_matches_plain(dev, dtype, n, m_per, cols):
+    from triton_distributed_tpu_torch.ops.collectives import (
+        all_gather_full_mesh,
+        all_gather_plain,
+    )
+    from triton_distributed_tpu_torch.runtime import initialize_distributed
+
+    ctx = initialize_distributed(n, device=dev, dtype=dtype)
+    rng = np.random.default_rng(n + m_per)
+    xs = [_rand(rng, (m_per, cols), dtype, dev) for _ in range(n)]
+    got = all_gather_full_mesh(xs, ctx)
+    want = all_gather_plain(xs)
+    torch.cuda.synchronize()
+    for g in got:
+        assert torch.equal(g, want[0])
+
+
+@pytest.mark.parametrize("n,m,method", [(2, 48, "one_shot"),
+                                         (2, 96, "two_shot"),
+                                         (2, 640, "two_shot"),
+                                         (4, 520, "two_shot"),
+                                         (2, 641, "one_shot")])
+def test_gemm_ar_auto_launches_a_kernel_at_every_size(dev, n, m, method):
+    """gemm_ar's AUTO on the card, bf16 at N=4096: ONE_SHOT up to 512 KB
+    of output; above it TWO_SHOT (gemm_rs, then the full-mesh all_gather)
+    when m % n == 0, also past the 4 MB (m > 512 rows) where the JAX
+    AUTO hands over to XLA, else ONE_SHOT. Never the plain version: a
+    kernel launches every time, and the output equals the plain version
+    of the method taken, on every rank bitwise."""
+    from triton_distributed_tpu_torch.ops.overlap import (
+        gemm_ar,
+        gemm_ar_plain,
+        gemm_rs_plain,
+    )
+
+    dt = torch.bfloat16
+    ctx, a, b = _tp_operands(dev, n, dt, m, 4096, 4096, seed=m)
+    ck.reset_launch_counts()
+    got = gemm_ar(a, b, ctx)
+    torch.cuda.synchronize()
+    counts = ck.launch_counts()
+    two = method == "two_shot"
+    assert counts["gemm_ar"] == int(not two)
+    assert counts["gemm_rs"] == counts["all_gather"] == int(two)
+    want = torch.cat(gemm_rs_plain(a, b)) if two else gemm_ar_plain(a, b)[0]
+    for g in got:
+        assert torch.equal(g, got[0])
+    ok, err = _tp_ok(got[0], want, dt, n)
+    assert ok, err
+
+
+def test_tp_kernels_refuse_a_grid_that_cannot_be_coresident(dev):
+    """A cooperative grid larger than the card holds resident is refused
+    before it launches (a spinning block would wait for one never
+    scheduled); the default grid fits."""
+    from triton_distributed_tpu_torch.ops.collectives import (
+        all_gather_full_mesh,
+    )
+    from triton_distributed_tpu_torch.ops.overlap import _launch
+    from triton_distributed_tpu_torch.ops.overlap.gemm_ar import (
+        gemm_ar_one_shot,
+    )
+
+    ctx, a, b = _tp_operands(dev, 2, torch.bfloat16, 4, 256, 4096, seed=1)
+    cap = _launch.capacity("gemm_ar", torch.bfloat16, True)
+    before = ck.GEMM_AR.launches
+    with pytest.raises(RuntimeError, match="cudaError"):
+        gemm_ar_one_shot(a, b, ctx, blocks_per_rank=cap)
+    assert ck.GEMM_AR.launches == before
+    gemm_ar_one_shot(a, b, ctx, blocks_per_rank=cap // 2)
+    cap_ag = ck.coresident_blocks("collectives", "tdt_all_gather_capacity")
+    with pytest.raises(RuntimeError, match="cudaError"):
+        all_gather_full_mesh(a, ctx, blocks_per_rank=cap_ag)
+    torch.cuda.synchronize()
+
+
+def test_tp_kernels_stress_back_to_back(dev):
+    """100 launches of each kernel back to back, fresh inputs each, every
+    output checked: a flag or epoch reused across launches would let a
+    rank read a stale slot."""
+    from triton_distributed_tpu_torch.ops.collectives import (
+        all_gather_full_mesh,
+    )
+    from triton_distributed_tpu_torch.ops.overlap.ag_gemm import (
+        ag_gemm_kernel,
+    )
+    from triton_distributed_tpu_torch.ops.overlap.gemm_ar import (
+        gemm_ar_one_shot,
+    )
+    from triton_distributed_tpu_torch.ops.overlap.gemm_rs import gemm_rs_ring
+
+    n, dt = 4, torch.float32
+    ctx, a, b = _tp_operands(dev, n, dt, 32, 256, 128, seed=9)
+    ctx2, ar, br = _tp_operands(dev, n, dt, 32, 64, 256, seed=10, rows=True)
+    outs = []
+    for i in range(100):
+        a = [t + 0.01 * i for t in a]
+        ar = [t - 0.01 * i for t in ar]
+        outs.append((
+            a, ar,
+            gemm_ar_one_shot(a, b, ctx), gemm_rs_ring(a, b, ctx, 4),
+            ag_gemm_kernel(ar, br, ctx2), all_gather_full_mesh(ar, ctx2)))
+    torch.cuda.synchronize()
+    from triton_distributed_tpu_torch.ops.overlap import (
+        ag_gemm_plain,
+        gemm_ar_plain,
+        gemm_rs_plain,
+    )
+
+    for a, ar, g_ar, g_rs, g_ag, g_all in outs:
+        assert _tp_ok(g_ar[2], gemm_ar_plain(a, b)[0], dt, n)[0]
+        for g, w in zip(g_rs, gemm_rs_plain(a, b, 4)):
+            assert _tp_ok(g, w, dt, n)[0]
+        for g, w in zip(g_ag, ag_gemm_plain(ar, br)):
+            assert _tp_ok(g, w, dt, n)[0]
+        assert torch.equal(g_all[3], torch.cat(ar))
+
+
+@pytest.mark.parametrize("tp", [2, 4])
+def test_tp_serving_on_card_equals_cpu(dev, tp):
+    """Tiny f32 at tp=2/4 in mode='pallas' on the card emits the CPU's
+    tokens (the plain versions there) through both engines, and launches
+    each kernel its path uses."""
+    from triton_distributed_tpu_torch.models import (
+        AutoLLM,
+        ContinuousEngine,
+        Engine,
+    )
+    from triton_distributed_tpu_torch.models.qwen import Qwen3
+
+    src = AutoLLM.from_pretrained("tiny", device="cpu", seed=3)
+    rng = np.random.default_rng(4)
+    prompts = [rng.integers(0, 256, k).astype(np.int32) for k in (20, 41, 9)]
+    ids = np.stack([prompts[0], prompts[1][:20]])
+    outs, counts = [], []
+    for d in (dev, "cpu"):
+        m = Qwen3(src.cfg, device=d, tp=tp)
+        m.set_params(src.params)
+        ck.reset_launch_counts()
+        res = []
+        for pc in (False, True):
+            eng = ContinuousEngine(m, max_batch=2, page_size=16,
+                                   max_length=64, prefix_cache=pc,
+                                   mode="pallas", device=d)
+            res.append(np.concatenate(eng.run([(p, 8) for p in prompts])))
+            assert eng.audit() == []
+        res.append(Engine(m, mode="pallas", paged=True, page_size=16,
+                          device=d).serve(ids, 7, 64))
+        counts.append(ck.launch_counts())
+        outs.append(res)
+    assert all(np.array_equal(x, y) for x, y in zip(*outs))
+    # The card's prefill runs ag_gemm and gemm_rs, its decode and chunks
+    # gemm_ar; the CPU run launches nothing.
+    assert all(counts[0][k] > 0 for k in ("ag_gemm", "gemm_rs", "gemm_ar"))
+    assert sum(counts[1].values()) == 0

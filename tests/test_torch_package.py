@@ -33,6 +33,10 @@ PKG = ROOT / "triton_distributed_tpu_torch"
 SLICE_MODULES = [
     "triton_distributed_tpu_torch",
     "triton_distributed_tpu_torch.runtime.context",
+    "triton_distributed_tpu_torch.runtime.mesh",
+    "triton_distributed_tpu_torch.language",
+    "triton_distributed_tpu_torch.ops.collectives",
+    "triton_distributed_tpu_torch.ops.overlap",
     "triton_distributed_tpu_torch.ops.cuda_kernels",
     "triton_distributed_tpu_torch.ops.attention",
     "triton_distributed_tpu_torch.layers.tp_attn",
@@ -119,13 +123,18 @@ def _refusal(knobs) -> type:
 
 
 @pytest.mark.parametrize("knobs", [
-    dict(mode="pallas"),
+    dict(mode="mega", tp=2),
     dict(speculative=2),
     dict(kv_dtype="int8", paged=False),
     dict(kv_dtype="fp8", paged=True),
 ])
 def test_engine_refuses_unported_knobs(knobs):
-    model = AutoLLM.from_pretrained("tiny", device="cpu")
+    """``mode="pallas"`` is served since tensor parallelism was ported
+    (tests/test_torch_tp.py); its case became the megakernel at tp=2,
+    which stays refused (ROADMAP queue 2 row 6(e))."""
+    knobs = dict(knobs)
+    model = AutoLLM.from_pretrained("tiny", device="cpu",
+                                    tp=knobs.pop("tp", 1))
     with pytest.raises(_refusal(knobs)):
         Engine(model, device="cpu", **knobs)
 

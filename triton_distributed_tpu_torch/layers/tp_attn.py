@@ -1,14 +1,31 @@
-"""Attention layer (GQA + RoPE + QK-norm) at tp=1.
+"""Attention layer (GQA + RoPE + QK-norm), tensor-parallel over co-located
+ranks.
 
-Counterpart of ``triton_distributed_tpu/layers/tp_attn.py``: the tp=1,
-full-width branches of ``tp_attn_prefill``, ``tp_attn_prefill_paged_chunk``,
-``tp_attn_decode`` and ``tp_attn_decode_paged``, and the sharded
-long-context slot's ``tp_attn_prefill_paged_chunk_cold`` and
-``tp_attn_decode_sharded`` (a resident paged partial and a cold-window
-partial merged by ``lse_combine``). At tp=1 each device owns
-every head, the QKV and O projections are plain GEMMs and the psums run
-over a one-device axis, so they drop out; the attention itself is the
-port's hand-written kernels.
+Counterpart of ``triton_distributed_tpu/layers/tp_attn.py``:
+``tp_attn_prefill`` (:88-128), ``tp_attn_prefill_paged_chunk`` (:131),
+``tp_attn_decode`` (:517-566) and ``tp_attn_decode_paged`` (:568), and at
+tp=1 the sharded long-context slot's ``tp_attn_prefill_paged_chunk_cold``
+and ``tp_attn_decode_sharded`` (a resident paged partial and a
+cold-window partial merged by ``lse_combine``).
+
+At tp=1 a function takes one parameter dict, one activation and one
+cache: every head is local, the projections are plain GEMMs and the
+collectives drop out. At tp=n it takes one parameter shard, one
+activation and one cache (or pool) shard per rank, each rank holding
+``hq_loc = hq/n`` query and ``hkv_loc = hkv/n`` KV heads; the per-rank
+work (QKV, QK-norm, rope, the KV append and attention over the rank's
+own cache shard, through the port's hand-written attention kernels) runs
+in a loop over ranks, the body of the JAX ``shard_map``, and the
+projections that cross ranks go through the collective seams of
+``layers/tp_mlp.py``:
+
+- ``tp_attn_prefill`` (modes ``pallas`` / ``xla``): activations are
+  sequence-sharded; QKV is ``ag_gemm`` (xla: all-gather, GEMM), the
+  o-proj ``gemm_rs`` (xla: psum-scatter of the f32 partials);
+- the chunk and decode functions (``pallas_ar`` / ``xla_ar``, and
+  ``pallas`` / ``xla`` alike): activations are replicated, each rank
+  holding its own copy; the o-proj is ``gemm_ar`` (xla: the plain psum of
+  the rounded partials) and writes every rank's copy.
 
 The JAX functions take a donated cache and return the updated one; here
 the KV caches/pools (and an int8 pool's scales) are updated IN PLACE and
@@ -16,12 +33,11 @@ still returned, so call sites read alike. The paged functions take an
 int8 pool's ``k_scale``/``v_scale`` as the JAX ones do: the writes go
 through :func:`quantized_row_scatter` and the attention reads the codes
 through the int8 kernels. The chunk path takes the tree-speculation
-``rope_pos``/``attn_bias``. Not ported, and refused: the ``pallas``
-modes (ROADMAP queue 1).
+``rope_pos``/``attn_bias``.
 
-Parameters are a dict ``{"wqkv": [d, (hq + 2*hkv) * hd] (q | k | v),
-"wo": [hq * hd, d], "q_norm": [hd], "k_norm": [hd]}`` (norms may be
-None).
+Parameters are a dict per rank ``{"wqkv": [d, (hq_loc + 2*hkv_loc) * hd]
+(q | k | v), "wo": [hq_loc * hd, d], "q_norm": [hd], "k_norm": [hd]}``
+(norms may be None).
 """
 
 from __future__ import annotations
@@ -30,7 +46,14 @@ import dataclasses
 
 import torch
 
-from triton_distributed_tpu_torch.layers.tp_mlp import check_mode
+from triton_distributed_tpu_torch.layers.tp_mlp import (
+    check_mode,
+    gather_gemm,
+    gemm_scatter,
+    ranked,
+    reduce_ar,
+    unranked,
+)
 from triton_distributed_tpu_torch.ops.attention.flash_attention import (
     flash_attention,
 )
@@ -75,10 +98,11 @@ class TPAttnDims:
         )
 
 
-def _qkv(params, x, dims, positions):
-    """``x [S, d]`` → QKV GEMM → split → QK-norm → rope at ``positions``;
-    returns q, k, v as ``[h, S, hd]``."""
-    q, k, v = dims.split_qkv(x @ params["wqkv"])
+def _qkv(params, x, dims, positions, qkv=None):
+    """``x [S, d]`` → QKV GEMM (or the given ``qkv [S, qkv_loc]``) →
+    split → QK-norm → rope at ``positions``; returns q, k, v as
+    ``[h, S, hd]``."""
+    q, k, v = dims.split_qkv(x @ params["wqkv"] if qkv is None else qkv)
     q = _rms_head(q, params.get("q_norm"))
     k = _rms_head(k, params.get("k_norm"))
     q = apply_rope(q.transpose(0, 1), positions, dims.rope_theta)
@@ -86,42 +110,64 @@ def _qkv(params, x, dims, positions):
     return q, k, v.transpose(0, 1)  # [h, S, hd]
 
 
-def _o_proj(params, o: torch.Tensor, dims, dtype) -> torch.Tensor:
-    """``o [h, S, hd]`` → ``[S, d]``."""
+def _o_flat(o: torch.Tensor, dims, dtype) -> torch.Tensor:
+    """``o [h, S, hd]`` → ``[S, h * hd]`` in ``dtype``."""
     s = o.shape[1]
-    o_flat = o.transpose(0, 1).reshape(s, dims.hq_loc * dims.head_dim)
-    return o_flat.to(dtype) @ params["wo"]
+    return o.transpose(0, 1).reshape(s, dims.hq_loc * dims.head_dim).to(dtype)
 
 
-def tp_attn_prefill(params: dict, x: torch.Tensor, dims: TPAttnDims, *,
-                    mode: str = "xla"):
-    """Prefill one full sequence ``x [S, d]`` (causal from position 0).
-    Returns ``(out [S, d], k [hkv, S, hd], v [hkv, S, hd])`` — the
-    sequence's cache entries."""
+def _o_proj(params, o: torch.Tensor, dims, dtype) -> torch.Tensor:
+    """``o [h, S, hd]`` → ``[S, d]`` (one rank)."""
+    return _o_flat(o, dims, dtype) @ params["wo"]
+
+
+def _shards(v, single: bool, n: int) -> list:
+    """A per-rank argument as a list (None → None for every rank)."""
+    if single:
+        return [v]
+    return [None] * n if v is None else list(v)
+
+
+def tp_attn_prefill(params, x, dims: TPAttnDims, *, mode: str = "xla",
+                    ctx=None):
+    """Prefill one full sequence, causal from position 0. tp=1: ``x
+    [S, d]``; tp=n: each rank's sequence shard ``[S/n, d]``. Returns
+    ``(out, k, v)``: the output in ``x``'s layout and each rank's cache
+    entries ``k/v [hkv_loc, S, hd]``."""
     check_mode(mode)
-    s = x.shape[0]
-    pos = torch.arange(s, device=x.device)
-    q, k, v = _qkv(params, x, dims, pos)
-    o = flash_attention(
-        q[None].contiguous(), k[None].contiguous(), v[None].contiguous(),
-        causal=True,
-    )[0]
-    return _o_proj(params, o, dims, x.dtype), k, v
+    ps, xs, single = ranked(params, x)
+    qkv = gather_gemm(xs, [p["wqkv"] for p in ps], mode, ctx)
+    s = qkv[0].shape[0]
+    pos = torch.arange(s, device=xs[0].device)
+    o_flat, ks, vs = [], [], []
+    for p, t in zip(ps, qkv):
+        q, k, v = _qkv(p, None, dims, pos, qkv=t)
+        o = flash_attention(
+            q[None].contiguous(), k[None].contiguous(), v[None].contiguous(),
+            causal=True,
+        )[0]
+        o_flat.append(_o_flat(o, dims, xs[0].dtype))
+        ks.append(k)
+        vs.append(v)
+    out = gemm_scatter(o_flat, [p["wo"] for p in ps], mode, ctx)
+    return (unranked(out, single), unranked(ks, single),
+            unranked(vs, single))
 
 
 def tp_attn_prefill_paged_chunk(
-    params: dict,
-    x: torch.Tensor,           # [C, d] — one chunk of ONE sequence
-    k_pages: torch.Tensor,     # [P, hkv, page, hd] — this layer's pool
-    v_pages: torch.Tensor,
+    params,
+    x,                         # [C, d] — one chunk of ONE sequence
+    k_pages,                   # [P, hkv, page, hd] — this layer's pool
+    v_pages,
     table_row: torch.Tensor,   # [pages_per_seq] int32 — the sequence's pages
     q_offset: int,             # tokens already cached
     dims: TPAttnDims,
     *,
     kv_pages: int | None = None,
     mode: str = "xla_ar",
-    k_scale: torch.Tensor | None = None,  # [P, hkv] f32 — int8 pool scales
-    v_scale: torch.Tensor | None = None,
+    ctx=None,
+    k_scale=None,              # [P, hkv] f32 — int8 pool scales
+    v_scale=None,
     q_end: int | None = None,             # absolute end of the REAL rows
     rope_pos: torch.Tensor | None = None,   # [C] int — rope positions (tree)
     attn_bias: torch.Tensor | None = None,  # [C, S_kv] f32 additive mask
@@ -132,7 +178,10 @@ def tp_attn_prefill_paged_chunk(
     the chunk's queries against the whole cached context (prefix pages +
     the chunk) through ``kv_offset = q_offset``. Final-chunk right-padding
     that runs past the table's capacity is routed to the trash page 0.
-    The gather is bounded to ``kv_pages`` table entries.
+    The gather is bounded to ``kv_pages`` table entries. At tp=n ``x``,
+    the pools and the scales are per-rank lists (each rank's copy of the
+    replicated chunk, its own pool shard) and the o-proj sums over ranks
+    into every rank's copy.
 
     On an int8 pool the scatter quantizes the chunk's rows, and rows at
     or past ``q_end`` (the chunk's right-padding) go to the trash page 0,
@@ -150,6 +199,22 @@ def tp_attn_prefill_paged_chunk(
     sibling branches out of each other's softmax.
     Returns ``(out [C, d], k_pages, v_pages, k_scale, v_scale)``."""
     check_mode(mode)
+    ps, xs, single = ranked(params, x)
+    n = len(ps)
+    kps, vps = _shards(k_pages, single, n), _shards(v_pages, single, n)
+    kss, vss = _shards(k_scale, single, n), _shards(v_scale, single, n)
+    o_flat = [
+        _chunk_local(ps[r], xs[r], kps[r], vps[r], table_row, q_offset, dims,
+                     kv_pages, kss[r], vss[r], q_end, rope_pos, attn_bias)
+        for r in range(n)
+    ]
+    out = reduce_ar(o_flat, [p["wo"] for p in ps], mode, ctx)
+    return unranked(out, single), k_pages, v_pages, k_scale, v_scale
+
+
+def _chunk_local(params, x, k_pages, v_pages, table_row, q_offset, dims,
+                 kv_pages, k_scale, v_scale, q_end, rope_pos, attn_bias):
+    """One rank's chunk step up to the o-proj: ``o_flat [C, hq*hd]``."""
     c = x.shape[0]
     page = k_pages.shape[2]
     pps = table_row.shape[0]
@@ -201,8 +266,7 @@ def tp_attn_prefill_paged_chunk(
         scales["bias"] = attn_bias[:, : k_dense.shape[2]].contiguous()
     o = flash_attention(q[None].contiguous(), k_dense, v_dense, causal=True,
                         kv_offset=q_offset, **scales)[0]
-    return (_o_proj(params, o, dims, x.dtype), k_pages, v_pages, k_scale,
-            v_scale)
+    return _o_flat(o, dims, x.dtype)
 
 
 def cold_mask(c: int, s_bucket: int, s_cold: int, device) -> torch.Tensor:
@@ -388,43 +452,52 @@ def _decode_qkv(params, x, kv_len, dims):
 
 
 def tp_attn_decode(
-    params: dict,
-    x: torch.Tensor,        # [B, d] — one new token per sequence
-    k_cache: torch.Tensor,  # [B, hkv, S_max, hd] (updated in place)
-    v_cache: torch.Tensor,
+    params,
+    x,                      # [B, d] — one new token per sequence
+    k_cache,                # [B, hkv, S_max, hd] (updated in place)
+    v_cache,
     kv_len: torch.Tensor,   # [B] int32 — tokens already in cache
     dims: TPAttnDims,
     *,
     mode: str = "xla_ar",
+    ctx=None,
 ):
     """Decode step over a dense cache: QKV → rope at position ``kv_len``
-    → cache append at ``kv_len[b]`` → flash decode → O-proj. Returns
-    ``(out [B, d], k_cache, v_cache)``."""
+    → cache append at ``kv_len[b]`` → flash decode → O-proj (summed over
+    ranks at tp=n, where ``x`` and the caches are per-rank lists).
+    Returns ``(out [B, d], k_cache, v_cache)``."""
     check_mode(mode)
-    b = x.shape[0]
-    q, k, v = _decode_qkv(params, x, kv_len, dims)
-    # Clamped like the JAX dynamic_update_slice the append mirrors.
-    pos = torch.clamp(kv_len.long(), 0, k_cache.shape[2] - 1)
-    rows = torch.arange(b, device=x.device)
-    k_cache[rows, :, pos, :] = k.to(k_cache.dtype)
-    v_cache[rows, :, pos, :] = v.to(v_cache.dtype)
-    o = flash_decode(q.contiguous(), k_cache, v_cache, kv_len + 1)
-    out = o.reshape(b, dims.hq_loc * dims.head_dim).to(x.dtype) @ params["wo"]
-    return out, k_cache, v_cache
+    ps, xs, single = ranked(params, x)
+    n = len(ps)
+    kcs, vcs = _shards(k_cache, single, n), _shards(v_cache, single, n)
+    o_flat = []
+    for p, t, kc, vc in zip(ps, xs, kcs, vcs):
+        b = t.shape[0]
+        q, k, v = _decode_qkv(p, t, kv_len, dims)
+        # Clamped like the JAX dynamic_update_slice the append mirrors.
+        pos = torch.clamp(kv_len.long(), 0, kc.shape[2] - 1)
+        rows = torch.arange(b, device=t.device)
+        kc[rows, :, pos, :] = k.to(kc.dtype)
+        vc[rows, :, pos, :] = v.to(vc.dtype)
+        o = flash_decode(q.contiguous(), kc, vc, kv_len + 1)
+        o_flat.append(o.reshape(b, dims.hq_loc * dims.head_dim).to(t.dtype))
+    out = reduce_ar(o_flat, [p["wo"] for p in ps], mode, ctx)
+    return unranked(out, single), k_cache, v_cache
 
 
 def tp_attn_decode_paged(
-    params: dict,
-    x: torch.Tensor,           # [B, d] — one new token per sequence
-    k_pages: torch.Tensor,     # [P, hkv, page, hd] (updated in place)
-    v_pages: torch.Tensor,
+    params,
+    x,                         # [B, d] — one new token per sequence
+    k_pages,                   # [P, hkv, page, hd] (updated in place)
+    v_pages,
     page_table: torch.Tensor,  # [B, pages_per_seq] int32
     kv_len: torch.Tensor,      # [B] int32
     dims: TPAttnDims,
     *,
     mode: str = "xla_ar",
-    k_scale: torch.Tensor | None = None,  # [P, hkv] f32 — int8 pool scales
-    v_scale: torch.Tensor | None = None,
+    ctx=None,
+    k_scale=None,              # [P, hkv] f32 — int8 pool scales
+    v_scale=None,
 ):
     """Decode step over the paged pool: the append goes through the page
     table for EVERY row (an inactive slot has kv_len 0 and a zeroed table
@@ -432,26 +505,35 @@ def tp_attn_decode_paged(
     :func:`paged_flash_decode` reads the pool directly. On an int8 pool
     (``k_scale``/``v_scale`` given) the append is ONE batched
     :func:`quantized_row_scatter` over all B rows and the decode reads
-    the codes with their scales. Returns ``(out [B, d], k_pages,
-    v_pages, k_scale, v_scale)``."""
+    the codes with their scales. At tp=n ``x``, the pools and the scales
+    are per-rank lists; the page table and kv_len are shared. Returns
+    ``(out [B, d], k_pages, v_pages, k_scale, v_scale)``."""
     check_mode(mode)
-    b = x.shape[0]
-    page = k_pages.shape[2]
-    q, k, v = _decode_qkv(params, x, kv_len, dims)
-    pos = kv_len.long()
-    col = torch.clamp(pos // page, 0, page_table.shape[1] - 1)
-    pids = page_table.long()[torch.arange(b, device=x.device), col]
-    if k_scale is not None:
-        from triton_distributed_tpu_torch.models.paged_kv_cache import (
-            quantized_row_scatter,
-        )
+    ps, xs, single = ranked(params, x)
+    n = len(ps)
+    kps, vps = _shards(k_pages, single, n), _shards(v_pages, single, n)
+    kss, vss = _shards(k_scale, single, n), _shards(v_scale, single, n)
+    o_flat = []
+    for r in range(n):
+        t, kp, vp, ks, vs = xs[r], kps[r], vps[r], kss[r], vss[r]
+        b = t.shape[0]
+        page = kp.shape[2]
+        q, k, v = _decode_qkv(ps[r], t, kv_len, dims)
+        pos = kv_len.long()
+        col = torch.clamp(pos // page, 0, page_table.shape[1] - 1)
+        pids = page_table.long()[torch.arange(b, device=t.device), col]
+        if ks is not None:
+            from triton_distributed_tpu_torch.models.paged_kv_cache import (
+                quantized_row_scatter,
+            )
 
-        quantized_row_scatter(k_pages, k_scale, k, pids, pos % page)
-        quantized_row_scatter(v_pages, v_scale, v, pids, pos % page)
-    else:
-        k_pages[pids, :, pos % page, :] = k.to(k_pages.dtype)
-        v_pages[pids, :, pos % page, :] = v.to(v_pages.dtype)
-    o = paged_flash_decode(q.contiguous(), k_pages, v_pages, page_table,
-                           kv_len + 1, k_scale=k_scale, v_scale=v_scale)
-    out = o.reshape(b, dims.hq_loc * dims.head_dim).to(x.dtype) @ params["wo"]
-    return out, k_pages, v_pages, k_scale, v_scale
+            quantized_row_scatter(kp, ks, k, pids, pos % page)
+            quantized_row_scatter(vp, vs, v, pids, pos % page)
+        else:
+            kp[pids, :, pos % page, :] = k.to(kp.dtype)
+            vp[pids, :, pos % page, :] = v.to(vp.dtype)
+        o = paged_flash_decode(q.contiguous(), kp, vp, page_table,
+                               kv_len + 1, k_scale=ks, v_scale=vs)
+        o_flat.append(o.reshape(b, dims.hq_loc * dims.head_dim).to(t.dtype))
+    out = reduce_ar(o_flat, [p["wo"] for p in ps], mode, ctx)
+    return unranked(out, single), k_pages, v_pages, k_scale, v_scale

@@ -40,6 +40,8 @@ from triton_distributed_tpu_torch.models.qwen import (  # noqa: F401
     load_hf_state_dict,
     params_from_jax,
     q8_params_from_jax,
+    shard_params,
+    unshard_params,
 )
 from triton_distributed_tpu_torch.models.qwen_moe import (  # noqa: F401
     Qwen3MoE,
@@ -52,11 +54,14 @@ class AutoLLM:
 
     @staticmethod
     def from_pretrained(name_or_path: str, *, device=None, seed: int = 0,
+                        ctx=None, tp: int | None = None,
                         **overrides) -> Qwen3:
         """A Qwen3 preset (``tiny``, ``Qwen/Qwen3-0.6B`` ...; a preset
         with experts, ``tiny-moe`` or ``Qwen/Qwen3-30B-A3B``, builds
         :class:`Qwen3MoE`) with random weights from ``seed``, on ``cuda``
-        unless ``device`` says otherwise."""
+        unless ``device`` says otherwise, over ``tp`` co-located ranks (or
+        the ranks of ``ctx``, a ``DistContext``); the shards of the tp=1
+        model of the same seed."""
         if os.path.isdir(name_or_path):
             raise NotImplementedError(
                 "loading a local HF checkpoint directory needs safetensors "
@@ -64,6 +69,7 @@ class AutoLLM:
                 "load_hf_state_dict on a loaded state dict"
             )
         cfg = get_config(name_or_path, **overrides)
-        model = (Qwen3MoE if cfg.num_experts else Qwen3)(cfg, device=device)
+        model = (Qwen3MoE if cfg.num_experts else Qwen3)(
+            cfg, device=device, ctx=ctx, tp=tp)
         model.init_params(seed)
         return model

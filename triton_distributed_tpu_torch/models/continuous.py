@@ -77,6 +77,15 @@ step of the slot runs a per-slot forward that merges the resident and
 the cold-window attention partials with ``lse_combine``; the batched
 decode sees the slot as empty and its logits are spliced over.
 
+At tp>1 (a model over n co-located ranks) the engine serves greedy over
+a head-sharded full-width pool: ``mode="pallas"`` admits without the
+prefix cache through the sequence-sharded prefill (``ag_gemm`` /
+``gemm_rs``), with it through replicated chunks, and decodes through
+``gemm_ar`` (one-shot, or two-shot for chunks over 512 KB of output);
+``mode="xla"`` runs the same with plain torch collectives. Refused at
+tp>1: ``mode="mega"`` (ROADMAP queue 2 row 6(e)), speculation, int8 KV,
+sampling, the KV tier and ``rank_page_budget`` (queue 1, item 11).
+
 Not ported, and refused when asked for: slot migration/snapshots, the
 KV fabric, context-parallel prefill (ROADMAP queue 1). Cancellation,
 request timelines and fault seams are not ported either.
@@ -100,6 +109,7 @@ from triton_distributed_tpu_torch.models.engine import (
     MegaDispatch,
     engine_setup,
     prefill_suffix_chunks,
+    refuse_at_tp,
 )
 from triton_distributed_tpu_torch.models.paged_kv_cache import (
     PoolAuditError,
@@ -400,6 +410,10 @@ class ContinuousEngine(MegaDispatch):
                 "(ROADMAP queue 1, item 11)"
             )
         engine_setup(model, device, mode, **unported)
+        refuse_at_tp(model, speculative=speculative, kv_dtype=kv_dtype,
+                     rank_page_budget=rank_page_budget,
+                     tier=tier is not None or bool(tier_bytes or tier_dir),
+                     temperature=temperature > 0.0)
         if int(ns) < 1:
             raise ValueError(f"ns must be >= 1, got {ns}")
         if speculative and mode == "mega":
@@ -509,6 +523,7 @@ class ContinuousEngine(MegaDispatch):
             model.cfg, max_batch, model.device,
             max_length=self.max_length, page_size=page_size,
             num_pages=n_pages, assign_pages=False, kv_dtype=self.kv_dtype,
+            tp=model.tp,
         )
         self.pool.free = [p for p in self.pool.free if p != 0]
         self._capacity = len(self.pool.free)
@@ -635,8 +650,12 @@ class ContinuousEngine(MegaDispatch):
         self._table[slot, : len(req.pages)] = req.pages
         self._kv_len[slot] = s
         self._sync_tables()
+        # tp divisibility of the sequence-sharded prefill: right-padding,
+        # inert under causal masking.
+        row = np.concatenate([req.prompt,
+                              np.zeros((-s) % self.model.tp, np.int32)])
         logits, self._dense1 = self.model.prefill_batched(
-            req.prompt[None], self._dense1, self._prefill_mode, [s],
+            row[None], self._dense1, self._prefill_mode, [s],
         )
         self.cache = write_prefill(
             self.cache, slot, self._dense1.k, self._dense1.v, s
@@ -1899,6 +1918,8 @@ class ContinuousEngine(MegaDispatch):
             else Request(np.asarray(r[0], np.int32), int(r[1]))
             for r in requests
         ]
+        for r in reqs:
+            refuse_at_tp(self.model, temperature=(r.temperature or 0.0) > 0)
         self.stats = self._zero_stats()
         t0 = time.monotonic()
         if self.max_queue is not None and len(reqs) > self.max_queue:

@@ -25,8 +25,14 @@ prefill runs the ``xla`` path, as in the JAX package. With
 task tracer's ring (``MegaDispatch``: ``kernel_trace_launches()``,
 ``kernel_trace_summary()``).
 
-Not ported, and refused when asked for: ``mode="pallas"``, ``profile``
-(ROADMAP queue 1).
+At tp>1 (a model over a ``DistContext`` of n co-located ranks) the
+engine serves greedy over a full-width cache: ``mode="pallas"`` prefills
+sequence-sharded through ``ag_gemm``/``gemm_rs`` (prompts right-padded to
+a multiple of n) and decodes through ``gemm_ar``; ``mode="xla"`` runs the
+same with plain torch collectives. Not ported, and refused when asked
+for: ``profile`` (ROADMAP queue 1, item 12); at tp>1 ``mode="mega"``
+(queue 2 row 6(e)), speculation, ``kv_dtype`` and sampling (queue 1,
+item 11).
 """
 
 from __future__ import annotations
@@ -75,8 +81,10 @@ from triton_distributed_tpu_torch.runtime.context import resolve_device
 
 def engine_setup(model, device, mode: str, **unported) -> None:
     """Ctor checks both engines share: the engine runs on ``device``
-    (``cuda`` unless given; it must be the model's), in ``mode='xla'`` or
-    ``'mega'``, and every knob this slice does not port is refused."""
+    (``cuda`` unless given; it must be the model's), in ``mode='xla'``,
+    ``'pallas'`` (at tp=1 the same as ``xla``: each collective drops
+    out) or ``'mega'``, and every knob this slice does not port is
+    refused."""
     dev = resolve_device(device)
     if dev != model.device:
         raise ValueError(
@@ -84,11 +92,30 @@ def engine_setup(model, device, mode: str, **unported) -> None:
         )
     if mode != "mega":
         check_mode(mode)
+    if mode == "mega" and model.tp > 1:
+        raise NotImplementedError(
+            f"mode='mega' at tp={model.tp}: the multi-rank megakernel "
+            "bodies are not ported yet (ROADMAP queue 2 row 6(e))")
+    if mode.startswith("pallas") and model.cfg.num_experts:
+        raise NotImplementedError(
+            "mode='pallas' of a Qwen3-MoE model runs the EP exchange, "
+            "which is not ported yet (ROADMAP queue 1, item 11); use 'xla'")
     for name, value in unported.items():
         if value:
             raise NotImplementedError(
                 f"{name}={value!r} is not ported yet (see ROADMAP queue 1)"
             )
+
+
+def refuse_at_tp(model, **knobs) -> None:
+    """Knobs that run at tp=1 only: each set one raises at tp>1."""
+    if model.tp == 1:
+        return
+    for name, value in knobs.items():
+        if value:
+            raise NotImplementedError(
+                f"{name}={value!r} at tp={model.tp} is not ported yet "
+                "(ROADMAP queue 1, item 11)")
 
 
 def prefill_suffix_chunks(
@@ -109,7 +136,7 @@ def prefill_suffix_chunks(
     ``(last-token logits [V], cache, chunks_run)``."""
     s = len(prompt)
     c = round_chunk(chunk_width) if chunk_width else round_chunk(s - start)
-    page = int(cache.k_pages.shape[3])
+    page = cache.page_size
     pps = int(cache.page_table.shape[1])
     logits, off, chunks = None, start, 0
     while off < s:
@@ -256,6 +283,8 @@ class Engine(MegaDispatch):
         device=None,
     ):
         engine_setup(model, device, mode)
+        refuse_at_tp(model, speculative=speculative, kv_dtype=kv_dtype,
+                     temperature=temperature > 0.0)
         self._init_kernel_trace(kernel_trace, mode)
         # The explicit knob wins over the model config's kv_dtype; the
         # scales live on the page pool, so a dense cache cannot hold int8.
@@ -392,11 +421,17 @@ class Engine(MegaDispatch):
         rows = np.stack(
             [np.roll(input_ids[i], -int(starts[i])) for i in range(b)]
         )
+        # tp divisibility of the sequence-sharded prefill: right-padding,
+        # inert under causal masking.
+        pad = (-s) % self.model.tp
+        if pad:
+            rows = np.concatenate([rows, np.zeros((b, pad), np.int32)],
+                                  axis=1)
         true_lens = (s - starts).astype(np.int32)
-        if s > max_length:
+        if s + pad > max_length:
             raise ValueError(
-                f"prompt width {s} exceeds max_length={max_length}; raise "
-                "max_length or shorten"
+                f"padded prompt width ({s} + {pad}) exceeds "
+                f"max_length={max_length}; raise max_length or shorten"
             )
         if int(true_lens.max()) + gen_len - 1 > max_length:
             raise ValueError(
@@ -424,7 +459,7 @@ class Engine(MegaDispatch):
             cache, _pool = init_paged_cache(
                 self.model.cfg, b, self.model.device,
                 max_length=max_length, page_size=self.page_size,
-                kv_dtype=self.kv_dtype,
+                kv_dtype=self.kv_dtype, tp=self.model.tp,
             )
             # One batch-1 dense scratch, reused per row then copied into
             # pages — a full-batch dense cache beside the pool would
@@ -521,9 +556,9 @@ class Engine(MegaDispatch):
             self.last_stats["kv_dtype"] = kv_dtype_name(
                 self.kv_dtype, cache.k_pages.dtype)
         else:
-            L, _b, H, _s, hd = cache.k.shape
+            L, _b, H, _s, hd = cache.k.shape[-5:]
             self.last_stats["kv_bytes_per_token"] = float(
-                2 * L * H * hd * cache.k.element_size()
+                2 * L * H * cache.tp * hd * cache.k.element_size()
             )
             self.last_stats["kv_dtype"] = kv_dtype_name(None, cache.k.dtype)
         if row_meta is not None:
@@ -563,7 +598,7 @@ class Engine(MegaDispatch):
             b, s_max, NS, sampled=sampled,
             page=self.page_size if self.paged else 0,
             kv_quant=self.paged and self.kv_dtype is not None,
-            num_pages=int(cache.k_pages.shape[1]) if self.paged else 0,
+            num_pages=cache.num_pages if self.paged else 0,
             trace=self.kernel_trace, filtered=filtered)
         dev = self.model.device
         v_pad = mega._dims(b, s_max).v_loc
@@ -744,7 +779,7 @@ class Engine(MegaDispatch):
                 # +1: page 0 reserved as the trash page unused table
                 # entries point at (same convention as ContinuousEngine).
                 num_pages=b * pps + 1, assign_pages=False,
-                kv_dtype=self.kv_dtype,
+                kv_dtype=self.kv_dtype, tp=self.model.tp,
             )
             pool.free = [p for p in pool.free if p != 0]
             self._prefix_state = _PrefixState(

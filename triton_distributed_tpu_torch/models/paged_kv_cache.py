@@ -7,6 +7,13 @@ the trash page that inactive slots and out-of-table pad rows write to.
 
 The JAX writers take a donated cache and return a new one; these write
 the pool IN PLACE and return the cache, so call sites read alike.
+
+At tp=n the pool is head-sharded: ``[n, L, num_pages, hkv_loc, page,
+hd]`` (scales ``[n, L, num_pages, hkv_loc]``), each rank's ``[L,
+num_pages, hkv_loc, page, hd]`` contiguous, the shape the attention
+kernels take (:meth:`PagedKVCache.rank` is its view). The page table and
+``kv_len`` are shared, as the JAX package replicates them; the page
+allocator and the radix tree do not change.
 :func:`copy_page` copies the page's contents (never aliases).
 
 ``kv_dtype="int8"`` stores int8 codes plus ONE symmetric f32 scale per
@@ -46,6 +53,28 @@ class PagedKVCache:
     @property
     def quantized(self) -> bool:
         return self.k_scale is not None
+
+    @property
+    def tp(self) -> int:
+        return 1 if self.k_pages.dim() == 5 else int(self.k_pages.shape[0])
+
+    @property
+    def page_size(self) -> int:
+        return int(self.k_pages.shape[-2])
+
+    @property
+    def num_pages(self) -> int:
+        return int(self.k_pages.shape[-4])
+
+    def rank(self, r: int) -> "PagedKVCache":
+        """Rank ``r``'s pool shard as a tp=1 cache (views; the page table
+        and kv_len shared)."""
+        if self.tp == 1:
+            return self
+        return dataclasses.replace(
+            self, k_pages=self.k_pages[r], v_pages=self.v_pages[r],
+            k_scale=None if self.k_scale is None else self.k_scale[r],
+            v_scale=None if self.v_scale is None else self.v_scale[r])
 
 
 KV_DTYPES = (None, "int8")
@@ -195,6 +224,7 @@ def init_paged_cache(
     num_pages: int | None = None,
     assign_pages: bool = True,
     kv_dtype: str | None = None,
+    tp: int = 1,
 ) -> tuple[PagedKVCache, PagePool]:
     """Allocate the pool + page tables for ``batch_size`` sequences.
     ``assign_pages=False`` leaves the pool full and the table zeroed, for
@@ -216,14 +246,17 @@ def init_paged_cache(
     else:
         table = np.zeros((batch_size, pages_per_seq), np.int32)
     shape = (
-        cfg.num_layers, num_pages, cfg.num_kv_heads, page_size, cfg.head_dim
+        cfg.num_layers, num_pages, cfg.num_kv_heads // tp, page_size,
+        cfg.head_dim
     )
+    if tp > 1:
+        shape = (tp, *shape)
     pool_dtype = torch.int8 if kv_dtype == "int8" else cfg.dtype
 
     def scales():
         if kv_dtype is None:
             return None
-        return torch.zeros(shape[:3], dtype=torch.float32, device=device)
+        return torch.zeros(shape[:-2], dtype=torch.float32, device=device)
 
     cache = PagedKVCache(
         k_pages=torch.zeros(shape, dtype=pool_dtype, device=device),
@@ -237,9 +270,10 @@ def init_paged_cache(
 
 
 def kv_bytes_per_token(cache: PagedKVCache) -> float:
-    """Device bytes one cached token costs across the K+V pools, plus the
-    per-page scale overhead when quantized."""
-    L, _p, H, page, hd = cache.k_pages.shape
+    """Device bytes one cached token costs across the K+V pools (every
+    rank's), plus the per-page scale overhead when quantized."""
+    L, _p, H, page, hd = cache.k_pages.shape[-5:]
+    H *= cache.tp
     per = (cache.k_pages.element_size() + cache.v_pages.element_size()) * (
         L * H * hd)
     if cache.quantized:
@@ -483,12 +517,18 @@ def write_prefill(
     true_len: int,
 ) -> PagedKVCache:
     """Copy a dense-prefilled sequence into its pages (in place), one
-    page-sized slice per page; ceil(true_len/page) pages are written.
+    page-sized slice per page; ceil(true_len/page) pages are written
+    (each rank's dense shard into its pool shard at tp=n).
     On an int8 pool every written page is a fresh full write: its scale
     is set absolutely from the page's amax, after the dense rows at
     positions ≥ ``true_len`` are zeroed (the dense scratch is reused
     across prefills, so those rows hold an earlier request's KV and
     would otherwise make the codes depend on admission order)."""
+    if cache.tp > 1:
+        for r in range(cache.tp):
+            write_prefill(cache.rank(r), b_idx, k_dense[r], v_dense[r],
+                          true_len)
+        return cache
     page = cache.k_pages.shape[3]
     npages = -(-int(true_len) // page)
     if k_dense.shape[3] < npages * page:
@@ -528,8 +568,9 @@ def copy_page(cache: PagedKVCache, src: int, dst: int) -> PagedKVCache:
     copy-on-write clone. The destination gets its own copy of the data;
     on an int8 pool the scales are cloned with the codes (the pair is
     the page's content)."""
-    for t in _pool_tensors(cache):
-        t[:, dst].copy_(t[:, src])
+    for r in range(cache.tp):
+        for t in _pool_tensors(cache.rank(r)):
+            t[:, dst].copy_(t[:, src])
     return cache
 
 

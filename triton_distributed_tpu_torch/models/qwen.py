@@ -40,7 +40,10 @@ from triton_distributed_tpu_torch.layers.tp_mlp import check_mode, tp_mlp_fwd
 from triton_distributed_tpu_torch.models.config import ModelConfig
 from triton_distributed_tpu_torch.models.kv_cache import KVCache, init_cache
 from triton_distributed_tpu_torch.models.paged_kv_cache import PagedKVCache
-from triton_distributed_tpu_torch.runtime.context import DeviceContext
+from triton_distributed_tpu_torch.runtime.mesh import (
+    DistContext,
+    resolve_device,
+)
 
 
 def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6):
@@ -49,10 +52,12 @@ def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6):
     return (xf * w.to(torch.float32)).to(x.dtype)
 
 
-def pad_vocab(v: int) -> int:
-    """Vocab width padded to a multiple of 128 (the JAX package's 128·tp
-    at tp=1, so both packages hold the same LM-head shape)."""
-    return -(-v // 128) * 128
+def pad_vocab(v: int, n: int = 1) -> int:
+    """Vocab width padded to a multiple of 128·tp (``qwen.py:73-80``), so
+    each rank's LM-head shard has the JAX package's column split (Qwen3's
+    151936 = 2^7·1187 leaves a 64/96/48 residue at tp=2/4/8)."""
+    align = 128 * n
+    return -(-v // align) * align
 
 
 _LAYER_LEAVES = (
@@ -62,25 +67,55 @@ _LAYER_LEAVES = (
 
 
 class Qwen3:
-    """Dense Qwen3 on one device. Runs on ``cuda`` unless ``device`` says
-    otherwise (``device="cpu"`` runs the kernels' plain versions)."""
+    """Dense Qwen3 over the ranks of a :class:`DistContext` (one rank by
+    default). Runs on ``cuda`` unless ``device`` (or ``ctx``) says
+    otherwise (``device="cpu"`` runs the kernels' plain versions).
 
-    def __init__(self, cfg: ModelConfig, *, device=None):
+    At tp=n (``ctx=initialize_distributed(tp=n)`` or ``tp=n``) each rank
+    holds its own shards (``params`` is then the list of per-rank dicts
+    :func:`shard_params` makes: ``wqkv`` ``[q_loc | k_loc | v_loc]``,
+    ``w1`` ``[gate_loc | up_loc]``, ``wo``/``w2`` by rows, the LM head by
+    columns of the vocab padded to 128·n, the norms and the embedding
+    replicated) and its own copy of every replicated activation. Every
+    entry point runs the per-rank work in a loop over ranks and crosses
+    ranks through the collective seams of ``layers/``; modes ``pallas``
+    (the hand-written kernels on the card) and ``xla`` (plain torch
+    collectives)."""
+
+    def __init__(self, cfg: ModelConfig, *, device=None, ctx=None,
+                 tp: int | None = None):
         self.cfg = cfg
-        self.ctx = DeviceContext.create(device, cfg.dtype)
-        self.device = self.ctx.device
+        if ctx is None:
+            ctx = DistContext.create(device, cfg.dtype, tp or 1)
+        elif ((device is not None and resolve_device(device) != ctx.device)
+              or (tp is not None and tp != ctx.tp)):
+            raise ValueError(f"device={device}, tp={tp} disagree with {ctx}")
+        self.ctx = ctx
+        self.device = ctx.device
+        self.tp = n = ctx.tp
+        if cfg.num_q_heads % n or cfg.num_kv_heads % n:
+            raise ValueError(
+                f"heads ({cfg.num_q_heads}, {cfg.num_kv_heads}) not "
+                f"divisible by tp={n}")
+        if cfg.intermediate_size % n:
+            raise ValueError(f"d_ff {cfg.intermediate_size} not divisible "
+                             f"by tp={n}")
         self.dims = TPAttnDims(
-            hq_loc=cfg.num_q_heads, hkv_loc=cfg.num_kv_heads,
+            hq_loc=cfg.num_q_heads // n, hkv_loc=cfg.num_kv_heads // n,
             head_dim=cfg.head_dim, rope_theta=cfg.rope_theta,
         )
-        self.params: dict | None = None
+        self.params: dict | list | None = None
+        # Per rank, per layer views of the rank's parameters.
+        self._rank_layers: list[list[dict]] = []
         self._layers: list[dict] = []
 
     # -- parameter construction ------------------------------------------
-    def init_params(self, seed: int = 0) -> dict:
+    def init_params(self, seed: int = 0):
         """Random init from a ``torch.Generator`` seeded with ``seed`` on
         the model's device; the same scales as the JAX ``init_params``
-        (normal × fan_in^-1/2, embed × 0.02, norms 1)."""
+        (normal × fan_in^-1/2, embed × 0.02, norms 1). The global
+        (tp=1-layout) weights are drawn and then sharded, so a tp=n model
+        holds the shards of the tp=1 model of the same seed."""
         cfg = self.cfg
         hd, d, L = cfg.head_dim, cfg.hidden_size, cfg.num_layers
         dev, dt = self.device, cfg.dtype
@@ -114,10 +149,38 @@ class Qwen3:
         }
         return self.set_params(params)
 
-    def set_params(self, params: dict) -> dict:
-        """Move ``params`` to the model's device and dtype, pad the LM
-        head's vocab axis to a multiple of 128 (zero columns, sliced off
-        by the logits), and cache per-layer views."""
+    def set_params(self, params):
+        """Take the model's parameters: a tp=1-layout dict (sharded here
+        at tp=n) or, at tp=n, the list of per-rank shards
+        (:func:`shard_params`, :func:`params_from_jax` with ``tp=n``).
+        Leaves move to the model's device and dtype, the LM head's vocab
+        axis is padded to a multiple of 128·tp (zero columns, sliced off
+        by the logits), and per-layer views are cached."""
+        n = self.tp
+        if isinstance(params, (list, tuple)):
+            if len(params) != n:
+                raise ValueError(f"{len(params)} shards for tp={n}")
+            shards = list(params)
+        elif n > 1:
+            shards = shard_params(params, n, self.cfg)
+        else:
+            shards = [params]
+        ranks = [self._rank_params(p) for p in shards]
+        self.params = ranks[0] if n == 1 else ranks
+        self._rank_layers = [
+            [{
+                "ln1": p["layers"]["ln1"][i], "ln2": p["layers"]["ln2"][i],
+                "attn": {k: (None if w is None else w[i])
+                         for k, w in p["layers"]["attn"].items()},
+                "mlp": {k: w[i] for k, w in p["layers"]["mlp"].items()},
+            } for i in range(self.cfg.num_layers)]
+            for p in ranks
+        ]
+        self._layers = self._rank_layers[0]
+        return self.params
+
+    def _rank_params(self, params: dict) -> dict:
+        """One rank's dict on the device, its LM head padded."""
         def conv(t):
             return torch.as_tensor(t).to(self.device, self.cfg.dtype)
 
@@ -130,47 +193,59 @@ class Qwen3:
             "mlp": {k: conv(w) for k, w in lp["mlp"].items()},
         }
         lm_head = conv(params["lm_head"])
-        v = lm_head.shape[1]
-        if pad_vocab(v) != v:
-            lm_head = F.pad(lm_head, (0, pad_vocab(v) - v))
-        self.params = {
+        v_loc = pad_vocab(self.cfg.vocab_size, self.tp) // self.tp
+        if lm_head.shape[1] < v_loc:
+            lm_head = F.pad(lm_head, (0, v_loc - lm_head.shape[1]))
+        return {
             "embed": conv(params["embed"]), "layers": layers,
             "norm": conv(params["norm"]), "lm_head": lm_head,
         }
-        self._layers = [
-            {
-                "ln1": layers["ln1"][i], "ln2": layers["ln2"][i],
-                "attn": {k: (None if w is None else w[i])
-                         for k, w in layers["attn"].items()},
-                "mlp": {k: w[i] for k, w in layers["mlp"].items()},
-            }
-            for i in range(self.cfg.num_layers)
-        ]
-        return self.params
+
+    @property
+    def rank_params(self) -> list[dict]:
+        """The per-rank parameter dicts (one at tp=1)."""
+        return [self.params] if self.tp == 1 else self.params
 
     # -- forward pieces ----------------------------------------------------
-    def _embed(self, tokens) -> torch.Tensor:
+    def _embed(self, tokens) -> list[torch.Tensor]:
+        """Each rank's copy of the embedded ``tokens``."""
         tokens = torch.as_tensor(tokens, device=self.device).long()
-        return F.embedding(tokens, self.params["embed"])
+        return [F.embedding(tokens, p["embed"]) for p in self.rank_params]
 
-    def _logits(self, x: torch.Tensor) -> torch.Tensor:
-        """``[..., d]`` → f32 logits ``[..., V]`` (vocab padding sliced
-        off). The GEMM rounds to the model dtype before the f32 cast."""
-        return (x @ self.params["lm_head"]).to(torch.float32)[
-            ..., : self.cfg.vocab_size
-        ]
-
-    def _mlp_fwd(self, mlp_params: dict, h: torch.Tensor, mode: str):
-        """The layer's MLP on the normed ``h``: the dense SwiGLU here,
-        the routed experts in ``Qwen3MoE``."""
-        return tp_mlp_fwd(mlp_params, h, mode=mode)
-
-    def _block(self, x, lyr, attn, mode: str):
-        """One decoder layer around ``attn(h) -> attention output``."""
+    def _norm(self, xs: list) -> list:
         eps = self.cfg.rms_eps
-        x = x + attn(rms_norm(x, lyr["ln1"], eps))
-        return x + self._mlp_fwd(lyr["mlp"], rms_norm(x, lyr["ln2"], eps),
-                                 mode)
+        return [rms_norm(x, p["norm"], eps)
+                for x, p in zip(xs, self.rank_params)]
+
+    def _logits(self, xs: list) -> torch.Tensor:
+        """Each rank's ``[..., d]`` rows → f32 logits ``[..., V]``: every
+        rank's partial logits over its vocab shard, concatenated over
+        ranks (``qwen.py:229-236``), vocab padding sliced off. Each GEMM
+        rounds to the model dtype before the f32 cast."""
+        parts = [(x @ p["lm_head"]).to(torch.float32)
+                 for x, p in zip(xs, self.rank_params)]
+        full = parts[0] if len(parts) == 1 else torch.cat(parts, dim=-1)
+        return full[..., : self.cfg.vocab_size]
+
+    def _mlp_fwd(self, mlp_params, h, mode: str):
+        """The layer's MLP on the normed ``h`` (per-rank lists): the dense
+        SwiGLU here, the routed experts in ``Qwen3MoE``."""
+        return tp_mlp_fwd(mlp_params, h, mode=mode, ctx=self.ctx)
+
+    def _block(self, xs: list, i: int, attn, mode: str) -> list:
+        """Decoder layer ``i`` over per-rank activations, around
+        ``attn(hs) -> per-rank attention outputs``."""
+        eps = self.cfg.rms_eps
+        lyrs = [layers[i] for layers in self._rank_layers]
+        a = attn([rms_norm(x, ly["ln1"], eps) for x, ly in zip(xs, lyrs)])
+        xs = [x + t for x, t in zip(xs, a)]
+        m = self._mlp_fwd([ly["mlp"] for ly in lyrs],
+                          [rms_norm(x, ly["ln2"], eps)
+                           for x, ly in zip(xs, lyrs)], mode)
+        return [x + t for x, t in zip(xs, m)]
+
+    def _attn(self, i: int) -> list[dict]:
+        return [layers[i]["attn"] for layers in self._rank_layers]
 
     # -- entry points --------------------------------------------------------
     def decode_step(self, tokens, cache, mode: str = "xla"):
@@ -178,27 +253,33 @@ class Qwen3:
         ``(logits [B, V] f32, cache)``. Accepts a dense :class:`KVCache`
         or a :class:`PagedKVCache` (full width or int8); K/V (and an int8
         pool's scales) are written in place and the returned cache
-        carries ``kv_len + 1``."""
+        carries ``kv_len + 1``. The o-proj and FC2 sum over ranks
+        (``gemm_ar`` in mode ``pallas``)."""
         check_mode(mode)
+        ar = "pallas_ar" if mode.startswith("pallas") else "xla_ar"
         paged = isinstance(cache, PagedKVCache)
-        x = self._embed(tokens)
-        for i, lyr in enumerate(self._layers):
+        ranks = [cache.rank(r) for r in range(self.tp)]
+        xs = self._embed(tokens)
+        for i in range(self.cfg.num_layers):
             if paged:
-                def attn(h, i=i, lyr=lyr):
+                def attn(hs, i=i):
+                    sc = [_layer_scales(c, i) for c in ranks]
                     return tp_attn_decode_paged(
-                        lyr["attn"], h, cache.k_pages[i], cache.v_pages[i],
-                        cache.page_table, cache.kv_len, self.dims,
-                        **_layer_scales(cache, i),
+                        self._attn(i), hs, [c.k_pages[i] for c in ranks],
+                        [c.v_pages[i] for c in ranks], cache.page_table,
+                        cache.kv_len, self.dims, mode=ar, ctx=self.ctx,
+                        k_scale=_scale_list(sc, "k_scale"),
+                        v_scale=_scale_list(sc, "v_scale"),
                     )[0]
             else:
-                def attn(h, i=i, lyr=lyr):
+                def attn(hs, i=i):
                     return tp_attn_decode(
-                        lyr["attn"], h, cache.k[i], cache.v[i],
-                        cache.kv_len, self.dims,
+                        self._attn(i), hs, [c.k[i] for c in ranks],
+                        [c.v[i] for c in ranks], cache.kv_len, self.dims,
+                        mode=ar, ctx=self.ctx,
                     )[0]
-            x = self._block(x, lyr, attn, mode)
-        x = rms_norm(x, self.params["norm"], self.cfg.rms_eps)
-        return self._logits(x), dataclasses.replace(
+            xs = self._block(xs, i, attn, ar)
+        return self._logits(self._norm(xs)), dataclasses.replace(
             cache, kv_len=cache.kv_len + 1
         )
 
@@ -209,26 +290,43 @@ class Qwen3:
         real length: positions past it are right-padding, inert under
         causal masking; logits come from position ``true_lens[i] - 1``
         and ``kv_len[i]`` is set to ``true_lens[i]``. Returns
-        ``(logits [B, V], cache)``."""
+        ``(logits [B, V], cache)``.
+
+        At tp=n the activations are sequence-sharded (``S`` divisible by
+        n; the engines right-pad): QKV and FC1 through ``ag_gemm``, the
+        o-proj and FC2 through ``gemm_rs`` in mode ``pallas``; the last
+        real row is picked from the rank that holds it
+        (``qwen.py:349-354``)."""
         check_mode(mode)
+        seq = "pallas" if mode.startswith("pallas") else "xla"
+        n = self.tp
         tokens = torch.as_tensor(tokens, device=self.device)
         b, s = tokens.shape
+        if s % n:
+            raise ValueError(f"prompt width {s} not divisible by tp={n}; "
+                             "right-pad it and pass true_lens")
+        s_loc = s // n
         lens = [s] * b if true_lens is None else [
             int(t) for t in np.asarray(true_lens).reshape(-1)
         ]
+        ranks = [cache.rank(r) for r in range(n)]
         logits = []
         for row in range(b):
-            x = self._embed(tokens[row])  # [S, d]
-            for i, lyr in enumerate(self._layers):
-                def attn(h, i=i, lyr=lyr):
-                    out, k, v = tp_attn_prefill(lyr["attn"], h, self.dims)
-                    cache.k[i, row, :, :s] = k.to(cache.k.dtype)
-                    cache.v[i, row, :, :s] = v.to(cache.v.dtype)
+            xs = [t[r * s_loc:(r + 1) * s_loc]
+                  for r, t in enumerate(self._embed(tokens[row]))]
+            for i in range(self.cfg.num_layers):
+                def attn(hs, i=i, row=row):
+                    out, k, v = tp_attn_prefill(self._attn(i), hs, self.dims,
+                                                mode=seq, ctx=self.ctx)
+                    for c, kr, vr in zip(ranks, k, v):
+                        c.k[i, row, :, :s] = kr.to(c.k.dtype)
+                        c.v[i, row, :, :s] = vr.to(c.v.dtype)
                     return out
-                x = self._block(x, lyr, attn, mode)
-            x = rms_norm(x, self.params["norm"], self.cfg.rms_eps)
+                xs = self._block(xs, i, attn, seq)
+            xs = self._norm(xs)
             last = lens[row] - 1
-            logits.append(self._logits(x[last : last + 1])[0])
+            own = xs[last // s_loc][last % s_loc: last % s_loc + 1]
+            logits.append(self._logits([own] * n)[0])
         cache.kv_len[:b] = torch.as_tensor(lens, dtype=torch.int32)
         return torch.stack(logits), cache
 
@@ -253,7 +351,10 @@ class Qwen3:
         the chunk's real rows (``q_end``), past which rows are padding.
         Returns ``(logits [V] at last_idx, cache)``, or per-position
         logits ``[C, V]`` with ``all_logits=True`` (a speculative verify
-        scores every chunk position; they stay on the device).
+        scores every chunk position; they stay on the device). At tp=n
+        the chunk is replicated, each rank attending over its pool shard,
+        and the o-proj and FC2 sum over ranks (``gemm_ar`` in mode
+        ``pallas``).
 
         ``tree_mask``/``tree_depth`` (passed together) run the chunk as a
         speculative draft TREE: rows are trie nodes in DFS storage order,
@@ -264,38 +365,43 @@ class Qwen3:
         (prefix columns visible, columns past the chunk left to
         causality) and every layer shares it."""
         check_mode(mode)
+        ar = "pallas_ar" if mode.startswith("pallas") else "xla_ar"
         if (tree_mask is None) != (tree_depth is None):
             raise ValueError("tree_mask and tree_depth go together")
         q_offset = int(q_offset)
         table_row = cache.page_table[int(slot)]
-        x = self._embed(np.asarray(tokens))
+        ranks = [cache.rank(r) for r in range(self.tp)]
+        xs = self._embed(np.asarray(tokens))
         tree = {}
         if tree_mask is not None:
-            page = cache.k_pages.shape[3]
+            page = cache.page_size
             s_kv = (table_row.shape[0] if kv_pages is None else kv_pages) * page
             depth = torch.as_tensor(np.asarray(tree_depth, np.int64))
             tree = {"attn_bias": expand_tree_mask(tree_mask, q_offset, s_kv,
                                                   self.device),
                     "rope_pos": (q_offset + depth).to(self.device)}
-        for i, lyr in enumerate(self._layers):
-            def attn(h, i=i, lyr=lyr):
+        for i in range(self.cfg.num_layers):
+            def attn(hs, i=i):
+                sc = [_layer_scales(c, i) for c in ranks]
                 return tp_attn_prefill_paged_chunk(
-                    lyr["attn"], h, cache.k_pages[i], cache.v_pages[i],
-                    table_row, q_offset, self.dims, kv_pages=kv_pages,
-                    q_end=int(new_len), **_layer_scales(cache, i), **tree,
+                    self._attn(i), hs, [c.k_pages[i] for c in ranks],
+                    [c.v_pages[i] for c in ranks], table_row, q_offset,
+                    self.dims, kv_pages=kv_pages, mode=ar, ctx=self.ctx,
+                    q_end=int(new_len), k_scale=_scale_list(sc, "k_scale"),
+                    v_scale=_scale_list(sc, "v_scale"), **tree,
                 )[0]
-            x = self._block(x, lyr, attn, mode)
-        x = rms_norm(x, self.params["norm"], self.cfg.rms_eps)
+            xs = self._block(xs, i, attn, ar)
+        xs = self._norm(xs)
         if all_logits:
-            logits = self._logits(x)
+            logits = self._logits(xs)
         else:
             last = int(last_idx)
-            logits = self._logits(x[last : last + 1])[0]
+            logits = self._logits([x[last: last + 1] for x in xs])[0]
         kv_len = cache.kv_len.clone()
         kv_len[int(slot)] = int(new_len)
         return logits, dataclasses.replace(cache, kv_len=kv_len)
 
-    # -- sharded long-context slots ------------------------------------------
+    # -- sharded long-context slots (tp=1) -----------------------------------
     #
     # A slot whose KV exceeds the per-rank page budget splits into a
     # RESIDENT paged window (local positions, its own explicit
@@ -304,6 +410,12 @@ class Qwen3:
     # scales, read-only, ``[L, Hkv, S_bucket, hd]``). Both forwards merge
     # the two attention partials with ``lse_combine``; neither touches the
     # batched ``kv_len``/``page_table``.
+
+    def _tp1_only(self, what: str) -> None:
+        if self.tp != 1:
+            raise NotImplementedError(
+                f"{what} at tp>1 is not ported yet (ROADMAP queue 1, "
+                "item 11)")
 
     def prefill_paged_chunk_cold(
         self,
@@ -323,23 +435,24 @@ class Qwen3:
         layer's attention adds the cold-window partial. Returns
         ``(logits [V] at last_idx, cache)``."""
         check_mode(mode)
+        self._tp1_only("prefill_paged_chunk_cold")
         table_row = torch.as_tensor(np.asarray(table_row, np.int32)).to(
             self.device)
-        x = self._embed(np.asarray(tokens))
+        (x,) = self._embed(np.asarray(tokens))
         bias = cold_mask(x.shape[0], k_cold.shape[2], s_cold, self.device)
-        for i, lyr in enumerate(self._layers):
-            def attn(h, i=i, lyr=lyr):
-                return tp_attn_prefill_paged_chunk_cold(
-                    lyr["attn"], h, cache.k_pages[i], cache.v_pages[i],
-                    table_row, k_cold[i], v_cold[i], s_cold, q_offset,
-                    self.dims, q_end=int(q_end), cold_bias=bias,
-                    **_layer_scales(cache, i),
+        for i in range(self.cfg.num_layers):
+            def attn(hs, i=i):
+                return [tp_attn_prefill_paged_chunk_cold(
+                    self._layers[i]["attn"], hs[0], cache.k_pages[i],
+                    cache.v_pages[i], table_row, k_cold[i], v_cold[i],
+                    s_cold, q_offset, self.dims, q_end=int(q_end),
+                    cold_bias=bias, **_layer_scales(cache, i),
                     **_cold_scales(ks_cold, vs_cold, i),
-                )[0]
-            x = self._block(x, lyr, attn, mode)
-        x = rms_norm(x, self.params["norm"], self.cfg.rms_eps)
+                )[0]]
+            (x,) = self._block([x], i, attn, mode)
+        (x,) = self._norm([x])
         last = int(last_idx)
-        return self._logits(x[last : last + 1])[0], cache
+        return self._logits([x[last: last + 1]])[0], cache
 
     def decode_step_sharded(
         self,
@@ -356,24 +469,26 @@ class Qwen3:
         plus cold dense partial, merged. Returns ``(logits [1, V],
         cache)``; the pool is written in place."""
         check_mode(mode)
+        self._tp1_only("decode_step_sharded")
         table_row = torch.as_tensor(np.asarray(table_row, np.int32)).to(
             self.device)
-        x = self._embed(np.asarray(token))
-        for i, lyr in enumerate(self._layers):
-            def attn(h, i=i, lyr=lyr):
-                return tp_attn_decode_sharded(
-                    lyr["attn"], h, cache.k_pages[i], cache.v_pages[i],
-                    table_row, kv_len_loc, k_cold[i], v_cold[i], s_cold,
-                    self.dims, **_layer_scales(cache, i),
+        (x,) = self._embed(np.asarray(token))
+        for i in range(self.cfg.num_layers):
+            def attn(hs, i=i):
+                return [tp_attn_decode_sharded(
+                    self._layers[i]["attn"], hs[0], cache.k_pages[i],
+                    cache.v_pages[i], table_row, kv_len_loc, k_cold[i],
+                    v_cold[i], s_cold, self.dims, **_layer_scales(cache, i),
                     **_cold_scales(ks_cold, vs_cold, i),
-                )[0]
-            x = self._block(x, lyr, attn, mode)
-        x = rms_norm(x, self.params["norm"], self.cfg.rms_eps)
-        return self._logits(x), cache
+                )[0]]
+            (x,) = self._block([x], i, attn, mode)
+        (x,) = self._norm([x])
+        return self._logits([x]), cache
 
     def new_cache(self, batch_size: int,
                   max_length: int | None = None) -> KVCache:
-        return init_cache(self.cfg, batch_size, self.device, max_length)
+        return init_cache(self.cfg, batch_size, self.device, max_length,
+                          tp=self.tp)
 
 
 def expand_tree_mask(tree_mask, q_offset: int, s_kv: int,
@@ -390,6 +505,12 @@ def expand_tree_mask(tree_mask, q_offset: int, s_kv: int,
     bias[:, q_offset : q_offset + width] = torch.from_numpy(
         np.ascontiguousarray(mask[:, :width])).to(device)
     return bias
+
+
+def _scale_list(scales: list[dict], key: str):
+    """The per-rank int8 scales of one layer as a list (None on a
+    full-width pool)."""
+    return None if not scales[0] else [sc[key] for sc in scales]
 
 
 def _layer_scales(cache: PagedKVCache, i: int) -> dict:
@@ -464,14 +585,138 @@ def _np32(a) -> np.ndarray:
     return np.asarray(a).astype(np.float32)
 
 
-def params_from_jax(tree) -> dict:
+def _cat(parts, axis: int):
+    if isinstance(parts[0], torch.Tensor):
+        return torch.cat(parts, dim=axis)
+    return np.concatenate(parts, axis=axis)
+
+
+def _copy(t):
+    if t is None:
+        return None
+    return t.clone() if isinstance(t, torch.Tensor) else np.array(t)
+
+
+def _split(t, n: int, axis: int) -> list:
+    """``n`` equal contiguous parts of ``t`` along ``axis``."""
+    w = t.shape[axis] // n
+    idx = [slice(None)] * t.ndim
+    out = []
+    for r in range(n):
+        idx[axis] = slice(r * w, (r + 1) * w)
+        out.append(t[tuple(idx)])
+    return out
+
+
+def shard_params(params: dict, n: int, cfg: ModelConfig | None = None
+                 ) -> list[dict]:
+    """A tp=1-layout parameter dict (numpy arrays or tensors) as ``n``
+    per-rank dicts in the JAX package's per-shard layouts
+    (``_fuse_by_shard``, ``qwen.py:837``): rank r's ``wqkv`` is ``[q_r |
+    k_r | v_r]`` (its ``hq/n`` query and ``hkv/n`` KV heads) and ``w1``
+    ``[gate_r | up_r]``; ``wo`` and ``w2`` split by rows; the LM head
+    padded to a multiple of 128·n columns and split by columns; the
+    embedding and the norms replicated (each rank its own copy)."""
+    lp = params["layers"]
+    wqkv, wo = lp["attn"]["wqkv"], lp["attn"]["wo"]
+    qw = wo.shape[-2]
+    kvw = (wqkv.shape[-1] - qw) // 2
+    if cfg is not None:
+        if cfg.num_q_heads % n or cfg.num_kv_heads % n:
+            raise ValueError(f"heads not divisible by tp={n}")
+        if cfg.intermediate_size % n:
+            raise ValueError(f"d_ff not divisible by tp={n}")
+    if qw % n or kvw % n:
+        raise ValueError(f"q width {qw} / kv width {kvw} not divisible by "
+                         f"tp={n}")
+    q, k, v = (_split(wqkv[..., a:b], n, -1) for a, b in
+               ((0, qw), (qw, qw + kvw), (qw + kvw, qw + 2 * kvw)))
+    w1 = lp["mlp"]["w1"]
+    ff = w1.shape[-1] // 2
+    gate, up = _split(w1[..., :ff], n, -1), _split(w1[..., ff:], n, -1)
+    lm = params["lm_head"]
+    vp = pad_vocab(lm.shape[-1], n)
+    if vp != lm.shape[-1]:
+        lm = (F.pad(lm, (0, vp - lm.shape[-1]))
+              if isinstance(lm, torch.Tensor)
+              else np.pad(lm, ((0, 0), (0, vp - lm.shape[-1]))))
+    wo_r, w2_r = _split(wo, n, -2), _split(lp["mlp"]["w2"], n, -2)
+    lm_r = _split(lm, n, -1)
+    shards = []
+    for r in range(n):
+        rep = (lambda t: t) if r == 0 else _copy
+        shards.append({
+            "embed": rep(params["embed"]),
+            "layers": {
+                "ln1": rep(lp["ln1"]), "ln2": rep(lp["ln2"]),
+                "attn": {
+                    "wqkv": _cat([q[r], k[r], v[r]], -1), "wo": wo_r[r],
+                    "q_norm": rep(lp["attn"].get("q_norm")),
+                    "k_norm": rep(lp["attn"].get("k_norm")),
+                },
+                "mlp": {"w1": _cat([gate[r], up[r]], -1), "w2": w2_r[r]},
+            },
+            "norm": rep(params["norm"]), "lm_head": lm_r[r],
+        })
+    return shards
+
+
+def unshard_params(shards: list[dict]) -> dict:
+    """The inverse of :func:`shard_params`: per-rank dicts back to the
+    tp=1 layout (rank 0's replicated leaves; the LM head keeps its
+    128·n padding)."""
+    n = len(shards)
+    s0 = shards[0]
+    wo = [s["layers"]["attn"]["wo"] for s in shards]
+    qw = wo[0].shape[-2]
+    parts = [s["layers"]["attn"]["wqkv"] for s in shards]
+    kvw = (parts[0].shape[-1] - qw) // 2
+    wqkv = _cat([_cat([p[..., a:b] for p in parts], -1) for a, b in
+                 ((0, qw), (qw, qw + kvw), (qw + kvw, qw + 2 * kvw))], -1)
+    w1s = [s["layers"]["mlp"]["w1"] for s in shards]
+    ff = w1s[0].shape[-1] // 2
+    w1 = _cat([_cat([w[..., :ff] for w in w1s], -1),
+               _cat([w[..., ff:] for w in w1s], -1)], -1)
+    return {
+        "embed": s0["embed"],
+        "layers": {
+            "ln1": s0["layers"]["ln1"], "ln2": s0["layers"]["ln2"],
+            "attn": {"wqkv": wqkv, "wo": _cat(wo, -2),
+                     "q_norm": s0["layers"]["attn"].get("q_norm"),
+                     "k_norm": s0["layers"]["attn"].get("k_norm")},
+            "mlp": {"w1": w1, "w2": _cat([s["layers"]["mlp"]["w2"]
+                                          for s in shards], -2)},
+        },
+        "norm": s0["norm"],
+        "lm_head": _cat([s["lm_head"] for s in shards[:n]], -1),
+    }
+
+
+def _unfuse_by_shard(fused: np.ndarray, n: int, widths: list[int]) -> list:
+    """Undo the JAX ``_fuse_by_shard``: ``[L, d, n * sum(widths)]`` whose
+    shard r is ``[p0_r | p1_r | ...]`` → the global parts ``[L, d, n *
+    w_i]``."""
+    L, d = fused.shape[:2]
+    per = fused.reshape(L, d, n, sum(widths))
+    out, off = [], 0
+    for w in widths:
+        out.append(per[..., off:off + w].reshape(L, d, n * w))
+        off += w
+    return out
+
+
+def params_from_jax(tree, tp: int = 1):
     """The leaves of a JAX ``Qwen3Params`` (numpy arrays, reached by
     attribute or key: ``embed``, ``layers.{ln1, attn.{wqkv, wo, q_norm,
     k_norm}, ln2, mlp.{w1, w2}}``, ``norm``, ``lm_head``; a Qwen3-MoE
-    tree's ``mlp`` adds ``w_router``) as the port's parameter dict. At
-    tp=1 the JAX fused layouts (``wqkv = [q|k|v]``, ``w1 = [gate|up]``)
-    are the port's, so leaves carry over as they are; pass the result to
-    :meth:`Qwen3.set_params`."""
+    tree's ``mlp`` adds ``w_router``) in the port's layout. At tp=1 the
+    JAX fused layouts (``wqkv = [q|k|v]``, ``w1 = [gate|up]``) are the
+    port's, so leaves carry over as they are: a dict for
+    :meth:`Qwen3.set_params`. A tree built at ``tp=n`` (global arrays)
+    has its fused weights laid out by shard (``_fuse_by_shard``, applied
+    after the draws of ``wq/wk/wv/gate/up``, ``qwen.py:149-156``): they
+    are unfused to the global parts, and the result is the list of
+    per-rank shards :func:`shard_params` makes of them."""
     def leaf(*path):
         node = tree
         for name in path:
@@ -487,14 +732,30 @@ def params_from_jax(tree) -> dict:
                                                                 "w_router"):
         # MoE (the JAX TPMoEParams leaves, [L, d, E], [L, E, d, 2f] and
         # [L, E, f, d]; gate | up fused per expert, the port's layout).
+        if tp != 1:
+            raise NotImplementedError(
+                "Qwen3-MoE at tp>1 is not ported yet (ROADMAP queue 1, "
+                "item 11: EP)")
         paths += (("mlp", "w_router"),)
     for path in paths:
         dst = layers if len(path) == 1 else layers[path[0]]
         dst[path[-1]] = leaf("layers", *path)
-    return {
+    params = {
         "embed": leaf("embed"), "layers": layers,
         "norm": leaf("norm"), "lm_head": leaf("lm_head"),
     }
+    if tp == 1:
+        return params
+    qw = layers["attn"]["wo"].shape[-2]
+    qkv_loc = layers["attn"]["wqkv"].shape[-1] // tp
+    q_loc = qw // tp
+    kv_loc = (qkv_loc - q_loc) // 2
+    layers["attn"]["wqkv"] = np.concatenate(_unfuse_by_shard(
+        layers["attn"]["wqkv"], tp, [q_loc, kv_loc, kv_loc]), axis=-1)
+    ff_loc = layers["mlp"]["w1"].shape[-1] // (2 * tp)
+    layers["mlp"]["w1"] = np.concatenate(_unfuse_by_shard(
+        layers["mlp"]["w1"], tp, [ff_loc, ff_loc]), axis=-1)
+    return shard_params(params, tp)
 
 
 def q8_params_from_jax(tree, device=None, dtype=torch.float32):

@@ -25,14 +25,20 @@ from triton_distributed_tpu_torch.models.qwen import (
 class Qwen3MoE(Qwen3):
     """Qwen3 with routed-expert MLPs, on one device."""
 
-    def __init__(self, cfg: ModelConfig, *, device=None):
+    def __init__(self, cfg: ModelConfig, *, device=None, ctx=None,
+                 tp: int | None = None):
         if not cfg.num_experts:
             raise ValueError("Qwen3MoE needs cfg.num_experts > 0")
-        super().__init__(cfg, device=device)
+        super().__init__(cfg, device=device, ctx=ctx, tp=tp)
+        if self.tp != 1:
+            raise NotImplementedError(
+                "Qwen3MoE at tp>1 needs the expert-parallel exchange, which "
+                "is not ported yet (ROADMAP queue 1, item 11: EP)")
 
-    def _mlp_fwd(self, mlp_params: dict, h: torch.Tensor, mode: str):
-        return tp_moe_fwd(mlp_params, h, self.cfg.num_experts_per_tok,
-                          mode=mode, norm_topk_prob=self.cfg.norm_topk_prob)
+    def _mlp_fwd(self, mlp_params: list, h: list, mode: str):
+        return [tp_moe_fwd(p, t, self.cfg.num_experts_per_tok, mode=mode,
+                           norm_topk_prob=self.cfg.norm_topk_prob)
+                for p, t in zip(mlp_params, h)]
 
     def init_params(self, seed: int = 0) -> dict:
         """Random init on the model's device from a ``torch.Generator``

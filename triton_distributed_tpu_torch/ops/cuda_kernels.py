@@ -38,8 +38,10 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v", "--split-compile=0",
 )
 # Sources, each one shared library (megakernel_moe.cu is megakernel.cu
-# built with its MoE instantiations only).
-SOURCES = ("flash_attention", "flash_decode", "megakernel", "megakernel_moe")
+# built with its MoE instantiations only; overlap.cu holds the three
+# GEMM+collective kernels, collectives.cu the all-gather).
+SOURCES = ("flash_attention", "flash_decode", "megakernel", "megakernel_moe",
+           "overlap", "collectives")
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -226,11 +228,44 @@ MEGA_PREFILL = CudaKernel(
     "mega_prefill", "megakernel", "tdt_mega_prefill",
     [_P, _P, _F, _F, _P, _P],
 )
+# The cross-rank kernels over co-located ranks: one cooperative launch
+# of (kind, dtype, small-M tile, host tables of the per-rank A/B/O
+# pointers, the symmetric workspace's and flags' device tables, n, M, N,
+# K, half_m, epoch, blocks per rank, stream). The three GEMM+collective
+# kernels share the entry point (its first argument picks the kernel).
+_I64P = ctypes.POINTER(ctypes.c_int64)
+_U64 = ctypes.c_ulonglong
+_OVERLAP_ARGS = [_I, _I, _I, _I64P, _I64P, _I64P, _P, _P, _I, _I, _I, _I, _I,
+                 _U64, _I, _P]
+GEMM_AR = CudaKernel("gemm_ar", "overlap", "tdt_overlap_launch",
+                     _OVERLAP_ARGS)
+GEMM_RS = CudaKernel("gemm_rs", "overlap", "tdt_overlap_launch",
+                     _OVERLAP_ARGS)
+AG_GEMM = CudaKernel("ag_gemm", "overlap", "tdt_overlap_launch",
+                     _OVERLAP_ARGS)
+# The full-mesh all-gather: host tables of the per-rank shard and output
+# pointers, the flags' device table, n, shard bytes, epoch, blocks per
+# rank, stream.
+ALL_GATHER = CudaKernel(
+    "all_gather", "collectives", "tdt_all_gather_launch",
+    [_I64P, _I64P, _P, _I, ctypes.c_longlong, _U64, _I, _P],
+)
 KERNELS = (FLASH_ATTENTION, FLASH_DECODE, PAGED_FLASH_DECODE,
            FLASH_ATTENTION_INT8, PAGED_FLASH_DECODE_INT8,
            FLASH_ATTENTION_BIAS, MEGA_DECODE, FLASH_ATTENTION_COLD,
            FLASH_ATTENTION_COLD_INT8, FLASH_DECODE_INT8, MEGA_DECODE_TRACED,
-           MEGA_PREFILL, MEGA_DECODE_MOE)
+           MEGA_PREFILL, MEGA_DECODE_MOE, GEMM_AR, GEMM_RS, AG_GEMM,
+           ALL_GATHER)
+
+
+def coresident_blocks(library_name: str, symbol: str, *args) -> int:
+    """A capacity query of a cross-rank library: the blocks of a kernel
+    that can be co-resident on the current device (the most one
+    cooperative launch takes)."""
+    fn = getattr(library(library_name), symbol)
+    fn.restype = ctypes.c_int
+    fn.argtypes = [_I] * len(args)
+    return int(fn(*args))
 
 
 def reset_launch_counts() -> None:

@@ -1,0 +1,75 @@
+"""The shared launch of the three GEMM+collective kernels
+(``csrc/overlap.cu``): tile geometry, the co-resident grid, the site's
+symmetric workspace and flags, one cooperative launch."""
+
+from __future__ import annotations
+
+import torch
+
+from triton_distributed_tpu_torch.language.primitives import (
+    next_epoch,
+    site_flags,
+)
+from triton_distributed_tpu_torch.ops import cuda_kernels as ck
+from triton_distributed_tpu_torch.ops.common import rank_ptrs
+
+# The kernels' tile (overlap.cu): 64 columns; 16 rows when the GEMM has
+# at most 16 (decode), else 64.
+BN = 64
+SMALL_M = 16
+KINDS = {"gemm_ar": 0, "gemm_rs": 1, "ag_gemm": 2}
+_KERNELS = {"gemm_ar": ck.GEMM_AR, "gemm_rs": ck.GEMM_RS,
+            "ag_gemm": ck.AG_GEMM}
+_capacity: dict = {}
+
+
+def tile_rows(m: int) -> int:
+    return SMALL_M if m <= SMALL_M else 64
+
+
+def capacity(kind: str, dtype: torch.dtype, small: bool) -> int:
+    key = (kind, dtype, small)
+    if key not in _capacity:
+        _capacity[key] = ck.coresident_blocks(
+            "overlap", "tdt_overlap_capacity", KINDS[kind],
+            ck.DTYPE_CODES[dtype], int(small))
+    return _capacity[key]
+
+
+def check_operands(kind, ctx, a, b):
+    """Device, dtype, contiguity and the kernels' 16-byte vectors: K and
+    N multiples of 8."""
+    dt = a[0].dtype
+    if dt not in ck.DTYPE_CODES:
+        raise ValueError(f"{kind}: dtype {dt} not supported")
+    for r in range(ctx.tp):
+        ck.check_cuda_operand(f"a[{r}]", a[r], ctx.device, dt, 2)
+        ck.check_cuda_operand(f"b[{r}]", b[r], ctx.device, dt, 2)
+    k, n_out = b[0].shape
+    if k % 8 or n_out % 8 or a[0].shape[1] % 8:
+        raise ValueError(
+            f"{kind}: K={k} and N={n_out} must be multiples of 8 (16-byte "
+            "vectors)")
+
+
+def launch(kind: str, ctx, a, b, outs, ws_shape, m_tile: int, tiles: int,
+           flags: int, dims: tuple, blocks_per_rank: int | None = None
+           ) -> None:
+    """One cooperative launch of ``kind`` over the context's ranks.
+    ``m_tile`` is the GEMM's row count that picks the tile (M, m_per or
+    the chunk), ``tiles`` the work items a rank's blocks share (the grid
+    takes at most that many, and at most what stays co-resident),
+    ``flags`` the flags a rank needs, ``dims`` (M, N, K, half_m)."""
+    n = ctx.tp
+    dt = a[0].dtype
+    small = m_tile <= SMALL_M
+    if blocks_per_rank is None:
+        blocks_per_rank = max(1, min(tiles, capacity(kind, dt, small) // n))
+    ws = ctx.workspace(kind, ws_shape, dt)
+    fs = site_flags(ctx, kind, flags)
+    M, N, K, half_m = dims
+    _KERNELS[kind](
+        KINDS[kind], ck.DTYPE_CODES[dt], int(small), rank_ptrs(a),
+        rank_ptrs(b), rank_ptrs(outs), ws.table.data_ptr(),
+        fs.flags.table.data_ptr(), n, int(M), int(N), int(K), int(half_m),
+        next_epoch(fs), int(blocks_per_rank), ck.stream_ptr(a[0]))

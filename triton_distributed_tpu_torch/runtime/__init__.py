@@ -1,6 +1,10 @@
-"""Runtime helpers of the PyTorch port (one device, no mesh)."""
+"""Runtime helpers of the PyTorch port: the device context and its
+co-located tensor-parallel ranks."""
 
-from triton_distributed_tpu_torch.runtime.context import (  # noqa: F401
+from triton_distributed_tpu_torch.runtime.mesh import (  # noqa: F401
     DeviceContext,
+    DistContext,
+    SymmBuffer,
+    initialize_distributed,
     resolve_device,
 )
