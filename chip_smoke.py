@@ -1743,13 +1743,14 @@ def check_tiny_serving(dev) -> None:
               f", counters {counts[0]}")
 
 
-def _plain_forward(model, params, tokens, past=None):
+def _plain_forward(model, params, tokens, past=None, gate=None):
     """Plain forward (plain attention, no cache) of one sequence under
     ``params`` (a parameter dict of the model's layout), continuing after
     ``past``: the per-layer ``(k, v) [hkv, S0, hd]`` of an earlier call
-    over the tokens before (rope and the causal mask start at S0).
-    Returns ``(logits [S, V] f32, per-layer (k, v) through these
-    tokens)``."""
+    over the tokens before (rope and the causal mask start at S0). An MoE
+    model's ``gate(i, h)``, where given, gives layer i's combine weights
+    ``[S, E]`` (the routing a serving run took). Returns ``(logits [S, V]
+    f32, per-layer (k, v) through these tokens)``."""
     import torch
     import torch.nn.functional as F
 
@@ -1784,7 +1785,8 @@ def _plain_forward(model, params, tokens, past=None):
         x = x + o.transpose(0, 1).reshape(s, -1) @ lp["attn"]["wo"][i]
         h = rms_norm(x, lp["ln2"][i], cfg.rms_eps)
         if cfg.num_experts:
-            x = x + _moe_direct(cfg, lp["mlp"], i, h)
+            x = x + _moe_direct(cfg, lp["mlp"], i, h,
+                                cw=None if gate is None else gate(i, h))
         else:
             x = x + _silu_mul(h @ lp["mlp"]["w1"][i]) @ lp["mlp"]["w2"][i]
     x = rms_norm(x, p["norm"], cfg.rms_eps)
@@ -1796,32 +1798,57 @@ def _plain_forward(model, params, tokens, past=None):
 MOE_EXPERT_CHUNK = 16
 
 
-def _moe_direct(cfg, mlp, i, h):
+def _moe_weights(cfg, w_router, h):
+    """The plain gate of ``h [S, d]``: (f32 router probabilities [S, E],
+    combine weights [S, E]: each row's top k by a stable sort, 0
+    elsewhere, renormalized under ``norm_topk_prob``)."""
+    import torch
+
+    k = cfg.num_experts_per_tok
+    probs = torch.softmax(h.float() @ w_router.float(), dim=-1)
+    vals, ids = torch.sort(probs, dim=-1, descending=True, stable=True)
+    top = vals[:, :k]
+    if cfg.norm_topk_prob:
+        top = top / top.sum(dim=-1, keepdim=True)
+    return probs, torch.zeros_like(probs).scatter_(1, ids[:, :k], top)
+
+
+def _moe_direct(cfg, mlp, i, h, cw=None, drop_rank=None):
     """Layer ``i``'s MoE MLP on the normed rows ``h [S, d]``, computed for
     each token's own top-k experts directly (not through ``moe_sort`` or
     ``grouped_ffn``): f32 router softmax, the top k by a stable sort,
     every expert's SwiGLU FFN on every row (a chunk of experts at a time)
     weighted by that row's combine weight (0 off its top k), summed in
-    f32 and rounded to the model dtype."""
+    f32 and rounded to the model dtype. ``mlp`` is a parameter dict, or
+    at tp=n the list of the ranks' MLP dicts: each rank's SwiGLU on its
+    own column shard, its partial rounded, the partials summed in f32 and
+    rounded (``tp_moe_fwd``'s psum), with rank ``drop_rank``'s partial
+    left out (a negative control). ``cw [S, E]`` replaces the plain
+    gate's combine weights."""
     import torch
 
-    k = cfg.num_experts_per_tok
-    probs = torch.softmax(h.float() @ mlp["w_router"][i].float(), dim=-1)
-    vals, ids = torch.sort(probs, dim=-1, descending=True, stable=True)
-    top = vals[:, :k]
-    if cfg.norm_topk_prob:
-        top = top / top.sum(dim=-1, keepdim=True)
-    cw = torch.zeros_like(probs).scatter_(1, ids[:, :k], top)  # [S, E]
-    f = cfg.moe_intermediate_size
-    out = torch.zeros(h.shape, dtype=torch.float32, device=h.device)
-    for e0 in range(0, cfg.num_experts, MOE_EXPERT_CHUNK):
-        sl = slice(e0, e0 + MOE_EXPERT_CHUNK)
-        gu = torch.matmul(h, mlp["w1"][i, sl])  # [Ec, S, 2f]
-        act = (torch.nn.functional.silu(gu[..., :f].float())
-               * gu[..., f:].float()).to(h.dtype)
-        y = torch.matmul(act, mlp["w2"][i, sl])  # [Ec, S, d]
-        out += (cw[:, sl].T[..., None] * y.float()).sum(dim=0)
-    return out.to(h.dtype)
+    ranks = mlp if isinstance(mlp, list) else [mlp]
+    if cw is None:
+        cw = _moe_weights(cfg, ranks[0]["w_router"][i], h)[1]
+    parts = []
+    for m in ranks:
+        f = m["w1"].shape[-1] // 2
+        out = torch.zeros(h.shape, dtype=torch.float32, device=h.device)
+        for e0 in range(0, cfg.num_experts, MOE_EXPERT_CHUNK):
+            sl = slice(e0, e0 + MOE_EXPERT_CHUNK)
+            gu = torch.matmul(h, m["w1"][i, sl])  # [Ec, S, 2f]
+            act = (torch.nn.functional.silu(gu[..., :f].float())
+                   * gu[..., f:].float()).to(h.dtype)
+            y = torch.matmul(act, m["w2"][i, sl])  # [Ec, S, d]
+            out += (cw[:, sl].T[..., None] * y.float()).sum(dim=0)
+        parts.append(out.to(h.dtype))
+    if len(parts) == 1:
+        return parts[0]
+    acc = torch.zeros(h.shape, dtype=torch.float32, device=h.device)
+    for r, part in enumerate(parts):
+        if r != drop_rank:
+            acc += part.float()
+    return acc.to(h.dtype)
 
 
 def reference_logits(model, tokens):
@@ -1847,13 +1874,14 @@ def dequantized_params(model, q8) -> dict:
 
 
 def teacher_forced_gaps(model, prompt, generated, decode_params=None,
-                        params=None) -> list[float]:
+                        params=None, gate=None) -> list[float]:
     """For each generated position: reference max logit minus the
     reference logit of the token the engine emitted. With
     ``decode_params`` the engine's own split: the prompt runs under the
     model's parameters (the prefill) and the generated tokens as one
     chunk under ``decode_params`` over the prompt's K/V (the decode);
-    with ``params`` the whole sequence runs under ``params``."""
+    with ``params`` the whole sequence runs under ``params``; ``gate``
+    routes an MoE model's experts (``_plain_forward``)."""
     import numpy as np
     import torch
 
@@ -1861,7 +1889,8 @@ def teacher_forced_gaps(model, prompt, generated, decode_params=None,
     if decode_params is None:
         seq = np.concatenate([prompt, generated[:-1]]).astype(np.int64)
         logits = _plain_forward(model, model.params if params is None
-                                else params, torch.from_numpy(seq).to(dev))[0]
+                                else params, torch.from_numpy(seq).to(dev),
+                                gate=gate)[0]
         rows = logits[len(prompt) - 1:]
     else:
         first, past = _plain_forward(model, model.params, torch.from_numpy(
@@ -4040,7 +4069,8 @@ def check_tp_tiny(dev) -> None:
               "== CPU")
 
 
-def profile_tp_steps(model, steps: int = 8) -> dict:
+def profile_tp_steps(model, steps: int = 8, modes=("pallas", "xla"),
+                     tag: str = "tp") -> dict:
     """Where a tp step's time goes: a B=4 decode step at kv_len ~340 and
     a 384-row chunk at offset 0 over a paged pool, in mode ``pallas``
     (the kernels) and ``xla`` (plain torch collectives): host wall a step
@@ -4062,7 +4092,7 @@ def profile_tp_steps(model, steps: int = 8) -> dict:
     tok = torch.arange(b, dtype=torch.int32, device=model.device)
     chunk = np.arange(384, dtype=np.int32) % model.cfg.vocab_size
     out = {}
-    for mode in ("pallas", "xla"):
+    for mode in modes:
         phases = {
             "decode": lambda: model.decode_step(tok, cache, mode),
             "chunk384": lambda: model.prefill_paged_chunk(
@@ -4093,7 +4123,7 @@ def profile_tp_steps(model, steps: int = 8) -> dict:
                    "top": [[e.key[:60], e.device_time_total / steps / 1e3]
                            for e in top]}
             out[f"{name}_{mode}"] = rec
-            print(f"[tp] step profile {name} mode={mode}: {wall:.2f} ms wall, "
+            print(f"[{tag}] step profile {name} mode={mode}: {wall:.2f} ms wall, "
                   f"device busy {busy:.2f} ms (idle "
                   f"{rec['device_idle_share']:.3f}), "
                   f"{rec['launches']:.0f} launches; top "
@@ -4249,6 +4279,838 @@ def check_tp(dev):
     return records, launches, e2e
 
 
+# Tensor-parallel Qwen3-MoE: Qwen/Qwen3-30B-A3B at tp=2 (hq_loc 16,
+# hkv_loc 2: G = 8; f_loc 384 columns of every expert a rank), both ranks
+# co-located on the card. The expert layers' partials cross ranks through
+# the collectives of csrc/collectives.cu, picked by the JAX AUTO:
+# ContinuousEngine(mode="pallas", prefix_cache=True) prefills one chunk a
+# prompt of MOE_TP_PROMPT_LENS tokens, 48, 112, 384 and 1152 rows: the
+# all-reduce takes ONE_SHOT (<= 256 KB), DOUBLING (<= 1 MB), TWO_SHOT
+# (a ring reduce-scatter, which the HBM-tiled ring replaces above 4 MB,
+# then a ring all-gather); its B <= 4 decode takes ONE_SHOT. Engine(mode=
+# "pallas", paged=True) prefills sequence-sharded: the tokens gathered by
+# the full mesh, the partials reduce-scattered by the ring (2 rows of 300
+# tokens) or the one-shot (2 rows of 40). The n = 4 branches (the
+# bidirectional rings) run in the kernel checks and in tiny-moe at tp=4,
+# whose 1104-token Engine prompt passes their size thresholds.
+MOE_TP = 2
+MOE_TP_PROMPT_LENS = (40, 100, 300, 1100, 40)
+MOE_TP_GEN = 16
+MOE_TP_MAX_LENGTH = 1280
+MOE_TP_ENGINE_LENS = (300, 40)
+MOE_TP_STRESS = 100
+MOE_TP_LAG_NS = 500_000
+# The layer-by-layer hold: one chunk of each width the continuous path
+# prefills, and MOE_TP_DECODE_STEPS decode steps of a B=4 batch.
+MOE_TP_CHUNKS = (48, 112, 384, 1152)
+MOE_TP_DECODE_STEPS = 4
+# Its limit on the residual each expert layer moves, (atol, rtol on the
+# path's residual after the layer): PR 9's MOE_X_TOL did not carry over.
+# The plain expert layer rounds gate, up and down to bf16 where the
+# path's per-expert GEMMs do, but sums in another order (and the path's
+# combine adds with atomics, in no fixed order), so bf16 roundings flip:
+# the first readings (my chip runs on one H100) used 1.07-1.20 of
+# MOE_X_TOL on the layer's output alone and 1.72 of it on the residual
+# scale. At 4x MOE_X_TOL they use 0.13-0.43, and the negative control
+# (rank 1's partial dropped at layer 24) breaks it 49x.
+MOE_TP_X_TOL = (MOE_X_TOL[0] * 4, MOE_X_TOL[1] * 4)
+# Teacher forcing of the MoE-TP paths routes the plain forward's experts
+# as the run routed each position (``_RouteLog``): this random 48-layer
+# bf16 MoE has flat logits (top-2 margins of 0-2 bf16 ulps at |logit|
+# ~4.5), and free routing lets two right bf16 implementations diverge
+# (PR 9: by layer 16 every row routes otherwise). The first readings with
+# the plain gate's own routing reached gaps of 0.1875 (this path) and
+# 0.2188 (mode xla, no collective kernel) against the 0.125 margin;
+# routed as the run, 0.0312. The routing itself is held by the hold.
+# tiny-moe at tp=4 (f32, d = 64): a 1104-token row's prefill gathers
+# 276-row shards (70.6 KB, over the full mesh's 64 KB) and reduce-scatters
+# 282 KB of partials in even 276-row chunks: both bidirectional rings.
+MOE_TP_TINY_LONG = 1104
+MOE_TP_PATH_KERNELS = {
+    "tiny_moe_tp4_engine": ("all_gather_bidir_ring",
+                            "reduce_scatter_bidir_ring"),
+    "continuous_moe_tp": ("flash_attention", "paged_flash_decode", "gemm_ar",
+                          "gemm_rs", "all_gather", "all_reduce_one_shot",
+                          "all_reduce_doubling", "reduce_scatter_ring",
+                          "reduce_scatter_ring_hbm", "all_gather_ring"),
+    "paged_engine_moe_tp": ("flash_attention", "paged_flash_decode",
+                            "ag_gemm", "gemm_rs", "gemm_ar", "all_gather",
+                            "reduce_scatter_one_shot", "reduce_scatter_ring",
+                            "all_reduce_one_shot"),
+}
+_COLL_SRC = "triton_distributed_tpu_torch/csrc/collectives.cu"
+_COLL_REF = "triton_distributed_tpu/ops/collectives/"
+MOE_TP_SOURCES = {
+    "all_reduce_one_shot": _COLL_REF + "all_reduce.py:78",
+    "all_reduce_doubling": _COLL_REF + "all_reduce.py:113",
+    "reduce_scatter_one_shot": _COLL_REF + "reduce_scatter.py:150",
+    "reduce_scatter_ring": _COLL_REF + "reduce_scatter.py:59",
+    "reduce_scatter_bidir_ring": _COLL_REF + "reduce_scatter.py:89",
+    "reduce_scatter_ring_hbm": _COLL_REF + "reduce_scatter.py:191",
+    "all_gather_ring": _COLL_REF + "all_gather.py:49",
+    "all_gather_bidir_ring": _COLL_REF + "all_gather.py:93",
+}
+
+
+def _coll_ops():
+    """Each new collective kernel: (launcher(xs, ctx, **kw), plain
+    version(xs), family)."""
+    from triton_distributed_tpu_torch.ops import collectives as col
+    from triton_distributed_tpu_torch.ops.collectives import (
+        AllReduceMethod as AR,
+    )
+    from triton_distributed_tpu_torch.ops.collectives import (
+        ReduceScatterMethod as RS,
+    )
+
+    def ar(m):
+        return lambda xs, ctx, **kw: col.all_reduce_kernel(m, xs, ctx, **kw)
+
+    def rs(m):
+        return lambda xs, ctx, **kw: col.reduce_scatter_kernel(m, xs, ctx,
+                                                               **kw)
+
+    def ring_plain(half):
+        def plain(xs):
+            m_per = xs[0].shape[0] // len(xs)
+            return col.reduce_scatter_ring_plain(
+                xs, m_per // 2 if half else None)
+        return plain
+
+    return {
+        "all_reduce_one_shot": (ar(AR.ONE_SHOT), col.all_reduce_plain, "ar"),
+        "all_reduce_doubling": (ar(AR.DOUBLING),
+                                col.all_reduce_doubling_plain, "ar"),
+        "reduce_scatter_one_shot": (rs(RS.ONE_SHOT),
+                                    col.reduce_scatter_one_shot_plain, "rs"),
+        "reduce_scatter_ring": (rs(RS.PALLAS_RING), ring_plain(False), "rs"),
+        "reduce_scatter_bidir_ring": (rs(RS.PALLAS_BIDIR_RING),
+                                      ring_plain(True), "rs"),
+        "reduce_scatter_ring_hbm": (rs(RS.PALLAS_RING_HBM),
+                                    ring_plain(False), "rs"),
+        "all_gather_ring": (col.all_gather_ring, col.all_gather_plain, "ag"),
+        "all_gather_bidir_ring": (col.all_gather_bidir_ring,
+                                  col.all_gather_plain, "ag"),
+    }
+
+
+# Rows a rank at d = 2048 for each family's checks: the all-reduce's
+# decode batch and chunks (ONE_SHOT, DOUBLING, TWO_SHOT), the
+# reduce-scatter's prefill widths (one-shot, ring, HBM ring; a row count
+# a multiple of 2n), the all-gather's 384-row chunk shard.
+MOE_TP_CHECK_ROWS = {"ar": (4, 112, 384), "rs": (48, 304, 1152),
+                     "ag": (192,)}
+# The timed shape of each kernel: (n, rows a rank at d = 2048) where the
+# path (or, for the bidirectional rings, the n = 4 TWO_SHOT of a 384-row
+# chunk) gives it.
+MOE_TP_TIMED = {
+    "all_reduce_one_shot": (2, 4), "all_reduce_doubling": (2, 112),
+    "reduce_scatter_one_shot": (2, 48), "reduce_scatter_ring": (2, 300),
+    "reduce_scatter_ring_hbm": (2, 1152),
+    "reduce_scatter_bidir_ring": (4, 384), "all_gather_ring": (2, 192),
+    "all_gather_bidir_ring": (4, 96),
+}
+
+
+def check_moe_tp_kernels(dev, flush) -> dict:
+    """Each collective kernel against its plain version on the same
+    per-rank inputs at n = 2 and 4, f32 (TF32 off) and bf16, at
+    MOE_TP_CHECK_ROWS: the limits of ``_tp_limit``; ONE_SHOT's ranks
+    bitwise equal and the all-gathers equal to the shards; the planted
+    ring order of the three rings at n = 4; MOE_TP_STRESS back-to-back
+    launches of each; a MOE_TP_LAG_NS straggler through ONE_SHOT,
+    DOUBLING and TWO_SHOT; then each kernel's timing at MOE_TP_TIMED.
+    Returns the records by kernel."""
+    import numpy as np
+    import torch
+
+    from triton_distributed_tpu_torch.ops import collectives as col
+    from triton_distributed_tpu_torch.ops import cuda_kernels as ck
+    from triton_distributed_tpu_torch.runtime import initialize_distributed
+
+    ops = _coll_ops()
+    rng = np.random.default_rng(SEED + 20)
+    bf16, f32 = torch.bfloat16, torch.float32
+
+    def inputs(n, rows, dtype, fam):
+        ctx = initialize_distributed(n, device=dev, dtype=dtype)
+        if fam == "rs":
+            rows = -(-rows // (2 * n)) * 2 * n
+        return ctx, [torch.from_numpy(rng.standard_normal((rows, 2048)).astype(
+            np.float32)).to(dev, dtype) for _ in range(n)]
+
+    def within(name, got, want, dtype, n, what):
+        atol, rtol = _tp_limit(dtype, n)
+        worst = 0.0
+        for g, w in zip(got, want):
+            e = (g.float() - w.float()).abs()
+            if not bool(torch.isfinite(g.float()).all()) or bool(
+                    (e > atol + rtol * w.float().abs()).any()):
+                raise RuntimeError(
+                    f"{name} {what}: |kernel - plain| {float(e.max()):.3g} "
+                    f"over the limit ({atol:.3g} + {rtol:.3g}|p|)")
+            worst = max(worst, float(e.max()))
+        return worst
+
+    def check(name, got, want, dtype, n, what):
+        if ops[name][2] == "ag":
+            if not all(torch.equal(g, want[0]) for g in got):
+                raise RuntimeError(f"{name} {what}: a rank's output is not "
+                                   "the shards")
+            return 0.0
+        worst = within(name, got, want, dtype, n, what)
+        if name == "all_reduce_one_shot" and not all(
+                torch.equal(g, got[0]) for g in got[1:]):
+            raise RuntimeError(f"{name} {what}: ranks' outputs differ")
+        return worst
+
+    max_abs = {name: 0.0 for name in ops}
+    for name, (fn, plain, fam) in ops.items():
+        for n in (2, 4):
+            for dt in (f32, bf16):
+                for rows in MOE_TP_CHECK_ROWS[fam]:
+                    ctx, xs = inputs(n, rows, dt, fam)
+                    e = check(name, fn(xs, ctx), plain(xs), dt, n,
+                              f"n={n} [{rows}, 2048] {dt}")
+                    if dt == bf16:
+                        max_abs[name] = max(max_abs[name], e)
+        print(f"[moe_tp] {name}: n=2 and 4, f32 and bf16, rows "
+              f"{MOE_TP_CHECK_ROWS[fam]}: max |kernel - plain| bf16 "
+              f"{max_abs[name]:.3g}"
+              + (", ranks bitwise equal" if name == "all_reduce_one_shot"
+                 else ", == the shards bitwise" if fam == "ag" else ""))
+
+    # The ring order: planted bf16 partials, 256, 1, -256, 0 by a rank's
+    # position on the chunk's ring: the ring ends at 0, rank order at 1.
+    n, m_per = 4, 8
+    for name in ("reduce_scatter_ring", "reduce_scatter_bidir_ring",
+                 "reduce_scatter_ring_hbm"):
+        half = m_per // 2 if "bidir" in name else m_per
+        xs = np.zeros((n, n * m_per, 2048), np.float32)
+        for r in range(n):
+            for c in range(n):
+                for i in range(m_per):
+                    pos = (r - c - 1) % n if i < half else (c - 1 - r) % n
+                    xs[r, c * m_per + i, 0] = (256.0, 1.0, -256.0, 0.0)[pos]
+        ctx = initialize_distributed(n, device=dev, dtype=bf16)
+        ts = [torch.from_numpy(x).to(dev, bf16) for x in xs]
+        got = torch.cat(ops[name][0](ts, ctx))
+        one = torch.cat(col.reduce_scatter_one_shot_plain(ts))
+        if not (got[:, 0] == 0).all() or not (one[:, 0] == 1).all():
+            raise RuntimeError(f"{name}: planted partials give "
+                               f"{got[:, 0].tolist()}, not the ring's 0")
+    print("[moe_tp] ring order: planted bf16 partials at n=4 give 0 "
+          "through the ring, the bidir ring and the HBM ring (a sum in "
+          "rank order gives 1)")
+
+    # Stress: back-to-back launches with fresh inputs, all checked after
+    # one sync.
+    kept = []
+    for name, (fn, plain, fam) in ops.items():
+        ctx, xs = inputs(4, 32, f32, fam)
+        for i in range(MOE_TP_STRESS):
+            xs = [t + 0.01 for t in xs]
+            kept.append((name, xs, fn(xs, ctx)))
+    torch.cuda.synchronize()
+    for name, xs, got in kept:
+        check(name, got, ops[name][1](xs), f32, 4, "stress")
+    print(f"[moe_tp] stress: {MOE_TP_STRESS} back-to-back launches of each "
+          f"kernel at n=4, fresh inputs, all {len(kept)} outputs correct")
+
+    # The straggler: rank 1 lags MOE_TP_LAG_NS before its first put.
+    lag = {}
+    for method, rows in (("ONE_SHOT", 4), ("DOUBLING", 112),
+                         ("TWO_SHOT", 384)):
+        ctx, xs = inputs(2, rows, bf16, "ar")
+        m = col.AllReduceMethod[method]
+        ms = []
+        for nanos in (0, MOE_TP_LAG_NS):
+            col.all_reduce(xs, ctx, m)
+            torch.cuda.synchronize()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            got = col.all_reduce(xs, ctx, m, straggler_rank=1 if nanos
+                                 else None, straggler_nanos=nanos)
+            end.record()
+            end.synchronize()
+            ms.append(start.elapsed_time(end))
+            within(method, got, col.all_reduce_plain(xs), bf16, 2,
+                   f"straggler {nanos} ns")
+        if ms[1] < MOE_TP_LAG_NS / 1e6:
+            raise RuntimeError(f"{method}: a {MOE_TP_LAG_NS} ns straggler "
+                               f"took {ms[1]} ms")
+        lag[method] = {"ms": ms[0], "lagged_ms": ms[1]}
+    print(f"[moe_tp] straggler {MOE_TP_LAG_NS} ns on rank 1: "
+          f"{json.dumps(lag)} (each lagged launch >= the lag, sums right)")
+
+    # Timing at the path's shapes. Bound: every rank's bytes (inputs read
+    # once, outputs written once) over one HBM. library_ms: one PyTorch
+    # call of the same function on one card (torch.stack(xs).sum(0) for
+    # the reductions, torch.cat for the gathers).
+    records = {}
+    for name, (fn, plain, fam) in ops.items():
+        n, rows = MOE_TP_TIMED[name]
+        ctx, xs = inputs(n, rows, bf16, fam)
+        shard = xs[0].numel() * 2
+        moved = {"ar": 2 * n * shard, "rs": n * shard + n * shard // n,
+                 "ag": n * shard + n * n * shard}[fam]
+        lib = ((lambda xs=xs: torch.cat(xs)) if fam == "ag"
+               else (lambda xs=xs: torch.stack(xs).sum(0)))
+        bms = moved / HBM_BPS * 1e3
+        rec = dict(route="cuda", source=_COLL_SRC,
+                   replaces=MOE_TP_SOURCES[name], max_abs_err=max_abs[name],
+                   ms=median_ms(lambda: fn(xs, ctx), flush),
+                   plain_ms=median_ms(lambda: plain(xs), flush),
+                   bound_ms=bms, bound_by="bytes",
+                   library_ms=median_ms(lib, flush),
+                   shape=f"tp={n} [{xs[0].shape[0]}, 2048] a rank bf16",
+                   straggler=lag if name.startswith("all_reduce") else None)
+        records[name] = rec
+        print(f"[moe_tp] {name} {rec['shape']}: {rec['ms']:.4f} ms, plain "
+              f"{rec['plain_ms']:.4f}, library {rec['library_ms']:.4f}, "
+              f"bound {bms:.4f} ms (bytes)")
+    return records
+
+
+def check_moe_tp_tiny(dev) -> dict:
+    """tiny-moe f32 at tp=2 and tp=4 on the card emits the CPU's tokens
+    (the plain versions there) through both engines, modes pallas and
+    xla; then at tp=4 one MOE_TP_TINY_LONG-token row through
+    Engine(mode="pallas"), whose launches (counted from 0 around the card
+    run) are path ``tiny_moe_tp4_engine``. Returns the launches by
+    path."""
+    import numpy as np
+
+    from triton_distributed_tpu_torch.models import (
+        AutoLLM,
+        ContinuousEngine,
+        Engine,
+        Qwen3MoE,
+    )
+    from triton_distributed_tpu_torch.ops import cuda_kernels as ck
+
+    src = AutoLLM.from_pretrained("tiny-moe", device="cpu", seed=SEED)
+    rng = np.random.default_rng(SEED + 21)
+    prompts = [rng.integers(0, 256, k).astype(np.int32) for k in (20, 41, 9)]
+    ids = np.stack([prompts[0], prompts[1][:20]])
+    long_ids = rng.integers(0, 256, (1, MOE_TP_TINY_LONG)).astype(np.int32)
+    launches = {}
+    for tp in (2, 4):
+        models = {}
+        for d in (dev, "cpu"):
+            models[d] = Qwen3MoE(src.cfg, device=d, tp=tp)
+            models[d].set_params(src.params)
+        for mode in ("pallas", "xla"):
+            outs = []
+            for d, m in models.items():
+                res = []
+                for pc in (False, True):
+                    eng = ContinuousEngine(m, max_batch=2, page_size=16,
+                                           max_length=64, prefix_cache=pc,
+                                           mode=mode, device=d)
+                    res.append(np.concatenate(
+                        eng.run([(p, 8) for p in prompts])))
+                    if eng.audit():
+                        raise RuntimeError(f"tiny-moe tp={tp} on {d}: audit "
+                                           f"{eng.audit()}")
+                res.append(Engine(m, mode=mode, paged=True, page_size=16,
+                                  device=d).serve(ids, 7, 64))
+                outs.append(res)
+            if not all(np.array_equal(x, y) for x, y in zip(*outs)):
+                raise RuntimeError(f"tiny-moe f32 tp={tp} mode={mode} on the "
+                                   "card differs from the CPU")
+        print(f"[moe_tp] tiny-moe f32 tp={tp} ContinuousEngine (with and "
+              "without the prefix cache) + Engine, modes pallas and xla: "
+              "tokens on the card == CPU")
+    outs = []
+    for d, m in models.items():
+        if d == dev:
+            ck.reset_launch_counts()
+        outs.append(Engine(m, mode="pallas", paged=True, page_size=16,
+                           device=d).serve(long_ids, 4,
+                                           MOE_TP_TINY_LONG + 16))
+        if d == dev:
+            launches["tiny_moe_tp4_engine"] = ck.launch_counts()
+    if not np.array_equal(*outs):
+        raise RuntimeError("tiny-moe tp=4 long row: card != CPU")
+    got = launches["tiny_moe_tp4_engine"]
+    missing = [k for k in MOE_TP_PATH_KERNELS["tiny_moe_tp4_engine"]
+               if not got[k]]
+    if missing:
+        raise RuntimeError(f"tiny_moe_tp4_engine did not launch {missing}")
+    print(f"[moe_tp] tiny_moe_tp4_engine ({MOE_TP_TINY_LONG} tokens, tp=4): "
+          f"card == CPU, launches "
+          f"{ {k: v for k, v in got.items() if v} }")
+    return launches
+
+
+class _RouteLog:
+    """The routing a serving run took: rank 0's gate (``router_topk`` of
+    ``layers/tp_moe.py``) at every layer, per (request, position), from
+    wrappers of the model's forwards: a prefill chunk (its slot and
+    offset), a batched prefill (the i-th of a serve fills row i) and a
+    decode step (row b at position ``kv_len[b]``). A prefill finds its
+    request by the prompt's tokens; a row whose input token is not the
+    request's at that position (an empty slot) is not used."""
+
+    NAMES = ("prefill_paged_chunk", "prefill_batched", "decode_step")
+
+    def __init__(self, model, prompts):
+        import importlib
+
+        import numpy as np
+
+        self.model, self.n, self.L = model, model.tp, model.cfg.num_layers
+        self.prompts = [np.asarray(p) for p in prompts]
+        self.rows, self.slot_req, self._calls, self._batched = {}, {}, None, 0
+        self._tm = importlib.import_module(
+            "triton_distributed_tpu_torch.layers.tp_moe")
+        self._gate = self._tm.router_topk
+        self._inner = {k: getattr(model, k) for k in self.NAMES}
+
+        def gate(*a, **kw):
+            out = self._gate(*a, **kw)
+            if self._calls is not None:
+                self._calls.append(out)
+            return out
+
+        def wrap(name):
+            def wrapped(*a, **kw):
+                meta = getattr(self, "_meta_" + name)(*a, **kw)
+                self._calls = []
+                out = self._inner[name](*a, **kw)
+                calls, self._calls = self._calls, None
+                self._keep(calls, meta)
+                return out
+            return wrapped
+
+        self._tm.router_topk = gate
+        for name in self.NAMES:
+            setattr(model, name, wrap(name))
+
+    def close(self):
+        self._tm.router_topk = self._gate
+        for name in self.NAMES:
+            delattr(self.model, name)
+
+    def _find(self, toks, off, n) -> int:
+        import numpy as np
+
+        for r, p in enumerate(self.prompts):
+            if len(p) >= off + n and np.array_equal(p[off:off + n], toks[:n]):
+                return r
+        return -1
+
+    def _meta_prefill_paged_chunk(self, tokens, slot, q_offset, new_len,
+                                  *a, **kw):
+        import numpy as np
+
+        n = int(new_len) - int(q_offset)
+        req = self._find(np.asarray(tokens), int(q_offset), n)
+        self.slot_req[int(slot)] = req
+        return [(r, req, int(q_offset) + r, None) for r in range(n)]
+
+    def _meta_prefill_batched(self, tokens, cache, *a, **kw):
+        import numpy as np
+
+        toks = np.asarray(tokens.cpu() if hasattr(tokens, "cpu") else tokens)
+        out = []
+        for b in range(toks.shape[0]):
+            req = self._find(toks[b], 0, len(self.prompts[0]))
+            self.slot_req[self._batched] = req
+            self._batched += 1
+            out += [(r, req, r, None) for r in range(toks.shape[1])]
+        return out
+
+    def _meta_decode_step(self, tokens, cache, *a, **kw):
+        toks = [int(t) for t in tokens.tolist()]
+        lens = [int(v) for v in cache.kv_len.tolist()]
+        return [(b, self.slot_req.get(b, -1), lens[b], toks[b])
+                for b in range(len(toks))]
+
+    def _keep(self, calls, meta):
+        import torch
+
+        ids = torch.stack([c.expert_ids for c in calls[::self.n]]).cpu()
+        ws = torch.stack([c.weights for c in calls[::self.n]]).cpu()
+        for r, req, pos, tok in meta:
+            # First record wins: an empty slot's later rows never replace
+            # what its last request's forwards routed.
+            if req >= 0:
+                self.rows.setdefault((req, pos), (tok, ids[:, r], ws[:, r]))
+
+    def _kept(self, req, seq) -> tuple:
+        """(ids [L, S, k], weights [L, S, k], kept [S]) of ``seq``'s
+        positions: kept where the run routed that position with that
+        input token."""
+        import torch
+
+        k = self.model.cfg.num_experts_per_tok
+        S = len(seq)
+        ids = torch.zeros((self.L, S, k), dtype=torch.long)
+        ws = torch.zeros((self.L, S, k))
+        kept = torch.zeros(S, dtype=torch.bool)
+        for pos in range(S):
+            rec = self.rows.get((req, pos))
+            if rec is not None and (rec[0] is None or rec[0] == int(seq[pos])):
+                kept[pos] = True
+                ids[:, pos], ws[:, pos] = rec[1], rec[2]
+        return ids, ws, kept
+
+    def gate(self, req, seq):
+        """``_plain_forward``'s gate for request ``req``'s sequence
+        ``seq``: the run's experts and combine weights where it kept the
+        position, the plain gate's elsewhere."""
+        import torch
+
+        dev = self.model.device
+        ids, ws, kept = (t.to(dev) for t in self._kept(req, seq))
+        router = [p["layers"]["mlp"]["w_router"]
+                  for p in self.model.rank_params][0]
+
+        def at(i, h):
+            cw = _moe_weights(self.model.cfg, router[i], h)[1]
+            forced = torch.zeros_like(cw).scatter_(1, ids[i], ws[i])
+            return torch.where(kept[:, None], forced, cw)
+        return at
+
+    def coverage(self, req, seq) -> float:
+        """The share of ``seq``'s positions whose routing was kept."""
+        return float(self._kept(req, seq)[2].float().mean())
+
+
+class _LayerRecorder:
+    """Records what the model's expert layers saw and gave in a forward:
+    per call of ``_mlp_fwd`` (one a layer) the ranks' normed inputs and
+    outputs, the routing of the ranks' gates (``router_topk`` of
+    ``layers/tp_moe.py``) and rank 0's residual after the layer (the
+    ``_block`` output)."""
+
+    def __init__(self, model):
+        import importlib
+
+        self.model, self.calls, self._routes = model, [], None
+        self._tm = importlib.import_module(
+            "triton_distributed_tpu_torch.layers.tp_moe")
+        self._inner_mlp, self._inner_gate = model._mlp_fwd, self._tm.router_topk
+        self._inner_block = model._block
+
+        def gate(*a, **kw):
+            out = self._inner_gate(*a, **kw)
+            if self._routes is not None:
+                self._routes.append(out)
+            return out
+
+        def mlp(params, h, mode):
+            self._routes = []
+            out = self._inner_mlp(params, h, mode)
+            self.calls.append({"h": [t.clone() for t in h],
+                               "out": [t.clone() for t in out],
+                               "routes": self._routes})
+            self._routes = None
+            return out
+
+        def block(*a, **kw):
+            out = self._inner_block(*a, **kw)
+            self.calls[-1]["x_out"] = out[0].clone()
+            return out
+
+        model._mlp_fwd, self._tm.router_topk = mlp, gate
+        model._block = block
+
+    def close(self):
+        self.model._mlp_fwd = self._inner_mlp
+        self.model._block = self._inner_block
+        self._tm.router_topk = self._inner_gate
+
+
+def hold_moe_tp_layers(model, what, calls, shards, drop=None) -> dict:
+    """The plain version held to the ``pallas`` forward layer by layer
+    (PR 9's ``_ForcedGate`` method): for each recorded layer, on the
+    kernel path's own normed input (every rank's bitwise the same), the
+    plain gate must pick the experts the path's gate picked, up to a near
+    tie (deficit <= MOE_TIE), with combine weights within MOE_WEIGHT_TOL;
+    then the plain expert layer from the rank shards (each rank's SwiGLU
+    on its own columns, the partials summed in f32) with the path's
+    routing must move the residual to within MOE_TP_X_TOL of the path's
+    residual after the layer (rtol on that residual), and every rank's
+    output must be bitwise the same.
+    ``drop=layer`` leaves rank 1's partial out at that layer (the negative
+    control): its limit use is returned as ``control_use``."""
+    import torch
+
+    cfg = model.cfg
+    k, atol, rtol = cfg.num_experts_per_tok, *MOE_TP_X_TOL
+    L = cfg.num_layers
+    use = deficit = w_err = 0.0
+    flips, control = 0, None
+    for j, c in enumerate(calls):
+        i = j % L
+        h = c["h"][0]
+        if not all(torch.equal(t, h) for t in c["h"][1:]) or not all(
+                torch.equal(t, c["out"][0]) for t in c["out"][1:]):
+            raise RuntimeError(f"{what} layer {i}: the ranks' inputs or "
+                               "outputs differ")
+        route = c["routes"][0]
+        kern = torch.zeros((h.shape[0], cfg.num_experts), device=h.device)
+        kern.scatter_(1, route.expert_ids.long(), route.weights.float())
+        probs, cw = _moe_weights(cfg, shards[0]["w_router"][i], h)
+        kset, pset = kern != 0, cw != 0
+        top = torch.sort(probs, dim=-1, descending=True, stable=True).values
+        for r in (kset != pset).any(dim=1).nonzero().flatten().tolist():
+            flips += 1
+            deficit = max(deficit, (top[r, k - 1] - probs[r][
+                kset[r] & ~pset[r]].min()).item())
+        forced = torch.where(kset, probs, torch.zeros_like(probs))
+        if cfg.norm_topk_prob:
+            forced = forced / forced.sum(dim=-1, keepdim=True)
+        w_err = max(w_err, (forced - kern).abs().max().item())
+        ref = _moe_direct(cfg, shards, i, h, cw=kern)
+        got = c["out"][0]
+        lim = atol + rtol * c["x_out"].float().abs()
+        use = max(use, ((got.float() - ref.float()).abs() / lim).max().item())
+        if drop is not None and i == drop and control is None:
+            bad = _moe_direct(cfg, shards, i, h, cw=kern, drop_rank=1)
+            control = ((got.float() - bad.float()).abs() / lim).max().item()
+    if deficit > MOE_TIE or w_err > MOE_WEIGHT_TOL or not use <= 1.0:
+        raise RuntimeError(f"{what}: layer-by-layer hold broken: output "
+                           f"limit use {use}, worst routing flip deficit "
+                           f"{deficit}, combine weights off by {w_err}")
+    rec = {"layers": len(calls), "limit_used": use, "routing_flips": flips,
+           "worst_flip_deficit": deficit, "combine_weight_err": w_err}
+    if control is not None:
+        rec["control_use"] = control
+    return rec
+
+
+def check_moe_tp_layers(model) -> dict:
+    """The layer-by-layer hold on one ``prefill_paged_chunk`` of each
+    MOE_TP_CHUNKS width (random tokens, offset 0, a fresh pool) and on
+    MOE_TP_DECODE_STEPS B=4 decode steps, mode ``pallas``; the negative
+    control (rank 1's partial dropped at the middle layer of the 384-row
+    chunk) must break the limit."""
+    import numpy as np
+    import torch
+
+    from triton_distributed_tpu_torch.models.paged_kv_cache import (
+        init_paged_cache,
+    )
+
+    cfg, dev = model.cfg, model.device
+    shards = [p["layers"]["mlp"] for p in model.rank_params]
+    rng = np.random.default_rng(SEED + 22)
+    out = {}
+    for c in MOE_TP_CHUNKS:
+        cache, _ = init_paged_cache(cfg, 1, dev, max_length=MOE_TP_MAX_LENGTH,
+                                    page_size=PAGE, tp=model.tp)
+        toks = rng.integers(0, cfg.vocab_size, c).astype(np.int32)
+        rec = _LayerRecorder(model)
+        try:
+            model.prefill_paged_chunk(toks, 0, 0, c, c - 1, cache, "pallas")
+        finally:
+            rec.close()
+        drop = cfg.num_layers // 2 if c == 384 else None
+        out[f"chunk{c}"] = hold_moe_tp_layers(model, f"chunk {c}", rec.calls,
+                                              shards, drop)
+        del cache
+    cache, _ = init_paged_cache(cfg, 4, dev, max_length=MOE_TP_MAX_LENGTH,
+                                page_size=PAGE, tp=model.tp)
+    cache.kv_len[:] = 300
+    tok = torch.as_tensor(rng.integers(0, cfg.vocab_size, 4), device=dev,
+                          dtype=torch.int32)
+    rec = _LayerRecorder(model)
+    try:
+        for _ in range(MOE_TP_DECODE_STEPS):
+            logits, cache = model.decode_step(tok, cache, "pallas")
+            tok = logits.argmax(-1).to(torch.int32)
+    finally:
+        rec.close()
+    out["decode"] = hold_moe_tp_layers(model, "decode", rec.calls, shards)
+    control = out["chunk384"]["control_use"]
+    print(f"[moe_tp] layer-by-layer hold: {json.dumps(out)}")
+    if not control > 1.0:
+        raise RuntimeError(f"the negative control (rank 1's partial dropped "
+                           f"at layer {cfg.num_layers // 2}) kept the limit: "
+                           f"{control}")
+    return out
+
+
+def serve_moe_tp_paths(dev) -> tuple:
+    """Qwen3-30B-A3B at tp=2, all layers: ``continuous_moe_tp`` and
+    ``paged_engine_moe_tp`` (two passes: MOE_TP_ENGINE_LENS rows), launches
+    per path (each counted from 0 just before it), audits, the MoE ledger,
+    teacher forcing against a plain full-sequence forward computed from
+    the rank shards (bf16 limits), the layer-by-layer hold, and the step
+    profile. Returns (launches by path, the e2e block)."""
+    import numpy as np
+    import torch
+
+    from triton_distributed_tpu_torch.models import (
+        AutoLLM,
+        ContinuousEngine,
+        Engine,
+        unshard_params,
+    )
+    from triton_distributed_tpu_torch.ops import cuda_kernels as ck
+
+    t0 = t_start = time.perf_counter()
+    model = AutoLLM.from_pretrained(MOE_MODEL, device=dev, seed=SEED,
+                                    tp=MOE_TP)
+    torch.cuda.synchronize()
+    cfg = model.cfg
+    k, V = cfg.num_experts_per_tok, cfg.vocab_size
+    print(f"[moe_tp] {MOE_MODEL} random init at tp={MOE_TP} on {dev} in "
+          f"{time.perf_counter() - t0:.1f} s ({cfg.num_layers} layers, "
+          f"hq_loc {model.dims.hq_loc}, hkv_loc {model.dims.hkv_loc}, f_loc "
+          f"{cfg.moe_intermediate_size // MOE_TP}; "
+          f"{torch.cuda.memory_allocated(dev) / 1e9:.2f} GB allocated)")
+    rng = np.random.default_rng(SEED + 23)
+    prompts = [rng.integers(0, V, n).astype(np.int32)
+               for n in MOE_TP_PROMPT_LENS]
+    engine_ids = [rng.integers(0, V, (2, n)).astype(np.int32)
+                  for n in MOE_TP_ENGINE_LENS]
+    warm = rng.integers(0, V, 24).astype(np.int32)
+    launches, outs, e2e, engs, route_of = {}, {}, {}, {}, {}
+    for path in ("continuous_moe_tp", "paged_engine_moe_tp"):
+        if path == "continuous_moe_tp":
+            eng = ContinuousEngine(model, max_batch=4, page_size=PAGE,
+                                   max_length=MOE_TP_MAX_LENGTH,
+                                   prefix_cache=True, mode="pallas",
+                                   device=dev)
+            eng.run([(warm, 2)])
+        else:
+            eng = Engine(model, mode="pallas", paged=True, page_size=PAGE,
+                         device=dev)
+            eng.serve(engine_ids[1][:, :24], 2, MOE_TP_MAX_LENGTH)
+        engs[path] = eng
+        torch.cuda.synchronize()
+        ck.reset_launch_counts()
+        t0 = time.perf_counter()
+        if path == "continuous_moe_tp":
+            log = _RouteLog(model, prompts)
+            try:
+                outs[path] = eng.run([(p, MOE_TP_GEN) for p in prompts])
+            finally:
+                log.close()
+            routed = [eng.last_stats]
+            route_of[path] = [(log, r) for r in range(len(prompts))]
+        else:
+            outs[path], routed, route_of[path] = [], [], []
+            for ids in engine_ids:
+                log = _RouteLog(model, list(ids))
+                try:
+                    got = eng.serve(ids, MOE_TP_GEN, MOE_TP_MAX_LENGTH)
+                finally:
+                    log.close()
+                outs[path] += [g[ids.shape[1]:] for g in got]
+                routed.append(dict(eng.last_stats))
+                route_of[path] += [(log, r) for r in range(len(ids))]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches[path] = ck.launch_counts()
+        if eng.audit():
+            raise RuntimeError(f"{path}: pool audit failed: {eng.audit()}")
+        ran = {name for name, c in launches[path].items() if c}
+        if ran != set(MOE_TP_PATH_KERNELS[path]):
+            raise RuntimeError(f"the {path} run launched {sorted(ran)}, "
+                               f"expected {sorted(MOE_TP_PATH_KERNELS[path])}")
+        # The ledger: every prefilled position and every decode position,
+        # k assignments each (the traffic's arithmetic).
+        if path == "continuous_moe_tp":
+            st = routed[0]
+            want = k * (sum(MOE_TP_PROMPT_LENS)
+                        + len(prompts) * (MOE_TP_GEN - 1))
+            got_r = st["moe_routed_tokens"]
+            hits = st["prefix_hit_tokens"]
+        else:
+            want = k * sum(2 * (n + MOE_TP_GEN - 1)
+                           for n in MOE_TP_ENGINE_LENS)
+            got_r = sum(st["moe_routed_tokens"] for st in routed)
+            hits = 0
+        if got_r + k * hits != want or any(
+                st["a2a_dropped"] for st in routed):
+            raise RuntimeError(f"{path}: moe_routed_tokens {got_r} (prefix "
+                               f"hits {hits}), want {want}")
+        counts = {name: launches[path][name]
+                  for name in MOE_TP_PATH_KERNELS[path]}
+        e2e[path] = {"wall_s": wall, "launches": counts,
+                     "moe_routed_tokens": got_r}
+        print(f"[moe_tp] {path}: {wall:.2f} s wall, moe_routed_tokens "
+              f"{got_r} (= {want} from the traffic), launches {counts}")
+    marks = {"paths": time.perf_counter()}
+    # Teacher forcing through a plain forward from the rank shards, its
+    # experts routed as the run routed each position (MOE_TP_TF): the
+    # routing itself is held by the layer-by-layer hold below.
+    params = unshard_params(model.params, mlp=False)
+    plain = _tp_plain_model(model, params)
+    srcs = {"continuous_moe_tp": prompts,
+            "paged_engine_moe_tp": [r for ids in engine_ids for r in ids]}
+    for path, got in outs.items():
+        gaps, free, cover = [], [], []
+        for (log, req), p, o in zip(route_of[path], srcs[path], got):
+            o = np.asarray(o)
+            if o.shape != (MOE_TP_GEN,):
+                raise RuntimeError(f"{path}: bad output {o.shape}")
+            seq = np.concatenate([p, o[:-1]])
+            cover.append(log.coverage(req, seq))
+            gaps += teacher_forced_gaps(plain, p, o, gate=log.gate(req, seq))
+            free += teacher_forced_gaps(plain, p, o)
+        if min(cover) < 1.0:
+            raise RuntimeError(f"{path}: the run's routing was kept for only "
+                               f"{cover} of each request's positions")
+        e2e[path]["teacher_forcing"] = _tf_check(
+            f"{path} (tp={MOE_TP}, routed as the run)", gaps, TF_MARGIN,
+            TF_MIN_EXACT)
+        e2e[path]["teacher_forcing_free_routing"] = {
+            "max_gap": max(free), "exact": sum(g == 0 for g in free),
+            "tokens": len(free)}
+        print(f"[moe_tp] {path}: teacher forcing with the plain gate's own "
+              f"routing (a reading, PERF.md §2): max gap {max(free):.4f}, "
+              f"exact {sum(g == 0 for g in free)}/{len(free)}")
+    del params, plain, engs
+    marks["teacher_forcing"] = time.perf_counter()
+    e2e["layer_hold"] = check_moe_tp_layers(model)
+    marks["layer_hold"] = time.perf_counter()
+    e2e["step_profile"] = profile_tp_steps(model, steps=1, modes=("pallas",),
+                                           tag="moe_tp")
+    marks["step_profile"] = time.perf_counter()
+    e2e["serve_marks_s"] = {k: v - t_start for k, v in marks.items()}
+    del model
+    return launches, e2e
+
+
+def check_moe_tp(dev):
+    """Phase 6: tensor-parallel Qwen3-MoE. The collective kernels' checks
+    and timings, tiny-moe card == CPU, then Qwen3-30B-A3B at tp=2.
+    Returns (records by kernel, launches by path, the e2e block)."""
+    import gc
+
+    import torch
+
+    # The TP phase's model lives on in its engines' reference cycles until
+    # a collection.
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[moe_tp] {torch.cuda.memory_allocated(dev) / 1e9:.2f} GB "
+          "allocated at the start of the phase")
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    t0 = time.perf_counter()
+    records = check_moe_tp_kernels(dev, flush)
+    del flush
+    t1 = time.perf_counter()
+    launches = check_moe_tp_tiny(dev)
+    t2 = time.perf_counter()
+    more, e2e = serve_moe_tp_paths(dev)
+    launches.update(more)
+    e2e["seconds"] = {"kernels": t1 - t0, "tiny": t2 - t1,
+                      "serve": time.perf_counter() - t2}
+    print(f"[moe_tp] seconds: {json.dumps(e2e['seconds'])}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return records, launches, e2e
+
+
 def main() -> int:
     try:
         import torch
@@ -4297,12 +5159,18 @@ def main() -> int:
     records.update(tp_records)
     launches.update(tp_launches)
     phase_s["tp"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    mtp_records, mtp_launches, e2e["moe_tp"] = check_moe_tp(dev)
+    records.update(mtp_records)
+    launches.update(mtp_launches)
+    phase_s["moe_tp"] = time.perf_counter() - t0
     print(f"[time] seconds per phase: {json.dumps(phase_s)}")
 
     # "launches" counts the first path that must launch the kernel;
     # "launches_by_path" gives every path's own run.
     kernels = []
-    paths = {**PATH_KERNELS, **MOE_PATH_KERNELS, **TP_PATH_KERNELS}
+    paths = {**PATH_KERNELS, **MOE_PATH_KERNELS, **TP_PATH_KERNELS,
+             **MOE_TP_PATH_KERNELS}
     for k in ck.KERNELS:
         first = next(p for p, need in paths.items() if k.name in need)
         kernels.append({

@@ -792,7 +792,7 @@ def _sampling_operands(dims, rows, dev, seed=5):
 @functools.cache
 def _chip_smoke():
     """``chip_smoke.py``, for its sampling checks (``filter_band``,
-    ``_planted_control``)."""
+    ``_planted_control``) and its collective kernels' table."""
     path = pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py"
     spec = importlib.util.spec_from_file_location("chip_smoke", path)
     mod = importlib.util.module_from_spec(spec)
@@ -1510,7 +1510,7 @@ def test_all_gather_full_mesh_matches_plain(dev, dtype, n, m_per, cols):
                                          (2, 641, "one_shot")])
 def test_gemm_ar_auto_launches_a_kernel_at_every_size(dev, n, m, method):
     """gemm_ar's AUTO on the card, bf16 at N=4096: ONE_SHOT up to 512 KB
-    of output; above it TWO_SHOT (gemm_rs, then the full-mesh all_gather)
+    of output; above it TWO_SHOT (gemm_rs, then the all-gather AUTO)
     when m % n == 0, also past the 4 MB (m > 512 rows) where the JAX
     AUTO hands over to XLA, else ONE_SHOT. Never the plain version: a
     kernel launches every time, and the output equals the plain version
@@ -1528,8 +1528,11 @@ def test_gemm_ar_auto_launches_a_kernel_at_every_size(dev, n, m, method):
     torch.cuda.synchronize()
     counts = ck.launch_counts()
     two = method == "two_shot"
+    # TWO_SHOT's gather is the all-gather AUTO: the full mesh at n = 2,
+    # the bidirectional ring at n = 4 (a shard over 64 KB).
+    gather = "all_gather" if n == 2 else "all_gather_bidir_ring"
     assert counts["gemm_ar"] == int(not two)
-    assert counts["gemm_rs"] == counts["all_gather"] == int(two)
+    assert counts["gemm_rs"] == counts[gather] == int(two)
     want = torch.cat(gemm_rs_plain(a, b)) if two else gemm_ar_plain(a, b)[0]
     for g in got:
         assert torch.equal(g, got[0])
@@ -1556,7 +1559,9 @@ def test_tp_kernels_refuse_a_grid_that_cannot_be_coresident(dev):
         gemm_ar_one_shot(a, b, ctx, blocks_per_rank=cap)
     assert ck.GEMM_AR.launches == before
     gemm_ar_one_shot(a, b, ctx, blocks_per_rank=cap // 2)
-    cap_ag = ck.coresident_blocks("collectives", "tdt_all_gather_capacity")
+    from triton_distributed_tpu_torch.ops.collectives import _launch as coll
+
+    cap_ag = coll.capacity(coll.ALL_GATHER, 0, torch.bfloat16)
     with pytest.raises(RuntimeError, match="cudaError"):
         all_gather_full_mesh(a, ctx, blocks_per_rank=cap_ag)
     torch.cuda.synchronize()
@@ -1641,3 +1646,248 @@ def test_tp_serving_on_card_equals_cpu(dev, tp):
     # gemm_ar; the CPU run launches nothing.
     assert all(counts[0][k] > 0 for k in ("ag_gemm", "gemm_rs", "gemm_ar"))
     assert sum(counts[1].values()) == 0
+
+
+# -- the collectives (tensor-parallel MoE) -------------------------------------
+#
+# Each kernel against its plain version (the same order of sums and the
+# same roundings) on the same per-rank inputs, with PR 10's limits: f32
+# (TF32 off) 1e-4 + 1e-5·|p|, bf16 n·(2^-6 + 2^-7·|p|); the all-gathers
+# move bytes and equal the shards. The ONE_SHOT all-reduce is bitwise the
+# same on every rank; DOUBLING is held rank by rank.
+
+
+def _coll(name):
+    """(kernel launcher, plain version, counter) of a collective kernel:
+    ``chip_smoke._coll_ops``'s pair."""
+    fn, plain, _ = _chip_smoke()._coll_ops()[name]
+    return fn, plain, getattr(ck, name.upper())
+
+
+COLLECTIVE_KERNELS = ("all_reduce_one_shot", "all_reduce_doubling",
+                      "reduce_scatter_one_shot", "reduce_scatter_ring",
+                      "reduce_scatter_bidir_ring", "reduce_scatter_ring_hbm",
+                      "all_gather_ring", "all_gather_bidir_ring")
+# Per-rank rows at d = 2048 (the slice's shapes; an all-gather's are its
+# shard) and a small case; the HBM ring's 1152 rows take 1 MB tiles.
+COLLECTIVE_ROWS = {"all_reduce": (4, 112, 384), "reduce_scatter":
+                   (48, 304, 1152), "all_gather": (192, 3)}
+
+
+def _coll_inputs(dev, name, n, rows, dtype, seed):
+    from triton_distributed_tpu_torch.runtime import initialize_distributed
+
+    ctx = initialize_distributed(n, device=dev, dtype=dtype)
+    rng = np.random.default_rng(seed)
+    if name.startswith("reduce_scatter"):
+        rows = -(-rows // (2 * n)) * 2 * n  # n even chunks
+    return ctx, [_rand(rng, (rows, 2048), dtype, dev) for _ in range(n)]
+
+
+def _coll_check(name, got, want, dtype, n):
+    if name.startswith("all_gather"):
+        for g in got:
+            assert torch.equal(g, want[0])
+        return
+    for g, w in zip(got, want):
+        ok, err = _tp_ok(g, w, dtype, n)
+        assert ok, (name, err)
+    if name == "all_reduce_one_shot":
+        for g in got[1:]:
+            assert torch.equal(g, got[0])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n", [2, 4])
+@pytest.mark.parametrize("name", COLLECTIVE_KERNELS)
+def test_collective_kernel_matches_plain(dev, name, n, dtype):
+    fn, plain, counter = _coll(name)
+    family = "_".join(name.split("_")[:2])
+    for i, rows in enumerate(COLLECTIVE_ROWS[family]):
+        ctx, xs = _coll_inputs(dev, name, n, rows, dtype, seed=n + i)
+        before = counter.launches
+        got = fn(xs, ctx)
+        want = plain(xs)
+        torch.cuda.synchronize()
+        assert counter.launches == before + 1
+        _coll_check(name, got, want, dtype, n)
+
+
+@pytest.mark.parametrize("name", ["reduce_scatter_ring",
+                                  "reduce_scatter_bidir_ring",
+                                  "reduce_scatter_ring_hbm"])
+def test_reduce_scatter_kernels_follow_the_ring_order(dev, name):
+    """Planted bf16 partials, by a rank's position on the chunk's ring
+    256, 1, -256, 0: the ring rounds 256 + 1 back to 256 and ends at 0; a
+    sum in rank order gives 1. The kernel must give 0."""
+    from triton_distributed_tpu_torch.runtime import initialize_distributed
+
+    fn, plain, _ = _coll(name)
+    n, m_per = 4, 8
+    half = m_per // 2 if "bidir" in name else m_per
+    xs = np.zeros((n, n * m_per, 2048), np.float32)
+    for r in range(n):
+        for c in range(n):
+            for i in range(m_per):
+                s = (r - c - 1) % n if i < half else (c - 1 - r) % n
+                xs[r, c * m_per + i, 0] = (256.0, 1.0, -256.0, 0.0)[s]
+    ctx = initialize_distributed(n, device=dev, dtype=torch.bfloat16)
+    ts = [torch.from_numpy(x).to(dev, torch.bfloat16) for x in xs]
+    got = torch.cat(fn(ts, ctx))
+    torch.cuda.synchronize()
+    assert (got[:, 0] == 0).all()
+    assert torch.equal(got, torch.cat(plain(ts)))
+    assert (xs[:, :, 0].sum(0) == 1).all()
+
+
+def test_collective_kernels_stress_back_to_back(dev):
+    """100 launches of each collective kernel back to back at n = 4,
+    fresh inputs each, every output checked after one sync."""
+    n, dt = 4, torch.float32
+    kept = {name: [] for name in COLLECTIVE_KERNELS}
+    for name in COLLECTIVE_KERNELS:
+        fn, _, _ = _coll(name)
+        ctx, xs = _coll_inputs(dev, name, n, 32, dt, seed=1)
+        for i in range(100):
+            xs = [t + 0.01 * i for t in xs]
+            kept[name].append((xs, fn(xs, ctx)))
+    torch.cuda.synchronize()
+    for name, runs in kept.items():
+        _, plain, _ = _coll(name)
+        for xs, got in runs:
+            _coll_check(name, got, plain(xs), dt, n)
+
+
+@pytest.mark.parametrize("method", ["ONE_SHOT", "DOUBLING", "TWO_SHOT"])
+def test_all_reduce_straggler_lags_the_launch(dev, method):
+    """A 500 µs straggler on rank 1: the launch (for TWO_SHOT its two
+    kernels) takes at least the lag, and the sum is still right."""
+    from triton_distributed_tpu_torch.ops.collectives import (
+        AllReduceMethod,
+        all_reduce,
+        all_reduce_plain,
+    )
+    from triton_distributed_tpu_torch.runtime import initialize_distributed
+
+    n, dt = 4, torch.bfloat16
+    ctx = initialize_distributed(n, device=dev, dtype=dt)
+    rng = np.random.default_rng(2)
+    xs = [_rand(rng, (64, 2048), dt, dev) for _ in range(n)]
+    m = AllReduceMethod[method]
+    all_reduce(xs, ctx, m)  # warm
+    times = []
+    for lag in (0, 500_000):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        got = all_reduce(xs, ctx, m, straggler_rank=1 if lag else None,
+                         straggler_nanos=lag)
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+        want = all_reduce_plain(xs)
+        for g in got:
+            assert _tp_ok(g, want[0], dt, n)[0]
+    assert times[1] >= 0.5, times
+
+
+def test_collective_kernels_refuse_a_grid_that_cannot_be_coresident(dev):
+    from triton_distributed_tpu_torch.ops.collectives import _launch
+
+    for name, fam, kind in (("all_reduce_one_shot", _launch.ALL_REDUCE, 0),
+                            ("reduce_scatter_ring", _launch.REDUCE_SCATTER, 1),
+                            ("all_gather_ring", _launch.ALL_GATHER, 1)):
+        fn, _, counter = _coll(name)
+        ctx, xs = _coll_inputs(dev, name, 2, 16, torch.bfloat16, seed=0)
+        cap = _launch.capacity(fam, kind, torch.bfloat16)
+        before = counter.launches
+        with pytest.raises(RuntimeError, match="cudaError"):
+            fn(xs, ctx, blocks_per_rank=cap)
+        assert counter.launches == before
+        fn(xs, ctx, blocks_per_rank=cap // 2)
+    torch.cuda.synchronize()
+
+
+# (op, rows a rank at d = 2048 bf16, n, the kernels the AUTO launches):
+# the JAX AUTO's picks on the slice's path (tests/test_torch_moe_tp.py
+# holds the same table on the CPU), the indivisible row count included.
+AUTO_CASES = [
+    ("ar", 4, 2, ("all_reduce_one_shot",)),
+    ("ar", 112, 2, ("all_reduce_doubling",)),
+    ("ar", 384, 2, ("reduce_scatter_ring", "all_gather_ring")),
+    ("ar", 1152, 2, ("reduce_scatter_ring_hbm", "all_gather_ring")),
+    ("ar", 112, 4, ("all_reduce_doubling",)),
+    ("ar", 384, 4, ("reduce_scatter_bidir_ring", "all_gather_bidir_ring")),
+    ("ar", 385, 2, ("all_reduce_one_shot",)),
+    ("rs", 48, 2, ("reduce_scatter_one_shot",)),
+    ("rs", 300, 2, ("reduce_scatter_ring",)),
+    ("rs", 1152, 2, ("reduce_scatter_ring_hbm",)),
+    ("rs", 304, 4, ("reduce_scatter_bidir_ring",)),
+    ("ag", 150, 2, ("all_gather",)),
+    ("ag", 76, 4, ("all_gather_bidir_ring",)),
+]
+
+
+@pytest.mark.parametrize("op,rows,n,kernels", AUTO_CASES)
+def test_collective_auto_launches_a_kernel_at_every_size(dev, op, rows, n,
+                                                         kernels):
+    from triton_distributed_tpu_torch.ops import collectives as col
+    from triton_distributed_tpu_torch.runtime import initialize_distributed
+
+    dt = torch.bfloat16
+    ctx = initialize_distributed(n, device=dev, dtype=dt)
+    rng = np.random.default_rng(rows)
+    xs = [_rand(rng, (rows, 2048), dt, dev) for _ in range(n)]
+    fn, plain = {"ar": (col.all_reduce, col.all_reduce_plain),
+                 "rs": (col.reduce_scatter, col.reduce_scatter_one_shot_plain),
+                 "ag": (col.all_gather, col.all_gather_plain)}[op]
+    ck.reset_launch_counts()
+    got = fn(xs, ctx)
+    torch.cuda.synchronize()
+    counts = ck.launch_counts()
+    assert {k for k, v in counts.items() if v} == set(kernels)
+    assert all(counts[k] == 1 for k in kernels)
+    for g, w in zip(got, plain(xs)):
+        assert _tp_ok(g, w, dt, n)[0] if op != "ag" else torch.equal(g, w)
+
+
+@pytest.mark.parametrize("tp", [2, 4])
+def test_moe_tp_serving_on_card_equals_cpu(dev, tp):
+    """tiny-moe f32 at tp=2/4 on the card emits the CPU's tokens through
+    both engines in modes pallas and xla; the card's pallas runs launch
+    the collectives (one-shot all-reduce in decode and chunks, the
+    reduce-scatter and all-gather in the sequence-sharded prefill)."""
+    from triton_distributed_tpu_torch.models import (
+        AutoLLM,
+        ContinuousEngine,
+        Engine,
+        Qwen3MoE,
+    )
+
+    src = AutoLLM.from_pretrained("tiny-moe", device="cpu", seed=3)
+    rng = np.random.default_rng(4)
+    prompts = [rng.integers(0, 256, k).astype(np.int32) for k in (20, 41, 9)]
+    ids = np.stack([prompts[0], prompts[1][:20]])
+    for mode in ("pallas", "xla"):
+        outs, counts = [], []
+        for d in (dev, "cpu"):
+            m = Qwen3MoE(src.cfg, device=d, tp=tp)
+            m.set_params(src.params)  # the CPU draws, sharded
+            ck.reset_launch_counts()
+            res = []
+            for pc in (False, True):
+                eng = ContinuousEngine(m, max_batch=2, page_size=16,
+                                       max_length=64, prefix_cache=pc,
+                                       mode=mode, device=d)
+                res.append(np.concatenate(eng.run([(p, 8) for p in prompts])))
+                assert eng.audit() == []
+            res.append(Engine(m, mode=mode, paged=True, page_size=16,
+                              device=d).serve(ids, 7, 64))
+            counts.append(ck.launch_counts())
+            outs.append(res)
+        assert all(np.array_equal(x, y) for x, y in zip(*outs))
+        assert sum(counts[1].values()) == 0
+        if mode == "pallas":
+            assert all(counts[0][k] > 0 for k in (
+                "all_reduce_one_shot", "reduce_scatter_one_shot",
+                "all_gather"))

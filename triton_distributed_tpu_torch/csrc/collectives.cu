@@ -1,28 +1,53 @@
-// Full-mesh all-gather for Hopper (sm_90a), over ranks co-located on one
-// card.
+// Collectives for Hopper (sm_90a), over ranks co-located on one card.
 //
-// Replaces triton_distributed_tpu/ops/collectives/all_gather.py
-// `_full_mesh_kernel` (method PALLAS_FULL_MESH; the port's AUTO takes it
-// for every size until the ring kernels are ported): gemm_ar's TWO_SHOT
-// tail, which gathers each rank's reduced [M/n, N] rows into the full
-// [M, N] on every rank.
+// Replaces the Pallas kernels of triton_distributed_tpu/ops/collectives/:
+//   all_gather.py     _full_mesh_kernel :146, _ring_kernel :49,
+//                     _bidir_ring_kernel :93
+//   reduce_scatter.py _one_shot_rs_kernel :150, _ring_rs_kernel :59,
+//                     _bidir_ring_rs_kernel :89, _ring_rs_hbm_kernel :191
+//   all_reduce.py     _one_shot_kernel :78, _doubling_kernel :113, and the
+//                     lagging-rank fixture _straggle_entry :151 (here a lag
+//                     argument of the one-shot, doubling and ring RS launches)
+// The port's AUTO follows the JAX dispatch (ops/collectives/*.py of the
+// port): the tensor-parallel MoE layer reaches every one of them by size
+// and rank count.
 //
-// What it computes: every rank puts its shard [m_per, ...] (as bytes) at
-// rows [me*m_per, (me+1)*m_per) of EVERY rank's output, its own included
-// (one hop each), and waits until every peer's shard has landed in its
-// own output. Data movement only: every rank's output is the
-// concatenation of the shards, bitwise the same on every rank.
+// What they compute. The all-gathers move bytes only: every rank's output
+// is the shards in rank order, bitwise. The reductions follow the JAX
+// rounding, because at bf16 the order of a sum is part of the function:
+// - AR one-shot: every rank sums the n copies in f32 in rank order 0..n-1
+//   and rounds once, so the ranks come out bitwise equal;
+// - AR doubling: log2 n rounds; in round k a rank sends its running f32 sum
+//   rounded to the dtype to partner me ^ 2^k and adds the partner's rounded
+//   value to its own unrounded f32 sum (the sum is rebuilt from x and the
+//   received values, in the same order, instead of being held);
+// - RS one-shot: the n contributions to the own chunk, f32 in source-rank
+//   order, rounded once;
+// - RS rings (single, bidirectional, HBM-tiled): the running sum is rounded
+//   to the dtype at every hop; chunk me-1-s goes right at step s, and in the
+//   bidirectional ring the rows from `half` on go left (chunk me+1+s).
 //
-// What bounds it on the H100: bytes. Each rank reads its shard n times and
-// writes n shards; co-located ranks share one HBM, so the bound is
-// (n*n reads + n*n writes of a shard) / 3.35 TB/s.
+// What bounds it on the H100 (each of them): bytes. Co-located ranks share
+// one HBM, so a bound counts every rank's reads and writes over 3.35 TB/s.
 //
-// Design: one cooperative launch (grid (blocks_per_rank, n), every block
-// resident or the launch is refused); after the entry barrier block g of
-// rank me copies piece g of its shard (16-byte vectors) to every rank and
-// flags (me, g) on each peer, then waits for piece g of every peer. The
-// C entry is `tdt_all_gather_launch` (`tdt_all_gather_capacity` gives the
-// co-resident limit).
+// Design: one cooperative launch over all ranks (grid (blocks_per_rank, n),
+// every block resident or the launch is refused), the entry barrier and
+// epoch flags of tdt_comm.cuh. Block g of every rank owns piece g of each
+// chunk, so a block only ever waits for block g of its peers: flag (step,
+// piece) per rank, set by the one peer that writes that piece of that step.
+// A ring hop fuses the add into the put: the sender reads its received
+// slot and its own contribution and writes the rounded sum into the next
+// rank's slot. Element kernels move 16-byte vectors (the wrappers require
+// rows of a multiple of 16 bytes); data a peer wrote is read with ld.cg.
+// Symmetric workspaces hold the received slots: AR one-shot n x M, AR
+// doubling log2(n) x M, RS one-shot n x chunk, RS rings (n-1) x chunk.
+//
+// C entries: tdt_all_gather_launch (kind 0 full mesh, 1 ring, 2 bidir
+// ring), tdt_reduce_scatter_launch (0 one-shot, 1 ring, 2 bidir ring,
+// 3 HBM ring), tdt_all_reduce_launch (0 one-shot, 1 doubling); the
+// co-resident limit of each kernel from tdt_collective_capacity.
+#include <cuda_bf16.h>
+
 #include "tdt_comm.cuh"
 
 namespace {
@@ -31,10 +56,103 @@ using tdt::RankPtrs;
 
 constexpr int kThreads = 256;
 
-// Flags of rank r: [0, n) the barrier, then n + src * G + piece.
+// ---- helpers -------------------------------------------------------------
+
+// [lo, hi) of piece g of G over `count` units.
+__device__ __forceinline__ void piece_of(long long count, int g, int G,
+                                         long long& lo, long long& hi) {
+  const long long per = (count + G - 1) / G;
+  lo = min(count, static_cast<long long>(g) * per);
+  hi = min(count, lo + per);
+}
+
+__device__ __forceinline__ uint64_t* flag_at(const int64_t* fl_tab, int r,
+                                             long long idx) {
+  return tdt::symm_ptr<uint64_t>(fl_tab, r) + idx;
+}
+
+// The block's writes are done (all threads), then one release store.
+__device__ __forceinline__ void block_signal(uint64_t* flag, uint64_t epoch) {
+  __syncthreads();
+  if (threadIdx.x == 0) tdt::signal(flag, epoch);
+}
+
+// One thread acquires the flag, then the block goes on.
+__device__ __forceinline__ void block_wait(const uint64_t* flag,
+                                           uint64_t epoch) {
+  if (threadIdx.x == 0) tdt::wait_until(flag, epoch);
+  __syncthreads();
+}
+
+// The lagging-rank fixture: the blocks of `lag_rank` spin `lag_ns` before
+// their first put (the JAX straggle_if_rank after the entry barrier).
+__device__ __forceinline__ void straggle(int me, int lag_rank,
+                                         long long lag_ns) {
+  if (me != lag_rank || lag_ns <= 0) return;
+  if (threadIdx.x == 0) {
+    const uint64_t t0 = tdt::global_ns();
+    while (tdt::global_ns() - t0 < static_cast<uint64_t>(lag_ns))
+      __nanosleep(1000);
+  }
+  __syncthreads();
+}
+
+// 16-byte vectors of T as f32 lanes.
+template <typename T>
+struct Lanes {
+  static constexpr int N = 16 / sizeof(T);
+};
+
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+template <typename T>
+__device__ __forceinline__ T from_f32(float v);
+template <>
+__device__ __forceinline__ float from_f32<float>(float v) {
+  return v;
+}
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
+  return __float2bfloat16_rn(v);
+}
+
+// Vector v of p as f32; kPeer reads through L2 (data a peer wrote).
+template <typename T, bool kPeer>
+__device__ __forceinline__ void load(const T* p, long long v, float* f) {
+  const uint4* q = reinterpret_cast<const uint4*>(p) + v;
+  const uint4 u = kPeer ? __ldcg(q) : *q;
+  const T* e = reinterpret_cast<const T*>(&u);
+#pragma unroll
+  for (int i = 0; i < Lanes<T>::N; ++i) f[i] = to_f32(e[i]);
+}
+
+template <typename T, bool kPeer>
+__device__ __forceinline__ void add(const T* p, long long v, float* acc) {
+  float f[Lanes<T>::N];
+  load<T, kPeer>(p, v, f);
+#pragma unroll
+  for (int i = 0; i < Lanes<T>::N; ++i) acc[i] += f[i];
+}
+
+// Round the f32 lanes to T and store vector v of p.
+template <typename T>
+__device__ __forceinline__ void store(T* p, long long v, const float* f) {
+  uint4 u;
+  T* e = reinterpret_cast<T*>(&u);
+#pragma unroll
+  for (int i = 0; i < Lanes<T>::N; ++i) e[i] = from_f32<T>(f[i]);
+  reinterpret_cast<uint4*>(p)[v] = u;
+}
+
+// ---- all-gather ------------------------------------------------------------
+
+// Full mesh. Flags of rank r: [0, n) the barrier, then n + src * G + piece.
 __global__ void __launch_bounds__(kThreads)
 full_mesh_kernel(RankPtrs X, RankPtrs O, const int64_t* fl_tab,
-                 long long shard_bytes, int n, uint64_t epoch) {
+                 long long shard_bytes, long long /*half_bytes*/, int n,
+                 uint64_t epoch) {
   const int me = blockIdx.y, g = blockIdx.x, G = gridDim.x;
   const size_t total = static_cast<size_t>(shard_bytes);
   // Pieces of whole 16-byte vectors (the last takes the remainder).
@@ -64,35 +182,429 @@ full_mesh_kernel(RankPtrs X, RankPtrs O, const int64_t* fl_tab,
   }
 }
 
+// Byte range [lo, hi) of piece g of [a, b), in whole 16-byte vectors.
+__device__ __forceinline__ void byte_piece(long long a, long long b, int g,
+                                           int G, long long& lo,
+                                           long long& hi) {
+  const long long span = b - a;
+  const long long per = ((span + G - 1) / G + 15) / 16 * 16;
+  lo = min(b, a + static_cast<long long>(g) * per);
+  hi = min(b, lo + per);
+}
+
+// Ring (kBidir false) and bidirectional ring. At step s a rank forwards the
+// shard of rank me - s (its own at s = 0) to the right; in the bidir ring
+// the bytes from half_bytes on go left instead (the shard of rank me + s).
+// Flags of rank r: [0, n) the barrier, n + s * G + g clockwise,
+// n + (n - 1 + s) * G + g counter-clockwise.
+template <bool kBidir>
+__global__ void __launch_bounds__(kThreads)
+ag_ring_kernel(RankPtrs X, RankPtrs O, const int64_t* fl_tab,
+               long long shard_bytes, long long half_bytes, int n,
+               uint64_t epoch) {
+  const int me = blockIdx.y, g = blockIdx.x, G = gridDim.x;
+  const int right = (me + 1) % n, left = (me + n - 1) % n;
+  const long long cw_end = kBidir ? half_bytes : shard_bytes;
+  const char* x = tdt::rank_ptr<const char>(X, me);
+  char* o_me = tdt::rank_ptr<char>(O, me);
+  long long lo, hi, clo, chi;
+  byte_piece(0, cw_end, g, G, lo, hi);
+  byte_piece(cw_end, shard_bytes, g, G, clo, chi);
+
+  // The own shard lands at its offset (local; no peer touches it).
+  {
+    long long a, b;
+    byte_piece(0, shard_bytes, g, G, a, b);
+    if (b > a) tdt::put(o_me + me * shard_bytes + a, x + a, b - a);
+  }
+  tdt::barrier_all(fl_tab, me, n, epoch, g == 0);
+
+  for (int s = 0; s < n - 1; ++s) {
+    {
+      const int src = (me - s + n) % n;
+      if (s > 0) block_wait(flag_at(fl_tab, me, n + (s - 1) * G + g), epoch);
+      const char* from = s == 0 ? x : o_me + src * shard_bytes;
+      char* to = tdt::rank_ptr<char>(O, right) + src * shard_bytes;
+      if (hi > lo) tdt::put(to + lo, from + lo, hi - lo);
+      block_signal(flag_at(fl_tab, right, n + s * G + g), epoch);
+    }
+    if (kBidir) {
+      const int src = (me + s) % n;
+      const long long base = n + static_cast<long long>(n - 1) * G;
+      if (s > 0) block_wait(flag_at(fl_tab, me, base + (s - 1) * G + g), epoch);
+      const char* from = s == 0 ? x : o_me + src * shard_bytes;
+      char* to = tdt::rank_ptr<char>(O, left) + src * shard_bytes;
+      if (chi > clo) tdt::put(to + clo, from + clo, chi - clo);
+      block_signal(flag_at(fl_tab, left, base + s * G + g), epoch);
+    }
+  }
+  if (threadIdx.x == 0) {
+    tdt::wait_until(flag_at(fl_tab, me, n + (n - 2) * G + g), epoch);
+    if (kBidir)
+      tdt::wait_until(
+          flag_at(fl_tab, me, n + static_cast<long long>(n - 1) * G +
+                                  (n - 2) * G + g),
+          epoch);
+  }
+}
+
+// ---- reduce-scatter --------------------------------------------------------
+
+// One-shot: chunk p of x goes to slot me of rank p's workspace; each rank
+// sums its n slots (its own chunk read from x) in f32 in source order.
+// Units: 16-byte vectors; cnt is the chunk. Flags: n + src * G + g.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+rs_one_shot_kernel(RankPtrs X, RankPtrs O, const int64_t* ws_tab,
+                   const int64_t* fl_tab, long long cnt, long long, long long,
+                   int n, uint64_t epoch, int lag_rank, long long lag_ns) {
+  constexpr int N = Lanes<T>::N;
+  const int me = blockIdx.y, g = blockIdx.x, G = gridDim.x;
+  long long lo, hi;
+  piece_of(cnt, g, G, lo, hi);
+  const T* x = tdt::rank_ptr<const T>(X, me);
+  tdt::barrier_all(fl_tab, me, n, epoch, g == 0);
+  straggle(me, lag_rank, lag_ns);
+  for (int p = 1; p < n; ++p) {
+    const int dst = (me + p) % n;
+    const uint4* src = reinterpret_cast<const uint4*>(x) + dst * cnt;
+    uint4* slot = reinterpret_cast<uint4*>(tdt::symm_ptr<T>(ws_tab, dst)) +
+                  me * cnt;
+    for (long long v = lo + threadIdx.x; v < hi; v += blockDim.x)
+      slot[v] = src[v];
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    __threadfence_system();
+    for (int p = 1; p < n; ++p)
+      tdt::st_release_sys(flag_at(fl_tab, (me + p) % n, n + me * G + g),
+                          epoch);
+    for (int p = 1; p < n; ++p)
+      tdt::wait_until(flag_at(fl_tab, me, n + ((me + p) % n) * G + g),
+                      epoch);
+  }
+  __syncthreads();
+  const T* ws = tdt::symm_ptr<const T>(ws_tab, me);
+  T* o = tdt::rank_ptr<T>(O, me);
+  for (long long v = lo + threadIdx.x; v < hi; v += blockDim.x) {
+    float acc[N];
+    if (me == 0)
+      load<T, false>(x, me * cnt + v, acc);
+    else
+      load<T, true>(ws, v, acc);
+    for (int src = 1; src < n; ++src) {
+      if (src == me)
+        add<T, false>(x, me * cnt + v, acc);
+      else
+        add<T, true>(ws, src * cnt + v, acc);
+    }
+    store<T>(o, v, acc);
+  }
+}
+
+// The rings. kMode 0: one ring; 1: two counter-rotating rings (rows from
+// `half` on go left); 2: one ring over row tiles of `tile` vectors, each
+// flagged, so hop s + 1 starts on tile t while hop s adds tile t + 1.
+// Step s: the running sum of chunk me - 1 - s (x's chunk at s = 0, else the
+// received slot s - 1 plus x's chunk, rounded) goes to slot s of the right
+// rank; after n - 1 steps slot n - 2 plus x's own chunk is the output.
+// Flags of rank r: [0, n) barrier; n + (s * tiles + t) * G + g clockwise;
+// n + (n - 1) * tiles * G + s * G + g counter-clockwise.
+template <typename T, int kMode>
+__global__ void __launch_bounds__(kThreads)
+rs_ring_kernel(RankPtrs X, RankPtrs O, const int64_t* ws_tab,
+               const int64_t* fl_tab, long long cnt, long long half,
+               long long tile, int n, uint64_t epoch, int lag_rank,
+               long long lag_ns) {
+  const int me = blockIdx.y, g = blockIdx.x, G = gridDim.x;
+  const int right = (me + 1) % n, left = (me + n - 1) % n;
+  const long long cw_end = kMode == 1 ? half : cnt;
+  const long long tiles = kMode == 2 ? cnt / tile : 1;
+  const long long seg = kMode == 2 ? tile : cw_end;
+  const long long ccw_base = n + static_cast<long long>(n - 1) * tiles * G;
+  const T* x = tdt::rank_ptr<const T>(X, me);
+  const T* ws_me = tdt::symm_ptr<const T>(ws_tab, me);
+  T* ws_right = tdt::symm_ptr<T>(ws_tab, right);
+  T* ws_left = tdt::symm_ptr<T>(ws_tab, left);
+  constexpr int N = Lanes<T>::N;
+
+  tdt::barrier_all(fl_tab, me, n, epoch, g == 0);
+  straggle(me, lag_rank, lag_ns);
+
+  // One hop of chunk c over vectors [lo, hi): x's chunk (s = 0) or the
+  // received slot s - 1 plus x's chunk, rounded, into `to`'s slot s.
+  auto hop = [&](int s, int c, long long lo, long long hi, T* to) {
+    for (long long v = lo + threadIdx.x; v < hi; v += blockDim.x) {
+      float acc[N];
+      load<T, false>(x, c * cnt + v, acc);
+      if (s > 0) add<T, true>(ws_me, (s - 1) * cnt + v, acc);
+      store<T>(to, s * cnt + v, acc);
+    }
+  };
+
+  for (int s = 0; s < n - 1; ++s) {
+    const int c = (me - 1 - s + 2 * n) % n;
+    for (long long t = 0; t < tiles; ++t) {
+      long long lo, hi;
+      piece_of(seg, g, G, lo, hi);
+      lo += t * seg;
+      hi += t * seg;
+      if (s > 0)
+        block_wait(flag_at(fl_tab, me, n + ((s - 1) * tiles + t) * G + g),
+                   epoch);
+      hop(s, c, lo, hi, ws_right);
+      block_signal(flag_at(fl_tab, right, n + (s * tiles + t) * G + g),
+                   epoch);
+    }
+    if (kMode == 1) {
+      const int cc = (me + 1 + s) % n;
+      long long lo, hi;
+      piece_of(cnt - half, g, G, lo, hi);
+      if (s > 0)
+        block_wait(flag_at(fl_tab, me, ccw_base + (s - 1) * G + g), epoch);
+      hop(s, cc, half + lo, half + hi, ws_left);
+      block_signal(flag_at(fl_tab, left, ccw_base + s * G + g), epoch);
+    }
+  }
+  // The own chunk: the last received slot plus x's own contribution.
+  T* o = tdt::rank_ptr<T>(O, me);
+  auto finish = [&](long long lo, long long hi) {
+    for (long long v = lo + threadIdx.x; v < hi; v += blockDim.x) {
+      float acc[N];
+      load<T, true>(ws_me, (n - 2) * cnt + v, acc);
+      add<T, false>(x, me * cnt + v, acc);
+      store<T>(o, v, acc);
+    }
+  };
+  for (long long t = 0; t < tiles; ++t) {
+    long long lo, hi;
+    piece_of(seg, g, G, lo, hi);
+    block_wait(flag_at(fl_tab, me, n + ((n - 2) * tiles + t) * G + g), epoch);
+    finish(lo + t * seg, hi + t * seg);
+  }
+  if (kMode == 1) {
+    long long lo, hi;
+    piece_of(cnt - half, g, G, lo, hi);
+    block_wait(flag_at(fl_tab, me, ccw_base + (n - 2) * G + g), epoch);
+    finish(half + lo, half + hi);
+  }
+}
+
+// ---- all-reduce ------------------------------------------------------------
+
+// One-shot: every rank puts x into slot me of every peer, then sums its n
+// slots (its own read from x) in f32 in rank order. Flags: n + src * G + g.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+ar_one_shot_kernel(RankPtrs X, RankPtrs O, const int64_t* ws_tab,
+                   const int64_t* fl_tab, long long numel, int n,
+                   uint64_t epoch, int lag_rank, long long lag_ns) {
+  constexpr int N = Lanes<T>::N;
+  const int me = blockIdx.y, g = blockIdx.x, G = gridDim.x;
+  long long lo, hi;
+  piece_of(numel, g, G, lo, hi);
+  const T* x = tdt::rank_ptr<const T>(X, me);
+  tdt::barrier_all(fl_tab, me, n, epoch, g == 0);
+  straggle(me, lag_rank, lag_ns);
+  const uint4* xv = reinterpret_cast<const uint4*>(x);
+  for (int p = 1; p < n; ++p) {
+    uint4* slot = reinterpret_cast<uint4*>(
+                      tdt::symm_ptr<T>(ws_tab, (me + p) % n)) +
+                  me * numel;
+    for (long long v = lo + threadIdx.x; v < hi; v += blockDim.x)
+      slot[v] = xv[v];
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    __threadfence_system();
+    for (int p = 1; p < n; ++p)
+      tdt::st_release_sys(flag_at(fl_tab, (me + p) % n, n + me * G + g),
+                          epoch);
+    for (int p = 1; p < n; ++p)
+      tdt::wait_until(flag_at(fl_tab, me, n + ((me + p) % n) * G + g),
+                      epoch);
+  }
+  __syncthreads();
+  const T* ws = tdt::symm_ptr<const T>(ws_tab, me);
+  T* o = tdt::rank_ptr<T>(O, me);
+  for (long long v = lo + threadIdx.x; v < hi; v += blockDim.x) {
+    float acc[N];
+    if (me == 0)
+      load<T, false>(x, v, acc);
+    else
+      load<T, true>(ws, v, acc);
+    for (int src = 1; src < n; ++src) {
+      if (src == me)
+        add<T, false>(x, v, acc);
+      else
+        add<T, true>(ws, src * numel + v, acc);
+    }
+    store<T>(o, v, acc);
+  }
+}
+
+// Recursive doubling (n a power of two): in round k the running sum
+// x + r_0 + ... + r_{k-1} (f32, in that order) rounded to T goes to slot k
+// of partner me ^ 2^k; the output is x + r_0 + ... + r_{lg-1} rounded.
+// Flags: n + k * G + g (set by round k's partner).
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+ar_doubling_kernel(RankPtrs X, RankPtrs O, const int64_t* ws_tab,
+                   const int64_t* fl_tab, long long numel, int n,
+                   uint64_t epoch, int lag_rank, long long lag_ns) {
+  constexpr int N = Lanes<T>::N;
+  const int me = blockIdx.y, g = blockIdx.x, G = gridDim.x;
+  const int lg = 31 - __clz(n);
+  long long lo, hi;
+  piece_of(numel, g, G, lo, hi);
+  const T* x = tdt::rank_ptr<const T>(X, me);
+  const T* ws = tdt::symm_ptr<const T>(ws_tab, me);
+  tdt::barrier_all(fl_tab, me, n, epoch, g == 0);
+  straggle(me, lag_rank, lag_ns);
+
+  for (int k = 0; k < lg; ++k) {
+    const int partner = me ^ (1 << k);
+    T* dst = tdt::symm_ptr<T>(ws_tab, partner);
+    for (long long v = lo + threadIdx.x; v < hi; v += blockDim.x) {
+      float acc[N];
+      load<T, false>(x, v, acc);
+      for (int j = 0; j < k; ++j) add<T, true>(ws, j * numel + v, acc);
+      store<T>(dst, k * numel + v, acc);
+    }
+    block_signal(flag_at(fl_tab, partner, n + k * G + g), epoch);
+    block_wait(flag_at(fl_tab, me, n + k * G + g), epoch);
+  }
+  T* o = tdt::rank_ptr<T>(O, me);
+  for (long long v = lo + threadIdx.x; v < hi; v += blockDim.x) {
+    float acc[N];
+    load<T, false>(x, v, acc);
+    for (int j = 0; j < lg; ++j) add<T, true>(ws, j * numel + v, acc);
+    store<T>(o, v, acc);
+  }
+}
+
+// ---- launch ----------------------------------------------------------------
+
+const void* ag_fn(int kind) {
+  switch (kind) {
+    case 0: return reinterpret_cast<const void*>(&full_mesh_kernel);
+    case 1: return reinterpret_cast<const void*>(&ag_ring_kernel<false>);
+    case 2: return reinterpret_cast<const void*>(&ag_ring_kernel<true>);
+    default: return nullptr;
+  }
+}
+
+template <typename T>
+const void* rs_fn_t(int kind) {
+  switch (kind) {
+    case 0: return reinterpret_cast<const void*>(&rs_one_shot_kernel<T>);
+    case 1: return reinterpret_cast<const void*>(&rs_ring_kernel<T, 0>);
+    case 2: return reinterpret_cast<const void*>(&rs_ring_kernel<T, 1>);
+    case 3: return reinterpret_cast<const void*>(&rs_ring_kernel<T, 2>);
+    default: return nullptr;
+  }
+}
+
+const void* rs_fn(int kind, int dtype) {
+  return dtype == 0 ? rs_fn_t<float>(kind)
+                    : dtype == 1 ? rs_fn_t<__nv_bfloat16>(kind) : nullptr;
+}
+
+template <typename T>
+const void* ar_fn_t(int kind) {
+  switch (kind) {
+    case 0: return reinterpret_cast<const void*>(&ar_one_shot_kernel<T>);
+    case 1: return reinterpret_cast<const void*>(&ar_doubling_kernel<T>);
+    default: return nullptr;
+  }
+}
+
+const void* ar_fn(int kind, int dtype) {
+  return dtype == 0 ? ar_fn_t<float>(kind)
+                    : dtype == 1 ? ar_fn_t<__nv_bfloat16>(kind) : nullptr;
+}
+
+// One cooperative launch of fn over n ranks; a grid that cannot be
+// co-resident is refused before launching. Returns the CUDA error.
+int coop_launch(const void* fn, int n, int blocks, void** args,
+                void* stream) {
+  if (fn == nullptr || n < 2 || n > tdt::kMaxRanks || blocks < 1)
+    return cudaErrorInvalidValue;
+  if (n * blocks > tdt::capacity(fn, kThreads))
+    return cudaErrorCooperativeLaunchTooLarge;
+  cudaError_t err = cudaLaunchCooperativeKernel(
+      fn, dim3(blocks, n), dim3(kThreads), args, 0,
+      static_cast<cudaStream_t>(stream));
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
-int tdt_all_gather_capacity() {
-  return tdt::capacity(reinterpret_cast<const void*>(&full_mesh_kernel),
-                       kThreads);
+// Co-resident blocks of a kernel: family 0 all-gather, 1 reduce-scatter,
+// 2 all-reduce; kind and dtype (0 f32, 1 bf16) as in the launches.
+int tdt_collective_capacity(int family, int kind, int dtype) {
+  const void* fn = family == 0   ? ag_fn(kind)
+                   : family == 1 ? rs_fn(kind, dtype)
+                                 : ar_fn(kind, dtype);
+  return fn == nullptr ? 0 : tdt::capacity(fn, kThreads);
 }
 
-// One cooperative launch over n co-located ranks: x[r] (shard_bytes
-// each) to every o[*] at offset r * shard_bytes. Returns the CUDA error;
-// a grid that cannot be co-resident is refused before launching.
-int tdt_all_gather_launch(const int64_t* x, const int64_t* o,
+// All-gather over n co-located ranks: x[r] (shard_bytes each) to every
+// o[*] at offset r * shard_bytes. kind 0 full mesh, 1 ring, 2 bidir ring
+// (bytes from half_bytes on go counter-clockwise).
+int tdt_all_gather_launch(int kind, const int64_t* x, const int64_t* o,
                           const int64_t* fl_tab, int n,
-                          long long shard_bytes, unsigned long long epoch,
-                          int blocks_per_rank, void* stream) {
-  if (n < 1 || n > tdt::kMaxRanks || blocks_per_rank < 1)
-    return cudaErrorInvalidValue;
-  const void* fn = reinterpret_cast<const void*>(&full_mesh_kernel);
-  if (n * blocks_per_rank > tdt::capacity(fn, kThreads))
-    return cudaErrorCooperativeLaunchTooLarge;
+                          long long shard_bytes, long long half_bytes,
+                          unsigned long long epoch, int blocks_per_rank,
+                          void* stream) {
   RankPtrs px = tdt::to_ptrs(x, n), po = tdt::to_ptrs(o, n);
   uint64_t ep = epoch;
-  void* args[] = {&px, &po, &fl_tab, &shard_bytes, &n, &ep};
-  cudaError_t err = cudaLaunchCooperativeKernel(
-      fn, dim3(blocks_per_rank, n), dim3(kThreads), args, 0,
-      static_cast<cudaStream_t>(stream));
-  if (err != cudaSuccess) return err;
-  return cudaGetLastError();
+  void* args[] = {&px, &po, &fl_tab, &shard_bytes, &half_bytes, &n, &ep};
+  return coop_launch(ag_fn(kind), n, blocks_per_rank, args, stream);
+}
+
+// Reduce-scatter: x[r] holds n chunks of `cnt` elements, o[r] receives
+// the reduced chunk r. kind 0 one-shot, 1 ring, 2 bidir ring (elements
+// from `half` on go counter-clockwise), 3 HBM ring (tiles of `tile`
+// elements). ws_tab: the symmetric workspace (n or n - 1 chunks a rank).
+// lag_rank >= 0 lags that rank's blocks lag_ns before their first put.
+int tdt_reduce_scatter_launch(int kind, int dtype, const int64_t* x,
+                              const int64_t* o, const int64_t* ws_tab,
+                              const int64_t* fl_tab, int n, long long cnt,
+                              long long half, long long tile,
+                              unsigned long long epoch, int blocks_per_rank,
+                              int lag_rank, long long lag_ns, void* stream) {
+  const long long lanes = dtype == 0 ? 4 : 8;
+  if (cnt % lanes || half % lanes || tile < lanes || tile % lanes ||
+      cnt % tile || half > cnt)
+    return cudaErrorInvalidValue;
+  long long cv = cnt / lanes, hv = half / lanes, tv = tile / lanes;
+  RankPtrs px = tdt::to_ptrs(x, n), po = tdt::to_ptrs(o, n);
+  uint64_t ep = epoch;
+  void* args[] = {&px, &po, &ws_tab, &fl_tab, &cv, &hv, &tv,
+                  &n, &ep, &lag_rank, &lag_ns};
+  return coop_launch(rs_fn(kind, dtype), n, blocks_per_rank, args, stream);
+}
+
+// All-reduce of x[r] (numel elements each) into every o[r]: kind 0
+// one-shot (ws: n x numel a rank), 1 recursive doubling (log2 n x numel).
+int tdt_all_reduce_launch(int kind, int dtype, const int64_t* x,
+                          const int64_t* o, const int64_t* ws_tab,
+                          const int64_t* fl_tab, int n, long long numel,
+                          unsigned long long epoch, int blocks_per_rank,
+                          int lag_rank, long long lag_ns, void* stream) {
+  const long long lanes = dtype == 0 ? 4 : 8;
+  if (numel % lanes || (kind == 1 && (n & (n - 1))))
+    return cudaErrorInvalidValue;
+  long long nv = numel / lanes;
+  RankPtrs px = tdt::to_ptrs(x, n), po = tdt::to_ptrs(o, n);
+  uint64_t ep = epoch;
+  void* args[] = {&px, &po, &ws_tab, &fl_tab, &nv, &n, &ep, &lag_rank,
+                  &lag_ns};
+  return coop_launch(ar_fn(kind, dtype), n, blocks_per_rank, args, stream);
 }
 
 }  // extern "C"

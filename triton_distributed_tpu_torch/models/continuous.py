@@ -81,8 +81,11 @@ At tp>1 (a model over n co-located ranks) the engine serves greedy over
 a head-sharded full-width pool: ``mode="pallas"`` admits without the
 prefix cache through the sequence-sharded prefill (``ag_gemm`` /
 ``gemm_rs``), with it through replicated chunks, and decodes through
-``gemm_ar`` (one-shot, or two-shot for chunks over 512 KB of output);
-``mode="xla"`` runs the same with plain torch collectives. Refused at
+``gemm_ar`` (one-shot, or two-shot for chunks over 512 KB of output); a
+Qwen3-MoE model's expert layers take ``all_gather``/``reduce_scatter``
+in the sequence-sharded prefill and ``all_reduce`` in chunks and decode
+(``layers/tp_moe.py``); ``mode="xla"`` runs the same with plain torch
+collectives. Refused at
 tp>1: ``mode="mega"`` (ROADMAP queue 2 row 6(e)), speculation, int8 KV,
 sampling, the KV tier and ``rank_page_budget`` (queue 1, item 11).
 

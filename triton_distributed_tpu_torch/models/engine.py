@@ -28,8 +28,10 @@ task tracer's ring (``MegaDispatch``: ``kernel_trace_launches()``,
 At tp>1 (a model over a ``DistContext`` of n co-located ranks) the
 engine serves greedy over a full-width cache: ``mode="pallas"`` prefills
 sequence-sharded through ``ag_gemm``/``gemm_rs`` (prompts right-padded to
-a multiple of n) and decodes through ``gemm_ar``; ``mode="xla"`` runs the
-same with plain torch collectives. Not ported, and refused when asked
+a multiple of n) and decodes through ``gemm_ar``; a Qwen3-MoE model's
+expert layers gather and reduce-scatter the prefill and all-reduce decode
+through the collectives of ``ops/collectives/`` (``layers/tp_moe.py``);
+``mode="xla"`` runs the same with plain torch collectives. Not ported, and refused when asked
 for: ``profile`` (ROADMAP queue 1, item 12); at tp>1 ``mode="mega"``
 (queue 2 row 6(e)), speculation, ``kv_dtype`` and sampling (queue 1,
 item 11).
@@ -96,10 +98,6 @@ def engine_setup(model, device, mode: str, **unported) -> None:
         raise NotImplementedError(
             f"mode='mega' at tp={model.tp}: the multi-rank megakernel "
             "bodies are not ported yet (ROADMAP queue 2 row 6(e))")
-    if mode.startswith("pallas") and model.cfg.num_experts:
-        raise NotImplementedError(
-            "mode='pallas' of a Qwen3-MoE model runs the EP exchange, "
-            "which is not ported yet (ROADMAP queue 1, item 11); use 'xla'")
     for name, value in unported.items():
         if value:
             raise NotImplementedError(

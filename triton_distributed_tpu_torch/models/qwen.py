@@ -1,4 +1,4 @@
-"""Qwen3 (dense) at tp=1.
+"""Qwen3 (dense), over one or more co-located ranks.
 
 Counterpart of ``triton_distributed_tpu/models/qwen.py``: the same
 forward (embed → per layer [RMSNorm → attention → residual → RMSNorm →
@@ -93,13 +93,7 @@ class Qwen3:
         self.ctx = ctx
         self.device = ctx.device
         self.tp = n = ctx.tp
-        if cfg.num_q_heads % n or cfg.num_kv_heads % n:
-            raise ValueError(
-                f"heads ({cfg.num_q_heads}, {cfg.num_kv_heads}) not "
-                f"divisible by tp={n}")
-        if cfg.intermediate_size % n:
-            raise ValueError(f"d_ff {cfg.intermediate_size} not divisible "
-                             f"by tp={n}")
+        _check_tp(cfg, n)
         self.dims = TPAttnDims(
             hq_loc=cfg.num_q_heads // n, hkv_loc=cfg.num_kv_heads // n,
             head_dim=cfg.head_dim, rope_theta=cfg.rope_theta,
@@ -599,6 +593,9 @@ def _copy(t):
 
 def _split(t, n: int, axis: int) -> list:
     """``n`` equal contiguous parts of ``t`` along ``axis``."""
+    if t.shape[axis] % n:
+        raise ValueError(f"axis {axis} of {tuple(t.shape)} not divisible by "
+                         f"tp={n}")
     w = t.shape[axis] // n
     idx = [slice(None)] * t.ndim
     out = []
@@ -608,64 +605,87 @@ def _split(t, n: int, axis: int) -> list:
     return out
 
 
+def shard_leaf(path: tuple, t, n: int, q_width: int = 0) -> list:
+    """The ``n`` rank parts of one parameter leaf (``path`` below
+    ``layers``, or ``("lm_head",)``), all layers or one layer's slice:
+    the rules index trailing axes. ``wqkv`` ``[q_r | k_r | v_r]`` (its
+    first ``q_width`` columns are q), ``w1`` ``[gate_r | up_r]`` (dense
+    ``[L, d, 2ff]`` or MoE ``[L, E, d, 2f]``), ``wo`` and ``w2`` by rows,
+    the LM head by columns padded to a multiple of 128·n; every other
+    leaf (norms, the MoE router, the embedding) replicated, each rank its
+    own copy."""
+    if t is None:
+        return [None] * n
+    if path == ("attn", "wqkv"):
+        kvw = (t.shape[-1] - q_width) // 2
+        q, k, v = (_split(t[..., a:b], n, -1) for a, b in (
+            (0, q_width), (q_width, q_width + kvw),
+            (q_width + kvw, q_width + 2 * kvw)))
+        return [_cat([q[r], k[r], v[r]], -1) for r in range(n)]
+    if path == ("mlp", "w1"):
+        ff = t.shape[-1] // 2
+        gate, up = _split(t[..., :ff], n, -1), _split(t[..., ff:], n, -1)
+        return [_cat([gate[r], up[r]], -1) for r in range(n)]
+    if path in (("attn", "wo"), ("mlp", "w2")):
+        return _split(t, n, -2)
+    if path == ("lm_head",):
+        vp = pad_vocab(t.shape[-1], n)
+        if vp != t.shape[-1]:
+            t = (F.pad(t, (0, vp - t.shape[-1]))
+                 if isinstance(t, torch.Tensor)
+                 else np.pad(t, ((0, 0), (0, vp - t.shape[-1]))))
+        return _split(t, n, -1)
+    return [t] + [_copy(t) for _ in range(n - 1)]
+
+
+def _check_tp(cfg: ModelConfig, n: int) -> None:
+    if cfg.num_q_heads % n or cfg.num_kv_heads % n:
+        raise ValueError(f"heads not divisible by tp={n}")
+    ff = cfg.moe_intermediate_size if cfg.num_experts else cfg.intermediate_size
+    if ff % n:
+        raise ValueError(f"d_ff {ff} not divisible by tp={n}")
+
+
 def shard_params(params: dict, n: int, cfg: ModelConfig | None = None
                  ) -> list[dict]:
     """A tp=1-layout parameter dict (numpy arrays or tensors) as ``n``
     per-rank dicts in the JAX package's per-shard layouts
-    (``_fuse_by_shard``, ``qwen.py:837``): rank r's ``wqkv`` is ``[q_r |
-    k_r | v_r]`` (its ``hq/n`` query and ``hkv/n`` KV heads) and ``w1``
-    ``[gate_r | up_r]``; ``wo`` and ``w2`` split by rows; the LM head
-    padded to a multiple of 128·n columns and split by columns; the
-    embedding and the norms replicated (each rank its own copy)."""
-    lp = params["layers"]
-    wqkv, wo = lp["attn"]["wqkv"], lp["attn"]["wo"]
-    qw = wo.shape[-2]
-    kvw = (wqkv.shape[-1] - qw) // 2
+    (``_fuse_by_shard``, ``qwen.py:837``; the MoE ``w1`` fused per shard
+    as ``models/qwen_moe.py:73-80`` does): each leaf by
+    :func:`shard_leaf`. A Qwen3-MoE dict's MLP (``w_router``, ``w1 [L, E,
+    d, 2f]``, ``w2 [L, E, f, d]``) shards by the same rules."""
     if cfg is not None:
-        if cfg.num_q_heads % n or cfg.num_kv_heads % n:
-            raise ValueError(f"heads not divisible by tp={n}")
-        if cfg.intermediate_size % n:
-            raise ValueError(f"d_ff not divisible by tp={n}")
-    if qw % n or kvw % n:
-        raise ValueError(f"q width {qw} / kv width {kvw} not divisible by "
-                         f"tp={n}")
-    q, k, v = (_split(wqkv[..., a:b], n, -1) for a, b in
-               ((0, qw), (qw, qw + kvw), (qw + kvw, qw + 2 * kvw)))
-    w1 = lp["mlp"]["w1"]
-    ff = w1.shape[-1] // 2
-    gate, up = _split(w1[..., :ff], n, -1), _split(w1[..., ff:], n, -1)
-    lm = params["lm_head"]
-    vp = pad_vocab(lm.shape[-1], n)
-    if vp != lm.shape[-1]:
-        lm = (F.pad(lm, (0, vp - lm.shape[-1]))
-              if isinstance(lm, torch.Tensor)
-              else np.pad(lm, ((0, 0), (0, vp - lm.shape[-1]))))
-    wo_r, w2_r = _split(wo, n, -2), _split(lp["mlp"]["w2"], n, -2)
-    lm_r = _split(lm, n, -1)
+        _check_tp(cfg, n)
+    lp = params["layers"]
+    qw = lp["attn"]["wo"].shape[-2]
+    parts = {("embed",): shard_leaf(("embed",), params["embed"], n),
+             ("norm",): shard_leaf(("norm",), params["norm"], n),
+             ("lm_head",): shard_leaf(("lm_head",), params["lm_head"], n)}
+    for key in ("ln1", "ln2"):
+        parts[(key,)] = shard_leaf((key,), lp[key], n)
+    for group in ("attn", "mlp"):
+        for key, t in lp[group].items():
+            parts[(group, key)] = shard_leaf((group, key), t, n, qw)
     shards = []
     for r in range(n):
-        rep = (lambda t: t) if r == 0 else _copy
-        shards.append({
-            "embed": rep(params["embed"]),
-            "layers": {
-                "ln1": rep(lp["ln1"]), "ln2": rep(lp["ln2"]),
-                "attn": {
-                    "wqkv": _cat([q[r], k[r], v[r]], -1), "wo": wo_r[r],
-                    "q_norm": rep(lp["attn"].get("q_norm")),
-                    "k_norm": rep(lp["attn"].get("k_norm")),
-                },
-                "mlp": {"w1": _cat([gate[r], up[r]], -1), "w2": w2_r[r]},
-            },
-            "norm": rep(params["norm"]), "lm_head": lm_r[r],
-        })
+        layers: dict = {"attn": {}, "mlp": {}}
+        for path, ps in parts.items():
+            if path[0] in ("ln1", "ln2"):
+                layers[path[0]] = ps[r]
+            elif path[0] in ("attn", "mlp"):
+                layers[path[0]][path[1]] = ps[r]
+        shards.append({"embed": parts[("embed",)][r], "layers": layers,
+                       "norm": parts[("norm",)][r],
+                       "lm_head": parts[("lm_head",)][r]})
     return shards
 
 
-def unshard_params(shards: list[dict]) -> dict:
+def unshard_params(shards: list[dict], mlp: bool = True) -> dict:
     """The inverse of :func:`shard_params`: per-rank dicts back to the
     tp=1 layout (rank 0's replicated leaves; the LM head keeps its
-    128·n padding)."""
-    n = len(shards)
+    128·n padding). ``mlp=False`` leaves the MLP as the list of the
+    ranks' MLP dicts (a Qwen3-MoE model's experts do not fit twice on one
+    card)."""
     s0 = shards[0]
     wo = [s["layers"]["attn"]["wo"] for s in shards]
     qw = wo[0].shape[-2]
@@ -673,10 +693,16 @@ def unshard_params(shards: list[dict]) -> dict:
     kvw = (parts[0].shape[-1] - qw) // 2
     wqkv = _cat([_cat([p[..., a:b] for p in parts], -1) for a, b in
                  ((0, qw), (qw, qw + kvw), (qw + kvw, qw + 2 * kvw))], -1)
-    w1s = [s["layers"]["mlp"]["w1"] for s in shards]
-    ff = w1s[0].shape[-1] // 2
-    w1 = _cat([_cat([w[..., :ff] for w in w1s], -1),
-               _cat([w[..., ff:] for w in w1s], -1)], -1)
+    if mlp:
+        w1s = [s["layers"]["mlp"]["w1"] for s in shards]
+        ff = w1s[0].shape[-1] // 2
+        w1 = _cat([_cat([w[..., :ff] for w in w1s], -1),
+                   _cat([w[..., ff:] for w in w1s], -1)], -1)
+        mlp = dict(s0["layers"]["mlp"])  # replicated leaves (the router)
+        mlp.update(w1=w1, w2=_cat([s["layers"]["mlp"]["w2"]
+                                   for s in shards], -2))
+    else:
+        mlp = [s["layers"]["mlp"] for s in shards]
     return {
         "embed": s0["embed"],
         "layers": {
@@ -684,23 +710,22 @@ def unshard_params(shards: list[dict]) -> dict:
             "attn": {"wqkv": wqkv, "wo": _cat(wo, -2),
                      "q_norm": s0["layers"]["attn"].get("q_norm"),
                      "k_norm": s0["layers"]["attn"].get("k_norm")},
-            "mlp": {"w1": w1, "w2": _cat([s["layers"]["mlp"]["w2"]
-                                          for s in shards], -2)},
+            "mlp": mlp,
         },
         "norm": s0["norm"],
-        "lm_head": _cat([s["lm_head"] for s in shards[:n]], -1),
+        "lm_head": _cat([s["lm_head"] for s in shards], -1),
     }
 
 
 def _unfuse_by_shard(fused: np.ndarray, n: int, widths: list[int]) -> list:
-    """Undo the JAX ``_fuse_by_shard``: ``[L, d, n * sum(widths)]`` whose
-    shard r is ``[p0_r | p1_r | ...]`` → the global parts ``[L, d, n *
-    w_i]``."""
-    L, d = fused.shape[:2]
-    per = fused.reshape(L, d, n, sum(widths))
+    """Undo the JAX ``_fuse_by_shard``: ``[..., n * sum(widths)]`` whose
+    shard r is ``[p0_r | p1_r | ...]`` → the global parts ``[..., n *
+    w_i]`` (dense ``[L, d, ...]`` or MoE ``[L, E, d, ...]``)."""
+    lead = fused.shape[:-1]
+    per = fused.reshape(*lead, n, sum(widths))
     out, off = [], 0
     for w in widths:
-        out.append(per[..., off:off + w].reshape(L, d, n * w))
+        out.append(per[..., off:off + w].reshape(*lead, n * w))
         off += w
     return out
 
@@ -714,8 +739,9 @@ def params_from_jax(tree, tp: int = 1):
     port's, so leaves carry over as they are: a dict for
     :meth:`Qwen3.set_params`. A tree built at ``tp=n`` (global arrays)
     has its fused weights laid out by shard (``_fuse_by_shard``, applied
-    after the draws of ``wq/wk/wv/gate/up``, ``qwen.py:149-156``): they
-    are unfused to the global parts, and the result is the list of
+    after the draws of ``wq/wk/wv/gate/up``, ``qwen.py:149-156``; the MoE
+    ``w1`` by ``models/qwen_moe.py:73-80``): they are unfused to the
+    global parts, and the result is the list of
     per-rank shards :func:`shard_params` makes of them."""
     def leaf(*path):
         node = tree
@@ -731,11 +757,8 @@ def params_from_jax(tree, tp: int = 1):
     if (isinstance(mlp, dict) and "w_router" in mlp) or hasattr(mlp,
                                                                 "w_router"):
         # MoE (the JAX TPMoEParams leaves, [L, d, E], [L, E, d, 2f] and
-        # [L, E, f, d]; gate | up fused per expert, the port's layout).
-        if tp != 1:
-            raise NotImplementedError(
-                "Qwen3-MoE at tp>1 is not ported yet (ROADMAP queue 1, "
-                "item 11: EP)")
+        # [L, E, f, d]; gate | up fused per expert, the port's layout; at
+        # tp=n fused per shard, unfused below like the dense w1).
         paths += (("mlp", "w_router"),)
     for path in paths:
         dst = layers if len(path) == 1 else layers[path[0]]

@@ -1,16 +1,19 @@
 """AllGather over co-located ranks.
 
 Counterpart of ``triton_distributed_tpu/ops/collectives/all_gather.py``:
-``AllGatherMethod`` and ``all_gather`` (:245), with ``XLA`` (the plain
-version: a concatenation of the shards, the counterpart of XLA's own
-``all_gather``) and ``PALLAS_FULL_MESH`` (the hand-written kernel of
-``csrc/collectives.cu``, replacing ``_full_mesh_kernel`` :146).
+``AllGatherMethod`` and ``all_gather`` (:245). ``XLA`` is the plain
+version, a concatenation of the shards (XLA's own ``all_gather``); the
+hand-written kernels of ``csrc/collectives.cu`` are ``PALLAS_FULL_MESH``
+(replacing ``_full_mesh_kernel`` :146), ``PALLAS_RING`` (``_ring_kernel``
+:49) and ``PALLAS_BIDIR_RING`` (``_bidir_ring_kernel`` :93: each shard's
+top half travels right, its bottom half left). They move bytes only, so
+the plain version of every method is the same concatenation.
 
-Dispatch differs from the JAX AUTO in one place: for n > 2 and more than
-64 KB JAX takes ``PALLAS_BIDIR_RING`` (:263-269); the port takes
-``PALLAS_FULL_MESH`` at every size until the ring kernels are ported
-(ROADMAP queue 2 row 10). It is the same gathered tensor from a ported
-kernel. On the CPU AUTO takes ``XLA``, as the JAX AUTO does off the TPU.
+AUTO is the JAX dispatch (:257-269): on the card the full mesh for n <= 2
+or up to 64 KB a shard, else the bidirectional ring, which becomes the
+ring when a shard has fewer than 2 rows (:279); on the CPU ``XLA``, as the
+JAX AUTO does off the TPU. ``PALLAS_PULL`` (:182) is not ported (ROADMAP
+queue 1 position 3).
 """
 
 from __future__ import annotations
@@ -24,13 +27,14 @@ from triton_distributed_tpu_torch.language.primitives import (
     site_flags,
 )
 from triton_distributed_tpu_torch.ops import cuda_kernels as ck
+from triton_distributed_tpu_torch.ops.collectives import _launch
 from triton_distributed_tpu_torch.ops.common import (
     check_ranks,
     device_initiable,
     rank_ptrs,
 )
 
-_SITE = "all_gather"
+_FULL_MESH_MAX_BYTES = 64 * 1024
 
 
 class AllGatherMethod(enum.Enum):
@@ -42,8 +46,13 @@ class AllGatherMethod(enum.Enum):
     PALLAS_PULL = "pallas_pull"
 
 
-_UNPORTED = (AllGatherMethod.PALLAS_RING, AllGatherMethod.PALLAS_BIDIR_RING,
-             AllGatherMethod.PALLAS_PULL)
+# Kernel of each ported method: (C kind, launch counter, site).
+_KERNELS = {
+    AllGatherMethod.PALLAS_FULL_MESH: (0, ck.ALL_GATHER, "all_gather"),
+    AllGatherMethod.PALLAS_RING: (1, ck.ALL_GATHER_RING, "all_gather_ring"),
+    AllGatherMethod.PALLAS_BIDIR_RING: (2, ck.ALL_GATHER_BIDIR_RING,
+                                        "all_gather_bidir_ring"),
+}
 
 
 def all_gather_plain(xs: list[torch.Tensor]) -> list[torch.Tensor]:
@@ -52,29 +61,60 @@ def all_gather_plain(xs: list[torch.Tensor]) -> list[torch.Tensor]:
     return [full] + [full.clone() for _ in xs[1:]]
 
 
-def all_gather_full_mesh(xs: list[torch.Tensor], ctx,
-                         blocks_per_rank: int | None = None
-                         ) -> list[torch.Tensor]:
-    """The full-mesh kernel: one cooperative launch over all ranks.
-    ``blocks_per_rank`` overrides the default grid (a grid that cannot be
-    co-resident raises)."""
+def _gather_kernel(method: AllGatherMethod, xs, ctx,
+                   blocks_per_rank: int | None) -> list[torch.Tensor]:
+    """One cooperative launch of ``method``'s kernel over all ranks."""
+    kind, kernel, site = _KERNELS[method]
     n = ctx.tp
     x0 = xs[0]
-    for r, t in enumerate(xs):
-        ck.check_cuda_operand(f"x[{r}]", t, ctx.device, x0.dtype)
+    _launch.check_operands("x", xs, ctx, elementwise=False)
     out = torch.empty((n, n * x0.shape[0], *x0.shape[1:]), dtype=x0.dtype,
                       device=ctx.device)
     outs = [out[r] for r in range(n)]
     shard_bytes = x0.numel() * x0.element_size()
-    if blocks_per_rank is None:
-        cap = ck.coresident_blocks("collectives", "tdt_all_gather_capacity")
-        want = max(1, -(-shard_bytes // (64 << 10)))  # ~64 KB a block
-        blocks_per_rank = max(1, min(want, cap // n, 132))
-    fs = site_flags(ctx, _SITE, n + n * blocks_per_rank)
-    ck.ALL_GATHER(rank_ptrs(xs), rank_ptrs(outs), fs.flags.table.data_ptr(),
-                  n, shard_bytes, next_epoch(fs), int(blocks_per_rank),
-                  ck.stream_ptr(x0))
+    half_bytes = (x0.shape[0] // 2) * (shard_bytes // max(x0.shape[0], 1))
+    blocks = _launch.blocks(_launch.ALL_GATHER, kind, x0.dtype, n,
+                            shard_bytes, blocks_per_rank)
+    per_step = (n - 1) * blocks * (2 if kind == 2 else 1)
+    fs = site_flags(ctx, site, n + max(per_step, n * blocks))
+    kernel(kind, rank_ptrs(xs), rank_ptrs(outs), fs.flags.table.data_ptr(),
+           n, shard_bytes, half_bytes, next_epoch(fs), int(blocks),
+           ck.stream_ptr(x0))
     return outs
+
+
+def all_gather_full_mesh(xs: list[torch.Tensor], ctx,
+                         blocks_per_rank: int | None = None
+                         ) -> list[torch.Tensor]:
+    """The full-mesh kernel: every rank puts its shard into every rank's
+    output. ``blocks_per_rank`` overrides the default grid (a grid that
+    cannot be co-resident raises)."""
+    return _gather_kernel(AllGatherMethod.PALLAS_FULL_MESH, xs, ctx,
+                          blocks_per_rank)
+
+
+def all_gather_ring(xs: list[torch.Tensor], ctx,
+                    blocks_per_rank: int | None = None) -> list[torch.Tensor]:
+    """The ring kernel: n - 1 steps, each forwarding one shard right."""
+    return _gather_kernel(AllGatherMethod.PALLAS_RING, xs, ctx,
+                          blocks_per_rank)
+
+
+def all_gather_bidir_ring(xs: list[torch.Tensor], ctx,
+                          blocks_per_rank: int | None = None
+                          ) -> list[torch.Tensor]:
+    """The bidirectional ring kernel: each shard's first ``m_per // 2``
+    rows go right, the rest left."""
+    return _gather_kernel(AllGatherMethod.PALLAS_BIDIR_RING, xs, ctx,
+                          blocks_per_rank)
+
+
+def auto_method(nbytes: int, n: int) -> AllGatherMethod:
+    """The JAX AUTO on the device (``all_gather.py:257-269``) for a shard
+    of ``nbytes`` over ``n`` ranks."""
+    if n <= 2 or nbytes <= _FULL_MESH_MAX_BYTES:
+        return AllGatherMethod.PALLAS_FULL_MESH
+    return AllGatherMethod.PALLAS_BIDIR_RING
 
 
 def all_gather(xs: list[torch.Tensor], ctx,
@@ -82,14 +122,19 @@ def all_gather(xs: list[torch.Tensor], ctx,
                ) -> list[torch.Tensor]:
     """Gather the ranks' shards ``xs[r] [m_per, ...]`` along the leading
     dim: every rank gets ``[n * m_per, ...]``. Takes and returns one
-    tensor per rank."""
+    tensor per rank. A kernel method on the CPU takes the plain version."""
     check_ranks("x", xs, ctx)
-    if method in _UNPORTED:
+    if method == AllGatherMethod.PALLAS_PULL:
         raise NotImplementedError(
-            f"{method} is not ported yet (ROADMAP queue 2 row 10); the "
-            "port gathers through PALLAS_FULL_MESH")
+            f"{method} is not ported yet (ROADMAP queue 1 position 3)")
     if ctx.tp == 1:
         return list(xs)
+    n, m_per = ctx.tp, xs[0].shape[0]
+    if method == AllGatherMethod.AUTO:
+        method = (auto_method(xs[0].numel() * xs[0].element_size(), n)
+                  if device_initiable(ctx) else AllGatherMethod.XLA)
+    if method == AllGatherMethod.PALLAS_BIDIR_RING and (m_per < 2 or n <= 2):
+        method = AllGatherMethod.PALLAS_RING  # halves degenerate (:279)
     if method == AllGatherMethod.XLA or not device_initiable(ctx):
         return all_gather_plain(xs)
-    return all_gather_full_mesh(xs, ctx)
+    return _gather_kernel(method, xs, ctx, None)

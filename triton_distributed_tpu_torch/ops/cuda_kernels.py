@@ -39,7 +39,8 @@ NVCC_FLAGS = (
 )
 # Sources, each one shared library (megakernel_moe.cu is megakernel.cu
 # built with its MoE instantiations only; overlap.cu holds the three
-# GEMM+collective kernels, collectives.cu the all-gather).
+# GEMM+collective kernels, collectives.cu the all-gathers, reduce-scatters
+# and all-reduces).
 SOURCES = ("flash_attention", "flash_decode", "megakernel", "megakernel_moe",
            "overlap", "collectives")
 
@@ -243,19 +244,55 @@ GEMM_RS = CudaKernel("gemm_rs", "overlap", "tdt_overlap_launch",
                      _OVERLAP_ARGS)
 AG_GEMM = CudaKernel("ag_gemm", "overlap", "tdt_overlap_launch",
                      _OVERLAP_ARGS)
-# The full-mesh all-gather: host tables of the per-rank shard and output
-# pointers, the flags' device table, n, shard bytes, epoch, blocks per
+# The collectives of csrc/collectives.cu, three C entry points whose first
+# argument picks the kernel. All-gather (full mesh, ring, bidir ring): kind,
+# host tables of the per-rank shard and output pointers, the flags' device
+# table, n, shard bytes, the bidir ring's clockwise bytes, epoch, blocks per
 # rank, stream.
-ALL_GATHER = CudaKernel(
-    "all_gather", "collectives", "tdt_all_gather_launch",
-    [_I64P, _I64P, _P, _I, ctypes.c_longlong, _U64, _I, _P],
-)
+_LL = ctypes.c_longlong
+_AG_ARGS = [_I, _I64P, _I64P, _P, _I, _LL, _LL, _U64, _I, _P]
+ALL_GATHER = CudaKernel("all_gather", "collectives", "tdt_all_gather_launch",
+                        _AG_ARGS)
+ALL_GATHER_RING = CudaKernel(
+    "all_gather_ring", "collectives", "tdt_all_gather_launch", _AG_ARGS)
+ALL_GATHER_BIDIR_RING = CudaKernel(
+    "all_gather_bidir_ring", "collectives", "tdt_all_gather_launch",
+    _AG_ARGS)
+# Reduce-scatter (one-shot, ring, bidir ring, HBM ring): kind, dtype, the
+# x/o pointer tables, the workspace's and flags' device tables, n, chunk,
+# bidir split and tile (elements), epoch, blocks per rank, the lagging
+# rank (-1: none) and its lag in ns, stream.
+_RS_ARGS = [_I, _I, _I64P, _I64P, _P, _P, _I, _LL, _LL, _LL, _U64, _I, _I,
+            _LL, _P]
+REDUCE_SCATTER_ONE_SHOT = CudaKernel(
+    "reduce_scatter_one_shot", "collectives", "tdt_reduce_scatter_launch",
+    _RS_ARGS)
+REDUCE_SCATTER_RING = CudaKernel(
+    "reduce_scatter_ring", "collectives", "tdt_reduce_scatter_launch",
+    _RS_ARGS)
+REDUCE_SCATTER_BIDIR_RING = CudaKernel(
+    "reduce_scatter_bidir_ring", "collectives", "tdt_reduce_scatter_launch",
+    _RS_ARGS)
+REDUCE_SCATTER_RING_HBM = CudaKernel(
+    "reduce_scatter_ring_hbm", "collectives", "tdt_reduce_scatter_launch",
+    _RS_ARGS)
+# All-reduce (one-shot, doubling): kind, dtype, pointer tables, workspace
+# and flag tables, n, elements, epoch, blocks per rank, lag rank, lag ns,
+# stream.
+_AR_ARGS = [_I, _I, _I64P, _I64P, _P, _P, _I, _LL, _U64, _I, _I, _LL, _P]
+ALL_REDUCE_ONE_SHOT = CudaKernel(
+    "all_reduce_one_shot", "collectives", "tdt_all_reduce_launch", _AR_ARGS)
+ALL_REDUCE_DOUBLING = CudaKernel(
+    "all_reduce_doubling", "collectives", "tdt_all_reduce_launch", _AR_ARGS)
 KERNELS = (FLASH_ATTENTION, FLASH_DECODE, PAGED_FLASH_DECODE,
            FLASH_ATTENTION_INT8, PAGED_FLASH_DECODE_INT8,
            FLASH_ATTENTION_BIAS, MEGA_DECODE, FLASH_ATTENTION_COLD,
            FLASH_ATTENTION_COLD_INT8, FLASH_DECODE_INT8, MEGA_DECODE_TRACED,
            MEGA_PREFILL, MEGA_DECODE_MOE, GEMM_AR, GEMM_RS, AG_GEMM,
-           ALL_GATHER)
+           ALL_GATHER, ALL_GATHER_RING, ALL_GATHER_BIDIR_RING,
+           REDUCE_SCATTER_ONE_SHOT, REDUCE_SCATTER_RING,
+           REDUCE_SCATTER_BIDIR_RING, REDUCE_SCATTER_RING_HBM,
+           ALL_REDUCE_ONE_SHOT, ALL_REDUCE_DOUBLING)
 
 
 def coresident_blocks(library_name: str, symbol: str, *args) -> int:

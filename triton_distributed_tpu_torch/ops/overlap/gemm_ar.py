@@ -6,7 +6,9 @@ is the hand-written kernel of ``csrc/overlap.cu`` (replacing
 ``_gemm_ar_one_shot_kernel`` :84): each rank's partial rounded to the
 input dtype, put to every rank's slot, summed in rank order in f32, so
 every rank's output is bitwise the same. ``TWO_SHOT`` is ``gemm_rs``
-(single ring: the chunk is one row tile) followed by ``all_gather``.
+(single ring: the chunk is one row tile) followed by ``all_gather``'s
+AUTO (:279: the full mesh at n <= 2, the bidirectional ring above 64 KB
+a shard at n > 2).
 ``XLA`` is the plain version, the counterpart of ``psum(a @ b)``:
 per-rank products rounded to the input dtype, summed in rank order in
 f32.
@@ -113,7 +115,7 @@ def gemm_ar(a: list[torch.Tensor], b: list[torch.Tensor], ctx,
         return gemm_ar_plain(a, b)
     if method == GemmARMethod.TWO_SHOT:
         reduced = gemm_rs(a, b, ctx, config=GemmRSConfig())
-        return all_gather(reduced, ctx, AllGatherMethod.PALLAS_FULL_MESH)
+        return all_gather(reduced, ctx, AllGatherMethod.AUTO)
     if not device_initiable(ctx):
         return gemm_ar_plain(a, b)
     return gemm_ar_one_shot(a, b, ctx)
