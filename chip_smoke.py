@@ -4073,7 +4073,9 @@ def profile_tp_steps(model, steps: int = 8, modes=("pallas", "xla"),
                      tag: str = "tp") -> dict:
     """Where a tp step's time goes: a B=4 decode step at kv_len ~340 and
     a 384-row chunk at offset 0 over a paged pool, in mode ``pallas``
-    (the kernels) and ``xla`` (plain torch collectives): host wall a step
+    (the kernels), ``xla`` (plain torch collectives) and ``mega`` (the
+    decode step as one megakernel launch over every rank, the engines'
+    serving config; its prefill is the xla chunk): host wall a step
     (synchronized) and, under ``torch.profiler``, the device's busy time,
     idle share and launches a step."""
     import numpy as np
@@ -4093,11 +4095,21 @@ def profile_tp_steps(model, steps: int = 8, modes=("pallas", "xla"),
     chunk = np.arange(384, dtype=np.int32) % model.cfg.vocab_size
     out = {}
     for mode in modes:
-        phases = {
-            "decode": lambda: model.decode_step(tok, cache, mode),
-            "chunk384": lambda: model.prefill_paged_chunk(
-                chunk, 0, 0, 384, 383, cache, mode),
-        }
+        if mode == "mega":
+            from triton_distributed_tpu_torch.megakernel import (
+                MegaConfig,
+                MegaQwen3,
+            )
+
+            mega = MegaQwen3(model, cfg=MegaConfig(
+                fuse_norms=True, cross_prefetch=True, overlap_ar=True))
+            phases = {"decode": lambda: mega.decode_step(tok, cache)}
+        else:
+            phases = {
+                "decode": lambda: model.decode_step(tok, cache, mode),
+                "chunk384": lambda: model.prefill_paged_chunk(
+                    chunk, 0, 0, 384, 383, cache, mode),
+            }
         for name, step in phases.items():
             for _ in range(2):
                 step()
@@ -4131,33 +4143,34 @@ def profile_tp_steps(model, steps: int = 8, modes=("pallas", "xla"),
     return out
 
 
-def serve_tp_paths(dev) -> tuple:
+def tp_prompts(vocab: int) -> tuple:
+    """The TP paths' prompts (TP_PROMPT_LENS random tokens) and the dense
+    Engine rows."""
+    import numpy as np
+
+    rng = np.random.default_rng(SEED + 4)
+    prompts = [rng.integers(0, vocab, k).astype(np.int32)
+               for k in TP_PROMPT_LENS]
+    ids = np.stack([p[:TP_PROMPT_LENS[0]] for p in prompts[:2]])
+    return rng, prompts, ids
+
+
+def serve_tp_paths(dev, model, plain) -> tuple:
     """Qwen3-8B at tp=2, all layers: the three pallas paths, launches per
-    path, audits, and teacher forcing of every request against a plain
-    full-sequence forward over the unsharded weights (bf16 limits)."""
+    path, audits, and teacher forcing of every request against ``plain``,
+    a full-sequence forward over the unsharded weights (bf16 limits).
+    Returns (launches by path, the e2e block, the paths' tokens)."""
     import numpy as np
     import torch
 
     from triton_distributed_tpu_torch.models import (
-        AutoLLM,
         ContinuousEngine,
         Engine,
-        unshard_params,
     )
     from triton_distributed_tpu_torch.ops import cuda_kernels as ck
 
-    t0 = time.perf_counter()
-    model = AutoLLM.from_pretrained(TP_MODEL, device=dev, seed=SEED, tp=TP)
-    torch.cuda.synchronize()
-    print(f"[tp] {TP_MODEL} random init at tp={TP} on {dev} in "
-          f"{time.perf_counter() - t0:.1f} s ({model.cfg.num_layers} layers, "
-          f"hq_loc {model.dims.hq_loc}, hkv_loc {model.dims.hkv_loc}; "
-          f"{torch.cuda.memory_allocated(dev) / 1e9:.2f} GB allocated)")
-    rng = np.random.default_rng(SEED + 4)
+    rng, prompts, ids = tp_prompts(model.cfg.vocab_size)
     vocab = model.cfg.vocab_size
-    prompts = [rng.integers(0, vocab, k).astype(np.int32)
-               for k in TP_PROMPT_LENS]
-    ids = np.stack([p[:TP_PROMPT_LENS[0]] for p in prompts[:2]])
     launches, outs, e2e = {}, {}, {}
     runs = {
         "continuous_tp": lambda: ContinuousEngine(
@@ -4213,7 +4226,8 @@ def serve_tp_paths(dev) -> tuple:
         print(f"[tp] {path}: decode {e2e[path]['decode_ms_per_step']:.2f} "
               f"ms a step (host wall, {dec_n} steps), prefill "
               f"{pre_s:.3f} s in {e2e[path]['prefill_calls']} calls")
-    e2e["step_profile"] = profile_tp_steps(model)
+    e2e["step_profile"] = profile_tp_steps(model,
+                                           modes=("pallas", "xla", "mega"))
     # Every prefill chunk and decode step of the continuous paths went
     # through a kernel: TWO_SHOT's gemm_rs and all_gather once a layer
     # each for every chunk over 512 KB (the 640-row one included), the
@@ -4243,8 +4257,6 @@ def serve_tp_paths(dev) -> tuple:
     print(f"[tp] paged_engine_tp: {want // steps} one-shot gemm_ar launches "
           "a decode step")
     # Teacher forcing through a plain forward over the unsharded weights.
-    params = unshard_params(model.params)
-    plain = _tp_plain_model(model, params)
     for path, got in outs.items():
         gaps = []
         src = prompts[1::2] if path == "paged_engine_tp" else prompts
@@ -4252,15 +4264,15 @@ def serve_tp_paths(dev) -> tuple:
             gaps += teacher_forced_gaps(plain, p, np.asarray(o))
         e2e[path]["teacher_forcing"] = _tf_check(
             f"{path} (tp={TP})", gaps, TF_MARGIN, TF_MIN_EXACT)
-    del params, plain, model
-    torch.cuda.empty_cache()
-    return launches, e2e
+    return launches, e2e, outs
 
 
 def check_tp(dev):
     """Phase 5: tensor parallelism over co-located ranks. The kernel
-    checks, the tiny card == CPU serving, then Qwen3-8B at tp=2. Returns
-    (records by kernel, launches by path, the e2e block)."""
+    checks, the tiny card == CPU serving, then Qwen3-8B at tp=2: the
+    pallas paths, then the megakernel at tp=2 on the same model (its
+    kernel checks and paths). Returns (records by kernel, launches by
+    path, the e2e block)."""
     import gc
 
     import torch
@@ -4271,12 +4283,472 @@ def check_tp(dev):
     torch.cuda.empty_cache()
     print(f"[tp] {torch.cuda.memory_allocated(dev) / 1e9:.2f} GB allocated "
           "at the start of the phase")
+    from triton_distributed_tpu_torch.models import AutoLLM, unshard_params
+
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
     records = check_tp_kernels(dev, flush)
-    del flush
     check_tp_tiny(dev)
-    launches, e2e = serve_tp_paths(dev)
+    t0 = time.perf_counter()
+    model = AutoLLM.from_pretrained(TP_MODEL, device=dev, seed=SEED, tp=TP)
+    torch.cuda.synchronize()
+    print(f"[tp] {TP_MODEL} random init at tp={TP} on {dev} in "
+          f"{time.perf_counter() - t0:.1f} s ({model.cfg.num_layers} layers, "
+          f"hq_loc {model.dims.hq_loc}, hkv_loc {model.dims.hkv_loc}; "
+          f"{torch.cuda.memory_allocated(dev) / 1e9:.2f} GB allocated)")
+    plain = _tp_plain_model(model, unshard_params(model.params))
+    launches, e2e, outs = serve_tp_paths(dev, model, plain)
+    # The megakernel at tp=2 on the same model.
+    t0 = time.perf_counter()
+    records["mega_decode_tp"] = check_tp_mega_kernels(dev, flush, model)
+    del flush
+    more, e2e["mega"] = serve_tp_mega_paths(dev, model, plain, outs)
+    launches.update(more)
+    e2e["mega"]["seconds"] = time.perf_counter() - t0
+    print(f"[tp_mega] the tp megakernel's checks and paths: "
+          f"{e2e['mega']['seconds']:.1f} s", flush=True)
+    del plain, model
+    torch.cuda.empty_cache()
     return records, launches, e2e
+
+
+# The megakernel at tp > 1 (queue 2 row 6(e), dense): mode="mega" over the
+# two co-located ranks of the TP phase's Qwen3-8B in ONE cooperative launch
+# (csrc/megakernel.cu, tdt_mega_decode_tp: the entry BARRIER, each
+# projection's f32 partial exchanged and folded in rank order by ALLREDUCE
+# or AR_SEND/AR_WAIT, the LM head's cross-rank argmax). Kernel vs plain
+# (kernels.mega_decode_plain_tp, the ranks walked in lockstep) at B=4 over
+# the paged bf16 pool, kv_len TP_MEGA_LENS, NS 1 and 8, overlap_ar on and
+# off, under the megakernel's limits (MEGA_TOL; a token may leave the plain
+# stream only at a near tie), every rank's tokens and final residual
+# bitwise equal; the negative control drops rank 1's partial at layer 18's
+# exchanges on the plain side and must break the bf16 limit at NS 1 and,
+# at NS=8, TP_MEGA_CONTROL times over; a 500 us lag on rank 1 must leave the outputs bit-identical
+# and the launch >= 0.5 ms longer; TP_MEGA_STRESS launches back to back on
+# fresh tokens, each checked; f32 at 2 layers: tokens equal, logits within
+# 2e-3. Then the serving paths (TP_MEGA_PATH_KERNELS), each held by
+# teacher forcing, audit and exact megakernel launch counts.
+TP_MEGA_LENS = (300, 700, 300, 700)
+TP_MEGA_NS = (1, 8)
+TP_MEGA_STRESS = 20
+TP_MEGA_LAG_NS = 500_000
+TP_MEGA_DROP = (18, 1)  # (layer, rank) of the negative control
+TP_MEGA_CONTROL = 10.0
+TP_MEGA_EOS_AT = 20     # the eos id: continuous_tp's request 0, this token
+TP_MEGA_NSTEP = 8
+TP_MEGA_PATH_KERNELS = {
+    "continuous_tp_mega": ("flash_attention", "mega_decode_tp"),
+    "paged_engine_tp_mega": ("flash_attention", "mega_decode_tp"),
+    "continuous_tp_mega_resident": ("flash_attention", "mega_decode_tp"),
+}
+TP_MEGA_SPLIT_OPS = ("BARRIER", "EMBED", "QKV_PROJ", "ATTN", "O_PROJ",
+                     "AR_SEND", "AR_WAIT", "ALLREDUCE", "FC1", "FC2",
+                     "LM_HEAD")
+
+
+def _tp_mega_operands(model, lens, seed):
+    """A random per-rank paged bf16 pool (each row's pages from the pool's
+    table) and B tokens: ``(kc list, vc list, page_table, kv_len,
+    tokens)``."""
+    import numpy as np
+    import torch
+
+    from triton_distributed_tpu_torch.models.paged_kv_cache import (
+        init_paged_cache,
+    )
+
+    dev, b = model.device, len(lens)
+    pool, _ = init_paged_cache(model.cfg, b, dev, max_length=TP_MAX_LENGTH,
+                               page_size=PAGE, tp=model.tp)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    for t in (pool.k_pages, pool.v_pages):
+        t.normal_(generator=gen)
+    ranks = [pool.rank(r) for r in range(model.tp)]
+    kv_len = torch.tensor(lens, dtype=torch.int32, device=dev)
+    tokens = torch.from_numpy(np.random.default_rng(seed).integers(
+        0, model.cfg.vocab_size, b).astype(np.int32)).to(dev)
+    return ([c.k_pages for c in ranks], [c.v_pages for c in ranks],
+            pool.page_table, kv_len, tokens)
+
+
+def _tp_mega_bound(model, lens) -> dict:
+    """The least time of one tp decode step: both ranks' weight shards,
+    norms and LM-head columns, the embed rows, every cached K/V row (each
+    rank its kv heads), the logits and the new K/V rows, over the one
+    card's HBM (its FLOPs are ~200x below)."""
+    from triton_distributed_tpu_torch.models.qwen import pad_vocab
+
+    cfg = model.cfg
+    b, L, hd = len(lens), cfg.num_layers, cfg.head_dim
+    item = cfg.dtype.itemsize
+    weights = 0
+    for p in model.rank_params:
+        lp = p["layers"]
+        weights += sum(t.numel() * t.element_size() for t in (
+            lp["attn"]["wqkv"], lp["attn"]["wo"], lp["mlp"]["w1"],
+            lp["mlp"]["w2"], lp["ln1"], lp["ln2"], lp["attn"]["q_norm"],
+            lp["attn"]["k_norm"], p["norm"], p["lm_head"]))
+    kv = 2 * L * sum(lens) * cfg.num_kv_heads * hd * item
+    rest = (b * cfg.hidden_size * item + b * 4 * pad_vocab(cfg.vocab_size,
+                                                           model.tp)
+            + 2 * L * b * cfg.num_kv_heads * hd * item)
+    total = weights + kv + rest
+    return {"bound_ms": total / HBM_BPS * 1e3, "bound_by": "bytes",
+            "bound_bytes": total, "weight_bytes": weights, "kv_bytes": kv}
+
+
+def _tp_mega_limit_use(got, ref, plain_at, tag, what) -> tuple:
+    """Kernel vs plain outputs of one launch: tokens (bf16: near ties
+    only), the last step's logits on the rows whose earlier tokens agree;
+    returns (share of the limit, max |err|, near ties)."""
+    import torch
+
+    atol, rtol = MEGA_TOL[tag]
+    if tag == "f32":
+        if not torch.equal(got[3], ref[3]):
+            raise RuntimeError(f"{what}: f32 tokens differ from plain")
+        ties = []
+    else:
+        ties = _mega_tokens_ok(got[3], ref[3], plain_at)
+    keep = (got[3][:-1] == ref[3][:-1]).all(dim=0)
+    err = (got[0] - ref[0]).abs()[keep]
+    used = (err / (atol + rtol * ref[0].abs()[keep])).max().item()
+    if not used <= 1.0:
+        raise RuntimeError(f"{what}: logits at {used:.3f} of the limit")
+    return used, err.max().item(), ties
+
+
+def _ranks_equal(info, what) -> None:
+    import torch
+
+    for r in range(1, TP):
+        for k in ("toks", "x"):
+            if not torch.equal(info[k][r], info[k][0]):
+                raise RuntimeError(f"{what}: rank {r}'s {k} differs from "
+                                   "rank 0's")
+
+
+def check_tp_mega_kernels(dev, flush, model) -> dict:
+    """The tp=2 megakernel against its plain version on ``model`` (see the
+    constants above), timed; returns the record of ``mega_decode_tp``."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from triton_distributed_tpu_torch.megakernel import (
+        MegaConfig,
+        MegaQwen3,
+    )
+    from triton_distributed_tpu_torch.megakernel.kernels import (
+        mega_decode_plain_tp,
+    )
+    from triton_distributed_tpu_torch.megakernel.qwen3 import _weights
+    from triton_distributed_tpu_torch.megakernel.task import TaskType
+    from triton_distributed_tpu_torch.models import AutoLLM
+    from triton_distributed_tpu_torch.obs import kernel_trace as kt
+    from triton_distributed_tpu_torch.ops import cuda_kernels as ck
+
+    b, V = len(TP_MEGA_LENS), model.cfg.vocab_size
+    args = _tp_mega_operands(model, TP_MEGA_LENS, SEED + 5)
+    w = _weights(model.params)
+    rec = {"limit_used": {}, "near_ties": [], "ms_per_launch": {},
+           "plain_ms_per_launch": {}, "split_ms_per_step": {}}
+    max_err, info = 0.0, {}
+    comps, megas = {}, {}
+    for overlap in (True, False):
+        mega = megas[overlap] = MegaQwen3(model, cfg=MegaConfig(
+            fuse_norms=True, cross_prefetch=overlap, overlap_ar=overlap))
+        for ns in TP_MEGA_NS:
+            dims = dataclasses.replace(
+                mega._dims(b, TP_MAX_LENGTH, PAGE,
+                           num_pages=int(args[0][0].shape[1])),
+                nsteps=ns, v_real=V)
+            comp = comps[overlap, ns] = mega._compile(dims)
+            info = {}
+            got = comp.run(w, *args, info=info)
+            again = comp.run(w, *args)
+            torch.cuda.synchronize()
+            if not all(torch.equal(x, y) for x, y in zip(got, again)):
+                raise RuntimeError(f"mega_decode_tp NS={ns}: two launches "
+                                   "on the same inputs differ")
+            _ranks_equal(info, f"mega_decode_tp NS={ns} overlap={overlap}")
+            ref = mega_decode_plain_tp(dims, True, comp.table, w, *args)
+
+            def plain_at(s, dims=dims, table=comp.table):
+                return mega_decode_plain_tp(dataclasses.replace(
+                    dims, nsteps=s + 1), True, table, w, *args)[0]
+
+            what = f"mega_decode_tp bf16 NS={ns} overlap_ar={overlap}"
+            used, err, ties = _tp_mega_limit_use(got, ref, plain_at, "bf16",
+                                                 what)
+            max_err = max(max_err, err)
+            rec["limit_used"][f"bf16_ns{ns}_overlap{int(overlap)}"] = used
+            rec["near_ties"] += [dict(ns=ns, overlap=overlap, **t)
+                                 for t in ties]
+            info = {k: info[k] for k in ("blocks", "smem_bytes",
+                                         "blocks_per_sm") if k in info}
+            ms = median_ms(lambda: comp.run(w, *args), flush)
+            rec["ms_per_launch"][f"ns{ns}_overlap{int(overlap)}"] = ms
+            if overlap:
+                rec["plain_ms_per_launch"][f"ns{ns}"] = median_ms(
+                    lambda: mega_decode_plain_tp(dims, True, comp.table, w,
+                                                 *args),
+                    flush, iters=3, warmup=1)
+            print(f"[tp_mega] {what}: tokens == plain"
+                  f"{f' up to near ties {ties}' if ties else ''}, ranks "
+                  f"bitwise equal, logits max_abs_err {err:.3e}, "
+                  f"{used:.3f} of the limit; {ms:.4f} ms per launch "
+                  f"({ms / ns:.4f} a step); launch {info}")
+    # The negative control: rank 1's partial dropped at layer 18's
+    # exchanges, at NS 1 and 8. Each must leave the limit; the serving
+    # launch (NS=8: the dropped partial reaches every step's token) by
+    # TP_MEGA_CONTROL times.
+    atol, rtol = MEGA_TOL["bf16"]
+    control = {}
+    for ns in TP_MEGA_NS:
+        comp = comps[True, ns]
+        got = comp.run(w, *args)
+        bad = mega_decode_plain_tp(comp.builder.dims, True, comp.table, w,
+                                   *args, drop_partial=TP_MEGA_DROP)[0]
+        control[ns] = ((got[0] - bad).abs()
+                       / (atol + rtol * bad.abs())).max().item()
+    print(f"[tp_mega] control (rank {TP_MEGA_DROP[1]}'s partial dropped at "
+          f"layer {TP_MEGA_DROP[0]}): "
+          + ", ".join(f"NS={k} {v:.1f}x" for k, v in control.items())
+          + f" the limit (each > 1, NS=8 >= {TP_MEGA_CONTROL})")
+    if (min(control.values()) <= 1.0
+            or control[TP_MEGA_NS[-1]] < TP_MEGA_CONTROL):
+        raise RuntimeError(f"tp megakernel control at {control}x the limit")
+    comp = comps[True, 1]
+    dims = comp.builder.dims
+    got = comp.run(w, *args)
+    # The straggler: bit-identical, the launch >= 0.5 ms longer.
+    lag = megas[True]._compile(dataclasses.replace(
+        dims, straggler_rank=1, straggler_nanos=TP_MEGA_LAG_NS))
+    slow = lag.run(w, *args)
+    torch.cuda.synchronize()
+    if not all(torch.equal(x, y) for x, y in zip(got, slow)):
+        raise RuntimeError("the lagged launch's outputs differ")
+    base_ms = median_ms(lambda: comp.run(w, *args), flush, iters=5)
+    lag_ms = median_ms(lambda: lag.run(w, *args), flush, iters=5)
+    print(f"[tp_mega] straggler (rank 1 lags {TP_MEGA_LAG_NS} ns): outputs "
+          f"bit-identical, {lag_ms:.4f} ms against {base_ms:.4f}")
+    if lag_ms < base_ms + TP_MEGA_LAG_NS / 1e6:
+        raise RuntimeError("the straggler did not lengthen the launch")
+    # Back to back on fresh tokens, every launch checked.
+    rng = np.random.default_rng(SEED + 6)
+    runs = []
+    for _ in range(TP_MEGA_STRESS):
+        tok = torch.from_numpy(rng.integers(0, V, b).astype(np.int32)).to(
+            dev)
+        i = {}
+        runs.append((tok, comp.run(w, *args[:4], tok, info=i), i))
+    torch.cuda.synchronize()
+    for tok, out, i in runs:
+        _ranks_equal(i, "stress")
+        ref = mega_decode_plain_tp(dims, True, comp.table, w, *args[:4], tok)
+        _tp_mega_limit_use(out, ref, lambda s, ref=ref: ref[0], "bf16",
+                           "stress launch")
+    print(f"[tp_mega] {TP_MEGA_STRESS} launches back to back on fresh "
+          "tokens: each within the limit, ranks bitwise equal")
+    # Traced: == untraced, each rank's ring valid; the step split by opcode.
+    for ns in TP_MEGA_NS:
+        comp = comps[True, ns]
+        tcomp = megas[True]._compile(dataclasses.replace(
+            comp.builder.dims, trace=True))
+        base = comp.run(w, *args)
+        launches = []
+        for _ in range(5):
+            flush.zero_()
+            torch.cuda._sleep(LEAD_CYCLES)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            tout = tcomp.run(w, *args)
+            end.record()
+            end.synchronize()
+            launches.append((start.elapsed_time(end), tout))
+        if not all(torch.equal(x, y) for x, y in zip(base, launches[0][1])):
+            raise RuntimeError(f"traced tp launch NS={ns} differs from the "
+                               "untraced one")
+        event_ms, tout = sorted(launches, key=lambda x: x[0])[2]
+        ring = tout[5].cpu().numpy()
+        records = kt.decode_trace(ring)
+        problems = kt.validate_ring(records, tcomp.order)
+        mids = [r for r in records if r.opcode in (
+            int(TaskType.AR_SEND), int(TaskType.AR_WAIT))]
+        if (ring.shape[0] != TP or problems or not mids
+                or not all(r.begin <= r.mid <= r.end for r in mids)):
+            raise RuntimeError(f"traced tp launch NS={ns}: rings "
+                               f"{ring.shape}, problems {problems[:5]}")
+        mine = [r for r in records if r.rank == 0]
+        span = max(r.end for r in mine) - min(r.begin for r in mine)
+        split = {}
+        for r in mine:
+            split[r.op] = split.get(r.op, 0.0) + r.dur * event_ms / span / ns
+        rec["split_ms_per_step"][ns] = {
+            "event_ms_per_launch": event_ms,
+            **{op: split.get(op, 0.0) for op in TP_MEGA_SPLIT_OPS}}
+        print(f"[tp_mega] traced NS={ns}: == untraced bit for bit, {TP} "
+              f"rings of {len(records) // TP} records validate; rank 0's "
+              f"split per step {json.dumps(rec['split_ms_per_step'][ns])}")
+    # f32 at 2 layers: tokens equal, logits within 2e-3.
+    m32 = AutoLLM.from_pretrained(TP_MODEL, device=dev, seed=SEED, tp=TP,
+                                  dtype=torch.float32, num_layers=2)
+    a32 = _tp_mega_operands(m32, TP_MEGA_LENS, SEED + 5)
+    w32 = _weights(m32.params)
+    for ns in TP_MEGA_NS:
+        mega = MegaQwen3(m32, cfg=MegaConfig(
+            fuse_norms=True, cross_prefetch=True, overlap_ar=True))
+        dims = dataclasses.replace(
+            mega._dims(b, TP_MAX_LENGTH, PAGE,
+                       num_pages=int(a32[0][0].shape[1])),
+            nsteps=ns, v_real=V)
+        comp = mega._compile(dims)
+        i = {}
+        got = comp.run(w32, *a32, info=i)
+        torch.cuda.synchronize()
+        _ranks_equal(i, f"f32 NS={ns}")
+        ref = mega_decode_plain_tp(dims, True, comp.table, w32, *a32)
+        used, err, _ = _tp_mega_limit_use(got, ref, None, "f32",
+                                          f"mega_decode_tp f32 NS={ns}")
+        rec["limit_used"][f"f32_ns{ns}"] = used
+        print(f"[tp_mega] f32 2 layers NS={ns}: tokens == plain, logits "
+              f"max_abs_err {err:.3e}, {used:.3f} of the limit")
+    del m32, a32, w32
+    torch.cuda.empty_cache()
+    bound = _tp_mega_bound(model, TP_MEGA_LENS)
+    ms1 = rec["ms_per_launch"]["ns1_overlap1"]
+    print(f"[tp_mega] {ms1:.4f} ms a step at NS=1, "
+          f"{rec['ms_per_launch']['ns8_overlap1'] / 8:.4f} in an NS=8 "
+          f"launch; bound {bound['bound_ms']:.4f} ms ({bound['bound_bytes']}"
+          f" B over {HBM_BPS:.3g} B/s); plain "
+          f"{rec['plain_ms_per_launch']['ns1']:.2f} ms")
+    return dict(
+        route="cuda",
+        source="triton_distributed_tpu_torch/csrc/megakernel.cu",
+        replaces="triton_distributed_tpu/megakernel/kernels.py:1047",
+        max_abs_err=max_err, ms=ms1,
+        plain_ms=rec["plain_ms_per_launch"]["ns1"], library_ms=None,
+        **bound,
+        shape=f"{TP_MODEL} tp={TP}, 36 layers, B={b}, paged page={PAGE}, "
+              f"kv_len {list(TP_MEGA_LENS)}, NS=1 bf16 (ms = one step), "
+              "the serving config (fused norms, overlap_ar); the tp>1 "
+              "bodies kernels.py:1047 allreduce, :1076 ar_send, :1102 "
+              "ar_wait, :1574 barrier, :1529-1557 the LM head's argmax, "
+              "in code_generator.py:473's pallas_call",
+        ms_per_step_ns8=rec["ms_per_launch"]["ns8_overlap1"] / 8,
+        control_x=control, straggler_ms=[base_ms, lag_ms],
+        launch=info, **rec)
+
+
+def serve_tp_mega_paths(dev, model, plain, tp_outs) -> tuple:
+    """The megakernel's paths at tp=2 on ``model`` (TP_MEGA_PATH_KERNELS):
+    ``ContinuousEngine(mode="mega", ns=8, prefix_cache=True, eos_id=...)``
+    over the TP prompts (the eos id: continuous_tp's token TP_MEGA_EOS_AT
+    of request 0), ``Engine(mode="mega", paged=True)`` on the two
+    300-token prompts, and the continuous path resident and traced (the
+    same engine otherwise: its tokens the untraced path's; every rank's ring validated against the
+    scheduled order and its doorbell). Each path: audit, teacher forcing
+    against ``plain``, and the megakernel's launches exactly one per
+    ns-step launch and per single step. Returns (launches by path, e2e)."""
+    import numpy as np
+    import torch
+
+    from triton_distributed_tpu_torch.models import ContinuousEngine, Engine
+    from triton_distributed_tpu_torch.obs import kernel_trace as kt
+    from triton_distributed_tpu_torch.ops import cuda_kernels as ck
+
+    rng, prompts, _ids = tp_prompts(model.cfg.vocab_size)
+    eos = int(tp_outs["continuous_tp"][0][TP_MEGA_EOS_AT])
+    warm = rng.integers(0, model.cfg.vocab_size,
+                        TP_PROMPT_LENS[0]).astype(np.int32)
+    kw = dict(max_batch=4, page_size=PAGE, max_length=TP_MAX_LENGTH,
+              mode="mega", ns=TP_MEGA_NSTEP, eos_id=eos, device=dev)
+    runs = {
+        "continuous_tp_mega": lambda: ContinuousEngine(
+            model, prefix_cache=True, **kw),
+        "paged_engine_tp_mega": lambda: Engine(model, mode="mega",
+                                               paged=True, page_size=PAGE,
+                                               device=dev),
+        "continuous_tp_mega_resident": lambda: ContinuousEngine(
+            model, prefix_cache=True, resident=True, kernel_trace=True,
+            **kw),
+    }
+    launches, outs, e2e = {}, {}, {}
+    for path, make in runs.items():
+        eng = make()
+        timer = None
+        if path == "paged_engine_tp_mega":
+            eng.serve(np.stack(prompts[1::2]), 2, TP_MAX_LENGTH)
+        else:
+            eng.run([(warm, 2)])
+            timer = _LaunchTimer(eng)
+        torch.cuda.synchronize()
+        ck.reset_launch_counts()
+        t0 = time.perf_counter()
+        if path == "paged_engine_tp_mega":
+            got = eng.serve(np.stack(prompts[1::2]), TP_GEN, TP_MAX_LENGTH,
+                            ns=TP_MEGA_NSTEP)
+            outs[path] = [g[len(p):] for g, p in zip(got, prompts[1::2])]
+        else:
+            outs[path] = eng.run([(p, TP_GEN) for p in prompts])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches[path] = ck.launch_counts()
+        if eng.audit():
+            raise RuntimeError(f"{path}: pool audit failed: {eng.audit()}")
+        st = eng.last_stats
+        n_launch = st.get("mega_launches", 0)
+        if path == "paged_engine_tp_mega":
+            singles = TP_GEN - 1 - n_launch * TP_MEGA_NSTEP
+        else:
+            singles = st.get("mega_fallback_steps", 0)
+        want = n_launch + singles
+        counts = {k: launches[path][k] for k in TP_MEGA_PATH_KERNELS[path]}
+        print(f"[tp_mega] {path}: {wall:.2f} s wall, launches {counts} "
+              f"({n_launch} ns={TP_MEGA_NSTEP} launches + {singles} single "
+              "steps)")
+        missing = [k for k, c in counts.items() if not c]
+        if missing or counts["mega_decode_tp"] != want:
+            raise RuntimeError(f"{path}: launches {counts}, "
+                               f"{want} megakernel launches expected")
+        e2e[path] = {"wall_s": wall, "launches": counts,
+                     "mega_launches": n_launch, "single_steps": singles}
+        if timer is not None:
+            steps = n_launch * TP_MEGA_NSTEP
+            e2e[path]["launch_device_ms_per_step"] = (
+                timer.device_ms() / max(steps, 1))
+        if path == "continuous_tp_mega_resident":
+            if [list(o) for o in outs[path]] != [
+                    list(o) for o in outs["continuous_tp_mega"]]:
+                raise RuntimeError("the resident path's tokens differ from "
+                                   "continuous_tp_mega's")
+            order = eng._mega_model().multi_task_order(
+                4, TP_MAX_LENGTH, TP_MEGA_NSTEP, page=PAGE,
+                num_pages=eng.cache.num_pages, valid_arg=True, trace=True,
+                eos=True, ring=True)
+            rings = eng.kernel_trace_launches()
+            for ln in rings:
+                problems = kt.validate_ring(ln.get_records(), order,
+                                            doorbell=ln.doorbell)
+                if ln.ring.shape[0] != TP or problems:
+                    raise RuntimeError(f"{path}: ring {ln.ring.shape}, "
+                                       f"problems {problems[:5]}")
+            print(f"[tp_mega] {path}: tokens == continuous_tp_mega's, "
+                  f"{len(rings)} recent launches' {TP} rings validate "
+                  f"against the order and their doorbells; "
+                  f"{st['mega_resident_rounds']} resident rounds")
+            e2e[path]["resident_rounds"] = st["mega_resident_rounds"]
+            continue
+        gaps = []
+        src = prompts[1::2] if path == "paged_engine_tp_mega" else prompts
+        for p, o in zip(src, outs[path]):
+            gaps += teacher_forced_gaps(plain, p, np.asarray(o))
+        e2e[path]["teacher_forcing"] = _tf_check(
+            f"{path} (tp={TP})", gaps, TF_MARGIN, TF_MIN_EXACT)
+    e2e["eos_id"] = eos
+    return launches, e2e
 
 
 # Tensor-parallel Qwen3-MoE: Qwen/Qwen3-30B-A3B at tp=2 (hq_loc 16,
@@ -5138,39 +5610,47 @@ def main() -> int:
     t0 = time.perf_counter()
     records = check_kernels(dev, flush)
     phase_s["kernels"] = time.perf_counter() - t0
+    print(f"[time] kernels: {phase_s['kernels']:.1f} s", flush=True)
     t0 = time.perf_counter()
     records["mega_decode"], more = check_mega(dev, flush)
     records.update(more)
     phase_s["mega"] = time.perf_counter() - t0
+    print(f"[time] mega: {phase_s['mega']:.1f} s", flush=True)
     del flush
     t0 = time.perf_counter()
     check_tiny_serving(dev)
     phase_s["tiny"] = time.perf_counter() - t0
+    print(f"[time] tiny: {phase_s['tiny']:.1f} s", flush=True)
     t0 = time.perf_counter()
     launches, e2e = serve_main_path(dev)
     phase_s["serve"] = time.perf_counter() - t0
+    print(f"[time] serve: {phase_s['serve']:.1f} s", flush=True)
     t0 = time.perf_counter()
     moe_records, moe_launches, e2e["moe"] = check_moe(dev)
     records.update(moe_records)
     launches.update(moe_launches)
     phase_s["moe"] = time.perf_counter() - t0
+    print(f"[time] moe: {phase_s['moe']:.1f} s", flush=True)
     t0 = time.perf_counter()
     tp_records, tp_launches, e2e["tp"] = check_tp(dev)
     records.update(tp_records)
     launches.update(tp_launches)
     phase_s["tp"] = time.perf_counter() - t0
+    print(f"[time] tp: {phase_s['tp']:.1f} s", flush=True)
     t0 = time.perf_counter()
     mtp_records, mtp_launches, e2e["moe_tp"] = check_moe_tp(dev)
     records.update(mtp_records)
     launches.update(mtp_launches)
     phase_s["moe_tp"] = time.perf_counter() - t0
-    print(f"[time] seconds per phase: {json.dumps(phase_s)}")
+    print(f"[time] moe_tp: {phase_s['moe_tp']:.1f} s", flush=True)
+    print(f"[time] seconds per phase: {json.dumps(phase_s)}; total "
+          f"{sum(phase_s.values()):.1f}")
 
     # "launches" counts the first path that must launch the kernel;
     # "launches_by_path" gives every path's own run.
     kernels = []
     paths = {**PATH_KERNELS, **MOE_PATH_KERNELS, **TP_PATH_KERNELS,
-             **MOE_TP_PATH_KERNELS}
+             **TP_MEGA_PATH_KERNELS, **MOE_TP_PATH_KERNELS}
     for k in ck.KERNELS:
         first = next(p for p, need in paths.items() if k.name in need)
         kernels.append({

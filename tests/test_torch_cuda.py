@@ -1891,3 +1891,229 @@ def test_moe_tp_serving_on_card_equals_cpu(dev, tp):
             assert all(counts[0][k] > 0 for k in (
                 "all_reduce_one_shot", "reduce_scatter_one_shot",
                 "all_gather"))
+
+
+# -- the decode megakernel at tp > 1 -------------------------------------------
+#
+# mega_decode_tp (one cooperative launch over n co-located ranks, its
+# exchanges in csrc/megakernel.cu) against its plain version
+# (kernels.mega_decode_plain_tp: the ranks walked in lockstep) on the
+# same per-rank weight shards, pool or cache shards and tokens: tiny at
+# tp=2 and 4 (hkv_loc 2 and 1), dense and paged, NS 1 and 8, overlap_ar
+# on and off. f32 (TF32 off): tokens equal, logits within 2e-3; bf16:
+# MEGA_TOL, a token may leave the plain stream only at a near tie. Every
+# rank's tokens and final residual are bitwise equal (each folds the same
+# partials in rank order).
+
+
+def _mega_tp_inputs(dev, tp, dtype, paged, ns, overlap=True, seed=0):
+    """A tiny tp=n model on the card (the CPU draws, sharded), random
+    per-rank cache shards, and a compiled multi-step call: returns
+    ``(mega, dims, compiled, w, args)``."""
+    import dataclasses as dc
+
+    from triton_distributed_tpu_torch.megakernel import MegaConfig, MegaQwen3
+    from triton_distributed_tpu_torch.megakernel.qwen3 import _weights
+    from triton_distributed_tpu_torch.models import AutoLLM
+    from triton_distributed_tpu_torch.models.qwen import Qwen3
+
+    _over, lens, page = MEGA_SHAPES["tiny"]
+    s_max = 64
+    src = AutoLLM.from_pretrained("tiny", device="cpu", seed=seed,
+                                  dtype=dtype, max_length=s_max)
+    model = Qwen3(src.cfg, device=dev, tp=tp)
+    model.set_params(src.params)
+    cfg = model.cfg
+    rng = np.random.default_rng(seed)
+    b, L, hkv, hd = len(lens), cfg.num_layers, cfg.num_kv_heads // tp, \
+        cfg.head_dim
+    lens_np = np.asarray(lens)
+    if paged:
+        pps = s_max // page
+        n_pages = b * pps + 1
+        shape = (L, n_pages, hkv, page, hd)
+        perm = rng.permutation(np.arange(1, n_pages))[: b * pps].reshape(
+            b, pps)
+        need = -(-(lens_np + ns) // page)
+        table = np.where(np.arange(pps)[None] < need[:, None], perm, 0)
+        table[lens_np == 0] = 0
+        table = torch.from_numpy(table.astype(np.int32)).to(dev)
+    else:
+        shape = (L, b, hkv, s_max, hd)
+        table = None
+    kc = [_rand(rng, shape, dtype, dev) for _ in range(tp)]
+    vc = [_rand(rng, shape, dtype, dev) for _ in range(tp)]
+    mega = MegaQwen3(model, cfg=MegaConfig(fuse_norms=True,
+                                           overlap_ar=overlap))
+    dims = dc.replace(mega._dims(b, s_max, page if paged else 0),
+                      nsteps=ns, v_real=cfg.vocab_size)
+    kv_len = torch.from_numpy(lens_np.astype(np.int32)).to(dev)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, b).astype(
+        np.int32)).to(dev)
+    return (mega, dims, mega._compile(dims), _weights(model.params),
+            [kc, vc, table, kv_len, tokens])
+
+
+def _mega_tp_plain(dims, compiled, w, args, **kw):
+    from triton_distributed_tpu_torch.megakernel.kernels import (
+        mega_decode_plain_tp,
+    )
+
+    info = {}
+    out = mega_decode_plain_tp(dims, True, compiled.table, w, *args,
+                               info=info, **kw)
+    return out, info
+
+
+def _mega_tp_check(got, ginfo, ref, dtype, n):
+    """Kernel vs plain at tp=n: ranks bitwise equal, tokens (near ties
+    only in bf16), logits within MEGA_TOL. Returns the limit's share."""
+    logits, _k, _v, toks, _ = got
+    assert torch.isfinite(logits).all()
+    for r in range(1, n):
+        assert torch.equal(ginfo["toks"][r], ginfo["toks"][0])
+        assert torch.equal(ginfo["x"][r], ginfo["x"][0])
+    if dtype == torch.float32:
+        assert torch.equal(toks, ref[3]), (toks.tolist(), ref[3].tolist())
+    else:
+        _chip_smoke()._mega_tokens_ok(toks, ref[3], lambda s: ref[0])
+    atol, rtol = MEGA_TOL[dtype]
+    same = (toks == ref[3]).all(dim=0)
+    err = (logits - ref[0]).abs()[same]
+    return (err / (atol + rtol * ref[0].abs()[same])).max().item()
+
+
+@pytest.mark.parametrize("overlap", [False, True])
+@pytest.mark.parametrize("ns", [1, 8])
+@pytest.mark.parametrize("paged", [False, True])
+@pytest.mark.parametrize("tp,dtype", [
+    (2, torch.float32), (4, torch.float32), (2, torch.bfloat16),
+    (4, torch.bfloat16),
+])
+def test_mega_tp_matches_plain(dev, tp, dtype, paged, ns, overlap):
+    mega, dims, compiled, w, args = _mega_tp_inputs(dev, tp, dtype, paged,
+                                                    ns, overlap)
+    before = ck.MEGA_DECODE_TP.launches
+    info = {}
+    got = compiled.run(w, *args, info=info)
+    torch.cuda.synchronize()
+    assert ck.MEGA_DECODE_TP.launches == before + 1
+    assert info["blocks"] * tp <= info["blocks_per_sm"] * 132
+    again = compiled.run(w, *args)
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+    ref, _ = _mega_tp_plain(dims, compiled, w, args)
+    used = _mega_tp_check(got, info, ref, dtype, tp)
+    print(f"mega tp={tp} {dtype} paged={paged} ns={ns} overlap={overlap}: "
+          f"{used:.3f} of the limit")
+    assert used <= 1.0
+
+
+def test_mega_tp_straggler_and_back_to_back(dev):
+    """A 500 µs lag on rank 1 leaves every output bit-identical and makes
+    the launch at least 0.5 ms longer; then 20 launches back to back on
+    fresh tokens, each equal to its plain version (a flag or slot reused
+    across launches would let a rank fold a stale partial)."""
+    import dataclasses as dc
+
+    mega, dims, compiled, w, args = _mega_tp_inputs(dev, 2, torch.float32,
+                                                    True, 8)
+    lagged = mega._compile(dc.replace(dims, straggler_rank=1,
+                                      straggler_nanos=500_000))
+
+    def timed(c):
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        e0.record()
+        out = c.run(w, *args)
+        e1.record()
+        torch.cuda.synchronize()
+        return out, e0.elapsed_time(e1)
+
+    timed(compiled), timed(lagged)  # warm
+    base, t0 = timed(compiled)
+    slow, t1 = timed(lagged)
+    for a, b in zip(base, slow):
+        assert torch.equal(a, b)
+    assert t1 >= t0 + 0.5, (t0, t1)
+    rng = np.random.default_rng(11)
+    outs = []
+    for _ in range(20):
+        tok = torch.from_numpy(rng.integers(0, 256, 4).astype(np.int32)).to(
+            dev)
+        info = {}
+        outs.append((tok, compiled.run(w, *args[:4], tok, info=info), info))
+    torch.cuda.synchronize()
+    for tok, got, info in outs:
+        ref, _ = _mega_tp_plain(dims, compiled, w, args[:4] + [tok])
+        assert _mega_tp_check(got, info, ref, torch.float32, 2) <= 1.0
+
+
+def test_mega_tp_refuses_a_grid_that_cannot_be_coresident(dev):
+    """n ranks of G blocks each must all be resident: G = the card's
+    capacity at n = 2 is refused before it launches, half of it runs."""
+    from triton_distributed_tpu_torch.megakernel.code_generator import (
+        mega_decode_tp,
+    )
+
+    mega, dims, compiled, w, args = _mega_tp_inputs(dev, 2, torch.float32,
+                                                    False, 1)
+    info = {}
+    compiled.run(w, *args, info=info)
+    cap = info["blocks"] * 2
+    before = ck.MEGA_DECODE_TP.launches
+    with pytest.raises(RuntimeError, match="cudaError"):
+        mega_decode_tp(dims, mega.cfg, compiled.run.table, w, *args,
+                       mega.model.ctx, blocks_per_rank=cap)
+    assert ck.MEGA_DECODE_TP.launches == before
+    mega_decode_tp(dims, mega.cfg, compiled.run.table, w, *args,
+                   mega.model.ctx, blocks_per_rank=cap // 4)
+    torch.cuda.synchronize()
+    assert ck.MEGA_DECODE_TP.launches == before + 1
+
+
+@pytest.mark.parametrize("tp", [2, 4])
+def test_mega_tp_serving_on_card_equals_cpu(dev, tp):
+    """Tiny f32 at tp=2/4 in mode='mega' on the card emits the CPU's tokens
+    through both engines (prefix cache, ns 4, eos; resident and traced),
+    launching the tp megakernel; the traced rings validate per rank."""
+    from triton_distributed_tpu_torch.models import (
+        AutoLLM,
+        ContinuousEngine,
+        Engine,
+    )
+    from triton_distributed_tpu_torch.models.qwen import Qwen3
+    from triton_distributed_tpu_torch.obs import kernel_trace as kt
+
+    src = AutoLLM.from_pretrained("tiny", device="cpu", seed=3)
+    rng = np.random.default_rng(4)
+    prompts = [rng.integers(0, 256, k).astype(np.int32) for k in (20, 41, 9)]
+    ids = np.stack([prompts[0], prompts[1][:20]])
+    outs, counts = [], []
+    for d in (dev, "cpu"):
+        m = Qwen3(src.cfg, device=d, tp=tp)
+        m.set_params(src.params)
+        ck.reset_launch_counts()
+        res = []
+        kw = dict(max_batch=2, page_size=16, max_length=64, mode="mega",
+                  ns=4, device=d)
+        eng = ContinuousEngine(m, prefix_cache=True, eos_id=int(
+            prompts[0][3]), **kw)
+        res.append(np.concatenate(eng.run([(p, 9) for p in prompts])))
+        assert eng.audit() == []
+        res_eng = ContinuousEngine(m, resident=True, kernel_trace=True, **kw)
+        res.append(np.concatenate(res_eng.run([(p, 9) for p in prompts])))
+        for launch in res_eng.kernel_trace_launches():
+            # One ring a rank, every record written, the same tasks.
+            records = kt.decode_trace(launch.ring)
+            ids_by_rank = [[(x.step, x.task_id) for x in records
+                            if x.rank == r] for r in range(tp)]
+            assert launch.ring.shape[0] == tp and ids_by_rank[0]
+            assert all(i == ids_by_rank[0] for i in ids_by_rank)
+        res.append(Engine(m, mode="mega", paged=True, page_size=16,
+                          device=d).serve(ids, 7, 64, ns=4))
+        res.append(Engine(m, mode="mega", device=d).serve(ids, 7, 64, ns=4))
+        counts.append(ck.launch_counts())
+        outs.append(res)
+    assert all(np.array_equal(x, y) for x, y in zip(*outs))
+    assert counts[0]["mega_decode_tp"] > 0
+    assert sum(counts[1].values()) == 0

@@ -400,8 +400,14 @@ def test_refused_knobs_raise(models):
     base = MegaDims(**_DIMS)
     import dataclasses
 
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        check_dims(dataclasses.replace(base, n_ranks=2), MegaConfig())
+    # A dense graph at tp>1 builds (tests/test_torch_mega_tp.py); its
+    # prefill graph, MoE and wq8 there stay refused, naming ROADMAP items.
+    check_dims(dataclasses.replace(base, n_ranks=2), MegaConfig())
+    for kw, cfg in ((dict(prefill=True), MegaConfig()),
+                    (dict(num_experts=4, moe_top_k=2), MegaConfig()),
+                    ({}, MegaConfig(wq8=True))):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            check_dims(dataclasses.replace(base, n_ranks=2, **kw), cfg)
     # MoE builds at tp=1 (tests/test_torch_moe.py); with int8 weights, in
     # a prefill graph or without a top-k it is refused, as in JAX.
     moe = dataclasses.replace(base, num_experts=4, moe_top_k=2)

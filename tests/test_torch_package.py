@@ -18,6 +18,7 @@ import numpy as np
 import pytest
 import torch
 
+from triton_distributed_tpu_torch.megakernel import MegaConfig
 from triton_distributed_tpu_torch.models import (
     AutoLLM,
     ContinuousEngine,
@@ -123,15 +124,17 @@ def _refusal(knobs) -> type:
 
 
 @pytest.mark.parametrize("knobs", [
-    dict(mode="mega", tp=2),
+    dict(mode="mega", tp=2, mega_cfg=MegaConfig(wq8=True)),
     dict(speculative=2),
     dict(kv_dtype="int8", paged=False),
     dict(kv_dtype="fp8", paged=True),
 ])
 def test_engine_refuses_unported_knobs(knobs):
     """``mode="pallas"`` is served since tensor parallelism was ported
-    (tests/test_torch_tp.py); its case became the megakernel at tp=2,
-    which stays refused (ROADMAP queue 2 row 6(e))."""
+    (tests/test_torch_tp.py); its case became the megakernel at tp=2, which
+    serves a dense model since row 6(e)'s dense half was ported
+    (tests/test_torch_mega_tp.py): what stays refused there is int8
+    weights (ROADMAP queue 1 position 4)."""
     knobs = dict(knobs)
     model = AutoLLM.from_pretrained("tiny", device="cpu",
                                     tp=knobs.pop("tp", 1))

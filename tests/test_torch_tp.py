@@ -47,6 +47,7 @@ from triton_distributed_tpu_torch.layers.tp_attn import (
     tp_attn_prefill_paged_chunk,
 )
 from triton_distributed_tpu_torch.layers.tp_mlp import tp_mlp_fwd
+from triton_distributed_tpu_torch.megakernel import MegaConfig, MegaQwen3
 from triton_distributed_tpu_torch.models import (
     AutoLLM,
     ContinuousEngine,
@@ -557,7 +558,8 @@ def test_tp_refusals(what):
     cfg = get_config("tiny")
     if what == "moe":
         # Qwen3-MoE serves at tp>1 since its collectives were ported
-        # (tests/test_torch_moe_tp.py); its megakernel stays refused.
+        # (tests/test_torch_moe_tp.py); its megakernel stays refused
+        # (row 6(e), MoE half).
         m = AutoLLM.from_pretrained("tiny-moe", device="cpu", tp=2)
         with pytest.raises(NotImplementedError, match="6\\(e\\)"):
             Engine(m, mode="mega", device="cpu")
@@ -565,11 +567,15 @@ def test_tp_refusals(what):
     m = Qwen3(cfg, device="cpu", tp=2)
     m.init_params(0)
     kw = dict(device="cpu", page_size=PAGE, max_length=MAXLEN)
+    # mode="mega" serves a dense model at tp>1 (tests/test_torch_mega_tp.py);
+    # what stays refused there: int8 weights (wq8) and the prefill
+    # megakernel (queue 1 positions 4 and 2; the MoE megakernel: "moe").
     cases = {
-        "mega_engine": (lambda: Engine(m, mode="mega", device="cpu"),
-                        "6\\(e\\)"),
-        "mega_continuous": (lambda: ContinuousEngine(m, mode="mega", **kw),
-                            "6\\(e\\)"),
+        "mega_engine": (lambda: Engine(m, mode="mega", device="cpu",
+                                       mega_cfg=MegaConfig(wq8=True)),
+                        "position 4"),
+        "mega_continuous": (lambda: MegaQwen3(m).prefill(
+            np.arange(8), m.new_cache(1, MAXLEN)), "position 2"),
         "speculative": (lambda: ContinuousEngine(m, speculative=2, **kw),
                         "item 11"),
         "cp": (lambda: ContinuousEngine(m, cp=2, **kw), "item 11"),

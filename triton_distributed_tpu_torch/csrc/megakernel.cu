@@ -1,7 +1,9 @@
 // The decode megakernel for Hopper (sm_90a): a whole greedy decode step of
 // a dense Qwen3 at tp=1, or NS steps, as ONE persistent cooperative kernel
-// walking a packed task table; and the prefill megakernel (one prompt's
-// rows through the prefill table, mega_prefill_kernel below).
+// walking a packed task table, also over n > 1 co-located tensor-parallel
+// ranks in one launch (see "At tp > 1" below); and the prefill megakernel
+// (one prompt's rows through the prefill table, mega_prefill_kernel
+// below).
 //
 // Replaces: triton_distributed_tpu/megakernel/code_generator.py
 // `make_mega_kernel` / `build_mega_call` (the one `pl.pallas_call` whose
@@ -13,7 +15,8 @@
 //
 // What it computes, per step, task by task in table order (the bodies
 // this slice runs: EMBED, NORM, QKV_PROJ, ATTN, O_PROJ, FC1, FC2,
-// ALLREDUCE at tp=1, LM_HEAD), over f32 state kept in a global workspace
+// ALLREDUCE, LM_HEAD; at tp > 1 also BARRIER, AR_SEND and AR_WAIT), over
+// f32 state kept in a global workspace
 // (x, h, qkv, ao, mlp), rounding where the TPU kernel rounds: every GEMM
 // casts its f32 input to the weight dtype and accumulates in f32; the
 // fused norms (no NORM tasks in the table) normalise inline; ATTN runs
@@ -134,6 +137,47 @@
 // (FC1 sums, SwiGLU, FC2 sums); FC2 keeps its split-K partials apart
 // from FC1's (part2), so no barrier follows the accumulate. Bound: bytes,
 // each routed expert's 2f(d) + f(d) weights once a step.
+//
+// At tp > 1 (the TPU kernel's n_ranks > 1: kernels.py:1047 allreduce_body
+// beyond tp=1, :1076 ar_send_body, :1102 ar_wait_body, :1574 barrier_body,
+// the puts and waits of :404 _ar_put_dmas, :429 _ar_wait_recvs and :481
+// _workspace_bcast, and the LM head's cross-rank argmax :1529-1557), for a
+// dense graph: n ranks share ONE cooperative launch (the kTp
+// instantiations, tdt_mega_decode_tp), because two cooperative launches on
+// one card are not guaranteed to be co-resident and a rank that waits on a
+// peer that is not resident hangs. The grid is (G, n): blockIdx.y is the
+// rank and blockIdx.x the block within it, so every work split over
+// blockIdx.x / gridDim.x above is rank-local by construction and a tp=1
+// launch (gridDim.y = 1) computes exactly what it computed before. G is
+// the co-resident capacity over n; a grid whose n·G blocks cannot all be
+// resident is refused. Each block reads its rank's Params (its weights,
+// pool shard, knew/vnew, workspace, trace ring and grid-barrier counter,
+// so grid_sync counts only the rank's G blocks) from a __grid_constant__
+// array. The exchanges (Comm, through the tdt_comm.cuh primitives): the
+// graph's entry BARRIER is tdt::barrier_all; an ALLREDUCE, and an AR_SEND
+// with its AR_WAIT, move the f32 partial h: block g of rank me stores its
+// elements of h (the same elements every rank's block g owns, and the ones
+// its fold reads) into slot me of every peer, publishes them with one
+// release flag per (source rank, block) at system scope, and after the
+// acquire of every peer's block g folds x += slot[0] + ... + slot[n-1] in
+// rank order in f32 (its own partial read from h), so every rank holds the
+// same bits. The LM head's (value, global index) candidates go the same
+// way, one candidate set per block, and every block reduces them in rank
+// order with a strict > (a tie goes to the lower rank: the first
+// occurrence). Flags are never reset: a flag's value is the launch epoch
+// (<< 20) plus the exchange's ordinal in the launch. Slot reuse, which the
+// TPU kernel's trailing cross-rank barriers guard, is guarded here by two
+// slot sets alternated per exchange (one pair for the partials, one for the
+// candidates): before block g of a rank writes a slot set again it has
+// waited for block g of every peer at the exchange in between, which that
+// peer's block g publishes only after it has read the slot. The TPU
+// kernel's cross_prefetch tile-0 DMA has no counterpart here; the tracer
+// stamps mid where the TPU bodies call trace_mid. The straggler fixture
+// (the TPU kernel's straggler_rank) spins the lagging rank's blocks before
+// its first exchange and before every LM-head push. Code a tp=1 launch does
+// not run sits behind the kTp template parameter. Bound: bytes, every
+// rank's weight shards and K/V rows over the one card's HBM.
+#include "tdt_comm.cuh"
 #include "tdt_common.cuh"
 
 #include <math.h>
@@ -170,8 +214,9 @@ constexpr int kUnrollPV = 8;        // V rows in flight per thread
 // TaskType values (megakernel/task.py).
 enum : int {
   kEmbed = 0, kNorm = 1, kQkv = 2, kAttn = 3, kOProj = 4, kFc1 = 5,
-  kFc2 = 6, kAllReduce = 7, kLmHead = 8, kAttnPrefill = 10, kLoadX = 11,
-  kMoeGate = 14, kMoeFfn = 15, kA2aSend = 16, kA2aWait = 17, kRingPoll = 18
+  kFc2 = 6, kAllReduce = 7, kLmHead = 8, kBarrier = 9, kAttnPrefill = 10,
+  kLoadX = 11, kArSend = 12, kArWait = 13, kMoeGate = 14, kMoeFfn = 15,
+  kA2aSend = 16, kA2aWait = 17, kRingPoll = 18
 };
 constexpr int kMaxExperts = 256;    // the gate's warp holds 8 per lane
 constexpr int kGateUnroll = 8;      // router rows in flight per thread
@@ -223,6 +268,49 @@ struct Params {
   float* moe_w; float* moe_acc; float* a2buf; float* cbuf; float* part2;
   int E, topk, norm_topk;
 };
+
+// The exchange of a launch over n > 1 co-located ranks (kTp). Each rank's
+// slots (floats): the partials [2][n][B * d], then the LM head's candidates
+// [2][n][g_cap][B][2] (two alternating sets each, the source rank's slot
+// within a set); its flags (uint64): the entry barrier's [n], then one a
+// source block [n][g_cap]. Both through device tables of the ranks' slot
+// pointers (DistContext symmetric allocations).
+struct Comm {
+  const int64_t* slot_tab;
+  const int64_t* flag_tab;
+  unsigned long long base;  // epoch << 20: exchange e waits for base + e + 1
+  long long lag_ns;         // the straggler fixture's lag
+  int n, g_cap, lag_rank;   // lag_rank -1: none
+};
+
+// A kTp launch's argument: every rank's Params and the exchange.
+struct TpParams {
+  Params p[tdt::kMaxRanks];
+  Comm c;
+};
+
+template <bool kTp>
+struct KernelArg {
+  using type = Params;
+};
+template <>
+struct KernelArg<true> {
+  using type = TpParams;
+};
+
+// The Params of this block's rank (blockIdx.y), and the exchange.
+__device__ __forceinline__ const Params& rank_params(const Params& a) {
+  return a;
+}
+__device__ __forceinline__ const Params& rank_params(const TpParams& a) {
+  return a.p[blockIdx.y];
+}
+__device__ __forceinline__ const Comm* comm_of(const Params&) {
+  return nullptr;
+}
+__device__ __forceinline__ const Comm* comm_of(const TpParams& a) {
+  return &a.c;
+}
 
 // -- small helpers -----------------------------------------------------------
 
@@ -309,6 +397,87 @@ __device__ __forceinline__ void grid_sync(unsigned* bar) {
     __threadfence();
   }
   __syncthreads();
+}
+
+// -- the cross-rank exchange (kTp) ---------------------------------------------
+
+// The flag value of the launch's exchange ordinal e.
+__device__ __forceinline__ uint64_t xval(const Comm& c, int e) {
+  return c.base + (uint64_t)e + 1;
+}
+
+// Rank r's flag of source block (src, this block's index).
+__device__ __forceinline__ uint64_t* xflag(const Comm& c, int r, int src) {
+  return tdt::symm_ptr<uint64_t>(c.flag_tab, r) + c.n +
+         (size_t)src * c.g_cap + blockIdx.x;
+}
+
+// Slot `src` of rank r's partials set `par` ([B * d] floats).
+__device__ __forceinline__ float* ar_slot(const Comm& c, int r, int par,
+                                          int src, size_t bd) {
+  return tdt::symm_ptr<float>(c.slot_tab, r) + ((size_t)par * c.n + src) * bd;
+}
+
+// This block's candidates [B][2] in slot `src` of rank r's set `par`.
+__device__ __forceinline__ float* lm_slot(const Comm& c, int r, int par,
+                                          int src, size_t bd, int B) {
+  return tdt::symm_ptr<float>(c.slot_tab, r) + 2 * (size_t)c.n * bd +
+         (((size_t)par * c.n + src) * c.g_cap + blockIdx.x) * 2 * B;
+}
+
+// The straggler fixture: the lagging rank's blocks spin before a push.
+__device__ __forceinline__ void straggle(const Comm& c, int me) {
+  if (me == c.lag_rank && threadIdx.x == 0) {
+    const uint64_t t0 = tdt::global_ns();
+    while (tdt::global_ns() - t0 < (uint64_t)c.lag_ns) __nanosleep(1000);
+  }
+  __syncthreads();
+}
+
+// After the block's threads stored its piece into every peer's slot:
+// publish it to the same block of every peer (release, system scope).
+__device__ __forceinline__ void xsignal(const Comm& c, int me, uint64_t v) {
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    __threadfence_system();
+    for (int r = 0; r < c.n; ++r)
+      if (r != me) tdt::st_release_sys(xflag(c, r, me), v);
+  }
+}
+
+// Wait until the same block of every peer has published exchange v.
+__device__ __forceinline__ void xwait(const Comm& c, int me, uint64_t v) {
+  if (threadIdx.x == 0)
+    for (int r = 0; r < c.n; ++r)
+      if (r != me) tdt::wait_until(xflag(c, me, r), v);
+  __syncthreads();
+}
+
+// The exchange of the partial h (ALLREDUCE, AR_SEND): this block's
+// elements into slot `me` of every peer's set `par`, then the flag.
+__device__ void ar_push(const Params& p, const Comm& c, int me, int par,
+                        uint64_t v) {
+  const size_t bd = (size_t)p.B * p.d;
+  for (size_t i = (size_t)blockIdx.x * kThreads + threadIdx.x; i < bd;
+       i += (size_t)gridDim.x * kThreads) {
+    const float hv = __ldcg(p.h + i);
+    for (int r = 0; r < c.n; ++r)
+      if (r != me) ar_slot(c, r, par, me, bd)[i] = hv;
+  }
+  xsignal(c, me, v);
+}
+
+// The fold (ALLREDUCE, AR_WAIT), after xwait: x += h_0 + ... + h_{n-1} in
+// rank order in f32, the rank's own partial read from h.
+__device__ void ar_fold(const Params& p, const Comm& c, int me, int par) {
+  const size_t bd = (size_t)p.B * p.d;
+  for (size_t i = (size_t)blockIdx.x * kThreads + threadIdx.x; i < bd;
+       i += (size_t)gridDim.x * kThreads) {
+    float acc = __ldcg(p.x + i);
+    for (int r = 0; r < c.n; ++r)
+      acc += r == me ? __ldcg(p.h + i) : __ldcg(ar_slot(c, me, par, r, bd) + i);
+    p.x[i] = acc;
+  }
 }
 
 // rstd[b] = rsqrt(mean(x[b]^2) + eps) for the B rows of x [B, d].
@@ -844,6 +1013,59 @@ __device__ void lm_head(const Params& p, int step, float* xs, float* red,
   }
 }
 
+// The LM head's cross-rank argmax (kTp, after the grid barrier that follows
+// the LM head): this rank's (value, global index) candidate of each row,
+// from the blocks' argv/argi, into candidate slot `me` of set `par` of every
+// rank (each block its own copy), then, once the same block of every peer
+// has published, the ranks' candidates reduced in rank order with a strict
+// > (rank 0's first) into tok_s; block 0 writes the rank's toks and
+// stop_step, as the tp=1 tail does.
+__device__ __noinline__ void lm_exchange(const Params& p, const Comm& c,
+                                         int me, int step, int par,
+                                         uint64_t v, int* tok_s) {
+  const int B = p.B;
+  const size_t bd = (size_t)B * p.d;
+  straggle(c, me);
+  for (int b = threadIdx.x; b < B; b += kThreads) {
+    float bv = -INFINITY;
+    int bi = kIdxNone;
+    for (int blk = 0; blk < (int)gridDim.x; ++blk) {
+      const float v2 = __ldcg(p.argv + (size_t)blk * B + b);
+      const int i2 = __ldcg(p.argi + (size_t)blk * B + b);
+      if (better(v2, i2, bv, bi)) { bv = v2; bi = i2; }
+    }
+    const int gi = bi == kIdxNone ? kIdxNone : me * p.v_pad + bi;
+    for (int r = 0; r < c.n; ++r) {
+      float* slot = lm_slot(c, r, par, me, bd, B) + 2 * b;
+      slot[0] = bv;
+      slot[1] = __int_as_float(gi);
+    }
+  }
+  xsignal(c, me, v);
+  xwait(c, me, v);
+  for (int b = threadIdx.x; b < B; b += kThreads) {
+    float bv = -INFINITY;
+    int bi = kIdxNone;
+    for (int r = 0; r < c.n; ++r) {
+      const float* slot = lm_slot(c, me, par, r, bd, B) + 2 * b;
+      const float v2 = __ldcg(slot);
+      const int i2 = __float_as_int(__ldcg(slot + 1));
+      if (r == 0 || v2 > bv) { bv = v2; bi = i2; }
+    }
+    if (bi == kIdxNone) bi = 0;
+    tok_s[b] = bi;
+    if (blockIdx.x == 0) {
+      p.toks[step * B + b] = bi;
+      if (p.eos) {
+        const int prev = step == 0 ? p.nsteps : p.stop_step[b];
+        const bool hit = bi == p.stop_tok[b];
+        p.stop_step[b] = (hit && prev == p.nsteps) ? step : prev;
+      }
+    }
+  }
+  __syncthreads();
+}
+
 // -- the filtered winner ------------------------------------------------------
 
 constexpr float kNegF = -3.0e38f;  // the TPU kernel's pad-column score
@@ -1321,12 +1543,15 @@ __host__ __device__ __forceinline__ size_t smem_floats(int B, int region) {
 // int8_t); kSample: a sampled launch (the noise, and the filtered pass when
 // p.filtered); kTrace: a traced or ring launch (the tracer's stamps when
 // p.trace is set, and the RING_POLL task); kMoE: an MoE graph (the MoE
-// library's instantiations). The other launches run instantiations without
-// that code, so that it weighs nothing on their registers.
+// library's instantiations); kTp: a launch over n > 1 ranks (its argument
+// is a TpParams, the grid (G, n); BARRIER, AR_SEND, AR_WAIT and the
+// exchanges). The other launches run instantiations without that code, so
+// that it weighs nothing on their registers.
 template <typename T, typename WT, typename CT, bool kSample, bool kTrace,
-          bool kMoE>
+          bool kMoE, bool kTp>
 __global__ void __launch_bounds__(kThreads, kMaxBlocksPerSM)
-    mega_kernel(const __grid_constant__ Params p) {
+    mega_kernel(const __grid_constant__ typename KernelArg<kTp>::type arg) {
+  const Params& p = rank_params(arg);
   constexpr bool kQ8 = sizeof(WT) == 1;
   extern __shared__ __align__(16) float smem[];
   float* rstd = smem;
@@ -1352,6 +1577,12 @@ __global__ void __launch_bounds__(kThreads, kMaxBlocksPerSM)
       kTrace && p.trace != nullptr && blockIdx.x == 0 && tid == 0;
   for (int b = tid; b < B; b += kThreads) tok_s[b] = p.tokens[b];
   __syncthreads();
+  // kTp: this block's rank, the launch's exchange ordinal (every block
+  // walks the same exchanges in the same order), the partials' and the
+  // candidates' exchange counts (their slot sets alternate) and the
+  // pending AR_SEND's ordinal and set.
+  [[maybe_unused]] const int me = blockIdx.y;
+  [[maybe_unused]] int xe = 0, n_ar = 0, n_lm = 0, send_e = 0, send_par = 0;
 
   for (int step = 0; step < p.nsteps; ++step) {
     for (int t = 0; t < p.T; ++t) {
@@ -1450,18 +1681,37 @@ __global__ void __launch_bounds__(kThreads, kMaxBlocksPerSM)
             if constexpr (kQ8) v *= sc[i % d];  // before the residual add
             p.h[i] = v;
           }
-          // ALLREDUCE reads exactly these elements on these threads.
-          if (next != kAllReduce) grid_sync(p.bar);
+          // ALLREDUCE (and AR_SEND) reads exactly these elements on these
+          // threads.
+          if constexpr (kTp) {
+            if (next != kAllReduce && next != kArSend) grid_sync(p.bar);
+          } else {
+            if (next != kAllReduce) grid_sync(p.bar);
+          }
           break;
         }
         case kAllReduce: {
-          // The phase mark between the exchange (none at tp=1) and the
-          // fold, as the TPU kernel's trace_mid.
-          if constexpr (kTrace) {
-            if (tracer) trace_mid(p, step * p.T + t, &trace_t0);
+          if constexpr (kTp) {
+            const Comm& c = *comm_of(arg);
+            if (step == 0 && n_ar == 0) straggle(c, me);
+            const int par = n_ar++ & 1;
+            const uint64_t v = xval(c, xe++);
+            ar_push(p, c, me, par, v);
+            xwait(c, me, v);
+            // The phase mark: the partials have landed; the fold follows.
+            if constexpr (kTrace) {
+              if (tracer) trace_mid(p, step * p.T + t, &trace_t0);
+            }
+            ar_fold(p, c, me, par);
+          } else {
+            // The phase mark between the exchange (none at tp=1) and the
+            // fold, as the TPU kernel's trace_mid.
+            if constexpr (kTrace) {
+              if (tracer) trace_mid(p, step * p.T + t, &trace_t0);
+            }
+            for (size_t i = gtid; i < (size_t)B * d; i += gthreads)
+              p.x[i] = __ldcg(p.x + i) + __ldcg(p.h + i);
           }
-          for (size_t i = gtid; i < (size_t)B * d; i += gthreads)
-            p.x[i] = __ldcg(p.x + i) + __ldcg(p.h + i);
           grid_sync(p.bar);
           break;
         }
@@ -1475,7 +1725,12 @@ __global__ void __launch_bounds__(kThreads, kMaxBlocksPerSM)
               filtered_winner(p, step, b, xs);
             grid_sync(p.bar);
           }
-          if (p.argmax) {
+          if constexpr (kTp) {
+            if (p.argmax) {
+              const Comm& c = *comm_of(arg);
+              lm_exchange(p, c, me, step, n_lm++ & 1, xval(c, xe++), tok_s);
+            }
+          } else if (p.argmax) {
             for (int b = tid; b < B; b += kThreads) {
               float bv = -INFINITY;
               int bi = kIdxNone;
@@ -1542,6 +1797,37 @@ __global__ void __launch_bounds__(kThreads, kMaxBlocksPerSM)
               break;
             }
           }
+          // The cross-rank tasks, in kTp instantiations only.
+          if constexpr (kTp) {
+            const Comm& c = *comm_of(arg);
+            if (type == kBarrier) {
+              tdt::barrier_all(c.flag_tab, me, c.n, xval(c, xe++),
+                               blockIdx.x == 0);
+              break;
+            }
+            if (type == kArSend) {
+              if (step == 0 && n_ar == 0) straggle(c, me);
+              send_par = n_ar++ & 1;
+              send_e = xe++;
+              ar_push(p, c, me, send_par, xval(c, send_e));
+              // The phase mark: every put is out.
+              if constexpr (kTrace) {
+                if (tracer) trace_mid(p, step * p.T + t, &trace_t0);
+              }
+              break;
+            }
+            if (type == kArWait) {
+              // The phase mark before the wait (where the TPU body has
+              // fired the next weight stream's tile 0).
+              if constexpr (kTrace) {
+                if (tracer) trace_mid(p, step * p.T + t, &trace_t0);
+              }
+              xwait(c, me, xval(c, send_e));
+              ar_fold(p, c, me, send_par);
+              grid_sync(p.bar);
+              break;
+            }
+          }
           // RING_POLL: only ring launches have it, and they run a kTrace
           // instantiation; untraced, it is a no-op. Kept out of the case
           // labels, so that the other instantiations compile the switch
@@ -1564,16 +1850,8 @@ __global__ void __launch_bounds__(kThreads, kMaxBlocksPerSM)
   }
 }
 
-template <typename T, typename WT, typename CT, bool kSample, bool kTrace,
-          bool kMoE>
-int launch(Params p, long long ws_floats, int* info, cudaStream_t stream) {
-  auto kern = mega_kernel<T, WT, CT, kSample, kTrace, kMoE>;
-  int dev = 0, sms = 0, coop = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return (int)e;
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
-  if (!coop) return (int)cudaErrorNotSupported;
+// Dynamic shared memory of one decode block (bytes).
+size_t decode_smem(const Params& p, bool moe) {
   const int g = p.hq / p.hkv;
   const int kmax = max(p.d, max(p.hq * p.hd, p.f));
   const int attn_b = 3 * kAttnChunk + g * p.hd + g * kAttnChunk + p.hd +
@@ -1581,21 +1859,18 @@ int launch(Params p, long long ws_floats, int* info, cudaStream_t stream) {
   const int attn_m = g * p.hd + g * (p.nsteps + 1);
   int region = max(min(p.B, kGroupB) * kmax, max(attn_b, attn_m));
   if (p.filtered) region = max(region, kFiltFloats);
-  if (kMoE) region = max(region, p.d + 8 * kThreads + p.E);  // the gate
-  const size_t smem = sizeof(float) * smem_floats(p.B, region);
-  e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  int occ = 0;
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, kern, kThreads, smem);
-  if (e != cudaSuccess) return (int)e;
-  if (occ < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
-  const int nblk = sms * min(occ, kMaxBlocksPerSM);
-  // Carve the workspace; megakernel/code_generator.py sizes it.
+  if (moe) region = max(region, p.d + 8 * kThreads + p.E);  // the gate
+  return sizeof(float) * smem_floats(p.B, region);
+}
+
+// Carve the workspace (base p.x) for a launch of nblk blocks a rank;
+// megakernel/code_generator.py sizes it. Returns false if it is too small.
+bool carve(Params& p, long long ws_floats, int nblk, bool moe) {
   float* ws = p.x;
   size_t off = 0;
   auto take = [&](size_t n) { float* r = ws + off; off += n; return r; };
   const size_t B = p.B;
+  const int g = p.hq / p.hkv;
   const int qkvN = (p.hq + 2 * p.hkv) * p.hd;
   p.x = take(B * p.d);
   p.h = take(B * p.d);
@@ -1609,14 +1884,44 @@ int launch(Params p, long long ws_floats, int* info, cudaStream_t stream) {
   p.vself = take(B * p.hkv * p.hd);
   p.argv = take((size_t)nblk * B);
   p.argi = reinterpret_cast<int*>(take((size_t)nblk * B));
-  if (kMoE) {
+  if (moe) {
     p.moe_w = take((size_t)p.E * B);
     p.moe_acc = take(B * p.d);
     p.a2buf = take(B * p.d);
     p.cbuf = take(B * p.d);
     p.part2 = take((size_t)kMaxSplit * B * p.d);
   }
-  if ((long long)off > ws_floats) return (int)cudaErrorInvalidValue;
+  return (long long)off <= ws_floats;
+}
+
+// The cooperative-launch geometry of kern: its SMs, the blocks per SM the
+// occupancy calculator allows at smem bytes, and whether it may launch.
+template <typename K>
+cudaError_t geometry(K kern, size_t smem, int* sms, int* occ) {
+  int dev = 0, coop = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
+  if (!coop) return cudaErrorNotSupported;
+  e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)smem);
+  if (e != cudaSuccess) return e;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(occ, kern, kThreads, smem);
+  if (e != cudaSuccess) return e;
+  return *occ < 1 ? cudaErrorCooperativeLaunchTooLarge : cudaSuccess;
+}
+
+template <typename T, typename WT, typename CT, bool kSample, bool kTrace,
+          bool kMoE>
+int launch(Params p, long long ws_floats, int* info, cudaStream_t stream) {
+  auto kern = mega_kernel<T, WT, CT, kSample, kTrace, kMoE, false>;
+  const size_t smem = decode_smem(p, kMoE);
+  int sms = 0, occ = 0;
+  cudaError_t e = geometry(kern, smem, &sms, &occ);
+  if (e != cudaSuccess) return (int)e;
+  const int nblk = sms * min(occ, kMaxBlocksPerSM);
+  if (!carve(p, ws_floats, nblk, kMoE)) return (int)cudaErrorInvalidValue;
   info[0] = nblk;
   info[1] = (int)smem;
   info[2] = occ;
@@ -1624,6 +1929,35 @@ int launch(Params p, long long ws_floats, int* info, cudaStream_t stream) {
   e = cudaLaunchCooperativeKernel((const void*)kern,
                                   dim3(nblk), dim3(kThreads), args, smem,
                                   stream);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
+// One launch over tp.c.n ranks, G blocks each (blocks_per_rank, or the
+// co-resident capacity over n): refused unless all n·G blocks can be
+// resident at once.
+template <typename T, bool kTrace>
+int launch_tp(TpParams& tp, long long ws_floats, int blocks_per_rank,
+              int* info, cudaStream_t stream) {
+  auto kern = mega_kernel<T, T, T, false, kTrace, false, true>;
+  const int n = tp.c.n;
+  const size_t smem = decode_smem(tp.p[0], false);
+  int sms = 0, occ = 0;
+  cudaError_t e = geometry(kern, smem, &sms, &occ);
+  if (e != cudaSuccess) return (int)e;
+  const int cap = sms * min(occ, kMaxBlocksPerSM);
+  const int G = blocks_per_rank > 0 ? blocks_per_rank : cap / n;
+  if (G < 1 || (long long)G * n > cap || G > tp.c.g_cap)
+    return (int)cudaErrorCooperativeLaunchTooLarge;
+  for (int r = 0; r < n; ++r)
+    if (!carve(tp.p[r], ws_floats, G, false))
+      return (int)cudaErrorInvalidValue;
+  info[0] = G;
+  info[1] = (int)smem;
+  info[2] = occ;
+  void* args[] = {&tp};
+  e = cudaLaunchCooperativeKernel((const void*)kern, dim3(G, n),
+                                  dim3(kThreads), args, smem, stream);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
@@ -2033,39 +2367,13 @@ int launch_prefill(Params p, long long ws_floats, int* info,
   return (int)cudaGetLastError();
 }
 
-}  // namespace
 
-// ptrs: embed, wqkv, wo, w1, w2, lm_head, ln1, ln2, normf, qn, kn, kc, vc,
-//   page_table (0 = dense), kv_len, tokens, stop_tok (0 without eos),
-//   table, inv_freq, logits, knew, vnew, toks, stop_step, workspace,
-//   barrier counter, then sc_qkv, sc_o, sc_w1, sc_w2, sc_lm (0 without
-//   wq8), k_scale, v_scale (0 without kv_quant), noise (0 unless
-//   sampled), sampcfg (0 unless filtered), the trace ring [NS, T, 8] (0 =
-//   untraced), the work-ring snapshot [4] (0 without a ring).
-// ints: T, nsteps, B, d, hq, hkv, hd, f, v_pad, v_real, L, s_cap (dense
-//   S or pages_per_seq * page), page (0 = dense), pages_per_seq,
-//   num_pages, fuse_norms, eos, dtype of the model (0 f32, 1 bf16),
-//   workspace floats, vocab rows of embed, argmax (1 = multi-step build:
-//   the LM head takes the argmax and feeds it back), wq8 (1 = int8
-//   weights), kv_quant (1 = int8 pool, paged only), sampled (1 = the
-//   argmax over logits + noise), filtered (1 = over each row's top-k/top-p
-//   keep-set; needs sampled), then the MoE router [L, d, E] (0 when dense)
-//   and the routing records [NS, L, E, B] and [NS, L, B, d] f32 (0 =
-//   none: the gates' combine weights and the residual rows they read),
-//   and the ints E
-//   (0 = dense), top_k, norm_topk. The dense library takes
-//   E = 0 only, the MoE library (TDT_MEGA_MOE) E > 0 only.
-// info (out): blocks launched, dynamic shared memory bytes, blocks per SM
-//   the occupancy calculator allows.
-extern "C" int tdt_mega_decode(const unsigned long long* ptrs,
-                               const int* ints, float eps, float sm_scale,
-                               int* info, void* stream) {
-#ifdef TDT_MEGA_MOE
-  constexpr bool kMoE = true;
-#else
-  constexpr bool kMoE = false;
-#endif
-  Params p{};
+// One rank's decode launch from tdt_mega_decode's arrays (layout there):
+// its Params, model dtype, workspace floats, wq8 and kv_quant. False if they
+// are not a launch this library takes (moe: the MoE library).
+bool parse_decode(const unsigned long long* ptrs, const int* ints, float eps,
+                  float sm_scale, bool moe, Params& p, int& dtype,
+                  long long& ws_floats, int& wq8, int& kv_quant) {
   int k = 0;
   p.embed = (const void*)ptrs[k++];
   p.wqkv = (const void*)ptrs[k++];
@@ -2125,12 +2433,12 @@ extern "C" int tdt_mega_decode(const unsigned long long* ptrs,
   p.num_pages = ints[i++];
   p.fuse_norms = ints[i++];
   p.eos = ints[i++];
-  const int dtype = ints[i++];
-  const long long ws_floats = ints[i++];
+  dtype = ints[i++];
+  ws_floats = ints[i++];
   p.vocab = ints[i++];
   p.argmax = ints[i++];
-  const int wq8 = ints[i++];
-  const int kv_quant = ints[i++];
+  wq8 = ints[i++];
+  kv_quant = ints[i++];
   p.sampled = ints[i++];
   p.filtered = ints[i++];
   p.E = ints[i++];
@@ -2139,23 +2447,62 @@ extern "C" int tdt_mega_decode(const unsigned long long* ptrs,
   p.nch = (p.s_cap + kAttnChunk - 1) / kAttnChunk;
   p.eps = eps;
   p.sm_scale = sm_scale;
-  if (p.B < 1 || p.hkv < 1 || p.hq % p.hkv != 0 ||
-      p.hq / p.hkv > kMaxGroup || p.hd % 32 != 0 || p.hd > kMaxHd ||
-      kThreads % p.hd != 0 ||
-      p.nsteps < 1 || (p.eos && p.stop_tok == nullptr) ||
-      (p.page > 0 && p.page_table == nullptr) || p.d % 8 != 0 ||
-      p.v_pad % 8 != 0 || ((p.hq + 2 * p.hkv) * p.hd) % 8 != 0 ||
-      (2 * p.f) % 8 != 0 ||
-      (wq8 && (p.sc_qkv == nullptr || p.sc_o == nullptr ||
-               p.sc_w1 == nullptr || p.sc_w2 == nullptr ||
-               p.sc_lm == nullptr)) ||
-      (kv_quant && (p.page == 0 || p.ksc == nullptr || p.vsc == nullptr)) ||
-      (p.sampled && (p.noise == nullptr || !p.argmax)) ||
-      (p.filtered && (p.sampcfg == nullptr || !p.sampled ||
-                      p.v_pad % 4 != 0)) ||
-      (kMoE ? (p.E < 8 || p.E > kMaxExperts || p.E % 8 != 0 || p.topk < 1 ||
-               p.topk > p.E || p.wrouter == nullptr)
-            : p.E != 0))
+  return !(p.B < 1 || p.hkv < 1 || p.hq % p.hkv != 0 ||
+         p.hq / p.hkv > kMaxGroup || p.hd % 32 != 0 || p.hd > kMaxHd ||
+         kThreads % p.hd != 0 ||
+         p.nsteps < 1 || (p.eos && p.stop_tok == nullptr) ||
+         (p.page > 0 && p.page_table == nullptr) || p.d % 8 != 0 ||
+         p.v_pad % 8 != 0 || ((p.hq + 2 * p.hkv) * p.hd) % 8 != 0 ||
+         (2 * p.f) % 8 != 0 ||
+         (wq8 && (p.sc_qkv == nullptr || p.sc_o == nullptr ||
+                  p.sc_w1 == nullptr || p.sc_w2 == nullptr ||
+                  p.sc_lm == nullptr)) ||
+         (kv_quant && (p.page == 0 || p.ksc == nullptr || p.vsc == nullptr)) ||
+         (p.sampled && (p.noise == nullptr || !p.argmax)) ||
+         (p.filtered && (p.sampcfg == nullptr || !p.sampled ||
+                         p.v_pad % 4 != 0)) ||
+         (moe ? (p.E < 8 || p.E > kMaxExperts || p.E % 8 != 0 || p.topk < 1 ||
+                  p.topk > p.E || p.wrouter == nullptr)
+              : p.E != 0));
+}
+
+}  // namespace
+
+// ptrs: embed, wqkv, wo, w1, w2, lm_head, ln1, ln2, normf, qn, kn, kc, vc,
+//   page_table (0 = dense), kv_len, tokens, stop_tok (0 without eos),
+//   table, inv_freq, logits, knew, vnew, toks, stop_step, workspace,
+//   barrier counter, then sc_qkv, sc_o, sc_w1, sc_w2, sc_lm (0 without
+//   wq8), k_scale, v_scale (0 without kv_quant), noise (0 unless
+//   sampled), sampcfg (0 unless filtered), the trace ring [NS, T, 8] (0 =
+//   untraced), the work-ring snapshot [4] (0 without a ring).
+// ints: T, nsteps, B, d, hq, hkv, hd, f, v_pad, v_real, L, s_cap (dense
+//   S or pages_per_seq * page), page (0 = dense), pages_per_seq,
+//   num_pages, fuse_norms, eos, dtype of the model (0 f32, 1 bf16),
+//   workspace floats, vocab rows of embed, argmax (1 = multi-step build:
+//   the LM head takes the argmax and feeds it back), wq8 (1 = int8
+//   weights), kv_quant (1 = int8 pool, paged only), sampled (1 = the
+//   argmax over logits + noise), filtered (1 = over each row's top-k/top-p
+//   keep-set; needs sampled), then the MoE router [L, d, E] (0 when dense)
+//   and the routing records [NS, L, E, B] and [NS, L, B, d] f32 (0 =
+//   none: the gates' combine weights and the residual rows they read),
+//   and the ints E
+//   (0 = dense), top_k, norm_topk. The dense library takes
+//   E = 0 only, the MoE library (TDT_MEGA_MOE) E > 0 only.
+// info (out): blocks launched, dynamic shared memory bytes, blocks per SM
+//   the occupancy calculator allows.
+extern "C" int tdt_mega_decode(const unsigned long long* ptrs,
+                               const int* ints, float eps, float sm_scale,
+                               int* info, void* stream) {
+#ifdef TDT_MEGA_MOE
+  constexpr bool kMoE = true;
+#else
+  constexpr bool kMoE = false;
+#endif
+  Params p{};
+  int dtype = -1, wq8 = 0, kv_quant = 0;
+  long long ws_floats = 0;
+  if (!parse_decode(ptrs, ints, eps, sm_scale, kMoE, p, dtype, ws_floats,
+                    wq8, kv_quant))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == tdt::kDtypeF32)
@@ -2167,6 +2514,67 @@ extern "C" int tdt_mega_decode(const unsigned long long* ptrs,
 }
 
 #ifndef TDT_MEGA_MOE
+
+// A dense decode launch over n > 1 co-located ranks, one cooperative
+// launch of G blocks a rank. ptrs and ints: n rows of tdt_mega_decode's
+// arrays, one a rank (its weights, cache shard, outputs, workspace,
+// barrier counter, trace ring; the shared table, kv_len, tokens, page
+// table, stop_tok and ring snapshot), each in the model dtype with a
+// full-width cache, greedy, without wq8 or MoE; a rank's v_real is its
+// real vocab columns. slot_tab and flag_tab: device tables of the ranks'
+// exchange slots and flags (layout: Comm), flag_cap flags and g_cap
+// candidate blocks a rank; epoch: this launch's (flags are never reset);
+// blocks_per_rank: G (0 = the co-resident capacity over n); lag_rank (-1:
+// none) lags its pushes by lag_ns. info (out): G, dynamic shared memory
+// bytes, blocks per SM.
+extern "C" int tdt_mega_decode_tp(int n, const unsigned long long* ptrs,
+                                  const int* ints, float eps, float sm_scale,
+                                  const void* slot_tab, const void* flag_tab,
+                                  unsigned long long epoch, int flag_cap,
+                                  int g_cap, int blocks_per_rank,
+                                  int lag_rank, long long lag_ns, int* info,
+                                  void* stream) {
+  constexpr int kPtrs = 40, kInts = 28;
+  if (n < 2 || n > tdt::kMaxRanks || g_cap < 1 ||
+      (long long)flag_cap < n + (long long)n * g_cap || slot_tab == nullptr ||
+      flag_tab == nullptr || lag_ns < 0)
+    return (int)cudaErrorInvalidValue;
+  TpParams tp{};  // the kernel argument (~5 KB, copied at the launch)
+  int dtype = -1;
+  long long ws_floats = 0;
+  for (int r = 0; r < n; ++r) {
+    int dt = -1, wq8 = 0, kv_quant = 0;
+    long long ws = 0;
+    if (!parse_decode(ptrs + (size_t)r * kPtrs, ints + (size_t)r * kInts,
+                      eps, sm_scale, false, tp.p[r], dt, ws, wq8, kv_quant) ||
+        wq8 || kv_quant || tp.p[r].sampled || (r > 0 && (dt != dtype ||
+                                                          ws != ws_floats)))
+      return (int)cudaErrorInvalidValue;
+    dtype = dt;
+    ws_floats = ws;
+  }
+  const bool traced =
+      tp.p[0].trace != nullptr || tp.p[0].ring_state != nullptr;
+  tp.c.slot_tab = static_cast<const int64_t*>(slot_tab);
+  tp.c.flag_tab = static_cast<const int64_t*>(flag_tab);
+  tp.c.base = epoch << 20;
+  tp.c.lag_ns = lag_ns;
+  tp.c.n = n;
+  tp.c.g_cap = g_cap;
+  tp.c.lag_rank = lag_rank;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == tdt::kDtypeF32)
+    return traced ? launch_tp<float, true>(tp, ws_floats, blocks_per_rank,
+                                           info, s)
+                  : launch_tp<float, false>(tp, ws_floats, blocks_per_rank,
+                                            info, s);
+  if (dtype == tdt::kDtypeBF16)
+    return traced ? launch_tp<__nv_bfloat16, true>(tp, ws_floats,
+                                                   blocks_per_rank, info, s)
+                  : launch_tp<__nv_bfloat16, false>(tp, ws_floats,
+                                                    blocks_per_rank, info, s);
+  return (int)cudaErrorInvalidValue;
+}
 
 // The prefill megakernel over one prompt of S rows.
 // ptrs: x0 [S, d] (T), wqkv, wo, w1, w2, lm_head, ln1, ln2, normf, qn, kn,

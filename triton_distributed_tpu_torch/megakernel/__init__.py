@@ -5,9 +5,9 @@ packed task table.
 Counterpart of ``triton_distributed_tpu/megakernel``: the task graph
 (``task``), scheduler, registry (task type → plain PyTorch body),
 ``ModelBuilder``, the launch (``code_generator``: ``MegaDims``,
-``MegaConfig``, ``mega_decode``, ``mega_prefill``), the plain bodies
-(``kernels``), the resident engine's host work ring (``ring``) and
-``MegaQwen3``. The kernels are in ``csrc/megakernel.cu``.
+``MegaConfig``, ``mega_decode``, ``mega_decode_tp``, ``mega_prefill``),
+the plain bodies (``kernels``), the resident engine's host work ring
+(``ring``) and ``MegaQwen3``. The kernels are in ``csrc/megakernel.cu``.
 """
 
 from triton_distributed_tpu_torch.megakernel import kernels  # noqa: F401  (register bodies)
@@ -16,6 +16,7 @@ from triton_distributed_tpu_torch.megakernel.code_generator import (
     MegaDims,
     MegaWeights,
     mega_decode,
+    mega_decode_tp,
 )
 from triton_distributed_tpu_torch.megakernel.model_builder import (
     CompiledMegaKernel,
@@ -52,6 +53,7 @@ __all__ = [
     "TaskIDManager",
     "TaskType",
     "mega_decode",
+    "mega_decode_tp",
     "pack_table",
     "register_task",
     "registered_types",

@@ -11,7 +11,7 @@ cooperatively on a CUDA tensor, or runs the plain version
 (``kernels.mega_decode_plain``) on a CPU tensor; a failed build or
 launch raises, it never falls back.
 
-Built here: decode at tp=1 over a dense cache, a full-width paged pool
+Built here: decode over a dense cache, a full-width paged pool
 or an int8 paged pool (``kv_quant``: codes plus f32 scales ``[L, P,
 Hkv]``), f32 or bf16 models with weights in the model dtype or int8
 (``MegaConfig.wq8``: per-output-channel f32 scales), ``nsteps >= 1``,
@@ -25,9 +25,20 @@ runs the prefill graph (``dims.prefill``) over one prompt's S rows.
 An MoE decode graph (``dims.moe``: MOE_GATE, MOE_FFN per expert, and
 the combine through ALLREDUCE or, under ``overlap_ar``, A2A_SEND /
 A2A_WAIT, local at tp=1) launches the MoE build of the same source
-(``cuda_kernels.MEGA_DECODE_MOE``). ``n_ranks > 1`` raises
-``NotImplementedError`` naming the ROADMAP row that ports it; MoE with
-``wq8`` or in a prefill graph is refused as the JAX package refuses it.
+(``cuda_kernels.MEGA_DECODE_MOE``). MoE with ``wq8`` or in a prefill
+graph is refused as the JAX package refuses it.
+
+A dense decode graph over ``n_ranks = n > 1`` co-located ranks (the
+entry BARRIER, each projection's partial summed across ranks by
+ALLREDUCE or, under ``overlap_ar``, AR_SEND / AR_WAIT, and the LM head's
+cross-rank argmax) takes per-rank operands (weights, pool shards) and a
+:class:`~triton_distributed_tpu_torch.runtime.mesh.DistContext` for the
+exchange's symmetric slots and flags, and is one cooperative launch over
+all n ranks (``cuda_kernels.MEGA_DECODE_TP``), or on the CPU the plain
+version walking the n rank states in lockstep
+(``kernels.mega_decode_plain_tp``). Refused at tp > 1, each naming its
+ROADMAP item: MoE graphs, prefill graphs, ``wq8``, the int8 pool and
+sampling.
 """
 
 from __future__ import annotations
@@ -46,13 +57,18 @@ from triton_distributed_tpu_torch.megakernel.task import (
 )
 from triton_distributed_tpu_torch.ops import cuda_kernels as ck
 
-# Task types the CUDA kernels have bodies for at tp=1: the decode graph
+# Task types the CUDA kernels have bodies for: the decode graph
 # (``mega_kernel``) and the prefill graph (``mega_prefill_kernel``).
 KERNEL_TASKS = frozenset({
     TaskType.EMBED, TaskType.NORM, TaskType.QKV_PROJ, TaskType.ATTN,
     TaskType.O_PROJ, TaskType.FC1, TaskType.FC2, TaskType.ALLREDUCE,
     TaskType.LM_HEAD, TaskType.RING_POLL,
 })
+# The cross-rank bodies of a dense graph at tp > 1 (``mega_kernel``'s kTp
+# instantiations).
+TP_TASKS = frozenset({TaskType.BARRIER, TaskType.AR_SEND, TaskType.AR_WAIT})
+# Co-located ranks one launch covers (tdt::kMaxRanks).
+MAX_RANKS = 8
 # The MoE graph's own bodies (the MoE build of ``mega_kernel``).
 MOE_TASKS = frozenset({
     TaskType.MOE_GATE, TaskType.MOE_FFN, TaskType.A2A_SEND,
@@ -88,8 +104,11 @@ class MegaDims:
     ``trace`` adds the device task tracer's ring, ``ring`` a leading
     RING_POLL task, and ``prefill`` makes ``batch`` the prompt's S rows
     (the prefill graph). ``num_experts > 0`` makes the MLP the routed
-    experts' (``f_loc`` is then one expert's full width); ``n_ranks >
-    1`` is refused by :func:`check_dims`."""
+    experts' (``f_loc`` is then one expert's full width). ``n_ranks >
+    1``: the ``*_loc`` widths are one rank's shard (``v_loc`` =
+    ``pad_vocab(V, n) // n``); ``straggler_rank`` lags that rank by
+    ``straggler_nanos`` before its first exchange and each LM-head push
+    (a test fixture; None = off)."""
 
     batch: int
     d: int
@@ -252,15 +271,27 @@ def check_dims(dims: MegaDims, cfg: MegaConfig) -> None:
         (dims.moe and dims.prefill,
          "MoE prefill runs through the model path (the engines prefill "
          "with mode='xla' under mode='mega')"),
-        (dims.n_ranks != 1 or dims.straggler_rank is not None,
-         "multi-rank megakernel bodies are not ported yet (ROADMAP queue 2 "
-         "row 6(e), tp > 1)"),
+        (dims.n_ranks > 1 and dims.moe,
+         "the MoE megakernel at tp > 1 (expert-parallel a2a puts and "
+         "waits) is not ported yet (ROADMAP queue 2 row 6(e), MoE half)"),
+        (dims.n_ranks > 1 and dims.prefill,
+         "MegaQwen3.prefill at tp > 1 is not ported yet (ROADMAP queue 1 "
+         "position 2)"),
+        (dims.n_ranks > 1 and cfg.wq8,
+         "MegaConfig(wq8=True) at tp > 1 is not ported yet (ROADMAP queue "
+         "1 position 4)"),
+        (dims.n_ranks > 1 and (dims.kv_quant or dims.sampled),
+         "the int8 pool and sampling at tp > 1 are not ported yet "
+         "(ROADMAP queue 1 position 4)"),
         (dims.page and dims.prefill, "paged prefill: prefill then scatter"),
         (dims.sampled and dims.prefill, "sampled multi-step: decode only"),
     ]
     for bad, msg in refused:
         if bad:
             raise NotImplementedError(msg)
+    if not 1 <= dims.n_ranks <= MAX_RANKS:
+        raise ValueError(f"n_ranks must be in [1, {MAX_RANKS}], got "
+                         f"{dims.n_ranks}")
     if dims.moe:
         if dims.num_experts % dims.n_ranks:
             raise ValueError(
@@ -377,6 +408,8 @@ def mega_decode(dims: MegaDims, cfg: MegaConfig, table: torch.Tensor,
     check_dims(dims, cfg)
     if dims.prefill:
         raise ValueError("a prefill graph launches through mega_prefill")
+    if dims.n_ranks > 1:
+        raise ValueError("a tp > 1 graph launches through mega_decode_tp")
     if dims.ring != (ring_state is not None):
         raise ValueError("ring_state is given exactly when dims.ring is "
                          "set")
@@ -476,6 +509,30 @@ def _check_weights(w: MegaWeights, cfg: MegaConfig, dims: MegaDims, dev):
     return mdt
 
 
+def _check_shared(dims, kc, page_table, table, kv_len, tokens, inv_freq,
+                  bar, stop_tok, ring_state, dev) -> None:
+    """The checks of the operands every decode launch takes (``kc`` one
+    rank's cache shard: its geometry against ``dims``)."""
+    B, hkv = dims.batch, dims.hkv_loc
+    if dims.page:
+        ck.check_cuda_operand("page_table", page_table, dev, torch.int32, 2)
+        if (kc.shape[3] != dims.page or page_table.shape[0] != B
+                or page_table.shape[1] * dims.page != dims.s_max):
+            raise ValueError("paged operands disagree with dims")
+    elif tuple(kc.shape[1:4]) != (B, hkv, dims.s_max):
+        raise ValueError(f"dense cache {tuple(kc.shape)} disagrees with "
+                         f"dims (B={B}, hkv={hkv}, s_max={dims.s_max})")
+    ck.check_cuda_operand("table", table, dev, torch.int32, 2)
+    ck.check_cuda_operand("kv_len", kv_len, dev, torch.int32, 1)
+    ck.check_cuda_operand("tokens", tokens, dev, torch.int32, 1)
+    ck.check_cuda_operand("inv_freq", inv_freq, dev, torch.float32, 1)
+    ck.check_cuda_operand("bar", bar, dev, torch.int32, 1)
+    if dims.eos:
+        ck.check_cuda_operand("stop_tok", stop_tok, dev, torch.int32, 1)
+    if dims.ring:
+        ck.check_cuda_operand("ring_state", ring_state, dev, torch.int32, 1)
+
+
 def _launch(dims, cfg, table, w, kc, vc, page_table, kv_len, tokens,
             stop_tok, inv_freq, bar, info, k_scale, v_scale, noise, sampcfg,
             ring_state, moe_route, moe_x):
@@ -495,27 +552,12 @@ def _launch(dims, cfg, table, w, kc, vc, page_table, kv_len, tokens,
             if tuple(t.shape) != (L, kc.shape[1], hkv):
                 raise ValueError(f"{name} {tuple(t.shape)} disagrees with "
                                  f"the pool {tuple(kc.shape)}")
-    if dims.page:
-        ck.check_cuda_operand("page_table", page_table, dev, torch.int32, 2)
-        if (kc.shape[3] != dims.page or page_table.shape[0] != B
-                or page_table.shape[1] * dims.page != dims.s_max):
-            raise ValueError("paged operands disagree with dims")
-    elif tuple(kc.shape[1:4]) != (B, hkv, dims.s_max):
-        raise ValueError(f"dense cache {tuple(kc.shape)} disagrees with "
-                         f"dims (B={B}, hkv={hkv}, s_max={dims.s_max})")
-    ck.check_cuda_operand("table", table, dev, torch.int32, 2)
-    ck.check_cuda_operand("kv_len", kv_len, dev, torch.int32, 1)
-    ck.check_cuda_operand("tokens", tokens, dev, torch.int32, 1)
-    ck.check_cuda_operand("inv_freq", inv_freq, dev, torch.float32, 1)
-    ck.check_cuda_operand("bar", bar, dev, torch.int32, 1)
-    if dims.eos:
-        ck.check_cuda_operand("stop_tok", stop_tok, dev, torch.int32, 1)
+    _check_shared(dims, kc, page_table, table, kv_len, tokens, inv_freq,
+                  bar, stop_tok, ring_state, dev)
     if dims.sampled:
         ck.check_cuda_operand("noise", noise, dev, torch.float32, 3)
     if dims.filtered:
         ck.check_cuda_operand("sampcfg", sampcfg, dev, torch.float32, 2)
-    if dims.ring:
-        ck.check_cuda_operand("ring_state", ring_state, dev, torch.int32, 1)
     if moe_route is not None:
         ck.check_cuda_operand("moe_route", moe_route, dev, torch.float32, 4)
         ck.check_cuda_operand("moe_x", moe_x, dev, torch.float32, 4)
@@ -540,15 +582,9 @@ def _launch(dims, cfg, table, w, kc, vc, page_table, kv_len, tokens,
         w.sc_qkv, w.sc_o, w.sc_w1, w.sc_w2, w.sc_lm, k_scale, v_scale,
         noise, sampcfg, trace, ring_state if dims.ring else None,
         w.wrouter, moe_route, moe_x)])
-    ints = (ctypes.c_int * 28)(
-        table.shape[0], NS, B, dims.d, dims.hq_loc, hkv, hd, dims.f_loc,
-        dims.v_loc, min(dims.v_real or dims.v_loc, dims.v_loc), L,
-        dims.s_max, dims.page, dims.s_max // dims.page if dims.page else 0,
-        kc.shape[1] if dims.page else 0, int(cfg.fuse_norms),
-        int(dims.eos), ck.DTYPE_CODES[mdt], ws_n, w.embed.shape[0],
-        int(_kernels.takes_argmax(dims)), int(cfg.wq8), int(dims.kv_quant),
-        int(dims.sampled), int(dims.filtered), dims.num_experts,
-        dims.moe_top_k, int(dims.norm_topk))
+    ints = (ctypes.c_int * 28)(*_decode_ints(
+        dims, cfg, table, kc, mdt, ws_n, w.embed.shape[0],
+        _kernels.rank_v_real(dims, 0)))
     out = (ctypes.c_int * 4)()
     kernel = (ck.MEGA_DECODE_MOE if dims.moe else ck.MEGA_DECODE_TRACED
               if dims.trace else ck.MEGA_DECODE)
@@ -563,6 +599,150 @@ def _launch(dims, cfg, table, w, kc, vc, page_table, kv_len, tokens,
 
 def _ptr(t) -> int:
     return 0 if t is None else t.data_ptr()
+
+
+def _decode_ints(dims, cfg, table, kc, mdt, ws_n, vocab, v_real):
+    """The geometry ints of one rank's decode launch (``tdt_mega_decode``'s
+    layout); ``v_real`` is the rank's real vocab columns."""
+    return (table.shape[0], dims.nsteps, dims.batch, dims.d, dims.hq_loc,
+            dims.hkv_loc, dims.head_dim, dims.f_loc, dims.v_loc, v_real,
+            dims.num_layers, dims.s_max, dims.page,
+            dims.s_max // dims.page if dims.page else 0,
+            kc.shape[1] if dims.page else 0, int(cfg.fuse_norms),
+            int(dims.eos), ck.DTYPE_CODES[mdt], ws_n, vocab,
+            int(_kernels.takes_argmax(dims)), int(cfg.wq8),
+            int(dims.kv_quant), int(dims.sampled), int(dims.filtered),
+            dims.num_experts, dims.moe_top_k, int(dims.norm_topk))
+
+
+def mega_decode_tp(dims: MegaDims, cfg: MegaConfig, table: torch.Tensor,
+                   w: list, kc: list, vc: list, page_table, kv_len, tokens,
+                   ctx, stop_tok=None, inv_freq=None, bar=None,
+                   info: dict | None = None, ring_state=None,
+                   blocks_per_rank: int = 0):
+    """Run the packed task ``table`` of a dense decode graph over
+    ``dims.n_ranks = n > 1`` co-located ranks for ``dims.nsteps`` steps.
+
+    ``w``, ``kc`` and ``vc`` hold one entry per rank (its weight shards as
+    :class:`MegaWeights`, its cache shard: ``cache.rank(r)``'s tensors);
+    ``page_table``, ``kv_len``, ``tokens``, ``stop_tok`` and
+    ``ring_state`` are shared. On CUDA tensors: one cooperative launch
+    of ``csrc/megakernel.cu`` over all ranks (counted in
+    ``cuda_kernels.MEGA_DECODE_TP``), whose exchanges go through ``ctx``'s
+    symmetric slots and flags; ``blocks_per_rank`` (0 = the card's
+    co-resident capacity over n) sets the blocks of each rank, and a grid
+    whose n ranks cannot all be resident is refused. On CPU tensors: the
+    plain version (``kernels.mega_decode_plain_tp``). Returns ``(logits
+    [B, n·v_loc] f32 (rank r's columns from r·v_loc), knew, vnew [n, NS,
+    L, B, hkv, hd] in the model dtype, toks [NS, B] int32, stop_step [B]
+    int32)`` and, under ``dims.trace``, the per-rank trace rings ``[n,
+    NS, T, 8]``. Every rank emits the same tokens: ``info`` (optional)
+    receives each rank's ``toks [n, NS, B]``, ``stop_step [n, B]`` and
+    final residual ``x [n, B, d]`` f32, with the launch geometry on the
+    card."""
+    check_dims(dims, cfg)
+    n = dims.n_ranks
+    if n < 2 or dims.prefill:
+        raise ValueError("mega_decode_tp runs a decode graph at n_ranks > 1")
+    if not len(w) == len(kc) == len(vc) == n:
+        raise ValueError(f"want {n} per-rank weights and cache shards, got "
+                         f"{len(w)}, {len(kc)}, {len(vc)}")
+    if dims.ring != (ring_state is not None):
+        raise ValueError("ring_state is given exactly when dims.ring is "
+                         "set")
+    dev = kv_len.device
+    if inv_freq is None:
+        inv_freq = _kernels.rope_inv_freq(dims.head_dim, dims.rope_theta,
+                                          dev)
+    if dev.type != "cuda":
+        return _kernels.mega_decode_plain_tp(
+            dims, cfg.fuse_norms, table.cpu().numpy(), w, kc, vc,
+            page_table, kv_len, tokens, stop_tok, inv_freq, ring_state,
+            info=info)
+    if bar is None:
+        bar = torch.zeros(4 * n, dtype=torch.int32, device=dev)
+    return _launch_tp(dims, cfg, table, w, kc, vc, page_table, kv_len,
+                      tokens, stop_tok, inv_freq, bar, info, ring_state, ctx,
+                      blocks_per_rank)
+
+
+def _launch_tp(dims, cfg, table, w, kc, vc, page_table, kv_len, tokens,
+               stop_tok, inv_freq, bar, info, ring_state, ctx,
+               blocks_per_rank):
+    from triton_distributed_tpu_torch.language import primitives as prim
+
+    dev = kv_len.device
+    n, B, NS, L = dims.n_ranks, dims.batch, dims.nsteps, dims.num_layers
+    hkv, hd, T = dims.hkv_loc, dims.head_dim, table.shape[0]
+    if ctx is None or ctx.tp != n or ctx.device != dev:
+        raise ValueError(f"a tp={n} launch needs the ranks' DistContext on "
+                         f"{dev}, got {ctx}")
+    mdt = _check_weights(w[0], cfg, dims, dev)
+    for wr in w[1:]:
+        if _check_weights(wr, cfg, dims, dev) != mdt:
+            raise ValueError("the ranks' weights differ in dtype")
+    for r in range(n):
+        for name, t in (("kc", kc[r]), ("vc", vc[r])):
+            ck.check_cuda_operand(f"{name}[{r}]", t, dev, mdt, 5)
+            if tuple(t.shape) != tuple(kc[0].shape):
+                raise ValueError("the ranks' cache shards differ in shape")
+    _check_shared(dims, kc[0], page_table, table, kv_len, tokens, inv_freq,
+                  bar, stop_tok, ring_state, dev)
+    if bar.numel() < 4 * n:
+        raise ValueError(f"bar needs 4 counters a rank, got {bar.numel()}")
+    # Exchange ordinals ride the flag values' low 20 bits.
+    if NS * T >= 1 << 20:
+        raise ValueError(f"{NS} steps of {T} tasks exceed one launch's "
+                         "exchange ordinals")
+    n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    g_cap = n_sms * MAX_BLOCKS_PER_SM
+    ws_n = -(-workspace_floats(dims, n_sms) // 4) * 4  # 16-byte rank rows
+    ws = torch.empty((n, ws_n), dtype=torch.float32, device=dev)
+    logits = torch.empty((n, B, dims.v_loc), dtype=torch.float32, device=dev)
+    knew = torch.empty((n, NS, L, B, hkv, hd), dtype=mdt, device=dev)
+    vnew = torch.empty_like(knew)
+    toks = torch.zeros((n, NS, B), dtype=torch.int32, device=dev)
+    stop_step = torch.full((n, B), NS, dtype=torch.int32, device=dev)
+    trace = (torch.zeros((n, NS, T, TRACE_INTS), dtype=torch.int32,
+                         device=dev) if dims.trace else None)
+    # The exchange: per rank two alternating slot sets of the residual
+    # partials [n, B, d] and of the LM head's candidates [n, g_cap, B, 2],
+    # and flags [n] (the entry barrier) + [n, g_cap] (one a source block).
+    fs = prim.site_flags(ctx, "mega_decode", n + n * g_cap)
+    slots = ctx.workspace("mega_decode",
+                          (2 * n * (B * dims.d + 2 * B * g_cap),),
+                          torch.float32)
+    epoch = prim.next_epoch(fs)
+    vocab = w[0].embed.shape[0]
+    ptrs, ints = [], []
+    for r in range(n):
+        ptrs += [_ptr(t) for t in (
+            w[r].embed, w[r].wqkv, w[r].wo, w[r].w1, w[r].w2, w[r].lm_head,
+            w[r].ln1, w[r].ln2, w[r].normf, w[r].qn, w[r].kn, kc[r], vc[r],
+            page_table if dims.page else None, kv_len, tokens,
+            stop_tok if dims.eos else None, table, inv_freq, logits[r],
+            knew[r], vnew[r], toks[r], stop_step[r], ws[r], bar[4 * r:],
+            None, None, None, None, None, None, None, None, None,
+            None if trace is None else trace[r],
+            ring_state if dims.ring else None, None, None, None)]
+        ints += _decode_ints(dims, cfg, table, kc[0], mdt, ws_n, vocab,
+                             _kernels.rank_v_real(dims, r))
+    lag = -1 if dims.straggler_rank is None else int(dims.straggler_rank)
+    out = (ctypes.c_int * 4)()
+    ck.MEGA_DECODE_TP(
+        n, (ctypes.c_uint64 * len(ptrs))(*ptrs),
+        (ctypes.c_int * len(ints))(*ints), ctypes.c_float(dims.rms_eps),
+        ctypes.c_float(hd ** -0.5), slots.table.data_ptr(),
+        fs.flags.table.data_ptr(), epoch, fs.capacity, g_cap,
+        int(blocks_per_rank), lag, int(dims.straggler_nanos), out,
+        ck.stream_ptr(kv_len))
+    if info is not None:
+        info.update(blocks=out[0], smem_bytes=out[1], blocks_per_sm=out[2],
+                    toks=toks, stop_step=stop_step,
+                    x=ws[:, :B * dims.d].view(n, B, dims.d))
+    ret = (logits.permute(1, 0, 2).reshape(B, n * dims.v_loc), knew, vnew,
+           toks[0], stop_step[0])
+    return ret + (trace,) if dims.trace else ret
 
 
 def mega_prefill(dims: MegaDims, cfg: MegaConfig, table: torch.Tensor,
@@ -636,11 +816,12 @@ class MegaCall:
     of one call run one after another on the stream."""
 
     def __init__(self, dims: MegaDims, cfg: MegaConfig, tasks: list[Task],
-                 table: np.ndarray, device):
+                 table: np.ndarray, device, ctx=None):
         check_dims(dims, cfg)
         used = {t.task_type for t in tasks}
         bodies = (PREFILL_TASKS if dims.prefill else KERNEL_TASKS | MOE_TASKS
-                  if dims.moe else KERNEL_TASKS)
+                  if dims.moe else KERNEL_TASKS | TP_TASKS
+                  if dims.n_ranks > 1 else KERNEL_TASKS)
         if not used <= bodies:
             raise NotImplementedError(
                 f"no CUDA megakernel body for "
@@ -649,12 +830,25 @@ class MegaCall:
         self.table = torch.from_numpy(np.asarray(table, np.int32)).to(device)
         self.inv_freq = _kernels.rope_inv_freq(dims.head_dim,
                                                dims.rope_theta, device)
-        self.bar = torch.zeros(4, dtype=torch.int32, device=device)
+        self.ctx = ctx
+        self.bar = torch.zeros(4 * dims.n_ranks, dtype=torch.int32,
+                               device=device)
 
     def __call__(self, w: MegaWeights, kc, vc, page_table, kv_len, tokens,
                  stop_tok=None, info: dict | None = None, k_scale=None,
                  v_scale=None, noise=None, sampcfg=None, ring_state=None,
                  moe_route=None, moe_x=None):
+        """One launch. At ``n_ranks > 1``, ``w``, ``kc`` and ``vc`` are
+        per-rank lists (:func:`mega_decode_tp`)."""
+        if self.dims.n_ranks > 1:
+            if any(t is not None for t in (k_scale, v_scale, noise, sampcfg,
+                                           moe_route, moe_x)):
+                raise ValueError("a tp > 1 launch takes no int8 scales, "
+                                 "noise or MoE records")
+            return mega_decode_tp(self.dims, self.cfg, self.table, w, kc, vc,
+                                  page_table, kv_len, tokens, self.ctx,
+                                  stop_tok, self.inv_freq, self.bar, info,
+                                  ring_state)
         return mega_decode(self.dims, self.cfg, self.table, w, kc, vc,
                            page_table, kv_len, tokens, stop_tok,
                            self.inv_freq, self.bar, info, k_scale, v_scale,

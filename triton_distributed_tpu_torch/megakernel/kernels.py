@@ -17,9 +17,14 @@ present the serving path never runs it.
 
 Bodies this slice runs: EMBED, NORM, QKV_PROJ, ATTN (dense and paged,
 with the in-launch band and the own-token merge), O_PROJ, FC1, FC2,
-ALLREDUCE at tp=1 and LM_HEAD (single-step logits; multi-step running
-argmax over the real vocab, first occurrence on ties, the winner fed to
-the next step's EMBED, and the first stop-token step under ``eos``).
+ALLREDUCE and LM_HEAD (single-step logits; multi-step running argmax
+over the real vocab, first occurrence on ties, the winner fed to the
+next step's EMBED, and the first stop-token step under ``eos``). At tp=n
+> 1 (:func:`mega_decode_plain_tp`) one state a rank is walked in
+lockstep, task by task: BARRIER has nothing to wait for, ALLREDUCE and
+AR_SEND/AR_WAIT fold every rank's partial into ``x`` in rank order, and
+the LM head's per-rank candidates (over each rank's real columns) are
+reduced in rank order with a strict ``>``, the JAX bodies' exchanges.
 Under ``sampled`` the argmax runs over ``logits + noise[step]`` (the
 Gumbel-max trick; the logits output stays clean), and under
 ``filtered`` over the top-k/top-p keep-set of each row
@@ -125,6 +130,14 @@ class MegaState:
             self.a2buf = torch.zeros((B, d), **f32)
             self.cbuf = torch.zeros((B, d), **f32)
         self.arg1 = 0  # the running task's header arg1
+        # Cross-rank state (tp > 1: ``mega_decode_plain_tp`` sets it): this
+        # rank's index, the lockstep group of every rank's state, its real
+        # vocab columns, AR_SEND's staged partial, the LM head's (value,
+        # global index) candidate, and the dropped (layer, rank) partial
+        # of a negative control.
+        self.rank, self.group = 0, [self]
+        self.v_real = rank_v_real(dims, 0)
+        self.sent = self.cand = self.drop = None
         self.gate_hook = gate_hook
         self.moe_route, self.moe_x = moe_route, moe_x
         self.tok = tokens.long()
@@ -293,13 +306,50 @@ def fc2_body(st: MegaState, layer: int, arg0: int) -> None:
                  _layer_scale(st.w.sc_w2, layer))
 
 
+def _fold(st: MegaState, layer: int, parts: list) -> torch.Tensor:
+    """``x + parts[0] + ... + parts[n-1]``, in rank order in f32 (the JAX
+    bodies' ``acc += cbuf[r]``), so every rank folds to the same bits;
+    at tp=1 ``x + h``. ``st.drop = (layer, r)`` leaves rank r's partial
+    out of that layer's exchanges (a negative control)."""
+    acc = st.x
+    for r, part in enumerate(parts):
+        if st.drop != (layer, r):
+            acc = acc + part
+    return acc
+
+
 @register_task(TaskType.ALLREDUCE)
 def allreduce_body(st: MegaState, layer: int, arg0: int) -> None:
-    """``x += psum(h)``; at tp=1 the psum is ``h`` itself. The trace's
-    phase mark falls between the exchange and the fold, as in the JAX
-    body."""
+    """``x += psum(h)``: every rank's ``h`` (the lockstep group's, each
+    rank's task already run) folded in rank order; at tp=1 the psum is
+    ``h`` itself. The trace's phase mark falls between the exchange and
+    the fold, as in the JAX body."""
     _trace_mid(st)
-    st.x = st.x + st.h
+    st.x = _fold(st, layer, [g.h for g in st.group])
+
+
+@register_task(TaskType.AR_SEND)
+def ar_send_body(st: MegaState, layer: int, arg0: int) -> None:
+    """The split all-reduce's send (``overlap_ar``, tp > 1): stage ``h``
+    as this rank's partial, then the phase mark (the puts in flight)."""
+    st.sent = st.h
+    _trace_mid(st)
+
+
+@register_task(TaskType.AR_WAIT)
+def ar_wait_body(st: MegaState, layer: int, arg0: int) -> None:
+    """The split all-reduce's wait: the phase mark (where the JAX body
+    has fired the next weight stream's tile 0; the CUDA kernel has no
+    such prefetch), then ``x`` plus every rank's staged partial in rank
+    order."""
+    _trace_mid(st)
+    st.x = _fold(st, layer, [g.sent for g in st.group])
+
+
+@register_task(TaskType.BARRIER)
+def barrier_body(st: MegaState, layer: int, arg0: int) -> None:
+    """The cross-rank barrier: the lockstep walk runs every rank's task
+    before the next, so there is nothing to wait for."""
 
 
 @register_task(TaskType.MOE_GATE)
@@ -439,6 +489,14 @@ def _multi_step_tail(st: MegaState, row: torch.Tensor) -> None:
                                    torch.full_like(prev, st.step), prev)
 
 
+def rank_v_real(dims, r: int) -> int:
+    """Rank ``r``'s real (unpadded) vocab columns: ``clip(V - r·v_loc, 0,
+    v_loc)`` with V the real vocab (``v_real``, or every column), the JAX
+    LM head's ``v_real`` at tp > 1; at tp=1 ``min(v_real, v_loc)``."""
+    total = dims.v_real or dims.n_ranks * dims.v_loc
+    return min(max(total - r * dims.v_loc, 0), dims.v_loc)
+
+
 def takes_argmax(dims) -> bool:
     """Multi-step builds (``nsteps > 1``, or any build that names its real
     vocab, as ``build_multi`` does even at ``nsteps = 1``) take the argmax
@@ -460,7 +518,7 @@ def lm_head_body(st: MegaState, layer: int, arg0: int) -> None:
         x_in = x_in.index_select(0, st.kv_len[:1] - 1)
     st.logits = _gemm(st, x_in, st.w.lm_head, st.w.sc_lm)
     if takes_argmax(dims):
-        v_real = min(dims.v_real or dims.v_loc, dims.v_loc)
+        v_real = st.v_real
         if dims.filtered:
             _multi_step_tail(st, filtered_winner_plain(
                 st.logits, st.noise[st.step], st.sampcfg, v_real))
@@ -473,7 +531,25 @@ def lm_head_body(st: MegaState, layer: int, arg0: int) -> None:
         best = masked.max(dim=-1, keepdim=True).values
         first = torch.where(masked == best, cols[None, :],
                             dims.v_loc).min(dim=-1).values
+        if len(st.group) > 1:  # the cross-rank exchange follows
+            st.cand = (best[:, 0], first + st.rank * dims.v_loc)
+            return
         _multi_step_tail(st, first)
+
+
+def _lm_exchange(states: list) -> None:
+    """The LM head's cross-rank argmax (tp > 1, after every rank's LM head
+    ran): the ranks' (value, global index) candidates reduced in rank
+    order with a strict ``>``, so a tie goes to the lower rank (its
+    indices are the lower ones: the first occurrence), as the JAX body
+    reduces them; every rank takes the same winner."""
+    bv, bi = states[0].cand
+    for st in states[1:]:
+        v, i = st.cand
+        upd = v > bv
+        bv, bi = torch.where(upd, v, bv), torch.where(upd, i, bi)
+    for st in states:
+        _multi_step_tail(st, bi)
 
 
 def mega_decode_plain(dims, fuse_norms: bool, table: np.ndarray, weights,
@@ -508,39 +584,88 @@ def mega_decode_plain(dims, fuse_norms: bool, table: np.ndarray, weights,
                    sampcfg, ring_state, n_tasks=len(table),
                    gate_hook=gate_hook, moe_route=moe_route,
                    moe_x=moe_x)
-    _walk(st, table)
+    _walk([st], table)
     out = (st.logits, st.knew, st.vnew, st.toks, st.stop_step)
     if dims.trace:
         out += (torch.from_numpy(st.ring).to(kv_len.device),)
     return out
 
 
-def _walk(st: MegaState, table: np.ndarray) -> None:
-    """Run the table's bodies for ``dims.nsteps`` steps; under
-    ``dims.trace`` stamp each task's record: header columns, then begin,
-    the body (which may stamp mid), end and flag."""
+def mega_decode_plain_tp(dims, fuse_norms: bool, table: np.ndarray,
+                         weights: list, kc: list, vc: list, page_table,
+                         kv_len, tokens, stop_tok=None, inv_freq=None,
+                         ring_state=None, drop_partial=None,
+                         info: dict | None = None):
+    """The plain version of a dense decode graph over ``dims.n_ranks = n``
+    ranks: one :class:`MegaState` a rank (its weight shards ``weights[r]``
+    and cache shard ``kc[r]``, ``vc[r]``; the page table, ``kv_len``,
+    ``tokens``, ``stop_tok`` and ``ring_state`` shared), walked in
+    lockstep task by task, so every exchange is a plain sum over the
+    ranks' partials in rank order and the LM head's argmax a reduction
+    over the ranks' candidates. Returns ``(logits [B, n·v_loc] f32, knew,
+    vnew [n, NS, L, B, hkv, hd], toks [NS, B], stop_step [B])`` and, under
+    ``dims.trace``, the rings ``[n, NS, T, 8]`` (one logical clock a
+    rank); ``info`` (optional) receives each rank's ``toks``,
+    ``stop_step`` and final ``x`` (stacked on a rank axis).
+    ``drop_partial = (layer, r)`` leaves rank r's partial out of that
+    layer's exchanges on every rank (a negative control)."""
+    n = dims.n_ranks
+    if inv_freq is None:
+        inv_freq = rope_inv_freq(dims.head_dim, dims.rope_theta,
+                                 kv_len.device)
+    table = np.asarray(table)
+    states = [MegaState(dims, fuse_norms, weights[r], kc[r], vc[r],
+                        page_table, kv_len, tokens, stop_tok, inv_freq,
+                        ring_state=ring_state, n_tasks=len(table))
+              for r in range(n)]
+    for r, st in enumerate(states):
+        st.rank, st.group, st.drop = r, states, drop_partial
+        st.v_real = rank_v_real(dims, r)
+    _walk(states, table)
+    if info is not None:
+        info.update({k: torch.stack([getattr(st, k) for st in states])
+                     for k in ("toks", "stop_step", "x")})
+    out = (torch.cat([st.logits for st in states], dim=1),
+           torch.stack([st.knew for st in states]),
+           torch.stack([st.vnew for st in states]), states[0].toks,
+           states[0].stop_step)
+    if dims.trace:
+        out += (torch.from_numpy(np.stack([st.ring for st in states])).to(
+            kv_len.device),)
+    return out
+
+
+def _walk(states: list, table: np.ndarray) -> None:
+    """Run the table's bodies for ``dims.nsteps`` steps over the ranks'
+    states in lockstep (each task on every rank before the next task);
+    under ``dims.trace`` stamp each task's record: header columns, then
+    begin, the body (which may stamp mid), end and flag. At tp > 1 a
+    multi-step LM head is followed by the cross-rank argmax."""
     from triton_distributed_tpu_torch.megakernel.registry import get_body
 
     bodies = [(get_body(TaskType(int(r[0]))), int(r[1]), int(r[2]),
                int(r[3])) for r in table]
-    ring = st.ring
-    for step in range(st.dims.nsteps):
-        st.step = step
+    dims = states[0].dims
+    exchange = len(states) > 1 and takes_argmax(dims)
+    for step in range(dims.nsteps):
         for t, (body, layer, arg0, arg1) in enumerate(bodies):
-            st.t = t
-            st.arg1 = arg1
-            if ring is None:
+            for st in states:
+                st.step, st.t, st.arg1 = step, t, arg1
+                ring = st.ring
+                if ring is None:
+                    body(st, layer, arg0)
+                    continue
+                rec = ring[step, t]
+                rec[TR_TASK_ID] = table[t, 4]
+                rec[TR_OPCODE] = table[t, 0]
+                rec[TR_LAYER] = layer
+                rec[TR_SLOT] = arg0
+                rec[TR_BEGIN] = _tick(st)
                 body(st, layer, arg0)
-                continue
-            rec = ring[step, t]
-            rec[TR_TASK_ID] = table[t, 4]
-            rec[TR_OPCODE] = table[t, 0]
-            rec[TR_LAYER] = layer
-            rec[TR_SLOT] = arg0
-            rec[TR_BEGIN] = _tick(st)
-            body(st, layer, arg0)
-            rec[TR_END] = _tick(st)
-            rec[TR_FLAG] = 1
+                rec[TR_END] = _tick(st)
+                rec[TR_FLAG] = 1
+            if exchange and int(table[t, 0]) == TaskType.LM_HEAD:
+                _lm_exchange(states)
 
 
 def mega_prefill_plain(dims, fuse_norms: bool, table: np.ndarray, weights,
@@ -555,5 +680,5 @@ def mega_prefill_plain(dims, fuse_norms: bool, table: np.ndarray, weights,
     st = MegaState(dims, fuse_norms, weights, None, None, None, true_len,
                    torch.zeros(1, dtype=torch.int32, device=x0.device), None,
                    inv_freq, x0=x0)
-    _walk(st, np.asarray(table))
+    _walk([st], np.asarray(table))
     return st.logits, st.knew, st.vnew

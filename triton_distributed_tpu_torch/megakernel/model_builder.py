@@ -38,10 +38,12 @@ class ModelBuilder:
     the sequential decode chain); ``compile()`` freezes the graph."""
 
     def __init__(self, dims: MegaDims, *, cfg: MegaConfig | None = None,
-                 device="cpu"):
+                 device="cpu", ctx=None):
         self.dims = dims
         self.cfg = cfg or MegaConfig()
         self.device = device
+        # The ranks' DistContext (tp > 1: the exchange's slots and flags).
+        self.ctx = ctx
         self.tasks: list[Task] = []
         self._idm = TaskIDManager()
         self._last: int | None = None
@@ -201,7 +203,8 @@ class ModelBuilder:
         """Schedule, pack the table and bind it to the launch."""
         order = schedule(self.tasks, policy)
         table = pack_table(order, trace=self.dims.trace)
-        run = MegaCall(self.dims, self.cfg, order, table, self.device)
+        run = MegaCall(self.dims, self.cfg, order, table, self.device,
+                       self.ctx)
         return CompiledMegaKernel(builder=self, order=order, table=table,
                                   run=run)
 

@@ -30,9 +30,18 @@ A Qwen3-MoE model decodes through the MoE graph (router, one task per
 expert, the combine; ``_dims`` sets ``f_loc`` to one expert's width) from
 its own tensors (the router ``[L, d, E]`` and the experts ``[L, E, d,
 2f]``, ``[L, E, f, d]``: the JAX ``MoEMegaParams`` at tp=1, with no
-reshard and no copy). Refused with ``NotImplementedError``: multi-rank
-fixtures (ROADMAP queue 2 row 6(e)), and for MoE, as in the JAX
-package, ``wq8`` and the prefill megakernel.
+reshard and no copy). Refused with ``NotImplementedError``, for MoE, as
+in the JAX package: ``wq8`` and the prefill megakernel.
+
+At tp=n > 1 (a dense model over n co-located ranks) a launch covers every
+rank: each rank's weight shards (``model.rank_params``) and pool or cache
+shard (``cache.rank(r)``), its own ``knew``/``vnew`` appended to its own
+shard after the launch, logits ``[B, n·v_loc]`` (each rank its columns,
+the pad sliced off), the trace ring ``[tp, NS, T, 8]``; ``build_multi``'s
+``straggler_rank`` lags one rank's exchanges. Refused at tp > 1, each
+naming its ROADMAP item (:meth:`MegaQwen3.check_tp`): MoE models (queue 2
+row 6(e), MoE half), ``MegaConfig(wq8=True)`` and the int8 pool (queue 1
+position 4) and :meth:`MegaQwen3.prefill` (queue 1 position 2).
 """
 
 from __future__ import annotations
@@ -53,7 +62,6 @@ from triton_distributed_tpu_torch.models.paged_kv_cache import (
     _INV_Q_MAX,
     _Q_MAX,
     PagedKVCache,
-    append,
     append_n,
 )
 from triton_distributed_tpu_torch.models.qwen import pad_vocab
@@ -122,6 +130,7 @@ class MegaQwen3:
     def __init__(self, model, *, cfg: MegaConfig | None = None,
                  policy: SchedulePolicy = SchedulePolicy.ROUND_ROBIN):
         self.cfg = cfg or MegaConfig()
+        self.check_tp(model, self.cfg)
         if model.params is None and not self.cfg.wq8:
             # wq8 decode can run from Q8Params alone (quantized_init);
             # every other path needs the model's parameters.
@@ -134,22 +143,39 @@ class MegaQwen3:
         self._orders: dict = {}
         self._q8: Q8Params | None = None
 
+    @staticmethod
+    def check_tp(model, cfg: MegaConfig) -> None:
+        """What the megakernel refuses at tp > 1, each naming its ROADMAP
+        item (the engines check it when they are made)."""
+        if model.tp == 1:
+            return
+        if model.cfg.num_experts:
+            raise NotImplementedError(
+                f"the MoE megakernel at tp={model.tp} (expert-parallel a2a "
+                "puts and waits) is not ported yet (ROADMAP queue 2 row "
+                "6(e), MoE half)")
+        if cfg.wq8:
+            raise NotImplementedError(
+                f"MegaConfig(wq8=True) at tp={model.tp} is not ported yet "
+                "(ROADMAP queue 1 position 4)")
+
     def _dims(self, batch: int, s_max: int, page: int = 0,
               kv_quant: bool = False, num_pages: int = 0,
               trace: bool = False) -> MegaDims:
         c = self.model.cfg
-        # The LM head's vocab axis is padded to 128 (``set_params`` pads
-        # it, the step wrappers slice the pad logits off), taken from the
-        # config so that a model without parameters (quantized_init)
-        # builds too. MoE streams whole experts: f_loc is one expert's
-        # FFN width.
+        n = self.model.tp
+        # The LM head's vocab axis is padded to 128·tp (``set_params``
+        # pads it, the step wrappers slice the pad logits off), taken from
+        # the config so that a model without parameters (quantized_init)
+        # builds too; each rank holds v_pad / tp columns. MoE streams
+        # whole experts: f_loc is one expert's FFN width.
         return MegaDims(
-            batch=batch, d=c.hidden_size, hq_loc=c.num_q_heads,
-            hkv_loc=c.num_kv_heads, head_dim=c.head_dim,
+            batch=batch, d=c.hidden_size, hq_loc=c.num_q_heads // n,
+            hkv_loc=c.num_kv_heads // n, head_dim=c.head_dim,
             f_loc=(c.moe_intermediate_size if c.num_experts
-                   else c.intermediate_size),
-            v_loc=pad_vocab(c.vocab_size),
-            num_layers=c.num_layers, s_max=s_max, n_ranks=1,
+                   else c.intermediate_size // n),
+            v_loc=pad_vocab(c.vocab_size, n) // n,
+            num_layers=c.num_layers, s_max=s_max, n_ranks=n,
             rms_eps=c.rms_eps, rope_theta=c.rope_theta, page=page,
             kv_quant=kv_quant, num_pages=num_pages, trace=trace,
             num_experts=c.num_experts, moe_top_k=c.num_experts_per_tok,
@@ -157,7 +183,8 @@ class MegaQwen3:
         )
 
     def _compile(self, dims: MegaDims):
-        mb = ModelBuilder(dims, cfg=self.cfg, device=self.model.device)
+        mb = ModelBuilder(dims, cfg=self.cfg, device=self.model.device,
+                          ctx=self.model.ctx)
         if dims.prefill:
             mb.build_prefill_graph()
         else:
@@ -186,6 +213,10 @@ class MegaQwen3:
         ``model.params``: quantized once from the model's parameters and
         cached on this instance."""
         if self._q8 is None:
+            if self.model.tp > 1:
+                raise NotImplementedError(
+                    f"int8 weights at tp={self.model.tp} are not ported yet "
+                    "(ROADMAP queue 1 position 4)")
             if self.model.cfg.num_experts:
                 raise NotImplementedError(
                     "wq8 does not compose with MoE decode yet (per-expert "
@@ -253,18 +284,18 @@ class MegaQwen3:
 
         def f(params, tokens, cache):
             tokens = _tokens(tokens, self.model.device)
-            w = MegaWeights.from_params(params)
+            w = _weights(params)
+            kc, vc = _kv_operands(cache, page)
             if page:
-                outs = run(w, cache.k_pages, cache.v_pages, cache.page_table,
-                           cache.kv_len, tokens,
+                outs = run(w, kc, vc, cache.page_table, cache.kv_len, tokens,
                            **self._scale_args(cache, kv_quant))
-                cache = append(cache, outs[1][0], outs[2][0])
+                cache = _paged_append(cache, outs[1], outs[2])
             else:
-                outs = run(w, cache.k, cache.v, None, cache.kv_len, tokens)
+                outs = run(w, kc, vc, None, cache.kv_len, tokens)
                 cache = _dense_append(cache, outs[1], outs[2])
             # Drop the vocab-pad logits (zero columns score 0).
             if trace:  # the ring on a tp leading axis, as the JAX step's
-                return outs[0][:, :V], cache, outs[5][None]
+                return outs[0][:, :V], cache, _ranked(outs[5])
             return outs[0][:, :V], cache
 
         return compiled, f, f
@@ -283,12 +314,12 @@ class MegaQwen3:
         launch of the kernel, ``nsteps = 1``)."""
         b = int(torch.as_tensor(tokens).shape[0])
         if isinstance(cache, PagedKVCache):
-            page = int(cache.k_pages.shape[3])
+            page = cache.page_size
             s_max = int(cache.page_table.shape[1]) * page
             step = self._built(b, s_max, page, cache.quantized,
-                               int(cache.k_pages.shape[1]))[1]
+                               cache.num_pages)[1]
         else:
-            step = self._built(b, int(cache.k.shape[3]))[1]
+            step = self._built(b, int(cache.k.shape[-2]))[1]
         return step(self._step_params(), tokens, cache)
 
     def decode_fn(self, batch: int, s_max: int, page: int = 0,
@@ -333,10 +364,6 @@ class MegaQwen3:
         arg0, begin, end, mid, flag]`` record per (step, task), on a
         tp-leading axis (``multi_task_order`` gives the scheduled order
         it is validated against)."""
-        if straggler_rank is not None:
-            raise NotImplementedError(
-                "multi-rank fixtures are not ported yet (ROADMAP queue 2 "
-                "row 6(e))")
         if (eos or ring) and not page:
             raise ValueError("eos/ring modes ride the paged serving path "
                              "only")
@@ -349,7 +376,7 @@ class MegaQwen3:
         base = self._dims(batch, s_max, page, kv_quant, num_pages, trace)
         dims = dataclasses.replace(base, nsteps=nsteps, v_real=V, eos=eos,
                                    sampled=sampled, filtered=filtered,
-                                   ring=ring)
+                                   ring=ring, straggler_rank=straggler_rank)
         compiled = self._compile(dims)
         run = compiled.run
         self._last_multi_order = compiled.order
@@ -360,7 +387,8 @@ class MegaQwen3:
             # launches through it with the previous one in flight):
             # operands arrive on the device or are copied there.
             tokens = _tokens(tokens, dev)
-            w = MegaWeights.from_params(params)
+            w = _weights(params)
+            kc, vc = _kv_operands(cache, page)
             ex = list(extra)
             n_valid = _ints(ex.pop(0), dev) if valid_arg else None
             stop_tok = _ints(ex.pop(0), dev) if eos else None
@@ -370,34 +398,27 @@ class MegaQwen3:
                     "sampcfg": ex.pop(0) if filtered else None}
             if page:
                 outs = run(
-                    w, cache.k_pages, cache.v_pages, cache.page_table,
-                    cache.kv_len, tokens, stop_tok,
-                    **self._scale_args(cache, kv_quant), **samp,
+                    w, kc, vc, cache.page_table, cache.kv_len, tokens,
+                    stop_tok, **self._scale_args(cache, kv_quant), **samp,
                     ring_state=ring_state)
                 logits, knew, vnew, toks, ss = outs[:5]
-                # [NS, L, B, hkv, hd] → [L, B, hkv, NS, hd]: one scatter
-                # lands every step's rows (an int8 pool takes them step
-                # by step, quantizing, in append_n).
-                k_rows = knew.permute(1, 2, 3, 0, 4)
-                v_rows = vnew.permute(1, 2, 3, 0, 4)
                 if eos:
                     keep = torch.minimum(n_valid, ss + 1) * (1 - halt)
                     halt_out = torch.maximum(
                         halt, (ss < nsteps).to(torch.int32))
                     ret = (toks, logits[:, :V],
-                           append_n(cache, k_rows, v_rows, keep), ss,
+                           _paged_append(cache, knew, vnew, keep), ss,
                            halt_out)
                 else:
                     ret = (toks, logits[:, :V],
-                           append_n(cache, k_rows, v_rows, n_valid))
+                           _paged_append(cache, knew, vnew, n_valid))
             else:
-                outs = run(w, cache.k, cache.v, None, cache.kv_len, tokens,
-                           **samp)
+                outs = run(w, kc, vc, None, cache.kv_len, tokens, **samp)
                 logits, knew, vnew, toks = outs[:4]
                 ret = (toks, logits[:, :V],
                        _dense_append(cache, knew, vnew))
             if trace:  # the ring on a tp leading axis, as the JAX step's
-                ret += (outs[5][None],)
+                ret += (_ranked(outs[5]),)
             return ret
 
         return f
@@ -466,6 +487,10 @@ class MegaQwen3:
         of the last real token, cache)``, the contract of the JAX
         ``MegaQwen3.prefill``. ``true_len`` (default S) marks right
         padding; under ``wq8`` the kernel reads the int8 weights."""
+        if self.model.tp > 1:
+            raise NotImplementedError(
+                f"MegaQwen3.prefill at tp={self.model.tp} is not ported yet "
+                "(ROADMAP queue 1 position 2)")
         dev = self.model.device
         tokens = torch.as_tensor(tokens).to(dev, torch.int32)
         s = int(tokens.shape[0])
@@ -496,12 +521,61 @@ def _ints(a, dev) -> torch.Tensor:
 _tokens = _ints
 
 
+def _weights(params):
+    """The launch's :class:`MegaWeights`: one, or a list of one a rank
+    (``params`` is then the model's per-rank dicts)."""
+    if isinstance(params, (list, tuple)):
+        return [MegaWeights.from_params(p) for p in params]
+    return MegaWeights.from_params(params)
+
+
+def _kv_operands(cache, page: int):
+    """The launch's cache operands ``(kc, vc)``: the pool (``page``) or the
+    dense cache, as per-rank lists of ``cache.rank(r)``'s tensors at
+    tp > 1."""
+    ranks = [cache.rank(r) for r in range(cache.tp)]
+    if page:
+        kc, vc = [c.k_pages for c in ranks], [c.v_pages for c in ranks]
+    else:
+        kc, vc = [c.k for c in ranks], [c.v for c in ranks]
+    return (kc[0], vc[0]) if cache.tp == 1 else (kc, vc)
+
+
+def _ranked(ring: torch.Tensor) -> torch.Tensor:
+    """A launch's trace ring on a tp leading axis, as the JAX step's."""
+    return ring[None] if ring.dim() == 3 else ring
+
+
+def _paged_append(cache: PagedKVCache, knew: torch.Tensor,
+                  vnew: torch.Tensor, n_valid=None) -> PagedKVCache:
+    """Append a launch's rows ``[NS, L, B, hkv, hd]`` (``[n, NS, ...]`` at
+    tp=n: each rank's into its own pool shard) with
+    :func:`append_n`, rows ``>= n_valid`` to the trash page; returns the
+    cache with ``kv_len + NS``."""
+    if cache.tp == 1:
+        # [NS, L, B, hkv, hd] → [L, B, hkv, NS, hd]: one scatter lands
+        # every step's rows (an int8 pool takes them step by step,
+        # quantizing, in append_n).
+        return append_n(cache, knew.permute(1, 2, 3, 0, 4),
+                        vnew.permute(1, 2, 3, 0, 4), n_valid)
+    for r in range(cache.tp):
+        append_n(cache.rank(r), knew[r].permute(1, 2, 3, 0, 4),
+                 vnew[r].permute(1, 2, 3, 0, 4), n_valid)
+    return dataclasses.replace(cache, kv_len=cache.kv_len + knew.shape[1])
+
+
 def _dense_append(cache: KVCache, knew: torch.Tensor,
                   vnew: torch.Tensor) -> KVCache:
-    """Write the launch's rows ``[NS, L, B, hkv, hd]`` at each row's
-    ``kv_len .. kv_len + NS - 1`` (in place; positions clamp at the
-    cache end, which the caller's capacity contract never reaches) and
-    return the cache with ``kv_len + NS``."""
+    """Write the launch's rows ``[NS, L, B, hkv, hd]`` (``[n, NS, ...]`` at
+    tp=n, each rank's into its own shard) at each row's ``kv_len ..
+    kv_len + NS - 1`` (in place; positions clamp at the cache end, which
+    the caller's capacity contract never reaches) and return the cache
+    with ``kv_len + NS``."""
+    if cache.tp > 1:
+        for r in range(cache.tp):
+            _dense_append(cache.rank(r), knew[r], vnew[r])
+        return KVCache(k=cache.k, v=cache.v,
+                       kv_len=cache.kv_len + knew.shape[1])
     NS, L, B, H, hd = knew.shape
     dev = cache.k.device
     pos = cache.kv_len.long()[:, None] + torch.arange(NS, device=dev)[None]

@@ -85,8 +85,11 @@ prefix cache through the sequence-sharded prefill (``ag_gemm`` /
 Qwen3-MoE model's expert layers take ``all_gather``/``reduce_scatter``
 in the sequence-sharded prefill and ``all_reduce`` in chunks and decode
 (``layers/tp_moe.py``); ``mode="xla"`` runs the same with plain torch
-collectives. Refused at
-tp>1: ``mode="mega"`` (ROADMAP queue 2 row 6(e)), speculation, int8 KV,
+collectives; ``mode="mega"`` decodes with the megakernel over all ranks
+in one launch (``ns``-step launches, ``eos_id``, ``kernel_trace``,
+``resident``: one work ring whose doorbell every rank stamps). Refused
+at tp>1: the MoE megakernel (ROADMAP queue 2 row 6(e), MoE half),
+``MegaConfig(wq8=True)`` (queue 1 position 4), speculation, int8 KV,
 sampling, the KV tier and ``rank_page_budget`` (queue 1, item 11).
 
 Not ported, and refused when asked for: slot migration/snapshots, the
@@ -412,7 +415,7 @@ class ContinuousEngine(MegaDispatch):
                 "cp > 1 (context-parallel prefill) is not ported yet "
                 "(ROADMAP queue 1, item 11)"
             )
-        engine_setup(model, device, mode, **unported)
+        engine_setup(model, device, mode, mega_cfg, **unported)
         refuse_at_tp(model, speculative=speculative, kv_dtype=kv_dtype,
                      rank_page_budget=rank_page_budget,
                      tier=tier is not None or bool(tier_bytes or tier_dir),
@@ -1427,11 +1430,12 @@ class ContinuousEngine(MegaDispatch):
     def _mega_plan(self) -> _MegaPlan | None:
         """Compose the next launch from host truth, or None when the round
         takes a single step: a slot within ``ns`` of ``max_length`` (its
-        ``ns`` appended rows would pass the page table), or at ``ns = 1``
-        a slot with top-k/top-p (the in-kernel filter rides the
-        multi-step build). Greedy and sampled slots launch together: a
-        row's noise is scaled by its temperature, so a greedy row's is
-        zero."""
+        ``ns`` appended rows would pass the page table), or a slot with
+        top-k/top-p at ``ns = 1`` or tp > 1 (the in-kernel filter rides
+        the multi-step build and needs the whole vocab row on one rank,
+        as in the JAX engine; sampling itself stays refused at tp > 1).
+        Greedy and sampled slots launch together: a row's noise is scaled
+        by its temperature, so a greedy row's is zero."""
         active = np.asarray([r is not None for r in self._slots], np.int32)
         if int((self._kv_len * active).max()) + self.NS > self.max_length:
             return None
@@ -1439,7 +1443,7 @@ class ContinuousEngine(MegaDispatch):
         V = self.model.cfg.vocab_size
         filtered = any(sampling.sampcfg_row(
             *self._request_sampling(self._slots[s]), V)[3] > 0.0 for s in act)
-        if filtered and self.NS <= 1:
+        if filtered and (self.NS <= 1 or self.model.tp > 1):
             return None
         # Batch bucket: the smallest power of two covering the active
         # slots; a full-width round keeps the identity layout.
@@ -1589,7 +1593,7 @@ class ContinuousEngine(MegaDispatch):
         fn = mega.decode_multi_fn(
             plan.B, self.max_length, NS, sampled=plan.sampled,
             page=self.page_size, kv_quant=self.kv_dtype is not None,
-            num_pages=int(self.cache.k_pages.shape[1]), valid_arg=True,
+            num_pages=self.cache.num_pages, valid_arg=True,
             trace=self.kernel_trace, filtered=plan.filtered, eos=plan.eos,
             ring=self._ring is not None)
         t0 = time.monotonic()

@@ -31,10 +31,13 @@ sequence-sharded through ``ag_gemm``/``gemm_rs`` (prompts right-padded to
 a multiple of n) and decodes through ``gemm_ar``; a Qwen3-MoE model's
 expert layers gather and reduce-scatter the prefill and all-reduce decode
 through the collectives of ``ops/collectives/`` (``layers/tp_moe.py``);
-``mode="xla"`` runs the same with plain torch collectives. Not ported, and refused when asked
-for: ``profile`` (ROADMAP queue 1, item 12); at tp>1 ``mode="mega"``
-(queue 2 row 6(e)), speculation, ``kv_dtype`` and sampling (queue 1,
-item 11).
+``mode="xla"`` runs the same with plain torch collectives;
+``mode="mega"`` prefills through ``xla`` and decodes with the megakernel
+over all ranks in one launch (its exchanges written in
+``csrc/megakernel.cu``). Not ported, and refused when asked for:
+``profile`` (ROADMAP queue 1, item 12); at tp>1 the MoE megakernel (queue
+2 row 6(e), MoE half), ``MegaConfig(wq8=True)`` (queue 1 position 4),
+speculation, ``kv_dtype`` and sampling (queue 1, item 11).
 """
 
 from __future__ import annotations
@@ -81,11 +84,13 @@ from triton_distributed_tpu_torch.models.stats import (
 from triton_distributed_tpu_torch.obs import metrics as obs_metrics
 from triton_distributed_tpu_torch.runtime.context import resolve_device
 
-def engine_setup(model, device, mode: str, **unported) -> None:
+def engine_setup(model, device, mode: str, mega_cfg=None,
+                 **unported) -> None:
     """Ctor checks both engines share: the engine runs on ``device``
     (``cuda`` unless given; it must be the model's), in ``mode='xla'``,
     ``'pallas'`` (at tp=1 the same as ``xla``: each collective drops
-    out) or ``'mega'``, and every knob this slice does not port is
+    out) or ``'mega'`` (at tp>1 what the megakernel builds there:
+    ``MegaQwen3.check_tp``), and every knob this slice does not port is
     refused."""
     dev = resolve_device(device)
     if dev != model.device:
@@ -95,9 +100,12 @@ def engine_setup(model, device, mode: str, **unported) -> None:
     if mode != "mega":
         check_mode(mode)
     if mode == "mega" and model.tp > 1:
-        raise NotImplementedError(
-            f"mode='mega' at tp={model.tp}: the multi-rank megakernel "
-            "bodies are not ported yet (ROADMAP queue 2 row 6(e))")
+        from triton_distributed_tpu_torch.megakernel import (
+            MegaConfig,
+            MegaQwen3,
+        )
+
+        MegaQwen3.check_tp(model, mega_cfg or MegaConfig())
     for name, value in unported.items():
         if value:
             raise NotImplementedError(
@@ -280,7 +288,7 @@ class Engine(MegaDispatch):
         kernel_trace: bool = False,
         device=None,
     ):
-        engine_setup(model, device, mode)
+        engine_setup(model, device, mode, mega_cfg)
         refuse_at_tp(model, speculative=speculative, kv_dtype=kv_dtype,
                      temperature=temperature > 0.0)
         self._init_kernel_trace(kernel_trace, mode)
@@ -582,7 +590,7 @@ class Engine(MegaDispatch):
         if self.paged:
             s_max = int(cache.page_table.shape[1]) * self.page_size
         else:
-            s_max = int(cache.k.shape[3])
+            s_max = int(cache.k.shape[-2])
         V = self.model.cfg.vocab_size
         T = self.temperature
         sampled = T > 0.0

@@ -174,9 +174,12 @@ class Qwen3:
         return self.params
 
     def _rank_params(self, params: dict) -> dict:
-        """One rank's dict on the device, its LM head padded."""
+        """One rank's dict on the device, its LM head padded, every leaf
+        contiguous (a row or column shard is a strided view of the tp=1
+        leaf; the megakernel streams each weight as a dense array)."""
         def conv(t):
-            return torch.as_tensor(t).to(self.device, self.cfg.dtype)
+            return torch.as_tensor(t).to(self.device,
+                                         self.cfg.dtype).contiguous()
 
         lp = params["layers"]
         layers = {

@@ -224,6 +224,18 @@ MEGA_DECODE_MOE = CudaKernel(
     "mega_decode_moe", "megakernel_moe", "tdt_mega_decode",
     [_P, _P, _F, _F, _P, _P],
 )
+# The dense decode megakernel over n > 1 co-located ranks (traced or not):
+# one cooperative launch of every rank, n, the n ranks' rows of the
+# pointer and geometry arrays, the RMS epsilon, the softmax scale, the
+# exchange's slot and flag device tables, epoch, flag and candidate-block
+# capacities, blocks per rank, the lagging rank (-1: none) and its lag in
+# ns, an int[4] for the launch geometry, and the stream.
+_LL = ctypes.c_longlong
+MEGA_DECODE_TP = CudaKernel(
+    "mega_decode_tp", "megakernel", "tdt_mega_decode_tp",
+    [_I, _P, _P, _F, _F, _P, _P, ctypes.c_ulonglong, _I, _I, _I, _I, _LL,
+     _P, _P],
+)
 # The prefill megakernel (its own __global__ in the same source).
 MEGA_PREFILL = CudaKernel(
     "mega_prefill", "megakernel", "tdt_mega_prefill",
@@ -249,7 +261,6 @@ AG_GEMM = CudaKernel("ag_gemm", "overlap", "tdt_overlap_launch",
 # host tables of the per-rank shard and output pointers, the flags' device
 # table, n, shard bytes, the bidir ring's clockwise bytes, epoch, blocks per
 # rank, stream.
-_LL = ctypes.c_longlong
 _AG_ARGS = [_I, _I64P, _I64P, _P, _I, _LL, _LL, _U64, _I, _P]
 ALL_GATHER = CudaKernel("all_gather", "collectives", "tdt_all_gather_launch",
                         _AG_ARGS)
@@ -288,7 +299,7 @@ KERNELS = (FLASH_ATTENTION, FLASH_DECODE, PAGED_FLASH_DECODE,
            FLASH_ATTENTION_INT8, PAGED_FLASH_DECODE_INT8,
            FLASH_ATTENTION_BIAS, MEGA_DECODE, FLASH_ATTENTION_COLD,
            FLASH_ATTENTION_COLD_INT8, FLASH_DECODE_INT8, MEGA_DECODE_TRACED,
-           MEGA_PREFILL, MEGA_DECODE_MOE, GEMM_AR, GEMM_RS, AG_GEMM,
+           MEGA_PREFILL, MEGA_DECODE_MOE, MEGA_DECODE_TP, GEMM_AR, GEMM_RS, AG_GEMM,
            ALL_GATHER, ALL_GATHER_RING, ALL_GATHER_BIDIR_RING,
            REDUCE_SCATTER_ONE_SHOT, REDUCE_SCATTER_RING,
            REDUCE_SCATTER_BIDIR_RING, REDUCE_SCATTER_RING_HBM,
