@@ -4300,12 +4300,19 @@ def check_tp(dev):
     # The megakernel at tp=2 on the same model.
     t0 = time.perf_counter()
     records["mega_decode_tp"] = check_tp_mega_kernels(dev, flush, model)
-    del flush
     more, e2e["mega"] = serve_tp_mega_paths(dev, model, plain, outs)
     launches.update(more)
     e2e["mega"]["seconds"] = time.perf_counter() - t0
     print(f"[tp_mega] the tp megakernel's checks and paths: "
           f"{e2e['mega']['seconds']:.1f} s", flush=True)
+    # The prefill megakernel at tp=2 on the same model.
+    t0 = time.perf_counter()
+    records["mega_prefill_tp"], more, e2e["mega_prefill_tp"] = (
+        check_mega_prefill_tp(dev, flush, model, plain))
+    launches.update(more)
+    del flush
+    print(f"[time] tp prefill megakernel: {time.perf_counter() - t0:.1f} s",
+          flush=True)
     del plain, model
     torch.cuda.empty_cache()
     return records, launches, e2e
@@ -4345,10 +4352,10 @@ TP_MEGA_SPLIT_OPS = ("BARRIER", "EMBED", "QKV_PROJ", "ATTN", "O_PROJ",
                      "LM_HEAD")
 
 
-def _tp_mega_operands(model, lens, seed):
-    """A random per-rank paged bf16 pool (each row's pages from the pool's
-    table) and B tokens: ``(kc list, vc list, page_table, kv_len,
-    tokens)``."""
+def _tp_mega_operands(model, lens, seed, max_length=TP_MAX_LENGTH):
+    """A random per-rank paged pool of ``max_length`` positions a row in
+    the model dtype (each row's pages from the pool's table) and B tokens:
+    ``(kc list, vc list, page_table, kv_len, tokens)``."""
     import numpy as np
     import torch
 
@@ -4357,7 +4364,7 @@ def _tp_mega_operands(model, lens, seed):
     )
 
     dev, b = model.device, len(lens)
-    pool, _ = init_paged_cache(model.cfg, b, dev, max_length=TP_MAX_LENGTH,
+    pool, _ = init_paged_cache(model.cfg, b, dev, max_length=max_length,
                                page_size=PAGE, tp=model.tp)
     gen = torch.Generator(device=dev).manual_seed(seed)
     for t in (pool.k_pages, pool.v_pages):
@@ -4749,6 +4756,174 @@ def serve_tp_mega_paths(dev, model, plain, tp_outs) -> tuple:
             f"{path} (tp={TP})", gaps, TF_MARGIN, TF_MIN_EXACT)
     e2e["eos_id"] = eos
     return launches, e2e
+
+
+# The prefill megakernel at tp > 1 (MegaQwen3.prefill over the two
+# co-located ranks of the TP phase's Qwen3-8B, all 36 layers: the kTp
+# build of mega_prefill_kernel, its entry BARRIER and the ALLREDUCE of
+# every projection's [S, d] f32 partials in rank order). One prompt of
+# PREFILL_S rows with PREFILL_TRUE real ones: row PREFILL_TRUE - 1's logits
+# and every rank's K/V rows [0, PREFILL_TRUE) within the megakernel's bf16
+# limit against the plain lockstep walk, two launches bit-identical, the
+# ranks' final residuals bitwise equal; negative control: rank 1's partial
+# dropped at layer 18 must break the logit limit. The kernel's top token
+# must lie within TF_MARGIN of the top of the pallas prefill
+# (prefill_batched, mode pallas) of the same prompt, and PREFILL_GEN tokens
+# decoded by the tp megakernel (ns=8 launches) from the cache the prefill
+# wrote pass bf16 teacher forcing against the plain forward; that run, from
+# a launch count of 0, is the path "mega_prefill_tp".
+TP_PREFILL_DROP = (18, 1)
+TP_PREFILL_PATH_KERNELS = {
+    "mega_prefill_tp": ("mega_prefill_tp", "mega_decode_tp"),
+}
+
+
+def _prefill_tp_bound(model) -> dict:
+    """``_prefill_bound`` over both ranks: each rank's weight shards and
+    LM-head columns, its kv heads' K/V rows, the prompt rows it reads and
+    its logits, and each rank's FLOPs on its heads and columns."""
+    import dataclasses
+
+    cfg, n = model.cfg, model.tp
+    loc = dataclasses.replace(cfg, num_q_heads=cfg.num_q_heads // n,
+                              num_kv_heads=cfg.num_kv_heads // n)
+    parts = [_prefill_bound(loc, p) for p in model.rank_params]
+    nbytes = sum(p["bytes"] for p in parts)
+    flops = sum(p["flops"] for p in parts)
+    t_bytes, t_ops = nbytes / HBM_BPS, flops / BF16_FLOPS
+    return {"bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": nbytes, "flops": flops}
+
+
+def check_mega_prefill_tp(dev, flush, model, plain) -> tuple:
+    """The prefill megakernel at tp=2 on ``model`` (see the constants
+    above), timed against its plain version and its bound. Returns (the
+    record of ``mega_prefill_tp``, launches by path, the e2e block)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from triton_distributed_tpu_torch.megakernel import (
+        MegaConfig,
+        MegaQwen3,
+    )
+    from triton_distributed_tpu_torch.megakernel.kernels import (
+        mega_prefill_plain_tp,
+    )
+    from triton_distributed_tpu_torch.megakernel.qwen3 import _weights
+    from triton_distributed_tpu_torch.ops import cuda_kernels as ck
+
+    cfg = model.cfg
+    prompt = prefill_prompt(cfg.vocab_size)
+    toks = torch.from_numpy(prompt).to(dev).long()
+    tl = torch.tensor([PREFILL_TRUE], dtype=torch.int32, device=dev)
+    mega = MegaQwen3(model, cfg=MegaConfig(fuse_norms=True))
+    dims = dataclasses.replace(mega._dims(PREFILL_S, PREFILL_S),
+                               prefill=True)
+    comp = mega._compile(dims)
+    w = _weights(model.params)
+    x0 = w[0].embed.index_select(0, toks)
+    info = {}
+    got = comp.run.prefill(w, x0, tl, info=info)
+    again = comp.run.prefill(w, x0, tl)
+    torch.cuda.synchronize()
+    if not all(torch.equal(x, y) for x, y in zip(got, again)):
+        raise RuntimeError("two tp prefill launches differ")
+    for r in range(1, TP):
+        if not torch.equal(info["x"][r], info["x"][0]):
+            raise RuntimeError(f"tp prefill: rank {r}'s residual differs "
+                               "from rank 0's")
+    ref = mega_prefill_plain_tp(dims, True, comp.table, w, x0, tl)
+    atol, rtol = MEGA_TOL["bf16"]
+
+    def use(a, b):
+        return ((a.float() - b.float()).abs()
+                / (atol + rtol * b.float().abs())).max().item()
+
+    used = use(got[0], ref[0])
+    kv_used = max(use(a[..., :PREFILL_TRUE, :], b[..., :PREFILL_TRUE, :])
+                  for a, b in zip(got[1:], ref[1:]))
+    bad = mega_prefill_plain_tp(dims, True, comp.table, w, x0, tl,
+                                drop_partial=TP_PREFILL_DROP)[0]
+    bad_used = use(got[0], bad)
+    err = (got[0] - ref[0]).abs().max().item()
+    info = {k: info[k] for k in ("blocks", "smem_bytes", "blocks_per_sm")
+            if k in info}
+    print(f"[tp_prefill] bf16 S={PREFILL_S} true_len={PREFILL_TRUE} tp={TP}: "
+          f"ranks bitwise equal, logits max_abs_err {err:.3e}, {used:.3f} "
+          f"of the limit; K/V rows {kv_used:.3f} of it; control (rank "
+          f"{TP_PREFILL_DROP[1]}'s partial dropped at layer "
+          f"{TP_PREFILL_DROP[0]}): {bad_used:.1f}x the limit; launch {info}")
+    if not (used <= 1.0 and kv_used <= 1.0 and bad_used > 1.0
+            and torch.isfinite(got[0]).all()):
+        raise RuntimeError(f"mega_prefill_tp: limit use {used}, K/V "
+                           f"{kv_used}, control {bad_used}")
+    # The pallas prefill of the same prompt: the kernel's top token near
+    # its top.
+    dense = model.new_cache(1, 512)
+    p_logits, _ = model.prefill_batched(prompt[None], dense, "pallas",
+                                        [PREFILL_TRUE])
+    p_row = p_logits[0].float()
+    top = int(got[0][0, :cfg.vocab_size].argmax())
+    top_gap = (p_row.max() - p_row[top]).item()
+    print(f"[tp_prefill] kernel top token {top}: {top_gap:.4f} below the "
+          f"pallas prefill's top (limit {TF_MARGIN})")
+    if not top_gap <= TF_MARGIN:
+        raise RuntimeError(f"tp prefill top token {top_gap} below pallas")
+    del dense
+    # The path: the prefill, then PREFILL_GEN tokens decoded from its
+    # cache, from launch counts of 0.
+    cache = model.new_cache(1, 512)
+    ck.reset_launch_counts()
+    t0 = time.perf_counter()
+    logits, cache = mega.prefill(prompt, cache, true_len=PREFILL_TRUE)
+    tok = logits.argmax().view(1).to(torch.int32)
+    gen = [int(tok)]
+    step = mega.decode_multi_fn(1, 512, 8)
+    while len(gen) < PREFILL_GEN:
+        out, _, cache = step(model.params, tok, cache)
+        gen += [int(t) for t in out[:, 0].tolist()]
+        tok = out[-1].clone()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"mega_prefill_tp": ck.launch_counts()}
+    counts = {k: launches["mega_prefill_tp"][k]
+              for k in TP_PREFILL_PATH_KERNELS["mega_prefill_tp"]}
+    ran = {k for k, c in launches["mega_prefill_tp"].items() if c}
+    want = {"mega_prefill_tp": 1,
+            "mega_decode_tp": -(-(PREFILL_GEN - 1) // 8)}
+    if ran != set(counts) or counts != want:
+        raise RuntimeError(f"mega_prefill_tp path: launches {counts} "
+                           f"(ran {sorted(ran)}), want {want}")
+    gen = np.asarray(gen[:PREFILL_GEN])
+    gaps = teacher_forced_gaps(plain, prompt[:PREFILL_TRUE], gen)
+    tf = _tf_check(f"mega_prefill_tp then tp mega decode (tp={TP})", gaps,
+                   TF_MARGIN, TF_MIN_EXACT)
+    ms = median_ms(lambda: comp.run.prefill(w, x0, tl), flush, iters=7)
+    plain_ms = median_ms(lambda: mega_prefill_plain_tp(
+        dims, True, comp.table, w, x0, tl), flush, iters=3, warmup=1)
+    bound = _prefill_tp_bound(model)
+    print(f"[tp_prefill] {ms:.4f} ms a launch, plain {plain_ms:.2f} ms; "
+          f"bound {bound['bound_ms']:.4f} ms ({bound['bound_by']}); path "
+          f"wall {wall:.2f} s, launches {counts}")
+    record = dict(
+        route="cuda",
+        source="triton_distributed_tpu_torch/csrc/megakernel.cu",
+        replaces="triton_distributed_tpu/megakernel/kernels.py:1047",
+        max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None,
+        bound_ms=bound["bound_ms"], bound_by=bound["bound_by"],
+        bound_bytes=bound["bytes"], bound_flops=bound["flops"],
+        limit_used=used, kv_limit_used=kv_used, control_x_limit=bad_used,
+        pallas_top_gap=top_gap, launch=info,
+        shape=f"{TP_MODEL} tp={TP}, {cfg.num_layers} layers bf16, S="
+              f"{PREFILL_S}, true_len {PREFILL_TRUE}, fused norms; the "
+              "prefill graph's bodies at n>1: kernels.py:1047 allreduce "
+              "over S rows, :896 load_x, :908 attn_prefill, :1574 barrier")
+    e2e = {"wall_s": wall, "launches": counts, "teacher_forcing": tf,
+           "pallas_top_gap": top_gap}
+    return record, launches, e2e
 
 
 # Tensor-parallel Qwen3-MoE: Qwen/Qwen3-30B-A3B at tp=2 (hq_loc 16,
@@ -5408,35 +5583,27 @@ def check_moe_tp_layers(model) -> dict:
     return out
 
 
-def serve_moe_tp_paths(dev) -> tuple:
-    """Qwen3-30B-A3B at tp=2, all layers: ``continuous_moe_tp`` and
-    ``paged_engine_moe_tp`` (two passes: MOE_TP_ENGINE_LENS rows), launches
-    per path (each counted from 0 just before it), audits, the MoE ledger,
-    teacher forcing against a plain full-sequence forward computed from
-    the rank shards (bf16 limits), the layer-by-layer hold, and the step
-    profile. Returns (launches by path, the e2e block)."""
+def serve_moe_tp_paths(dev, model) -> tuple:
+    """Qwen3-30B-A3B at tp=2 (``model``: MOE_TP_LAYERS layers):
+    ``continuous_moe_tp`` and ``paged_engine_moe_tp`` (two passes:
+    MOE_TP_ENGINE_LENS rows), launches per path (each counted from 0 just
+    before it), audits, the MoE ledger, teacher forcing against a plain
+    full-sequence forward computed from the rank shards (bf16 limits), the
+    layer-by-layer hold, and the step profile. Returns (launches by path,
+    the e2e block, the paths' tokens)."""
     import numpy as np
     import torch
 
     from triton_distributed_tpu_torch.models import (
-        AutoLLM,
         ContinuousEngine,
         Engine,
         unshard_params,
     )
     from triton_distributed_tpu_torch.ops import cuda_kernels as ck
 
-    t0 = t_start = time.perf_counter()
-    model = AutoLLM.from_pretrained(MOE_MODEL, device=dev, seed=SEED,
-                                    tp=MOE_TP)
-    torch.cuda.synchronize()
+    t_start = time.perf_counter()
     cfg = model.cfg
     k, V = cfg.num_experts_per_tok, cfg.vocab_size
-    print(f"[moe_tp] {MOE_MODEL} random init at tp={MOE_TP} on {dev} in "
-          f"{time.perf_counter() - t0:.1f} s ({cfg.num_layers} layers, "
-          f"hq_loc {model.dims.hq_loc}, hkv_loc {model.dims.hkv_loc}, f_loc "
-          f"{cfg.moe_intermediate_size // MOE_TP}; "
-          f"{torch.cuda.memory_allocated(dev) / 1e9:.2f} GB allocated)")
     rng = np.random.default_rng(SEED + 23)
     prompts = [rng.integers(0, V, n).astype(np.int32)
                for n in MOE_TP_PROMPT_LENS]
@@ -5548,17 +5715,674 @@ def serve_moe_tp_paths(dev) -> tuple:
                                            tag="moe_tp")
     marks["step_profile"] = time.perf_counter()
     e2e["serve_marks_s"] = {k: v - t_start for k, v in marks.items()}
-    del model
+    return launches, e2e, outs
+
+
+# The MoE megakernel at tp > 1 (queue 2 row 6(e), MoE half): mode="mega"
+# over the two co-located ranks of the MoE-TP phase's Qwen3-30B-A3B in ONE
+# cooperative launch of the MoE library's kTp build (tdt_mega_decode_tp),
+# its experts expert-parallel (MegaQwen3.moe_params: 64 of the 128 experts a
+# rank at full width, resharded from the model's TP layout, which the xla
+# prefill keeps reading), the combine's A2A_SEND/A2A_WAIT puts and waits
+# (or the last expert's handoff to ALLREDUCE without overlap_ar). The EP
+# layout is a second copy of the experts beside the TP one, so the model
+# runs MOE_TP_LAYERS of its 48 layers: 2 x 29.0 GB of experts at 24 layers
+# (60.8 GB in all) where 48 would need 116 GB; the phase's pallas paths
+# above share the same 24-layer model. Kernel vs plain (the EP lockstep
+# walk, kernels.mega_decode_plain_tp) at B=4 over the paged bf16 pool,
+# kv_len MOE_TP_MEGA_LENS, NS 1 and 8, overlap_ar on and off: the plain
+# version held to the kernel layer by layer (_ForcedGate on rank 0's
+# moe_route and moe_x records, _moe_rows_ok under the MoE phase's limits:
+# routing flips only at a near tie <= MOE_TIE, combine weights within
+# MOE_WEIGHT_TOL, residuals within MOE_X_TOL, logits within MEGA_TOL),
+# every rank's records, tokens
+# and final residual bitwise equal; the negative control drops rank 1's
+# phase-0 combine partial at layer 12 on the plain side and must break the
+# residual hold; a 500 us lag on rank 1 must leave the outputs bit-identical
+# and the launch >= 0.5 ms longer; MOE_TP_MEGA_STRESS launches back to back
+# on fresh tokens, each held; f32 at MOE_TP_MEGA_F32_LAYERS layers: tokens
+# equal, logits within 2e-3. Then the serving paths
+# (MOE_TP_MEGA_PATH_KERNELS) on the pallas paths' prompts, each held by
+# teacher forcing against the plain forward routed as the run routed (the
+# prefill from the xla path's gates, the decode from the kernel's own
+# records), the MoE ledger and audit.
+MOE_TP_LAYERS = 24
+MOE_TP_MEGA_LENS = (300, 700, 300, 700)
+MOE_TP_MEGA_NS = (1, 8)
+MOE_TP_MEGA_DROP = (12, 1, 0)  # (layer, rank, A2A phase) of the control
+MOE_TP_MEGA_STRESS = 20
+MOE_TP_MEGA_LAG_NS = 500_000
+MOE_TP_MEGA_NSTEP = 8
+MOE_TP_MEGA_EOS_AT = 8
+MOE_TP_MEGA_F32_LAYERS = 2
+MOE_TP_MEGA_PATH_KERNELS = {
+    # Prefill runs xla (attention through flash_attention, the experts and
+    # collectives plain torch); every decode step is one launch of the
+    # MoE tp megakernel (ns=8, its single-step remainders included).
+    "continuous_moe_tp_mega": ("flash_attention", "mega_decode_moe_tp"),
+    "continuous_moe_tp_mega_resident": ("flash_attention",
+                                        "mega_decode_moe_tp"),
+    "paged_engine_moe_tp_mega": ("flash_attention", "mega_decode_moe_tp"),
+}
+MOE_TP_MEGA_SPLIT_OPS = ("BARRIER", "EMBED", "QKV_PROJ", "ATTN", "O_PROJ",
+                         "AR_SEND", "AR_WAIT", "ALLREDUCE", "MOE_GATE",
+                         "MOE_FFN", "A2A_SEND", "A2A_WAIT", "LM_HEAD")
+
+
+def _moe_tp_bound(model, ep, routed, lens) -> dict:
+    """The least time of one MoE decode step at tp=n over ``lens``: the
+    larger of its bytes over the HBM rate and its FLOPs over the bf16 peak.
+    Bytes: every rank's attention shards, router, norms and LM-head columns
+    and the embed rows it reads, the weights of the experts ``routed``
+    names (the distinct experts the step's rows route to at each layer,
+    each held by one rank), every cached K/V row (each rank its kv heads),
+    the logits and the new K/V rows. FLOPs: each rank's attention GEMMs,
+    router and LM head for every row, each row's k experts, QK^T and P·V
+    over each row's cache."""
+    cfg = model.cfg
+    b, L, hd = len(lens), cfg.num_layers, cfg.head_dim
+    d, f = cfg.hidden_size, cfg.moe_intermediate_size
+    item = cfg.dtype.itemsize
+    per_rank = 0
+    for p in ep:
+        lp = p["layers"]
+        per_rank += sum(t.numel() for t in (
+            lp["attn"]["wqkv"], lp["attn"]["wo"], lp["mlp"]["w_router"],
+            p["lm_head"], lp["ln1"], lp["ln2"], lp["attn"]["q_norm"],
+            lp["attn"]["k_norm"], p["norm"])) * item + b * d * item
+    gemm = sum(ep[0]["layers"][k1][k2].numel() for k1, k2 in (
+        ("attn", "wqkv"), ("attn", "wo"), ("mlp", "w_router")))
+    expert = 3 * d * f
+    kv = 2 * L * sum(lens) * cfg.num_kv_heads * hd * item
+    out = (b * ep[0]["lm_head"].shape[1] * 4 * model.tp
+           + 2 * L * b * cfg.num_kv_heads * hd * item)
+    flops = 2 * b * (model.tp * gemm + model.tp * ep[0]["lm_head"].numel()
+                     + cfg.num_experts_per_tok * L * expert) + 4 * (
+        cfg.num_q_heads * hd * L * sum(lens))
+
+    def bound(n_experts):
+        nbytes = per_rank + kv + out + n_experts * expert * item
+        t_bytes, t_ops = nbytes / HBM_BPS, flops / BF16_FLOPS
+        return (max(t_bytes, t_ops) * 1e3,
+                "bytes" if t_bytes >= t_ops else "operations", nbytes)
+
+    ms, by, nbytes = bound(sum(routed))
+    all_ms, _, _ = bound(cfg.num_experts * L)
+    return {"bound_ms": ms, "bound_by": by, "bound_bytes": nbytes,
+            "all_expert_bound_ms": all_ms,
+            "routed_experts_per_layer": sum(routed) / L}
+
+
+def _moe_tp_records(model, dims, dev):
+    """Zeroed per-rank routing records of a launch: moe_route [n, NS, L, E,
+    B] and moe_x [n, NS, L, B, d] f32."""
+    import torch
+
+    cfg, n = model.cfg, model.tp
+    lead = (n, dims.nsteps, cfg.num_layers)
+    return (torch.zeros(lead + (cfg.num_experts, dims.batch),
+                        dtype=torch.float32, device=dev),
+            torch.zeros(lead + (dims.batch, dims.d), dtype=torch.float32,
+                        device=dev))
+
+
+def _moe_tp_ranks_equal(info, route, x_rec, what) -> None:
+    import torch
+
+    for r in range(1, MOE_TP):
+        for name, t in (("toks", info["toks"]), ("x", info["x"]),
+                        ("moe_route", route), ("moe_x", x_rec)):
+            if not torch.equal(t[r], t[0]):
+                raise RuntimeError(f"{what}: rank {r}'s {name} differs from "
+                                   "rank 0's")
+
+
+def _moe_tp_hold(comp, w, args, got, route, x_rec, what, **plain_kw):
+    """The plain EP walk held to one kernel launch layer by layer
+    (``_ForcedGate`` on rank 0's records, ``_moe_rows_ok``): returns (the
+    rows' record, the gate log)."""
+    import dataclasses
+
+    from triton_distributed_tpu_torch.megakernel.kernels import (
+        mega_decode_plain_tp,
+    )
+
+    dims = comp.builder.dims
+    forced = (route[0], x_rec[0], dims.moe_top_k, dims.norm_topk)
+    fg = _ForcedGate(*forced)
+    ref = mega_decode_plain_tp(dims, True, comp.table, w, *args,
+                               gate_hook=fg, **plain_kw)
+
+    def plain_at(s):
+        return mega_decode_plain_tp(dataclasses.replace(dims, nsteps=s + 1),
+                                    True, comp.table, w, *args,
+                                    gate_hook=_ForcedGate(*forced),
+                                    **plain_kw)[0]
+
+    atol, rtol = MEGA_TOL["bf16"]
+    return _moe_rows_ok(got, ref, fg, plain_at, atol, rtol, what), fg
+
+
+def check_moe_tp_mega_f32(dev) -> dict:
+    """The MoE megakernel at tp=2 at Qwen3-30B-A3B width,
+    MOE_TP_MEGA_F32_LAYERS layers, in f32 with TF32 off, over a paged f32
+    pool, NS 1 and 8: tokens equal to the plain EP walk's, logits within
+    MEGA_TOL f32, ranks bitwise equal; rank 1's phase-0 partial dropped at
+    layer 0 must break the limit."""
+    import dataclasses
+
+    import torch
+
+    from triton_distributed_tpu_torch.megakernel import (
+        MegaConfig,
+        MegaQwen3,
+    )
+    from triton_distributed_tpu_torch.megakernel.kernels import (
+        mega_decode_plain_tp,
+    )
+    from triton_distributed_tpu_torch.megakernel.qwen3 import _weights
+    from triton_distributed_tpu_torch.models import AutoLLM
+
+    model = AutoLLM.from_pretrained(MOE_MODEL, device=dev, seed=SEED,
+                                    tp=MOE_TP, dtype=torch.float32,
+                                    num_layers=MOE_TP_MEGA_F32_LAYERS)
+    V, b = model.cfg.vocab_size, len(MOE_TP_MEGA_LENS)
+    args = _tp_mega_operands(model, MOE_TP_MEGA_LENS, SEED + 31,
+                             MOE_TP_MAX_LENGTH)
+    mega = MegaQwen3(model, cfg=MegaConfig(
+        fuse_norms=True, cross_prefetch=True, overlap_ar=True))
+    w = _weights(mega._step_params())
+    atol, _ = MEGA_TOL["f32"]
+    out = {}
+    for ns in MOE_TP_MEGA_NS:
+        dims = dataclasses.replace(
+            mega._dims(b, MOE_TP_MAX_LENGTH, PAGE,
+                       num_pages=int(args[0][0].shape[1])),
+            nsteps=ns, v_real=V)
+        comp = mega._compile(dims)
+        info = {}
+        route, x_rec = _moe_tp_records(model, dims, dev)
+        got = comp.run(w, *args, info=info, moe_route=route, moe_x=x_rec)
+        torch.cuda.synchronize()
+        _moe_tp_ranks_equal(info, route, x_rec, f"moe tp f32 NS={ns}")
+        ref = mega_decode_plain_tp(dims, True, comp.table, w, *args)
+        bad = mega_decode_plain_tp(dims, True, comp.table, w, *args,
+                                   drop_partial=(0, 1, 0))[0]
+        err = (got[0] - ref[0]).abs()
+        used = (err / atol).max().item()
+        bad_used = ((got[0] - bad).abs() / atol).max().item()
+        same = torch.equal(got[3], ref[3])
+        print(f"[moe_tp_mega] f32 {MOE_TP_MEGA_F32_LAYERS} layers NS={ns}: "
+              f"tokens == plain {same}, ranks bitwise equal, logits "
+              f"max_abs_err {err.max().item():.3e} ({used:.3f} of the limit "
+              f"{atol}); rank 1's phase-0 partial dropped at layer 0: "
+              f"{bad_used:.1f}x the limit")
+        if not same or not used <= 1.0 or not bad_used > 1.0:
+            raise RuntimeError(f"mega_decode_moe_tp f32 NS={ns}: tokens "
+                               f"equal {same}, limit use {used}, control "
+                               f"{bad_used}")
+        out[f"ns{ns}"] = {"max_abs_err": err.max().item(),
+                          "limit_used": used, "control_limit_used": bad_used}
+    del model, mega, w, args
+    return out
+
+
+def check_moe_tp_mega_kernels(dev, flush, model, f32) -> dict:
+    """The MoE tp megakernel against its plain version on ``model`` (see the
+    constants above), timed; returns the record of ``mega_decode_moe_tp``
+    (``f32``: check_moe_tp_mega_f32's readings)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from triton_distributed_tpu_torch.megakernel import (
+        MegaConfig,
+        MegaQwen3,
+    )
+    from triton_distributed_tpu_torch.megakernel.kernels import (
+        mega_decode_plain_tp,
+    )
+    from triton_distributed_tpu_torch.megakernel.qwen3 import _weights
+    from triton_distributed_tpu_torch.megakernel.task import TaskType
+    from triton_distributed_tpu_torch.obs import kernel_trace as kt
+
+    cfg = model.cfg
+    b, V, L = len(MOE_TP_MEGA_LENS), cfg.vocab_size, cfg.num_layers
+    args = _tp_mega_operands(model, MOE_TP_MEGA_LENS, SEED + 32,
+                             MOE_TP_MAX_LENGTH)
+    t0 = time.perf_counter()
+    megas = {ov: MegaQwen3(model, cfg=MegaConfig(
+        fuse_norms=True, cross_prefetch=ov, overlap_ar=ov))
+        for ov in (True, False)}
+    ep = megas[True].moe_params()
+    torch.cuda.synchronize()
+    print(f"[moe_tp_mega] TP -> EP reshard in {time.perf_counter() - t0:.1f}"
+          f" s; {torch.cuda.memory_allocated(dev) / 1e9:.2f} GB allocated")
+    w = _weights(ep)
+    rec = {"rows": {}, "ms_per_launch": {}, "plain_ms_per_launch": {},
+           "split_ms_per_step": {}, "launch_stats": {}}
+    comps, logs, max_err, info = {}, {}, 0.0, {}
+    for overlap in (True, False):
+        for ns in MOE_TP_MEGA_NS:
+            dims = dataclasses.replace(
+                megas[overlap]._dims(b, MOE_TP_MAX_LENGTH, PAGE,
+                                     num_pages=int(args[0][0].shape[1])),
+                nsteps=ns, v_real=V)
+            comp = comps[overlap, ns] = megas[overlap]._compile(dims)
+            route, x_rec = _moe_tp_records(model, dims, dev)
+            info = {}
+            got = comp.run(w, *args, info=info, moe_route=route, moe_x=x_rec)
+            again = comp.run(w, *args)
+            torch.cuda.synchronize()
+            if not all(torch.equal(x, y) for x, y in zip(got, again)):
+                raise RuntimeError(f"mega_decode_moe_tp NS={ns}: two "
+                                   "launches on the same inputs differ")
+            what = f"mega_decode_moe_tp bf16 NS={ns} overlap_ar={overlap}"
+            _moe_tp_ranks_equal(info, route, x_rec, what)
+            rows, fg = _moe_tp_hold(comp, w, args, got, route, x_rec, what)
+            max_err = max(max_err, rows["max_abs_err"])
+            key = f"ns{ns}_overlap{int(overlap)}"
+            rec["rows"][key] = rows
+            logs[overlap, ns] = (route, x_rec, fg)
+            rec["launch_stats"][key] = _moe_launch_stats(fg, ns, L)
+            info = {k: info[k] for k in ("blocks", "smem_bytes",
+                                         "blocks_per_sm") if k in info}
+            ms = median_ms(lambda: comp.run(w, *args), flush, iters=7)
+            rec["ms_per_launch"][key] = ms
+            if overlap and ns == 1:
+                rec["plain_ms_per_launch"][f"ns{ns}"] = median_ms(
+                    lambda: mega_decode_plain_tp(dims, True, comp.table, w,
+                                                 *args),
+                    flush, iters=3, warmup=1)
+            print(f"[moe_tp_mega] {what}: ranks bitwise equal (records, "
+                  f"tokens, residual); held layer by layer: "
+                  f"{json.dumps({k: v for k, v in rows.items() if k != 'ties'})}"
+                  f"; {ms:.4f} ms per launch ({ms / ns:.4f} a step); launch "
+                  f"{info}")
+    # The negative control: rank 1's phase-0 combine partial dropped at
+    # layer 12 on the plain side must break the residual hold.
+    control = {}
+    for ns in MOE_TP_MEGA_NS:
+        comp = comps[True, ns]
+        route, x_rec, _ = logs[True, ns]
+        fg = _ForcedGate(route[0], x_rec[0], cfg.num_experts_per_tok,
+                         cfg.norm_topk_prob)
+        mega_decode_plain_tp(comp.builder.dims, True, comp.table, w, *args,
+                             gate_hook=fg, drop_partial=MOE_TP_MEGA_DROP)
+        control[ns] = fg.x_use[:, MOE_TP_MEGA_DROP[0] + 1:].max().item()
+    print(f"[moe_tp_mega] control (rank {MOE_TP_MEGA_DROP[1]}'s phase-"
+          f"{MOE_TP_MEGA_DROP[2]} partial dropped at layer "
+          f"{MOE_TP_MEGA_DROP[0]}): the next gate's residual at "
+          + ", ".join(f"NS={k} {v:.1f}x" for k, v in control.items())
+          + " MOE_X_TOL (each must exceed 1)")
+    if min(control.values()) <= 1.0:
+        raise RuntimeError(f"moe tp megakernel control at {control}")
+    comp = comps[True, 1]
+    dims = comp.builder.dims
+    got = comp.run(w, *args)
+    # The straggler: bit-identical, the launch >= 0.5 ms longer.
+    lag = megas[True]._compile(dataclasses.replace(
+        dims, straggler_rank=1, straggler_nanos=MOE_TP_MEGA_LAG_NS))
+    slow = lag.run(w, *args)
+    torch.cuda.synchronize()
+    if not all(torch.equal(x, y) for x, y in zip(got, slow)):
+        raise RuntimeError("the lagged MoE tp launch's outputs differ")
+    base_ms = median_ms(lambda: comp.run(w, *args), flush, iters=5)
+    lag_ms = median_ms(lambda: lag.run(w, *args), flush, iters=5)
+    print(f"[moe_tp_mega] straggler (rank 1 lags {MOE_TP_MEGA_LAG_NS} ns): "
+          f"outputs bit-identical, {lag_ms:.4f} ms against {base_ms:.4f}")
+    if lag_ms < base_ms + MOE_TP_MEGA_LAG_NS / 1e6:
+        raise RuntimeError("the straggler did not lengthen the launch")
+    # Back to back on fresh tokens, every launch held.
+    rng = np.random.default_rng(SEED + 33)
+    runs = []
+    for _ in range(MOE_TP_MEGA_STRESS):
+        tok = torch.from_numpy(rng.integers(0, V, b).astype(np.int32)).to(
+            dev)
+        route, x_rec = _moe_tp_records(model, dims, dev)
+        i = {}
+        runs.append((tok, comp.run(w, *args[:4], tok, info=i,
+                                   moe_route=route, moe_x=x_rec),
+                     i, route, x_rec))
+    torch.cuda.synchronize()
+    stress_used = 0.0
+    for tok, out, i, route, x_rec in runs:
+        _moe_tp_ranks_equal(i, route, x_rec, "stress")
+        rows, _ = _moe_tp_hold(comp, w, (*args[:4], tok), out, route,
+                               x_rec, "stress launch")
+        stress_used = max(stress_used, rows["limit_used"])
+    print(f"[moe_tp_mega] {MOE_TP_MEGA_STRESS} launches back to back on "
+          f"fresh tokens: each held layer by layer (logits at most "
+          f"{stress_used:.3f} of the limit), ranks bitwise equal")
+    # Traced: == untraced, each rank's ring valid with one A2A window per
+    # layer and step; the step split by opcode.
+    for ns in MOE_TP_MEGA_NS:
+        comp = comps[True, ns]
+        tcomp = megas[True]._compile(dataclasses.replace(
+            comp.builder.dims, trace=True))
+        base = comp.run(w, *args)
+        launches = []
+        for _ in range(5):
+            flush.zero_()
+            torch.cuda._sleep(LEAD_CYCLES)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            tout = tcomp.run(w, *args)
+            end.record()
+            end.synchronize()
+            launches.append((start.elapsed_time(end), tout))
+        if not all(torch.equal(x, y) for x, y in zip(base, launches[0][1])):
+            raise RuntimeError(f"traced MoE tp launch NS={ns} differs from "
+                               "the untraced one")
+        event_ms, tout = sorted(launches, key=lambda x: x[0])[2]
+        ring = tout[5].cpu().numpy()
+        records = kt.decode_trace(ring)
+        problems = kt.validate_ring(records, tcomp.order)
+        windows = kt.overlap_report(records)["a2a_windows"]
+        mids = [r for r in records if r.opcode in (
+            int(TaskType.A2A_SEND), int(TaskType.A2A_WAIT))]
+        if (ring.shape[0] != MOE_TP or problems
+                or windows != L * ns * MOE_TP
+                or not all(r.begin <= r.mid <= r.end for r in mids)):
+            raise RuntimeError(f"traced MoE tp launch NS={ns}: rings "
+                               f"{ring.shape}, problems {problems[:5]}, "
+                               f"a2a windows {windows}")
+        mine = [r for r in records if r.rank == 0]
+        span = max(r.end for r in mine) - min(r.begin for r in mine)
+        split = {}
+        for r in mine:
+            split[r.op] = split.get(r.op, 0.0) + r.dur * event_ms / span / ns
+        rec["split_ms_per_step"][ns] = {
+            "event_ms_per_launch": event_ms,
+            **{op: split.get(op, 0.0) for op in MOE_TP_MEGA_SPLIT_OPS}}
+        print(f"[moe_tp_mega] traced NS={ns}: == untraced bit for bit, "
+              f"{MOE_TP} rings of {len(records) // MOE_TP} records validate, "
+              f"{windows // MOE_TP} A2A windows a rank; rank 0's split per "
+              f"step {json.dumps(rec['split_ms_per_step'][ns])}")
+    # The bound of the NS=1 launch timed above: its distinct routed experts.
+    routed = [logs[True, 1][2].routed[0, l] for l in range(L)]
+    bound = _moe_tp_bound(model, ep, routed, MOE_TP_MEGA_LENS)
+    ms1 = rec["ms_per_launch"]["ns1_overlap1"]
+    print(f"[moe_tp_mega] {ms1:.4f} ms a step at NS=1, "
+          f"{rec['ms_per_launch']['ns8_overlap1'] / 8:.4f} in an NS=8 "
+          f"launch; bound {bound['bound_ms']:.4f} ms ({bound['bound_by']}, "
+          f"{bound['routed_experts_per_layer']:.1f} routed experts a layer; "
+          f"every expert: {bound['all_expert_bound_ms']:.4f} ms); plain "
+          f"{rec['plain_ms_per_launch']['ns1']:.2f} ms")
+    del megas, ep, w, comps, logs, runs
+    return dict(
+        route="cuda",
+        source="triton_distributed_tpu_torch/csrc/megakernel_moe.cu",
+        replaces="triton_distributed_tpu/megakernel/kernels.py:1254",
+        max_abs_err=max_err, ms=ms1,
+        plain_ms=rec["plain_ms_per_launch"]["ns1"], library_ms=None,
+        **bound,
+        shape=f"{MOE_MODEL} tp={MOE_TP}, {L} of 48 layers, B={b}, paged "
+              f"page={PAGE}, kv_len {list(MOE_TP_MEGA_LENS)}, NS=1 bf16 (ms "
+              "= one step), the serving config (fused norms, overlap_ar); "
+              "the EP bodies kernels.py:1254 a2a_send, :1297 a2a_wait with "
+              ":442 _a2a_put_dmas, :469 _a2a_wait_recvs",
+        ms_per_step_ns8=rec["ms_per_launch"]["ns8_overlap1"] / 8,
+        control_x_use=control, straggler_ms=[base_ms, lag_ms],
+        stress_limit_used=stress_used, f32=f32, launch=info, **rec)
+
+
+class _MegaRouteLog(_RouteLog):
+    """``_RouteLog`` over a ``mode="mega"`` run: the prefill's routing from
+    the xla path's gates, as there, and each MoE megakernel launch's from
+    the kernel's own records (``moe_route``, rank 0's: every rank's is
+    bitwise the same), with the slots' requests as the launch was issued.
+    Row b of a launch is slot b; its step s routes position ``kv_len[b] +
+    s`` with input token ``tokens[b]`` (s = 0) or the launch's own step
+    s - 1 winner. A launch of another graph passes through."""
+
+    def __init__(self, model, prompts):
+        from triton_distributed_tpu_torch.megakernel import (
+            code_generator as cg,
+        )
+
+        super().__init__(model, prompts)
+        self._cg, self._call, self.launches = cg, cg.MegaCall.__call__, []
+        log = self
+
+        def call(mc, w, kc, vc, page_table, kv_len, tokens, *a, **kw):
+            if not mc.dims.moe:
+                return log._call(mc, w, kc, vc, page_table, kv_len, tokens,
+                                 *a, **kw)
+            route, x_rec = _moe_tp_records(model, mc.dims, kv_len.device)
+            out = log._call(mc, w, kc, vc, page_table, kv_len, tokens, *a,
+                            moe_route=route, moe_x=x_rec, **kw)
+            # Device copies in stream order: no host sync on the issue path.
+            log.launches.append((kv_len.clone(), tokens.clone(), out[3],
+                                 route[0], dict(log.slot_req)))
+            return out
+
+        cg.MegaCall.__call__ = call
+
+    def close(self):
+        self._cg.MegaCall.__call__ = self._call
+        super().close()
+        k = self.model.cfg.num_experts_per_tok
+        for kv_len, tokens, toks, route, slots in self.launches:
+            kv_len, tokens, toks = kv_len.tolist(), tokens.tolist(), toks.cpu()
+            top = route.topk(k, dim=2)  # route [NS, L, E, B] -> [NS, L, k, B]
+            ids, ws = top.indices.cpu(), top.values.cpu()
+            for s in range(route.shape[0]):
+                for b, req in slots.items():
+                    if req < 0 or b >= len(kv_len):
+                        continue
+                    tok = tokens[b] if s == 0 else int(toks[s - 1, b])
+                    self.rows.setdefault((req, kv_len[b] + s),
+                                         (tok, ids[s, :, :, b],
+                                          ws[s, :, :, b]))
+        self.launches = []
+
+
+def serve_moe_tp_mega_paths(dev, model, pallas_outs) -> tuple:
+    """The MoE megakernel's paths at tp=2 on ``model``
+    (MOE_TP_MEGA_PATH_KERNELS) over the pallas paths' prompts:
+    ContinuousEngine(mode="mega", ns=8, prefix_cache=True, eos_id=...), the
+    same resident and traced (every rank's ring validated against the
+    scheduled order and its doorbell, with one A2A window per layer and
+    step; how many of its requests emit the untraced path's tokens is a
+    reading: the xla prefill's combine sums in no fixed order), and
+    Engine(mode="mega", paged=True) on the two 300-token rows. Each path,
+    from launch counts of 0: audit, the MoE ledger against the traffic's
+    arithmetic, the megakernel's launches one per ns-step launch and single
+    step, teacher forcing against the plain forward routed as the run
+    routed. Returns (launches by path, e2e)."""
+    import numpy as np
+    import torch
+
+    from triton_distributed_tpu_torch.models import (
+        ContinuousEngine,
+        Engine,
+        unshard_params,
+    )
+    from triton_distributed_tpu_torch.obs import events as obs_events
+    from triton_distributed_tpu_torch.obs import kernel_trace as kt
+    from triton_distributed_tpu_torch.ops import cuda_kernels as ck
+
+    cfg = model.cfg
+    k, V, L = cfg.num_experts_per_tok, cfg.vocab_size, cfg.num_layers
+    rng = np.random.default_rng(SEED + 23)
+    prompts = [rng.integers(0, V, n).astype(np.int32)
+               for n in MOE_TP_PROMPT_LENS]
+    engine_ids = [rng.integers(0, V, (2, n)).astype(np.int32)
+                  for n in MOE_TP_ENGINE_LENS]
+    ids = engine_ids[0]
+    streams = pallas_outs["continuous_moe_tp"]
+    eos = int(streams[0][MOE_TP_MEGA_EOS_AT])
+    if any(int(o[0]) == eos for o in streams):
+        # The random model may emit one token throughout: then the stop
+        # test runs every step on an id no request emits, and never fires.
+        seen = {int(t) for o in streams for t in o}
+        eos = next(v for v in range(V - 1, -1, -1) if v not in seen)
+    kw = dict(max_batch=4, page_size=PAGE, max_length=MOE_TP_MAX_LENGTH,
+              mode="mega", ns=MOE_TP_MEGA_NSTEP, eos_id=eos, device=dev)
+    runs = {
+        "continuous_moe_tp_mega": lambda: ContinuousEngine(
+            model, prefix_cache=True, **kw),
+        "continuous_moe_tp_mega_resident": lambda: ContinuousEngine(
+            model, prefix_cache=True, resident=True, kernel_trace=True,
+            **kw),
+        "paged_engine_moe_tp_mega": lambda: Engine(
+            model, mode="mega", paged=True, page_size=PAGE, device=dev),
+    }
+    warm = rng.integers(0, V, 24).astype(np.int32)
+    launches, outs, e2e, logs = {}, {}, {}, {}
+    for path, make in runs.items():
+        eng = make()
+        timer, single = None, [0]
+        if path == "paged_engine_moe_tp_mega":
+            eng.serve(ids[:, :24], 2, MOE_TP_MAX_LENGTH)
+            src = list(ids)
+        else:
+            eng.run([(warm, 2)])
+            timer = _LaunchTimer(eng)
+            inner_once = eng._decode_once
+
+            def once(eng=eng, inner_once=inner_once):
+                single[0] += sum(r is not None for r in eng._slots)
+                return inner_once()
+            eng._decode_once = once
+            src = prompts
+        torch.cuda.synchronize()
+        ev0 = obs_events.default_ring().next_seq - 1
+        log = logs[path] = _MegaRouteLog(model, src)
+        ck.reset_launch_counts()
+        t0 = time.perf_counter()
+        try:
+            if path == "paged_engine_moe_tp_mega":
+                got = eng.serve(ids, MOE_TP_GEN, MOE_TP_MAX_LENGTH,
+                                ns=MOE_TP_MEGA_NSTEP)
+                outs[path] = [g[ids.shape[1]:] for g in got]
+            else:
+                outs[path] = eng.run([(p, MOE_TP_GEN) for p in prompts])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches[path] = ck.launch_counts()
+        finally:
+            log.close()
+        if eng.audit():
+            raise RuntimeError(f"{path}: pool audit failed: {eng.audit()}")
+        st = eng.last_stats
+        n_launch = st.get("mega_launches", 0)
+        if path == "paged_engine_moe_tp_mega":
+            singles = MOE_TP_GEN - 1 - n_launch * MOE_TP_MEGA_NSTEP
+            want_r = k * 2 * (ids.shape[1] + MOE_TP_GEN - 1)
+        else:
+            singles = st.get("mega_fallback_steps", 0)
+            events, dropped = obs_events.default_ring().tail(ev0)
+            if dropped:
+                raise RuntimeError(f"{path}: {dropped} engine events lost")
+            positions = single[0] + sum(
+                e.fields["ns"] * e.fields["active"] for e in events
+                if e.kind == "mega:launch")
+            want_r = k * (st["prefill_tokens"] + positions)
+        counts = {c: launches[path][c] for c in MOE_TP_MEGA_PATH_KERNELS[path]}
+        ran = {c for c, n in launches[path].items() if n}
+        print(f"[moe_tp_mega] {path}: {wall:.2f} s wall, launches {counts} "
+              f"({n_launch} ns={MOE_TP_MEGA_NSTEP} launches + {singles} "
+              f"single steps), moe_routed_tokens {st['moe_routed_tokens']} "
+              f"(want {want_r}), a2a_dropped {st['a2a_dropped']}")
+        if ran != set(counts) or counts["mega_decode_moe_tp"] != (
+                n_launch + singles):
+            raise RuntimeError(f"{path}: launched {sorted(ran)}, {counts}; "
+                               f"{n_launch + singles} megakernel launches "
+                               "expected")
+        if st["moe_routed_tokens"] != want_r or st["a2a_dropped"] != 0:
+            raise RuntimeError(f"{path}: MoE ledger {st['moe_routed_tokens']}"
+                               f" routed, want {want_r}")
+        e2e[path] = {"wall_s": wall, "launches": counts,
+                     "mega_launches": n_launch, "single_steps": singles,
+                     "moe_routed_tokens": st["moe_routed_tokens"]}
+        if timer is not None:
+            e2e[path]["launch_device_ms_per_step"] = (
+                timer.device_ms() / max(n_launch * MOE_TP_MEGA_NSTEP, 1))
+        if path == "continuous_moe_tp_mega_resident":
+            # A reading, not a check: both paths prefill through the xla
+            # MoE layer, whose combine (index_add_, atomic on the card)
+            # sums in no fixed order, so the two runs' caches may differ
+            # in the last bits and this flat-logit random model may then
+            # pick another token. Each path is held by teacher forcing.
+            same = sum(list(a) == list(b) for a, b in zip(
+                outs[path], outs["continuous_moe_tp_mega"]))
+            e2e[path]["requests_equal_to_continuous"] = same
+            order = eng._mega_model().multi_task_order(
+                4, MOE_TP_MAX_LENGTH, MOE_TP_MEGA_NSTEP, page=PAGE,
+                num_pages=eng.cache.num_pages, valid_arg=True, trace=True,
+                eos=True, ring=True)
+            rings = eng.kernel_trace_launches()
+            windows = []
+            for ln in rings:
+                recs = ln.get_records()
+                problems = kt.validate_ring(recs, order, doorbell=ln.doorbell)
+                windows.append(kt.overlap_report(recs)["a2a_windows"])
+                if (ln.ring.shape[0] != MOE_TP or problems
+                        or windows[-1] != L * ln.nsteps * MOE_TP):
+                    raise RuntimeError(f"{path}: ring {ln.ring.shape}, "
+                                       f"problems {problems[:5]}, a2a "
+                                       f"windows {windows[-1]}")
+            print(f"[moe_tp_mega] {path}: {same} of {len(prompts)} requests'"
+                  f" tokens == continuous_moe_tp_mega's (a reading: the xla "
+                  f"prefill's combine is atomic), {len(rings)} recent "
+                  f"launches' {MOE_TP} rings validate "
+                  f"against the order and their doorbells, A2A windows "
+                  f"{windows} (L·NS = {L * MOE_TP_MEGA_NSTEP} a rank); "
+                  f"{st['mega_resident_rounds']} resident rounds")
+            e2e[path].update(resident_rounds=st["mega_resident_rounds"],
+                             a2a_windows=windows)
+    # Teacher forcing through the plain forward from the rank shards, its
+    # experts routed as each run routed each position.
+    params = unshard_params(model.params, mlp=False)
+    plain = _tp_plain_model(model, params)
+    for path, got in outs.items():
+        log = logs[path]
+        src = list(ids) if path == "paged_engine_moe_tp_mega" else prompts
+        gaps, cover, eos_hits = [], [], 0
+        for req, (p, o) in enumerate(zip(src, got)):
+            o = np.asarray(o)
+            eos_hits += int(len(o) < MOE_TP_GEN)
+            if not (o.shape == (MOE_TP_GEN,) or (
+                    path != "paged_engine_moe_tp_mega" and 0 < len(o)
+                    < MOE_TP_GEN and int(o[-1]) == eos)):
+                raise RuntimeError(f"{path}: bad output {o.shape}")
+            seq = np.concatenate([p, o[:-1]])
+            cover.append(log.coverage(req, seq))
+            gaps += teacher_forced_gaps(plain, p, o, gate=log.gate(req, seq))
+        if min(cover) < 1.0:
+            raise RuntimeError(f"{path}: the run's routing was kept for only "
+                               f"{cover} of each request's positions")
+        e2e[path]["teacher_forcing"] = _tf_check(
+            f"{path} (tp={MOE_TP}, routed as the run)", gaps, TF_MARGIN,
+            TF_MIN_EXACT)
+        e2e[path]["eos_stops"] = eos_hits
+    e2e["eos_id"] = eos
+    e2e["eos_vacuous"] = all(
+        int(t) != eos for o in outs["continuous_moe_tp_mega"] for t in o)
+    print(f"[moe_tp_mega] eos_id {eos}: "
+          + ("never emitted (the random model repeats one token): the "
+             "stop test ran every step and the eos check is vacuous"
+             if e2e["eos_vacuous"] else "emitted, the stop test fired"))
+    del params, plain, logs
     return launches, e2e
 
 
 def check_moe_tp(dev):
     """Phase 6: tensor-parallel Qwen3-MoE. The collective kernels' checks
-    and timings, tiny-moe card == CPU, then Qwen3-30B-A3B at tp=2.
-    Returns (records by kernel, launches by path, the e2e block)."""
+    and timings, tiny-moe card == CPU, the MoE tp megakernel in f32 at 2
+    layers, then Qwen3-30B-A3B at tp=2 and MOE_TP_LAYERS layers: the
+    pallas paths, then the MoE megakernel at tp=2 on the same model (its
+    kernel checks and paths). Returns (records by kernel, launches by
+    path, the e2e block)."""
     import gc
 
     import torch
+
+    from triton_distributed_tpu_torch.models import AutoLLM
 
     # The TP phase's model lives on in its engines' reference cycles until
     # a collection.
@@ -5573,10 +6397,34 @@ def check_moe_tp(dev):
     t1 = time.perf_counter()
     launches = check_moe_tp_tiny(dev)
     t2 = time.perf_counter()
-    more, e2e = serve_moe_tp_paths(dev)
+    f32 = check_moe_tp_mega_f32(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t3 = time.perf_counter()
+    model = AutoLLM.from_pretrained(MOE_MODEL, device=dev, seed=SEED,
+                                    tp=MOE_TP, num_layers=MOE_TP_LAYERS)
+    torch.cuda.synchronize()
+    print(f"[moe_tp] {MOE_MODEL} random init at tp={MOE_TP} on {dev} in "
+          f"{time.perf_counter() - t3:.1f} s ({model.cfg.num_layers} of 48 "
+          f"layers, hq_loc {model.dims.hq_loc}, hkv_loc {model.dims.hkv_loc},"
+          f" f_loc {model.cfg.moe_intermediate_size // MOE_TP}; "
+          f"{torch.cuda.memory_allocated(dev) / 1e9:.2f} GB allocated)")
+    more, e2e, outs = serve_moe_tp_paths(dev, model)
     launches.update(more)
-    e2e["seconds"] = {"kernels": t1 - t0, "tiny": t2 - t1,
-                      "serve": time.perf_counter() - t2}
+    t4 = time.perf_counter()
+    print(f"[time] moe_tp pallas paths: {t4 - t3:.1f} s", flush=True)
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    records["mega_decode_moe_tp"] = check_moe_tp_mega_kernels(dev, flush,
+                                                              model, f32)
+    del flush
+    t5 = time.perf_counter()
+    print(f"[time] moe_tp megakernel checks: {t5 - t4:.1f} s", flush=True)
+    more, e2e["mega"] = serve_moe_tp_mega_paths(dev, model, outs)
+    launches.update(more)
+    del model, outs
+    e2e["seconds"] = {"kernels": t1 - t0, "tiny": t2 - t1, "mega_f32": t3 - t2,
+                      "serve": t4 - t3, "mega_kernels": t5 - t4,
+                      "mega_paths": time.perf_counter() - t5}
     print(f"[moe_tp] seconds: {json.dumps(e2e['seconds'])}")
     gc.collect()
     torch.cuda.empty_cache()
@@ -5650,7 +6498,8 @@ def main() -> int:
     # "launches_by_path" gives every path's own run.
     kernels = []
     paths = {**PATH_KERNELS, **MOE_PATH_KERNELS, **TP_PATH_KERNELS,
-             **TP_MEGA_PATH_KERNELS, **MOE_TP_PATH_KERNELS}
+             **TP_MEGA_PATH_KERNELS, **TP_PREFILL_PATH_KERNELS,
+             **MOE_TP_PATH_KERNELS, **MOE_TP_MEGA_PATH_KERNELS}
     for k in ck.KERNELS:
         first = next(p for p, need in paths.items() if k.name in need)
         kernels.append({

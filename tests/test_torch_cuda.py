@@ -2117,3 +2117,363 @@ def test_mega_tp_serving_on_card_equals_cpu(dev, tp):
     assert all(np.array_equal(x, y) for x, y in zip(*outs))
     assert counts[0]["mega_decode_tp"] > 0
     assert sum(counts[1].values()) == 0
+
+
+# -- the MoE megakernel at tp > 1 (expert-parallel) --------------------------
+#
+# The kTp instantiations of the MoE library against the plain EP walk
+# (kernels.mega_decode_plain_tp) on the same per-rank operands: each rank's
+# E/n experts (MegaQwen3.moe_params), its cache shard, its routing records.
+# f32 (tiny-moe): the routing, the tokens and the logits of the plain
+# version as it runs by itself, within MEGA_TOL; bf16 (Qwen3-30B-A3B width,
+# 2 layers, 16 experts top-4): the plain version held to the kernel layer by
+# layer (chip_smoke._ForcedGate, _moe_rows_ok). Every rank's records,
+# tokens and final residual are bitwise equal.
+
+MOE_TP_SHAPES = {"tiny-moe": MOE_SHAPES["tiny-moe"],
+                 "moe16": MOE_SHAPES["moe16"]}
+
+
+def _moe_tp_inputs(dev, shape, dtype, tp, ns, overlap=True, seed=0,
+                   model=None):
+    """A tp=n MoE model drawn on the card (the tp=1 draws, sharded),
+    random per-rank pool shards and a compiled multi-step call: returns
+    ``(model, mega, dims, compiled, w, args)``."""
+    import dataclasses as dc
+
+    from triton_distributed_tpu_torch.megakernel import MegaConfig, MegaQwen3
+    from triton_distributed_tpu_torch.megakernel.qwen3 import _weights
+    from triton_distributed_tpu_torch.models import AutoLLM
+
+    name, base, lens, page, s_max = MOE_TP_SHAPES[shape]
+    if model is None:
+        model = AutoLLM.from_pretrained(name, device=dev, seed=seed,
+                                        dtype=dtype, max_length=s_max,
+                                        tp=tp, **base)
+    cfg = model.cfg
+    rng = np.random.default_rng(seed)
+    b, L, hkv, hd = len(lens), cfg.num_layers, cfg.num_kv_heads // tp, \
+        cfg.head_dim
+    lens_np = np.asarray(lens)
+    pps = s_max // page
+    n_pages = b * pps + 1
+    kc = [_rand(rng, (L, n_pages, hkv, page, hd), dtype, dev)
+          for _ in range(tp)]
+    vc = [_rand(rng, (L, n_pages, hkv, page, hd), dtype, dev)
+          for _ in range(tp)]
+    perm = rng.permutation(np.arange(1, n_pages))[: b * pps].reshape(b, pps)
+    need = -(-(lens_np + ns) // page)
+    table = np.where(np.arange(pps)[None] < need[:, None], perm, 0)
+    table[lens_np == 0] = 0
+    table = torch.from_numpy(table.astype(np.int32)).to(dev)
+    mega = MegaQwen3(model, cfg=MegaConfig(
+        fuse_norms=True, cross_prefetch=overlap, overlap_ar=overlap))
+    dims = dc.replace(mega._dims(b, s_max, page, num_pages=n_pages),
+                      nsteps=ns, v_real=cfg.vocab_size)
+    kv_len = torch.from_numpy(lens_np.astype(np.int32)).to(dev)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, b).astype(
+        np.int32)).to(dev)
+    return (model, mega, dims, mega._compile(dims),
+            _weights(mega._step_params()), [kc, vc, table, kv_len, tokens])
+
+
+def _moe_records(model, dims, tp, dev):
+    cfg = model.cfg
+    ns, L, b = dims.nsteps, cfg.num_layers, dims.batch
+    return (torch.zeros((tp, ns, L, cfg.num_experts, b), dtype=torch.float32,
+                        device=dev),
+            torch.zeros((tp, ns, L, b, dims.d), dtype=torch.float32,
+                        device=dev))
+
+
+@pytest.mark.parametrize("ns", [1, 8])
+@pytest.mark.parametrize("overlap", [False, True])
+@pytest.mark.parametrize("shape,dtype,tp", [
+    ("tiny-moe", torch.float32, 2), ("tiny-moe", torch.float32, 4),
+    ("moe16", torch.bfloat16, 2), ("moe16", torch.bfloat16, 4),
+])
+def test_mega_moe_tp_matches_plain(dev, shape, dtype, tp, overlap, ns):
+    from triton_distributed_tpu_torch.megakernel.kernels import (
+        mega_decode_plain_tp,
+    )
+
+    model, mega, dims, comp, w, args = _moe_tp_inputs(dev, shape, dtype, tp,
+                                                      ns, overlap)
+    route, x_rec = _moe_records(model, dims, tp, dev)
+    before = (ck.MEGA_DECODE_TP.launches, ck.MEGA_DECODE_MOE_TP.launches)
+    info = {}
+    got = comp.run(w, *args, info=info, moe_route=route, moe_x=x_rec)
+    torch.cuda.synchronize()
+    assert (ck.MEGA_DECODE_TP.launches, ck.MEGA_DECODE_MOE_TP.launches) == (
+        before[0], before[1] + 1)
+    again = comp.run(w, *args)
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+    for r in range(1, tp):
+        for t in (route, x_rec, info["toks"], info["x"]):
+            assert torch.equal(t[r], t[0])
+    assert torch.isfinite(got[0]).all()
+    atol, rtol = MEGA_TOL[dtype]
+    cfg = model.cfg
+    if dtype == torch.float32:
+        p_route, p_x = torch.zeros_like(route), torch.zeros_like(x_rec)
+        ref = mega_decode_plain_tp(dims, True, comp.table, w, *args,
+                                   moe_route=p_route, moe_x=p_x)
+        assert torch.equal(route != 0, p_route != 0)
+        assert (route - p_route).abs().max().item() < 1e-5
+        assert (x_rec - p_x).abs().max().item() < 1e-3
+        assert torch.equal(got[3], ref[3])
+        assert ((got[0] - ref[0]).abs() / atol).max().item() <= 1.0
+        if overlap:  # rank 1's phase-0 partial dropped at layer 0
+            bad = mega_decode_plain_tp(dims, True, comp.table, w, *args,
+                                       drop_partial=(0, 1, 0))[0]
+            assert ((got[0] - bad).abs() / atol).max().item() > 1.0
+        return
+    cs = _chip_smoke()
+    forced = (route[0], x_rec[0], cfg.num_experts_per_tok, cfg.norm_topk_prob)
+    log = cs._ForcedGate(*forced)
+    ref = mega_decode_plain_tp(dims, True, comp.table, w, *args,
+                               gate_hook=log)
+
+    def plain_at(s):
+        import dataclasses as dc
+
+        return mega_decode_plain_tp(dc.replace(dims, nsteps=s + 1), True,
+                                    comp.table, w, *args,
+                                    gate_hook=cs._ForcedGate(*forced))[0]
+
+    rows = cs._moe_rows_ok(got, ref, log, plain_at, atol, rtol,
+                           f"{shape} tp={tp} ns={ns}")
+    print(f"moe tp={tp} {shape} overlap={overlap} ns={ns}: "
+          f"{ {key: v for key, v in rows.items() if key != 'ties'} }")
+
+
+def test_mega_moe_tp_straggler_and_back_to_back(dev):
+    """A 500 µs lag on rank 1 (before its first exchange and its first
+    phase-0 combine) leaves every output bit-identical and makes the launch
+    at least 0.5 ms longer; then 20 launches back to back on fresh tokens,
+    each equal to its plain version."""
+    import dataclasses as dc
+
+    from triton_distributed_tpu_torch.megakernel.kernels import (
+        mega_decode_plain_tp,
+    )
+
+    model, mega, dims, comp, w, args = _moe_tp_inputs(
+        dev, "tiny-moe", torch.float32, 2, 8)
+    lagged = mega._compile(dc.replace(dims, straggler_rank=1,
+                                      straggler_nanos=500_000))
+
+    def timed(c):
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        e0.record()
+        out = c.run(w, *args)
+        e1.record()
+        torch.cuda.synchronize()
+        return out, e0.elapsed_time(e1)
+
+    timed(comp), timed(lagged)  # warm
+    base, t0 = timed(comp)
+    slow, t1 = timed(lagged)
+    for a, b in zip(base, slow):
+        assert torch.equal(a, b)
+    assert t1 >= t0 + 0.5, (t0, t1)
+    rng = np.random.default_rng(11)
+    outs = []
+    for _ in range(20):
+        tok = torch.from_numpy(rng.integers(0, 256, 4).astype(np.int32)).to(
+            dev)
+        info = {}
+        outs.append((tok, comp.run(w, *args[:4], tok, info=info), info))
+    torch.cuda.synchronize()
+    atol = MEGA_TOL[torch.float32][0]
+    for tok, got, info in outs:
+        ref = mega_decode_plain_tp(dims, True, comp.table, w, *args[:4], tok)
+        assert torch.equal(info["toks"][1], info["toks"][0])
+        assert torch.equal(got[3], ref[3])
+        assert (got[0] - ref[0]).abs().max().item() <= atol
+
+
+@pytest.mark.parametrize("ns", [1, 8])
+def test_mega_moe_tp_traced_matches_untraced(dev, ns):
+    """A traced launch at Qwen3-30B-A3B width (2 layers, 16 experts, tp=2)
+    equals the untraced one bit for bit; each rank's ring validates, with
+    one A2A window per layer and step a rank and the phase marks inside
+    their records."""
+    import dataclasses as dc
+
+    from triton_distributed_tpu_torch.megakernel.task import TaskType
+    from triton_distributed_tpu_torch.obs import kernel_trace as kt
+
+    model, mega, dims, comp, w, args = _moe_tp_inputs(
+        dev, "moe16", torch.bfloat16, 2, ns)
+    plain = comp.run(w, *args)
+    tcomp = mega._compile(dc.replace(dims, trace=True))
+    got = tcomp.run(w, *args)
+    torch.cuda.synchronize()
+    for a, b in zip(plain, got[:5]):
+        assert torch.equal(a, b)
+    ring = got[5].cpu().numpy()
+    assert ring.shape[0] == 2
+    records = kt.decode_trace(ring)
+    assert kt.validate_ring(records, tcomp.order) == []
+    rep = kt.overlap_report(records)
+    assert rep["a2a_windows"] == model.cfg.num_layers * ns * 2
+    a2a = [r for r in records
+           if r.opcode in (int(TaskType.A2A_SEND), int(TaskType.A2A_WAIT))]
+    assert a2a and all(r.begin <= r.mid <= r.end for r in a2a)
+
+
+def test_mega_moe_tp_refuses_a_grid_that_cannot_be_coresident(dev):
+    from triton_distributed_tpu_torch.megakernel.code_generator import (
+        mega_decode_tp,
+    )
+
+    model, mega, dims, comp, w, args = _moe_tp_inputs(
+        dev, "tiny-moe", torch.float32, 2, 1)
+    info = {}
+    comp.run(w, *args, info=info)
+    cap = info["blocks"] * 2
+    before = ck.MEGA_DECODE_MOE_TP.launches
+    with pytest.raises(RuntimeError, match="cudaError"):
+        mega_decode_tp(dims, mega.cfg, comp.run.table, w, *args,
+                       model.ctx, blocks_per_rank=cap)
+    assert ck.MEGA_DECODE_MOE_TP.launches == before
+    mega_decode_tp(dims, mega.cfg, comp.run.table, w, *args, model.ctx,
+                   blocks_per_rank=cap // 4)
+    torch.cuda.synchronize()
+    assert ck.MEGA_DECODE_MOE_TP.launches == before + 1
+
+
+@pytest.mark.parametrize("tp", [2, 4])
+def test_mega_moe_tp_serving_on_card_equals_cpu(dev, tp):
+    """tiny-moe f32 at tp=2/4 in mode='mega' on the card emits the CPU's
+    tokens through both engines (prefix cache, ns 4, eos; resident and
+    traced; Engine dense and paged), launching the MoE tp megakernel."""
+    from triton_distributed_tpu_torch.models import (
+        AutoLLM,
+        ContinuousEngine,
+        Engine,
+        Qwen3MoE,
+    )
+
+    gpu = AutoLLM.from_pretrained("tiny-moe", device=dev, seed=3, tp=tp)
+    cpu = Qwen3MoE(gpu.cfg, device="cpu", tp=tp)
+    cpu.set_params(gpu.params)
+    rng = np.random.default_rng(4)
+    prompts = [rng.integers(0, 256, k).astype(np.int32) for k in (20, 41, 9)]
+    ids = np.stack([prompts[0], prompts[1][:20]])
+    outs, counts = [], []
+    for m, d in ((gpu, dev), (cpu, "cpu")):
+        ck.reset_launch_counts()
+        res = []
+        kw = dict(max_batch=2, page_size=16, max_length=64, mode="mega",
+                  ns=4, device=d)
+        eng = ContinuousEngine(m, prefix_cache=True, eos_id=int(
+            prompts[0][3]), **kw)
+        res.append(np.concatenate(eng.run([(p, 9) for p in prompts])))
+        assert eng.audit() == [] and eng.last_stats["a2a_dropped"] == 0
+        res_eng = ContinuousEngine(m, resident=True, kernel_trace=True, **kw)
+        res.append(np.concatenate(res_eng.run([(p, 9) for p in prompts])))
+        res.append(Engine(m, mode="mega", paged=True, page_size=16,
+                          device=d).serve(ids, 7, 64, ns=4))
+        res.append(Engine(m, mode="mega", device=d).serve(ids, 7, 64, ns=4))
+        counts.append(ck.launch_counts())
+        outs.append(res)
+    assert all(np.array_equal(x, y) for x, y in zip(*outs))
+    assert counts[0]["mega_decode_moe_tp"] > 0
+    assert counts[0]["mega_decode_tp"] == 0
+    assert sum(counts[1].values()) == 0
+
+
+# -- the prefill megakernel at tp > 1 -----------------------------------------
+#
+# mega_prefill_kernel's kTp instantiations against the plain lockstep walk
+# (kernels.mega_prefill_plain_tp): row true_len - 1's logits (every rank's
+# columns) and each rank's K/V rows [0, true_len), f32 within 2e-3, bf16
+# within MEGA_TOL (K/V within twice its atol + 0.02, as at tp=1); the ranks'
+# final residuals bitwise equal; a dropped partial breaks the f32 limit.
+
+@pytest.mark.parametrize("shape,dtype,S,true_len,tp", [
+    ("tiny", torch.float32, 16, 13, 2), ("tiny", torch.float32, 16, 13, 4),
+    ("tiny", torch.bfloat16, 40, 37, 2), ("tiny", torch.bfloat16, 40, 37, 4),
+    ("qwen8b", torch.float32, 256, 250, 2),
+    ("qwen8b", torch.bfloat16, 256, 250, 2),
+    ("qwen8b", torch.bfloat16, 256, 250, 4),
+])
+def test_mega_prefill_tp_matches_plain(dev, shape, dtype, S, true_len, tp):
+    import dataclasses as dc
+
+    from triton_distributed_tpu_torch.megakernel import MegaConfig, MegaQwen3
+    from triton_distributed_tpu_torch.megakernel.kernels import (
+        mega_prefill_plain_tp,
+    )
+    from triton_distributed_tpu_torch.megakernel.qwen3 import _weights
+    from triton_distributed_tpu_torch.models import AutoLLM
+
+    qwen = shape == "qwen8b"
+    model = AutoLLM.from_pretrained(
+        "Qwen/Qwen3-8B" if qwen else "tiny", device=dev, seed=0, dtype=dtype,
+        max_length=512 if qwen else 64, tp=tp,
+        **(dict(num_layers=2) if qwen else {}))
+    rng = np.random.default_rng(3)
+    toks = torch.from_numpy(rng.integers(0, model.cfg.vocab_size, S).astype(
+        np.int64)).to(dev)
+    for fuse in (False, True):
+        mega = MegaQwen3(model, cfg=MegaConfig(fuse_norms=fuse))
+        dims = dc.replace(mega._dims(S, S), prefill=True)
+        comp = mega._compile(dims)
+        w = _weights(model.params)
+        x0 = w[0].embed.index_select(0, toks)
+        tl = torch.tensor([true_len], dtype=torch.int32, device=dev)
+        before = (ck.MEGA_PREFILL.launches, ck.MEGA_PREFILL_TP.launches)
+        info = {}
+        got = comp.run.prefill(w, x0, tl, info=info)
+        torch.cuda.synchronize()
+        assert (ck.MEGA_PREFILL.launches, ck.MEGA_PREFILL_TP.launches) == (
+            before[0], before[1] + 1)
+        again = comp.run.prefill(w, x0, tl)
+        for a, b in zip(got, again):
+            assert torch.equal(a, b)
+        for r in range(1, tp):
+            assert torch.equal(info["x"][r], info["x"][0])
+        ref = mega_prefill_plain_tp(dims, fuse, comp.table, w, x0, tl)
+        atol, rtol = MEGA_TOL[dtype]
+        if dtype == torch.float32:
+            atol, rtol = 2e-3, 0.0
+        used = ((got[0] - ref[0]).abs() / (atol + rtol * ref[0].abs())).max()
+        kv = max((a[..., :true_len, :].float() - b[..., :true_len, :].float())
+                 .abs().max().item() for a, b in zip(got[1:], ref[1:]))
+        print(f"mega_prefill_tp {shape} tp={tp} {dtype} S={S} fuse={fuse}: "
+              f"logits {used.item():.3f} of the limit, K/V max err {kv:.3e}")
+        assert torch.isfinite(got[0]).all()
+        assert used.item() <= 1.0
+        assert kv <= 2 * atol + 0.02
+        if dtype == torch.float32 and fuse:
+            bad = mega_prefill_plain_tp(dims, fuse, comp.table, w, x0, tl,
+                                        drop_partial=(0, 1))[0]
+            assert ((got[0] - bad).abs() / atol).max().item() > 1.0
+
+
+def test_mega_prefill_tp_serving_on_card_equals_cpu(dev):
+    """Tiny f32 at tp=2 on the card and on the CPU: MegaQwen3.prefill (each
+    rank's K/V into its shard), then greedy tp mega decode from that
+    cache: the same logits within 2e-3 and the same tokens."""
+    from triton_distributed_tpu_torch.megakernel import MegaQwen3
+    from triton_distributed_tpu_torch.models import AutoLLM
+    from triton_distributed_tpu_torch.models.qwen import Qwen3
+
+    gpu = AutoLLM.from_pretrained("tiny", device=dev, seed=5, tp=2)
+    cpu = Qwen3(gpu.cfg, device="cpu", tp=2)
+    cpu.set_params(gpu.params)
+    toks = np.random.default_rng(6).integers(0, 256, 24)
+    res = []
+    for m in (gpu, cpu):
+        mega = MegaQwen3(m)
+        cache = m.new_cache(1, 64)
+        logits, cache = mega.prefill(toks, cache, true_len=21)
+        tok = torch.argmax(logits).view(1).to(torch.int32)
+        out, _, _ = mega.decode_multi_fn(1, 64, 8)(m.params, tok, cache)
+        res.append((logits.cpu(), out.cpu()))
+    assert (res[0][0] - res[1][0]).abs().max().item() <= 2e-3
+    assert torch.equal(res[0][1], res[1][1])

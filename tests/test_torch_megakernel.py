@@ -400,11 +400,15 @@ def test_refused_knobs_raise(models):
     base = MegaDims(**_DIMS)
     import dataclasses
 
-    # A dense graph at tp>1 builds (tests/test_torch_mega_tp.py); its
-    # prefill graph, MoE and wq8 there stay refused, naming ROADMAP items.
-    check_dims(dataclasses.replace(base, n_ranks=2), MegaConfig())
-    for kw, cfg in ((dict(prefill=True), MegaConfig()),
-                    (dict(num_experts=4, moe_top_k=2), MegaConfig()),
+    # A dense graph, its prefill graph and an MoE graph at tp>1 build
+    # (tests/test_torch_mega_tp.py, tests/test_torch_mega_moe_tp.py);
+    # wq8, the int8 pool and sampling there stay refused, naming ROADMAP
+    # queue 1 position 4.
+    for kw in ({}, dict(prefill=True), dict(num_experts=4, moe_top_k=2)):
+        check_dims(dataclasses.replace(base, n_ranks=2, **kw), MegaConfig())
+    for kw, cfg in ((dict(kv_quant=True, page=PAGE), MegaConfig()),
+                    (dict(num_experts=4, moe_top_k=2, nsteps=4, v_real=200,
+                          sampled=True), MegaConfig()),
                     ({}, MegaConfig(wq8=True))):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             check_dims(dataclasses.replace(base, n_ranks=2, **kw), cfg)

@@ -477,12 +477,28 @@ def test_moe_tp4_engine_emits_the_jax_tokens(moe_tp4, mode):
 
 
 def test_moe_tp_refusals():
+    # The MoE megakernel serves at tp>1 (tests/test_torch_mega_moe_tp.py);
+    # its int8 pool and sampling stay refused there (queue 1 position 4;
+    # the engines refuse both knobs at tp>1 under item 11).
+    import dataclasses
+
+    from triton_distributed_tpu_torch.megakernel import MegaConfig, MegaQwen3
+    from triton_distributed_tpu_torch.megakernel.code_generator import (
+        check_dims,
+    )
+
     m = AutoLLM.from_pretrained("tiny-moe", device="cpu", tp=2)
-    with pytest.raises(NotImplementedError, match="6\\(e\\)"):
-        Engine(m, mode="mega", device="cpu")
-    with pytest.raises(NotImplementedError, match="6\\(e\\)"):
-        ContinuousEngine(m, mode="mega", page_size=PAGE, max_length=MAXLEN,
-                         device="cpu")
+    with pytest.raises(NotImplementedError, match="item 11"):
+        Engine(m, mode="mega", paged=True, kv_dtype="int8", device="cpu")
+    with pytest.raises(NotImplementedError, match="item 11"):
+        ContinuousEngine(m, mode="mega", temperature=0.7, page_size=PAGE,
+                         max_length=MAXLEN, device="cpu")
+    dims = MegaQwen3(m)._dims(2, MAXLEN, PAGE, num_pages=8)
+    check_dims(dims, MegaConfig())
+    for kw in (dict(kv_quant=True), dict(sampled=True, nsteps=4,
+                                         v_real=256)):
+        with pytest.raises(NotImplementedError, match="position 4"):
+            check_dims(dataclasses.replace(dims, **kw), MegaConfig())
     ctx = port_tp(2)
     p = m.rank_params
     x = ctx.shard(torch.zeros((4, D)), 0)

@@ -557,25 +557,28 @@ def test_params_from_jax_at_tp_undoes_the_shard_fusion(tp4):
 def test_tp_refusals(what):
     cfg = get_config("tiny")
     if what == "moe":
-        # Qwen3-MoE serves at tp>1 since its collectives were ported
-        # (tests/test_torch_moe_tp.py); its megakernel stays refused
-        # (row 6(e), MoE half).
+        # Qwen3-MoE serves at tp>1 (tests/test_torch_moe_tp.py), also in
+        # mode="mega" (tests/test_torch_mega_moe_tp.py); int8 weights stay
+        # refused there (queue 1 position 4; wq8 with MoE, as in JAX).
         m = AutoLLM.from_pretrained("tiny-moe", device="cpu", tp=2)
-        with pytest.raises(NotImplementedError, match="6\\(e\\)"):
-            Engine(m, mode="mega", device="cpu")
+        with pytest.raises(NotImplementedError, match="position 4"):
+            Engine(m, mode="mega", device="cpu",
+                   mega_cfg=MegaConfig(wq8=True))
         return
     m = Qwen3(cfg, device="cpu", tp=2)
     m.init_params(0)
     kw = dict(device="cpu", page_size=PAGE, max_length=MAXLEN)
-    # mode="mega" serves a dense model at tp>1 (tests/test_torch_mega_tp.py);
-    # what stays refused there: int8 weights (wq8) and the prefill
-    # megakernel (queue 1 positions 4 and 2; the MoE megakernel: "moe").
+    # mode="mega" serves a dense model at tp>1 (tests/test_torch_mega_tp.py)
+    # and MegaQwen3.prefill runs there (tests/test_torch_mega_moe_tp.py);
+    # what stays refused: int8 weights (wq8), for decode and for the
+    # prefill megakernel (queue 1 position 4; the MoE megakernel: "moe").
     cases = {
         "mega_engine": (lambda: Engine(m, mode="mega", device="cpu",
                                        mega_cfg=MegaConfig(wq8=True)),
                         "position 4"),
-        "mega_continuous": (lambda: MegaQwen3(m).prefill(
-            np.arange(8), m.new_cache(1, MAXLEN)), "position 2"),
+        "mega_continuous": (lambda: MegaQwen3(
+            m, cfg=MegaConfig(wq8=True)).prefill(
+            np.arange(8), m.new_cache(1, MAXLEN)), "position 4"),
         "speculative": (lambda: ContinuousEngine(m, speculative=2, **kw),
                         "item 11"),
         "cp": (lambda: ContinuousEngine(m, cp=2, **kw), "item 11"),

@@ -138,6 +138,25 @@
 // from FC1's (part2), so no barrier follows the accumulate. Bound: bytes,
 // each routed expert's 2f(d) + f(d) weights once a step.
 //
+// The MoE graph at tp > 1 (kMoE with kTp: kernels.py:1254 a2a_send_body and
+// :1297 a2a_wait_body with their puts and waits, :442 _a2a_put_dmas, :469
+// _a2a_wait_recvs, and :404 _ar_put_dmas / :429 _ar_wait_recvs for phase
+// 1): the experts are expert-parallel, rank r holding experts r * E/n ..
+// at full width (megakernel/qwen3.py moe_params), every rank running the
+// replicated gate; MOE_FFN weights local expert e's output by the combine
+// weight of global expert r * E/n + e. A2A_SEND stores this block's
+// elements of moe_acc into slot me of every peer (phase 0 into its own
+// two alternating slot sets, phase 1 into the partials sets ALLREDUCE
+// uses, as the TPU kernel reuses cbuf), with the flag protocol above;
+// A2A_WAIT acquires every peer's block for both phases and folds acc = x,
+// acc = acc + phase0[r] + phase1[r] in rank order (the TPU body's order),
+// then the grid barrier. The A2A tasks are per layer, not per expert, so
+// the exchange ordinals count alike on every rank; the skip of unrouted
+// local experts and its barriers stay rank-local. The TPU body's tile-0
+// prefetch (cross_prefetch) has no counterpart: the tracer stamps mid
+// there. Without overlap_ar the combine is the last expert's handoff to
+// ALLREDUCE, as at tp=1.
+//
 // At tp > 1 (the TPU kernel's n_ranks > 1: kernels.py:1047 allreduce_body
 // beyond tp=1, :1076 ar_send_body, :1102 ar_wait_body, :1574 barrier_body,
 // the puts and waits of :404 _ar_put_dmas, :429 _ar_wait_recvs and :481
@@ -174,9 +193,14 @@
 // kernel's cross_prefetch tile-0 DMA has no counterpart here; the tracer
 // stamps mid where the TPU bodies call trace_mid. The straggler fixture
 // (the TPU kernel's straggler_rank) spins the lagging rank's blocks before
-// its first exchange and before every LM-head push. Code a tp=1 launch does
-// not run sits behind the kTp template parameter. Bound: bytes, every
-// rank's weight shards and K/V rows over the one card's HBM.
+// its first exchange (and, MoE, its first phase-0 combine) and before every
+// LM-head push. Code a tp=1 launch does not run sits behind the kTp
+// template parameter. Bound: bytes, every rank's weight shards and K/V rows
+// over the one card's HBM. The prefill kernel at tp > 1 (kTp, kernels.py
+// :1047 allreduce_body over S rows, :896 load_x_body, :908
+// attn_prefill_body, each rank its heads and vocab columns) takes the same
+// (G, n) grid, per-rank Params, entry BARRIER and ALLREDUCE exchange, its
+// slots S * d floats a set and a source rank.
 #include "tdt_comm.cuh"
 #include "tdt_common.cuh"
 
@@ -271,10 +295,11 @@ struct Params {
 
 // The exchange of a launch over n > 1 co-located ranks (kTp). Each rank's
 // slots (floats): the partials [2][n][B * d], then the LM head's candidates
-// [2][n][g_cap][B][2] (two alternating sets each, the source rank's slot
-// within a set); its flags (uint64): the entry barrier's [n], then one a
-// source block [n][g_cap]. Both through device tables of the ranks' slot
-// pointers (DistContext symmetric allocations).
+// [2][n][g_cap][B][2], then (MoE) the combine's phase-0 partials
+// [2][n][B * d] (two alternating sets each, the source rank's slot within a
+// set); its flags (uint64): the entry barrier's [n], then one a source
+// block [n][g_cap]. Both through device tables of the ranks' slot pointers
+// (DistContext symmetric allocations).
 struct Comm {
   const int64_t* slot_tab;
   const int64_t* flag_tab;
@@ -425,6 +450,13 @@ __device__ __forceinline__ float* lm_slot(const Comm& c, int r, int par,
          (((size_t)par * c.n + src) * c.g_cap + blockIdx.x) * 2 * B;
 }
 
+// Slot `src` of rank r's phase-0 combine set `par` ([B * d] floats, MoE).
+__device__ __forceinline__ float* a2_slot(const Comm& c, int r, int par,
+                                          int src, size_t bd, int B) {
+  return tdt::symm_ptr<float>(c.slot_tab, r) + 2 * (size_t)c.n * bd +
+         4 * (size_t)c.n * c.g_cap * B + ((size_t)par * c.n + src) * bd;
+}
+
 // The straggler fixture: the lagging rank's blocks spin before a push.
 __device__ __forceinline__ void straggle(const Comm& c, int me) {
   if (me == c.lag_rank && threadIdx.x == 0) {
@@ -476,6 +508,51 @@ __device__ void ar_fold(const Params& p, const Comm& c, int me, int par) {
     float acc = __ldcg(p.x + i);
     for (int r = 0; r < c.n; ++r)
       acc += r == me ? __ldcg(p.h + i) : __ldcg(ar_slot(c, me, par, r, bd) + i);
+    p.x[i] = acc;
+  }
+}
+
+// A2A_SEND of an MoE graph at tp > 1 (the TPU body's _a2a_put_dmas for
+// phase 0, _ar_put_dmas for phase 1): this block's elements of moe_acc,
+// this rank's combine partial, into its own a2buf (phase 0, moe_acc then
+// restarts at 0) or cbuf (phase 1) and into slot `me` of every peer's
+// phase-0 set or partials set `par`, then the flag.
+__device__ __noinline__ void a2a_push(const Params& p, const Comm& c, int me,
+                                      int phase, int par, uint64_t v) {
+  const size_t bd = (size_t)p.B * p.d;
+  for (size_t i = (size_t)blockIdx.x * kThreads + threadIdx.x; i < bd;
+       i += (size_t)gridDim.x * kThreads) {
+    const float a = __ldcg(p.moe_acc + i);
+    if (phase == 0) {
+      p.a2buf[i] = a;
+      p.moe_acc[i] = 0.f;
+    } else {
+      p.cbuf[i] = a;
+    }
+    for (int r = 0; r < c.n; ++r)
+      if (r != me)
+        (phase == 0 ? a2_slot(c, r, par, me, bd, p.B)
+                    : ar_slot(c, r, par, me, bd))[i] = a;
+  }
+  xsignal(c, me, v);
+}
+
+// A2A_WAIT's fold (the TPU body's), after the waits: acc = x, then acc =
+// acc + phase0[r] + phase1[r] for every rank r in order, in f32, this
+// rank's own partials read from a2buf and cbuf.
+__device__ __noinline__ void a2a_fold(const Params& p, const Comm& c, int me,
+                                      int par0, int par1) {
+  const size_t bd = (size_t)p.B * p.d;
+  for (size_t i = (size_t)blockIdx.x * kThreads + threadIdx.x; i < bd;
+       i += (size_t)gridDim.x * kThreads) {
+    float acc = __ldcg(p.x + i);
+    for (int r = 0; r < c.n; ++r) {
+      const float a = r == me ? __ldcg(p.a2buf + i)
+                              : __ldcg(a2_slot(c, me, par0, r, bd, p.B) + i);
+      const float b = r == me ? __ldcg(p.cbuf + i)
+                              : __ldcg(ar_slot(c, me, par1, r, bd) + i);
+      acc = acc + a + b;
+    }
     p.x[i] = acc;
   }
 }
@@ -1448,21 +1525,25 @@ __device__ __forceinline__ int pick_split_fill(int ntiles, int K) {
   return s;
 }
 
-// MOE_FFN of expert e (see the header): skipped when no row routes to it;
-// arg1 = 1 then hands moe_acc to ALLREDUCE through h.
-template <typename T>
+// MOE_FFN of local expert e (see the header): skipped when no row routes
+// to it; arg1 = 1 then hands moe_acc to ALLREDUCE through h. kTp: the
+// rank's (blockIdx.y's) expert-parallel experts, E / n of them in its
+// w1/w2, the combine weights those of global expert rank * E / n + e.
+template <typename T, bool kTp>
 __device__ __noinline__ void moe_ffn(const Params& p, int layer, int e,
                                      int arg1, float* xs, float* red,
                                      float* rstd) {
   const int B = p.B, d = p.d, f = p.f, N1 = 2 * f;
   const size_t gtid = (size_t)blockIdx.x * kThreads + threadIdx.x;
   const size_t gthreads = (size_t)gridDim.x * kThreads;
-  const float* cw = p.moe_w + (size_t)e * B;
+  const int e_loc = kTp ? p.E / (int)gridDim.y : p.E;
+  const float* cw =
+      p.moe_w + (size_t)(kTp ? (int)blockIdx.y * e_loc + e : e) * B;
   bool routed = false;
   for (int b = 0; b < B; ++b) routed = routed || __ldcg(cw + b) != 0.f;
   const size_t BD = (size_t)B * d;
   if (routed) {
-    const size_t ex = (size_t)layer * p.E + e;
+    const size_t ex = (size_t)layer * e_loc + e;
     const T* w1 = reinterpret_cast<const T*>(p.w1) + ex * d * N1;
     const T* w2 = reinterpret_cast<const T*>(p.w2) + ex * f * d;
     int S = pick_split_fill((N1 + kTileN - 1) / kTileN, d);
@@ -1581,8 +1662,11 @@ __global__ void __launch_bounds__(kThreads, kMaxBlocksPerSM)
   // walks the same exchanges in the same order), the partials' and the
   // candidates' exchange counts (their slot sets alternate) and the
   // pending AR_SEND's ordinal and set.
+  // kTp with kMoE: the phase-0 combine exchanges' count (their own slot
+  // sets alternate) and the pending phase 0's ordinal and set.
   [[maybe_unused]] const int me = blockIdx.y;
   [[maybe_unused]] int xe = 0, n_ar = 0, n_lm = 0, send_e = 0, send_par = 0;
+  [[maybe_unused]] int n_a2 = 0, a2_e = 0, a2_par = 0;
 
   for (int step = 0; step < p.nsteps; ++step) {
     for (int t = 0; t < p.T; ++t) {
@@ -1767,7 +1851,8 @@ __global__ void __launch_bounds__(kThreads, kMaxBlocksPerSM)
               break;
             }
             if (type == kMoeFfn) {
-              moe_ffn<T>(p, layer, arg0, p.table[t * 8 + 3], xs, red, rstd);
+              moe_ffn<T, kTp>(p, layer, arg0, p.table[t * 8 + 3], xs, red,
+                              rstd);
               // The next task reads moe_acc or h element by element on
               // these threads; anything else waits for the grid.
               if (next != kMoeFfn && next != kA2aSend && next != kAllReduce)
@@ -1776,6 +1861,41 @@ __global__ void __launch_bounds__(kThreads, kMaxBlocksPerSM)
             }
             if (type == kA2aSend || type == kA2aWait) {
               const bool wait = type == kA2aWait;
+              if constexpr (kTp) {
+                // The expert-parallel combine: each phase's partial to
+                // every peer (phase 0 its own slot sets, phase 1 the
+                // partials sets ALLREDUCE uses), then the wait for both
+                // and the fold in rank order.
+                const Comm& c = *comm_of(arg);
+                if (!wait) {
+                  if (arg0 == 0 && step == 0 && n_a2 == 0) straggle(c, me);
+                  const int par = arg0 == 0 ? n_a2++ & 1 : n_ar++ & 1;
+                  const int e = xe++;
+                  if (arg0 == 0) {
+                    a2_e = e;
+                    a2_par = par;
+                  } else {
+                    send_e = e;
+                    send_par = par;
+                  }
+                  a2a_push(p, c, me, arg0, par, xval(c, e));
+                  // The phase mark: this phase's puts are out.
+                  if constexpr (kTrace) {
+                    if (tracer) trace_mid(p, step * p.T + t, &trace_t0);
+                  }
+                } else {
+                  // The phase mark before the wait (where the TPU body
+                  // has fired the next weight stream's tile 0).
+                  if constexpr (kTrace) {
+                    if (tracer) trace_mid(p, step * p.T + t, &trace_t0);
+                  }
+                  xwait(c, me, xval(c, a2_e));
+                  xwait(c, me, xval(c, send_e));
+                  a2a_fold(p, c, me, a2_par, send_par);
+                  grid_sync(p.bar);
+                }
+                break;
+              }
               if constexpr (kTrace) {
                 if (wait && tracer) trace_mid(p, step * p.T + t, &trace_t0);
               }
@@ -1936,12 +2056,12 @@ int launch(Params p, long long ws_floats, int* info, cudaStream_t stream) {
 // One launch over tp.c.n ranks, G blocks each (blocks_per_rank, or the
 // co-resident capacity over n): refused unless all n·G blocks can be
 // resident at once.
-template <typename T, bool kTrace>
+template <typename T, bool kTrace, bool kMoE>
 int launch_tp(TpParams& tp, long long ws_floats, int blocks_per_rank,
               int* info, cudaStream_t stream) {
-  auto kern = mega_kernel<T, T, T, false, kTrace, false, true>;
+  auto kern = mega_kernel<T, T, T, false, kTrace, kMoE, true>;
   const int n = tp.c.n;
-  const size_t smem = decode_smem(tp.p[0], false);
+  const size_t smem = decode_smem(tp.p[0], kMoE);
   int sms = 0, occ = 0;
   cudaError_t e = geometry(kern, smem, &sms, &occ);
   if (e != cudaSuccess) return (int)e;
@@ -1950,7 +2070,7 @@ int launch_tp(TpParams& tp, long long ws_floats, int blocks_per_rank,
   if (G < 1 || (long long)G * n > cap || G > tp.c.g_cap)
     return (int)cudaErrorCooperativeLaunchTooLarge;
   for (int r = 0; r < n; ++r)
-    if (!carve(tp.p[r], ws_floats, G, false))
+    if (!carve(tp.p[r], ws_floats, G, kMoE))
       return (int)cudaErrorInvalidValue;
   info[0] = G;
   info[1] = (int)smem;
@@ -2193,9 +2313,16 @@ __host__ __device__ __forceinline__ size_t prefill_region(int S, int kmax,
   return m > attend ? m : attend;
 }
 
-template <typename T, typename WT>
+// kTp: the prefill graph over n > 1 co-located ranks, as mega_kernel's kTp
+// (a TpParams argument, the grid (G, n), every split over blockIdx.x /
+// gridDim.x rank-local): the entry BARRIER, and each ALLREDUCE's [S, d]
+// partials through the exchange (ar_push / ar_fold: two alternating slot
+// sets of S * d floats a source rank).
+template <typename T, typename WT, bool kTp>
 __global__ void __launch_bounds__(kThreads, kMaxBlocksPerSM)
-    mega_prefill_kernel(const __grid_constant__ Params p) {
+    mega_prefill_kernel(
+        const __grid_constant__ typename KernelArg<kTp>::type arg) {
+  const Params& p = rank_params(arg);
   constexpr bool kQ8 = sizeof(WT) == 1;
   extern __shared__ __align__(16) float smem[];
   float* red = smem;
@@ -2213,6 +2340,9 @@ __global__ void __launch_bounds__(kThreads, kMaxBlocksPerSM)
   const T* ln1 = reinterpret_cast<const T*>(p.ln1);
   const T* ln2 = reinterpret_cast<const T*>(p.ln2);
   const T* normf = reinterpret_cast<const T*>(p.normf);
+  // kTp: this block's rank, the exchange ordinal and the partials' count.
+  [[maybe_unused]] const int me = blockIdx.y;
+  [[maybe_unused]] int xe = 0, n_ar = 0;
   for (int t = 0; t < p.T; ++t) {
     const int type = p.table[t * 8], layer = p.table[t * 8 + 1];
     const int arg0 = p.table[t * 8 + 2];
@@ -2282,8 +2412,17 @@ __global__ void __launch_bounds__(kThreads, kMaxBlocksPerSM)
         break;
       }
       case kAllReduce: {
-        for (size_t i = gtid; i < (size_t)S * d; i += gthreads)
-          p.x[i] = __ldcg(p.x + i) + __ldcg(p.h + i);
+        if constexpr (kTp) {
+          const Comm& c = *comm_of(arg);
+          const int par = n_ar++ & 1;
+          const uint64_t v = xval(c, xe++);
+          ar_push(p, c, me, par, v);
+          xwait(c, me, v);
+          ar_fold(p, c, me, par);
+        } else {
+          for (size_t i = gtid; i < (size_t)S * d; i += gthreads)
+            p.x[i] = __ldcg(p.x + i) + __ldcg(p.h + i);
+        }
         grid_sync(p.bar);
         break;
       }
@@ -2315,35 +2454,30 @@ __global__ void __launch_bounds__(kThreads, kMaxBlocksPerSM)
         break;
       }
       default:
+        if constexpr (kTp) {
+          if (type == kBarrier) {
+            const Comm& c = *comm_of(arg);
+            tdt::barrier_all(c.flag_tab, me, c.n, xval(c, xe++),
+                             blockIdx.x == 0);
+            break;
+          }
+        }
         __trap();
     }
   }
 }
 
-template <typename T, typename WT>
-int launch_prefill(Params p, long long ws_floats, int* info,
-                   cudaStream_t stream) {
-  auto kern = mega_prefill_kernel<T, WT>;
-  int dev = 0, sms = 0, coop = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return (int)e;
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
-  if (!coop) return (int)cudaErrorNotSupported;
-  const int S = p.B, qkvN = (p.hq + 2 * p.hkv) * p.hd;
+// Dynamic shared memory of one prefill block (bytes).
+size_t prefill_smem(const Params& p) {
   const int kmax = max(p.d, max(p.hq * p.hd, p.f));
-  const size_t smem =
-      sizeof(float) * ((size_t)kWarps * kGroupB * kTileN + kGroupB +
-                       prefill_region(S, kmax, p.hd));
-  e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  int occ = 0;
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, kern, kThreads, smem);
-  if (e != cudaSuccess) return (int)e;
-  if (occ < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
-  const int nblk = sms * min(occ, kMaxBlocksPerSM);
-  // Carve the workspace; megakernel/code_generator.py sizes it.
+  return sizeof(float) * ((size_t)kWarps * kGroupB * kTileN + kGroupB +
+                          prefill_region(p.B, kmax, p.hd));
+}
+
+// Carve the prefill workspace (base p.x); megakernel/code_generator.py
+// sizes it. Returns false if it is too small.
+bool carve_prefill(Params& p, long long ws_floats) {
+  const int S = p.B, qkvN = (p.hq + 2 * p.hkv) * p.hd;
   float* ws = p.x;
   size_t off = 0;
   auto take = [&](size_t n) { float* r = ws + off; off += n; return r; };
@@ -2356,7 +2490,19 @@ int launch_prefill(Params p, long long ws_floats, int* info,
   p.qf = take((size_t)p.hq * S * p.hd);
   p.kf = take((size_t)p.hkv * S * p.hd);
   p.rstd = take((size_t)S);
-  if ((long long)off > ws_floats) return (int)cudaErrorInvalidValue;
+  return (long long)off <= ws_floats;
+}
+
+template <typename T, typename WT>
+int launch_prefill(Params p, long long ws_floats, int* info,
+                   cudaStream_t stream) {
+  auto kern = mega_prefill_kernel<T, WT, false>;
+  const size_t smem = prefill_smem(p);
+  int sms = 0, occ = 0;
+  cudaError_t e = geometry(kern, smem, &sms, &occ);
+  if (e != cudaSuccess) return (int)e;
+  const int nblk = sms * min(occ, kMaxBlocksPerSM);
+  if (!carve_prefill(p, ws_floats)) return (int)cudaErrorInvalidValue;
   info[0] = nblk;
   info[1] = (int)smem;
   info[2] = occ;
@@ -2367,6 +2513,101 @@ int launch_prefill(Params p, long long ws_floats, int* info,
   return (int)cudaGetLastError();
 }
 
+// The prefill over tp.c.n ranks, G blocks each (as launch_tp).
+template <typename T>
+int launch_prefill_tp(TpParams& tp, long long ws_floats, int blocks_per_rank,
+                      int* info, cudaStream_t stream) {
+  auto kern = mega_prefill_kernel<T, T, true>;
+  const int n = tp.c.n;
+  const size_t smem = prefill_smem(tp.p[0]);
+  int sms = 0, occ = 0;
+  cudaError_t e = geometry(kern, smem, &sms, &occ);
+  if (e != cudaSuccess) return (int)e;
+  const int cap = sms * min(occ, kMaxBlocksPerSM);
+  const int G = blocks_per_rank > 0 ? blocks_per_rank : cap / n;
+  if (G < 1 || (long long)G * n > cap || G > tp.c.g_cap)
+    return (int)cudaErrorCooperativeLaunchTooLarge;
+  for (int r = 0; r < n; ++r)
+    if (!carve_prefill(tp.p[r], ws_floats)) return (int)cudaErrorInvalidValue;
+  info[0] = G;
+  info[1] = (int)smem;
+  info[2] = occ;
+  void* args[] = {&tp};
+  e = cudaLaunchCooperativeKernel((const void*)kern, dim3(G, n),
+                                  dim3(kThreads), args, smem, stream);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
+// One rank's prefill launch from tdt_mega_prefill's arrays (layout there):
+// its Params, model dtype, workspace floats and wq8. False if they are not
+// a launch this kernel takes.
+bool parse_prefill(const unsigned long long* ptrs, const int* ints,
+                   float eps, float sm_scale, Params& p, int& dtype,
+                   long long& ws_floats, int& wq8) {
+  int k = 0;
+  p.x0 = (const void*)ptrs[k++];
+  p.wqkv = (const void*)ptrs[k++];
+  p.wo = (const void*)ptrs[k++];
+  p.w1 = (const void*)ptrs[k++];
+  p.w2 = (const void*)ptrs[k++];
+  p.lm_head = (const void*)ptrs[k++];
+  p.ln1 = (const void*)ptrs[k++];
+  p.ln2 = (const void*)ptrs[k++];
+  p.normf = (const void*)ptrs[k++];
+  p.qn = (const void*)ptrs[k++];
+  p.kn = (const void*)ptrs[k++];
+  p.kv_len = (const int*)ptrs[k++];
+  p.table = (const int*)ptrs[k++];
+  p.inv_freq = (const float*)ptrs[k++];
+  p.logits = (float*)ptrs[k++];
+  p.knew = (void*)ptrs[k++];
+  p.vnew = (void*)ptrs[k++];
+  p.x = (float*)ptrs[k++];  // the workspace base, carved in carve_prefill
+  p.bar = (unsigned*)ptrs[k++];
+  p.sc_qkv = (const float*)ptrs[k++];
+  p.sc_o = (const float*)ptrs[k++];
+  p.sc_w1 = (const float*)ptrs[k++];
+  p.sc_w2 = (const float*)ptrs[k++];
+  p.sc_lm = (const float*)ptrs[k++];
+  int i = 0;
+  p.T = ints[i++];
+  p.B = ints[i++];
+  p.d = ints[i++];
+  p.hq = ints[i++];
+  p.hkv = ints[i++];
+  p.hd = ints[i++];
+  p.f = ints[i++];
+  p.v_pad = ints[i++];
+  p.L = ints[i++];
+  p.fuse_norms = ints[i++];
+  dtype = ints[i++];
+  ws_floats = ints[i++];
+  wq8 = ints[i++];
+  p.nsteps = 1;
+  p.eps = eps;
+  p.sm_scale = sm_scale;
+  return !(p.B < 1 || p.hkv < 1 || p.hq % p.hkv != 0 ||
+           p.hq / p.hkv > kMaxGroup || p.hd % 32 != 0 || p.hd > kMaxHd ||
+           p.d % 8 != 0 || p.v_pad % 8 != 0 ||
+           ((p.hq + 2 * p.hkv) * p.hd) % 8 != 0 || (2 * p.f) % 8 != 0 ||
+           (wq8 && (p.sc_qkv == nullptr || p.sc_o == nullptr ||
+                    p.sc_w1 == nullptr || p.sc_w2 == nullptr ||
+                    p.sc_lm == nullptr)));
+}
+
+// The exchange of a kTp launch (see Comm).
+void set_comm(Comm& c, int n, const void* slot_tab, const void* flag_tab,
+              unsigned long long epoch, int g_cap, int lag_rank,
+              long long lag_ns) {
+  c.slot_tab = static_cast<const int64_t*>(slot_tab);
+  c.flag_tab = static_cast<const int64_t*>(flag_tab);
+  c.base = epoch << 20;
+  c.lag_ns = lag_ns;
+  c.n = n;
+  c.g_cap = g_cap;
+  c.lag_rank = lag_rank;
+}
 
 // One rank's decode launch from tdt_mega_decode's arrays (layout there):
 // its Params, model dtype, workspace floats, wq8 and kv_quant. False if they
@@ -2513,20 +2754,19 @@ extern "C" int tdt_mega_decode(const unsigned long long* ptrs,
   return (int)cudaErrorInvalidValue;
 }
 
-#ifndef TDT_MEGA_MOE
-
-// A dense decode launch over n > 1 co-located ranks, one cooperative
-// launch of G blocks a rank. ptrs and ints: n rows of tdt_mega_decode's
-// arrays, one a rank (its weights, cache shard, outputs, workspace,
-// barrier counter, trace ring; the shared table, kv_len, tokens, page
-// table, stop_tok and ring snapshot), each in the model dtype with a
-// full-width cache, greedy, without wq8 or MoE; a rank's v_real is its
-// real vocab columns. slot_tab and flag_tab: device tables of the ranks'
-// exchange slots and flags (layout: Comm), flag_cap flags and g_cap
-// candidate blocks a rank; epoch: this launch's (flags are never reset);
-// blocks_per_rank: G (0 = the co-resident capacity over n); lag_rank (-1:
-// none) lags its pushes by lag_ns. info (out): G, dynamic shared memory
-// bytes, blocks per SM.
+// A decode launch over n > 1 co-located ranks, one cooperative launch of
+// G blocks a rank. ptrs and ints: n rows of tdt_mega_decode's arrays, one a
+// rank (its weights, cache shard, outputs, workspace, barrier counter,
+// trace ring, MoE records; the shared table, kv_len, tokens, page table,
+// stop_tok and ring snapshot), each in the model dtype with a full-width
+// cache, greedy, without wq8; a rank's v_real is its real vocab columns.
+// The dense library takes dense graphs, the MoE library (TDT_MEGA_MOE) MoE
+// graphs, whose w1/w2 are the rank's E/n experts (rank r's: r * E/n ..).
+// slot_tab and flag_tab: device tables of the ranks' exchange slots and
+// flags (layout: Comm), flag_cap flags and g_cap candidate blocks a rank;
+// epoch: this launch's (flags are never reset); blocks_per_rank: G (0 =
+// the co-resident capacity over n); lag_rank (-1: none) lags its pushes
+// by lag_ns. info (out): G, dynamic shared memory bytes, blocks per SM.
 extern "C" int tdt_mega_decode_tp(int n, const unsigned long long* ptrs,
                                   const int* ints, float eps, float sm_scale,
                                   const void* slot_tab, const void* flag_tab,
@@ -2534,6 +2774,11 @@ extern "C" int tdt_mega_decode_tp(int n, const unsigned long long* ptrs,
                                   int g_cap, int blocks_per_rank,
                                   int lag_rank, long long lag_ns, int* info,
                                   void* stream) {
+#ifdef TDT_MEGA_MOE
+  constexpr bool kMoE = true;
+#else
+  constexpr bool kMoE = false;
+#endif
   constexpr int kPtrs = 40, kInts = 28;
   if (n < 2 || n > tdt::kMaxRanks || g_cap < 1 ||
       (long long)flag_cap < n + (long long)n * g_cap || slot_tab == nullptr ||
@@ -2545,36 +2790,33 @@ extern "C" int tdt_mega_decode_tp(int n, const unsigned long long* ptrs,
   for (int r = 0; r < n; ++r) {
     int dt = -1, wq8 = 0, kv_quant = 0;
     long long ws = 0;
+    Params& pr = tp.p[r];
     if (!parse_decode(ptrs + (size_t)r * kPtrs, ints + (size_t)r * kInts,
-                      eps, sm_scale, false, tp.p[r], dt, ws, wq8, kv_quant) ||
-        wq8 || kv_quant || tp.p[r].sampled || (r > 0 && (dt != dtype ||
-                                                          ws != ws_floats)))
+                      eps, sm_scale, kMoE, pr, dt, ws, wq8, kv_quant) ||
+        wq8 || kv_quant || pr.sampled || (kMoE && pr.E % n != 0) ||
+        (r > 0 && (dt != dtype || ws != ws_floats)))
       return (int)cudaErrorInvalidValue;
     dtype = dt;
     ws_floats = ws;
   }
   const bool traced =
       tp.p[0].trace != nullptr || tp.p[0].ring_state != nullptr;
-  tp.c.slot_tab = static_cast<const int64_t*>(slot_tab);
-  tp.c.flag_tab = static_cast<const int64_t*>(flag_tab);
-  tp.c.base = epoch << 20;
-  tp.c.lag_ns = lag_ns;
-  tp.c.n = n;
-  tp.c.g_cap = g_cap;
-  tp.c.lag_rank = lag_rank;
+  set_comm(tp.c, n, slot_tab, flag_tab, epoch, g_cap, lag_rank, lag_ns);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == tdt::kDtypeF32)
-    return traced ? launch_tp<float, true>(tp, ws_floats, blocks_per_rank,
-                                           info, s)
-                  : launch_tp<float, false>(tp, ws_floats, blocks_per_rank,
-                                            info, s);
+    return traced ? launch_tp<float, true, kMoE>(tp, ws_floats,
+                                                 blocks_per_rank, info, s)
+                  : launch_tp<float, false, kMoE>(tp, ws_floats,
+                                                  blocks_per_rank, info, s);
   if (dtype == tdt::kDtypeBF16)
-    return traced ? launch_tp<__nv_bfloat16, true>(tp, ws_floats,
-                                                   blocks_per_rank, info, s)
-                  : launch_tp<__nv_bfloat16, false>(tp, ws_floats,
-                                                    blocks_per_rank, info, s);
+    return traced ? launch_tp<__nv_bfloat16, true, kMoE>(
+                        tp, ws_floats, blocks_per_rank, info, s)
+                  : launch_tp<__nv_bfloat16, false, kMoE>(
+                        tp, ws_floats, blocks_per_rank, info, s);
   return (int)cudaErrorInvalidValue;
 }
+
+#ifndef TDT_MEGA_MOE
 
 // The prefill megakernel over one prompt of S rows.
 // ptrs: x0 [S, d] (T), wqkv, wo, w1, w2, lm_head, ln1, ln2, normf, qn, kn,
@@ -2588,55 +2830,9 @@ extern "C" int tdt_mega_prefill(const unsigned long long* ptrs,
                                 const int* ints, float eps, float sm_scale,
                                 int* info, void* stream) {
   Params p{};
-  int k = 0;
-  p.x0 = (const void*)ptrs[k++];
-  p.wqkv = (const void*)ptrs[k++];
-  p.wo = (const void*)ptrs[k++];
-  p.w1 = (const void*)ptrs[k++];
-  p.w2 = (const void*)ptrs[k++];
-  p.lm_head = (const void*)ptrs[k++];
-  p.ln1 = (const void*)ptrs[k++];
-  p.ln2 = (const void*)ptrs[k++];
-  p.normf = (const void*)ptrs[k++];
-  p.qn = (const void*)ptrs[k++];
-  p.kn = (const void*)ptrs[k++];
-  p.kv_len = (const int*)ptrs[k++];
-  p.table = (const int*)ptrs[k++];
-  p.inv_freq = (const float*)ptrs[k++];
-  p.logits = (float*)ptrs[k++];
-  p.knew = (void*)ptrs[k++];
-  p.vnew = (void*)ptrs[k++];
-  p.x = (float*)ptrs[k++];  // the workspace base, carved in launch_prefill
-  p.bar = (unsigned*)ptrs[k++];
-  p.sc_qkv = (const float*)ptrs[k++];
-  p.sc_o = (const float*)ptrs[k++];
-  p.sc_w1 = (const float*)ptrs[k++];
-  p.sc_w2 = (const float*)ptrs[k++];
-  p.sc_lm = (const float*)ptrs[k++];
-  int i = 0;
-  p.T = ints[i++];
-  p.B = ints[i++];
-  p.d = ints[i++];
-  p.hq = ints[i++];
-  p.hkv = ints[i++];
-  p.hd = ints[i++];
-  p.f = ints[i++];
-  p.v_pad = ints[i++];
-  p.L = ints[i++];
-  p.fuse_norms = ints[i++];
-  const int dtype = ints[i++];
-  const long long ws_floats = ints[i++];
-  const int wq8 = ints[i++];
-  p.nsteps = 1;
-  p.eps = eps;
-  p.sm_scale = sm_scale;
-  if (p.B < 1 || p.hkv < 1 || p.hq % p.hkv != 0 ||
-      p.hq / p.hkv > kMaxGroup || p.hd % 32 != 0 || p.hd > kMaxHd ||
-      p.d % 8 != 0 || p.v_pad % 8 != 0 ||
-      ((p.hq + 2 * p.hkv) * p.hd) % 8 != 0 || (2 * p.f) % 8 != 0 ||
-      (wq8 && (p.sc_qkv == nullptr || p.sc_o == nullptr ||
-               p.sc_w1 == nullptr || p.sc_w2 == nullptr ||
-               p.sc_lm == nullptr)))
+  int dtype = -1, wq8 = 0;
+  long long ws_floats = 0;
+  if (!parse_prefill(ptrs, ints, eps, sm_scale, p, dtype, ws_floats, wq8))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == tdt::kDtypeF32)
@@ -2646,6 +2842,48 @@ extern "C" int tdt_mega_prefill(const unsigned long long* ptrs,
     return wq8 ? launch_prefill<__nv_bfloat16, int8_t>(p, ws_floats, info, s)
                : launch_prefill<__nv_bfloat16, __nv_bfloat16>(
                      p, ws_floats, info, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The prefill megakernel over n > 1 co-located ranks, one cooperative
+// launch of G blocks a rank. ptrs and ints: n rows of tdt_mega_prefill's
+// arrays, one a rank (its weights, logits, knew/vnew, workspace and barrier
+// counter; the shared x0, true_len, table and inv_freq), without wq8.
+// slot_tab, flag_tab, epoch, flag_cap, g_cap, blocks_per_rank and info as
+// tdt_mega_decode_tp's; each rank's slots hold two sets of n partials
+// [S * d].
+extern "C" int tdt_mega_prefill_tp(int n, const unsigned long long* ptrs,
+                                   const int* ints, float eps,
+                                   float sm_scale, const void* slot_tab,
+                                   const void* flag_tab,
+                                   unsigned long long epoch, int flag_cap,
+                                   int g_cap, int blocks_per_rank, int* info,
+                                   void* stream) {
+  constexpr int kPtrs = 24, kInts = 13;
+  if (n < 2 || n > tdt::kMaxRanks || g_cap < 1 ||
+      (long long)flag_cap < n + (long long)n * g_cap || slot_tab == nullptr ||
+      flag_tab == nullptr)
+    return (int)cudaErrorInvalidValue;
+  TpParams tp{};
+  int dtype = -1;
+  long long ws_floats = 0;
+  for (int r = 0; r < n; ++r) {
+    int dt = -1, wq8 = 0;
+    long long ws = 0;
+    if (!parse_prefill(ptrs + (size_t)r * kPtrs, ints + (size_t)r * kInts,
+                       eps, sm_scale, tp.p[r], dt, ws, wq8) ||
+        wq8 || (r > 0 && (dt != dtype || ws != ws_floats)))
+      return (int)cudaErrorInvalidValue;
+    dtype = dt;
+    ws_floats = ws;
+  }
+  set_comm(tp.c, n, slot_tab, flag_tab, epoch, g_cap, -1, 0);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == tdt::kDtypeF32)
+    return launch_prefill_tp<float>(tp, ws_floats, blocks_per_rank, info, s);
+  if (dtype == tdt::kDtypeBF16)
+    return launch_prefill_tp<__nv_bfloat16>(tp, ws_floats, blocks_per_rank,
+                                            info, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -28,16 +28,20 @@ A2A_WAIT, local at tp=1) launches the MoE build of the same source
 (``cuda_kernels.MEGA_DECODE_MOE``). MoE with ``wq8`` or in a prefill
 graph is refused as the JAX package refuses it.
 
-A dense decode graph over ``n_ranks = n > 1`` co-located ranks (the
-entry BARRIER, each projection's partial summed across ranks by
-ALLREDUCE or, under ``overlap_ar``, AR_SEND / AR_WAIT, and the LM head's
-cross-rank argmax) takes per-rank operands (weights, pool shards) and a
+A decode graph over ``n_ranks = n > 1`` co-located ranks (the entry
+BARRIER, each projection's partial summed across ranks by ALLREDUCE or,
+under ``overlap_ar``, AR_SEND / AR_WAIT, and the LM head's cross-rank
+argmax; an MoE graph's experts expert-parallel, E/n a rank, their
+combine summed across ranks by ALLREDUCE or the A2A_SEND / A2A_WAIT
+pair) takes per-rank operands (weights, pool shards) and a
 :class:`~triton_distributed_tpu_torch.runtime.mesh.DistContext` for the
 exchange's symmetric slots and flags, and is one cooperative launch over
-all n ranks (``cuda_kernels.MEGA_DECODE_TP``), or on the CPU the plain
-version walking the n rank states in lockstep
-(``kernels.mega_decode_plain_tp``). Refused at tp > 1, each naming its
-ROADMAP item: MoE graphs, prefill graphs, ``wq8``, the int8 pool and
+all n ranks (``cuda_kernels.MEGA_DECODE_TP``, an MoE graph
+``MEGA_DECODE_MOE_TP``), or on the CPU the plain version walking the n
+rank states in lockstep (``kernels.mega_decode_plain_tp``). The prefill
+graph at n > 1 is one launch over all ranks as well
+(:func:`mega_prefill_tp`, ``cuda_kernels.MEGA_PREFILL_TP``). Refused at
+tp > 1, naming ROADMAP queue 1 position 4: ``wq8``, the int8 pool and
 sampling.
 """
 
@@ -64,8 +68,8 @@ KERNEL_TASKS = frozenset({
     TaskType.O_PROJ, TaskType.FC1, TaskType.FC2, TaskType.ALLREDUCE,
     TaskType.LM_HEAD, TaskType.RING_POLL,
 })
-# The cross-rank bodies of a dense graph at tp > 1 (``mega_kernel``'s kTp
-# instantiations).
+# The cross-rank bodies of a graph at tp > 1 (the kTp instantiations of
+# ``mega_kernel`` and, BARRIER, of ``mega_prefill_kernel``).
 TP_TASKS = frozenset({TaskType.BARRIER, TaskType.AR_SEND, TaskType.AR_WAIT})
 # Co-located ranks one launch covers (tdt::kMaxRanks).
 MAX_RANKS = 8
@@ -271,12 +275,6 @@ def check_dims(dims: MegaDims, cfg: MegaConfig) -> None:
         (dims.moe and dims.prefill,
          "MoE prefill runs through the model path (the engines prefill "
          "with mode='xla' under mode='mega')"),
-        (dims.n_ranks > 1 and dims.moe,
-         "the MoE megakernel at tp > 1 (expert-parallel a2a puts and "
-         "waits) is not ported yet (ROADMAP queue 2 row 6(e), MoE half)"),
-        (dims.n_ranks > 1 and dims.prefill,
-         "MegaQwen3.prefill at tp > 1 is not ported yet (ROADMAP queue 1 "
-         "position 2)"),
         (dims.n_ranks > 1 and cfg.wq8,
          "MegaConfig(wq8=True) at tp > 1 is not ported yet (ROADMAP queue "
          "1 position 4)"),
@@ -435,18 +433,7 @@ def mega_decode(dims: MegaDims, cfg: MegaConfig, table: torch.Tensor,
                               or t.dtype != torch.float32):
             raise ValueError(f"{name} must be {shape} f32, got "
                              f"{tuple(t.shape)} {t.dtype}")
-    if (moe_route is None) != (moe_x is None):
-        raise ValueError("moe_route and moe_x go together")
-    if moe_route is not None:
-        lead = (dims.nsteps, dims.num_layers)
-        for name, t, shape in (
-                ("moe_route", moe_route,
-                 lead + (dims.num_experts, dims.batch)),
-                ("moe_x", moe_x, lead + (dims.batch, dims.d))):
-            if not dims.moe or tuple(t.shape) != shape or (
-                    t.dtype != torch.float32):
-                raise ValueError(f"{name} must be {shape} f32 on an MoE "
-                                 f"graph, got {tuple(t.shape)}")
+    _check_moe_records(dims, moe_route, moe_x)
     dev = kv_len.device
     if inv_freq is None:
         inv_freq = _kernels.rope_inv_freq(dims.head_dim, dims.rope_theta,
@@ -476,10 +463,13 @@ def _check_weights(w: MegaWeights, cfg: MegaConfig, dims: MegaDims, dev):
         raise ValueError("the router weight is given exactly when dims.moe "
                          "is set")
     if dims.moe:
+        # The router ranks every expert; w1/w2 hold this rank's experts
+        # (all of them at tp=1, E/n expert-parallel at tp=n).
         E, d, f = dims.num_experts, dims.d, dims.f_loc
+        el = dims.experts_loc
         for name, t, shape in (("wrouter", w.wrouter, (L, d, E)),
-                               ("w1", w.w1, (L, E, d, 2 * f)),
-                               ("w2", w.w2, (L, E, f, d))):
+                               ("w1", w.w1, (L, el, d, 2 * f)),
+                               ("w2", w.w2, (L, el, f, d))):
             if tuple(t.shape) != shape:
                 raise ValueError(f"{name} {tuple(t.shape)} disagrees with "
                                  f"dims {shape}")
@@ -619,16 +609,18 @@ def mega_decode_tp(dims: MegaDims, cfg: MegaConfig, table: torch.Tensor,
                    w: list, kc: list, vc: list, page_table, kv_len, tokens,
                    ctx, stop_tok=None, inv_freq=None, bar=None,
                    info: dict | None = None, ring_state=None,
-                   blocks_per_rank: int = 0):
-    """Run the packed task ``table`` of a dense decode graph over
-    ``dims.n_ranks = n > 1`` co-located ranks for ``dims.nsteps`` steps.
+                   blocks_per_rank: int = 0, moe_route=None, moe_x=None):
+    """Run the packed task ``table`` of a decode graph over ``dims.n_ranks
+    = n > 1`` co-located ranks for ``dims.nsteps`` steps.
 
     ``w``, ``kc`` and ``vc`` hold one entry per rank (its weight shards as
-    :class:`MegaWeights`, its cache shard: ``cache.rank(r)``'s tensors);
-    ``page_table``, ``kv_len``, ``tokens``, ``stop_tok`` and
-    ``ring_state`` are shared. On CUDA tensors: one cooperative launch
-    of ``csrc/megakernel.cu`` over all ranks (counted in
-    ``cuda_kernels.MEGA_DECODE_TP``), whose exchanges go through ``ctx``'s
+    :class:`MegaWeights`, an MoE graph's with its E/n experts
+    expert-parallel (``MegaQwen3.moe_params``); its cache shard:
+    ``cache.rank(r)``'s tensors); ``page_table``, ``kv_len``, ``tokens``,
+    ``stop_tok`` and ``ring_state`` are shared. On CUDA tensors: one
+    cooperative launch of ``csrc/megakernel.cu`` over all ranks (counted
+    in ``cuda_kernels.MEGA_DECODE_TP``, an MoE graph in
+    ``MEGA_DECODE_MOE_TP``), whose exchanges go through ``ctx``'s
     symmetric slots and flags; ``blocks_per_rank`` (0 = the card's
     co-resident capacity over n) sets the blocks of each rank, and a grid
     whose n ranks cannot all be resident is refused. On CPU tensors: the
@@ -639,7 +631,9 @@ def mega_decode_tp(dims: MegaDims, cfg: MegaConfig, table: torch.Tensor,
     NS, T, 8]``. Every rank emits the same tokens: ``info`` (optional)
     receives each rank's ``toks [n, NS, B]``, ``stop_step [n, B]`` and
     final residual ``x [n, B, d]`` f32, with the launch geometry on the
-    card."""
+    card. An MoE graph takes ``moe_route [n, NS, L, E, B]`` and ``moe_x
+    [n, NS, L, B, d]`` f32 (optional, together): each rank's gates'
+    records, as :func:`mega_decode`'s."""
     check_dims(dims, cfg)
     n = dims.n_ranks
     if n < 2 or dims.prefill:
@@ -650,6 +644,7 @@ def mega_decode_tp(dims: MegaDims, cfg: MegaConfig, table: torch.Tensor,
     if dims.ring != (ring_state is not None):
         raise ValueError("ring_state is given exactly when dims.ring is "
                          "set")
+    _check_moe_records(dims, moe_route, moe_x, (n,))
     dev = kv_len.device
     if inv_freq is None:
         inv_freq = _kernels.rope_inv_freq(dims.head_dim, dims.rope_theta,
@@ -658,19 +653,45 @@ def mega_decode_tp(dims: MegaDims, cfg: MegaConfig, table: torch.Tensor,
         return _kernels.mega_decode_plain_tp(
             dims, cfg.fuse_norms, table.cpu().numpy(), w, kc, vc,
             page_table, kv_len, tokens, stop_tok, inv_freq, ring_state,
-            info=info)
+            info=info, moe_route=moe_route, moe_x=moe_x)
     if bar is None:
         bar = torch.zeros(4 * n, dtype=torch.int32, device=dev)
     return _launch_tp(dims, cfg, table, w, kc, vc, page_table, kv_len,
                       tokens, stop_tok, inv_freq, bar, info, ring_state, ctx,
-                      blocks_per_rank)
+                      blocks_per_rank, moe_route, moe_x)
+
+
+def _check_moe_records(dims, moe_route, moe_x, lead=()) -> None:
+    """``moe_route [*lead, NS, L, E, B]`` and ``moe_x [*lead, NS, L, B,
+    d]`` f32 go together, on an MoE graph only."""
+    if (moe_route is None) != (moe_x is None):
+        raise ValueError("moe_route and moe_x go together")
+    if moe_route is None:
+        return
+    steps = tuple(lead) + (dims.nsteps, dims.num_layers)
+    for name, t, shape in (
+            ("moe_route", moe_route, steps + (dims.num_experts, dims.batch)),
+            ("moe_x", moe_x, steps + (dims.batch, dims.d))):
+        if not dims.moe or tuple(t.shape) != shape or (
+                t.dtype != torch.float32):
+            raise ValueError(f"{name} must be {shape} f32 on an MoE graph, "
+                             f"got {tuple(t.shape)}")
+
+
+def _tp_site(ctx, site: str, n: int, g_cap: int, floats: int):
+    """A tp launch's exchange at ``site``: its flags (the entry barrier's
+    n, then one a (source rank, block)), its slots (``floats`` a rank) and
+    this launch's epoch."""
+    from triton_distributed_tpu_torch.language import primitives as prim
+
+    fs = prim.site_flags(ctx, site, n + n * g_cap)
+    slots = ctx.workspace(site, (floats,), torch.float32)
+    return fs, slots, prim.next_epoch(fs)
 
 
 def _launch_tp(dims, cfg, table, w, kc, vc, page_table, kv_len, tokens,
                stop_tok, inv_freq, bar, info, ring_state, ctx,
-               blocks_per_rank):
-    from triton_distributed_tpu_torch.language import primitives as prim
-
+               blocks_per_rank, moe_route, moe_x):
     dev = kv_len.device
     n, B, NS, L = dims.n_ranks, dims.batch, dims.nsteps, dims.num_layers
     hkv, hd, T = dims.hkv_loc, dims.head_dim, table.shape[0]
@@ -688,6 +709,9 @@ def _launch_tp(dims, cfg, table, w, kc, vc, page_table, kv_len, tokens,
                 raise ValueError("the ranks' cache shards differ in shape")
     _check_shared(dims, kc[0], page_table, table, kv_len, tokens, inv_freq,
                   bar, stop_tok, ring_state, dev)
+    if moe_route is not None:
+        ck.check_cuda_operand("moe_route", moe_route, dev, torch.float32, 5)
+        ck.check_cuda_operand("moe_x", moe_x, dev, torch.float32, 5)
     if bar.numel() < 4 * n:
         raise ValueError(f"bar needs 4 counters a rank, got {bar.numel()}")
     # Exchange ordinals ride the flag values' low 20 bits.
@@ -707,12 +731,11 @@ def _launch_tp(dims, cfg, table, w, kc, vc, page_table, kv_len, tokens,
                          device=dev) if dims.trace else None)
     # The exchange: per rank two alternating slot sets of the residual
     # partials [n, B, d] and of the LM head's candidates [n, g_cap, B, 2],
-    # and flags [n] (the entry barrier) + [n, g_cap] (one a source block).
-    fs = prim.site_flags(ctx, "mega_decode", n + n * g_cap)
-    slots = ctx.workspace("mega_decode",
-                          (2 * n * (B * dims.d + 2 * B * g_cap),),
-                          torch.float32)
-    epoch = prim.next_epoch(fs)
+    # then (MoE) two of the combine's phase-0 partials [n, B, d]; flags
+    # [n] (the entry barrier) + [n, g_cap] (one a source block).
+    per_set = B * dims.d + 2 * B * g_cap + (B * dims.d if dims.moe else 0)
+    fs, slots, epoch = _tp_site(ctx, "mega_decode", n, g_cap,
+                                2 * n * per_set)
     vocab = w[0].embed.shape[0]
     ptrs, ints = [], []
     for r in range(n):
@@ -724,18 +747,20 @@ def _launch_tp(dims, cfg, table, w, kc, vc, page_table, kv_len, tokens,
             knew[r], vnew[r], toks[r], stop_step[r], ws[r], bar[4 * r:],
             None, None, None, None, None, None, None, None, None,
             None if trace is None else trace[r],
-            ring_state if dims.ring else None, None, None, None)]
+            ring_state if dims.ring else None, w[r].wrouter,
+            None if moe_route is None else moe_route[r],
+            None if moe_x is None else moe_x[r])]
         ints += _decode_ints(dims, cfg, table, kc[0], mdt, ws_n, vocab,
                              _kernels.rank_v_real(dims, r))
     lag = -1 if dims.straggler_rank is None else int(dims.straggler_rank)
     out = (ctypes.c_int * 4)()
-    ck.MEGA_DECODE_TP(
-        n, (ctypes.c_uint64 * len(ptrs))(*ptrs),
-        (ctypes.c_int * len(ints))(*ints), ctypes.c_float(dims.rms_eps),
-        ctypes.c_float(hd ** -0.5), slots.table.data_ptr(),
-        fs.flags.table.data_ptr(), epoch, fs.capacity, g_cap,
-        int(blocks_per_rank), lag, int(dims.straggler_nanos), out,
-        ck.stream_ptr(kv_len))
+    kernel = ck.MEGA_DECODE_MOE_TP if dims.moe else ck.MEGA_DECODE_TP
+    kernel(n, (ctypes.c_uint64 * len(ptrs))(*ptrs),
+           (ctypes.c_int * len(ints))(*ints), ctypes.c_float(dims.rms_eps),
+           ctypes.c_float(hd ** -0.5), slots.table.data_ptr(),
+           fs.flags.table.data_ptr(), epoch, fs.capacity, g_cap,
+           int(blocks_per_rank), lag, int(dims.straggler_nanos), out,
+           ck.stream_ptr(kv_len))
     if info is not None:
         info.update(blocks=out[0], smem_bytes=out[1], blocks_per_sm=out[2],
                     toks=toks, stop_step=stop_step,
@@ -757,21 +782,16 @@ def mega_prefill(dims: MegaDims, cfg: MegaConfig, table: torch.Tensor,
     tensors: the plain version. Returns ``(logits [1, v_loc] f32 of row
     true_len - 1, knew, vnew [L, hkv, S, hd] in the model dtype)``."""
     check_dims(dims, cfg)
-    if not dims.prefill:
-        raise ValueError("mega_prefill runs a prefill graph (dims.prefill)")
+    if not dims.prefill or dims.n_ranks > 1:
+        raise ValueError("mega_prefill runs a prefill graph (dims.prefill) "
+                         "at n_ranks = 1 (mega_prefill_tp above it)")
     if cfg.wq8 != w.q8:
         raise ValueError("MegaConfig(wq8=True) takes int8 weights with "
                          "their scales (Q8Params), and only wq8 does")
-    S, L = dims.batch, dims.num_layers
-    hkv, hd = dims.hkv_loc, dims.head_dim
-    if tuple(x0.shape) != (S, dims.d) or x0.dtype != w.embed.dtype:
-        raise ValueError(f"x0 must be [{S}, {dims.d}] {w.embed.dtype}, got "
-                         f"{tuple(x0.shape)} {x0.dtype}")
-    if tuple(true_len.shape) != (1,) or true_len.dtype != torch.int32:
-        raise ValueError("true_len must be [1] int32")
+    _check_prefill_inputs(dims, w, x0, true_len)
     dev = x0.device
     if inv_freq is None:
-        inv_freq = _kernels.rope_inv_freq(hd, dims.rope_theta, dev)
+        inv_freq = _kernels.rope_inv_freq(dims.head_dim, dims.rope_theta, dev)
     if dev.type != "cuda":
         return _kernels.mega_prefill_plain(
             dims, cfg.fuse_norms, table.cpu().numpy(), w, x0, true_len,
@@ -779,31 +799,131 @@ def mega_prefill(dims: MegaDims, cfg: MegaConfig, table: torch.Tensor,
     if bar is None:
         bar = torch.zeros(4, dtype=torch.int32, device=dev)
     mdt = _check_weights(w, cfg, dims, dev)
+    _check_prefill_operands(x0, true_len, table, inv_freq, bar, mdt)
+    ws_n = prefill_workspace_floats(dims)
+    ws = torch.empty(ws_n, dtype=torch.float32, device=dev)
+    logits = torch.empty((1, dims.v_loc), dtype=torch.float32, device=dev)
+    knew = torch.empty((dims.num_layers, dims.hkv_loc, dims.batch,
+                        dims.head_dim), dtype=mdt, device=dev)
+    vnew = torch.empty_like(knew)
+    ptrs = (ctypes.c_uint64 * 24)(*_prefill_ptrs(
+        w, x0, true_len, table, inv_freq, logits, knew, vnew, ws, bar))
+    ints = (ctypes.c_int * 13)(*_prefill_ints(dims, cfg, table, mdt, ws_n))
+    out = (ctypes.c_int * 4)()
+    ck.MEGA_PREFILL(ptrs, ints, ctypes.c_float(dims.rms_eps),
+                    ctypes.c_float(dims.head_dim ** -0.5), out,
+                    ck.stream_ptr(x0))
+    if info is not None:
+        info.update(blocks=out[0], smem_bytes=out[1], blocks_per_sm=out[2])
+    return logits, knew, vnew
+
+
+def mega_prefill_tp(dims: MegaDims, cfg: MegaConfig, table: torch.Tensor,
+                    w: list, x0: torch.Tensor, true_len: torch.Tensor, ctx,
+                    inv_freq=None, bar=None, info: dict | None = None,
+                    blocks_per_rank: int = 0):
+    """The prefill ``table`` over ``dims.n_ranks = n > 1`` co-located ranks
+    (``w`` one :class:`MegaWeights` a rank; ``x0`` and ``true_len``
+    shared). On CUDA tensors: one cooperative launch of the prefill
+    kernel over all ranks (counted in ``cuda_kernels.MEGA_PREFILL_TP``):
+    the (G, n) grid of :func:`mega_decode_tp`, the entry BARRIER, and each
+    ALLREDUCE's ``[S, d]`` partials through ``ctx``'s slots; on CPU
+    tensors: the plain version (``kernels.mega_prefill_plain_tp``).
+    Returns ``(logits [1, n·v_loc] f32 of row true_len - 1 (rank r's
+    columns from r·v_loc), knew, vnew [n, L, hkv, S, hd])``; ``info``
+    (optional) receives each rank's final ``x [n, S, d]`` and, on the
+    card, the launch geometry."""
+    check_dims(dims, cfg)
+    n = dims.n_ranks
+    if not dims.prefill or n < 2:
+        raise ValueError("mega_prefill_tp runs a prefill graph at "
+                         "n_ranks > 1")
+    if len(w) != n:
+        raise ValueError(f"want {n} per-rank weights, got {len(w)}")
+    for wr in w:
+        _check_prefill_inputs(dims, wr, x0, true_len)
+    dev = x0.device
+    if inv_freq is None:
+        inv_freq = _kernels.rope_inv_freq(dims.head_dim, dims.rope_theta, dev)
+    if dev.type != "cuda":
+        return _kernels.mega_prefill_plain_tp(
+            dims, cfg.fuse_norms, table.cpu().numpy(), w, x0, true_len,
+            inv_freq, info=info)
+    if ctx is None or ctx.tp != n or ctx.device != dev:
+        raise ValueError(f"a tp={n} launch needs the ranks' DistContext on "
+                         f"{dev}, got {ctx}")
+    if bar is None:
+        bar = torch.zeros(4 * n, dtype=torch.int32, device=dev)
+    if bar.numel() < 4 * n:
+        raise ValueError(f"bar needs 4 counters a rank, got {bar.numel()}")
+    mdt = _check_weights(w[0], cfg, dims, dev)
+    for wr in w[1:]:
+        if _check_weights(wr, cfg, dims, dev) != mdt:
+            raise ValueError("the ranks' weights differ in dtype")
+    _check_prefill_operands(x0, true_len, table, inv_freq, bar, mdt)
+    S, d = dims.batch, dims.d
+    n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    g_cap = n_sms * MAX_BLOCKS_PER_SM
+    ws_n = -(-prefill_workspace_floats(dims) // 4) * 4  # 16-byte rank rows
+    ws = torch.empty((n, ws_n), dtype=torch.float32, device=dev)
+    logits = torch.empty((n, 1, dims.v_loc), dtype=torch.float32,
+                         device=dev)
+    knew = torch.empty((n, dims.num_layers, dims.hkv_loc, S, dims.head_dim),
+                       dtype=mdt, device=dev)
+    vnew = torch.empty_like(knew)
+    # Per rank two alternating slot sets of the partials [n, S, d].
+    fs, slots, epoch = _tp_site(ctx, "mega_prefill", n, g_cap,
+                                2 * n * S * d)
+    ptrs, ints = [], []
+    for r in range(n):
+        ptrs += _prefill_ptrs(w[r], x0, true_len, table, inv_freq, logits[r],
+                              knew[r], vnew[r], ws[r], bar[4 * r:])
+        ints += _prefill_ints(dims, cfg, table, mdt, ws_n)
+    out = (ctypes.c_int * 4)()
+    ck.MEGA_PREFILL_TP(
+        n, (ctypes.c_uint64 * len(ptrs))(*ptrs),
+        (ctypes.c_int * len(ints))(*ints), ctypes.c_float(dims.rms_eps),
+        ctypes.c_float(dims.head_dim ** -0.5), slots.table.data_ptr(),
+        fs.flags.table.data_ptr(), epoch, fs.capacity, g_cap,
+        int(blocks_per_rank), out, ck.stream_ptr(x0))
+    if info is not None:
+        info.update(blocks=out[0], smem_bytes=out[1], blocks_per_sm=out[2],
+                    x=ws[:, :S * d].view(n, S, d))
+    return (logits.permute(1, 0, 2).reshape(1, n * dims.v_loc), knew, vnew)
+
+
+def _check_prefill_inputs(dims, w, x0, true_len) -> None:
+    if tuple(x0.shape) != (dims.batch, dims.d) or x0.dtype != w.embed.dtype:
+        raise ValueError(f"x0 must be [{dims.batch}, {dims.d}] "
+                         f"{w.embed.dtype}, got {tuple(x0.shape)} {x0.dtype}")
+    if tuple(true_len.shape) != (1,) or true_len.dtype != torch.int32:
+        raise ValueError("true_len must be [1] int32")
+
+
+def _check_prefill_operands(x0, true_len, table, inv_freq, bar, mdt):
+    dev = x0.device
     for name, t, dt, nd in (("x0", x0, mdt, 2),
                             ("true_len", true_len, torch.int32, 1),
                             ("table", table, torch.int32, 2),
                             ("inv_freq", inv_freq, torch.float32, 1),
                             ("bar", bar, torch.int32, 1)):
         ck.check_cuda_operand(name, t, dev, dt, nd)
-    ws_n = prefill_workspace_floats(dims)
-    ws = torch.empty(ws_n, dtype=torch.float32, device=dev)
-    logits = torch.empty((1, dims.v_loc), dtype=torch.float32, device=dev)
-    knew = torch.empty((L, hkv, S, hd), dtype=mdt, device=dev)
-    vnew = torch.empty_like(knew)
-    ptrs = (ctypes.c_uint64 * 24)(*[_ptr(t) for t in (
+
+
+def _prefill_ptrs(w, x0, true_len, table, inv_freq, logits, knew, vnew, ws,
+                  bar) -> list:
+    """One rank's operand pointers (``tdt_mega_prefill``'s layout)."""
+    return [_ptr(t) for t in (
         x0, w.wqkv, w.wo, w.w1, w.w2, w.lm_head, w.ln1, w.ln2, w.normf,
         w.qn, w.kn, true_len, table, inv_freq, logits, knew, vnew, ws, bar,
-        w.sc_qkv, w.sc_o, w.sc_w1, w.sc_w2, w.sc_lm)])
-    ints = (ctypes.c_int * 13)(
-        table.shape[0], S, dims.d, dims.hq_loc, hkv, hd, dims.f_loc,
-        dims.v_loc, L, int(cfg.fuse_norms), ck.DTYPE_CODES[mdt], ws_n,
-        int(cfg.wq8))
-    out = (ctypes.c_int * 4)()
-    ck.MEGA_PREFILL(ptrs, ints, ctypes.c_float(dims.rms_eps),
-                    ctypes.c_float(hd ** -0.5), out, ck.stream_ptr(x0))
-    if info is not None:
-        info.update(blocks=out[0], smem_bytes=out[1], blocks_per_sm=out[2])
-    return logits, knew, vnew
+        w.sc_qkv, w.sc_o, w.sc_w1, w.sc_w2, w.sc_lm)]
+
+
+def _prefill_ints(dims, cfg, table, mdt, ws_n) -> tuple:
+    """One rank's geometry ints (``tdt_mega_prefill``'s layout)."""
+    return (table.shape[0], dims.batch, dims.d, dims.hq_loc, dims.hkv_loc,
+            dims.head_dim, dims.f_loc, dims.v_loc, dims.num_layers,
+            int(cfg.fuse_norms), ck.DTYPE_CODES[mdt], ws_n, int(cfg.wq8))
 
 
 class MegaCall:
@@ -819,9 +939,11 @@ class MegaCall:
                  table: np.ndarray, device, ctx=None):
         check_dims(dims, cfg)
         used = {t.task_type for t in tasks}
-        bodies = (PREFILL_TASKS if dims.prefill else KERNEL_TASKS | MOE_TASKS
-                  if dims.moe else KERNEL_TASKS | TP_TASKS
-                  if dims.n_ranks > 1 else KERNEL_TASKS)
+        bodies = (PREFILL_TASKS if dims.prefill
+                  else KERNEL_TASKS | MOE_TASKS if dims.moe else KERNEL_TASKS)
+        if dims.n_ranks > 1:
+            bodies = bodies | ({TaskType.BARRIER} if dims.prefill
+                               else TP_TASKS)
         if not used <= bodies:
             raise NotImplementedError(
                 f"no CUDA megakernel body for "
@@ -839,22 +961,29 @@ class MegaCall:
                  v_scale=None, noise=None, sampcfg=None, ring_state=None,
                  moe_route=None, moe_x=None):
         """One launch. At ``n_ranks > 1``, ``w``, ``kc`` and ``vc`` are
-        per-rank lists (:func:`mega_decode_tp`)."""
+        per-rank lists and the MoE records carry a rank axis
+        (:func:`mega_decode_tp`)."""
         if self.dims.n_ranks > 1:
-            if any(t is not None for t in (k_scale, v_scale, noise, sampcfg,
-                                           moe_route, moe_x)):
-                raise ValueError("a tp > 1 launch takes no int8 scales, "
-                                 "noise or MoE records")
+            if any(t is not None for t in (k_scale, v_scale, noise,
+                                           sampcfg)):
+                raise ValueError("a tp > 1 launch takes no int8 scales or "
+                                 "noise")
             return mega_decode_tp(self.dims, self.cfg, self.table, w, kc, vc,
                                   page_table, kv_len, tokens, self.ctx,
                                   stop_tok, self.inv_freq, self.bar, info,
-                                  ring_state)
+                                  ring_state, moe_route=moe_route,
+                                  moe_x=moe_x)
         return mega_decode(self.dims, self.cfg, self.table, w, kc, vc,
                            page_table, kv_len, tokens, stop_tok,
                            self.inv_freq, self.bar, info, k_scale, v_scale,
                            noise, sampcfg, ring_state, moe_route, moe_x)
 
-    def prefill(self, w: MegaWeights, x0, true_len,
-                info: dict | None = None):
+    def prefill(self, w, x0, true_len, info: dict | None = None):
+        """One prefill launch (``w`` per-rank at ``n_ranks > 1``:
+        :func:`mega_prefill_tp`)."""
+        if self.dims.n_ranks > 1:
+            return mega_prefill_tp(self.dims, self.cfg, self.table, w, x0,
+                                   true_len, self.ctx, self.inv_freq,
+                                   self.bar, info)
         return mega_prefill(self.dims, self.cfg, self.table, w, x0,
                             true_len, self.inv_freq, self.bar, info)

@@ -24,7 +24,9 @@ next step's EMBED, and the first stop-token step under ``eos``). At tp=n
 lockstep, task by task: BARRIER has nothing to wait for, ALLREDUCE and
 AR_SEND/AR_WAIT fold every rank's partial into ``x`` in rank order, and
 the LM head's per-rank candidates (over each rank's real columns) are
-reduced in rank order with a strict ``>``, the JAX bodies' exchanges.
+reduced in rank order with a strict ``>``, the JAX bodies' exchanges; an
+MoE graph's experts are expert-parallel there (rank r runs experts
+``r·E_loc ..``) and A2A_WAIT folds every rank's two combine partials.
 Under ``sampled`` the argmax runs over ``logits + noise[step]`` (the
 Gumbel-max trick; the logits output stays clean), and under
 ``filtered`` over the top-k/top-p keep-set of each row
@@ -32,21 +34,25 @@ Gumbel-max trick; the logits output stays clean), and under
 doorbell into its trace record. The prefill graph
 (:func:`mega_prefill_plain`) adds LOAD_X (the embedded prompt rows in)
 and ATTN_PREFILL (causal attention over the S prompt rows), and its
-LM_HEAD projects only the last real row.
+LM_HEAD projects only the last real row; at tp > 1
+(:func:`mega_prefill_plain_tp`) the n rank states walk it in lockstep, its
+ALLREDUCE folding the ranks' ``[S, d]`` partials in rank order.
 
 The MoE graph (``dims.moe``) replaces each layer's FC1/FC2/ALLREDUCE with
 MOE_GATE (f32 router logits over the normed ``h``, softmax over the
 experts, the top k with ties to the lowest expert index, as the JAX
 body's max-and-retire loop picks them, optional renormalisation, into
 the combine weights ``moe_w [E, B]``),
-one MOE_FFN per expert (SwiGLU FFN of every row, FC2's f32 sums scaled
-per row by the combine weight and added into ``moe_acc [B, d]``) and the
-combine: the last expert's ``arg1 = 1`` hands ``moe_acc`` to ALLREDUCE,
-or, under ``overlap_ar``, A2A_SEND phase 0 parks the first half's sum in
-``a2buf`` and restarts ``moe_acc``, phase 1 parks the rest in ``cbuf``
-and A2A_WAIT folds ``x += a2buf + cbuf`` (at tp=1 there is no peer: the
-JAX bodies' puts and waits drop out). An expert whose combine weight is
-0 for every row is skipped: its terms are exactly 0.
+one MOE_FFN per local expert (SwiGLU FFN of every row, FC2's f32 sums
+scaled per row by the combine weight of the global expert ``rank·E_loc +
+arg0`` and added into ``moe_acc [B, d]``) and the combine: the last
+expert's ``arg1 = 1`` hands ``moe_acc`` to ALLREDUCE, or, under
+``overlap_ar``, A2A_SEND phase 0 parks the first half's sum in ``a2buf``
+and restarts ``moe_acc``, phase 1 parks the rest in ``cbuf`` and A2A_WAIT
+folds ``acc = x; acc = acc + a2buf[r] + cbuf[r]`` for every rank r in
+order (the JAX body's interleaved order; at tp=1 ``x + a2buf + cbuf``).
+An expert whose combine weight is 0 for every row is skipped: its terms
+are exactly 0.
 
 Under ``dims.trace`` every (step, task) writes a ``[task_id, opcode,
 layer, arg0, begin, end, mid, flag]`` record (``task.TR_*``) on a
@@ -133,8 +139,8 @@ class MegaState:
         # Cross-rank state (tp > 1: ``mega_decode_plain_tp`` sets it): this
         # rank's index, the lockstep group of every rank's state, its real
         # vocab columns, AR_SEND's staged partial, the LM head's (value,
-        # global index) candidate, and the dropped (layer, rank) partial
-        # of a negative control.
+        # global index) candidate, and the dropped partial of a negative
+        # control (``_drops``).
         self.rank, self.group = 0, [self]
         self.v_real = rank_v_real(dims, 0)
         self.sent = self.cand = self.drop = None
@@ -306,14 +312,24 @@ def fc2_body(st: MegaState, layer: int, arg0: int) -> None:
                  _layer_scale(st.w.sc_w2, layer))
 
 
+def _drops(st: MegaState, layer: int, r: int, phase=None) -> bool:
+    """Whether the negative control ``st.drop`` leaves rank r's partial out
+    of this exchange: ``(layer, r)`` drops it from every exchange of that
+    layer (ALLREDUCE, AR_WAIT and both A2A phases), ``(layer, r, phase)``
+    from that A2A phase (0 or 1) only."""
+    d = st.drop
+    return (d is not None and tuple(d[:2]) == (layer, r)
+            and (len(d) == 2 or d[2] == phase))
+
+
 def _fold(st: MegaState, layer: int, parts: list) -> torch.Tensor:
     """``x + parts[0] + ... + parts[n-1]``, in rank order in f32 (the JAX
     bodies' ``acc += cbuf[r]``), so every rank folds to the same bits;
-    at tp=1 ``x + h``. ``st.drop = (layer, r)`` leaves rank r's partial
-    out of that layer's exchanges (a negative control)."""
+    at tp=1 ``x + h``. ``st.drop`` (:func:`_drops`) leaves a rank's
+    partial out (a negative control)."""
     acc = st.x
     for r, part in enumerate(parts):
-        if st.drop != (layer, r):
+        if not _drops(st, layer, r):
             acc = acc + part
     return acc
 
@@ -387,12 +403,13 @@ def moe_gate_body(st: MegaState, layer: int, arg0: int) -> None:
 
 @register_task(TaskType.MOE_FFN)
 def moe_ffn_body(st: MegaState, layer: int, arg0: int) -> None:
-    """Expert ``arg0``'s SwiGLU FFN over every row of the normed ``h``,
-    FC2's f32 sums times each row's combine weight added into
-    ``moe_acc``; skipped when no row routes to it (its terms are 0).
-    ``arg1 = 1`` (the last expert without ``overlap_ar``) then hands
-    ``moe_acc`` to the ALLREDUCE task through ``h``."""
-    cw = st.moe_w[arg0]  # [B]
+    """Local expert ``arg0``'s SwiGLU FFN over every row of the normed
+    ``h`` (this rank's ``w1``/``w2`` row ``arg0``), FC2's f32 sums times
+    each row's combine weight of the global expert ``rank·E_loc + arg0``
+    added into ``moe_acc``; skipped when no row routes to it (its terms
+    are 0). ``arg1 = 1`` (the last expert without ``overlap_ar``) then
+    hands ``moe_acc`` to the ALLREDUCE task through ``h``."""
+    cw = st.moe_w[st.rank * st.dims.experts_loc + arg0]  # [B]
     if bool((cw != 0).any()):
         gu = _gemm(st, st.h, st.w.w1[layer, arg0], None)
         gate, up = gu[:, : st.dims.f_loc], gu[:, st.dims.f_loc:]
@@ -405,10 +422,11 @@ def moe_ffn_body(st: MegaState, layer: int, arg0: int) -> None:
 
 @register_task(TaskType.A2A_SEND)
 def a2a_send_body(st: MegaState, layer: int, arg0: int) -> None:
-    """The split combine's send at tp=1 (no peer, no puts): phase 0 parks
-    the first half of the experts' sum in ``a2buf`` and restarts
-    ``moe_acc``; phase 1 parks the rest in ``cbuf``. The trace's phase
-    mark follows, as in the JAX body."""
+    """The split combine's send: phase 0 stages this rank's partial over
+    its first half of the local experts in ``a2buf`` and restarts
+    ``moe_acc``; phase 1 stages the rest in ``cbuf`` (the JAX body's puts
+    of each to every peer: the lockstep walk's peers read them from the
+    group). The trace's phase mark follows, as in the JAX body."""
     if arg0 == 0:
         st.a2buf = st.moe_acc.clone()
         st.moe_acc = torch.zeros_like(st.moe_acc)
@@ -419,11 +437,18 @@ def a2a_send_body(st: MegaState, layer: int, arg0: int) -> None:
 
 @register_task(TaskType.A2A_WAIT)
 def a2a_wait_body(st: MegaState, layer: int, arg0: int) -> None:
-    """The split combine's wait at tp=1: the phase mark (where the JAX
-    body has fired the next weight stream's tile 0; the CUDA kernel has
-    no such prefetch), then ``x += a2buf + cbuf``."""
+    """The split combine's wait: the phase mark (where the JAX body has
+    fired the next weight stream's tile 0; the CUDA kernel has no such
+    prefetch), then ``acc = x; acc = acc + a2buf[r] + cbuf[r]`` for every
+    rank r in order, the JAX body's fold (at tp=1 ``x + a2buf + cbuf``)."""
     _trace_mid(st)
-    st.x = st.x + st.a2buf + st.cbuf
+    acc = st.x
+    for r, g in enumerate(st.group):
+        if not _drops(st, layer, r, 0):
+            acc = acc + g.a2buf
+        if not _drops(st, layer, r, 1):
+            acc = acc + g.cbuf
+    st.x = acc
 
 
 @register_task(TaskType.RING_POLL)
@@ -595,20 +620,25 @@ def mega_decode_plain_tp(dims, fuse_norms: bool, table: np.ndarray,
                          weights: list, kc: list, vc: list, page_table,
                          kv_len, tokens, stop_tok=None, inv_freq=None,
                          ring_state=None, drop_partial=None,
-                         info: dict | None = None):
-    """The plain version of a dense decode graph over ``dims.n_ranks = n``
+                         info: dict | None = None, gate_hook=None,
+                         moe_route=None, moe_x=None):
+    """The plain version of a decode graph over ``dims.n_ranks = n``
     ranks: one :class:`MegaState` a rank (its weight shards ``weights[r]``
-    and cache shard ``kc[r]``, ``vc[r]``; the page table, ``kv_len``,
-    ``tokens``, ``stop_tok`` and ``ring_state`` shared), walked in
-    lockstep task by task, so every exchange is a plain sum over the
-    ranks' partials in rank order and the LM head's argmax a reduction
-    over the ranks' candidates. Returns ``(logits [B, n·v_loc] f32, knew,
-    vnew [n, NS, L, B, hkv, hd], toks [NS, B], stop_step [B])`` and, under
-    ``dims.trace``, the rings ``[n, NS, T, 8]`` (one logical clock a
-    rank); ``info`` (optional) receives each rank's ``toks``,
-    ``stop_step`` and final ``x`` (stacked on a rank axis).
-    ``drop_partial = (layer, r)`` leaves rank r's partial out of that
-    layer's exchanges on every rank (a negative control)."""
+    (an MoE graph's: its E/n experts, expert-parallel) and cache shard
+    ``kc[r]``, ``vc[r]``; the page table, ``kv_len``, ``tokens``,
+    ``stop_tok`` and ``ring_state`` shared), walked in lockstep task by
+    task, so every exchange is a plain sum over the ranks' partials in
+    rank order and the LM head's argmax a reduction over the ranks'
+    candidates. Returns ``(logits [B, n·v_loc] f32, knew, vnew [n, NS, L,
+    B, hkv, hd], toks [NS, B], stop_step [B])`` and, under ``dims.trace``,
+    the rings ``[n, NS, T, 8]`` (one logical clock a rank); ``info``
+    (optional) receives each rank's ``toks``, ``stop_step`` and final
+    ``x`` (stacked on a rank axis). ``drop_partial`` ``(layer, r)`` leaves
+    rank r's partial out of that layer's exchanges on every rank, ``(layer,
+    r, phase)`` only its A2A partial of that phase (negative controls).
+    An MoE graph takes ``mega_decode_plain``'s ``gate_hook`` (called on
+    every rank's state) and ``moe_route [n, NS, L, E, B]`` / ``moe_x [n,
+    NS, L, B, d]`` (each rank's records)."""
     n = dims.n_ranks
     if inv_freq is None:
         inv_freq = rope_inv_freq(dims.head_dim, dims.rope_theta,
@@ -616,7 +646,10 @@ def mega_decode_plain_tp(dims, fuse_norms: bool, table: np.ndarray,
     table = np.asarray(table)
     states = [MegaState(dims, fuse_norms, weights[r], kc[r], vc[r],
                         page_table, kv_len, tokens, stop_tok, inv_freq,
-                        ring_state=ring_state, n_tasks=len(table))
+                        ring_state=ring_state, n_tasks=len(table),
+                        gate_hook=gate_hook,
+                        moe_route=None if moe_route is None else moe_route[r],
+                        moe_x=None if moe_x is None else moe_x[r])
               for r in range(n)]
     for r, st in enumerate(states):
         st.rank, st.group, st.drop = r, states, drop_partial
@@ -682,3 +715,32 @@ def mega_prefill_plain(dims, fuse_norms: bool, table: np.ndarray, weights,
                    inv_freq, x0=x0)
     _walk([st], np.asarray(table))
     return st.logits, st.knew, st.vnew
+
+
+def mega_prefill_plain_tp(dims, fuse_norms: bool, table: np.ndarray,
+                          weights: list, x0: torch.Tensor,
+                          true_len: torch.Tensor, inv_freq=None,
+                          drop_partial=None, info: dict | None = None):
+    """The prefill ``table`` over ``dims.n_ranks = n`` ranks: one state a
+    rank (its weight shards ``weights[r]``; the embedded prompt ``x0 [S,
+    d]`` and ``true_len`` shared) walked in lockstep, each ALLREDUCE the
+    ranks' ``[S, d]`` f32 partials folded in rank order. Returns
+    ``(logits [1, n·v_loc] f32 of row true_len - 1 (rank r's columns from
+    r·v_loc), knew, vnew [n, L, hkv, S, hd])``; ``drop_partial = (layer,
+    r)`` and ``info`` (each rank's final ``x [n, S, d]``) as in
+    :func:`mega_decode_plain_tp`."""
+    n = dims.n_ranks
+    if inv_freq is None:
+        inv_freq = rope_inv_freq(dims.head_dim, dims.rope_theta, x0.device)
+    states = [MegaState(dims, fuse_norms, weights[r], None, None, None,
+                        true_len, torch.zeros(1, dtype=torch.int32,
+                                              device=x0.device), None,
+                        inv_freq, x0=x0) for r in range(n)]
+    for r, st in enumerate(states):
+        st.rank, st.group, st.drop = r, states, drop_partial
+    _walk(states, np.asarray(table))
+    if info is not None:
+        info["x"] = torch.stack([st.x for st in states])
+    return (torch.cat([st.logits for st in states], dim=1),
+            torch.stack([st.knew for st in states]),
+            torch.stack([st.vnew for st in states]))

@@ -27,21 +27,27 @@ weights instead (:class:`Q8Params`, from ``quantized_params()`` or
 ``quantized_init()``).
 
 A Qwen3-MoE model decodes through the MoE graph (router, one task per
-expert, the combine; ``_dims`` sets ``f_loc`` to one expert's width) from
-its own tensors (the router ``[L, d, E]`` and the experts ``[L, E, d,
-2f]``, ``[L, E, f, d]``: the JAX ``MoEMegaParams`` at tp=1, with no
-reshard and no copy). Refused with ``NotImplementedError``, for MoE, as
-in the JAX package: ``wq8`` and the prefill megakernel.
+local expert, the combine; ``_dims`` sets ``f_loc`` to one expert's full
+width). At tp=1 it reads its own tensors (the router ``[L, d, E]`` and
+the experts ``[L, E, d, 2f]``, ``[L, E, f, d]``: the JAX ``MoEMegaParams``
+at tp=1, with no reshard and no copy). At tp=n it reads the experts
+expert-parallel (:meth:`MegaQwen3.moe_params`, the JAX
+``_moe_reshard_shard``): rank g holds experts ``[g·E/n, (g+1)·E/n)`` at
+full width, and the combine's A2A_SEND/A2A_WAIT (or ALLREDUCE) sums the
+ranks' partials. Refused with ``NotImplementedError``, for MoE, as in the
+JAX package: ``wq8`` and the prefill megakernel.
 
-At tp=n > 1 (a dense model over n co-located ranks) a launch covers every
-rank: each rank's weight shards (``model.rank_params``) and pool or cache
-shard (``cache.rank(r)``), its own ``knew``/``vnew`` appended to its own
-shard after the launch, logits ``[B, n·v_loc]`` (each rank its columns,
-the pad sliced off), the trace ring ``[tp, NS, T, 8]``; ``build_multi``'s
-``straggler_rank`` lags one rank's exchanges. Refused at tp > 1, each
-naming its ROADMAP item (:meth:`MegaQwen3.check_tp`): MoE models (queue 2
-row 6(e), MoE half), ``MegaConfig(wq8=True)`` and the int8 pool (queue 1
-position 4) and :meth:`MegaQwen3.prefill` (queue 1 position 2).
+At tp=n > 1 (a model over n co-located ranks) a launch covers every
+rank: each rank's weight shards (``model.rank_params``, or its EP experts)
+and pool or cache shard (``cache.rank(r)``), its own ``knew``/``vnew``
+appended to its own shard after the launch, logits ``[B, n·v_loc]`` (each
+rank its columns, the pad sliced off), the trace ring ``[tp, NS, T, 8]``;
+``build_multi``'s ``straggler_rank`` lags one rank's exchanges.
+:meth:`MegaQwen3.prefill` runs the prefill megakernel over every rank
+(each rank's K/V rows into its own dense cache shard). Refused at tp > 1,
+naming ROADMAP queue 1 position 4 (:meth:`MegaQwen3.check_tp`,
+``code_generator.check_dims``): ``MegaConfig(wq8=True)``, the int8 pool
+and sampling.
 """
 
 from __future__ import annotations
@@ -124,6 +130,44 @@ def _quantize_shard(params: dict) -> Q8Params:
     )
 
 
+def moe_reshard(shards: list[dict], num_experts: int) -> list[dict]:
+    """The tensor-parallel MoE shards (each rank's ``w1 [L, E, d,
+    2·f_loc]`` as ``[gate_r | up_r]`` and ``w2 [L, E, f_loc, d]``) as
+    expert-parallel ones: rank g's experts ``[g·E/n, (g+1)·E/n)`` at full
+    width, ``w1 [L, E/n, d, 2f]`` = ``[gate_0 .. gate_{n-1} | up_0 ..
+    up_{n-1}]`` and ``w2 [L, E/n, f, d]`` = the row shards in rank order
+    (the JAX ``_moe_reshard_shard``: its all-to-all, then the
+    ``[gate_full | up_full]`` reorder). Every other leaf is the rank's
+    own tensor. The expert tensors are allocated at their final size and
+    filled layer by layer."""
+    n = len(shards)
+    if num_experts % n:
+        raise ValueError(f"num_experts {num_experts} not divisible by "
+                         f"tp={n} (the megakernel EP-shards the expert axis)")
+    L, E, d, two_fl = shards[0]["layers"]["mlp"]["w1"].shape
+    fl, epr = two_fl // 2, E // n
+    f = n * fl
+    out = []
+    for g in range(n):
+        mlp = shards[g]["layers"]["mlp"]
+        ref = mlp["w1"]
+        w1 = torch.empty((L, epr, d, 2 * f), dtype=ref.dtype,
+                         device=ref.device)
+        w2 = torch.empty((L, epr, f, d), dtype=ref.dtype, device=ref.device)
+        ex = slice(g * epr, (g + 1) * epr)
+        for l in range(L):
+            for s, src in enumerate(shards):
+                sw1 = src["layers"]["mlp"]["w1"][l, ex]
+                w1[l, :, :, s * fl:(s + 1) * fl] = sw1[..., :fl]
+                w1[l, :, :, f + s * fl:f + (s + 1) * fl] = sw1[..., fl:]
+                w2[l, :, s * fl:(s + 1) * fl] = \
+                    src["layers"]["mlp"]["w2"][l, ex]
+        layers = dict(shards[g]["layers"])
+        layers["mlp"] = {"w_router": mlp["w_router"], "w1": w1, "w2": w2}
+        out.append({**shards[g], "layers": layers})
+    return out
+
+
 class MegaQwen3:
     """Megakernel decode wrapper around a loaded :class:`Qwen3`."""
 
@@ -142,6 +186,7 @@ class MegaQwen3:
         # what validate_ring checks a traced launch's ring against.
         self._orders: dict = {}
         self._q8: Q8Params | None = None
+        self._moe_p: list | None = None
 
     @staticmethod
     def check_tp(model, cfg: MegaConfig) -> None:
@@ -149,11 +194,6 @@ class MegaQwen3:
         item (the engines check it when they are made)."""
         if model.tp == 1:
             return
-        if model.cfg.num_experts:
-            raise NotImplementedError(
-                f"the MoE megakernel at tp={model.tp} (expert-parallel a2a "
-                "puts and waits) is not ported yet (ROADMAP queue 2 row "
-                "6(e), MoE half)")
         if cfg.wq8:
             raise NotImplementedError(
                 f"MegaConfig(wq8=True) at tp={model.tp} is not ported yet "
@@ -193,10 +233,39 @@ class MegaQwen3:
 
     def _step_params(self):
         """What the built steps take as their first argument: the int8
-        :class:`Q8Params` under ``wq8``, the model's params otherwise."""
+        :class:`Q8Params` under ``wq8``, an MoE model's expert-parallel
+        shards at tp > 1 (:meth:`moe_params`), the model's params
+        otherwise."""
         if self.cfg.wq8:
             return self.quantized_params()
+        if self.model.cfg.num_experts and self.model.tp > 1:
+            return self.moe_params()
         return self.model.params
+
+    def moe_params(self) -> list[dict]:
+        """The per-rank parameter dicts an MoE decode at tp=n > 1 takes in
+        place of ``model.params``: every leaf the rank's own, except the
+        experts, resharded from tensor- to expert-parallel (the JAX
+        ``moe_params``/``_moe_reshard_shard``). Rank g gets experts
+        ``[g·E/n, (g+1)·E/n)`` at full width: ``w1 [L, E/n, d, 2f]`` as
+        ``[gate | up]``, each half the ranks' column shards in rank order,
+        and ``w2 [L, E/n, f, d]``, the ranks' row shards in rank order.
+        Made once, layer by layer into tensors allocated at their final
+        size (never a full ``[L, E, d, 2f]`` gather), and cached on this
+        instance and on the model for its current parameters, so that
+        every engine and wrapper of one model shares one copy (at
+        Qwen3-30B-A3B a copy is 1.2 GB a layer); the tensor-parallel
+        layout stays in the model, whose prefill reads it."""
+        if self._moe_p is None:
+            m = self.model
+            if m.params is None:
+                raise ValueError("load or init the MoE model first")
+            cached = getattr(m, "_moe_ep", None)
+            if cached is None or cached[0] is not m.params:
+                m._moe_ep = (m.params, moe_reshard(m.rank_params,
+                                                   m.cfg.num_experts))
+            self._moe_p = m._moe_ep[1]
+        return self._moe_p
 
     @staticmethod
     def _scale_args(cache: PagedKVCache, kv_quant: bool) -> dict:
@@ -463,17 +532,23 @@ class MegaQwen3:
         true_len - 1, cache)``. The embedding gather runs in PyTorch
         (the JAX package gathers outside the kernel too); the kernel's
         K/V rows ``[L, hkv, S, hd]`` land in dense cache entry 0 at
-        positions ``[0, S)`` (in place) and ``kv_len[0] = true_len``."""
+        positions ``[0, S)`` (in place; at tp > 1 each rank's rows in its
+        own shard, ``cache.rank(r)``) and ``kv_len[0] = true_len``."""
         dims = dataclasses.replace(self._dims(s, s), prefill=True)
         run = self._compile(dims).run
         V = self.model.cfg.vocab_size
 
         def f(params, tokens, true_len, cache):
-            w = MegaWeights.from_params(params)
-            x0 = w.embed.index_select(0, tokens.long())  # [S, d]
+            w = _weights(params)
+            emb = (w[0] if isinstance(w, list) else w).embed
+            x0 = emb.index_select(0, tokens.long())  # [S, d]
             logits, knew, vnew = run.prefill(w, x0, true_len)
-            cache.k[:, 0, :, :s] = knew.to(cache.k.dtype)
-            cache.v[:, 0, :, :s] = vnew.to(cache.v.dtype)
+            if cache.tp == 1:
+                knew, vnew = knew[None], vnew[None]
+            for r in range(cache.tp):
+                shard = cache.rank(r)
+                shard.k[:, 0, :, :s] = knew[r].to(shard.k.dtype)
+                shard.v[:, 0, :, :s] = vnew[r].to(shard.v.dtype)
             kv_len = cache.kv_len.clone()
             kv_len[0] = true_len[0]
             return logits[0, :V], KVCache(k=cache.k, v=cache.v,
@@ -485,12 +560,9 @@ class MegaQwen3:
         """Prefill one prompt (``tokens [S]``) through the prefill
         megakernel into dense cache entry 0: returns ``(logits [V] f32
         of the last real token, cache)``, the contract of the JAX
-        ``MegaQwen3.prefill``. ``true_len`` (default S) marks right
-        padding; under ``wq8`` the kernel reads the int8 weights."""
-        if self.model.tp > 1:
-            raise NotImplementedError(
-                f"MegaQwen3.prefill at tp={self.model.tp} is not ported yet "
-                "(ROADMAP queue 1 position 2)")
+        ``MegaQwen3.prefill`` (at tp > 1 the logits are the ranks' vocab
+        columns joined). ``true_len`` (default S) marks right padding;
+        under ``wq8`` the kernel reads the int8 weights."""
         dev = self.model.device
         tokens = torch.as_tensor(tokens).to(dev, torch.int32)
         s = int(tokens.shape[0])
@@ -498,9 +570,9 @@ class MegaQwen3:
             true_len = s
         if not 1 <= int(true_len) <= s:
             raise ValueError(f"true_len {true_len} outside [1, {s}]")
-        if int(cache.k.shape[3]) < s:
-            raise ValueError(f"the cache holds {cache.k.shape[3]} positions, "
-                             f"the prompt {s}")
+        if int(cache.k.shape[-2]) < s:
+            raise ValueError(f"the cache holds {cache.k.shape[-2]} "
+                             f"positions, the prompt {s}")
         key = ("prefill", s)
         if key not in self._jit:
             self._jit[key] = self._build_prefill(s)

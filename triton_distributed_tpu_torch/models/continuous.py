@@ -87,8 +87,8 @@ in the sequence-sharded prefill and ``all_reduce`` in chunks and decode
 (``layers/tp_moe.py``); ``mode="xla"`` runs the same with plain torch
 collectives; ``mode="mega"`` decodes with the megakernel over all ranks
 in one launch (``ns``-step launches, ``eos_id``, ``kernel_trace``,
-``resident``: one work ring whose doorbell every rank stamps). Refused
-at tp>1: the MoE megakernel (ROADMAP queue 2 row 6(e), MoE half),
+``resident``: one work ring whose doorbell every rank stamps; a Qwen3-MoE
+model's experts expert-parallel). Refused at tp>1:
 ``MegaConfig(wq8=True)`` (queue 1 position 4), speculation, int8 KV,
 sampling, the KV tier and ``rank_page_budget`` (queue 1, item 11).
 

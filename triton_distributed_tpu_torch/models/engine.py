@@ -34,10 +34,11 @@ through the collectives of ``ops/collectives/`` (``layers/tp_moe.py``);
 ``mode="xla"`` runs the same with plain torch collectives;
 ``mode="mega"`` prefills through ``xla`` and decodes with the megakernel
 over all ranks in one launch (its exchanges written in
-``csrc/megakernel.cu``). Not ported, and refused when asked for:
-``profile`` (ROADMAP queue 1, item 12); at tp>1 the MoE megakernel (queue
-2 row 6(e), MoE half), ``MegaConfig(wq8=True)`` (queue 1 position 4),
-speculation, ``kv_dtype`` and sampling (queue 1, item 11).
+``csrc/megakernel.cu``; a Qwen3-MoE model's experts expert-parallel,
+``MegaQwen3.moe_params``). Not ported, and refused when asked for:
+``profile`` (ROADMAP queue 1, item 12); at tp>1 ``MegaConfig(wq8=True)``
+(queue 1 position 4), speculation, ``kv_dtype`` and sampling (queue 1,
+item 11).
 """
 
 from __future__ import annotations

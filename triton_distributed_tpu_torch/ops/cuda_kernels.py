@@ -236,10 +236,27 @@ MEGA_DECODE_TP = CudaKernel(
     [_I, _P, _P, _F, _F, _P, _P, ctypes.c_ulonglong, _I, _I, _I, _I, _LL,
      _P, _P],
 )
+# The MoE decode megakernel over n > 1 co-located ranks, its experts
+# expert-parallel (traced or not): the MoE library's own entry point of
+# the same arguments.
+MEGA_DECODE_MOE_TP = CudaKernel(
+    "mega_decode_moe_tp", "megakernel_moe", "tdt_mega_decode_tp",
+    [_I, _P, _P, _F, _F, _P, _P, ctypes.c_ulonglong, _I, _I, _I, _I, _LL,
+     _P, _P],
+)
 # The prefill megakernel (its own __global__ in the same source).
 MEGA_PREFILL = CudaKernel(
     "mega_prefill", "megakernel", "tdt_mega_prefill",
     [_P, _P, _F, _F, _P, _P],
+)
+# The prefill megakernel over n > 1 co-located ranks: n, the ranks' rows
+# of the pointer and geometry arrays, the RMS epsilon, the softmax scale,
+# the exchange's slot and flag device tables, epoch, flag and block
+# capacities, blocks per rank, an int[4] for the launch geometry, and the
+# stream.
+MEGA_PREFILL_TP = CudaKernel(
+    "mega_prefill_tp", "megakernel", "tdt_mega_prefill_tp",
+    [_I, _P, _P, _F, _F, _P, _P, ctypes.c_ulonglong, _I, _I, _I, _P, _P],
 )
 # The cross-rank kernels over co-located ranks: one cooperative launch
 # of (kind, dtype, small-M tile, host tables of the per-rank A/B/O
@@ -299,11 +316,13 @@ KERNELS = (FLASH_ATTENTION, FLASH_DECODE, PAGED_FLASH_DECODE,
            FLASH_ATTENTION_INT8, PAGED_FLASH_DECODE_INT8,
            FLASH_ATTENTION_BIAS, MEGA_DECODE, FLASH_ATTENTION_COLD,
            FLASH_ATTENTION_COLD_INT8, FLASH_DECODE_INT8, MEGA_DECODE_TRACED,
-           MEGA_PREFILL, MEGA_DECODE_MOE, MEGA_DECODE_TP, GEMM_AR, GEMM_RS, AG_GEMM,
+           MEGA_PREFILL, MEGA_DECODE_MOE, MEGA_DECODE_TP, GEMM_AR, GEMM_RS,
+           AG_GEMM,
            ALL_GATHER, ALL_GATHER_RING, ALL_GATHER_BIDIR_RING,
            REDUCE_SCATTER_ONE_SHOT, REDUCE_SCATTER_RING,
            REDUCE_SCATTER_BIDIR_RING, REDUCE_SCATTER_RING_HBM,
-           ALL_REDUCE_ONE_SHOT, ALL_REDUCE_DOUBLING)
+           ALL_REDUCE_ONE_SHOT, ALL_REDUCE_DOUBLING, MEGA_DECODE_MOE_TP,
+           MEGA_PREFILL_TP)
 
 
 def coresident_blocks(library_name: str, symbol: str, *args) -> int:
