@@ -41,7 +41,21 @@ doorbell); then the prefill megakernel: ``MegaQwen3.prefill`` of a
 right-padded 256-row prompt and 32 greedy tokens decoded from its cache,
 with the model's weights and with int8 weights (held against the plain
 version, the ``xla`` prefill or the dequantized golden, and teacher
-forcing). Before the serving paths the decode megakernel is held
+forcing); then the tensor-parallel paths (Qwen3-8B and Qwen3-30B-A3B at
+tp=2, modes pallas and mega); then expert parallelism: ``ep_moe_ffn`` over
+2 and 4 co-located ranks at Qwen3-30B-A3B's MoE widths (one layer, 128
+and 1024 tokens a rank; transports ``pallas``, the EP exchange kernel, and
+``xla``, which must agree bit for bit; bf16 and fp8 payloads, lossless and
+at capacity 1.25, a skewed router), held to a dense f32 golden, with the
+count mask's negative control, a lagging rank, back-to-back launches and
+the dense ``all_to_all_op``; then sequence parallelism at Qwen3-8B's
+geometry over one 32768-token causal sequence: ``sp_ag_attention`` over 2
+and 4 ranks (every rank's first and last q tile against the plain
+version, the whole output against the single-card ``flash_attention``, a
+zeroed-chunk control, f32 at 4096 tokens, back-to-back launches),
+``ring_attention``, ``sp_decode_attention`` and ``distributed_flash_decode``
+(bf16 and int8, pallas and xla) and the two-level variants over dp x tp =
+2 x 2. Before the serving paths the decode megakernel is held
 against its plain version at Qwen3-0.6B's full width and depth (B=4,
 kv_len {700, 2040, 700, 2040}, NS 1 and 8; dense and paged caches, the
 int8 pool, int8 weights over the paged pool and over the int8 pool),
@@ -79,6 +93,7 @@ directory without the port.
 
 from __future__ import annotations
 
+import importlib
 import json
 import statistics
 import subprocess
@@ -6431,6 +6446,808 @@ def check_moe_tp(dev):
     return records, launches, e2e
 
 
+# -- Phase 7: expert-parallel dispatch/combine and the dense all-to-all ------
+
+EP_MODEL = MOE_MODEL
+EP_RANKS = (2, 4)
+# Tokens a rank: the reference's low-latency headline (ep_exchange.py:14-17)
+# and a prefill chunk.
+EP_TOKENS = (128, 1024)
+EP_CAPACITY = 1.25
+EP_STRESS = 20
+EP_A2A_STRESS = 100
+EP_LAG_NS = 500_000
+# The limit of ep_moe_ffn against the dense f32 golden, (atol, rtol): the
+# path rounds the expert GEMMs' outputs, the SiLU product and the combined
+# token to bf16, a few ulps of |out| <= ~1. At the preset's widths on the
+# CPU (32 tokens, the plain exchange) it read 0.28-0.29 of this limit.
+# Under the fp8 payload the golden's experts see the payload the path
+# dispatches (each row's e4m3 codes times its scale, in bf16): against
+# the unquantized golden fp8 reads ~4x this limit (e4m3 rounds an element
+# by up to 2^-4 of it), which the e2e line reports as `fp8_raw_use`.
+EP_TOL = (1e-2, 2.0**-5)
+EP_PATH_KERNELS = {
+    "ep_moe_ffn": ("ep_exchange",),
+    "ep_all_to_all": ("all_to_all",),
+}
+_A2A_SRC = "triton_distributed_tpu_torch/csrc/all_to_all.cu"
+
+
+def _paths_launched(launches, paths) -> None:
+    """Every kernel each path needs launched in that path's own run."""
+    for path, need in paths.items():
+        missing = [k for k in need if not launches[path][k]]
+        if missing:
+            raise RuntimeError(f"{path} did not launch {missing}")
+
+
+def _ep_weights(dev, cfg):
+    """One MoE layer's router and experts at the preset's widths, bf16,
+    from SEED with an explicit generator: ``w_router [d, E]``, ``w1 [E, d,
+    2f]`` (gate | up), ``w2 [E, f, d]``, scaled by 1/sqrt(fan-in)."""
+    import torch
+
+    d, e, f = cfg.hidden_size, cfg.num_experts, cfg.moe_intermediate_size
+    gen = torch.Generator(device=dev).manual_seed(SEED + 30)
+
+    def draw(shape, fan_in):
+        t = torch.empty(shape, dtype=torch.bfloat16, device=dev)
+        return t.normal_(0.0, fan_in**-0.5, generator=gen)
+
+    return draw((d, e), d), draw((e, d, 2 * f), d), draw((e, f, d), f)
+
+
+def _ep_tokens(dev, n, t, d, seed, skew):
+    """``[n * t, d]`` bf16 tokens; ``skew`` makes them positive, which
+    with the skewed router sends every top-k to rank 0's experts."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn((n * t, d), generator=gen, device=dev)
+    return (x.abs() if skew else x).to(torch.bfloat16)
+
+
+def _skewed_router(wr, n):
+    """The adversarial router of tests/test_moe.py:101 in bf16: +1 on the
+    columns of rank 0's experts, -1 on the rest. With positive tokens
+    every top-k lands on rank 0 (a +-sum|x| ~ 1600 shift), and unlike +-100
+    (whose bf16 ulp of 0.5 would flatten the ~0.02-wide router columns to
+    one value) the router still tells rank 0's experts apart."""
+    w = wr.clone()
+    epr = w.shape[1] // n
+    w[:, :epr] += 1.0
+    w[:, epr:] -= 1.0
+    return w
+
+
+def _ep_golden(x, wr, w1, w2, k, n, cap, norm, x_ffn=None):
+    """The dense f32 golden: each rank's tokens routed as ``router_topk``
+    routes them (the same f32 product on the same per-rank rows), each
+    (token, expert) assignment past a destination's capacity dropped (its
+    occurrence order, as the dispatch counts), every token's kept experts'
+    SwiGLU FFN in f32 weighted by its gate weights (on ``x_ffn``, the
+    dispatched payload, where given). Returns ``(out [n*T, d] f32, dropped
+    a rank)``."""
+    import torch
+
+    from triton_distributed_tpu_torch.ops.moe.routing import router_topk
+
+    e = w1.shape[0]
+    epr, t = e // n, x.shape[0] // n
+    ids, ws, dropped = [], [], []
+    for r in range(n):
+        route = router_topk(x[r * t:(r + 1) * t], wr, k, norm_topk_prob=norm)
+        dest = route.expert_ids.long() // epr
+        onehot = torch.nn.functional.one_hot(dest.reshape(-1), n)
+        slot = (torch.cumsum(onehot, 0) - onehot).gather(
+            1, dest.reshape(-1, 1))[:, 0].reshape(dest.shape)
+        limit = t * k if cap is None else cap
+        dropped.append(int(torch.clamp(onehot.sum(0) - limit, min=0).sum()))
+        ids.append(route.expert_ids.long())
+        ws.append(torch.where(slot < limit, route.weights,
+                              torch.zeros_like(route.weights)))
+    ids, ws = torch.cat(ids), torch.cat(ws)
+    xf = (x if x_ffn is None else x_ffn).float()
+    out = torch.zeros_like(xf)
+    f = w2.shape[1]
+    for ex in range(e):
+        rows, j = (ids == ex).nonzero(as_tuple=True)
+        if rows.numel() == 0:
+            continue
+        h = xf[rows] @ w1[ex].float()
+        act = torch.nn.functional.silu(h[:, :f]) * h[:, f:]
+        out.index_add_(0, rows, ws[rows, j][:, None] * (act @ w2[ex].float()))
+    return out, dropped
+
+
+def _ep_limit_use(got, want):
+    """The largest |got - want| / (atol + rtol |want|) over the rows."""
+    import torch
+
+    atol, rtol = EP_TOL
+    g = torch.cat(got).float()
+    if not bool(torch.isfinite(g).all()):
+        return float("inf")
+    return float(((g - want).abs() / (atol + rtol * want.abs())).max())
+
+
+def check_ep(dev):
+    """Phase 7: expert-parallel MoE dispatch/combine (``ep_moe_ffn``) at
+    Qwen3-30B-A3B's MoE widths over n = 2 and 4 co-located ranks, 128 and
+    1024 tokens a rank, transports ``pallas`` (the EP exchange kernel) and
+    ``xla``, bf16 and fp8 payloads, lossless and at capacity 1.25, and the
+    skewed router; the exchange's rows against the plain exchange, the
+    count mask's negative control, the lag, back-to-back launches, and the
+    dense all-to-all. Returns (records by kernel, launches by path, e2e)."""
+    import gc
+
+    import torch
+
+    from triton_distributed_tpu_torch.models import get_config
+    from triton_distributed_tpu_torch.ops import cuda_kernels as ck
+    from triton_distributed_tpu_torch.ops.collectives import (
+        all_to_all_op,
+        all_to_all_plain,
+    )
+    from triton_distributed_tpu_torch.runtime import initialize_distributed
+
+    # The modules (the package exports functions of the same names).
+    ep_a2a = importlib.import_module("triton_distributed_tpu_torch.ops.moe."
+                                     "ep_a2a")
+    ex = importlib.import_module("triton_distributed_tpu_torch.ops.moe."
+                                 "ep_exchange")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    cfg = get_config(EP_MODEL)
+    d, e, k = cfg.hidden_size, cfg.num_experts, cfg.num_experts_per_tok
+    norm = cfg.norm_topk_prob
+    wr, w1, w2 = _ep_weights(dev, cfg)
+    print(f"[ep] {EP_MODEL} MoE layer: d {d}, {e} experts top-{k}, f "
+          f"{cfg.moe_intermediate_size}, norm_topk_prob {norm}, bf16, seed "
+          f"{SEED + 30}")
+
+    def shards(n):
+        epr = e // n
+        return ([w1[r * epr:(r + 1) * epr] for r in range(n)],
+                [w2[r * epr:(r + 1) * epr] for r in range(n)])
+
+    # Every EP exchange of the runs below is held to the plain exchange as
+    # it launches: its rows bitwise the plain one's within every count.
+    # The first n = 4 lossless bf16 dispatch at EP_TOKENS[0] (the
+    # reference's headline) is kept for the timing and the lag.
+    real = ep_a2a.ep_exchange
+    held = {"checked": 0, "head": None, "err": 0}
+
+    def check_rows(rows, splits, out):
+        want = ex.ep_exchange_plain(rows, splits)
+        sp = torch.stack(splits)
+        keep = (torch.arange(rows[0].shape[1], device=dev)[None, None, :]
+                < sp.t()[:, :, None])  # [dest, src, row]
+        for p in range(len(rows)):
+            # max |got - plain| over the bytes within the counts
+            diff = (out[p][keep[p]].int() - want[p][keep[p]].int()).abs()
+            held["err"] = max(held["err"], int(diff.max()) if diff.numel()
+                              else 0)
+            if not torch.equal(out[p][keep[p]], want[p][keep[p]]):
+                raise RuntimeError("ep_exchange rows differ from the plain "
+                                   "exchange within the counts")
+
+    def capture(rows, splits, recv_counts, ctx, **kw):
+        out = real(rows, splits, recv_counts, ctx, **kw)
+        check_rows(rows, splits, out)
+        held["checked"] += 1
+        if (held["head"] is None and len(rows) == 4
+                and rows[0].shape[1] == EP_TOKENS[0] * k
+                and rows[0].shape[2] >= 2 * d):
+            held["head"] = (rows, splits, recv_counts, ctx)
+        return out
+
+    results, worst = {}, {"bf16": 0.0, "fp8": 0.0}
+    launches = {}
+    for n in EP_RANKS:
+        ctx = initialize_distributed(n, device=dev, dtype=torch.bfloat16)
+        w1s, w2s = shards(n)
+        for t in EP_TOKENS:
+            for skew in (False, True):
+                x = _ep_tokens(dev, n, t, d, SEED + 31 + t + n, skew)
+                router = _skewed_router(wr, n) if skew else wr
+                xs = list(torch.chunk(x, n))
+                for cf in (None, EP_CAPACITY):
+                    cap = None if cf is None else int(
+                        -(-(t * k * cf / n) // 8) * 8)
+                    gold, dropped = _ep_golden(x, router, w1, w2, k, n, cap,
+                                               norm)
+                    q8, sc8 = ep_a2a._fp8_encode(x)
+                    gold8, _ = _ep_golden(
+                        x, router, w1, w2, k, n, cap, norm,
+                        x_ffn=(q8.float() * sc8).to(x.dtype))
+                    for payload in (None, "fp8"):
+                        tag = payload or "bf16"
+                        outs = {}
+                        for method in ("pallas", "xla"):
+                            main = (n, t, skew, cf, payload, method) == (
+                                EP_RANKS[0], EP_TOKENS[-1], False, None,
+                                None, "pallas")
+                            if main:
+                                ck.reset_launch_counts()
+                            ep_a2a.ep_exchange = capture
+                            try:
+                                outs[method], st = ep_a2a.ep_moe_ffn(
+                                    xs, router, w1s, w2s, k, ctx=ctx,
+                                    method=method, capacity_factor=cf,
+                                    norm_topk_prob=norm,
+                                    payload_dtype=payload, return_state=True)
+                            finally:
+                                ep_a2a.ep_exchange = real
+                            torch.cuda.synchronize()
+                            if main:
+                                launches["ep_moe_ffn"] = ck.launch_counts()
+                            got_drop = [int(s.num_dropped) for s in st]
+                            if got_drop != dropped:
+                                raise RuntimeError(
+                                    f"ep n={n} T={t} skew={skew} cf={cf} "
+                                    f"{tag} {method}: num_dropped {got_drop},"
+                                    f" the golden's overflow {dropped}")
+                        if not all(torch.equal(a, b) for a, b in zip(
+                                outs["pallas"], outs["xla"])):
+                            raise RuntimeError(
+                                f"ep n={n} T={t} skew={skew} cf={cf} {tag}: "
+                                "pallas != xla bitwise")
+                        use = _ep_limit_use(outs["pallas"],
+                                            gold8 if payload else gold)
+                        worst[tag] = max(worst[tag], use)
+                        if not use <= 1.0:
+                            raise RuntimeError(
+                                f"ep n={n} T={t} skew={skew} cf={cf} {tag}: "
+                                f"{use:.3g}x the golden limit {EP_TOL}")
+                        key = (f"n{n}_t{t}_{'skew' if skew else 'rand'}_"
+                               f"{'cap' if cf else 'lossless'}_{tag}")
+                        results[key] = {"limit_use": use, "dropped": dropped}
+                        if payload:
+                            results[key]["fp8_raw_use"] = _ep_limit_use(
+                                outs["pallas"], gold)
+        print(f"[ep] n={n}: T {EP_TOKENS}, random and skewed routers, "
+              f"lossless and capacity {EP_CAPACITY}, bf16 and fp8: pallas == "
+              "xla bitwise, num_dropped == the golden's overflow, worst "
+              f"golden limit use {json.dumps(worst)}")
+    _paths_launched(launches, {"ep_moe_ffn": EP_PATH_KERNELS["ep_moe_ffn"]})
+    got = launches["ep_moe_ffn"]
+    if got["ep_exchange"] != 2:
+        raise RuntimeError(f"ep_moe_ffn launched ep_exchange "
+                           f"{got['ep_exchange']} times, not 2")
+    skew_drop = [v["dropped"] for key, v in results.items()
+                 if "skew_cap" in key]
+    if not any(sum(dr) for dr in skew_drop):
+        raise RuntimeError("the skewed router at capacity dropped nothing")
+    if any(sum(v["dropped"]) for key, v in results.items()
+           if "lossless" in key):
+        raise RuntimeError("a lossless run dropped assignments")
+
+    print(f"[ep] ep_exchange: {held['checked']} launches' rows bitwise the "
+          "plain exchange's within every count")
+
+    # Negative control: the combine direction into a NaN-filled buffer;
+    # the kernel leaves every row past a count NaN, the count mask zeroes
+    # them, and a weight-0 assignment whose slot lands on one makes its
+    # token NaN without the mask.
+    n, t = 4, EP_TOKENS[0]
+    ctx = initialize_distributed(n, device=dev, dtype=torch.bfloat16)
+    w1s, w2s = shards(n)
+    xs = list(torch.chunk(_ep_tokens(dev, n, t, d, SEED + 40, False), n))
+    routes = [ep_a2a.router_topk(x_, wr, k, norm_topk_prob=norm) for x_ in xs]
+    cap = int(-(-(t * k * EP_CAPACITY / n) // 8) * 8)
+    rx, _, _, states = ep_a2a.ep_dispatch(xs, routes, e, cap, ctx=ctx,
+                                          method="pallas")
+    rows = [ex.pack_rows([r.reshape(n, cap, d)])[0] for r in rx]
+    nan_out = [torch.full_like(rows[0], ex.POISON) for _ in range(n)]
+    back = ex.ep_exchange_kernel(rows, [s.recv_counts for s in states],
+                                 [s.splits for s in states], ctx,
+                                 out=nan_out)
+    raw = ex.unpack_row(back[0], 0, torch.bfloat16, d)
+    st = states[0]
+    sent = torch.arange(cap, device=dev)[None, :] < st.splits[:, None]
+    p = int(torch.argmin(st.splits))
+    dest, slot, valid = st.dest.clone(), st.slot.clone(), st.valid.clone()
+    dest[0], slot[0], valid[0] = p, int(st.splits[p]), False
+    bad = st._replace(dest=dest, slot=slot, valid=valid)
+    unmasked = ep_a2a.combine_rows(raw, bad, t)
+    masked = ep_a2a.combine_rows(
+        torch.where(sent[..., None], raw, torch.zeros_like(raw)), bad, t)
+    if not (bool((~sent).any()) and bool(torch.isnan(raw[~sent]).all())
+            and bool(torch.isnan(unmasked[0]).all())
+            and bool(torch.isfinite(masked).all())):
+        raise RuntimeError("the count-mask control did not show NaN rows "
+                           "without the mask and finite rows with it")
+    print(f"[ep] control: {int((~sent).sum())} unsent rows of rank 0 stay "
+          "NaN after the kernel; without the count mask token 0 is NaN, "
+          "with it every token is finite")
+
+    # The lag: rank 1 announces at the entry barrier EP_LAG_NS after the
+    # grid's last block started, so the lagged launch is >= the lag
+    # longer; each time the median of 5 device-timed launches.
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    rows, splits, recv, ctx = held["head"]
+    lag = []
+    for nanos in (0, EP_LAG_NS):
+        def launch(nanos=nanos):
+            return ex.ep_exchange_kernel(
+                rows, splits, recv, ctx,
+                straggler_rank=1 if nanos else None, straggle_nanos=nanos)
+        check_rows(rows, splits, launch())
+        lag.append(median_ms(launch, flush, iters=5, warmup=1))
+    if lag[1] - lag[0] < EP_LAG_NS / 1e6:
+        raise RuntimeError(f"a {EP_LAG_NS} ns lag made ep_exchange {lag[1]} "
+                           f"ms against {lag[0]}")
+    print(f"[ep] lag {EP_LAG_NS} ns on rank 1: {lag[0]:.4f} -> "
+          f"{lag[1]:.4f} ms, rows bit-identical")
+
+    # Back to back: EP_STRESS runs with fresh routing at n = 4, T = 128.
+    ctx = initialize_distributed(4, device=dev, dtype=torch.bfloat16)
+    w1s, w2s = shards(4)
+    kept = []
+    for i in range(EP_STRESS):
+        xs = list(torch.chunk(_ep_tokens(dev, 4, EP_TOKENS[0], d,
+                                         SEED + 50 + i, False), 4))
+        kept.append((xs, ep_a2a.ep_moe_ffn(xs, wr, w1s, w2s, k, ctx=ctx,
+                                           method="pallas",
+                                           norm_topk_prob=norm)))
+    torch.cuda.synchronize()
+    for xs, got in kept:
+        want = ep_a2a.ep_moe_ffn(xs, wr, w1s, w2s, k, ctx=ctx, method="xla",
+                                 norm_topk_prob=norm)
+        if not all(torch.equal(a, b) for a, b in zip(got, want)):
+            raise RuntimeError("a back-to-back ep_moe_ffn differs from xla")
+    print(f"[ep] stress: {EP_STRESS} back-to-back ep_moe_ffn runs with "
+          "fresh routing at n=4, each bitwise the xla transport")
+
+    # The dense all-to-all: [n * 128, 2048] bf16 a rank, through
+    # all_to_all_op, EP_A2A_STRESS launches back to back each bitwise.
+    a2a, a2a_err = {}, 0.0
+    for n in EP_RANKS:
+        ctx = initialize_distributed(n, device=dev, dtype=torch.bfloat16)
+        gen = torch.Generator(device=dev).manual_seed(SEED + 60 + n)
+        xin = [torch.randn((n, n * 128, d), generator=gen, device=dev).to(
+            torch.bfloat16) for _ in range(EP_A2A_STRESS)]
+        if n == EP_RANKS[-1]:
+            ck.reset_launch_counts()
+        got = [all_to_all_op(x_, ctx) for x_ in xin]
+        torch.cuda.synchronize()
+        if n == EP_RANKS[-1]:
+            launches["ep_all_to_all"] = ck.launch_counts()
+        for x_, g in zip(xin, got):
+            want = torch.stack(all_to_all_plain(list(x_)))
+            a2a_err = max(a2a_err, float((g.float() - want.float()).abs()
+                                         .max()))
+            if not torch.equal(g, want):
+                raise RuntimeError(f"all_to_all n={n} differs from plain")
+        a2a[n] = xin[0]
+    _paths_launched(launches, EP_PATH_KERNELS)
+    if launches["ep_all_to_all"]["all_to_all"] != EP_A2A_STRESS:
+        raise RuntimeError("all_to_all_op did not launch its kernel")
+    print(f"[ep] all_to_all [n*128, {d}] bf16 at n={EP_RANKS}: "
+          f"{EP_A2A_STRESS} back-to-back launches each bitwise the plain "
+          "version")
+
+    # Records at the main shapes: the exchange of the n = 4, T = 128
+    # lossless bf16 dispatch (the reference's headline), the all-to-all at
+    # n = 4. Bound: the rows that move, read once and written once.
+    rows, splits, recv, ctx = held["head"]
+    moved = int(torch.stack(splits).sum()) * rows[0].shape[2]
+    stacked = torch.stack(rows)
+    records = {"ep_exchange": dict(
+        route="cuda", source=_A2A_SRC,
+        replaces="triton_distributed_tpu/ops/moe/ep_exchange.py:81",
+        max_abs_err=float(held["err"]),
+        ms=median_ms(lambda: ex.ep_exchange_kernel(rows, splits, recv, ctx),
+                     flush),
+        plain_ms=median_ms(lambda: ex.ep_exchange_plain(rows, splits), flush),
+        bound_ms=2 * moved / HBM_BPS * 1e3, bound_by="bytes",
+        library_ms=median_ms(
+            lambda: stacked.transpose(0, 1).contiguous(), flush),
+        shape=f"n=4, {EP_TOKENS[0]} tokens a rank, top-{k}, lossless: rows "
+              f"{list(rows[0].shape)} uint8 a rank, {moved} bytes filled",
+        lag_ms=lag, limit_use=worst)}
+    n = EP_RANKS[-1]
+    ctx = initialize_distributed(n, device=dev, dtype=torch.bfloat16)
+    xs = [a2a[n][r].contiguous() for r in range(n)]
+    from triton_distributed_tpu_torch.ops.collectives import (
+        all_to_all_kernel,
+    )
+    stacked = torch.stack(xs)
+    records["all_to_all"] = dict(
+        route="cuda", source=_A2A_SRC,
+        replaces="triton_distributed_tpu/ops/collectives/all_to_all.py:35",
+        max_abs_err=a2a_err,
+        ms=median_ms(lambda: all_to_all_kernel(xs, ctx), flush),
+        plain_ms=median_ms(lambda: all_to_all_plain(xs), flush),
+        bound_ms=2 * nbytes(*xs) / HBM_BPS * 1e3, bound_by="bytes",
+        library_ms=median_ms(lambda: stacked.unflatten(1, (n, -1)).transpose(
+            0, 1).contiguous(), flush),
+        shape=f"n={n}, [{n * 128}, {d}] bf16 a rank")
+    for name, rec in records.items():
+        print(f"[ep] {name} {rec['shape']}: {rec['ms']:.4f} ms, plain "
+              f"{rec['plain_ms']:.4f}, library {rec['library_ms']:.4f}, "
+              f"bound {rec['bound_ms']:.4f} ms (bytes)")
+    del flush, held, kept, w1, w2
+    gc.collect()
+    torch.cuda.empty_cache()
+    return records, launches, {"cases": results, "worst": worst,
+                               "seconds": time.perf_counter() - t0}
+
+
+# -- Phase 8: sequence-parallel attention --------------------------------------
+
+SP_MODEL = TP_MODEL
+SP_SEQ = 32768          # Qwen3-8B's native context, one sequence
+SP_RANKS = (2, 4)
+SP_TILE = 64            # rows of each rank's first and last q tile checked
+SP_F32_SEQ = 4096
+SP_STRESS = 20
+SP_DECODE_LENS = (32000, 20000, 9000, 300)
+SP_DECODE_CHUNK = 256
+# The bf16 O of the SP kernel, of ring attention and of flash_attention is
+# held at SP_O_SCALE x TOL["bf16"] (the LSE at TOL): each rounds P to bf16
+# before P.V, as the TPU kernels do, and on the first rows of a sequence
+# (few keys, P entries near 1) that rounding alone moves O by up to
+# ~2^-9 |V|, 1.19x TOL on an H100. The zeroed-chunk control reads >= 7x
+# this limit.
+SP_O_SCALE = 2.0
+SP_PATH_KERNELS = {
+    "sp_prefill": ("sp_ag_attention",),
+    "sp_ring": ("flash_attention", "flash_attention_cold"),
+    "sp_decode": ("flash_decode", "all_gather_bidir_ring"),
+    "sp_decode_int8": ("flash_decode_int8", "all_gather_bidir_ring"),
+}
+_SP_SRC = "triton_distributed_tpu_torch/csrc/sp_attention.cu"
+
+
+def _sp_limit_use(got, want, tag, scale: float = 1.0):
+    """The largest |got - want| / (atol + rtol |want|) under ``scale`` x
+    TOL[tag]."""
+    import torch
+
+    atol, rtol = (scale * t for t in TOL[tag])
+    g, w = got.float(), want.float()
+    if not bool(torch.isfinite(g).all()):
+        return float("inf")
+    return float(((g - w).abs() / (atol + rtol * w.abs())).max())
+
+
+def _sp_tiles(s_loc, tile=SP_TILE):
+    """Local row ranges checked on every rank: the first and last tile."""
+    return ((0, min(tile, s_loc)), (max(0, s_loc - tile), s_loc))
+
+
+def _sp_plain_rows(q, k, v, me, s_loc, lo, hi, causal=True, sm_scale=None):
+    """Plain O and LSE of rank ``me``'s local rows [lo, hi) against the
+    whole sequence's K/V (``k``/``v [hkv, S, hd]``): causal over the
+    prefix, or every key."""
+    from triton_distributed_tpu_torch.ops.attention import mha_reference
+
+    g0 = me * s_loc
+    end = g0 + hi if causal else k.shape[1]
+    o, lse = mha_reference(q[None, :, g0 + lo:g0 + hi], k[None, :, :end],
+                           v[None, :, :end], causal=causal,
+                           kv_offset=g0 + lo, sm_scale=sm_scale,
+                           return_lse=True)
+    return o[0], lse[0]
+
+
+def _sp_hold(outs, lses, q, k, v, n, tag, causal=True, what="",
+             scale: float = 1.0):
+    """Every rank's first and last q tile of every head held to the plain
+    version over their full (causal) prefix: O under ``scale`` x TOL[tag],
+    the LSE under TOL[tag]; returns the worst use of those limits and max
+    |kernel - plain| of O."""
+    s_loc = q.shape[1] // n
+    use, err = 0.0, 0.0
+    for me in range(n):
+        for lo, hi in _sp_tiles(s_loc):
+            po, plse = _sp_plain_rows(q, k, v, me, s_loc, lo, hi, causal)
+            use = max(use, _sp_limit_use(outs[me][:, lo:hi], po, tag, scale))
+            if lses is not None:
+                use = max(use, _sp_limit_use(lses[me][:, lo:hi], plse, tag))
+            err = max(err, float((outs[me][:, lo:hi].float() - po.float())
+                                 .abs().max()))
+    if not use <= 1.0:
+        raise RuntimeError(f"sp {what} {tag} n={n}: {use:.3g}x {scale} x "
+                           f"the limit {TOL[tag]} on the checked tiles")
+    return use, err
+
+
+def check_sp(dev):
+    """Phase 8: sequence-parallel attention at Qwen3-8B's geometry over one
+    SP_SEQ-token causal sequence sharded over n = 2 and 4 ranks: the SP
+    all-gather attention kernel (O and LSE) against its plain version on
+    every rank's first and last q tile and against the single-card
+    ``flash_attention`` over the gathered sequence; f32 at SP_F32_SEQ in
+    full; the zeroed-chunk control; SP_STRESS back-to-back launches; ring
+    attention; the SP decode layer and the distributed decode (bf16 and
+    int8, pallas and xla); the two-level variants over dp x tp = 2 x 2.
+    Returns (records by kernel, launches by path, e2e)."""
+    import gc
+
+    import torch
+    import torch.nn.functional as F
+
+    from triton_distributed_tpu_torch.layers.sp_flash_decode import (
+        sp_decode_attention,
+    )
+    from triton_distributed_tpu_torch.models import get_config
+    from triton_distributed_tpu_torch.ops import cuda_kernels as ck
+    from triton_distributed_tpu_torch.ops.attention import (
+        distributed_flash_decode,
+        distributed_flash_decode_2level,
+        flash_attention,
+        gqa_decode_reference,
+        ring_attention,
+        sp_ag_attention,
+        sp_ag_attention_2level,
+    )
+    from triton_distributed_tpu_torch.runtime import initialize_distributed
+
+    spmod = importlib.import_module(
+        "triton_distributed_tpu_torch.ops.attention.sp_ag_attention")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    cfg = get_config(SP_MODEL)
+    hq, hkv, hd = cfg.num_q_heads, cfg.num_kv_heads, cfg.head_dim
+    S = SP_SEQ
+    gen = torch.Generator(device=dev).manual_seed(SEED + 70)
+
+    def draw(shape, dtype=torch.bfloat16):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    q, k, v = draw((hq, S, hd)), draw((hkv, S, hd)), draw((hkv, S, hd))
+    print(f"[sp] {SP_MODEL} geometry: hq {hq}, hkv {hkv}, hd {hd}, one "
+          f"{S}-token causal sequence, bf16, seed {SEED + 70}")
+
+    def shards(t, n):
+        return [c.contiguous() for c in torch.chunk(t, n, dim=1)]
+
+    # The single-card flash_attention over the gathered sequence (the
+    # ported kernel), compared in full with each SP run (O at SP_O_SCALE x
+    # the bf16 limit, the LSE at the limit).
+    t1 = time.perf_counter()
+    fa_o, fa_lse = flash_attention(q[None], k[None], v[None], causal=True,
+                                   return_lse=True)
+    torch.cuda.synchronize()
+    fa_s = time.perf_counter() - t1
+    fa_o, fa_lse = fa_o[0], fa_lse[0]
+    launches, res = {}, {}
+    outs_by_n = {}
+    for n in SP_RANKS:
+        ctx = initialize_distributed(n, device=dev, dtype=torch.bfloat16)
+        qs, ks, vs = shards(q, n), shards(k, n), shards(v, n)
+        if n == SP_RANKS[0]:
+            ck.reset_launch_counts()
+        o, lse = sp_ag_attention(qs, ks, vs, ctx, return_lse=True)
+        torch.cuda.synchronize()
+        if n == SP_RANKS[0]:
+            launches["sp_prefill"] = ck.launch_counts()
+        use, err = _sp_hold(o, lse, q, k, v, n, "bf16", what="tiles",
+                            scale=SP_O_SCALE)
+        full_use = max(_sp_limit_use(torch.cat(o, 1), fa_o, "bf16",
+                                     SP_O_SCALE),
+                       _sp_limit_use(torch.cat(lse, 1), fa_lse, "bf16"))
+        if not full_use <= 1.0:
+            raise RuntimeError(f"sp n={n}: {full_use:.3g}x the limit against "
+                               "flash_attention over the gathered sequence")
+        # Control: the plain version with chunk 0 of K/V zeroed must break
+        # the limit on the rows of ranks > 0.
+        k0, v0 = k.clone(), v.clone()
+        s_loc = S // n
+        k0[:, :s_loc] = 0
+        v0[:, :s_loc] = 0
+        ctl = min(max(_sp_limit_use(o[me][:, lo:hi], _sp_plain_rows(
+            q, k0, v0, me, s_loc, lo, hi)[0], "bf16", SP_O_SCALE)
+            for lo, hi in _sp_tiles(s_loc)) for me in range(1, n))
+        if not ctl > 1.0:
+            raise RuntimeError(f"sp n={n}: chunk 0 zeroed passes the limit")
+        del k0, v0
+        res[n] = {"tiles_use": use, "max_abs_err": err,
+                  "vs_flash_attention_use": full_use, "control": ctl}
+        outs_by_n[n] = (qs, ks, vs, ctx)
+        print(f"[sp] n={n} (s_loc {s_loc}): every rank's first/last "
+              f"{SP_TILE}-row tile of every head {use:.3f} of the limit "
+              f"(max |err| {err:.3g}), O and LSE against flash_attention "
+              f"over the gathered sequence {full_use:.3f} of the limit;"
+              " chunk 0 zeroed: "
+              f"ranks > 0 at >= {ctl:.1f}x")
+
+    # f32 at SP_F32_SEQ, n = 4, against the full plain version (TF32 off).
+    n = 4
+    qf, kf, vf = (draw((hq, SP_F32_SEQ, hd), torch.float32),
+                  draw((hkv, SP_F32_SEQ, hd), torch.float32),
+                  draw((hkv, SP_F32_SEQ, hd), torch.float32))
+    ctx = initialize_distributed(n, device=dev, dtype=torch.float32)
+    o, lse = sp_ag_attention(shards(qf, n), shards(kf, n), shards(vf, n), ctx,
+                             return_lse=True)
+    po, plse = spmod.sp_ag_attention_plain(shards(qf, n), shards(kf, n),
+                                           shards(vf, n))
+    f32_use = max(max(_sp_limit_use(a, b, "f32") for a, b in zip(o, po)),
+                  max(_sp_limit_use(a, b, "f32") for a, b in zip(lse, plse)))
+    if not f32_use <= 1.0:
+        raise RuntimeError(f"sp f32 S={SP_F32_SEQ}: {f32_use:.3g}x the limit")
+    del qf, kf, vf, o, lse, po, plse
+    print(f"[sp] f32 S={SP_F32_SEQ} n={n}: O and LSE in full {f32_use:.3f} "
+          "of the f32 limit (TF32 off)")
+
+    # SP_STRESS launches back to back at n = 4, fresh K/V each, checked
+    # after one sync on the tiles.
+    qs, _, _, ctx = outs_by_n[4]
+    kept = []
+    for i in range(SP_STRESS):
+        ki, vi = draw((hkv, S, hd)), draw((hkv, S, hd))
+        kept.append((ki, vi, sp_ag_attention(qs, shards(ki, 4), shards(vi, 4),
+                                             ctx, return_lse=True)))
+    torch.cuda.synchronize()
+    stress_use = 0.0
+    for ki, vi, (o, lse) in kept:
+        stress_use = max(stress_use, _sp_hold(o, lse, q, ki, vi, 4, "bf16",
+                                              what="stress",
+                                              scale=SP_O_SCALE)[0])
+    del kept
+    print(f"[sp] stress: {SP_STRESS} back-to-back launches at n=4 with fresh "
+          f"K/V, every one's tiles within the limit ({stress_use:.3f})")
+
+    # Ring attention, causal and not, on the same shards at n = 4: its
+    # chunks run the ported flash_attention kernels.
+    qs, ks, vs, ctx = outs_by_n[4]
+    ring = {}
+    for causal in (True, False):
+        if causal:
+            ck.reset_launch_counts()
+        o = ring_attention(qs, ks, vs, causal=causal)
+        torch.cuda.synchronize()
+        if causal:
+            launches["sp_ring"] = ck.launch_counts()
+        ring[causal] = _sp_hold(o, None, q, k, v, 4, "bf16", causal=causal,
+                                what=f"ring causal={causal}",
+                                scale=SP_O_SCALE)[0]
+    print(f"[sp] ring_attention n=4: causal {ring[True]:.3f}, non-causal "
+          f"{ring[False]:.3f} of the limit on the tiles")
+
+    # Decode: B = 4, q [4, hq, hd], a SP_SEQ-slot cache sharded as above,
+    # global lengths SP_DECODE_LENS (rows ending on rank 0; ranks with no
+    # key for a row).
+    b = len(SP_DECODE_LENS)
+    qd = draw((b, hq, hd))
+    kc, vc = draw((b, hkv, S, hd)), draw((b, hkv, S, hd))
+    kn, vn = draw((b, hkv, hd)), draw((b, hkv, hd))
+    lens = torch.tensor(SP_DECODE_LENS, dtype=torch.int32, device=dev)
+    gk, gv = kc.clone(), vc.clone()
+    rows = torch.arange(b, device=dev)
+    gk[rows, :, lens.long()] = kn
+    gv[rows, :, lens.long()] = vn
+    want = gqa_decode_reference(qd, gk, gv, lens + 1)
+    dec = {}
+    for n in SP_RANKS:
+        ctx = initialize_distributed(n, device=dev, dtype=torch.bfloat16)
+        for method in ("pallas", "xla"):
+            kcs, vcs = (list(torch.chunk(kc.clone(), n, dim=2)),
+                        list(torch.chunk(vc.clone(), n, dim=2)))
+            kcs = [c.contiguous() for c in kcs]
+            vcs = [c.contiguous() for c in vcs]
+            main = (n, method) == (4, "pallas")
+            if main:
+                ck.reset_launch_counts()
+            o, k2, v2 = sp_decode_attention([qd] * n, kn, vn, kcs, vcs, lens,
+                                            ctx, chunk_k=SP_DECODE_CHUNK,
+                                            method=method)
+            torch.cuda.synchronize()
+            if main:
+                launches["sp_decode"] = ck.launch_counts()
+            if not (torch.equal(torch.cat(k2, 2), gk)
+                    and torch.equal(torch.cat(v2, 2), gv)):
+                raise RuntimeError(f"sp decode n={n}: the appended K/V is not "
+                                   "the new token at the owner's position")
+            dec[f"n{n}_{method}"] = max(_sp_limit_use(x_, want, "bf16")
+                                        for x_ in o)
+    # int8: codes with one scale per chunk per kv head.
+    codes = torch.randint(-127, 128, kc.shape, generator=gen, device=dev,
+                          dtype=torch.int8)
+    scales = torch.rand((b, hkv, S // SP_DECODE_CHUNK), generator=gen,
+                        device=dev) * 0.02 + 0.001
+    deq = codes.float() * scales.repeat_interleave(SP_DECODE_CHUNK,
+                                                   -1)[..., None]
+    want8 = gqa_decode_reference(qd, deq, deq, lens)
+    for n in SP_RANKS:
+        ctx = initialize_distributed(n, device=dev, dtype=torch.bfloat16)
+        cs = [c.contiguous() for c in torch.chunk(codes, n, dim=2)]
+        ss = [c.contiguous() for c in torch.chunk(scales, n, dim=2)]
+        for method in ("pallas", "xla"):
+            main = (n, method) == (4, "pallas")
+            if main:
+                ck.reset_launch_counts()
+            o = distributed_flash_decode([qd] * n, cs, cs, lens, ctx,
+                                         chunk_k=SP_DECODE_CHUNK,
+                                         method=method, k_scale=ss,
+                                         v_scale=ss)
+            torch.cuda.synchronize()
+            if main:
+                launches["sp_decode_int8"] = ck.launch_counts()
+            dec[f"int8_n{n}_{method}"] = max(_sp_limit_use(x_, want8, "bf16")
+                                             for x_ in o)
+    if not max(dec.values()) <= 1.0:
+        raise RuntimeError(f"sp decode over the limit: {json.dumps(dec)}")
+    print(f"[sp] decode B={b}, kv_len {SP_DECODE_LENS} (+1 appended): "
+          f"limit use {json.dumps({a: round(c, 4) for a, c in dec.items()})};"
+          " appended K/V bitwise at the owner")
+
+    # The two-level variants over dp x tp = 2 x 2.
+    ctx = initialize_distributed(2, dp=2, device=dev, dtype=torch.bfloat16)
+    o = sp_ag_attention_2level(shards(q, 4), shards(k, 4), shards(v, 4), ctx)
+    two = {"sp": _sp_hold(o, None, q, k, v, 4, "bf16", what="2level",
+                          scale=SP_O_SCALE)[0]}
+    for method in ("pallas", "xla"):
+        o = distributed_flash_decode_2level(
+            [qd] * 4, [c.contiguous() for c in torch.chunk(gk, 4, dim=2)],
+            [c.contiguous() for c in torch.chunk(gv, 4, dim=2)], lens + 1,
+            ctx, chunk_k=SP_DECODE_CHUNK, method=method)
+        two[f"decode_{method}"] = max(_sp_limit_use(x_, want, "bf16")
+                                      for x_ in o)
+    if not max(two.values()) <= 1.0:
+        raise RuntimeError(f"sp 2-level over the limit: {json.dumps(two)}")
+    print(f"[sp] two-level dp x tp = 2 x 2: {json.dumps(two)} of the bf16 "
+          "limit")
+    del kc, vc, gk, gv, codes, deq
+
+    # Records at n = 2 (main path) and n = 4. Bound: the causal products of
+    # the whole sequence (every rank shares the card), 4 hq hd S^2 / 2
+    # FLOP, against the bytes (q, K, V read, O and LSE written).
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    flops = 4 * hq * hd * S * (S + 1) / 2
+    by = nbytes(q, k, v) + nbytes(q) + hq * S * 4
+    timed = {}
+    for n in SP_RANKS:
+        qs, ks, vs, ctx = outs_by_n[n]
+        timed[n] = median_ms(
+            lambda: spmod.sp_ag_attention_kernel(qs, ks, vs, ctx,
+                                                 sm_scale=hd**-0.5), flush)
+    qs, ks, vs, ctx = outs_by_n[SP_RANKS[0]]
+    g = hq // hkv
+
+    def plain_by_head():
+        # The plain version one q head at a time (its [hq, s_loc, S] f32
+        # scores at once would need 68 GB).
+        for h in range(hq):
+            spmod.sp_ag_attention_plain(
+                [x_[h:h + 1] for x_ in qs],
+                [x_[h // g:h // g + 1] for x_ in ks],
+                [x_[h // g:h // g + 1] for x_ in vs])
+
+    lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        q[None], k[None], v[None], is_causal=True, enable_gqa=True)
+    rec = dict(
+        route="cuda", source=_SP_SRC,
+        replaces="triton_distributed_tpu/ops/attention/sp_ag_attention.py:39",
+        max_abs_err=max(r["max_abs_err"] for r in res.values()),
+        ms=timed[SP_RANKS[0]],
+        plain_ms=median_ms(plain_by_head, flush, iters=3, warmup=1),
+        bound_ms=max(flops / BF16_FLOPS, by / HBM_BPS) * 1e3,
+        bound_by="operations" if flops / BF16_FLOPS > by / HBM_BPS
+        else "bytes",
+        library_ms=median_ms(lib, flush),
+        shape=f"{SP_MODEL} geometry, S={S} causal bf16 over n={SP_RANKS[0]} "
+              f"ranks (s_loc {S // SP_RANKS[0]}); ms_by_n "
+              f"{json.dumps(timed)}; flash_attention over the gathered "
+              f"sequence {fa_s * 1e3:.1f} ms of host wall (first call)",
+        ms_by_n=timed, checks=res, f32_use=f32_use, stress_use=stress_use,
+        ring_use=ring, decode_use=dec, two_level_use=two)
+    print(f"[sp] sp_ag_attention {rec['shape']}: {rec['ms']:.4f} ms, plain "
+          f"{rec['plain_ms']:.4f}, SDPA {rec['library_ms']:.4f}, bound "
+          f"{rec['bound_ms']:.4f} ms ({rec['bound_by']})")
+    _paths_launched(launches, SP_PATH_KERNELS)
+    del flush, outs_by_n, q, k, v, fa_o, fa_lse
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"sp_ag_attention": rec}, launches, {
+        "checks": res, "ms_by_n": timed, "seconds": time.perf_counter() - t0}
+
+
 def main() -> int:
     try:
         import torch
@@ -6491,6 +7308,13 @@ def main() -> int:
     launches.update(mtp_launches)
     phase_s["moe_tp"] = time.perf_counter() - t0
     print(f"[time] moe_tp: {phase_s['moe_tp']:.1f} s", flush=True)
+    for name, phase in (("ep", check_ep), ("sp", check_sp)):
+        t0 = time.perf_counter()
+        more_records, more_launches, e2e[name] = phase(dev)
+        records.update(more_records)
+        launches.update(more_launches)
+        phase_s[name] = time.perf_counter() - t0
+        print(f"[time] {name}: {phase_s[name]:.1f} s", flush=True)
     print(f"[time] seconds per phase: {json.dumps(phase_s)}; total "
           f"{sum(phase_s.values()):.1f}")
 
@@ -6499,7 +7323,8 @@ def main() -> int:
     kernels = []
     paths = {**PATH_KERNELS, **MOE_PATH_KERNELS, **TP_PATH_KERNELS,
              **TP_MEGA_PATH_KERNELS, **TP_PREFILL_PATH_KERNELS,
-             **MOE_TP_PATH_KERNELS, **MOE_TP_MEGA_PATH_KERNELS}
+             **MOE_TP_PATH_KERNELS, **MOE_TP_MEGA_PATH_KERNELS,
+             **EP_PATH_KERNELS, **SP_PATH_KERNELS}
     for k in ck.KERNELS:
         first = next(p for p, need in paths.items() if k.name in need)
         kernels.append({

@@ -2477,3 +2477,325 @@ def test_mega_prefill_tp_serving_on_card_equals_cpu(dev):
         res.append((logits.cpu(), out.cpu()))
     assert (res[0][0] - res[1][0]).abs().max().item() <= 2e-3
     assert torch.equal(res[0][1], res[1][1])
+
+
+# -- the dense all-to-all, the EP exchange, the SP attention -------------------
+
+
+def _ctx(dev, n, dtype=torch.bfloat16):
+    from triton_distributed_tpu_torch.runtime import initialize_distributed
+
+    return initialize_distributed(n, device=dev, dtype=dtype)
+
+
+@pytest.mark.parametrize("shape,dtype", [
+    ((3, 5), torch.float32),        # 20-byte rows, 60-byte chunks
+    ((128, 2048), torch.bfloat16),  # Qwen3-30B-A3B's width, one EP chunk
+    ((7, 129), torch.float32),
+])
+@pytest.mark.parametrize("n", [2, 4])
+def test_all_to_all_kernel_bitwise_plain(dev, n, shape, dtype):
+    from triton_distributed_tpu_torch.ops.collectives import (
+        all_to_all,
+        all_to_all_plain,
+    )
+
+    ctx = _ctx(dev, n, dtype)
+    rng = np.random.default_rng(n)
+    xs = [_rand(rng, (n * shape[0], shape[1]), dtype, dev) for _ in range(n)]
+    before = ck.ALL_TO_ALL.launches
+    got = all_to_all(xs, ctx)
+    torch.cuda.synchronize()
+    assert ck.ALL_TO_ALL.launches == before + 1
+    for g, w in zip(got, all_to_all_plain(xs)):
+        assert torch.equal(g, w)
+
+
+# (name, splits[r][p] at n = 4 with capacity 64): a peer with 0 rows,
+# counts not a multiple of 32, every row to one rank, all full.
+EP_SPLITS = {
+    "mixed": [[40, 0, 33, 1], [7, 64, 0, 0], [0, 5, 64, 31], [64, 64, 64, 64]],
+    "one_rank": [[64, 0, 0, 0]] * 4,
+    "empty": [[0, 0, 0, 0]] * 4,
+    "full": [[64] * 4] * 4,
+}
+
+
+@pytest.mark.parametrize("case", list(EP_SPLITS))
+@pytest.mark.parametrize("n", [2, 4])
+def test_ep_exchange_kernel_matches_plain(dev, n, case):
+    """Rows within every count bitwise the plain exchange's; every row
+    past a count left as the output buffer held it (0xAB)."""
+    from triton_distributed_tpu_torch.ops.moe.ep_exchange import (
+        ep_exchange_kernel,
+        ep_exchange_plain,
+    )
+
+    cap, r = 64, 384
+    splits = np.array(EP_SPLITS[case], np.int32)[:n, :n]
+    ctx = _ctx(dev, n)
+    rng = np.random.default_rng(7)
+    rows = [torch.from_numpy(rng.integers(0, 255, (n, cap, r),
+                                          dtype=np.uint8)).to(dev)
+            for _ in range(n)]
+    sp = [torch.from_numpy(s.copy()).to(dev) for s in splits]
+    rc = [torch.from_numpy(s.copy()).to(dev) for s in splits.T]
+    out = [torch.full((n, cap, r), 0xAB, dtype=torch.uint8, device=dev)
+           for _ in range(n)]
+    before = ck.EP_EXCHANGE.launches
+    got = ep_exchange_kernel(rows, sp, rc, ctx, out=out)
+    want = ep_exchange_plain(rows, sp)
+    torch.cuda.synchronize()
+    assert ck.EP_EXCHANGE.launches == before + 1
+    for p in range(n):
+        for s in range(n):
+            c = int(splits[s, p])
+            assert torch.equal(got[p][s, :c], want[p][s, :c])
+            assert (got[p][s, c:] == 0xAB).all()
+
+
+def test_ep_exchange_straggler_and_back_to_back(dev):
+    """A 500 us lag on rank 1 makes the launch last >= 0.5 ms with the
+    same rows; 20 launches back to back with fresh counts, each right."""
+    from triton_distributed_tpu_torch.ops.moe.ep_exchange import (
+        ep_exchange_kernel,
+        ep_exchange_plain,
+    )
+
+    n, cap, r = 4, 64, 256
+    ctx = _ctx(dev, n)
+    rng = np.random.default_rng(8)
+    kept = []
+    for i in range(20):
+        splits = rng.integers(0, cap + 1, (n, n)).astype(np.int32)
+        rows = [torch.from_numpy(rng.integers(0, 255, (n, cap, r),
+                                              dtype=np.uint8)).to(dev)
+                for _ in range(n)]
+        sp = [torch.from_numpy(s.copy()).to(dev) for s in splits]
+        rc = [torch.from_numpy(s.copy()).to(dev) for s in splits.T]
+        kept.append((splits, rows, sp, ep_exchange_kernel(rows, sp, rc, ctx)))
+    torch.cuda.synchronize()
+    for splits, rows, sp, got in kept:
+        want = ep_exchange_plain(rows, sp)
+        for p in range(n):
+            for s in range(n):
+                c = int(splits[s, p])
+                assert torch.equal(got[p][s, :c], want[p][s, :c])
+    splits, rows, sp, _ = kept[-1]
+    rc = [torch.from_numpy(s.copy()).to(dev) for s in splits.T]
+    times, outs = [], []
+    for lag in (0, 500_000):
+        torch.cuda._sleep(1_000_000)  # the launch queues: device time only
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        outs.append(ep_exchange_kernel(rows, sp, rc, ctx,
+                                       straggler_rank=1 if lag else None,
+                                       straggle_nanos=lag))
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    assert times[1] - times[0] >= 0.5, times
+    for p in range(n):
+        for s in range(n):
+            c = int(splits[s, p])
+            assert torch.equal(outs[0][p][s, :c], outs[1][p][s, :c])
+
+
+# ep_moe_ffn on the card (bf16) against the CPU's f32 run on the same
+# bf16-rounded inputs, routed alike (f32 router logits on both): max
+# |card - cpu| over max |cpu|, at most EP_CARD_REL. The card rounds each
+# expert GEMM, the SiLU product and the token to bf16 (and the fp8
+# payload's dequantized rows), a few 2^-9 of the output's scale; a zeroed
+# or a shifted output reads ~1.
+EP_CARD_REL = 2.0**-5
+
+
+def _ep_card_outputs(dev, n, cf, skew, payload):
+    """``{(where, method): outputs}`` of ``ep_moe_ffn`` at a small MoE
+    (16 experts top-4, d 256, f 128, 32 tokens a rank): on the card with
+    both transports (each checked to launch the EP exchange twice or not
+    at all), on the CPU with the plain one. ``skew``: positive tokens and
+    +-1 on the router columns of rank 0's experts, so every top-k lands
+    on rank 0 (+-1 keeps the columns distinct in bf16)."""
+    from triton_distributed_tpu_torch.ops.moe import ep_moe_ffn
+
+    e, d, f, k, t = 16, 256, 128, 4, 32
+    rng = np.random.default_rng(n + 10 * skew)
+    x = np.abs(rng.standard_normal((n * t, d))) * 0.1 if skew else \
+        rng.standard_normal((n * t, d)) * 0.1
+    wr = rng.standard_normal((d, e)) * 0.1
+    if skew:
+        wr[:, :e // n] += 1.0
+        wr[:, e // n:] -= 1.0
+    w1 = rng.standard_normal((e, d, 2 * f)) * 0.1
+    w2 = rng.standard_normal((e, f, d)) * 0.1
+    epr = e // n
+    outs = {}
+    for where, dt in ((dev, torch.bfloat16), ("cpu", torch.float32)):
+        ctx = _ctx(where, n, dt)
+        cast = lambda a: torch.from_numpy(a.astype(np.float32)).to(  # noqa: E731
+            torch.bfloat16).to(where, dt)
+        xs = list(torch.chunk(cast(x), n))
+        for method in (("pallas", "xla") if where == dev else ("xla",)):
+            before = ck.EP_EXCHANGE.launches
+            outs[(where, method)] = ep_moe_ffn(
+                xs, cast(wr), [cast(w1[i * epr:(i + 1) * epr])
+                               for i in range(n)],
+                [cast(w2[i * epr:(i + 1) * epr]) for i in range(n)], k,
+                ctx=ctx, method=method, capacity_factor=cf,
+                payload_dtype=payload)
+            if where == dev:
+                torch.cuda.synchronize()
+                assert ck.EP_EXCHANGE.launches == before + (
+                    2 if method == "pallas" else 0)
+    return outs
+
+
+def _ep_card_rel(got, want) -> float:
+    """max |got - want| over max |want|, over every rank's rows."""
+    g = torch.cat([a.float().cpu() for a in got])
+    w = torch.cat(list(want))
+    return float((g - w).abs().max() / w.abs().max())
+
+
+@pytest.mark.parametrize("payload", [None, "fp8"])
+@pytest.mark.parametrize("cf,skew", [(None, False), (1.25, False),
+                                     (None, True), (1.0, True)])
+@pytest.mark.parametrize("n", [2, 4])
+def test_ep_moe_ffn_transports_bitwise_on_card(dev, n, cf, skew, payload):
+    """``ep_moe_ffn`` with the kernel transport equals the plain one bit
+    for bit (bf16), launches the EP exchange twice, and lies within
+    EP_CARD_REL of the CPU's f32 run; a zeroed and a row-shifted output
+    break that limit."""
+    outs = _ep_card_outputs(dev, n, cf, skew, payload)
+    for a, b in zip(outs[(dev, "pallas")], outs[(dev, "xla")]):
+        assert torch.equal(a, b)
+    got, want = outs[(dev, "pallas")], outs[("cpu", "xla")]
+    rel = _ep_card_rel(got, want)
+    assert rel <= EP_CARD_REL, rel
+    assert _ep_card_rel([torch.zeros_like(a) for a in got], want) > \
+        EP_CARD_REL
+    assert _ep_card_rel([torch.roll(a, 1, dims=0) for a in got], want) > \
+        EP_CARD_REL
+
+
+# (n, hq, hkv, s_loc, dtype): G 1, 2, 4, 8; s_loc a multiple of every q
+# tile, and not (100, 72, 37).
+SP_CASES = [
+    (2, 8, 8, 128, torch.bfloat16), (4, 8, 4, 100, torch.bfloat16),
+    (2, 16, 4, 72, torch.bfloat16), (4, 32, 4, 96, torch.bfloat16),
+    (4, 8, 2, 37, torch.float32), (2, 32, 8, 64, torch.float32),
+    (2, 8, 1, 50, torch.float32), (4, 4, 4, 33, torch.float32),
+]
+
+
+def _sp_inputs(dev, n, hq, hkv, s_loc, dtype, seed=0):
+    rng = np.random.default_rng(seed)
+    return ([_rand(rng, (hq, s_loc, 128), dtype, dev) for _ in range(n)],
+            [_rand(rng, (hkv, s_loc, 128), dtype, dev) for _ in range(n)],
+            [_rand(rng, (hkv, s_loc, 128), dtype, dev) for _ in range(n)])
+
+
+@pytest.mark.parametrize("n,hq,hkv,s_loc,dtype", SP_CASES)
+def test_sp_ag_attention_kernel_matches_plain(dev, n, hq, hkv, s_loc, dtype):
+    from triton_distributed_tpu_torch.ops.attention.sp_ag_attention import (
+        sp_ag_attention,
+        sp_ag_attention_plain,
+    )
+
+    ctx = _ctx(dev, n, dtype)
+    qs, ks, vs = _sp_inputs(dev, n, hq, hkv, s_loc, dtype)
+    before = ck.SP_AG_ATTENTION.launches
+    o, lse = sp_ag_attention(qs, ks, vs, ctx, return_lse=True)
+    po, plse = sp_ag_attention_plain(qs, ks, vs)
+    torch.cuda.synchronize()
+    assert ck.SP_AG_ATTENTION.launches == before + 1
+    tol = TOL[dtype]
+    for r in range(n):
+        assert o[r].dtype == dtype and lse[r].dtype == torch.float32
+        torch.testing.assert_close(o[r].float(), po[r].float(), atol=tol,
+                                   rtol=0)
+        torch.testing.assert_close(lse[r], plse[r], atol=tol, rtol=0)
+
+
+def test_sp_ag_attention_back_to_back_and_refusals(dev):
+    """20 launches back to back at n = 4 with fresh inputs, each checked
+    (the workspace and flags reused); unsupported shapes raise
+    ValueError; a grid that cannot be co-resident is refused."""
+    from triton_distributed_tpu_torch.ops.attention import sp_ag_attention
+    from triton_distributed_tpu_torch.ops.attention.sp_ag_attention import (
+        sp_ag_attention_kernel,
+        sp_ag_attention_plain,
+    )
+
+    n, dt = 4, torch.bfloat16
+    ctx = _ctx(dev, n, dt)
+    kept = []
+    for i in range(20):
+        qs, ks, vs = _sp_inputs(dev, n, 8, 2, 48, dt, seed=i)
+        kept.append((qs, ks, vs, sp_ag_attention(qs, ks, vs, ctx,
+                                                 return_lse=True)))
+    torch.cuda.synchronize()
+    for qs, ks, vs, (o, lse) in kept:
+        po, plse = sp_ag_attention_plain(qs, ks, vs)
+        for r in range(n):
+            torch.testing.assert_close(o[r].float(), po[r].float(),
+                                       atol=TOL[dt], rtol=0)
+            torch.testing.assert_close(lse[r], plse[r], atol=TOL[dt], rtol=0)
+    for hq, hkv, hd, dtype in ((8, 2, 64, dt), (6, 2, 128, dt),
+                               (32, 2, 128, dt), (8, 2, 128, torch.float16)):
+        rng = np.random.default_rng(0)
+        qs = [_rand(rng, (hq, 32, hd), dtype, dev) for _ in range(n)]
+        ks = [_rand(rng, (hkv, 32, hd), dtype, dev) for _ in range(n)]
+        with pytest.raises(ValueError):
+            sp_ag_attention(qs, ks, ks, ctx)
+    qs, ks, vs = _sp_inputs(dev, n, 8, 2, 48, dt)
+    before = ck.SP_AG_ATTENTION.launches
+    with pytest.raises(RuntimeError, match="cudaError"):
+        sp_ag_attention_kernel(qs, ks, vs, ctx, sm_scale=0.1,
+                               blocks_per_rank=100_000)
+    assert ck.SP_AG_ATTENTION.launches == before
+
+
+@pytest.mark.parametrize("method", ["pallas", "xla"])
+@pytest.mark.parametrize("n", [2, 4])
+def test_sp_decode_and_ring_on_card_match_plain(dev, n, method):
+    """The distributed decode (bf16; the packed [B*Hq, 129] f32 rows
+    through the all-gather kernels at method pallas) and ring attention
+    on the card against the same calls on the CPU."""
+    from triton_distributed_tpu_torch.ops.attention import (
+        distributed_flash_decode,
+        ring_attention,
+    )
+
+    b, hq, hkv, s_loc = 4, 32, 8, 96
+    rng = np.random.default_rng(n)
+    q = rng.standard_normal((b, hq, 128)).astype(np.float32)
+    kc = rng.standard_normal((n, b, hkv, s_loc, 128)).astype(np.float32)
+    vc = rng.standard_normal((n, b, hkv, s_loc, 128)).astype(np.float32)
+    lens = np.array([n * s_loc, s_loc + 5, 1, s_loc], np.int32)
+    got = {}
+    for where in (dev, "cpu"):
+        ctx = _ctx(where, n, torch.bfloat16)
+        t = lambda a: torch.from_numpy(a).to(where, torch.bfloat16)  # noqa: E731
+        ck.reset_launch_counts()
+        got[where] = distributed_flash_decode(
+            [t(q)] * n, [t(kc[r]) for r in range(n)],
+            [t(vc[r]) for r in range(n)],
+            torch.from_numpy(lens).to(where), ctx, chunk_k=32, method=method)
+        if where == dev and method == "pallas":
+            torch.cuda.synchronize()
+            assert sum(v for k_, v in ck.launch_counts().items()
+                       if k_.startswith("all_gather")) == 1
+    for a, c in zip(got[dev], got["cpu"]):
+        torch.testing.assert_close(a.float().cpu(), c.float(), atol=2e-2,
+                                   rtol=0)
+    qs, ks, vs = _sp_inputs(dev, n, 8, 2, 64, torch.bfloat16)
+    for causal in (True, False):
+        o = ring_attention(qs, ks, vs, causal=causal)
+        p = ring_attention([x.cpu() for x in qs], [x.cpu() for x in ks],
+                           [x.cpu() for x in vs], causal=causal)
+        for a, c in zip(o, p):
+            torch.testing.assert_close(a.float().cpu(), c.float(),
+                                       atol=2e-2, rtol=0)

@@ -499,11 +499,16 @@ def test_moe_tp_refusals():
                                          v_real=256)):
         with pytest.raises(NotImplementedError, match="position 4"):
             check_dims(dataclasses.replace(dims, **kw), MegaConfig())
+    # mode="ring" serves (ops/moe/ring_moe.py) and equals mode="xla";
+    # the pull all-gather stays refused (queue 1 position 3).
     ctx = port_tp(2)
-    p = m.rank_params
-    x = ctx.shard(torch.zeros((4, D)), 0)
-    with pytest.raises(NotImplementedError, match="queue 1 position 3"):
-        tp_moe_fwd([q["layers"]["mlp"] for q in p], x, 2, mode="ring",
-                   ctx=ctx)
+    mlp = [{k: v[0] for k, v in q["layers"]["mlp"].items()}
+           for q in m.rank_params]
+    x = ctx.shard(torch.from_numpy(np.random.default_rng(9).standard_normal(
+        (8, D)).astype(np.float32)), 0)
+    ring = tp_moe_fwd(mlp, x, 2, mode="ring", ctx=ctx)
+    xla = tp_moe_fwd(mlp, x, 2, mode="xla", ctx=ctx)
+    for a, b in zip(ring, xla):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), atol=ATOL, rtol=0)
     with pytest.raises(NotImplementedError, match="queue 1 position 3"):
         tcol.all_gather(x, ctx, AllGatherMethod.PALLAS_PULL)

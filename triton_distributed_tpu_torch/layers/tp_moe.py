@@ -17,10 +17,9 @@ passes one parameter shard and one activation per rank, as
   the f32 partials (:92-94): summed in f32 in rank order, rounded once;
 - ``pallas_ar``: ``x`` is each rank's copy of the replicated ``[T, d]``;
   ``all_reduce`` (AUTO) of the partials;
-- ``xla_ar``: ``psum(part.astype(f32)).astype(dtype)`` (:96).
-
-``ring`` (the fused AG + grouped GEMM → RS of ``ops/moe/ring_moe.py``,
-:63-73) is not ported (ROADMAP queue 1 position 3).
+- ``xla_ar``: ``psum(part.astype(f32)).astype(dtype)`` (:96);
+- ``ring``: ``x`` is each rank's sequence shard; the token chunks and
+  their f32 partials circulate (``ops/moe/ring_moe.py``, :63-73).
 """
 
 from __future__ import annotations
@@ -37,13 +36,14 @@ from triton_distributed_tpu_torch.ops.collectives import (
     reduce_scatter,
 )
 from triton_distributed_tpu_torch.ops.moe.grouped_gemm import grouped_ffn
+from triton_distributed_tpu_torch.ops.moe.ring_moe import moe_ffn_ring
 from triton_distributed_tpu_torch.ops.moe.routing import (
     moe_combine,
     moe_sort,
     router_topk,
 )
 
-MODES = ("xla", "xla_ar", "pallas", "pallas_ar")
+MODES = ("xla", "xla_ar", "pallas", "pallas_ar", "ring")
 
 
 class TPMoEParams(TypedDict):
@@ -56,11 +56,6 @@ class TPMoEParams(TypedDict):
 
 
 def check_mode(mode: str) -> None:
-    if mode == "ring":
-        raise NotImplementedError(
-            "MoE mode 'ring' runs the fused all-gather + grouped GEMM → "
-            "reduce-scatter of ops/moe/ring_moe.py, which is not ported yet "
-            "(ROADMAP queue 1 position 3); use 'pallas' or 'xla'")
     if mode not in MODES:
         raise ValueError(f"unknown MoE mode {mode!r}; modes: {MODES}")
 
@@ -94,6 +89,10 @@ def tp_moe_fwd(params, x, k: int, *, mode: str = "xla",
     if len(xs) == 1:
         return unranked([moe_partial(ps[0], xs[0], k, norm_topk_prob)],
                         single)
+    if mode == "ring":
+        return moe_ffn_ring(xs, [p["w_router"] for p in ps],
+                            [p["w1"] for p in ps], [p["w2"] for p in ps], k,
+                            norm_topk_prob=norm_topk_prob)
     seq = mode in ("pallas", "xla")
     if seq:
         full = all_gather(xs, ctx, AllGatherMethod.AUTO if mode == "pallas"

@@ -18,8 +18,19 @@ reads int8 codes with one scale per ``chunk_k`` keys per kv head
 slot's decode over an int8 pool); its plain version dequantizes with the
 scales repeated ``chunk_k`` times. A sequence with ``kv_len <= 0``
 attends nothing: O = 0 and LSE ~ -1e30 (weight 0 in
-:func:`lse_combine`), as the TPU kernel's skipped chunks give. The
-distributed combine is a later slice (ROADMAP queue 2).
+:func:`lse_combine`), as the TPU kernel's skipped chunks give.
+
+:func:`distributed_flash_decode` (``flash_decode.py:424``) runs the
+decode over a cache sequence-sharded over the context's ranks: each rank
+attends its slice (this module's kernels), then the partial (O, LSE) are
+gathered and merged by :func:`lse_combine` (:func:`_gather_merge`,
+``:404``): ``method="pallas"`` packs them into one ``[B*Hq, D+1]`` f32
+row a head and gathers it with the all-gather AUTO (the hand-written
+all-gather kernels on the card, rows of any byte width), ``"xla"``
+stacks the ranks' partials. A rank with no local key for a row gives
+O = 0, LSE ~ -1e30: weight 0 in the merge (its all-masked guard).
+:func:`distributed_flash_decode_2level` (``:467``) merges within each dp
+group of a ``dp x tp`` context first, then across the groups (plain).
 """
 
 from __future__ import annotations
@@ -27,6 +38,9 @@ from __future__ import annotations
 import torch
 
 from triton_distributed_tpu_torch.ops import cuda_kernels as ck
+from triton_distributed_tpu_torch.ops.collectives.all_gather import (
+    all_gather,
+)
 
 _NEG_INF = -1e30
 # The (head_dim, q/kv group) values of the presets (tiny; Qwen3 0.6B-32B):
@@ -283,3 +297,100 @@ def gqa_decode_reference(
     if return_lse:
         return o, torch.logsumexp(s_, dim=-1)
     return o
+
+
+def _gather_merge(os_, lses, ctx, method: str):
+    """Gather the ranks' partials ``os_[r] [B, Hq, D]`` f32 and ``lses[r]
+    [B, Hq]`` and merge them by log-sum-exp: ``(o, lse)`` lists, one a
+    rank. ``pallas`` packs each rank's partials into one ``[B*Hq, D+1]``
+    payload for the all-gather AUTO; ``xla`` stacks them."""
+    b, hq, d = os_[0].shape
+    n = len(os_)
+    if method == "pallas":
+        flats = [torch.cat([o.reshape(b * hq, d), lse.reshape(b * hq, 1)],
+                           dim=1).contiguous() for o, lse in zip(os_, lses)]
+        outs = []
+        for g in all_gather(flats, ctx):
+            g = g.reshape(n, b * hq, d + 1)
+            outs.append(lse_combine(g[..., :d].reshape(n, b, hq, d),
+                                    g[..., d].reshape(n, b, hq), 0))
+        return [o for o, _ in outs], [lse for _, lse in outs]
+    if method != "xla":
+        raise ValueError(f"unknown merge method {method!r}")
+    o, lse = lse_combine(torch.stack(os_), torch.stack(lses), 0)
+    return [o] + [o.clone() for _ in os_[1:]], \
+        [lse] + [lse.clone() for _ in lses[1:]]
+
+
+def _local_partials(qs, k_shards, v_shards, kv_len, ranks, *, sm_scale,
+                    chunk_k, k_scale, v_scale):
+    """Each rank's split-KV partial over its slice: global rank ``ranks[i]``
+    covers positions ``[r * s_loc, (r + 1) * s_loc)``."""
+    s_loc = k_shards[0].shape[2]
+    os_, lses = [], []
+    for i, r in enumerate(ranks):
+        q = qs[i]
+        glob = _as_lengths(kv_len, q.shape[0], q.device)
+        local = torch.clamp(glob - r * s_loc, 0, s_loc).to(torch.int32)
+        o, lse = flash_decode(
+            q, k_shards[i], v_shards[i], local, sm_scale=sm_scale,
+            chunk_k=chunk_k, return_lse=True,
+            k_scale=None if k_scale is None else k_scale[i],
+            v_scale=None if v_scale is None else v_scale[i])
+        os_.append(o.to(torch.float32))
+        lses.append(lse)
+    return os_, lses
+
+
+def distributed_flash_decode(qs, k_shards, v_shards, kv_len, ctx, *,
+                             sm_scale: float | None = None,
+                             chunk_k: int = 256, method: str = "xla",
+                             k_scale=None, v_scale=None):
+    """Decode attention over a cache sequence-sharded over the context's
+    ranks in rank order: ``qs[r] [B, Hq, D]`` (each rank's copy of the
+    replicated q), ``k_shards[r]``/``v_shards[r] [B, Hkv, S_loc, D]``,
+    ``kv_len [B]`` int32 GLOBAL lengths;
+    ``k_scale[r]``/``v_scale[r] [B, Hkv, S_loc/chunk_k]`` f32 switch the
+    local pass to int8 slices. Returns ``[B, Hq, D]`` a rank (q's dtype)."""
+    n = ctx.tp
+    os_, lses = _local_partials(qs, k_shards, v_shards, kv_len, range(n),
+                                sm_scale=sm_scale, chunk_k=chunk_k,
+                                k_scale=k_scale, v_scale=v_scale)
+    if n == 1:
+        return [os_[0].to(qs[0].dtype)]
+    merged, _ = _gather_merge(os_, lses, ctx, method)
+    return [o.to(qs[0].dtype) for o in merged]
+
+
+def distributed_flash_decode_2level(qs, k_shards, v_shards, kv_len, ctx, *,
+                                    sm_scale: float | None = None,
+                                    chunk_k: int = 256, method: str = "xla",
+                                    k_scale=None, v_scale=None):
+    """The same over a ``dp x tp`` context, the cache sharded in global
+    rank order ``d * tp + t`` (one tensor a global rank): the partials
+    merge within each dp group (``method``), then once across the groups
+    (plain)."""
+    tp, dp = ctx.tp, ctx.dp
+    if len(qs) != ctx.world:
+        raise ValueError(f"q: {len(qs)} tensors for dp x tp = {ctx.world}")
+    os_, lses = _local_partials(qs, k_shards, v_shards, kv_len,
+                                range(ctx.world), sm_scale=sm_scale,
+                                chunk_k=chunk_k, k_scale=k_scale,
+                                v_scale=v_scale)
+    o_sl, lse_sl = [], []
+    for d in range(dp):
+        sl = slice(d * tp, (d + 1) * tp)
+        if tp == 1:
+            o, lse = os_[sl], lses[sl]
+        else:
+            o, lse = _gather_merge(os_[sl], lses[sl], ctx.group(d), method)
+        o_sl += o
+        lse_sl += lse
+    outs = []
+    for r in range(ctx.world):
+        t = r % tp
+        group = [d * tp + t for d in range(dp)]
+        o, _ = lse_combine(torch.stack([o_sl[i] for i in group]),
+                           torch.stack([lse_sl[i] for i in group]), 0)
+        outs.append(o.to(qs[r].dtype))
+    return outs

@@ -1,8 +1,9 @@
 """Collectives over co-located ranks (counterpart of
 ``triton_distributed_tpu.ops.collectives``): the all-gathers (full mesh,
 ring, bidirectional ring), the reduce-scatters (one-shot, ring,
-bidirectional ring, HBM ring) and the all-reduces (one-shot, doubling,
-two-shot). The rest wait for ROADMAP queue 1 position 3."""
+bidirectional ring, HBM ring), the all-reduces (one-shot, doubling,
+two-shot) and the dense all-to-all. The rest wait for ROADMAP queue 1
+position 3."""
 
 from triton_distributed_tpu_torch.ops.collectives.all_gather import (  # noqa: F401
     AllGatherMethod,
@@ -11,6 +12,12 @@ from triton_distributed_tpu_torch.ops.collectives.all_gather import (  # noqa: F
     all_gather_full_mesh,
     all_gather_plain,
     all_gather_ring,
+)
+from triton_distributed_tpu_torch.ops.collectives.all_to_all import (  # noqa: F401
+    all_to_all,
+    all_to_all_kernel,
+    all_to_all_op,
+    all_to_all_plain,
 )
 from triton_distributed_tpu_torch.ops.collectives.all_reduce import (  # noqa: F401
     AllReduceMethod,

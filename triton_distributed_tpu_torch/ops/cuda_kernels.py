@@ -40,9 +40,10 @@ NVCC_FLAGS = (
 # Sources, each one shared library (megakernel_moe.cu is megakernel.cu
 # built with its MoE instantiations only; overlap.cu holds the three
 # GEMM+collective kernels, collectives.cu the all-gathers, reduce-scatters
-# and all-reduces).
+# and all-reduces, all_to_all.cu the dense all-to-all and the EP exchange,
+# sp_attention.cu the sequence-parallel all-gather attention).
 SOURCES = ("flash_attention", "flash_decode", "megakernel", "megakernel_moe",
-           "overlap", "collectives")
+           "overlap", "collectives", "all_to_all", "sp_attention")
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -312,6 +313,27 @@ ALL_REDUCE_ONE_SHOT = CudaKernel(
     "all_reduce_one_shot", "collectives", "tdt_all_reduce_launch", _AR_ARGS)
 ALL_REDUCE_DOUBLING = CudaKernel(
     "all_reduce_doubling", "collectives", "tdt_all_reduce_launch", _AR_ARGS)
+# The dense all-to-all of csrc/all_to_all.cu: host tables of the per-rank
+# x and o pointers, the flags' device table, n, chunk bytes, epoch, blocks
+# per rank, stream.
+ALL_TO_ALL = CudaKernel(
+    "all_to_all", "all_to_all", "tdt_all_to_all_launch",
+    [_I64P, _I64P, _P, _I, _LL, _U64, _I, _P])
+# The EP exchange of the same source: host tables of the per-rank rows,
+# out, splits and recv_counts pointers (the counts stay on the device), the
+# flags' device table, n, segment capacity (rows), row bytes, epoch, blocks
+# per rank, the lagging rank (-1: none) and its lag in ns, stream.
+EP_EXCHANGE = CudaKernel(
+    "ep_exchange", "all_to_all", "tdt_ep_exchange_launch",
+    [_I64P, _I64P, _I64P, _I64P, _P, _I, _LL, _LL, _U64, _I, _I, _LL, _P])
+# The sequence-parallel all-gather attention of csrc/sp_attention.cu:
+# dtype, group, host tables of the per-rank q/k/v/o/lse pointers, the
+# workspace's and flags' device tables, n, hkv, s_loc, head dim, softmax
+# scale, epoch, blocks per rank, stream.
+SP_AG_ATTENTION = CudaKernel(
+    "sp_ag_attention", "sp_attention", "tdt_sp_ag_attention_launch",
+    [_I, _I, _I64P, _I64P, _I64P, _I64P, _I64P, _P, _P, _I, _I, _I, _I, _F,
+     _U64, _I, _P])
 KERNELS = (FLASH_ATTENTION, FLASH_DECODE, PAGED_FLASH_DECODE,
            FLASH_ATTENTION_INT8, PAGED_FLASH_DECODE_INT8,
            FLASH_ATTENTION_BIAS, MEGA_DECODE, FLASH_ATTENTION_COLD,
@@ -322,7 +344,7 @@ KERNELS = (FLASH_ATTENTION, FLASH_DECODE, PAGED_FLASH_DECODE,
            REDUCE_SCATTER_ONE_SHOT, REDUCE_SCATTER_RING,
            REDUCE_SCATTER_BIDIR_RING, REDUCE_SCATTER_RING_HBM,
            ALL_REDUCE_ONE_SHOT, ALL_REDUCE_DOUBLING, MEGA_DECODE_MOE_TP,
-           MEGA_PREFILL_TP)
+           MEGA_PREFILL_TP, ALL_TO_ALL, EP_EXCHANGE, SP_AG_ATTENTION)
 
 
 def coresident_blocks(library_name: str, symbol: str, *args) -> int:

@@ -21,6 +21,14 @@ device-resident int64 table of the n slot pointers. A kernel takes the
 table and a rank, never a base plus a stride, so ranks on separate cards
 change only where the table comes from (CUDA IPC, torch symmetric
 memory).
+
+A ``dp`` axis (``DistContext(dp=...)``, ``initialize_distributed(dp=,
+tp=)``) lays ``dp * tp`` co-located ranks out dp-major, rank ``d * tp +
+t``, as the JAX mesh's ``me = outer * n_in + inner``. ``tp`` stays the
+inner axis the cross-rank kernels run over: :meth:`DistContext.group`
+is dp group d's own ``tp``-rank context (its own symmetric workspaces
+and flags), so an inner-axis kernel takes one group's pointer tables.
+``dp=1`` (the default) is the context every earlier entry point took.
 """
 
 from __future__ import annotations
@@ -58,29 +66,51 @@ class SymmBuffer:
 
 
 class DistContext:
-    """``tp`` ranks on one device, in one dtype.
+    """``dp * tp`` ranks on one device, in one dtype (dp-major).
 
     ``tp == 1`` is the one-device context every tp=1 entry point took
     before (``DeviceContext`` is this class)."""
 
     def __init__(self, device: torch.device, dtype: torch.dtype,
-                 tp: int = 1):
-        if int(tp) < 1:
-            raise ValueError(f"tp must be >= 1, got {tp}")
+                 tp: int = 1, dp: int = 1):
+        if int(tp) < 1 or int(dp) < 1:
+            raise ValueError(f"tp and dp must be >= 1, got tp={tp}, dp={dp}")
         self.device = device
         self.dtype = dtype
         self.tp = int(tp)
+        self.dp = int(dp)
         self._workspaces: dict = {}
         self._flag_sites: dict = {}  # language.primitives.site_flags
+        self._groups: dict = {}
 
     @classmethod
     def create(cls, device=None, dtype: torch.dtype = torch.bfloat16,
-               tp: int = 1) -> "DistContext":
-        return cls(resolve_device(device), dtype, tp)
+               tp: int = 1, dp: int = 1) -> "DistContext":
+        return cls(resolve_device(device), dtype, tp, dp)
 
     def __repr__(self) -> str:
-        return (f"DistContext(tp={self.tp}, device={self.device}, "
+        dp = f"dp={self.dp}, " if self.dp > 1 else ""
+        return (f"DistContext({dp}tp={self.tp}, device={self.device}, "
                 f"dtype={self.dtype})")
+
+    @property
+    def world(self) -> int:
+        """Ranks of the context: ``dp * tp``."""
+        return self.dp * self.tp
+
+    def group(self, d: int) -> "DistContext":
+        """dp group ``d``'s ``tp`` ranks (global ranks ``d * tp .. d * tp
+        + tp - 1``) as a context of their own; the same object on every
+        call. At ``dp == 1`` group 0 is the context itself."""
+        if not 0 <= int(d) < self.dp:
+            raise ValueError(f"dp group {d} outside dp={self.dp}")
+        if self.dp == 1:
+            return self
+        g = self._groups.get(int(d))
+        if g is None:
+            g = self._groups[int(d)] = DistContext(self.device, self.dtype,
+                                                   self.tp)
+        return g
 
     def shard(self, t: torch.Tensor, dim: int) -> list[torch.Tensor]:
         """``tp`` contiguous shards of ``t`` along ``dim`` (rank r's is
@@ -128,10 +158,10 @@ class DistContext:
 DeviceContext = DistContext
 
 
-def initialize_distributed(tp: int = 1, *, device=None,
+def initialize_distributed(tp: int = 1, *, dp: int = 1, device=None,
                            dtype: torch.dtype = torch.bfloat16
                            ) -> DistContext:
-    """A context of ``tp`` ranks on one device (``cuda`` unless
+    """A context of ``dp * tp`` ranks on one device (``cuda`` unless
     ``device`` says otherwise): the counterpart of the JAX
-    ``initialize_distributed(tp=n)``."""
-    return DistContext.create(device, dtype, tp)
+    ``initialize_distributed(dp=, tp=)``."""
+    return DistContext.create(device, dtype, tp, dp)
