@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Chip smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py                  # every phase
+    python3 chip_smoke.py --only coll      # chosen phases (PHASES), alone
 
 from the repository root. It builds the port's CUDA kernels from the
 sources in the checkout, holds each kernel against its plain PyTorch
@@ -55,7 +56,12 @@ version, the whole output against the single-card ``flash_attention``, a
 zeroed-chunk control, f32 at 4096 tokens, back-to-back launches),
 ``ring_attention``, ``sp_decode_attention`` and ``distributed_flash_decode``
 (bf16 and int8, pallas and xla) and the two-level variants over dp x tp =
-2 x 2. Before the serving paths the decode megakernel is held
+2 x 2; then the remaining collectives at Qwen3-8B's width over co-located
+ranks: ``pp_shift`` of a 2048-token prefill micro-batch and a decode one,
+the pull all-gather at windows 1-3, ``all_gather_torus_2d`` over dp x tp =
+2 x 4, ``broadcast``, 64 chained ``ll_all_gather`` calls at n = 4 and 8
+(the ACK flags checked after) and the two-level ops, every output bitwise
+its plain version, NaN-filled outputs and odd row widths. Before the serving paths the decode megakernel is held
 against its plain version at Qwen3-0.6B's full width and depth (B=4,
 kv_len {700, 2040, 700, 2040}, NS 1 and 8; dense and paged caches, the
 int8 pool, int8 weights over the paged pool and over the int8 pool),
@@ -93,6 +99,7 @@ directory without the port.
 
 from __future__ import annotations
 
+import argparse
 import importlib
 import json
 import statistics
@@ -7248,7 +7255,420 @@ def check_sp(dev):
         "checks": res, "ms_by_n": timed, "seconds": time.perf_counter() - t0}
 
 
-def main() -> int:
+# -- Phase 9: the remaining collectives ---------------------------------------
+
+COLL_MODEL = TP_MODEL   # Qwen3-8B: hidden 4096, bf16
+COLL_N = 4
+# Rows a rank: a 2048-token prefill micro-batch between pipeline stages
+# (16 MiB at hidden 4096 bf16) and a decode one.
+COLL_SHIFT_ROWS = (2048, 32)
+COLL_GATHER_ROWS = 192      # the full-mesh row of PERF.md's kernel table
+COLL_WINDOWS = (1, 2, 3)
+COLL_BCAST_ROWS = (2048, 4)
+COLL_LL_ROWS = 8            # decode size: 64 KiB a rank
+COLL_LL_RANKS = (4, 8)
+COLL_LL_CALLS = 64
+COLL_HIER = (2, 4)          # (dp, tp)
+COLL_HIER_ROWS = (192, 384)  # all_gather_2d; reduce_scatter_2d, all_reduce
+# Odd row widths at n = 2, f32: 400-byte and 20-byte rows.
+COLL_ODD = ((3, 100), (3, 5))
+COLL_PATH_KERNELS = {
+    "pp_shift": ("pp_shift",),
+    "all_gather_pull": ("all_gather_pull",),
+    "all_gather_torus_2d": ("all_gather_torus_2d",),
+    "broadcast": ("broadcast",),
+    "ll_all_gather": ("ll_all_gather",),
+    "hier_2level": ("all_gather_bidir_ring", "reduce_scatter_bidir_ring"),
+}
+_COLL_SRC = "triton_distributed_tpu_torch/csrc/collectives.cu"
+
+
+def _bits_equal(got, want) -> bool:
+    """Bytes equal, rank by rank (a NaN left in an output never matches)."""
+    import torch
+
+    return len(got) == len(want) and all(
+        g.shape == w.shape and g.dtype == w.dtype and torch.equal(
+            g.contiguous().view(torch.uint8), w.contiguous().view(torch.uint8))
+        for g, w in zip(got, want))
+
+
+def check_collectives(dev):
+    """Phase 9: the pipeline shift, the pull and 2-D torus all-gathers, the
+    one-shot broadcast, the low-latency all-gather and the two-level
+    collectives at Qwen3-8B's width (hidden 4096, bf16) over ranks
+    co-located on the card. Each path through its public entry point with
+    the launch counts reset just before it; every output bitwise its plain
+    version; each kernel again into NaN-filled outputs at the main shapes
+    and at odd row widths (f32, n = 2); the LL ACK flags after 64 calls;
+    the two-level sums against an f32 fold. Returns (records by kernel,
+    launches by path, e2e)."""
+    import gc
+    import itertools
+
+    import torch
+    import torch.nn.functional as F
+
+    from triton_distributed_tpu_torch.models import get_config
+    from triton_distributed_tpu_torch.ops import cuda_kernels as ck
+    from triton_distributed_tpu_torch.ops.collectives import (
+        AllGatherMethod,
+        all_gather,
+        all_gather_2d,
+        all_gather_full_mesh,
+        all_gather_plain,
+        all_gather_torus_2d,
+        all_reduce_2level,
+        broadcast,
+        ll_all_gather,
+        ll_all_gather_workspace,
+        ll_expected_flags,
+        ll_flags,
+        reduce_scatter_2d,
+    )
+    from triton_distributed_tpu_torch.parallel import pp_shift
+    from triton_distributed_tpu_torch.runtime import initialize_distributed
+
+    # The modules (the packages export functions of the same names).
+    p2p = importlib.import_module("triton_distributed_tpu_torch.parallel.p2p")
+    agm = importlib.import_module(
+        "triton_distributed_tpu_torch.ops.collectives.all_gather")
+    bcm = importlib.import_module(
+        "triton_distributed_tpu_torch.ops.collectives.broadcast")
+    llm = importlib.import_module(
+        "triton_distributed_tpu_torch.ops.collectives.low_latency")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    d = get_config(COLL_MODEL).hidden_size
+    bf = torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(SEED + 80)
+    n = COLL_N
+    ctx = initialize_distributed(n, device=dev, dtype=bf)
+    dp, tp = COLL_HIER
+    ctx2 = initialize_distributed(tp, dp=dp, device=dev, dtype=bf)
+
+    def shards(k, rows, cols=d, dtype=bf):
+        return [torch.randn((rows, cols), generator=gen, device=dev).to(dtype)
+                for _ in range(k)]
+
+    def nan(k, shape, dtype=bf):
+        return [torch.full(shape, float("nan"), dtype=dtype, device=dev)
+                for _ in range(k)]
+
+    launches, bitwise, errs = {}, {}, {}
+
+    def drive(path, fn):
+        """One path through its entry points, its own launch counts."""
+        ck.reset_launch_counts()
+        got = fn()
+        torch.cuda.synchronize()
+        launches[path] = ck.launch_counts()
+        return got
+
+    def hold(tag, got, want):
+        """got bitwise want; max |got - want| kept by kernel (the tag's
+        first word)."""
+        name = tag.split()[0]
+        errs[name] = max([errs.get(name, 0.0)] + [
+            float((g.float() - w.float()).abs().max()) for g, w in
+            zip(got, want)])
+        if not _bits_equal(got, want):
+            raise RuntimeError(f"coll {tag}: the kernel's output differs "
+                               "from its plain version")
+        bitwise[tag] = True
+
+    # The main paths, through the public entry points.
+    sh = {r: shards(n, r) for r in COLL_SHIFT_ROWS}
+    runs = drive("pp_shift", lambda: [
+        (pp_shift(sh[r], ctx, wrap=w), p2p.pp_shift_plain(sh[r], w))
+        for r, w in ((COLL_SHIFT_ROWS[0], False), (COLL_SHIFT_ROWS[0], True),
+                     (COLL_SHIFT_ROWS[1], False))])
+    for i, (got, want) in enumerate(runs):
+        hold(f"pp_shift run {i}", got, want)
+    ag_in = shards(n, COLL_GATHER_ROWS)
+    runs = drive("all_gather_pull", lambda: [
+        all_gather(ag_in, ctx, AllGatherMethod.PALLAS_PULL, pull_window=w)
+        for w in COLL_WINDOWS])
+    for w, got in zip(COLL_WINDOWS, runs):
+        hold(f"all_gather_pull w={w}", got, all_gather_plain(ag_in))
+    tor_in = shards(dp * tp, COLL_GATHER_ROWS)
+    got = drive("all_gather_torus_2d",
+                lambda: all_gather_torus_2d(tor_in, ctx2))
+    hold("all_gather_torus_2d", got, all_gather_plain(tor_in))
+    bc_in = {r: shards(n, r) for r in COLL_BCAST_ROWS}
+    cases = [(r, root) for r in COLL_BCAST_ROWS for root in (0, n - 1)]
+    runs = drive("broadcast", lambda: [broadcast(bc_in[r], ctx, root)
+                                       for r, root in cases])
+    for (r, root), got in zip(cases, runs):
+        hold(f"broadcast [{r}] root {root}", got,
+             bcm.broadcast_plain(bc_in[r], root))
+
+    def ll_calls():
+        kept, wss = [], {}
+        for k in COLL_LL_RANKS:
+            c = initialize_distributed(k, device=dev, dtype=bf)
+            ws = ll_all_gather_workspace(c, COLL_LL_ROWS, d, bf)
+            for phase in range(COLL_LL_CALLS):
+                xs = shards(k, COLL_LL_ROWS)
+                out, ws = ll_all_gather(xs, ws, phase, c)
+                kept.append((k, phase, xs, out))
+            wss[k] = (c, ws)
+        return kept, wss
+    kept, ll_ws = drive("ll_all_gather", ll_calls)
+    for k, phase, xs, out in kept:
+        hold(f"ll_all_gather n={k} call {phase}", out, all_gather_plain(xs))
+    acks = {}
+    for k, (c, ws) in ll_ws.items():
+        flags = ll_flags(ws)
+        want = ll_expected_flags(ws)
+        for kind in ("acks", "arrivals"):
+            if not torch.equal(flags[kind].cpu(), want):
+                raise RuntimeError(f"ll_all_gather n={k}: the {kind} flags "
+                                   "are not the discipline's")
+        acks[k] = sorted({int(v) for v in flags["acks"].flatten().tolist()})
+    print(f"[coll] ll_all_gather [{COLL_LL_ROWS}, {d}] bf16 a rank at n="
+          f"{COLL_LL_RANKS}: {COLL_LL_CALLS} back-to-back calls on one "
+          f"workspace each bitwise the plain gather; every rank's ACK and "
+          f"arrival flags the predicted values {json.dumps(acks)}")
+
+    # The two-level collectives: dp x tp = 2 x 4, inner kernels by AUTO.
+    h_ag = shards(dp * tp, COLL_HIER_ROWS[0])
+    h_x = shards(dp * tp, COLL_HIER_ROWS[1])
+    ag2, rs2, ar2 = drive("hier_2level", lambda: (
+        all_gather_2d(h_ag, ctx2), reduce_scatter_2d(h_x, ctx2),
+        all_reduce_2level(h_x, ctx2)))
+    hold("all_gather_2d", ag2, all_gather_plain(h_ag))
+    gold = h_x[0].float()
+    for x_ in h_x[1:]:
+        gold = gold + x_.float()   # the f32 fold in global rank order
+    pieces = torch.chunk(gold, dp * tp)
+    atol, rtol = _tp_limit(bf, dp * tp)
+
+    def use(got, want):
+        return float(((got.float() - want).abs()
+                      / (atol + rtol * want.abs())).max())
+    hier_use = {
+        "reduce_scatter_2d": max(use(rs2[di * tp + t], pieces[t * dp + di])
+                                 for di in range(dp) for t in range(tp)),
+        "all_reduce_2level": max(use(o, gold) for o in ar2)}
+    if not max(hier_use.values()) <= 1.0:
+        raise RuntimeError(f"coll two-level sums over the limit: "
+                           f"{json.dumps(hier_use)}")
+    print(f"[coll] two-level dp x tp = {dp} x {tp}: all_gather_2d "
+          f"[{COLL_HIER_ROWS[0]}, {d}] bitwise; reduce_scatter_2d and "
+          f"all_reduce_2level [{COLL_HIER_ROWS[1]}, {d}] against the f32 "
+          f"fold, of the limit ({atol}, {rtol}): {json.dumps(hier_use)}")
+    _paths_launched(launches, COLL_PATH_KERNELS)
+    want_counts = {"pp_shift": 3, "all_gather_pull": len(COLL_WINDOWS),
+                   "all_gather_torus_2d": 1, "broadcast": len(cases),
+                   "ll_all_gather": COLL_LL_CALLS * len(COLL_LL_RANKS)}
+    for path, count in want_counts.items():
+        if launches[path][path] != count:
+            raise RuntimeError(f"{path} launched its kernel "
+                               f"{launches[path][path]} times, not {count}")
+
+    # Every kernel again into NaN-filled outputs (the negative control: an
+    # unwritten byte stays NaN), at the main shapes and at odd row widths.
+    def nan_checks(k_ctx, xs, tor_ctx, tor_xs, tag):
+        k = len(xs)
+        shape = tuple(xs[0].shape)
+        full = (k * shape[0], *shape[1:])
+        dt = xs[0].dtype
+        for w in (False, True):
+            hold(f"pp_shift NaN {tag} wrap {w}", p2p.pp_shift_kernel(
+                xs, k_ctx, w, out=nan(k, shape, dt)),
+                p2p.pp_shift_plain(xs, w))
+        for w in range(1, k):
+            hold(f"all_gather_pull NaN {tag} w={w}", agm.all_gather_pull(
+                xs, k_ctx, w, out=nan(k, full, dt)), all_gather_plain(xs))
+        for root in (0, k - 1):
+            hold(f"broadcast NaN {tag} root {root}", bcm.broadcast_kernel(
+                xs, k_ctx, root, out=nan(k, shape, dt)),
+                bcm.broadcast_plain(xs, root))
+        ws = ll_all_gather_workspace(k_ctx, shape[0], shape[1], dt)
+        for phase in range(3):
+            hold(f"ll_all_gather NaN {tag} call {phase}",
+                 llm.ll_all_gather_kernel(xs, ws, phase, k_ctx,
+                                          out=nan(k, full, dt)),
+                 all_gather_plain(xs))
+        m = len(tor_xs)
+        tshape = (m * tor_xs[0].shape[0], *tor_xs[0].shape[1:])
+        hold(f"all_gather_torus_2d NaN {tag}", agm.all_gather_torus_2d_kernel(
+            tor_xs, tor_ctx, out=nan(m, tshape, dt)), all_gather_plain(tor_xs))
+    nan_checks(ctx, sh[COLL_SHIFT_ROWS[1]], ctx2, tor_in, "main")
+    nan_checks(ctx, ag_in, ctx2, tor_in, "gather rows")
+    for rows, cols in COLL_ODD:
+        c2 = initialize_distributed(2, device=dev, dtype=torch.float32)
+        odd = shards(2, rows, cols, torch.float32)
+        for t_dp, t_tp in ((2, 1), (1, 2)):
+            tc = initialize_distributed(t_tp, dp=t_dp, device=dev,
+                                        dtype=torch.float32)
+            nan_checks(c2, odd, tc, shards(2, rows, cols, torch.float32),
+                       f"[{rows}, {cols}] f32 torus {t_dp}x{t_tp}")
+    torch.cuda.synchronize()
+    print(f"[coll] {len(bitwise)} kernel outputs bitwise their plain "
+          "versions (the NaN-filled ones included; odd widths "
+          f"{[list(s) for s in COLL_ODD]} f32 at n=2)")
+
+    # Records. Bound: the bytes the function must move over one HBM (the
+    # ranks share the card): each input it needs read once, each output
+    # written once. Library: one PyTorch call that writes every rank's
+    # output from the stacked shards.
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    shard = nbytes(sh[COLL_SHIFT_ROWS[0]][0])
+    g_shard = nbytes(ag_in[0])
+    xs = sh[COLL_SHIFT_ROWS[0]]
+    stacked = torch.stack(xs)
+    rec = {}
+
+    def gather_lib(parts):
+        """One copy_ of the stacked shards into every rank's output."""
+        k, src = len(parts), torch.stack(parts)
+        dst = torch.empty((k, *src.shape), dtype=src.dtype, device=dev)
+        return lambda: dst.copy_(src.expand(k, *src.shape))
+    rec["pp_shift"] = dict(
+        replaces="triton_distributed_tpu/parallel/p2p.py:43",
+        ms=median_ms(lambda: p2p.pp_shift_kernel(xs, ctx, False), flush),
+        plain_ms=median_ms(lambda: p2p.pp_shift_plain(xs, False), flush),
+        library_ms=median_ms(lambda: F.pad(stacked[:-1], (0, 0, 0, 0, 1, 0)),
+                             flush),
+        bound_ms=((n - 1) + n) * shard / HBM_BPS * 1e3,
+        ms_wrap=median_ms(lambda: p2p.pp_shift_kernel(xs, ctx, True), flush),
+        ms_decode=median_ms(lambda: p2p.pp_shift_kernel(
+            sh[COLL_SHIFT_ROWS[1]], ctx, False), flush),
+        shape=f"n={n}, [{COLL_SHIFT_ROWS[0]}, {d}] bf16 a rank, wrap off "
+              f"(library: one F.pad of the stacked shards)")
+    pull_ms = {w: median_ms(lambda w=w: agm.all_gather_pull(ag_in, ctx, w),
+                            flush) for w in COLL_WINDOWS}
+    rec["all_gather_pull"] = dict(
+        replaces="triton_distributed_tpu/ops/collectives/all_gather.py:182",
+        ms=pull_ms[2], ms_by_window=pull_ms,
+        plain_ms=median_ms(lambda: all_gather_plain(ag_in), flush),
+        library_ms=median_ms(gather_lib(ag_in), flush),
+        bound_ms=(n + n * n) * g_shard / HBM_BPS * 1e3,
+        full_mesh_ms=median_ms(lambda: all_gather_full_mesh(ag_in, ctx),
+                               flush),
+        shape=f"n={n}, [{COLL_GATHER_ROWS}, {d}] bf16 a rank, window 2 "
+              f"(the JAX default; by window {json.dumps(pull_ms)}; library: "
+              f"one copy_ of the stacked shards into every rank's output)")
+    m = dp * tp
+    rec["all_gather_torus_2d"] = dict(
+        replaces="triton_distributed_tpu/ops/collectives/all_gather.py:328",
+        ms=median_ms(lambda: agm.all_gather_torus_2d_kernel(tor_in, ctx2),
+                     flush),
+        plain_ms=median_ms(lambda: all_gather_plain(tor_in), flush),
+        library_ms=median_ms(gather_lib(tor_in), flush),
+        bound_ms=(m + m * m) * g_shard / HBM_BPS * 1e3,
+        shape=f"dp x tp = {dp} x {tp}, [{COLL_GATHER_ROWS}, {d}] bf16 a rank "
+              f"(library as the pull's)")
+    bx = bc_in[COLL_BCAST_ROWS[0]]
+    dst = torch.empty((n, *bx[0].shape), dtype=bf, device=dev)
+    rec["broadcast"] = dict(
+        replaces="triton_distributed_tpu/ops/collectives/broadcast.py:41",
+        ms=median_ms(lambda: bcm.broadcast_kernel(bx, ctx, 0), flush),
+        plain_ms=median_ms(lambda: bcm.broadcast_plain(bx, 0), flush),
+        library_ms=median_ms(lambda: dst.copy_(bx[0].expand(n, -1, -1)),
+                             flush),
+        bound_ms=(1 + n) * nbytes(bx[0]) / HBM_BPS * 1e3,
+        ms_small=median_ms(lambda: bcm.broadcast_kernel(
+            bc_in[COLL_BCAST_ROWS[1]], ctx, n - 1), flush),
+        shape=f"n={n}, [{COLL_BCAST_ROWS[0]}, {d}] bf16 from root 0 "
+              f"(library: one copy_ into the stacked outputs)")
+    # The LL gather beside the full mesh at the same shape: the full mesh
+    # at its own grid and at the LL's (what the entry barrier costs).
+    ll_ms, fm_ms, fm_same = {}, {}, {}
+    for k, (c, ws) in ll_ws.items():
+        xs_k = shards(k, COLL_LL_ROWS)
+        phases = itertools.count(ws.phase + 1)
+        ll_ms[k] = median_ms(lambda xs_k=xs_k, c=c, ws=ws, phases=phases:
+                             llm.ll_all_gather_kernel(xs_k, ws, next(phases),
+                                                      c), flush)
+        fm_ms[k] = median_ms(lambda xs_k=xs_k, c=c:
+                             all_gather_full_mesh(xs_k, c), flush)
+        fm_same[k] = median_ms(lambda xs_k=xs_k, c=c, g=ws.blocks:
+                               all_gather_full_mesh(xs_k, c, g), flush)
+    xs_ll = shards(n, COLL_LL_ROWS)
+    rec["ll_all_gather"] = dict(
+        replaces="triton_distributed_tpu/ops/collectives/low_latency.py:62",
+        ms=ll_ms[n], ms_by_n=ll_ms, full_mesh_ms_by_n=fm_ms,
+        full_mesh_ll_grid_ms_by_n=fm_same,
+        blocks_by_n={k: ws.blocks for k, (_, ws) in ll_ws.items()},
+        plain_ms=median_ms(lambda: all_gather_plain(xs_ll), flush),
+        library_ms=median_ms(gather_lib(xs_ll), flush),
+        bound_ms=(n + n * n) * nbytes(xs_ll[0]) / HBM_BPS * 1e3,
+        shape=f"n={n}, [{COLL_LL_ROWS}, {d}] bf16 a rank, barrier-free; "
+              f"beside all_gather_full_mesh at the same shape "
+              f"{json.dumps(fm_ms)} (by n; library as the pull's)")
+    for name, r in rec.items():
+        r.update(route="cuda", source=_COLL_SRC, bound_by="bytes",
+                 max_abs_err=errs[name])
+        print(f"[coll] {name} {r['shape']}: {r['ms']:.4f} ms, plain "
+              f"{r['plain_ms']:.4f}, library {r['library_ms']:.4f}, bound "
+              f"{r['bound_ms']:.4f} ms (bytes)")
+    print(f"[coll] pp_shift wrap {rec['pp_shift']['ms_wrap']:.4f} ms, decode "
+          f"[{COLL_SHIFT_ROWS[1]}, {d}] {rec['pp_shift']['ms_decode']:.4f}; "
+          f"broadcast [{COLL_BCAST_ROWS[1]}, {d}] "
+          f"{rec['broadcast']['ms_small']:.4f}; ll_all_gather by n "
+          f"{json.dumps(ll_ms)} against the full mesh {json.dumps(fm_ms)}, "
+          f"at the LL's grid {json.dumps(fm_same)}")
+    del flush, sh, bc_in, stacked, dst
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec, launches, {"bitwise_checks": len(bitwise),
+                           "hier_limit_use": hier_use, "ll_acks": acks,
+                           "seconds": time.perf_counter() - t0}
+
+
+def _flushed(check):
+    """A phase that takes the L2-flush buffer, given a fresh one."""
+    def run(dev):
+        import torch
+
+        return check(dev, torch.empty(64 << 20, dtype=torch.uint8,
+                                      device=dev))
+    return run
+
+
+def _mega_phase(dev):
+    rec, more = _flushed(check_mega)(dev)
+    return {"mega_decode": rec, **more}, {}, None
+
+
+def _tiny_phase(dev):
+    check_tiny_serving(dev)
+    return {}, {}, None
+
+
+# The phases in the order of a whole run: name -> (fn(dev) -> (records,
+# launches by path, e2e), the path tables whose kernels it launches; None:
+# every library).
+PHASES = {
+    "kernels": (lambda dev: (_flushed(check_kernels)(dev), {}, None), None),
+    "mega": (_mega_phase, None),
+    "tiny": (_tiny_phase, None),
+    "serve": (lambda dev: ({}, *serve_main_path(dev)), (PATH_KERNELS,)),
+    "moe": (check_moe, (MOE_PATH_KERNELS,)),
+    "tp": (check_tp, (TP_PATH_KERNELS, TP_MEGA_PATH_KERNELS,
+                      TP_PREFILL_PATH_KERNELS)),
+    "moe_tp": (check_moe_tp, (MOE_TP_PATH_KERNELS, MOE_TP_MEGA_PATH_KERNELS)),
+    "ep": (check_ep, (EP_PATH_KERNELS,)),
+    "sp": (check_sp, (SP_PATH_KERNELS,)),
+    "coll": (check_collectives, (COLL_PATH_KERNELS,)),
+}
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description="Chip smoke run of the port.")
+    ap.add_argument("--only", default="", metavar="PHASE[,PHASE]",
+                    help="run only these phases (to measure one again; "
+                         f"of {', '.join(PHASES)}); the default runs all")
+    args = ap.parse_args(argv)
+    only = [p for p in args.only.split(",") if p]
+    unknown = sorted(set(only) - set(PHASES))
+    if unknown:
+        return fail(f"unknown phases {unknown}; of {list(PHASES)}")
+    names = [p for p in PHASES if p in only] or list(PHASES)
     try:
         import torch
     except ImportError:
@@ -7265,54 +7685,27 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     card = gpu_line()
     print(card)
+    tables = [PHASES[p][1] for p in names]
+    need = {k for tabs in tables for tab in tabs or () for ks in tab.values()
+            for k in ks}
+    libs = (ck.SOURCES if None in tables else tuple(sorted(
+        {k.library_name for k in ck.KERNELS if k.name in need})))
     t0 = time.perf_counter()
-    ck.build()
-    print(f"[build] {len(ck.SOURCES)} kernel libraries ready in "
+    ck.build(libs)
+    print(f"[build] {len(libs)} kernel libraries ready in "
           f"{time.perf_counter() - t0:.1f} s ({ck.BUILD_DIR})")
 
-    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
     phase_s = {"build": time.perf_counter() - t0}
-    t0 = time.perf_counter()
-    records = check_kernels(dev, flush)
-    phase_s["kernels"] = time.perf_counter() - t0
-    print(f"[time] kernels: {phase_s['kernels']:.1f} s", flush=True)
-    t0 = time.perf_counter()
-    records["mega_decode"], more = check_mega(dev, flush)
-    records.update(more)
-    phase_s["mega"] = time.perf_counter() - t0
-    print(f"[time] mega: {phase_s['mega']:.1f} s", flush=True)
-    del flush
-    t0 = time.perf_counter()
-    check_tiny_serving(dev)
-    phase_s["tiny"] = time.perf_counter() - t0
-    print(f"[time] tiny: {phase_s['tiny']:.1f} s", flush=True)
-    t0 = time.perf_counter()
-    launches, e2e = serve_main_path(dev)
-    phase_s["serve"] = time.perf_counter() - t0
-    print(f"[time] serve: {phase_s['serve']:.1f} s", flush=True)
-    t0 = time.perf_counter()
-    moe_records, moe_launches, e2e["moe"] = check_moe(dev)
-    records.update(moe_records)
-    launches.update(moe_launches)
-    phase_s["moe"] = time.perf_counter() - t0
-    print(f"[time] moe: {phase_s['moe']:.1f} s", flush=True)
-    t0 = time.perf_counter()
-    tp_records, tp_launches, e2e["tp"] = check_tp(dev)
-    records.update(tp_records)
-    launches.update(tp_launches)
-    phase_s["tp"] = time.perf_counter() - t0
-    print(f"[time] tp: {phase_s['tp']:.1f} s", flush=True)
-    t0 = time.perf_counter()
-    mtp_records, mtp_launches, e2e["moe_tp"] = check_moe_tp(dev)
-    records.update(mtp_records)
-    launches.update(mtp_launches)
-    phase_s["moe_tp"] = time.perf_counter() - t0
-    print(f"[time] moe_tp: {phase_s['moe_tp']:.1f} s", flush=True)
-    for name, phase in (("ep", check_ep), ("sp", check_sp)):
+    records, launches, e2e = {}, {}, {}
+    for name in names:
         t0 = time.perf_counter()
-        more_records, more_launches, e2e[name] = phase(dev)
+        more_records, more_launches, more_e2e = PHASES[name][0](dev)
         records.update(more_records)
         launches.update(more_launches)
+        if name == "serve":
+            e2e.update(more_e2e)
+        elif more_e2e is not None:
+            e2e[name] = more_e2e
         phase_s[name] = time.perf_counter() - t0
         print(f"[time] {name}: {phase_s[name]:.1f} s", flush=True)
     print(f"[time] seconds per phase: {json.dumps(phase_s)}; total "
@@ -7324,9 +7717,14 @@ def main() -> int:
     paths = {**PATH_KERNELS, **MOE_PATH_KERNELS, **TP_PATH_KERNELS,
              **TP_MEGA_PATH_KERNELS, **TP_PREFILL_PATH_KERNELS,
              **MOE_TP_PATH_KERNELS, **MOE_TP_MEGA_PATH_KERNELS,
-             **EP_PATH_KERNELS, **SP_PATH_KERNELS}
+             **EP_PATH_KERNELS, **SP_PATH_KERNELS, **COLL_PATH_KERNELS}
     for k in ck.KERNELS:
-        first = next(p for p, need in paths.items() if k.name in need)
+        first = next((p for p, need in paths.items()
+                      if k.name in need and p in launches), None)
+        if first is None or k.name not in records:
+            if only:   # its phase was left out
+                continue
+            return fail(f"{k.name}: no record, or no path launched it")
         kernels.append({
             "name": k.name, "launches": launches[first][k.name],
             "launches_path": first,
@@ -7336,10 +7734,13 @@ def main() -> int:
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"e2e": e2e}))
     print(card)
-    print(json.dumps({"ok": True, "device": {
+    ok = {"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),
-    }}))
+    }}
+    if only:
+        ok["phases"] = names
+    print(json.dumps(ok))
     return 0
 
 

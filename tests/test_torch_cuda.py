@@ -2799,3 +2799,256 @@ def test_sp_decode_and_ring_on_card_match_plain(dev, n, method):
         for a, c in zip(o, p):
             torch.testing.assert_close(a.float().cpu(), c.float(),
                                        atol=2e-2, rtol=0)
+
+
+# -- the shift, the pull and torus gathers, the broadcast, the LL gather -------
+
+# (rows, cols), dtype a rank: a decode-size row block at Qwen3-8B's width,
+# f32, and rows of 20 and 198 bytes (not whole 16-byte vectors).
+MOVE_SHAPES = [((16, 4096), torch.bfloat16), ((8, 128), torch.float32),
+               ((3, 5), torch.float32), ((3, 99), torch.bfloat16)]
+
+
+def _mods():
+    import importlib
+
+    return (importlib.import_module("triton_distributed_tpu_torch.parallel."
+                                    "p2p"),
+            importlib.import_module("triton_distributed_tpu_torch.ops."
+                                    "collectives.all_gather"),
+            importlib.import_module("triton_distributed_tpu_torch.ops."
+                                    "collectives.broadcast"),
+            importlib.import_module("triton_distributed_tpu_torch.ops."
+                                    "collectives.low_latency"))
+
+
+def _bits_equal(got, want) -> bool:
+    """Bytes equal (a NaN left in an output never matches)."""
+    return all(torch.equal(g.contiguous().view(torch.uint8),
+                           w.contiguous().view(torch.uint8))
+               for g, w in zip(got, want))
+
+
+def _nan(n, shape, dtype, dev):
+    return [torch.full(shape, float("nan"), dtype=dtype, device=dev)
+            for _ in range(n)]
+
+
+def _shards(dev, n, shape, dtype, seed):
+    rng = np.random.default_rng(seed)
+    return [_rand(rng, shape, dtype, dev) for _ in range(n)]
+
+
+@pytest.mark.parametrize("shape,dtype", MOVE_SHAPES)
+@pytest.mark.parametrize("n", [2, 4, 8])
+def test_pp_shift_kernel_bitwise_plain(dev, n, shape, dtype):
+    """Into NaN-filled outputs, wrap off and on: every rank's bytes the
+    plain shift's (rank 0's zeros included)."""
+    p2p = _mods()[0]
+    ctx = _ctx(dev, n, dtype)
+    for wrap in (False, True):
+        xs = _shards(dev, n, shape, dtype, n + wrap)
+        before = ck.PP_SHIFT.launches
+        got = p2p.pp_shift_kernel(xs, ctx, wrap, out=_nan(n, shape, dtype,
+                                                           dev))
+        torch.cuda.synchronize()
+        assert ck.PP_SHIFT.launches == before + 1
+        assert _bits_equal(got, p2p.pp_shift_plain(xs, wrap))
+
+
+@pytest.mark.parametrize("shape,dtype", MOVE_SHAPES)
+@pytest.mark.parametrize("n", [2, 4, 8])
+def test_all_gather_pull_kernel_bitwise_plain(dev, n, shape, dtype):
+    """Every window from 1 to n - 1 (and one past it), into NaN-filled
+    outputs: every rank's gather the shards in rank order."""
+    ag = _mods()[1]
+    ctx = _ctx(dev, n, dtype)
+    full = (n * shape[0], shape[1])
+    for w in [*range(1, n), n + 3]:
+        xs = _shards(dev, n, shape, dtype, 10 * n + w)
+        before = ck.ALL_GATHER_PULL.launches
+        got = ag.all_gather_pull(xs, ctx, w, out=_nan(n, full, dtype, dev))
+        torch.cuda.synchronize()
+        assert ck.ALL_GATHER_PULL.launches == before + 1
+        assert _bits_equal(got, ag.all_gather_plain(xs)), w
+
+
+@pytest.mark.parametrize("shape,dtype", MOVE_SHAPES)
+@pytest.mark.parametrize("dp,tp", [(2, 2), (2, 4), (4, 2)])
+def test_all_gather_torus_2d_kernel_bitwise_plain(dev, dp, tp, shape, dtype):
+    from triton_distributed_tpu_torch.runtime import initialize_distributed
+
+    ag = _mods()[1]
+    ctx = initialize_distributed(tp, dp=dp, device=dev, dtype=dtype)
+    n = dp * tp
+    xs = _shards(dev, n, shape, dtype, n)
+    before = ck.ALL_GATHER_TORUS_2D.launches
+    got = ag.all_gather_torus_2d_kernel(
+        xs, ctx, out=_nan(n, (n * shape[0], shape[1]), dtype, dev))
+    torch.cuda.synchronize()
+    assert ck.ALL_GATHER_TORUS_2D.launches == before + 1
+    assert _bits_equal(got, ag.all_gather_plain(xs))
+    assert _bits_equal(ag.all_gather_torus_2d(xs, ctx),
+                       ag.all_gather_plain(xs))
+    assert ck.ALL_GATHER_TORUS_2D.launches == before + 2
+
+
+@pytest.mark.parametrize("shape,dtype", MOVE_SHAPES)
+@pytest.mark.parametrize("n", [2, 4, 8])
+def test_broadcast_kernel_bitwise_plain(dev, n, shape, dtype):
+    bc = _mods()[2]
+    ctx = _ctx(dev, n, dtype)
+    for root in range(n):
+        xs = _shards(dev, n, shape, dtype, root)
+        before = ck.BROADCAST.launches
+        got = bc.broadcast_kernel(xs, ctx, root,
+                                  out=_nan(n, shape, dtype, dev))
+        torch.cuda.synchronize()
+        assert ck.BROADCAST.launches == before + 1
+        assert _bits_equal(got, bc.broadcast_plain(xs, root)), root
+
+
+@pytest.mark.parametrize("barrier_free", [True, False])
+@pytest.mark.parametrize("shape,dtype", MOVE_SHAPES)
+@pytest.mark.parametrize("n", [2, 4, 8])
+def test_ll_all_gather_kernel_chained_calls(dev, n, shape, dtype,
+                                            barrier_free):
+    """20 calls back to back on one workspace, a fresh input each, into
+    NaN-filled outputs, every call checked; then every rank's arrival and
+    ACK flags read what the discipline predicts."""
+    ll = _mods()[3]
+    ag = _mods()[1]
+    ctx = _ctx(dev, n, dtype)
+    ws = ll.ll_all_gather_workspace(ctx, shape[0], shape[1], dtype)
+    full = (n * shape[0], shape[1])
+    before = ck.LL_ALL_GATHER.launches
+    kept = []
+    for phase in range(20):
+        xs = _shards(dev, n, shape, dtype, 100 + phase)
+        kept.append((xs, ll.ll_all_gather_kernel(
+            xs, ws, phase, ctx, barrier_free, out=_nan(n, full, dtype,
+                                                       dev))))
+    torch.cuda.synchronize()
+    assert ck.LL_ALL_GATHER.launches == before + 20
+    for xs, got in kept:
+        assert _bits_equal(got, ag.all_gather_plain(xs))
+    flags = ll.ll_flags(ws)
+    want = ll.ll_expected_flags(ws)
+    assert torch.equal(flags["acks"].cpu(), want)
+    assert torch.equal(flags["arrivals"].cpu(), want)
+    with pytest.raises(ValueError, match="advances the phase"):
+        ll.ll_all_gather_kernel(xs, ws, 25, ctx)
+
+
+def test_ll_all_gather_variants_alternate_on_one_workspace(dev):
+    """Barrier-free and entry-barrier calls alternate on one workspace
+    (both write the ACKs), through the public entry point."""
+    ll = _mods()[3]
+    n = 4
+    ctx = _ctx(dev, n)
+    ws = ll.ll_all_gather_workspace(ctx, 8, 4096, torch.bfloat16)
+    for phase in range(9):
+        xs = _shards(dev, n, (8, 4096), torch.bfloat16, phase)
+        out, ws = ll.ll_all_gather(xs, ws, phase, ctx,
+                                   barrier_free=None if phase % 3 else False)
+        assert _bits_equal(out, [torch.cat(xs)] * n)
+    torch.cuda.synchronize()
+    assert torch.equal(ll.ll_flags(ws)["acks"].cpu(),
+                       ll.ll_expected_flags(ws))
+
+
+def test_move_kernels_stress_back_to_back(dev):
+    """20 launches of each byte mover back to back at n = 4, bf16, fresh
+    inputs, every output checked."""
+    p2p, ag, bc, _ = _mods()
+    from triton_distributed_tpu_torch.runtime import initialize_distributed
+
+    n, shape, dt = 4, (64, 4096), torch.bfloat16
+    ctx = _ctx(dev, n)
+    ctx2 = initialize_distributed(n, dp=2, device=dev, dtype=dt)
+    kept = []
+    for i in range(20):
+        xs = _shards(dev, n, shape, dt, 1000 + i)
+        x8 = _shards(dev, 2 * n, shape, dt, 2000 + i)
+        kept += [
+            (p2p.pp_shift(xs, ctx, wrap=bool(i % 2)),
+             p2p.pp_shift_plain(xs, bool(i % 2))),
+            (ag.all_gather(xs, ctx, ag.AllGatherMethod.PALLAS_PULL,
+                           pull_window=1 + i % 3), ag.all_gather_plain(xs)),
+            (bc.broadcast(xs, ctx, i % n), bc.broadcast_plain(xs, i % n)),
+            (ag.all_gather_torus_2d(x8, ctx2), ag.all_gather_plain(x8)),
+        ]
+    torch.cuda.synchronize()
+    for got, want in kept:
+        assert _bits_equal(got, want)
+
+
+def test_move_kernels_auto_and_refusals_on_card(dev):
+    """On the card AUTO launches the shift and broadcast kernels for a
+    >= 2-D input (the plain version only for 1-D); a grid that cannot be
+    co-resident is refused without counting a launch."""
+    p2p, ag, bc, _ = _mods()
+    n = 4
+    ctx = _ctx(dev, n)
+    xs = _shards(dev, n, (8, 256), torch.bfloat16, 0)
+    ck.reset_launch_counts()
+    p2p.pp_shift(xs, ctx)
+    bc.broadcast(xs, ctx, 2)
+    ag.all_gather(xs, ctx, ag.AllGatherMethod.PALLAS_PULL)
+    flat = [x[0] for x in xs]
+    assert _bits_equal(p2p.pp_shift(flat, ctx), p2p.pp_shift_plain(flat))
+    assert _bits_equal(bc.broadcast(flat, ctx, 1),
+                       bc.broadcast_plain(flat, 1))
+    torch.cuda.synchronize()
+    counts = ck.launch_counts()
+    assert (counts["pp_shift"], counts["broadcast"],
+            counts["all_gather_pull"]) == (1, 1, 1)
+    with pytest.raises(ValueError, match=">= 2-D"):
+        p2p.pp_shift(flat, ctx, method="pallas")
+    with pytest.raises(ValueError, match=">= 2-D"):
+        bc.broadcast(flat, ctx, 1, bc.BroadcastMethod.ONE_SHOT)
+    with pytest.raises(RuntimeError, match="cudaError"):
+        p2p.pp_shift_kernel(xs, ctx, blocks_per_rank=100_000)
+    assert ck.PP_SHIFT.launches == 1
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_hierarchical_on_card_match_plain(dev, dtype):
+    """dp x tp = 2 x 4: all_gather_2d bitwise the CPU's plain run;
+    reduce_scatter_2d with a named inner ring bitwise the CPU's (its
+    plain version repeats the ring's roundings); all_reduce_2level (AUTO:
+    the bidirectional rings on the card) within the cross-rank kernels'
+    limit of the CPU's f32 rank-order sum."""
+    from triton_distributed_tpu_torch.ops.collectives import (
+        ReduceScatterMethod,
+        all_gather_2d,
+        all_reduce_2level,
+        reduce_scatter_2d,
+    )
+    from triton_distributed_tpu_torch.runtime import initialize_distributed
+
+    got = {}
+    xs_np = [np.random.default_rng(r).standard_normal((384, 512)).astype(
+        np.float32) for r in range(8)]
+    for where in (dev, "cpu"):
+        ctx = initialize_distributed(4, dp=2, device=where, dtype=dtype)
+        xs = [torch.from_numpy(a).to(where, dtype) for a in xs_np]
+        ck.reset_launch_counts()
+        got[where] = (
+            all_gather_2d([x[:96].contiguous() for x in xs], ctx),
+            reduce_scatter_2d(
+                xs, ctx, inner_method=ReduceScatterMethod.PALLAS_BIDIR_RING),
+            all_reduce_2level(xs, ctx))
+        if where == dev:
+            torch.cuda.synchronize()
+            c = ck.launch_counts()
+            assert c["all_gather_bidir_ring"] == 4
+            assert c["reduce_scatter_bidir_ring"] == 4
+    card, cpu = got[dev], got["cpu"]
+    assert _bits_equal([t.cpu() for t in card[0]], cpu[0])
+    assert _bits_equal([t.cpu() for t in card[1]], cpu[1])
+    atol, rtol = ((1e-4, 1e-5) if dtype == torch.float32
+                  else (2.0**-6 * 8, 2.0**-7 * 8))
+    for a, b in zip(card[2], cpu[2]):
+        torch.testing.assert_close(a.float().cpu(), b.float(), atol=atol,
+                                   rtol=rtol)

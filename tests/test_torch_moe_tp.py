@@ -500,7 +500,7 @@ def test_moe_tp_refusals():
         with pytest.raises(NotImplementedError, match="position 4"):
             check_dims(dataclasses.replace(dims, **kw), MegaConfig())
     # mode="ring" serves (ops/moe/ring_moe.py) and equals mode="xla";
-    # the pull all-gather stays refused (queue 1 position 3).
+    # the pull all-gather serves too (its CPU form is the plain gather).
     ctx = port_tp(2)
     mlp = [{k: v[0] for k, v in q["layers"]["mlp"].items()}
            for q in m.rank_params]
@@ -510,5 +510,6 @@ def test_moe_tp_refusals():
     xla = tp_moe_fwd(mlp, x, 2, mode="xla", ctx=ctx)
     for a, b in zip(ring, xla):
         np.testing.assert_allclose(a.numpy(), b.numpy(), atol=ATOL, rtol=0)
-    with pytest.raises(NotImplementedError, match="queue 1 position 3"):
-        tcol.all_gather(x, ctx, AllGatherMethod.PALLAS_PULL)
+    pull = tcol.all_gather(x, ctx, AllGatherMethod.PALLAS_PULL)
+    for a, b in zip(pull, tcol.all_gather(x, ctx, AllGatherMethod.XLA)):
+        assert torch.equal(a, b)

@@ -38,6 +38,7 @@ SLICE_MODULES = [
     "triton_distributed_tpu_torch.language",
     "triton_distributed_tpu_torch.ops.collectives",
     "triton_distributed_tpu_torch.ops.overlap",
+    "triton_distributed_tpu_torch.parallel",
     "triton_distributed_tpu_torch.ops.cuda_kernels",
     "triton_distributed_tpu_torch.ops.attention",
     "triton_distributed_tpu_torch.layers.tp_attn",

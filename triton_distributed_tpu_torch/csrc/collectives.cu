@@ -8,9 +8,16 @@
 //   all_reduce.py     _one_shot_kernel :78, _doubling_kernel :113, and the
 //                     lagging-rank fixture _straggle_entry :151 (here a lag
 //                     argument of the one-shot, doubling and ring RS launches)
+//   all_gather.py     _pull_kernel :182, _torus_2d_kernel :328
+//   broadcast.py      _one_shot_bcast_kernel :41
+//   low_latency.py    _ll_ag_kernel :62
+// and triton_distributed_tpu/parallel/p2p.py _shift_kernel :43 (the
+// pipeline neighbour shift).
 // The port's AUTO follows the JAX dispatch (ops/collectives/*.py of the
-// port): the tensor-parallel MoE layer reaches every one of them by size
-// and rank count.
+// port): the tensor-parallel MoE layer reaches every reduction and the
+// ring and full-mesh gathers by size and rank count; the shift, the pull
+// and torus gathers, the broadcast and the low-latency gather are reached
+// by their own entry points, as in JAX.
 //
 // What they compute. The all-gathers move bytes only: every rank's output
 // is the shards in rank order, bitwise. The reductions follow the JAX
@@ -42,10 +49,36 @@
 // Symmetric workspaces hold the received slots: AR one-shot n x M, AR
 // doubling log2(n) x M, RS one-shot n x chunk, RS rings (n-1) x chunk.
 //
+// The byte movers of the shift, the pull and torus gathers, the broadcast
+// and the low-latency gather move whole byte ranges (any size: 16-byte
+// vectors where both ends are aligned, bytes for the rest) and read every
+// byte through L2 (ld.cg), since a peer may have written it in this launch.
+// - shift: the entry barrier, then every sender puts piece g into rank
+//   me+1's output and flags it; rank 0 writes zeros without wrap.
+// - pull: no barrier. Block 0 of each rank raises its "entered" flag; the
+//   grid splits into w lanes and lane j reads sources me+1+j, me+1+j+w, ...
+//   in turn, each after that source's flag, into the own output: at most w
+//   peers read at once (the JAX window of outstanding requests).
+// - torus: one entry barrier over the world; the own chunk put along the
+//   column (the tp peers) and along the row (the dp peers), each column
+//   chunk forwarded along the row as its flag arrives, the row arrivals
+//   waited by (slot, piece) flags.
+// - broadcast: the entry barrier; the root copies into its own output and
+//   puts to every peer, one flag a (peer, piece); the peers wait.
+// - low-latency gather: no barrier. The shard goes into every peer's
+//   persistent slot p = phase % 2 of a symmetric workspace; the flags carry
+//   the caller's counter: an arrival reads phase + 1, and a producer
+//   overwrites a peer's slot p only once that peer's ACK for p reads
+//   phase - 1 (the use at phase - 2). With barrier_free 0 an entry barrier
+//   replaces the ACK wait (the JAX interpret-mode variant); the ACKs are
+//   still written, so the two variants may alternate on one workspace.
+//
 // C entries: tdt_all_gather_launch (kind 0 full mesh, 1 ring, 2 bidir
 // ring), tdt_reduce_scatter_launch (0 one-shot, 1 ring, 2 bidir ring,
-// 3 HBM ring), tdt_all_reduce_launch (0 one-shot, 1 doubling); the
-// co-resident limit of each kernel from tdt_collective_capacity.
+// 3 HBM ring), tdt_all_reduce_launch (0 one-shot, 1 doubling),
+// tdt_move_launch (0 shift, 1 broadcast, 2 pull, 3 torus),
+// tdt_ll_all_gather_launch; the co-resident limit of each kernel from
+// tdt_collective_capacity.
 #include <cuda_bf16.h>
 
 #include "tdt_comm.cuh"
@@ -483,7 +516,234 @@ ar_doubling_kernel(RankPtrs X, RankPtrs O, const int64_t* ws_tab,
   }
 }
 
+// ---- byte movers: shift, broadcast, pull and torus gathers, LL gather -------
+
+// The block copies `bytes` from s to d, every load through L2: a peer may
+// have written s in this launch, and a neighbouring piece read earlier
+// may have left a stale line of it in this SM's L1. 16-byte vectors where
+// both ends are aligned, bytes for the rest (any row width).
+__device__ __forceinline__ void copy_bytes(char* d, const char* s,
+                                     long long bytes) {
+  long long head = 0;
+  if (((reinterpret_cast<uintptr_t>(d) | reinterpret_cast<uintptr_t>(s)) &
+       15) == 0) {
+    const long long nv = bytes / 16;
+    uint4* dv = reinterpret_cast<uint4*>(d);
+    const uint4* sv = reinterpret_cast<const uint4*>(s);
+    for (long long i = threadIdx.x; i < nv; i += blockDim.x)
+      dv[i] = __ldcg(sv + i);
+    head = nv * 16;
+  }
+  for (long long i = head + threadIdx.x; i < bytes; i += blockDim.x)
+    d[i] = __ldcg(s + i);
+}
+
+__device__ __forceinline__ void fill_zero(char* d, long long bytes) {
+  long long head = 0;
+  if ((reinterpret_cast<uintptr_t>(d) & 15) == 0) {
+    const long long nv = bytes / 16;
+    uint4* dv = reinterpret_cast<uint4*>(d);
+    for (long long i = threadIdx.x; i < nv; i += blockDim.x)
+      dv[i] = make_uint4(0, 0, 0, 0);
+    head = nv * 16;
+  }
+  for (long long i = head + threadIdx.x; i < bytes; i += blockDim.x) d[i] = 0;
+}
+
+// Pipeline shift (p2p.py _shift_kernel): rank me's shard lands in rank
+// me + 1's output (rank 0 receives rank n - 1's with wrap, zeros without).
+// Flags of rank r: [0, n) the barrier, n + g piece g from rank r - 1.
+__global__ void __launch_bounds__(kThreads)
+shift_kernel(RankPtrs X, RankPtrs O, const int64_t* fl_tab, long long bytes,
+             int n, int wrap, uint64_t epoch) {
+  const int me = blockIdx.y, g = blockIdx.x, G = gridDim.x;
+  long long lo, hi;
+  byte_piece(0, bytes, g, G, lo, hi);
+  tdt::barrier_all(fl_tab, me, n, epoch, g == 0);
+  if (wrap || me < n - 1) {
+    const int nxt = (me + 1) % n;
+    copy_bytes(tdt::rank_ptr<char>(O, nxt) + lo,
+               tdt::rank_ptr<const char>(X, me) + lo, hi - lo);
+    block_signal(flag_at(fl_tab, nxt, n + g), epoch);
+  }
+  if (wrap || me > 0)
+    block_wait(flag_at(fl_tab, me, n + g), epoch);
+  else
+    fill_zero(tdt::rank_ptr<char>(O, me) + lo, hi - lo);
+}
+
+// One-shot broadcast (broadcast.py _one_shot_bcast_kernel): the root's x
+// into every rank's output. Flags of rank r: [0, n) the barrier, n + g.
+__global__ void __launch_bounds__(kThreads)
+bcast_kernel(RankPtrs X, RankPtrs O, const int64_t* fl_tab, long long bytes,
+             int n, int root, uint64_t epoch) {
+  const int me = blockIdx.y, g = blockIdx.x, G = gridDim.x;
+  long long lo, hi;
+  byte_piece(0, bytes, g, G, lo, hi);
+  tdt::barrier_all(fl_tab, me, n, epoch, g == 0);
+  if (me != root) {
+    block_wait(flag_at(fl_tab, me, n + g), epoch);
+    return;
+  }
+  const char* x = tdt::rank_ptr<const char>(X, root) + lo;
+  for (int p = 0; p < n; ++p)
+    copy_bytes(tdt::rank_ptr<char>(O, (root + p) % n) + lo, x, hi - lo);
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    __threadfence_system();
+    for (int p = 1; p < n; ++p)
+      tdt::st_release_sys(flag_at(fl_tab, (root + p) % n, n + g), epoch);
+  }
+}
+
+// Pull gather (all_gather.py _pull_kernel), no barrier: block 0 raises the
+// rank's "entered" flag (its flag 0: its shard is final, the rendezvous of
+// dl.request / dl.serve_get); lane j = g % w of the grid reads sources
+// me+1+j, me+1+j+w, ... in turn, each after its flag, into the own output.
+__global__ void __launch_bounds__(kThreads)
+pull_kernel(RankPtrs X, RankPtrs O, const int64_t* fl_tab, long long bytes,
+            int n, int window, uint64_t epoch) {
+  const int me = blockIdx.y, g = blockIdx.x, G = gridDim.x;
+  const int w = min(max(window, 1), n - 1);
+  char* o = tdt::rank_ptr<char>(O, me);
+  if (g == 0) block_signal(flag_at(fl_tab, me, 0), epoch);
+  long long lo, hi;
+  byte_piece(0, bytes, g, G, lo, hi);
+  copy_bytes(o + me * bytes + lo, tdt::rank_ptr<const char>(X, me) + lo,
+             hi - lo);
+  const int j = g % w;
+  byte_piece(0, bytes, g / w, (G - j + w - 1) / w, lo, hi);
+  for (int k = 1 + j; k < n; k += w) {
+    const int src = (me + k) % n;
+    block_wait(flag_at(fl_tab, src, 0), epoch);
+    copy_bytes(o + src * bytes + lo, tdt::rank_ptr<const char>(X, src) + lo,
+               hi - lo);
+  }
+}
+
+// Fused 2-D torus gather (all_gather.py _torus_2d_kernel) over nx x ny
+// ranks, rank mx * ny + my; slot s of every output holds rank s's shard.
+// Flags of rank r: [0, n) the barrier, n + s * G + g slot s's piece g.
+__global__ void __launch_bounds__(kThreads)
+torus_kernel(RankPtrs X, RankPtrs O, const int64_t* fl_tab, long long bytes,
+             int n, int ny, uint64_t epoch) {
+  const int me = blockIdx.y, g = blockIdx.x, G = gridDim.x;
+  const int nx = n / ny, mx = me / ny, my = me % ny;
+  long long lo, hi;
+  byte_piece(0, bytes, g, G, lo, hi);
+  const char* x = tdt::rank_ptr<const char>(X, me) + lo;
+  char* o_me = tdt::rank_ptr<char>(O, me);
+  auto col = [&](int q) { return mx * ny + (my + q) % ny; };
+  auto row = [&](int p) { return ((mx + p) % nx) * ny + my; };
+
+  copy_bytes(o_me + me * bytes + lo, x, hi - lo);
+  tdt::barrier_all(fl_tab, me, n, epoch, g == 0);
+  // The own chunk along the column and along the row.
+  for (int q = 1; q < ny; ++q)
+    copy_bytes(tdt::rank_ptr<char>(O, col(q)) + me * bytes + lo, x,
+               hi - lo);
+  for (int p = 1; p < nx; ++p)
+    copy_bytes(tdt::rank_ptr<char>(O, row(p)) + me * bytes + lo, x,
+               hi - lo);
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    __threadfence_system();
+    for (int q = 1; q < ny; ++q)
+      tdt::st_release_sys(flag_at(fl_tab, col(q), n + me * G + g), epoch);
+    for (int p = 1; p < nx; ++p)
+      tdt::st_release_sys(flag_at(fl_tab, row(p), n + me * G + g), epoch);
+  }
+  // Each column chunk forwarded along the row as it arrives.
+  for (int q = 1; q < ny; ++q) {
+    const int src = col(q);
+    block_wait(flag_at(fl_tab, me, n + src * G + g), epoch);
+    if (nx == 1) continue;
+    for (int p = 1; p < nx; ++p)
+      copy_bytes(tdt::rank_ptr<char>(O, row(p)) + src * bytes + lo,
+                 o_me + src * bytes + lo, hi - lo);
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      __threadfence_system();
+      for (int p = 1; p < nx; ++p)
+        tdt::st_release_sys(flag_at(fl_tab, row(p), n + src * G + g), epoch);
+    }
+  }
+  // The row arrivals: every slot of the other rows.
+  if (threadIdx.x == 0)
+    for (int p = 1; p < nx; ++p)
+      for (int t = 0; t < ny; ++t)
+        tdt::wait_until(
+            flag_at(fl_tab, me, n + (((mx + p) % nx) * ny + t) * G + g),
+            epoch);
+}
+
+// Low-latency gather (low_latency.py _ll_ag_kernel) over the persistent
+// symmetric slots ws [2][n][bytes] a rank. Flags of rank r (values: the
+// caller's phase + 1): [0, n) the barrier (barrier_free 0), then
+// n + (p * n + src) * G + g: src's piece g arrived in slot p; then
+// n + (2 + p) * n * G + c * G + g: consumer c's ACK of r's piece g in p.
+__global__ void __launch_bounds__(kThreads)
+ll_ag_kernel(RankPtrs X, RankPtrs O, const int64_t* ws_tab,
+             const int64_t* fl_tab, long long bytes, int n, uint64_t phase,
+             int barrier_free) {
+  const int me = blockIdx.y, g = blockIdx.x, G = gridDim.x;
+  const int p = static_cast<int>(phase & 1);
+  const uint64_t v = phase + 1;
+  const long long arr = n + static_cast<long long>(p) * n * G;
+  const long long ack = n + static_cast<long long>(2 + p) * n * G;
+  long long lo, hi;
+  byte_piece(0, bytes, g, G, lo, hi);
+  const char* x = tdt::rank_ptr<const char>(X, me) + lo;
+  char* o = tdt::rank_ptr<char>(O, me);
+
+  if (barrier_free) {
+    // Slot p's use at phase - 2 consumed by every peer before overwriting.
+    if (phase >= 2 && threadIdx.x == 0)
+      for (int q = 1; q < n; ++q)
+        tdt::wait_until(flag_at(fl_tab, me, ack + ((me + q) % n) * G + g),
+                        phase - 1);
+    __syncthreads();
+  } else {
+    tdt::barrier_all(fl_tab, me, n, v, g == 0);
+  }
+  // Push into every peer's persistent slot (p, me).
+  for (int q = 1; q < n; ++q)
+    copy_bytes(tdt::symm_ptr<char>(ws_tab, (me + q) % n) +
+                   (p * n + me) * bytes + lo,
+               x, hi - lo);
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    __threadfence_system();
+    for (int q = 1; q < n; ++q)
+      tdt::st_release_sys(flag_at(fl_tab, (me + q) % n, arr + me * G + g), v);
+  }
+  copy_bytes(o + me * bytes + lo, x, hi - lo);
+  // Wait the n - 1 arrivals of slot p, assemble, ACK every producer.
+  const char* ws = tdt::symm_ptr<const char>(ws_tab, me);
+  for (int q = 1; q < n; ++q) {
+    const int src = (me + q) % n;
+    block_wait(flag_at(fl_tab, me, arr + src * G + g), v);
+    copy_bytes(o + src * bytes + lo, ws + (p * n + src) * bytes + lo, hi - lo);
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    __threadfence_system();
+    for (int q = 1; q < n; ++q)
+      tdt::st_release_sys(flag_at(fl_tab, (me + q) % n, ack + me * G + g), v);
+  }
+}
+
 // ---- launch ----------------------------------------------------------------
+
+const void* move_fn(int kind) {
+  switch (kind) {
+    case 0: return reinterpret_cast<const void*>(&shift_kernel);
+    case 1: return reinterpret_cast<const void*>(&bcast_kernel);
+    case 2: return reinterpret_cast<const void*>(&pull_kernel);
+    case 3: return reinterpret_cast<const void*>(&torus_kernel);
+    default: return nullptr;
+  }
+}
 
 const void* ag_fn(int kind) {
   switch (kind) {
@@ -544,12 +804,55 @@ int coop_launch(const void* fn, int n, int blocks, void** args,
 extern "C" {
 
 // Co-resident blocks of a kernel: family 0 all-gather, 1 reduce-scatter,
-// 2 all-reduce; kind and dtype (0 f32, 1 bf16) as in the launches.
+// 2 all-reduce, 3 the byte movers of tdt_move_launch, 4 the low-latency
+// gather; kind and dtype (0 f32, 1 bf16) as in the launches.
 int tdt_collective_capacity(int family, int kind, int dtype) {
-  const void* fn = family == 0   ? ag_fn(kind)
-                   : family == 1 ? rs_fn(kind, dtype)
-                                 : ar_fn(kind, dtype);
+  const void* fn =
+      family == 0   ? ag_fn(kind)
+      : family == 1 ? rs_fn(kind, dtype)
+      : family == 2 ? ar_fn(kind, dtype)
+      : family == 3 ? move_fn(kind)
+      : family == 4 ? reinterpret_cast<const void*>(&ll_ag_kernel)
+                    : nullptr;
   return fn == nullptr ? 0 : tdt::capacity(fn, kThreads);
+}
+
+// The byte movers over n co-located ranks, x[r] and o[r] of `bytes` a
+// shard: kind 0 the pipeline shift (arg: wrap), 1 the one-shot broadcast
+// (arg: root), 2 the pull gather (arg: window; o[r] n shards, at least
+// min(window, n - 1) blocks a rank), 3 the 2-D torus gather over
+// n / arg x arg ranks (arg: the inner size; o[r] n shards).
+int tdt_move_launch(int kind, const int64_t* x, const int64_t* o,
+                    const int64_t* fl_tab, int n, long long bytes, int arg,
+                    unsigned long long epoch, int blocks_per_rank,
+                    void* stream) {
+  if (bytes < 0 || (kind == 1 && (arg < 0 || arg >= n)) ||
+      (kind == 2 && blocks_per_rank < (arg < n - 1 ? (arg < 1 ? 1 : arg)
+                                                   : n - 1)) ||
+      (kind == 3 && (arg < 1 || n % arg)))
+    return cudaErrorInvalidValue;
+  RankPtrs px = tdt::to_ptrs(x, n), po = tdt::to_ptrs(o, n);
+  uint64_t ep = epoch;
+  void* args[] = {&px, &po, &fl_tab, &bytes, &n, &arg, &ep};
+  return coop_launch(move_fn(kind), n, blocks_per_rank, args, stream);
+}
+
+// The low-latency gather: x[r] (`bytes`) into o[r] at r * bytes through
+// the symmetric slots ws_tab ([2][n][bytes] a rank) and flags fl_tab
+// (n + 4 * n * blocks_per_rank a rank, zeroed once, blocks_per_rank fixed
+// for the workspace), at the caller's phase counter.
+int tdt_ll_all_gather_launch(const int64_t* x, const int64_t* o,
+                             const int64_t* ws_tab, const int64_t* fl_tab,
+                             int n, long long bytes, unsigned long long phase,
+                             int barrier_free, int blocks_per_rank,
+                             void* stream) {
+  if (bytes < 0) return cudaErrorInvalidValue;
+  RankPtrs px = tdt::to_ptrs(x, n), po = tdt::to_ptrs(o, n);
+  uint64_t ph = phase;
+  void* args[] = {&px, &po, &ws_tab, &fl_tab, &bytes, &n, &ph,
+                  &barrier_free};
+  return coop_launch(reinterpret_cast<const void*>(&ll_ag_kernel), n,
+                     blocks_per_rank, args, stream);
 }
 
 // All-gather over n co-located ranks: x[r] (shard_bytes each) to every

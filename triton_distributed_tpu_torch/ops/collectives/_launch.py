@@ -5,10 +5,17 @@ from __future__ import annotations
 
 import torch
 
+from triton_distributed_tpu_torch.language.primitives import (
+    next_epoch,
+    site_flags,
+)
 from triton_distributed_tpu_torch.ops import cuda_kernels as ck
+from triton_distributed_tpu_torch.ops.common import rank_ptrs
 
 # Families of tdt_collective_capacity.
-ALL_GATHER, REDUCE_SCATTER, ALL_REDUCE = 0, 1, 2
+ALL_GATHER, REDUCE_SCATTER, ALL_REDUCE, MOVE, LOW_LATENCY = 0, 1, 2, 3, 4
+# Kinds of tdt_move_launch (family MOVE).
+SHIFT, BROADCAST, PULL, TORUS = 0, 1, 2, 3
 # Bytes a block moves, about: small messages take few blocks.
 BLOCK_BYTES = 64 << 10
 MAX_BLOCKS = 132
@@ -39,12 +46,18 @@ def blocks(family: int, kind: int, dtype: torch.dtype, n: int,
 
 
 def check_operands(name: str, xs, ctx, elementwise: bool) -> None:
-    """Every rank's tensor on the context's device, contiguous and 16-byte
-    aligned; the element kernels also need a dtype they take and rows
-    (leading-dim slices) of whole 16-byte vectors."""
+    """One tensor a rank, all of rank 0's shape (the kernels move rank 0's
+    byte count from every rank), on the context's device, contiguous and
+    16-byte aligned; the element kernels also need a dtype they take and
+    rows (leading-dim slices) of whole 16-byte vectors."""
+    if len(xs) != ctx.tp:
+        raise ValueError(f"{name}: {len(xs)} tensors for tp={ctx.tp}")
     x0 = xs[0]
     for r, t in enumerate(xs):
         ck.check_cuda_operand(f"{name}[{r}]", t, ctx.device, x0.dtype)
+        if t.shape != x0.shape:
+            raise ValueError(f"{name}[{r}] is {tuple(t.shape)}; rank 0's is "
+                             f"{tuple(x0.shape)}")
     if not elementwise:
         return
     if x0.dtype not in ck.DTYPE_CODES:
@@ -64,3 +77,42 @@ def lag(straggler_rank: int | None, straggler_nanos: int) -> tuple:
     if straggler_rank is None or not straggler_nanos:
         return -1, 0
     return int(straggler_rank), int(straggler_nanos)
+
+
+def outputs(name: str, shape, dtype, ctx, out=None) -> list[torch.Tensor]:
+    """One output of ``shape`` per rank: views of one fresh allocation, or
+    the caller's ``out`` (checked: a test pre-fills it, say with NaN, to
+    show that the kernel writes every byte)."""
+    n = ctx.tp
+    if out is None:
+        buf = torch.empty((n, *shape), dtype=dtype, device=ctx.device)
+        return [buf[r] for r in range(n)]
+    if len(out) != n:
+        raise ValueError(f"{name}: {len(out)} outputs for tp={n}")
+    for r, t in enumerate(out):
+        if tuple(t.shape) != tuple(shape) or t.dtype != dtype:
+            raise ValueError(f"{name}[{r}] is {tuple(t.shape)} {t.dtype}, "
+                             f"expected {tuple(shape)} {dtype}")
+        ck.check_cuda_operand(f"{name}[{r}]", t, ctx.device)
+    return list(out)
+
+
+def move(kernel, kind: int, site: str, xs, outs, ctx, arg: int,
+         flags_per_block: int, work_bytes: int,
+         blocks_per_rank: int | None = None, min_blocks: int = 1) -> list:
+    """One cooperative launch of a byte mover of ``tdt_move_launch`` over
+    the context's ranks: ``kind``'s kernel, its argument, the site's
+    flags (``n`` for the barrier plus ``flags_per_block`` a block) and a
+    grid of ~BLOCK_BYTES of ``work_bytes`` a block, at least
+    ``min_blocks`` (an explicit ``blocks_per_rank`` is passed on as it
+    is)."""
+    n = ctx.tp
+    x0 = xs[0]
+    g = blocks(MOVE, kind, x0.dtype, n, work_bytes, blocks_per_rank)
+    if blocks_per_rank is None:
+        g = max(g, min_blocks)
+    fs = site_flags(ctx, site, n + flags_per_block * g)
+    kernel(kind, rank_ptrs(xs), rank_ptrs(outs), fs.flags.table.data_ptr(),
+           n, x0.numel() * x0.element_size(), int(arg), next_epoch(fs),
+           int(g), ck.stream_ptr(x0))
+    return outs

@@ -12,8 +12,16 @@ the plain version of every method is the same concatenation.
 AUTO is the JAX dispatch (:257-269): on the card the full mesh for n <= 2
 or up to 64 KB a shard, else the bidirectional ring, which becomes the
 ring when a shard has fewer than 2 rows (:279); on the CPU ``XLA``, as the
-JAX AUTO does off the TPU. ``PALLAS_PULL`` (:182) is not ported (ROADMAP
-queue 1 position 3).
+JAX AUTO does off the TPU. ``PALLAS_PULL`` (``_pull_kernel`` :182,
+``pull_window`` :245) is the receiver-driven gather: no entry barrier,
+each rank reads its peers' shards itself, ``min(max(window, 1), n - 1)``
+peers at a time (:215); AUTO never takes it, as in JAX.
+
+:func:`all_gather_torus_2d` (:408, replacing ``_torus_2d_kernel`` :328)
+gathers over both axes of a ``dp x tp`` context in one launch of all its
+ranks, rank-major slots ``(d * tp + t) * m_per`` (the JAX ``(gx * ny +
+gy)`` order with ``ax = "dp"``). :func:`all_gather_op` (:443) is the
+host-level form.
 """
 
 from __future__ import annotations
@@ -83,6 +91,24 @@ def _gather_kernel(method: AllGatherMethod, xs, ctx,
     return outs
 
 
+def all_gather_pull(xs: list[torch.Tensor], ctx, window: int = 2, *,
+                    out=None) -> list[torch.Tensor]:
+    """The pull kernel: every rank reads its peers' shards into its own
+    output, ``min(max(window, 1), n - 1)`` peers at a time, with no entry
+    barrier. ``out`` (per rank ``[n * m_per, ...]``) receives the result
+    when given."""
+    n = ctx.tp
+    x0 = xs[0]
+    _launch.check_operands("x", xs, ctx, elementwise=False)
+    outs = _launch.outputs("out", (n * x0.shape[0], *x0.shape[1:]),
+                           x0.dtype, ctx, out)
+    w = min(max(int(window), 1), n - 1)
+    return _launch.move(ck.ALL_GATHER_PULL, _launch.PULL, "all_gather_pull",
+                        xs, outs, ctx, w, 0,
+                        work_bytes=n * x0.numel() * x0.element_size(),
+                        min_blocks=w)
+
+
 def all_gather_full_mesh(xs: list[torch.Tensor], ctx,
                          blocks_per_rank: int | None = None
                          ) -> list[torch.Tensor]:
@@ -118,15 +144,13 @@ def auto_method(nbytes: int, n: int) -> AllGatherMethod:
 
 
 def all_gather(xs: list[torch.Tensor], ctx,
-               method: AllGatherMethod = AllGatherMethod.AUTO
-               ) -> list[torch.Tensor]:
+               method: AllGatherMethod = AllGatherMethod.AUTO,
+               pull_window: int = 2) -> list[torch.Tensor]:
     """Gather the ranks' shards ``xs[r] [m_per, ...]`` along the leading
     dim: every rank gets ``[n * m_per, ...]``. Takes and returns one
-    tensor per rank. A kernel method on the CPU takes the plain version."""
+    tensor per rank; ``pull_window`` paces ``PALLAS_PULL``. A kernel
+    method on the CPU takes the plain version."""
     check_ranks("x", xs, ctx)
-    if method == AllGatherMethod.PALLAS_PULL:
-        raise NotImplementedError(
-            f"{method} is not ported yet (ROADMAP queue 1 position 3)")
     if ctx.tp == 1:
         return list(xs)
     n, m_per = ctx.tp, xs[0].shape[0]
@@ -137,4 +161,51 @@ def all_gather(xs: list[torch.Tensor], ctx,
         method = AllGatherMethod.PALLAS_RING  # halves degenerate (:279)
     if method == AllGatherMethod.XLA or not device_initiable(ctx):
         return all_gather_plain(xs)
+    if method == AllGatherMethod.PALLAS_PULL:
+        return all_gather_pull(xs, ctx, pull_window)
     return _gather_kernel(method, xs, ctx, None)
+
+
+def all_gather_op(x: torch.Tensor, ctx,
+                  method: AllGatherMethod = AllGatherMethod.AUTO,
+                  pull_window: int = 2) -> torch.Tensor:
+    """Host-level form: ``x [n * m_per, ...]`` sharded along its leading
+    dim over the ranks; returns ``[n, n * m_per, ...]`` (row r = rank r's
+    gathered copy)."""
+    return torch.stack(all_gather(ctx.shard(x, 0), ctx, method, pull_window))
+
+
+def all_gather_torus_2d_kernel(xs: list[torch.Tensor], ctx, *, out=None
+                               ) -> list[torch.Tensor]:
+    """One cooperative launch of the torus kernel over every rank of the
+    ``dp x tp`` context (its :meth:`~triton_distributed_tpu_torch.runtime.
+    mesh.DistContext.flat` tables and flags)."""
+    world = ctx.flat()
+    x0 = xs[0]
+    _launch.check_operands("x", xs, world, elementwise=False)
+    n = world.tp
+    outs = _launch.outputs("out", (n * x0.shape[0], *x0.shape[1:]),
+                           x0.dtype, world, out)
+    return _launch.move(ck.ALL_GATHER_TORUS_2D, _launch.TORUS,
+                        "all_gather_torus_2d", xs, outs, world, ctx.tp, n,
+                        work_bytes=n * x0.numel() * x0.element_size())
+
+
+def all_gather_torus_2d(xs: list[torch.Tensor], ctx,
+                        axes: tuple[str, str] = ("dp", "tp")
+                        ) -> list[torch.Tensor]:
+    """Gather over both axes of a ``dp x tp`` context in one kernel:
+    ``xs`` holds one ``[m_per, ...]`` shard per global rank (``d * tp +
+    t``); every rank gets ``[dp * tp * m_per, ...]`` in that order. Only
+    ``axes=("dp", "tp")`` (the JAX default, rank-major slots) is taken."""
+    if tuple(axes) != ("dp", "tp"):
+        raise ValueError(f"axes {axes!r}: the port takes ('dp', 'tp'), "
+                         "its rank order")
+    check_ranks("x", xs, ctx.flat())
+    if xs[0].dim() < 2:
+        raise ValueError("all_gather_torus_2d needs >= 2-D input")
+    if ctx.world == 1:
+        return list(xs)
+    if not device_initiable(ctx):
+        return all_gather_plain(xs)  # the shards in global rank order
+    return all_gather_torus_2d_kernel(xs, ctx)

@@ -39,8 +39,9 @@ NVCC_FLAGS = (
 )
 # Sources, each one shared library (megakernel_moe.cu is megakernel.cu
 # built with its MoE instantiations only; overlap.cu holds the three
-# GEMM+collective kernels, collectives.cu the all-gathers, reduce-scatters
-# and all-reduces, all_to_all.cu the dense all-to-all and the EP exchange,
+# GEMM+collective kernels, collectives.cu the all-gathers, reduce-scatters,
+# all-reduces, the pipeline shift, the broadcast and the low-latency
+# all-gather, all_to_all.cu the dense all-to-all and the EP exchange,
 # sp_attention.cu the sequence-parallel all-gather attention).
 SOURCES = ("flash_attention", "flash_decode", "megakernel", "megakernel_moe",
            "overlap", "collectives", "all_to_all", "sp_attention")
@@ -334,6 +335,27 @@ SP_AG_ATTENTION = CudaKernel(
     "sp_ag_attention", "sp_attention", "tdt_sp_ag_attention_launch",
     [_I, _I, _I64P, _I64P, _I64P, _I64P, _I64P, _P, _P, _I, _I, _I, _I, _F,
      _U64, _I, _P])
+# The byte movers of csrc/collectives.cu, one C entry point whose first
+# argument picks the kernel (0 the pipeline shift, 1 the one-shot
+# broadcast, 2 the pull gather, 3 the 2-D torus gather): kind, host tables
+# of the per-rank x and o pointers, the flags' device table, n, shard
+# bytes, the kernel's argument (wrap, root, window, inner size), epoch,
+# blocks per rank, stream.
+_MOVE_ARGS = [_I, _I64P, _I64P, _P, _I, _LL, _I, _U64, _I, _P]
+PP_SHIFT = CudaKernel("pp_shift", "collectives", "tdt_move_launch",
+                      _MOVE_ARGS)
+BROADCAST = CudaKernel("broadcast", "collectives", "tdt_move_launch",
+                       _MOVE_ARGS)
+ALL_GATHER_PULL = CudaKernel("all_gather_pull", "collectives",
+                             "tdt_move_launch", _MOVE_ARGS)
+ALL_GATHER_TORUS_2D = CudaKernel("all_gather_torus_2d", "collectives",
+                                 "tdt_move_launch", _MOVE_ARGS)
+# The low-latency all-gather: host tables of the per-rank x and o
+# pointers, the workspace's slot and flag device tables, n, shard bytes,
+# the caller's phase, barrier_free, blocks per rank, stream.
+LL_ALL_GATHER = CudaKernel(
+    "ll_all_gather", "collectives", "tdt_ll_all_gather_launch",
+    [_I64P, _I64P, _P, _P, _I, _LL, _U64, _I, _I, _P])
 KERNELS = (FLASH_ATTENTION, FLASH_DECODE, PAGED_FLASH_DECODE,
            FLASH_ATTENTION_INT8, PAGED_FLASH_DECODE_INT8,
            FLASH_ATTENTION_BIAS, MEGA_DECODE, FLASH_ATTENTION_COLD,
@@ -344,7 +366,9 @@ KERNELS = (FLASH_ATTENTION, FLASH_DECODE, PAGED_FLASH_DECODE,
            REDUCE_SCATTER_ONE_SHOT, REDUCE_SCATTER_RING,
            REDUCE_SCATTER_BIDIR_RING, REDUCE_SCATTER_RING_HBM,
            ALL_REDUCE_ONE_SHOT, ALL_REDUCE_DOUBLING, MEGA_DECODE_MOE_TP,
-           MEGA_PREFILL_TP, ALL_TO_ALL, EP_EXCHANGE, SP_AG_ATTENTION)
+           MEGA_PREFILL_TP, ALL_TO_ALL, EP_EXCHANGE, SP_AG_ATTENTION,
+           PP_SHIFT, ALL_GATHER_PULL, ALL_GATHER_TORUS_2D, BROADCAST,
+           LL_ALL_GATHER)
 
 
 def coresident_blocks(library_name: str, symbol: str, *args) -> int:

@@ -29,6 +29,8 @@ inner axis the cross-rank kernels run over: :meth:`DistContext.group`
 is dp group d's own ``tp``-rank context (its own symmetric workspaces
 and flags), so an inner-axis kernel takes one group's pointer tables.
 ``dp=1`` (the default) is the context every earlier entry point took.
+:meth:`DistContext.flat` is the whole world as one ``tp``-rank context,
+for a kernel that runs over both axes at once.
 """
 
 from __future__ import annotations
@@ -82,6 +84,7 @@ class DistContext:
         self._workspaces: dict = {}
         self._flag_sites: dict = {}  # language.primitives.site_flags
         self._groups: dict = {}
+        self._flat: DistContext | None = None
 
     @classmethod
     def create(cls, device=None, dtype: torch.dtype = torch.bfloat16,
@@ -111,6 +114,18 @@ class DistContext:
             g = self._groups[int(d)] = DistContext(self.device, self.dtype,
                                                    self.tp)
         return g
+
+    def flat(self) -> "DistContext":
+        """All ``dp * tp`` ranks as one context of ``tp = world`` ranks in
+        global rank order, with its own symmetric workspaces and flags:
+        what a kernel over every rank of the context launches over (the
+        2-D torus all-gather). The same object on every call; at ``dp ==
+        1`` the context itself."""
+        if self.dp == 1:
+            return self
+        if self._flat is None:
+            self._flat = DistContext(self.device, self.dtype, self.world)
+        return self._flat
 
     def shard(self, t: torch.Tensor, dim: int) -> list[torch.Tensor]:
         """``tp`` contiguous shards of ``t`` along ``dim`` (rank r's is
