@@ -282,6 +282,7 @@ MEGA_TIE_GAP = 0.1
 # Card peaks (H100 SXM data sheet, dense): HBM bytes/s, bf16/f16 FLOP/s.
 HBM_BPS = 3.35e12
 BF16_FLOPS = 989e12
+F32_FLOPS = 67e12       # outside the tensor cores (f32 with TF32 off)
 
 
 def fail(msg: str) -> int:
@@ -3717,6 +3718,67 @@ def serve_moe_paths(dev, model):
     return launches, e2e
 
 
+MOE_ALIGN_ROWS = 4      # one decode step's batch
+MOE_ALIGN_BLOCK = 16
+
+
+def check_native_align(dev, model) -> dict:
+    """The native MoE align/sort (``ops/moe/native_sort.py``, the port's
+    copy of ``csrc/moe_utils.cc`` built by g++ on the card's host): one
+    decode step's routing of ``model`` (top-k of its experts, layer 0's
+    router over MOE_ALIGN_ROWS random hidden rows) aligned to
+    MOE_ALIGN_BLOCK by the host planner and by the custom op equals the
+    torch ``moe_align_block_size`` on the card in all four fields."""
+    import numpy as np
+    import torch
+
+    from triton_distributed_tpu_torch import native
+    from triton_distributed_tpu_torch.ops.moe.native_sort import (
+        moe_align_block_size_host,
+        moe_align_block_size_op,
+    )
+    from triton_distributed_tpu_torch.ops.moe.routing import (
+        moe_align_block_size,
+        router_topk,
+    )
+
+    cfg = model.cfg
+    t0 = time.perf_counter()
+    native.build()
+    build_s = time.perf_counter() - t0
+    gen = torch.Generator(device=dev).manual_seed(SEED + 90)
+    h = torch.randn((MOE_ALIGN_ROWS, cfg.hidden_size), generator=gen,
+                    device=dev).to(cfg.dtype)
+    wr = model.params["layers"]["mlp"]["w_router"][0]
+    eids = router_topk(h, wr, cfg.num_experts_per_tok,
+                       norm_topk_prob=cfg.norm_topk_prob).expert_ids
+    E, bs = cfg.num_experts, MOE_ALIGN_BLOCK
+    want = moe_align_block_size(eids, E, bs)
+    host = moe_align_block_size_host(eids.cpu().numpy(), E, bs)
+    op = moe_align_block_size_op(eids.cpu(), E, bs)
+    for got, how in ((host, "host planner"), (op, "custom op")):
+        for f in ("sorted_ids", "block_expert", "num_blocks", "num_padded"):
+            if not np.array_equal(np.asarray(torch.as_tensor(
+                    getattr(got, f)).cpu()), getattr(want, f).cpu().numpy()):
+                raise RuntimeError(f"native align ({how}): {f} differs from "
+                                   "the torch moe_align_block_size")
+    flat = eids.cpu().numpy()
+    t1 = time.perf_counter()
+    for _ in range(100):
+        moe_align_block_size_host(flat, E, bs)
+    host_us = (time.perf_counter() - t1) / 100 * 1e6
+    res = {"build_s": build_s, "rows": MOE_ALIGN_ROWS,
+           "top_k": cfg.num_experts_per_tok, "experts": E, "block": bs,
+           "num_blocks": int(host.num_blocks),
+           "num_padded": int(host.num_padded), "host_us_per_call": host_us}
+    print(f"[moe] native align: built in {build_s:.2f} s; a decode step's "
+          f"routing ({MOE_ALIGN_ROWS} rows, top-{cfg.num_experts_per_tok} of "
+          f"{E}) aligned to {bs}: host planner and custom op == torch "
+          f"moe_align_block_size on the card in all four fields "
+          f"({res['num_blocks']} blocks); {host_us:.1f} us a host call")
+    return res
+
+
 def check_moe(dev):
     """Phase 4: Qwen3-30B-A3B. The f32 kernel check at MOE_F32_LAYERS
     layers, then the bf16 model at full width and depth: the kernel phase
@@ -3741,6 +3803,7 @@ def check_moe(dev):
     record["f32"] = f32
     del flush
     launches, e2e = serve_moe_paths(dev, model)
+    e2e["native_align"] = check_native_align(dev, model)
     return {"mega_decode_moe": record}, launches, e2e
 
 
@@ -3767,9 +3830,25 @@ TP_PATH_KERNELS = {
                       "gemm_rs", "all_gather"),
     "continuous_tp_chunk128": ("flash_attention", "paged_flash_decode",
                                "gemm_ar", "gemm_rs", "all_gather"),
-    "paged_engine_tp": ("flash_attention", "paged_flash_decode", "ag_gemm",
-                        "gemm_rs", "gemm_ar"),
+    "paged_engine_tp": ("flash_attention", "paged_flash_decode",
+                        "ag_gemm_adaptive", "gemm_rs", "gemm_ar"),
 }
+# The options of the overlap kernels (check_tp_options), each path one
+# call of a user's entry point with its option: ag_gemm in ring order
+# (adaptive=False; the prefill's default on the card is adaptive),
+# gemm_rs_op with an e4m3 wire (bf16 inputs) and a bf16 wire (f32
+# inputs), gemm_rs_op's one-rank ring (force_kernel at tp=1) and
+# gemm_ar_op's device trace ring.
+TP_OPTION_PATH_KERNELS = {
+    "ag_gemm_ring": ("ag_gemm",),
+    "gemm_rs_op_wire": ("gemm_rs_wire_e4m3", "gemm_rs_wire_bf16"),
+    "gemm_rs_op_n1": ("gemm_rs_n1",),
+    "gemm_ar_op_traced": ("gemm_ar_traced",),
+}
+TP_LAG_NS = 500_000     # the adaptive ag_gemm's lagging rank's least lag
+TP_LAG_RANK = 2
+TP_OPTION_STRESS = 100
+TP_TRACE_TILE = 512     # gemm_ar's default tile_n at N = 4096 (pick_tile)
 TP_SOURCES = {
     "gemm_ar": ("triton_distributed_tpu_torch/csrc/overlap.cu",
                 "triton_distributed_tpu/ops/overlap/gemm_ar.py:84"),
@@ -3779,6 +3858,16 @@ TP_SOURCES = {
                 "triton_distributed_tpu/ops/overlap/ag_gemm.py:163"),
     "all_gather": ("triton_distributed_tpu_torch/csrc/collectives.cu",
                    "triton_distributed_tpu/ops/collectives/all_gather.py:146"),
+    "ag_gemm_adaptive": ("triton_distributed_tpu_torch/csrc/overlap.cu",
+                         "triton_distributed_tpu/ops/overlap/ag_gemm.py:128"),
+    "gemm_rs_wire_e4m3": ("triton_distributed_tpu_torch/csrc/overlap.cu",
+                          "triton_distributed_tpu/ops/overlap/gemm_rs.py:116"),
+    "gemm_rs_wire_bf16": ("triton_distributed_tpu_torch/csrc/overlap.cu",
+                          "triton_distributed_tpu/ops/overlap/gemm_rs.py:116"),
+    "gemm_rs_n1": ("triton_distributed_tpu_torch/csrc/overlap.cu",
+                   "triton_distributed_tpu/ops/overlap/gemm_rs.py:116"),
+    "gemm_ar_traced": ("triton_distributed_tpu_torch/csrc/overlap.cu",
+                       "triton_distributed_tpu/ops/overlap/gemm_ar.py:84"),
 }
 
 
@@ -3917,7 +4006,7 @@ def check_tp_kernels(dev, flush) -> dict:
                   f"(half_m {half}): max |kernel - plain| {e:.3g}")
     for n, dt, m, k, nout in ag_cases:
         ctx, a, b = operands(n, dt, m, k, nout, rows=True)
-        got = ag_gemm_kernel(a, b, ctx)
+        got, _ = ag_gemm_kernel(a, b, ctx)
         e = check("ag_gemm", got, ag_gemm_plain(a, b), dt, n,
                   f"n={n} {m}x{k}x{nout}")
         if dt == bf16:
@@ -3945,7 +4034,8 @@ def check_tp_kernels(dev, flush) -> dict:
         a = [t + 0.01 for t in a]
         ar = [t - 0.01 for t in ar]
         kept.append((a, ar, gemm_ar_one_shot(a, b, ctx),
-                     gemm_rs_ring(a, b, ctx, 4), ag_gemm_kernel(ar, br, ctx2),
+                     gemm_rs_ring(a, b, ctx, 4),
+                     ag_gemm_kernel(ar, br, ctx2)[0],
                      all_gather_full_mesh(ar, ctx2)))
     torch.cuda.synchronize()
     for a, ar, g_ar, g_rs, g_ag, g_all in kept:
@@ -4034,6 +4124,453 @@ def check_tp_kernels(dev, flush) -> dict:
         lambda: all_gather_plain(xs), lambda: torch.cat(xs),
         n * shard + n * n * shard, 0)
     return records
+
+
+def check_tp_options(dev, flush) -> tuple:
+    """The options of the overlap kernels, each against its plain version
+    and the base build, then each through its user entry point with the
+    counts reset (TP_OPTION_PATH_KERNELS). The adaptive ag_gemm: bitwise
+    the ring build at the Qwen3-8B tp=2 QKV and FC1 shapes; at n = 4 (the
+    QKV at tp=4) with rank TP_LAG_RANK lagging (at least TP_LAG_NS and
+    one whole launch) every other rank computes that chunk last, and the
+    ring build's order, realized under the same lag (the control), fails
+    the same check; TP_OPTION_STRESS launches of each build with fresh
+    inputs at the tp=2 QKV shape and at n = 4 (m_per moving on one
+    context, every fourth launch lagged), each checked. gemm_rs's e4m3
+    wire at n = 2 and 4: integer-valued inputs bitwise the plain version,
+    random ones within (n-1) e4m3 ulps of the row's largest hop sum plus
+    the bf16 limit, planted first hops of 448, 460, 464, 465, -1000 give
+    NaN where the plain version does,
+    and the bf16-wire ring differs from it; the bf16 wire over f32 inputs
+    within the f32 limit plus (n-1) bf16 ulps. The one-rank ring: bf16
+    bitwise on integer-valued inputs, f32 within 1e-4 + 1e-5|p|. The
+    traced gemm_ar at the decode o-proj and FC2: the ring bitwise the
+    plain ring, decoded and valid, the outputs bitwise the untraced
+    launch's. Returns (records by kernel, launches by path)."""
+    import numpy as np
+    import torch
+
+    from triton_distributed_tpu_torch.models import get_config
+    from triton_distributed_tpu_torch.obs import kernel_trace as kt
+    from triton_distributed_tpu_torch.ops import cuda_kernels as ck
+    from triton_distributed_tpu_torch.ops.overlap import (
+        AGGemmConfig,
+        GemmARConfig,
+        GemmARMethod,
+        GemmRSConfig,
+        ag_gemm,
+        ag_gemm_plain,
+        gemm_ar_op,
+        gemm_ar_plain,
+        gemm_ar_ring_plain,
+        gemm_rs_op,
+        gemm_rs_plain,
+    )
+    from triton_distributed_tpu_torch.ops.overlap.ag_gemm import (
+        ag_gemm_kernel,
+    )
+    from triton_distributed_tpu_torch.ops.overlap.gemm_ar import (
+        gemm_ar_one_shot,
+        gemm_ar_traced,
+    )
+    from triton_distributed_tpu_torch.ops.overlap.gemm_rs import (
+        gemm_rs_ring,
+    )
+    from triton_distributed_tpu_torch.runtime import initialize_distributed
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(SEED + 15)
+    bf16, f32, e4m3 = torch.bfloat16, torch.float32, torch.float8_e4m3fn
+    cfg = get_config(TP_MODEL)
+    d, ff = cfg.hidden_size, cfg.intermediate_size
+    qkv = (cfg.num_q_heads + 2 * cfg.num_kv_heads) * cfg.head_dim
+    num_j = d // TP_TRACE_TILE
+
+    def rand(shape, dtype, scale=1.0):
+        return (torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).to(dev) * scale).to(dtype)
+
+    def ints(shape, lo, hi, dtype):
+        return torch.from_numpy(rng.integers(lo, hi, shape).astype(
+            np.float32)).to(dev, dtype)
+
+    def operands(n, dtype, m, k, nout, rows=False, integer=False):
+        ctx = initialize_distributed(n, device=dev, dtype=dtype)
+        if integer:
+            a, b = ints((m, k), -2, 3, dtype), ints((k, nout), -1, 2, dtype)
+        else:
+            a, b = rand((m, k), dtype), rand((k, nout), dtype, k**-0.5)
+        if rows:
+            return ctx, ctx.shard(a, 0), ctx.shard(b, 1)
+        return ctx, ctx.shard(a, 1), ctx.shard(b, 0)
+
+    def within(name, got, want, dtype, n, what, extra=None):
+        """|got - want| <= the base limit (+ extra), NaN where want has
+        NaN; returns the largest finite difference."""
+        atol, rtol = _tp_limit(dtype, n)
+        worst = 0.0
+        for i, (g, w) in enumerate(zip(got, want)):
+            g, w = g.float(), w.float()
+            if not torch.equal(torch.isnan(g), torch.isnan(w)):
+                raise RuntimeError(f"{name} {what}: NaN in other places "
+                                   "than the plain version's")
+            e = (g - w).abs().nan_to_num(0.0)
+            lim = atol + rtol * w.abs().nan_to_num(0.0)
+            if extra is not None:
+                lim = lim + extra[i]
+            if bool((e > lim).any()):
+                raise RuntimeError(
+                    f"{name} {what}: |kernel - plain| {float(e.max()):.3g} "
+                    "over the limit")
+            worst = max(worst, float(e.max()))
+        return worst
+
+    def hop_ulps(a, b, mantissa):
+        """Per rank's chunk: (n-1) ulps, of a wire with ``mantissa`` bits,
+        of each row's largest sum of |partial| (a bound on its hop sums):
+        an f32 partial summed in another order may flip a hop's rounding
+        once a hop."""
+        n = len(a)
+        mp = a[0].shape[0] // n
+        out = []
+        for c in range(n):
+            parts = sum((a[r][c * mp:(c + 1) * mp].float()
+                         @ b[r].float()).abs() for r in range(n))
+            top = parts.amax(1, keepdim=True).clamp_min(2.0**-6)
+            out.append((n - 1) * torch.exp2(torch.floor(torch.log2(top))
+                                            - mantissa))
+        return out
+
+    def bits(name, got, want, what):
+        if not _bits_equal(got, want):
+            raise RuntimeError(f"{name} {what}: not bitwise its reference")
+
+    max_abs = {k: 0.0 for k in ("ag_gemm_adaptive", "gemm_rs_wire_e4m3",
+                                "gemm_rs_wire_bf16", "gemm_rs_n1",
+                                "gemm_ar_traced")}
+    checks = {}
+
+    # -- the adaptive ag_gemm ------------------------------------------------
+    def adaptive_vs_ring(a, b, ctx, what, **kw):
+        """One launch of each build; the outputs bitwise equal, the adaptive
+        order a permutation a rank that starts with the own chunk. Returns
+        (outputs, adaptive order, the ring build's realized order)."""
+        got, order = ag_gemm_kernel(a, b, ctx, adaptive=True, **kw)
+        ring, ring_order = ag_gemm_kernel(a, b, ctx, **kw)
+        bits("ag_gemm_adaptive", got, ring, f"{what} vs ring")
+        n = len(a)
+        for r, row in enumerate(order.tolist()):
+            if row[0] != r or sorted(row) != list(range(n)):
+                raise RuntimeError(f"ag_gemm_adaptive {what}: order "
+                                   f"{order.tolist()}")
+        return got, order.tolist(), ring_order.tolist()
+
+    n = TP
+    for nl in (qkv // n, 2 * ff // n):
+        ctx, a, b = operands(n, bf16, 384, d, nl * n, rows=True)
+        got, order, _ = adaptive_vs_ring(a, b, ctx, f"n={n} n_loc={nl}")
+        e = within("ag_gemm_adaptive", got, ag_gemm_plain(a, b), bf16, n,
+                   f"n={n} n_loc={nl}")
+        max_abs["ag_gemm_adaptive"] = max(max_abs["ag_gemm_adaptive"], e)
+        print(f"[tp_opt] ag_gemm adaptive n={n} M=384 K={d} n_loc={nl} "
+              f"bf16: bitwise the ring build, max |kernel - plain| {e:.3g},"
+              f" order {order}")
+    # n = 4 at Qwen3-8B's QKV width at tp=4 (n_loc 1536). The lag is at
+    # least TP_LAG_NS and at least one whole un-lagged launch, so the late
+    # chunk has landed at none of the other ranks' step boundaries (on
+    # the FMA tiles a step takes ~0.3 ms: a 500 us lag alone lands before
+    # the third boundary and the pick then rightly takes it).
+    n4, late = 4, TP_LAG_RANK
+    ctx4, a4, b4 = operands(n4, bf16, 384, d, qkv, rows=True)
+    ring_ms = median_ms(lambda: ag_gemm_kernel(a4, b4, ctx4), flush)
+    lag_ns = max(TP_LAG_NS, int(ring_ms * 1e6))
+    lag = dict(straggler_rank=late, straggler_nanos=lag_ns)
+
+    def deferred(order):
+        return all(row[-1] == late for r, row in enumerate(order)
+                   if r != late)
+
+    _, rows, ring_rows = adaptive_vs_ring(a4, b4, ctx4, "n=4 lag", **lag)
+    if not deferred(rows):
+        raise RuntimeError(f"ag_gemm_adaptive n=4, rank {late} lagging: "
+                           f"order {rows} does not end in {late}")
+    # The control: the ring build's order, realized under the same lag.
+    if deferred(ring_rows) or ring_rows[1][1] != late:
+        raise RuntimeError(f"ag_gemm ring order {ring_rows} under the lag: "
+                           "the control passed the check")
+    lag_ms = {"adaptive": median_ms(
+        lambda: ag_gemm_kernel(a4, b4, ctx4, adaptive=True, **lag), flush),
+        "ring": median_ms(lambda: ag_gemm_kernel(a4, b4, ctx4, **lag),
+                          flush),
+        "adaptive_no_lag": median_ms(
+            lambda: ag_gemm_kernel(a4, b4, ctx4, adaptive=True), flush),
+        "ring_no_lag": ring_ms}
+    checks["ag_gemm_adaptive_lag"] = {"order": rows, "ring_order": ring_rows,
+                                      "lag_ns": lag_ns, "ms": lag_ms}
+    print(f"[tp_opt] ag_gemm adaptive n=4 M=384 K={d} n_loc={qkv // 4}, rank "
+          f"{late} lagging {lag_ns} ns: order "
+          f"{rows} (every other rank computes {late} last; the ring build's "
+          f"realized order {ring_rows} fails that check on rank 1); ms "
+          f"{lag_ms}")
+    # Stress, TP_OPTION_STRESS launches of each build back to back, fresh
+    # inputs, every output bitwise the ring build's and within the plain
+    # limit: at the main path's bf16 QKV shape (n = 2, M 384, n_loc 3072),
+    # then at n = 4 with the lag on a quarter of them and m_per moving
+    # through 64, 96, 192 and 256 on one context (the site's flag layout
+    # moves with m_per; its flags are never reset).
+    ctx, a, b = operands(TP, bf16, 384, d, qkv, rows=True)
+    kept = []
+    for i in range(TP_OPTION_STRESS):
+        a = [t - 2.0**-4 for t in a]
+        kept.append((a, *ag_gemm_kernel(a, b, ctx, adaptive=True),
+                     ag_gemm_kernel(a, b, ctx)[0]))
+    torch.cuda.synchronize()
+    for a, g, order, ring in kept:
+        bits("ag_gemm_adaptive", g, ring, "stress n=2 vs ring")
+        within("ag_gemm_adaptive", g, ag_gemm_plain(a, b), bf16, TP,
+               "stress n=2")
+        if order[:, 0].tolist() != list(range(TP)):
+            raise RuntimeError(f"ag_gemm_adaptive stress order {order}")
+    del kept
+    big = [rand((256, d), bf16) for _ in range(n4)]
+    kept = []
+    for i in range(TP_OPTION_STRESS):
+        mp = (64, 96, 192, 256)[i % 4]
+        a = [t[:mp] - 2.0**-4 * i for t in big]
+        kw = lag if i % 4 == 1 else {}
+        kept.append((a, *ag_gemm_kernel(a, b4, ctx4, adaptive=True, **kw),
+                     ag_gemm_kernel(a, b4, ctx4)[0]))
+    torch.cuda.synchronize()
+    for i, (a, g, order, ring) in enumerate(kept):
+        bits("ag_gemm_adaptive", g, ring, f"stress n=4 launch {i} vs ring")
+        if any(row[0] != r or sorted(row) != list(range(n4))
+               for r, row in enumerate(order.tolist())):
+            raise RuntimeError(f"ag_gemm_adaptive stress order {order}")
+        if i % 4 == 1 and not deferred(order.tolist()):
+            raise RuntimeError(f"ag_gemm_adaptive stress launch {i}: "
+                               f"order {order.tolist()} under the lag")
+        within("ag_gemm_adaptive", g, ag_gemm_plain(a, b4), bf16, n4,
+               f"stress n=4 launch {i}")
+    del kept, big, a4, b4
+    print(f"[tp_opt] ag_gemm adaptive stress: {TP_OPTION_STRESS} launches "
+          f"of each build at n={TP} M=384 n_loc={qkv // TP} and "
+          f"{TP_OPTION_STRESS} at n=4 (m_per 64/96/192/256 on one context, "
+          "every fourth lagged), fresh inputs, every output bitwise the "
+          "ring build's, every order correct")
+
+    # -- gemm_rs's wire dtypes -----------------------------------------------
+    planted = (448.0, 460.0, 464.0, 465.0, -1000.0)
+    for n in (2, 4):
+        m, k, nout = 96 * n, 1024, 512
+        ctx, a, b = operands(n, bf16, m, k, nout, integer=True)
+        half = m // n // 2
+        got = gemm_rs_ring(a, b, ctx, half, wire_dtype=e4m3)
+        bits("gemm_rs_wire_e4m3", got, gemm_rs_plain(a, b, half, e4m3),
+             f"n={n} integer inputs")
+        ctx, a, b = operands(n, bf16, m, k, nout)
+        got = gemm_rs_ring(a, b, ctx, half, wire_dtype=e4m3)
+        want = gemm_rs_plain(a, b, half, e4m3)
+        e = within("gemm_rs_wire_e4m3", got, want, bf16, n,
+                   f"n={n} random", hop_ulps(a, b, 3))
+        max_abs["gemm_rs_wire_e4m3"] = max(max_abs["gemm_rs_wire_e4m3"], e)
+        base = gemm_rs_ring(a, b, ctx, half)
+        if _bits_equal(base, got):
+            raise RuntimeError("gemm_rs: the bf16 wire equals the e4m3 one")
+        # Planted overflow: B = I, chunk c's ring opened by rank c+1.
+        w = 64
+        pa = torch.zeros((n * 40, n * w), device=dev)
+        for c in range(n):
+            r = (c + 1) % n
+            for i in range(40):
+                pa[c * 40 + i, r * w:(r + 1) * w] = planted[i % 5]
+        pctx = initialize_distributed(n, device=dev, dtype=f32)
+        pa_s = pctx.shard(pa, 1)
+        pb_s = pctx.shard(torch.eye(w, device=dev).repeat(n, 1), 0)
+        got = gemm_rs_ring(pa_s, pb_s, pctx, 40, wire_dtype=e4m3)
+        want = gemm_rs_plain(pa_s, pb_s, 40, e4m3)
+        bits("gemm_rs_wire_e4m3", got, want, f"n={n} planted overflow")
+        nans = [int(torch.isnan(g[:5, 0]).sum()) for g in got]
+        if nans != [2] * n:
+            raise RuntimeError(f"gemm_rs e4m3 overflow: NaNs {nans}")
+        print(f"[tp_opt] gemm_rs e4m3 wire n={n} M={m} K={k} N={nout} bf16: "
+              "integer inputs bitwise, random max |kernel - plain| "
+              f"{e:.3g} (within (n-1) e4m3 ulps + the bf16 limit), planted "
+              "448/460/464/465/-1000 -> 448/448/448/NaN/NaN as the plain "
+              "version, the bf16 wire differs")
+        ctx, a, b = operands(n, f32, m, k, nout)
+        got = gemm_rs_ring(a, b, ctx, half, wire_dtype=bf16)
+        want = gemm_rs_plain(a, b, half, bf16)
+        e = within("gemm_rs_wire_bf16", got, want, f32, n, f"n={n}",
+                   hop_ulps(a, b, 7))
+        max_abs["gemm_rs_wire_bf16"] = max(max_abs["gemm_rs_wire_bf16"], e)
+        print(f"[tp_opt] gemm_rs bf16 wire n={n} f32 inputs: max |kernel - "
+              f"plain| {e:.3g}")
+
+    # -- the one-rank ring ---------------------------------------------------
+    ctx1, a, b = operands(1, bf16, 384, d, d, integer=True)
+    got = gemm_rs_ring(a, b, ctx1, 384)
+    bits("gemm_rs_n1", got, gemm_rs_plain(a, b), "bf16 integer inputs")
+    ctx1f, af, bfl = operands(1, f32, 384, d, d)
+    e = within("gemm_rs_n1", gemm_rs_ring(af, bfl, ctx1f, 384),
+               gemm_rs_plain(af, bfl), f32, 1, "f32")
+    max_abs["gemm_rs_n1"] = e
+    print(f"[tp_opt] gemm_rs one-rank ring [384, {d}] @ [{d}, {d}]: bf16 "
+          f"bitwise on integer inputs, f32 max |kernel - plain| {e:.3g}")
+
+    # -- the traced gemm_ar --------------------------------------------------
+    n = TP
+    trace_ops = {}
+    for tag, k in (("o-proj", d), ("FC2", ff)):
+        ctx, a, b = operands(n, bf16, 4, k, d)
+        got, ring = gemm_ar_traced(a, b, ctx, TP_TRACE_TILE)
+        base = gemm_ar_one_shot(a, b, ctx)
+        bits("gemm_ar_traced", got, base, f"{tag} vs untraced")
+        if not torch.equal(ring.cpu(), gemm_ar_ring_plain(n, num_j)):
+            raise RuntimeError(f"gemm_ar_traced {tag}: ring differs from "
+                               "the plain ring")
+        recs = kt.decode_trace(ring.cpu().numpy(), strict=False)
+        bad = kt.validate_ring(recs)
+        if bad or len(recs) != n * (2 * num_j + 1):
+            raise RuntimeError(f"gemm_ar_traced {tag}: ring {bad}")
+        e = within("gemm_ar_traced", got, gemm_ar_plain(a, b), bf16, n, tag)
+        max_abs["gemm_ar_traced"] = max(max_abs["gemm_ar_traced"], e)
+        trace_ops[tag] = (ctx, a, b, k)
+        print(f"[tp_opt] gemm_ar traced tp={n} M=4 k_loc={k // n} N={d} "
+              f"tile_n {TP_TRACE_TILE}: ring bitwise the plain ring, "
+              f"{len(recs)} records valid, outputs bitwise the untraced "
+              f"launch's, max |kernel - plain| {e:.3g}")
+
+    # -- the paths: each option through its entry point ----------------------
+    launches = {}
+
+    def drive(path, fn):
+        ck.reset_launch_counts()
+        got = fn()
+        torch.cuda.synchronize()
+        launches[path] = ck.launch_counts()
+        missing = [k for k in TP_OPTION_PATH_KERNELS[path]
+                   if not launches[path][k]]
+        if missing:
+            raise RuntimeError(f"{path} did not launch {missing}")
+        return got
+
+    ctx, a, b = operands(TP, bf16, 384, d, qkv, rows=True)
+    got = drive("ag_gemm_ring", lambda: ag_gemm(
+        a, b, ctx, AGGemmConfig(adaptive=False)))
+    within("ag_gemm", got, ag_gemm_plain(a, b), bf16, TP, "ring path")
+    A, B = rand((384, d), bf16), rand((d, d), bf16, d**-0.5)
+    Af, Bf = rand((384, d), f32), rand((d, d), f32, d**-0.5)
+    ctx2 = initialize_distributed(TP, device=dev, dtype=bf16)
+    ctx2f = initialize_distributed(TP, device=dev, dtype=f32)
+    got = drive("gemm_rs_op_wire", lambda: (
+        gemm_rs_op(A, B, ctx2, GemmRSConfig(wire_dtype=e4m3)),
+        gemm_rs_op(Af, Bf, ctx2f, GemmRSConfig(wire_dtype=bf16))))
+    for g, x, y, dt in ((got[0], A, B, bf16), (got[1], Af, Bf, f32)):
+        ref = (x.float() @ y.float())
+        if not bool(torch.isfinite(g).all()) or float(
+                (g.float() - ref).abs().max()) > 0.25:
+            raise RuntimeError(f"gemm_rs_op wire ({dt}): far from A @ B")
+    got = drive("gemm_rs_op_n1", lambda: gemm_rs_op(
+        A, B, initialize_distributed(1, device=dev, dtype=bf16),
+        GemmRSConfig(force_kernel=True)))
+    within("gemm_rs_n1", [got], [(A.float() @ B.float()).to(bf16)], bf16, 1,
+           "n1 path")
+    Ad, Bd = rand((4, d), bf16), rand((d, d), bf16, d**-0.5)
+    out, ring = drive("gemm_ar_op_traced", lambda: gemm_ar_op(
+        Ad, Bd, ctx2, GemmARMethod.ONE_SHOT,
+        GemmARConfig(tile_n=TP_TRACE_TILE), trace=True))
+    if not torch.equal(ring.cpu(), gemm_ar_ring_plain(TP, num_j)):
+        raise RuntimeError("gemm_ar_op trace path: ring differs")
+    within("gemm_ar_traced", [out], [gemm_ar_plain(
+        ctx2.shard(Ad, 1), ctx2.shard(Bd, 0))[0]], bf16, TP, "traced path")
+    print(f"[tp_opt] option paths {list(TP_OPTION_PATH_KERNELS)}: each "
+          "launched its kernel through the entry point")
+
+    # -- timing (bound: ag_gemm and gemm_rs by operations, gemm_ar by bytes,
+    # both ranks' weights) ---------------------------------------------------
+    def bound(nbytes_, flops, peak=BF16_FLOPS):
+        tb, to = nbytes_ / HBM_BPS, flops / peak
+        return max(tb, to) * 1e3, ("bytes" if tb >= to else "operations")
+
+    records = {}
+
+    def record(name, shape, fn, plain, lib, nbytes_, flops, peak=BF16_FLOPS,
+               extra=None):
+        bms, by = bound(nbytes_, flops, peak)
+        src, rep = TP_SOURCES[name]
+        rec = dict(route="cuda", source=src, replaces=rep,
+                   max_abs_err=max_abs[name], ms=median_ms(fn, flush),
+                   plain_ms=median_ms(plain, flush), bound_ms=bms,
+                   bound_by=by, library_ms=median_ms(lib, flush),
+                   shape=shape, **(extra or {}))
+        print(f"[tp_opt] {name} {shape}: {rec['ms']:.4f} ms, plain "
+              f"{rec['plain_ms']:.4f}, library {rec['library_ms']:.4f}, "
+              f"bound {bms:.4f} ms ({by})")
+        return rec
+
+    n, m = TP, 384
+    for nl in (qkv // n, 2 * ff // n):
+        ctx, a, b = operands(n, bf16, m, d, nl * n, rows=True)
+        A, B = torch.cat(a, 0), torch.cat(b, 1)
+        rec = record(
+            "ag_gemm_adaptive", f"tp={n} M={m} K={d} n_loc={nl} bf16 "
+            f"(prefill {'QKV' if nl == qkv // n else 'FC1'})",
+            lambda: ag_gemm_kernel(a, b, ctx, adaptive=True),
+            lambda: ag_gemm_plain(a, b), lambda: torch.matmul(A, B),
+            2 * (m * d + d * nl * n) + n * m * nl * 2, 2 * m * d * nl * n,
+            extra={"ring_ms": median_ms(lambda: ag_gemm_kernel(a, b, ctx),
+                                        flush)})
+        if nl == qkv // n:
+            records["ag_gemm_adaptive"] = rec
+            rec["lag_n4"] = checks["ag_gemm_adaptive_lag"]
+        else:
+            records["ag_gemm_adaptive"]["fc1"] = rec
+    k = d
+    ctx, a, b = operands(n, bf16, m, k, d)
+    half = m // n // 2
+    A, B = torch.cat(a, 1), torch.cat(b, 0)
+    records["gemm_rs_wire_e4m3"] = record(
+        "gemm_rs_wire_e4m3", f"tp={n} M={m} k_loc={k // n} N={d} bf16, "
+        "e4m3 wire (prefill o-proj, bidir ring)",
+        lambda: gemm_rs_ring(a, b, ctx, half, wire_dtype=e4m3),
+        lambda: gemm_rs_plain(a, b, half, e4m3), lambda: torch.matmul(A, B),
+        2 * (m * k + k * d) + m * d * 2, 2 * m * k * d,
+        extra={"bf16_wire_ms": median_ms(
+            lambda: gemm_rs_ring(a, b, ctx, half), flush)})
+    ctx, a, b = operands(n, f32, m, k, d)
+    A, B = torch.cat(a, 1), torch.cat(b, 0)
+    records["gemm_rs_wire_bf16"] = record(
+        "gemm_rs_wire_bf16", f"tp={n} M={m} k_loc={k // n} N={d} f32, "
+        "bf16 wire (TF32 off)",
+        lambda: gemm_rs_ring(a, b, ctx, half, wire_dtype=bf16),
+        lambda: gemm_rs_plain(a, b, half, bf16), lambda: torch.matmul(A, B),
+        4 * (m * k + k * d) + m * d * 4, 2 * m * k * d, peak=F32_FLOPS,
+        extra={"f32_wire_ms": median_ms(
+            lambda: gemm_rs_ring(a, b, ctx, half), flush)})
+    ctx1, a, b = operands(1, bf16, m, d, d)
+    records["gemm_rs_n1"] = record(
+        "gemm_rs_n1", f"tp=1 [{m}, {d}] @ [{d}, {d}] bf16 (force_kernel)",
+        lambda: gemm_rs_ring(a, b, ctx1, m), lambda: gemm_rs_plain(a, b),
+        lambda: torch.matmul(a[0], b[0]), 2 * (m * d + d * d) + m * d * 2,
+        2 * m * d * d)
+    for tag, (ctx, a, b, k) in trace_ops.items():
+        A, B = torch.cat(a, 1), torch.cat(b, 0)
+        rec = record(
+            "gemm_ar_traced", f"tp={n} M=4 k_loc={k // n} N={d} bf16, "
+            f"tile_n {TP_TRACE_TILE} (decode {tag})",
+            lambda: gemm_ar_traced(a, b, ctx, TP_TRACE_TILE),
+            lambda: (gemm_ar_plain(a, b), gemm_ar_ring_plain(n, num_j)),
+            lambda: torch.matmul(A, B),
+            2 * (4 * k + k * d) + n * 4 * d * 2, 2 * 4 * k * d,
+            extra={"untraced_ms": median_ms(
+                lambda: gemm_ar_one_shot(a, b, ctx), flush)})
+        if tag == "o-proj":
+            records["gemm_ar_traced"] = rec
+        else:
+            records["gemm_ar_traced"]["fc2"] = rec
+    records["ag_gemm_adaptive"]["checks"] = checks
+    print(f"[time] tp options: {time.perf_counter() - t0:.1f} s", flush=True)
+    return records, launches
 
 
 def _tp_plain_model(model, params):
@@ -4309,6 +4846,8 @@ def check_tp(dev):
 
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
     records = check_tp_kernels(dev, flush)
+    more, option_launches = check_tp_options(dev, flush)
+    records.update(more)
     check_tp_tiny(dev)
     t0 = time.perf_counter()
     model = AutoLLM.from_pretrained(TP_MODEL, device=dev, seed=SEED, tp=TP)
@@ -4319,6 +4858,7 @@ def check_tp(dev):
           f"{torch.cuda.memory_allocated(dev) / 1e9:.2f} GB allocated)")
     plain = _tp_plain_model(model, unshard_params(model.params))
     launches, e2e, outs = serve_tp_paths(dev, model, plain)
+    launches.update(option_launches)
     # The megakernel at tp=2 on the same model.
     t0 = time.perf_counter()
     records["mega_decode_tp"] = check_tp_mega_kernels(dev, flush, model)
@@ -5003,9 +5543,9 @@ MOE_TP_PATH_KERNELS = {
                           "all_reduce_doubling", "reduce_scatter_ring",
                           "reduce_scatter_ring_hbm", "all_gather_ring"),
     "paged_engine_moe_tp": ("flash_attention", "paged_flash_decode",
-                            "ag_gemm", "gemm_rs", "gemm_ar", "all_gather",
-                            "reduce_scatter_one_shot", "reduce_scatter_ring",
-                            "all_reduce_one_shot"),
+                            "ag_gemm_adaptive", "gemm_rs", "gemm_ar",
+                            "all_gather", "reduce_scatter_one_shot",
+                            "reduce_scatter_ring", "all_reduce_one_shot"),
 }
 _COLL_SRC = "triton_distributed_tpu_torch/csrc/collectives.cu"
 _COLL_REF = "triton_distributed_tpu/ops/collectives/"
@@ -7649,8 +8189,8 @@ PHASES = {
     "tiny": (_tiny_phase, None),
     "serve": (lambda dev: ({}, *serve_main_path(dev)), (PATH_KERNELS,)),
     "moe": (check_moe, (MOE_PATH_KERNELS,)),
-    "tp": (check_tp, (TP_PATH_KERNELS, TP_MEGA_PATH_KERNELS,
-                      TP_PREFILL_PATH_KERNELS)),
+    "tp": (check_tp, (TP_PATH_KERNELS, TP_OPTION_PATH_KERNELS,
+                      TP_MEGA_PATH_KERNELS, TP_PREFILL_PATH_KERNELS)),
     "moe_tp": (check_moe_tp, (MOE_TP_PATH_KERNELS, MOE_TP_MEGA_PATH_KERNELS)),
     "ep": (check_ep, (EP_PATH_KERNELS,)),
     "sp": (check_sp, (SP_PATH_KERNELS,)),
@@ -7715,7 +8255,8 @@ def main(argv=None) -> int:
     # "launches_by_path" gives every path's own run.
     kernels = []
     paths = {**PATH_KERNELS, **MOE_PATH_KERNELS, **TP_PATH_KERNELS,
-             **TP_MEGA_PATH_KERNELS, **TP_PREFILL_PATH_KERNELS,
+             **TP_OPTION_PATH_KERNELS, **TP_MEGA_PATH_KERNELS,
+             **TP_PREFILL_PATH_KERNELS,
              **MOE_TP_PATH_KERNELS, **MOE_TP_MEGA_PATH_KERNELS,
              **EP_PATH_KERNELS, **SP_PATH_KERNELS, **COLL_PATH_KERNELS}
     for k in ck.KERNELS:

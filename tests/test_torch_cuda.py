@@ -1475,12 +1475,260 @@ def test_ag_gemm_matches_plain(dev, dtype, n, m, k, nout):
 
     ctx, a, b = _tp_operands(dev, n, dtype, m, k, nout, seed=3 * n + m,
                              rows=True)
-    got = ag_gemm_kernel(a, b, ctx)
+    got, order = ag_gemm_kernel(a, b, ctx)
     want = ag_gemm_plain(a, b)
     torch.cuda.synchronize()
+    assert order.tolist() == [[(r + s) % n for s in range(n)]
+                              for r in range(n)]
     for g, w in zip(got, want):
         ok, err = _tp_ok(g, w, dtype, n)
         assert ok, err
+
+
+# -- the options' builds: the adaptive ag_gemm, gemm_rs's narrow wire and
+# one-rank ring, the traced gemm_ar. Each build's output equals the base
+# build's bitwise where the arithmetic is the same (the adaptive order,
+# the trace), or its plain version's: bitwise on integer-valued inputs
+# (every f32 partial exact), else within the base limits plus, for the
+# e4m3 wire, (n - 1) e4m3 ulps of the row's largest hop sum.
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,m,k,nout", [(2, 64, 128, 256), (4, 64, 64, 512),
+                                        (2, 384, 4096, 6144),
+                                        (4, 40, 256, 128)])
+def test_ag_gemm_adaptive_matches_the_ring_build(dev, dtype, n, m, k, nout):
+    from triton_distributed_tpu_torch.ops.overlap import ag_gemm_plain
+    from triton_distributed_tpu_torch.ops.overlap.ag_gemm import (
+        ag_gemm_kernel,
+    )
+
+    ctx, a, b = _tp_operands(dev, n, dtype, m, k, nout, seed=5 * n + m,
+                             rows=True)
+    before = ck.AG_GEMM_ADAPTIVE.launches
+    got, order = ag_gemm_kernel(a, b, ctx, adaptive=True)
+    ring, _ = ag_gemm_kernel(a, b, ctx)
+    want = ag_gemm_plain(a, b)
+    torch.cuda.synchronize()
+    assert ck.AG_GEMM_ADAPTIVE.launches == before + 1
+    for r in range(n):
+        assert order[r, 0] == r
+        assert sorted(order[r].tolist()) == list(range(n))
+        assert torch.equal(got[r], ring[r])
+        ok, err = _tp_ok(got[r], want[r], dtype, n)
+        assert ok, err
+
+
+def _launch_ms(fn, reps=5):
+    fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def test_ag_gemm_adaptive_defers_a_straggler(dev):
+    """n = 4, Qwen3-8B's QKV at tp=4 (m_per 96, K 4096, n_loc 1536), rank 2
+    lagging before its puts for at least 500 us and at least one whole
+    un-lagged launch (so its chunk has not landed at any step boundary of
+    the others): every other rank computes chunk 2 last. The ring build
+    under the same lag, whose realized order comes back the same way,
+    computes it at step 1 on rank 1 (the control the check must fail).
+    Both outputs bitwise equal; the for_correctness delay changes nothing
+    either."""
+    from triton_distributed_tpu_torch.ops.overlap.ag_gemm import (
+        ag_gemm_kernel,
+    )
+
+    n = 4
+    ctx, a, b = _tp_operands(dev, n, torch.bfloat16, 384, 4096, 4 * 1536,
+                             seed=11, rows=True)
+    ns = max(500_000, int(1e6 * _launch_ms(lambda: ag_gemm_kernel(a, b, ctx))))
+    lag = dict(straggler_rank=2, straggler_nanos=ns)
+    got, order = ag_gemm_kernel(a, b, ctx, adaptive=True, **lag)
+    ring, ring_order = ag_gemm_kernel(a, b, ctx, **lag)
+    slow, _ = ag_gemm_kernel(a, b, ctx, adaptive=True, for_correctness=True)
+    torch.cuda.synchronize()
+
+    def deferred(rows):
+        return all(rows[r][-1] == 2 for r in range(n) if r != 2)
+
+    rows, ring_rows = order.tolist(), ring_order.tolist()
+    assert deferred(rows), (rows, ns)
+    assert ring_rows[1][1] == 2 and not deferred(ring_rows), ring_rows
+    for r in range(n):
+        assert torch.equal(got[r], ring[r]) and torch.equal(slow[r], ring[r])
+
+
+def test_ag_gemm_adaptive_across_layouts_on_one_context(dev):
+    """A fresh n = 4 context, adaptive launches at m_per 64, then 192, then
+    256 (bf16, K 256, n_loc 128): the site's flag layout moves with m_per
+    and its flags are never reset, so a slot that held anything but an
+    epoch could pass a later launch's claim, publish or row-tile wait.
+    Each launch is bitwise the ring build's, its order a permutation that
+    starts with the own chunk."""
+    from triton_distributed_tpu_torch.ops.overlap.ag_gemm import (
+        ag_gemm_kernel,
+    )
+    from triton_distributed_tpu_torch.runtime import initialize_distributed
+
+    n, k, nl = 4, 256, 128
+    ctx = initialize_distributed(n, device=dev, dtype=torch.bfloat16)
+    rng = np.random.default_rng(23)
+    b = ctx.shard((_rand(rng, (k, n * nl), torch.float32, dev)
+                   * k**-0.5).to(torch.bfloat16), 1)
+    for m_per in (64, 192, 256, 64, 192):
+        a = ctx.shard(_rand(rng, (n * m_per, k), torch.bfloat16, dev), 0)
+        got, order = ag_gemm_kernel(a, b, ctx, adaptive=True)
+        ring, _ = ag_gemm_kernel(a, b, ctx)
+        torch.cuda.synchronize()
+        for r, row in enumerate(order.tolist()):
+            assert row[0] == r and sorted(row) == list(range(n)), (m_per,
+                                                                   row)
+            assert torch.equal(got[r], ring[r]), m_per
+
+
+def _e4m3_ulp(x):
+    return torch.exp2(torch.floor(torch.log2(x.clamp_min(2.0**-6))) - 3)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n", [2, 4])
+def test_gemm_rs_e4m3_wire_matches_plain(dev, dtype, n):
+    from triton_distributed_tpu_torch.ops.overlap import gemm_rs_plain
+    from triton_distributed_tpu_torch.ops.overlap.gemm_rs import gemm_rs_ring
+    from triton_distributed_tpu_torch.runtime import initialize_distributed
+
+    e4m3 = torch.float8_e4m3fn
+    m, k, nout = 64 * n, 256 * n, 512
+    ctx = initialize_distributed(n, device=dev, dtype=dtype)
+    rng = np.random.default_rng(n)
+    # Integer-valued: every partial exact in f32, so both sides round the
+    # same hop sums (bitwise).
+    ai = torch.from_numpy(rng.integers(-2, 3, (m, k)).astype(np.float32))
+    bi = torch.from_numpy(rng.integers(-1, 2, (k, nout)).astype(np.float32))
+    a, b = ctx.shard(ai.to(dev, dtype), 1), ctx.shard(bi.to(dev, dtype), 0)
+    before = ck.GEMM_RS_WIRE_E4M3.launches
+    got = gemm_rs_ring(a, b, ctx, 32, wire_dtype=e4m3)
+    want = gemm_rs_plain(a, b, 32, e4m3)
+    torch.cuda.synchronize()
+    assert ck.GEMM_RS_WIRE_E4M3.launches == before + 1
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    # Random: within (n-1) e4m3 ulps of the row's largest sum of |partial|
+    # plus the base limit; the bf16 wire (control) differs.
+    ctx, a, b = _tp_operands(dev, n, dtype, m, k, nout, seed=7 * n)
+    got = gemm_rs_ring(a, b, ctx, 32, wire_dtype=e4m3)
+    want = gemm_rs_plain(a, b, 32, e4m3)
+    mp = m // n
+    for c, (g, w) in enumerate(zip(got, want)):
+        parts = sum((a[r][c * mp:(c + 1) * mp].float() @ b[r].float()).abs()
+                    for r in range(n))
+        lim = (n - 1) * _e4m3_ulp(parts.amax(1, keepdim=True))
+        atol, rtol = ((1e-4, 1e-5) if dtype == torch.float32
+                      else (2.0**-6 * n, 2.0**-7 * n))
+        err = (g.float() - w.float()).abs()
+        assert (err <= lim + atol + rtol * w.float().abs()).all()
+    if dtype == torch.float32:
+        narrow = gemm_rs_ring(a, b, ctx, 32, wire_dtype=torch.bfloat16)
+        torch.cuda.synchronize()
+        assert not all(torch.equal(x, y) for x, y in zip(narrow, got))
+
+
+@pytest.mark.parametrize("n", [2, 4])
+def test_gemm_rs_e4m3_wire_overflow_is_nan(dev, n):
+    """Planted first-hop sums of 448, 460, 464, 465 and -1000 (B = I, the
+    other ranks' partials 0): 448, 448, 448, NaN, NaN, as the plain
+    version (and the JAX cast) give, not torch's saturated 448."""
+    from triton_distributed_tpu_torch.ops.overlap import gemm_rs_plain
+    from triton_distributed_tpu_torch.ops.overlap.gemm_rs import gemm_rs_ring
+    from triton_distributed_tpu_torch.runtime import initialize_distributed
+
+    planted = (448.0, 460.0, 464.0, 465.0, -1000.0)
+    m_per, w = 40, 64
+    a = np.zeros((n * m_per, n * w), np.float32)
+    for c in range(n):
+        for i in range(m_per):
+            r = (c + 1) % n   # single ring: c + 1 opens chunk c's ring
+            a[c * m_per + i, r * w:(r + 1) * w] = planted[i % 5]
+    ctx = initialize_distributed(n, device=dev, dtype=torch.float32)
+    at = ctx.shard(torch.from_numpy(a).to(dev), 1)
+    b = ctx.shard(torch.eye(w, device=dev).repeat(n, 1), 0)
+    got = gemm_rs_ring(at, b, ctx, m_per, wire_dtype=torch.float8_e4m3fn)
+    want = gemm_rs_plain(at, b, m_per, torch.float8_e4m3fn)
+    torch.cuda.synchronize()
+    expect = torch.tensor([448.0, 448.0, 448.0, float("nan"), float("nan")],
+                          device=dev).repeat(m_per // 5)
+    for g, wt in zip(got, want):
+        assert torch.equal(torch.isnan(g), torch.isnan(wt))
+        assert torch.equal(g.nan_to_num(7.0), wt.nan_to_num(7.0))
+        assert torch.equal(g[:, 0].nan_to_num(7.0), expect.nan_to_num(7.0))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gemm_rs_one_rank_ring(dev, dtype):
+    """force_kernel at n = 1: the one-rank ring launches (its counter) and
+    equals its plain version, bitwise on integer-valued inputs, within the
+    base limit on random ones."""
+    from triton_distributed_tpu_torch.ops.overlap import (
+        GemmRSConfig,
+        gemm_rs,
+        gemm_rs_plain,
+    )
+    from triton_distributed_tpu_torch.runtime import initialize_distributed
+
+    ctx = initialize_distributed(1, device=dev, dtype=dtype)
+    rng = np.random.default_rng(1)
+    ai = torch.from_numpy(rng.integers(-2, 3, (384, 1024)).astype(np.float32))
+    bi = torch.from_numpy(rng.integers(-1, 2, (1024, 512)).astype(np.float32))
+    a, b = [ai.to(dev, dtype)], [bi.to(dev, dtype)]
+    cfg = GemmRSConfig(force_kernel=True)
+    before = ck.GEMM_RS_N1.launches
+    got = gemm_rs(a, b, ctx, cfg)
+    torch.cuda.synchronize()
+    assert ck.GEMM_RS_N1.launches == before + 1
+    assert torch.equal(got[0], gemm_rs_plain(a, b)[0])
+    ctx, a, b = _tp_operands(dev, 1, dtype, 384, 1024, 512, seed=4)
+    ok, err = _tp_ok(gemm_rs(a, b, ctx, cfg)[0], gemm_rs_plain(a, b)[0],
+                     dtype, 1)
+    assert ok, err
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,m,k,nout,tile_n", [(2, 4, 4096, 4096, 512),
+                                               (2, 4, 12288, 4096, 512),
+                                               (4, 16, 256, 256, 64),
+                                               (2, 40, 512, 384, 128)])
+def test_gemm_ar_traced_ring(dev, dtype, n, m, k, nout, tile_n):
+    """The traced one-shot: its ring bitwise the plain ring, decoded
+    (strict=False) and valid, one window a column group a rank reshaped
+    to one step; its outputs bitwise the untraced launch's."""
+    from triton_distributed_tpu_torch.obs import kernel_trace as kt
+    from triton_distributed_tpu_torch.ops.overlap import gemm_ar_ring_plain
+    from triton_distributed_tpu_torch.ops.overlap.gemm_ar import (
+        gemm_ar_one_shot,
+        gemm_ar_traced,
+    )
+
+    ctx, a, b = _tp_operands(dev, n, dtype, m, k, nout, seed=9 * n + m)
+    before = ck.GEMM_AR_TRACED.launches
+    got, ring = gemm_ar_traced(a, b, ctx, tile_n)
+    base = gemm_ar_one_shot(a, b, ctx)
+    torch.cuda.synchronize()
+    assert ck.GEMM_AR_TRACED.launches == before + 1
+    num_j = nout // tile_n
+    assert torch.equal(ring.cpu(), gemm_ar_ring_plain(n, num_j))
+    recs = kt.decode_trace(ring.cpu().numpy(), strict=False)
+    assert len(recs) == n * (2 * num_j + 1) and kt.validate_ring(recs) == []
+    one = kt.decode_trace(ring.cpu().numpy().reshape(n, 1, -1, 8),
+                          strict=False)
+    assert kt.overlap_report(one)["windows"] == n * num_j
+    for g, u in zip(got, base):
+        assert torch.equal(g, u)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -1592,7 +1840,7 @@ def test_tp_kernels_stress_back_to_back(dev):
         outs.append((
             a, ar,
             gemm_ar_one_shot(a, b, ctx), gemm_rs_ring(a, b, ctx, 4),
-            ag_gemm_kernel(ar, br, ctx2), all_gather_full_mesh(ar, ctx2)))
+            ag_gemm_kernel(ar, br, ctx2)[0], all_gather_full_mesh(ar, ctx2)))
     torch.cuda.synchronize()
     from triton_distributed_tpu_torch.ops.overlap import (
         ag_gemm_plain,
@@ -1642,9 +1890,11 @@ def test_tp_serving_on_card_equals_cpu(dev, tp):
         counts.append(ck.launch_counts())
         outs.append(res)
     assert all(np.array_equal(x, y) for x, y in zip(*outs))
-    # The card's prefill runs ag_gemm and gemm_rs, its decode and chunks
-    # gemm_ar; the CPU run launches nothing.
-    assert all(counts[0][k] > 0 for k in ("ag_gemm", "gemm_rs", "gemm_ar"))
+    # The card's prefill runs ag_gemm (its adaptive build, the default on
+    # the card) and gemm_rs, its decode and chunks gemm_ar; the CPU run
+    # launches nothing.
+    assert all(counts[0][k] > 0 for k in ("ag_gemm_adaptive", "gemm_rs",
+                                          "gemm_ar"))
     assert sum(counts[1].values()) == 0
 
 

@@ -269,17 +269,22 @@ def test_plain_rings_per_rank(tp_models):
     assert rep["windows"] == 2 * L * ns * n
     if n != 2:
         return
+    # Step 0's tokens agree with the JAX xla step's. The interpret-mode
+    # megakernel's tokens are no oracle at tp > 1, not even at step 0: its
+    # cross-rank exchange does not gate under this jax's interpret mode,
+    # so under a loaded host a rank may fold a peer's partial before it
+    # is written (its ring, on the logical clock, is deterministic).
+    with portable_export():
+        jl, _ = jm.decode_fn("xla")(jm.params,
+                                    jnp.asarray([19, 23], jnp.int32), jc)
+    np.testing.assert_array_equal(t1.numpy()[0],
+                                  np.asarray(jnp.argmax(jl, axis=-1)))
     jmega = JaxMegaQwen3(jm, cfg=JaxMegaConfig(**SERVING))
-    jt, _, _, jring = jmega.decode_multi_fn(B, MAXLEN, ns, trace=True)(
+    _, _, _, jring = jmega.decode_multi_fn(B, MAXLEN, ns, trace=True)(
         jm.params, jnp.asarray([19, 23], jnp.int32), jc)
     jring = np.asarray(jring)
     np.testing.assert_array_equal(ring.numpy(), jring)
     assert rep == jkt.overlap_report(jkt.decode_trace(jring))
-    # Step 0's tokens agree; the interpret-mode megakernel's later steps
-    # at tp > 1 are not an oracle here (its cross-rank exchange does not
-    # gate under this jax's interpret mode: the tokens against the JAX
-    # xla chain are held above).
-    np.testing.assert_array_equal(t1.numpy()[0], np.asarray(jt)[0])
 
 
 # -- the engines -------------------------------------------------------------

@@ -121,13 +121,7 @@ __device__ __forceinline__ void block_wait(const uint64_t* flag,
 // their first put (the JAX straggle_if_rank after the entry barrier).
 __device__ __forceinline__ void straggle(int me, int lag_rank,
                                          long long lag_ns) {
-  if (me != lag_rank || lag_ns <= 0) return;
-  if (threadIdx.x == 0) {
-    const uint64_t t0 = tdt::global_ns();
-    while (tdt::global_ns() - t0 < static_cast<uint64_t>(lag_ns))
-      __nanosleep(1000);
-  }
-  __syncthreads();
+  if (me == lag_rank) tdt::spin_ns(lag_ns);
 }
 
 // 16-byte vectors of T as f32 lanes.

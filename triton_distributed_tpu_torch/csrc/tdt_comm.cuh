@@ -94,6 +94,18 @@ __device__ __forceinline__ void wait_until(const uint64_t* flag,
   }
 }
 
+// Thread 0 of the block spins `ns` nanoseconds, then the block goes on: the
+// lagging-rank fixtures (JAX straggle_if_rank / maybe_delay after the entry
+// barrier, before a rank's puts).
+__device__ __forceinline__ void spin_ns(long long ns) {
+  if (ns <= 0) return;
+  if (threadIdx.x == 0) {
+    const uint64_t t0 = global_ns();
+    while (global_ns() - t0 < static_cast<uint64_t>(ns)) __nanosleep(1000);
+  }
+  __syncthreads();
+}
+
 // The block copies `bytes` from src to dst (16-byte vectors where both
 // are aligned, bytes for the rest). The caller publishes with
 // __syncthreads + signal.

@@ -2,8 +2,8 @@
 
 Counterpart of ``triton_distributed_tpu/ops/common.py``: the stage tile
 picker (``pick_stage_tile``, which sets gemm_rs's bidir split) and
-``device_initiable``. No counterpart: ``pick_tile`` (:90), since the CUDA
-kernels' tiles are fixed (``ops/overlap/_launch.py``);
+``device_initiable``, and ``pick_tile`` (:90: gemm_ar's default
+``tile_n``, the column group of its trace ring). No counterpart:
 ``VMEM_COMM_MAX_BYTES`` (:36), a VMEM limit the card does not have
 (``ops/overlap/gemm_ar.py`` says how its AUTO differs); and the Pallas
 launch helper ``comm_pallas_call`` (:134), since each CUDA kernel is
@@ -28,6 +28,15 @@ def pick_stage_tile(m: int, row_bytes: int, budget: int,
     while m % tile:
         tile //= 2
     return max(tile, 1)
+
+
+def pick_tile(n: int, preferred: int = 512) -> int:
+    """Largest power-of-two-ish tile dividing ``n`` (JAX's
+    ``create_*_context`` heuristic)."""
+    tile = min(preferred, n)
+    while n % tile:
+        tile //= 2
+    return max(tile, 128 if n % 128 == 0 else 1)
 
 
 def device_initiable(ctx) -> bool:

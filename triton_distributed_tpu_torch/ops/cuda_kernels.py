@@ -47,6 +47,8 @@ SOURCES = ("flash_attention", "flash_decode", "megakernel", "megakernel_moe",
            "overlap", "collectives", "all_to_all", "sp_attention")
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# gemm_rs's wire types (csrc/overlap.cu `Wire`).
+WIRE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float8_e4m3fn: 2}
 
 _libs: dict[str, ctypes.CDLL] = {}
 
@@ -261,20 +263,37 @@ MEGA_PREFILL_TP = CudaKernel(
     [_I, _P, _P, _F, _F, _P, _P, ctypes.c_ulonglong, _I, _I, _I, _P, _P],
 )
 # The cross-rank kernels over co-located ranks: one cooperative launch
-# of (kind, dtype, small-M tile, host tables of the per-rank A/B/O
-# pointers, the symmetric workspace's and flags' device tables, n, M, N,
-# K, half_m, epoch, blocks per rank, stream). The three GEMM+collective
-# kernels share the entry point (its first argument picks the kernel).
+# of (kind, dtype, small-M tile, gemm_rs's wire code, host tables of the
+# per-rank A/B/O pointers and of the per-rank int32 outputs (the adaptive
+# ag_gemm's order, the traced gemm_ar's ring; or null), the symmetric
+# workspace's and flags' device tables, n, M, N, K, half_m, the traced
+# gemm_ar's tile_n, epoch, ag_gemm's lagging rank (-1: none), its lag and
+# every rank's delay in ns, blocks per rank, stream). The GEMM+collective
+# kernels share the entry point (its first argument picks the kernel);
+# each option's build has its own counter.
 _I64P = ctypes.POINTER(ctypes.c_int64)
 _U64 = ctypes.c_ulonglong
-_OVERLAP_ARGS = [_I, _I, _I, _I64P, _I64P, _I64P, _P, _P, _I, _I, _I, _I, _I,
-                 _U64, _I, _P]
+_OVERLAP_ARGS = [_I, _I, _I, _I, _I64P, _I64P, _I64P, _I64P, _P, _P, _I, _I,
+                 _I, _I, _I, _I, _U64, _I, _LL, _LL, _I, _P]
 GEMM_AR = CudaKernel("gemm_ar", "overlap", "tdt_overlap_launch",
                      _OVERLAP_ARGS)
 GEMM_RS = CudaKernel("gemm_rs", "overlap", "tdt_overlap_launch",
                      _OVERLAP_ARGS)
 AG_GEMM = CudaKernel("ag_gemm", "overlap", "tdt_overlap_launch",
                      _OVERLAP_ARGS)
+# The options' builds: the arrival-adaptive ag_gemm, gemm_rs with an e4m3
+# or a bf16 (over f32 inputs) wire, gemm_rs's one-rank ring
+# (force_kernel at n = 1), the traced one-shot gemm_ar.
+AG_GEMM_ADAPTIVE = CudaKernel("ag_gemm_adaptive", "overlap",
+                              "tdt_overlap_launch", _OVERLAP_ARGS)
+GEMM_RS_WIRE_E4M3 = CudaKernel("gemm_rs_wire_e4m3", "overlap",
+                               "tdt_overlap_launch", _OVERLAP_ARGS)
+GEMM_RS_WIRE_BF16 = CudaKernel("gemm_rs_wire_bf16", "overlap",
+                               "tdt_overlap_launch", _OVERLAP_ARGS)
+GEMM_RS_N1 = CudaKernel("gemm_rs_n1", "overlap", "tdt_overlap_launch",
+                        _OVERLAP_ARGS)
+GEMM_AR_TRACED = CudaKernel("gemm_ar_traced", "overlap",
+                            "tdt_overlap_launch", _OVERLAP_ARGS)
 # The collectives of csrc/collectives.cu, three C entry points whose first
 # argument picks the kernel. All-gather (full mesh, ring, bidir ring): kind,
 # host tables of the per-rank shard and output pointers, the flags' device
@@ -368,7 +387,8 @@ KERNELS = (FLASH_ATTENTION, FLASH_DECODE, PAGED_FLASH_DECODE,
            ALL_REDUCE_ONE_SHOT, ALL_REDUCE_DOUBLING, MEGA_DECODE_MOE_TP,
            MEGA_PREFILL_TP, ALL_TO_ALL, EP_EXCHANGE, SP_AG_ATTENTION,
            PP_SHIFT, ALL_GATHER_PULL, ALL_GATHER_TORUS_2D, BROADCAST,
-           LL_ALL_GATHER)
+           LL_ALL_GATHER, AG_GEMM_ADAPTIVE, GEMM_RS_WIRE_E4M3,
+           GEMM_RS_WIRE_BF16, GEMM_RS_N1, GEMM_AR_TRACED)
 
 
 def coresident_blocks(library_name: str, symbol: str, *args) -> int:

@@ -19,8 +19,11 @@ from triton_distributed_tpu_torch.ops.moe.grouped_gemm import (  # noqa: F401
     grouped_gemm,
 )
 from triton_distributed_tpu_torch.ops.moe.routing import (  # noqa: F401
+    AlignedBlocks,
     RouterOut,
     SortedTokens,
+    align_capacities,
+    moe_align_block_size,
     moe_combine,
     moe_sort,
     router_topk,

@@ -1,4 +1,4 @@
-"""The shared launch of the three GEMM+collective kernels
+"""The shared launch of the GEMM+collective kernels
 (``csrc/overlap.cu``): tile geometry, the co-resident grid, the site's
 symmetric workspace and flags, one cooperative launch."""
 
@@ -17,9 +17,10 @@ from triton_distributed_tpu_torch.ops.common import rank_ptrs
 # at most 16 (decode), else 64.
 BN = 64
 SMALL_M = 16
-KINDS = {"gemm_ar": 0, "gemm_rs": 1, "ag_gemm": 2}
-_KERNELS = {"gemm_ar": ck.GEMM_AR, "gemm_rs": ck.GEMM_RS,
-            "ag_gemm": ck.AG_GEMM}
+# overlap.cu `Kind`: the three kernels and the builds of their options
+# (the adaptive ag_gemm, the traced gemm_ar).
+KINDS = {"gemm_ar": 0, "gemm_rs": 1, "ag_gemm": 2, "ag_gemm_adaptive": 3,
+         "gemm_ar_traced": 4}
 _capacity: dict = {}
 
 
@@ -27,18 +28,21 @@ def tile_rows(m: int) -> int:
     return SMALL_M if m <= SMALL_M else 64
 
 
-def capacity(kind: str, dtype: torch.dtype, small: bool) -> int:
-    key = (kind, dtype, small)
+def capacity(kind: str, dtype: torch.dtype, small: bool,
+             wire: torch.dtype | None = None) -> int:
+    key = (kind, dtype, small, wire)
     if key not in _capacity:
         _capacity[key] = ck.coresident_blocks(
             "overlap", "tdt_overlap_capacity", KINDS[kind],
-            ck.DTYPE_CODES[dtype], int(small))
+            ck.DTYPE_CODES[dtype], int(small),
+            ck.WIRE_CODES[wire or dtype])
     return _capacity[key]
 
 
 def check_operands(kind, ctx, a, b):
     """Device, dtype, contiguity and the kernels' 16-byte vectors: K and
-    N multiples of 8."""
+    N multiples of 8 (an e4m3 wire is read and written 4 elements at a
+    time, so its rows need no more)."""
     dt = a[0].dtype
     if dt not in ck.DTYPE_CODES:
         raise ValueError(f"{kind}: dtype {dt} not supported")
@@ -52,24 +56,36 @@ def check_operands(kind, ctx, a, b):
             "vectors)")
 
 
-def launch(kind: str, ctx, a, b, outs, ws_shape, m_tile: int, tiles: int,
-           flags: int, dims: tuple, blocks_per_rank: int | None = None
-           ) -> None:
-    """One cooperative launch of ``kind`` over the context's ranks.
-    ``m_tile`` is the GEMM's row count that picks the tile (M, m_per or
-    the chunk), ``tiles`` the work items a rank's blocks share (the grid
-    takes at most that many, and at most what stays co-resident),
-    ``flags`` the flags a rank needs, ``dims`` (M, N, K, half_m)."""
+def launch(kernel, kind: str, ctx, a, b, outs, ws_shape, m_tile: int,
+           tiles: int, flags: int, dims: tuple,
+           blocks_per_rank: int | None = None, *, wire=None, aux=None,
+           arg: int = 0, lag: tuple = (-1, 0), delay_ns: int = 0) -> None:
+    """One cooperative launch of ``kind`` over the context's ranks,
+    counted on ``kernel`` (a :class:`~triton_distributed_tpu_torch.ops.
+    cuda_kernels.CudaKernel`). ``m_tile`` is the GEMM's row count that
+    picks the tile (M, m_per or the chunk), ``tiles`` the work items a
+    rank's blocks share (the grid takes at most that many, and at most
+    what stays co-resident), ``flags`` the flags a rank needs, ``dims``
+    (M, N, K, half_m). ``wire``: gemm_rs's wire dtype (the workspace's;
+    None: the input dtype). ``aux``: per-rank int32 outputs of the option
+    builds; ``arg``: the traced gemm_ar's tile_n; ``lag`` (rank, ns) and
+    ``delay_ns``: ag_gemm's lag fixtures. Each kind keeps its own
+    workspace and flags (the site), so the builds of one kernel never
+    read each other's flags."""
     n = ctx.tp
     dt = a[0].dtype
     small = m_tile <= SMALL_M
     if blocks_per_rank is None:
-        blocks_per_rank = max(1, min(tiles, capacity(kind, dt, small) // n))
-    ws = ctx.workspace(kind, ws_shape, dt)
+        blocks_per_rank = max(1, min(tiles, capacity(kind, dt, small, wire)
+                                     // n))
+    ws = ctx.workspace(kind, ws_shape, wire or dt)
     fs = site_flags(ctx, kind, flags)
     M, N, K, half_m = dims
-    _KERNELS[kind](
-        KINDS[kind], ck.DTYPE_CODES[dt], int(small), rank_ptrs(a),
-        rank_ptrs(b), rank_ptrs(outs), ws.table.data_ptr(),
-        fs.flags.table.data_ptr(), n, int(M), int(N), int(K), int(half_m),
-        next_epoch(fs), int(blocks_per_rank), ck.stream_ptr(a[0]))
+    kernel(
+        KINDS[kind], ck.DTYPE_CODES[dt], int(small),
+        ck.WIRE_CODES[wire or dt], rank_ptrs(a), rank_ptrs(b),
+        rank_ptrs(outs), None if aux is None else rank_ptrs(aux),
+        ws.table.data_ptr(), fs.flags.table.data_ptr(), n, int(M), int(N),
+        int(K), int(half_m), int(arg), next_epoch(fs), int(lag[0]),
+        int(lag[1]), int(delay_ns), int(blocks_per_rank),
+        ck.stream_ptr(a[0]))

@@ -18,15 +18,23 @@ above it TWO_SHOT when ``m % n == 0``, else ONE_SHOT. JAX takes XLA above
 ``VMEM_COMM_MAX_BYTES`` (4 MB) and when ``m % n != 0``, because its
 kernels stage in VMEM; the CUDA kernels have no such limit, and on the
 card a kernel never hands over to the plain version. On the CPU AUTO
-takes XLA, as the JAX AUTO does off the TPU. JAX's ``GemmARConfig`` and
-``create_gemm_ar_context`` (``tile_n``, ``acc_dtype``) have no
-counterpart: the kernel's tile is fixed and it accumulates in f32.
-``trace=True`` (the ONE_SHOT device ring) is not ported (ROADMAP queue 2
-row 7).
+takes XLA, as the JAX AUTO does off the TPU.
+
+``trace=True`` (ONE_SHOT only, :84-199, :247-258) also returns each
+rank's device ring ``[num_j+1, 3, 8]`` int32 in the megakernel tracer's
+format, ``num_j = N / tile_n``: per iteration s a produce row (AR_SEND,
+column group s), a reduce row (AR_WAIT, group s-1) and at s = num_j the
+drain (BARRIER), stamped with JAX's logical ticks; decode it with
+``obs.kernel_trace.decode_trace(strict=False)``. ``GemmARConfig``'s
+``tile_n`` (JAX's default from ``create_gemm_ar_context``,
+``pick_tile(N)``) sets the column group; on the card it must be a
+multiple of the kernel's 64-column tile. JAX's ``acc_dtype`` has no
+counterpart: the kernels accumulate in f32.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import enum
 
 import torch
@@ -35,9 +43,11 @@ from triton_distributed_tpu_torch.ops.collectives.all_gather import (
     AllGatherMethod,
     all_gather,
 )
+from triton_distributed_tpu_torch.ops import cuda_kernels as ck
 from triton_distributed_tpu_torch.ops.common import (
     check_ranks,
     device_initiable,
+    pick_tile,
 )
 from triton_distributed_tpu_torch.ops.overlap import _launch
 from triton_distributed_tpu_torch.ops.overlap.gemm_rs import (
@@ -53,6 +63,57 @@ class GemmARMethod(enum.Enum):
     XLA = "xla"
     ONE_SHOT = "one_shot"
     TWO_SHOT = "two_shot"
+
+
+# The ring's opcodes (megakernel/task.py TaskType) and record width.
+_AR_SEND, _AR_WAIT, _BARRIER = 12, 13, 9
+_TRACE_INTS = 8
+
+
+@dataclasses.dataclass(frozen=True)
+class GemmARConfig:
+    """``tile_n``: the columns of one grid iteration of the traced
+    ONE_SHOT (its ring has ``N / tile_n + 1`` iterations)."""
+
+    tile_n: int = 512
+
+
+def create_gemm_ar_context(m: int, n_out: int, k_loc: int,
+                           dtype=torch.bfloat16,
+                           tile_n: int | None = None) -> GemmARConfig:
+    return GemmARConfig(tile_n=pick_tile(n_out) if tile_n is None
+                        else tile_n)
+
+
+def _num_j(n_out: int, config: GemmARConfig) -> int:
+    tile_n = min(config.tile_n, n_out)
+    if n_out % tile_n:
+        raise ValueError(f"n_out={n_out} not divisible by tile_n={tile_n}")
+    return n_out // tile_n
+
+
+def gemm_ar_ring_plain(n: int, num_j: int) -> torch.Tensor:
+    """The rings the traced ONE_SHOT writes, ``[n, num_j+1, 3, 8]`` int32:
+    JAX's logical clock (0 at iteration 0, one tick a begin, mid and end)
+    over the produce, reduce and drain rows in execution order; rows an
+    iteration does not run stay zero (unwritten)."""
+    ring = torch.zeros((n, num_j + 1, 3, _TRACE_INTS), dtype=torch.int32)
+    for r in range(n):
+        clk = 0
+        for s in range(num_j + 1):
+            if s < num_j:
+                ring[r, s, 0] = torch.tensor(
+                    [s, _AR_SEND, 0, s, clk + 1, clk + 3, clk + 2, 1])
+                clk += 3
+            if s > 0:
+                ring[r, s, 1] = torch.tensor(
+                    [s, _AR_WAIT, 0, s - 1, clk + 1, clk + 3, clk + 2, 1])
+                clk += 3
+            if s == num_j:
+                ring[r, s, 2] = torch.tensor(
+                    [s, _BARRIER, 0, 0, clk + 1, clk + 2, 0, 1])
+                clk += 2
+    return ring
 
 
 def _sum_in_rank_order(parts: list[torch.Tensor]) -> torch.Tensor:
@@ -82,29 +143,72 @@ def gemm_ar_one_shot(a, b, ctx, blocks_per_rank: int | None = None
     tiles = -(-m // bm) * -(-n_out // _launch.BN)
     out = torch.empty((n, m, n_out), dtype=a[0].dtype, device=ctx.device)
     outs = [out[r] for r in range(n)]
-    _launch.launch("gemm_ar", ctx, a, b, outs, (n, m, n_out), m, tiles,
-                   n + n * tiles, (m, n_out, k, 0), blocks_per_rank)
+    _launch.launch(ck.GEMM_AR, "gemm_ar", ctx, a, b, outs, (n, m, n_out), m,
+                   tiles, n + n * tiles, (m, n_out, k, 0), blocks_per_rank)
     return outs
+
+
+def gemm_ar_traced(a, b, ctx, tile_n: int,
+                   blocks_per_rank: int | None = None) -> tuple:
+    """The traced one-shot kernel: one cooperative launch over all ranks
+    in ``N / tile_n + 1`` iterations. Returns (per-rank outputs, rings
+    ``[n, num_j+1, 3, 8]`` int32)."""
+    _launch.check_operands("gemm_ar", ctx, a, b)
+    n = ctx.tp
+    m, k = a[0].shape
+    n_out = b[0].shape[1]
+    if tile_n % _launch.BN or n_out % tile_n:
+        raise ValueError(
+            f"gemm_ar trace: tile_n={tile_n} must be a multiple of "
+            f"{_launch.BN} dividing N={n_out}")
+    num_j = n_out // tile_n
+    bm = _launch.tile_rows(m)
+    tiles = -(-m // bm) * -(-n_out // _launch.BN)
+    out = torch.empty((n, m, n_out), dtype=a[0].dtype, device=ctx.device)
+    outs = [out[r] for r in range(n)]
+    ring = torch.zeros((n, num_j + 1, 3, _TRACE_INTS), dtype=torch.int32,
+                       device=ctx.device)
+    # Flags: the barrier, the rank-local count (arrivals, generation), the
+    # tiles'. A group (tiles_m x tile_n / 64 tiles) is the blocks' work.
+    _launch.launch(ck.GEMM_AR_TRACED, "gemm_ar_traced", ctx, a, b, outs,
+                   (n, m, n_out), m, -(-m // bm) * (tile_n // _launch.BN),
+                   n + 2 + n * tiles, (m, n_out, k, 0), blocks_per_rank,
+                   aux=[ring[r] for r in range(n)], arg=tile_n)
+    return outs, ring
 
 
 def gemm_ar(a: list[torch.Tensor], b: list[torch.Tensor], ctx,
             method: GemmARMethod = GemmARMethod.AUTO,
-            trace: bool = False) -> list[torch.Tensor]:
+            trace: bool = False, config: GemmARConfig | None = None):
     """``psum(a[r] @ b[r])`` on every rank: ``a[r] [M, k_loc]`` (column
     shard), ``b[r] [k_loc, N]`` (row shard) → one ``[M, N]`` per rank.
-    At n == 1 it is the plain product, as in JAX."""
-    if trace:
-        raise NotImplementedError(
-            "gemm_ar(trace=True), the one-shot kernel's device ring, is "
-            "not ported yet (ROADMAP queue 2 row 7)")
+    At n == 1 it is the plain product, as in JAX. ``trace=True``
+    (``method=ONE_SHOT`` only) returns ``(outputs, rings [n, num_j+1, 3,
+    8])``; at n == 1 the ring is all zeros (no kernel ran)."""
     check_ranks("a", a, ctx, ndim=2)
     check_ranks("b", b, ctx, dtype=a[0].dtype, ndim=2)
     n = ctx.tp
-    m = a[0].shape[0]
+    m, k_loc = a[0].shape
+    n_out = b[0].shape[1]
+    config = config or create_gemm_ar_context(m, n_out, k_loc, a[0].dtype)
+    if trace and method is not GemmARMethod.ONE_SHOT:
+        raise ValueError(
+            "trace=True requires method=ONE_SHOT (the ring rides the fused "
+            "kernel; XLA/TWO_SHOT paths have no device ring)")
     if n == 1:
-        return [a[0] @ b[0]]
+        out = [a[0] @ b[0]]
+        if trace:
+            return out, torch.zeros((1, _num_j(n_out, config) + 1, 3,
+                                     _TRACE_INTS), dtype=torch.int32,
+                                    device=ctx.device)
+        return out
+    if trace:
+        num_j = _num_j(n_out, config)
+        if not device_initiable(ctx):
+            return gemm_ar_plain(a, b), gemm_ar_ring_plain(n, num_j)
+        return gemm_ar_traced(a, b, ctx, n_out // num_j)
     if method == GemmARMethod.AUTO:
-        out_bytes = m * b[0].shape[1] * a[0].element_size()
+        out_bytes = m * n_out * a[0].element_size()
         if not device_initiable(ctx):
             method = GemmARMethod.XLA
         elif out_bytes > _ONE_SHOT_MAX_BYTES and m % n == 0:
@@ -122,8 +226,14 @@ def gemm_ar(a: list[torch.Tensor], b: list[torch.Tensor], ctx,
 
 
 def gemm_ar_op(a: torch.Tensor, b: torch.Tensor, ctx,
-               method: GemmARMethod = GemmARMethod.AUTO) -> torch.Tensor:
+               method: GemmARMethod = GemmARMethod.AUTO,
+               config: GemmARConfig | None = None, trace: bool = False):
     """Host-level wrapper: ``a [M, K]`` split by columns over the ranks,
     ``b [K, N]`` by rows; returns the summed ``[M, N]`` (rank 0's copy;
-    every rank holds the same)."""
-    return gemm_ar(ctx.shard(a, 1), ctx.shard(b, 0), ctx, method)[0]
+    every rank holds the same), and with ``trace=True`` the per-rank
+    rings ``[n, num_j+1, 3, 8]`` beside it."""
+    got = gemm_ar(ctx.shard(a, 1), ctx.shard(b, 0), ctx, method,
+                  trace=trace, config=config)
+    if trace:
+        return got[0][0], got[1]
+    return got[0]
