@@ -4785,7 +4785,10 @@ def serve_tp_paths(dev, model, plain) -> tuple:
         print(f"[tp] {path}: decode {e2e[path]['decode_ms_per_step']:.2f} "
               f"ms a step (host wall, {dec_n} steps), prefill "
               f"{pre_s:.3f} s in {e2e[path]['prefill_calls']} calls")
-    e2e["step_profile"] = profile_tp_steps(model,
+    # 3 profiled steps a phase: the profile is a measurement, and the
+    # script's 1200 s bound leaves little for a host that runs slow
+    # (perf/torch_step_profile.py profiles the 384-row chunk at length).
+    e2e["step_profile"] = profile_tp_steps(model, steps=3,
                                            modes=("pallas", "xla", "mega"))
     # Every prefill chunk and decode step of the continuous paths went
     # through a kernel: TWO_SHOT's gemm_rs and all_gather once a layer

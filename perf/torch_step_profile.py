@@ -62,7 +62,15 @@ serving path after warm-up:
 - ``cold_view``: one rebuild of a 12-page bf16 cold window from the KV
   tier (``ContinuousEngine._cold_view``: 12 tier reads, their CRC, JSON
   and base64 decode, the stitch and the copy to the card), the host work
-  a sharded slot pays after every demote.
+  a sharded slot pays after every demote;
+- ``tp_chunk384_pallas`` and ``tp_chunk384_xla``: Qwen/Qwen3-8B at tp=2
+  (both ranks co-located on the card, all 36 layers, random weights
+  from a seed), one 384-row ``prefill_paged_chunk`` at offset 0 over a
+  paged pool (page 128) in ``mode="pallas"`` (the kernels: its 3 MB
+  row-parallel outputs take gemm_ar TWO_SHOT, the ``gemm_rs`` ring then
+  the all-gather) and ``mode="xla"`` (plain torch collectives); only
+  built when one of them is asked for. Their lines add the device time
+  of the ``gemm_rs`` kernel a step.
 
 For each phase it prints one JSON line: host wall ms per step (clock
 around synchronized steps), device busy ms per step (sum of kernel time),
@@ -81,7 +89,7 @@ import time
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
-def profile_phase(name, step, steps: int) -> dict:
+def profile_phase(name, step, steps: int, match: str = "") -> dict:
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -104,7 +112,13 @@ def profile_phase(name, step, steps: int) -> dict:
     launches = sum(e.count for e in kernels)
     top = sorted(kernels, key=lambda e: -e.device_time_total)[:8]
     busy_ms = busy_us / steps / 1e3
+    extra = {}
+    if match:
+        extra[f"{match}_ms_per_step"] = sum(
+            e.device_time_total for e in kernels if match in e.key
+        ) / steps / 1e3
     return {
+        **extra,
         "phase": name,
         "wall_ms_per_step": wall_ms,
         "device_busy_ms_per_step": busy_ms,
@@ -116,6 +130,38 @@ def profile_phase(name, step, steps: int) -> dict:
             for e in top
         ],
     }
+
+
+def profile_tp(asked, steps: int) -> None:
+    """The tp=2 Qwen3-8B phases of ``asked`` (tp_chunk384_<mode>)."""
+    import numpy as np
+    import torch
+
+    from triton_distributed_tpu_torch.models import AutoLLM
+    from triton_distributed_tpu_torch.models.paged_kv_cache import (
+        init_paged_cache,
+    )
+
+    dev = torch.device("cuda", 0)
+    model = AutoLLM.from_pretrained("Qwen/Qwen3-8B", device=dev, seed=0,
+                                    tp=2)
+    cache, _ = init_paged_cache(model.cfg, 4, dev, max_length=768,
+                                page_size=128, tp=model.tp)
+    chunk = np.arange(384, dtype=np.int32) % model.cfg.vocab_size
+    card = torch.cuda.get_device_name(0)
+    for mode in ("pallas", "xla"):
+        name = f"tp_chunk384_{mode}"
+        if name not in asked:
+            continue
+
+        def step(mode=mode):
+            model.prefill_paged_chunk(chunk, 0, 0, 384, 383, cache, mode)
+
+        rec = profile_phase(name, step, steps, match="gemm_rs")
+        rec["device"] = card
+        print(json.dumps(rec), flush=True)
+    del model, cache
+    torch.cuda.empty_cache()
 
 
 def main() -> int:
@@ -130,6 +176,11 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("torch_step_profile: no CUDA device", file=sys.stderr)
         return 1
+    asked = [p for p in args.phases.split(",") if p]
+    if any(p.startswith("tp_") for p in asked):
+        profile_tp(asked, args.steps)
+        if all(p.startswith("tp_") for p in asked):
+            return 0
     from triton_distributed_tpu_torch.megakernel import MegaConfig, MegaQwen3
     from triton_distributed_tpu_torch.models import AutoLLM
     from triton_distributed_tpu_torch.models.paged_kv_cache import (

@@ -1698,6 +1698,204 @@ def test_gemm_rs_one_rank_ring(dev, dtype):
     assert ok, err
 
 
+# -- the wgmma tile of ag_gemm's and gemm_rs's bf16 builds (m_per above
+# SMALL_M): 64 x 128 tiles over 64-deep K slices. Its edges: a row tile
+# that straddles the bidirectional split (half_m 96 at m_per 192, 75 at
+# m_per 150), ragged m_per (150; 32 at n = 4), K only a multiple of 8 (64,
+# 136: a slice of 8, 4096) and N not a multiple of 128. Each case against
+# the plain version at the cross-rank limit; the ring's order and the
+# e4m3 wire's overflow on planted values; integer inputs bitwise; the
+# adaptive build bitwise the ring build; 100 launches back to back.
+
+
+@pytest.mark.parametrize("n,m,k,nout,half", [
+    (2, 384, 2 * 64, 392, 96), (2, 384, 2 * 4096, 4096, 96),
+    (2, 300, 2 * 136, 520, 75), (2, 300, 2 * 4096, 4096, 75),
+    (4, 128, 4 * 136, 264, 16), (4, 128, 4 * 4096, 520, 32)])
+def test_gemm_rs_wgmma_tile_edges(dev, n, m, k, nout, half):
+    from triton_distributed_tpu_torch.ops.overlap import gemm_rs_plain
+    from triton_distributed_tpu_torch.ops.overlap.gemm_rs import gemm_rs_ring
+
+    dt = torch.bfloat16
+    ctx, a, b = _tp_operands(dev, n, dt, m, k, nout, seed=m + k + nout)
+    before = ck.GEMM_RS.launches
+    got = gemm_rs_ring(a, b, ctx, half)
+    want = gemm_rs_plain(a, b, half)
+    torch.cuda.synchronize()
+    assert ck.GEMM_RS.launches == before + 1
+    for g, w in zip(got, want):
+        ok, err = _tp_ok(g, w, dt, n)
+        assert ok, err
+
+
+@pytest.mark.parametrize("n,m,k,n_loc", [
+    (2, 300, 136, 200), (2, 300, 4096, 1000), (2, 384, 64, 392),
+    (4, 128, 64, 72), (4, 128, 4096, 136)])
+def test_ag_gemm_wgmma_tile_edges(dev, n, m, k, n_loc):
+    """Both builds against the plain version; the adaptive one bitwise
+    the ring one."""
+    from triton_distributed_tpu_torch.ops.overlap import ag_gemm_plain
+    from triton_distributed_tpu_torch.ops.overlap.ag_gemm import (
+        ag_gemm_kernel,
+    )
+
+    dt = torch.bfloat16
+    ctx, a, b = _tp_operands(dev, n, dt, m, k, n * n_loc, seed=m + k + n_loc,
+                             rows=True)
+    got, _ = ag_gemm_kernel(a, b, ctx)
+    adaptive, order = ag_gemm_kernel(a, b, ctx, adaptive=True)
+    want = ag_gemm_plain(a, b)
+    torch.cuda.synchronize()
+    for r in range(n):
+        assert order[r, 0] == r and sorted(order[r].tolist()) == list(
+            range(n))
+        assert torch.equal(adaptive[r], got[r])
+        ok, err = _tp_ok(got[r], want[r], dt, n)
+        assert ok, err
+
+
+@pytest.mark.parametrize("m_per,half", [(64, 32), (150, 75), (192, 192)])
+def test_gemm_rs_wgmma_follows_the_ring_order(dev, m_per, half):
+    """The planted partials of test_gemm_rs_kernel_follows_the_ring_order
+    (256, 1, -256, 0 by ring position; the ring gives 0, rank order 1) on
+    the wgmma tile, whose row tiles straddle the split at m_per 150."""
+    from triton_distributed_tpu_torch.ops.overlap.gemm_rs import gemm_rs_ring
+    from triton_distributed_tpu_torch.runtime import initialize_distributed
+
+    n, kl = 4, 128
+    a = np.zeros((n * m_per, n * kl), np.float32)
+    for r in range(n):
+        for c in range(n):
+            for i in range(m_per):
+                s = (r - c - 1) % n if i < half else (c - 1 - r) % n
+                a[c * m_per + i, r * kl] = (256.0, 1.0, -256.0, 0.0)[s]
+    ctx = initialize_distributed(n, device=dev, dtype=torch.bfloat16)
+    at = torch.from_numpy(a).to(dev, torch.bfloat16)
+    b = torch.eye(kl, device=dev, dtype=torch.bfloat16).repeat(n, 1)
+    got = torch.cat(gemm_rs_ring(ctx.shard(at, 1), ctx.shard(b, 0), ctx,
+                                 half))
+    assert (got[:, 0] == 0).all()
+    assert (at.float().reshape(n * m_per, n, kl)[:, :, 0].sum(1) == 1).all()
+
+
+@pytest.mark.parametrize("n", [2, 4])
+def test_gemm_rs_wgmma_e4m3_overflow_is_nan(dev, n):
+    """bf16 inputs at m_per 40 (the wgmma tile), planted first-hop sums of
+    448, 460, 464, 466 and -1000 (bf16 holds no 465): 448, 448, 448, NaN,
+    NaN, as the plain version gives."""
+    from triton_distributed_tpu_torch.ops.overlap import gemm_rs_plain
+    from triton_distributed_tpu_torch.ops.overlap.gemm_rs import gemm_rs_ring
+    from triton_distributed_tpu_torch.runtime import initialize_distributed
+
+    planted = (448.0, 460.0, 464.0, 466.0, -1000.0)
+    m_per, w = 40, 64
+    a = np.zeros((n * m_per, n * w), np.float32)
+    for c in range(n):
+        for i in range(m_per):
+            r = (c + 1) % n
+            a[c * m_per + i, r * w:(r + 1) * w] = planted[i % 5]
+    bf16 = torch.bfloat16
+    ctx = initialize_distributed(n, device=dev, dtype=bf16)
+    at = ctx.shard(torch.from_numpy(a).to(dev, bf16), 1)
+    b = ctx.shard(torch.eye(w, device=dev, dtype=bf16).repeat(n, 1), 0)
+    before = ck.GEMM_RS_WIRE_E4M3.launches
+    got = gemm_rs_ring(at, b, ctx, m_per, wire_dtype=torch.float8_e4m3fn)
+    want = gemm_rs_plain(at, b, m_per, torch.float8_e4m3fn)
+    torch.cuda.synchronize()
+    assert ck.GEMM_RS_WIRE_E4M3.launches == before + 1
+    expect = torch.tensor([448.0, 448.0, 448.0, float("nan"), float("nan")],
+                          device=dev).repeat(m_per // 5)
+    for g, wt in zip(got, want):
+        assert torch.equal(torch.isnan(g), torch.isnan(wt))
+        assert torch.equal(g.nan_to_num(7.0), wt.nan_to_num(7.0))
+        assert torch.equal(g[:, 0].float().nan_to_num(7.0),
+                           expect.nan_to_num(7.0))
+
+
+@pytest.mark.parametrize("m,k,nout", [(150, 136, 520), (384, 4096, 392)])
+def test_gemm_rs_wgmma_one_rank_ring_integer_bitwise(dev, m, k, nout):
+    """The one-rank ring on the wgmma tile at ragged shapes: integer-valued
+    bf16 inputs make every f32 partial exact, so the output is bitwise
+    the plain version's."""
+    from triton_distributed_tpu_torch.ops.overlap import (
+        GemmRSConfig,
+        gemm_rs,
+        gemm_rs_plain,
+    )
+    from triton_distributed_tpu_torch.runtime import initialize_distributed
+
+    ctx = initialize_distributed(1, device=dev, dtype=torch.bfloat16)
+    rng = np.random.default_rng(m + k)
+    a = [torch.from_numpy(rng.integers(-2, 3, (m, k)).astype(
+        np.float32)).to(dev, torch.bfloat16)]
+    b = [torch.from_numpy(rng.integers(-1, 2, (k, nout)).astype(
+        np.float32)).to(dev, torch.bfloat16)]
+    before = ck.GEMM_RS_N1.launches
+    got = gemm_rs(a, b, ctx, GemmRSConfig(force_kernel=True))
+    torch.cuda.synchronize()
+    assert ck.GEMM_RS_N1.launches == before + 1
+    assert torch.equal(got[0], gemm_rs_plain(a, b)[0])
+
+
+def test_ag_gemm_wgmma_adaptive_across_layouts_on_one_context(dev):
+    """n = 2 at Qwen3-8B's K (4096) and a ragged n_loc (1000): adaptive
+    launches at m_per 64, 192, 256 on one context, each bitwise the ring
+    build's (the put tiles' flag layout moves with m_per)."""
+    from triton_distributed_tpu_torch.ops.overlap.ag_gemm import (
+        ag_gemm_kernel,
+    )
+    from triton_distributed_tpu_torch.runtime import initialize_distributed
+
+    n, k, nl = 2, 4096, 1000
+    ctx = initialize_distributed(n, device=dev, dtype=torch.bfloat16)
+    rng = np.random.default_rng(29)
+    b = ctx.shard((_rand(rng, (k, n * nl), torch.float32, dev)
+                   * k**-0.5).to(torch.bfloat16), 1)
+    for m_per in (64, 192, 256):
+        a = ctx.shard(_rand(rng, (n * m_per, k), torch.bfloat16, dev), 0)
+        got, order = ag_gemm_kernel(a, b, ctx, adaptive=True)
+        ring, _ = ag_gemm_kernel(a, b, ctx)
+        torch.cuda.synchronize()
+        assert order.tolist() == [[0, 1], [1, 0]], m_per
+        for r in range(n):
+            assert torch.equal(got[r], ring[r]), m_per
+
+
+def test_wgmma_builds_stress_back_to_back(dev):
+    """100 launches each of ag_gemm (both builds) and gemm_rs on the wgmma
+    tile back to back, fresh inputs each, every output checked after one
+    sync."""
+    from triton_distributed_tpu_torch.ops.overlap import (
+        ag_gemm_plain,
+        gemm_rs_plain,
+    )
+    from triton_distributed_tpu_torch.ops.overlap.ag_gemm import (
+        ag_gemm_kernel,
+    )
+    from triton_distributed_tpu_torch.ops.overlap.gemm_rs import gemm_rs_ring
+
+    n, dt = 2, torch.bfloat16
+    ctx, a, b = _tp_operands(dev, n, dt, 384, 1024, 520, seed=31)
+    ctx2, ar, br = _tp_operands(dev, n, dt, 300, 512, 2 * 392, seed=37,
+                                rows=True)
+    kept = []
+    for i in range(100):
+        a = [t + 2.0**-5 for t in a]
+        ar = [t - 2.0**-5 for t in ar]
+        kept.append((a, ar, gemm_rs_ring(a, b, ctx, 96),
+                     ag_gemm_kernel(ar, br, ctx2)[0],
+                     ag_gemm_kernel(ar, br, ctx2, adaptive=True)[0]))
+    torch.cuda.synchronize()
+    for a, ar, g_rs, g_ag, g_ad in kept:
+        for g, w in zip(g_rs, gemm_rs_plain(a, b, 96)):
+            ok, err = _tp_ok(g, w, dt, n)
+            assert ok, err
+        for g, x, w in zip(g_ag, g_ad, ag_gemm_plain(ar, br)):
+            assert torch.equal(g, x)
+            ok, err = _tp_ok(g, w, dt, n)
+            assert ok, err
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("n,m,k,nout,tile_n", [(2, 4, 4096, 4096, 512),
                                                (2, 4, 12288, 4096, 512),

@@ -26,6 +26,8 @@ transcription of its docstring, and the outputs against JAX's default.
 """
 
 import contextlib
+import pathlib
+import re
 import types
 
 import jax
@@ -402,3 +404,124 @@ def test_adaptive_resolves_on_where_the_kernels_run():
     for name in ("adaptive", "for_correctness", "straggler_rank",
                  "straggler_nanos"):
         assert getattr(cfg, name) == jf[name]
+
+
+# -- the launchers' tile arithmetic ------------------------------------------
+#
+# ag_gemm's and gemm_rs's launchers size the grid and the flag site from
+# the kernel's tile (csrc/overlap.cu). Held here against a plain
+# enumeration of the kernel's work items, with the tiles read from the
+# source: every output element in exactly one tile, every flag a kernel
+# item touches inside the site, the grid within the tiles and the
+# co-resident blocks.
+
+def _kernel_tiles():
+    src = (pathlib.Path(__file__).resolve().parents[1]
+           / "triton_distributed_tpu_torch/csrc/overlap.cu").read_text()
+    fma_bn = int(re.search(r"constexpr int kBN = (\d+);", src).group(1))
+    wg = re.search(r"struct WgTile \{\s*static constexpr int kRows = (\d+), "
+                   r"kCols = (\d+),", src)
+    put = int(re.search(r"constexpr int kPutRows = (\d+);", src).group(1))
+    return fma_bn, (int(wg.group(1)), int(wg.group(2))), put
+
+
+def _tile_of(dtype, m):
+    """The kernel's (rows, cols) tile for a GEMM of m rows (pick_kernel)."""
+    fma_bn, wg, _ = _kernel_tiles()
+    if m <= 16:
+        return 16, fma_bn
+    return wg if dtype == torch.bfloat16 else (64, fma_bn)
+
+
+def _covers_once(tiles, tiles_m, bm, bn, m, n_out):
+    """Tile t at rows (t % tiles_m) * bm, columns (t // tiles_m) * bn: a
+    column strip's row tiles are neighbours, so blocks that run together
+    share its B."""
+    seen = np.zeros((m, n_out), np.int32)
+    for t in range(tiles):
+        m0, n0 = (t % tiles_m) * bm, (t // tiles_m) * bn
+        seen[m0:m0 + bm, n0:n0 + bn] += 1
+    return bool((seen == 1).all())
+
+
+# (n, dtype, m_per, n_out): the card tests', chip_smoke.py's and the main
+# path's shapes (Qwen3-8B tp=2 QKV/FC1/o-proj/FC2, the one-rank ring).
+BF, F32 = torch.bfloat16, torch.float32
+RS_SHAPES = [(2, BF, 192, 392), (2, BF, 192, 4096), (2, BF, 150, 520),
+             (2, BF, 150, 4096), (4, BF, 32, 264), (4, BF, 32, 520),
+             (2, BF, 2, 4096), (1, BF, 384, 4096), (1, BF, 150, 520),
+             (2, F32, 16, 64), (4, F32, 16, 64), (2, BF, 64, 4096),
+             (4, BF, 96, 512), (2, BF, 320, 4096), (4, BF, 16, 128)]
+AG_SHAPES = [(2, BF, 150, 200), (2, BF, 150, 1000), (2, BF, 192, 392),
+             (4, BF, 32, 72), (4, BF, 32, 136), (2, BF, 192, 3072),
+             (2, BF, 192, 12288), (4, BF, 96, 1536), (4, BF, 64, 1536),
+             (4, BF, 256, 1536), (2, F32, 16, 128), (4, F32, 16, 128),
+             (4, BF, 10, 32)]
+
+
+@pytest.mark.parametrize("n,dtype,m_per,n_out", RS_SHAPES)
+def test_gemm_rs_launch_arithmetic_matches_the_kernel_items(n, dtype, m_per,
+                                                           n_out):
+    from triton_distributed_tpu_torch.ops.overlap import _launch
+    from triton_distributed_tpu_torch.ops.overlap.gemm_rs import plan
+
+    bm, bn = _tile_of(dtype, m_per)
+    assert _launch.tile("gemm_rs", dtype, m_per) == (bm, bn)
+    tiles, flags = plan(n, m_per, n_out, dtype)
+    tiles_m = -(-m_per // bm)
+    assert tiles == tiles_m * -(-n_out // bn)
+    assert _covers_once(tiles, tiles_m, bm, bn, m_per, n_out)
+    # The kernel's flags: the barrier [0, n), then the tile t of direction
+    # d's forwarding step s at n + (d * (n-1) + s) * tiles + t.
+    used = set(range(n))
+    for d in (0, 1):
+        for s in range(n - 1):
+            for t in range(tiles):
+                used.add(n + (d * (n - 1) + s) * tiles + t)
+    assert used == set(range(flags))
+    for cap in (1, n, 3 * n - 1, 132, 264, 396):
+        g = _launch.grid(tiles, cap, n)
+        assert 1 <= g <= tiles and (n * g <= cap or g == 1)
+        assert g == min(tiles, max(1, cap // n))
+
+
+@pytest.mark.parametrize("n,dtype,m_per,n_loc", AG_SHAPES)
+def test_ag_gemm_launch_arithmetic_matches_the_kernel_items(n, dtype, m_per,
+                                                           n_loc):
+    from triton_distributed_tpu_torch.ops.overlap import _launch
+    from triton_distributed_tpu_torch.ops.overlap.ag_gemm import plan
+
+    bm, bn = _tile_of(dtype, m_per)
+    _, _, put = _kernel_tiles()
+    assert _launch.PUT_ROWS == put
+    assert _launch.tile("ag_gemm", dtype, m_per) == (bm, bn)
+    assert _launch.tile("ag_gemm_adaptive", dtype, m_per) == (bm, bn)
+    puts, tiles, flags = plan(n, m_per, n_loc, dtype)
+    tiles_m = -(-m_per // bm)
+    assert tiles == tiles_m * -(-n_loc // bn)
+    assert puts == -(-m_per // put)
+    assert _covers_once(tiles, tiles_m, bm, bn, m_per, n_loc)
+    # Puts: every row of a source's chunk in one put tile, flagged at
+    # n + src * puts + p; a GEMM tile waits for the put tiles of its rows.
+    rows = np.zeros(m_per, np.int32)
+    for p in range(puts):
+        rows[p * put:(p + 1) * put] += 1
+    assert (rows == 1).all()
+    used = set(range(n))
+    for src in range(n):
+        for p in range(puts):
+            used.add(n + src * puts + p)
+    for t in range(tiles):
+        m0 = (t % tiles_m) * bm
+        p0, p1 = m0 // put, min(puts, -(-(m0 + bm) // put))
+        assert p1 - p0 <= 128   # one waiting thread a put tile
+        waited = set(range(p0 * put, min(p1 * put, m_per)))
+        assert set(range(m0, min(m0 + bm, m_per))) <= waited
+    # The adaptive build's claim word and publish flag of each step.
+    base = n + n * puts
+    for s in range(n):
+        used.update((base + s, base + n + s))
+    assert used == set(range(flags))
+    for cap in (1, n, 132, 264, 396):
+        g = _launch.grid(tiles, cap, n)
+        assert 1 <= g <= tiles and g == min(tiles, max(1, cap // n))

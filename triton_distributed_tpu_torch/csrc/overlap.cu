@@ -79,16 +79,75 @@
 // All three launch through the C entry `tdt_overlap_launch` (its `kind`
 // picks the kernel; `tdt_overlap_capacity` gives the co-resident limit).
 //
-// Design (this slice: right and simple first): one cooperative launch
-// covers all ranks; blockIdx.y is the rank and its blocks loop over
-// (step, tile) items, so every block is resident (or the launch is
-// refused) and no wait can depend on a block that was never scheduled:
-// produce/put items never wait, and a wait depends only on an item of an
-// earlier phase or step. The GEMM is a shared-memory tiled FMA kernel
-// with f32 accumulation (f32 inputs stay exact: no TF32): 64-column
-// tiles of BM = 16 rows for decode or 64 rows otherwise, 32-deep K
-// slices staged through registers while the previous slice computes.
-// wgmma and TMA come in a later slice; the times go into PERF.md.
+// Design: one cooperative launch covers all ranks; blockIdx.y is the rank
+// and its blocks loop over (step, tile) items, so every block is resident
+// (or the launch is refused) and no wait can depend on a block that was
+// never scheduled: produce/put items never wait, and a wait depends only
+// on an item of an earlier phase or step. Each kernel is written once
+// over a tile type that does the product (mma) and hands the f32 tile to
+// the epilogue kVec columns at a time (stage, for_each):
+//
+//   WgTile, the bf16 product of ag_gemm and gemm_rs above SMALL_M rows
+//   (every prefill launch): the TPU kernels' `jnp.dot(...,
+//   preferred_element_type=f32)` on the matrix unit becomes wgmma on the
+//   tensor cores (m64n128k16, bf16 in, f32 accumulate, both operands read
+//   from shared memory). What bounds it is the tensor cores' rate and
+//   keeping them fed from L2 and HBM: a tile is 128 x 128, two
+//   warpgroups (256 threads) of 64 rows each, 64 f32 accumulators a
+//   thread, over 64-deep K slices in a ring of 6 shared-memory stages
+//   (32 KB each: A 128 x 64 and B 64 x 128, both in the 128-byte swizzle
+//   wgmma reads without bank conflicts); the copies of the next 4 slices
+//   are in flight while one slice multiplies.
+//   B, the rank's weight shard [K, N] row-major, is always one plain box:
+//   thread 0 loads it with TMA (two 64-column boxes a slice, tensor maps
+//   from cuTensorMapEncodeTiled fetched through cudaGetDriverEntryPoint,
+//   out-of-range rows and columns zero-filled), completion on the stage's
+//   mbarrier, and wgmma reads it MN-major (transposed), so the weights
+//   are never transposed. A often is not one box: gemm_rs's bidirectional
+//   ring draws a tile's rows from two chunks (half_m 96 at m_per 192, 75
+//   at m_per 150), m_per is ragged (150; 32 at n = 4) and ag_gemm reads
+//   peers' slots; so every thread copies 4 of the tile's 16-byte row
+//   pieces with cp.async (zero-fill past m_per and K: K is only a multiple
+//   of 8), into the swizzled layout, tracked by cp.async groups. A thread
+//   waits for its own copies, fences them for the async proxy
+//   (fence.proxy.async.shared::cta, since wgmma reads shared memory
+//   through it), waits for the stage's TMA barrier, and the block syncs
+//   before each warpgroup issues the slice's four wgmmas (on its 64 rows,
+//   real or zero-filled past m_per). A peer's bytes are read by
+//   cp.async.cg, through L2 and the generic proxy, after the rows' put
+//   flags were acquired, so no proxy fence on global memory is needed;
+//   nothing writes B during a launch. The kernels make no call (no
+//   printf in their waits: ptxas serializes every wgmma of a kernel that
+//   calls a function, C7510).
+//   Tiles are numbered column strip first (t % tiles_m is the row tile),
+//   so the blocks that run together share their B strip through L2: at
+//   the Qwen3-8B tp=2 FC1 (B 100 MB a rank, past the 50 MB L2) the
+//   row-tile-first order of an earlier 64 x 128 build took 0.4448 ms and
+//   this order 0.2808 (H100 80GB HBM3, 700 W). The shape: 1 block an SM
+//   (193 KB of shared memory), so the QKV at m_per 192, n_loc 3072 is 2 x
+//   24 = 48 tiles a step for a rank's 66 co-resident blocks, one round.
+//   Measured against it on that card, with the same waits: 64 x 128 with
+//   4 stages and 2 blocks an SM was 5-17 % slower at every prefill shape
+//   (the adaptive QKV 0.0987 ms against 0.0940, FC1 0.2534 against
+//   0.2166), 64 x 128 with 6 stages (1 block an SM) slower still, 128 x
+//   128 with 4 stages between them.
+//   The epilogue stages the fragment through shared memory (f32, rows
+//   padded to 136) so that each thread rounds and stores 8 consecutive
+//   columns (16 bytes of bf16) and reads the inbound sum the same way
+//   (8 elements through L2).
+//
+//   FmaTile, everything else: f32 inputs (kept exact: no TF32), decode
+//   (m <= SMALL_M, 16-row tiles) and gemm_ar. A shared-memory tiled FMA
+//   kernel with f32 accumulation: 64-column tiles of BM = 16 rows for
+//   decode or 64 rows otherwise, 32-deep K slices staged through
+//   registers while the previous slice computes (bf16 is converted to f32
+//   in shared memory). It runs on the CUDA cores' f32 rate (67 TFLOP/s at
+//   best); gemm_ar's redesign is later work.
+//
+// gemm_rs waits for the inbound sum just before the epilogue's add, after
+// the product: the product does not need it, so it overlaps the
+// neighbour's hop.
+#include <cuda.h>  // CUtensorMap and its enums only: no -lcuda
 #include <cuda_fp8.h>
 
 #include <type_traits>
@@ -99,6 +158,7 @@
 namespace {
 
 using tdt::RankPtrs;
+using BF16 = __nv_bfloat16;
 
 constexpr int kThreads = 256;
 constexpr int kBN = 64;
@@ -238,46 +298,44 @@ __device__ __forceinline__ E4M3 of_f32<E4M3>(float v) {
   return r;
 }
 
-// Four consecutive elements of T at p (4-, 8- or 16-byte aligned),
-// rounded to T.
-template <typename T>
-__device__ __forceinline__ void store4(T* p, const float (&v)[4]) {
-  if constexpr (sizeof(T) == 4) {
-    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
-  } else if constexpr (sizeof(T) == 2) {
-    alignas(8) T e[4];
+// V consecutive elements of T at p, rounded to T, stored as one vector of
+// V * sizeof(T) bytes (two 16-byte ones for 8 f32); p is aligned to it.
+template <int V, typename T>
+__device__ __forceinline__ void storev(T* p, const float (&v)[V]) {
+  constexpr int kBytes = V * sizeof(T);
+  alignas(16) T e[V];
 #pragma unroll
-    for (int j = 0; j < 4; ++j) e[j] = of_f32<T>(v[j]);
+  for (int j = 0; j < V; ++j) e[j] = of_f32<T>(v[j]);
+  if constexpr (kBytes >= 16) {
+#pragma unroll
+    for (int i = 0; i < kBytes / 16; ++i)
+      reinterpret_cast<uint4*>(p)[i] = reinterpret_cast<const uint4*>(e)[i];
+  } else if constexpr (kBytes == 8) {
     *reinterpret_cast<uint2*>(p) = *reinterpret_cast<const uint2*>(e);
   } else {
-    alignas(4) T e[4];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) e[j] = of_f32<T>(v[j]);
     *reinterpret_cast<uint32_t*>(p) = *reinterpret_cast<const uint32_t*>(e);
   }
 }
 
-// Four consecutive elements of T at p as f32, read through L2 (a peer
-// may have written them in this launch).
-template <typename T>
-__device__ __forceinline__ void load4_cg(const T* p, float (&v)[4]) {
-  if constexpr (sizeof(T) == 4) {
-    const float4 x = __ldcg(reinterpret_cast<const float4*>(p));
-    v[0] = x.x;
-    v[1] = x.y;
-    v[2] = x.z;
-    v[3] = x.w;
-  } else if constexpr (sizeof(T) == 2) {
-    const uint2 raw = __ldcg(reinterpret_cast<const uint2*>(p));
-    const T* e = reinterpret_cast<const T*>(&raw);
+// V consecutive elements of T at p as f32, read through L2 (a peer may
+// have written them in this launch).
+template <int V, typename T>
+__device__ __forceinline__ void loadv_cg(const T* p, float (&v)[V]) {
+  constexpr int kBytes = V * sizeof(T);
+  alignas(16) T e[V];
+  if constexpr (kBytes >= 16) {
 #pragma unroll
-    for (int j = 0; j < 4; ++j) v[j] = f32_of(e[j]);
+    for (int i = 0; i < kBytes / 16; ++i)
+      reinterpret_cast<uint4*>(e)[i] =
+          __ldcg(reinterpret_cast<const uint4*>(p) + i);
+  } else if constexpr (kBytes == 8) {
+    *reinterpret_cast<uint2*>(e) = __ldcg(reinterpret_cast<const uint2*>(p));
   } else {
-    const unsigned int raw = __ldcg(reinterpret_cast<const unsigned int*>(p));
-    const T* e = reinterpret_cast<const T*>(&raw);
-#pragma unroll
-    for (int j = 0; j < 4; ++j) v[j] = f32_of(e[j]);
+    *reinterpret_cast<unsigned int*>(e) =
+        __ldcg(reinterpret_cast<const unsigned int*>(p));
   }
+#pragma unroll
+  for (int j = 0; j < V; ++j) v[j] = f32_of(e[j]);
 }
 
 // A CAS claim of a per-launch word: true for the one caller that moves it
@@ -316,6 +374,337 @@ __device__ __forceinline__ void rank_count(uint64_t* arrive, uint64_t* gen,
 }
 
 // ---------------------------------------------------------------------------
+// Hopper primitives of the wgmma tile: shared-memory addresses, mbarriers,
+// TMA, cp.async, proxy fences and wgmma (PTX ISA 8.0, sm_90a).
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+
+// One arrival that also expects `bytes` of TMA transactions.
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
+          smem_u32(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ bool mbar_try_wait(uint32_t bar, uint32_t parity) {
+  uint32_t ok;
+  asm volatile(
+      "{\n .reg .pred p;\n"
+      " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      " selp.b32 %0, 1, 0, p;\n}"
+      : "=r"(ok)
+      : "r"(bar), "r"(parity)
+      : "memory");
+  return ok != 0;
+}
+
+// Wait for the completion of the barrier's phase of parity `parity`; trap
+// after kWaitTimeoutNs (a lost copy fails the launch, never hangs it). No
+// printf: a call inside the mainloop makes ptxas serialize every wgmma
+// (C7510, "wgmma pipeline crossing function boundary").
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t a = smem_u32(bar);
+  if (mbar_try_wait(a, parity)) return;
+  const uint64_t t0 = tdt::global_ns();
+  while (!mbar_try_wait(a, parity))
+    if (tdt::global_ns() - t0 > tdt::kWaitTimeoutNs) __trap();
+}
+
+// A 2-D TMA load of one box at (c0 inner, c1 outer) into shared memory,
+// completing on `bar`.
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4}], [%2];" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1)
+      : "memory");
+}
+
+// 16 bytes global -> shared through L2; `valid` false zero-fills them.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
+}
+
+// Orders this thread's generic-proxy shared-memory accesses with the async
+// proxy's (TMA writes, wgmma reads).
+__device__ __forceinline__ void fence_proxy_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+
+// A wgmma shared-memory descriptor of a 128-byte-swizzled operand: start
+// address, leading and stride byte offsets (bytes, multiples of 16).
+__device__ __forceinline__ uint64_t wgmma_desc(uint32_t addr, uint32_t lbo,
+                                               uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
+}
+
+// Keeps the compiler from moving accumulator reads or writes across a
+// wgmma wait (the registers change under it asynchronously).
+__device__ __forceinline__ void fence_acc(float (&d)[64]) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// d[64 x 128] += A[64 x 16] (K-major) @ B[16 x 128] (MN-major: the
+// transposed operand), bf16 in, f32 accumulate.
+__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da,
+                                                 uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// The rank's weight-shard tensor maps (B [K, N] of each rank), passed by
+// value as a __grid_constant__ parameter: TMA reads them from param space.
+struct alignas(64) BMaps {
+  CUtensorMap m[tdt::kMaxRanks];
+};
+
+// ---------------------------------------------------------------------------
+// The tiles of ag_gemm and gemm_rs (the design note above). A tile object
+// lives in the kernel for the whole launch: mma() computes one
+// [kRows, kCols] f32 block of A[rows, K] @ B[K, n0 : n0 + kCols], a_row(i)
+// giving row i of A (nullptr: zero); stage() readies it for the epilogue;
+// after the caller's __syncthreads, for_each(epi) calls epi(row, col, v)
+// for kVec consecutive columns v of the block, each once.
+
+template <typename T, int BM>
+struct FmaTile {
+  static constexpr int kRows = BM, kCols = kBN, kBlock = kThreads, kVec = 4;
+  // 3 blocks an SM in bf16, 2 in f32: left to itself ptxas moved the bf16
+  // tile between 80 and 113 registers (3 or 2 blocks an SM) from one small
+  // edit to the next, and ag_gemm's time moved with the blocks.
+  static constexpr int kMinBlocks = sizeof(T) == 2 ? 3 : 2;
+  static constexpr int kSmemBytes = smem_floats<BM>() * sizeof(float);
+  static constexpr bool kTma = false, kQuiet = false;
+  float* smem;
+  float acc[BM / 16][4];
+
+  __device__ explicit FmaTile(uint8_t* s)
+      : smem(reinterpret_cast<float*>(s)) {}
+
+  template <typename ARow>
+  __device__ __forceinline__ void mma(ARow a_row, const T* b, int N, int n0,
+                                      int K, const CUtensorMap*) {
+    gemm_tile<T, BM>(a_row, b, N, n0, N, K, acc, smem);
+  }
+  __device__ __forceinline__ void stage() {}
+  template <typename Epi>
+  __device__ __forceinline__ void for_each(Epi epi) {
+    const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+#pragma unroll
+    for (int i = 0; i < BM / 16; ++i) epi(ty * (BM / 16) + i, tx * 4, acc[i]);
+  }
+};
+
+struct WgTile {
+  static constexpr int kRows = 128, kCols = 128, kDepth = 64, kStages = 6;
+  static constexpr int kBlock = 256, kVec = 8, kMinBlocks = 1;
+  // B through the tensor maps; flag waits trap without printing (a call
+  // in the kernel serializes its wgmmas).
+  static constexpr bool kTma = true, kQuiet = true;
+  static constexpr int kABytes = kRows * kDepth * 2;   // rows of 128 B
+  static constexpr int kBBytes = kDepth * kCols * 2;   // two 64-column boxes
+  static constexpr int kStageBytes = kABytes + kBBytes;
+  static constexpr int kLd = kCols + 8;                // f32 staging row
+  // 1 KB of slack aligns the ring to the swizzle's 1024-byte atoms.
+  static constexpr int kSmemBytes = 1024 + kStages * kStageBytes + 8 * kStages;
+  static_assert(kRows * kLd * 4 <= kStages * kStageBytes,
+                "the staging area reuses the ring");
+  uint8_t* ring;
+  uint64_t* full;  // a stage's TMA barrier
+  uint32_t seq;    // slices this block has consumed: stage and parity
+  float acc[64];
+
+  __device__ explicit WgTile(uint8_t* s) {
+    ring = reinterpret_cast<uint8_t*>(
+        (reinterpret_cast<uintptr_t>(s) + 1023) & ~uintptr_t(1023));
+    full = reinterpret_cast<uint64_t*>(ring + kStages * kStageBytes);
+    seq = 0;
+    if (threadIdx.x == 0) {
+      for (int i = 0; i < kStages; ++i) mbar_init(full + i, 1);
+      asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    }
+    __syncthreads();
+  }
+
+  // Issues slice j's copies into its stage: the thread's 4 pieces of A
+  // (zero past m_per and K), and (thread 0) B's two TMA boxes. A member,
+  // not a lambda: a call left in the mainloop makes ptxas serialize every
+  // wgmma (C7510) and keeps the accumulators in local memory.
+  __device__ __forceinline__ void load(int j, const BF16* const (&rows)[4],
+                                       const BF16* b, int n0, int K,
+                                       const CUtensorMap* bmap) {
+    const int tid = threadIdx.x, ch = tid & 7;
+    const uint32_t st = (seq + j) % kStages;
+    uint8_t* as = ring + st * kStageBytes;
+    const int k = j * kDepth + ch * 8;
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int r = tid / 8 + u * 32;
+      const bool ok = rows[u] != nullptr && k < K;
+      cp_async16(as + r * 128 + ((ch ^ (r & 7)) << 4),
+                 ok ? static_cast<const void*>(rows[u] + k) : b, ok);
+    }
+    if (tid == 0) {
+      mbar_expect_tx(full + st, kBBytes);
+      tma_load_2d(as + kABytes, bmap, full + st, n0, j * kDepth);
+      tma_load_2d(as + kABytes + kBBytes / 2, bmap, full + st, n0 + 64,
+                  j * kDepth);
+    }
+  }
+
+  template <typename ARow>
+  __device__ __forceinline__ void mma(ARow a_row, const BF16* b, int, int n0,
+                                      int K, const CUtensorMap* bmap) {
+    const int tid = threadIdx.x;
+    // The thread copies 16-byte piece tid%8 of rows tid/8 + 32u of a slice.
+    const BF16* rows[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) rows[u] = a_row(tid / 8 + u * 32);
+    const uint32_t wg_a = (tid / 128) * 64 * 128;  // warpgroup's 64 rows
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+    const int nk = (K + kDepth - 1) / kDepth;
+    // The previous tile's epilogue has read the staging area (generic
+    // proxy) before TMA (async proxy) writes the ring again.
+    __syncthreads();
+    if (tid == 0) fence_proxy_async_smem();
+
+    // kStages - 2 slices in flight ahead of the one multiplying; the
+    // slice loaded at step j goes to the stage of slice j - 2, whose
+    // product was retired (wait_group(1) at step j - 1) before the block's
+    // sync at step j.
+#pragma unroll
+    for (int j = 0; j < kStages - 2; ++j) {
+      if (j < nk) load(j, rows, b, n0, K, bmap);
+      cp_async_commit();
+    }
+    for (int j = 0; j < nk; ++j) {
+      const uint32_t g = seq + j, st = g % kStages;
+      cp_async_wait<kStages - 3>();
+      fence_proxy_async_smem();
+      mbar_wait(full + st, (g / kStages) & 1);
+      __syncthreads();
+      if (j + kStages - 2 < nk) load(j + kStages - 2, rows, b, n0, K, bmap);
+      cp_async_commit();
+      const uint32_t sa = smem_u32(ring + st * kStageBytes);
+      fence_acc(acc);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kDepth / 16; ++kk)
+        // A: K-major, 8-row groups 1024 B apart, 16 K = 32 B further on.
+        // B: MN-major, 8-K-row groups 1024 B apart, the second 64-column
+        // box 8 KB on, 16 K = 16 rows of 128 B further on.
+        wgmma_m64n128k16(acc, wgmma_desc(sa + wg_a + kk * 32, 16, 1024),
+                         wgmma_desc(sa + kABytes + kk * 2048, kBBytes / 2,
+                                    1024));
+      wgmma_commit();
+      wgmma_wait<1>();
+      fence_acc(acc);
+    }
+    wgmma_wait<0>();
+    fence_acc(acc);
+    seq += nk;
+  }
+
+  // The accumulator fragment (thread t: rows (t/32)*16 + (t%32)/4 (+8),
+  // column pairs 8j + 2(t%4)) into the staging area, f32 [kRows][kLd].
+  __device__ __forceinline__ void stage() {
+    __syncthreads();
+    float* sf = reinterpret_cast<float*>(ring);
+    const int w = threadIdx.x / 32, l = threadIdx.x % 32;
+#pragma unroll
+    for (int j = 0; j < kCols / 8; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = w * 16 + l / 4 + h * 8, col = j * 8 + (l % 4) * 2;
+        *reinterpret_cast<float2*>(sf + row * kLd + col) =
+            make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+      }
+  }
+
+  template <typename Epi>
+  __device__ __forceinline__ void for_each(Epi epi) {
+    const float* sf = reinterpret_cast<const float*>(ring);
+#pragma unroll
+    for (int i = 0; i < kRows * kCols / 8 / kBlock; ++i) {
+      const int e = threadIdx.x + i * kBlock;
+      const int row = e / (kCols / 8), col = (e % (kCols / 8)) * 8;
+      const float4 x = *reinterpret_cast<const float4*>(sf + row * kLd + col);
+      const float4 y =
+          *reinterpret_cast<const float4*>(sf + row * kLd + col + 4);
+      float v[8] = {x.x, x.y, x.z, x.w, y.x, y.y, y.z, y.w};
+      epi(row, col, v);
+    }
+  }
+};
+
+// ---------------------------------------------------------------------------
 // gemm_ar one-shot. Flags of rank r: [0, n) the entry barrier, then
 // n + src * tiles + t (kTrace: n the rank-local count's arrivals, n + 1
 // its generation, tile flags from n + 2). Workspace of rank r: [n, M, N]
@@ -346,7 +735,7 @@ __device__ __forceinline__ void ar_produce(const T* a, const T* b, int M,
     if (row >= M || col >= N) continue;
     for (int p = 0; p < n; ++p) {
       T* ws = tdt::symm_ptr<T>(ws_tab, p) + me * slot;
-      store4(ws + (size_t)row * N + col, acc[i]);
+      storev<4>(ws + (size_t)row * N + col, acc[i]);
     }
   }
   __syncthreads();
@@ -379,11 +768,11 @@ __device__ __forceinline__ void ar_reduce(T* o, int M, int N, int n,
     float sum[4] = {0.f, 0.f, 0.f, 0.f};
     for (int src = 0; src < n; ++src) {
       float v[4];
-      load4_cg(ws + src * slot + (size_t)row * N + col, v);
+      loadv_cg<4>(ws + src * slot + (size_t)row * N + col, v);
 #pragma unroll
       for (int j = 0; j < 4; ++j) sum[j] += v[j];
     }
-    store4(o + (size_t)row * N + col, sum);
+    storev<4>(o + (size_t)row * N + col, sum);
   }
 }
 
@@ -475,17 +864,18 @@ gemm_ar_kernel(RankPtrs A, RankPtrs B, RankPtrs O, const int64_t* ws_tab,
 // n + ((dir * (n-1) + step) * tiles + t). Workspace of rank r:
 // [n-1, m_per, N] of the wire type W (slot = the step that forwarded into
 // it). At n = 1 step 0 is the last step and nothing is exchanged.
-template <typename T, typename W, int BM>
-__global__ void __launch_bounds__(kThreads)
+template <typename T, typename W, class Tile>
+__global__ void __launch_bounds__(Tile::kBlock, Tile::kMinBlocks)
 gemm_rs_kernel(RankPtrs A, RankPtrs B, RankPtrs O, const int64_t* ws_tab,
                const int64_t* fl_tab, int M, int N, int K, int n, int half_m,
-               uint64_t epoch) {
-  __shared__ __align__(16) float smem[smem_floats<BM>()];
-  constexpr int TM = BM / 16;
+               uint64_t epoch, const __grid_constant__ BMaps maps) {
+  extern __shared__ __align__(16) uint8_t dsmem[];
+  constexpr int BM = Tile::kRows, BN = Tile::kCols, V = Tile::kVec;
+  Tile tile(dsmem);
   const int me = blockIdx.y, G = gridDim.x;
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+  const int tid = threadIdx.x;
   const int m_per = M / n;
-  const int tiles_m = (m_per + BM - 1) / BM, tiles_n = (N + kBN - 1) / kBN;
+  const int tiles_m = (m_per + BM - 1) / BM, tiles_n = (N + BN - 1) / BN;
   const int tiles = tiles_m * tiles_n;
   const int right = (me + 1) % n, left = (me + n - 1) % n;
   const T* a = tdt::rank_ptr<const T>(A, me);
@@ -498,50 +888,50 @@ gemm_rs_kernel(RankPtrs A, RankPtrs B, RankPtrs O, const int64_t* ws_tab,
     return n + ((dir * (n - 1) + step) * tiles + t);
   };
 
-  tdt::barrier_all(fl_tab, me, n, epoch, blockIdx.x == 0);
+  tdt::barrier_all<Tile::kQuiet>(fl_tab, me, n, epoch, blockIdx.x == 0);
 
   for (int s = 0; s < n; ++s) {
     const int c_cw = ((me - 1 - s) % n + 2 * n) % n;
     const int c_ccw = (me + 1 + s) % n;
     for (int t = blockIdx.x; t < tiles; t += G) {
-      const int m0 = (t / tiles_n) * BM, n0 = (t % tiles_n) * kBN;
+      const int m0 = (t % tiles_m) * BM, n0 = (t / tiles_m) * BN;
       const int m1 = min(m0 + BM, m_per);
       const bool has_cw = m0 < half_m, has_ccw = m1 > half_m;
-      if (s > 0 && tid == 0) {
-        if (has_cw) tdt::wait_until(fl + flag_at(0, s - 1, t), epoch);
-        if (has_ccw) tdt::wait_until(fl + flag_at(1, s - 1, t), epoch);
-      }
-      __syncthreads();
-      float acc[TM][4];
-      gemm_tile<T, BM>(
+      tile.mma(
           [&](int i) -> const T* {
             const int r = m0 + i;
             if (r >= m_per) return nullptr;
             const int c = r < half_m ? c_cw : c_ccw;
             return a + ((size_t)c * m_per + r) * K;
           },
-          b, N, n0, N, K, acc, smem);
-      const int col = n0 + tx * 4;
-#pragma unroll
-      for (int i = 0; i < TM; ++i) {
-        const int row = m0 + ty * TM + i;
-        if (row >= m_per || col >= N) continue;
-        float v[4] = {acc[i][0], acc[i][1], acc[i][2], acc[i][3]};
+          b, N, n0, K, &maps.m[me]);
+      tile.stage();
+      // Only the add needs the inbound sum: the product overlapped the hop.
+      if (s > 0 && tid == 0) {
+        if (has_cw)
+          tdt::wait_until<Tile::kQuiet>(fl + flag_at(0, s - 1, t), epoch);
+        if (has_ccw)
+          tdt::wait_until<Tile::kQuiet>(fl + flag_at(1, s - 1, t), epoch);
+      }
+      __syncthreads();
+      tile.for_each([&](int r, int cc, float (&v)[V]) {
+        const int row = m0 + r, col = n0 + cc;
+        if (row >= m_per || col >= N) return;
         if (s > 0) {
-          float inb[4];
-          load4_cg(ws_in + (size_t)(s - 1) * slot + (size_t)row * N + col,
-                   inb);
+          float inb[V];
+          loadv_cg<V>(ws_in + (size_t)(s - 1) * slot + (size_t)row * N + col,
+                      inb);
 #pragma unroll
-          for (int j = 0; j < 4; ++j) v[j] += inb[j];
+          for (int j = 0; j < V; ++j) v[j] += inb[j];
         }
         if (s == n - 1) {
-          store4(o + (size_t)row * N + col, v);
+          storev<V>(o + (size_t)row * N + col, v);
         } else {
           const int dst = row < half_m ? right : left;
           W* ws = tdt::symm_ptr<W>(ws_tab, dst) + (size_t)s * slot;
-          store4(ws + (size_t)row * N + col, v);
+          storev<V>(ws + (size_t)row * N + col, v);
         }
-      }
+      });
       if (s < n - 1) {
         __syncthreads();
         if (tid == 0) {
@@ -562,17 +952,25 @@ gemm_rs_kernel(RankPtrs A, RankPtrs B, RankPtrs O, const int64_t* ws_tab,
 
 // ---------------------------------------------------------------------------
 // ag_gemm. A_r [m_per, K]; B_r [K, N]; O_r [n*m_per, N]. Flags of rank
-// r: [0, n) the barrier, then n + src * tiles_m + row tile; kAdaptive
-// adds, from base = n + n * tiles_m, the claim word of step s at base + s
-// and its publish flag at base + n + s. The flags hold nothing but epochs:
-// a site's layout moves with m_per and its flags are never reset, so any
+// r: [0, n) the barrier, then n + src * puts + p, one a put row tile p of
+// kPutRows rows (puts = ceil(m_per / kPutRows)); kAdaptive adds, from
+// base = n + n * puts, the claim word of step s at base + s and its
+// publish flag at base + n + s. The flags hold nothing but epochs: a
+// site's layout moves with m_per and its flags are never reset, so any
 // other value left in a slot could pass a later launch's wait. Workspace
 // of rank r: [n, m_per, K] (slot = the source rank). ORD: the per-rank
 // int32 [n] realized order, fresh each launch (the ring build writes its
 // fixed order there too); the adaptive pick of step s is read from it
-// once its publish flag is acquired. The lag fixtures: rank lag_rank
-// spins lag_ns, every rank delay_ns, after the entry barrier and before
-// its puts.
+// once its publish flag is acquired, before the step's first copy. The
+// lag fixtures: rank lag_rank spins lag_ns, every rank delay_ns, after
+// the entry barrier and before its puts.
+
+// A put row tile is kPutRows rows, whatever the GEMM tile: a chunk's puts
+// are then spread over ceil(m_per / 16) blocks (6 at m_per 96) and land
+// before the rank's first block finishes step 0 on the wgmma tile, so the
+// adaptive pick finds them; a GEMM tile waits for the put tiles of its
+// rows (at most 4, one thread each).
+constexpr int kPutRows = 16;
 
 // The block copies `bytes` (a multiple of 16, both sides 16-byte aligned)
 // from src to the same offset of every peer's slot: kPutUnroll 16-byte
@@ -606,17 +1004,19 @@ __device__ __forceinline__ void put_to_peers(const T* src,
   }
 }
 
-template <typename T, int BM, bool kAdaptive>
-__device__ __forceinline__ void ag_gemm_body(
-    RankPtrs A, RankPtrs B, RankPtrs O, const int64_t* ws_tab,
-    const int64_t* fl_tab, int m_per, int N, int K, int n, uint64_t epoch,
-    RankPtrs ORD, int lag_rank, long long lag_ns, long long delay_ns) {
-  __shared__ __align__(16) float smem[smem_floats<BM>()];
+template <typename T, class Tile, bool kAdaptive>
+__global__ void __launch_bounds__(Tile::kBlock, Tile::kMinBlocks)
+ag_gemm_kernel(RankPtrs A, RankPtrs B, RankPtrs O, const int64_t* ws_tab,
+               const int64_t* fl_tab, int m_per, int N, int K, int n,
+               uint64_t epoch, RankPtrs ORD, int lag_rank, long long lag_ns,
+               long long delay_ns, const __grid_constant__ BMaps maps) {
+  extern __shared__ __align__(16) uint8_t dsmem[];
   __shared__ int picked;
-  constexpr int TM = BM / 16;
+  constexpr int BM = Tile::kRows, BN = Tile::kCols, V = Tile::kVec;
+  Tile tile(dsmem);
   const int me = blockIdx.y, G = gridDim.x;
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  const int tiles_m = (m_per + BM - 1) / BM, tiles_n = (N + kBN - 1) / kBN;
+  const int tid = threadIdx.x;
+  const int tiles_m = (m_per + BM - 1) / BM, tiles_n = (N + BN - 1) / BN;
   const int tiles = tiles_m * tiles_n;
   const T* a = tdt::rank_ptr<const T>(A, me);
   const T* b = tdt::rank_ptr<const T>(B, me);
@@ -624,23 +1024,25 @@ __device__ __forceinline__ void ag_gemm_body(
   const size_t slot = (size_t)m_per * K;
   const T* ws_in = tdt::symm_ptr<const T>(ws_tab, me);
   uint64_t* fl = tdt::symm_ptr<uint64_t>(fl_tab, me);
-  const int base = n + n * tiles_m;
+  const int puts = (m_per + kPutRows - 1) / kPutRows;
+  const int base = n + n * puts;
 
-  tdt::barrier_all(fl_tab, me, n, epoch, blockIdx.x == 0);
+  tdt::barrier_all<Tile::kQuiet>(fl_tab, me, n, epoch, blockIdx.x == 0);
   if (me == lag_rank) tdt::spin_ns(lag_ns);
   tdt::spin_ns(delay_ns);
 
-  // Put the own chunk, one row tile at a time, to every peer's slot [me].
-  for (int ti = blockIdx.x; ti < tiles_m; ti += G) {
-    const int r0 = ti * BM, rows = min(BM, m_per - r0);
+  // Put the own chunk, one put row tile at a time, to every peer's slot
+  // [me].
+  for (int p = blockIdx.x; p < puts; p += G) {
+    const int r0 = p * kPutRows, rows = min(kPutRows, m_per - r0);
     put_to_peers(a + (size_t)r0 * K, ws_tab, me * slot + (size_t)r0 * K, me,
                  n, (size_t)rows * K * sizeof(T));
     __syncthreads();
     if (tid == 0) {
       __threadfence_system();
-      for (int p = 1; p < n; ++p)
-        tdt::st_release_sys(tdt::symm_ptr<uint64_t>(fl_tab, (me + p) % n) +
-                                n + me * tiles_m + ti,
+      for (int q = 1; q < n; ++q)
+        tdt::st_release_sys(tdt::symm_ptr<uint64_t>(fl_tab, (me + q) % n) +
+                                n + me * puts + p,
                             epoch);
     }
   }
@@ -653,7 +1055,7 @@ __device__ __forceinline__ void ag_gemm_body(
     int c = (me + s) % n;
     if (kAdaptive && s > 0) {
       if (tid == 0) {
-        tdt::wait_until(fl + base + n + s, epoch);
+        tdt::wait_until<Tile::kQuiet>(fl + base + n + s, epoch);
         picked = __ldcg(ord + s);
       }
       __syncthreads();
@@ -665,23 +1067,28 @@ __device__ __forceinline__ void ag_gemm_body(
     done |= 1u << c;
     const T* src = c == me ? a : ws_in + c * slot;
     for (int t = blockIdx.x; t < tiles; t += G) {
-      const int ti = t / tiles_n, m0 = ti * BM, n0 = (t % tiles_n) * kBN;
-      if (c != me && tid == 0)
-        tdt::wait_until(fl + n + c * tiles_m + ti, epoch);
+      const int m0 = (t % tiles_m) * BM, n0 = (t / tiles_m) * BN;
+      // A peer's rows are copied only once their put tiles' flags are
+      // acquired; the own chunk never waits.
+      if (c != me) {
+        const int p0 = m0 / kPutRows;
+        const int p1 = min(puts, (m0 + BM + kPutRows - 1) / kPutRows);
+        if (tid < p1 - p0)
+          tdt::wait_until<Tile::kQuiet>(fl + n + c * puts + p0 + tid, epoch);
+      }
       __syncthreads();
-      float acc[TM][4];
-      gemm_tile<T, BM>(
+      tile.mma(
           [&](int i) -> const T* {
             return m0 + i < m_per ? src + (size_t)(m0 + i) * K : nullptr;
           },
-          b, N, n0, N, K, acc, smem);
-      const int col = n0 + tx * 4;
-#pragma unroll
-      for (int i = 0; i < TM; ++i) {
-        const int row = m0 + ty * TM + i;
-        if (row >= m_per || col >= N) continue;
-        store4(o + ((size_t)c * m_per + row) * N + col, acc[i]);
-      }
+          b, N, n0, K, &maps.m[me]);
+      tile.stage();
+      __syncthreads();
+      tile.for_each([&](int r, int cc, float (&v)[V]) {
+        const int row = m0 + r, col = n0 + cc;
+        if (row >= m_per || col >= N) return;
+        storev<V>(o + ((size_t)c * m_per + row) * N + col, v);
+      });
     }
     // The rank's first block to finish step s picks step s + 1's chunk:
     // the first unprocessed one in me+1 .. me+n-1 whose row tiles have all
@@ -695,28 +1102,14 @@ __device__ __forceinline__ void ag_gemm_body(
         if (any < 0) any = cc;
         if (ready >= 0) continue;
         bool landed = true;
-        for (int ti = 0; ti < tiles_m && landed; ++ti)
-          landed = tdt::ld_acquire_sys(fl + n + cc * tiles_m + ti) >= epoch;
+        for (int p = 0; p < puts && landed; ++p)
+          landed = tdt::ld_acquire_sys(fl + n + cc * puts + p) >= epoch;
         if (landed) ready = cc;
       }
       ord[s + 1] = ready >= 0 ? ready : any;
       tdt::signal(fl + base + n + s + 1, epoch);
     }
   }
-}
-
-// Both builds ask for 3 blocks an SM in bf16 (2 in f32): ptxas otherwise
-// gave the bf16 tile 80 to 113 registers from one small edit to the next
-// (2 or 3 blocks an SM), and a third fewer blocks made the QKV launch ~30%
-// slower (1.1475 ms against 0.8670, H100 80GB HBM3 at 700 W).
-template <typename T, int BM, bool kAdaptive>
-__global__ void __launch_bounds__(kThreads, sizeof(T) == 2 ? 3 : 2)
-ag_gemm_kernel(RankPtrs A, RankPtrs B, RankPtrs O, const int64_t* ws_tab,
-               const int64_t* fl_tab, int m_per, int N, int K, int n,
-               uint64_t epoch, RankPtrs ORD, int lag_rank, long long lag_ns,
-               long long delay_ns) {
-  ag_gemm_body<T, BM, kAdaptive>(A, B, O, ws_tab, fl_tab, m_per, N, K, n,
-                                 epoch, ORD, lag_rank, lag_ns, delay_ns);
 }
 
 // Kernel kinds of tdt_overlap_launch, and the wire codes of gemm_rs.
@@ -729,42 +1122,130 @@ enum Kind {
 };
 enum Wire { kWireF32 = 0, kWireBF16 = 1, kWireE4M3 = 2 };
 
-template <typename T, int BM>
+// A launchable build: the kernel, its block, its dynamic shared memory,
+// and whether it reads B through the tensor maps.
+struct Build {
+  void* fn;
+  int threads;
+  int smem;
+  bool tma;
+};
+
+template <typename T, class Tile>
 void* rs_kernel_of(int wire) {
   if (wire == kWireE4M3)
-    return reinterpret_cast<void*>(&gemm_rs_kernel<T, E4M3, BM>);
+    return reinterpret_cast<void*>(&gemm_rs_kernel<T, E4M3, Tile>);
   if (wire == kWireBF16)
-    return reinterpret_cast<void*>(&gemm_rs_kernel<T, __nv_bfloat16, BM>);
+    return reinterpret_cast<void*>(&gemm_rs_kernel<T, BF16, Tile>);
   if constexpr (std::is_same<T, float>::value) {
     if (wire == kWireF32)
-      return reinterpret_cast<void*>(&gemm_rs_kernel<float, float, BM>);
+      return reinterpret_cast<void*>(&gemm_rs_kernel<float, float, Tile>);
   }
   return nullptr;  // no such wire, or one wider than a bf16 input
 }
 
 template <typename T, int BM>
-void* kernel_of(int kind, int wire) {
-  switch (kind) {
-    case kGemmAR:
-      return reinterpret_cast<void*>(&gemm_ar_kernel<T, BM, false>);
-    case kGemmARTraced:
-      return reinterpret_cast<void*>(&gemm_ar_kernel<T, BM, true>);
-    case kGemmRS: return rs_kernel_of<T, BM>(wire);
-    case kAGGemm:
-      return reinterpret_cast<void*>(&ag_gemm_kernel<T, BM, false>);
-    case kAGGemmAdaptive:
-      return reinterpret_cast<void*>(&ag_gemm_kernel<T, BM, true>);
-    default: return nullptr;
-  }
+Build ar_build(int kind) {
+  return {kind == kGemmAR
+              ? reinterpret_cast<void*>(&gemm_ar_kernel<T, BM, false>)
+              : reinterpret_cast<void*>(&gemm_ar_kernel<T, BM, true>),
+          kThreads, 0, false};
 }
 
-void* pick_kernel(int kind, int dtype, int small_m, int wire) {
-  if (dtype == tdt::kDtypeF32)
-    return small_m ? kernel_of<float, 16>(kind, wire)
-                   : kernel_of<float, 64>(kind, wire);
-  if (dtype != tdt::kDtypeBF16) return nullptr;
-  return small_m ? kernel_of<__nv_bfloat16, 16>(kind, wire)
-                 : kernel_of<__nv_bfloat16, 64>(kind, wire);
+// ag_gemm and gemm_rs over `Tile`.
+template <typename T, class Tile>
+Build tile_build(int kind, int wire) {
+  void* fn = nullptr;
+  if (kind == kGemmRS) fn = rs_kernel_of<T, Tile>(wire);
+  if (kind == kAGGemm)
+    fn = reinterpret_cast<void*>(&ag_gemm_kernel<T, Tile, false>);
+  if (kind == kAGGemmAdaptive)
+    fn = reinterpret_cast<void*>(&ag_gemm_kernel<T, Tile, true>);
+  return {fn, Tile::kBlock, Tile::kSmemBytes, Tile::kTma};
+}
+
+// f32: the FMA tile; bf16: the FMA tile at m <= SMALL_M (small_m), else
+// wgmma (gemm_ar stays on the FMA tile).
+Build pick_kernel(int kind, int dtype, int small_m, int wire) {
+  const bool ar = kind == kGemmAR || kind == kGemmARTraced;
+  if (kind < kGemmAR || kind > kGemmARTraced) return {};
+  if (dtype == tdt::kDtypeF32) {
+    if (ar) return small_m ? ar_build<float, 16>(kind)
+                           : ar_build<float, 64>(kind);
+    return small_m ? tile_build<float, FmaTile<float, 16>>(kind, wire)
+                   : tile_build<float, FmaTile<float, 64>>(kind, wire);
+  }
+  if (dtype != tdt::kDtypeBF16) return {};
+  if (ar) return small_m ? ar_build<BF16, 16>(kind) : ar_build<BF16, 64>(kind);
+  return small_m ? tile_build<BF16, FmaTile<BF16, 16>>(kind, wire)
+                 : tile_build<BF16, WgTile>(kind, wire);
+}
+
+// Lets `k` take its dynamic shared memory (above the 48 KB default), once
+// a kernel and device.
+bool prepare(const Build& k) {
+  static int done_dev[64];
+  static void* done_fn[64];
+  static int n_done = 0;
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess) return false;
+  for (int i = 0; i < n_done; ++i)
+    if (done_fn[i] == k.fn && done_dev[i] == dev) return true;
+  if (cudaFuncSetAttribute(k.fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           k.smem) != cudaSuccess)
+    return false;
+  if (n_done < 64) {
+    done_fn[n_done] = k.fn;
+    done_dev[n_done++] = dev;
+  }
+  return true;
+}
+
+// cuTensorMapEncodeTiled, from the driver through the runtime (the build
+// links no libcuda).
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                 void*, const cuuint64_t*, const cuuint64_t*,
+                                 const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                         cudaEnableDefault,
+                                         &q) != cudaSuccess ||
+        q != cudaDriverEntryPointSuccess)
+      return nullptr;
+#else
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                cudaEnableDefault, &q) != cudaSuccess ||
+        q != cudaDriverEntryPointSuccess)
+      return nullptr;
+#endif
+    fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// Rank r's B [K, N] (bf16, row-major) as boxes of 64 columns x 64 rows in
+// the 128-byte swizzle, zero past its edges.
+bool encode_b(CUtensorMap* map, const void* b, int N, int K) {
+  const EncodeTiled enc = encode_tiled();
+  if (enc == nullptr) return false;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(N),
+                              static_cast<cuuint64_t>(K)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(N) * sizeof(BF16)};
+  const cuuint32_t box[2] = {64, WgTile::kDepth};
+  const cuuint32_t unit[2] = {1, 1};
+  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(b),
+             dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 }  // namespace
@@ -774,8 +1255,9 @@ extern "C" {
 // Blocks of `kind`'s kernel (gemm_rs: of that wire) that can be
 // co-resident on the device; 0 for a combination that has no kernel.
 int tdt_overlap_capacity(int kind, int dtype, int small_m, int wire) {
-  void* fn = pick_kernel(kind, dtype, small_m, wire);
-  return fn == nullptr ? 0 : tdt::capacity(fn, kThreads);
+  const Build k = pick_kernel(kind, dtype, small_m, wire);
+  if (k.fn == nullptr || !prepare(k)) return 0;
+  return tdt::capacity(k.fn, k.threads, k.smem);
 }
 
 // One cooperative launch of `kind` over n co-located ranks with
@@ -796,31 +1278,37 @@ int tdt_overlap_launch(int kind, int dtype, int small_m, int wire,
                        int blocks_per_rank, void* stream) {
   if (n < 1 || n > tdt::kMaxRanks || blocks_per_rank < 1)
     return cudaErrorInvalidValue;
-  void* fn = pick_kernel(kind, dtype, small_m, wire);
-  if (fn == nullptr) return cudaErrorInvalidValue;
+  const Build k = pick_kernel(kind, dtype, small_m, wire);
+  if (k.fn == nullptr) return cudaErrorInvalidValue;
   if (kind == kGemmARTraced &&
       (arg < kBN || arg % kBN != 0 || N % arg != 0 || aux == nullptr))
     return cudaErrorInvalidValue;
   if ((kind == kAGGemm || kind == kAGGemmAdaptive) && aux == nullptr)
     return cudaErrorInvalidValue;
-  if (n * blocks_per_rank > tdt::capacity(fn, kThreads))
+  if (!prepare(k)) return cudaErrorInvalidValue;
+  if (n * blocks_per_rank > tdt::capacity(k.fn, k.threads, k.smem))
     return cudaErrorCooperativeLaunchTooLarge;
+  BMaps maps{};
+  if (k.tma)
+    for (int r = 0; r < n; ++r)
+      if (!encode_b(&maps.m[r], reinterpret_cast<const void*>(b[r]), N, K))
+        return cudaErrorInvalidValue;
   RankPtrs pa = tdt::to_ptrs(a, n), pb = tdt::to_ptrs(b, n),
            po = tdt::to_ptrs(o, n);
   RankPtrs px = aux == nullptr ? RankPtrs{} : tdt::to_ptrs(aux, n);
   uint64_t ep = epoch;
   void* args_ar[] = {&pa, &pb, &po, &ws_tab, &fl_tab, &M,
                      &N,  &K,  &n,  &ep,     &px,     &arg};
-  void* args_rs[] = {&pa, &pb, &po, &ws_tab, &fl_tab, &M,
-                     &N,  &K,  &n,  &half_m, &ep};
-  void* args_ag[] = {&pa, &pb,  &po, &ws_tab,   &fl_tab, &M,     &N,
-                     &K,  &n,   &ep, &px,       &lag_rank, &lag_ns,
-                     &delay_ns};
+  void* args_rs[] = {&pa, &pb, &po,     &ws_tab, &fl_tab, &M,
+                     &N,  &K,  &n,      &half_m, &ep,     &maps};
+  void* args_ag[] = {&pa, &pb, &po, &ws_tab, &fl_tab,   &M,
+                     &N,  &K,  &n,  &ep,     &px,       &lag_rank,
+                     &lag_ns, &delay_ns, &maps};
   void** args = kind == kGemmRS                 ? args_rs
                 : kind == kGemmAR || kind == kGemmARTraced ? args_ar
                                                            : args_ag;
   cudaError_t err = cudaLaunchCooperativeKernel(
-      fn, dim3(blocks_per_rank, n), dim3(kThreads), args, 0,
+      k.fn, dim3(blocks_per_rank, n), dim3(k.threads), args, k.smem,
       static_cast<cudaStream_t>(stream));
   if (err != cudaSuccess) return err;
   return cudaGetLastError();

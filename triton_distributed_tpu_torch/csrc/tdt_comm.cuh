@@ -78,7 +78,11 @@ __device__ __forceinline__ void signal(uint64_t* flag, uint64_t epoch) {
   st_release_sys(flag, epoch);
 }
 
-// Spin (one thread) until *flag >= epoch; trap after kWaitTimeoutNs.
+// Spin (one thread) until *flag >= epoch; trap after kWaitTimeoutNs,
+// printing the flag first unless kQuiet. A kernel that issues wgmma takes
+// kQuiet: any call (printf's vprintf) in it makes ptxas serialize its
+// wgmmas (C7510).
+template <bool kQuiet = false>
 __device__ __forceinline__ void wait_until(const uint64_t* flag,
                                            uint64_t epoch) {
   if (ld_acquire_sys(flag) >= epoch) return;
@@ -86,9 +90,10 @@ __device__ __forceinline__ void wait_until(const uint64_t* flag,
   while (ld_acquire_sys(flag) < epoch) {
     __nanosleep(64);
     if (global_ns() - t0 > kWaitTimeoutNs) {
-      printf("tdt wait_until timed out: flag %p at %llu, epoch %llu\n",
-             flag, (unsigned long long)ld_acquire_sys(flag),
-             (unsigned long long)epoch);
+      if constexpr (!kQuiet)
+        printf("tdt wait_until timed out: flag %p at %llu, epoch %llu\n",
+               flag, (unsigned long long)ld_acquire_sys(flag),
+               (unsigned long long)epoch);
       __trap();
     }
   }
@@ -141,6 +146,7 @@ __device__ __forceinline__ void put_signal(void* dst, const void* src,
 // block waits until all n ranks have arrived before touching a peer's
 // buffer. One launch covers all co-located ranks, so this costs little;
 // it is what separate launches per rank will need.
+template <bool kQuiet = false>
 __device__ __forceinline__ void barrier_all(const int64_t* flag_tab, int me,
                                             int n, uint64_t epoch,
                                             bool announce) {
@@ -151,21 +157,22 @@ __device__ __forceinline__ void barrier_all(const int64_t* flag_tab, int me,
         st_release_sys(symm_ptr<uint64_t>(flag_tab, p) + me, epoch);
     }
     const uint64_t* mine = symm_ptr<uint64_t>(flag_tab, me);
-    for (int src = 0; src < n; ++src) wait_until(mine + src, epoch);
+    for (int src = 0; src < n; ++src) wait_until<kQuiet>(mine + src, epoch);
   }
   __syncthreads();
 }
 
-// Blocks of `fn` (threads a block, static shared memory only) that can be
-// co-resident on the current device: the most a cooperative launch takes.
-inline int capacity(const void* fn, int threads) {
+// Blocks of `fn` (threads a block, its static shared memory and
+// dyn_smem bytes of dynamic shared memory) that can be co-resident on the
+// current device: the most a cooperative launch takes.
+inline int capacity(const void* fn, int threads, size_t dyn_smem = 0) {
   int dev = 0, sms = 0, per_sm = 0;
   if (cudaGetDevice(&dev) != cudaSuccess) return 0;
   if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
       cudaSuccess)
     return 0;
   if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, threads,
-                                                    0) != cudaSuccess)
+                                                    dyn_smem) != cudaSuccess)
     return 0;
   return sms * per_sm;
 }

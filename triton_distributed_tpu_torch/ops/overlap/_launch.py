@@ -13,10 +13,16 @@ from triton_distributed_tpu_torch.language.primitives import (
 from triton_distributed_tpu_torch.ops import cuda_kernels as ck
 from triton_distributed_tpu_torch.ops.common import rank_ptrs
 
-# The kernels' tile (overlap.cu): 64 columns; 16 rows when the GEMM has
-# at most 16 (decode), else 64.
+# The kernels' tiles (overlap.cu): the FMA tile, 64 columns of 16 rows
+# when the GEMM has at most SMALL_M (decode), else 64; the bf16 builds of
+# ag_gemm and gemm_rs above SMALL_M rows take the wgmma tile, WG_BM x WG_BN.
 BN = 64
+WG_BM = WG_BN = 128
 SMALL_M = 16
+WGMMA_KINDS = ("gemm_rs", "ag_gemm", "ag_gemm_adaptive")
+# ag_gemm's put row tile (overlap.cu kPutRows): a chunk is put, and flagged,
+# 16 rows at a time whatever the GEMM tile.
+PUT_ROWS = 16
 # overlap.cu `Kind`: the three kernels and the builds of their options
 # (the adaptive ag_gemm, the traced gemm_ar).
 KINDS = {"gemm_ar": 0, "gemm_rs": 1, "ag_gemm": 2, "ag_gemm_adaptive": 3,
@@ -26,6 +32,29 @@ _capacity: dict = {}
 
 def tile_rows(m: int) -> int:
     return SMALL_M if m <= SMALL_M else 64
+
+
+def tile(kind: str, dtype: torch.dtype, m: int) -> tuple[int, int]:
+    """The (rows, columns) tile of ``kind``'s build at ``dtype`` for a GEMM
+    of ``m`` rows."""
+    if kind in WGMMA_KINDS and dtype == torch.bfloat16 and m > SMALL_M:
+        return WG_BM, WG_BN
+    return tile_rows(m), BN
+
+
+def tiles(kind: str, dtype: torch.dtype, m: int, n_out: int
+          ) -> tuple[int, int]:
+    """(row tiles, tiles) of ``kind``'s GEMM of ``m`` rows by ``n_out``
+    columns: a step's work items."""
+    bm, bn = tile(kind, dtype, m)
+    tiles_m = -(-m // bm)
+    return tiles_m, tiles_m * -(-n_out // bn)
+
+
+def grid(tiles_: int, capacity_: int, n: int) -> int:
+    """Blocks a rank: at most one a tile, and at most what stays
+    co-resident for the n ranks of the launch."""
+    return max(1, min(tiles_, capacity_ // n))
 
 
 def capacity(kind: str, dtype: torch.dtype, small: bool,
@@ -76,8 +105,7 @@ def launch(kernel, kind: str, ctx, a, b, outs, ws_shape, m_tile: int,
     dt = a[0].dtype
     small = m_tile <= SMALL_M
     if blocks_per_rank is None:
-        blocks_per_rank = max(1, min(tiles, capacity(kind, dt, small, wire)
-                                     // n))
+        blocks_per_rank = grid(tiles, capacity(kind, dt, small, wire), n)
     ws = ctx.workspace(kind, ws_shape, wire or dt)
     fs = site_flags(ctx, kind, flags)
     M, N, K, half_m = dims

@@ -85,6 +85,17 @@ def ag_gemm_plain(a: list[torch.Tensor], b: list[torch.Tensor]
     return [full @ w for w in b]
 
 
+def plan(n: int, m_per: int, n_loc: int, dtype: torch.dtype
+         ) -> tuple[int, int, int]:
+    """(put row tiles, tiles a step, flags a rank) of a launch: the flags
+    are the barrier's n, one a put row tile (``PUT_ROWS`` rows) of each
+    source, and the adaptive build's claim word and publish flag of each
+    step (the ring build's site is the same size)."""
+    puts = -(-m_per // _launch.PUT_ROWS)
+    _, tiles = _launch.tiles("ag_gemm", dtype, m_per, n_loc)
+    return puts, tiles, n + n * puts + 2 * n
+
+
 def ag_gemm_kernel(a, b, ctx, blocks_per_rank: int | None = None, *,
                    adaptive: bool = False,
                    straggler_rank: int | None = None,
@@ -98,19 +109,15 @@ def ag_gemm_kernel(a, b, ctx, blocks_per_rank: int | None = None, *,
     n = ctx.tp
     m_per, k = a[0].shape
     n_loc = b[0].shape[1]
-    bm = _launch.tile_rows(m_per)
-    tiles_m = -(-m_per // bm)
-    tiles = tiles_m * -(-n_loc // _launch.BN)
+    _, tiles, flags = plan(n, m_per, n_loc, a[0].dtype)
     out = torch.empty((n, n * m_per, n_loc), dtype=a[0].dtype,
                       device=ctx.device)
     outs = [out[r] for r in range(n)]
     order = torch.full((n, n), -1, dtype=torch.int32, device=ctx.device)
     kernel, kind = ((ck.AG_GEMM_ADAPTIVE, "ag_gemm_adaptive") if adaptive
                     else (ck.AG_GEMM, "ag_gemm"))
-    # Flags: the barrier, a rank's row tiles, and (adaptive) the claim
-    # word and publish flag of each step.
     _launch.launch(kernel, kind, ctx, a, b, outs, (n, m_per, k), m_per,
-                   tiles, n + n * tiles_m + 2 * n, (m_per, n_loc, k, 0),
+                   tiles, flags, (m_per, n_loc, k, 0),
                    blocks_per_rank, aux=[order[r] for r in range(n)],
                    lag=lag(straggler_rank, straggler_nanos),
                    delay_ns=FOR_CORRECTNESS_NS if for_correctness else 0)

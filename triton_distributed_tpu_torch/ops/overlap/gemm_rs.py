@@ -149,6 +149,14 @@ def gemm_rs_plain(a: list[torch.Tensor], b: list[torch.Tensor],
     return outs
 
 
+def plan(n: int, m_per: int, n_out: int, dtype: torch.dtype
+         ) -> tuple[int, int]:
+    """(tiles a step, flags a rank) of a ring launch: the barrier's n,
+    then one a tile of each ring direction's forwarding steps."""
+    _, tiles = _launch.tiles("gemm_rs", dtype, m_per, n_out)
+    return tiles, n + 2 * (n - 1) * tiles
+
+
 def gemm_rs_ring(a, b, ctx, half_m: int, blocks_per_rank: int | None = None,
                  wire_dtype: torch.dtype | None = None) -> list[torch.Tensor]:
     """The ring kernel: one cooperative launch over all ranks (at n = 1
@@ -164,14 +172,13 @@ def gemm_rs_ring(a, b, ctx, half_m: int, blocks_per_rank: int | None = None,
     kernel = (ck.GEMM_RS_N1 if n == 1 else
               ck.GEMM_RS_WIRE_E4M3 if wire == torch.float8_e4m3fn else
               ck.GEMM_RS_WIRE_BF16 if wire == torch.bfloat16 else ck.GEMM_RS)
-    bm = _launch.tile_rows(m_per)
-    tiles = -(-m_per // bm) * -(-n_out // _launch.BN)
+    tiles, flags = plan(n, m_per, n_out, a[0].dtype)
     out = torch.empty((n, m_per, n_out), dtype=a[0].dtype, device=ctx.device)
     outs = [out[r] for r in range(n)]
     # n = 1 exchanges nothing: a token workspace.
     ws_shape = (n - 1, m_per, n_out) if n > 1 else (1, 1, 8)
     _launch.launch(kernel, "gemm_rs", ctx, a, b, outs, ws_shape, m_per,
-                   tiles, n + 2 * (n - 1) * tiles, (m, n_out, k, half_m),
+                   tiles, flags, (m, n_out, k, half_m),
                    blocks_per_rank, wire=wire)
     return outs
 
