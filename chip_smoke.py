@@ -336,6 +336,16 @@ def nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts)
 
 
+def gather_copy(parts):
+    """The all-gathers' library call: one copy_ of the stacked shards into
+    every rank's output, as a gather writes n outputs."""
+    import torch
+
+    k, src = len(parts), torch.stack(parts)
+    dst = torch.empty((k, *src.shape), dtype=src.dtype, device=src.device)
+    return lambda: dst.copy_(src.expand(k, *src.shape))
+
+
 def check_kernels(dev, flush):
     """Phase 2: each kernel against its plain version at the serving
     path's shapes, in bf16 (timed) and in f32 with TF32 off, plus the
@@ -4121,7 +4131,7 @@ def check_tp_kernels(dev, flush) -> dict:
     records["all_gather"] = record(
         "all_gather", f"tp={n} [192, {d}] a rank bf16 (gemm_ar TWO_SHOT's "
         "tail at a 384-row chunk)", lambda: all_gather_full_mesh(xs, ctx),
-        lambda: all_gather_plain(xs), lambda: torch.cat(xs),
+        lambda: all_gather_plain(xs), gather_copy(xs),
         n * shard + n * n * shard, 0)
     return records
 
@@ -5759,7 +5769,8 @@ def check_moe_tp_kernels(dev, flush) -> dict:
     # Timing at the path's shapes. Bound: every rank's bytes (inputs read
     # once, outputs written once) over one HBM. library_ms: one PyTorch
     # call of the same function on one card (torch.stack(xs).sum(0) for
-    # the reductions, torch.cat for the gathers).
+    # the reductions; for the gathers one copy_ of the stacked shards
+    # into every rank's output, the n outputs the kernel writes).
     records = {}
     for name, (fn, plain, fam) in ops.items():
         n, rows = MOE_TP_TIMED[name]
@@ -5767,7 +5778,7 @@ def check_moe_tp_kernels(dev, flush) -> dict:
         shard = xs[0].numel() * 2
         moved = {"ar": 2 * n * shard, "rs": n * shard + n * shard // n,
                  "ag": n * shard + n * n * shard}[fam]
-        lib = ((lambda xs=xs: torch.cat(xs)) if fam == "ag"
+        lib = (gather_copy(xs) if fam == "ag"
                else (lambda xs=xs: torch.stack(xs).sum(0)))
         bms = moved / HBM_BPS * 1e3
         rec = dict(route="cuda", source=_COLL_SRC,
@@ -8065,11 +8076,6 @@ def check_collectives(dev):
     stacked = torch.stack(xs)
     rec = {}
 
-    def gather_lib(parts):
-        """One copy_ of the stacked shards into every rank's output."""
-        k, src = len(parts), torch.stack(parts)
-        dst = torch.empty((k, *src.shape), dtype=src.dtype, device=dev)
-        return lambda: dst.copy_(src.expand(k, *src.shape))
     rec["pp_shift"] = dict(
         replaces="triton_distributed_tpu/parallel/p2p.py:43",
         ms=median_ms(lambda: p2p.pp_shift_kernel(xs, ctx, False), flush),
@@ -8088,7 +8094,7 @@ def check_collectives(dev):
         replaces="triton_distributed_tpu/ops/collectives/all_gather.py:182",
         ms=pull_ms[2], ms_by_window=pull_ms,
         plain_ms=median_ms(lambda: all_gather_plain(ag_in), flush),
-        library_ms=median_ms(gather_lib(ag_in), flush),
+        library_ms=median_ms(gather_copy(ag_in), flush),
         bound_ms=(n + n * n) * g_shard / HBM_BPS * 1e3,
         full_mesh_ms=median_ms(lambda: all_gather_full_mesh(ag_in, ctx),
                                flush),
@@ -8101,7 +8107,7 @@ def check_collectives(dev):
         ms=median_ms(lambda: agm.all_gather_torus_2d_kernel(tor_in, ctx2),
                      flush),
         plain_ms=median_ms(lambda: all_gather_plain(tor_in), flush),
-        library_ms=median_ms(gather_lib(tor_in), flush),
+        library_ms=median_ms(gather_copy(tor_in), flush),
         bound_ms=(m + m * m) * g_shard / HBM_BPS * 1e3,
         shape=f"dp x tp = {dp} x {tp}, [{COLL_GATHER_ROWS}, {d}] bf16 a rank "
               f"(library as the pull's)")
@@ -8138,7 +8144,7 @@ def check_collectives(dev):
         full_mesh_ll_grid_ms_by_n=fm_same,
         blocks_by_n={k: ws.blocks for k, (_, ws) in ll_ws.items()},
         plain_ms=median_ms(lambda: all_gather_plain(xs_ll), flush),
-        library_ms=median_ms(gather_lib(xs_ll), flush),
+        library_ms=median_ms(gather_copy(xs_ll), flush),
         bound_ms=(n + n * n) * nbytes(xs_ll[0]) / HBM_BPS * 1e3,
         shape=f"n={n}, [{COLL_LL_ROWS}, {d}] bf16 a rank, barrier-free; "
               f"beside all_gather_full_mesh at the same shape "

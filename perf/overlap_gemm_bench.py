@@ -27,7 +27,9 @@ launch, the card's name and power limit first, then the ptxas lines of
 the wgmma builds (registers, stack, spills, and the count of C7510
 warnings: wgmma serialized); the whole ptxas report of ``overlap.cu``
 goes to ``--ptxas`` (default ``build/ptxas_overlap_<tag>.txt`` under the
-root). Needs CUDA; exits non-zero without it.
+root). ``--dump FILE`` saves every timed launch's outputs (the same
+seeded inputs in every tree) for ``perf/compare_dumps.py``. Needs CUDA;
+exits non-zero without it.
 """
 
 from __future__ import annotations
@@ -72,6 +74,8 @@ def main() -> int:
     ap.add_argument("--tag", default="")
     ap.add_argument("--ptxas", default="",
                     help="path of the ptxas report of overlap.cu")
+    ap.add_argument("--dump", default="",
+                    help="torch.save every launch's outputs here")
     args = ap.parse_args()
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
@@ -145,8 +149,20 @@ def main() -> int:
         return max(float((g.float() - w.float()).abs().max())
                    for g, w in zip(got, want))
 
+    dumps = {}
+
     def emit(name, shape, kind, fn, plain, lib, nbytes, flops, e, small,
              wire=None):
+        if args.dump:
+            flat, todo = [], [fn()]
+            while todo:  # the launch's tensors, nested lists unrolled
+                x = todo.pop(0)
+                if torch.is_tensor(x):
+                    flat.append(x)
+                elif isinstance(x, (list, tuple)):
+                    todo[:0] = list(x)
+            torch.cuda.synchronize()
+            dumps[name] = [t.cpu() for t in flat]
         tb, to = nbytes / HBM_BPS, flops / BF16_FLOPS
         rec = {"tag": tag, "name": name, "shape": shape,
                "ms": median_ms(fn, flush, args.iters),
@@ -197,6 +213,9 @@ def main() -> int:
          lambda: gemm_rs_ring(a, b, ctx, m), lambda: gemm_rs_plain(a, b),
          lambda: torch.matmul(A, B), 2 * (m * d + d * d + m * d),
          2 * m * d * d, e, False)
+    if args.dump:
+        torch.save(dumps, args.dump)
+        print(json.dumps({"dump": args.dump}))
     return 0
 
 

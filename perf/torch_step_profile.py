@@ -74,8 +74,9 @@ serving path after warm-up:
 
 For each phase it prints one JSON line: host wall ms per step (clock
 around synchronized steps), device busy ms per step (sum of kernel time),
-the device idle share, kernel launches per step, and the kernels taking
-the most device time. Needs CUDA; exits non-zero without it.
+the device idle share, kernel launches per step, the device time a step
+of the flash attention kernels (every build), and the kernels taking the
+most device time. Needs CUDA; exits non-zero without it.
 """
 
 from __future__ import annotations
@@ -89,7 +90,8 @@ import time
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
-def profile_phase(name, step, steps: int, match: str = "") -> dict:
+def profile_phase(name, step, steps: int,
+                  match: tuple = ("flash_attention",)) -> dict:
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -112,11 +114,9 @@ def profile_phase(name, step, steps: int, match: str = "") -> dict:
     launches = sum(e.count for e in kernels)
     top = sorted(kernels, key=lambda e: -e.device_time_total)[:8]
     busy_ms = busy_us / steps / 1e3
-    extra = {}
-    if match:
-        extra[f"{match}_ms_per_step"] = sum(
-            e.device_time_total for e in kernels if match in e.key
-        ) / steps / 1e3
+    extra = {f"{m}_ms_per_step": sum(
+        e.device_time_total for e in kernels if m in e.key) / steps / 1e3
+        for m in match}
     return {
         **extra,
         "phase": name,
@@ -157,7 +157,8 @@ def profile_tp(asked, steps: int) -> None:
         def step(mode=mode):
             model.prefill_paged_chunk(chunk, 0, 0, 384, 383, cache, mode)
 
-        rec = profile_phase(name, step, steps, match="gemm_rs")
+        rec = profile_phase(name, step, steps,
+                            match=("gemm_rs", "flash_attention"))
         rec["device"] = card
         print(json.dumps(rec), flush=True)
     del model, cache

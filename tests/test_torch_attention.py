@@ -49,18 +49,28 @@ def _t(a, dtype=torch.float32):
     return torch.from_numpy(np.asarray(a, np.float32)).to(dtype)
 
 
-@pytest.mark.parametrize("sq,sk,off,lse", [
-    (64, 64, 0, False),   # causal prefill from position 0
-    (32, 96, 64, True),   # chunk against cached context, Sk > Sq, with LSE
-    (16, 128, 112, True),
+# head_dim 128 at the card's tensor-core body's edges (its tiles are 64
+# q rows by 64 keys): Sq and Sk off the tiles, the diagonal inside a tile
+# (kv_offset 135), G = 4 and 8. The plain version here is the card tests'
+# oracle for that body. The JAX kernel takes whole blocks: block_k 40
+# splits Sk = 200 into 5 (its online softmax across blocks).
+@pytest.mark.parametrize("sq,sk,off,lse,d,hq,hkv,block_k", [
+    pytest.param(64, 64, 0, False, 32, 8, 4, 128, id="64-64-0-False"),
+    pytest.param(32, 96, 64, True, 32, 8, 4, 128, id="32-96-64-True"),
+    pytest.param(16, 128, 112, True, 32, 8, 4, 128, id="16-128-112-True"),
+    pytest.param(65, 200, 135, False, 128, 16, 4, 40, id="d128-g4"),
+    pytest.param(65, 200, 135, True, 128, 16, 4, 40, id="d128-g4-lse"),
+    pytest.param(65, 200, 135, True, 128, 8, 1, 40, id="d128-g8-lse"),
+    pytest.param(65, 65, 0, False, 128, 8, 1, 65, id="d128-g8-sq65"),
 ])
-def test_flash_attention_matches_jax(sq, sk, off, lse):
+def test_flash_attention_matches_jax(sq, sk, off, lse, d, hq, hkv, block_k):
     rng = np.random.default_rng(sq + sk)
-    q = rng.standard_normal((2, 8, sq, 32)).astype(np.float32)
-    k = rng.standard_normal((2, 4, sk, 32)).astype(np.float32)
-    v = rng.standard_normal((2, 4, sk, 32)).astype(np.float32)
+    q = rng.standard_normal((2, hq, sq, d)).astype(np.float32)
+    k = rng.standard_normal((2, hkv, sk, d)).astype(np.float32)
+    v = rng.standard_normal((2, hkv, sk, d)).astype(np.float32)
     want = jax_flash_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
-                               causal=True, kv_offset=off, return_lse=lse)
+                               causal=True, kv_offset=off, return_lse=lse,
+                               block_k=block_k)
     got = flash_attention(_t(q), _t(k), _t(v), causal=True, kv_offset=off,
                           return_lse=lse)
     if lse:

@@ -67,27 +67,147 @@ def _rand(rng, shape, dtype, dev):
         dev, dtype)
 
 
+# bf16 at head_dim 128 runs the tensor-core body (64-row q tiles, 64-key
+# tiles): the cases below put Sq, Sk and kv_offset off those tiles, the
+# causal diagonal inside a tile, G from 1 to 8, and the non-causal call
+# without a bias (ring attention, SP's plain walk).
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("d,hq,hkv,sq,sk,off", [
-    (128, 16, 8, 256, 768, 512),
-    (128, 16, 8, 200, 200, 0),
-    (128, 32, 4, 256, 768, 512),  # Qwen3-30B-A3B: G = 8
-    (32, 8, 4, 37, 90, 53),
-    (32, 4, 4, 16, 16, 0),
+@pytest.mark.parametrize("d,hq,hkv,sq,sk,off,causal", [
+    (128, 16, 8, 256, 768, 512, True),
+    (128, 16, 8, 200, 200, 0, True),
+    (128, 32, 4, 256, 768, 512, True),  # Qwen3-30B-A3B: G = 8
+    (32, 8, 4, 37, 90, 53, True),
+    (32, 4, 4, 16, 16, 0, True),
+    (128, 8, 8, 37, 37, 0, True),       # Sq = Sk below one tile, G = 1
+    (128, 16, 8, 65, 65, 0, True),      # one row past a tile
+    (128, 16, 4, 65, 200, 135, True),   # diagonal inside a tile, G = 4
+    (128, 16, 2, 90, 127, 37, True),    # Sk = 90 + kv_offset, G = 8
+    (128, 16, 4, 384, 384, 0, True),    # Qwen3-8B tp=2 chunk
+    (128, 16, 8, 128, 2048, 0, False),  # non-causal, no bias
+    (128, 16, 4, 65, 200, 0, False),
 ])
-def test_flash_attention_matches_plain(dev, dtype, d, hq, hkv, sq, sk, off):
+def test_flash_attention_matches_plain(dev, dtype, d, hq, hkv, sq, sk, off,
+                                       causal):
     rng = np.random.default_rng(0)
     q = _rand(rng, (2, hq, sq, d), dtype, dev)
     k = _rand(rng, (2, hkv, sk, d), dtype, dev)
     v = _rand(rng, (2, hkv, sk, d), dtype, dev)
-    before = ck.FLASH_ATTENTION.launches
-    o, lse = flash_attention(q, k, v, kv_offset=off, return_lse=True)
+    counter = ck.FLASH_ATTENTION if causal else ck.FLASH_ATTENTION_COLD
+    before = counter.launches
+    o, lse = flash_attention(q, k, v, kv_offset=off, return_lse=True,
+                             causal=causal)
     torch.cuda.synchronize()
-    assert ck.FLASH_ATTENTION.launches == before + 1
-    o_ref, lse_ref = mha_reference(q, k, v, kv_offset=off, return_lse=True)
+    assert counter.launches == before + 1
+    o_ref, lse_ref = mha_reference(q, k, v, kv_offset=off, return_lse=True,
+                                   causal=causal)
     assert torch.isfinite(o.float()).all()
     assert (o.float() - o_ref.float()).abs().max().item() < TOL[dtype]
     assert (lse - lse_ref).abs().max().item() < 1e-3
+
+
+def test_flash_attention_back_to_back(dev):
+    """100 launches of the tensor-core body in a row (causal chunks at
+    moving offsets and cold partials, fresh inputs each), every output
+    checked against the plain version."""
+    gen = torch.Generator(device=dev).manual_seed(5)
+    bf16 = torch.bfloat16
+    for i in range(100):
+        causal = i % 2 == 0
+        sq, off = 64 + 7 * (i % 9), 13 * i
+        sk = off + sq if causal else 128 + 61 * (i % 5)
+        q = torch.randn((1, 16, sq, 128), generator=gen, device=dev).to(bf16)
+        k = torch.randn((1, 8, sk, 128), generator=gen, device=dev).to(bf16)
+        v = torch.randn((1, 8, sk, 128), generator=gen, device=dev).to(bf16)
+        o, lse = flash_attention(q, k, v, kv_offset=off, causal=causal,
+                                 return_lse=True)
+        o_ref, lse_ref = mha_reference(q, k, v, kv_offset=off,
+                                       causal=causal, return_lse=True)
+        err = (o.float() - o_ref.float()).abs().max().item()
+        assert err < TOL[bf16], (i, err)
+        assert (lse - lse_ref).abs().max().item() < 1e-3, i
+
+
+@pytest.mark.parametrize("sq,sk,off", [(200, 200, 0), (65, 72, 7),
+                                       (65, 200, 135)])
+def test_flash_attention_diagonal_off_by_one_breaks_the_limit(dev, sq, sk,
+                                                              off):
+    """Control: the plain version with kv_offset one row off (the causal
+    diagonal one column over) breaks the limit the kernel meets."""
+    rng = np.random.default_rng(6)
+    bf16 = torch.bfloat16
+    q = _rand(rng, (1, 16, sq, 128), bf16, dev)
+    k = _rand(rng, (1, 4, sk, 128), bf16, dev)
+    v = _rand(rng, (1, 4, sk, 128), bf16, dev)
+    o = flash_attention(q, k, v, kv_offset=off)
+    assert (o.float() - mha_reference(q, k, v, kv_offset=off).float()).abs(
+        ).max().item() < TOL[bf16]
+    for wrong in {off + 1, max(off - 1, 0)} - {off}:
+        diff = (o.float() - mha_reference(q, k, v, kv_offset=wrong).float())
+        assert diff.abs().max().item() > TOL[bf16], wrong
+
+
+def test_fma_builds_keep_their_counters(dev):
+    """The builds left on the FMA body (f32, head_dim 32, int8 K/V causal
+    and cold, the causal call with a bias) each count one launch on their
+    own counter and none on another's."""
+    f32, bf16 = torch.float32, torch.bfloat16
+    rng = np.random.default_rng(4)
+    cases = []
+    for dtype, d in ((f32, 128), (bf16, 32)):
+        q = _rand(rng, (1, 8, 40, d), dtype, dev)
+        k = _rand(rng, (1, 4, 100, d), dtype, dev)
+        cases.append((ck.FLASH_ATTENTION, q, k, k, {"kv_offset": 60}))
+    q = _rand(rng, (1, 8, 16, 128), bf16, dev)
+    codes, sc = _int8_pool(rng, (4, 2, 64, 128), dev)
+    k8 = codes.reshape(1, 4, 128, 128)
+    q8 = {"k_scale": sc[None].contiguous(), "v_scale": sc[None].contiguous(),
+          "block_k": 64}
+    cases.append((ck.FLASH_ATTENTION_INT8, q, k8, k8,
+                   {"kv_offset": 112, **q8}))
+    cases.append((ck.FLASH_ATTENTION_COLD_INT8, q, k8, k8,
+                  {"causal": False, **q8}))
+    kb = _rand(rng, (1, 4, 128, 128), bf16, dev)
+    bias = torch.zeros((16, 128), device=dev)
+    cases.append((ck.FLASH_ATTENTION_BIAS, q, kb, kb,
+                  {"kv_offset": 112, "bias": bias}))
+    for counter, q_, k_, v_, kw in cases:
+        others = [c for c in (ck.FLASH_ATTENTION, ck.FLASH_ATTENTION_INT8,
+                              ck.FLASH_ATTENTION_BIAS,
+                              ck.FLASH_ATTENTION_COLD,
+                              ck.FLASH_ATTENTION_COLD_INT8)
+                  if c is not counter]
+        before = [c.launches for c in others]
+        n = counter.launches
+        flash_attention(q_, k_, v_, **kw)
+        torch.cuda.synchronize()
+        assert counter.launches == n + 1
+        assert [c.launches for c in others] == before
+
+
+def test_bf16_d128_never_reaches_the_plain_version(dev, monkeypatch):
+    """A bf16 head_dim-128 CUDA call launches its kernel or raises: with
+    the plain version made to fail, the causal and cold calls still run
+    and count one launch each."""
+    fa_mod = importlib.import_module(
+        "triton_distributed_tpu_torch.ops.attention.flash_attention")
+
+    def refuse(*a, **kw):
+        raise AssertionError("the plain version ran on a CUDA tensor")
+
+    monkeypatch.setattr(fa_mod, "mha_reference", refuse)
+    rng = np.random.default_rng(3)
+    bf16 = torch.bfloat16
+    q = _rand(rng, (1, 16, 100, 128), bf16, dev)
+    k = _rand(rng, (1, 8, 300, 128), bf16, dev)
+    bias = torch.zeros((100, 300), device=dev)
+    for counter, kw in ((ck.FLASH_ATTENTION, {"kv_offset": 200}),
+                        (ck.FLASH_ATTENTION_COLD, {"causal": False}),
+                        (ck.FLASH_ATTENTION_COLD, {"causal": False,
+                                                   "bias": bias})):
+        n = counter.launches
+        o = fa_mod.flash_attention(q, k, k, **kw)
+        torch.cuda.synchronize()
+        assert counter.launches == n + 1 and torch.isfinite(o.float()).all()
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -47,31 +47,67 @@
 // What bounds it on the H100: at the main path's shapes (a 256-token
 // chunk against <= 2k cached positions, head_dim 128) the work is a
 // few GFLOP and a few MB, so the roofline bound is the tensor-core rate
-// (989 TFLOP/s bf16). This first version does its products on the f32
-// FMA pipes (67 TFLOP/s peak), so it is operation-bound far below that
-// roofline; moving QK^T and P·V onto wgmma with TMA-fed K/V tiles is
-// the next step. A tree verify chunk (16 rows against <= 2k keys, with
-// the bias) is the other way round: ~0.1 GFLOP against ~3 MB of K/V
+// (989 TFLOP/s bf16). A tree verify chunk (16 rows against <= 2k keys,
+// with the bias) is the other way round: ~0.1 GFLOP against ~3 MB of K/V
 // read up to the causal limit (kv_offset 700) and 128 KB of bias, so
-// its bound is the bytes (~0.9 us at 3.35 TB/s), and
-// with one 16-row block per head only 16 blocks run; the kernel is
-// latency-bound there, which a split over keys would address. A cold
-// partial (a 128-row chunk against a 2048-key window at Qwen3-0.6B) is
-// ~0.27 GFLOP against ~8.5 MB: bound by the bytes (~2.6 us), and run at
-// the FMA pipes' rate like the causal chunk.
+// its bound is the bytes (~0.9 us at 3.35 TB/s). A cold partial (a
+// 128-row chunk against a 2048-key window at Qwen3-0.6B) is ~0.27 GFLOP
+// against ~8.5 MB: bound by the bytes (~2.6 us).
 //
-// Design: the TPU kernel carried (m, l, acc) in VMEM scratch across a
+// Two bodies. The TPU kernel carried (m, l, acc) in VMEM scratch across a
 // sequential kv grid axis; Hopper blocks run in parallel in no order, so
-// one block owns a (b*hq, 16-row q tile) and loops over kv tiles itself,
+// in both a block owns a (b*hq, q tile) and loops over kv tiles itself,
 // stopping at the causal limit of its last row (the TPU kernel's block
-// skip). K/V tiles of 32 keys are staged through shared memory in f32
-// (K rows padded by one float so the lane-per-key reads hit 32 distinct
-// banks) and shared by the block's 4 warps; each warp owns 4 query rows.
-// For a row, lane j scores key j of the tile, the warp reduces max and
-// sum with shuffles, and P·V runs with each lane owning head_dim/32
-// output columns while p_j is broadcast by shuffle.
+// skip).
+//
+// The tensor-core body (flash_attention_tc_kernel): bf16 at head_dim 128
+// over model-dtype K/V, causal without a bias (every prefill chunk) or
+// non-causal with or without one (the cold partial, ring attention).
+// A block owns 64 q rows of one (b, q head) and runs two warpgroups; each
+// computes all 64 rows against every other 64-key tile (warpgroup g takes
+// tiles g, g + 2, ...), and the two merge their (m, l, acc) through
+// shared memory at the end, by (m, l): an all-masked row then stays the
+// mean of V over every column. Per tile, in one warpgroup:
+//   - S = Q K^T on wgmma m64n64k16 (8 steps over head_dim), both operands
+//     from shared memory in the 128-byte swizzle: Q staged once, K in its
+//     natural [keys, D] layout (K-major), each a pair of 64-column boxes;
+//   - the online softmax in log2 units (scores times sm_scale * log2 e,
+//     the bias times log2 e, 2^x in one MUFU op; LSE = m ln 2 + log l):
+//     the causal mask only on tiles that cross the diagonal, -inf past Sk
+//     only on the last tile; a row's max reduces over the 4 threads of a
+//     quad (two shuffles), l stays per thread until the end. The bias is
+//     read in the accumulator's own (row, column) pattern, a tile ahead,
+//     so its loads fly across the products;
+//   - P, rounded to bf16 in pairs, is the A operand of O += P V straight
+//     from registers (wgmma m64n128k16, the S fragment is the A fragment),
+//     V read MN-major ([keys, D] row-major, never transposed); O is 64 f32
+//     registers a thread.
+// Tile i's Q K^T and tile i-1's P V are issued together, and tile i's
+// softmax runs while P V multiplies (O is rescaled once P V retires).
+// K and V tiles arrive by TMA (3-D tensor maps over [B*H, S, 128], so rows
+// past Sk of one kv head are zero-filled, never the next head's; Q rows
+// past Sq the same, computed on zeros and never stored) into a ring of 2
+// stages a warpgroup, each K and V on its own mbarrier, refilled as soon
+// as the product that reads it retires. What bounds it at the serving
+// shapes is latency, not a rate: a 64-row q tile walks its keys in
+// sequence, and the grids are small (64 blocks for a 256-row chunk of 16
+// heads), so the time is a fixed ~11 us (launch, first loads, the merge)
+// plus ~1.3 us a tile of each warpgroup (PERF.md).
+//
+// The FMA body (flash_attention_kernel), every other build: f32 (the
+// CPU-oracle mode of the card tests), head_dim 32, int8 K/V, and the
+// causal call with a bias (tree verify). One block owns 16 query rows;
+// K/V tiles of 32 keys are staged through shared memory in f32 (K rows
+// padded by one float so the lane-per-key reads hit 32 distinct banks)
+// and shared by the block's 4 warps; each warp owns 4 query rows. For a
+// row, lane j scores key j of the tile, the warp reduces max and sum with
+// shuffles, and P·V runs with each lane owning head_dim/32 output columns
+// while p_j is broadcast by shuffle. Its products run on the f32 FMA
+// pipes (67 TFLOP/s peak), far below the tensor cores.
 #include "tdt_common.cuh"
+#include "tdt_hopper.cuh"
 
+#include <climits>
 #include <type_traits>
 
 namespace {
@@ -206,6 +242,408 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// ---------------------------------------------------------------------------
+// The tensor-core body (the design note above): bf16, head_dim 128.
+
+namespace tc {
+
+using BF16 = __nv_bfloat16;
+
+constexpr int kD = 128;       // head_dim
+constexpr int kRows = 64;     // q rows a block: one wgmma's M
+constexpr int kKeys = 64;     // keys a tile: S's N, P·V's depth
+constexpr int kGroups = 2;    // warpgroups, splitting a q tile's key tiles
+constexpr int kStages = 2;    // K/V tiles in flight a warpgroup
+constexpr int kThreads = 128 * kGroups;
+constexpr int kBox = 64 * 64 * 2;   // [64 rows, 64 columns] bf16: 8 KB
+constexpr int kTile = 2 * kBox;     // [64 rows, 128 columns]: two boxes
+constexpr int kBufs = 1 + kGroups * kStages * 2;  // Q, then K, V a stage
+// 1 KB of slack aligns the tiles to the swizzle's 1024-byte atoms; one
+// mbarrier a buffer.
+constexpr int kSmem = 1024 + kBufs * kTile + 8 * kBufs;
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+// The merge stages a warpgroup's acc, m and l, f32 [68][128], in the ring.
+static_assert((kD / 2 + 4) * 128 * 4 <= (kBufs - 1) * kTile,
+              "the merge staging reuses the ring");
+
+// Q [B*Hq, Sq, 128], K and V [B*Hkv, Sk, 128] (bf16) as boxes of 64
+// columns x 64 rows x 1 head in the 128-byte swizzle, zero past Sq / Sk:
+// passed by value as a __grid_constant__ parameter (TMA reads param space).
+struct alignas(64) QkvMaps {
+  CUtensorMap q, k, v;
+};
+
+// Tile i of warpgroup g's share: its K buffer (its V buffer is the next),
+// the parity of the buffer's use, and its first key.
+__device__ __forceinline__ int kv_buf(int g, int i) {
+  return (g * kStages + i % kStages) * 2;
+}
+__device__ __forceinline__ uint32_t kv_parity(int i) {
+  return uint32_t(i / kStages) & 1;
+}
+__device__ __forceinline__ int tile_key(int g, int i) {
+  return (g + i * kGroups) * kKeys;
+}
+
+// Issues the K (v = 0) or V (v = 1) half of tile i of warpgroup g's share
+// (key tile g + i * kGroups) into its stage: a pair of 64-column boxes on
+// the buffer's own mbarrier. One thread of the warpgroup calls it.
+__device__ __forceinline__ void load_kv(const QkvMaps& maps, uint8_t* ring,
+                                        uint64_t* bars, int g, int i, int v,
+                                        int kvbh) {
+  const int buf = kv_buf(g, i) + v;
+  uint8_t* dst = ring + buf * kTile;
+  const CUtensorMap* map = v ? &maps.v : &maps.k;
+  tdt::mbar_expect_tx(bars + buf, kTile);
+  tdt::tma_load_3d(dst, map, bars + buf, 0, tile_key(g, i), kvbh);
+  tdt::tma_load_3d(dst + kBox, map, bars + buf, 64, tile_key(g, i), kvbh);
+}
+
+// The bias of the thread's accumulator elements in the 64-key tile at k0
+// (0 outside [Sq, Sk]), in the S fragment's order. Nothing consumes the
+// loads here: they stay in flight across the products (a use right after
+// them, such as a scale to log2 units, would stall every tile on them).
+__device__ __forceinline__ void load_bias(float (&bv)[32],
+                                          const float* __restrict__ bias,
+                                          int ra, int rb, int cq, int k0,
+                                          int sq, int sk) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int c = k0 + 8 * j + cq + e;
+      bv[4 * j + e] =
+          (ra < sq && c < sk) ? __ldg(bias + (size_t)ra * sk + c) : 0.f;
+      bv[4 * j + 2 + e] =
+          (rb < sq && c < sk) ? __ldg(bias + (size_t)rb * sk + c) : 0.f;
+    }
+}
+
+// 2^x in one MUFU op (denormal results flush to 0: weight 0).
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&p);
+}
+
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+// S = Q K^T for one tile, issued and committed: head_dim in 8 steps of 16;
+// step kk reads 32 bytes into the kk/4-th 64-column box of each operand
+// (8-row groups 1024 B apart).
+__device__ __forceinline__ void issue_qk(float (&s)[32], uint32_t qa,
+                                         uint32_t ka) {
+  tdt::wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < kD / 16; ++kk) {
+    const uint32_t off = (kk / 4) * kBox + (kk % 4) * 32;
+    tdt::wgmma_m64n64k16_kk(s, tdt::wgmma_desc(qa + off, 16, 1024),
+                            tdt::wgmma_desc(ka + off, 16, 1024), kk);
+  }
+  tdt::wgmma_commit();
+}
+
+// O += P V for one tile, issued and committed: the 64 keys in 4 steps of
+// 16 (16 rows of 128 B), the second 64 columns of V one box on; P in the
+// A fragment's registers.
+__device__ __forceinline__ void issue_pv(float (&o)[64],
+                                         const uint32_t (&p)[16],
+                                         uint32_t va) {
+  tdt::wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < kKeys / 16; ++kk) {
+    const uint32_t a[4] = {p[4 * kk], p[4 * kk + 1], p[4 * kk + 2],
+                           p[4 * kk + 3]};
+    tdt::wgmma_m64n128k16_rs(o, a,
+                             tdt::wgmma_desc(va + kk * 2048, kBox, 1024));
+  }
+  tdt::wgmma_commit();
+}
+
+// The scores of the tile at k0 in log2 units, s * scale2 (+ bias), and
+// their running row maxima; with kMask, -1e30 past the causal limits
+// lim_a, lim_b and -inf (weight 0) past Sk.
+template <bool kBias, bool kMask>
+__device__ __forceinline__ void score_tile(float (&s)[32],
+                                           const float (&bv)[kBias ? 32 : 1],
+                                           float scale2, int k0, int cq,
+                                           int lim_a, int lim_b, int sk,
+                                           float& mx_a, float& mx_b) {
+  const float ninf = -__int_as_float(0x7f800000);
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      float xa = s[4 * j + e] * scale2, xb = s[4 * j + 2 + e] * scale2;
+      if constexpr (kBias) {
+        xa = fmaf(bv[4 * j + e], kLog2e, xa);
+        xb = fmaf(bv[4 * j + 2 + e], kLog2e, xb);
+      }
+      if constexpr (kMask) {
+        const int c = k0 + 8 * j + cq + e;
+        if (c > lim_a) xa = tdt::kNegInf;
+        if (c > lim_b) xb = tdt::kNegInf;
+        if (c >= sk) xa = xb = ninf;
+      }
+      s[4 * j + e] = xa;
+      s[4 * j + 2 + e] = xb;
+      mx_a = fmaxf(mx_a, xa);
+      mx_b = fmaxf(mx_b, xb);
+    }
+}
+
+// The online softmax of the tile at k0 on the S fragment (rows ra, rb;
+// columns k0 + 8j + cq + {0, 1}), in place and in log2 units (scale2 =
+// sm_scale * log2 e; m is in log2 units too): the per-element masks only
+// on a tile that crosses the causal diagonal or Sk; the row maxima over
+// the quad; s becomes 2^(s - m), unrounded; l is rescaled and summed
+// over the thread's columns. alpha_a/b rescale the old acc.
+template <bool kBias, bool kCausal>
+__device__ __forceinline__ void softmax_tile(
+    float (&s)[32], const float (&bv)[kBias ? 32 : 1], int k0, int q0,
+    int ra, int rb, int cq, int sk, int kv_offset, float scale2,
+    float& m_a, float& m_b, float& l_a, float& l_b, float& alpha_a,
+    float& alpha_b) {
+  const bool diag = kCausal && k0 + kKeys - 1 > kv_offset + q0;
+  float mx_a = m_a, mx_b = m_b;
+  if (diag || k0 + kKeys > sk)
+    score_tile<kBias, true>(s, bv, scale2, k0, cq,
+                            kCausal ? kv_offset + ra : INT_MAX,
+                            kCausal ? kv_offset + rb : INT_MAX, sk, mx_a,
+                            mx_b);
+  else
+    score_tile<kBias, false>(s, bv, scale2, k0, cq, 0, 0, sk, mx_a, mx_b);
+  mx_a = quad_max(mx_a);
+  mx_b = quad_max(mx_b);
+  alpha_a = ex2(m_a - mx_a);
+  alpha_b = ex2(m_b - mx_b);
+  m_a = mx_a;
+  m_b = mx_b;
+  l_a *= alpha_a;
+  l_b *= alpha_b;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      s[4 * j + e] = ex2(s[4 * j + e] - m_a);
+      s[4 * j + 2 + e] = ex2(s[4 * j + 2 + e] - m_b);
+    }
+    l_a += s[4 * j] + s[4 * j + 1];
+    l_b += s[4 * j + 2] + s[4 * j + 3];
+  }
+}
+
+// P in bf16 pairs, laid out as P·V's A fragment: key pair j of row a,
+// then of row b.
+__device__ __forceinline__ void pack_p(uint32_t (&p)[16],
+                                       const float (&s)[32]) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    p[2 * j] = pack_bf16(s[4 * j], s[4 * j + 1]);
+    p[2 * j + 1] = pack_bf16(s[4 * j + 2], s[4 * j + 3]);
+  }
+}
+
+}  // namespace tc
+
+// kBias adds bias [Sq, Sk] f32 to the scaled scores; kCausal masks columns
+// past kv_offset + row. Grid (B*Hq, ceil(Sq / 64)), kThreads threads,
+// kSmem bytes of dynamic shared memory.
+template <bool kBias, bool kCausal>
+__global__ void __launch_bounds__(tc::kThreads, 1)
+    flash_attention_tc_kernel(const __grid_constant__ tc::QkvMaps maps,
+                              const float* __restrict__ bias,
+                              tc::BF16* __restrict__ o,
+                              float* __restrict__ lse, int hq, int hkv,
+                              int sq, int sk, int kv_offset, float sm_scale) {
+  using namespace tc;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* q_s = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint8_t* ring = q_s + kTile;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(q_s + kBufs * kTile);
+  uint64_t* kv_bars = bars + 1;  // bars[0]: Q
+
+  const int tid = threadIdx.x, g = tid / 128, t = tid % 128;
+  const int bh = blockIdx.x;  // b * hq + h
+  const int kvbh = (bh / hq) * hkv + (bh % hq) / (hq / hkv);
+  // The heaviest (last) q tiles of every head go first.
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kRows;
+  const int last_row = min(q0 + kRows, sq) - 1;
+  const int kv_end = kCausal ? min(sk, kv_offset + last_row + 1) : sk;
+  const int n_tiles = (kv_end + kKeys - 1) / kKeys;
+  const int mine = n_tiles > g ? (n_tiles - g + kGroups - 1) / kGroups : 0;
+
+  if (tid == 0) {
+    for (int i = 0; i < kBufs; ++i) tdt::mbar_init(bars + i, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+  if (tid == 0) {
+    tdt::mbar_expect_tx(bars, kTile);
+    tdt::tma_load_3d(q_s, &maps.q, bars, 0, q0, bh);
+    tdt::tma_load_3d(q_s + kBox, &maps.q, bars, 64, q0, bh);
+  }
+  if (t == 0)
+    for (int i = 0; i < kStages && i < mine; ++i) {
+      load_kv(maps, ring, kv_bars, g, i, 0, kvbh);
+      load_kv(maps, ring, kv_bars, g, i, 1, kvbh);
+    }
+
+  // The thread's accumulator rows ra, rb (absolute) and column pair cq.
+  const int lane = t % 32;
+  const int ra = q0 + (t / 32) * 16 + lane / 4, rb = ra + 8;
+  const int cq = 2 * (lane % 4);
+  float o_acc[64], s_acc[32];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) o_acc[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < 32; ++i) s_acc[i] = 0.f;
+  // m starts at -inf: a row whose scores are all bias-masked (-1e30 in
+  // natural units, below -1e30 in log2 units) then weighs each column 1.
+  const float scale2 = sm_scale * kLog2e;
+  float m_a = -__int_as_float(0x7f800000), m_b = m_a, l_a = 0.f, l_b = 0.f;
+  // The bias of the next tile, loaded a tile ahead of its use.
+  float bv[kBias ? 32 : 1];
+  if constexpr (kBias)
+    if (mine > 0) load_bias(bv, bias, ra, rb, cq, tile_key(g, 0), sq, sk);
+
+  const uint32_t qa = tdt::smem_u32(q_s), ring_a = tdt::smem_u32(ring);
+  uint32_t p[16];
+  float alpha_a, alpha_b;
+  if (mine > 0) {
+    tdt::mbar_wait(bars, 0);
+    tdt::mbar_wait(kv_bars + kv_buf(g, 0), 0);
+    issue_qk(s_acc, qa, ring_a + kv_buf(g, 0) * kTile);
+    tdt::wgmma_wait<0>();
+    tdt::fence_acc(s_acc);
+    softmax_tile<kBias, kCausal>(s_acc, bv, tile_key(g, 0), q0, ra, rb, cq,
+                                 sk, kv_offset, scale2, m_a, m_b, l_a,
+                                 l_b, alpha_a, alpha_b);  // acc is still 0
+    if constexpr (kBias)
+      if (mine > 1) load_bias(bv, bias, ra, rb, cq, tile_key(g, 1), sq, sk);
+    pack_p(p, s_acc);
+    if (kStages < mine) {  // K(0) is read: refill its buffer
+      asm volatile("bar.sync %0, 128;" ::"r"(1 + g) : "memory");
+      if (t == 0) load_kv(maps, ring, kv_bars, g, kStages, 0, kvbh);
+    }
+  }
+  // Tile i's S = Q K^T and tile i-1's O += P V go out together; the
+  // softmax of tile i runs while P·V multiplies, then O is rescaled.
+  for (int i = 1; i < mine; ++i) {
+    tdt::mbar_wait(kv_bars + kv_buf(g, i), kv_parity(i));
+    issue_qk(s_acc, qa, ring_a + kv_buf(g, i) * kTile);
+    tdt::mbar_wait(kv_bars + kv_buf(g, i - 1) + 1, kv_parity(i - 1));
+    issue_pv(o_acc, p, ring_a + (kv_buf(g, i - 1) + 1) * kTile);
+    tdt::wgmma_wait<1>();
+    tdt::fence_acc(s_acc);
+    softmax_tile<kBias, kCausal>(s_acc, bv, tile_key(g, i), q0, ra, rb, cq,
+                                 sk, kv_offset, scale2, m_a, m_b, l_a,
+                                 l_b, alpha_a, alpha_b);
+    if constexpr (kBias)  // bv is consumed: fetch the next tile's
+      if (i + 1 < mine)
+        load_bias(bv, bias, ra, rb, cq, tile_key(g, i + 1), sq, sk);
+    tdt::wgmma_wait<0>();
+    tdt::fence_acc(o_acc);
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      o_acc[4 * j] *= alpha_a;
+      o_acc[4 * j + 1] *= alpha_a;
+      o_acc[4 * j + 2] *= alpha_b;
+      o_acc[4 * j + 3] *= alpha_b;
+    }
+    pack_p(p, s_acc);
+    // K(i) and V(i-1) are read: refill their buffers.
+    if (i - 1 + kStages < mine) {
+      asm volatile("bar.sync %0, 128;" ::"r"(1 + g) : "memory");
+      if (t == 0) {
+        if (i + kStages < mine)
+          load_kv(maps, ring, kv_bars, g, i + kStages, 0, kvbh);
+        load_kv(maps, ring, kv_bars, g, i - 1 + kStages, 1, kvbh);
+      }
+    }
+  }
+  if (mine > 0) {
+    const int last = mine - 1;
+    tdt::mbar_wait(kv_bars + kv_buf(g, last) + 1, kv_parity(last));
+    issue_pv(o_acc, p, ring_a + (kv_buf(g, last) + 1) * kTile);
+    tdt::wgmma_wait<0>();
+    tdt::fence_acc(o_acc);
+  }
+
+  l_a = quad_sum(l_a);
+  l_b = quad_sum(l_b);
+  // Warpgroups 1.. hand (acc, m, l) to warpgroup 0 through the ring, one
+  // float a (register, thread): O = sum of acc_g * exp(m_g - m), l the same.
+  float* st = reinterpret_cast<float*>(ring);
+#pragma unroll 1
+  for (int src = 1; src < kGroups; ++src) {
+    __syncthreads();  // every product has retired; the ring is free
+    tdt::fence_proxy_async_smem();
+    if (g == src) {
+#pragma unroll
+      for (int i = 0; i < 64; ++i) st[i * 128 + t] = o_acc[i];
+      st[64 * 128 + t] = m_a;
+      st[65 * 128 + t] = m_b;
+      st[66 * 128 + t] = l_a;
+      st[67 * 128 + t] = l_b;
+    }
+    __syncthreads();
+    if (g == 0) {
+      const float m1a = st[64 * 128 + t], m1b = st[65 * 128 + t];
+      const float na = fmaxf(m_a, m1a), nb = fmaxf(m_b, m1b);
+      const float s0a = ex2(m_a - na), s1a = ex2(m1a - na);
+      const float s0b = ex2(m_b - nb), s1b = ex2(m1b - nb);
+      l_a = l_a * s0a + st[66 * 128 + t] * s1a;
+      l_b = l_b * s0b + st[67 * 128 + t] * s1b;
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        o_acc[4 * j] = o_acc[4 * j] * s0a + st[(4 * j) * 128 + t] * s1a;
+        o_acc[4 * j + 1] =
+            o_acc[4 * j + 1] * s0a + st[(4 * j + 1) * 128 + t] * s1a;
+        o_acc[4 * j + 2] =
+            o_acc[4 * j + 2] * s0b + st[(4 * j + 2) * 128 + t] * s1b;
+        o_acc[4 * j + 3] =
+            o_acc[4 * j + 3] * s0b + st[(4 * j + 3) * 128 + t] * s1b;
+      }
+      m_a = na;
+      m_b = nb;
+    }
+  }
+  if (g != 0) return;
+  const float la = fmaxf(l_a, 1e-30f), lb = fmaxf(l_b, 1e-30f);
+  BF16* oa = o + ((size_t)bh * sq + ra) * kD + cq;
+  BF16* ob = oa + 8 * kD;
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    if (ra < sq)
+      *reinterpret_cast<__nv_bfloat162*>(oa + 8 * j) =
+          __floats2bfloat162_rn(o_acc[4 * j] / la, o_acc[4 * j + 1] / la);
+    if (rb < sq)
+      *reinterpret_cast<__nv_bfloat162*>(ob + 8 * j) =
+          __floats2bfloat162_rn(o_acc[4 * j + 2] / lb,
+                                o_acc[4 * j + 3] / lb);
+  }
+  if (lse != nullptr && lane % 4 == 0) {
+    if (ra < sq) lse[(size_t)bh * sq + ra] = m_a * kLn2 + logf(la);
+    if (rb < sq) lse[(size_t)bh * sq + rb] = m_b * kLn2 + logf(lb);
+  }
+}
+
 // The operands of one launch (the C entry points fill it).
 struct AttnArgs {
   const void* q;
@@ -232,30 +670,84 @@ void launch(const AttnArgs& a) {
           a.block_k, a.sm_scale);
 }
 
+// [rows, 128] bf16 rows of `heads` heads ([heads, rows, 128] contiguous)
+// as the tensor-core body's boxes: 64 columns x 64 rows x 1 head in the
+// 128-byte swizzle, zero past `rows`.
+bool encode_heads(CUtensorMap* map, const void* p, int rows, int heads) {
+  const tdt::EncodeTiled enc = tdt::encode_tiled();
+  if (enc == nullptr) return false;
+  const cuuint64_t dims[3] = {tc::kD, static_cast<cuuint64_t>(rows),
+                              static_cast<cuuint64_t>(heads)};
+  const cuuint64_t strides[2] = {
+      tc::kD * sizeof(tc::BF16),
+      static_cast<cuuint64_t>(rows) * tc::kD * sizeof(tc::BF16)};
+  const cuuint32_t box[3] = {64, tc::kRows, 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(p),
+             dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// One launch of the tensor-core body; 1 if its shared memory or tensor
+// maps are refused.
+template <bool kBias, bool kCausal>
+int launch_tc(const AttnArgs& a) {
+  static_assert(tc::kRows == tc::kKeys, "one box shape serves Q, K and V");
+  static bool ready[64] = {};  // the shared-memory limit raised, a device
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64) return 1;
+  if (!ready[dev]) {
+    if (cudaFuncSetAttribute(flash_attention_tc_kernel<kBias, kCausal>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             tc::kSmem) != cudaSuccess)
+      return 1;
+    ready[dev] = true;
+  }
+  tc::QkvMaps maps;
+  if (!encode_heads(&maps.q, a.q, a.sq, a.b * a.hq) ||
+      !encode_heads(&maps.k, a.k, a.sk, a.b * a.hkv) ||
+      !encode_heads(&maps.v, a.v, a.sk, a.b * a.hkv))
+    return 1;
+  dim3 grid(a.b * a.hq, (a.sq + tc::kRows - 1) / tc::kRows);
+  flash_attention_tc_kernel<kBias, kCausal>
+      <<<grid, tc::kThreads, tc::kSmem, a.stream>>>(
+      maps, a.bias, static_cast<tc::BF16*>(a.o), a.lse, a.hq, a.hkv, a.sq,
+      a.sk, a.kv_offset, a.sm_scale);
+  return 0;
+}
+
 // The instances the entry points take: causal with int8 scales, with a
 // bias, or with neither; non-causal with or without int8 scales and with
 // or without a bias. Causal int8 with a bias is on no serving path and
-// is refused.
+// is refused. bf16 at head_dim 128 over model-dtype K/V takes the
+// tensor-core body (causal without a bias, non-causal with or without
+// one); no FMA build of those is compiled.
 template <typename T, int D>
 int launch_kv(const AttnArgs& a, bool causal) {
+  constexpr bool kTc = std::is_same<T, tc::BF16>::value && D == tc::kD;
   const bool quant = a.k_scale != nullptr, bias = a.bias != nullptr;
   if (causal) {
     if (quant && bias) return 1;
-    if (quant)
+    if (quant) {
       launch<T, int8_t, D, false, true>(a);
-    else if (bias)
+    } else if (bias) {
       launch<T, T, D, true, true>(a);
-    else
-      launch<T, T, D, false, true>(a);
+    } else {
+      if constexpr (kTc) return launch_tc<false, true>(a);
+      else launch<T, T, D, false, true>(a);
+    }
   } else if (quant) {
     if (bias)
       launch<T, int8_t, D, true, false>(a);
     else
       launch<T, int8_t, D, false, false>(a);
   } else if (bias) {
-    launch<T, T, D, true, false>(a);
+    if constexpr (kTc) return launch_tc<true, false>(a);
+    else launch<T, T, D, true, false>(a);
   } else {
-    launch<T, T, D, false, false>(a);
+    if constexpr (kTc) return launch_tc<false, false>(a);
+    else launch<T, T, D, false, false>(a);
   }
   return 0;
 }
