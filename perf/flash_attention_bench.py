@@ -16,7 +16,14 @@ same call), builds ``csrc/flash_attention.cu`` and times, in bf16:
 - ``flash_attention_cold`` (non-causal): the smoke's cold partial (q [1,
   16, 128, 128] against a 2048-key window, s_cold 1536, with the
   [128, 2048] f32 bias, and the LSE) and the same call without the bias
-  (every column visible, as ring attention calls it).
+  (every column visible, as ring attention calls it);
+- ``flash_attention_bias`` (causal, the draft-tree bias): the tree
+  verify chunk (q [1, 16, 16, 128] against the 2048-key gathered view at
+  kv_offset 700, 8 kv heads, the 14-node tree's ancestor mask expanded
+  as the model expands it), beside SDPA with the bias and the causal
+  limit as one bf16 ``attn_mask``; its bound counts the (row, key) pairs
+  the mask and causality leave visible, and the K/V, bias rows read up
+  to the causal limit.
 
 Each time is the median over ``--iters`` launches of CUDA-event time with
 the L2 cache flushed and a spin kernel ahead of each launch (the method
@@ -223,6 +230,34 @@ def main() -> int:
          lambda: F.scaled_dot_product_attention(qc, kc, vc, enable_gqa=True),
          "sdpa (O only)", io + 2 * hkv * sk * 128 * 2,
          4 * hq * 128 * sq * sk)
+
+    # Tree verify: 16 rows at kv_offset 700 of a 2048-key view.
+    from triton_distributed_tpu_torch.models.qwen import expand_tree_mask
+    from triton_distributed_tpu_torch.models.speculative import TreeDraft
+
+    rng = np.random.default_rng(22)
+    hq, hkv, sq, sk, off = 16, 8, 16, 2048, 700
+    qv, kv, vv = (rand(rng, (1, hq, sq, 128)), rand(rng, (1, hkv, sk, 128)),
+                  rand(rng, (1, hkv, sk, 128)))
+    tree = TreeDraft(4)
+    for path in ([1, 2, 3, 4], [1, 5, 6], [7, 8, 9, 10], [7, 2], [11, 12]):
+        tree.add_path(path, budget=sq)
+    tbias = expand_tree_mask(tree.mask(sq), off, sk, dev)
+    causal = (torch.arange(sk, device=dev)[None, :]
+              <= off + torch.arange(sq, device=dev)[:, None])
+    visible = int(((tbias == 0) & causal).sum().item())
+    tmask = torch.where(causal, tbias, torch.full_like(tbias, -1e30)).to(bf16)
+    kv_end = off + sq
+    emit("flash_attention_bias",
+         f"q[1,{hq},{sq},128] kv[1,{hkv},{sk},128] off={off} tree bias "
+         f"[{sq},{sk}] bf16",
+         lambda: flash_attention(qv, kv, vv, kv_offset=off, bias=tbias),
+         lambda: mha_reference(qv, kv, vv, kv_offset=off, bias=tbias),
+         lambda: F.scaled_dot_product_attention(qv, kv, vv, attn_mask=tmask,
+                                                enable_gqa=True),
+         "sdpa attn_mask=bias+causal bf16",
+         nbytes(qv) * 2 + 2 * hkv * kv_end * 128 * 2 + sq * kv_end * 4,
+         4 * hq * 128 * visible)
 
     if args.dump:
         torch.save(dump_outputs(dev, flash_attention), args.dump)

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Time the prefill launches of ag_gemm and gemm_rs on one NVIDIA GPU.
+"""Time the launches of ag_gemm, gemm_rs and gemm_ar on one NVIDIA GPU.
 
     python3 perf/overlap_gemm_bench.py [--root DIR] [--iters 15]
 
@@ -14,7 +14,15 @@ launches of the sequence-sharded prefill:
 - ``gemm_rs`` o-proj (k_loc 2048, N 4096) and FC2 (k_loc 6144), the bf16
   ring (bidirectional, the default split), the o-proj with an e4m3 wire,
   and the one-rank ring (``force_kernel`` at tp=1: [384, 4096] @
-  [4096, 4096]).
+  [4096, 4096]);
+- ``gemm_ar`` (the one-shot) at the decode o-proj (M = 4, k_loc 2048, N
+  4096) and FC2 (k_loc 6144) and at the 48-row prefill chunk (o-proj and
+  FC2), each untraced and traced (tile_n 512, the default at N 4096); its
+  lines add ``floor_ms``, the time of one launch at [1, 64] @ [64, 64] a
+  rank (the launch, the entry barrier and the flag round trips alone),
+  and ``host_us``, the host's wall time to issue one call of the wrapper
+  (the mean over 200 calls back to back, no synchronization between
+  them: planning, tensor maps and the launch itself).
 
 Each time is the median over ``--iters`` launches of CUDA-event time
 with the L2 cache flushed and a spin kernel ahead of each launch (the
@@ -28,8 +36,10 @@ the wgmma builds (registers, stack, spills, and the count of C7510
 warnings: wgmma serialized); the whole ptxas report of ``overlap.cu``
 goes to ``--ptxas`` (default ``build/ptxas_overlap_<tag>.txt`` under the
 root). ``--dump FILE`` saves every timed launch's outputs (the same
-seeded inputs in every tree) for ``perf/compare_dumps.py``. Needs CUDA;
-exits non-zero without it.
+seeded inputs in every tree; bf16 gemm_ar's rows differ from a tree
+before its split-K kernel by design, f32 gemm_ar's at the decode shapes
+are added) for ``perf/compare_dumps.py``. Needs CUDA; exits non-zero
+without it.
 """
 
 from __future__ import annotations
@@ -41,6 +51,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import time
 
 HBM_BPS = 3.35e12
 BF16_FLOPS = 989e12
@@ -64,6 +75,19 @@ def median_ms(fn, flush, iters: int, warmup: int = 3) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def host_us(fn, calls: int = 200) -> float:
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / calls * 1e6
 
 
 def main() -> int:
@@ -95,6 +119,14 @@ def main() -> int:
     from triton_distributed_tpu_torch.ops.overlap.ag_gemm import (
         ag_gemm_kernel,
     )
+    from triton_distributed_tpu_torch.ops.overlap import (
+        gemm_ar_plain,
+        gemm_ar_ring_plain,
+    )
+    from triton_distributed_tpu_torch.ops.overlap.gemm_ar import (
+        gemm_ar_one_shot,
+        gemm_ar_traced,
+    )
     from triton_distributed_tpu_torch.ops.overlap.gemm_rs import (
         gemm_rs_ring,
         ring_split,
@@ -124,7 +156,8 @@ def main() -> int:
     wgmma = [" ".join((line.split()[-1][40:100], lines[i + 1].strip(),
                        lines[i + 2].strip()))
              for i, line in enumerate(lines[:-2])
-             if "Function properties" in line and "WgTile" in line]
+             if "Function properties" in line
+             and ("WgTile" in line or "gemm_ar" in line)]
     print(json.dumps({"ptxas": path, "c7510": report.count("C7510"),
                       "wgmma_builds": wgmma}))
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -152,7 +185,7 @@ def main() -> int:
     dumps = {}
 
     def emit(name, shape, kind, fn, plain, lib, nbytes, flops, e, small,
-             wire=None):
+             wire=None, extra=None):
         if args.dump:
             flat, todo = [], [fn()]
             while todo:  # the launch's tensors, nested lists unrolled
@@ -173,10 +206,54 @@ def main() -> int:
                "max_abs_err": e,
                "blocks_per_sm": _launch.capacity(kind, bf16, small, wire)
                / sms,
-               "device": card}
+               "device": card, **(extra or {})}
         print(json.dumps(rec), flush=True)
 
-    n, m, d, ff = 2, 384, 4096, 12288
+    n, d, ff = 2, 4096, 12288
+    # gemm_ar: the bound is all ranks' bytes (each rank's A and B read
+    # once, each rank's output written once) or the FLOPs; the library
+    # call one torch.matmul of the unsharded operands.
+    ctx, a, b, A, B = operands(n, 1, 64 * n, 64, rows=False)
+    floor = median_ms(lambda: gemm_ar_one_shot(a, b, ctx), flush, args.iters)
+    for m, k, what in ((4, d, "decode o-proj"), (4, ff, "decode FC2"),
+                       (48, d, "chunk o-proj"), (48, ff, "chunk FC2")):
+        ctx, a, b, A, B = operands(n, m, k, d, rows=False)
+        tag_ = "gemm_ar_" + what.replace(" ", "_").replace("-", "")
+        nbytes, flops = 2 * (m * k + k * d) + n * m * d * 2, 2 * m * k * d
+        num_j = d // 512
+        e = err(gemm_ar_one_shot(a, b, ctx), gemm_ar_plain(a, b))
+        emit(tag_, f"tp={n} M={m} k_loc={k // n} N={d} ({what})", "gemm_ar",
+             lambda: gemm_ar_one_shot(a, b, ctx),
+             lambda: gemm_ar_plain(a, b), lambda: torch.matmul(A, B),
+             nbytes, flops, e, m <= _launch.SMALL_M,
+             extra={"floor_ms": floor,
+                    "host_us": host_us(lambda: gemm_ar_one_shot(a, b, ctx))})
+        e = err(gemm_ar_traced(a, b, ctx, 512)[0], gemm_ar_plain(a, b))
+        emit(tag_ + "_traced", f"tp={n} M={m} k_loc={k // n} N={d} "
+             f"tile_n 512 ({what})", "gemm_ar_traced",
+             lambda: gemm_ar_traced(a, b, ctx, 512),
+             lambda: (gemm_ar_plain(a, b), gemm_ar_ring_plain(n, num_j)),
+             lambda: torch.matmul(A, B), nbytes, flops, e,
+             m <= _launch.SMALL_M,
+             extra={"floor_ms": floor, "host_us": host_us(
+                 lambda: gemm_ar_traced(a, b, ctx, 512))})
+        del a, b, A, B
+    if args.dump:  # f32 gemm_ar (the FMA tile) at the decode shapes
+        f32_rng = np.random.default_rng(21)
+        for m, k in ((4, d), (48, ff)):
+            ctx32 = initialize_distributed(n, device=dev, dtype=torch.float32)
+            a = torch.from_numpy(f32_rng.standard_normal((m, k)).astype(
+                np.float32)).to(dev)
+            b = torch.from_numpy((f32_rng.standard_normal((k, d)) * k**-0.5
+                                  ).astype(np.float32)).to(dev)
+            a, b = ctx32.shard(a, 1), ctx32.shard(b, 0)
+            outs = [gemm_ar_one_shot(a, b, ctx32),
+                    gemm_ar_traced(a, b, ctx32, 512)]
+            torch.cuda.synchronize()
+            dumps[f"gemm_ar f32 M={m} K={k}"] = [
+                t.cpu() for o in outs for t in (o if isinstance(o, list)
+                                               else o[0])]
+    m = 384
     for name, nl in (("ag_gemm_qkv", 3072), ("ag_gemm_fc1", 2 * ff // n)):
         ctx, a, b, A, B = operands(n, m, d, nl * n, rows=True)
         want = ag_gemm_plain(a, b)

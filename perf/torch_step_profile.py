@@ -70,7 +70,12 @@ serving path after warm-up:
   row-parallel outputs take gemm_ar TWO_SHOT, the ``gemm_rs`` ring then
   the all-gather) and ``mode="xla"`` (plain torch collectives); only
   built when one of them is asked for. Their lines add the device time
-  of the ``gemm_rs`` kernel a step.
+  of the ``gemm_rs`` kernel a step;
+- ``tp_decode_pallas`` and ``tp_decode_xla``: the same model, one B=4
+  decode step (``Qwen3.decode_step``) at kv_len {300, 700, 300, 700} over
+  that pool, each layer's o-proj and FC2 summed over the ranks by
+  ``gemm_ar`` ONE_SHOT (``pallas``) or plain torch (``xla``). Their lines
+  add the device time of the ``gemm_ar`` kernel a step.
 
 For each phase it prints one JSON line: host wall ms per step (clock
 around synchronized steps), device busy ms per step (sum of kernel time),
@@ -133,7 +138,8 @@ def profile_phase(name, step, steps: int,
 
 
 def profile_tp(asked, steps: int) -> None:
-    """The tp=2 Qwen3-8B phases of ``asked`` (tp_chunk384_<mode>)."""
+    """The tp=2 Qwen3-8B phases of ``asked`` (tp_chunk384_<mode>,
+    tp_decode_<mode>)."""
     import numpy as np
     import torch
 
@@ -159,6 +165,22 @@ def profile_tp(asked, steps: int) -> None:
 
         rec = profile_phase(name, step, steps,
                             match=("gemm_rs", "flash_attention"))
+        rec["device"] = card
+        print(json.dumps(rec), flush=True)
+    lens = torch.tensor([300, 700, 300, 700], dtype=torch.int32, device=dev)
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, model.cfg.vocab_size, 4)).to(dev)
+    for mode in ("pallas", "xla"):
+        name = f"tp_decode_{mode}"
+        if name not in asked:
+            continue
+
+        def step(mode=mode):
+            # Same kv_len every step: a steady-state step at these lengths.
+            cache.kv_len = lens.clone()
+            model.decode_step(tokens, cache, mode)
+
+        rec = profile_phase(name, step, steps, match=("gemm_ar",))
         rec["device"] = card
         print(json.dumps(rec), flush=True)
     del model, cache

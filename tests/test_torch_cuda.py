@@ -414,6 +414,61 @@ def test_flash_attention_bias_matches_plain(dev, dtype, d, hq, hkv, sk, off):
         assert (o - shifted).abs().max().item() > 10 * TOL[dtype]
 
 
+def _verify_bias(off: int, sq: int, sk: int, dev) -> torch.Tensor:
+    """A draft-tree mask of ``sq`` nodes over the gathered view (0 on the
+    prefix), then masked further so that whole 64-key tiles hold only
+    bias-masked columns for some rows while causally visible columns
+    remain: rows 1, 4, .. see none of the prefix (their only visible
+    columns are their tree ancestors), rows 0, 3, .. none of the prefix
+    in odd 64-key tiles (which the second warpgroup takes). The paths go
+    in so that the first 5 nodes already branch."""
+    tree = TreeDraft(4)
+    for path in ([1, 2], [7, 8], [1, 5, 6], [7, 2], [11, 12], [1, 2, 3, 4],
+                 [7, 8, 9, 10]):
+        tree.add_path(path, budget=sq)
+    bias = torch.zeros(sq, sk)
+    bias[:, off:off + sq] = torch.from_numpy(tree.mask(sq))
+    odd = (torch.arange(off) // 64) % 2 == 1
+    for r in range(sq):
+        if r % 3 == 1:
+            bias[r, :off] = -1e30
+        elif r % 3 == 0:
+            bias[r, :off][odd] = -1e30
+    return bias.to(dev)
+
+
+@pytest.mark.parametrize("off", [0, 40, 700, 2031])
+@pytest.mark.parametrize("hq,hkv", [(16, 8), (32, 4)])
+@pytest.mark.parametrize("sq", [16, 5])
+def test_flash_attention_bias_tc_rows_and_masks(dev, off, hq, hkv, sq):
+    """bf16 tree verify on the tensor-core body: Sq 16 and 5 rows in the
+    64-row q tile, G 2 and 8, kv_offset 0 to the view's end, with tiles
+    whose visible columns are all bias-masked for a row (and a warpgroup
+    whose every tile is, before the merge). Counted on
+    FLASH_ATTENTION_BIAS; O within TOL, the LSE within 1e-3; the plain
+    version with the bias one column off breaks the O limit."""
+    bf16, sk = torch.bfloat16, 2048
+    rng = np.random.default_rng(off + sq)
+    q = _rand(rng, (1, hq, sq, 128), bf16, dev)
+    k = _rand(rng, (1, hkv, sk, 128), bf16, dev)
+    v = _rand(rng, (1, hkv, sk, 128), bf16, dev)
+    bias = _verify_bias(off, sq, sk, dev)
+    before = (ck.FLASH_ATTENTION_BIAS.launches, ck.FLASH_ATTENTION.launches)
+    o, lse = flash_attention(q, k, v, kv_offset=off, bias=bias,
+                             return_lse=True)
+    torch.cuda.synchronize()
+    assert (ck.FLASH_ATTENTION_BIAS.launches,
+            ck.FLASH_ATTENTION.launches) == (before[0] + 1, before[1])
+    o_ref, lse_ref = mha_reference(q, k, v, kv_offset=off, bias=bias,
+                                   return_lse=True)
+    assert torch.isfinite(o.float()).all()
+    assert (o.float() - o_ref.float()).abs().max().item() < TOL[bf16]
+    assert (lse - lse_ref).abs().max().item() < 1e-3
+    shifted = mha_reference(q, k, v, kv_offset=off,
+                            bias=torch.roll(bias, 1, dims=1))
+    assert (o.float() - shifted.float()).abs().max().item() > TOL[bf16]
+
+
 def test_bias_wrapper_rejects_what_the_kernel_does_not_take(dev):
     q = torch.zeros(1, 4, 16, 32, device=dev)
     bias = torch.zeros(16, 16, device=dev)
@@ -2047,6 +2102,171 @@ def test_gemm_ar_traced_ring(dev, dtype, n, m, k, nout, tile_n):
     assert kt.overlap_report(one)["windows"] == n * num_j
     for g, u in zip(got, base):
         assert torch.equal(g, u)
+
+
+# The one-shot's builds at every row count the AUTO may give it (decode
+# B, the 48-row chunks, odd M past 512 KB): bf16 runs the split-K
+# mma.sync tile (16 rows up to SMALL_M, then 64), f32 the FMA tile; K
+# 1000 a rank (a multiple of 8, not of 64: a split's last slice is
+# zero-filled), N 1000 (a ragged last column tile).
+AR_M = [1, 4, 5, 16, 17, 48, 64, 301]
+
+
+def _ar_operands(ctx, dtype, m, k, nout, gen):
+    """Per-rank column shards of A [m, k] and row shards of B [k, nout],
+    unit-scale products, made on the card from ``gen``."""
+    dev = ctx.device
+    a = torch.randn((m, k), generator=gen, device=dev).to(dtype)
+    b = (torch.randn((k, nout), generator=gen, device=dev)
+         * k**-0.5).to(dtype)
+    return ctx.shard(a, 1), ctx.shard(b, 0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n", [2, 4])
+@pytest.mark.parametrize("m", AR_M)
+@pytest.mark.parametrize("k_loc", [1000, 2048, 6144])
+@pytest.mark.parametrize("nout", [4096, 1000])
+def test_gemm_ar_builds_at_every_m(dev, dtype, n, m, k_loc, nout):
+    """Every rank bitwise the same and two launches bitwise the same (a
+    tile's K atoms are summed in atom order, never by atomics), within
+    the cross-rank limit of the plain version; at N 4096 the traced
+    build's outputs bitwise the untraced launch's and its ring the plain
+    ring."""
+    from triton_distributed_tpu_torch.ops.overlap import (
+        gemm_ar_plain,
+        gemm_ar_ring_plain,
+    )
+    from triton_distributed_tpu_torch.ops.overlap.gemm_ar import (
+        gemm_ar_one_shot,
+        gemm_ar_traced,
+    )
+    from triton_distributed_tpu_torch.runtime import initialize_distributed
+
+    ctx = initialize_distributed(n, device=dev, dtype=dtype)
+    gen = torch.Generator(device=dev).manual_seed(m * 7 + k_loc + n)
+    a, b = _ar_operands(ctx, dtype, m, k_loc * n, nout, gen)
+    before = ck.GEMM_AR.launches
+    got = gemm_ar_one_shot(a, b, ctx)
+    again = gemm_ar_one_shot(a, b, ctx)
+    want = gemm_ar_plain(a, b)
+    torch.cuda.synchronize()
+    assert ck.GEMM_AR.launches == before + 2
+    for g, h in zip(got, again):
+        assert torch.equal(g, got[0]) and torch.equal(h, got[0])
+    ok, err = _tp_ok(got[0], want[0], dtype, n)
+    assert ok, err
+    if nout % 512 == 0:
+        traced, ring = gemm_ar_traced(a, b, ctx, 512)
+        torch.cuda.synchronize()
+        for g in traced:
+            assert torch.equal(g, got[0])
+        assert torch.equal(ring.cpu(), gemm_ar_ring_plain(n, nout // 512))
+
+
+def test_gemm_ar_rank_partial_dropped_breaks_the_limit(dev):
+    """Control: the plain version with rank 1's partial zeroed leaves the
+    cross-rank limit the kernel meets, at the decode o-proj shape."""
+    from triton_distributed_tpu_torch.ops.overlap import gemm_ar_plain
+    from triton_distributed_tpu_torch.ops.overlap.gemm_ar import (
+        gemm_ar_one_shot,
+    )
+    from triton_distributed_tpu_torch.runtime import initialize_distributed
+
+    n, dt = 2, torch.bfloat16
+    ctx = initialize_distributed(n, device=dev, dtype=dt)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    a, b = _ar_operands(ctx, dt, 4, 4096, 4096, gen)
+    got = gemm_ar_one_shot(a, b, ctx)
+    assert _tp_ok(got[0], gemm_ar_plain(a, b)[0], dt, n)[0]
+    dropped = gemm_ar_plain([a[0], torch.zeros_like(a[1])], b)
+    ok, err = _tp_ok(got[0], dropped[0], dt, n)
+    assert not ok and err > 0.1
+
+
+def test_gemm_ar_across_layouts_on_one_context(dev):
+    """M in {4, 48, 5} and K in {2048, 6144} a rank, alternating on one
+    context, both builds: the flag site's layout (split and put flags)
+    and the partials' scratch move with every launch, and a word left by
+    an earlier layout must never pass a later launch's wait."""
+    from triton_distributed_tpu_torch.ops.overlap import (
+        gemm_ar_plain,
+        gemm_ar_ring_plain,
+    )
+    from triton_distributed_tpu_torch.ops.overlap.gemm_ar import (
+        gemm_ar_one_shot,
+        gemm_ar_traced,
+    )
+    from triton_distributed_tpu_torch.runtime import initialize_distributed
+
+    n, dt = 2, torch.bfloat16
+    ctx = initialize_distributed(n, device=dev, dtype=dt)
+    gen = torch.Generator(device=dev).manual_seed(11)
+    kept = []
+    for _ in range(3):
+        for m, k_loc in ((4, 2048), (48, 6144), (5, 2048), (4, 6144),
+                         (48, 2048), (5, 6144)):
+            a, b = _ar_operands(ctx, dt, m, k_loc * n, 4096, gen)
+            kept.append((a, b, gemm_ar_one_shot(a, b, ctx),
+                         gemm_ar_traced(a, b, ctx, 512)))
+    torch.cuda.synchronize()
+    for a, b, got, (traced, ring) in kept:
+        want = gemm_ar_plain(a, b)[0]
+        for g, t in zip(got, traced):
+            assert torch.equal(g, got[0]) and torch.equal(t, got[0])
+        ok, err = _tp_ok(got[0], want, dt, n)
+        assert ok, err
+        assert torch.equal(ring.cpu(), gemm_ar_ring_plain(n, 8))
+
+
+@pytest.mark.parametrize("m,k_loc", [(4, 2048), (48, 6144)])
+def test_gemm_ar_bits_do_not_depend_on_the_grid(dev, m, k_loc):
+    """bf16, both builds at several blocks a rank: the atoms are the
+    kernel's, not the grid's, so every launch gives the same bits."""
+    from triton_distributed_tpu_torch.ops.overlap.gemm_ar import (
+        gemm_ar_one_shot,
+        gemm_ar_traced,
+    )
+    from triton_distributed_tpu_torch.runtime import initialize_distributed
+
+    n, dt = 2, torch.bfloat16
+    ctx = initialize_distributed(n, device=dev, dtype=dt)
+    gen = torch.Generator(device=dev).manual_seed(m + k_loc)
+    a, b = _ar_operands(ctx, dt, m, k_loc * n, 4096, gen)
+    want = gemm_ar_one_shot(a, b, ctx)[0]
+    got = [gemm_ar_one_shot(a, b, ctx, blocks_per_rank=g)[0]
+           for g in (1, 7, 64)]
+    got += [gemm_ar_traced(a, b, ctx, 512, blocks_per_rank=g)[0][0]
+            for g in (None, 3, 40)]
+    torch.cuda.synchronize()
+    for g in got:
+        assert torch.equal(g, want)
+
+
+@pytest.mark.parametrize("m", [4, 48])
+def test_gemm_ar_bf16_back_to_back(dev, m):
+    """100 bf16 launches back to back at Qwen3-8B's tp=2 o-proj, fresh
+    inputs each, every output checked against the plain version."""
+    from triton_distributed_tpu_torch.ops.overlap import gemm_ar_plain
+    from triton_distributed_tpu_torch.ops.overlap.gemm_ar import (
+        gemm_ar_one_shot,
+    )
+    from triton_distributed_tpu_torch.runtime import initialize_distributed
+
+    n, dt = 2, torch.bfloat16
+    ctx = initialize_distributed(n, device=dev, dtype=dt)
+    gen = torch.Generator(device=dev).manual_seed(17 + m)
+    a, b = _ar_operands(ctx, dt, m, 4096, 4096, gen)
+    kept = []
+    for i in range(100):
+        a = [t + 2.0**-4 for t in a]
+        kept.append((a, gemm_ar_one_shot(a, b, ctx)))
+    torch.cuda.synchronize()
+    for a, got in kept:
+        for g in got[1:]:
+            assert torch.equal(g, got[0])
+        ok, err = _tp_ok(got[0], gemm_ar_plain(a, b)[0], dt, n)
+        assert ok, err
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -525,3 +525,101 @@ def test_ag_gemm_launch_arithmetic_matches_the_kernel_items(n, dtype, m_per,
     for cap in (1, n, 132, 264, 396):
         g = _launch.grid(tiles, cap, n)
         assert 1 <= g <= tiles and g == min(tiles, max(1, cap // n))
+
+
+# gemm_ar's launcher: the items, blocks, flags and workspace of each
+# build, held against a plain enumeration of the kernel's items (overlap.cu
+# gemm_ar_mma_kernel in bf16, gemm_ar_kernel in f32): every (row tile,
+# column tile, K slice) of a column group in exactly one item, every atom
+# non-empty, the kernel's one atom length for both builds (the untraced
+# build's item a whole tile, the traced build's one atom), each atom's
+# owner block the one the traced build's tile sum waits for, the flag site
+# holding every word the kernel touches, each in one role (each an epoch:
+# the barrier, the traced build's rank-local count and a flag a block and
+# iteration, the put flags), the traced build's f32 atom partials after
+# the slots; without the caller's blocks, the grid of the build launched.
+AR_SHAPES = [  # (n, dtype, m, k_loc, n_out, tile_n, blocks a rank)
+    (2, BF, 4, 2048, 4096, None, 198), (2, BF, 4, 6144, 4096, None, 198),
+    (2, BF, 4, 2048, 4096, 512, 198), (2, BF, 4, 6144, 4096, 512, 198),
+    (2, BF, 48, 6144, 4096, None, 132), (2, BF, 48, 2048, 4096, 512, 132),
+    (4, BF, 1, 1000, 1000, None, 99), (4, BF, 5, 1000, 4096, 512, 99),
+    (2, BF, 17, 2048, 1000, None, 132), (4, BF, 64, 6144, 4096, 512, 66),
+    (2, BF, 301, 6144, 4096, None, 132), (4, BF, 301, 1000, 1000, None, 66),
+    (4, BF, 16, 64, 256, 64, 99), (2, BF, 40, 256, 384, 128, 132),
+    (2, BF, 4, 4096, 4096, None, 1), (2, BF, 4, 256, 128, None, 198),
+    (2, F32, 4, 2048, 4096, None, 100),
+    (4, F32, 48, 1000, 4096, 512, 50), (2, F32, 301, 2048, 1000, None, 66),
+]
+
+
+@pytest.mark.parametrize("n,dtype,m,k,n_out,tile_n,blocks", AR_SHAPES)
+def test_gemm_ar_launch_arithmetic_matches_the_kernel_items(
+        n, dtype, m, k, n_out, tile_n, blocks, monkeypatch):
+    from triton_distributed_tpu_torch.ops.overlap import _launch
+    from triton_distributed_tpu_torch.ops.overlap.gemm_ar import plan
+
+    src = (pathlib.Path(__file__).resolve().parents[1]
+           / "triton_distributed_tpu_torch/csrc/overlap.cu").read_text()
+    depth = int(re.search(r"constexpr int kArDepth = (\d+);", src).group(1))
+    atom = int(re.search(r"constexpr int kArAtom = (\d+);", src).group(1))
+    fma_bn, _, _ = _kernel_tiles()
+    assert _launch.AR_ATOM == atom and atom % depth == 0
+    assert _launch.BN == fma_bn
+    items, g, flags, ws = plan(n, m, n_out, k, dtype, tile_n, blocks)
+    assert g == blocks  # the caller's grid, which the flags are laid for
+    bm = 16 if m <= 16 else 64
+    tiles_m, tiles_n = -(-m // bm), -(-n_out // fma_bn)
+    tiles = tiles_m * tiles_n
+    head = n + (2 if tile_n else 0)
+    per = tile_n // fma_bn if tile_n else tiles_n
+    groups = [(j * per, per) for j in range(tiles_n // per)]
+    assert per * len(groups) == tiles_n
+    # Without the caller's blocks: one an item, at most what the launched
+    # build keeps co-resident (the two builds' capacities told apart).
+    small = m <= _launch.SMALL_M
+    for kind, cap in (("gemm_ar", 7 * n), ("gemm_ar_traced", 11 * n)):
+        monkeypatch.setitem(_launch._capacity, (kind, dtype, small, None),
+                            cap)
+    cap = 11 * n if tile_n else 7 * n
+    assert plan.__wrapped__(n, m, n_out, k, dtype, tile_n)[:2] == (
+        items, min(items, cap // n))
+    if dtype != BF:  # the FMA tile: an item is a tile; no atoms
+        assert items == tiles_m * per
+        assert flags == head + n * tiles and ws == n * m * n_out
+        return
+    atoms = -(-k // atom)
+    span = 1 if tile_n else atoms
+    seen, owners = {}, {}
+    for ct0, nct in groups:
+        assert items == nct * -(-atoms // span) * tiles_m
+        for i in range(items):
+            rt, ct = i % tiles_m, ct0 + (i // tiles_m) % nct
+            k0 = (i // (tiles_m * nct)) * span * atom
+            assert k0 < k  # no empty item
+            owners[rt, ct, k0 // atom] = i % g
+            for kk in range(k0, min(k, k0 + span * atom), depth):
+                key = (rt, ct, kk)
+                seen[key] = seen.get(key, 0) + 1
+        if tile_n:  # the traced build's tile sums wait for these blocks
+            for q in range(nct * tiles_m):
+                rt, ct = q % tiles_m, ct0 + q // tiles_m
+                for a in range(atoms):
+                    assert owners[rt, ct, a] == (a * nct * tiles_m + q) % g
+    assert set(seen.values()) == {1}
+    assert len(seen) == tiles * -(-k // depth)
+    words = list(range(head))
+    if tile_n:
+        words += [head + j * g + b for j in range(len(groups))
+                  for b in range(g)]
+    fput = len(words) if not tile_n else head + len(groups) * g
+    words += [fput + src * tiles + t for src in range(n)
+              for t in range(tiles)]
+    assert len(set(words)) == len(words) and max(words) < flags
+    if tile_n:
+        assert flags == head + len(groups) * g + n * tiles
+        # n bf16 slots, then the f32 atom partials [atoms, tiles, bm x 64]
+        # on a 16-byte boundary.
+        assert ws == n * m * n_out + 2 * atoms * tiles * bm * fma_bn
+        assert (n * m * n_out * 2) % 16 == 0
+    else:
+        assert flags == n + n * tiles and ws == n * m * n_out

@@ -61,8 +61,10 @@
 // skip).
 //
 // The tensor-core body (flash_attention_tc_kernel): bf16 at head_dim 128
-// over model-dtype K/V, causal without a bias (every prefill chunk) or
-// non-causal with or without one (the cold partial, ring attention).
+// over model-dtype K/V: causal without a bias (every prefill chunk) or
+// with one (every tree verify chunk: 16 rows in the 64-row q tile, the
+// rows past Sq zero-filled, never stored), and non-causal with or without
+// one (the cold partial, ring attention).
 // A block owns 64 q rows of one (b, q head) and runs two warpgroups; each
 // computes all 64 rows against every other 64-key tile (warpgroup g takes
 // tiles g, g + 2, ...), and the two merge their (m, l, acc) through
@@ -94,9 +96,18 @@
 // heads), so the time is a fixed ~11 us (launch, first loads, the merge)
 // plus ~1.3 us a tile of each warpgroup (PERF.md).
 //
+// The masks in the tensor-core body: the bias is scaled to log2 units
+// with the scores, so a masked bias entry is ~-1.44e30, below the causal
+// mask's -1e30 (kNegInf). A row whose visible columns in a tile (or in all
+// of one warpgroup's tiles) are all bias-masked then takes a tile maximum
+// of -1e30 (causally masked columns) or -1.44e30, and its terms are
+// zeroed by exp2(m_old - m_new) = 0 once a real score arrives, in the
+// online softmax or in the warpgroups' merge; the tree verify mask always
+// leaves a row its own column, so no row is all masked.
+//
 // The FMA body (flash_attention_kernel), every other build: f32 (the
-// CPU-oracle mode of the card tests), head_dim 32, int8 K/V, and the
-// causal call with a bias (tree verify). One block owns 16 query rows;
+// CPU-oracle mode of the card tests), head_dim 32 and int8 K/V. One block
+// owns 16 query rows;
 // K/V tiles of 32 keys are staged through shared memory in f32 (K rows
 // padded by one float so the lane-per-key reads hit 32 distinct banks)
 // and shared by the block's 4 warps; each warp owns 4 query rows. For a
@@ -721,8 +732,8 @@ int launch_tc(const AttnArgs& a) {
 // bias, or with neither; non-causal with or without int8 scales and with
 // or without a bias. Causal int8 with a bias is on no serving path and
 // is refused. bf16 at head_dim 128 over model-dtype K/V takes the
-// tensor-core body (causal without a bias, non-causal with or without
-// one); no FMA build of those is compiled.
+// tensor-core body (causal or not, with or without a bias); no FMA build
+// of those is compiled.
 template <typename T, int D>
 int launch_kv(const AttnArgs& a, bool causal) {
   constexpr bool kTc = std::is_same<T, tc::BF16>::value && D == tc::kD;
@@ -732,7 +743,8 @@ int launch_kv(const AttnArgs& a, bool causal) {
     if (quant) {
       launch<T, int8_t, D, false, true>(a);
     } else if (bias) {
-      launch<T, T, D, true, true>(a);
+      if constexpr (kTc) return launch_tc<true, true>(a);
+      else launch<T, T, D, true, true>(a);
     } else {
       if constexpr (kTc) return launch_tc<false, true>(a);
       else launch<T, T, D, false, true>(a);

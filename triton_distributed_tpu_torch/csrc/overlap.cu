@@ -68,7 +68,9 @@
 //     thread of the rank stamps the phase's record in the megakernel
 //     tracer's format with JAX's logical ticks (one per begin, mid and
 //     end), so the ring is bitwise the plain version's and passes
-//     validate_ring; the outputs are bitwise the untraced build's.
+//     validate_ring; the outputs are bitwise the untraced build's. In
+//     bf16 a group's produce is its (tile, K atom) items over all of the
+//     rank's blocks, then the atom sums and puts of its tiles.
 //
 // What bounds it on the H100: decode shapes (M = 4) are bytes: each rank
 // streams its weight shard once (Qwen3-8B tp=2: 16.8 MB a rank for the
@@ -136,13 +138,57 @@
 //   columns (16 bytes of bf16) and reads the inbound sum the same way
 //   (8 elements through L2).
 //
-//   FmaTile, everything else: f32 inputs (kept exact: no TF32), decode
-//   (m <= SMALL_M, 16-row tiles) and gemm_ar. A shared-memory tiled FMA
-//   kernel with f32 accumulation: 64-column tiles of BM = 16 rows for
-//   decode or 64 rows otherwise, 32-deep K slices staged through
-//   registers while the previous slice computes (bf16 is converted to f32
-//   in shared memory). It runs on the CUDA cores' f32 rate (67 TFLOP/s at
-//   best); gemm_ar's redesign is later work.
+//   FmaTile, everything else of ag_gemm and gemm_rs (f32 inputs, kept
+//   exact: no TF32; bf16 decode, m <= SMALL_M, 16-row tiles) and gemm_ar
+//   in f32. A shared-memory tiled FMA kernel with f32 accumulation:
+//   64-column tiles of BM = 16 rows for decode or 64 rows otherwise,
+//   32-deep K slices staged through registers while the previous slice
+//   computes (bf16 is converted to f32 in shared memory). It runs on the
+//   CUDA cores' f32 rate (67 TFLOP/s at best).
+//
+//   gemm_ar in bf16 (gemm_ar_mma_kernel, ArTile) is its own kernel. At
+//   decode (M = 4) it is bytes: each rank streams its weight shard once.
+//   Each block walks its items' 64-row K slices through one ring of
+//   kStages stages (6 at MT = 16 rows, 5 at 64) that never drains between
+//   items, thread 0 keeping kStages - 1 slices in flight by TMA: a 64 x
+//   64 box of B (the weights, 8 KB) and an MT x 64 box of A (zero past M
+//   and K), on the stage's mbarrier; 3 blocks an SM at MT 16 (2 at 64).
+//   The product runs on the tensor cores with the weights on the wide
+//   side: mma.sync m16n8k16 computes out^T = B^T A^T, the B tile (16
+//   columns x 16 K, read transposed by ldmatrix.trans from the swizzled
+//   box) as the 16-row operand and 8 activation rows (ldmatrix) as the
+//   8-column one, so M = 4 pads to 8 rows, not 64. Warp w owns columns 16
+//   (w % 4) .. +16 and half of the tile's rows. wgmma would need 64 rows
+//   on its M side or a transposed A operand from shared memory; mma.sync
+//   keeps one simple tile, and up to the 64-row chunks that take the
+//   one-shot the bytes bound it, not the tensor cores' rate.
+//   K is cut into atoms of kArAtom = 512 rows, whatever the grid; an
+//   atom's partial starts from zero and a tile's atoms are summed in atom
+//   order in f32, rounded once to bf16
+//   and put to every rank's slot [me], flagged per (source, tile) as the
+//   f32 build does. No float atomics: the same inputs give the same bits,
+//   on every rank, in either build. The traced build's items are single
+//   atoms, so each iteration's column group spreads over the rank's
+//   blocks; their partials go to a rank-local scratch behind the
+//   workspace's slots, and a block sums a tile once the blocks that own
+//   its atoms have flagged. The untraced build's item is a whole tile (64
+//   a rank at N 4096): on the H100 it streamed faster than a split over
+//   every block, since a tile's sum waits for the slowest of its blocks;
+//   the block sums the tile's atoms in its registers, the same additions
+//   in the same order, and puts at once. Every word of the flag site is
+//   an epoch (never a count), so a layout that moves with M and K cannot
+//   read an earlier launch's word as a claim.
+//   What is left is a floor of flag round trips, so the flags are as
+//   cheap as the protocol allows. One cooperative launch covers every
+//   rank, so every rank of a launch is on this device, and all of
+//   gemm_ar's flags, f32 and bf16, take device scope (perf/flag_latency.cu
+//   on the H100: a round trip 1.5 us, against 3.8 at system scope and 2.2
+//   more for a __threadfence_system(), and a system-scope release is
+//   slower still while the weights stream): a release store after the
+//   block's barrier, cumulative over its writes, with no separate fence.
+//   A launch a card would need system scope again. The bf16 build's entry
+//   barrier is announced as the kernel starts and awaited just before the
+//   first put, so its round trip hides under the products.
 //
 // gemm_rs waits for the inbound sum just before the epilogue's add, after
 // the product: the product does not need it, so it overlaps the
@@ -371,21 +417,25 @@ __device__ __forceinline__ bool claim(uint64_t* w, uint64_t epoch) {
 }
 
 // The rank-local count of the traced gemm_ar: every one of the rank's G
-// blocks arrives (its writes fenced), the last one resets the arrival word
+// blocks arrives (an acq_rel add), the last one resets the arrival word
 // and moves the generation on; the others spin until it has. All G blocks
 // are co-resident (cooperative launch), so the count always completes.
+// Both words are the rank's own: device scope.
 __device__ __forceinline__ void rank_count(uint64_t* arrive, uint64_t* gen,
                                            int G) {
   __syncthreads();
   if (threadIdx.x == 0) {
-    __threadfence();
-    const uint64_t g = tdt::ld_acquire_sys(gen);
-    if (atomicAdd(reinterpret_cast<unsigned long long*>(arrive), 1ull) ==
-        static_cast<unsigned long long>(G - 1)) {
+    const uint64_t g = tdt::ld_acquire_gpu(gen);
+    unsigned long long old;
+    asm volatile("atom.acq_rel.gpu.global.add.u64 %0, [%1], 1;"
+                 : "=l"(old)
+                 : "l"(arrive)
+                 : "memory");
+    if (old == static_cast<unsigned long long>(G - 1)) {
       atomicExch(reinterpret_cast<unsigned long long*>(arrive), 0ull);
-      tdt::signal(gen, g + 1);
+      tdt::st_release_gpu(gen, g + 1);
     } else {
-      tdt::wait_until(gen, g + 1);
+      tdt::wait_until<false, true>(gen, g + 1);
     }
   }
   __syncthreads();
@@ -582,12 +632,40 @@ struct WgTile {
 };
 
 // ---------------------------------------------------------------------------
-// gemm_ar one-shot. Flags of rank r: [0, n) the entry barrier, then
-// n + src * tiles + t (kTrace: n the rank-local count's arrivals, n + 1
-// its generation, tile flags from n + 2). Workspace of rank r: [n, M, N]
-// (slot src). kTrace also takes the per-rank rings RING ([num_j+1, 3, 8]
-// int32 each, zeroed by the host) and tile_n (a multiple of kBN dividing
-// N).
+// gemm_ar's flags, both builds, are device-scope release stores after the
+// block's barrier (cumulative over its threads' writes: no fence) and
+// device-scope acquires: one cooperative launch covers every rank, so
+// every rank is on this card.
+//
+// The entry barrier in two halves: the last block of each rank announces
+// its arrival as the kernel starts (it publishes nothing), and a block
+// waits for all n ranks before its first put; no block touches a peer
+// before every rank has entered. The bf16 build waits just before its
+// first put, by when the announcements have landed. The last block: while
+// the weights stream a release store holds its block for microseconds,
+// and the first blocks take the items (the last often has none).
+__device__ __forceinline__ void announce(const int64_t* fl_tab, int me,
+                                         int n, uint64_t epoch) {
+  if (blockIdx.x == gridDim.x - 1 && threadIdx.x == 0)
+    for (int p = 0; p < n; ++p)
+      tdt::st_release_gpu(tdt::symm_ptr<uint64_t>(fl_tab, p) + me, epoch);
+}
+
+__device__ __forceinline__ void await_ranks(const uint64_t* mine, int n,
+                                            uint64_t epoch) {
+  if (threadIdx.x == 0)
+    for (int src = 0; src < n; ++src)
+      tdt::wait_until<false, true>(mine + src, epoch);
+  __syncthreads();
+}
+
+
+// gemm_ar one-shot, f32 (the FMA tile). Flags of rank r: [0, n) the entry
+// barrier, then n + src * tiles + t (kTrace: n the rank-local count's
+// arrivals, n + 1 its generation, tile flags from n + 2). Workspace of
+// rank r: [n, M, N] (slot src). kTrace also takes the per-rank rings RING
+// ([num_j+1, 3, 8] int32 each, zeroed by the host) and tile_n (a multiple
+// of kBN dividing N). The bf16 build (gemm_ar_mma_kernel) follows.
 template <typename T, int BM>
 __device__ __forceinline__ void ar_produce(const T* a, const T* b, int M,
                                            int N, int K, int n, int me,
@@ -616,12 +694,10 @@ __device__ __forceinline__ void ar_produce(const T* a, const T* b, int M,
     }
   }
   __syncthreads();
-  if (tid == 0) {
-    __threadfence_system();
+  if (tid == 0)
     for (int p = 0; p < n; ++p)
-      tdt::st_release_sys(
+      tdt::st_release_gpu(
           tdt::symm_ptr<uint64_t>(fl_tab, p) + fl0 + me * tiles + t, epoch);
-  }
 }
 
 template <typename T, int BM>
@@ -637,7 +713,7 @@ __device__ __forceinline__ void ar_reduce(T* o, int M, int N, int n,
   const int m0 = (t / tiles_n) * BM, n0 = (t % tiles_n) * kBN;
   if (tid == 0)
     for (int src = 0; src < n; ++src)
-      tdt::wait_until(fl + fl0 + src * tiles + t, epoch);
+      tdt::wait_until<false, true>(fl + fl0 + src * tiles + t, epoch);
   __syncthreads();
   for (int e = tid; e < BM * (kBN / 4); e += kThreads) {
     const int row = m0 + e / (kBN / 4), col = n0 + (e % (kBN / 4)) * 4;
@@ -681,7 +757,8 @@ gemm_ar_kernel(RankPtrs A, RankPtrs B, RankPtrs O, const int64_t* ws_tab,
   const T* b = tdt::rank_ptr<const T>(B, me);
   T* o = tdt::rank_ptr<T>(O, me);
 
-  tdt::barrier_all(fl_tab, me, n, epoch, blockIdx.x == 0);
+  announce(fl_tab, me, n, epoch);
+  await_ranks(tdt::symm_ptr<const uint64_t>(fl_tab, me), n, epoch);
 
   if constexpr (!kTrace) {
     // Produce: partial tile -> input dtype -> every rank's slot [me].
@@ -728,6 +805,416 @@ gemm_ar_kernel(RankPtrs A, RankPtrs B, RankPtrs O, const int64_t* ws_tab,
       if (s == num_j && stamp) {  // TaskType.BARRIER: the drain (the puts
         // are stores flagged as they were made: nothing is in flight)
         ring_record(ring, s, 2, 9, 0, clk + 1, clk + 2, 0);
+        clk += 2;
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// gemm_ar one-shot, bf16 (the design note's split-K tile). K is cut into
+// atoms of kArAtom rows, A = ceil(K / kArAtom); an atom's partial of a
+// tile starts from zero, so it is the same bits
+// whichever block computes it. An item is a run of `span` atoms of one
+// tile: all A in the untraced build, one in the traced build. Items of a
+// column group [ct0, ct0 + nct), P = ceil(A / span) runs a tile: item i
+// is row tile i % tiles_m, column tile ct0 + (i / tiles_m) % nct, run i /
+// (tiles_m * nct), so the blocks that run together read the same K rows
+// of B across the group's columns (whole rows of B at decode, not
+// 128-byte pieces of many rows). Block b takes items b, b + G, ... A
+// tile's sum adds its A atom partials in atom order, so the two builds
+// agree bit for bit. Flags of rank r: [0, n) the entry barrier, then the
+// put flags fput + src * tiles + t, fput = n (kTrace: n, n + 1 the
+// rank-local count, then the rank's own block flags n + 2 + s * G + b,
+// one set an iteration s, each raised once the block's items of the
+// iteration are written; fput = n + 2 + num_j * G). Workspace of rank r:
+// [n, M, N] bf16 (slot src), then (kTrace) the rank's f32 atom partials
+// [A, tiles, MT / 8, 4, 32] float4 in the mma fragment's order (m8 tile,
+// warp column block, lane): each thread writes its own registers and the
+// thread of the same index in the summing block reads them back, with no
+// staging between atoms.
+
+constexpr int kArDepth = 64;                    // K rows a slice
+constexpr int kArAtom = 512;                    // K rows an atom
+constexpr int kArWBytes = kArDepth * kBN * 2;   // a 64 x 64 bf16 box of B
+static_assert(kArDepth == 64 && kBN == 64,
+              "a slice is one 128-byte-swizzled box of each operand");
+static_assert(kArAtom % kArDepth == 0, "an atom is whole slices");
+
+// The ranks' weight shards (B [K, N]) and activations (A [M, K]) as TMA
+// boxes, passed by value as a __grid_constant__ parameter.
+struct alignas(64) ArMaps {
+  CUtensorMap w[tdt::kMaxRanks];
+  CUtensorMap x[tdt::kMaxRanks];
+};
+
+template <int MT>
+struct ArTile {
+  static constexpr int kStages = MT == 16 ? 6 : 5;
+  static constexpr int kMinBlocks = MT == 16 ? 3 : 2;
+  static constexpr int kXBytes = MT * kArDepth * 2;
+  static constexpr int kStageBytes = kArWBytes + kXBytes;
+  static constexpr int kLd = kBN + 4;  // f32 staging row
+  // 1 KB of slack aligns the ring to the swizzle's 1024-byte atoms.
+  static constexpr int kSmemBytes =
+      1024 + kStages * kStageBytes + MT * kLd * 4 + 8 * kStages;
+  static_assert(kStageBytes % 1024 == 0, "stages on swizzle atoms");
+};
+
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&d)[4],
+                                              uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];"
+      : "=r"(d[0]), "=r"(d[1]), "=r"(d[2]), "=r"(d[3])
+      : "r"(addr)
+      : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x2(uint32_t (&d)[2], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];"
+               : "=r"(d[0]), "=r"(d[1])
+               : "r"(addr)
+               : "memory");
+}
+
+// c[16 x 8] += a[16 x 16] (row-major) @ b[16 x 8] (column-major), bf16 in,
+// f32 accumulate.
+__device__ __forceinline__ void mma_16816(float (&c)[4],
+                                          const uint32_t (&a)[4],
+                                          const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// Warp w's share of a tile: out^T rows 16 (w % 4) .. +16, i.e. output
+// columns, by its m8 tiles mt(w, i) = MT / 16 * (w / 4) + i, output rows
+// 8 mt .. +8. Thread lane holds, of m8 tile i, c[i][0..1] at out^T row
+// lane / 4, columns 2 (lane % 4) + {0, 1}, and c[i][2..3] 8 rows on.
+__device__ __forceinline__ int ar_mtile(int MT, int i) {
+  return MT / 16 * (threadIdx.x / 128) + i;
+}
+
+// One slice: acc += the slice's B^T (from the swizzled [64 K, 64 N] box
+// at wb) times its A^T (from the swizzled [MT, 64 K] box at xb). A
+// 16-byte row piece c of box row r sits at piece c ^ (r % 8).
+template <int MT>
+__device__ __forceinline__ void ar_slice(float (&acc)[MT / 16][4],
+                                         uint32_t wb, uint32_t xb) {
+  const int lane = threadIdx.x % 32, nb = threadIdx.x / 32 % 4;
+  const int mat = lane / 8, r = lane % 8;
+#pragma unroll
+  for (int kk = 0; kk < kArDepth / 16; ++kk) {
+    // Matrices (columns lo/hi, K lo), (lo/hi, K hi): the A fragment of B^T.
+    uint32_t a[4];
+    ldsm_x4_trans(a, wb + (kk * 16 + (mat / 2) * 8 + r) * 128 +
+                         (((nb * 2 + mat % 2) ^ r) << 4));
+#pragma unroll
+    for (int i = 0; i < MT / 16; ++i) {
+      uint32_t b[2];  // 8 rows, K lo and hi (addresses of lanes 0-15)
+      ldsm_x2(b, xb + (ar_mtile(MT, i) * 8 + r) * 128 +
+                     (((kk * 2 + mat % 2) ^ r) << 4));
+      mma_16816(acc[i], a, b);
+    }
+  }
+}
+
+// The thread's float4 of m8 tile mt in the atom partials of tile t, atom
+// a (the workspace layout above).
+template <int MT>
+__device__ __forceinline__ size_t ar_frag(int a, int tiles, int t, int mt) {
+  return (((size_t)a * tiles + t) * (MT / 8) + mt) * 128 +
+         (threadIdx.x / 32 % 4) * 32 + threadIdx.x % 32;
+}
+
+// Stage a tile's f32 sum (the fragment) row-major, round it once to bf16,
+// put it to every rank's slot [me] and flag it there. The release store
+// is cumulative over the block's puts, which the barrier ordered before
+// it: no separate fence.
+template <int MT>
+__device__ __forceinline__ void ar_put(const float (&sum)[MT / 16][4],
+                                       float* stg, const int64_t* ws_tab,
+                                       const int64_t* fl_tab, int fput,
+                                       int M, int N, int n, int me,
+                                       int tiles, int rt, int ct,
+                                       int tiles_n, uint64_t epoch) {
+  using C = ArTile<MT>;
+  const int tid = threadIdx.x, lane = tid % 32, nb = tid / 32 % 4;
+#pragma unroll
+  for (int b = 0; b < MT / 16; ++b) {
+    const int m = ar_mtile(MT, b) * 8 + 2 * (lane % 4), c = nb * 16 + lane / 4;
+    stg[m * C::kLd + c] = sum[b][0];
+    stg[(m + 1) * C::kLd + c] = sum[b][1];
+    stg[m * C::kLd + c + 8] = sum[b][2];
+    stg[(m + 1) * C::kLd + c + 8] = sum[b][3];
+  }
+  __syncthreads();
+  const int m0 = rt * MT, n0 = ct * kBN;
+  const size_t plane = (size_t)M * N;
+  for (int e = tid; e < MT * (kBN / 4); e += blockDim.x) {
+    const int r = e / (kBN / 4), c = (e % (kBN / 4)) * 4;
+    if (m0 + r >= M || n0 + c >= N) continue;
+    const float4 v = *reinterpret_cast<const float4*>(stg + r * C::kLd + c);
+    const float out[4] = {v.x, v.y, v.z, v.w};
+    for (int d = 0; d < n; ++d)
+      storev<4>(tdt::symm_ptr<BF16>(ws_tab, d) + me * plane +
+                    (size_t)(m0 + r) * N + n0 + c,
+                out);
+  }
+  __syncthreads();
+  if (tid == 0)
+    for (int d = 0; d < n; ++d)
+      tdt::st_release_gpu(tdt::symm_ptr<uint64_t>(fl_tab, d) + fput +
+                              me * tiles + rt * tiles_n + ct,
+                          epoch);
+}
+
+// Where a tile's atoms are summed: through the scratch by a block that
+// waits for the items' owners (ar_sum_put, the traced build), or, `fused`
+// (the untraced build's item holds every atom of its tile), in that
+// block's registers, in atom order, and put at once; the rest is what
+// ar_put needs.
+struct ArPut {
+  bool fused;
+  float* stg;
+  const int64_t* ws_tab;
+  const int64_t* fl_tab;
+  const uint64_t* mine;
+  int fput, N, n, me;
+};
+
+// The block's items of column tiles [ct0, ct0 + nct): each atom's f32
+// partial to part (m8 tiles below M only); once all are written, the
+// block's flag `done`. One flag a block, not an item or atom: a release
+// stalls its warp until the writes before it land, and every warp then
+// waits at the next slice's barrier. Fused (an item holds every atom
+// of its tile): the atoms are summed in registers in atom order, the
+// additions ar_sum_put makes, and the item's tile is put at once. `seq`
+// counts the slices the block has consumed (stage and parity); every
+// slice a call issues, it consumes.
+template <int MT>
+__device__ __forceinline__ void ar_items(
+    uint8_t* ring, uint64_t* full, uint32_t& seq, const CUtensorMap* wmap,
+    const CUtensorMap* xmap, float4* part, uint64_t* done, int M, int K,
+    int span, int tiles_m, int tiles_n, int ct0, int nct, uint64_t epoch,
+    const ArPut& put) {
+  using C = ArTile<MT>;
+  const int tid = threadIdx.x, G = gridDim.x;
+  const int A = (K + kArAtom - 1) / kArAtom, P = (A + span - 1) / span;
+  const int items = nct * P * tiles_m, tiles = tiles_m * tiles_n;
+  // The item's K rows [k0, k0 + len): its run of atoms.
+  auto rows = [&](int i, int& k0) {
+    k0 = (i / (tiles_m * nct)) * span * kArAtom;
+    return min(span * kArAtom, K - k0);
+  };
+  // Thread 0's producer cursor: item pi, its slice pj, slices issued.
+  int pi = blockIdx.x, pj = 0;
+  uint32_t issued = seq;
+  auto issue = [&]() {
+    if (pi >= items) return;
+    int k0;
+    const int len = rows(pi, k0), k = k0 + pj * kArDepth;
+    const int rt = pi % tiles_m, ct = ct0 + (pi / tiles_m) % nct;
+    const uint32_t st = issued % C::kStages;
+    uint8_t* s = ring + st * C::kStageBytes;
+    mbar_expect_tx(full + st, C::kStageBytes);
+    tma_load_2d(s, wmap, full + st, ct * kBN, k);
+    tma_load_2d(s + kArWBytes, xmap, full + st, k, rt * MT);
+    ++issued;
+    if (++pj * kArDepth >= len) {
+      pj = 0;
+      pi += G;
+    }
+  };
+  if (tid == 0) {
+    fence_proxy_async_smem();
+    for (int j = 0; j < C::kStages - 1; ++j) issue();
+  }
+  for (int i = blockIdx.x; i < items; i += G) {
+    const int rt = i % tiles_m, ct = ct0 + (i / tiles_m) % nct;
+    const int t = rt * tiles_n + ct;
+    int k0;
+    const int ns = (rows(i, k0) + kArDepth - 1) / kArDepth;
+    constexpr int per = kArAtom / kArDepth;  // slices an atom
+    float acc[MT / 16][4], run[MT / 16][4];
+    for (int j = 0; j < ns; ++j) {
+      if (j % per == 0)
+#pragma unroll
+        for (int a = 0; a < MT / 16; ++a)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[a][e] = 0.f;
+      const uint32_t st = seq % C::kStages;
+      mbar_wait(full + st, (seq / C::kStages) & 1);
+      // Every warp is past slice seq - 1: its stage takes the next copy.
+      __syncthreads();
+      if (tid == 0) {
+        fence_proxy_async_smem();
+        issue();
+      }
+      const uint32_t wb = smem_u32(ring + st * C::kStageBytes);
+      ar_slice<MT>(acc, wb, wb + kArWBytes);
+      ++seq;
+      if (j % per == per - 1 || j == ns - 1) {  // the atom is complete
+        const int a = k0 / kArAtom + j / per;
+#pragma unroll
+        for (int b = 0; b < MT / 16; ++b) {
+          if (put.fused) {
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              run[b][e] = a == 0 ? acc[b][e] : run[b][e] + acc[b][e];
+          } else if (rt * MT + ar_mtile(MT, b) * 8 < M) {
+            part[ar_frag<MT>(a, tiles, t, ar_mtile(MT, b))] =
+                make_float4(acc[b][0], acc[b][1], acc[b][2], acc[b][3]);
+          }
+        }
+      }
+    }
+    if (put.fused) {
+      if (i == blockIdx.x) await_ranks(put.mine, put.n, epoch);
+      ar_put<MT>(run, put.stg, put.ws_tab, put.fl_tab, put.fput, M, put.N,
+                 put.n, put.me, tiles, rt, ct, tiles_n, epoch);
+    }
+  }
+  if (put.fused) return;
+  __syncthreads();
+  if (tid == 0 && blockIdx.x < items) tdt::st_release_gpu(done, epoch);
+}
+
+// The tiles of column tiles [ct0, ct0 + nct), single-atom items: wait
+// for the flags `done` of the blocks that own a tile's A atoms, sum its
+// atom partials in atom order in f32 (each thread its own fragment,
+// kBatch loads in flight) and put the sum (ar_put).
+template <int MT>
+__device__ __forceinline__ void ar_sum_put(
+    const float4* part, float* stg, const int64_t* ws_tab,
+    const int64_t* fl_tab, const uint64_t* done, int fput, int M, int N,
+    int K, int n, int me, int tiles_m, int tiles_n, int ct0, int nct,
+    uint64_t epoch) {
+  constexpr int kBatch = 8;
+  const int tid = threadIdx.x, tiles = tiles_m * tiles_n, G = gridDim.x;
+  const int A = (K + kArAtom - 1) / kArAtom;
+  for (int q = blockIdx.x; q < nct * tiles_m; q += G) {
+    const int rt = q % tiles_m, ct = ct0 + q / tiles_m;
+    const int t = rt * tiles_n + ct;
+    // Atom a of the tile is item a * nct * tiles_m + q.
+    for (int a = tid; a < A; a += blockDim.x)
+      tdt::wait_until<false, true>(done + (a * nct * tiles_m + q) % G,
+                                   epoch);
+    __syncthreads();
+    float sum[MT / 16][4];
+#pragma unroll
+    for (int b = 0; b < MT / 16; ++b) {
+      const int mt = ar_mtile(MT, b);
+#pragma unroll
+      for (int c = 0; c < 4; ++c) sum[b][c] = 0.f;
+      if (rt * MT + mt * 8 >= M) continue;
+      for (int a0 = 0; a0 < A; a0 += kBatch) {
+        float4 u[kBatch];
+#pragma unroll
+        for (int j = 0; j < kBatch; ++j)
+          if (a0 + j < A) u[j] = __ldcg(part + ar_frag<MT>(a0 + j, tiles, t,
+                                                           mt));
+#pragma unroll
+        for (int j = 0; j < kBatch && a0 + j < A; ++j) {
+          const float x[4] = {u[j].x, u[j].y, u[j].z, u[j].w};
+#pragma unroll
+          for (int c = 0; c < 4; ++c)
+            sum[b][c] = a0 + j == 0 ? x[c] : sum[b][c] + x[c];
+        }
+      }
+    }
+    ar_put<MT>(sum, stg, ws_tab, fl_tab, fput, M, N, n, me, tiles, rt, ct,
+               tiles_n, epoch);
+  }
+}
+
+// tile_n: the traced build's column group.
+template <int MT, bool kTrace>
+__global__ void __launch_bounds__(kThreads, ArTile<MT>::kMinBlocks)
+gemm_ar_mma_kernel(RankPtrs O, const int64_t* ws_tab, const int64_t* fl_tab,
+                   int M, int N, int K, int n, uint64_t epoch,
+                   RankPtrs RING, int tile_n,
+                   const __grid_constant__ ArMaps maps) {
+  using C = ArTile<MT>;
+  extern __shared__ __align__(16) uint8_t dsmem[];
+  uint8_t* ring = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(dsmem) + 1023) & ~uintptr_t(1023));
+  float* stg = reinterpret_cast<float*>(ring + C::kStages * C::kStageBytes);
+  uint64_t* full = reinterpret_cast<uint64_t*>(stg + MT * C::kLd);
+  const int me = blockIdx.y, G = gridDim.x;
+  const CUtensorMap* wmap = &maps.w[me];
+  const CUtensorMap* xmap = &maps.x[me];
+  if (threadIdx.x == 0) {
+    asm volatile("prefetch.tensormap [%0];" ::"l"(wmap) : "memory");
+    asm volatile("prefetch.tensormap [%0];" ::"l"(xmap) : "memory");
+    for (int i = 0; i < C::kStages; ++i) mbar_init(full + i, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+  uint32_t seq = 0;
+  const int tiles_m = (M + MT - 1) / MT, tiles_n = (N + kBN - 1) / kBN;
+  const int tiles = tiles_m * tiles_n;
+  // The untraced build's item is a whole tile, the traced build's an atom.
+  const int span = kTrace ? 1 : (K + kArAtom - 1) / kArAtom;
+  BF16* o = tdt::rank_ptr<BF16>(O, me);
+  uint64_t* mine = tdt::symm_ptr<uint64_t>(fl_tab, me);
+  float4* part = reinterpret_cast<float4*>(tdt::symm_ptr<BF16>(ws_tab, me) +
+                                           (size_t)n * M * N);
+  const int num_j = kTrace ? N / tile_n : 0;
+  uint64_t* fb = mine + n + 2;  // kTrace: the block flags
+  const int fput = kTrace ? n + 2 + num_j * G : n;
+  const ArPut put{!kTrace, stg, ws_tab, fl_tab, mine, fput, N, n, me};
+  auto items = [&](int j, int ct0, int nct) {
+    ar_items<MT>(ring, full, seq, wmap, xmap, part, fb + j * G + blockIdx.x,
+                 M, K, span, tiles_m, tiles_n, ct0, nct, epoch, put);
+  };
+  auto sum_put = [&](int j, int ct0, int nct) {
+    ar_sum_put<MT>(part, stg, ws_tab, fl_tab, fb + j * G, fput, M, N, K, n,
+                   me, tiles_m, tiles_n, ct0, nct, epoch);
+  };
+
+  announce(fl_tab, me, n, epoch);
+  if constexpr (!kTrace) {
+    items(0, 0, tiles_n);
+    for (int t = blockIdx.x; t < tiles; t += G)
+      ar_reduce<BF16, MT>(o, M, N, n, me, tiles, t, tiles_n, ws_tab, fl_tab,
+                          fput, epoch);
+  } else {
+    // JAX's grid (num_j + 1,), as the f32 build: a group is tiles_m x
+    // (tile_n / kBN) tiles, its items every atom of them.
+    int32_t* ring_out = tdt::rank_ptr<int32_t>(RING, me);
+    const bool stamp = blockIdx.x == 0 && threadIdx.x == 0;
+    const int per = tile_n / kBN, gtiles = tiles_m * per;
+    auto tile_of = [&](int j, int g) {
+      return (g / per) * tiles_n + j * per + g % per;
+    };
+    int clk = 0;  // JAX's logical clock: one tick a begin, mid and end
+    for (int s = 0; s <= num_j; ++s) {
+      if (s < num_j) {
+        items(s, s * per, per);
+        if (s == 0) await_ranks(mine, n, epoch);
+        sum_put(s, s * per, per);
+        rank_count(mine + n, mine + n + 1, G);
+        if (stamp) {  // TaskType.AR_SEND: the puts of group s are out
+          ring_record(ring_out, s, 0, 12, s, clk + 1, clk + 3, clk + 2);
+          clk += 3;
+        }
+      }
+      if (s > 0) {
+        for (int g = blockIdx.x; g < gtiles; g += G)
+          ar_reduce<BF16, MT>(o, M, N, n, me, tiles, tile_of(s - 1, g),
+                              tiles_n, ws_tab, fl_tab, fput, epoch);
+        rank_count(mine + n, mine + n + 1, G);
+        if (stamp) {  // TaskType.AR_WAIT: mid once the partials landed
+          ring_record(ring_out, s, 1, 13, s - 1, clk + 1, clk + 3, clk + 2);
+          clk += 3;
+        }
+      }
+      if (s == num_j && stamp) {  // TaskType.BARRIER: the drain
+        ring_record(ring_out, s, 2, 9, 0, clk + 1, clk + 2, 0);
         clk += 2;
       }
     }
@@ -1021,12 +1508,21 @@ void* rs_kernel_of(int wire) {
   return nullptr;  // no such wire, or one wider than a bf16 input
 }
 
-template <typename T, int BM>
+template <int BM>
 Build ar_build(int kind) {
   return {kind == kGemmAR
-              ? reinterpret_cast<void*>(&gemm_ar_kernel<T, BM, false>)
-              : reinterpret_cast<void*>(&gemm_ar_kernel<T, BM, true>),
+              ? reinterpret_cast<void*>(&gemm_ar_kernel<float, BM, false>)
+              : reinterpret_cast<void*>(&gemm_ar_kernel<float, BM, true>),
           kThreads, 0, false};
+}
+
+// gemm_ar in bf16: the split-K tile of MT rows (A and B through the maps).
+template <int MT>
+Build ar_mma_build(int kind) {
+  return {kind == kGemmAR
+              ? reinterpret_cast<void*>(&gemm_ar_mma_kernel<MT, false>)
+              : reinterpret_cast<void*>(&gemm_ar_mma_kernel<MT, true>),
+          kThreads, ArTile<MT>::kSmemBytes, true};
 }
 
 // ag_gemm and gemm_rs over `Tile`.
@@ -1041,19 +1537,19 @@ Build tile_build(int kind, int wire) {
   return {fn, Tile::kBlock, Tile::kSmemBytes, Tile::kTma};
 }
 
-// f32: the FMA tile; bf16: the FMA tile at m <= SMALL_M (small_m), else
-// wgmma (gemm_ar stays on the FMA tile).
+// f32: the FMA tile; bf16: ag_gemm and gemm_rs on the FMA tile at m <=
+// SMALL_M (small_m), else wgmma; gemm_ar on the split-K mma.sync tile of
+// 16 rows at m <= SMALL_M, else 64.
 Build pick_kernel(int kind, int dtype, int small_m, int wire) {
   const bool ar = kind == kGemmAR || kind == kGemmARTraced;
   if (kind < kGemmAR || kind > kGemmARTraced) return {};
   if (dtype == tdt::kDtypeF32) {
-    if (ar) return small_m ? ar_build<float, 16>(kind)
-                           : ar_build<float, 64>(kind);
+    if (ar) return small_m ? ar_build<16>(kind) : ar_build<64>(kind);
     return small_m ? tile_build<float, FmaTile<float, 16>>(kind, wire)
                    : tile_build<float, FmaTile<float, 64>>(kind, wire);
   }
   if (dtype != tdt::kDtypeBF16) return {};
-  if (ar) return small_m ? ar_build<BF16, 16>(kind) : ar_build<BF16, 64>(kind);
+  if (ar) return small_m ? ar_mma_build<16>(kind) : ar_mma_build<64>(kind);
   return small_m ? tile_build<BF16, FmaTile<BF16, 16>>(kind, wire)
                  : tile_build<BF16, WgTile>(kind, wire);
 }
@@ -1086,9 +1582,26 @@ bool encode_b(CUtensorMap* map, const void* b, int N, int K) {
   const cuuint64_t dims[2] = {static_cast<cuuint64_t>(N),
                               static_cast<cuuint64_t>(K)};
   const cuuint64_t strides[1] = {static_cast<cuuint64_t>(N) * sizeof(BF16)};
+  static_assert(WgTile::kDepth == kArDepth, "one B box serves both tiles");
   const cuuint32_t box[2] = {64, WgTile::kDepth};
   const cuuint32_t unit[2] = {1, 1};
   return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(b),
+             dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// Rank r's A [M, K] (bf16, row-major) as boxes of 64 columns (K) x `rows`
+// rows in the 128-byte swizzle, zero past M and K: gemm_ar's bf16 build.
+bool encode_a(CUtensorMap* map, const void* a, int M, int K, int rows) {
+  const EncodeTiled enc = encode_tiled();
+  if (enc == nullptr) return false;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(K),
+                              static_cast<cuuint64_t>(M)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(K) * sizeof(BF16)};
+  const cuuint32_t box[2] = {kArDepth, static_cast<cuuint32_t>(rows)};
+  const cuuint32_t unit[2] = {1, 1};
+  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(a),
              dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
              CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
@@ -1108,7 +1621,7 @@ int tdt_overlap_capacity(int kind, int dtype, int small_m, int wire) {
 
 // One cooperative launch of `kind` over n co-located ranks with
 // blocks_per_rank blocks each (grid (blocks_per_rank, n)). dims: M, N, K,
-// and for gemm_rs half_m (for ag_gemm M is m_per). `wire`: gemm_rs's wire
+// and gemm_rs's half_m (for ag_gemm M is m_per). `wire`: gemm_rs's wire
 // code. `aux`: host table of the per-rank int32 outputs (ag_gemm's
 // realized order, the traced gemm_ar's ring), or null. `arg`: the traced
 // gemm_ar's tile_n. lag_rank / lag_ns / delay_ns: ag_gemm's lag fixtures
@@ -1131,28 +1644,37 @@ int tdt_overlap_launch(int kind, int dtype, int small_m, int wire,
     return cudaErrorInvalidValue;
   if ((kind == kAGGemm || kind == kAGGemmAdaptive) && aux == nullptr)
     return cudaErrorInvalidValue;
+  const bool ar = kind == kGemmAR || kind == kGemmARTraced;
   if (!prepare(k)) return cudaErrorInvalidValue;
   if (n * blocks_per_rank > tdt::capacity(k.fn, k.threads, k.smem))
     return cudaErrorCooperativeLaunchTooLarge;
   BMaps maps{};
-  if (k.tma)
-    for (int r = 0; r < n; ++r)
-      if (!encode_b(&maps.m[r], reinterpret_cast<const void*>(b[r]), N, K))
-        return cudaErrorInvalidValue;
+  ArMaps ar_maps{};
+  for (int r = 0; k.tma && r < n; ++r) {
+    const void* br = reinterpret_cast<const void*>(b[r]);
+    const bool ok =
+        ar ? encode_b(&ar_maps.w[r], br, N, K) &&
+                 encode_a(&ar_maps.x[r], reinterpret_cast<const void*>(a[r]),
+                          M, K, small_m ? 16 : 64)
+           : encode_b(&maps.m[r], br, N, K);
+    if (!ok) return cudaErrorInvalidValue;
+  }
   RankPtrs pa = tdt::to_ptrs(a, n), pb = tdt::to_ptrs(b, n),
            po = tdt::to_ptrs(o, n);
   RankPtrs px = aux == nullptr ? RankPtrs{} : tdt::to_ptrs(aux, n);
   uint64_t ep = epoch;
   void* args_ar[] = {&pa, &pb, &po, &ws_tab, &fl_tab, &M,
                      &N,  &K,  &n,  &ep,     &px,     &arg};
+  void* args_mma[] = {&po, &ws_tab, &fl_tab, &M,   &N,
+                      &K,  &n,      &ep,     &px,  &arg, &ar_maps};
   void* args_rs[] = {&pa, &pb, &po,     &ws_tab, &fl_tab, &M,
                      &N,  &K,  &n,      &half_m, &ep,     &maps};
   void* args_ag[] = {&pa, &pb, &po, &ws_tab, &fl_tab,   &M,
                      &N,  &K,  &n,  &ep,     &px,       &lag_rank,
                      &lag_ns, &delay_ns, &maps};
-  void** args = kind == kGemmRS                 ? args_rs
-                : kind == kGemmAR || kind == kGemmARTraced ? args_ar
-                                                           : args_ag;
+  void** args = kind == kGemmRS ? args_rs
+                : ar              ? (k.tma ? args_mma : args_ar)
+                                  : args_ag;
   cudaError_t err = cudaLaunchCooperativeKernel(
       k.fn, dim3(blocks_per_rank, n), dim3(k.threads), args, k.smem,
       static_cast<cudaStream_t>(stream));

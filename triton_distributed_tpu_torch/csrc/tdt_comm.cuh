@@ -17,7 +17,8 @@
 // loads ld.acquire.sys (system scope: the same code is right across
 // cards); a block publishes its threads' writes with __syncthreads, then
 // thread 0 fences at system scope and stores the flag (the cooperative
-// groups grid-barrier pattern). Data a peer wrote is read with ld.cg (L2,
+// groups grid-barrier pattern). gemm_ar takes device scope instead (see
+// st_release_gpu). Data a peer wrote is read with ld.cg (L2,
 // never a stale L1 line of an earlier launch).
 //
 // Every wait traps after kWaitTimeoutNs: a lost block or a protocol
@@ -65,6 +66,34 @@ __device__ __forceinline__ uint64_t ld_acquire_sys(const uint64_t* p) {
   return v;
 }
 
+// Words that only the blocks of one launch on one card touch: the same
+// discipline at device scope, without the fence. gemm_ar (overlap.cu, both
+// builds) takes it for all of its flags, since its one cooperative launch
+// covers every rank. On an H100 80GB HBM3 (700 W) a device-scope
+// flag round trip between two blocks took 1.5 us against 3.8 at system
+// scope, and a __threadfence_system() 2.2 us (perf/flag_latency.cu).
+__device__ __forceinline__ void st_release_gpu(uint64_t* p, uint64_t v) {
+  asm volatile("st.release.gpu.global.u64 [%0], %1;" ::"l"(p), "l"(v)
+               : "memory");
+}
+
+__device__ __forceinline__ uint64_t ld_acquire_gpu(const uint64_t* p) {
+  uint64_t v;
+  asm volatile("ld.acquire.gpu.global.u64 %0, [%1];"
+               : "=l"(v)
+               : "l"(p)
+               : "memory");
+  return v;
+}
+
+template <bool kGpu>
+__device__ __forceinline__ uint64_t ld_acquire(const uint64_t* p) {
+  if constexpr (kGpu)
+    return ld_acquire_gpu(p);
+  else
+    return ld_acquire_sys(p);
+}
+
 __device__ __forceinline__ uint64_t global_ns() {
   uint64_t t;
   asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
@@ -81,18 +110,18 @@ __device__ __forceinline__ void signal(uint64_t* flag, uint64_t epoch) {
 // Spin (one thread) until *flag >= epoch; trap after kWaitTimeoutNs,
 // printing the flag first unless kQuiet. A kernel that issues wgmma takes
 // kQuiet: any call (printf's vprintf) in it makes ptxas serialize its
-// wgmmas (C7510).
-template <bool kQuiet = false>
+// wgmmas (C7510). kGpu: a word released at device scope, acquired so.
+template <bool kQuiet = false, bool kGpu = false>
 __device__ __forceinline__ void wait_until(const uint64_t* flag,
                                            uint64_t epoch) {
-  if (ld_acquire_sys(flag) >= epoch) return;
+  if (ld_acquire<kGpu>(flag) >= epoch) return;
   const uint64_t t0 = global_ns();
-  while (ld_acquire_sys(flag) < epoch) {
+  while (ld_acquire<kGpu>(flag) < epoch) {
     __nanosleep(64);
     if (global_ns() - t0 > kWaitTimeoutNs) {
       if constexpr (!kQuiet)
         printf("tdt wait_until timed out: flag %p at %llu, epoch %llu\n",
-               flag, (unsigned long long)ld_acquire_sys(flag),
+               flag, (unsigned long long)ld_acquire<kGpu>(flag),
                (unsigned long long)epoch);
       __trap();
     }

@@ -6,8 +6,8 @@ same layout (``q [B, Hq, Sq, D]``, ``k/v [B, Hkv, Sk, D]``), the same
 and the same optional base-e LSE. On a CUDA tensor :func:`flash_attention`
 launches the hand-written kernel (``csrc/flash_attention.cu``) or raises;
 on a CPU tensor it runs :func:`mha_reference`, the plain version. In bf16
-at head_dim 128 over model-dtype K/V (causal without a bias, or
-non-causal) the kernel multiplies on the tensor cores (wgmma, TMA-fed
+at head_dim 128 over model-dtype K/V (causal or non-causal, with or
+without a bias) the kernel multiplies on the tensor cores (wgmma, TMA-fed
 K/V); every other build runs its products on the FMA pipes.
 
 With ``k_scale``/``v_scale`` the K/V operands are int8 codes with one

@@ -23,6 +23,9 @@ WGMMA_KINDS = ("gemm_rs", "ag_gemm", "ag_gemm_adaptive")
 # ag_gemm's put row tile (overlap.cu kPutRows): a chunk is put, and flagged,
 # 16 rows at a time whatever the GEMM tile.
 PUT_ROWS = 16
+# gemm_ar's bf16 build (overlap.cu kArAtom): K in atoms of AR_ATOM rows,
+# whatever the grid.
+AR_ATOM = 512
 # overlap.cu `Kind`: the three kernels and the builds of their options
 # (the adaptive ag_gemm, the traced gemm_ar).
 KINDS = {"gemm_ar": 0, "gemm_rs": 1, "ag_gemm": 2, "ag_gemm_adaptive": 3,

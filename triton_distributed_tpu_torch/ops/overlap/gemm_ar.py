@@ -9,6 +9,11 @@ every rank's output is bitwise the same. ``TWO_SHOT`` is ``gemm_rs``
 (single ring: the chunk is one row tile) followed by ``all_gather``'s
 AUTO (:279: the full mesh at n <= 2, the bidirectional ring above 64 KB
 a shard at n > 2).
+In bf16 the kernel multiplies on the tensor cores (mma.sync) and cuts
+each 64-column tile's K into 512-row atoms, summed in atom order in f32 and
+rounded once before the put (the traced build spreads the atoms over the
+rank's blocks), so the result depends neither on the grid nor
+on which build ran. f32 keeps the FMA tile.
 ``XLA`` is the plain version, the counterpart of ``psum(a @ b)``:
 per-rank products rounded to the input dtype, summed in rank order in
 f32.
@@ -36,6 +41,7 @@ from __future__ import annotations
 
 import dataclasses
 import enum
+import functools
 
 import torch
 
@@ -132,6 +138,43 @@ def gemm_ar_plain(a: list[torch.Tensor], b: list[torch.Tensor]
     return [out] + [out.clone() for _ in a[1:]]
 
 
+@functools.lru_cache(maxsize=None)
+def plan(n: int, m: int, n_out: int, k: int, dtype: torch.dtype,
+         tile_n: int | None = None, blocks: int | None = None
+         ) -> tuple[int, int, int, int]:
+    """(work items a rank, blocks a rank, flags a rank, workspace elements
+    a rank) of a one-shot launch; with ``tile_n``, the traced build's (its
+    items are a column group's). ``blocks``: the caller's blocks a rank,
+    else one an item and at most every co-resident one. f32 (the FMA
+    tile): an item is a tile of 16 or 64 rows by 64 columns; flags: the
+    barrier's n (traced: and the rank-local count's two words), then one a
+    (source, tile); workspace: the n slots. bf16 (the split-K tile,
+    ``overlap.cu`` gemm_ar_mma_kernel): K is cut into atoms of
+    ``_launch.AR_ATOM`` rows. The untraced build's item is a whole tile,
+    its atoms summed in one block's registers; the traced build's items
+    are single atoms, so its iterations spread over the rank's blocks,
+    with a flag a block and iteration before the put flags and the f32
+    atom partials after the slots. Both sum a tile's atoms in atom order,
+    so the traced outputs are bitwise the untraced ones, whatever the
+    grid."""
+    bm = _launch.tile_rows(m)
+    tiles_m, tiles_n = -(-m // bm), -(-n_out // _launch.BN)
+    tiles = tiles_m * tiles_n
+    bf16 = dtype == torch.bfloat16
+    atoms = -(-k // _launch.AR_ATOM) if bf16 else 1
+    items = tiles_m * (tile_n // _launch.BN) * atoms if tile_n else tiles
+    if blocks is None:
+        kind = "gemm_ar_traced" if tile_n else "gemm_ar"
+        blocks = _launch.grid(items, _launch.capacity(
+            kind, dtype, m <= _launch.SMALL_M), n)
+    if not tile_n:
+        return items, blocks, n + n * tiles, n * m * n_out
+    if not bf16:
+        return items, blocks, n + 2 + n * tiles, n * m * n_out
+    return (items, blocks, n + 2 + (n_out // tile_n) * blocks + n * tiles,
+            n * m * n_out + 2 * atoms * tiles * bm * _launch.BN)
+
+
 def gemm_ar_one_shot(a, b, ctx, blocks_per_rank: int | None = None
                      ) -> list[torch.Tensor]:
     """The one-shot kernel: one cooperative launch over all ranks."""
@@ -139,12 +182,13 @@ def gemm_ar_one_shot(a, b, ctx, blocks_per_rank: int | None = None
     n = ctx.tp
     m, k = a[0].shape
     n_out = b[0].shape[1]
-    bm = _launch.tile_rows(m)
-    tiles = -(-m // bm) * -(-n_out // _launch.BN)
-    out = torch.empty((n, m, n_out), dtype=a[0].dtype, device=ctx.device)
+    dt = a[0].dtype
+    items, blocks, flags, ws = plan(n, m, n_out, k, dt,
+                                    blocks=blocks_per_rank)
+    out = torch.empty((n, m, n_out), dtype=dt, device=ctx.device)
     outs = [out[r] for r in range(n)]
-    _launch.launch(ck.GEMM_AR, "gemm_ar", ctx, a, b, outs, (n, m, n_out), m,
-                   tiles, n + n * tiles, (m, n_out, k, 0), blocks_per_rank)
+    _launch.launch(ck.GEMM_AR, "gemm_ar", ctx, a, b, outs, (ws,), m, items,
+                   flags, (m, n_out, k, 0), blocks)
     return outs
 
 
@@ -162,17 +206,18 @@ def gemm_ar_traced(a, b, ctx, tile_n: int,
             f"gemm_ar trace: tile_n={tile_n} must be a multiple of "
             f"{_launch.BN} dividing N={n_out}")
     num_j = n_out // tile_n
-    bm = _launch.tile_rows(m)
-    tiles = -(-m // bm) * -(-n_out // _launch.BN)
-    out = torch.empty((n, m, n_out), dtype=a[0].dtype, device=ctx.device)
+    dt = a[0].dtype
+    # A group's items (tiles_m x tile_n / 64 tiles, bf16: by K atoms) are
+    # the blocks' work in each iteration; the grid and the flag layout
+    # take the one block count.
+    items, blocks, flags, ws = plan(n, m, n_out, k, dt, tile_n,
+                                    blocks_per_rank)
+    out = torch.empty((n, m, n_out), dtype=dt, device=ctx.device)
     outs = [out[r] for r in range(n)]
     ring = torch.zeros((n, num_j + 1, 3, _TRACE_INTS), dtype=torch.int32,
                        device=ctx.device)
-    # Flags: the barrier, the rank-local count (arrivals, generation), the
-    # tiles'. A group (tiles_m x tile_n / 64 tiles) is the blocks' work.
     _launch.launch(ck.GEMM_AR_TRACED, "gemm_ar_traced", ctx, a, b, outs,
-                   (n, m, n_out), m, -(-m // bm) * (tile_n // _launch.BN),
-                   n + 2 + n * tiles, (m, n_out, k, 0), blocks_per_rank,
+                   (ws,), m, items, flags, (m, n_out, k, 0), blocks,
                    aux=[ring[r] for r in range(n)], arg=tile_n)
     return outs, ring
 
