@@ -7523,8 +7523,8 @@ def check_sp(dev):
     all-gather attention kernel (O and LSE) against its plain version on
     every rank's first and last q tile and against the single-card
     ``flash_attention`` over the gathered sequence; f32 at SP_F32_SEQ in
-    full; the zeroed-chunk control; SP_STRESS back-to-back launches; ring
-    attention; the SP decode layer and the distributed decode (bf16 and
+    full; the zeroed-chunk control; SP_STRESS back-to-back launches; the
+    even grid bitwise the grid split by work; ring attention; the SP decode layer and the distributed decode (bf16 and
     int8, pallas and xla); the two-level variants over dp x tp = 2 x 2.
     Returns (records by kernel, launches by path, e2e)."""
     import gc
@@ -7756,20 +7756,46 @@ def check_sp(dev):
           "limit")
     del kc, vc, gk, gv, codes, deq
 
-    # Records at n = 2 (main path) and n = 4. Bound: the causal products of
-    # the whole sequence (every rank shares the card), 4 hq hd S^2 / 2
-    # FLOP, against the bytes (q, K, V read, O and LSE written).
+    # Records at n = 2 (main path) and n = 4: the default grid (split by
+    # each rank's causal work) and the even grid of the same co-resident
+    # blocks, whose outputs must be bitwise the default's. Bound: the
+    # causal products of the whole sequence (every rank shares the card),
+    # 4 hq hd S^2 / 2 FLOP, against the bytes (q, K, V read, O and LSE
+    # written).
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
     flops = 4 * hq * hd * S * (S + 1) / 2
     by = nbytes(q, k, v) + nbytes(q) + hq * S * 4
-    timed = {}
+    g = hq // hkv
+    cap = spmod._capacity[(ck.DTYPE_CODES[torch.bfloat16], g)]
+    timed, even, grids = {}, {}, {}
     for n in SP_RANKS:
         qs, ks, vs, ctx = outs_by_n[n]
+        split = spmod.sp_ag_attention_kernel(qs, ks, vs, ctx,
+                                             sm_scale=hd**-0.5)
+        flat = spmod.sp_ag_attention_kernel(qs, ks, vs, ctx,
+                                            sm_scale=hd**-0.5,
+                                            blocks_per_rank=cap // n)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(split[0] + split[1],
+                                                      flat[0] + flat[1])):
+            raise RuntimeError(f"sp n={n}: the even grid's outputs are not "
+                               "bitwise the split grid's")
+        del split, flat
+        grids[n] = spmod.plan(n, cap, hkv * -(-(S // n) // spmod.q_tile(
+            torch.bfloat16, g)))[0]
         timed[n] = median_ms(
             lambda: spmod.sp_ag_attention_kernel(qs, ks, vs, ctx,
                                                  sm_scale=hd**-0.5), flush)
+        even[n] = median_ms(
+            lambda: spmod.sp_ag_attention_kernel(
+                qs, ks, vs, ctx, sm_scale=hd**-0.5, blocks_per_rank=cap // n),
+            flush)
+    fa_ms = median_ms(lambda: flash_attention(q[None], k[None], v[None],
+                                              causal=True), flush)
+    print(f"[sp] grids: blocks a rank {json.dumps(grids)} (split by work) "
+          f"and {cap} // n (even), outputs bitwise equal; ms "
+          f"{json.dumps(timed)} and {json.dumps(even)}")
     qs, ks, vs, ctx = outs_by_n[SP_RANKS[0]]
-    g = hq // hkv
 
     def plain_by_head():
         # The plain version one q head at a time (its [hq, s_loc, S] f32
@@ -7794,13 +7820,17 @@ def check_sp(dev):
         library_ms=median_ms(lib, flush),
         shape=f"{SP_MODEL} geometry, S={S} causal bf16 over n={SP_RANKS[0]} "
               f"ranks (s_loc {S // SP_RANKS[0]}); ms_by_n "
-              f"{json.dumps(timed)}; flash_attention over the gathered "
-              f"sequence {fa_s * 1e3:.1f} ms of host wall (first call)",
-        ms_by_n=timed, checks=res, f32_use=f32_use, stress_use=stress_use,
-        ring_use=ring, decode_use=dec, two_level_use=two)
+              f"{json.dumps(timed)}, even grid {json.dumps(even)}; "
+              f"flash_attention over the gathered sequence {fa_ms:.4f} ms "
+              f"(first call {fa_s * 1e3:.1f} ms of host wall)",
+        ms_by_n=timed, even_ms_by_n=even, blocks_by_n=grids,
+        flash_attention_ms=fa_ms, checks=res, f32_use=f32_use,
+        stress_use=stress_use, ring_use=ring, decode_use=dec,
+        two_level_use=two)
     print(f"[sp] sp_ag_attention {rec['shape']}: {rec['ms']:.4f} ms, plain "
-          f"{rec['plain_ms']:.4f}, SDPA {rec['library_ms']:.4f}, bound "
-          f"{rec['bound_ms']:.4f} ms ({rec['bound_by']})")
+          f"{rec['plain_ms']:.4f}, SDPA {rec['library_ms']:.4f}, "
+          f"flash_attention {fa_ms:.4f}, bound {rec['bound_ms']:.4f} ms "
+          f"({rec['bound_by']})")
     _paths_launched(launches, SP_PATH_KERNELS)
     del flush, outs_by_n, q, k, v, fa_o, fa_lse
     gc.collect()

@@ -56,6 +56,7 @@ from triton_distributed_tpu_torch.ops.collectives import (
     ll_flags,
     reduce_scatter_2d,
 )
+from triton_distributed_tpu_torch.ops.collectives import _launch
 from triton_distributed_tpu_torch.runtime import initialize_distributed
 
 # The modules (the packages export functions of the same names).
@@ -377,3 +378,61 @@ def test_card_dispatch_takes_the_kernels(monkeypatch):
     assert [(c[0], c[1]) for c in calls] == [
         ("bcast", (3,)), ("pull", (3,)), ("ag", (ctx, None)),
         ("torus", ()), ("ll", (0, ctx, True)), ("ll", (1, ctx, False))]
+
+
+# -- the ring all-gathers' host-side planning (no card needed) -------------
+
+def test_ring_warps_match_the_kernel_source():
+    """``_launch.RING_WARPS`` is the kernel's flagged sub-pieces a block
+    (``kRingWarps``: a warp each)."""
+    import re
+
+    src = (tck.CSRC / "collectives.cu").read_text()
+    threads = int(re.search(r"constexpr int kThreads = (\d+);", src)[1])
+    assert "constexpr int kRingWarps = kThreads / 32;" in src
+    assert _launch.RING_WARPS == threads // 32
+
+
+def _ring_flag_indices(kind, n, blocks):
+    """Every flag a ring launch stores on a rank (``ag_ring_kernel``'s
+    index, transcribed): the barrier's n, then (dir, hop, block, warp)."""
+    dirs = 2 if kind == 2 else 1
+    w_dir = _launch.RING_WARPS // dirs
+    out = list(range(n))
+    for d in range(dirs):
+        for s in range(n - 1):
+            for g in range(blocks):
+                for w in range(w_dir):
+                    out.append(n + ((d * (n - 1) + s) * blocks + g) * w_dir
+                               + w)
+    return out
+
+
+@pytest.mark.parametrize("kind,n,blocks", [(1, 2, 48), (2, 4, 24),
+                                           (1, 3, 5), (2, 3, 1), (2, 2, 7),
+                                           (1, 8, 2)])
+def test_ring_flags_sized_for_every_sub_piece(kind, n, blocks):
+    """One flag a (direction, hop, block, warp), each distinct, all inside
+    ``gather_flags``; the full mesh keeps one a (source, block)."""
+    idx = _ring_flag_indices(kind, n, blocks)
+    assert len(set(idx)) == len(idx)
+    assert max(idx) == tag.gather_flags(kind, n, blocks) - 1
+    assert tag.gather_flags(0, n, blocks) == n + n * blocks
+
+
+@pytest.mark.parametrize("shard_bytes,n,want", [
+    (96 * 2048 * 2, 4, 24),    # the bidir ring's timed shard
+    (192 * 2048 * 2, 2, 48),   # the ring's
+    (128 * 129 * 4, 4, 5),     # the SP decode's [128, 129] f32 partials
+    (60, 2, 1),
+    (1 << 30, 2, 132),         # capped at one block an SM
+])
+def test_ring_grid_is_sized_to_the_bytes(monkeypatch, shard_bytes, n, want):
+    """The rings take ~RING_BLOCK_BYTES of a shard a block, at most what
+    stays co-resident over n ranks and MAX_BLOCKS."""
+    monkeypatch.setitem(_launch._capacity,
+                        (_launch.ALL_GATHER, 2, torch.bfloat16), 1056)
+    assert _launch.blocks(_launch.ALL_GATHER, 2, torch.bfloat16, n,
+                          shard_bytes, None, _launch.RING_BLOCK_BYTES) == want
+    assert _launch.blocks(_launch.ALL_GATHER, 2, torch.bfloat16, n,
+                          shard_bytes, 3, _launch.RING_BLOCK_BYTES) == 3

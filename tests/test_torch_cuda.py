@@ -3468,13 +3468,17 @@ def test_ep_moe_ffn_transports_bitwise_on_card(dev, n, cf, skew, payload):
         EP_CARD_REL
 
 
-# (n, hq, hkv, s_loc, dtype): G 1, 2, 4, 8; s_loc a multiple of every q
-# tile, and not (100, 72, 37).
+# (n, hq, hkv, s_loc, dtype): G 1, 2, 4, 8; n 2, 3, 4; s_loc a multiple of
+# every q tile, and not (100, 72, 37, 1000, 4100: the bf16 items are 128 /
+# G rows a head, the key tiles 64).
 SP_CASES = [
     (2, 8, 8, 128, torch.bfloat16), (4, 8, 4, 100, torch.bfloat16),
     (2, 16, 4, 72, torch.bfloat16), (4, 32, 4, 96, torch.bfloat16),
+    (3, 8, 8, 1000, torch.bfloat16), (2, 16, 8, 1000, torch.bfloat16),
+    (4, 16, 4, 1000, torch.bfloat16), (3, 16, 2, 4100, torch.bfloat16),
     (4, 8, 2, 37, torch.float32), (2, 32, 8, 64, torch.float32),
     (2, 8, 1, 50, torch.float32), (4, 4, 4, 33, torch.float32),
+    (3, 8, 4, 37, torch.float32),
 ]
 
 
@@ -3505,6 +3509,41 @@ def test_sp_ag_attention_kernel_matches_plain(dev, n, hq, hkv, s_loc, dtype):
         torch.testing.assert_close(o[r].float(), po[r].float(), atol=tol,
                                    rtol=0)
         torch.testing.assert_close(lse[r], plse[r], atol=tol, rtol=0)
+
+
+@pytest.mark.parametrize("n,hq,hkv,s_loc,dtype", [
+    (2, 32, 8, 1000, torch.bfloat16), (3, 8, 8, 300, torch.bfloat16),
+    (4, 16, 2, 4100, torch.bfloat16), (3, 8, 2, 100, torch.float32),
+])
+def test_sp_ag_attention_grids_bitwise_equal(dev, n, hq, hkv, s_loc, dtype):
+    """The default grid (split by each rank's causal work) and even grids
+    of ``blocks_per_rank`` (the capacity's share, 3, 1), launched in turn
+    at one flag site: outputs bitwise equal (a row's arithmetic does not
+    depend on its block), and within TOL of the plain version."""
+    spmod = importlib.import_module(
+        "triton_distributed_tpu_torch.ops.attention.sp_ag_attention")
+
+    ctx = _ctx(dev, n, dtype)
+    qs, ks, vs = _sp_inputs(dev, n, hq, hkv, s_loc, dtype, seed=n)
+    key = (ck.DTYPE_CODES[dtype], hq // hkv)
+    split = spmod.sp_ag_attention_kernel(qs, ks, vs, ctx, sm_scale=0.1)
+    cap = spmod._capacity[key]
+    counts = spmod.split_by_work(
+        n, cap, hkv * -(-s_loc // spmod.q_tile(dtype, hq // hkv)))
+    assert counts == sorted(counts) and min(counts) >= 1
+    assert sum(counts) <= cap
+    runs = [spmod.sp_ag_attention_kernel(qs, ks, vs, ctx, sm_scale=0.1,
+                                         blocks_per_rank=b)
+            for b in (cap // n, 3, 1)]
+    torch.cuda.synchronize()
+    for o, lse in runs:
+        assert _bits_equal(o, split[0]) and _bits_equal(lse, split[1])
+    po, plse = spmod.sp_ag_attention_plain(qs, ks, vs, sm_scale=0.1)
+    for r in range(n):
+        torch.testing.assert_close(split[0][r].float(), po[r].float(),
+                                   atol=TOL[dtype], rtol=0)
+        torch.testing.assert_close(split[1][r], plse[r], atol=TOL[dtype],
+                                   rtol=0)
 
 
 def test_sp_ag_attention_back_to_back_and_refusals(dev):
@@ -3625,6 +3664,37 @@ def _nan(n, shape, dtype, dev):
 def _shards(dev, n, shape, dtype, seed):
     rng = np.random.default_rng(seed)
     return [_rand(rng, shape, dtype, dev) for _ in range(n)]
+
+
+# (rows, cols), dtype a rank for the ring all-gathers: the two timed
+# shards, 37 rows (pieces and warp sub-pieces of unequal bytes), the SP
+# decode's 516-byte f32 rows, and 20-byte rows (no 16-byte vectors).
+RING_SHAPES = [((96, 2048), torch.bfloat16), ((192, 2048), torch.bfloat16),
+               ((37, 2048), torch.bfloat16), ((7, 129), torch.float32),
+               ((3, 5), torch.float32)]
+
+
+@pytest.mark.parametrize("shape,dtype", RING_SHAPES)
+@pytest.mark.parametrize("n", [2, 3, 4])
+@pytest.mark.parametrize("name", ["all_gather_ring", "all_gather_bidir_ring"])
+def test_ring_all_gathers_chained_bitwise(dev, name, n, shape, dtype):
+    """100 launches back to back, fresh inputs each, into NaN-filled
+    outputs, on one flag site: every rank's output the shards in rank
+    order, bit for bit (the odd ring n = 3 included)."""
+    ag = _mods()[1]
+    fn, counter = getattr(ag, name), getattr(ck, name.upper())
+    ctx = _ctx(dev, n, dtype)
+    full = (n * shape[0], shape[1])
+    xs = _shards(dev, n, shape, dtype, 7 * n)
+    kept = []
+    before = counter.launches
+    for i in range(100):
+        xs = [x + 1 for x in xs]
+        kept.append((xs, fn(xs, ctx, out=_nan(n, full, dtype, dev))))
+    torch.cuda.synchronize()
+    assert counter.launches == before + 100
+    for xs, got in kept:
+        assert _bits_equal(got, ag.all_gather_plain(xs))
 
 
 @pytest.mark.parametrize("shape,dtype", MOVE_SHAPES)

@@ -299,3 +299,88 @@ def test_distributed_flash_decode_2level_equals_jax(jax_oracles, method):
         np.testing.assert_allclose(o[r].numpy(), want, **TOL)
         np.testing.assert_allclose(o[r].numpy(), jax_oracles["decode_2level"],
                                    **TOL)
+
+
+# -- the kernel launch's host-side planning (no card needed) --------------
+
+tsp = importlib.import_module(
+    "triton_distributed_tpu_torch.ops.attention.sp_ag_attention")
+
+
+def _kernel_block_rank(counts, b):
+    """``csrc/sp_attention.cu`` ``block_rank``, transcribed."""
+    r = 0
+    while b >= counts[r]:
+        b -= counts[r]
+        r += 1
+    return r, b
+
+
+@pytest.mark.parametrize("n,cap", [(1, 132), (2, 132), (3, 132), (4, 132),
+                                   (8, 132), (3, 264), (4, 4), (4, 5),
+                                   (8, 8), (8, 9), (8, 10), (2, 3)])
+def test_sp_split_by_work_shares_the_grid(n, cap):
+    """Each rank's blocks: at least one (a push piece), about its causal
+    share (2r + 1) / n^2 of the grid, non-decreasing in r, summing to at
+    most the co-resident capacity (to all of it when every share is a
+    block or more)."""
+    counts = tsp.split_by_work(n, cap, items=10**6)
+    shares = [cap * (2 * r + 1) / n**2 for r in range(n)]
+    assert len(counts) == n and min(counts) >= 1
+    assert sum(counts) <= cap
+    assert counts == sorted(counts)
+    for c, w in zip(counts, shares):
+        assert c == 1 if w < 1 else abs(c - w) < 1
+    if min(shares) >= 1:
+        assert sum(counts) == cap
+
+
+def test_sp_split_by_work_at_the_measured_grids():
+    """One H100 block an SM (132): n = 2 gives rank 1 three times rank
+    0's blocks, n = 4 the largest remainders to ranks 3 and 1; no rank
+    takes more blocks than it has items; a capacity under n raises."""
+    assert tsp.split_by_work(2, 132, 4096) == [33, 99]
+    assert tsp.split_by_work(4, 132, 2048) == [8, 25, 41, 58]
+    assert tsp.split_by_work(4, 132, 10) == [8, 10, 10, 10]
+    with pytest.raises(ValueError):
+        tsp.split_by_work(4, 3, 100)
+
+
+@pytest.mark.parametrize("counts", [[33, 99], [8, 25, 41, 58], [1, 1, 1],
+                                    [3, 3, 3, 3], [1, 2, 3, 4, 5, 6, 7, 8]])
+def test_sp_block_map_and_flags_follow_the_counts(counts):
+    """Block b is (rank, index) through the prefix of the counts, as the
+    kernel maps it; the flags a rank hold the entry barrier's n and one a
+    push piece of every source (``n + prefix(src) + g``), each distinct
+    and inside the count."""
+    ranks = [r for r, c in enumerate(counts) for _ in range(c)]
+    for b, r in enumerate(ranks):
+        assert _kernel_block_rank(counts, b) == (r, b - sum(counts[:r]))
+    n = len(counts)
+    flags = [n + sum(counts[:src]) + g for src in range(n)
+             for g in range(counts[src])]
+    assert sorted(flags) == list(range(n, tsp.flag_count(counts)))
+
+
+@pytest.mark.parametrize("n,cap,items,bpr,want", [
+    (2, 132, 4096, None, [33, 99]),
+    (4, 132, 2048, 33, [33, 33, 33, 33]),
+    (3, 20, 5, None, [2, 5, 5]),
+    (4, 132, 100, 1, [1, 1, 1, 1]),
+])
+def test_sp_plan_even_and_split_grids(n, cap, items, bpr, want):
+    """``blocks_per_rank`` keeps the even grid; the default is the split
+    by work; the flag count covers either."""
+    counts, n_flags = tsp.plan(n, cap, items, bpr)
+    assert counts == want
+    assert n_flags == n + sum(want)
+
+
+@pytest.mark.parametrize("dtype,tiles", [
+    (torch.bfloat16, {1: 128, 2: 64, 4: 32, 8: 16}),
+    (torch.float32, {1: 16, 2: 8, 4: 4, 8: 2}),
+])
+def test_sp_q_tile_per_group(dtype, tiles):
+    """The items' q rows a head: 128 (head, row) rows over the G heads of
+    a kv head on the tensor cores, 16 on the FMA pipes."""
+    assert {g: tsp.q_tile(dtype, g) for g in tsp.GROUPS} == tiles

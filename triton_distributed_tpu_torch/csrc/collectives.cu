@@ -42,6 +42,11 @@
 // epoch flags of tdt_comm.cuh. Block g of every rank owns piece g of each
 // chunk, so a block only ever waits for block g of its peers: flag (step,
 // piece) per rank, set by the one peer that writes that piece of that step.
+// The ring all-gathers cut a piece further, one flagged sub-piece a warp,
+// and keep every flag at device scope (their time is flag latency, not
+// bytes: a device-scope round trip took 1.5 us on an H100 against 3.8 at
+// system scope, and a __threadfence_system() 2.2, perf/flag_latency.cu);
+// the other kernels keep system scope.
 // A ring hop fuses the add into the put: the sender reads its received
 // slot and its own contribution and writes the rounded sum into the next
 // rank's slot. Element kernels move 16-byte vectors (the wrappers require
@@ -219,24 +224,84 @@ __device__ __forceinline__ void byte_piece(long long a, long long b, int g,
   hi = min(b, lo + per);
 }
 
+// Flagged sub-pieces a block and hop of the ring all-gathers: one a warp.
+constexpr int kRingWarps = kThreads / 32;
+
+// The warp copies `bytes` from src to dst: 16-byte vectors where both are
+// aligned, four loads in flight a lane, bytes for the rest; every read
+// through L2 (a peer may have written it in this launch).
+__device__ __forceinline__ void warp_put(char* dst, const char* src,
+                                         long long bytes) {
+  const int lane = threadIdx.x % 32;
+  long long head = 0;
+  if (((reinterpret_cast<uintptr_t>(dst) | reinterpret_cast<uintptr_t>(src)) &
+       15) == 0) {
+    const long long nv = bytes / 16;
+    uint4* d = reinterpret_cast<uint4*>(dst);
+    const uint4* s = reinterpret_cast<const uint4*>(src);
+    long long i = lane;
+    for (; i + 96 < nv; i += 128) {
+      const uint4 u0 = __ldcg(s + i), u1 = __ldcg(s + i + 32),
+                  u2 = __ldcg(s + i + 64), u3 = __ldcg(s + i + 96);
+      d[i] = u0;
+      d[i + 32] = u1;
+      d[i + 64] = u2;
+      d[i + 96] = u3;
+    }
+    for (; i < nv; i += 32) d[i] = __ldcg(s + i);
+    head = nv * 16;
+  }
+  for (long long i = head + lane; i < bytes; i += 32) dst[i] = __ldcg(src + i);
+}
+
+// The warp's writes are done (all lanes), then one device-scope release
+// store: one launch covers every rank, all on this card.
+__device__ __forceinline__ void warp_signal(uint64_t* flag, uint64_t epoch) {
+  __syncwarp();
+  if (threadIdx.x % 32 == 0) {
+    __threadfence();
+    tdt::st_release_gpu(flag, epoch);
+  }
+}
+
+// Lane 0 acquires the flag at device scope, then the warp goes on.
+__device__ __forceinline__ void warp_wait(const uint64_t* flag,
+                                          uint64_t epoch) {
+  if (threadIdx.x % 32 == 0) tdt::wait_until<false, true>(flag, epoch);
+  __syncwarp();
+}
+
 // Ring (kBidir false) and bidirectional ring. At step s a rank forwards the
 // shard of rank me - s (its own at s = 0) to the right; in the bidir ring
 // the bytes from half_bytes on go left instead (the shard of rank me + s).
-// Flags of rank r: [0, n) the barrier, n + s * G + g clockwise,
-// n + (n - 1 + s) * G + g counter-clockwise.
+// Block g owns piece g of a direction's bytes, cut into one flagged
+// sub-piece a warp (kRingWarps of them; in the bidir ring half the warps
+// go each way), so a sub-piece's next hop starts as soon as it has landed,
+// whatever the rest of the block's piece does. Every flag and the entry
+// barrier are device scope. Flags of rank r: [0, n) the barrier, then
+// n + ((dir * (n - 1) + s) * G + g) * W + w for warp w of W a direction.
 template <bool kBidir>
 __global__ void __launch_bounds__(kThreads)
 ag_ring_kernel(RankPtrs X, RankPtrs O, const int64_t* fl_tab,
                long long shard_bytes, long long half_bytes, int n,
                uint64_t epoch) {
+  constexpr int W = kBidir ? kRingWarps / 2 : kRingWarps;
   const int me = blockIdx.y, g = blockIdx.x, G = gridDim.x;
-  const int right = (me + 1) % n, left = (me + n - 1) % n;
-  const long long cw_end = kBidir ? half_bytes : shard_bytes;
+  const int warp = threadIdx.x / 32;
+  const int dir = kBidir && warp >= W ? 1 : 0, w = warp % W;
   const char* x = tdt::rank_ptr<const char>(X, me);
   char* o_me = tdt::rank_ptr<char>(O, me);
-  long long lo, hi, clo, chi;
-  byte_piece(0, cw_end, g, G, lo, hi);
-  byte_piece(cw_end, shard_bytes, g, G, clo, chi);
+  long long lo, hi, slo, shi;
+  if (dir == 0)
+    byte_piece(0, kBidir ? half_bytes : shard_bytes, g, G, lo, hi);
+  else
+    byte_piece(half_bytes, shard_bytes, g, G, lo, hi);
+  byte_piece(lo, hi, w, W, slo, shi);
+  const int to = dir ? (me + n - 1) % n : (me + 1) % n;
+  const long long base = n + static_cast<long long>(dir) * (n - 1) * G * W;
+  auto flag = [&](int s) {
+    return base + (static_cast<long long>(s) * G + g) * W + w;
+  };
 
   // The own shard lands at its offset (local; no peer touches it).
   {
@@ -244,35 +309,18 @@ ag_ring_kernel(RankPtrs X, RankPtrs O, const int64_t* fl_tab,
     byte_piece(0, shard_bytes, g, G, a, b);
     if (b > a) tdt::put(o_me + me * shard_bytes + a, x + a, b - a);
   }
-  tdt::barrier_all(fl_tab, me, n, epoch, g == 0);
+  tdt::barrier_all<false, true>(fl_tab, me, n, epoch, g == 0);
 
   for (int s = 0; s < n - 1; ++s) {
-    {
-      const int src = (me - s + n) % n;
-      if (s > 0) block_wait(flag_at(fl_tab, me, n + (s - 1) * G + g), epoch);
-      const char* from = s == 0 ? x : o_me + src * shard_bytes;
-      char* to = tdt::rank_ptr<char>(O, right) + src * shard_bytes;
-      if (hi > lo) tdt::put(to + lo, from + lo, hi - lo);
-      block_signal(flag_at(fl_tab, right, n + s * G + g), epoch);
-    }
-    if (kBidir) {
-      const int src = (me + s) % n;
-      const long long base = n + static_cast<long long>(n - 1) * G;
-      if (s > 0) block_wait(flag_at(fl_tab, me, base + (s - 1) * G + g), epoch);
-      const char* from = s == 0 ? x : o_me + src * shard_bytes;
-      char* to = tdt::rank_ptr<char>(O, left) + src * shard_bytes;
-      if (chi > clo) tdt::put(to + clo, from + clo, chi - clo);
-      block_signal(flag_at(fl_tab, left, base + s * G + g), epoch);
-    }
+    const int src = dir ? (me + s) % n : (me - s + n) % n;
+    if (s > 0) warp_wait(flag_at(fl_tab, me, flag(s - 1)), epoch);
+    const char* from = s == 0 ? x : o_me + src * shard_bytes;
+    char* dst = tdt::rank_ptr<char>(O, to) + src * shard_bytes;
+    if (shi > slo) warp_put(dst + slo, from + slo, shi - slo);
+    warp_signal(flag_at(fl_tab, to, flag(s)), epoch);
   }
-  if (threadIdx.x == 0) {
-    tdt::wait_until(flag_at(fl_tab, me, n + (n - 2) * G + g), epoch);
-    if (kBidir)
-      tdt::wait_until(
-          flag_at(fl_tab, me, n + static_cast<long long>(n - 1) * G +
-                                  (n - 2) * G + g),
-          epoch);
-  }
+  if (threadIdx.x % 32 == 0)
+    tdt::wait_until<false, true>(flag_at(fl_tab, me, flag(n - 2)), epoch);
 }
 
 // ---- reduce-scatter --------------------------------------------------------

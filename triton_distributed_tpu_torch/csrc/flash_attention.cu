@@ -115,6 +115,7 @@
 // shuffles, and P·V runs with each lane owning head_dim/32 output columns
 // while p_j is broadcast by shuffle. Its products run on the f32 FMA
 // pipes (67 TFLOP/s peak), far below the tensor cores.
+#include "tdt_attention.cuh"
 #include "tdt_common.cuh"
 #include "tdt_hopper.cuh"
 
@@ -258,22 +259,19 @@ __global__ void __launch_bounds__(kThreads)
 
 namespace tc {
 
+// The tile's products, softmax steps and constants (kD, kKeys, kBox,
+// kTile, kLog2e, kLn2) are tdt_attention.cuh's.
+using namespace tdt::attn;
 using BF16 = __nv_bfloat16;
 
-constexpr int kD = 128;       // head_dim
 constexpr int kRows = 64;     // q rows a block: one wgmma's M
-constexpr int kKeys = 64;     // keys a tile: S's N, P·V's depth
 constexpr int kGroups = 2;    // warpgroups, splitting a q tile's key tiles
 constexpr int kStages = 2;    // K/V tiles in flight a warpgroup
 constexpr int kThreads = 128 * kGroups;
-constexpr int kBox = 64 * 64 * 2;   // [64 rows, 64 columns] bf16: 8 KB
-constexpr int kTile = 2 * kBox;     // [64 rows, 128 columns]: two boxes
 constexpr int kBufs = 1 + kGroups * kStages * 2;  // Q, then K, V a stage
 // 1 KB of slack aligns the tiles to the swizzle's 1024-byte atoms; one
 // mbarrier a buffer.
 constexpr int kSmem = 1024 + kBufs * kTile + 8 * kBufs;
-constexpr float kLog2e = 1.4426950408889634f;
-constexpr float kLn2 = 0.6931471805599453f;
 // The merge stages a warpgroup's acc, m and l, f32 [68][128], in the ring.
 static_assert((kD / 2 + 4) * 128 * 4 <= (kBufs - 1) * kTile,
               "the merge staging reuses the ring");
@@ -331,92 +329,6 @@ __device__ __forceinline__ void load_bias(float (&bv)[32],
     }
 }
 
-// 2^x in one MUFU op (denormal results flush to 0: weight 0).
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&p);
-}
-
-__device__ __forceinline__ float quad_max(float v) {
-  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
-  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float v) {
-  v += __shfl_xor_sync(0xffffffffu, v, 1);
-  return v + __shfl_xor_sync(0xffffffffu, v, 2);
-}
-
-// S = Q K^T for one tile, issued and committed: head_dim in 8 steps of 16;
-// step kk reads 32 bytes into the kk/4-th 64-column box of each operand
-// (8-row groups 1024 B apart).
-__device__ __forceinline__ void issue_qk(float (&s)[32], uint32_t qa,
-                                         uint32_t ka) {
-  tdt::wgmma_fence();
-#pragma unroll
-  for (int kk = 0; kk < kD / 16; ++kk) {
-    const uint32_t off = (kk / 4) * kBox + (kk % 4) * 32;
-    tdt::wgmma_m64n64k16_kk(s, tdt::wgmma_desc(qa + off, 16, 1024),
-                            tdt::wgmma_desc(ka + off, 16, 1024), kk);
-  }
-  tdt::wgmma_commit();
-}
-
-// O += P V for one tile, issued and committed: the 64 keys in 4 steps of
-// 16 (16 rows of 128 B), the second 64 columns of V one box on; P in the
-// A fragment's registers.
-__device__ __forceinline__ void issue_pv(float (&o)[64],
-                                         const uint32_t (&p)[16],
-                                         uint32_t va) {
-  tdt::wgmma_fence();
-#pragma unroll
-  for (int kk = 0; kk < kKeys / 16; ++kk) {
-    const uint32_t a[4] = {p[4 * kk], p[4 * kk + 1], p[4 * kk + 2],
-                           p[4 * kk + 3]};
-    tdt::wgmma_m64n128k16_rs(o, a,
-                             tdt::wgmma_desc(va + kk * 2048, kBox, 1024));
-  }
-  tdt::wgmma_commit();
-}
-
-// The scores of the tile at k0 in log2 units, s * scale2 (+ bias), and
-// their running row maxima; with kMask, -1e30 past the causal limits
-// lim_a, lim_b and -inf (weight 0) past Sk.
-template <bool kBias, bool kMask>
-__device__ __forceinline__ void score_tile(float (&s)[32],
-                                           const float (&bv)[kBias ? 32 : 1],
-                                           float scale2, int k0, int cq,
-                                           int lim_a, int lim_b, int sk,
-                                           float& mx_a, float& mx_b) {
-  const float ninf = -__int_as_float(0x7f800000);
-#pragma unroll
-  for (int j = 0; j < 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      float xa = s[4 * j + e] * scale2, xb = s[4 * j + 2 + e] * scale2;
-      if constexpr (kBias) {
-        xa = fmaf(bv[4 * j + e], kLog2e, xa);
-        xb = fmaf(bv[4 * j + 2 + e], kLog2e, xb);
-      }
-      if constexpr (kMask) {
-        const int c = k0 + 8 * j + cq + e;
-        if (c > lim_a) xa = tdt::kNegInf;
-        if (c > lim_b) xb = tdt::kNegInf;
-        if (c >= sk) xa = xb = ninf;
-      }
-      s[4 * j + e] = xa;
-      s[4 * j + 2 + e] = xb;
-      mx_a = fmaxf(mx_a, xa);
-      mx_b = fmaxf(mx_b, xb);
-    }
-}
-
 // The online softmax of the tile at k0 on the S fragment (rows ra, rb;
 // columns k0 + 8j + cq + {0, 1}), in place and in log2 units (scale2 =
 // sm_scale * log2 e; m is in log2 units too): the per-element masks only
@@ -438,35 +350,7 @@ __device__ __forceinline__ void softmax_tile(
                             mx_b);
   else
     score_tile<kBias, false>(s, bv, scale2, k0, cq, 0, 0, sk, mx_a, mx_b);
-  mx_a = quad_max(mx_a);
-  mx_b = quad_max(mx_b);
-  alpha_a = ex2(m_a - mx_a);
-  alpha_b = ex2(m_b - mx_b);
-  m_a = mx_a;
-  m_b = mx_b;
-  l_a *= alpha_a;
-  l_b *= alpha_b;
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      s[4 * j + e] = ex2(s[4 * j + e] - m_a);
-      s[4 * j + 2 + e] = ex2(s[4 * j + 2 + e] - m_b);
-    }
-    l_a += s[4 * j] + s[4 * j + 1];
-    l_b += s[4 * j + 2] + s[4 * j + 3];
-  }
-}
-
-// P in bf16 pairs, laid out as P·V's A fragment: key pair j of row a,
-// then of row b.
-__device__ __forceinline__ void pack_p(uint32_t (&p)[16],
-                                       const float (&s)[32]) {
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    p[2 * j] = pack_bf16(s[4 * j], s[4 * j + 1]);
-    p[2 * j + 1] = pack_bf16(s[4 * j + 2], s[4 * j + 3]);
-  }
+  softmax_update(s, mx_a, mx_b, m_a, m_b, l_a, l_b, alpha_a, alpha_b);
 }
 
 }  // namespace tc
@@ -570,13 +454,7 @@ __global__ void __launch_bounds__(tc::kThreads, 1)
         load_bias(bv, bias, ra, rb, cq, tile_key(g, i + 1), sq, sk);
     tdt::wgmma_wait<0>();
     tdt::fence_acc(o_acc);
-#pragma unroll
-    for (int j = 0; j < 16; ++j) {
-      o_acc[4 * j] *= alpha_a;
-      o_acc[4 * j + 1] *= alpha_a;
-      o_acc[4 * j + 2] *= alpha_b;
-      o_acc[4 * j + 3] *= alpha_b;
-    }
+    rescale_o(o_acc, alpha_a, alpha_b);
     pack_p(p, s_acc);
     // K(i) and V(i-1) are read: refill their buffers.
     if (i - 1 + kStages < mine) {
@@ -681,23 +559,10 @@ void launch(const AttnArgs& a) {
           a.block_k, a.sm_scale);
 }
 
-// [rows, 128] bf16 rows of `heads` heads ([heads, rows, 128] contiguous)
-// as the tensor-core body's boxes: 64 columns x 64 rows x 1 head in the
-// 128-byte swizzle, zero past `rows`.
+// [rows, 128] bf16 rows of `heads` heads as the tensor-core body's boxes:
+// 64 columns x 64 rows x 1 head, zero past `rows`.
 bool encode_heads(CUtensorMap* map, const void* p, int rows, int heads) {
-  const tdt::EncodeTiled enc = tdt::encode_tiled();
-  if (enc == nullptr) return false;
-  const cuuint64_t dims[3] = {tc::kD, static_cast<cuuint64_t>(rows),
-                              static_cast<cuuint64_t>(heads)};
-  const cuuint64_t strides[2] = {
-      tc::kD * sizeof(tc::BF16),
-      static_cast<cuuint64_t>(rows) * tc::kD * sizeof(tc::BF16)};
-  const cuuint32_t box[3] = {64, tc::kRows, 1};
-  const cuuint32_t unit[3] = {1, 1, 1};
-  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(p),
-             dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  return tdt::attn::encode_rows(map, p, rows, heads, tc::kRows, 1);
 }
 
 // One launch of the tensor-core body; 1 if its shared memory or tensor

@@ -17,9 +17,9 @@
 // loads ld.acquire.sys (system scope: the same code is right across
 // cards); a block publishes its threads' writes with __syncthreads, then
 // thread 0 fences at system scope and stores the flag (the cooperative
-// groups grid-barrier pattern). gemm_ar takes device scope instead (see
-// st_release_gpu). Data a peer wrote is read with ld.cg (L2,
-// never a stale L1 line of an earlier launch).
+// groups grid-barrier pattern). gemm_ar and the ring all-gathers take
+// device scope instead (see st_release_gpu). Data a peer wrote is read
+// with ld.cg (L2, never a stale L1 line of an earlier launch).
 //
 // Every wait traps after kWaitTimeoutNs: a lost block or a protocol
 // error then fails the launch instead of hanging the card.
@@ -174,19 +174,29 @@ __device__ __forceinline__ void put_signal(void* dst, const void* src,
 // block 0 of rank `me` announces its arrival to every rank, and every
 // block waits until all n ranks have arrived before touching a peer's
 // buffer. One launch covers all co-located ranks, so this costs little;
-// it is what separate launches per rank will need.
-template <bool kQuiet = false>
+// it is what separate launches per rank will need. kGpu: the same at
+// device scope (__threadfence, st.release.gpu, ld.acquire.gpu), for a
+// kernel whose one launch covers every rank on one card (the ring
+// all-gathers).
+template <bool kQuiet = false, bool kGpu = false>
 __device__ __forceinline__ void barrier_all(const int64_t* flag_tab, int me,
                                             int n, uint64_t epoch,
                                             bool announce) {
   if (threadIdx.x == 0) {
     if (announce) {
-      __threadfence_system();
-      for (int p = 0; p < n; ++p)
-        st_release_sys(symm_ptr<uint64_t>(flag_tab, p) + me, epoch);
+      if constexpr (kGpu) {
+        __threadfence();
+        for (int p = 0; p < n; ++p)
+          st_release_gpu(symm_ptr<uint64_t>(flag_tab, p) + me, epoch);
+      } else {
+        __threadfence_system();
+        for (int p = 0; p < n; ++p)
+          st_release_sys(symm_ptr<uint64_t>(flag_tab, p) + me, epoch);
+      }
     }
     const uint64_t* mine = symm_ptr<uint64_t>(flag_tab, me);
-    for (int src = 0; src < n; ++src) wait_until<kQuiet>(mine + src, epoch);
+    for (int src = 0; src < n; ++src)
+      wait_until<kQuiet, kGpu>(mine + src, epoch);
   }
   __syncthreads();
 }

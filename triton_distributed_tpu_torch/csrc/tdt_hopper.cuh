@@ -1,8 +1,9 @@
 // Hopper primitives shared by the port's wgmma kernels (sm_90a, PTX ISA
 // 8.0): shared-memory addresses, mbarriers, TMA, cp.async, proxy fences,
 // wgmma and its shared-memory descriptors, and the host's
-// cuTensorMapEncodeTiled lookup. Used by overlap.cu (the ag_gemm and
-// gemm_rs tiles) and flash_attention.cu (the bf16 attention body).
+// cuTensorMapEncodeTiled lookup. Used by overlap.cu (the ag_gemm,
+// gemm_rs and gemm_ar tiles), flash_attention.cu and sp_attention.cu (the
+// bf16 attention bodies, through tdt_attention.cuh).
 //
 // No call may sit in a loop that has a wgmma in flight: ptxas then
 // serializes every wgmma of the kernel (C7510, "wgmma pipeline crossing
@@ -34,6 +35,13 @@ __device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
           smem_u32(bar)),
       "r"(bytes)
       : "memory");
+}
+
+// One plain arrival (a consumer releasing a buffer it has read).
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(
+                   smem_u32(bar))
+               : "memory");
 }
 
 __device__ __forceinline__ bool mbar_try_wait(uint32_t bar, uint32_t parity) {
@@ -107,6 +115,13 @@ __device__ __forceinline__ void cp_async_wait() {
 // proxy's (TMA writes, wgmma reads).
 __device__ __forceinline__ void fence_proxy_async_smem() {
   asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+
+// Orders this thread's generic-proxy view of global memory (a flag just
+// acquired, and the peer's stores it publishes) before its later
+// async-proxy reads (TMA loads) of global memory.
+__device__ __forceinline__ void fence_proxy_async_global() {
+  asm volatile("fence.proxy.async.global;" ::: "memory");
 }
 
 // A wgmma shared-memory descriptor of a 128-byte-swizzled operand: start

@@ -11,7 +11,8 @@ On the card :func:`sp_ag_attention` launches the hand-written kernel
 (``csrc/sp_attention.cu``, replacing ``_sp_ag_attn_kernel`` :39): each
 rank pushes its K/V shard to every later rank's workspace and runs a
 causal flash attention over the chunks as they arrive, in one cooperative
-launch of all ranks. It takes head dim 128 and GQA groups 1, 2, 4 and 8
+launch of all ranks whose grid is split by each rank's causal work
+(:func:`plan`). It takes head dim 128 and GQA groups 1, 2, 4 and 8
 (the Qwen3 presets'), f32 or bf16; other shapes raise ``ValueError``. On
 the CPU it runs :func:`sp_ag_attention_plain`: the shards gathered in
 rank order, then :func:`~triton_distributed_tpu_torch.ops.attention.
@@ -26,6 +27,8 @@ merge: no kernel of its own).
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -84,19 +87,61 @@ def sp_ag_attention_plain(qs, ks, vs, *, sm_scale: float | None = None):
 
 
 def q_tile(dtype: torch.dtype, group: int) -> int:
-    """The kernel's q rows a head a block: 16 (head, row) rows a warp on
-    the tensor cores (4 warps, 8 at G = 8) in bf16, 16 rows a block in
-    f32."""
-    rows = 16 * max(4, group) if dtype == torch.bfloat16 else 16
+    """The kernel's q rows a head an item: 128 (head, row) rows on the
+    tensor cores (two warpgroups of 64) in bf16, 16 a block in f32, over
+    the ``group`` q heads of one kv head."""
+    rows = 128 if dtype == torch.bfloat16 else 16
     return rows // group
+
+
+def split_by_work(n: int, capacity: int, items: int) -> list[int]:
+    """Blocks of each rank in one cooperative launch of ``capacity``
+    co-resident blocks: rank r does (2r + 1) / n^2 of the causal work
+    (``me * s_loc^2`` full chunks and a causal one), so it gets about that
+    share, by largest remainder, at least one block (one push piece) and at
+    most its ``items``. Non-decreasing in r; sums to at most ``capacity``."""
+    if capacity < n:
+        raise ValueError(f"sp_ag_attention: {capacity} co-resident blocks "
+                         f"for {n} ranks")
+    want = [capacity * (2 * r + 1) / n**2 for r in range(n)]
+    counts = [max(1, int(w)) for w in want]
+    spare = capacity - sum(counts)
+    # The largest remainders (the later rank on a tie) take what is left.
+    for r in sorted(range(n), key=lambda r: (want[r] - int(want[r]), r),
+                    reverse=True):
+        if spare <= 0:
+            break
+        if want[r] >= 1:
+            counts[r] += 1
+            spare -= 1
+    while sum(counts) > capacity:  # the floors of 1 overran: take back
+        r = max(range(n), key=lambda r: (counts[r], -r))
+        counts[r] -= 1
+    return [min(c, max(1, items)) for c in counts]
+
+
+def flag_count(counts) -> int:
+    """Flags a rank at the site: the entry barrier's n, then one a push
+    piece of every source (``n + prefix(src) + g``)."""
+    return len(counts) + sum(counts)
+
+
+def plan(n: int, capacity: int, items: int,
+         blocks_per_rank: int | None = None) -> tuple[list[int], int]:
+    """The launch's blocks of each rank and its flags a rank: the split by
+    work, or ``blocks_per_rank`` for every rank (the even grid)."""
+    counts = ([int(blocks_per_rank)] * n if blocks_per_rank is not None
+              else split_by_work(n, capacity, items))
+    return counts, flag_count(counts)
 
 
 def sp_ag_attention_kernel(qs, ks, vs, ctx, *, sm_scale: float,
                            blocks_per_rank: int | None = None):
     """One cooperative launch of the kernel over all ranks: ``(o, lse)``
-    lists. The grid defaults to every co-resident block, split evenly over
-    the ranks (``blocks_per_rank`` overrides it; a grid that cannot be
-    co-resident raises)."""
+    lists. The grid defaults to the co-resident blocks split by each
+    rank's causal work (:func:`split_by_work`); ``blocks_per_rank`` gives
+    every rank that many instead (a grid that cannot be co-resident
+    raises). The two grids give bitwise the same outputs."""
     n = ctx.tp
     hq, s_loc, hd = qs[0].shape
     hkv = ks[0].shape[0]
@@ -118,19 +163,19 @@ def sp_ag_attention_kernel(qs, ks, vs, ctx, *, sm_scale: float,
         _capacity[key] = ck.coresident_blocks(
             "sp_attention", "tdt_sp_ag_attention_capacity", *key)
     items = hkv * -(-s_loc // q_tile(dt, group))
-    blocks = (int(blocks_per_rank) if blocks_per_rank is not None
-              else max(1, min(_capacity[key] // n, items)))
+    counts, n_flags = plan(n, _capacity[key], items, blocks_per_rank)
     ws = ctx.workspace("sp_ag_attention", (n, 2, hkv, s_loc, hd), dt)
-    fs = site_flags(ctx, "sp_ag_attention", n + n * blocks)
+    fs = site_flags(ctx, "sp_ag_attention", n_flags)
     o = torch.empty((n, hq, s_loc, hd), dtype=dt, device=ctx.device)
     lse = torch.empty((n, hq, s_loc), dtype=torch.float32, device=ctx.device)
     os_ = [o[r] for r in range(n)]
     ls = [lse[r] for r in range(n)]
     ck.SP_AG_ATTENTION(
         key[0], group, rank_ptrs(qs), rank_ptrs(ks), rank_ptrs(vs),
-        rank_ptrs(os_), rank_ptrs(ls), ws.table.data_ptr(),
-        fs.flags.table.data_ptr(), n, hkv, s_loc, hd, float(sm_scale),
-        next_epoch(fs), blocks, ck.stream_ptr(qs[0]))
+        rank_ptrs(os_), rank_ptrs(ls), rank_ptrs(list(ws.data)),
+        ws.table.data_ptr(), fs.flags.table.data_ptr(), n, hkv, s_loc, hd,
+        float(sm_scale), next_epoch(fs), (ctypes.c_int * n)(*counts),
+        ck.stream_ptr(qs[0]))
     return os_, ls
 
 

@@ -18,6 +18,10 @@ ALL_GATHER, REDUCE_SCATTER, ALL_REDUCE, MOVE, LOW_LATENCY = 0, 1, 2, 3, 4
 SHIFT, BROADCAST, PULL, TORUS = 0, 1, 2, 3
 # Bytes a block moves, about: small messages take few blocks.
 BLOCK_BYTES = 64 << 10
+# The ring all-gathers' block: one flagged sub-piece a warp (8 a block),
+# ~2 KB a warp and hop, so a hop is a few round trips of a warp's loads.
+RING_BLOCK_BYTES = 16 << 10
+RING_WARPS = 8  # csrc/collectives.cu kRingWarps
 MAX_BLOCKS = 132
 _capacity: dict = {}
 
@@ -34,14 +38,15 @@ def capacity(family: int, kind: int, dtype: torch.dtype) -> int:
 
 
 def blocks(family: int, kind: int, dtype: torch.dtype, n: int,
-           work_bytes: int, blocks_per_rank: int | None = None) -> int:
-    """The grid a rank takes: ~BLOCK_BYTES of ``work_bytes`` a block, at
-    most what stays co-resident over n ranks (an explicit
+           work_bytes: int, blocks_per_rank: int | None = None,
+           block_bytes: int = BLOCK_BYTES) -> int:
+    """The grid a rank takes: ~``block_bytes`` of ``work_bytes`` a block,
+    at most what stays co-resident over n ranks (an explicit
     ``blocks_per_rank`` is passed on as it is; a grid that cannot be
     co-resident is refused by the launch)."""
     if blocks_per_rank is not None:
         return int(blocks_per_rank)
-    want = max(1, -(-int(work_bytes) // BLOCK_BYTES))
+    want = max(1, -(-int(work_bytes) // int(block_bytes)))
     return max(1, min(want, capacity(family, kind, dtype) // n, MAX_BLOCKS))
 
 

@@ -6,8 +6,10 @@ version, a concatenation of the shards (XLA's own ``all_gather``); the
 hand-written kernels of ``csrc/collectives.cu`` are ``PALLAS_FULL_MESH``
 (replacing ``_full_mesh_kernel`` :146), ``PALLAS_RING`` (``_ring_kernel``
 :49) and ``PALLAS_BIDIR_RING`` (``_bidir_ring_kernel`` :93: each shard's
-top half travels right, its bottom half left). They move bytes only, so
-the plain version of every method is the same concatenation.
+top half travels right, its bottom half left). The rings flag each warp's
+sub-piece of a hop at device scope (:func:`gather_flags`). They move
+bytes only, so the plain version of every method is the same
+concatenation.
 
 AUTO is the JAX dispatch (:257-269): on the card the full mesh for n <= 2
 or up to 64 KB a shard, else the bidirectional ring, which becomes the
@@ -69,22 +71,35 @@ def all_gather_plain(xs: list[torch.Tensor]) -> list[torch.Tensor]:
     return [full] + [full.clone() for _ in xs[1:]]
 
 
+def gather_flags(kind: int, n: int, blocks: int) -> int:
+    """Flags a rank of a gather kernel's launch: the entry barrier's n,
+    then the full mesh's one a (source, block), or the rings' one a (hop,
+    block, warp): each block's piece of a hop is ``RING_WARPS`` flagged
+    sub-pieces (split over the two directions in the bidir ring)."""
+    if kind == 0:
+        return n + n * blocks
+    return n + (n - 1) * blocks * _launch.RING_WARPS
+
+
 def _gather_kernel(method: AllGatherMethod, xs, ctx,
-                   blocks_per_rank: int | None) -> list[torch.Tensor]:
-    """One cooperative launch of ``method``'s kernel over all ranks."""
+                   blocks_per_rank: int | None, out=None
+                   ) -> list[torch.Tensor]:
+    """One cooperative launch of ``method``'s kernel over all ranks: the
+    full mesh ~BLOCK_BYTES of a shard a block, the rings
+    ~RING_BLOCK_BYTES; ``out`` (per rank ``[n * m_per, ...]``) receives
+    the result when given."""
     kind, kernel, site = _KERNELS[method]
     n = ctx.tp
     x0 = xs[0]
     _launch.check_operands("x", xs, ctx, elementwise=False)
-    out = torch.empty((n, n * x0.shape[0], *x0.shape[1:]), dtype=x0.dtype,
-                      device=ctx.device)
-    outs = [out[r] for r in range(n)]
+    outs = _launch.outputs("out", (n * x0.shape[0], *x0.shape[1:]),
+                           x0.dtype, ctx, out)
     shard_bytes = x0.numel() * x0.element_size()
     half_bytes = (x0.shape[0] // 2) * (shard_bytes // max(x0.shape[0], 1))
-    blocks = _launch.blocks(_launch.ALL_GATHER, kind, x0.dtype, n,
-                            shard_bytes, blocks_per_rank)
-    per_step = (n - 1) * blocks * (2 if kind == 2 else 1)
-    fs = site_flags(ctx, site, n + max(per_step, n * blocks))
+    blocks = _launch.blocks(
+        _launch.ALL_GATHER, kind, x0.dtype, n, shard_bytes, blocks_per_rank,
+        _launch.BLOCK_BYTES if kind == 0 else _launch.RING_BLOCK_BYTES)
+    fs = site_flags(ctx, site, gather_flags(kind, n, blocks))
     kernel(kind, rank_ptrs(xs), rank_ptrs(outs), fs.flags.table.data_ptr(),
            n, shard_bytes, half_bytes, next_epoch(fs), int(blocks),
            ck.stream_ptr(x0))
@@ -120,19 +135,20 @@ def all_gather_full_mesh(xs: list[torch.Tensor], ctx,
 
 
 def all_gather_ring(xs: list[torch.Tensor], ctx,
-                    blocks_per_rank: int | None = None) -> list[torch.Tensor]:
+                    blocks_per_rank: int | None = None, *,
+                    out=None) -> list[torch.Tensor]:
     """The ring kernel: n - 1 steps, each forwarding one shard right."""
     return _gather_kernel(AllGatherMethod.PALLAS_RING, xs, ctx,
-                          blocks_per_rank)
+                          blocks_per_rank, out)
 
 
 def all_gather_bidir_ring(xs: list[torch.Tensor], ctx,
-                          blocks_per_rank: int | None = None
-                          ) -> list[torch.Tensor]:
+                          blocks_per_rank: int | None = None, *,
+                          out=None) -> list[torch.Tensor]:
     """The bidirectional ring kernel: each shard's first ``m_per // 2``
     rows go right, the rest left."""
     return _gather_kernel(AllGatherMethod.PALLAS_BIDIR_RING, xs, ctx,
-                          blocks_per_rank)
+                          blocks_per_rank, out)
 
 
 def auto_method(nbytes: int, n: int) -> AllGatherMethod:

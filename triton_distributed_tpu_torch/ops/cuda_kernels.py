@@ -347,13 +347,13 @@ EP_EXCHANGE = CudaKernel(
     "ep_exchange", "all_to_all", "tdt_ep_exchange_launch",
     [_I64P, _I64P, _I64P, _I64P, _P, _I, _LL, _LL, _U64, _I, _I, _LL, _P])
 # The sequence-parallel all-gather attention of csrc/sp_attention.cu:
-# dtype, group, host tables of the per-rank q/k/v/o/lse pointers, the
-# workspace's and flags' device tables, n, hkv, s_loc, head dim, softmax
-# scale, epoch, blocks per rank, stream.
+# dtype, group, host tables of the per-rank q/k/v/o/lse and workspace
+# pointers, the workspace's and flags' device tables, n, hkv, s_loc, head
+# dim, softmax scale, epoch, a host array of each rank's blocks, stream.
 SP_AG_ATTENTION = CudaKernel(
     "sp_ag_attention", "sp_attention", "tdt_sp_ag_attention_launch",
-    [_I, _I, _I64P, _I64P, _I64P, _I64P, _I64P, _P, _P, _I, _I, _I, _I, _F,
-     _U64, _I, _P])
+    [_I, _I, _I64P, _I64P, _I64P, _I64P, _I64P, _I64P, _P, _P, _I, _I, _I,
+     _I, _F, _U64, ctypes.POINTER(ctypes.c_int), _P])
 # The byte movers of csrc/collectives.cu, one C entry point whose first
 # argument picks the kernel (0 the pipeline shift, 1 the one-shot
 # broadcast, 2 the pull gather, 3 the 2-D torus gather): kind, host tables
