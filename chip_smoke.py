@@ -8156,13 +8156,15 @@ def check_collectives(dev):
               f"(library: one copy_ into the stacked outputs)")
     # The LL gather beside the full mesh at the same shape: the full mesh
     # at its own grid and at the LL's (what the entry barrier costs).
-    ll_ms, fm_ms, fm_same = {}, {}, {}
+    ll_ms, fm_ms, fm_same, ll_lib, ll_bound = {}, {}, {}, {}, {}
     for k, (c, ws) in ll_ws.items():
         xs_k = shards(k, COLL_LL_ROWS)
         phases = itertools.count(ws.phase + 1)
         ll_ms[k] = median_ms(lambda xs_k=xs_k, c=c, ws=ws, phases=phases:
                              llm.ll_all_gather_kernel(xs_k, ws, next(phases),
                                                       c), flush)
+        ll_lib[k] = median_ms(gather_copy(xs_k), flush)
+        ll_bound[k] = (k + k * k) * nbytes(xs_k[0]) / HBM_BPS * 1e3
         fm_ms[k] = median_ms(lambda xs_k=xs_k, c=c:
                              all_gather_full_mesh(xs_k, c), flush)
         fm_same[k] = median_ms(lambda xs_k=xs_k, c=c, g=ws.blocks:
@@ -8171,7 +8173,8 @@ def check_collectives(dev):
     rec["ll_all_gather"] = dict(
         replaces="triton_distributed_tpu/ops/collectives/low_latency.py:62",
         ms=ll_ms[n], ms_by_n=ll_ms, full_mesh_ms_by_n=fm_ms,
-        full_mesh_ll_grid_ms_by_n=fm_same,
+        full_mesh_ll_grid_ms_by_n=fm_same, library_ms_by_n=ll_lib,
+        bound_ms_by_n=ll_bound,
         blocks_by_n={k: ws.blocks for k, (_, ws) in ll_ws.items()},
         plain_ms=median_ms(lambda: all_gather_plain(xs_ll), flush),
         library_ms=median_ms(gather_copy(xs_ll), flush),
@@ -8190,7 +8193,8 @@ def check_collectives(dev):
           f"broadcast [{COLL_BCAST_ROWS[1]}, {d}] "
           f"{rec['broadcast']['ms_small']:.4f}; ll_all_gather by n "
           f"{json.dumps(ll_ms)} against the full mesh {json.dumps(fm_ms)}, "
-          f"at the LL's grid {json.dumps(fm_same)}")
+          f"at the LL's grid {json.dumps(fm_same)}, library "
+          f"{json.dumps(ll_lib)}, bound {json.dumps(ll_bound)}")
     del flush, sh, bc_in, stacked, dst
     gc.collect()
     torch.cuda.empty_cache()

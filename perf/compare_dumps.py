@@ -3,8 +3,9 @@
 
     python3 perf/compare_dumps.py A.pt B.pt
 
-Reads two files that ``perf/flash_attention_bench.py --dump`` or
-``perf/overlap_gemm_bench.py --dump`` wrote (a dict of name -> list of
+Reads two files that a bench's ``--dump`` wrote
+(``perf/flash_attention_bench.py``, ``perf/overlap_gemm_bench.py``,
+``perf/sp_attention_bench.py``, ``perf/collectives_bench.py``) (a dict of name -> list of
 tensors, the same seeded inputs in both trees) and prints one JSON line a
 name: whether every tensor is bitwise equal, and the largest difference
 where it is not. Exits 1 if a name present in both differs.

@@ -281,16 +281,18 @@ def test_ll_expected_flags_follow_the_phases():
     the last phase of parity p plus one from every peer, 0 from the rank
     itself."""
     ctx = _cpu(3)
-    ws = ll_all_gather_workspace(ctx, 2, 4)
+    ws = ll_all_gather_workspace(ctx, 2, 4, blocks_per_rank=2)
+    w = _launch.RING_WARPS
     want = {-1: (0, 0), 0: (1, 0), 1: (1, 2), 4: (5, 4), 5: (5, 6)}
     for phase, (p0, p1) in want.items():
         ws.phase = phase
         e = ll_expected_flags(ws)
-        assert e.shape == (3, 2, 3, 1)
+        assert e.shape == (3, 2, 3, 2, w)
+        assert e.shape == ll_flags(ws)["acks"].shape
         for r in range(3):
             for c in range(3):
-                assert e[r, 0, c, 0] == (0 if c == r else p0)
-                assert e[r, 1, c, 0] == (0 if c == r else p1)
+                assert (e[r, 0, c] == (0 if c == r else p0)).all()
+                assert (e[r, 1, c] == (0 if c == r else p1)).all()
 
 
 # -- the two-level collectives --------------------------------------------------------
@@ -436,3 +438,129 @@ def test_ring_grid_is_sized_to_the_bytes(monkeypatch, shard_bytes, n, want):
                           shard_bytes, None, _launch.RING_BLOCK_BYTES) == want
     assert _launch.blocks(_launch.ALL_GATHER, 2, torch.bfloat16, n,
                           shard_bytes, 3, _launch.RING_BLOCK_BYTES) == 3
+
+
+# -- the ring reduce-scatters' and the LL gather's host-side planning ------
+
+trs = importlib.import_module(
+    "triton_distributed_tpu_torch.ops.collectives.reduce_scatter")
+
+
+def _kernel_body(src: str, name: str) -> str:
+    """The source of ``__global__`` kernel ``name`` (signature to its
+    closing brace at column 0)."""
+    start = src.index(f"\n{name}(")
+    return src[start:src.index("\n}\n", start)]
+
+
+def _device_fn(src: str, name: str) -> str:
+    start = src.index(f"void {name}(")
+    return src[start:src.index("\n}\n", start)]
+
+
+@pytest.mark.parametrize("kernel,helpers", [
+    ("ag_ring_kernel", ("warp_put", "warp_signal", "warp_wait")),
+    ("rs_ring_kernel", ("warp_add_put", "warp_signal", "warp_wait")),
+    ("ll_ag_kernel", ("warp_copy_k", "warp_signal_k", "warp_wait_k")),
+])
+def test_sub_piece_kernels_flag_a_warp_at_device_scope(kernel, helpers):
+    """The ring all-gathers, the ring reduce-scatters and the LL gather cut
+    a block's piece into ``kRingWarps`` sub-pieces (``_launch.RING_WARPS``,
+    held to the source above) and neither they nor the helpers they signal
+    and wait with hold a system-scope fence, release or acquire, a
+    block-wide flag or a barrier at system scope."""
+    src = (tck.CSRC / "collectives.cu").read_text()
+    body = _kernel_body(src, kernel)
+    assert "kRingWarps" in body
+    assert "tdt::barrier_all(" not in body
+    for text in [body] + [_device_fn(src, h) for h in helpers]:
+        text = text.replace("wait_until<false, true>(", "")
+        for bad in ("__threadfence_system", "_sys(", "block_signal",
+                    "block_wait", "tdt::signal(", "wait_until("):
+            assert bad not in text, (kernel, bad)
+
+
+def _scatter_flag_indices(kind, n, blocks):
+    """Every flag a ring reduce-scatter launch stores on a rank
+    (``rs_ring_kernel``'s index, transcribed): the barrier's n, then
+    (direction, hop, block, warp). The HBM ring (kind 3) runs the ring's
+    kernel: its JAX row tiles are folded into the warps' sub-pieces, so
+    its tile axis is one wide."""
+    dirs = 2 if kind == 2 else 1
+    w_dir = _launch.RING_WARPS // dirs
+    out = list(range(n))
+    for d in range(dirs):
+        for s in range(n - 1):
+            for g in range(blocks):
+                for w in range(w_dir):
+                    out.append(n + ((d * (n - 1) + s) * blocks + g) * w_dir
+                               + w)
+    return out
+
+
+@pytest.mark.parametrize("kind", [1, 2, 3])
+@pytest.mark.parametrize("n,blocks", [(2, 38), (3, 5), (4, 24), (5, 1),
+                                      (8, 132), (7, 3)])
+def test_scatter_ring_flags_sized_for_every_sub_piece(kind, n, blocks):
+    """One flag a (direction, hop, block, warp), each distinct, all inside
+    ``scatter_flags``; the one-shot keeps one a (source, block)."""
+    idx = _scatter_flag_indices(kind, n, blocks)
+    assert len(set(idx)) == len(idx)
+    assert max(idx) == trs.scatter_flags(kind, n, blocks) - 1
+    assert trs.scatter_flags(0, n, blocks) == n + n * blocks
+
+
+@pytest.mark.parametrize("n,blocks", [(2, 1), (4, 28), (8, 60), (3, 7)])
+def test_ll_flags_one_a_sub_piece(n, blocks):
+    """The LL gather's arrival and ACK flags (``ll_ag_kernel``'s index,
+    transcribed): one a (kind, slot, peer, block, warp), each distinct,
+    filling n + 4 n blocks W; ``ll_flags`` reads them with the warp
+    axis."""
+    w_n = _launch.RING_WARPS
+    gw = blocks * w_n
+    idx = list(range(n))
+    for p in range(2):
+        for src in range(n):
+            for g in range(blocks):
+                for w in range(w_n):
+                    sub = g * w_n + w
+                    idx.append(n + (p * n + src) * gw + sub)          # arrival
+                    idx.append(n + (2 * n + p * n + src) * gw + sub)  # ACK
+    assert sorted(idx) == list(range(tll.ll_flag_count(n, blocks)))
+    assert tll.ll_flag_count(n, blocks) == n + 4 * n * blocks * w_n
+    ws = ll_all_gather_workspace(_cpu(n), 2, 4, blocks_per_rank=blocks)
+    assert ws.blocks == blocks
+    assert ws.flags.data.shape == (n, tll.ll_flag_count(n, blocks))
+    for kind in ("arrivals", "acks"):
+        assert ll_flags(ws)[kind].shape == (n, 2, n, blocks, w_n)
+
+
+@pytest.mark.parametrize("kind,n,rows,dtype,want", [
+    (2, 4, 384, torch.bfloat16, 24),    # the bidir ring's timed chunk
+    (1, 2, 300, torch.bfloat16, 38),    # the ring's
+    (3, 2, 1152, torch.bfloat16, 132),  # the HBM ring's: one block an SM
+    (1, 4, 32, torch.float32, 4),       # the stress shape
+    (0, 2, 48, torch.bfloat16, 2),      # the one-shot keeps 64 KB a block
+])
+def test_scatter_grid_is_sized_to_the_bytes(monkeypatch, kind, n, rows,
+                                            dtype, want):
+    """The rings take ~RING_BLOCK_BYTES of a chunk a block (both
+    directions' rows), at most what stays co-resident over n ranks and
+    MAX_BLOCKS; an explicit grid passes through."""
+    monkeypatch.setitem(_launch._capacity,
+                        (_launch.REDUCE_SCATTER, kind, dtype), 1056)
+    chunk = rows // n * 2048 * torch.empty((), dtype=dtype).element_size()
+    assert trs.scatter_grid(kind, dtype, n, chunk) == want
+    assert trs.scatter_grid(kind, dtype, n, chunk, 5) == 5
+
+
+@pytest.mark.parametrize("n,want", [(4, 28), (8, 60), (2, 12)])
+def test_ll_grid_is_sized_to_the_bytes(monkeypatch, n, want):
+    """~RING_BLOCK_BYTES of a rank's (2n - 1) shards of work a block at the
+    timed [8, 4096] bf16 shard; a workspace made for the card takes it."""
+    monkeypatch.setitem(_launch._capacity,
+                        (_launch.LOW_LATENCY, 0, torch.bfloat16), 1056)
+    assert tll.ll_grid(n, 8 * 4096 * 2, torch.bfloat16) == want
+    monkeypatch.setattr(tll, "device_initiable", lambda ctx: True)
+    ws = ll_all_gather_workspace(_cpu(n), 8, 4096, torch.bfloat16)
+    assert ws.blocks == want

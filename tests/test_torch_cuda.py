@@ -3371,18 +3371,18 @@ def test_ep_exchange_straggler_and_back_to_back(dev):
                 assert torch.equal(got[p][s, :c], want[p][s, :c])
     splits, rows, sp, _ = kept[-1]
     rc = [torch.from_numpy(s.copy()).to(dev) for s in splits.T]
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
     times, outs = [], []
     for lag in (0, 500_000):
-        torch.cuda._sleep(1_000_000)  # the launch queues: device time only
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        outs.append(ep_exchange_kernel(rows, sp, rc, ctx,
-                                       straggler_rank=1 if lag else None,
-                                       straggle_nanos=lag))
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
+        def launch(lag=lag):
+            return ep_exchange_kernel(rows, sp, rc, ctx,
+                                      straggler_rank=1 if lag else None,
+                                      straggle_nanos=lag)
+        outs.append(launch())
+        # chip_smoke.check_ep's reading: warm-up launches, then the median
+        # of 5 device-timed launches, each behind a spin kernel.
+        times.append(_chip_smoke().median_ms(launch, flush, iters=5,
+                                             warmup=2))
     assert times[1] - times[0] >= 0.5, times
     for p in range(n):
         for s in range(n):
@@ -3697,6 +3697,46 @@ def test_ring_all_gathers_chained_bitwise(dev, name, n, shape, dtype):
         assert _bits_equal(got, ag.all_gather_plain(xs))
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n", [2, 3, 4])
+@pytest.mark.parametrize("name", ["reduce_scatter_ring",
+                                  "reduce_scatter_bidir_ring",
+                                  "reduce_scatter_ring_hbm"])
+def test_reduce_scatter_rings_chained_bitwise(dev, name, n, dtype):
+    """100 launches back to back on one flag site, fresh inputs each, every
+    output bitwise its plain version (the ring's order and per-hop
+    rounding; the odd ring n = 3 included); then one launch at every grid
+    from 1 block a rank to the most that stays co-resident, each bitwise
+    the default grid's. Rows of 1032 elements and 38-row chunks give
+    pieces and warp sub-pieces of unequal vectors."""
+    from triton_distributed_tpu_torch.ops.collectives import (
+        _launch,
+        reduce_scatter_ring_plain,
+    )
+
+    fn, _, counter = _coll(name)
+    kind = {"reduce_scatter_ring": 1, "reduce_scatter_bidir_ring": 2,
+            "reduce_scatter_ring_hbm": 3}[name]
+    ctx = _ctx(dev, n, dtype)
+    xs = _shards(dev, n, (n * 38, 1032), dtype, 30 + n)
+    half = 19 if kind == 2 else None
+    kept = []
+    before = counter.launches
+    for i in range(100):
+        xs = [x + 1 for x in xs]
+        kept.append((xs, fn(xs, ctx)))
+    torch.cuda.synchronize()
+    assert counter.launches == before + 100
+    for xs_i, got in kept:
+        assert _bits_equal(got, reduce_scatter_ring_plain(xs_i, half))
+    default = kept[-1][1]
+    most = _launch.capacity(_launch.REDUCE_SCATTER, kind, dtype) // n
+    grids = [(g, fn(xs, ctx, blocks_per_rank=g)) for g in range(1, most + 1)]
+    torch.cuda.synchronize()
+    for g, got in grids:
+        assert _bits_equal(got, default), g
+
+
 @pytest.mark.parametrize("shape,dtype", MOVE_SHAPES)
 @pytest.mark.parametrize("n", [2, 4, 8])
 def test_pp_shift_kernel_bitwise_plain(dev, n, shape, dtype):
@@ -3766,18 +3806,21 @@ def test_broadcast_kernel_bitwise_plain(dev, n, shape, dtype):
         assert _bits_equal(got, bc.broadcast_plain(xs, root)), root
 
 
+@pytest.mark.parametrize("blocks", [None, 3])
 @pytest.mark.parametrize("barrier_free", [True, False])
 @pytest.mark.parametrize("shape,dtype", MOVE_SHAPES)
 @pytest.mark.parametrize("n", [2, 4, 8])
 def test_ll_all_gather_kernel_chained_calls(dev, n, shape, dtype,
-                                            barrier_free):
+                                            barrier_free, blocks):
     """20 calls back to back on one workspace, a fresh input each, into
     NaN-filled outputs, every call checked; then every rank's arrival and
-    ACK flags read what the discipline predicts."""
+    ACK flags read what the discipline predicts. At the card's default
+    grid and at 3 blocks a rank (warp sub-pieces of other sizes)."""
     ll = _mods()[3]
     ag = _mods()[1]
     ctx = _ctx(dev, n, dtype)
-    ws = ll.ll_all_gather_workspace(ctx, shape[0], shape[1], dtype)
+    ws = ll.ll_all_gather_workspace(ctx, shape[0], shape[1], dtype,
+                                    blocks_per_rank=blocks)
     full = (n * shape[0], shape[1])
     before = ck.LL_ALL_GATHER.launches
     kept = []

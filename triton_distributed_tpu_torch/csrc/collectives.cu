@@ -42,11 +42,17 @@
 // epoch flags of tdt_comm.cuh. Block g of every rank owns piece g of each
 // chunk, so a block only ever waits for block g of its peers: flag (step,
 // piece) per rank, set by the one peer that writes that piece of that step.
-// The ring all-gathers cut a piece further, one flagged sub-piece a warp,
-// and keep every flag at device scope (their time is flag latency, not
-// bytes: a device-scope round trip took 1.5 us on an H100 against 3.8 at
-// system scope, and a __threadfence_system() 2.2, perf/flag_latency.cu);
-// the other kernels keep system scope.
+// The ring all-gathers, the ring reduce-scatters and the low-latency
+// gather cut a piece further, one flagged sub-piece a warp, and keep every
+// flag and their entry barrier at device scope: their time is flag
+// latency, not bytes (a device-scope round trip took 1.5 us on an H100
+// against 3.8 at system scope, and a __threadfence_system() 2.2,
+// perf/flag_latency.cu), and device scope is right because one launch
+// covers every rank and every rank is on this card. The other kernels
+// keep tdt_comm.cuh's system scope: right here too, only slower, and what
+// one launch a rank on separate cards needs; they move to device scope as
+// each is redesigned, and separate cards would bring every kernel back to
+// system scope.
 // A ring hop fuses the add into the put: the sender reads its received
 // slot and its own contribution and writes the rounded sum into the next
 // rank's slot. Element kernels move 16-byte vectors (the wrappers require
@@ -77,6 +83,8 @@
 //   phase - 1 (the use at phase - 2). With barrier_free 0 an entry barrier
 //   replaces the ACK wait (the JAX interpret-mode variant); the ACKs are
 //   still written, so the two variants may alternate on one workspace.
+//   Each warp runs the discipline for its own sub-piece on its own flags,
+//   the n - 1 peers' pushes, flags and copies at once.
 //
 // C entries: tdt_all_gather_launch (kind 0 full mesh, 1 ring, 2 bidir
 // ring), tdt_reduce_scatter_launch (0 one-shot, 1 ring, 2 bidir ring,
@@ -331,7 +339,7 @@ ag_ring_kernel(RankPtrs X, RankPtrs O, const int64_t* fl_tab,
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 rs_one_shot_kernel(RankPtrs X, RankPtrs O, const int64_t* ws_tab,
-                   const int64_t* fl_tab, long long cnt, long long, long long,
+                   const int64_t* fl_tab, long long cnt, long long /*half*/,
                    int n, uint64_t epoch, int lag_rank, long long lag_ns) {
   constexpr int N = Lanes<T>::N;
   const int me = blockIdx.y, g = blockIdx.x, G = gridDim.x;
@@ -377,92 +385,102 @@ rs_one_shot_kernel(RankPtrs X, RankPtrs O, const int64_t* ws_tab,
   }
 }
 
-// The rings. kMode 0: one ring; 1: two counter-rotating rings (rows from
-// `half` on go left); 2: one ring over row tiles of `tile` vectors, each
-// flagged, so hop s + 1 starts on tile t while hop s adds tile t + 1.
-// Step s: the running sum of chunk me - 1 - s (x's chunk at s = 0, else the
-// received slot s - 1 plus x's chunk, rounded) goes to slot s of the right
-// rank; after n - 1 steps slot n - 2 plus x's own chunk is the output.
-// Flags of rank r: [0, n) barrier; n + (s * tiles + t) * G + g clockwise;
-// n + (n - 1) * tiles * G + s * G + g counter-clockwise.
-template <typename T, int kMode>
+// The warp's share of one ring hop over vectors [lo, hi): x's chunk xc
+// plus, once `wait` reads the epoch (none at the first hop), the received
+// slot rv, summed in f32 and rounded to T, into dst. Four vectors in
+// flight a lane; the first four of x (the launch's own input, final
+// before it started) are loaded before the wait, so they arrive while the
+// flag does.
+template <typename T>
+__device__ __forceinline__ void warp_add_put(uint4* dst, const uint4* xc,
+                                             const uint4* rv, long long lo,
+                                             long long hi,
+                                             const uint64_t* wait,
+                                             uint64_t epoch) {
+  constexpr int N = Lanes<T>::N, U = 4;
+  const int lane = threadIdx.x % 32;
+  long long v = lo + lane;
+  uint4 a[U], b[U];
+#pragma unroll
+  for (int u = 0; u < U; ++u)
+    if (v + 32 * u < hi) a[u] = xc[v + 32 * u];
+  if (wait != nullptr) warp_wait(wait, epoch);
+  for (; v < hi; v += 32 * U) {
+#pragma unroll
+    for (int u = 0; u < U; ++u)
+      if (rv != nullptr && v + 32 * u < hi) b[u] = __ldcg(rv + v + 32 * u);
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      if (v + 32 * u >= hi) continue;
+      float f[N];
+      const T* e = reinterpret_cast<const T*>(&a[u]);
+#pragma unroll
+      for (int i = 0; i < N; ++i) f[i] = to_f32(e[i]);
+      if (rv != nullptr) {
+        const T* r = reinterpret_cast<const T*>(&b[u]);
+#pragma unroll
+        for (int i = 0; i < N; ++i) f[i] += to_f32(r[i]);
+      }
+      store<T>(reinterpret_cast<T*>(dst + v + 32 * u), 0, f);
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u)
+      if (v + 32 * (U + u) < hi) a[u] = xc[v + 32 * (U + u)];
+  }
+}
+
+// The rings: one ring (kBidir false; PALLAS_RING and PALLAS_RING_HBM,
+// whose JAX row tiles the sub-pieces below make finer) and two
+// counter-rotating rings (elements from `half` on go left). Step s: the
+// running sum of chunk me - 1 - s (x's chunk at s = 0, else the received
+// slot s - 1 plus x's chunk, rounded) goes to slot s of the right rank
+// (left: chunk me + 1 + s); after n - 1 steps slot n - 2 plus x's own
+// chunk is the output. Block g owns piece g of a direction's vectors, cut
+// into one flagged sub-piece a warp (kRingWarps of them; in the bidir
+// ring half the warps go each way, both directions at once), so a
+// sub-piece's next hop starts as soon as it has landed, whatever the rest
+// of the block does. Every flag and the entry barrier are device scope.
+// Flags of rank r: [0, n) the barrier, then
+// n + ((dir * (n - 1) + s) * G + g) * W + w for warp w of W a direction.
+template <typename T, bool kBidir>
 __global__ void __launch_bounds__(kThreads)
 rs_ring_kernel(RankPtrs X, RankPtrs O, const int64_t* ws_tab,
-               const int64_t* fl_tab, long long cnt, long long half,
-               long long tile, int n, uint64_t epoch, int lag_rank,
-               long long lag_ns) {
+               const int64_t* fl_tab, long long cnt, long long half, int n,
+               uint64_t epoch, int lag_rank, long long lag_ns) {
+  constexpr int W = kBidir ? kRingWarps / 2 : kRingWarps;
   const int me = blockIdx.y, g = blockIdx.x, G = gridDim.x;
-  const int right = (me + 1) % n, left = (me + n - 1) % n;
-  const long long cw_end = kMode == 1 ? half : cnt;
-  const long long tiles = kMode == 2 ? cnt / tile : 1;
-  const long long seg = kMode == 2 ? tile : cw_end;
-  const long long ccw_base = n + static_cast<long long>(n - 1) * tiles * G;
-  const T* x = tdt::rank_ptr<const T>(X, me);
-  const T* ws_me = tdt::symm_ptr<const T>(ws_tab, me);
-  T* ws_right = tdt::symm_ptr<T>(ws_tab, right);
-  T* ws_left = tdt::symm_ptr<T>(ws_tab, left);
-  constexpr int N = Lanes<T>::N;
+  const int warp = threadIdx.x / 32;
+  const int dir = kBidir && warp >= W ? 1 : 0, w = warp % W;
+  const long long a = dir ? half : 0, b = kBidir && !dir ? half : cnt;
+  long long lo, hi, slo, shi;
+  piece_of(b - a, g, G, lo, hi);
+  piece_of(hi - lo, w, W, slo, shi);
+  slo += a + lo;
+  shi += a + lo;
+  const int to = dir ? (me + n - 1) % n : (me + 1) % n;
+  const long long base = n + static_cast<long long>(dir) * (n - 1) * G * W;
+  auto flag = [&](int s) {
+    return base + (static_cast<long long>(s) * G + g) * W + w;
+  };
+  const uint4* x = tdt::rank_ptr<const uint4>(X, me);
+  const uint4* ws_me = tdt::symm_ptr<const uint4>(ws_tab, me);
+  uint4* ws_to = tdt::symm_ptr<uint4>(ws_tab, to);
 
-  tdt::barrier_all(fl_tab, me, n, epoch, g == 0);
+  tdt::barrier_all<false, true>(fl_tab, me, n, epoch, g == 0);
   straggle(me, lag_rank, lag_ns);
 
-  // One hop of chunk c over vectors [lo, hi): x's chunk (s = 0) or the
-  // received slot s - 1 plus x's chunk, rounded, into `to`'s slot s.
-  auto hop = [&](int s, int c, long long lo, long long hi, T* to) {
-    for (long long v = lo + threadIdx.x; v < hi; v += blockDim.x) {
-      float acc[N];
-      load<T, false>(x, c * cnt + v, acc);
-      if (s > 0) add<T, true>(ws_me, (s - 1) * cnt + v, acc);
-      store<T>(to, s * cnt + v, acc);
-    }
-  };
-
   for (int s = 0; s < n - 1; ++s) {
-    const int c = (me - 1 - s + 2 * n) % n;
-    for (long long t = 0; t < tiles; ++t) {
-      long long lo, hi;
-      piece_of(seg, g, G, lo, hi);
-      lo += t * seg;
-      hi += t * seg;
-      if (s > 0)
-        block_wait(flag_at(fl_tab, me, n + ((s - 1) * tiles + t) * G + g),
-                   epoch);
-      hop(s, c, lo, hi, ws_right);
-      block_signal(flag_at(fl_tab, right, n + (s * tiles + t) * G + g),
-                   epoch);
-    }
-    if (kMode == 1) {
-      const int cc = (me + 1 + s) % n;
-      long long lo, hi;
-      piece_of(cnt - half, g, G, lo, hi);
-      if (s > 0)
-        block_wait(flag_at(fl_tab, me, ccw_base + (s - 1) * G + g), epoch);
-      hop(s, cc, half + lo, half + hi, ws_left);
-      block_signal(flag_at(fl_tab, left, ccw_base + s * G + g), epoch);
-    }
+    const int c = dir ? (me + 1 + s) % n : (me - 1 - s + 2 * n) % n;
+    warp_add_put<T>(ws_to + s * cnt, x + c * cnt,
+                    s > 0 ? ws_me + (s - 1) * cnt : nullptr, slo, shi,
+                    s > 0 ? flag_at(fl_tab, me, flag(s - 1)) : nullptr,
+                    epoch);
+    warp_signal(flag_at(fl_tab, to, flag(s)), epoch);
   }
   // The own chunk: the last received slot plus x's own contribution.
-  T* o = tdt::rank_ptr<T>(O, me);
-  auto finish = [&](long long lo, long long hi) {
-    for (long long v = lo + threadIdx.x; v < hi; v += blockDim.x) {
-      float acc[N];
-      load<T, true>(ws_me, (n - 2) * cnt + v, acc);
-      add<T, false>(x, me * cnt + v, acc);
-      store<T>(o, v, acc);
-    }
-  };
-  for (long long t = 0; t < tiles; ++t) {
-    long long lo, hi;
-    piece_of(seg, g, G, lo, hi);
-    block_wait(flag_at(fl_tab, me, n + ((n - 2) * tiles + t) * G + g), epoch);
-    finish(lo + t * seg, hi + t * seg);
-  }
-  if (kMode == 1) {
-    long long lo, hi;
-    piece_of(cnt - half, g, G, lo, hi);
-    block_wait(flag_at(fl_tab, me, ccw_base + (n - 2) * G + g), epoch);
-    finish(half + lo, half + hi);
-  }
+  warp_add_put<T>(tdt::rank_ptr<uint4>(O, me), x + me * cnt,
+                  ws_me + (n - 2) * cnt, slo, shi,
+                  flag_at(fl_tab, me, flag(n - 2)), epoch);
 }
 
 // ---- all-reduce ------------------------------------------------------------
@@ -719,60 +737,139 @@ torus_kernel(RankPtrs X, RankPtrs O, const int64_t* fl_tab, long long bytes,
             epoch);
 }
 
+// The warp copies k ranges of `len` bytes, range q from src(q) to dst(q),
+// its lanes spread over all k ranges at once (the n - 1 peers of a push go
+// out together): 16-byte vectors, four in flight a lane, when `vec` (every
+// range 16-byte aligned), else bytes; every read through L2 (a peer may
+// have written it in this launch).
+template <typename Src, typename Dst>
+__device__ __forceinline__ void warp_copy_k(int k, long long len, bool vec,
+                                            Src src, Dst dst) {
+  const int lane = threadIdx.x % 32;
+  if (!vec) {
+    for (long long i = lane; i < k * len; i += 32) {
+      const int q = static_cast<int>(i / len);
+      dst(q)[i - q * len] = __ldcg(src(q) + (i - q * len));
+    }
+    return;
+  }
+  const long long nv = len / 16, total = k * nv;
+  auto at = [&](long long i, int& q) {
+    q = static_cast<int>(i / nv);
+    return i - q * nv;
+  };
+  long long i = lane;
+  for (; i + 96 < total; i += 128) {
+    uint4 u[4];
+    int q[4];
+    long long v[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      v[j] = at(i + 32 * j, q[j]);
+      u[j] = __ldcg(reinterpret_cast<const uint4*>(src(q[j])) + v[j]);
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      reinterpret_cast<uint4*>(dst(q[j]))[v[j]] = u[j];
+  }
+  for (; i < total; i += 32) {
+    int q;
+    const long long v = at(i, q);
+    reinterpret_cast<uint4*>(dst(q))[v] =
+        __ldcg(reinterpret_cast<const uint4*>(src(q)) + v);
+  }
+}
+
+// Lanes 0 .. k - 1 of the warp each release flag(q) at device scope once
+// the warp's writes (all lanes) are done.
+template <typename F>
+__device__ __forceinline__ void warp_signal_k(int k, F flag, uint64_t v) {
+  __syncwarp();
+  const int lane = threadIdx.x % 32;
+  if (lane < k) {
+    __threadfence();
+    tdt::st_release_gpu(flag(lane), v);
+  }
+}
+
+// Lanes 0 .. k - 1 each acquire flag(q) >= v at device scope, at once;
+// then the warp goes on.
+template <typename F>
+__device__ __forceinline__ void warp_wait_k(int k, F flag, uint64_t v) {
+  const int lane = threadIdx.x % 32;
+  if (lane < k) tdt::wait_until<false, true>(flag(lane), v);
+  __syncwarp();
+}
+
 // Low-latency gather (low_latency.py _ll_ag_kernel) over the persistent
-// symmetric slots ws [2][n][bytes] a rank. Flags of rank r (values: the
-// caller's phase + 1): [0, n) the barrier (barrier_free 0), then
-// n + (p * n + src) * G + g: src's piece g arrived in slot p; then
-// n + (2 + p) * n * G + c * G + g: consumer c's ACK of r's piece g in p.
+// symmetric slots ws [2][n][bytes] a rank. Block g owns piece g of the
+// shard, cut into one sub-piece a warp (kRingWarps of them), and each
+// warp runs the whole discipline for its sub-piece on its own flags: wait
+// the n - 1 ACKs of slot p (one lane a peer, at once), push into the n - 1
+// peers' slot (p, me) in one pass, release the n - 1 arrival flags, copy
+// its own shard while they travel, wait the n - 1 arrivals (a lane each),
+// copy them out in one pass and release the n - 1 ACKs. One launch covers
+// every rank, so every flag is device scope and no fence is system-wide.
+// Flags of rank r (values: the caller's phase + 1): [0, n) the barrier
+// (barrier_free 0); then n + ((p * n + src) * G + g) * W + w: src's
+// sub-piece (g, w) arrived in slot p; then
+// n + 2 * n * G * W + ((p * n + c) * G + g) * W + w: consumer c's ACK of
+// r's sub-piece (g, w) in slot p.
 __global__ void __launch_bounds__(kThreads)
 ll_ag_kernel(RankPtrs X, RankPtrs O, const int64_t* ws_tab,
              const int64_t* fl_tab, long long bytes, int n, uint64_t phase,
              int barrier_free) {
+  constexpr int W = kRingWarps;
   const int me = blockIdx.y, g = blockIdx.x, G = gridDim.x;
+  const int w = threadIdx.x / 32;
   const int p = static_cast<int>(phase & 1);
   const uint64_t v = phase + 1;
-  const long long arr = n + static_cast<long long>(p) * n * G;
-  const long long ack = n + static_cast<long long>(2 + p) * n * G;
-  long long lo, hi;
+  const long long gw = static_cast<long long>(G) * W;
+  const long long sub = static_cast<long long>(g) * W + w;
+  auto arr = [&](int src) { return n + (p * n + src) * gw + sub; };
+  auto ack = [&](int c) { return n + (2 * n + p * n + c) * gw + sub; };
+  auto peer = [&](int q) { return (me + 1 + q) % n; };
+  long long lo, hi, slo, shi;
   byte_piece(0, bytes, g, G, lo, hi);
-  const char* x = tdt::rank_ptr<const char>(X, me) + lo;
-  char* o = tdt::rank_ptr<char>(O, me);
+  byte_piece(lo, hi, w, W, slo, shi);
+  const long long len = shi - slo;
+  const char* x = tdt::rank_ptr<const char>(X, me) + slo;
+  char* o = tdt::rank_ptr<char>(O, me) + slo;
+  const char* ws = tdt::symm_ptr<const char>(ws_tab, me) + slo;
+  const bool vec = ((bytes | reinterpret_cast<uintptr_t>(x) |
+                     reinterpret_cast<uintptr_t>(o) |
+                     reinterpret_cast<uintptr_t>(ws)) & 15) == 0;
+  const long long mine = (static_cast<long long>(p) * n + me) * bytes;
 
   if (barrier_free) {
     // Slot p's use at phase - 2 consumed by every peer before overwriting.
-    if (phase >= 2 && threadIdx.x == 0)
-      for (int q = 1; q < n; ++q)
-        tdt::wait_until(flag_at(fl_tab, me, ack + ((me + q) % n) * G + g),
-                        phase - 1);
-    __syncthreads();
+    if (phase >= 2)
+      warp_wait_k(n - 1, [&](int q) {
+        return flag_at(fl_tab, me, ack(peer(q)));
+      }, phase - 1);
   } else {
-    tdt::barrier_all(fl_tab, me, n, v, g == 0);
+    tdt::barrier_all<false, true>(fl_tab, me, n, v, g == 0);
   }
-  // Push into every peer's persistent slot (p, me).
-  for (int q = 1; q < n; ++q)
-    copy_bytes(tdt::symm_ptr<char>(ws_tab, (me + q) % n) +
-                   (p * n + me) * bytes + lo,
-               x, hi - lo);
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    __threadfence_system();
-    for (int q = 1; q < n; ++q)
-      tdt::st_release_sys(flag_at(fl_tab, (me + q) % n, arr + me * G + g), v);
-  }
-  copy_bytes(o + me * bytes + lo, x, hi - lo);
+  // Push into every peer's persistent slot (p, me), then the arrivals.
+  warp_copy_k(n - 1, len, vec, [&](int) { return x; }, [&](int q) {
+    return tdt::symm_ptr<char>(ws_tab, peer(q)) + mine + slo;
+  });
+  warp_signal_k(n - 1, [&](int q) {
+    return flag_at(fl_tab, peer(q), arr(me));
+  }, v);
+  // The own shard while the peers' arrive.
+  warp_copy_k(1, len, vec, [&](int) { return x; },
+              [&](int) { return o + me * bytes; });
   // Wait the n - 1 arrivals of slot p, assemble, ACK every producer.
-  const char* ws = tdt::symm_ptr<const char>(ws_tab, me);
-  for (int q = 1; q < n; ++q) {
-    const int src = (me + q) % n;
-    block_wait(flag_at(fl_tab, me, arr + src * G + g), v);
-    copy_bytes(o + src * bytes + lo, ws + (p * n + src) * bytes + lo, hi - lo);
-  }
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    __threadfence_system();
-    for (int q = 1; q < n; ++q)
-      tdt::st_release_sys(flag_at(fl_tab, (me + q) % n, ack + me * G + g), v);
-  }
+  warp_wait_k(n - 1, [&](int q) {
+    return flag_at(fl_tab, me, arr(peer(q)));
+  }, v);
+  warp_copy_k(n - 1, len, vec, [&](int q) {
+    return ws + (static_cast<long long>(p) * n + peer(q)) * bytes;
+  }, [&](int q) { return o + peer(q) * bytes; });
+  warp_signal_k(n - 1, [&](int q) {
+    return flag_at(fl_tab, peer(q), ack(me));
+  }, v);
 }
 
 // ---- launch ----------------------------------------------------------------
@@ -800,9 +897,9 @@ template <typename T>
 const void* rs_fn_t(int kind) {
   switch (kind) {
     case 0: return reinterpret_cast<const void*>(&rs_one_shot_kernel<T>);
-    case 1: return reinterpret_cast<const void*>(&rs_ring_kernel<T, 0>);
-    case 2: return reinterpret_cast<const void*>(&rs_ring_kernel<T, 1>);
-    case 3: return reinterpret_cast<const void*>(&rs_ring_kernel<T, 2>);
+    case 1:
+    case 3: return reinterpret_cast<const void*>(&rs_ring_kernel<T, false>);
+    case 2: return reinterpret_cast<const void*>(&rs_ring_kernel<T, true>);
     default: return nullptr;
   }
 }
@@ -881,8 +978,8 @@ int tdt_move_launch(int kind, const int64_t* x, const int64_t* o,
 
 // The low-latency gather: x[r] (`bytes`) into o[r] at r * bytes through
 // the symmetric slots ws_tab ([2][n][bytes] a rank) and flags fl_tab
-// (n + 4 * n * blocks_per_rank a rank, zeroed once, blocks_per_rank fixed
-// for the workspace), at the caller's phase counter.
+// (n + 4 * n * blocks_per_rank * kRingWarps a rank, zeroed once,
+// blocks_per_rank fixed for the workspace), at the caller's phase counter.
 int tdt_ll_all_gather_launch(const int64_t* x, const int64_t* o,
                              const int64_t* ws_tab, const int64_t* fl_tab,
                              int n, long long bytes, unsigned long long phase,
@@ -913,23 +1010,23 @@ int tdt_all_gather_launch(int kind, const int64_t* x, const int64_t* o,
 
 // Reduce-scatter: x[r] holds n chunks of `cnt` elements, o[r] receives
 // the reduced chunk r. kind 0 one-shot, 1 ring, 2 bidir ring (elements
-// from `half` on go counter-clockwise), 3 HBM ring (tiles of `tile`
-// elements). ws_tab: the symmetric workspace (n or n - 1 chunks a rank).
-// lag_rank >= 0 lags that rank's blocks lag_ns before their first put.
+// from `half` on go counter-clockwise), 3 HBM ring (the ring's kernel: its
+// sub-pieces are finer than the JAX row tiles). ws_tab: the symmetric
+// workspace (n or n - 1 chunks a rank). lag_rank >= 0 lags that rank's
+// blocks lag_ns before their first put.
 int tdt_reduce_scatter_launch(int kind, int dtype, const int64_t* x,
                               const int64_t* o, const int64_t* ws_tab,
                               const int64_t* fl_tab, int n, long long cnt,
-                              long long half, long long tile,
-                              unsigned long long epoch, int blocks_per_rank,
-                              int lag_rank, long long lag_ns, void* stream) {
+                              long long half, unsigned long long epoch,
+                              int blocks_per_rank, int lag_rank,
+                              long long lag_ns, void* stream) {
   const long long lanes = dtype == 0 ? 4 : 8;
-  if (cnt % lanes || half % lanes || tile < lanes || tile % lanes ||
-      cnt % tile || half > cnt)
+  if (cnt % lanes || half % lanes || half > cnt)
     return cudaErrorInvalidValue;
-  long long cv = cnt / lanes, hv = half / lanes, tv = tile / lanes;
+  long long cv = cnt / lanes, hv = half / lanes;
   RankPtrs px = tdt::to_ptrs(x, n), po = tdt::to_ptrs(o, n);
   uint64_t ep = epoch;
-  void* args[] = {&px, &po, &ws_tab, &fl_tab, &cv, &hv, &tv,
+  void* args[] = {&px, &po, &ws_tab, &fl_tab, &cv, &hv,
                   &n, &ep, &lag_rank, &lag_ns};
   return coop_launch(rs_fn(kind, dtype), n, blocks_per_rank, args, stream);
 }

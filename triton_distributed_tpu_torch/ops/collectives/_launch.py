@@ -18,8 +18,9 @@ ALL_GATHER, REDUCE_SCATTER, ALL_REDUCE, MOVE, LOW_LATENCY = 0, 1, 2, 3, 4
 SHIFT, BROADCAST, PULL, TORUS = 0, 1, 2, 3
 # Bytes a block moves, about: small messages take few blocks.
 BLOCK_BYTES = 64 << 10
-# The ring all-gathers' block: one flagged sub-piece a warp (8 a block),
-# ~2 KB a warp and hop, so a hop is a few round trips of a warp's loads.
+# The block of the kernels that flag one sub-piece a warp (8 a block): the
+# ring all-gathers and reduce-scatters (~2 KB a warp and hop, so a hop is a
+# few round trips of a warp's loads) and the low-latency gather.
 RING_BLOCK_BYTES = 16 << 10
 RING_WARPS = 8  # csrc/collectives.cu kRingWarps
 MAX_BLOCKS = 132

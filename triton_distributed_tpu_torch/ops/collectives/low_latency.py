@@ -26,6 +26,13 @@ A phase that does not advance by one on its workspace raises
 launches of one stream never overlap, so the ACK wait never blocks there;
 what the card can show of the discipline is the flag values it leaves
 behind (:func:`ll_flags` against :func:`ll_expected_flags`).
+
+On the card each warp runs the discipline for one sub-piece of its
+block's piece of the shard, with its own arrival and ACK flags at device
+scope (one launch covers every co-located rank): the n - 1 pushes, flags
+and copies of a warp go out at once, and the own copy runs while the
+arrivals travel. The grid is ~``_launch.RING_BLOCK_BYTES`` of a rank's
+work a block, fixed with the flags when the workspace is made.
 """
 
 from __future__ import annotations
@@ -50,8 +57,9 @@ from triton_distributed_tpu_torch.ops.common import (
 class LLWorkspace:
     """The persistent state of one low-latency gather site: ``slots``
     (``[2, n, m_per, lanes]`` a rank), ``flags`` (``n`` barrier flags,
-    then arrivals ``[2, n, blocks]`` and ACKs ``[2, n, blocks]`` a rank),
-    the grid fixed for its flags, and the last phase run (-1: none)."""
+    then arrivals ``[2, n, blocks, RING_WARPS]`` and ACKs of the same
+    shape a rank), the grid fixed for its flags, and the last phase run
+    (-1: none)."""
 
     slots: object    # SymmBuffer
     flags: object    # SymmBuffer of int64 (read as uint64 on the device)
@@ -62,23 +70,36 @@ class LLWorkspace:
     phase: int = -1
 
 
+def ll_flag_count(n: int, blocks: int) -> int:
+    """Flags a rank: the barrier's n, then an arrival and an ACK flag a
+    (slot, peer, block, warp)."""
+    return n + 4 * n * blocks * _launch.RING_WARPS
+
+
+def ll_grid(n: int, shard_bytes: int, dtype: torch.dtype) -> int:
+    """The card's grid a rank: ~RING_BLOCK_BYTES of a rank's work a block
+    (its shard pushed to n - 1 slots, n shards copied out)."""
+    return _launch.blocks(_launch.LOW_LATENCY, 0, dtype, n,
+                          (2 * n - 1) * shard_bytes, None,
+                          _launch.RING_BLOCK_BYTES)
+
+
 def ll_all_gather_workspace(ctx, m_per: int, lanes: int,
-                            dtype: torch.dtype = torch.float32
+                            dtype: torch.dtype = torch.float32,
+                            blocks_per_rank: int | None = None
                             ) -> LLWorkspace:
     """A fresh workspace for ``[m_per, lanes]`` shards of ``dtype`` over
-    the context's ranks, zeroed."""
+    the context's ranks, zeroed; its grid ``blocks_per_rank`` (default: 1
+    on the CPU, :func:`ll_grid` on the card)."""
     n = ctx.tp
-    blocks = 1
-    if device_initiable(ctx) and n > 1:
-        # A rank's work: its shard pushed to n - 1 slots, n shards copied
-        # out (~BLOCK_BYTES a block, as every collective's grid).
+    blocks = 1 if blocks_per_rank is None else int(blocks_per_rank)
+    if blocks_per_rank is None and device_initiable(ctx) and n > 1:
         shard = m_per * lanes * torch.empty((), dtype=dtype).element_size()
-        blocks = _launch.blocks(_launch.LOW_LATENCY, 0, dtype, n,
-                                (2 * n - 1) * shard)
+        blocks = ll_grid(n, shard, dtype)
     return LLWorkspace(
         ctx.symm_empty((2, n, m_per, lanes), dtype, zero=True),
-        ctx.symm_empty((n + 4 * n * blocks,), torch.int64, zero=True),
-        int(m_per), int(lanes), dtype, int(blocks))
+        ctx.symm_empty((ll_flag_count(n, blocks),), torch.int64, zero=True),
+        int(m_per), int(lanes), dtype, blocks)
 
 
 def _advance(ws: LLWorkspace, phase) -> int:
@@ -155,22 +176,22 @@ def ll_all_gather_op(x: torch.Tensor, steps: int, ctx) -> torch.Tensor:
 
 
 def ll_flags(ws: LLWorkspace) -> dict[str, torch.Tensor]:
-    """The workspace's flags as read back: ``arrivals[r, p, src, g]`` (src's
-    piece g arrived in rank r's slot p) and ``acks[r, p, c, g]`` (consumer c
-    took rank r's piece g from its slot p), each the phase + 1 of the last
-    call that set it."""
+    """The workspace's flags as read back: ``arrivals[r, p, src, g, w]``
+    (src's sub-piece (g, w) arrived in rank r's slot p) and ``acks[r, p, c,
+    g, w]`` (consumer c took rank r's sub-piece (g, w) from its slot p),
+    each the phase + 1 of the last call that set it."""
     data = ws.flags.data
-    n, g = data.shape[0], ws.blocks
-    body = data[:, n:n + 4 * n * g].reshape(n, 2, 2, n, g)
+    n, g, w = data.shape[0], ws.blocks, _launch.RING_WARPS
+    body = data[:, n:ll_flag_count(n, g)].reshape(n, 2, 2, n, g, w)
     return {"arrivals": body[:, 0], "acks": body[:, 1]}
 
 
 def ll_expected_flags(ws: LLWorkspace) -> torch.Tensor:
     """What the discipline leaves in both flag kinds after the calls up to
-    ``ws.phase``: at ``[r, p, c, g]``, the last phase of slot p plus one
+    ``ws.phase``: at ``[r, p, c, g, w]``, the last phase of slot p plus one
     (0 if slot p was never used) for every peer c, and 0 at c = r."""
     n, g = ws.flags.data.shape[0], ws.blocks
-    want = torch.zeros((n, 2, n, g), dtype=torch.int64)
+    want = torch.zeros((n, 2, n, g, _launch.RING_WARPS), dtype=torch.int64)
     for p in range(2):
         last = ws.phase - ((ws.phase - p) % 2)
         if last >= 0:

@@ -14,8 +14,14 @@ Counterpart of ``triton_distributed_tpu/ops/collectives/reduce_scatter.py``:
 - ``PALLAS_BIDIR_RING`` (``_bidir_ring_rs_kernel`` :89): the same with
   the rows from ``m_per // 2`` on reduced by a counter-clockwise ring;
 - ``PALLAS_RING_HBM`` (``_ring_rs_hbm_kernel`` :191): the ring's
-  arithmetic over row tiles of at most 1 MB (``_RS_TILE_BUDGET``), each
-  tile flagged.
+  arithmetic over row tiles of at most 1 MB, each tile flagged. On the
+  card it launches the ring's kernel: the rings flag one sub-piece a warp
+  (:func:`scatter_flags`), finer than those tiles, so each sub-piece's
+  next hop already starts as soon as it lands.
+
+The rings run both directions at once and keep every flag at device
+scope (one launch covers every co-located rank), with a grid of
+~``_launch.RING_BLOCK_BYTES`` of a chunk a block.
 
 ``XLA`` is the plain psum-scatter: the partials summed in f32 in rank
 order and rounded once (the one-shot's arithmetic). Each kernel's plain
@@ -50,7 +56,6 @@ _RS_ONE_SHOT_MAX_BYTES = 256 * 1024
 # The JAX package's VMEM_COMM_MAX_BYTES (ops/common.py:36): where its AUTO
 # hands the ring over to the HBM-slot ring.
 _RS_RING_MAX_BYTES = 4 * 1024 * 1024
-_RS_TILE_BUDGET = 1024 * 1024
 
 
 class ReduceScatterMethod(enum.Enum):
@@ -117,15 +122,24 @@ def reduce_scatter_ring_plain(xs: list[torch.Tensor],
     return out
 
 
-def hbm_tile_rows(m_per: int, row_bytes: int) -> int:
-    """The HBM ring's row tile (``reduce_scatter.py:374-380``): halved from
-    ``m_per`` while over 1 MB and above 8 rows, then until it divides."""
-    tile = m_per
-    while tile > 8 and tile * row_bytes > _RS_TILE_BUDGET:
-        tile //= 2
-    while m_per % tile:
-        tile //= 2
-    return tile
+def scatter_flags(kind: int, n: int, blocks: int) -> int:
+    """Flags a rank of a reduce-scatter launch of C ``kind`` over ``blocks``
+    a rank: the barrier's ``n``, then the one-shot's one a (source, block),
+    or the rings' one a (direction, hop, block, warp): each block's piece
+    of a hop is ``RING_WARPS`` flagged sub-pieces (the bidirectional ring's
+    half each way)."""
+    if kind == 0:
+        return n + n * blocks
+    return n + (n - 1) * blocks * _launch.RING_WARPS
+
+
+def scatter_grid(kind: int, dtype: torch.dtype, n: int, chunk_bytes: int,
+                 blocks_per_rank: int | None = None) -> int:
+    """Blocks a rank of C ``kind``: ~BLOCK_BYTES of a chunk a block for the
+    one-shot, ~RING_BLOCK_BYTES for the rings (``_launch.blocks``)."""
+    return _launch.blocks(
+        _launch.REDUCE_SCATTER, kind, dtype, n, chunk_bytes, blocks_per_rank,
+        _launch.BLOCK_BYTES if kind == 0 else _launch.RING_BLOCK_BYTES)
 
 
 def reduce_scatter_kernel(method: ReduceScatterMethod, xs, ctx, *,
@@ -142,22 +156,16 @@ def reduce_scatter_kernel(method: ReduceScatterMethod, xs, ctx, *,
     cols = x0[0].numel()
     cnt = m_per * cols
     half = (m_per // 2 if kind == 2 else m_per) * cols
-    tile = (hbm_tile_rows(m_per, cols * x0.element_size()) * cols
-            if kind == 3 else cnt)
     out = torch.empty((n, m_per, *x0.shape[1:]), dtype=x0.dtype,
                       device=ctx.device)
     outs = [out[r] for r in range(n)]
-    chunk_bytes = cnt * x0.element_size()
-    blocks = _launch.blocks(_launch.REDUCE_SCATTER, kind, x0.dtype, n,
-                            chunk_bytes, blocks_per_rank)
+    blocks = scatter_grid(kind, x0.dtype, n, cnt * x0.element_size(),
+                          blocks_per_rank)
     ws = ctx.workspace(site, (n if kind == 0 else n - 1, cnt), x0.dtype)
-    per_step = (cnt // tile) * blocks
-    flags = n + (n * blocks if kind == 0 else 2 * (n - 1) * per_step)
-    fs = site_flags(ctx, site, flags)
+    fs = site_flags(ctx, site, scatter_flags(kind, n, blocks))
     kernel(kind, ck.DTYPE_CODES[x0.dtype], rank_ptrs(xs), rank_ptrs(outs),
            ws.table.data_ptr(), fs.flags.table.data_ptr(), n, cnt, half,
-           tile, next_epoch(fs), int(blocks), lag[0], lag[1],
-           ck.stream_ptr(x0))
+           next_epoch(fs), int(blocks), lag[0], lag[1], ck.stream_ptr(x0))
     return outs
 
 

@@ -308,11 +308,11 @@ ALL_GATHER_BIDIR_RING = CudaKernel(
     "all_gather_bidir_ring", "collectives", "tdt_all_gather_launch",
     _AG_ARGS)
 # Reduce-scatter (one-shot, ring, bidir ring, HBM ring): kind, dtype, the
-# x/o pointer tables, the workspace's and flags' device tables, n, chunk,
-# bidir split and tile (elements), epoch, blocks per rank, the lagging
-# rank (-1: none) and its lag in ns, stream.
-_RS_ARGS = [_I, _I, _I64P, _I64P, _P, _P, _I, _LL, _LL, _LL, _U64, _I, _I,
-            _LL, _P]
+# x/o pointer tables, the workspace's and flags' device tables, n, chunk
+# and bidir split (elements), epoch, blocks per rank, the lagging rank
+# (-1: none) and its lag in ns, stream.
+_RS_ARGS = [_I, _I, _I64P, _I64P, _P, _P, _I, _LL, _LL, _U64, _I, _I, _LL,
+            _P]
 REDUCE_SCATTER_ONE_SHOT = CudaKernel(
     "reduce_scatter_one_shot", "collectives", "tdt_reduce_scatter_launch",
     _RS_ARGS)
