@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Time the ring reduce-scatters and the low-latency all-gather on one GPU.
+"""Time the reduce-scatters, the doubling all-reduce and the low-latency
+all-gather on one GPU.
 
     python3 perf/collectives_bench.py [--root DIR] [--iters 15] [--tag T]
         [--dump FILE] [--no-sweep]
@@ -17,6 +18,12 @@ card:
   version (the ring's order and roundings), the PyTorch call
   (``torch.stack(xs).sum(0)``) and the bound (every rank's input read
   once and its chunk written once, over 3.35 TB/s);
+- ``reduce_scatter_one_shot`` at [48, 2048] a rank and
+  ``all_reduce_doubling`` at [112, 2048] (``MOE_TP_TIMED``), each at n = 2
+  and 4, beside its plain version (the one-shot's source order, the
+  doubling's rounded partner sums), ``torch.stack(xs).sum(0)`` and the
+  bound (the one-shot as the rings; the all-reduce n inputs read and n
+  outputs written), with the grid the tree's launcher takes;
 - ``ll_all_gather`` at [8, 4096] a rank, n = 4 and 8, chained calls on
   one workspace, beside the full-mesh gather at its own grid and at the
   LL's, the plain gather (``torch.cat``), the PyTorch call (one ``copy_``
@@ -29,13 +36,13 @@ Each time is ``chip_smoke.median_ms``'s reading: the median of
 ``--iters`` CUDA-event timings, the L2 cache flushed and a spin kernel
 ahead of each launch, after 3 warm-up calls. One JSON line a
 measurement; first the card's name and power limit, then the ptxas
-lines (registers, stack, spills) of every build of the two kernels.
+lines (registers, stack, spills) of every build of the four kernels.
 ``--dump FILE`` saves the outputs at ``chip_smoke.py``'s check shapes
-(the three rings at n = 2 and 4, f32 and bf16, rows 48, 304 and 1152 a
-rank at d = 2048, and the timed shapes) and of chained LL calls at n = 4
-and 8, for ``perf/compare_dumps.py``: the rings must stay bitwise across
-trees, and the LL gathers are the shards. Needs CUDA; exits non-zero
-without it.
+(the three rings and the one-shot at n = 2 and 4, f32 and bf16, rows 48,
+304 and 1152 a rank at d = 2048, and the timed shapes; the doubling at
+rows 4, 112 and 384) and of chained LL calls at n = 4 and 8, for
+``perf/compare_dumps.py``: the reductions must stay bitwise across trees,
+and the LL gathers are the shards. Needs CUDA; exits non-zero without it.
 """
 
 from __future__ import annotations
@@ -62,6 +69,17 @@ RS_TIMED = (
      (18, 36, 72, 132, 264)),
 )
 RS_CHECK_ROWS = (48, 304, 1152)
+# (name, method, n, rows a rank at d = 2048, blocks a rank to sweep)
+REDUCE_TIMED = (
+    ("reduce_scatter_one_shot", "ONE_SHOT", 2, 48,
+     (2, 6, 12, 18, 24, 30, 36, 48)),
+    ("reduce_scatter_one_shot", "ONE_SHOT", 4, 48, (5, 10, 21, 24, 30, 42)),
+    ("all_reduce_doubling", "DOUBLING", 2, 112, (7, 14, 28, 42, 56, 84,
+                                                 112)),
+    ("all_reduce_doubling", "DOUBLING", 4, 112, (7, 14, 28, 42, 56)),
+    ("all_reduce_doubling", "DOUBLING", 8, 112, (7, 14, 28, 33)),
+)
+AR_CHECK_ROWS = (4, 112, 384)
 LL_ROWS, LL_COLS, LL_RANKS = 8, 4096, (4, 8)
 LL_SWEEP = (1, 2, 4, 7, 14, 28, 56)
 
@@ -102,7 +120,9 @@ def main() -> int:
                       "nvidia_smi": limit.strip()}), flush=True)
     report = ptxas_report(ck, "collectives")
     print(json.dumps({"tag": tag, "rs_ring_builds": kernel_lines(
-        report, "rs_ring_kernel"), "ll_builds": kernel_lines(
+        report, "rs_ring_kernel"), "rs_one_shot_builds": kernel_lines(
+            report, "rs_one_shot_kernel"), "ar_doubling_builds": kernel_lines(
+            report, "ar_doubling_kernel"), "ll_builds": kernel_lines(
             report, "ll_ag_kernel")}), flush=True)
     dev = torch.device("cuda", 0)
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
@@ -150,6 +170,50 @@ def main() -> int:
                                      "PALLAS_RING_HBM": 3}[method], bf16) // n
             rec["by_blocks"] = {b: median_ms(lambda b=b: run(b), flush,
                                              args.iters)
+                                for b in sweep if b <= most}
+        emit(rec)
+
+    rsm = importlib.import_module(
+        "triton_distributed_tpu_torch.ops.collectives.reduce_scatter")
+    arm = importlib.import_module(
+        "triton_distributed_tpu_torch.ops.collectives.all_reduce")
+    for name, method, n, rows, sweep in REDUCE_TIMED:
+        ctx = initialize_distributed(n, device=dev, dtype=bf16)
+        xs = shards(n, rows, D)
+        shard = xs[0].numel() * 2
+        if name.startswith("reduce_scatter"):
+            m, plain = (col.ReduceScatterMethod[method],
+                        col.reduce_scatter_one_shot_plain)
+            launch, fam, kind = (col.reduce_scatter_kernel,
+                                 _launch.REDUCE_SCATTER, 0)
+            grid = rsm.scatter_grid(0, bf16, n, shard // n)
+            moved = n * shard + shard
+        else:
+            m, plain = (col.AllReduceMethod[method],
+                        col.all_reduce_doubling_plain)
+            launch, fam, kind = col.all_reduce_kernel, _launch.ALL_REDUCE, 1
+            grid = (arm.reduce_grid(1, bf16, n, shard)
+                    if hasattr(arm, "reduce_grid")
+                    else _launch.blocks(fam, kind, bf16, n, shard))
+            moved = 2 * n * shard
+
+        def run(bpr=None, m=m, xs=xs, ctx=ctx, launch=launch):
+            return launch(m, xs, ctx, blocks_per_rank=bpr)
+
+        got = run()
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, b) for a, b in zip(got, plain(xs)))
+        rec = {"name": name, "n": n, "shape": f"[{rows}, {D}] bf16 a rank",
+               "blocks": grid, "ms": median_ms(run, flush, args.iters),
+               "plain_ms": median_ms(lambda xs=xs, plain=plain: plain(xs),
+                                     flush, args.iters),
+               "library_ms": median_ms(
+                   lambda xs=xs: torch.stack(xs).sum(0), flush, args.iters),
+               "bound_ms": moved / HBM_BPS * 1e3, "bitwise_plain": same}
+        if not args.no_sweep:
+            most = _launch.capacity(fam, kind, bf16) // n
+            rec["by_blocks"] = {b: median_ms(lambda b=b, run=run: run(b),
+                                             flush, args.iters)
                                 for b in sweep if b <= most}
         emit(rec)
 
@@ -205,9 +269,9 @@ def main() -> int:
 
 
 def dump_outputs(dev, col, llm, initialize_distributed) -> dict:
-    """The three rings' outputs at the check and timed shapes (f32 and
-    bf16) and chained LL gathers at n = 4 and 8, at fixed seeded inputs,
-    copied to the host."""
+    """The three rings', the one-shot's and the doubling's outputs at the
+    check and timed shapes (f32 and bf16) and chained LL gathers at n = 4
+    and 8, at fixed seeded inputs, copied to the host."""
     import numpy as np
     import torch
 
@@ -230,6 +294,22 @@ def dump_outputs(dev, col, llm, initialize_distributed) -> dict:
                 torch.cuda.synchronize()
                 out[f"{name} {dt} n={n} [{rows}, {D}]"] = [
                     t.cpu() for t in got]
+    ones = [("reduce_scatter_one_shot", col.ReduceScatterMethod.ONE_SHOT,
+             col.reduce_scatter_kernel, RS_CHECK_ROWS, 48),
+            ("all_reduce_doubling", col.AllReduceMethod.DOUBLING,
+             col.all_reduce_kernel, AR_CHECK_ROWS, 112)]
+    for name, m, launch, check_rows, timed_rows in ones:
+        for dtype, dt in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+            for n in (2, 4):
+                for rows in (*check_rows, timed_rows):
+                    if name.startswith("reduce_scatter"):
+                        rows = -(-rows // (2 * n)) * 2 * n
+                    ctx = initialize_distributed(n, device=dev, dtype=dtype)
+                    xs = [rand((rows, D), dtype) for _ in range(n)]
+                    got = launch(m, xs, ctx)
+                    torch.cuda.synchronize()
+                    out[f"{name} {dt} n={n} [{rows}, {D}]"] = [
+                        t.cpu() for t in got]
     for n in LL_RANKS:
         ctx = initialize_distributed(n, device=dev, dtype=torch.bfloat16)
         ws = llm.ll_all_gather_workspace(ctx, LL_ROWS, LL_COLS,

@@ -444,6 +444,8 @@ def test_ring_grid_is_sized_to_the_bytes(monkeypatch, shard_bytes, n, want):
 
 trs = importlib.import_module(
     "triton_distributed_tpu_torch.ops.collectives.reduce_scatter")
+tar = importlib.import_module(
+    "triton_distributed_tpu_torch.ops.collectives.all_reduce")
 
 
 def _kernel_body(src: str, name: str) -> str:
@@ -462,16 +464,21 @@ def _device_fn(src: str, name: str) -> str:
     ("ag_ring_kernel", ("warp_put", "warp_signal", "warp_wait")),
     ("rs_ring_kernel", ("warp_add_put", "warp_signal", "warp_wait")),
     ("ll_ag_kernel", ("warp_copy_k", "warp_signal_k", "warp_wait_k")),
+    ("rs_one_shot_kernel", ("sub_piece_of", "warp_copy_k", "warp_signal_k",
+                            "warp_wait_k")),
+    ("ar_doubling_kernel", ("sub_piece_of", "warp_signal", "warp_wait")),
 ])
 def test_sub_piece_kernels_flag_a_warp_at_device_scope(kernel, helpers):
-    """The ring all-gathers, the ring reduce-scatters and the LL gather cut
-    a block's piece into ``kRingWarps`` sub-pieces (``_launch.RING_WARPS``,
-    held to the source above) and neither they nor the helpers they signal
-    and wait with hold a system-scope fence, release or acquire, a
-    block-wide flag or a barrier at system scope."""
+    """The ring all-gathers, the ring and one-shot reduce-scatters, the
+    doubling all-reduce and the LL gather cut a block's piece into
+    ``kRingWarps`` sub-pieces (``_launch.RING_WARPS``, held to the source
+    above) and neither they nor the helpers they cut, signal and wait with
+    hold a system-scope fence, release or acquire, a block-wide flag or a
+    barrier at system scope."""
     src = (tck.CSRC / "collectives.cu").read_text()
     body = _kernel_body(src, kernel)
-    assert "kRingWarps" in body
+    assert "kRingWarps" in body or "sub_piece_of(" in body
+    assert "kRingWarps" in _device_fn(src, "sub_piece_of")
     assert "tdt::barrier_all(" not in body
     for text in [body] + [_device_fn(src, h) for h in helpers]:
         text = text.replace("wait_until<false, true>(", "")
@@ -503,11 +510,60 @@ def _scatter_flag_indices(kind, n, blocks):
                                       (8, 132), (7, 3)])
 def test_scatter_ring_flags_sized_for_every_sub_piece(kind, n, blocks):
     """One flag a (direction, hop, block, warp), each distinct, all inside
-    ``scatter_flags``; the one-shot keeps one a (source, block)."""
+    ``scatter_flags``; the one-shot takes one a (source, block, warp)."""
     idx = _scatter_flag_indices(kind, n, blocks)
     assert len(set(idx)) == len(idx)
     assert max(idx) == trs.scatter_flags(kind, n, blocks) - 1
-    assert trs.scatter_flags(0, n, blocks) == n + n * blocks
+    assert trs.scatter_flags(0, n, blocks) == (
+        n + n * blocks * _launch.RING_WARPS)
+
+
+@pytest.mark.parametrize("n,blocks", [(2, 24), (3, 5), (4, 24), (5, 1),
+                                      (8, 16), (7, 3)])
+def test_one_shot_scatter_flags_one_a_sub_piece(n, blocks):
+    """``rs_one_shot_kernel``'s index, transcribed: the barrier's n, then
+    n + (src * G + g) * W + w, each distinct, filling ``scatter_flags(0,
+    ...)``; every flag a rank waits on is set by exactly one peer (its
+    source's warp of the same block)."""
+    w_n = _launch.RING_WARPS
+    idx = list(range(n))
+    setters = {}
+    for me in range(n):
+        for g in range(blocks):
+            for w in range(w_n):
+                for q in range(n - 1):
+                    peer = (me + 1 + q) % n
+                    f = n + (me * blocks + g) * w_n + w
+                    setters.setdefault((peer, f), []).append(me)
+    for src in range(n):
+        for g in range(blocks):
+            for w in range(w_n):
+                idx.append(n + (src * blocks + g) * w_n + w)
+    assert sorted(idx) == list(range(trs.scatter_flags(0, n, blocks)))
+    assert all(len(v) == 1 for v in setters.values())
+    assert len(setters) == n * (n - 1) * blocks * w_n
+
+
+@pytest.mark.parametrize("n,blocks", [(2, 28), (4, 28), (8, 33), (2, 1),
+                                      (8, 132)])
+def test_doubling_flags_one_a_round_and_sub_piece(n, blocks):
+    """``ar_doubling_kernel``'s index, transcribed: the barrier's n, then
+    n + (k * G + g) * W + w for round k of log2 n, each distinct, filling
+    ``reduce_flags(1, ...)``; round k's flag on a rank is set by its one
+    partner me ^ 2^k, and the one-shot all-reduce keeps one a (source,
+    block)."""
+    w_n, lg = _launch.RING_WARPS, n.bit_length() - 1
+    idx = list(range(n))
+    for k in range(lg):
+        for g in range(blocks):
+            for w in range(w_n):
+                idx.append(n + (k * blocks + g) * w_n + w)
+    assert sorted(idx) == list(range(tar.reduce_flags(1, n, blocks)))
+    for k in range(lg):
+        partners = [me ^ (1 << k) for me in range(n)]
+        assert sorted(partners) == list(range(n))
+        assert all(p != me for me, p in enumerate(partners))
+    assert tar.reduce_flags(0, n, blocks) == n + n * blocks
 
 
 @pytest.mark.parametrize("n,blocks", [(2, 1), (4, 28), (8, 60), (3, 7)])
@@ -540,18 +596,43 @@ def test_ll_flags_one_a_sub_piece(n, blocks):
     (1, 2, 300, torch.bfloat16, 38),    # the ring's
     (3, 2, 1152, torch.bfloat16, 132),  # the HBM ring's: one block an SM
     (1, 4, 32, torch.float32, 4),       # the stress shape
-    (0, 2, 48, torch.bfloat16, 2),      # the one-shot keeps 64 KB a block
+    (0, 2, 48, torch.bfloat16, 24),     # the one-shot's timed chunk
+    (0, 4, 48, torch.bfloat16, 24),     # the one-shot at n = 4
+    (0, 2, 4, torch.float32, 4),        # a 16 KB chunk: four of work
 ])
 def test_scatter_grid_is_sized_to_the_bytes(monkeypatch, kind, n, rows,
                                             dtype, want):
     """The rings take ~RING_BLOCK_BYTES of a chunk a block (both
-    directions' rows), at most what stays co-resident over n ranks and
-    MAX_BLOCKS; an explicit grid passes through."""
+    directions' rows), the one-shot ~RING_BLOCK_BYTES of its 2n chunks of
+    work (n read, n - 1 of them pushed out, n summed), at most what stays
+    co-resident over n ranks and MAX_BLOCKS; an explicit grid passes
+    through."""
     monkeypatch.setitem(_launch._capacity,
                         (_launch.REDUCE_SCATTER, kind, dtype), 1056)
     chunk = rows // n * 2048 * torch.empty((), dtype=dtype).element_size()
     assert trs.scatter_grid(kind, dtype, n, chunk) == want
     assert trs.scatter_grid(kind, dtype, n, chunk, 5) == 5
+
+
+@pytest.mark.parametrize("kind,n,rows,cap,want", [
+    (1, 2, 112, 1056, 28),   # the doubling's timed [112, 2048] bf16
+    (1, 4, 112, 1056, 28),
+    (1, 8, 256, 1056, 64),   # 1 MB, the AUTO's doubling limit
+    (1, 8, 256, 264, 33),    # capped: two blocks an SM over 8 ranks
+    (1, 2, 4, 1056, 1),
+    (0, 2, 4, 1056, 1),      # the one-shot all-reduce keeps 64 KB a block
+    (0, 2, 112, 1056, 7),
+])
+def test_reduce_grid_is_sized_to_the_bytes(monkeypatch, kind, n, rows, cap,
+                                           want):
+    """The doubling takes ~RING_BLOCK_BYTES of x a block, the one-shot
+    ~BLOCK_BYTES, at most what stays co-resident over n ranks; an explicit
+    grid passes through."""
+    monkeypatch.setitem(_launch._capacity,
+                        (_launch.ALL_REDUCE, kind, torch.bfloat16), cap)
+    nbytes = rows * 2048 * 2
+    assert tar.reduce_grid(kind, torch.bfloat16, n, nbytes) == want
+    assert tar.reduce_grid(kind, torch.bfloat16, n, nbytes, 5) == 5
 
 
 @pytest.mark.parametrize("n,want", [(4, 28), (8, 60), (2, 12)])

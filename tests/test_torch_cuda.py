@@ -3737,6 +3737,47 @@ def test_reduce_scatter_rings_chained_bitwise(dev, name, n, dtype):
         assert _bits_equal(got, default), g
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name,n", [("reduce_scatter_one_shot", 2),
+                                    ("reduce_scatter_one_shot", 3),
+                                    ("reduce_scatter_one_shot", 4),
+                                    ("all_reduce_doubling", 2),
+                                    ("all_reduce_doubling", 4),
+                                    ("all_reduce_doubling", 8)])
+def test_one_shot_rs_and_doubling_chained_bitwise(dev, name, n, dtype):
+    """100 launches back to back on one flag site, fresh inputs each, every
+    output bitwise its plain version (the one-shot's source order, the
+    doubling's rounded partner sums); then one launch at every grid from 1
+    block a rank to the most that stays co-resident, each bitwise the
+    default grid's. Rows of 1032 elements (38-row chunks, 37 rows) give
+    pieces and warp sub-pieces of unequal vectors; the doubling's sub-pieces
+    fit one stripe at the default grid (the running sum held in registers)
+    and not at the smallest grids (rebuilt stripe by stripe)."""
+    from triton_distributed_tpu_torch.ops.collectives import _launch
+
+    fn, plain, counter = _coll(name)
+    fam, kind = ((_launch.REDUCE_SCATTER, 0) if name.startswith("reduce")
+                 else (_launch.ALL_REDUCE, 1))
+    ctx = _ctx(dev, n, dtype)
+    rows = n * 38 if fam == _launch.REDUCE_SCATTER else 37
+    xs = _shards(dev, n, (rows, 1032), dtype, 40 + n)
+    kept = []
+    before = counter.launches
+    for i in range(100):
+        xs = [x + 1 for x in xs]
+        kept.append((xs, fn(xs, ctx)))
+    torch.cuda.synchronize()
+    assert counter.launches == before + 100
+    for xs_i, got in kept:
+        assert _bits_equal(got, plain(xs_i))
+    default = kept[-1][1]
+    most = _launch.capacity(fam, kind, dtype) // n
+    grids = [(g, fn(xs, ctx, blocks_per_rank=g)) for g in range(1, most + 1)]
+    torch.cuda.synchronize()
+    for g, got in grids:
+        assert _bits_equal(got, default), g
+
+
 @pytest.mark.parametrize("shape,dtype", MOVE_SHAPES)
 @pytest.mark.parametrize("n", [2, 4, 8])
 def test_pp_shift_kernel_bitwise_plain(dev, n, shape, dtype):

@@ -26,8 +26,9 @@
 //   and rounds once, so the ranks come out bitwise equal;
 // - AR doubling: log2 n rounds; in round k a rank sends its running f32 sum
 //   rounded to the dtype to partner me ^ 2^k and adds the partner's rounded
-//   value to its own unrounded f32 sum (the sum is rebuilt from x and the
-//   received values, in the same order, instead of being held);
+//   value to its own unrounded f32 sum (held in registers, or, where a
+//   warp's sub-piece outgrows them, rebuilt from x and the received values
+//   in the same order);
 // - RS one-shot: the n contributions to the own chunk, f32 in source-rank
 //   order, rounded once;
 // - RS rings (single, bidirectional, HBM-tiled): the running sum is rounded
@@ -42,13 +43,14 @@
 // epoch flags of tdt_comm.cuh. Block g of every rank owns piece g of each
 // chunk, so a block only ever waits for block g of its peers: flag (step,
 // piece) per rank, set by the one peer that writes that piece of that step.
-// The ring all-gathers, the ring reduce-scatters and the low-latency
-// gather cut a piece further, one flagged sub-piece a warp, and keep every
-// flag and their entry barrier at device scope: their time is flag
-// latency, not bytes (a device-scope round trip took 1.5 us on an H100
-// against 3.8 at system scope, and a __threadfence_system() 2.2,
-// perf/flag_latency.cu), and device scope is right because one launch
-// covers every rank and every rank is on this card. The other kernels
+// The ring all-gathers, the ring and one-shot reduce-scatters, the
+// doubling all-reduce and the low-latency gather cut a piece further, one
+// flagged sub-piece a warp, and keep every flag and their entry barrier at
+// device scope: their time is flag latency, not bytes (a device-scope
+// round trip took 1.5 us on an H100 against 3.8 at system scope, and a
+// __threadfence_system() 2.2, perf/flag_latency.cu), and device scope is
+// right because one launch covers every rank and every rank is on this
+// card. Their grids are sized to the work (~16 KB a block). The other kernels
 // keep tdt_comm.cuh's system scope: right here too, only slower, and what
 // one launch a rank on separate cards needs; they move to device scope as
 // each is redesigned, and separate cards would bring every kernel back to
@@ -279,6 +281,70 @@ __device__ __forceinline__ void warp_wait(const uint64_t* flag,
   __syncwarp();
 }
 
+// The warp copies k ranges of `len` bytes, range q from src(q) to dst(q),
+// its lanes spread over all k ranges at once (the n - 1 peers of a push go
+// out together): 16-byte vectors, four in flight a lane, when `vec` (every
+// range 16-byte aligned), else bytes; every read through L2 (a peer may
+// have written it in this launch).
+template <typename Src, typename Dst>
+__device__ __forceinline__ void warp_copy_k(int k, long long len, bool vec,
+                                            Src src, Dst dst) {
+  const int lane = threadIdx.x % 32;
+  if (!vec) {
+    for (long long i = lane; i < k * len; i += 32) {
+      const int q = static_cast<int>(i / len);
+      dst(q)[i - q * len] = __ldcg(src(q) + (i - q * len));
+    }
+    return;
+  }
+  const long long nv = len / 16, total = k * nv;
+  auto at = [&](long long i, int& q) {
+    q = static_cast<int>(i / nv);
+    return i - q * nv;
+  };
+  long long i = lane;
+  for (; i + 96 < total; i += 128) {
+    uint4 u[4];
+    int q[4];
+    long long v[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      v[j] = at(i + 32 * j, q[j]);
+      u[j] = __ldcg(reinterpret_cast<const uint4*>(src(q[j])) + v[j]);
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      reinterpret_cast<uint4*>(dst(q[j]))[v[j]] = u[j];
+  }
+  for (; i < total; i += 32) {
+    int q;
+    const long long v = at(i, q);
+    reinterpret_cast<uint4*>(dst(q))[v] =
+        __ldcg(reinterpret_cast<const uint4*>(src(q)) + v);
+  }
+}
+
+// Lanes 0 .. k - 1 of the warp each release flag(q) at device scope once
+// the warp's writes (all lanes) are done.
+template <typename F>
+__device__ __forceinline__ void warp_signal_k(int k, F flag, uint64_t v) {
+  __syncwarp();
+  const int lane = threadIdx.x % 32;
+  if (lane < k) {
+    __threadfence();
+    tdt::st_release_gpu(flag(lane), v);
+  }
+}
+
+// Lanes 0 .. k - 1 each acquire flag(q) >= v at device scope, at once;
+// then the warp goes on.
+template <typename F>
+__device__ __forceinline__ void warp_wait_k(int k, F flag, uint64_t v) {
+  const int lane = threadIdx.x % 32;
+  if (lane < k) tdt::wait_until<false, true>(flag(lane), v);
+  __syncwarp();
+}
+
 // Ring (kBidir false) and bidirectional ring. At step s a rank forwards the
 // shard of rank me - s (its own at s = 0) to the right; in the bidir ring
 // the bytes from half_bytes on go left instead (the shard of rank me + s).
@@ -333,55 +399,97 @@ ag_ring_kernel(RankPtrs X, RankPtrs O, const int64_t* fl_tab,
 
 // ---- reduce-scatter --------------------------------------------------------
 
+// [lo, hi) of warp w's sub-piece of block g's piece of `count` vectors:
+// one flagged sub-piece a warp, kRingWarps of them a block.
+__device__ __forceinline__ void sub_piece_of(long long count, int g, int G,
+                                             int w, long long& lo,
+                                             long long& hi) {
+  long long plo, phi;
+  piece_of(count, g, G, plo, phi);
+  piece_of(phi - plo, w, kRingWarps, lo, hi);
+  lo += plo;
+  hi += plo;
+}
+
+// Vectors a lane holds in registers in the one-shot's sum and the
+// doubling's running sum (a stripe is 32 x kHeld vectors of a warp).
+constexpr int kHeld = 4;
+
 // One-shot: chunk p of x goes to slot me of rank p's workspace; each rank
 // sums its n slots (its own chunk read from x) in f32 in source order.
-// Units: 16-byte vectors; cnt is the chunk. Flags: n + src * G + g.
+// Units: 16-byte vectors; cnt is the chunk. Block g owns piece g of the
+// chunk, cut into one flagged sub-piece a warp (kRingWarps of them), and
+// each warp runs the whole exchange for its sub-piece on its own flags:
+// its first vectors of the own chunk load before anything else, it pushes
+// chunk p's sub-piece into the n - 1 peers' slot me in one pass over all
+// lanes, releases their arrival flags (a lane a peer), waits the n - 1
+// arrivals (a lane each) and sums x's and the slots' vectors (ld.cg) in
+// source order. One launch covers every rank, so every flag and the entry
+// barrier are device scope. Flags of rank r: [0, n) the barrier, then
+// n + (src * G + g) * W + w: src's sub-piece (g, w) arrived.
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 rs_one_shot_kernel(RankPtrs X, RankPtrs O, const int64_t* ws_tab,
                    const int64_t* fl_tab, long long cnt, long long /*half*/,
                    int n, uint64_t epoch, int lag_rank, long long lag_ns) {
-  constexpr int N = Lanes<T>::N;
+  constexpr int N = Lanes<T>::N, W = kRingWarps, U = kHeld;
   const int me = blockIdx.y, g = blockIdx.x, G = gridDim.x;
-  long long lo, hi;
-  piece_of(cnt, g, G, lo, hi);
-  const T* x = tdt::rank_ptr<const T>(X, me);
-  tdt::barrier_all(fl_tab, me, n, epoch, g == 0);
+  const int w = threadIdx.x / 32, lane = threadIdx.x % 32;
+  long long slo, shi;
+  sub_piece_of(cnt, g, G, w, slo, shi);
+  const long long sub = static_cast<long long>(g) * W + w;
+  auto arr = [&](int src) {
+    return n + static_cast<long long>(src) * G * W + sub;
+  };
+  auto peer = [&](int q) { return (me + 1 + q) % n; };
+  const uint4* x = tdt::rank_ptr<const uint4>(X, me);
+  const uint4* xo = x + me * cnt;
+  const uint4* ws = tdt::symm_ptr<const uint4>(ws_tab, me);
+
+  long long v = slo + lane;
+  uint4 a[U];
+#pragma unroll
+  for (int u = 0; u < U; ++u)
+    if (v + 32 * u < shi) a[u] = xo[v + 32 * u];
+  tdt::barrier_all<false, true>(fl_tab, me, n, epoch, g == 0);
   straggle(me, lag_rank, lag_ns);
-  for (int p = 1; p < n; ++p) {
-    const int dst = (me + p) % n;
-    const uint4* src = reinterpret_cast<const uint4*>(x) + dst * cnt;
-    uint4* slot = reinterpret_cast<uint4*>(tdt::symm_ptr<T>(ws_tab, dst)) +
-                  me * cnt;
-    for (long long v = lo + threadIdx.x; v < hi; v += blockDim.x)
-      slot[v] = src[v];
-  }
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    __threadfence_system();
-    for (int p = 1; p < n; ++p)
-      tdt::st_release_sys(flag_at(fl_tab, (me + p) % n, n + me * G + g),
-                          epoch);
-    for (int p = 1; p < n; ++p)
-      tdt::wait_until(flag_at(fl_tab, me, n + ((me + p) % n) * G + g),
-                      epoch);
-  }
-  __syncthreads();
-  const T* ws = tdt::symm_ptr<const T>(ws_tab, me);
+  warp_copy_k(n - 1, (shi - slo) * 16, true, [&](int q) {
+    return reinterpret_cast<const char*>(x + peer(q) * cnt + slo);
+  }, [&](int q) {
+    return reinterpret_cast<char*>(tdt::symm_ptr<uint4>(ws_tab, peer(q)) +
+                                   me * cnt + slo);
+  });
+  warp_signal_k(n - 1, [&](int q) {
+    return flag_at(fl_tab, peer(q), arr(me));
+  }, epoch);
+  warp_wait_k(n - 1, [&](int q) {
+    return flag_at(fl_tab, me, arr(peer(q)));
+  }, epoch);
+
   T* o = tdt::rank_ptr<T>(O, me);
-  for (long long v = lo + threadIdx.x; v < hi; v += blockDim.x) {
-    float acc[N];
-    if (me == 0)
-      load<T, false>(x, me * cnt + v, acc);
-    else
-      load<T, true>(ws, v, acc);
-    for (int src = 1; src < n; ++src) {
-      if (src == me)
-        add<T, false>(x, me * cnt + v, acc);
-      else
-        add<T, true>(ws, src * cnt + v, acc);
+  for (; v < shi; v += 32 * U) {
+    float acc[U][N];
+    for (int src = 0; src < n; ++src) {
+      uint4 b[U];
+#pragma unroll
+      for (int u = 0; u < U; ++u)
+        if (v + 32 * u < shi)
+          b[u] = src == me ? a[u] : __ldcg(ws + src * cnt + v + 32 * u);
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        if (v + 32 * u >= shi) continue;
+        const T* e = reinterpret_cast<const T*>(&b[u]);
+#pragma unroll
+        for (int i = 0; i < N; ++i)
+          acc[u][i] = src == 0 ? to_f32(e[i]) : acc[u][i] + to_f32(e[i]);
+      }
     }
-    store<T>(o, v, acc);
+#pragma unroll
+    for (int u = 0; u < U; ++u)
+      if (v + 32 * u < shi) store<T>(o, v + 32 * u, acc[u]);
+#pragma unroll
+    for (int u = 0; u < U; ++u)
+      if (v + 32 * (U + u) < shi) a[u] = xo[v + 32 * (U + u)];
   }
 }
 
@@ -539,40 +647,75 @@ ar_one_shot_kernel(RankPtrs X, RankPtrs O, const int64_t* ws_tab,
 // Recursive doubling (n a power of two): in round k the running sum
 // x + r_0 + ... + r_{k-1} (f32, in that order) rounded to T goes to slot k
 // of partner me ^ 2^k; the output is x + r_0 + ... + r_{lg-1} rounded.
-// Flags: n + k * G + g (set by round k's partner).
+// Block g owns piece g of x, cut into one flagged sub-piece a warp
+// (kRingWarps of them), and each sub-piece runs its lg rounds at its own
+// pace: the warp stores its rounded running sum into the partner's slot k,
+// releases the partner's flag (k, g, w), acquires its own and adds the
+// received slot (ld.cg). A sub-piece of at most one stripe (32 x kHeld
+// vectors) keeps its running sum in registers across the rounds; a larger
+// one (a grid capped below the bytes) is walked in stripes, each rebuilt
+// from x and the slots received so far in the same order, so both give
+// the same bits. Every flag and the entry barrier are device scope (one
+// launch covers every rank). Flags of rank r: [0, n) the barrier, then
+// n + (k * G + g) * W + w, set by round k's partner.
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 ar_doubling_kernel(RankPtrs X, RankPtrs O, const int64_t* ws_tab,
                    const int64_t* fl_tab, long long numel, int n,
                    uint64_t epoch, int lag_rank, long long lag_ns) {
-  constexpr int N = Lanes<T>::N;
+  constexpr int N = Lanes<T>::N, W = kRingWarps, U = kHeld;
   const int me = blockIdx.y, g = blockIdx.x, G = gridDim.x;
+  const int w = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int lg = 31 - __clz(n);
-  long long lo, hi;
-  piece_of(numel, g, G, lo, hi);
+  long long slo, shi;
+  sub_piece_of(numel, g, G, w, slo, shi);
+  const bool held = shi - slo <= 32 * U;
+  auto flag = [&](int k) {
+    return n + (static_cast<long long>(k) * G + g) * W + w;
+  };
   const T* x = tdt::rank_ptr<const T>(X, me);
   const T* ws = tdt::symm_ptr<const T>(ws_tab, me);
-  tdt::barrier_all(fl_tab, me, n, epoch, g == 0);
-  straggle(me, lag_rank, lag_ns);
+  float acc[U][N];
+  // acc = x + r_0 + ... + r_{k-1} over the lane's vectors of the stripe
+  // at v (v + 32u), in that order.
+  auto build = [&](long long v, int k) {
+#pragma unroll
+    for (int u = 0; u < U; ++u)
+      if (v + 32 * u < shi) load<T, false>(x, v + 32 * u, acc[u]);
+    for (int j = 0; j < k; ++j) {
+#pragma unroll
+      for (int u = 0; u < U; ++u)
+        if (v + 32 * u < shi) add<T, true>(ws, j * numel + v + 32 * u, acc[u]);
+    }
+  };
 
+  if (held) build(slo + lane, 0);
+  tdt::barrier_all<false, true>(fl_tab, me, n, epoch, g == 0);
+  straggle(me, lag_rank, lag_ns);
   for (int k = 0; k < lg; ++k) {
     const int partner = me ^ (1 << k);
     T* dst = tdt::symm_ptr<T>(ws_tab, partner);
-    for (long long v = lo + threadIdx.x; v < hi; v += blockDim.x) {
-      float acc[N];
-      load<T, false>(x, v, acc);
-      for (int j = 0; j < k; ++j) add<T, true>(ws, j * numel + v, acc);
-      store<T>(dst, k * numel + v, acc);
+    for (long long v = slo + lane; v - lane < shi; v += 32 * U) {
+      if (!held) build(v, k);
+#pragma unroll
+      for (int u = 0; u < U; ++u)
+        if (v + 32 * u < shi) store<T>(dst, k * numel + v + 32 * u, acc[u]);
     }
-    block_signal(flag_at(fl_tab, partner, n + k * G + g), epoch);
-    block_wait(flag_at(fl_tab, me, n + k * G + g), epoch);
+    warp_signal(flag_at(fl_tab, partner, flag(k)), epoch);
+    warp_wait(flag_at(fl_tab, me, flag(k)), epoch);
+    if (held) {
+#pragma unroll
+      for (int u = 0; u < U; ++u)
+        if (slo + lane + 32 * u < shi)
+          add<T, true>(ws, k * numel + slo + lane + 32 * u, acc[u]);
+    }
   }
   T* o = tdt::rank_ptr<T>(O, me);
-  for (long long v = lo + threadIdx.x; v < hi; v += blockDim.x) {
-    float acc[N];
-    load<T, false>(x, v, acc);
-    for (int j = 0; j < lg; ++j) add<T, true>(ws, j * numel + v, acc);
-    store<T>(o, v, acc);
+  for (long long v = slo + lane; v - lane < shi; v += 32 * U) {
+    if (!held) build(v, lg);
+#pragma unroll
+    for (int u = 0; u < U; ++u)
+      if (v + 32 * u < shi) store<T>(o, v + 32 * u, acc[u]);
   }
 }
 
@@ -735,70 +878,6 @@ torus_kernel(RankPtrs X, RankPtrs O, const int64_t* fl_tab, long long bytes,
         tdt::wait_until(
             flag_at(fl_tab, me, n + (((mx + p) % nx) * ny + t) * G + g),
             epoch);
-}
-
-// The warp copies k ranges of `len` bytes, range q from src(q) to dst(q),
-// its lanes spread over all k ranges at once (the n - 1 peers of a push go
-// out together): 16-byte vectors, four in flight a lane, when `vec` (every
-// range 16-byte aligned), else bytes; every read through L2 (a peer may
-// have written it in this launch).
-template <typename Src, typename Dst>
-__device__ __forceinline__ void warp_copy_k(int k, long long len, bool vec,
-                                            Src src, Dst dst) {
-  const int lane = threadIdx.x % 32;
-  if (!vec) {
-    for (long long i = lane; i < k * len; i += 32) {
-      const int q = static_cast<int>(i / len);
-      dst(q)[i - q * len] = __ldcg(src(q) + (i - q * len));
-    }
-    return;
-  }
-  const long long nv = len / 16, total = k * nv;
-  auto at = [&](long long i, int& q) {
-    q = static_cast<int>(i / nv);
-    return i - q * nv;
-  };
-  long long i = lane;
-  for (; i + 96 < total; i += 128) {
-    uint4 u[4];
-    int q[4];
-    long long v[4];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      v[j] = at(i + 32 * j, q[j]);
-      u[j] = __ldcg(reinterpret_cast<const uint4*>(src(q[j])) + v[j]);
-    }
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      reinterpret_cast<uint4*>(dst(q[j]))[v[j]] = u[j];
-  }
-  for (; i < total; i += 32) {
-    int q;
-    const long long v = at(i, q);
-    reinterpret_cast<uint4*>(dst(q))[v] =
-        __ldcg(reinterpret_cast<const uint4*>(src(q)) + v);
-  }
-}
-
-// Lanes 0 .. k - 1 of the warp each release flag(q) at device scope once
-// the warp's writes (all lanes) are done.
-template <typename F>
-__device__ __forceinline__ void warp_signal_k(int k, F flag, uint64_t v) {
-  __syncwarp();
-  const int lane = threadIdx.x % 32;
-  if (lane < k) {
-    __threadfence();
-    tdt::st_release_gpu(flag(lane), v);
-  }
-}
-
-// Lanes 0 .. k - 1 each acquire flag(q) >= v at device scope, at once;
-// then the warp goes on.
-template <typename F>
-__device__ __forceinline__ void warp_wait_k(int k, F flag, uint64_t v) {
-  const int lane = threadIdx.x % 32;
-  if (lane < k) tdt::wait_until<false, true>(flag(lane), v);
-  __syncwarp();
 }
 
 // Low-latency gather (low_latency.py _ll_ag_kernel) over the persistent

@@ -18,8 +18,9 @@
 // cards); a block publishes its threads' writes with __syncthreads, then
 // thread 0 fences at system scope and stores the flag (the cooperative
 // groups grid-barrier pattern). gemm_ar, the ring all-gathers, the ring
-// reduce-scatters and the low-latency gather take device scope instead
-// (see st_release_gpu). Data a peer wrote is read with ld.cg (L2, never a
+// and one-shot reduce-scatters, the doubling all-reduce and the
+// low-latency gather take device scope instead (see st_release_gpu).
+// Data a peer wrote is read with ld.cg (L2, never a
 // stale L1 line of an earlier launch).
 //
 // Every wait traps after kWaitTimeoutNs: a lost block or a protocol
@@ -178,8 +179,8 @@ __device__ __forceinline__ void put_signal(void* dst, const void* src,
 // it is what separate launches per rank will need. kGpu: the same at
 // device scope (__threadfence, st.release.gpu, ld.acquire.gpu), for a
 // kernel whose one launch covers every rank on one card (the ring
-// all-gathers and reduce-scatters, the low-latency gather's variant with
-// a barrier).
+// all-gathers, the ring and one-shot reduce-scatters, the doubling
+// all-reduce, the low-latency gather's variant with a barrier).
 template <bool kQuiet = false, bool kGpu = false>
 __device__ __forceinline__ void barrier_all(const int64_t* flag_tab, int me,
                                             int n, uint64_t epoch,

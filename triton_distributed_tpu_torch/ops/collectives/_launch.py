@@ -20,7 +20,8 @@ SHIFT, BROADCAST, PULL, TORUS = 0, 1, 2, 3
 BLOCK_BYTES = 64 << 10
 # The block of the kernels that flag one sub-piece a warp (8 a block): the
 # ring all-gathers and reduce-scatters (~2 KB a warp and hop, so a hop is a
-# few round trips of a warp's loads) and the low-latency gather.
+# few round trips of a warp's loads), the one-shot reduce-scatter, the
+# doubling all-reduce and the low-latency gather.
 RING_BLOCK_BYTES = 16 << 10
 RING_WARPS = 8  # csrc/collectives.cu kRingWarps
 MAX_BLOCKS = 132

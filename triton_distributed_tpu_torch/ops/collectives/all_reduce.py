@@ -11,7 +11,9 @@ Counterpart of ``triton_distributed_tpu/ops/collectives/all_reduce.py``:
   rounds; in round k a rank sends its running f32 sum rounded to the
   dtype to partner ``me ^ 2^k`` and adds the partner's rounded value to
   its own unrounded sum (:138-146), so at n = 4 the ranks may differ by
-  an ulp;
+  an ulp. On the card each warp runs the rounds for its own sub-piece on
+  its own device-scope flags, its running sum in registers, over a grid
+  of ~``_launch.RING_BLOCK_BYTES`` of x a block (:func:`reduce_grid`);
 - ``TWO_SHOT`` (:249-275): ``reduce_scatter`` (BIDIR_RING up to 4 MB,
   else RING_HBM) then ``all_gather`` (BIDIR_RING); both legs demote to
   their single rings at n <= 2.
@@ -116,6 +118,25 @@ def all_reduce_doubling_plain(xs: list[torch.Tensor]) -> list[torch.Tensor]:
     return [a.to(xs[0].dtype) for a in accs]
 
 
+def reduce_flags(kind: int, n: int, blocks: int) -> int:
+    """Flags a rank of an all-reduce launch of C ``kind`` over ``blocks`` a
+    rank: the barrier's ``n``, then the one-shot's one a (source, block),
+    or the doubling's one a (round, block, warp): each block's piece is
+    ``RING_WARPS`` flagged sub-pieces."""
+    if kind == 0:
+        return n + n * blocks
+    return n + (n.bit_length() - 1) * blocks * _launch.RING_WARPS
+
+
+def reduce_grid(kind: int, dtype: torch.dtype, n: int, nbytes: int,
+                blocks_per_rank: int | None = None) -> int:
+    """Blocks a rank of C ``kind`` (``_launch.blocks``): ~BLOCK_BYTES of x a
+    block for the one-shot, ~RING_BLOCK_BYTES for the doubling."""
+    return _launch.blocks(
+        _launch.ALL_REDUCE, kind, dtype, n, nbytes, blocks_per_rank,
+        _launch.BLOCK_BYTES if kind == 0 else _launch.RING_BLOCK_BYTES)
+
+
 def all_reduce_kernel(method: AllReduceMethod, xs, ctx, *,
                       blocks_per_rank: int | None = None,
                       lag: tuple = (-1, 0)) -> list[torch.Tensor]:
@@ -127,11 +148,11 @@ def all_reduce_kernel(method: AllReduceMethod, xs, ctx, *,
     numel = x0.numel()
     out = torch.empty((n, *x0.shape), dtype=x0.dtype, device=ctx.device)
     outs = [out[r] for r in range(n)]
-    blocks = _launch.blocks(_launch.ALL_REDUCE, kind, x0.dtype, n,
-                            numel * x0.element_size(), blocks_per_rank)
+    blocks = reduce_grid(kind, x0.dtype, n, numel * x0.element_size(),
+                         blocks_per_rank)
     slots = n if kind == 0 else n.bit_length() - 1
     ws = ctx.workspace(site, (slots, numel), x0.dtype)
-    fs = site_flags(ctx, site, n + max(n, slots) * blocks)
+    fs = site_flags(ctx, site, reduce_flags(kind, n, blocks))
     kernel(kind, ck.DTYPE_CODES[x0.dtype], rank_ptrs(xs), rank_ptrs(outs),
            ws.table.data_ptr(), fs.flags.table.data_ptr(), n, numel,
            next_epoch(fs), int(blocks), lag[0], lag[1], ck.stream_ptr(x0))
